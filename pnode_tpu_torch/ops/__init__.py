@@ -1,0 +1,9 @@
+"""Hand-written Hopper kernels (csrc/*.cu) with their plain PyTorch versions.
+
+- ``fused_mlp``: K1, the whole MLP stack, forward and backward.
+- ``fused_ark_forward``: K2, one whole ARK-IMEX forward step.
+- ``fused_ark_adjoint``: K3, one whole stage-exact reverse step.
+
+Each wrapper launches its kernel for CUDA tensors (counting the launch in
+its ``launches`` attribute) and runs the plain version for CPU tensors.
+"""
