@@ -20,7 +20,12 @@ exits non-zero without printing the final line):
    / max |ref|) against the fp32 plain version (<= 1e-5 forward outputs,
    <= 1e-4 gradients and lam_prev) and against the plain version in
    float64 (<= 1e-4); median per-call times of kernel and plain version
-   over CUDA events (30 samples of 10 back-to-back calls each).
+   over CUDA events (30 samples of 10 back-to-back calls each). Then K4,
+   the fused training loop, against fused_train_loop_plain on K = 8
+   distinct KS minibatches (Adam lr 5e-3) at the main path's shapes, at
+   the ragged size (chunk=8) and at a batch whose row tiles outnumber the
+   co-resident blocks, and K = 16 as two chunks of 8 against one launch
+   (check_loop says how it gates); per-iteration times in turns.
 4. The slice: KS SINODE training through ODESolver.odeint_adjoint at full
    width, batch 256, torch.optim.Adam at lr 5e-3, on KS data from the
    port's generator. (a) 4 Adam iterations on the kernel path against the
@@ -31,7 +36,14 @@ exits non-zero without printing the final line):
    finite losses, mean of the last 20 below the mean of the first 20;
    steps/s of the kernel path and of the plain path (the nn.Linear model
    on the generic loop, no kernels). Every kernel's launch count over
-   phase 4 must be above 0.
+   (a) + (b) must be above 0. (c) The fused-loop path of
+   examples/ks_torch.py --fused_loop (K4) from the same weights and
+   batches: its first 4 iterations against (a)'s per-step kernel path in
+   (a)'s form; a traced call of 20 iterations (the device's busy share);
+   then 200 iterations as a warm launch of 20 and a timed
+   launch of 180: finite losses, the last 20 below the first 20 and
+   within 10% of (b)'s, steps/s beside (b)'s; K4's launch count over the
+   200 iterations must be above 0.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -63,6 +75,8 @@ KERNELS = {
                            "pnode_tpu/ops/fused_ark_forward.py:53"),
     "fused_ark_step_adj": ("cuda", "pnode_tpu_torch/csrc/fused_ark_adjoint.cu",
                            "pnode_tpu/ops/fused_ark_adjoint.py:304"),
+    "fused_train_loop": ("cuda", "pnode_tpu_torch/csrc/fused_train_loop.cu",
+                         "pnode_tpu/ops/fused_train_loop.py:284"),
 }
 
 
@@ -110,9 +124,9 @@ def cuda_times_ms(fn, reps=30, warmup=5, inner=10):
 
 
 def summary(times):
-    """(median, p66): p66 is the highest percentile with 10 of the 30
-    samples beyond it."""
-    return statistics.median(times), times[len(times) - 11]
+    """(median, p66) of sorted samples: p66 is the highest percentile with
+    a third of the samples beyond it (10 of 30)."""
+    return statistics.median(times), times[len(times) - 1 - len(times) // 3]
 
 
 # -- phase 1 and 2 ------------------------------------------------------------
@@ -139,6 +153,7 @@ def phase_device():
 def phase_build():
     from pnode_tpu_torch.ops import _build
     from pnode_tpu_torch.ops.fused_ark_adjoint import _smem_bytes
+    from pnode_tpu_torch.ops.fused_train_loop import _loop_smem_bytes
 
     t0 = time.perf_counter()
     lib = _build.library()
@@ -155,12 +170,34 @@ def phase_build():
         dims = [d] + layers
         fwd = lib.pnode_ark_fwd_smem(d, s, max(dims))
         adj = lib.pnode_ark_adj_smem(d, s, max(dims), 8 * sum(dims[:-1]))
-        if (fwd, adj) != (_smem_bytes(d, layers, s, False),
-                          _smem_bytes(d, layers, s, True)):
-            raise AssertionError(f"fused_ark_fits disagrees with the kernels' "
-                                 f"shared memory ({fwd}, {adj}) at d={d}")
-        log(f"[build] step kernels' shared memory at d={d}, s={s}: "
-            f"forward {fwd} B, reverse {adj} B")
+        loop = lib.pnode_train_loop_smem(d, s, max(dims), 8 * sum(dims[:-1]))
+        if (fwd, adj, loop) != (_smem_bytes(d, layers, s, False),
+                                _smem_bytes(d, layers, s, True),
+                                _loop_smem_bytes(d, layers, s)):
+            raise AssertionError(f"the fits gates disagree with the kernels' "
+                                 f"shared memory ({fwd}, {adj}, {loop}) at "
+                                 f"d={d}")
+        log(f"[build] kernels' shared memory at d={d}, s={s}: forward step "
+            f"{fwd} B, reverse step {adj} B, training loop {loop} B")
+    # K4's grid: min(ceil(B / 8), co-resident blocks of one launch)
+    cap = loop_capacity(HIDDEN)
+    log(f"[build] training loop at the main path: {cap} co-resident "
+        f"blocks (grid {min(-(-BATCH // 8), cap)} at B {BATCH})")
+
+
+def loop_capacity(hidden, stages=4):
+    """Co-resident K4 blocks for 64 -> hidden x4 -> 64: the occupancy
+    query the wrapper sizes its grid with."""
+    from pnode_tpu_torch.ops import _build
+
+    lib = _build.library()
+    dims = [NX] + [hidden] * 4 + [NX]
+    smem = lib.pnode_train_loop_smem(NX, stages, max(dims),
+                                     8 * sum(dims[:-1]))
+    cap = _build.int_array([0])
+    _build.check(lib.pnode_train_loop_capacity(smem, cap),
+                 "training-loop occupancy query")
+    return cap[0]
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -189,18 +226,28 @@ def ks_operators(device, B=BATCH, nx=NX):
     return J, inv, ode._stepper._tableau_static()
 
 
-def make_case(device, u, B, hidden, nonzero_bias, seed):
-    """MLP stack, states x (B rows of the KS data u), and random covectors
-    g (K1 backward) and lam (K3)."""
+def make_stack(device, rng, hidden, nonzero_bias):
+    """MLP stack 64 -> hidden x4 -> 64: N(0, 0.01) weights and zero biases
+    (the KS init), or N(0, 0.2) weights and N(0, 0.1) biases."""
     import torch
 
-    rng = np.random.default_rng(seed)
     dims = [NX] + [hidden] * 4 + [NX]
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
     Ws = [f32(rng.normal(0.0, 0.01 if not nonzero_bias else 0.2,
                          size=(a, b))) for a, b in zip(dims, dims[1:])]
     bs = [f32(rng.normal(0.0, 0.1, size=(b,)) if nonzero_bias
               else np.zeros(b)) for b in dims[1:]]
+    return Ws, bs
+
+
+def make_case(device, u, B, hidden, nonzero_bias, seed):
+    """MLP stack, states x (B rows of the KS data u), and random covectors
+    g (K1 backward) and lam (K3)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    Ws, bs = make_stack(device, rng, hidden, nonzero_bias)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
     x = f32(u[rng.choice(len(u), B, replace=False)])
     g = f32(rng.normal(size=(B, NX)))
     lam = f32(rng.normal(size=(B, NX)))
@@ -305,7 +352,166 @@ def phase_kernels(device, u):
                     f"{k2[0]:.4f} ms (p66 {k1[1]:.4f} / {k2[1]:.4f}), plain "
                     f"median {p1[0]:.4f} / {p2[0]:.4f} ms (p66 {p1[1]:.4f} / "
                     f"{p2[1]:.4f}); 30 samples of 10 back-to-back calls")
+    reports["fused_train_loop"] = phase_loop_kernel(device, u, J, inv, tab,
+                                                    dt)
     return reports
+
+
+def loop_case(device, u, B, hidden, biased, seed, K):
+    """K4 operands: make_case's MLP stack and K distinct KS minibatches of
+    one-step windows as (K, B, 64) tensors, in shuffled epochs as phase 4
+    draws them, or drawn with replacement when B exceeds the data."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    Ws, bs = make_stack(device, rng, hidden, biased)
+    if B < len(u):
+        pairs = ks_batches(u, K, B, seed)
+        y, tgt = (np.stack([p[i] for p in pairs]) for i in (0, 1))
+    else:
+        idx = rng.integers(0, len(u) - 1, size=(K, B))
+        y, tgt = u[idx], u[idx + 1]
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
+    return Ws, bs, f32(y), f32(tgt)
+
+
+def loop_runner(tab, dt, J, inv, Ws, bs, y, tgt):
+    """run(fn, K, eps, dtype, **kw): fn (the kernel's wrapper or its plain
+    version) over the first K minibatches from zero Adam moments."""
+    import torch
+
+    def run(fn, K, eps, dtype=torch.float32, **kw):
+        cast = lambda ts: [t.to(dtype) for t in ts]  # noqa: E731
+        z = ([torch.zeros_like(w, dtype=dtype) for w in Ws],
+             [torch.zeros_like(b, dtype=dtype) for b in bs])
+        return fn(tab, dt, y[:K].to(dtype), tgt[:K].to(dtype), J.to(dtype),
+                  inv.to(dtype), cast(Ws), cast(bs), z, z, 0, lr=LR, eps=eps,
+                  **kw)
+
+    return run
+
+
+def norm_rel(got, ref):
+    """max over tensor pairs of ||got - ref|| / ||ref|| (norm-wise)."""
+    import torch
+
+    return max(float((a.detach().double() - b.detach().double()).norm()
+                     / b.detach().double().norm().clamp_min(1e-300))
+               for a, b in zip(got, ref))
+
+
+def check_loop(label, run, K, chunk, report, tol=5e-4):
+    """K4 against fused_train_loop_plain on the same operands.
+
+    - The first iteration's gradient, read as m1 / (1 - b1) after one
+      iteration from zero moments (the exact check of
+      tests/test_fused_train_loop.py:332-349): within 1e-4 norm-wise per
+      tensor of the plain version in fp32 and in fp64.
+    - K iterations at Adam eps 1e-8 and 1e-6: per-iteration losses within
+      1e-4 relative; the final parameters within ``tol`` in max abs at eps
+      1e-8 and norm-wise relative at eps 1e-6 (phase 4(a)'s form: below
+      eps, Adam passes a gradient's rounding on amplified by up to lr/eps).
+    """
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        fused_train_loop, fused_train_loop_plain)
+
+    grad = lambda out: [m / 0.1 for m in out[2][0] + out[2][1]]  # noqa: E731
+    g_k = grad(run(fused_train_loop, 1, 1e-8))
+    torch.cuda.synchronize()
+    g_p = grad(run(fused_train_loop_plain, 1, 1e-8))
+    g_d = grad(run(fused_train_loop_plain, 1, 1e-8, torch.float64))
+    e32, e64, e_plain = norm_rel(g_k, g_p), norm_rel(g_k, g_d), \
+        norm_rel(g_p, g_d)
+    ea = max(abs_err(a, b) for a, b in zip(g_k, g_p))
+    ok = e32 <= 1e-4 and e64 <= 1e-4
+    log(f"[kernels]   fused_train_loop {label}: first-iteration gradient "
+        f"(m1 / (1 - b1)) rel err vs plain fp32 {e32:.3e}, vs plain fp64 "
+        f"{e64:.3e} (norm-wise, tol 1e-4; plain fp32 vs fp64 "
+        f"{e_plain:.3e})")
+    for eps in (1e-8, 1e-6):
+        kk = run(fused_train_loop, K, eps, chunk=chunk)
+        torch.cuda.synchronize()
+        pp = run(fused_train_loop_plain, K, eps)
+        lk, lp = kk[4].double().cpu(), pp[4].double().cpu()
+        lrel = float(((lk - lp).abs() / lp.abs()).max())
+        pk, pq = kk[0] + kk[1], pp[0] + pp[1]
+        pabs = max(abs_err(a, b) for a, b in zip(pk, pq))
+        prel = norm_rel(pk, pq)
+        ea = max(ea, pabs, float((lk - lp).abs().max()))
+        ok = ok and lrel <= 1e-4 and (pabs <= tol if eps == 1e-8
+                                      else prel <= tol)
+        log(f"[kernels]   fused_train_loop {label}: K {K}, chunk {chunk}, "
+            f"Adam eps {eps:.0e}: losses max rel err {lrel:.3e} (tol 1e-4); "
+            f"params max abs {pabs:.3e}, rel (norm-wise) {prel:.3e}; gated "
+            f"{'max abs' if eps == 1e-8 else 'rel'} at {tol:.0e}")
+    report["max_abs_err"] = max(report.get("max_abs_err", 0.0), ea)
+    if not ok:
+        raise AssertionError(f"fused_train_loop ({label}) disagrees with its "
+                             "plain version")
+
+
+def phase_loop_kernel(device, u, J, inv, tab, dt, K=8, tol=5e-4):
+    """Phase 3 for K4: the main path (B 256, 64 -> 104 x4 -> 64), the
+    ragged case (B 37, hidden 24, nonzero biases, chunk=8) and a batch
+    with more row tiles than co-resident blocks, against the plain loop;
+    K = 16 as two launches of 8 against one launch; time per iteration,
+    kernel and plain version in turns."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        fused_train_loop, fused_train_loop_plain)
+
+    report = {}
+    log(f"[kernels] fused_train_loop: K {K} distinct KS minibatches, Adam "
+        f"lr {LR}")
+    main = loop_case(device, u, BATCH, HIDDEN, False, 1, 2 * K)
+    run = loop_runner(tab, dt, J, inv, *main)
+    check_loop(f"B{BATCH} h{HIDDEN}", run, K, None, report, tol)
+    rag = loop_runner(tab, dt, J, inv,
+                      *loop_case(device, u, 37, 24, True, 2, K))
+    check_loop("B37 h24 biased", rag, K, 8, report, tol)
+    # more row tiles than co-resident blocks: blocks stride over tiles,
+    # summing their partials and loss over more than one tile
+    wide = 8 * loop_capacity(24, len(tab[2])) + 5
+    strided = loop_runner(tab, dt, J, inv,
+                          *loop_case(device, u, wide, 24, True, 3, K))
+    check_loop(f"B{wide} h24 biased (blocks stride)", strided, K, None,
+               report, tol)
+
+    # persistence across launches: the state one launch leaves in device
+    # memory seeds the next
+    one = run(fused_train_loop, 2 * K, 1e-8)
+    two = run(fused_train_loop, 2 * K, 1e-8, chunk=K)
+    torch.cuda.synchronize()
+    lrel = float(((two[4] - one[4]).abs() / one[4].abs()).max())
+    pabs = max(abs_err(a, b) for a, b in zip(two[0] + two[1],
+                                             one[0] + one[1]))
+    same = all(torch.equal(a, b) for a, b in zip(
+        two[0] + two[1] + [two[4]], one[0] + one[1] + [one[4]]))
+    log(f"[kernels]   fused_train_loop K {2 * K}: chunk {K} vs one launch: "
+        f"losses max rel {lrel:.3e}, params max abs {pabs:.3e} (bitwise "
+        f"equal: {same}; tol 1e-4, {tol:.0e})")
+    if not (lrel <= 1e-4 and pabs <= tol):
+        raise AssertionError("fused_train_loop loses its state across "
+                             "launches")
+
+    # per iteration: plain, kernel, kernel, plain
+    kern = lambda: run(fused_train_loop, K, 1e-8)  # noqa: E731
+    plain = lambda: run(fused_train_loop_plain, K, 1e-8)  # noqa: E731
+    p1 = summary(cuda_times_ms(plain, reps=10, warmup=1, inner=1))
+    k1 = summary(cuda_times_ms(kern, reps=10, warmup=2, inner=3))
+    k2 = summary(cuda_times_ms(kern, reps=10, warmup=2, inner=3))
+    p2 = summary(cuda_times_ms(plain, reps=10, warmup=1, inner=1))
+    report["ms"] = min(k1[0], k2[0]) / K
+    report["plain_ms"] = min(p1[0], p2[0]) / K
+    log(f"[kernels]   fused_train_loop per iteration: kernel median "
+        f"{k1[0] / K:.4f} / {k2[0] / K:.4f} ms (p66 {k1[1] / K:.4f} / "
+        f"{k2[1] / K:.4f}), plain median {p1[0] / K:.4f} / {p2[0] / K:.4f} ms "
+        f"(p66 {p1[1] / K:.4f} / {p2[1] / K:.4f}); 10 samples of 3 (kernel) "
+        f"or 1 (plain) back-to-back calls of K {K}")
+    return report
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -378,6 +584,25 @@ def loss_and_grads(ode, ex, y0, tgt, device):
                                   for p in ex.parameters()]
 
 
+def device_kernels(events):
+    """(kernel events, busy us) of a trace's raw events: kernels are device
+    events that are neither user annotations (a span's device-side copy)
+    nor the CPU ops that launched them, so no device interval is counted
+    twice; busy is the union of their intervals."""
+    from torch.autograd import DeviceType
+
+    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in cpu_names]
+    busy_us, end_us = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        lo = max(e.time_range.start, end_us)
+        busy_us += max(0.0, e.time_range.end - lo)
+        end_us = max(end_us, e.time_range.end)
+    return kernels, busy_us
+
+
 def profile_steps(label, ode, ex, opt, batches, device):
     """A traced run of kernel-path training steps: host time per layer
     (spans around the solve, the loss, the adjoint and Adam), device time
@@ -405,14 +630,8 @@ def profile_steps(label, ode, ex, opt, batches, device):
                 opt.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # raw events: host spans are CPU events; kernels are device events that
-    # are neither user annotations (a span's device-side copy) nor the CPU
-    # ops that launched them, so no device interval is counted twice
     events = prof.events()
-    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e.name not in cpu_names]
+    kernels, busy_us = device_kernels(events)
     n = len(batches)
     spans, per_kernel = {}, {}
     for e in events:
@@ -421,11 +640,6 @@ def profile_steps(label, ode, ex, opt, batches, device):
     for e in kernels:
         us, count = per_kernel.get(e.name, (0.0, 0))
         per_kernel[e.name] = (us + e.time_range.elapsed_us(), count + 1)
-    busy_us, end_us = 0.0, float("-inf")  # union of the kernel intervals
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        lo = max(e.time_range.start, end_us)
-        busy_us += max(0.0, e.time_range.end - lo)
-        end_us = max(end_us, e.time_range.end)
     log(f"[profile] {label}: {n} traced steps, {1e3 * wall / n:.3f} ms/step; "
         f"device busy {busy_us * 1e-6 / wall:.3f} of the wall time")
     log("[profile] host us/step: " + ", ".join(
@@ -473,6 +687,8 @@ def phase_paths_agree(device, state0, batches, tol=5e-4):
       evaluations there.
     - Run free at Adam eps 1e-6, above those gradients, the final
       parameters agree within ``tol`` relative (norm-wise per tensor).
+
+    Returns the kernel path's free-running runs, {eps: (losses, params)}.
     """
     import torch
 
@@ -504,19 +720,27 @@ def phase_paths_agree(device, state0, batches, tol=5e-4):
     for eps, (lk, pk) in kernel_runs.items():
         ode, ex, opt = build_trainer(device, state0, True, off, eps=eps)
         lg, pg = train(ode, ex, opt, batches, device), list(ex.parameters())
-        lk, lg = lk.double().cpu(), lg.double().cpu()
-        lrel = float(((lk - lg).abs() / lg.abs()).max())
-        pabs = max(abs_err(a, b) for a, b in zip(pk, pg))
-        prel = max(float((a.detach() - b.detach()).norm() / b.detach().norm())
-                   for a, b in zip(pk, pg))
-        ok = ok and lrel <= tol and (pabs <= tol if eps == 1e-8
-                                     else prel <= tol)
-        log(f"[slice]     free-running, Adam eps {eps:.0e}: losses max rel "
-            f"err {lrel:.3e}; params max abs diff {pabs:.3e}, max rel "
-            f"(norm-wise per tensor) {prel:.3e}; gated: losses rel and "
-            f"params {'max abs' if eps == 1e-8 else 'rel'}, tol {tol:.0e}")
+        ok = runs_agree("generic loop through K1", eps, (lk, pk), (lg, pg),
+                        tol) and ok
     if not ok:
         raise AssertionError("kernel path and generic path disagree")
+    return kernel_runs
+
+
+def runs_agree(label, eps, got, ref, tol):
+    """Phase 4(a)'s form for two free-running runs (losses, params): the
+    losses within ``tol`` relative; the params within ``tol`` in max abs at
+    Adam eps 1e-8 and norm-wise relative at eps 1e-6. Logs, returns ok."""
+    (lk, pk), (lg, pg) = got, ref
+    lk, lg = lk.double().cpu(), lg.double().cpu()
+    lrel = float(((lk - lg).abs() / lg.abs()).max())
+    pabs = max(abs_err(a, b) for a, b in zip(pk, pg))
+    prel = norm_rel(pk, pg)
+    log(f"[slice]     free-running vs {label}, Adam eps {eps:.0e}: losses "
+        f"max rel err {lrel:.3e}; params max abs diff {pabs:.3e}, max rel "
+        f"(norm-wise per tensor) {prel:.3e}; gated: losses rel and params "
+        f"{'max abs' if eps == 1e-8 else 'rel'}, tol {tol:.0e}")
+    return lrel <= tol and (pabs <= tol if eps == 1e-8 else prel <= tol)
 
 
 def phase_slice(device, u, n_long=200, n_plain=50):
@@ -538,7 +762,7 @@ def phase_slice(device, u, n_long=200, n_plain=50):
     for w in wrappers.values():
         w.launches = 0
 
-    phase_paths_agree(device, state0, batches[:4])
+    kernel_runs = phase_paths_agree(device, state0, batches[:4])
 
     # (b) 200 iterations on the kernel path, timed after a warm-up
     ode_k, ex_k, opt_k = build_trainer(device, state0, fused=True)
@@ -577,7 +801,107 @@ def phase_slice(device, u, n_long=200, n_plain=50):
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the main path")
+    counts["fused_train_loop"] = phase_fused_loop(
+        device, state0, batches, kernel_runs, last, kern_sps)
     return counts, kern_sps, plain_sps
+
+
+def profile_loop(loop, ys, tgts):
+    """A traced fused-loop call: its wall time per iteration, the device's
+    busy share of it, and K4's device time per iteration."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.run(ys, tgts, LR)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, busy_us = device_kernels(prof.events())
+    k4_us = sum(e.time_range.elapsed_us() for e in kernels
+                if "train_loop_kernel" in e.name)
+    n = len(ys)
+    log(f"[profile] fused loop: {n} traced iterations in one call, "
+        f"{1e3 * wall / n:.3f} ms/iteration; device busy "
+        f"{busy_us * 1e-6 / wall:.3f} of the wall time; train_loop_kernel "
+        f"{k4_us / n:.1f} us/iteration")
+    if not kernels:
+        log("[profile] the profiler recorded no device time")
+
+
+def load_ks_torch():
+    """examples/ks_torch.py as a module (its FusedLoop is the gate and the
+    state of ``--fused_loop``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "ks_torch", os.path.join(ROOT, "examples", "ks_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_fused_loop(device, state0, batches, kernel_runs, per_step_last,
+                     per_step_sps, warm=20, tol=5e-4):
+    """Phase 4(c): the fused-loop path (K4 through ks_torch's FusedLoop,
+    the gate and state of ``examples/ks_torch.py --fused_loop``) from
+    state0 on the same batches. Returns K4's launch count over its 200
+    iterations."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop
+
+    ks = load_ks_torch()
+    as_t = lambda i: torch.tensor(  # noqa: E731
+        np.stack([b[i] for b in batches]), dtype=torch.float32,
+        device=device)
+    ys, tgts = as_t(0), as_t(1)
+    n = len(batches)
+
+    def fresh_loop():
+        ode, ex, _ = build_trainer(device, state0, fused=True)
+        return ex, ks.FusedLoop(ode, ex, BATCH, DT)
+
+    ok = True
+    for eps, ref in kernel_runs.items():
+        ex, loop = fresh_loop()
+        losses = loop.run(ys[:4], tgts[:4], LR, eps=eps)
+        loop.copy_to(ex)
+        ok = runs_agree("per-step kernel path", eps,
+                        (losses, list(ex.parameters())), ref, tol) and ok
+    if not ok:
+        raise AssertionError("fused loop and per-step kernel path disagree")
+    profile_loop(fresh_loop()[1], ys[:warm], tgts[:warm])
+
+    ex, loop = fresh_loop()
+    fused_train_loop.launches = 0
+    loss_warm = loop.run(ys[:warm], tgts[:warm], LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_rest = loop.run(ys[warm:], tgts[warm:], LR)
+    torch.cuda.synchronize()
+    sps = (n - warm) / (time.perf_counter() - t0)
+    count = fused_train_loop.launches
+    losses = torch.cat([loss_warm, loss_rest]).cpu().numpy()
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("non-finite fused-loop loss")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    gap = abs(last - per_step_last) / per_step_last
+    log(f"[slice] (c) {n} Adam steps on the fused loop: mean loss first 20 "
+        f"{first:.6e}, last 20 {last:.6e} ({gap:.3f} from (b)'s "
+        f"{per_step_last:.6e}, tol 0.1); {count} launches")
+    log(f"[slice] fused loop {sps:.1f} steps/s (steps {warm}..{n}, one "
+        f"launch) beside the per-step kernel path's {per_step_sps:.1f} "
+        f"steps/s (b), same call")
+    if not (last < first and gap <= 0.1):
+        raise AssertionError("the fused loop did not train as the per-step "
+                             "kernel path does")
+    if count <= 0:
+        raise AssertionError("fused_train_loop was never launched on the "
+                             "fused-loop path")
+    return count
 
 
 def main():

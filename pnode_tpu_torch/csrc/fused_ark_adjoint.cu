@@ -22,7 +22,8 @@
 // shared memory. The TPU summed dW over batch tiles in one revisited
 // output block; Hopper blocks run in parallel, so each block accumulates
 // its own dW/db partial over the stages in a scratch slice, and a second
-// launch sums the slices in block order (deterministic).
+// launch sums the slices in block order (deterministic). The step body is
+// ark_reverse_tile (pnode_kernels.cuh), which K4 shares.
 #include <cstdint>
 
 #include "pnode_kernels.cuh"
@@ -55,77 +56,10 @@ ark_adj_kernel(const float* __restrict__ ys, const float* __restrict__ lam,
   copy_rows(lam + (size_t)row0 * d, d, lp, d, rows, d, 1.0f);
   __syncthreads();
 
-  bool active[kMaxStages] = {};
   bool first_grad = true;
-  for (int i = s - 1; i >= 0; --i) {
-    bool has_u = tb.nzbI[i], has_uh = tb.nzbE[i];
-    for (int m = i + 1; m < s; ++m) {
-      if (!active[m]) continue;
-      has_u = has_u || tb.nzI[m][i];
-      has_uh = has_uh || tb.nzE[m][i];
-    }
-    active[i] = has_u || has_uh;
-    if (!active[i]) continue;
-    const bool implicit = tb.nzI[i][i];
-
-    // covectors, in the reference's order (lam term, then m ascending)
-    for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
-      float au = 0.0f, auh = 0.0f;
-      if (tb.nzbI[i]) au = tb.cbI[i] * lam_s[e];
-      if (tb.nzbE[i]) auh = tb.cbE[i] * lam_s[e];
-      for (int m = i + 1; m < s; ++m) {
-        if (!active[m]) continue;
-        if (tb.nzI[m][i]) au = au + tb.cI[m][i] * xis[m * tile + e];
-        if (tb.nzE[m][i]) auh = auh + tb.cE[m][i] * xis[m * tile + e];
-      }
-      u[e] = au;
-      uh[e] = sign * auh;  // backprop seed of f_EX = sign * MLP
-    }
-    __syncthreads();
-
-    bool has_p = false;
-    if (has_u && !implicit) {
-      rows_matmul(u, d, rows, d, J, false, d, nullptr, kActNone, pv, d);
-      has_p = true;
-    }
-    if (has_uh) {
-      copy_rows(ys + ((size_t)i * B + row0) * d, d, hs, d, rows, d, 1.0f);
-      copy_rows(uh, d, gA, d, rows, d, 1.0f);
-      __syncthreads();
-      mlp_forward_store(p, hs, rows, nullptr, 0);
-      const float* dyE = mlp_backward(p, hs, rows, gA, gB, part, first_grad);
-      first_grad = false;
-      for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
-        pv[e] = has_p ? pv[e] + dyE[e] : dyE[e];
-      has_p = true;
-    }
-    __syncthreads();
-
-    float* xi = xis + i * tile;
-    if (implicit) {
-      if (has_u) {
-        const float inv_dtg = tb.inv_dt[i];
-        for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
-          const float c = u[e] * inv_dtg;
-          u[e] = c;
-          q[e] = has_p ? c + pv[e] : c;
-        }
-        __syncthreads();
-        rows_matmul(q, d, rows, d, inv, false, d, nullptr, kActNone, xi, d);
-        __syncthreads();
-        for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
-          xi[e] = xi[e] - u[e];
-      } else {
-        rows_matmul(pv, d, rows, d, inv, false, d, nullptr, kActNone, xi, d);
-      }
-    } else {
-      copy_rows(pv, d, xi, d, rows, d, 1.0f);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
-      lp[e] = lp[e] + xi[e];
-    __syncthreads();
-  }
+  ark_reverse_tile<false>(p, tb, sign, J, inv, d, rows, lam_s,
+                          ys + (size_t)row0 * d, (size_t)B * d, xis, u, uh,
+                          pv, q, hs, gA, gB, lp, part, first_grad);
 
   copy_rows(lp, d, lam_prev + (size_t)row0 * d, d, rows, d, 1.0f);
   if (first_grad) {  // no stage reached the MLP: its gradient is zero

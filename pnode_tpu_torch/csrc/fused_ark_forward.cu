@@ -18,7 +18,8 @@
 // 32 KB of operators. Latency and L2 weight streaming bound it, not FLOPs.
 // Design: one block per 8 batch rows holds y, every kI/kE, G and Y in
 // shared memory for the whole step, so nothing but y1 and the stage values
-// (the adjoint's trajectory payload) goes back to device memory.
+// (the adjoint's trajectory payload) goes back to device memory. The step
+// body is ark_forward_tile (pnode_kernels.cuh), which K4 shares.
 #include <cstdint>
 
 #include "pnode_kernels.cuh"
@@ -39,55 +40,14 @@ ark_fwd_kernel(const float* __restrict__ y, const float* __restrict__ J,
   float* kI = ys_ + tile;          // s tiles
   float* kE = kI + s * tile;       // s tiles
   float* G = kE + s * tile;
-  float* Y = G + tile;
+  float* Y = G + tile;             // the current stage value
   float* a = Y + tile;             // MLP ping-pong, kRows * maxd each
   float* b = a + kRows * p.maxd;
   copy_rows(y + (size_t)row0 * d, d, ys_, d, rows, d, 1.0f);
   __syncthreads();
-
-  for (int i = 0; i < s; ++i) {
-    // G = y + sum_{j<i} (dt aI_ij kI_j + dt aE_ij kE_j), in the reference's
-    // order (j ascending, implicit term first)
-    for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
-      float acc = ys_[e];
-      for (int j = 0; j < i; ++j) {
-        if (tb.nzI[i][j]) acc = acc + tb.cI[i][j] * kI[j * tile + e];
-        if (tb.nzE[i][j]) acc = acc + tb.cE[i][j] * kE[j * tile + e];
-      }
-      G[e] = acc;
-    }
-    __syncthreads();
-    float* kIi = kI + i * tile;
-    const float* Yi;
-    if (tb.nzI[i][i]) {
-      rows_matmul(G, d, rows, d, inv, true, d, nullptr, kActNone, Y, d);
-      __syncthreads();
-      const float inv_dt = tb.inv_dt[i];
-      for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
-        kIi[e] = (Y[e] - G[e]) * inv_dt;
-      Yi = Y;
-    } else {
-      rows_matmul(G, d, rows, d, J, true, d, nullptr, kActNone, kIi, d);
-      Yi = G;
-    }
-    copy_rows(Yi, d, ys + ((size_t)i * B + row0) * d, d, rows, d, 1.0f);
-    __syncthreads();
-    float* kEi = kE + i * tile;
-    mlp_forward(p, Yi, rows, a, b, kEi, d);
-    for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
-      kEi[e] = sign * kEi[e];
-    __syncthreads();
-  }
-
-  // y1 = y + sum_i (dt bI_i kI_i + dt bE_i kE_i), stage order
-  for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
-    float acc = ys_[e];
-    for (int i = 0; i < s; ++i) {
-      if (tb.nzbI[i]) acc = acc + tb.cbI[i] * kI[i * tile + e];
-      if (tb.nzbE[i]) acc = acc + tb.cbE[i] * kE[i * tile + e];
-    }
-    y1[(size_t)row0 * d + e] = acc;
-  }
+  ark_forward_tile<false>(p, tb, sign, J, inv, d, rows, ys_, kI, kE, G, Y, 0,
+                          ys + (size_t)row0 * d, (size_t)B * d, a, b,
+                          y1 + (size_t)row0 * d);
 }
 
 }  // namespace pnode

@@ -74,16 +74,33 @@ __device__ __forceinline__ float act_grad(float h, int act) {
   return 1.0f;
 }
 
+// A load of a matrix or bias operand. The read-only path (__ldg, ld.global.nc)
+// is valid only for data that no thread writes during the launch: the step
+// kernels' weights and every kernel's stiff operators. The training loop
+// (K4) rewrites its weights between iterations of one launch, so its weight
+// and bias reads are coherent: __ldcg reads through L2, which every SM sees
+// after a grid-wide barrier.
+template <bool kCoherent>
+__device__ __forceinline__ float load_operand(const float* p) {
+  if constexpr (kCoherent) {
+    return __ldcg(p);
+  } else {
+    return __ldg(p);
+  }
+}
+
 // out[r][j] = act(sum_k in[r][k] * M(k, j) + bias[j]) for r < rows, j < N.
 // M(k, j) = M[k*N + j], or M[j*K + k] when trans_m (the row-vector product
 // with M^T). `in` is shared memory with row stride ldi; `out` is shared or
 // global memory with row stride ldo. Consecutive threads take consecutive
 // columns j, so the reads of M are coalesced when !trans_m, and each
-// thread reuses one M element for kRowChunk rows.
+// thread reuses one M element for kRowChunk rows. kCoherent selects the
+// loads of M and bias (load_operand); M and bias carry no __restrict__,
+// since K4 writes them during the launch.
+template <bool kCoherent = false>
 __device__ __forceinline__ void rows_matmul(
-    const float* in, int ldi, int rows, int K, const float* __restrict__ M,
-    bool trans_m, int N, const float* __restrict__ bias, int act, float* out,
-    int ldo) {
+    const float* in, int ldi, int rows, int K, const float* M, bool trans_m,
+    int N, const float* bias, int act, float* out, int ldo) {
   const int n_chunks = (rows + kRowChunk - 1) / kRowChunk;
   for (int item = threadIdx.x; item < N * n_chunks; item += blockDim.x) {
     const int j = item % N;
@@ -92,13 +109,13 @@ __device__ __forceinline__ void rows_matmul(
 #pragma unroll
     for (int c = 0; c < kRowChunk; ++c) acc[c] = 0.0f;
     for (int k = 0; k < K; ++k) {
-      const float m = trans_m ? __ldg(M + (size_t)j * K + k)
-                              : __ldg(M + (size_t)k * N + j);
+      const float m = trans_m ? load_operand<kCoherent>(M + (size_t)j * K + k)
+                              : load_operand<kCoherent>(M + (size_t)k * N + j);
 #pragma unroll
       for (int c = 0; c < kRowChunk; ++c)
         if (r0 + c < rows) acc[c] = fmaf(in[(r0 + c) * ldi + k], m, acc[c]);
     }
-    const float bj = bias != nullptr ? __ldg(bias + j) : 0.0f;
+    const float bj = bias != nullptr ? load_operand<kCoherent>(bias + j) : 0.0f;
 #pragma unroll
     for (int c = 0; c < kRowChunk; ++c)
       if (r0 + c < rows) out[(r0 + c) * ldo + j] = act_fwd(acc[c] + bj, act);
@@ -120,6 +137,7 @@ __device__ __forceinline__ void copy_rows(const float* src, int ld_src,
 // the input rows on entry; on return hs + p.hoff[l] holds the input of
 // layer l for every l. The last layer's output goes to `out` (row stride
 // ldo), or is skipped when out == nullptr (backprop needs only the inputs).
+template <bool kCoherent = false>
 __device__ __forceinline__ void mlp_forward_store(const Mlp& p, float* hs,
                                                   int rows, float* out,
                                                   int ldo) {
@@ -127,15 +145,17 @@ __device__ __forceinline__ void mlp_forward_store(const Mlp& p, float* hs,
     const bool last = l == p.n - 1;
     if (last && out == nullptr) break;
     float* dst = last ? out : hs + p.hoff[l + 1];
-    rows_matmul(hs + p.hoff[l], p.dims[l], rows, p.dims[l], p.W[l], false,
-                p.dims[l + 1], p.b[l], last ? kActNone : p.act, dst,
-                last ? ldo : p.dims[l + 1]);
+    rows_matmul<kCoherent>(hs + p.hoff[l], p.dims[l], rows, p.dims[l],
+                           p.W[l], false, p.dims[l + 1], p.b[l],
+                           last ? kActNone : p.act, dst,
+                           last ? ldo : p.dims[l + 1]);
     __syncthreads();
   }
 }
 
 // The stack on `rows` rows of `in` (shared, stride dims[0]) with two
 // ping-pong buffers a, b of kRows * maxd floats; result to `out` (ldo).
+template <bool kCoherent = false>
 __device__ __forceinline__ void mlp_forward(const Mlp& p, const float* in,
                                             int rows, float* a, float* b,
                                             float* out, int ldo) {
@@ -143,9 +163,9 @@ __device__ __forceinline__ void mlp_forward(const Mlp& p, const float* in,
   for (int l = 0; l < p.n; ++l) {
     const bool last = l == p.n - 1;
     float* dst = last ? out : ((l & 1) ? b : a);
-    rows_matmul(src, p.dims[l], rows, p.dims[l], p.W[l], false,
-                p.dims[l + 1], p.b[l], last ? kActNone : p.act, dst,
-                last ? ldo : p.dims[l + 1]);
+    rows_matmul<kCoherent>(src, p.dims[l], rows, p.dims[l], p.W[l], false,
+                           p.dims[l + 1], p.b[l], last ? kActNone : p.act,
+                           dst, last ? ldo : p.dims[l + 1]);
     __syncthreads();
     src = dst;
   }
@@ -156,6 +176,7 @@ __device__ __forceinline__ void mlp_forward(const Mlp& p, const float* in,
 // mlp_forward_store. Writes (overwrite) or adds (!overwrite) this block's
 // partial dW/db over its rows to `part` in the [W0, b0, W1, b1, ...]
 // layout. Returns the buffer (gA or gB) that holds dL/dx, stride dims[0].
+template <bool kCoherent = false>
 __device__ __forceinline__ float* mlp_backward(const Mlp& p, const float* hs,
                                                int rows, float* gA, float* gB,
                                                float* part, bool overwrite) {
@@ -183,13 +204,167 @@ __device__ __forceinline__ float* mlp_backward(const Mlp& p, const float* hs,
       db[j] = overwrite ? acc : db[j] + acc;
     }
     // g <- g W_l^T: the product with W_l stored (K, N), read transposed
-    rows_matmul(gA, N, rows, N, p.W[l], true, K, nullptr, kActNone, gB, K);
+    rows_matmul<kCoherent>(gA, N, rows, N, p.W[l], true, K, nullptr,
+                           kActNone, gB, K);
     __syncthreads();
     float* t = gA;
     gA = gB;
     gB = t;
   }
   return gA;
+}
+
+// One ARK-IMEX forward step on one tile of `rows` rows (K2's body, shared
+// with K4). Shared memory: y (the input rows), kI and kE (s tiles each of
+// kRows * d), G (one tile), a and b (MLP ping-pong, kRows * maxd each).
+// Stage value i goes to Ys + i * ys_step (shared memory: K2 passes one
+// tile and ys_step 0, K4 keeps all s tiles for its reverse sweep), and,
+// when ys_out != nullptr, to ys_out + i * ys_out_step (K2's global
+// trajectory payload). y1 (row stride d) is shared or global memory.
+template <bool kCoherent>
+__device__ __forceinline__ void ark_forward_tile(
+    const Mlp& p, const Tableau& tb, float sign, const float* J,
+    const float* inv, int d, int rows, const float* y, float* kI, float* kE,
+    float* G, float* Ys, int ys_step, float* ys_out, size_t ys_out_step,
+    float* a, float* b, float* y1) {
+  const int s = tb.s;
+  const int tile = kRows * d;
+  for (int i = 0; i < s; ++i) {
+    // G = y + sum_{j<i} (dt aI_ij kI_j + dt aE_ij kE_j), in the reference's
+    // order (j ascending, implicit term first)
+    for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
+      float acc = y[e];
+      for (int j = 0; j < i; ++j) {
+        if (tb.nzI[i][j]) acc = acc + tb.cI[i][j] * kI[j * tile + e];
+        if (tb.nzE[i][j]) acc = acc + tb.cE[i][j] * kE[j * tile + e];
+      }
+      G[e] = acc;
+    }
+    __syncthreads();
+    float* kIi = kI + i * tile;
+    float* Yi = Ys + i * ys_step;
+    if (tb.nzI[i][i]) {
+      rows_matmul(G, d, rows, d, inv, true, d, nullptr, kActNone, Yi, d);
+      __syncthreads();
+      const float inv_dt = tb.inv_dt[i];
+      for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
+        kIi[e] = (Yi[e] - G[e]) * inv_dt;
+    } else {
+      rows_matmul(G, d, rows, d, J, true, d, nullptr, kActNone, kIi, d);
+      copy_rows(G, d, Yi, d, rows, d, 1.0f);
+    }
+    __syncthreads();
+    if (ys_out != nullptr)
+      copy_rows(Yi, d, ys_out + i * ys_out_step, d, rows, d, 1.0f);
+    float* kEi = kE + i * tile;
+    mlp_forward<kCoherent>(p, Yi, rows, a, b, kEi, d);
+    for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
+      kEi[e] = sign * kEi[e];
+    __syncthreads();
+  }
+
+  // y1 = y + sum_i (dt bI_i kI_i + dt bE_i kE_i), stage order
+  for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
+    float acc = y[e];
+    for (int i = 0; i < s; ++i) {
+      if (tb.nzbI[i]) acc = acc + tb.cbI[i] * kI[i * tile + e];
+      if (tb.nzbE[i]) acc = acc + tb.cbE[i] * kE[i * tile + e];
+    }
+    y1[e] = acc;
+  }
+}
+
+// One stage-exact reverse step on one tile of `rows` rows (K3's body,
+// shared with K4). lam_s: the incoming covector (shared). Stage value i is
+// read from Ys + i * ys_step (K3: its global trajectory payload; K4: its
+// shared-memory stages). Shared scratch: xis (s tiles), u, uh, pv, q (one
+// tile each), hs (p.htotal: recomputed layer inputs), gA and gB (kRows *
+// maxd each). When lp != nullptr, lam_prev = lam + sum_i xi_i is added to
+// lp (shared, holding lam on entry). The tile's dW/db go to `part` in the
+// [W0, b0, W1, b1, ...] layout: overwritten at the first stage that
+// reaches the MLP while first_grad is set (which clears it), added after.
+template <bool kCoherent>
+__device__ __forceinline__ void ark_reverse_tile(
+    const Mlp& p, const Tableau& tb, float sign, const float* J,
+    const float* inv, int d, int rows, const float* lam_s, const float* Ys,
+    size_t ys_step, float* xis, float* u, float* uh, float* pv, float* q,
+    float* hs, float* gA, float* gB, float* lp, float* part,
+    bool& first_grad) {
+  const int s = tb.s;
+  const int tile = kRows * d;
+  bool active[kMaxStages] = {};
+  for (int i = s - 1; i >= 0; --i) {
+    bool has_u = tb.nzbI[i], has_uh = tb.nzbE[i];
+    for (int m = i + 1; m < s; ++m) {
+      if (!active[m]) continue;
+      has_u = has_u || tb.nzI[m][i];
+      has_uh = has_uh || tb.nzE[m][i];
+    }
+    active[i] = has_u || has_uh;
+    if (!active[i]) continue;
+    const bool implicit = tb.nzI[i][i];
+
+    // covectors, in the reference's order (lam term, then m ascending)
+    for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
+      float au = 0.0f, auh = 0.0f;
+      if (tb.nzbI[i]) au = tb.cbI[i] * lam_s[e];
+      if (tb.nzbE[i]) auh = tb.cbE[i] * lam_s[e];
+      for (int m = i + 1; m < s; ++m) {
+        if (!active[m]) continue;
+        if (tb.nzI[m][i]) au = au + tb.cI[m][i] * xis[m * tile + e];
+        if (tb.nzE[m][i]) auh = auh + tb.cE[m][i] * xis[m * tile + e];
+      }
+      u[e] = au;
+      uh[e] = sign * auh;  // backprop seed of f_EX = sign * MLP
+    }
+    __syncthreads();
+
+    bool has_p = false;
+    if (has_u && !implicit) {
+      rows_matmul(u, d, rows, d, J, false, d, nullptr, kActNone, pv, d);
+      has_p = true;
+    }
+    if (has_uh) {
+      copy_rows(Ys + i * ys_step, d, hs, d, rows, d, 1.0f);
+      copy_rows(uh, d, gA, d, rows, d, 1.0f);
+      __syncthreads();
+      mlp_forward_store<kCoherent>(p, hs, rows, nullptr, 0);
+      const float* dyE =
+          mlp_backward<kCoherent>(p, hs, rows, gA, gB, part, first_grad);
+      first_grad = false;
+      for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
+        pv[e] = has_p ? pv[e] + dyE[e] : dyE[e];
+      has_p = true;
+    }
+    __syncthreads();
+
+    float* xi = xis + i * tile;
+    if (implicit) {
+      if (has_u) {
+        const float inv_dtg = tb.inv_dt[i];
+        for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
+          const float c = u[e] * inv_dtg;
+          u[e] = c;
+          q[e] = has_p ? c + pv[e] : c;
+        }
+        __syncthreads();
+        rows_matmul(q, d, rows, d, inv, false, d, nullptr, kActNone, xi, d);
+        __syncthreads();
+        for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
+          xi[e] = xi[e] - u[e];
+      } else {
+        rows_matmul(pv, d, rows, d, inv, false, d, nullptr, kActNone, xi, d);
+      }
+    } else {
+      copy_rows(pv, d, xi, d, rows, d, 1.0f);
+    }
+    __syncthreads();
+    if (lp != nullptr) {
+      for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
+        lp[e] = lp[e] + xi[e];
+      __syncthreads();
+    }
+  }
 }
 
 // out[i] = sum_b partial[b * n + i], b in order 0..nblk-1 (deterministic).

@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 ``pnode_tpu_torch/csrc/*.cu`` compile into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds, not minutes)::
+C interface (no PyTorch headers, so a build takes seconds, not minutes):
+one nvcc per source, all started together, then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/pnode_tpu_torch/<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/pnode_tpu_torch/<hash>.so <objs>
 
 at first use, into ``build/pnode_tpu_torch/`` at the repository root, keyed
 by a hash of the sources and flags so an edited source rebuilds. The
@@ -28,8 +31,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pnode_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +55,11 @@ _SIGNATURES = {
                            _F, _I, _PI, _PP, _PP, _I, _P]),
     "pnode_ark_fwd_smem": (ctypes.c_size_t, [_I, _I, _I]),
     "pnode_ark_adj_smem": (ctypes.c_size_t, [_I, _I, _I, _I]),
+    "pnode_train_loop": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _PD, _D, _F, _I, _PI, _I, _I, _F, _D,
+                              _D, _D, _I, _P]),
+    "pnode_train_loop_smem": (ctypes.c_size_t, [_I, _I, _I, _I]),
+    "pnode_train_loop_capacity": (_I, [ctypes.c_size_t, _PI]),
 }
 
 _lock = threading.Lock()
@@ -87,20 +96,33 @@ def _build() -> Path:
         build_info.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(f) for f in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        cmds, objs, procs = [], [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            objs.append(str(Path(work) / f"{src.stem}.o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            cmds.append(cmd)
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+        for cmd, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+        tmp = str(Path(work) / "lib.so")
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(link)}\n{log}")
+        os.replace(tmp, lib_path)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib_path)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + log)
+    (BUILD_DIR / "build.log").write_text(log)
     build_info.update(path=str(lib_path), seconds=seconds, cached=False,
                       log=log)
     return lib_path

@@ -44,6 +44,7 @@ def test_import_leaves_jax_out():
         "pnode_tpu_torch.data, pnode_tpu_torch.ops.fused_mlp, "
         "pnode_tpu_torch.ops.fused_ark_forward, "
         "pnode_tpu_torch.ops.fused_ark_adjoint, pnode_tpu_torch.ops._build, "
+        "pnode_tpu_torch.ops.fused_train_loop, "
         "pnode_tpu_torch.tableaus_ark5, pnode_tpu_torch.tableaus_ark5l\n"
         "import chip_smoke\n"
         "import importlib.util as u\n"
