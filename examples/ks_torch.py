@@ -10,6 +10,9 @@ discrete adjoint, a plateau LR decay on the validation loss::
     python examples/ks_torch.py --fused_loop          # one launch per epoch
     python examples/ks_torch.py --device cpu --max_epochs 1 --data_size 80 \
         --batch_size 16
+    python examples/ks_torch.py -ts_adapt_type basic -ts_rtol 1e-4 \
+        -ts_atol 1e-4                                 # adaptive, per step
+    python examples/ks_torch.py --fused_loop -ts_adapt_type basic   # K5
 
 The defaults are the main-path recipe: ARK3 IMEX, ``linear_solver hpddm``
 with a frozen Jacobian, ``-snes_type ksponly`` (a programmatic default that
@@ -27,6 +30,18 @@ LR goes in as its ``lr``. At the end of each epoch the loop's weights are
 copied into the model, so validation runs through ``ode.odeint`` as before.
 It needs the fused-kernel gate (``--use_fused``, ksponly, frozen Jacobian),
 ``--time_window_size 1`` and fp32; the CPU runs the loop's plain version.
+
+Under ``-ts_adapt_type basic`` (PETSc's TSAdapt, with ``-ts_rtol``,
+``-ts_atol``, ``-ts_adapt_*``) the per-step path trains through the
+adaptive ``ODESolver``, the counterpart of ``examples/ks.py`` with the same
+flag tail, and ``--fused_loop`` runs each epoch as one call of the fused
+adaptive loop (K5: the embedded trial loop, MSE, the reverse of the
+accepted trials and Adam per iteration), with ``bench.py``'s protocol for
+that workload: a trial axis of ``-ts_adapt_max_steps`` (default 32) and
+the first accepted dt of each call's last iteration as the next call's
+initial dt. A call in which an iteration runs out of trials before its
+window lands stops the training (``SystemExit``). The JAX package reaches
+this kernel only through ``bench.py --workload adaptive``.
 """
 
 from __future__ import annotations
@@ -65,7 +80,7 @@ def parse_args(argv=None):
                    "gate, the ARK step kernels (K2, K3)")
     p.add_argument("--fused_loop", action="store_true",
                    help="each epoch as K iterations of the fused training "
-                   "loop (K4) in one call")
+                   "loop (K4; K5 under -ts_adapt_type basic) in one call")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_known_args(argv)
 
@@ -80,16 +95,7 @@ class FusedLoop:
 
         from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop_fits
 
-        p = next(ex.parameters())
-        y_tmpl = torch.zeros(batch_size, ex.nx, dtype=p.dtype, device=p.device)
-        params = ({}, dict(ex.named_parameters()))
-        stp = ode._stepper.prepare(0.0, y_tmpl, params, dt0=step_size)
-        gate = stp._fused_reverse_args(params, dt=step_size)
-        if gate is None:
-            raise SystemExit(
-                "--fused_loop requires the fused-kernel gate: --use_fused, "
-                "--fixed_jacobian, --linear_solver hpddm, -snes_type ksponly "
-                "(frozen linear implicit part)")
+        stp, gate = self._gate(ode, ex, batch_size, step_size, step_size)
         spec, self.J, self.inv = gate
         self.tab = stp._tableau_static()
         dims = [int(w.shape[1]) for w in spec["Ws"]]
@@ -98,7 +104,32 @@ class FusedLoop:
             raise SystemExit("--fused_loop: the configuration exceeds the "
                              "loop kernel's shared-memory budget")
         # the step size as the fp32 solve carries it
-        self.dt = float(torch.tensor(step_size, dtype=p.dtype))
+        self.dt = float(torch.tensor(step_size,
+                                     dtype=next(ex.parameters()).dtype))
+        self._init_state(spec)
+
+    @staticmethod
+    def _gate(ode, ex, batch_size, step_size, dt0):
+        """(prepared stepper, fused gate (spec, J, inv)) of the loop
+        kernels."""
+        import torch
+
+        p = next(ex.parameters())
+        y_tmpl = torch.zeros(batch_size, ex.nx, dtype=p.dtype, device=p.device)
+        params = ({}, dict(ex.named_parameters()))
+        stp = ode._stepper.prepare(0.0, y_tmpl, params, dt0=dt0)
+        gate = stp._fused_reverse_args(params, dt=step_size)
+        if gate is None:
+            raise SystemExit(
+                "--fused_loop requires the fused-kernel gate: --use_fused, "
+                "--fixed_jacobian, --linear_solver hpddm, -snes_type ksponly "
+                "(frozen linear implicit part)")
+        return stp, gate
+
+    def _init_state(self, spec):
+        """The weights and zero Adam moments the calls carry."""
+        import torch
+
         self.spec = spec
         self.Ws = [w.detach().clone() for w in spec["Ws"]]
         self.bs = [b.detach().clone() for b in spec["bs"]]
@@ -127,6 +158,73 @@ class FusedLoop:
         with torch.no_grad():
             for name, prm in ex.named_parameters():
                 prm.copy_(new[name])
+
+
+class FusedAdaptiveLoop(FusedLoop):
+    """The ``--fused_loop`` path under ``-ts_adapt_type basic``: K5's
+    operands from the fused step gate and the spectral basis of the frozen
+    J, the controller's options from the solver, and the weights, Adam
+    moments and the dt warm start carried from call to call (bench.py's
+    protocol for this workload: the first accepted dt of a call's last
+    iteration starts the next call)."""
+
+    def __init__(self, ode, ex, batch_size, step_size):
+        from pnode_tpu_torch.ops.fused_adaptive_loop import (
+            fused_adaptive_loop_fits)
+
+        stp, gate = self._gate(ode, ex, batch_size, step_size, None)
+        spec, self.J = gate[0], gate[1]
+        basis = stp._spectral_stage_basis(self.J)
+        if basis is None or stp._bIe is None:
+            raise SystemExit("--fused_loop -ts_adapt_type basic needs a "
+                             "symmetric frozen J and a tableau with an "
+                             "embedded pair")
+        self.lam, self.Q = basis
+        self.cfg, _ = ode._build_adapt_cfg()
+        if self.cfg.controller != "basic":
+            raise SystemExit("--fused_loop runs the basic controller; "
+                             "-ts_adapt_type pi trains per step")
+        self.tab = stp._tableau_static() + (stp._bIe, stp._bEe)
+        self.gamma = next(float(x) for x in np.diag(stp.tab.a_im) if x != 0)
+        self.order = stp.tab.order
+        # the trial axis: -ts_adapt_max_steps, 32 for this workload
+        self.max_trials = min(ode.max_steps,
+                              ode.opts.get_int("ts_adapt_max_steps", 32))
+        dims = [int(w.shape[1]) for w in spec["Ws"]]
+        if not fused_adaptive_loop_fits(batch_size, ex.nx, dims,
+                                        self.max_trials,
+                                        stages=len(self.tab[2])):
+            raise SystemExit("--fused_loop: the configuration exceeds the "
+                             "adaptive loop kernel's shared-memory budget")
+        # the window is one step of the data, [0, step_size]; the first
+        # call starts cold from dt = step_size
+        self.t_end = self.dt = float(step_size)
+        self.stats = None
+        self._init_state(spec)
+
+    def run(self, y_stack, tgt_stack, lr, eps=1e-8):
+        """K = len(y_stack) adaptive Adam iterations; returns the K losses
+        (the per-iteration controller stats in ``self.stats``)."""
+        from pnode_tpu_torch.ops.fused_adaptive_loop import (
+            fused_adaptive_train_loop)
+
+        c = self.cfg
+        self.Ws, self.bs, self.m, self.v, losses, self.stats = \
+            fused_adaptive_train_loop(
+                self.tab, self.gamma, self.lam, self.Q, self.J, self.t_end,
+                self.dt, y_stack, tgt_stack, self.Ws, self.bs, self.m,
+                self.v, self.t, self.max_trials, rtol=c.rtol, atol=c.atol,
+                safety=c.safety, dt_min_factor=c.dt_min_factor,
+                dt_max_factor=c.dt_max_factor, order=self.order,
+                activation=self.spec["activation"], sign=self.spec["sign"],
+                lr=lr, eps=eps)
+        if not bool((self.stats["completed"] == 1.0).all()):
+            raise SystemExit(
+                f"--fused_loop: an iteration ran out of its {self.max_trials} "
+                "trials before its window landed (raise -ts_adapt_max_steps)")
+        self.dt = self.stats["dt_first"][-1]
+        self.t += int(y_stack.shape[0])
+        return losses
 
 
 def make_batches(u, rng, W, batch_size, endpoint):
@@ -190,7 +288,11 @@ def main(argv=None):
         if W != 1 or dtype != torch.float32:
             raise SystemExit("--fused_loop requires --time_window_size 1 "
                              "and fp32 (no --double_prec)")
-        fused = FusedLoop(ode, ex, args.batch_size, args.step_size)
+        if ode.adapt_type in (None, "none"):
+            fused = FusedLoop(ode, ex, args.batch_size, args.step_size)
+        else:
+            fused = FusedAdaptiveLoop(ode, ex, args.batch_size,
+                                      args.step_size)
 
     def as_t(a):
         return torch.as_tensor(a, dtype=dtype, device=device)

@@ -12,6 +12,12 @@
 //   Y_i  = G_i,        kI_i = Y_i J^T                    (explicit stage)
 //   kE_i = sign * MLP(Y_i)
 //   y1   = y + sum_i (dt bI_i kI_i + dt bE_i kE_i)
+//   err  = sum_i (dt (bI - bI_err)_i kI_i + dt (bE - bE_err)_i kE_i)
+//
+// err, the embedded error estimate of the adaptive controller
+// (-ts_adapt_type basic), is written only when the caller passes the
+// embedded weights; it costs one more pass over the stage derivatives the
+// block already holds, and one (B, d) store.
 //
 // Bound on the H100: per ARK3 step at the KS shapes, 4 stiff (B,64)x(64,64)
 // products and 4 MLP evaluations, ~102 MFLOP against 185 KB of weights and
@@ -29,8 +35,8 @@ namespace pnode {
 __global__ void __launch_bounds__(kThreads)
 ark_fwd_kernel(const float* __restrict__ y, const float* __restrict__ J,
                const float* __restrict__ inv, float* __restrict__ y1,
-               float* __restrict__ ys, int B, int d, Tableau tb, float sign,
-               Mlp p) {
+               float* __restrict__ ys, float* __restrict__ err, int B, int d,
+               Tableau tb, float sign, Mlp p) {
   extern __shared__ float smem[];
   const int row0 = blockIdx.x * kRows;
   const int rows = min(kRows, B - row0);
@@ -47,7 +53,8 @@ ark_fwd_kernel(const float* __restrict__ y, const float* __restrict__ J,
   __syncthreads();
   ark_forward_tile<false>(p, tb, sign, J, inv, d, rows, ys_, kI, kE, G, Y, 0,
                           ys + (size_t)row0 * d, (size_t)B * d, a, b,
-                          y1 + (size_t)row0 * d);
+                          y1 + (size_t)row0 * d,
+                          err != nullptr ? err + (size_t)row0 * d : nullptr);
 }
 
 }  // namespace pnode
@@ -64,24 +71,28 @@ size_t pnode_ark_fwd_smem(int d, int s, int maxd) {
 }
 
 // y1 (B, d), ys (s, B, d) of one ARK step from y (B, d); J, inv (d, d).
-// tab: host doubles aI (s*s), aE (s*s), bI (s), bE (s).
+// tab: host doubles aI (s*s), aE (s*s), bI (s), bE (s). With err_tab (host
+// doubles bI_err (s), bE_err (s)) also the embedded error estimate err
+// (B, d); err and err_tab are both null or both given.
 int pnode_ark_fwd(const float* y, const float* J, const float* inv,
-                  float* y1, float* ys, int B, int d, int s,
-                  const double* tab, double dt, float sign, int n_layers,
-                  const int* dims, const void* const* Ws,
-                  const void* const* bs, int act, void* stream) {
+                  float* y1, float* ys, float* err, int B, int d, int s,
+                  const double* tab, const double* err_tab, double dt,
+                  float sign, int n_layers, const int* dims,
+                  const void* const* Ws, const void* const* bs, int act,
+                  void* stream) {
   Mlp p;
   Tableau tb;
   int rc = make_mlp(&p, n_layers, dims, Ws, bs, act);
   if (rc) return rc;
-  if ((rc = make_tableau(&tb, s, tab, dt))) return rc;
+  if ((err == nullptr) != (err_tab == nullptr)) return cudaErrorInvalidValue;
+  if ((rc = make_tableau(&tb, s, tab, dt, err_tab))) return rc;
   if (B < 1 || dims[0] != d || dims[n_layers] != d)
     return cudaErrorInvalidValue;
   const size_t smem = pnode_ark_fwd_smem(d, s, p.maxd);
   if ((rc = prepare_smem(ark_fwd_kernel, smem))) return rc;
   const int nblk = (B + kRows - 1) / kRows;
   ark_fwd_kernel<<<nblk, kThreads, smem, (cudaStream_t)stream>>>(
-      y, J, inv, y1, ys, B, d, tb, sign, p);
+      y, J, inv, y1, ys, err, B, d, tb, sign, p);
   return (int)cudaGetLastError();
 }
 

@@ -52,12 +52,6 @@ namespace pnode {
 
 constexpr int kReduceFloats = 32;  // per-warp loss sums
 
-// Adam's constants, rounded to fp32 from host doubles as the reference's
-// Python floats are.
-struct Adam {
-  float lr, b1, b2, omb1, omb2, eps, ln_b1, ln_b2;
-};
-
 // Shared-memory layout of one block, in floats: the s stage values and the
 // seed tile persist from the forward to the reverse; the forward's and the
 // reverse's scratch overlay each other.
@@ -71,21 +65,6 @@ struct LoopSmem {
     total = tile * (s + 1) + (fwd > rev ? fwd : rev) + kReduceFloats;
   }
 };
-
-// Sum of v over the block in a fixed order: each warp by shuffles, then
-// warp 0 over the warp sums. Returns the sum in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float total = 0.0f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < (int)(blockDim.x / 32); ++w) total += red[w];
-  __syncthreads();
-  return total;
-}
 
 __global__ void __launch_bounds__(kThreads)
 train_loop_kernel(const float* __restrict__ y_stack,
@@ -124,7 +103,6 @@ train_loop_kernel(const float* __restrict__ y_stack,
 
   const int ntiles = (B + kRows - 1) / kRows;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nthreads = gridDim.x * blockDim.x;
 
   for (int k = 0; k < K; ++k) {
     const float* y = y_stack + (size_t)k * B * d;
@@ -160,20 +138,8 @@ train_loop_kernel(const float* __restrict__ y_stack,
     grid.sync();
 
     // ---- phase B: ordered sum of the partials, then Adam ------------------
-    const float tf = (float)(t0 + k + 1);
-    const float c1 = 1.0f - expf(tf * adam.ln_b1);
-    const float c2 = 1.0f - expf(tf * adam.ln_b2);
-    for (int i = gtid; i < p.wtotal; i += nthreads) {
-      float g = 0.0f;
-      for (int blk = 0; blk < (int)gridDim.x; ++blk)
-        g += __ldcg(partial + (size_t)blk * p.wtotal + i);
-      const float mi = adam.b1 * __ldcg(m_state + i) + adam.omb1 * g;
-      const float vi = adam.b2 * __ldcg(v_state + i) + adam.omb2 * (g * g);
-      m_state[i] = mi;
-      v_state[i] = vi;
-      params[i] = __ldcg(params + i) -
-                  adam.lr * (mi / c1) / (sqrtf(vi / c2) + adam.eps);
-    }
+    sum_partials_adam(adam, t0 + k + 1, partial, p.wtotal, params, m_state,
+                      v_state);
     if (gtid == 0) {
       float l = 0.0f;
       for (int blk = 0; blk < (int)gridDim.x; ++blk)
@@ -248,14 +214,7 @@ int pnode_train_loop(const float* y_stack, const float* tgt_stack,
   int rc = make_mlp(&p, n_layers, dims, Ws, bs, act);
   if (rc) return rc;
   if ((rc = make_tableau(&tb, s, tab, dt))) return rc;
-  Adam adam{lr,
-            (float)b1,
-            (float)b2,
-            (float)(1.0 - b1),
-            (float)(1.0 - b2),
-            (float)eps,
-            (float)std::log(b1),
-            (float)std::log(b2)};
+  const Adam adam = make_adam(lr, b1, b2, eps);
   const float inv_count = (float)(1.0 / ((double)B * d));
   const float two_inv_count = (float)(2.0 / ((double)B * d));
   const size_t smem = pnode_train_loop_smem(d, s, p.maxd, p.htotal);

@@ -17,6 +17,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
+
 namespace pnode {
 
 constexpr int kRows = 8;        // batch rows per block
@@ -43,21 +45,28 @@ struct Mlp {
   const float* b[kMaxLayers];
 };
 
-// ARK-IMEX tableau with every coefficient already multiplied by dt on the
+// ARK-IMEX tableau with every coefficient already multiplied by dt: on the
 // host in double precision (then rounded to fp32, as the plain PyTorch
-// version rounds its Python-float coefficients). nz* keep the tableau's
-// own zero pattern, so control flow does not depend on dt.
+// version rounds its Python-float coefficients) for the step kernels, or on
+// the device in fp32 (scale_tableau) where dt changes inside a launch. nz*
+// keep the tableau's own zero pattern, so control flow does not depend on
+// dt. The err rows are the embedded pair's weight differences b - b_err
+// (nzerr* all 0 when the tableau carries no embedded pair).
 struct Tableau {
   int s;
   float cI[kMaxStages][kMaxStages];  // dt * aI
   float cE[kMaxStages][kMaxStages];  // dt * aE
   float cbI[kMaxStages];             // dt * bI
   float cbE[kMaxStages];             // dt * bE
+  float cerrI[kMaxStages];           // dt * (bI - bI_err)
+  float cerrE[kMaxStages];           // dt * (bE - bE_err)
   float inv_dt[kMaxStages];          // 1 / (dt * aI_ii), 0 when dt == 0
   unsigned char nzI[kMaxStages][kMaxStages];
   unsigned char nzE[kMaxStages][kMaxStages];
   unsigned char nzbI[kMaxStages];
   unsigned char nzbE[kMaxStages];
+  unsigned char nzerrI[kMaxStages];
+  unsigned char nzerrE[kMaxStages];
 };
 
 __device__ __forceinline__ float act_fwd(float z, int act) {
@@ -80,9 +89,13 @@ __device__ __forceinline__ float act_grad(float h, int act) {
 // (K4) rewrites its weights between iterations of one launch, so its weight
 // and bias reads are coherent: __ldcg reads through L2, which every SM sees
 // after a grid-wide barrier.
-template <bool kCoherent>
+// kPlain: an ordinary load, for an operand in shared memory (K5 forms its
+// per-trial stage inverse there).
+template <bool kCoherent, bool kPlain = false>
 __device__ __forceinline__ float load_operand(const float* p) {
-  if constexpr (kCoherent) {
+  if constexpr (kPlain) {
+    return *p;
+  } else if constexpr (kCoherent) {
     return __ldcg(p);
   } else {
     return __ldg(p);
@@ -94,10 +107,10 @@ __device__ __forceinline__ float load_operand(const float* p) {
 // with M^T). `in` is shared memory with row stride ldi; `out` is shared or
 // global memory with row stride ldo. Consecutive threads take consecutive
 // columns j, so the reads of M are coalesced when !trans_m, and each
-// thread reuses one M element for kRowChunk rows. kCoherent selects the
-// loads of M and bias (load_operand); M and bias carry no __restrict__,
-// since K4 writes them during the launch.
-template <bool kCoherent = false>
+// thread reuses one M element for kRowChunk rows. kCoherent and kPlain
+// select the loads of M and bias (load_operand); M and bias carry no
+// __restrict__, since K4 and K5 write them during the launch.
+template <bool kCoherent = false, bool kPlain = false>
 __device__ __forceinline__ void rows_matmul(
     const float* in, int ldi, int rows, int K, const float* M, bool trans_m,
     int N, const float* bias, int act, float* out, int ldo) {
@@ -109,13 +122,15 @@ __device__ __forceinline__ void rows_matmul(
 #pragma unroll
     for (int c = 0; c < kRowChunk; ++c) acc[c] = 0.0f;
     for (int k = 0; k < K; ++k) {
-      const float m = trans_m ? load_operand<kCoherent>(M + (size_t)j * K + k)
-                              : load_operand<kCoherent>(M + (size_t)k * N + j);
+      const float m =
+          trans_m ? load_operand<kCoherent, kPlain>(M + (size_t)j * K + k)
+                  : load_operand<kCoherent, kPlain>(M + (size_t)k * N + j);
 #pragma unroll
       for (int c = 0; c < kRowChunk; ++c)
         if (r0 + c < rows) acc[c] = fmaf(in[(r0 + c) * ldi + k], m, acc[c]);
     }
-    const float bj = bias != nullptr ? load_operand<kCoherent>(bias + j) : 0.0f;
+    const float bj =
+        bias != nullptr ? load_operand<kCoherent, kPlain>(bias + j) : 0.0f;
 #pragma unroll
     for (int c = 0; c < kRowChunk; ++c)
       if (r0 + c < rows) out[(r0 + c) * ldo + j] = act_fwd(acc[c] + bj, act);
@@ -123,13 +138,17 @@ __device__ __forceinline__ void rows_matmul(
 }
 
 // Copy `rows` rows of width w between row-major arrays (strides ld_src,
-// ld_dst), scaled by `scale`.
+// ld_dst), scaled by `scale`. kCoherent reads the source through L2
+// (__ldcg): for device-memory workspaces that the same launch rewrites.
+template <bool kCoherent = false>
 __device__ __forceinline__ void copy_rows(const float* src, int ld_src,
                                           float* dst, int ld_dst, int rows,
                                           int w, float scale) {
   for (int e = threadIdx.x; e < rows * w; e += blockDim.x) {
     const int r = e / w, c = e % w;
-    dst[r * ld_dst + c] = scale * src[r * ld_src + c];
+    const float v = kCoherent ? __ldcg(src + r * ld_src + c)
+                              : src[r * ld_src + c];
+    dst[r * ld_dst + c] = scale * v;
   }
 }
 
@@ -215,18 +234,25 @@ __device__ __forceinline__ float* mlp_backward(const Mlp& p, const float* hs,
 }
 
 // One ARK-IMEX forward step on one tile of `rows` rows (K2's body, shared
-// with K4). Shared memory: y (the input rows), kI and kE (s tiles each of
-// kRows * d), G (one tile), a and b (MLP ping-pong, kRows * maxd each).
-// Stage value i goes to Ys + i * ys_step (shared memory: K2 passes one
-// tile and ys_step 0, K4 keeps all s tiles for its reverse sweep), and,
+// with K4 and K5). Shared memory: y (the input rows), kI and kE (s tiles
+// each of kRows * d), G (one tile), a and b (MLP ping-pong, kRows * maxd
+// each). Stage value i goes to Ys + i * ys_step (shared memory: K2 passes
+// one tile and ys_step 0, K4 keeps all s tiles for its reverse sweep), and,
 // when ys_out != nullptr, to ys_out + i * ys_out_step (K2's global
-// trajectory payload). y1 (row stride d) is shared or global memory.
-template <bool kCoherent>
+// trajectory payload). y1 (row stride d) is shared or global memory; so is
+// err, the embedded error estimate sum_i (dt (bI - bI_err)_i kI_i + dt (bE -
+// bE_err)_i kE_i), written when err != nullptr.
+// kInvPlain: `inv` lies in shared memory (K5's per-trial stage inverse).
+// kStageJY: the implicit stages' derivative is kI = Y J^T, as K5 needs, not
+// the difference quotient (Y - G) / (dt aI_ii) of K2 and K4: equal in exact
+// arithmetic, but the quotient's fp32 cancellation puts a dt-independent
+// floor under the error estimate, which stalls the adaptive controller.
+template <bool kCoherent, bool kInvPlain = false, bool kStageJY = false>
 __device__ __forceinline__ void ark_forward_tile(
     const Mlp& p, const Tableau& tb, float sign, const float* J,
     const float* inv, int d, int rows, const float* y, float* kI, float* kE,
     float* G, float* Ys, int ys_step, float* ys_out, size_t ys_out_step,
-    float* a, float* b, float* y1) {
+    float* a, float* b, float* y1, float* err = nullptr) {
   const int s = tb.s;
   const int tile = kRows * d;
   for (int i = 0; i < s; ++i) {
@@ -244,11 +270,16 @@ __device__ __forceinline__ void ark_forward_tile(
     float* kIi = kI + i * tile;
     float* Yi = Ys + i * ys_step;
     if (tb.nzI[i][i]) {
-      rows_matmul(G, d, rows, d, inv, true, d, nullptr, kActNone, Yi, d);
+      rows_matmul<false, kInvPlain>(G, d, rows, d, inv, true, d, nullptr,
+                                    kActNone, Yi, d);
       __syncthreads();
-      const float inv_dt = tb.inv_dt[i];
-      for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
-        kIi[e] = (Yi[e] - G[e]) * inv_dt;
+      if constexpr (kStageJY) {
+        rows_matmul(Yi, d, rows, d, J, true, d, nullptr, kActNone, kIi, d);
+      } else {
+        const float inv_dt = tb.inv_dt[i];
+        for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
+          kIi[e] = (Yi[e] - G[e]) * inv_dt;
+      }
     } else {
       rows_matmul(G, d, rows, d, J, true, d, nullptr, kActNone, kIi, d);
       copy_rows(G, d, Yi, d, rows, d, 1.0f);
@@ -263,7 +294,8 @@ __device__ __forceinline__ void ark_forward_tile(
     __syncthreads();
   }
 
-  // y1 = y + sum_i (dt bI_i kI_i + dt bE_i kE_i), stage order
+  // y1 = y + sum_i (dt bI_i kI_i + dt bE_i kE_i), stage order; err likewise
+  // from 0 with the weight differences
   for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
     float acc = y[e];
     for (int i = 0; i < s; ++i) {
@@ -271,19 +303,28 @@ __device__ __forceinline__ void ark_forward_tile(
       if (tb.nzbE[i]) acc = acc + tb.cbE[i] * kE[i * tile + e];
     }
     y1[e] = acc;
+    if (err != nullptr) {
+      float ea = 0.0f;
+      for (int i = 0; i < s; ++i) {
+        if (tb.nzerrI[i]) ea = ea + tb.cerrI[i] * kI[i * tile + e];
+        if (tb.nzerrE[i]) ea = ea + tb.cerrE[i] * kE[i * tile + e];
+      }
+      err[e] = ea;
+    }
   }
 }
 
 // One stage-exact reverse step on one tile of `rows` rows (K3's body,
-// shared with K4). lam_s: the incoming covector (shared). Stage value i is
-// read from Ys + i * ys_step (K3: its global trajectory payload; K4: its
-// shared-memory stages). Shared scratch: xis (s tiles), u, uh, pv, q (one
+// shared with K4 and K5; kInvPlain as in ark_forward_tile). lam_s: the
+// incoming covector (shared). Stage value i is read from Ys + i * ys_step
+// (K3: its global trajectory payload; K4, K5: their shared-memory
+// stages). Shared scratch: xis (s tiles), u, uh, pv, q (one
 // tile each), hs (p.htotal: recomputed layer inputs), gA and gB (kRows *
 // maxd each). When lp != nullptr, lam_prev = lam + sum_i xi_i is added to
 // lp (shared, holding lam on entry). The tile's dW/db go to `part` in the
 // [W0, b0, W1, b1, ...] layout: overwritten at the first stage that
 // reaches the MLP while first_grad is set (which clears it), added after.
-template <bool kCoherent>
+template <bool kCoherent, bool kInvPlain = false>
 __device__ __forceinline__ void ark_reverse_tile(
     const Mlp& p, const Tableau& tb, float sign, const float* J,
     const float* inv, int d, int rows, const float* lam_s, const float* Ys,
@@ -348,12 +389,14 @@ __device__ __forceinline__ void ark_reverse_tile(
           q[e] = has_p ? c + pv[e] : c;
         }
         __syncthreads();
-        rows_matmul(q, d, rows, d, inv, false, d, nullptr, kActNone, xi, d);
+        rows_matmul<false, kInvPlain>(q, d, rows, d, inv, false, d, nullptr,
+                                      kActNone, xi, d);
         __syncthreads();
         for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
           xi[e] = xi[e] - u[e];
       } else {
-        rows_matmul(pv, d, rows, d, inv, false, d, nullptr, kActNone, xi, d);
+        rows_matmul<false, kInvPlain>(pv, d, rows, d, inv, false, d, nullptr,
+                                      kActNone, xi, d);
       }
     } else {
       copy_rows(pv, d, xi, d, rows, d, 1.0f);
@@ -364,6 +407,78 @@ __device__ __forceinline__ void ark_reverse_tile(
         lp[e] = lp[e] + xi[e];
       __syncthreads();
     }
+  }
+}
+
+// Adam's constants, rounded to fp32 from host doubles as the reference's
+// Python floats are (K4, K5).
+struct Adam {
+  float lr, b1, b2, omb1, omb2, eps, ln_b1, ln_b2;
+};
+
+// Sum of v over the block in a fixed order: each warp by shuffles, then
+// warp 0 over the warp sums. Returns the sum in thread 0.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float total = 0.0f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < (int)(blockDim.x / 32); ++w) total += red[w];
+  __syncthreads();
+  return total;
+}
+
+// The loop kernels' phase B, on every thread of a cooperative grid: for its
+// slice of the flat [W0, b0, W1, b1, ...] parameters, sum the grid's block
+// partials in block order (deterministic, no atomics), then optax's Adam
+// update number t (counting from 1) in place:
+//   m <- b1 m + (1 - b1) g;  v <- b2 v + (1 - b2) g^2
+//   p <- p - lr (m / c1) / (sqrt(v / c2) + eps),  c = 1 - exp(t ln b)
+__device__ __forceinline__ void sum_partials_adam(const Adam& adam, int t,
+                                                  const float* partial,
+                                                  int wtotal, float* params,
+                                                  float* m_state,
+                                                  float* v_state) {
+  const float tf = (float)t;
+  const float c1 = 1.0f - expf(tf * adam.ln_b1);
+  const float c2 = 1.0f - expf(tf * adam.ln_b2);
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nthreads = gridDim.x * blockDim.x;
+  for (int i = gtid; i < wtotal; i += nthreads) {
+    float g = 0.0f;
+    for (int blk = 0; blk < (int)gridDim.x; ++blk)
+      g += __ldcg(partial + (size_t)blk * wtotal + i);
+    const float mi = adam.b1 * __ldcg(m_state + i) + adam.omb1 * g;
+    const float vi = adam.b2 * __ldcg(v_state + i) + adam.omb2 * (g * g);
+    m_state[i] = mi;
+    v_state[i] = vi;
+    params[i] = __ldcg(params + i) -
+                adam.lr * (mi / c1) / (sqrtf(vi / c2) + adam.eps);
+  }
+}
+
+// The tableau at step size dt, scaled on the device in fp32 as the JAX
+// package scales it for a traced dt (fp32 dt times the coefficient rounded
+// to fp32); `base` holds the coefficients at dt = 1 (make_tableau with dt
+// 1.0). One thread writes `out`.
+__device__ __forceinline__ void scale_tableau(const Tableau& base, float dt,
+                                              Tableau* out) {
+  *out = base;
+  for (int i = 0; i < base.s; ++i) {
+    for (int j = 0; j < base.s; ++j) {
+      out->cI[i][j] = __fmul_rn(dt, base.cI[i][j]);
+      out->cE[i][j] = __fmul_rn(dt, base.cE[i][j]);
+    }
+    out->cbI[i] = __fmul_rn(dt, base.cbI[i]);
+    out->cbE[i] = __fmul_rn(dt, base.cbE[i]);
+    out->cerrI[i] = __fmul_rn(dt, base.cerrI[i]);
+    out->cerrE[i] = __fmul_rn(dt, base.cerrE[i]);
+    out->inv_dt[i] = (dt == 0.0f || !base.nzI[i][i])
+                         ? 0.0f
+                         : __fdiv_rn(1.0f, __fmul_rn(dt, base.cI[i][i]));
   }
 }
 
@@ -413,9 +528,10 @@ static inline int make_mlp(Mlp* p, int n_layers, const int* dims,
   return 0;
 }
 
-// Host: fill a Tableau from the raw (aI s*s, aE s*s, bI s, bE s) doubles.
+// Host: fill a Tableau from the raw (aI s*s, aE s*s, bI s, bE s) doubles
+// and, when err != nullptr, the embedded weights (bI_err s, bE_err s).
 static inline int make_tableau(Tableau* t, int s, const double* tab,
-                               double dt) {
+                               double dt, const double* err = nullptr) {
   if (s < 1 || s > kMaxStages) return cudaErrorInvalidValue;
   const double* aI = tab;
   const double* aE = tab + s * s;
@@ -434,12 +550,32 @@ static inline int make_tableau(Tableau* t, int s, const double* tab,
     t->cbE[i] = static_cast<float>(dt * bE[i]);
     t->nzbI[i] = bI[i] != 0.0;
     t->nzbE[i] = bE[i] != 0.0;
+    if (err != nullptr) {
+      // the weight differences in double, as the reference's Python floats
+      const double dI = bI[i] - err[i], dE = bE[i] - err[s + i];
+      t->cerrI[i] = static_cast<float>(dt * dI);
+      t->cerrE[i] = static_cast<float>(dt * dE);
+      t->nzerrI[i] = dI != 0.0;
+      t->nzerrE[i] = dE != 0.0;
+    }
     const double aii = aI[i * s + i];
     t->inv_dt[i] = (dt == 0.0 || aii == 0.0)
                        ? 0.0f
                        : static_cast<float>(1.0 / (dt * aii));
   }
   return 0;
+}
+
+// Host: Adam's constants from the reference's Python floats.
+static inline Adam make_adam(float lr, double b1, double b2, double eps) {
+  return Adam{lr,
+              (float)b1,
+              (float)b2,
+              (float)(1.0 - b1),
+              (float)(1.0 - b2),
+              (float)eps,
+              (float)std::log(b1),
+              (float)std::log(b2)};
 }
 
 // Host: opt the kernel into `bytes` of dynamic shared memory when it needs

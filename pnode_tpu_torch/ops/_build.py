@@ -49,8 +49,8 @@ _SIGNATURES = {
     "pnode_mlp_fwd": (_I, [_P, _P, _I, _I, _PI, _PP, _PP, _I, _P]),
     "pnode_mlp_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _PI, _PP, _PP, _I,
                            _P]),
-    "pnode_ark_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _PD, _D, _F, _I,
-                           _PI, _PP, _PP, _I, _P]),
+    "pnode_ark_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _PD, _D,
+                           _F, _I, _PI, _PP, _PP, _I, _P]),
     "pnode_ark_adj": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _D,
                            _F, _I, _PI, _PP, _PP, _I, _P]),
     "pnode_ark_fwd_smem": (ctypes.c_size_t, [_I, _I, _I]),
@@ -60,6 +60,12 @@ _SIGNATURES = {
                               _D, _D, _I, _P]),
     "pnode_train_loop_smem": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "pnode_train_loop_capacity": (_I, [ctypes.c_size_t, _PI]),
+    "pnode_adaptive_loop": (_I, [_P] * 15 + [_I, _I, _I, _I, _PD, _PD, _D, _F,
+                                             _I, _PI, _I, _I, _F, _D, _D, _D,
+                                             _I, _D, _D, _D, _D, _D, _D, _D,
+                                             _I, _P]),
+    "pnode_adaptive_loop_smem": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
+    "pnode_adaptive_loop_capacity": (_I, [ctypes.c_size_t, _PI]),
 }
 
 _lock = threading.Lock()

@@ -148,11 +148,14 @@ def tableau_array(tableau_static):
 def fused_ark_step_adj_plain(tableau_static, dt, Ys, lam, J_dense, inv_op,
                              weights, biases, activation="relu", sign=-1.0):
     """Plain PyTorch version of the fused reverse step (same signature and
-    algebraic collapse as the kernel). Returns (lam_prev, (dWs, dbs))."""
+    algebraic collapse as the kernel). Returns (lam_prev, (dWs, dbs)).
+    ``dt`` is a Python float, or a 0-d tensor whose dtype then rounds every
+    coefficient dt * a (K5's plain version)."""
     aI, aE, bI, bE = tableau_static
     s = len(bI)
     n = len(weights)
-    dt = float(dt)
+    if not isinstance(dt, torch.Tensor):
+        dt = float(dt)
     dWs: list = [None] * n
     dbs: list = [None] * n
     xis: list = [None] * s

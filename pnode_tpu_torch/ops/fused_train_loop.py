@@ -132,7 +132,6 @@ def fused_train_loop_plain(tableau_static, dt, y_stack, tgt_stack, J_dense,
     plus its Adam update, on the plain forward and reverse steps."""
     K, B, d = (int(x) for x in y_stack.shape)
     inv_count = 1.0 / (B * d)
-    ln_b1, ln_b2 = math.log(b1), math.log(b2)
     params = [list(weights), list(biases)]
     m = [list(m_state[0]), list(m_state[1])]
     v = [list(v_state[0]), list(v_state[1])]
@@ -148,27 +147,36 @@ def fused_train_loop_plain(tableau_static, dt, y_stack, tgt_stack, J_dense,
         _, grads = fused_ark_step_adj_plain(tableau_static, dt, Ys, lam,
                                             J_dense, inv_op, Ws, bs,
                                             activation, sign)
-        t = torch.tensor(float(t0 + k + 1), dtype=y_stack.dtype,
-                         device=y_stack.device)
-        c1 = 1.0 - torch.exp(t * ln_b1)
-        c2 = 1.0 - torch.exp(t * ln_b2)
-        for part in range(2):  # weights, then biases
-            for l, g in enumerate(grads[part]):
-                mi = b1 * m[part][l] + (1.0 - b1) * g
-                vi = b2 * v[part][l] + (1.0 - b2) * (g * g)
-                m[part][l], v[part][l] = mi, vi
-                params[part][l] = params[part][l] - lr * (mi / c1) / (
-                    torch.sqrt(vi / c2) + eps)
+        adam_step_plain(params, m, v, grads, t0 + k + 1, lr, b1, b2, eps)
     return (params[0], params[1], (m[0], m[1]), (v[0], v[1]),
             torch.stack(losses))
 
 
+def adam_step_plain(params, m, v, grads, t, lr, b1, b2, eps):
+    """optax's Adam update number ``t`` (counting from 1) in the loop
+    kernels' form: the bias corrections 1 - exp(t ln b) in the parameters'
+    dtype. params, m, v and grads are [weights, biases] pairs of lists;
+    params, m and v are updated in place (their list entries replaced)."""
+    ref = params[0][0]
+    tt = torch.tensor(float(t), dtype=ref.dtype, device=ref.device)
+    c1 = 1.0 - torch.exp(tt * math.log(b1))
+    c2 = 1.0 - torch.exp(tt * math.log(b2))
+    for part in range(2):  # weights, then biases
+        for l, g in enumerate(grads[part]):
+            mi = b1 * m[part][l] + (1.0 - b1) * g
+            vi = b2 * v[part][l] + (1.0 - b2) * (g * g)
+            m[part][l], v[part][l] = mi, vi
+            params[part][l] = params[part][l] - lr * (mi / c1) / (
+                torch.sqrt(vi / c2) + eps)
+
+
 # -- kernel wrapper ---------------------------------------------------------
 
-def _check_loop_args(tableau_static, y_stack, tgt_stack, J_dense, inv_op,
-                     weights, biases, m_state, v_state, activation, chunk):
-    """Validate the operands; returns (K, B, d, s, dims, chunk)."""
-    what = "fused_train_loop"
+def check_loop_operands(what, tableau_static, y_stack, tgt_stack, J_dense,
+                        inv_op, weights, biases, m_state, v_state,
+                        activation):
+    """Validate the operands shared by the loop kernels (K4, K5); returns
+    (K, B, d, s, dims)."""
     dev = y_stack.device if isinstance(y_stack, torch.Tensor) else None
     _check_tensor(y_stack, 3, what, "y_stack", dev)
     _check_tensor(tgt_stack, 3, what, "tgt_stack", dev)
@@ -192,6 +200,16 @@ def _check_loop_args(tableau_static, y_stack, tgt_stack, J_dense, inv_op,
                 if g.shape != r.shape:
                     raise ValueError(f"{what}: {name}[{i}] must be "
                                      f"{tuple(r.shape)}, got {tuple(g.shape)}")
+    return K, B, d, s, dims
+
+
+def _check_loop_args(tableau_static, y_stack, tgt_stack, J_dense, inv_op,
+                     weights, biases, m_state, v_state, activation, chunk):
+    """Validate the operands; returns (K, B, d, s, dims, chunk)."""
+    what = "fused_train_loop"
+    K, B, d, s, dims = check_loop_operands(
+        what, tableau_static, y_stack, tgt_stack, J_dense, inv_op, weights,
+        biases, m_state, v_state, activation)
     C = K if chunk is None else int(chunk)
     if chunk is not None:
         if C < 1 or K % C != 0:

@@ -16,9 +16,12 @@ Runtime options override programmatic choices (setFromOptions-last):
 ``-ts_type``, ``-ts_arkimex_type``, ``-ts_max_steps``,
 ``-ts_trajectory_solution_only``, ``-snes_type``, ``-snes_rtol``,
 ``-snes_atol``, ``-snes_stol``, ``-snes_max_it``, ``-snes_ksponly_check``,
-``-pnode_linear_solver``. This slice runs the IMEX method with the
-``store_all`` / ``solution_only`` policies on fixed steps; the other
-methods, trajectory policies and the adaptive controller raise
+``-pnode_linear_solver``, and the adaptive controller's ``-ts_adapt_type
+basic|pi``, ``-ts_rtol``, ``-ts_atol``, ``-ts_adapt_safety``,
+``-ts_adapt_clip low,high`` and ``-ts_adapt_max_steps`` (``adaptive.py``;
+``solve(..., dt0=)`` warm-starts it). The port runs the IMEX method with
+the ``store_all`` / ``solution_only`` policies, on fixed steps or under the
+controller; the other methods and trajectory policies raise
 ``NotImplementedError`` naming their ROADMAP slice.
 """
 
@@ -184,10 +187,6 @@ class ODESolver:
         self.traj = TrajectoryConfig(kind=traj_kind)
 
         self.adapt_type = self.opts.get_string("ts_adapt_type", "none")
-        if self.adapt_type not in (None, "none"):
-            raise NotImplementedError(
-                f"-ts_adapt_type {self.adapt_type}: the adaptive controller "
-                "is ROADMAP queue A slice 3")
         self.max_steps = self.opts.get_int("ts_max_steps", 1_000_000)
 
         self._cache.clear()
@@ -252,14 +251,85 @@ class ODESolver:
             return np.array([0.0, float(t_np[0])]), slice(1, 2)
         return t_np, slice(None)
 
-    def solve(self, u0, t, params=None, with_adjoint: Optional[bool] = None):
+    def _build_adapt_cfg(self):
+        """(AdaptConfig, dt0) from the options database."""
+        from .adaptive import AdaptConfig
+
+        if not hasattr(self._stepper, "step_embedded"):
+            raise ValueError(
+                "-ts_adapt_type basic needs an embedded error estimate; "
+                f"method {self.method!r} has none (use an embedded RK "
+                "(bosh3/dopri5) or an ARK pair with b_err, or "
+                "-ts_adapt_type none)")
+        tab = getattr(self._stepper, "tab", None)
+        order = getattr(tab, "order", 5) if tab is not None else 2
+        # -ts_adapt_clip low,high (PETSc TSAdaptSetClip)
+        clip = self.opts.get_string("ts_adapt_clip", "")
+        lo, hi = 0.1, 10.0
+        if clip:
+            parts = [p for p in clip.replace(",", " ").split() if p]
+            if len(parts) == 2:
+                lo, hi = float(parts[0]), float(parts[1])
+            else:
+                warnings.warn(
+                    f"-ts_adapt_clip expects 'low,high'; got {clip!r}")
+        cfg = AdaptConfig(
+            rtol=self.opts.get_real("ts_rtol", 1e-4),
+            atol=self.opts.get_real("ts_atol", 1e-4),
+            safety=self.opts.get_real("ts_adapt_safety", 0.9),
+            dt_min_factor=lo,
+            dt_max_factor=hi,
+            max_steps=min(self.max_steps,
+                          self.opts.get_int("ts_adapt_max_steps", 4096)),
+            order=order,
+            controller="pi" if self.adapt_type == "pi" else "basic",
+        )
+        dt0 = (float(self.step_size[0])
+               if isinstance(self.step_size, (list, tuple))
+               else float(self.step_size))
+        return cfg, dt0
+
+    def _get_adaptive_fn(self, t_full, with_adjoint: bool):
+        from .adaptive import make_adaptive_odeint
+
+        key = ("adaptive", tuple(float(x) for x in t_full), with_adjoint,
+               self.traj)
+        fn = self._cache.get(key)
+        if fn is None:
+            cfg, dt0 = self._build_adapt_cfg()
+            fn = make_adaptive_odeint(self._stepper, t_full, cfg, dt0,
+                                      with_adjoint=with_adjoint,
+                                      traj=self.traj)
+            self._cache[key] = fn
+        return fn
+
+    def solve(self, u0, t, params=None, with_adjoint: Optional[bool] = None,
+              dt0=None):
         """Functional solve: returns (solution, stats); differentiable when
-        ``with_adjoint`` (the default follows ``enable_adjoint``)."""
+        ``with_adjoint`` (the default follows ``enable_adjoint``).
+
+        ``dt0`` (adaptive mode only) overrides the controller's initial
+        step for this solve: ``stats.dt_first`` of the previous solve of the
+        same window warm-starts it (a training loop), where the end-of-
+        window ``stats.dt_last`` would re-pay the initial rejection descent
+        each time. PETSc resets dt every TSSolve; the warm start goes beyond
+        the reference's operating mode.
+        """
         if not self._configured:
             raise RuntimeError("call setupTS before odeint")
         if with_adjoint is None:
             with_adjoint = self.enable_adjoint
         t_full, sel = self._prep_times(t)
+        if self.adapt_type not in (None, "none"):
+            fn = self._get_adaptive_fn(t_full, with_adjoint)
+            y0 = torch.as_tensor(u0, dtype=self.dtype, device=self.device)
+            p = self._get_params() if params is None else params
+            outputs, stats = fn(y0, p) if dt0 is None else fn(y0, p, dt0)
+            self.last_stats = stats
+            return outputs[sel], stats
+        if dt0 is not None:
+            raise ValueError("dt0 is an adaptive-mode argument "
+                             "(-ts_adapt_type basic/pi)")
         grid = build_time_grid(t_full, self.step_size,
                                max_steps=self.max_steps)
         fn = self._get_solve_fn(grid, with_adjoint)

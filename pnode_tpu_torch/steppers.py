@@ -5,6 +5,9 @@ and theta families are ROADMAP queue A slice 4). The stepper provides:
 
 - ``step(t, dt, y, params) -> (y1, aux, stats)``: one step; ``aux`` stacks
   the stage values Y_i (the trajectory payload of ``store_all``).
+- ``step_embedded(t, dt, y, params) -> (y1, err, aux, stats)``: the step
+  plus the embedded error estimate of a tableau with ``b_err`` weights, the
+  adaptive controller's trial step (``adaptive.py``).
 - ``step_adj(t, dt, y, params, aux, lam) -> (lam_prev, gparams)``: the exact
   transpose of the discrete step map. With stages
   ``Y_i = y + h sum_{j<i}(aI_ij kI_j + aE_ij kE_j) + h aI_ii fI(Y_i)`` the
@@ -20,9 +23,10 @@ and theta families are ROADMAP queue A slice 4). The stepper provides:
 On the production stiff-PDE configuration (ksponly, a frozen shared
 Jacobian of a certified-linear parameter-free implicit part, a single
 ESDIRK gamma, f_EX = sign * MLP, fp32 2-D state) ``step`` and ``step_adj``
-run the fused step kernels K2 and K3 (``ops/``); everything else runs the
-generic stage loop, whose f_EX evaluations go through K1 when the model
-uses ``FusedStackedMLP``. Vector-Jacobian products use
+run the fused step kernels K2 (with its err output under the adaptive
+controller) and K3 (``ops/``); everything else runs the generic stage
+loop, whose f_EX evaluations go through K1 when the model uses
+``FusedStackedMLP``. Vector-Jacobian products use
 ``torch.autograd.grad`` on a graph built for that one evaluation: nothing
 outside a single stage ever records a graph.
 """
@@ -148,6 +152,13 @@ class ARKIMEX:
         self._bE = [float(x) for x in tableau.b_ex]
         self._cI = [float(x) for x in tableau.c_im]
         self._cE = [float(x) for x in tableau.c_ex]
+        self._bIe = (None if tableau.b_im_err is None
+                     else [float(x) for x in tableau.b_im_err])
+        self._bEe = (None if tableau.b_ex_err is None
+                     else [float(x) for x in tableau.b_ex_err])
+        # {id(J): (J, basis)} of _spectral_stage_basis, shared by the copies
+        # prepare() makes (the frozen J outlives them)
+        self._spectral_memo = {}
 
     def _tableau_static(self):
         return (self._aI, self._aE, self._bI, self._bE)
@@ -216,7 +227,53 @@ class ARKIMEX:
         n_impl = sum(1 for i in range(self.tab.stages) if self._aI[i][i] != 0.0)
         return StepStats(newton_iters=n_impl, newton_converged=True)
 
+    def static_newton_iters(self):
+        """Newton iterations of one step when they do not depend on the data
+        (ksponly without its residual check: one linearized solve per
+        implicit stage, fused or generic), else None."""
+        cfg = self.setup.newton_cfg
+        if cfg.ksponly and not cfg.ksponly_check:
+            return self._fused_stats().newton_iters
+        return None
+
     def _step_generic(self, t, dt, y, params):
+        y1, aux, stats, _ = self._stage_loop(t, dt, y, params)
+        return y1, aux, stats
+
+    def step_embedded(self, t, dt, y, params):
+        """Step plus the embedded error estimate: (y1, err, aux, stats),
+        with err = dt sum_i ((bI - bI_err)_i kI_i + (bE - bE_err)_i kE_i).
+        On the fused gate it is one K2 launch with the err output, the
+        stage inverse formed for this trial's dt (_fused_reverse_args)."""
+        tab = self.tab
+        if tab.b_im_err is None:
+            raise ValueError(
+                f"ARK tableau {tab.name!r} has no embedded weights; "
+                "-ts_adapt_type basic requires one of 1bee/3/4")
+        if self._fused_fwd_ok(y):
+            fused = self._fused_reverse_args(params, dt=dt)
+            if fused is not None:
+                from .ops.fused_ark_forward import fused_ark_step_fwd
+
+                spec, J, inv_op = fused
+                y1, err, aux = fused_ark_step_fwd(
+                    self._tableau_static(), dt, y, J, inv_op, spec["Ws"],
+                    spec["bs"], activation=spec["activation"],
+                    sign=spec["sign"], b_err=(self._bIe, self._bEe))
+                return y1, err, aux, self._fused_stats()
+        y1, aux, stats, (kI, kE) = self._stage_loop(t, dt, y, params)
+        err = torch.zeros_like(y)
+        for i in range(tab.stages):
+            dI = self._bI[i] - self._bIe[i]
+            dE = self._bE[i] - self._bEe[i]
+            if dI != 0.0:
+                err = err + (dt * dI) * kI[i]
+            if dE != 0.0:
+                err = err + (dt * dE) * kE[i]
+        return y1, err, aux, stats
+
+    def _stage_loop(self, t, dt, y, params):
+        """The generic stage loop: (y1, aux, stats, (kI, kE))."""
         params_im, params_ex = params
         aI, aE, bI, bE = self._aI, self._aE, self._bI, self._bE
         s = self.tab.stages
@@ -267,7 +324,49 @@ class ARKIMEX:
                 y1 = y1 + (dt * bE[i]) * kE[i]
         aux = torch.stack(Ys)
         stats = StepStats(newton_iters=total_newton, newton_converged=all_conv)
-        return y1.to(y.dtype), aux.to(y.dtype), stats
+        return y1.to(y.dtype), aux.to(y.dtype), stats, (kI, kE)
+
+    def _spectral_stage_basis(self, J0):
+        """Eigenbasis ``(lam, Q)`` of the frozen J for per-trial stage
+        inverses, or None (then ``torch.linalg.inv``).
+
+        The adaptive controller needs ``(I - dt gamma J)^{-1}`` at a dt that
+        changes every trial. When J is symmetric (the KS and Burgers
+        periodic stencils), one fp64 ``numpy.linalg.eigh`` at first use
+        rewrites every trial inverse as ``Q diag(1/(1 - dt gamma lam)) Q^T``,
+        two (d, d) products. Exact in exact arithmetic; the basis is checked
+        by reconstruction before use. Memoized per frozen J."""
+        hit = self._spectral_memo.get(id(J0))
+        if hit is not None and hit[0] is J0:
+            return hit[1]
+        Jh = J0.detach().to("cpu", torch.float64).numpy()
+        scale = float(np.max(np.abs(Jh))) or 1.0
+        basis = None
+        if float(np.max(np.abs(Jh - Jh.T))) <= 1e-6 * scale:
+            lam, Q = np.linalg.eigh(Jh)
+            rec = float(np.max(np.abs((Q * lam) @ Q.T - Jh)))
+            if rec <= 1e-10 * scale:
+                basis = tuple(torch.tensor(a, dtype=J0.dtype, device=J0.device)
+                              for a in (lam, Q))
+        self._spectral_memo.clear()
+        self._spectral_memo[id(J0)] = (J0, basis)
+        return basis
+
+    def _trial_inverse(self, J0, gamma, dt):
+        """(I - dt gamma J)^{-1} where no pre-inverted operator serves dt
+        (the adaptive controller's trials, non-uniform grids): Q diag(w)
+        Q^T, w = 1/(1 - (dt gamma) lam), with dt gamma rounded to J's dtype
+        as the reference's traced dt rounds it; without a spectral basis,
+        torch.linalg.inv. Plain products outside any kernel, as the
+        reference forms it (TF32 is off)."""
+        basis = self._spectral_stage_basis(J0)
+        if basis is None:
+            eye = torch.eye(J0.shape[-1], dtype=J0.dtype, device=J0.device)
+            return torch.linalg.inv(eye - (float(dt) * gamma) * J0).contiguous()
+        lam_e, Q = basis
+        dtg = float(torch.tensor(float(dt), dtype=J0.dtype) * gamma)
+        w = 1.0 / (1.0 - dtg * lam_e)
+        return ((Q * w) @ Q.T).contiguous()
 
     def _fused_reverse_args(self, params, dt=None):
         """The single gate of the fused step kernels; (spec, J, inv_op) or
@@ -281,7 +380,8 @@ class ARKIMEX:
         the wrappers run their plain versions. ``-pnode_fused_ark_adjoint
         off`` forces the generic stage loop. The pre-inverted operator
         comes from the per-solve cache (uniform dt); without it and with
-        ``dt`` given, (I - dt gamma J)^{-1} is computed here.
+        ``dt`` given, (I - dt gamma J)^{-1} is formed here
+        (``_trial_inverse``).
         """
         if self.fused_ex_spec is None:
             return None
@@ -331,8 +431,7 @@ class ARKIMEX:
         if inv_op is None:
             if dt is None:
                 return None
-            eye = torch.eye(d, dtype=J0.dtype, device=J0.device)
-            inv_op = torch.linalg.inv(eye - (float(dt) * gamma) * J0).contiguous()
+            inv_op = self._trial_inverse(J0, gamma, dt)
         return spec, J0, inv_op
 
     def step_adj(self, t, dt, y, params, aux, lam):

@@ -77,6 +77,33 @@ def test_k2_plain_matches_jax_interpret(tab_name, B):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("tab_name, B, dt", [("3", 13, 0.2), ("3", 5, 0.05),
+                                             ("4", 11, 0.1)])
+def test_k2_err_plain_matches_jax_interpret(tab_name, B, dt):
+    """K2's embedded-error output (the adaptive trial step) against the JAX
+    kernel's b_err output: y1 and Ys at the forward's tolerances, err
+    within 1e-4 of max |err| (a small difference of stage sums whose
+    implicit kI is the difference quotient (Y - G) / (dt a_ii))."""
+    tbl, dt, y, J, inv, Ws, bs, _ = _operands(tab_name, B, seed=2, dt=dt)
+    tab = get_ark_tableau(tab_name)
+    b_err = ([float(x) for x in tab.b_im_err], [float(x) for x in tab.b_ex_err])
+    y1_j, err_j, ys_j = j_fwd(tbl, dt, jnp.asarray(y), jnp.asarray(J),
+                              jnp.asarray(inv), [jnp.asarray(w) for w in Ws],
+                              [jnp.asarray(b) for b in bs], b_err=b_err,
+                              interpret=True, stiff_prec="highest")
+    y1_t, err_t, ys_t = fused_ark_step_fwd(
+        tbl, dt, _t(y), _t(J), _t(inv), [_t(w) for w in Ws],
+        [_t(b) for b in bs], b_err=b_err)
+    np.testing.assert_allclose(y1_t.numpy(), np.asarray(y1_j), rtol=3e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=3e-5,
+                               atol=1e-6)
+    err_j = np.asarray(err_j)
+    assert float(np.abs(err_j).max()) > 0.0
+    np.testing.assert_allclose(err_t.numpy(), err_j, rtol=0,
+                               atol=1e-4 * float(np.abs(err_j).max()))
+
+
 @pytest.mark.parametrize("tab_name, B", CASES)
 def test_k3_plain_matches_jax_interpret(tab_name, B):
     tbl, dt, y, J, inv, Ws, bs, lam = _operands(tab_name, B, seed=1)
@@ -114,9 +141,9 @@ def test_k2_k3_plain_dt_zero_is_identity():
 def test_step_wrappers_reject_what_the_kernels_do_not_take():
     tbl, dt, y, J, inv, Ws, bs, _ = _operands("3", 4)
     W, b = [_t(w) for w in Ws], [_t(v) for v in bs]
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="embedded weights"):
         fused_ark_step_fwd(tbl, dt, _t(y), _t(J), _t(inv), W, b,
-                           b_err=(tbl[2], tbl[3]))
+                           b_err=(tbl[2][:2], tbl[3]))
     with pytest.raises(ValueError, match="float32"):
         fused_ark_step_fwd(tbl, dt, _t(y).double(), _t(J), _t(inv), W, b)
     with pytest.raises(ValueError, match="J_dense"):

@@ -348,7 +348,10 @@ def test_slice_adam_steps_match_jax_fp32_fused_biased_weights():
     (dict(method="dopri5", imex_form=False), [], "slice 4"),
     (dict(), ["-ts_trajectory_max_cps_ram", "4"], "slice 5"),
     (dict(), ["-ts_trajectory_type", "disk"], "slice 5"),
-    (dict(), ["-ts_adapt_type", "basic"], "slice 3"),
+    # the adaptive mode (slice 3) under a slice-5 trajectory policy
+    pytest.param(dict(), ["-ts_adapt_type", "basic",
+                          "-ts_trajectory_max_cps_ram", "4"], "slice 5",
+                 id="kwargs3-flags3-slice 3"),
 ])
 def test_later_slices_raise(kwargs, flags, match):
     pt.init(["p"] + flags)
