@@ -61,6 +61,23 @@ exits non-zero without printing the final line):
    path, a traced call of 20 iterations, then a warm launch of 20 and a
    timed launch of 180. The launch counts of K2's err output, K3 and K5
    over the phase must be above 0.
+6. The CIFAR slice: SqNxt-23 ODE at full width (stage channels 32, 64, 128,
+   256), batch 128, rk4, Nt 2, on the JAX trainer's synthetic surrogate.
+   (a) K6-K9 (the fused SqueezeNext dynamics: chain forward and backward,
+   layered forward and backward) against their plain versions in fp32 and
+   in fp64 with fp64 statistics (forward: <= 1e-5 and 1e-4 relative to
+   max |ref|; gradients: <= 5e-3 norm-wise, check_grads says why), on the
+   first ODE block's input of each
+   stage (from the model's own forward) in both modes and on a ragged
+   shape; conv-bias gradients, whose true value is 0, in absolute terms
+   (check_bias); each timed per evaluation beside its plain version and the
+   module path's evaluation. (b) The kernel path against the module path
+   from the same weights: logits, loss, gradient cosine and norm ratio
+   (CIFAR_TOL). (c) 22 SGD iterations (lr 0.1, momentum 0.9, wd 5e-4) on
+   the kernel path and 12 on the module path: finite losses, the mean of
+   the last 5 below the first 5, images/s after 2 warm iterations, peak
+   device memory; one traced iteration each; K6-K9's launch counts over the
+   kernel path's iterations must be above 0.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -100,7 +117,23 @@ KERNELS = {
     "fused_adaptive_train_loop": (
         "cuda", "pnode_tpu_torch/csrc/fused_adaptive_loop.cu",
         "pnode_tpu/ops/fused_adaptive_loop.py:262"),
+    "fused_sqnxt_fwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
+                        "pnode_tpu/ops/fused_sqnxt.py:192"),
+    "fused_sqnxt_bwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
+                        "pnode_tpu/ops/fused_sqnxt.py:206"),
+    "fused_sqnxt_layer_fwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
+                              "pnode_tpu/ops/fused_sqnxt.py:508"),
+    "fused_sqnxt_layer_bwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
+                              "pnode_tpu/ops/fused_sqnxt.py:522"),
 }
+SQNXT_KERNELS = ("fused_sqnxt_fwd", "fused_sqnxt_bwd", "fused_sqnxt_layer_fwd",
+                 "fused_sqnxt_layer_bwd")
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): fp32 outside the tensor
+# cores, and HBM3
+FP32_PEAK, HBM_RATE = 67e12, 3.35e12
+CIFAR_B, CIFAR_LR = 128, 0.1
+# phase 6(b)'s gates, kernel path against module path (PERF.md says why)
+CIFAR_TOL = {"logits": 1e-3, "loss": 1e-5, "cos": 0.99, "ratio": 0.01}
 # the adaptive slice's controller: bench.py's tolerances for KS, basic
 ADAPT_FLAGS = ["-ts_adapt_type", "basic", "-ts_rtol", "1e-4", "-ts_atol",
                "1e-4", "-ts_adapt_max_steps", "32"]
@@ -804,12 +837,16 @@ def phase_adaptive_kernel(device, u, stp, K=8):
     p2 = summary(cuda_times_ms(plain, reps=5, warmup=1, inner=1))
     report["ms"] = min(k1[0], k2[0]) / K
     report["plain_ms"] = min(p1[0], p2[0]) / K
+    rows = stats_rows(run(fused_adaptive_train_loop, K, 1e-8))
+    # the timed runs' work per iteration, for the roofline bound
+    report["accepted"] = float(np.mean([r[0] for r in rows]))
+    report["rejected"] = float(np.mean([r[1] for r in rows]))
     log(f"[kernels]   fused_adaptive_train_loop per iteration: kernel median "
         f"{k1[0] / K:.4f} / {k2[0] / K:.4f} ms (p66 {k1[1] / K:.4f} / "
         f"{k2[1] / K:.4f}), plain median {p1[0] / K:.4f} / {p2[0] / K:.4f} ms "
         f"(p66 {p1[1] / K:.4f} / {p2[1] / K:.4f}); 10 samples of 3 (kernel) "
         f"or 5 samples of 1 (plain) back-to-back calls of K {K}; trials per "
-        f"iteration {stats_rows(run(fused_adaptive_train_loop, K, 1e-8))}")
+        f"iteration {rows}")
     return report
 
 
@@ -1512,6 +1549,481 @@ def phase_fused_adaptive_loop(device, state0, batches, generic_runs,
     return count
 
 
+# -- phase 6: the CIFAR slice -------------------------------------------------
+
+def bound(flops, byts):
+    """(ms, "operations" | "bytes"): the least time the card could take,
+    the larger of flops at the fp32 CUDA-core peak and bytes at the memory
+    rate (H100 SXM, NVIDIA's data sheet, at the 700 W limit)."""
+    t_ops, t_bytes = 1e3 * flops / FP32_PEAK, 1e3 * byts / HBM_RATE
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def ks_costs(tab, adaptive_report):
+    """(flops, bytes) per call of K1-K3 and per iteration of K4 and K5 at
+    the KS main path (B 256, 64 -> 104 x4 -> 64, ARK3's 4 stages), counted
+    from the shapes: each input read once, each output written once, fp32.
+    A stage is one (d, d) product (the stage inverse, or J on the explicit
+    stage) and one MLP; the reverse recomputes the MLP's layer inputs and
+    backprops (3x the forward MLP). K5's work depends on the data: its
+    timed runs' accepted and rejected trials per iteration. K4's and K5's
+    flops per iteration are fused_train_loop_cost's (forward, reverse,
+    Adam); their partial-sum traffic is the kernels' choice, not counted."""
+    from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop_cost
+
+    B, d, s = BATCH, NX, 4
+    dims = [NX] + [HIDDEN] * 4 + [NX]
+    mlp = sum(a * b for a, b in zip(dims, dims[1:]))
+    params = sum(a * b + b for a, b in zip(dims, dims[1:]))
+    fwd = (s * (2 * B * d * d + 2 * B * mlp),
+           4 * (2 * B * d + 2 * d * d + params + s * B * d))
+    rev = (s * (2 * B * d * d + 6 * B * mlp),
+           4 * ((s + 2) * B * d + 2 * d * d + 2 * params))
+    # per iteration: y and the target in, the loss out, W, m and v read and
+    # written (Adam); J and the stage inverse once per launch of K = 8
+    loop = (fused_train_loop_cost(tab, B, d, dims[1:], 8)[0],
+            4 * (2 * B * d + 1 + 6 * params) + 4 * 2 * d * d / 8)
+    acc, rej = adaptive_report["accepted"], adaptive_report["rejected"]
+    return {
+        "fused_mlp_fwd": (2 * B * mlp, 4 * (2 * B * d + params)),
+        "fused_mlp_bwd": (6 * B * mlp, 4 * (3 * B * d + 2 * params)),
+        "fused_ark_step_fwd": fwd,
+        "fused_ark_step_fwd_embedded": (fwd[0] + 2 * s * B * d,
+                                        fwd[1] + 4 * B * d),
+        "fused_ark_step_adj": rev,
+        "fused_train_loop": loop,
+        "fused_adaptive_train_loop": (
+            (acc + rej) * fwd[0] + acc * rev[0] + loop[0] - fwd[0] - rev[0],
+            loop[1]),
+    }
+
+
+def load_cifar_torch():
+    """examples/train_cifar10_torch.py as a module (its surrogate data)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_cifar10_torch", os.path.join(ROOT, "examples",
+                                            "train_cifar10_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cifar_model(device, use_kernels, state=None):
+    """SqNxt-23 ODE at full width, rk4, Nt 2: seed-0 weights or ``state``."""
+    import torch
+
+    from pnode_tpu_torch.models import SqueezeNextODE
+
+    m = SqueezeNextODE(width_x=1.0, method="rk4", Nt=2,
+                       use_kernels=use_kernels,
+                       generator=torch.Generator().manual_seed(0)).to(device)
+    if state is not None:
+        m.load_state_dict(state)
+    return m
+
+
+def stage_inputs(model, x):
+    """(input NCHW, ODEDynamics) of the first ODE block of each stage, from
+    the model's own forward on x (module path, no gradients)."""
+    import torch
+
+    out, h = [], x.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        for kind, mod in zip(model.kinds, model.pieces):
+            if kind != "ode":
+                h = mod(h)
+                continue
+            if not out or out[-1][1].dim != mod.dim:
+                out.append((h.clone(), mod))
+            ode = model._module_solver(mod, h)
+            h = ode.solve(h, np.array([model.t1]),
+                          params=dict(mod.named_parameters()),
+                          with_adjoint=False)[0][-1]
+    return out
+
+
+def check_bias(name, got, ref64, scale, report, tol=1e-4):
+    """Conv-bias gradients: a bias that feeds a batch-stats norm has a true
+    gradient of exactly 0, so both versions return rounding noise; gated in
+    absolute terms, at ``tol`` of ``scale`` (the largest |d_beta| of the
+    same layers, a sum of the same cotangents without the cancellation)."""
+    ea = max(float(t.abs().max()) for t in got)
+    e64 = max(float(t.abs().max()) for t in ref64)
+    ok = ea <= tol * scale
+    log(f"[cifar]   {name} conv-bias gradients: max |kernel| {ea:.3e}, max "
+        f"|plain fp64| {e64:.3e}, against {tol:.0e} x max |d_beta| "
+        f"{scale:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: conv-bias gradients are not ~0")
+
+
+def norm_err(a, b):
+    """||a - b|| / ||b|| over the whole tensor (b the reference)."""
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def check_grads(name, got, plain, ref64, report, tol=5e-3):
+    """K7's and K9's outputs (dx or dh, dW, dgamma, dbeta) in norm-wise form:
+    within ``tol`` of the plain fp32 version and of the plain version in
+    fp64 (max relative and max abs printed beside). Two correct fp32
+    evaluations of the chain put a few of its ~2M ReLU pre-activations on
+    either side of 0 (|a| ~ 5, ulp ~ 5e-7); each such flip moves one
+    element of the ReLU's cotangent by O(1), which is ~1e-2 of max|dx| at
+    that element but ~6e-4 norm-wise (measured on the CPU at the stage-2
+    shape, plain fp32 against plain fp64, whose function changes by 4e-9
+    under 1e-7 input noise). A wrong shift, mask, tile or race moves the
+    gradients by O(1e-1) norm-wise."""
+    e32 = max(norm_err(a, b) for a, b in zip(got, plain))
+    e64 = max(norm_err(a, b) for a, b in zip(got, ref64))
+    e_plain = max(norm_err(a, b) for a, b in zip(plain, ref64))
+    m32 = max(rel_err(a, b) for a, b in zip(got, plain))
+    ea = max(abs_err(a, b) for a, b in zip(got, plain))
+    report["max_abs_err"] = max(report.get("max_abs_err", 0.0), ea)
+    ok = e32 <= tol and e64 <= tol
+    log(f"[kernels]   {name}: norm-wise rel err vs plain fp32 {e32:.3e}, vs "
+        f"plain fp64 {e64:.3e} (tol {tol:.0e}; plain fp32 vs fp64 "
+        f"{e_plain:.3e}); max rel vs plain fp32 {m32:.3e}, max abs "
+        f"{ea:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
+    """K6-K9 against their plain versions (fp32, and fp64 with fp64
+    statistics) on the model's activation h (NCHW) and ODEDynamics mod."""
+    import torch
+
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    f64 = torch.float64
+    B, C, H, W = h.shape
+    meta = fs.make_meta(C, B, H, W)
+    x = h.permute(1, 0, 2, 3).reshape(C, -1).contiguous()
+    flat = [t.detach().contiguous() for t in
+            fs.pack_params(dict(mod.named_parameters()), meta, torch.float32)]
+    flat64 = [t.double() for t in flat]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn(C, x.shape[1], generator=gen, device=device)
+    log(f"[cifar] {label}: C {C}, N {x.shape[1]} (B {B}, {H}x{W}), cdims "
+        f"{meta.cdims}, single pass {meta.single_pass}, chain workspace "
+        f"{fs.chain_workspace_bytes(meta) / 2**20:.1f} MiB "
+        f"({'layered' if fs.gate_meta(C, B, H, W).layered else 'chain'} on "
+        f"the model)")
+    # K6
+    out = fs.fused_sqnxt_fwd(x, flat, meta)
+    torch.cuda.synchronize()
+    check_kernel("fused_sqnxt_fwd", [out], [fs.fused_sqnxt_plain(x, flat, meta)],
+                 [fs.fused_sqnxt_plain(x.double(), flat64, meta, work=f64)],
+                 1e-5, report_chain["fwd"])
+    # K7
+    is_b = lambda i: i % 4 == 1  # noqa: E731  the conv biases of flat
+    split = lambda r: ([r[0]] + [t for i, t in enumerate(r[1]) if not is_b(i)],
+                       [t for i, t in enumerate(r[1]) if is_b(i)])  # noqa
+    got = split(fs.fused_sqnxt_bwd(x, g, flat, meta))
+    torch.cuda.synchronize()
+    pl = split(fs.fused_sqnxt_bwd_plain(x, g, flat, meta))
+    r64 = split(fs.fused_sqnxt_bwd_plain(x.double(), g.double(), flat64, meta,
+                                         work=f64))
+    check_grads("fused_sqnxt_bwd", got[0], pl[0], r64[0], report_chain["bwd"])
+    dbet = max(float(t.abs().max()) for i, t in enumerate(r64[0][1:])
+               if i % 3 == 2)
+    check_bias("fused_sqnxt_bwd", got[1], r64[1], dbet, report_chain["bwd"])
+    # K8, K9 layer by layer, on the plain chain's layer inputs
+    hs, hh = [], x
+    for li in range(5):
+        hs.append(hh)
+        hh = fs.fused_sqnxt_layer_plain(hh, fs._layer(flat, li), meta, li)
+    outs = [[], [], []]
+    bw = [[[], [], []], [[], [], []]]
+    for li in range(5):
+        lf, lf64 = fs._layer(flat, li), fs._layer(flat64, li)
+        outs[0].append(fs.fused_sqnxt_layer_fwd(hs[li], lf, meta, li))
+        outs[1].append(fs.fused_sqnxt_layer_plain(hs[li], lf, meta, li))
+        outs[2].append(fs.fused_sqnxt_layer_plain(hs[li].double(), lf64, meta,
+                                                  li, work=f64))
+        gl = torch.randn(meta.cdims[li + 1], x.shape[1], generator=gen,
+                         device=device)
+        for k, r in enumerate((
+                fs.fused_sqnxt_layer_bwd(hs[li], gl, lf, meta, li),
+                fs.fused_sqnxt_layer_bwd_plain(hs[li], gl, lf, meta, li),
+                fs.fused_sqnxt_layer_bwd_plain(hs[li].double(), gl.double(),
+                                               lf64, meta, li, work=f64))):
+            bw[0][k] += [r[0], r[1][0], r[1][2], r[1][3]]
+            bw[1][k].append(r[1][1])
+    torch.cuda.synchronize()
+    check_kernel("fused_sqnxt_layer_fwd (5 layers)", *outs, 1e-5,
+                 report_layer["fwd"])
+    check_grads("fused_sqnxt_layer_bwd (5 layers)", *bw[0],
+                report_layer["bwd"])
+    dbet = max(float(t.abs().max()) for t in bw[0][2][3::4])
+    check_bias("fused_sqnxt_layer_bwd", bw[1][0], bw[1][2], dbet,
+               report_layer["bwd"])
+    return x, g, flat, meta, hs
+
+
+def time_sqnxt(label, h, mod, x, g, flat, meta, hs, reports):
+    """Per evaluation, in turns: K6 (chain) and K8 (five layer launches)
+    beside their plain versions and beside the module path's evaluation
+    (F.conv2d + BatchStatsNorm + ReLU per layer, no gradients); K7 and K9
+    beside their plain versions and the module path's forward + autograd
+    backward."""
+    import torch
+
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    hg = h.detach().clone().requires_grad_(True)
+    g_nchw = g.reshape(meta.cdims[5], *[h.shape[0], h.shape[2], h.shape[3]])
+    g_nchw = g_nchw.permute(1, 0, 2, 3).contiguous()
+    params = list(mod.parameters())
+    gls = [g[:meta.cdims[li + 1]].contiguous() for li in range(5)]
+
+    def module_fwd():
+        with torch.no_grad():
+            mod(0.0, h)
+
+    def module_bwd():
+        torch.autograd.grad(mod(0.0, hg), [hg] + params, g_nchw)
+
+    def layers(fn):
+        return lambda: [fn(hs[li], fs._layer(flat, li), meta, li)
+                        for li in range(5)]
+
+    def layers_bwd(fn):
+        return lambda: [fn(hs[li], gls[li], fs._layer(flat, li), meta, li)
+                        for li in range(5)]
+
+    rows = {
+        "fused_sqnxt_fwd": (lambda: fs.fused_sqnxt_fwd(x, flat, meta),
+                            lambda: fs.fused_sqnxt_plain(x, flat, meta),
+                            module_fwd, False, range(5)),
+        "fused_sqnxt_bwd": (lambda: fs.fused_sqnxt_bwd(x, g, flat, meta),
+                            lambda: fs.fused_sqnxt_bwd_plain(x, g, flat, meta),
+                            module_bwd, True, range(5)),
+        "fused_sqnxt_layer_fwd": (layers(fs.fused_sqnxt_layer_fwd),
+                                  layers(fs.fused_sqnxt_layer_plain),
+                                  module_fwd, False, range(5)),
+        "fused_sqnxt_layer_bwd": (layers_bwd(fs.fused_sqnxt_layer_bwd),
+                                  layers_bwd(fs.fused_sqnxt_layer_bwd_plain),
+                                  module_bwd, True, range(5)),
+    }
+    out = {}
+    for name, (kern, plain, module, backward, lis) in rows.items():
+        t = [summary(cuda_times_ms(f, reps=10, warmup=2, inner=5))[0]
+             for f in (plain, kern, module, kern, plain, module)]
+        flops, byts = fs.sqnxt_cost(meta, list(lis), backward)
+        b_ms, b_by = bound(flops, byts)
+        out[name] = dict(ms=min(t[1], t[3]), plain_ms=min(t[0], t[4]),
+                         module_ms=min(t[2], t[5]), bound_ms=b_ms,
+                         bound_by=b_by)
+        log(f"[cifar]   {label} {name} per evaluation: kernel {t[1]:.4f} / "
+            f"{t[3]:.4f} ms, plain {t[0]:.4f} / {t[4]:.4f} ms, module path "
+            f"{t[2]:.4f} / {t[5]:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{flops / 1e9:.3f} GFLOP, {byts / 1e6:.2f} MB); medians of 10 "
+            f"samples of 5 back-to-back calls")
+    reports[label] = out
+
+
+def phase_sqnxt_kernels(device, x):
+    """Phase 6(a): K6-K9 on the model's stage activations at the three
+    full-width ODE stage shapes (B 128) in both modes, and a ragged shape
+    (B 3, 5x7, dim 16 on 16 channels of a stage-1 activation); timed at the
+    stage shapes."""
+    import torch
+
+    from pnode_tpu_torch.models.sqnxt import ODEDynamics, _lecun_normal_
+
+    model = cifar_model(device, "off")
+    stages = stage_inputs(model, x)
+    reports = {k: {} for k in SQNXT_KERNELS}
+    timed = {}
+    for si, (h, mod) in enumerate(stages):
+        label = f"stage {si + 1}"
+        rep_c = {"fwd": {}, "bwd": {}}
+        rep_l = {"fwd": {}, "bwd": {}}
+        case = sqnxt_case(label, h, mod, device, 10 + si, rep_c, rep_l)
+        for name, r in (("fused_sqnxt_fwd", rep_c["fwd"]),
+                        ("fused_sqnxt_bwd", rep_c["bwd"]),
+                        ("fused_sqnxt_layer_fwd", rep_l["fwd"]),
+                        ("fused_sqnxt_layer_bwd", rep_l["bwd"])):
+            reports[name]["max_abs_err"] = max(
+                reports[name].get("max_abs_err", 0.0), r["max_abs_err"])
+        time_sqnxt(label, h, mod, *case, timed)
+    gen = torch.Generator().manual_seed(1)
+    dim = min(16, stages[0][0].shape[1])
+    rag = ODEDynamics(dim)
+    for conv in rag.convs:
+        w = conv.weight
+        _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], gen)
+    rag = rag.to(device)
+    h1 = stages[0][0][:3, :dim, :5, :7].contiguous()
+    sqnxt_case(f"ragged B3 5x7 dim {dim}", h1, rag, device, 20,
+               {"fwd": {}, "bwd": {}}, {"fwd": {}, "bwd": {}})
+    # the JSON line's times: K6/K7 at stage 2 (the larger of the chain's
+    # shapes), K8/K9 at stage 1 (the layered mode's only stage); every
+    # stage's times are in the log above
+    for name, label in (("fused_sqnxt_fwd", "stage 2"),
+                        ("fused_sqnxt_bwd", "stage 2"),
+                        ("fused_sqnxt_layer_fwd", "stage 1"),
+                        ("fused_sqnxt_layer_bwd", "stage 1")):
+        reports[name].update(timed[label][name])
+    return reports
+
+
+def cifar_step(model, opt, x, y):
+    import torch
+
+    logits = model(x, training=True)
+    loss = torch.nn.functional.cross_entropy(logits, y)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def grads_of(model, x, y):
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    logits = model(x, training=True)
+    loss = torch.nn.functional.cross_entropy(logits, y)
+    loss.backward()
+    g = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    return logits.detach(), float(loss.detach()), g.double()
+
+
+def phase_cifar_paths_agree(device, x, y, state0):
+    """Phase 6(b): the kernel path against the module path from the same
+    weights on one surrogate batch: logits, loss, and the whole gradient's
+    cosine and norm ratio (tolerances and their reasons in PERF.md)."""
+    m_on = cifar_model(device, "on", state0)
+    m_off = cifar_model(device, "off", state0)
+    lo_on, l_on, g_on = grads_of(m_on, x, y)
+    lo_off, l_off, g_off = grads_of(m_off, x, y)
+    e_logit = rel_err(lo_on, lo_off)
+    e_loss = abs(l_on - l_off) / abs(l_off)
+    cos = float(g_on @ g_off / (g_on.norm() * g_off.norm()))
+    ratio = float(g_on.norm() / g_off.norm())
+    ok = (e_logit <= CIFAR_TOL["logits"] and e_loss <= CIFAR_TOL["loss"]
+          and cos >= CIFAR_TOL["cos"]
+          and abs(ratio - 1.0) <= CIFAR_TOL["ratio"])
+    log(f"[cifar] (b) kernel path vs module path, B {CIFAR_B}, seed-0 "
+        f"weights: logits rel {e_logit:.3e} (tol {CIFAR_TOL['logits']:.0e}), "
+        f"loss {l_on:.6f} vs {l_off:.6f} rel {e_loss:.3e} (tol "
+        f"{CIFAR_TOL['loss']:.0e}), gradient cosine {cos:.6f} (tol "
+        f"{CIFAR_TOL['cos']}), norm ratio {ratio:.6f} (tol 1 +- "
+        f"{CIFAR_TOL['ratio']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CIFAR kernel and module paths disagree")
+
+
+def train_cifar(label, model, batches, x_tr, y_tr, warm):
+    """SGD (lr 0.1, momentum 0.9, wd 5e-4) over ``batches``: the losses,
+    images/s over the iterations after ``warm``, and the peak device
+    memory of the run."""
+    import torch
+
+    opt = torch.optim.SGD(model.parameters(), lr=CIFAR_LR, momentum=0.9,
+                          weight_decay=5e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for k, idx in enumerate(batches):
+        if k == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(cifar_step(model, opt, x_tr[idx], y_tr[idx]))
+    torch.cuda.synchronize()
+    ips = (len(batches) - warm) * CIFAR_B / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).cpu().numpy()
+    log(f"[cifar] (c) {label}: {len(batches)} SGD iterations, losses "
+        f"{np.array2string(losses, precision=4, max_line_width=200)}; "
+        f"{ips:.1f} images/s over iterations {warm}..{len(batches)}; peak "
+        f"device memory {peak:.3f} GB (max_memory_allocated)")
+    return losses, ips, peak, opt
+
+
+def profile_cifar(label, model, opt, x, y):
+    """One traced iteration: the device's busy share and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cifar_step(model, opt, x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, busy_us = device_kernels(prof.events())
+    per = {}
+    for e in kernels:
+        us, n = per.get(e.name, (0.0, 0))
+        per[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    log(f"[profile] CIFAR {label}: one traced iteration {1e3 * wall:.1f} ms; "
+        f"device busy {busy_us * 1e-6 / wall:.3f} of the wall time; kernel "
+        f"time {busy_us / 1e3:.1f} ms")
+    for name, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[profile]   {us / 1e3:9.3f} ms x{n:<5d} {name[:90]}")
+
+
+def phase_cifar(device, n_iters=22, warm=2, n_off=12):
+    """Phase 6: the CIFAR slice at full width, batch 128, rk4, Nt 2."""
+    import torch
+
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    cif = load_cifar_torch()
+    x_np, y_np, _, _, synthetic = cif.load_cifar10(
+        os.path.join(ROOT, "data", "cifar-10-batches-py"))
+    x_tr = torch.as_tensor(x_np, device=device)
+    y_tr = torch.as_tensor(y_np, device=device).long()
+    rng = np.random.default_rng(0)
+    batches = [torch.as_tensor(rng.choice(len(x_np), CIFAR_B, replace=False),
+                               device=device) for _ in range(n_iters)]
+    log(f"[cifar] data {tuple(x_np.shape)} ({'synthetic surrogate' if synthetic else 'CIFAR-10'}), "
+        f"SqNxt-23 ODE width 1.0, rk4, Nt 2, batch {CIFAR_B}")
+    reports = phase_sqnxt_kernels(device, x_tr[batches[0]])
+    state0 = {k: v.detach().clone()
+              for k, v in cifar_model(device, "off").state_dict().items()}
+    phase_cifar_paths_agree(device, x_tr[batches[0]], y_tr[batches[0]],
+                            state0)
+
+    wrappers = [fs.fused_sqnxt_fwd, fs.fused_sqnxt_bwd,
+                fs.fused_sqnxt_layer_fwd, fs.fused_sqnxt_layer_bwd]
+    m_on = cifar_model(device, "on", state0)
+    for w in wrappers:
+        w.launches = 0
+    losses, ips_on, peak_on, opt = train_cifar(
+        "kernel path", m_on, batches, x_tr, y_tr, warm)
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"[cifar] (c) launches over the kernel path's {n_iters} iterations: "
+        f"{counts} (per iteration: "
+        f"{ {k: v / n_iters for k, v in counts.items()} })")
+    profile_cifar("kernel path", m_on, opt, x_tr[batches[0]], y_tr[batches[0]])
+    m_off = cifar_model(device, "off", state0)
+    _, ips_off, peak_off, opt_off = train_cifar(
+        "module path", m_off, batches[:n_off], x_tr, y_tr, warm)
+    profile_cifar("module path", m_off, opt_off, x_tr[batches[0]],
+                  y_tr[batches[0]])
+    log(f"[cifar] (c) images/s: kernel path {ips_on:.1f}, module path "
+        f"{ips_off:.1f}; memstat peak GB: kernel path {peak_on:.3f}, module "
+        f"path {peak_off:.3f}")
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"CIFAR training did not lower the loss (first "
+                             f"5 {first:.4f}, last 5 {last:.4f})")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the CIFAR "
+                                 "path")
+    return reports, counts
+
+
 def main():
     import torch
 
@@ -1526,13 +2038,22 @@ def main():
         "fused_ark_step_fwd_embedded"]
     counts["fused_adaptive_train_loop"] = adaptive_counts[
         "fused_adaptive_train_loop"]
+    tab = ks_operators("cuda")[2]
+    for name, (flops, byts) in ks_costs(
+            tab, reports["fused_adaptive_train_loop"]).items():
+        reports[name]["bound_ms"], reports[name]["bound_by"] = bound(flops,
+                                                                     byts)
+    sq_reports, sq_counts = phase_cifar("cuda")
+    reports.update(sq_reports)
+    counts.update(sq_counts)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = reports[name]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,12 +11,16 @@ of one of the KS models and returns the matching PyTorch ``state_dict``:
   copied as they are (the fused module keeps the (in, out) layout).
 - ``CircularConv1D_0/kernel`` -> ``conv.kernel`` (learnable stencil).
 
+``sqnxt_state_dict_from_flax(param_list)`` does the same for the
+SqueezeNext ODE-net (``models.SqueezeNextODE``) from the list of per-piece
+flax variables its JAX counterpart's ``init`` returns.
+
 Nothing here imports JAX: the caller converts the arrays to numpy.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +34,44 @@ _MODULE_NAMES = {
 
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def sqnxt_piece_from_flax(variables: Mapping,
+                          prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The state_dict of one SqueezeNext piece (Stem, BasicBlock,
+    ODEDynamics or Head) from its flax variables:
+    ``Conv_i/{kernel, bias}`` -> ``convs.i.{weight, bias}`` with the kernel
+    (kh, kw, Cin, Cout) -> (Cout, Cin, kh, kw); ``BatchStatsNorm_i/{scale,
+    bias}`` -> ``norms.i.{scale, bias}``; ``Dense_0/{kernel, bias}`` ->
+    ``dense.{weight, bias}`` with the kernel (in, out) -> (out, in)."""
+    params = variables.get("params", variables)
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in params.items():
+        kind, i = name.rsplit("_", 1)
+        if kind == "Conv":
+            out[f"{prefix}convs.{i}.weight"] = _tensor(
+                np.transpose(np.asarray(leaf["kernel"]), (3, 2, 0, 1)))
+            out[f"{prefix}convs.{i}.bias"] = _tensor(leaf["bias"])
+        elif kind == "BatchStatsNorm":
+            out[f"{prefix}norms.{i}.scale"] = _tensor(leaf["scale"])
+            out[f"{prefix}norms.{i}.bias"] = _tensor(leaf["bias"])
+        elif kind == "Dense":
+            out[f"{prefix}dense.weight"] = _tensor(np.asarray(leaf["kernel"]).T)
+            out[f"{prefix}dense.bias"] = _tensor(leaf["bias"])
+        else:
+            raise KeyError(f"no port counterpart for flax module {name!r}")
+    return out
+
+
+def sqnxt_state_dict_from_flax(
+        param_list: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``models.SqueezeNextODE`` from the list of flax
+    variables that the JAX package's ``SqueezeNextODE.init`` returns (one
+    entry per piece, in order)."""
+    out: Dict[str, torch.Tensor] = {}
+    for p, variables in enumerate(param_list):
+        out.update(sqnxt_piece_from_flax(variables, f"pieces.{p}."))
+    return out
 
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:

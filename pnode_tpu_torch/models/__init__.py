@@ -7,8 +7,22 @@ from .sinode import (
     circular_stencil_apply,
     ks_fixed_kernel,
 )
+from .sqnxt import (
+    BasicBlock,
+    BatchStatsNorm,
+    Head,
+    ODEDynamics,
+    SqueezeNextODE,
+    Stem,
+)
 
 __all__ = [
+    "BasicBlock",
+    "BatchStatsNorm",
+    "Head",
+    "ODEDynamics",
+    "SqueezeNextODE",
+    "Stem",
     "CircularConv1D",
     "FusedStackedMLP",
     "KSFuncEX",

@@ -8,10 +8,13 @@
 - ``fused_adaptive_loop``: K5, K complete adaptive training iterations
   (the embedded trial loop under the basic controller, MSE, the reverse of
   the accepted trials, Adam) in one persistent cooperative launch.
+- ``fused_sqnxt``: K6-K9, the SqueezeNext ODE dynamics (five layers of
+  conv, batch-statistics norm and ReLU) and their backward, as the whole
+  chain (K6, K7) or one layer per launch (K8, K9).
 
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
 its ``launches`` attribute) and runs the plain version for CPU tensors.
 """
 
 __all__ = ["fused_mlp", "fused_ark_forward", "fused_ark_adjoint",
-           "fused_train_loop", "fused_adaptive_loop"]
+           "fused_train_loop", "fused_adaptive_loop", "fused_sqnxt"]

@@ -1,0 +1,480 @@
+"""K6-K9: the fused SqueezeNext ODE dynamics and their backward.
+
+Replaces ``pnode_tpu/ops/fused_sqnxt.py``: ``_fwd_kernel`` (:192, K6),
+``_bwd_kernel`` (:206, K7), ``_fwd_layer_kernel`` (:508, K8) and
+``_bwd_layer_kernel`` (:522, K9). The CUDA source is ``csrc/fused_sqnxt.cu``
+(tile functions in ``csrc/sqnxt_kernels.cuh``); its note says what bounds
+the kernels on the H100 and what the design does about that.
+
+One evaluation of ``ODEDynamics(dim)`` (``models/sqnxt.py``) is a chain of
+five layers, each conv -> +b -> batch-stats norm -> ReLU, on a (C, N) state
+with N = B*H*W ordered b-major, then i, then j (``to_cn``). The conv taps are
+1x1, 1x1, (1,3) (column shifts -1, 0, +1), (3,1) (shifts -W, 0, +W) and 1x1,
+each shifted read masked at the image border. The TPU's 128-lane padding of
+N is a tiling artifact the port drops: its meta has no ``n_pad``.
+
+- ``fused_sqnxt_dyn(x_cn, params, meta)`` is differentiable: one
+  ``torch.autograd.Function`` for the chain (forward K6, backward K7) and one
+  for the layered mode (K8 per layer forward, K9 per layer in reverse), the
+  counterparts of the JAX package's ``jax.custom_vjp``s.
+- ``fused_sqnxt_fwd`` / ``fused_sqnxt_bwd`` / ``fused_sqnxt_layer_fwd`` /
+  ``fused_sqnxt_layer_bwd`` launch their kernel for CUDA tensors (fp32 only;
+  each counts its launches in ``.launches``) and run the plain PyTorch
+  version for CPU tensors (any float dtype).
+- The plain versions repeat the JAX kernels' dtype round-trips: products in
+  the input dtype rounded to ``work`` (float32, the Pallas kernels'
+  ``preferred_element_type``), statistics and the norm's backward in
+  ``work``. In fp32 these are identities; ``work=torch.float64`` gives a true
+  fp64 reference.
+- ``gate_meta``: the Hopper gate that replaces the TPU's VMEM estimates. The chain keeps its five anchors in one device workspace; it
+  runs when they fit ``CHAIN_WORKSPACE_BYTES`` (32 MB, inside the 50 MB L2),
+  else the layered mode. At B 128 of the full-width model: layered at stage
+  1 (46 MB), chain at stages 2 (23 MB) and 3 (11.5 MB).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from . import _build
+
+EPS = 1e-5
+SINGLE_PASS_MIN = 1 << 20       # BatchStatsNorm.single_pass_min_size
+MAX_CHANNELS = 128              # csrc/sqnxt_kernels.cuh kMaxC
+TILE_N = 64                     # csrc/sqnxt_kernels.cuh kTileN
+CHAIN_WORKSPACE_BYTES = 32 << 20
+# the products' rounding and the statistics' dtype of the plain versions: the
+# Pallas kernels' fp32 (a test of true fp64 sets it to float64)
+WORK = torch.float32
+_AXIS_CODES = {None: 0, "j": 1, "i": 2}
+_PARTIAL_FLOATS = 2 * 4 * MAX_CHANNELS  # two slots of kMaxQ x kMaxC per block
+
+
+class SqnxtMeta(NamedTuple):
+    """Static description of the 5-layer chain (the JAX package's fields).
+
+    taps[l]: column shifts of layer l's conv taps (shift s reads h[:, n+s]);
+    axis[l]: "j" | "i" | None, the image axis the taps move along; cdims:
+    (C0, ..., C5); single_pass[l]: BatchStatsNorm's size-gate verdict for
+    layer l's output; ``layered``: one kernel per layer instead of the chain.
+    """
+
+    taps: Tuple[Tuple[int, ...], ...]
+    axis: Tuple[object, ...]
+    cdims: Tuple[int, ...]
+    single_pass: Tuple[bool, ...]
+    H: int
+    W: int
+    n_real: int
+    layered: bool = False
+
+
+def make_meta(dim: int, B: int, H: int, W: int,
+              layered: bool = False) -> SqnxtMeta:
+    """Chain spec for ODEDynamics(dim): 1x1 D->c1, 1x1 c1->c2, (1,3) c2->c1,
+    (3,1) c1->c1, 1x1 c1->D."""
+    c1, c2 = int(dim * 0.5), int(dim * 0.25)
+    cdims = (dim, c1, c2, c1, c1, dim)
+    taps = ((0,), (0,), (-1, 0, 1), (-W, 0, W), (0,))
+    axis = (None, None, "j", "i", None)
+    n_real = B * H * W
+    single = tuple(n_real * c >= SINGLE_PASS_MIN for c in cdims[1:])
+    return SqnxtMeta(taps, axis, cdims, single, H, W, n_real, bool(layered))
+
+
+def chain_workspace_bytes(meta: SqnxtMeta) -> int:
+    """The chain kernels' anchors z_1..z_5 in fp32."""
+    return 4 * meta.n_real * sum(meta.cdims[1:])
+
+
+def gate_meta(dim: int, B: int, H: int, W: int) -> SqnxtMeta:
+    """The meta the model runs: chain when its workspace fits
+    CHAIN_WORKSPACE_BYTES, else layered. Never "no kernel": every shape
+    runs one of the two modes."""
+    meta = make_meta(dim, B, H, W)
+    return meta._replace(
+        layered=chain_workspace_bytes(meta) > CHAIN_WORKSPACE_BYTES)
+
+
+def pack_params(params, meta: SqnxtMeta, dtype):
+    """ODEDynamics parameter dict -> flat kernel arguments, per layer
+    [W (taps, Cout, Cin) dtype, b (Cout,) dtype, gamma (Cout,) fp32,
+    beta (Cout,) fp32] (the JAX package's dtypes). Differentiable: the
+    gradients flow back to the dict through these reshapes."""
+    flat = []
+    for li in range(5):
+        w = params[f"convs.{li}.weight"]  # (Cout, Cin, kh, kw)
+        cout, cin = int(w.shape[0]), int(w.shape[1])
+        flat.append(w.permute(2, 3, 0, 1).reshape(-1, cout, cin)
+                    .to(dtype).contiguous())
+        flat.append(params[f"convs.{li}.bias"].to(dtype).contiguous())
+        flat.append(params[f"norms.{li}.scale"].to(WORK).contiguous())
+        flat.append(params[f"norms.{li}.bias"].to(WORK).contiguous())
+    return tuple(flat)
+
+
+def to_cn(x: torch.Tensor, meta: SqnxtMeta) -> torch.Tensor:
+    """(B, H, W, C) -> (C, N)."""
+    n, c = x.shape[0] * x.shape[1] * x.shape[2], x.shape[3]
+    return x.reshape(n, c).t().contiguous()
+
+
+def from_cn(h: torch.Tensor, B: int, H: int, W: int) -> torch.Tensor:
+    """(C, N) -> (B, H, W, C)."""
+    return h[:, : B * H * W].t().reshape(B, H, W, h.shape[0])
+
+
+def fused_sqnxt_dyn(x_cn: torch.Tensor, params, meta: SqnxtMeta):
+    """The ODEDynamics chain on a (dim, N) state: one K6 launch (layered:
+    five K8 launches). Differentiable with respect to both arguments."""
+    flat = pack_params(params, meta, x_cn.dtype)
+    fn = _LayeredFn if meta.layered else _ChainFn
+    return fn.apply(meta, x_cn, *flat)
+
+
+# -- plain PyTorch versions --------------------------------------------------
+
+def _layer(flat, li):
+    return tuple(flat[4 * li: 4 * li + 4])
+
+
+def _tap_masks(meta: SqnxtMeta, device):
+    """(N,) validity masks per (axis, +-1): source j+-1 in [0, W) or i+-1 in
+    [0, H)."""
+    n = torch.arange(meta.n_real, device=device)
+    jm, im = n % meta.W, (n // meta.W) % meta.H
+    masks = {}
+    for ax, s in (("j", -1), ("j", 1), ("i", -1), ("i", 1)):
+        coord, lim = (jm, meta.W) if ax == "j" else (im, meta.H)
+        masks[(ax, s)] = (coord + s >= 0) & (coord + s < lim)
+    return masks
+
+
+def _shift(h, s):
+    """out[:, n] = h[:, n + s], zero-filled at the ends."""
+    if s == 0:
+        return h
+    z = h.new_zeros(h.shape[0], abs(s))
+    if s > 0:
+        return torch.cat([h[:, s:], z], dim=1)
+    return torch.cat([z, h[:, :s]], dim=1)
+
+
+def _tap_input(h, s, mask):
+    hk = _shift(h, s)
+    return hk if s == 0 else hk * mask.to(hk.dtype)
+
+
+def _conv(h, w, meta, li, masks, work):
+    z = None
+    for t, s in enumerate(meta.taps[li]):
+        mask = None if s == 0 else masks[(meta.axis[li], 1 if s > 0 else -1)]
+        d = (w[t] @ _tap_input(h, s, mask)).to(work)
+        z = d if z is None else z + d
+    return z
+
+
+def _layer_fwd(h, lf, meta, li, masks, work):
+    """(h_next, zf, m, sr) of one layer in the JAX kernel's order."""
+    work = WORK if work is None else work
+    w, b, gam, bet = lf
+    dt = h.dtype
+    z = _conv(h, w, meta, li, masks, work).to(dt) + b.to(dt)[:, None]
+    zf = z.to(work)
+    inv_n = 1.0 / meta.n_real
+    m = zf.sum(dim=1, keepdim=True) * inv_n
+    if meta.single_pass[li]:
+        m2 = (zf * zf).sum(dim=1, keepdim=True) * inv_n
+        var = torch.clamp_min(m2 - m * m, 0.0)
+    else:
+        zc = zf - m
+        var = (zc * zc).sum(dim=1, keepdim=True) * inv_n
+    sr = torch.sqrt(var + EPS)
+    a = (zf - m) / sr * gam.to(work)[:, None] + bet.to(work)[:, None]
+    return torch.relu(a.to(dt)), zf, m, sr
+
+
+def _layer_bwd(h, g, lf, meta, li, masks, work):
+    """(dh, (dW, db, dgam, dbet)) of one layer: recompute z from h, then the
+    stage-exact backprop of ``_bwd_layer_kernel``."""
+    work = WORK if work is None else work
+    w, b, gam, bet = lf
+    dt = h.dtype
+    _, zf, m, sr = _layer_fwd(h, lf, meta, li, masks, work)
+    gam, bet = gam.to(work)[:, None], bet.to(work)[:, None]
+    zh = (zf - m) / sr
+    a_d = (zh * gam + bet).to(dt)
+    g_a = torch.where(a_d.to(work) > 0, g, torch.zeros_like(g)).to(work)
+    d_gam = (g_a * zh).sum(dim=1)
+    d_bet = g_a.sum(dim=1)
+    g_zh = g_a * gam
+    inv_n = 1.0 / meta.n_real
+    c1 = g_zh.sum(dim=1, keepdim=True) * inv_n
+    c2 = (g_zh * zh).sum(dim=1, keepdim=True) * inv_n
+    g_zd = ((g_zh - c1 - zh * c2) / sr).to(dt)
+    d_b = g_zd.to(work).sum(dim=1)
+    g_h, d_ws = None, []
+    for t, s in enumerate(meta.taps[li]):
+        mask = None if s == 0 else masks[(meta.axis[li], 1 if s > 0 else -1)]
+        hk = _tap_input(h, s, mask)
+        d_ws.append((g_zd @ hk.t()).to(work).to(dt).to(work))
+        gk = (w[t].t() @ g_zd).to(work)
+        if s != 0:
+            gk = _shift(gk * mask.to(gk.dtype), -s)
+        g_h = gk if g_h is None else g_h + gk
+    return g_h.to(dt), (torch.stack(d_ws), d_b, d_gam, d_bet)
+
+
+def fused_sqnxt_plain(x, flat, meta, work=None):
+    """Plain version of K6 (and of K8 applied layer by layer)."""
+    masks = _tap_masks(meta, x.device)
+    h = x
+    for li in range(5):
+        h = _layer_fwd(h, _layer(flat, li), meta, li, masks, work)[0]
+    return h
+
+
+def fused_sqnxt_bwd_plain(x, g, flat, meta, work=None):
+    """Plain version of K7: (dx, dflat), dflat in ``work``."""
+    masks = _tap_masks(meta, x.device)
+    hs, h = [], x
+    for li in range(5):
+        hs.append(h)
+        h = _layer_fwd(h, _layer(flat, li), meta, li, masks, work)[0]
+    dflat = [None] * len(flat)
+    for li in range(4, -1, -1):
+        g, d = _layer_bwd(hs[li], g, _layer(flat, li), meta, li, masks, work)
+        dflat[4 * li: 4 * li + 4] = d
+    return g, tuple(dflat)
+
+
+def fused_sqnxt_layer_plain(h, layer_flat, meta, li, work=None):
+    """Plain version of K8."""
+    masks = _tap_masks(meta, h.device)
+    return _layer_fwd(h, layer_flat, meta, li, masks, work)[0]
+
+
+def fused_sqnxt_layer_bwd_plain(h, g, layer_flat, meta, li, work=None):
+    """Plain version of K9: (dh, (dW, db, dgam, dbet))."""
+    masks = _tap_masks(meta, h.device)
+    return _layer_bwd(h, g, layer_flat, meta, li, masks, work)
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+def _check(what, x, flats, meta, lis, g=None):
+    if not isinstance(x, torch.Tensor) or x.dim() != 2:
+        raise ValueError(f"{what}: x must be a (C, N) tensor")
+    cin = meta.cdims[lis[0]]
+    if tuple(x.shape) != (cin, meta.n_real):
+        raise ValueError(f"{what}: x must be {(cin, meta.n_real)}, got "
+                         f"{tuple(x.shape)}")
+    if g is not None and tuple(g.shape) != (meta.cdims[lis[-1] + 1],
+                                            meta.n_real):
+        raise ValueError(f"{what}: g has shape {tuple(g.shape)}")
+    cuda = x.device.type == "cuda"
+    if not cuda and x.device.type != "cpu":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    for li, lf in zip(lis, flats):
+        cout, cin, ntap = meta.cdims[li + 1], meta.cdims[li], len(meta.taps[li])
+        want = [(ntap, cout, cin), (cout,), (cout,), (cout,)]
+        for t, shape in zip(lf, want):
+            if tuple(t.shape) != shape or t.device != x.device:
+                raise ValueError(f"{what}: layer {li} argument {tuple(t.shape)}"
+                                 f" on {t.device}, expected {shape} on "
+                                 f"{x.device}")
+            if cuda and (t.dtype != torch.float32 or not t.is_contiguous()):
+                raise ValueError(f"{what}: CUDA arguments must be contiguous "
+                                 "float32")
+    if cuda:
+        if max(meta.cdims) > MAX_CHANNELS:
+            raise ValueError(f"{what}: the kernels take at most "
+                             f"{MAX_CHANNELS} channels, got {meta.cdims}")
+        for t in (x, g):
+            if t is not None and (t.dtype != torch.float32
+                                  or not t.is_contiguous()):
+                raise ValueError(f"{what}: CUDA arguments must be contiguous "
+                                 "float32")
+    return cuda
+
+
+_capacity = {}
+
+
+def kernel_grid(which: int, N: int, device) -> int:
+    """Grid of kernel ``which`` (0 K6, 1 K7, 2 K8, 3 K9): min(co-resident
+    blocks of the cooperative launch, 64-column tiles of N)."""
+    key = (which, torch.device(device).index)
+    if key not in _capacity:
+        cap = _build.int_array([0])
+        with torch.cuda.device(device):
+            _build.check(_build.library().pnode_sqnxt_capacity(which, cap),
+                         "fused_sqnxt occupancy query (cooperative launch)")
+        _capacity[key] = cap[0]
+    return max(1, min(_capacity[key], -(-N // TILE_N)))
+
+
+def _ptrs(values):
+    return (ctypes.c_void_p * len(values))(*values)
+
+
+def _layer_args(meta, lis, flats, zs, grads=None):
+    ints, ptrs = [], []
+    for k, (li, lf) in enumerate(zip(lis, flats)):
+        ints += [meta.cdims[li], meta.cdims[li + 1], len(meta.taps[li]),
+                 _AXIS_CODES[meta.axis[li]], int(meta.single_pass[li])]
+        ptrs += [t.data_ptr() for t in lf] + [zs[k].data_ptr()]
+        ptrs += ([t.data_ptr() for t in grads[k]] if grads is not None
+                 else [0, 0, 0, 0])
+    return _build.int_array(ints), _ptrs(ptrs)
+
+
+def _launch_fwd(which, entry, x, flats, meta, lis):
+    lib = _build.library()
+    N, dev = meta.n_real, x.device
+    zs = [torch.empty(meta.cdims[li + 1], N, device=dev) for li in lis]
+    out = torch.empty(meta.cdims[lis[-1] + 1], N, device=dev)
+    with torch.cuda.device(dev):
+        grid = kernel_grid(which, N, dev)
+        part = torch.empty(grid * _PARTIAL_FLOATS, device=dev)
+        ints, ptrs = _layer_args(meta, lis, flats, zs)
+        rc = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), len(lis), ints,
+                                 ptrs, N, meta.H, meta.W, part.data_ptr(),
+                                 grid, _build.stream_of(x))
+    _build.check(rc, f"{entry} kernel")
+    return out
+
+
+def _launch_bwd(which, entry, x, g, flats, meta, lis):
+    lib = _build.library()
+    N, dev = meta.n_real, x.device
+    zs = [torch.empty(meta.cdims[li + 1], N, device=dev) for li in lis]
+    grads = [tuple(torch.empty_like(t) for t in lf) for lf in flats]
+    dx = torch.empty(meta.cdims[lis[0]], N, device=dev)
+    dw_stride = max(len(meta.taps[li]) * meta.cdims[li] * meta.cdims[li + 1]
+                    for li in lis)
+    with torch.cuda.device(dev):
+        grid = kernel_grid(which, N, dev)
+        part = torch.empty(grid * _PARTIAL_FLOATS, device=dev)
+        dwpart = torch.empty(grid * dw_stride, device=dev)
+        gbuf = torch.empty(2 * max(meta.cdims[li] for li in lis) * N,
+                           device=dev)
+        gz = torch.empty(max(meta.cdims[li + 1] for li in lis) * N, device=dev)
+        ints, ptrs = _layer_args(meta, lis, flats, zs, grads)
+        rc = getattr(lib, entry)(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), len(lis), ints, ptrs,
+            N, meta.H, meta.W, part.data_ptr(), dwpart.data_ptr(), dw_stride,
+            gbuf.data_ptr(), gz.data_ptr(), grid, _build.stream_of(x))
+    _build.check(rc, f"{entry} kernel")
+    return dx, grads
+
+
+def fused_sqnxt_fwd(x, flat, meta):
+    """K6: the whole chain, (dim, N) -> (dim, N)."""
+    flats = [_layer(flat, li) for li in range(5)]
+    if not _check("fused_sqnxt_fwd", x, flats, meta, range(5)):
+        return fused_sqnxt_plain(x, flat, meta)
+    out = _launch_fwd(0, "pnode_sqnxt_fwd", x, flats, meta, list(range(5)))
+    fused_sqnxt_fwd.launches += 1
+    return out
+
+
+def fused_sqnxt_bwd(x, g, flat, meta):
+    """K7: (dx, dflat) of the chain at x for the output cotangent g."""
+    flats = [_layer(flat, li) for li in range(5)]
+    if not _check("fused_sqnxt_bwd", x, flats, meta, range(5), g):
+        return fused_sqnxt_bwd_plain(x, g, flat, meta)
+    dx, grads = _launch_bwd(1, "pnode_sqnxt_bwd", x, g, flats, meta,
+                            list(range(5)))
+    fused_sqnxt_bwd.launches += 1
+    return dx, tuple(t for lg in grads for t in lg)
+
+
+def fused_sqnxt_layer_fwd(h, layer_flat, meta, li):
+    """K8: layer li alone, (Cin, N) -> (Cout, N)."""
+    if not _check("fused_sqnxt_layer_fwd", h, [layer_flat], meta, [li]):
+        return fused_sqnxt_layer_plain(h, layer_flat, meta, li)
+    out = _launch_fwd(2, "pnode_sqnxt_fwd_layer", h, [layer_flat], meta, [li])
+    fused_sqnxt_layer_fwd.launches += 1
+    return out
+
+
+def fused_sqnxt_layer_bwd(h, g, layer_flat, meta, li):
+    """K9: (dh, (dW, db, dgam, dbet)) of layer li from its saved input."""
+    if not _check("fused_sqnxt_layer_bwd", h, [layer_flat], meta, [li], g):
+        return fused_sqnxt_layer_bwd_plain(h, g, layer_flat, meta, li)
+    dh, grads = _launch_bwd(3, "pnode_sqnxt_bwd_layer", h, g, [layer_flat],
+                            meta, [li])
+    fused_sqnxt_layer_bwd.launches += 1
+    return dh, grads[0]
+
+
+for _fn in (fused_sqnxt_fwd, fused_sqnxt_bwd, fused_sqnxt_layer_fwd,
+            fused_sqnxt_layer_bwd):
+    _fn.launches = 0
+
+
+def _grads_like(dflat, flat):
+    return [d.to(f.dtype) for d, f in zip(dflat, flat)]
+
+
+class _ChainFn(torch.autograd.Function):
+    """out = chain(x); backward = K7 (the JAX package's _core)."""
+
+    @staticmethod
+    def forward(ctx, meta, x, *flat):
+        ctx.meta = meta
+        ctx.save_for_backward(x, *flat)
+        return fused_sqnxt_fwd(x, flat, meta)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *flat = ctx.saved_tensors
+        dx, dflat = fused_sqnxt_bwd(x, g.contiguous(), flat, ctx.meta)
+        return (None, dx.to(x.dtype), *_grads_like(dflat, flat))
+
+
+class _LayeredFn(torch.autograd.Function):
+    """Five K8 launches; backward five K9 launches in reverse from the saved
+    layer inputs (the JAX package's _core_layered)."""
+
+    @staticmethod
+    def forward(ctx, meta, x, *flat):
+        hs, h = [], x
+        for li in range(5):
+            hs.append(h)
+            h = fused_sqnxt_layer_fwd(h, _layer(flat, li), meta, li)
+        ctx.meta = meta
+        ctx.save_for_backward(*hs, *flat)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        hs, flat = saved[:5], saved[5:]
+        g = g.contiguous()
+        dflat = [None] * len(flat)
+        for li in range(4, -1, -1):
+            g, d = fused_sqnxt_layer_bwd(hs[li], g, _layer(flat, li),
+                                         ctx.meta, li)
+            dflat[4 * li: 4 * li + 4] = d
+        return (None, g.to(hs[0].dtype), *_grads_like(dflat, flat))
+
+
+def sqnxt_cost(meta: SqnxtMeta, lis: Sequence[int], backward: bool):
+    """(flops, bytes) a kernel call must do at least, for the roofline bound:
+    2 taps Cin Cout N per conv (backward: 3x, the recompute, dW and g_h),
+    each input read once and each output written once in fp32 (forward: x
+    and out; backward: x, g, dx and the parameter gradients)."""
+    N = meta.n_real
+    conv = sum(2 * len(meta.taps[li]) * meta.cdims[li] * meta.cdims[li + 1] * N
+               for li in lis)
+    params = sum(len(meta.taps[li]) * meta.cdims[li] * meta.cdims[li + 1]
+                 + 3 * meta.cdims[li + 1] for li in lis)
+    cin, cout = meta.cdims[lis[0]], meta.cdims[lis[-1] + 1]
+    if backward:
+        return 3 * conv, 4 * (2 * cin * N + cout * N + 2 * params)
+    return conv, 4 * (cin * N + cout * N + params)

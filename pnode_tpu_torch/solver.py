@@ -13,15 +13,16 @@ Counterpart of ``pnode_tpu/solver.py:49-508``::
 discrete adjoint and fills the parameters' ``.grad``.
 
 Runtime options override programmatic choices (setFromOptions-last):
-``-ts_type``, ``-ts_arkimex_type``, ``-ts_max_steps``,
+``-ts_type``, ``-ts_rk_type``, ``-ts_arkimex_type``, ``-ts_max_steps``,
 ``-ts_trajectory_solution_only``, ``-snes_type``, ``-snes_rtol``,
 ``-snes_atol``, ``-snes_stol``, ``-snes_max_it``, ``-snes_ksponly_check``,
 ``-pnode_linear_solver``, and the adaptive controller's ``-ts_adapt_type
 basic|pi``, ``-ts_rtol``, ``-ts_atol``, ``-ts_adapt_safety``,
 ``-ts_adapt_clip low,high`` and ``-ts_adapt_max_steps`` (``adaptive.py``;
-``solve(..., dt0=)`` warm-starts it). The port runs the IMEX method with
-the ``store_all`` / ``solution_only`` policies, on fixed steps or under the
-controller; the other methods and trajectory policies raise
+``solve(..., dt0=)`` warm-starts it). The port runs the explicit RK
+methods (euler, rk2, bosh3, rk4, dopri5, ...) and the IMEX method with the
+``store_all`` / ``solution_only`` policies, on fixed steps or under the
+controller; the theta methods and the other trajectory policies raise
 ``NotImplementedError`` naming their ROADMAP slice.
 """
 
@@ -39,8 +40,10 @@ from .linsolve import LinearSolveConfig, normalize_linear_solver_name
 from .modules import as_dynamics
 from .newton import NewtonConfig
 from .options import Options
-from .steppers import ARKIMEX, ImplicitSolveSetup
-from .tableaus import get_ark_tableau
+from .steppers import ARKIMEX, ExplicitRK, ImplicitSolveSetup
+from .tableaus import THETA_METHODS, get_ark_tableau, get_rk_tableau
+
+_THETA_TS_TYPES = {"beuler": 1.0, "be": 1.0, "cn": 0.5, "theta": 0.5}
 
 
 class ODESolver:
@@ -162,12 +165,15 @@ class ODESolver:
         meth = method
         ts_type = self.opts.get_string("ts_type")
         if ts_type is not None:
-            if ts_type == "arkimex":
-                meth = "imex"
-            elif ts_type == "rk":
+            if ts_type == "rk":
                 meth = self.opts.get_string("ts_rk_type", "3bs")
-            else:
+            elif ts_type in _THETA_TS_TYPES or ts_type == "euler":
                 meth = ts_type
+            elif ts_type == "arkimex":
+                meth = "imex"
+            else:
+                warnings.warn(
+                    f"-ts_type {ts_type} not supported; keeping {meth!r}")
         elif self.opts.has("ts_rk_type"):
             meth = self.opts.get_string("ts_rk_type")
         self.method = meth
@@ -196,11 +202,15 @@ class ODESolver:
 
     # ------------------------------------------------------------------
     def _build_stepper(self):
-        if not (self.imex or self.method == "imex"):
-            raise NotImplementedError(
-                f"method {self.method!r}: the explicit RK and theta steppers "
-                "are ROADMAP queue A slice 4; this slice runs method='imex' "
-                "with imex_form=True")
+        meth = self.method
+        if not (self.imex or meth == "imex"):
+            if meth in THETA_METHODS or meth in _THETA_TS_TYPES:
+                raise NotImplementedError(
+                    f"method {meth!r}: the theta steppers (beuler/cn, with "
+                    "mass matrices for DAEs) are ROADMAP queue A slice 4 "
+                    "(theta and DAE); the port runs the explicit RK methods "
+                    "and method='imex'")
+            return ExplicitRK(get_rk_tableau(meth), self.f)
         if not self.imex:
             raise ValueError("method='imex' needs imex_form=True and func2")
         # with a frozen Jacobian the adjoint reuses it too (the reference's

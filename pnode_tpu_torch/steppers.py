@@ -1,7 +1,9 @@
-"""ARK-IMEX time stepper with a stage-exact hand-written discrete adjoint.
+"""Explicit RK and ARK-IMEX time steppers with stage-exact hand-written
+discrete adjoints.
 
-Counterpart of ``pnode_tpu/steppers.py:54-273, 471-929`` (the explicit RK
-and theta families are ROADMAP queue A slice 4). The stepper provides:
+Counterpart of ``pnode_tpu/steppers.py:54-273, 471-929`` (the theta family
+is ROADMAP queue A slice 4). ``ExplicitRK`` is the classical transposed-RK
+recursion, one vector-Jacobian product per stage. The ARK stepper provides:
 
 - ``step(t, dt, y, params) -> (y1, aux, stats)``: one step; ``aux`` stacks
   the stage values Y_i (the trajectory payload of ``store_all``).
@@ -47,7 +49,7 @@ from .linsolve import (
 )
 from .misc import tree_add, tree_leaves, tree_zeros_like
 from .newton import NewtonConfig, newton_solve
-from .tableaus import ARKTableau
+from .tableaus import ARKTableau, RKTableau
 
 
 class StepStats(NamedTuple):
@@ -121,6 +123,100 @@ def _vjp(fn, y, params):
         return gs[0], dict(zip(p_, gs[1:]))
 
     return out, vjp
+
+
+class ExplicitRK:
+    """Tableau-driven explicit RK over arbitrary state shapes (counterpart
+    of ``pnode_tpu/steppers.py:84-185``). ``aux`` stacks the stage
+    derivatives k_i; ``step_adj`` is the transposed-RK recursion with one
+    ``_vjp`` per stage whose covector can be nonzero."""
+
+    def __init__(self, tableau: RKTableau, f: Callable):
+        self.tab = tableau
+        self.f = f  # f(t, y, params) -> dy
+        # Python-float coefficients: they keep the state's dtype
+        self._a = [[float(x) for x in row] for row in tableau.a]
+        self._b = [float(x) for x in tableau.b]
+        self._c = [float(x) for x in tableau.c]
+        self._berr = (None if tableau.b_err is None
+                      else [float(x) for x in tableau.b_err])
+        # stages whose adjoint covector is identically zero are skipped in
+        # the reverse sweep (dopri5's FSAL stage has b_i = 0 = a_mi)
+        s = tableau.stages
+        self._adj_active = [
+            bool(tableau.b[i] != 0.0 or np.any(tableau.a[i + 1:, i] != 0.0))
+            for i in range(s)]
+        self.nfe_per_step = s
+
+    def prepare(self, t0, y0, params, dt0=None):
+        """Per-solve setup hook (nothing to do for explicit methods)."""
+        return self
+
+    def step(self, t, dt, y, params):
+        a, b, c = self._a, self._b, self._c
+        ks = []
+        for i in range(self.tab.stages):
+            Yi = y
+            for j in range(i):
+                if a[i][j] != 0.0:
+                    Yi = Yi + (dt * a[i][j]) * ks[j]
+            ks.append(self.f(t + c[i] * dt, Yi, params))
+        y1 = y
+        for i, k in enumerate(ks):
+            if b[i] != 0.0:
+                y1 = y1 + (dt * b[i]) * k
+        # the carried state and the stored stages stay at the state dtype
+        return y1.to(y.dtype), torch.stack(ks).to(y.dtype), StepStats(0, True)
+
+    def step_embedded(self, t, dt, y, params):
+        """Step plus the embedded error estimate: (y1, err, aux, stats)."""
+        if self._berr is None:
+            raise ValueError(f"RK tableau {self.tab.name!r} has no embedded "
+                             "weights; -ts_adapt_type basic needs bosh3 or "
+                             "dopri5")
+        y1, aux, stats = self.step(t, dt, y, params)
+        err = torch.zeros_like(y)
+        for i in range(self.tab.stages):
+            d = self._b[i] - self._berr[i]
+            if d != 0.0:
+                err = err + (dt * d) * aux[i]
+        return y1, err, aux, stats
+
+    def _stage_values(self, dt, y, ks):
+        a = self._a
+        Ys = []
+        for i in range(self.tab.stages):
+            Yi = y
+            for j in range(i):
+                if a[i][j] != 0.0:
+                    Yi = Yi + (dt * a[i][j]) * ks[j]
+            Ys.append(Yi)
+        return Ys
+
+    def step_adj(self, t, dt, y, params, aux, lam):
+        a, b, c = self._a, self._b, self._c
+        s = self.tab.stages
+        if aux is None:
+            _, aux, _ = self.step(t, dt, y, params)
+        Ys = self._stage_values(dt, y, [aux[i] for i in range(s)])
+        xis: list = [None] * s
+        gp = tree_zeros_like(params)
+        lam_prev = lam
+        for i in range(s - 1, -1, -1):
+            if not self._adj_active[i]:
+                continue
+            u = (dt * b[i]) * lam
+            for m in range(i + 1, s):
+                if a[m][i] != 0.0 and xis[m] is not None:
+                    u = u + (dt * a[m][i]) * xis[m]
+            ti = t + c[i] * dt
+            _, vjp = _vjp(lambda yy, pp, ti=ti: self.f(ti, yy, pp), Ys[i],
+                          params)
+            dly, dlp = vjp(u)
+            xis[i] = dly
+            gp = tree_add(gp, dlp)
+            lam_prev = lam_prev + dly
+        return lam_prev.to(lam.dtype), gp
 
 
 class ARKIMEX:

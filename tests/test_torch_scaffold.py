@@ -46,15 +46,19 @@ def test_import_leaves_jax_out():
         "pnode_tpu_torch.ops.fused_ark_adjoint, pnode_tpu_torch.ops._build, "
         "pnode_tpu_torch.ops.fused_train_loop, "
         "pnode_tpu_torch.ops.fused_adaptive_loop, pnode_tpu_torch.adaptive, "
-        "pnode_tpu_torch.tableaus_ark5, pnode_tpu_torch.tableaus_ark5l\n"
+        "pnode_tpu_torch.tableaus_ark5, pnode_tpu_torch.tableaus_ark5l, "
+        "pnode_tpu_torch.ops.fused_sqnxt, pnode_tpu_torch.models.sqnxt, "
+        "pnode_tpu_torch.steppers, pnode_tpu_torch.utils\n"
         "import chip_smoke\n"
         "import importlib.util as u\n"
-        "s = u.spec_from_file_location('ks_torch', %r)\n"
-        "m = u.module_from_spec(s); s.loader.exec_module(m)\n"
+        "for name, path in %r:\n"
+        "    s = u.spec_from_file_location(name, path)\n"
+        "    m = u.module_from_spec(s); s.loader.exec_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'pnode_tpu'))\n"
         "print('BAD', bad)\n"
-    ) % (REPO, os.path.join(REPO, "examples", "ks_torch.py"))
+    ) % (REPO, [(n, os.path.join(REPO, "examples", n + ".py"))
+                for n in ("ks_torch", "train_cifar10_torch")])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -67,7 +71,8 @@ def test_sources_name_no_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|pnode_tpu)"
                      r"(\s|\.|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "examples", "ks_torch.py")]
+             os.path.join(REPO, "examples", "ks_torch.py"),
+             os.path.join(REPO, "examples", "train_cifar10_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pnode_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if pat.search(open(f).read())]

@@ -345,7 +345,7 @@ def test_slice_adam_steps_match_jax_fp32_fused_biased_weights():
 # -- what this slice does not run ----------------------------------------------
 
 @pytest.mark.parametrize("kwargs, flags, match", [
-    (dict(method="dopri5", imex_form=False), [], "slice 4"),
+    (dict(method="cn", imex_form=False), [], "slice 4"),
     (dict(), ["-ts_trajectory_max_cps_ram", "4"], "slice 5"),
     (dict(), ["-ts_trajectory_type", "disk"], "slice 5"),
     # the adaptive mode (slice 3) under a slice-5 trajectory policy

@@ -1,0 +1,314 @@
+"""The port's SqueezeNext ODE-net (models/sqnxt.py), its weight conversion,
+optimizer, data and trainer (examples/train_cifar10_torch.py) against the
+JAX package's: flax weights carried across with
+convert.sqnxt_state_dict_from_flax, inputs from numpy seeds.
+
+Tolerances, with their reasons:
+- true fp64: each piece on flax's input to it at 1e-12 of its output's
+  max; the whole model at width 0.25, B 2, euler, Nt 1 on both paths:
+  logits and loss at 1e-9 relative, every gradient elementwise at 1e-6 of
+  its tensor's max (the chain amplifies fp64 rounding: pieces that agree
+  to 4e-15 each, run in sequence, part by 1e-7; gradients measured 6e-8
+  apart). Both packages
+  pin the norm statistics and the logits at fp32 whatever the dtype; these
+  tests lift that pin on both sides (``_lift_fp32_pins``), because fp32
+  statistics summed in two orders feed 17 chained blocks of batch 2, which
+  the JAX package measured to be chaotically conditioned
+  (tests/test_fused_sqnxt.py: a 1e-6 parameter change moves the gradient
+  14.5%); with the pin in place, a 1e-12 relative change of the input moves
+  the port's fp64 logits by 2.3e-6.
+- the fp32 twin of test_model_integration_fused_vs_xla (kernel path against
+  module path, width 0.5, B 2): loss rtol 5e-4, norm ratio in (0.9, 1.1),
+  cosine > 0.95 (the JAX test's 0.98 lowered: at that conditioning the
+  port's two fp32 paths measured a cosine of 0.970 with flax's seed-0
+  weights, while the true-fp64 tests above hold them equal elementwise).
+- optimizer and data: exact to fp64 rounding or bit-equal."""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import pnode_tpu.models.sqnxt as jsq
+import pnode_tpu_torch.models.sqnxt as tsq
+import pnode_tpu_torch.ops.fused_sqnxt as tfs
+from pnode_tpu.models.sqnxt import SqueezeNextODE as JSqueezeNextODE
+from pnode_tpu_torch.convert import sqnxt_state_dict_from_flax
+from pnode_tpu_torch.models import SqueezeNextODE
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load(name, path, argv=None):
+    old = sys.argv
+    sys.argv = argv or [path]
+    try:
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.argv = old
+    return mod
+
+
+class _Jnp64:
+    """jax.numpy with float32 read as float64 (the JAX model's fp32 pins)."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _lift_fp32_pins(mp):
+    """Lift the fp32 pins (norm statistics, logits, the fused plain
+    versions' work dtype) in both packages."""
+    mp.setattr(jsq, "jnp", _Jnp64())
+    mp.setattr(tsq, "FP32", torch.float64)
+    mp.setattr(tfs, "WORK", torch.float64)
+
+
+@pytest.fixture
+def true_fp64(monkeypatch):
+    _lift_fp32_pins(monkeypatch)
+
+
+def _inputs(B=2, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(B, 32, 32, 3)), rng.integers(0, 10, size=(B,))
+
+
+def _port(jp, mode, width=0.25):
+    tm = SqueezeNextODE(width_x=width, method="euler", Nt=1, use_kernels=mode)
+    sd = sqnxt_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jp))
+    tm.load_state_dict(sd, strict=True)
+    return tm
+
+
+def _loss_grads_jax(jm, jp, x, y):
+    def loss(p):
+        logits = jm.apply(p, jnp.asarray(x), training=True)
+        return jnp.mean(optax.softmax_cross_entropy_with_integer_labels(
+            logits, jnp.asarray(y))), logits
+    (l, logits), g = jax.value_and_grad(loss, has_aux=True)(jp)
+    return float(l), np.asarray(logits), sqnxt_state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, g))
+
+
+def _loss_grads_torch(tm, x, y, dtype):
+    tm.zero_grad(set_to_none=True)
+    logits = tm(torch.tensor(x, dtype=dtype), training=True)
+    loss = torch.nn.functional.cross_entropy(logits, torch.tensor(y))
+    loss.backward()
+    return (float(loss.detach()), logits.detach().numpy(),
+            {k: p.grad for k, p in tm.named_parameters()})
+
+
+def _flat(g, keys):
+    return np.concatenate([np.asarray(g[k], np.float64).ravel() for k in keys])
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """JAX's width-0.25 model (euler, Nt 1) at B 2 in true fp64: weights,
+    each piece's output, loss, logits and gradients (built once: the JAX
+    side's tracing is most of this file's time)."""
+    x, y = _inputs()
+    jm = JSqueezeNextODE(width_x=0.25, method="euler", Nt=1, use_pallas="off")
+    jp = jm.init(jax.random.PRNGKey(0), jnp.asarray(x, jnp.float32))
+    with pytest.MonkeyPatch.context() as mp:
+        _lift_fp32_pins(mp)
+        h, pieces = jnp.asarray(x), []
+        for (kind, jmod), p in zip(jm.pieces, jp):
+            h_in = np.asarray(h)
+            h = jmod.apply(p, 0.0, h) if kind == "ode" else jmod.apply(p, h)
+            pieces.append((h_in, np.asarray(h)))
+        loss = _loss_grads_jax(jm, jp, x, y)
+    return dict(jm=jm, jp=jp, x=x, y=y, pieces=pieces, loss=loss)
+
+
+def test_convert_covers_every_parameter(jax_ref):
+    """Every port parameter has its flax counterpart with its shape."""
+    jp = jax_ref["jp"]
+    tm = _port(jp, "off")
+    sd = sqnxt_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jp))
+    own = dict(tm.named_parameters())
+    assert set(sd) == set(own)
+    for k, v in sd.items():
+        assert tuple(v.shape) == tuple(own[k].shape), k
+    n_j = sum(int(a.size) for a in jax.tree_util.tree_leaves(jp))
+    assert n_j == sum(p.numel() for p in tm.parameters())
+    assert tm.nfe_per_forward == jax_ref["jm"].nfe_per_forward
+
+
+def test_pieces_match_flax(jax_ref, true_fp64):
+    """Each piece (every conv's padding and stride, the norms, the shortcut,
+    the pooled head) on flax's input to it, against flax's output, in true
+    fp64: 1e-12 of the output's max (measured: 4e-15 at most)."""
+    tm = _port(jax_ref["jp"], "off").double()
+    for kind, tmod, (h_in, ref) in zip(tm.kinds, tm.pieces,
+                                       jax_ref["pieces"]):
+        ht = torch.tensor(h_in).permute(0, 3, 1, 2)
+        got = (tmod(0.0, ht) if kind == "ode" else tmod(ht)).detach().numpy()
+        if got.ndim == 4:
+            got = got.transpose(0, 2, 3, 1)
+        assert got.shape == ref.shape, kind
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-12 * np.abs(ref).max(),
+                                   err_msg=kind)
+
+
+@pytest.mark.parametrize("mode", ["off", "on"])
+def test_model_fp64_matches_jax(mode, jax_ref, true_fp64):
+    """True fp64, width 0.25, B 2, euler, Nt 1: the port's module path
+    ("off") and kernel path ("on", the plain kernels on the (C, N) layout)
+    against JAX's module path: logits, loss and every parameter gradient."""
+    lj, logits_j, gj = jax_ref["loss"]
+    lt, logits_t, gt = _loss_grads_torch(_port(jax_ref["jp"], mode).double(),
+                                         jax_ref["x"], jax_ref["y"],
+                                         torch.float64)
+    np.testing.assert_allclose(logits_t, logits_j, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(lt, lj, rtol=1e-9)
+    for k in sorted(gj):
+        ref = np.asarray(gj[k])
+        if ".convs." in k and k.endswith("bias"):
+            # every conv feeds a batch-stats norm: a bias's true gradient
+            # is exactly 0, and both sides return rounding noise
+            assert np.abs(ref).max() < 1e-10, k
+            assert np.abs(gt[k].numpy()).max() < 1e-10, k
+            continue
+        np.testing.assert_allclose(gt[k].numpy(), ref, rtol=0,
+                                   atol=1e-6 * np.abs(ref).max(), err_msg=k)
+
+
+def test_model_kernel_path_vs_module_path_fp32(jax_ref):
+    """fp32 twin of test_model_integration_fused_vs_xla: use_kernels="on"
+    (plain kernels) against "off" from the same flax seed-0 weights, width
+    0.5, B 2, euler, Nt 1."""
+    x, y = _inputs()
+    jm = JSqueezeNextODE(width_x=0.5, method="euler", Nt=1, use_pallas="off")
+    jp = jm.init(jax.random.PRNGKey(0), jnp.asarray(x, jnp.float32))
+    l0, _, g0 = _loss_grads_torch(_port(jp, "off", 0.5), x, y, torch.float32)
+    l1, _, g1 = _loss_grads_torch(_port(jp, "on", 0.5), x, y, torch.float32)
+    np.testing.assert_allclose(l1, l0, rtol=5e-4)
+    keys = sorted(g0)
+    a, b = _flat(g1, keys), _flat(g0, keys)
+    cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    ratio = float(np.linalg.norm(a) / np.linalg.norm(b))
+    assert cos > 0.95, cos
+    assert 0.9 < ratio < 1.1, ratio
+
+
+def test_model_rejects_bf16_and_unknown_modes():
+    with pytest.raises(NotImplementedError, match="bf16"):
+        SqueezeNextODE(width_x=0.25, dtype="bf16")
+    with pytest.raises(ValueError):
+        SqueezeNextODE(width_x=0.25, use_kernels="interpret")
+
+
+def test_init_follows_flax_distributions():
+    """lecun-normal kernels (truncated at 2 std, variance 1 / fan_in), zero
+    biases, unit norm scales, from an explicit generator."""
+    tm = SqueezeNextODE(width_x=1.0, generator=torch.Generator().manual_seed(3))
+    w = tm.pieces[3].convs[3].weight.detach()  # (3,1) conv 16 -> 16
+    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+    assert abs(float(w.var()) * fan_in - 1.0) < 0.15
+    assert float(w.abs().max()) <= 2.0 / 0.87962566103423978 / fan_in ** 0.5
+    assert all(float(m.bias.abs().max()) == 0.0 for m in tm.modules()
+               if hasattr(m, "weight") and hasattr(m, "bias")
+               and isinstance(m.bias, torch.nn.Parameter))
+    again = SqueezeNextODE(width_x=1.0,
+                           generator=torch.Generator().manual_seed(3))
+    assert torch.equal(again.pieces[3].convs[3].weight, w)
+
+
+def test_sgd_multisteplr_matches_optax():
+    """torch SGD(momentum, weight_decay) + per-iteration MultiStepLR ==
+    optax.chain(add_decayed_weights, sgd(piecewise_constant_schedule,
+    momentum)) over 35 steps that cross the first boundary, in fp64."""
+    ipe, n = 1, 35
+    rng = np.random.default_rng(0)
+    p0 = rng.normal(size=(5,))
+    grads = rng.normal(size=(n, 5))
+    sched = optax.piecewise_constant_schedule(
+        0.1, {30 * ipe: 0.1, 60 * ipe: 0.1, 80 * ipe: 0.1})
+    opt = optax.chain(optax.add_decayed_weights(5e-4),
+                      optax.sgd(learning_rate=sched, momentum=0.9))
+    pj = jnp.asarray(p0)
+    st = opt.init(pj)
+    p = torch.nn.Parameter(torch.tensor(p0))
+    topt = torch.optim.SGD([p], lr=0.1, momentum=0.9, weight_decay=5e-4)
+    tsched = torch.optim.lr_scheduler.MultiStepLR(
+        topt, [30 * ipe, 60 * ipe, 80 * ipe], gamma=0.1)
+    for k in range(n):
+        upd, st = opt.update(jnp.asarray(grads[k]), st, pj)
+        pj = optax.apply_updates(pj, upd)
+        p.grad = torch.tensor(grads[k])
+        topt.step()
+        tsched.step()
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(pj),
+                                   rtol=1e-12, atol=1e-14, err_msg=str(k))
+
+
+@pytest.fixture(scope="module")
+def trainers(tmp_path_factory):
+    missing = str(tmp_path_factory.mktemp("nodata") / "cifar")
+    jd = _load("train_cifar10_jax", os.path.join(REPO, "examples",
+                                                 "train_cifar10.py"),
+               ["train_cifar10.py", "--data_dir", missing])
+    td = _load("train_cifar10_torch", os.path.join(REPO, "examples",
+                                                   "train_cifar10_torch.py"))
+    return jd, td, missing
+
+
+def test_surrogate_bit_equal(trainers):
+    jd, td, missing = trainers
+    a, b = jd.load_cifar10(missing), td.load_cifar10(missing)
+    assert a[4] is True and b[4] is True
+    for u, v in zip(a[:4], b[:4]):
+        assert u.dtype == v.dtype
+        np.testing.assert_array_equal(u, v)
+
+
+def test_augment_matches_jax_offsets(trainers):
+    """The port's crop + flip at the offsets jax.random draws inside the
+    JAX trainer's augment_device == augment_device."""
+    jd, td, _ = trainers
+    x = np.random.default_rng(4).normal(size=(6, 32, 32, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    ref = np.asarray(jd.augment_device(key, jnp.asarray(x)))
+    kx, ky, kf = jax.random.split(key, 3)
+    ox = np.asarray(jax.random.randint(kx, (6,), 0, 9))
+    oy = np.asarray(jax.random.randint(ky, (6,), 0, 9))
+    flip = np.asarray(jax.random.bernoulli(kf, 0.5, (6,)))
+    got = td.augment(torch.tensor(x), torch.tensor(ox), torch.tensor(oy),
+                     torch.tensor(flip))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    g = torch.Generator().manual_seed(0)
+    assert td.random_augment(torch.tensor(x), g).shape == x.shape
+
+
+def test_trainer_drive_writes_memstat(tmp_path):
+    """examples/train_cifar10_torch.py end to end on the CPU."""
+    out = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples",
+                                      "train_cifar10_torch.py"),
+         "--device", "cpu", "--epochs", "1", "--iters_per_epoch", "2",
+         "--batch_size", "4", "--width_x", "0.25", "--method", "euler",
+         "--Nt", "1", "--train_dir", str(tmp_path),
+         "--data_dir", str(tmp_path / "none")],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stderr
+    assert "Epoch 000" in out.stdout, out.stdout
+    fields = (tmp_path / "memstat.txt").read_text().split()
+    assert fields[0] == "1" and fields[3] == "euler" and fields[4] == "none"
+    assert float(fields[2]) > 0.0
