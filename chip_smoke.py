@@ -78,6 +78,29 @@ exits non-zero without printing the final line):
    the last 5 below the first 5, images/s after 2 warm iterations, peak
    device memory; one traced iteration each; K6-K9's launch counts over the
    kernel path's iterations must be above 0.
+7. The Burgers slice, bench.py's burgers recipe (B 200, nx 512, dt 1e-3,
+   ARK3, hpddm + frozen J + ksponly + ksp_rtol 1e-6, one-step MSE, Adam lr
+   5e-3, seed-0 weights; y0 ~ N(0, 1), target y0 + 0.05 N(0, 1), a fresh
+   minibatch per iteration). (a) K10 and K11 (the circular stencil and its
+   backward) against their plain versions in fp32 and fp64 at the Burgers
+   stage (200, 512) k 3, the KS stage (256, 64) k 5, a ragged (37, 100)
+   k 7, rows too wide to stage (3, 13001) k 5 and k > N (5, 3) k 7, with
+   random asymmetric taps (phase_stencil_kernels says how it gates): dy and dw, K11 without its dw pass, the autograd Function with a
+   learnable stencil, torch.func.jacfwd through K10 against the dense
+   circulant; timed beside the plain versions and nn.Conv1d (circular, no
+   bias, cuDNN TF32 off) forward and backward. K1 forward and backward at
+   the Burgers stack (512 -> 576 x4 -> 512) against its plain versions,
+   with its shared memory per block. (b) The kernel path (f_EX on K1, f_IM
+   on K10/K11; K2/K3's gate closes at nx 512) against the plain path
+   (nn.Linear, the roll chain) in phase 4(a)'s form over 4 iterations, the
+   frozen J through K10 equal to the roll chain's bitwise; 50 iterations
+   on the kernel path (finite losses, the mean of the last 10 below the
+   first 10), steps/s of both paths, one traced iteration each. The launch
+   counts of K1 forward and backward, K10 and K11 over (b) must be above 0,
+   K2's and K3's 0. (c) examples/burgers_torch.py at its defaults but
+   --batch_time 2, 3 iterations and 20 ICs of data: a finite loss.
+
+Phases 1-6 run at their full depth; phase 7 adds about 60 s.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -125,6 +148,10 @@ KERNELS = {
                               "pnode_tpu/ops/fused_sqnxt.py:508"),
     "fused_sqnxt_layer_bwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
                               "pnode_tpu/ops/fused_sqnxt.py:522"),
+    "circular_stencil_fwd": ("cuda", "pnode_tpu_torch/csrc/circular_stencil.cu",
+                             "pnode_tpu/ops/circular_stencil.py:32"),
+    "circular_stencil_bwd": ("cuda", "pnode_tpu_torch/csrc/circular_stencil.cu",
+                             "pnode_tpu/ops/circular_stencil.py:41"),
 }
 SQNXT_KERNELS = ("fused_sqnxt_fwd", "fused_sqnxt_bwd", "fused_sqnxt_layer_fwd",
                  "fused_sqnxt_layer_bwd")
@@ -138,6 +165,18 @@ CIFAR_TOL = {"logits": 1e-3, "loss": 1e-5, "cos": 0.99, "ratio": 0.01}
 ADAPT_FLAGS = ["-ts_adapt_type", "basic", "-ts_rtol", "1e-4", "-ts_atol",
                "1e-4", "-ts_adapt_max_steps", "32"]
 MAX_TRIALS = 32
+# phase 7, bench.py's burgers recipe (bench.py:141-200, 345-362): batch 200,
+# 512-point grid, one ARK3 step of 1e-3, hpddm + frozen J + ksponly,
+# ksp_rtol 1e-6, the one-step MSE, Adam at lr 5e-3
+BNX, BB, BDT = 512, 200, 1e-3
+BURGERS_FLAGS = ["-snes_type", "ksponly", "-ksp_rtol", "1e-6"]
+# K10/K11's shapes: the Burgers stage, the KS stage, a ragged one, rows
+# too wide to stage in 48 KB of shared memory (both kernels read global
+# memory there) and k > N (the taps wrap more than once)
+STENCIL_CASES = (("Burgers stage", 200, 512, 3), ("KS stage", 256, 64, 5),
+                 ("ragged", 37, 100, 7), ("wide", 3, 13001, 5),
+                 ("wrapped", 5, 3, 7))
+STENCIL_KERNELS = ("circular_stencil_fwd", "circular_stencil_bwd")
 
 
 def log(msg):
@@ -887,11 +926,11 @@ def build_trainer(device, state, fused, flags=(), eps=1e-8):
     return ode, ex, torch.optim.Adam(ex.parameters(), lr=LR, eps=eps)
 
 
-def train(ode, ex, opt, batches, device):
+def train(ode, ex, opt, batches, device, dt=DT):
     """One Adam iteration per batch; returns the losses as a tensor."""
     import torch
 
-    t_out = np.array([0.0, DT])
+    t_out = np.array([0.0, dt])
     losses = []
     for y0, tgt in batches:
         y0 = torch.as_tensor(y0, dtype=torch.float32, device=device)
@@ -905,7 +944,7 @@ def train(ode, ex, opt, batches, device):
     return torch.stack(losses)
 
 
-def loss_and_grads(ode, ex, y0, tgt, device):
+def loss_and_grads(ode, ex, y0, tgt, device, dt=DT):
     """(loss, gradient tensors) of one step's MSE; leaves them in .grad."""
     import torch
 
@@ -913,7 +952,7 @@ def loss_and_grads(ode, ex, y0, tgt, device):
     tgt = torch.as_tensor(tgt, dtype=torch.float32, device=device)
     for p in ex.parameters():
         p.grad = None
-    pred = ode.odeint_adjoint(y0, np.array([0.0, DT]))
+    pred = ode.odeint_adjoint(y0, np.array([0.0, dt]))
     loss = torch.mean((pred[-1] - tgt) ** 2)
     loss.backward()
     return float(loss.detach()), [p.grad.detach().clone()
@@ -939,7 +978,7 @@ def device_kernels(events):
     return kernels, busy_us
 
 
-def profile_steps(label, ode, ex, opt, batches, device):
+def profile_steps(label, ode, ex, opt, batches, device, dt=DT):
     """A traced run of kernel-path training steps: host time per layer
     (spans around the solve, the loss, the adjoint and Adam), device time
     per kernel, and the device's busy share of the traced wall time."""
@@ -947,7 +986,7 @@ def profile_steps(label, ode, ex, opt, batches, device):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    t_out = np.array([0.0, DT])
+    t_out = np.array([0.0, dt])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2024,6 +2063,486 @@ def phase_cifar(device, n_iters=22, warm=2, n_off=12):
     return reports, counts
 
 
+# -- phase 7: the Burgers slice -----------------------------------------------
+
+def stencil_case(device, rows, n, k, seed):
+    """y and g, N(0, 1), and random asymmetric taps U(-1, 1), fp32 on
+    ``device`` (both fixed stencils are symmetric: a reversed tap order or
+    a roll in the wrong direction passes on them unseen)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
+    return (f32(rng.normal(size=(rows, n))), f32(rng.normal(size=(rows, n))),
+            f32(rng.uniform(-1.0, 1.0, size=k)))
+
+
+def circulant(w, n):
+    """The dense (n, n) C with (y @ C.T)[i] = sum_j w[j] y[(i + j - k//2)
+    mod n], in fp32, each entry's taps added in j order (as K10 adds them
+    when k > n)."""
+    C = np.zeros((n, n), np.float32)
+    k = len(w)
+    for i in range(n):
+        for j in range(k):
+            C[i, (i + j - k // 2) % n] += w[j]
+    return C
+
+
+def stencil_cost(rows, n, k):
+    """(flops, bytes) of K10 and K11 (dy and dw) at (rows, n), k taps: fp32,
+    each input read once, each output written once."""
+    e = rows * n
+    return {"circular_stencil_fwd": (2 * k * e, 4 * (2 * e + k)),
+            "circular_stencil_bwd": (4 * k * e, 4 * (3 * e + 2 * k))}
+
+
+def device_us_per_call(fn, names, n=20):
+    """(device us per call, launches traced) of the kernels whose names hold
+    one of ``names`` (one launch of each per call), from a trace of ``n``
+    calls: the mean over the traced launches of each, summed (a trace may
+    miss launches). CUDA events time what a caller of back-to-back calls
+    waits for, which is the host's launch cost when that is the slower
+    side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels, _ = device_kernels(prof.events())
+    total, traced = 0.0, 0
+    for part in names:
+        us = [e.time_range.elapsed_us() for e in kernels if part in e.name]
+        total += sum(us) / len(us) if us else float("nan")
+        traced += len(us)
+    return total, traced
+
+
+def time_stencil(label, y, g, w):
+    """Per call, in turns (plain, kernel, library, kernel, plain, library):
+    K10 beside its plain version and nn.Conv1d(1, 1, k, padding k//2,
+    circular, no bias) with cuDNN's TF32 off (the library call for the same
+    function, which the port never makes); K11 beside its plain version and
+    that conv's backward alone (autograd.grad over a retained graph: dx and
+    dw). The conv's forward + backward is logged beside them."""
+    import torch
+
+    from pnode_tpu_torch.ops import circular_stencil as cs
+
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cuDNN TF32 is on: the port turns it off")
+    k = int(w.shape[0])
+    conv = torch.nn.Conv1d(1, 1, k, padding=k // 2, padding_mode="circular",
+                           bias=False, device=y.device)
+    with torch.no_grad():
+        conv.weight.copy_(w.reshape(1, 1, k))
+        lib_err = rel_err(conv(y[:, None])[:, 0],
+                          cs.circular_stencil_plain(y, w))
+    if lib_err > 1e-5:
+        raise AssertionError(f"nn.Conv1d is not the stencil ({lib_err:.3e})")
+    x = y[:, None].clone().requires_grad_(True)
+    g3 = g[:, None]
+    graph = conv(x)
+
+    def lib_fwd():
+        with torch.no_grad():
+            conv(y[:, None])
+
+    def lib_bwd():
+        torch.autograd.grad(graph, (x, conv.weight), g3, retain_graph=True)
+
+    def lib_both():
+        torch.autograd.grad(conv(x), (x, conv.weight), g3)
+
+    rows = {
+        "circular_stencil_fwd": (lambda: cs.circular_stencil_fwd(y, w),
+                                 lambda: cs.circular_stencil_plain(y, w),
+                                 lib_fwd),
+        "circular_stencil_bwd": (lambda: cs.circular_stencil_bwd(y, g, w),
+                                 lambda: cs.circular_stencil_bwd_plain(y, g, w),
+                                 lib_bwd),
+    }
+    out = {}
+    for name, (kern, plain, lib) in rows.items():
+        t = [summary(cuda_times_ms(f))[0]
+             for f in (plain, kern, lib, kern, plain, lib)]
+        out[name] = dict(ms=min(t[1], t[3]), plain_ms=min(t[0], t[4]),
+                         library_ms=min(t[2], t[5]))
+        log(f"[burgers]   {label} {name}: kernel {t[1]:.4f} / {t[3]:.4f} ms, "
+            f"plain {t[0]:.4f} / {t[4]:.4f} ms, nn.Conv1d {t[2]:.4f} / "
+            f"{t[5]:.4f} ms; medians of 30 samples of 10 back-to-back calls")
+    both = summary(cuda_times_ms(lib_both))[0]
+    log(f"[burgers]   {label} nn.Conv1d forward + backward {both:.4f} ms "
+        f"(its output vs the roll chain: rel err {lib_err:.3e})")
+    for name, parts in (("circular_stencil_fwd", ("stencil_fwd",)),
+                        ("circular_stencil_bwd", ("stencil_bwd",
+                                                  "sum_partials"))):
+        us, n = device_us_per_call(rows[name][0], parts)
+        log(f"[burgers]   {label} {name}: device time {us:.2f} us per call "
+            f"({n} kernel launches traced over 20 calls)")
+    return out
+
+
+def phase_stencil_kernels(device):
+    """Phase 7(a), K10 and K11: against their plain versions in fp32 and
+    fp64 at STENCIL_CASES' shapes with random asymmetric taps (forward <= 1e-6 of max |ref|, the same sums in the
+    same order; dy and dw <= 1e-5, dw's sums in another order; fp64 <=
+    1e-4); K11 without its dw pass gives the same dy; the autograd
+    Function with a learnable stencil runs K10/K11; torch.func.jacfwd
+    through K10 (its jvp and vmap rules) equals the dense circulant
+    exactly; times at the Burgers and KS shapes."""
+    import torch
+
+    from pnode_tpu_torch.ops import circular_stencil as cs
+
+    reports = {name: {} for name in STENCIL_KERNELS}
+    for si, (label, rows, n, k) in enumerate(STENCIL_CASES):
+        y, g, w = stencil_case(device, rows, n, k, 70 + si)
+        y64, g64, w64 = y.double(), g.double(), w.double()
+        log(f"[burgers] K10/K11 at the {label} shape ({rows}, {n}), k {k}, "
+            f"taps {np.array2string(w.cpu().numpy(), precision=4)}")
+        out = cs.circular_stencil_fwd(y, w)
+        torch.cuda.synchronize()
+        plain = cs.circular_stencil_plain(y, w)
+        check_kernel("circular_stencil_fwd", [out], [plain],
+                     [cs.circular_stencil_plain(y64, w64)], 1e-6,
+                     reports["circular_stencil_fwd"])
+        dy, dw = cs.circular_stencil_bwd(y, g, w)
+        dy_only, no_dw = cs.circular_stencil_bwd(y, g, w, need_dw=False)
+        torch.cuda.synchronize()
+        check_kernel("circular_stencil_bwd", [dy, dw],
+                     list(cs.circular_stencil_bwd_plain(y, g, w)),
+                     list(cs.circular_stencil_bwd_plain(y64, g64, w64)),
+                     1e-5, reports["circular_stencil_bwd"])
+        log(f"[kernels]   bitwise equal to the plain fp32 version: forward "
+            f"{bool(torch.equal(out, plain))}, dy "
+            f"{bool(torch.equal(dy, cs.circular_stencil_bwd_plain(y, g, w)[0]))}")
+        if no_dw is not None or not torch.equal(dy_only, dy):
+            raise AssertionError("K11 without its dw pass changed dy")
+        yr = y.clone().requires_grad_(True)
+        wr = w.clone().requires_grad_(True)
+        cs.circular_stencil(yr, wr).backward(g)
+        if not (torch.equal(yr.grad, dy) and torch.equal(wr.grad, dw)):
+            raise AssertionError("circular_stencil's backward is not K11")
+        if n <= 1024:
+            J = torch.func.jacfwd(lambda r: cs.circular_stencil(r, w))(
+                y[0].clone())
+            exact = bool(torch.equal(J, torch.tensor(
+                circulant(w.cpu().numpy(), n), device=device)))
+            log(f"[kernels]   torch.func.jacfwd through K10 at N {n}: "
+                f"{'equals' if exact else 'DIFFERS FROM'} the dense "
+                "circulant")
+            if not exact:
+                raise AssertionError("jacfwd through K10 is not the "
+                                     "circulant")
+        if si < 2:
+            times = time_stencil(label, y, g, w)
+            if si == 0:  # the Burgers stage: the JSON line's shape
+                for name, (flops, byts) in stencil_cost(rows, n, k).items():
+                    reports[name].update(times[name])
+                    reports[name]["bound_ms"], reports[name]["bound_by"] = \
+                        bound(flops, byts)
+                    log(f"[burgers]   {name} bound "
+                        f"{reports[name]['bound_ms']:.5f} ms "
+                        f"({reports[name]['bound_by']}: {flops / 1e6:.3f} "
+                        f"MFLOP, {byts / 1e6:.3f} MB)")
+    return reports
+
+
+def phase_burgers_mlp(device, state0):
+    """Phase 7(a), K1 at the Burgers stack (B 200, 512 -> 576 x4 -> 512,
+    seed-0 weights, bench.py's N(0, 1) states): the forward against the
+    plain fp32 and fp64 versions (1e-5 and 1e-4 of max |ref|, as at KS),
+    the backward norm-wise (check_grads, 5e-3): at these widths 460,800
+    ReLU pre-activations of std 2-10 put some within fp32 rounding of 0, and
+    such a unit flips between two correct fp32 evaluations (on these inputs
+    layer 3's unit 381 at row 144, |z| 9.8e-7 in fp64, moved dx, dW and db
+    1.2e-3 to 1.6e-3 norm-wise and 1.5e-2 max relative, all in that row's
+    backprop). Shared memory per block, the dW/db partial buffer; times."""
+    import torch
+
+    from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops.fused_mlp import (
+        ROWS_PER_BLOCK, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_fwd,
+        fused_mlp_plain, grad_buffer_size)
+
+    n = 5
+    Ws = [state0[f"net.kernel_{i}"] for i in range(n)]
+    bs = [state0[f"net.bias_{i}"] for i in range(n)]
+    dims = [BNX] + [int(W.shape[1]) for W in Ws]
+    lib = _build.library()
+    smem = [lib.pnode_mlp_smem(n, _build.int_array(dims), b) for b in (0, 1)]
+    nblk = -(-BB // ROWS_PER_BLOCK)
+    log(f"[burgers] K1 at the Burgers stack {dims}, B {BB}: shared memory "
+        f"per block forward {smem[0]} B, backward {smem[1]} B (limit 232448 "
+        f"B); dW/db partials {nblk} blocks x "
+        f"{4 * grad_buffer_size(dims) / 1e6:.2f} MB")
+    if not 0 < max(smem) <= 232448:
+        raise AssertionError("K1 does not take the Burgers stack")
+    rng = np.random.default_rng(7)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
+    x, g = f32(rng.normal(size=(BB, BNX))), f32(rng.normal(size=(BB, BNX)))
+    f64 = lambda ts: [t.double() for t in ts]  # noqa: E731
+    out = fused_mlp_fwd(x, Ws, bs)
+    torch.cuda.synchronize()
+    check_kernel("fused_mlp_fwd (Burgers)", [out], [fused_mlp_plain(x, Ws, bs)],
+                 [fused_mlp_plain(x.double(), f64(Ws), f64(bs))], 1e-5, {})
+    got = fused_mlp_bwd(x, g, Ws, bs)
+    torch.cuda.synchronize()
+    flat = lambda r: [r[0], *r[1], *r[2]]  # noqa: E731
+    plain = fused_mlp_bwd_plain(x, g, Ws, bs)
+    check_grads("fused_mlp_bwd (Burgers)", flat(got), flat(plain),
+                flat(fused_mlp_bwd_plain(x.double(), g.double(), f64(Ws),
+                                         f64(bs))), {})
+    # where two correct fp32 evaluations can part: the pre-activations
+    # nearest 0 (fp64), and the row of dx farthest from the plain version
+    h = x.double()
+    for li in range(n - 1):
+        z = h @ Ws[li].double() + bs[li].double()
+        i = int(z.abs().argmin())
+        log(f"[burgers]   layer {li} pre-activations: std "
+            f"{float(z.std()):.3e}, nearest 0 {float(z.abs().min()):.3e} at "
+            f"row {i // z.shape[1]}, unit {i % z.shape[1]} (fp64)")
+        h = torch.relu(z)
+    row = int((got[0] - plain[0]).abs().amax(dim=1).argmax())
+    log(f"[burgers]   K1 backward: dx farthest from the plain fp32 version "
+        f"in row {row}")
+    for name, kern, plain in (
+            ("fused_mlp_fwd", lambda: fused_mlp_fwd(x, Ws, bs),
+             lambda: fused_mlp_plain(x, Ws, bs)),
+            ("fused_mlp_bwd", lambda: fused_mlp_bwd(x, g, Ws, bs),
+             lambda: fused_mlp_bwd_plain(x, g, Ws, bs))):
+        t = [summary(cuda_times_ms(f))[0] for f in (plain, kern, kern, plain)]
+        log(f"[burgers]   {name} at the Burgers stack: kernel {t[1]:.4f} / "
+            f"{t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms")
+
+
+def burgers_batches(n, seed=0):
+    """bench.py's burgers data, a fresh minibatch per iteration: y0 ~ N(0,
+    1) and target y0 + 0.05 N(0, 1), (B, nx) each, numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        y = rng.normal(size=(BB, BNX))
+        tgt = y + 0.05 * rng.normal(size=(BB, BNX))
+        out.append((y.astype(np.float32), tgt.astype(np.float32)))
+    return out
+
+
+def build_burgers(device, state, fused, eps=1e-8):
+    """(ode, ex, Adam) of the Burgers IMEX model on bench.py's recipe from
+    ``state`` (FusedStackedMLP layout): the kernel path (``use_fused``: K1
+    and K10/K11) or the plain path (nn.Linear, the roll chain)."""
+    import torch
+
+    import pnode_tpu_torch as pt
+    from pnode_tpu_torch.models import BurgersFuncEX, BurgersFuncIM
+
+    pt.clear_options()
+    pt.init(["chip_smoke"] + BURGERS_FLAGS)
+    im = BurgersFuncIM(nx=BNX, use_fused=fused, device=device)
+    ex = BurgersFuncEX(nx=BNX, use_fused=fused, device=device)
+    ex.load_state_dict(state if fused else to_linear_state(state))
+    ode = pt.ODESolver()
+    ode.setupTS(torch.zeros(BB, BNX, device=device), pt.TorchFunc(im),
+                step_size=BDT, method="imex", imex_form=True,
+                implicit_form=True, func2=pt.TorchFunc(ex),
+                linear_solver="hpddm", fixed_jacobian=True, batch_size=BB)
+    return ode, ex, torch.optim.Adam(ex.parameters(), lr=LR, eps=eps)
+
+
+def fused_layout(ex, grads=False):
+    """The explicit part's parameters (or their gradients) in
+    FusedStackedMLP's layout and order: kernel_i (in, out), bias_i."""
+    if ex.use_fused:
+        return [p.grad if grads else p for p in ex.parameters()]
+    out = []
+    for lin in ex.net.layers:
+        w, b = (lin.weight.grad, lin.bias.grad) if grads else (lin.weight,
+                                                               lin.bias)
+        out += [w.t(), b]
+    return out
+
+
+def frozen_J(ode, ex, device):
+    """The solve's memoized frozen Jacobian block of f_IM."""
+    import torch
+
+    stp = ode._stepper.prepare(0.0, torch.zeros(BB, BNX, device=device),
+                               ({}, dict(ex.named_parameters())), dt0=BDT)
+    return stp.setup.frozen_J_blocks
+
+
+def phase_burgers_paths_agree(device, state0, batches, tol=5e-4,
+                              tol_flip=5e-3):
+    """Phase 7(b), in phase 4(a)'s form: the kernel path against the plain
+    path from the same weights and batches. Per Adam step, both evaluate the
+    loss (within ``tol`` relative) and the gradients (norm-wise per tensor,
+    within ``tol_flip``) from the kernel path's parameters; run free at
+    Adam eps 1e-8 and 1e-6, the losses within ``tol`` and the final
+    parameters within ``tol_flip`` norm-wise over the whole stack. The
+    gradient and parameter gates take a ReLU flip between two correct fp32
+    evaluations (phase_burgers_mlp: ~1.5e-3 norm-wise on the gradients;
+    Adam then steps a flipped unit's parameters up to lr apart); a wrong
+    stencil or stack moves the losses by far more than ``tol``. The frozen
+    J assembled through K10 must equal the roll chain's bitwise."""
+    import torch
+
+    ode_k, ex_k, opt_k = build_burgers(device, state0, True)
+    ode_p, ex_p, _ = build_burgers(device, state0, False)
+    step_l = step_g = 0.0
+    losses = []
+    for y0, tgt in batches:
+        ex_p.load_state_dict(to_linear_state(
+            {k: v.detach() for k, v in ex_k.state_dict().items()}))
+        l_p, _ = loss_and_grads(ode_p, ex_p, y0, tgt, device, BDT)
+        l_k, _ = loss_and_grads(ode_k, ex_k, y0, tgt, device, BDT)
+        g_p, g_k = fused_layout(ex_p, True), fused_layout(ex_k, True)
+        step_l = max(step_l, abs(l_k - l_p) / abs(l_p))
+        step_g = max(step_g, max(float((a - b).norm() / b.norm())
+                                 for a, b in zip(g_k, g_p)))
+        opt_k.step()
+        losses.append(l_k)
+    J_k, J_p = frozen_J(ode_k, ex_k, device), frozen_J(ode_p, ex_p, device)
+    same_J = bool(torch.equal(J_k, J_p))
+    log(f"[burgers] (b) {len(batches)} Adam steps, kernel path vs plain path "
+        f"from the same parameters: max rel err loss {step_l:.3e} (tol "
+        f"{tol:.0e}), gradients {step_g:.3e} (norm-wise; tol "
+        f"{tol_flip:.0e}); frozen J through K10 "
+        f"{'equals' if same_J else 'DIFFERS FROM'} the roll chain's "
+        f"(max |J| {float(J_k.abs().max()):.3e})")
+    kernel_runs = {1e-8: (torch.tensor(losses), fused_layout(ex_k))}
+    ode, ex, opt = build_burgers(device, state0, True, eps=1e-6)
+    kernel_runs[1e-6] = (train(ode, ex, opt, batches, device, BDT),
+                         fused_layout(ex))
+    ok = step_l <= tol and step_g <= tol_flip and same_J
+    for eps, (lk, pk) in kernel_runs.items():
+        ode, ex, opt = build_burgers(device, state0, False, eps=eps)
+        lg, pg = train(ode, ex, opt, batches, device, BDT), fused_layout(ex)
+        lk, lg = lk.double().cpu(), lg.double().cpu()
+        lrel = float(((lk - lg).abs() / lg.abs()).max())
+        flat = lambda ps: torch.cat([p.detach().double().reshape(-1)  # noqa
+                                     for p in ps])
+        pnorm = norm_err(flat(pk), flat(pg))
+        log(f"[burgers]     free-running vs the plain path, Adam eps "
+            f"{eps:.0e}: losses max rel err {lrel:.3e} (tol {tol:.0e}); "
+            f"params norm-wise over the stack {pnorm:.3e} (tol "
+            f"{tol_flip:.0e}), per tensor max {norm_rel(pk, pg):.3e}, max "
+            f"abs diff {max(abs_err(a, b) for a, b in zip(pk, pg)):.3e}")
+        ok = ok and lrel <= tol and pnorm <= tol_flip
+    if not ok:
+        raise AssertionError("the Burgers kernel and plain paths disagree")
+
+
+def phase_burgers_trainer(device):
+    """Phase 7(c): examples/burgers_torch.py through its main() at its
+    defaults (nx 512, batch 200, dt 1e-3, --use_fused), except
+    --batch_time 2, 3 iterations of one epoch and 20 ICs of data (the
+    default 100 take ~18 s of numpy generation on the card's host)."""
+    import importlib.util
+
+    import pnode_tpu_torch as pt
+
+    spec = importlib.util.spec_from_file_location(
+        "burgers_torch", os.path.join(ROOT, "examples", "burgers_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    pt.clear_options()
+    t0 = time.perf_counter()
+    final = mod.main(["--batch_time", "2", "--epochs", "1",
+                      "--iters_per_epoch", "3", "--n_ic", "20",
+                      "--device", device,
+                      "--train_dir", os.path.join(ROOT, "build",
+                                                  "burgers_torch")])
+    log(f"[burgers] (c) examples/burgers_torch.py --batch_time 2 "
+        f"--iters_per_epoch 3 --n_ic 20: final train loss {final:.6e} in "
+        f"{time.perf_counter() - t0:.1f} s (data generation included)")
+    if not np.isfinite(final):
+        raise AssertionError("burgers_torch.py gave a non-finite loss")
+
+
+def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
+    """Phase 7: the Burgers slice. Returns K10's and K11's reports and
+    their launch counts on the kernel path."""
+    import torch
+
+    from pnode_tpu_torch.models import BurgersFuncEX
+    from pnode_tpu_torch.ops.circular_stencil import (
+        circular_stencil_bwd, circular_stencil_fwd)
+    from pnode_tpu_torch.ops.fused_ark_adjoint import (
+        _smem_bytes, fused_ark_fits, fused_ark_step_adj)
+    from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd
+    from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+
+    reports = phase_stencil_kernels(device)
+    init = BurgersFuncEX(nx=BNX, use_fused=True, device=device,
+                         generator=torch.Generator(device=device).manual_seed(0))
+    state0 = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    phase_burgers_mlp(device, state0)
+
+    layers = [BNX * 9 // 8] * 4 + [BNX]
+    log(f"[burgers] (b) bench.py's burgers recipe: B {BB}, nx {BNX}, dt "
+        f"{BDT}, ARK3, hpddm + frozen J, {' '.join(BURGERS_FLAGS)}, one-step "
+        f"MSE, Adam lr {LR}, seed-0 weights; the fused ARK step kernels "
+        f"(K2, K3) stay off: fused_ark_fits {fused_ark_fits(BNX, layers, 4)} "
+        f"(forward step {_smem_bytes(BNX, layers, 4, False)} B, reverse step "
+        f"{_smem_bytes(BNX, layers, 4, True)} B per 8-row block, limit "
+        f"232448 B)")
+    batches = burgers_batches(n_steps)
+    wrappers = {"fused_mlp_fwd": fused_mlp_fwd, "fused_mlp_bwd": fused_mlp_bwd,
+                "circular_stencil_fwd": circular_stencil_fwd,
+                "circular_stencil_bwd": circular_stencil_bwd,
+                "fused_ark_step_fwd": fused_ark_step_fwd,
+                "fused_ark_step_adj": fused_ark_step_adj}
+    for w in wrappers.values():
+        w.launches = 0
+    phase_burgers_paths_agree(device, state0, batches[:4])
+    ode, ex, opt = build_burgers(device, state0, True)
+    l_warm = train(ode, ex, opt, batches[:warm], device, BDT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_rest = train(ode, ex, opt, batches[warm:], device, BDT)
+    torch.cuda.synchronize()
+    sps = (n_steps - warm) / (time.perf_counter() - t0)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    losses = torch.cat([l_warm, l_rest]).cpu().numpy()
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    log(f"[burgers] (b) {n_steps} Adam steps on the kernel path: mean loss "
+        f"first 10 {first:.6e}, last 10 {last:.6e}; {sps:.2f} steps/s "
+        f"(steps {warm}..{n_steps})")
+    log(f"[burgers] launches over (b)'s agreement and training "
+        f"({8 + n_steps} kernel-path iterations): {counts}")
+    profile_steps("Burgers kernel path", ode, ex, opt, batches[:1], device,
+                  BDT)
+    ode_p, ex_p, opt_p = build_burgers(device, state0, False)
+    train(ode_p, ex_p, opt_p, batches[:3], device, BDT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train(ode_p, ex_p, opt_p, batches[3:3 + n_plain], device, BDT)
+    torch.cuda.synchronize()
+    plain_sps = n_plain / (time.perf_counter() - t0)
+    log(f"[burgers] plain path (nn.Linear, the roll chain): {plain_sps:.2f} "
+        f"steps/s over {n_plain} steps, beside the kernel path's {sps:.2f}")
+    profile_steps("Burgers plain path", ode_p, ex_p, opt_p, batches[:1],
+                  device, BDT)
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError("Burgers training did not reduce the loss")
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd", "circular_stencil_fwd",
+                 "circular_stencil_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the Burgers "
+                                 "path")
+    if counts["fused_ark_step_fwd"] or counts["fused_ark_step_adj"]:
+        raise AssertionError("the fused ARK step kernels ran at nx 512")
+    phase_burgers_trainer(device)
+    return reports, {name: counts[name] for name in STENCIL_KERNELS}
+
+
 def main():
     import torch
 
@@ -2046,6 +2565,9 @@ def main():
     sq_reports, sq_counts = phase_cifar("cuda")
     reports.update(sq_reports)
     counts.update(sq_counts)
+    b_reports, b_counts = phase_burgers("cuda")
+    reports.update(b_reports)
+    counts.update(b_counts)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = reports[name]
@@ -2053,7 +2575,8 @@ def main():
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """KS (Kuramoto-Sivashinsky) SINODE training on the PyTorch/CUDA port.
 
-Twin of the IMEX branch of ``examples/ks.py`` (without ``--fused_loop``):
-learned chaotic-PDE dynamics on a 64-point L=22 grid, f_IM the fixed
-5-point stencil, f_EX = -MLP 64 -> 104 x4 -> 64, one-step windows trained
-with Adam through ``ODESolver.odeint_adjoint`` and its hand-written
-discrete adjoint, a plateau LR decay on the validation loss::
+Twin of ``examples/ks.py``: learned chaotic-PDE dynamics on a 64-point L=22
+grid, one-step windows trained with Adam through
+``ODESolver.odeint_adjoint`` and its hand-written discrete adjoint, a
+plateau LR decay on the validation loss. ``--pnode_model`` picks the model:
+``imex`` (f_IM the fixed 5-point stencil, f_EX = -MLP 64 -> 104 x4 -> 64),
+``snode`` (conv - MLP, one function) or ``mlp`` (a sigmoid MLP), the last
+two integrated by ``--pnode_method``::
 
     python examples/ks_torch.py                       # the H100 (default)
     python examples/ks_torch.py --fused_loop          # one launch per epoch
@@ -13,14 +15,23 @@ discrete adjoint, a plateau LR decay on the validation loss::
     python examples/ks_torch.py -ts_adapt_type basic -ts_rtol 1e-4 \
         -ts_atol 1e-4                                 # adaptive, per step
     python examples/ks_torch.py --fused_loop -ts_adapt_type basic   # K5
+    python examples/ks_torch.py --pnode_model snode --pnode_method rk4
 
-The defaults are the main-path recipe: ARK3 IMEX, ``linear_solver hpddm``
-with a frozen Jacobian, ``-snes_type ksponly`` (a programmatic default that
-a command-line flag overrides), and the fused MLP, which on CUDA runs the
-fused ARK step kernels. PETSc-style flags after the script's own options go
-to the port's options database (``-ts_arkimex_type ars122``,
-``-pnode_fused_ark_adjoint off``, ...). ``--device cuda`` raises when CUDA
-is absent: the CPU is an explicit choice, never a fallback.
+The defaults are the main-path recipe: ``--pnode_model imex``, ARK3 IMEX,
+``linear_solver hpddm`` with a frozen Jacobian, ``-snes_type ksponly`` (a
+programmatic default that a command-line flag overrides), and
+``--use_fused``: the fused MLP, which on CUDA runs the fused ARK step
+kernels, and the stencil on K10/K11 wherever the generic stage loop
+evaluates f_IM (``-pnode_fused_ark_adjoint off``) and in the frozen
+Jacobian's assembly. ``examples/ks.py`` defaults to ``snode`` with
+``cn``; the theta methods (``cn``, ``beuler``) are ROADMAP queue A slice 4
+and raise here, so the port's default model stays ``imex`` until then,
+while ``--pnode_method`` keeps ``cn`` as its default and takes the explicit
+RK methods (euler, rk2, bosh3, rk4, dopri5, ...). PETSc-style flags after
+the script's own options go to the port's options database
+(``-ts_arkimex_type ars122``, ``-pnode_fused_ark_adjoint off``, ...).
+``--device cuda`` raises when CUDA is absent: the CPU is an explicit
+choice, never a fallback.
 
 ``--fused_loop`` (twin of ``examples/ks.py --fused_loop``) runs each epoch's
 minibatches, stacked into (K, B, 64), as K iterations of the fused training
@@ -59,6 +70,14 @@ NX, L = 64, 22.0
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("KS (PyTorch port)")
+    p.add_argument("--pnode_model", choices=["imex", "snode", "mlp"],
+                   default="imex", help="imex (default; examples/ks.py's "
+                   "default snode waits for the theta methods, ROADMAP queue "
+                   "A slice 4), snode or mlp")
+    p.add_argument("--pnode_method", type=str, default="cn",
+                   help="stepper of snode and mlp: an explicit RK method "
+                   "(euler, rk2, bosh3, rk4, dopri5, ...); cn and beuler "
+                   "raise (ROADMAP queue A slice 4)")
     p.add_argument("--normalize", choices=["minmax", "mean"], default=None)
     p.add_argument("--step_size", type=float, default=0.2)
     p.add_argument("--data_size", type=int, default=2000)
@@ -76,8 +95,9 @@ def parse_args(argv=None):
     p.add_argument("--fixed_jacobian", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--use_fused", action=argparse.BooleanOptionalAction,
-                   default=True, help="fused MLP (K1) and, on the fused "
-                   "gate, the ARK step kernels (K2, K3)")
+                   default=True, help="imex: fused MLP (K1) and, on the "
+                   "fused gate, the ARK step kernels (K2, K3); the stencil "
+                   "on K10/K11")
     p.add_argument("--fused_loop", action="store_true",
                    help="each epoch as K iterations of the fused training "
                    "loop (K4; K5 under -ts_adapt_type basic) in one call")
@@ -245,7 +265,8 @@ def main(argv=None):
 
     import pnode_tpu_torch as pt
     from pnode_tpu_torch.data import generate_ks_data
-    from pnode_tpu_torch.models import KSFuncEX, KSFuncIM
+    from pnode_tpu_torch.models import (
+        KSFuncEX, KSFuncIM, KSMLPFunc, KSSnodeFunc)
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda: CUDA is not available (pass "
@@ -272,19 +293,34 @@ def main(argv=None):
              else np.arange(W + 1) * dt_data)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    im = KSFuncIM(nx=NX, L=L, dtype=dtype, device=device)
-    ex = KSFuncEX(nx=NX, use_fused=args.use_fused, generator=gen,
-                  dtype=dtype, device=device)
+    y_tmpl = torch.zeros(args.batch_size, NX, dtype=dtype, device=device)
     ode = pt.ODESolver()
-    ode.setupTS(
-        torch.zeros(args.batch_size, NX, dtype=dtype, device=device),
-        pt.TorchFunc(im), step_size=args.step_size, method="imex",
-        imex_form=True, implicit_form=True, func2=pt.TorchFunc(ex),
-        linear_solver=args.linear_solver,
-        fixed_jacobian=args.fixed_jacobian, batch_size=args.batch_size)
+    if args.pnode_model == "imex":
+        im = KSFuncIM(nx=NX, L=L, dtype=dtype, device=device,
+                      use_fused=args.use_fused)
+        ex = KSFuncEX(nx=NX, use_fused=args.use_fused, generator=gen,
+                      dtype=dtype, device=device)
+        ode.setupTS(
+            y_tmpl, pt.TorchFunc(im), step_size=args.step_size,
+            method="imex", imex_form=True, implicit_form=True,
+            func2=pt.TorchFunc(ex), linear_solver=args.linear_solver,
+            fixed_jacobian=args.fixed_jacobian, batch_size=args.batch_size)
+    else:
+        # the trained module keeps the name ex below
+        ex = (KSSnodeFunc(nx=NX, L=L, generator=gen, dtype=dtype,
+                          device=device) if args.pnode_model == "snode"
+              else KSMLPFunc(nx=NX, generator=gen, dtype=dtype,
+                             device=device))
+        ode.setupTS(
+            y_tmpl, pt.TorchFunc(ex), step_size=args.step_size,
+            method=args.pnode_method, linear_solver=args.linear_solver,
+            fixed_jacobian=args.fixed_jacobian, batch_size=args.batch_size)
     opt = torch.optim.Adam(ex.parameters(), lr=args.lr)
     fused = None
     if args.fused_loop:
+        if args.pnode_model != "imex":
+            raise SystemExit("--fused_loop runs the imex model "
+                             "(--pnode_model imex)")
         if W != 1 or dtype != torch.float32:
             raise SystemExit("--fused_loop requires --time_window_size 1 "
                              "and fp32 (no --double_prec)")

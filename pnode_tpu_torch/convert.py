@@ -2,14 +2,19 @@
 
 ``state_dict_from_flax(variables)`` takes a flax variable tree (nested dicts
 of numpy arrays, e.g. ``jax.tree_util.tree_map(np.asarray, variables)``)
-of one of the KS models and returns the matching PyTorch ``state_dict``:
+of one of the SINODE models (``KSFuncIM``, ``KSFuncEX``, ``KSSnodeFunc``,
+``KSMLPFunc``, ``BurgersFuncIM``, ``BurgersFuncEX``) and returns the
+matching PyTorch ``state_dict``:
 
 - ``StackedMLP_0/Dense_i/{kernel, bias}`` -> ``net.layers.i.{weight, bias}``;
   a flax Dense kernel is (in, out) and ``nn.Linear.weight`` is (out, in),
   so the kernel is transposed.
 - ``FusedStackedMLP_0/{kernel_i, bias_i}`` -> ``net.{kernel_i, bias_i}``,
   copied as they are (the fused module keeps the (in, out) layout).
-- ``CircularConv1D_0/kernel`` -> ``conv.kernel`` (learnable stencil).
+- ``CircularConv1D_0/kernel`` -> ``conv.kernel`` (learnable stencil; a
+  fixed stencil has no flax variable and no state_dict entry).
+
+Any other flax module raises ``KeyError``.
 
 ``sqnxt_state_dict_from_flax(param_list)`` does the same for the
 SqueezeNext ODE-net (``models.SqueezeNextODE``) from the list of per-piece
@@ -75,7 +80,7 @@ def sqnxt_state_dict_from_flax(
 
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for a KS model's flax variables."""
+    """The port's state_dict for a SINODE model's flax variables."""
     params = variables.get("params", {}) if hasattr(variables, "get") else {}
     out: Dict[str, torch.Tensor] = {}
     for mod_name, sub in params.items():

@@ -108,4 +108,13 @@ int pnode_mlp_bwd(const float* x, const float* g, float* dx, float* partial,
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of one block of the forward (backward == 0) or
+// backward kernel at these widths; 0 for widths make_mlp refuses.
+size_t pnode_mlp_smem(int n_layers, const int* dims, int backward) {
+  const void* none[kMaxLayers] = {};
+  Mlp p;
+  if (make_mlp(&p, n_layers, dims, none, none, kActRelu)) return 0;
+  return backward ? mlp_bwd_smem(p) : mlp_fwd_smem(p);
+}
+
 }  // extern "C"

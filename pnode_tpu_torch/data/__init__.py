@@ -1,3 +1,3 @@
-from .spectral import etdrk4_solve, generate_ks_data
+from .spectral import etdrk4_solve, generate_burgers_data, generate_ks_data
 
-__all__ = ["etdrk4_solve", "generate_ks_data"]
+__all__ = ["etdrk4_solve", "generate_burgers_data", "generate_ks_data"]

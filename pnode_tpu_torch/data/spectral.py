@@ -13,6 +13,13 @@ scratch in numpy) and cached as .npz:
 - KS:      u_t = -u u_x - u_xx - u_xxxx,  periodic on [0, L], L = 22
            (the chaotic regime the KS example trains on; 64-point grid,
            dt matching the reference config runs64_a100.sh).
+- Burgers: u_t = -u u_x + nu u_xx, periodic on [0, 1], nu = 8e-4
+           (matching BurgersFuncIM's fixed Laplacian alpha = 8e-4; 100
+           random ICs, T = 5, saved every 0.1).
+
+A copy of ``pnode_tpu/data/spectral.py`` (which the port cannot import);
+``tests/test_torch_scaffold.py`` pins both generators bit-equal to it, and
+the cache file names are the same.
 """
 
 from __future__ import annotations
@@ -153,3 +160,55 @@ def generate_ks_data(
     if cache:
         np.savez_compressed(cache, u=u, dt=dt_data)
     return u, dt_data
+
+
+def generate_burgers_data(
+    nx: int = 512,
+    n_ic: int = 100,
+    nu: float = 8e-4,
+    T: float = 5.0,
+    dt_save: float = 0.1,
+    seed: int = 0,
+    cache_dir: Optional[str] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Viscous Burgers ensemble: (n_ic, n_t, nx) + times, like the
+    reference's ``Data_T5_IC100_NX1024.p`` (u, t) payload."""
+    cache = None
+    if cache_dir:
+        os.makedirs(cache_dir, exist_ok=True)
+        cache = os.path.join(
+            cache_dir, f"burgers_nx{nx}_ic{n_ic}_nu{nu}_T{T}_s{seed}.npz"
+        )
+        if os.path.exists(cache):
+            d = np.load(cache)
+            return d["u"], d["t"]
+
+    k = 2.0 * np.pi * np.fft.fftfreq(nx, d=1.0 / nx)
+    lin = -nu * k**2
+    ik = 1j * k
+    dealias = np.abs(k) < (2.0 / 3.0) * np.max(np.abs(k))
+
+    def nonlin(v):
+        u = np.real(np.fft.ifft(v, axis=-1))
+        return -0.5 * ik * (np.fft.fft(u * u, axis=-1) * dealias)
+
+    # smooth random periodic initial conditions (low-mode Fourier series)
+    rng = np.random.default_rng(seed)
+    x = np.arange(nx) / nx
+    n_modes = 4
+    u0 = np.zeros((n_ic, nx))
+    for m in range(1, n_modes + 1):
+        amp_s = rng.standard_normal((n_ic, 1)) / m
+        amp_c = rng.standard_normal((n_ic, 1)) / m
+        u0 += amp_s * np.sin(2 * np.pi * m * x) + amp_c * np.cos(2 * np.pi * m * x)
+    u0 /= np.maximum(np.abs(u0).max(axis=-1, keepdims=True), 1e-12)
+
+    dt_inner = 0.002
+    save_every = int(round(dt_save / dt_inner))
+    n_steps = int(round(T / dt_save)) * save_every
+    traj = etdrk4_solve(u0, lin, nonlin, dt_inner, n_steps, save_every=save_every)
+    u = np.transpose(traj, (1, 0, 2)).astype(np.float64)  # (n_ic, n_t, nx)
+    t = np.arange(u.shape[1]) * dt_save
+    if cache:
+        np.savez_compressed(cache, u=u, t=t)
+    return u, t

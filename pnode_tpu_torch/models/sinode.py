@@ -1,18 +1,28 @@
-"""SINODE KS model (PyTorch): learned stiff-PDE dynamics for the KS equation.
+"""SINODE model zoo (PyTorch): learned stiff-PDE dynamics for KS and Burgers.
 
-Counterpart of ``pnode_tpu/models/sinode.py:30-238``:
+Counterpart of ``pnode_tpu/models/sinode.py``:
 
 - ``KSFuncIM``: fixed (or learnable) 5-point circular stencil of
-  -d^4/dx^4 - d^2/dx^2, the implicit part. Applied as rolls (the exact path:
-  no conv1d, so cuDNN's TF32 default never touches the stiff operator).
+  -d^4/dx^4 - d^2/dx^2, the KS implicit part.
 - ``KSFuncEX``: -MLP(y), 64 -> 104 x4 -> 64 with ReLU, N(0, 0.01) weights and
-  zero biases, the explicit part. ``use_fused=True`` evaluates the stack
-  through K1 (``FusedStackedMLP``, parameters ``kernel_i`` (in, out) and
-  ``bias_i`` as in JAX) and opts into the fused ARK step kernels through
-  ``fused_mlp_spec``; ``use_fused=False`` uses ``nn.Linear`` layers.
+  zero biases, the KS explicit part.
+- ``KSSnodeFunc``: conv(y) - MLP(y) (64 -> 200 x4 -> 64, ReLU), the KS
+  "snode" single function; ``KSMLPFunc``: a sigmoid MLP (64 -> 104 x4 ->
+  64), the KS "mlp" single function.
+- ``BurgersFuncIM``: the fixed 3-point circular Laplacian alpha d^2/dx^2,
+  the Burgers implicit part; ``BurgersFuncEX``: +MLP(y), N -> 9N/8 x4 -> N
+  with ReLU and N(0, 0.1) weights, the Burgers explicit part.
 
-Every module takes ``forward(t, y)`` and an explicit ``torch.Generator`` for
-its random init, so weights are reproducible from a seed.
+``use_fused=True`` (the JAX package's ``use_pallas``) puts a stack on K1
+(``FusedStackedMLP``, parameters ``kernel_i`` (in, out) and ``bias_i`` as in
+JAX; the explicit parts then opt into the fused ARK step kernels through
+``fused_mlp_spec``) and a stencil on K10/K11 (``ops.circular_stencil``);
+``use_fused=False`` uses ``nn.Linear`` layers and the roll chain. Stencils
+are never a conv1d, so cuDNN's TF32 default never touches a stiff operator.
+``KSSnodeFunc``'s stencil has no such flag, as in JAX.
+
+Every module takes ``forward(t, y)`` and an explicit ``torch.Generator``,
+dtype and device, so weights are reproducible from a seed.
 """
 
 from __future__ import annotations
@@ -24,7 +34,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.circular_stencil import circular_stencil, circular_stencil_plain
 from ..ops.fused_mlp import fused_mlp, fused_mlp_plain
+
+_ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
+                "sigmoid": torch.sigmoid}
 
 
 def ks_fixed_kernel(dx: float) -> np.ndarray:
@@ -40,15 +54,14 @@ def ks_fixed_kernel(dx: float) -> np.ndarray:
     )
 
 
-def circular_stencil_apply(y: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Periodic cross-correlation along the last axis:
-    out[i] = sum_j kernel[j] * y[(i + j - k//2) mod N], as k rolls."""
-    k = kernel.shape[0]
-    half = k // 2
-    out = kernel[0] * torch.roll(y, half, dims=-1)
-    for j in range(1, k):
-        out = out + kernel[j] * torch.roll(y, half - j, dims=-1)
-    return out
+def burgers_fixed_kernel(dx: float, alpha: float = 8e-4) -> np.ndarray:
+    """3-point stencil of alpha d^2/dx^2 (the Burgers viscous term)."""
+    return np.array([alpha / dx**2, -2.0 * alpha / dx**2, alpha / dx**2])
+
+
+# the JAX package's name for the roll chain: out[i] = sum_j kernel[j] *
+# y[(i + j - k//2) mod N], k rolls summed in order
+circular_stencil_apply = circular_stencil_plain
 
 
 class CircularConv1D(nn.Module):
@@ -56,14 +69,17 @@ class CircularConv1D(nn.Module):
 
     fixed_kernel given -> a buffer, not a parameter; otherwise a parameter
     initialized U(-sqrt(1/k), sqrt(1/k)) like torch's Conv1d default.
+    use_fused: apply it through K10/K11 (``ops.circular_stencil``; on CPU
+    tensors, their plain versions).
     """
 
     def __init__(self, kernel_size: int = 5,
                  fixed_kernel: Optional[Sequence[float]] = None,
                  generator: Optional[torch.Generator] = None,
-                 dtype=None, device=None):
+                 dtype=None, device=None, use_fused: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
+        self.use_fused = use_fused
         if fixed_kernel is not None:
             # not persistent: a fixed stencil is configuration, not state
             self.register_buffer(
@@ -79,6 +95,8 @@ class CircularConv1D(nn.Module):
 
     def forward(self, y):
         kernel = self.fixed if self.kernel is None else self.kernel
+        if self.use_fused:
+            return circular_stencil(y, kernel)
         return circular_stencil_apply(y, kernel.to(y.dtype))
 
 
@@ -88,13 +106,17 @@ def _normal_(t: torch.Tensor, std: float, generator) -> torch.Tensor:
 
 
 class StackedMLP(nn.Module):
-    """Dense stack (``nn.Linear``) with N(0, w_std) weights and zero bias."""
+    """Dense stack (``nn.Linear``) with N(0, w_std) weights and zero bias;
+    activation relu, tanh or sigmoid between the layers."""
 
     def __init__(self, d_in: int, features: Sequence[int],
                  activation: str = "relu", w_std: float = 0.01,
                  generator: Optional[torch.Generator] = None,
                  dtype=None, device=None):
         super().__init__()
+        if activation not in _ACTIVATIONS:
+            raise ValueError(f"StackedMLP: unsupported activation "
+                             f"{activation!r}")
         dims = [d_in] + list(features)
         self.activation = activation
         self.layers = nn.ModuleList()
@@ -106,7 +128,7 @@ class StackedMLP(nn.Module):
             self.layers.append(lin)
 
     def forward(self, y):
-        act = torch.relu if self.activation == "relu" else torch.tanh
+        act = _ACTIVATIONS[self.activation]
         h = y
         n = len(self.layers)
         for i, lin in enumerate(self.layers):
@@ -159,17 +181,19 @@ class FusedStackedMLP(nn.Module):
 
 
 class KSFuncIM(nn.Module):
-    """KS implicit part: 5-point circular stencil (fixed or learnable)."""
+    """KS implicit part: 5-point circular stencil (fixed or learnable);
+    use_fused applies it through K10/K11."""
 
     def __init__(self, nx: int = 64, L: float = 22.0,
                  fixed_linear: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 dtype=None, device=None):
+                 dtype=None, device=None, use_fused: bool = False):
         super().__init__()
         self.nx, self.L, self.fixed_linear = nx, L, fixed_linear
         dx = L / nx
         fixed = tuple(ks_fixed_kernel(dx)) if fixed_linear else None
-        self.conv = CircularConv1D(5, fixed, generator, dtype, device)
+        self.conv = CircularConv1D(5, fixed, generator, dtype, device,
+                                   use_fused=use_fused)
 
     @property
     def linear_in_y(self):
@@ -237,3 +261,87 @@ class KSFuncEX(nn.Module):
         if not self.use_fused:
             return None
         return _fused_stack_spec(params, "relu", -1.0)
+
+
+class KSSnodeFunc(nn.Module):
+    """KS "snode" single function: conv(y) - MLP(y), hidden 200, ReLU."""
+
+    def __init__(self, nx: int = 64, L: float = 22.0, hidden: int = 200,
+                 fixed_linear: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=None, device=None):
+        super().__init__()
+        self.nx, self.L, self.hidden = nx, L, hidden
+        fixed = tuple(ks_fixed_kernel(L / nx)) if fixed_linear else None
+        self.conv = CircularConv1D(5, fixed, generator, dtype, device)
+        self.net = StackedMLP(nx, (hidden,) * 4 + (nx,), "relu", 0.01,
+                              generator, dtype, device)
+
+    def forward(self, t, y):
+        return self.conv(y) - self.net(y)
+
+
+class KSMLPFunc(nn.Module):
+    """KS "mlp" single function: sigmoid MLP, hidden 104."""
+
+    def __init__(self, nx: int = 64, hidden: int = 104,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=None, device=None):
+        super().__init__()
+        self.nx, self.hidden = nx, hidden
+        self.net = StackedMLP(nx, (hidden,) * 4 + (nx,), "sigmoid", 0.01,
+                              generator, dtype, device)
+
+    def forward(self, t, y):
+        return self.net(y)
+
+
+class BurgersFuncIM(nn.Module):
+    """Burgers implicit part: the fixed circular Laplacian alpha d2/dx2 on
+    [0, 1); use_fused applies it through K10/K11."""
+
+    def __init__(self, nx: int = 512, alpha: float = 8e-4,
+                 use_fused: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=None, device=None):
+        super().__init__()
+        self.nx, self.alpha = nx, alpha
+        fixed = tuple(burgers_fixed_kernel(1.0 / nx, alpha))
+        self.conv = CircularConv1D(3, fixed, generator, dtype, device,
+                                   use_fused=use_fused)
+
+    @property
+    def linear_in_y(self):
+        return True  # fixed stencil, no bias
+
+    def forward(self, t, y):
+        return self.conv(y)
+
+
+class BurgersFuncEX(nn.Module):
+    """Burgers explicit part: +MLP(y), ReLU stack N -> 9N/8 x4 -> N with
+    N(0, 0.1) weights. use_fused selects K1 and opts into the fused ARK
+    step kernels (whose gate closes at N 512: their shared memory)."""
+
+    def __init__(self, nx: int = 512, use_fused: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=None, device=None):
+        super().__init__()
+        self.nx, self.use_fused = nx, use_fused
+        w = nx * 9 // 8
+        feats = (w, w, w, w, nx)
+        if use_fused:
+            self.net = FusedStackedMLP(nx, feats, "relu", 0.1, generator,
+                                       dtype, device)
+        else:
+            self.net = StackedMLP(nx, feats, "relu", 0.1, generator, dtype,
+                                  device)
+
+    def forward(self, t, y):
+        return self.net(y)
+
+    def fused_mlp_spec(self, params):
+        """Opt-in for the fused ARK step kernels: f_ex = +MLP."""
+        if not self.use_fused:
+            return None
+        return _fused_stack_spec(params, "relu", 1.0)

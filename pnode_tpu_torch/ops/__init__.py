@@ -11,10 +11,14 @@
 - ``fused_sqnxt``: K6-K9, the SqueezeNext ODE dynamics (five layers of
   conv, batch-statistics norm and ReLU) and their backward, as the whole
   chain (K6, K7) or one layer per launch (K8, K9).
+- ``circular_stencil``: K10 and K11, the periodic k-point stencil along a
+  row (the SINODE implicit operators) and its backward, with the forward-mode
+  and vmap rules that ``torch.func.jacfwd`` needs.
 
 Each wrapper launches its kernel for CUDA tensors (counting the launch in
 its ``launches`` attribute) and runs the plain version for CPU tensors.
 """
 
 __all__ = ["fused_mlp", "fused_ark_forward", "fused_ark_adjoint",
-           "fused_train_loop", "fused_adaptive_loop", "fused_sqnxt"]
+           "fused_train_loop", "fused_adaptive_loop", "fused_sqnxt",
+           "circular_stencil"]

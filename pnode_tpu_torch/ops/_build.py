@@ -49,6 +49,7 @@ _SIGNATURES = {
     "pnode_mlp_fwd": (_I, [_P, _P, _I, _I, _PI, _PP, _PP, _I, _P]),
     "pnode_mlp_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _PI, _PP, _PP, _I,
                            _P]),
+    "pnode_mlp_smem": (ctypes.c_size_t, [_I, _PI, _I]),
     "pnode_ark_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _PD, _D,
                            _F, _I, _PI, _PP, _PP, _I, _P]),
     "pnode_ark_adj": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _D,
@@ -74,6 +75,9 @@ _SIGNATURES = {
                              _P, _P, _I, _P]),
     "pnode_sqnxt_bwd_layer": (_I, [_P, _P, _P, _I, _PI, _PP, _I, _I, _I, _P,
                                    _P, _I, _P, _P, _I, _P]),
+    "pnode_stencil_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "pnode_stencil_bwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P]),
 }
 
 _lock = threading.Lock()

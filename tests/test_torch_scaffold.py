@@ -48,6 +48,7 @@ def test_import_leaves_jax_out():
         "pnode_tpu_torch.ops.fused_adaptive_loop, pnode_tpu_torch.adaptive, "
         "pnode_tpu_torch.tableaus_ark5, pnode_tpu_torch.tableaus_ark5l, "
         "pnode_tpu_torch.ops.fused_sqnxt, pnode_tpu_torch.models.sqnxt, "
+        "pnode_tpu_torch.ops.circular_stencil, "
         "pnode_tpu_torch.steppers, pnode_tpu_torch.utils\n"
         "import chip_smoke\n"
         "import importlib.util as u\n"
@@ -58,7 +59,8 @@ def test_import_leaves_jax_out():
         "('jax', 'jaxlib', 'flax', 'optax', 'pnode_tpu'))\n"
         "print('BAD', bad)\n"
     ) % (REPO, [(n, os.path.join(REPO, "examples", n + ".py"))
-                for n in ("ks_torch", "train_cifar10_torch")])
+                for n in ("ks_torch", "train_cifar10_torch",
+                          "burgers_torch")])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -72,7 +74,8 @@ def test_sources_name_no_jax_package():
                      r"(\s|\.|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "examples", "ks_torch.py"),
-             os.path.join(REPO, "examples", "train_cifar10_torch.py")]
+             os.path.join(REPO, "examples", "train_cifar10_torch.py"),
+             os.path.join(REPO, "examples", "burgers_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pnode_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if pat.search(open(f).read())]
@@ -140,6 +143,20 @@ def test_generate_ks_data_bit_equal():
     b, dtb = pt_spectral.generate_ks_data(n_samples=64)
     assert dta == dtb
     np.testing.assert_array_equal(a, b)
+
+
+def test_generate_burgers_data_bit_equal(tmp_path):
+    a, ta = jax_spectral.generate_burgers_data(nx=32, n_ic=3, T=0.4)
+    b, tb = pt_spectral.generate_burgers_data(nx=32, n_ic=3, T=0.4,
+                                              cache_dir=str(tmp_path))
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ta, tb)
+    # the same cache file name, read back as written
+    c, tc = pt_spectral.generate_burgers_data(nx=32, n_ic=3, T=0.4,
+                                              cache_dir=str(tmp_path))
+    assert os.listdir(tmp_path) == ["burgers_nx32_ic3_nu0.0008_T0.4_s0.npz"]
+    np.testing.assert_array_equal(a, c)
+    np.testing.assert_array_equal(ta, tc)
 
 
 def test_init_leaves_same_options_left():
