@@ -11,6 +11,12 @@ exits non-zero without printing the final line):
 1. Device: CUDA present, compute capability 9.0; prints the card's name and
    power limit as nvidia-smi reports them.
 2. Build: compiles pnode_tpu_torch/csrc/*.cu for sm_90a with nvcc (timed).
+   Then the probe (python -m pnode_tpu_torch.tools.probe_smem_limit, K13):
+   the largest dynamic shared memory one block takes, up a ladder and
+   bisected to 4 bytes, must equal the gates' MAX_SMEM_BYTES and the card's
+   opt-in attribute; the co-resident capacities the loop kernels' grids
+   assume; K13 at that size against 3x (bitwise), timed beside it and
+   torch.mul(x, 3).
 3. Kernels: K1 forward, K1 backward, K2 (ARK forward step) and K3 (ARK
    reverse step) against their plain PyTorch versions on the card, at the
    main path's shapes (B 256, 64 -> 104 x4 -> 64, ARK3, dt 0.2, J and the
@@ -99,8 +105,24 @@ exits non-zero without printing the final line):
    counts of K1 forward and backward, K10 and K11 over (b) must be above 0,
    K2's and K3's 0. (c) examples/burgers_torch.py at its defaults but
    --batch_time 2, 3 iterations and 20 ICs of data: a finite loss.
+8. The data-parallel slice at the KS main path's shapes (B 256, 64 -> 104
+   x4 -> 64, ARK3, dt 0.2, frozen J, ksponly, Adam lr 5e-3, KS states).
+   (a) K12 (fused_grad_step) against its plain version in fp32 and fp64 at
+   B_local 256, 128, 64 and 32 (the shard at world 1, 2, 4 and 8) and at B
+   37, hidden 24, with phase 3's K3 gates; per call beside its plain
+   version. (b) dp_fused_train_loop in a spawned one-rank NCCL group with
+   force_general, K = 8 iterations against K4 on the same full batch in
+   phase 4(a)'s form (runs_agree); without force_general K4 launches and
+   K12 does not. (c) The same over gloo in groups of 2 and 4 processes on
+   the one card: every rank against K4, the parameters bitwise equal
+   across ranks. (d) Iterations/s of the general path at world 1 beside
+   K4's over 180 iterations, and a traced call's device-busy share. (e)
+   torchrun --standalone --nproc_per_node 1 examples/ks_torch.py --dp 1 for
+   one epoch of 3 iterations: its train loss equal to the run without --dp
+   within 1e-5 relative. K12's launches over (b) and (c) must be above 0.
 
-Phases 1-6 run at their full depth; phase 7 adds about 60 s.
+Phases 1-6 run at their full depth; phase 7 adds about 60 s, phase 8 about
+60 s.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -152,6 +174,10 @@ KERNELS = {
                              "pnode_tpu/ops/circular_stencil.py:32"),
     "circular_stencil_bwd": ("cuda", "pnode_tpu_torch/csrc/circular_stencil.cu",
                              "pnode_tpu/ops/circular_stencil.py:41"),
+    "fused_grad_step": ("cuda", "pnode_tpu_torch/csrc/fused_train_loop.cu",
+                        "pnode_tpu/ops/fused_train_loop.py:613"),
+    "probe_smem": ("cuda", "pnode_tpu_torch/csrc/probe_smem.cu",
+                   "tools/probe_vmem_limit.py:35"),
 }
 SQNXT_KERNELS = ("fused_sqnxt_fwd", "fused_sqnxt_bwd", "fused_sqnxt_layer_fwd",
                  "fused_sqnxt_layer_bwd")
@@ -289,6 +315,50 @@ def phase_build():
                       ("adaptive loop", loop_capacity(HIDDEN, adaptive=True))):
         log(f"[build] {name} at the main path: {cap} co-resident blocks "
             f"(grid {min(-(-BATCH // 8), cap)} at B {BATCH})")
+
+
+def phase_probe():
+    """Phase 2's probe (path B): K13 up its ladder and bisected to the
+    largest working dynamic shared memory per block, which must equal the
+    port's MAX_SMEM_BYTES and the card's opt-in attribute; then K13 at that
+    size against its plain version (bitwise) and timed beside it and
+    torch.mul(x, 3). Returns K13's report, launches included."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_ark_adjoint import MAX_SMEM_BYTES
+    from pnode_tpu_torch.tools import probe_smem_limit as probe
+
+    probe.probe_smem.launches = 0
+    res = probe.main([])
+    launches = probe.probe_smem.launches
+    log(f"[probe] largest {res['largest']} B, opt-in attribute "
+        f"{res['optin']} B, MAX_SMEM_BYTES {MAX_SMEM_BYTES} B; "
+        f"{launches} launches")
+    if not res["largest"] == res["optin"] == MAX_SMEM_BYTES:
+        raise AssertionError(
+            f"the probe's largest working size ({res['largest']} B), the "
+            f"card's opt-in attribute ({res['optin']} B) and the gates' "
+            f"MAX_SMEM_BYTES ({MAX_SMEM_BYTES} B) differ")
+    n = res["largest"]
+    x = probe.probe_input(n, "cuda")
+    got = probe.probe_smem(x, n)
+    torch.cuda.synchronize()
+    err = abs_err(got, probe.probe_smem_plain(x))
+    if not torch.equal(got, probe.probe_smem_plain(x)):
+        raise AssertionError(f"probe_smem disagrees with 3x ({err:.3e})")
+    fns = (lambda: probe.probe_smem_plain(x), lambda: probe.probe_smem(x, n),
+           lambda: torch.mul(x, 3))
+    t = [summary(cuda_times_ms(fns[i]))[0] for i in (0, 1, 2, 1, 0, 2)]
+    report = dict(max_abs_err=err, ms=min(t[1], t[3]),
+                  plain_ms=min(t[0], t[4]), library_ms=min(t[2], t[5]),
+                  launches=launches)
+    report["bound_ms"], report["bound_by"] = bound(2 * x.numel(),
+                                                   8 * x.numel())
+    log(f"[probe] K13 at {n} B x {x.numel()} floats: kernel {t[1]:.4f} / "
+        f"{t[3]:.4f} ms, plain {t[0]:.4f} / {t[4]:.4f} ms, torch.mul "
+        f"{t[2]:.4f} / {t[5]:.4f} ms; bound {report['bound_ms']:.5f} ms "
+        f"({report['bound_by']}); bitwise equal to 3x")
+    return report
 
 
 def loop_capacity(hidden, stages=4, adaptive=False):
@@ -2543,11 +2613,282 @@ def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
     return reports, {name: counts[name] for name in STENCIL_KERNELS}
 
 
+# -- phase 8: the data-parallel slice -----------------------------------------
+
+DP_K = 8            # iterations held against K4 in (b) and (c)
+DP_ITERS = 200      # (d): a warm call of 20, a timed call of 180
+DP_SHARDS = (256, 128, 64, 32)  # B_local at world 1, 2, 4 and 8
+
+
+def check_grad_step(label, tab, dt, J, inv, Ws, bs, y, tgt, report):
+    """K12 against fused_grad_step_plain in fp32 and in fp64, phase 3's K3
+    gates: loss, dW and db within 1e-4 relative (to max |ref|) of both."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        LoopLayout, fused_grad_step, fused_grad_step_plain)
+
+    layout = LoopLayout(y.shape[0], y.shape[1], [w.shape[1] for w in Ws])
+    params = layout.pack(Ws, bs)
+    args = (layout, tab, dt, y, tgt, J, inv, params)
+    flat = lambda out: [out[0], *layout.unpack(out[1])[0],  # noqa: E731
+                        *layout.unpack(out[1])[1]]
+    got = fused_grad_step(*args)
+    torch.cuda.synchronize()
+    plain = fused_grad_step_plain(*args)
+    ref64 = fused_grad_step_plain(layout, tab, dt, y.double(), tgt.double(),
+                                  J.double(), inv.double(), params.double())
+    check_kernel(f"fused_grad_step {label}", flat(got), flat(plain),
+                 flat(ref64), 1e-4, report)
+    return args
+
+
+def phase_grad_step(device, u, J, inv, tab, dt):
+    """Phase 8(a): K12 at the shards of world 1, 2, 4 and 8 and at the
+    ragged size, then per call at B_local 256 in turns with its plain
+    version."""
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        fused_grad_step, fused_grad_step_plain)
+
+    report = {}
+    log("[dp] (a) K12 (fused_grad_step) against its plain version")
+    for B in DP_SHARDS:
+        Ws, bs, y, tgt = loop_case(device, u, B, HIDDEN, False, 1, 1)
+        args = check_grad_step(f"B_local {B} h{HIDDEN}", tab, dt, J, inv, Ws,
+                               bs, y[0], tgt[0], report)
+        if B == BATCH:
+            main_args = args
+    Ws, bs, y, tgt = loop_case(device, u, 37, 24, True, 2, 1)
+    check_grad_step("B37 h24 biased", tab, dt, J, inv, Ws, bs, y[0], tgt[0],
+                    report)
+    fns = (lambda: fused_grad_step_plain(*main_args),
+           lambda: fused_grad_step(*main_args))
+    t = [summary(cuda_times_ms(fns[i], reps=20))[0] for i in (0, 1, 1, 0)]
+    report["ms"], report["plain_ms"] = min(t[1], t[2]), min(t[0], t[3])
+    log(f"[dp]   fused_grad_step per call at B_local {BATCH}: kernel "
+        f"{t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms")
+    return report
+
+
+def dp_rank(device, tab, dt, ops, Ws, bs, y, tgt, timed):
+    """One rank of phase 8(b)-(d): dp_fused_train_loop over the group (a
+    flat mesh of every rank) on the first DP_K minibatches at Adam eps
+    1e-8 and 1e-6, from the given weights and zero moments, with K12's
+    launch count over those runs. With ``timed`` (the one-rank NCCL group):
+    the same call without force_general (K4 must launch, K12 must not), a
+    traced call of 20 iterations on the general path (its busy share), and
+    iterations per second of the general path and of K4 over DP_ITERS
+    iterations (a warm call of 20, a timed call of the rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        fused_grad_step, fused_train_loop)
+    from pnode_tpu_torch.parallel import dp_fused_train_loop, make_mesh
+
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device=device)
+    J, inv = f32(ops[0]), f32(ops[1])
+    Ws, bs = [f32(w) for w in Ws], [f32(b) for b in bs]
+    y, tgt = f32(y), f32(tgt)
+    z = ([torch.zeros_like(w) for w in Ws], [torch.zeros_like(b) for b in bs])
+    mesh = make_mesh()
+
+    def run(k0, K, eps=1e-8, general=True):
+        return dp_fused_train_loop(mesh, tab, dt, y[k0:k0 + K],
+                                   tgt[k0:k0 + K], J, inv, Ws, bs, z, z, 0,
+                                   lr=LR, eps=eps, force_general=general)
+
+    out = {"runs": {}}
+    fused_grad_step.launches = 0
+    for eps in (1e-8, 1e-6):
+        W, b, _, _, losses = run(0, DP_K, eps)
+        out["runs"][eps] = (losses.cpu().numpy(),
+                            [p.cpu().numpy() for p in W + b])
+    torch.cuda.synchronize()
+    out["launches"] = fused_grad_step.launches
+    if not timed:
+        return out
+    fused_train_loop.launches = fused_grad_step.launches = 0
+    run(0, DP_K, general=False)
+    torch.cuda.synchronize()
+    out["delegated"] = (fused_train_loop.launches, fused_grad_step.launches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(0, 20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, busy_us = device_kernels(prof.events())
+    out["traced"] = (wall / 20, busy_us * 1e-6 / wall, len(kernels))
+    for name, general in (("general", True), ("K4", False)):
+        run(0, 20, general=general)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(20, DP_ITERS - 20, general=general)
+        torch.cuda.synchronize()
+        out[name] = (DP_ITERS - 20) / (time.perf_counter() - t0)
+    return out
+
+
+def phase_dp_loops(device, u, J, inv, tab, dt, worlds, tol=5e-4):
+    """Phase 8(b)-(d): dp_fused_train_loop in spawned groups of ranks,
+    ``worlds`` (world size, backend) pairs: a one-rank NCCL group
+    (force_general; with (b)'s delegation check and (d)), and gloo groups
+    of 2 and 4 processes on the one card. Each rank against K4 on the full
+    batch in phase 4(a)'s form (runs_agree), the parameters bitwise equal
+    across ranks. Returns K12's launch count over the groups' DP_K-iteration
+    runs."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop
+    from pnode_tpu_torch.parallel import run_ranks
+
+    Ws, bs, y, tgt = loop_case(device, u, BATCH, HIDDEN, False, 3, DP_ITERS)
+    z = ([torch.zeros_like(w) for w in Ws], [torch.zeros_like(b) for b in bs])
+    ref = {}
+    for eps in (1e-8, 1e-6):
+        W, b, _, _, losses = fused_train_loop(tab, dt, y[:DP_K], tgt[:DP_K], J,
+                                              inv, Ws, bs, z, z, 0, lr=LR,
+                                              eps=eps)
+        ref[eps] = (losses.cpu(), [t.cpu() for t in W + b])
+    np_ = lambda ts: [t.cpu().numpy() for t in ts]  # noqa: E731
+    launches, ok = 0, True
+    for world, backend in worlds:
+        K = DP_ITERS if world == 1 else DP_K
+        t0 = time.perf_counter()
+        ranks = run_ranks(world, dp_rank, tab, dt, np_([J, inv]), np_(Ws),
+                          np_(bs), y[:K].cpu().numpy(), tgt[:K].cpu().numpy(),
+                          world == 1, backend=backend, device=device,
+                          timeout=300.0)
+        log(f"[dp] ({'b' if world == 1 else 'c'}) world {world} over "
+            f"{backend} on the one card ({time.perf_counter() - t0:.1f} s "
+            f"with the spawn): K12 launches per rank "
+            f"{[r['launches'] for r in ranks]}")
+        launches += sum(r["launches"] for r in ranks)
+        for eps, (lk, pk) in ranks[0]["runs"].items():
+            same = all(np.array_equal(lk, r["runs"][eps][0]) and all(
+                np.array_equal(a, b) for a, b in zip(pk, r["runs"][eps][1]))
+                for r in ranks[1:])
+            log(f"[dp]     Adam eps {eps:.0e}: losses and parameters "
+                f"{'bitwise equal' if same else 'DIFFERENT'} across the "
+                f"{world} rank(s)")
+            agree = runs_agree(
+                f"K4 on the full batch (world {world})", eps,
+                (torch.from_numpy(lk), [torch.from_numpy(a) for a in pk]),
+                ref[eps], tol)
+            ok = ok and same and agree
+        if world == 1:
+            r = ranks[0]
+            k4, k12 = r["delegated"]
+            step, busy, n_kern = r["traced"]
+            log(f"[dp] (b) without force_general: K4 launches {k4}, K12 "
+                f"launches {k12}")
+            log(f"[dp] (d) general path (K12 + NCCL all-reduce + Adam), one "
+                f"rank: traced call of 20 iterations {1e3 * step:.3f} ms/"
+                f"iteration, device busy {busy:.3f} of the wall time "
+                f"({n_kern} device events); {r['general']:.1f} iterations/s "
+                f"beside K4's {r['K4']:.1f} over {DP_ITERS - 20} iterations "
+                f"(one call each, after a warm call of 20)")
+            ok = ok and k4 > 0 and k12 == 0
+    if not ok:
+        raise AssertionError("dp_fused_train_loop disagrees with K4, or its "
+                             "ranks with each other")
+    return launches
+
+
+def start_ks_torch_dp(device):
+    """Phase 8(e), started: torchrun --standalone --nproc_per_node 1
+    examples/ks_torch.py --dp 1, and the same run without --dp, one epoch
+    of 3 iterations each (batch 64 of 240 training states), side by side
+    in their own directories. Returns {name: (command, process)}."""
+    runs = {}
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    for name, head, tail in (
+            ("dp", [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc_per_node", "1"], ["--dp", "1"]),
+            ("plain", [sys.executable], [])):
+        cmd = head + ["examples/ks_torch.py", "--max_epochs", "1",
+                      "--data_size", "300", "--batch_size", "64", "--device",
+                      device, "--train_dir",
+                      os.path.join(ROOT, "build", f"ks_torch_{name}")] + tail
+        runs[name] = (cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, env=env))
+    return runs
+
+
+def finish_ks_torch_dp(runs, t0):
+    """Phase 8(e), read: both runs' train losses, a finite loss within 1e-5
+    relative of each other."""
+    loss, out = {}, {}
+    for name, (cmd, proc) in runs.items():
+        try:
+            out[name], err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"{' '.join(cmd)} timed out")
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)} failed ({proc.returncode})"
+                                 f":\n{out[name][-2000:]}\n{err[-3000:]}")
+        line = [ln for ln in out[name].splitlines() if ln.startswith("Epoch")]
+        loss[name] = float(line[-1].split("Train")[1].split("|")[0])
+    rel = abs(loss["dp"] - loss["plain"]) / abs(loss["plain"])
+    log(f"[dp] (e) torchrun --standalone --nproc_per_node 1 "
+        f"examples/ks_torch.py --dp 1 --batch_size 64 (3 iterations): train "
+        f"loss {loss['dp']:.9e}, without --dp {loss['plain']:.9e}, rel "
+        f"{rel:.3e} (tol 1e-5); both runs done {time.perf_counter() - t0:.1f}"
+        f" s after their start")
+    if "data-parallel: 1 device(s), 64 samples/device" not in out["dp"]:
+        raise AssertionError("ks_torch.py --dp 1 did not start its mesh")
+    if not (np.isfinite(loss["dp"]) and rel <= 1e-5):
+        raise AssertionError("ks_torch.py --dp 1 disagrees with the run "
+                             "without --dp")
+
+
+def phase_dp(device, u):
+    """Phase 8: the data-parallel slice. Returns K12's report and its launch
+    count over (b) and (c)."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import fused_grad_step_cost
+
+    J, inv, tab, _ = ks_operators(device)
+    dt = float(np.float32(DT))
+    t0 = time.perf_counter()
+    report = phase_grad_step(device, u, J, inv, tab, dt)
+    report["bound_ms"], report["bound_by"] = bound(*fused_grad_step_cost(
+        tab, BATCH, NX, [HIDDEN] * 4 + [NX]))
+    one = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    launches = phase_dp_loops(device, u, J, inv, tab, dt, ((1, one),))
+    # (e) runs beside (c): neither is timed
+    t_e = time.perf_counter()
+    runs = start_ks_torch_dp(device)
+    try:
+        launches += phase_dp_loops(device, u, J, inv, tab, dt,
+                                   ((2, "gloo"), (4, "gloo")))
+        finish_ks_torch_dp(runs, t_e)
+    finally:
+        for _, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    log(f"[dp] phase 8 in {time.perf_counter() - t0:.1f} s; K12 launches "
+        f"over (b) and (c): {launches}")
+    if launches <= 0:
+        raise AssertionError("fused_grad_step was never launched on the "
+                             "data-parallel path")
+    return report, launches
+
+
 def main():
     import torch
 
     phase_device()
     phase_build()
+    probe_report = phase_probe()
     u = ks_data()
     reports = phase_kernels("cuda", u)
     counts, _, _ = phase_slice("cuda", u)
@@ -2568,6 +2909,9 @@ def main():
     b_reports, b_counts = phase_burgers("cuda")
     reports.update(b_reports)
     counts.update(b_counts)
+    reports["fused_grad_step"], counts["fused_grad_step"] = phase_dp("cuda", u)
+    reports["probe_smem"] = probe_report
+    counts["probe_smem"] = probe_report["launches"]
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = reports[name]

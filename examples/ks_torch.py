@@ -53,6 +53,16 @@ the first accepted dt of each call's last iteration as the next call's
 initial dt. A call in which an iteration runs out of trials before its
 window lands stops the training (``SystemExit``). The JAX package reaches
 this kernel only through ``bench.py --workload adaptive``.
+
+``--dp N`` (twin of ``examples/ks.py --dp``) trains data-parallel over N
+ranks of a ``torch.distributed`` group: every rank draws the same global
+minibatch from the seed, solves its B/N rows, and one all-reduce per step
+means the loss and the gradients before ``torch.optim.Adam`` (the per-step
+path; ``--fused_loop`` is refused). N must divide ``--batch_size``; -1 is
+the world size. The ranks come from ``torchrun`` (NCCL on CUDA, gloo on the
+CPU); at ``--dp 1`` without it the script starts a one-rank group itself::
+
+    torchrun --standalone --nproc_per_node 1 examples/ks_torch.py --dp 1
 """
 
 from __future__ import annotations
@@ -101,8 +111,48 @@ def parse_args(argv=None):
     p.add_argument("--fused_loop", action="store_true",
                    help="each epoch as K iterations of the fused training "
                    "loop (K4; K5 under -ts_adapt_type basic) in one call")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel training over N ranks (-1 = the "
+                   "world size): each rank solves its shard of every "
+                   "minibatch, one gradient mean per step "
+                   "(pnode_tpu_torch.parallel). N must divide --batch_size")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_known_args(argv)
+
+
+def start_dp(n, batch_size, device):
+    """The --dp N mesh: the ranks of torchrun's group (or of one already
+    started), or, at --dp 1 with neither, a one-rank group of our own (NCCL
+    on CUDA, gloo on the CPU). Returns (mesh, whether we started the
+    group)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from pnode_tpu_torch.parallel import make_mesh
+
+    own = False
+    if not dist.is_initialized():
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        if "WORLD_SIZE" in os.environ:  # torchrun
+            dist.init_process_group(backend)
+        elif n in (1, -1):
+            store = os.path.join(tempfile.mkdtemp(), "store")
+            dist.init_process_group(backend, init_method="file://" + store,
+                                    rank=0, world_size=1)
+            own = True
+        else:
+            raise SystemExit(f"--dp {n} needs {n} ranks: run under torchrun "
+                             f"--nproc_per_node {n}")
+    world = dist.get_world_size()
+    n = world if n < 0 else n
+    if batch_size % n:
+        raise SystemExit(f"--dp {n} must divide --batch_size {batch_size}")
+    if n != world:
+        raise SystemExit(f"--dp {n} needs {n} ranks, the group has {world}")
+    print(f"data-parallel: {n} device(s), {batch_size // n} samples/device")
+    return make_mesh(n), own
 
 
 class FusedLoop:
@@ -271,7 +321,20 @@ def main(argv=None):
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda: CUDA is not available (pass "
                          "--device cpu to run on the CPU)")
+    if args.dp and args.fused_loop:
+        raise SystemExit("--dp composes with the per-step training path; "
+                         "--fused_loop is a single-card kernel: drop one of "
+                         "the two flags")
+    if args.dp > 0 and args.batch_size % args.dp:
+        raise SystemExit(f"--dp {args.dp} must divide --batch_size "
+                         f"{args.batch_size}")
     device = torch.device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh, own_group = (start_dp(args.dp, args.batch_size, device) if args.dp
+                       else (None, False))
     dtype = torch.float64 if args.double_prec else torch.float32
     pt.set_option("snes_type", "ksponly")
     pt.init([sys.argv[0]] + unknown)
@@ -315,6 +378,19 @@ def main(argv=None):
             y_tmpl, pt.TorchFunc(ex), step_size=args.step_size,
             method=args.pnode_method, linear_solver=args.linear_solver,
             fixed_jacobian=args.fixed_jacobian, batch_size=args.batch_size)
+    vg = None
+    if mesh is not None:
+        from pnode_tpu_torch.parallel import (
+            dp_value_and_grad, replicate, shard_batch)
+
+        with torch.no_grad():
+            for p, r in zip(ex.parameters(),
+                            replicate(list(ex.parameters()), mesh)):
+                p.copy_(r)
+        # each rank solves its shard; the loss reads the live parameters
+        vg = dp_value_and_grad(
+            lambda params, batch: data_loss(
+                ode.odeint_adjoint(batch[0], t_out), batch[1]), mesh)
     opt = torch.optim.Adam(ex.parameters(), lr=args.lr)
     fused = None
     if args.fused_loop:
@@ -356,10 +432,18 @@ def main(argv=None):
         else:
             losses = []
             for y0, tgt in batches:
-                pred = ode.odeint_adjoint(as_t(y0), t_out)
-                loss = data_loss(pred, as_t(tgt))
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
+                if vg is not None:
+                    # every rank drew the same global minibatch
+                    params = list(ex.parameters())
+                    loss, grads = vg(params, shard_batch(
+                        (as_t(y0), as_t(tgt)), mesh))
+                    for p, g in zip(params, grads):
+                        p.grad = g
+                else:
+                    pred = ode.odeint_adjoint(as_t(y0), t_out)
+                    loss = data_loss(pred, as_t(tgt))
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
                 opt.step()
                 losses.append(loss.detach())
             losses = torch.stack(losses) if losses else torch.zeros(0)
@@ -388,6 +472,8 @@ def main(argv=None):
         print(f"Epoch {epoch:04d} | Time {time.time() - t0:.2f}s | "
               f"Train {train_loss:.6e} | Val {vl:.6e} | "
               f"NFE-F {ode.nfe_forward}")
+    if own_group:
+        torch.distributed.destroy_process_group()
     return best_val, history
 
 

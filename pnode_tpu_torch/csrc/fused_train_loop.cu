@@ -39,6 +39,19 @@
 // read-only path. Parameters and moments live in one flat [W0, b0, W1, b1,
 // ...] buffer each, the layout of the gradient partials, so phase B is one
 // loop over that layout.
+//
+// K12, beside it: one iteration's phase A without Adam, the per-rank kernel
+// of the data-parallel loop. Replaces pnode_tpu/ops/fused_train_loop.py:
+// _grad_kernel (:613), launched by fused_grad_step (:688) from
+// parallel/fused_dp.py. It computes the loss and the flat gradient of the
+// local shard; the caller all-reduces them and runs Adam. What bounds it is
+// phase A's (one K2 and one K3 per 8-row tile, ~0.2 GFLOP at the KS shard
+// of B 128). Design: two ordinary launches, so that several processes can
+// share one card with no co-residency to guarantee: grad_step_kernel (phase
+// A, loop_phase_a, with each block's loss sum stored after its dW/db
+// partial), then grad_step_sum_kernel (the partials and the loss summed in
+// block order, no atomics). The weights do not change during the launch,
+// so K12 reads them through the read-only path.
 #include <cooperative_groups.h>
 
 #include <cmath>
@@ -66,16 +79,19 @@ struct LoopSmem {
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-train_loop_kernel(const float* __restrict__ y_stack,
-                  const float* __restrict__ tgt_stack,
-                  const float* __restrict__ J, const float* __restrict__ inv,
-                  float* params, float* m_state, float* v_state,
-                  float* partial, float* lpart, float* losses, int K, int B,
-                  int d, Tableau tb, float sign, Mlp p, Adam adam, int t0,
-                  float inv_count, float two_inv_count) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
+// Phase A of one training iteration on this block's 8-row tiles (tiles
+// blockIdx.x, + gridDim.x, ...): the forward step with all s stage values
+// kept in shared memory, the squared error and its seed two_inv_count (y1 -
+// tgt), and the reverse step into this block's dW/db partial `part` (the
+// first tile overwrites it, later tiles add). Rows past B are never
+// computed. Returns the block's sum of squared differences in thread 0.
+// K4 (kCoherent: it rewrites the weights between iterations of one launch)
+// and K12 (weights fixed during its launch) share it.
+template <bool kCoherent>
+__device__ __forceinline__ float loop_phase_a(
+    const float* y, const float* tgt, const float* J, const float* inv, int B,
+    int d, const Tableau& tb, float sign, const Mlp& p, float two_inv_count,
+    float* smem, float* part) {
   const int s = tb.s;
   const LoopSmem lay(d, s, p.maxd, p.htotal);
   const int tile = lay.tile;
@@ -99,41 +115,53 @@ train_loop_kernel(const float* __restrict__ y_stack,
   float* gA = hs + p.htotal;
   float* gB = gA + kRows * p.maxd;
   float* red = smem + lay.total - kReduceFloats;
-  float* part = partial + (size_t)blockIdx.x * p.wtotal;
 
   const int ntiles = (B + kRows - 1) / kRows;
+  bool first_grad = true;
+  float lsum = 0.0f;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int row0 = t * kRows;
+    const int rows = min(kRows, B - row0);
+    copy_rows(y + (size_t)row0 * d, d, yv, d, rows, d, 1.0f);
+    __syncthreads();
+    ark_forward_tile<kCoherent>(p, tb, sign, J, inv, d, rows, yv, kI, kE, G,
+                                Ys, tile, nullptr, 0, a, b, lam);
+    __syncthreads();
+    for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
+      const float diff = lam[e] - tgt[(size_t)row0 * d + e];
+      lsum = fmaf(diff, diff, lsum);
+      lam[e] = two_inv_count * diff;
+    }
+    __syncthreads();
+    ark_reverse_tile<kCoherent>(p, tb, sign, J, inv, d, rows, lam, Ys,
+                                (size_t)tile, xis, u, uh, pv, q, hs, gA, gB,
+                                nullptr, part, first_grad);
+    __syncthreads();
+  }
+  if (first_grad) {  // no stage of any tile reached the MLP
+    for (int e = threadIdx.x; e < p.wtotal; e += blockDim.x) part[e] = 0.0f;
+  }
+  return block_sum(lsum, red);
+}
+
+__global__ void __launch_bounds__(kThreads)
+train_loop_kernel(const float* __restrict__ y_stack,
+                  const float* __restrict__ tgt_stack,
+                  const float* __restrict__ J, const float* __restrict__ inv,
+                  float* params, float* m_state, float* v_state,
+                  float* partial, float* lpart, float* losses, int K, int B,
+                  int d, Tableau tb, float sign, Mlp p, Adam adam, int t0,
+                  float inv_count, float two_inv_count) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  float* part = partial + (size_t)blockIdx.x * p.wtotal;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
 
   for (int k = 0; k < K; ++k) {
-    const float* y = y_stack + (size_t)k * B * d;
-    const float* tgt = tgt_stack + (size_t)k * B * d;
-
     // ---- phase A: this block's row tiles ----------------------------------
-    bool first_grad = true;
-    float lsum = 0.0f;
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      const int row0 = t * kRows;
-      const int rows = min(kRows, B - row0);
-      copy_rows(y + (size_t)row0 * d, d, yv, d, rows, d, 1.0f);
-      __syncthreads();
-      ark_forward_tile<true>(p, tb, sign, J, inv, d, rows, yv, kI, kE, G, Ys,
-                             tile, nullptr, 0, a, b, lam);
-      __syncthreads();
-      for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
-        const float diff = lam[e] - tgt[(size_t)row0 * d + e];
-        lsum = fmaf(diff, diff, lsum);
-        lam[e] = two_inv_count * diff;
-      }
-      __syncthreads();
-      ark_reverse_tile<true>(p, tb, sign, J, inv, d, rows, lam, Ys,
-                             (size_t)tile, xis, u, uh, pv, q, hs, gA, gB,
-                             nullptr, part, first_grad);
-      __syncthreads();
-    }
-    if (first_grad) {  // no stage of any tile reached the MLP
-      for (int e = threadIdx.x; e < p.wtotal; e += blockDim.x) part[e] = 0.0f;
-    }
-    const float block_loss = block_sum(lsum, red);
+    const float block_loss = loop_phase_a<true>(
+        y_stack + (size_t)k * B * d, tgt_stack + (size_t)k * B * d, J, inv, B,
+        d, tb, sign, p, two_inv_count, smem, part);
     if (threadIdx.x == 0) lpart[blockIdx.x] = block_loss;
     grid.sync();
 
@@ -148,6 +176,53 @@ train_loop_kernel(const float* __restrict__ y_stack,
     }
     grid.sync();
   }
+}
+
+// K12: one iteration's phase A (loop_phase_a) per block; each block's slice
+// of `partial` (wtotal + 1 floats) holds its dW/db partial, then its sum of
+// squared differences.
+__global__ void __launch_bounds__(kThreads)
+grad_step_kernel(const float* __restrict__ y, const float* __restrict__ tgt,
+                 const float* __restrict__ J, const float* __restrict__ inv,
+                 float* __restrict__ partial, int B, int d, Tableau tb,
+                 float sign, Mlp p, float two_inv_count) {
+  extern __shared__ float smem[];
+  float* part = partial + (size_t)blockIdx.x * (p.wtotal + 1);
+  const float block_loss = loop_phase_a<false>(y, tgt, J, inv, B, d, tb, sign,
+                                               p, two_inv_count, smem, part);
+  if (threadIdx.x == 0) part[p.wtotal] = block_loss;
+}
+
+// K12's second launch: out[i] = sum_b partial[b * (wtotal + 1) + i] in block
+// order (deterministic, no atomics); the last slot, the squared-error sum,
+// times inv_count is the loss.
+__global__ void grad_step_sum_kernel(const float* __restrict__ partial,
+                                     int nblk, int wtotal, float inv_count,
+                                     float* __restrict__ out) {
+  const int n = wtotal + 1;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    float acc = 0.0f;
+    for (int b = 0; b < nblk; ++b) acc += partial[(size_t)b * n + i];
+    out[i] = i == wtotal ? acc * inv_count : acc;
+  }
+}
+
+// Host: the Mlp of a flat [W0, b0, W1, b1, ...] parameter buffer.
+static int flat_mlp(Mlp* p, const float* params, int n_layers,
+                    const int* dims, int d, int act) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
+  if (dims[0] != d || dims[n_layers] != d) return cudaErrorInvalidValue;
+  const void* Ws[kMaxLayers];
+  const void* bs[kMaxLayers];
+  size_t off = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    Ws[l] = params + off;
+    off += (size_t)dims[l] * dims[l + 1];
+    bs[l] = params + off;
+    off += dims[l + 1];
+  }
+  return make_mlp(p, n_layers, dims, Ws, bs, act);
 }
 
 }  // namespace pnode
@@ -197,21 +272,10 @@ int pnode_train_loop(const float* y_stack, const float* tgt_stack,
                      const double* tab, double dt, float sign, int n_layers,
                      const int* dims, int act, int t0, float lr, double b1,
                      double b2, double eps, int grid, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
-  if (K < 1 || B < 1 || grid < 1 || dims[0] != d || dims[n_layers] != d)
-    return cudaErrorInvalidValue;
-  const void* Ws[kMaxLayers];
-  const void* bs[kMaxLayers];
-  size_t off = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    Ws[l] = params + off;
-    off += (size_t)dims[l] * dims[l + 1];
-    bs[l] = params + off;
-    off += dims[l + 1];
-  }
+  if (K < 1 || B < 1 || grid < 1) return cudaErrorInvalidValue;
   Mlp p;
   Tableau tb;
-  int rc = make_mlp(&p, n_layers, dims, Ws, bs, act);
+  int rc = flat_mlp(&p, params, n_layers, dims, d, act);
   if (rc) return rc;
   if ((rc = make_tableau(&tb, s, tab, dt))) return rc;
   const Adam adam = make_adam(lr, b1, b2, eps);
@@ -230,6 +294,56 @@ int pnode_train_loop(const float* y_stack, const float* tgt_stack,
                                         dim3(grid), dim3(kThreads), args,
                                         smem, (cudaStream_t)stream);
   if (rc) return rc;
+  return (int)cudaGetLastError();
+}
+
+// Resident grad_step_kernel blocks on the current device with `smem` bytes
+// of dynamic shared memory each (blocks per SM x SMs), into *blocks: the
+// wrapper's cap on K12's grid.
+int pnode_grad_step_capacity(size_t smem, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  int rc;
+  if ((rc = (int)cudaGetDevice(&dev))) return rc;
+  if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)))
+    return rc;
+  if ((rc = prepare_smem(grad_step_kernel, smem))) return rc;
+  if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, grad_step_kernel, kThreads, smem)))
+    return rc;
+  *blocks = per_sm * sms;
+  return 0;
+}
+
+// K12: one iteration's loss and gradient on y, tgt (B, d) without Adam. out
+// (wtotal + 1 floats): the flat [W0, b0, W1, b1, ...] gradient, then the
+// loss sum((y1 - tgt)^2) / count; the seed is 2 (y1 - tgt) / count. params
+// as pnode_train_loop's (read only). partial: grid * (wtotal + 1) floats of
+// scratch. Two ordinary launches on `stream`: phase A with `grid` blocks
+// (blocks stride over the ceil(B / 8) row tiles), then the ordered sums.
+int pnode_grad_step(const float* y, const float* tgt, const float* J,
+                    const float* inv, const float* params, float* partial,
+                    float* out, int B, int d, int s, const double* tab,
+                    double dt, float sign, int n_layers, const int* dims,
+                    int act, double count, int grid, void* stream) {
+  if (B < 1 || grid < 1 || !(count > 0.0)) return cudaErrorInvalidValue;
+  Mlp p;
+  Tableau tb;
+  int rc = flat_mlp(&p, params, n_layers, dims, d, act);
+  if (rc) return rc;
+  if ((rc = make_tableau(&tb, s, tab, dt))) return rc;
+  const float inv_count = (float)(1.0 / count);
+  const float two_inv_count = (float)(2.0 / count);
+  const size_t smem = pnode_train_loop_smem(d, s, p.maxd, p.htotal);
+  if ((rc = prepare_smem(grad_step_kernel, smem))) return rc;
+  cudaStream_t st = (cudaStream_t)stream;
+  grad_step_kernel<<<grid, kThreads, smem, st>>>(y, tgt, J, inv, partial, B,
+                                                 d, tb, sign, p,
+                                                 two_inv_count);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  const int n = p.wtotal + 1;
+  grad_step_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      partial, grid, p.wtotal, inv_count, out);
   return (int)cudaGetLastError();
 }
 

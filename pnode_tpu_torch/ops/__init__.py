@@ -4,7 +4,9 @@
 - ``fused_ark_forward``: K2, one whole ARK-IMEX forward step.
 - ``fused_ark_adjoint``: K3, one whole stage-exact reverse step.
 - ``fused_train_loop``: K4, K complete training iterations (forward step,
-  MSE, reverse step, Adam) in one persistent cooperative launch.
+  MSE, reverse step, Adam) in one persistent cooperative launch; and K12,
+  ``fused_grad_step``, one iteration's loss and gradient without Adam (the
+  per-rank kernel of the data-parallel loop, ``parallel/fused_dp.py``).
 - ``fused_adaptive_loop``: K5, K complete adaptive training iterations
   (the embedded trial loop under the basic controller, MSE, the reverse of
   the accepted trials, Adam) in one persistent cooperative launch.

@@ -61,6 +61,9 @@ _SIGNATURES = {
                               _D, _D, _I, _P]),
     "pnode_train_loop_smem": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "pnode_train_loop_capacity": (_I, [ctypes.c_size_t, _PI]),
+    "pnode_grad_step": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _D,
+                             _F, _I, _PI, _I, _D, _I, _P]),
+    "pnode_grad_step_capacity": (_I, [ctypes.c_size_t, _PI]),
     "pnode_adaptive_loop": (_I, [_P] * 15 + [_I, _I, _I, _I, _PD, _PD, _D, _F,
                                              _I, _PI, _I, _I, _F, _D, _D, _D,
                                              _I, _D, _D, _D, _D, _D, _D, _D,
@@ -78,6 +81,8 @@ _SIGNATURES = {
     "pnode_stencil_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     "pnode_stencil_bwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _P]),
+    "pnode_smem_optin": (_I, [_PI]),
+    "pnode_probe_smem": (_I, [_P, _P, ctypes.c_longlong, _I, _P]),
 }
 
 _lock = threading.Lock()

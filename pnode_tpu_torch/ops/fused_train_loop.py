@@ -20,8 +20,14 @@ Math per iteration k, which ``fused_train_loop_plain`` writes out::
     p <- p - lr (m / c1) / (sqrt(v / c2) + eps)       (optax.adam)
 
 Only fp32 runs on the card; the plain version takes any float dtype.
-``LoopLayout`` and ``fused_grad_step`` (the data-parallel grads-only kernel)
-belong to the DP slice.
+
+K12, ``fused_grad_step``, is one iteration's forward step, MSE and reverse
+step without Adam (replaces ``_grad_kernel`` (:613), launched by
+``fused_grad_step`` (:688)): the per-rank kernel of
+``parallel.fused_dp.dp_fused_train_loop``, which all-reduces its loss and
+gradient and runs Adam outside it. ``LoopLayout`` describes the operands of
+both kernels: the flat ``[W0, b0, W1, b1, ...]`` buffer that holds the
+parameters, the Adam moments and the gradient (no TPU lane padding).
 """
 
 from __future__ import annotations
@@ -120,7 +126,71 @@ def fused_train_loop_cost(tableau_static, B, d, layer_dims, K):
     return flops, byts
 
 
-# -- plain PyTorch version --------------------------------------------------
+def fused_grad_step_cost(tableau_static, B, d, layer_dims):
+    """Analytic (flops, device-memory bytes) of one ``fused_grad_step``
+    call: ``fused_train_loop_cost``'s forward, reverse and loss without
+    Adam; bytes are the roofline's (y and the target, the operators and the
+    parameters read once, the gradient and the loss written once), not the
+    kernel's partial-sum traffic."""
+    s = len(tableau_static[2])
+    dims = [d] + list(layer_dims)
+    mlp = sum(2 * B * a * b for a, b in zip(dims, dims[1:]))
+    w_elems = grad_buffer_size(dims)
+    flops = s * (2 * B * d * d + mlp) + s * (2 * B * d * d + 3 * mlp)
+    flops += 3 * B * d
+    byts = 4 * (2 * B * d + 2 * d * d + 2 * w_elems + 1)
+    return flops, byts
+
+
+class LoopLayout:
+    """Operands of the loop kernels (K4, K12) for a (B, d) local batch and
+    the stack d -> layer_dims: parameters, Adam moments and gradients in
+    one flat ``[W0, b0, W1, b1, ...]`` buffer each, of ``total`` floats.
+    ``B`` is the LOCAL (per-rank) batch."""
+
+    def __init__(self, B, d, layer_dims):
+        self.dims = [int(d)] + [int(x) for x in layer_dims]
+        self.B = int(B)
+        self.total = grad_buffer_size(self.dims)
+
+    def pad_batch(self, a):
+        """(..., B, d) -> the contiguous kernel operand. Nothing is padded:
+        the kernels mask the rows past B of their last 8-row tile."""
+        if tuple(a.shape[-2:]) != (self.B, self.dims[0]):
+            raise ValueError(f"batch must be (..., {self.B}, {self.dims[0]}), "
+                             f"got {tuple(a.shape)}")
+        return a.contiguous()
+
+    def pack(self, ws, bs):
+        return _flat(ws, bs)
+
+    def unpack(self, flat):
+        """(weights, biases) as views into the flat buffer."""
+        ws, bs = split_grads(flat, self.dims)
+        return list(ws), list(bs)
+
+
+# -- plain PyTorch versions -------------------------------------------------
+
+@torch.no_grad()
+def fused_grad_step_plain(layout, tableau_static, dt, y, tgt, J_dense, inv_op,
+                          params, activation="relu", sign=-1.0,
+                          global_count=None):
+    """Plain PyTorch version of K12: ``fused_train_loop_plain``'s iteration
+    without Adam. Returns (loss, flat gradient)."""
+    count = float(global_count if global_count is not None
+                  else layout.B * layout.dims[0])
+    inv_count = 1.0 / count
+    Ws, bs = layout.unpack(params)
+    y1, Ys = fused_ark_step_fwd_plain(tableau_static, dt, y, J_dense, inv_op,
+                                      Ws, bs, activation, sign)
+    diff = y1 - tgt
+    loss = (diff * diff).sum() * inv_count
+    _, (dWs, dbs) = fused_ark_step_adj_plain(
+        tableau_static, dt, Ys, (2.0 * inv_count) * diff, J_dense, inv_op,
+        Ws, bs, activation, sign)
+    return loss, _flat(dWs, dbs)
+
 
 @torch.no_grad()
 def fused_train_loop_plain(tableau_static, dt, y_stack, tgt_stack, J_dense,
@@ -225,6 +295,63 @@ def _check_loop_args(tableau_static, y_stack, tgt_stack, J_dense, inv_op,
 
 def _flat(ws, bs):
     return torch.cat([t for w, b in zip(ws, bs) for t in (w.reshape(-1), b)])
+
+
+def fused_grad_step(layout, tableau_static, dt, y, tgt, J_dense, inv_op,
+                    params, activation="relu", sign=-1.0, global_count=None):
+    """(loss, flat gradient) of ONE training iteration on the local batch:
+    the forward ARK step of y (B, d), the MSE against tgt and the
+    stage-exact reverse step, without Adam. ``params`` is the flat buffer
+    (``layout.pack``). The loss and its seed 2 (y1 - tgt) / count use the
+    local count B d unless ``global_count`` is given: the data-parallel
+    caller keeps it local and means the result over the ranks, which is the
+    global mean. CUDA tensors launch K12; CPU tensors run
+    ``fused_grad_step_plain``."""
+    what = "fused_grad_step"
+    check_stiff_dot_precision()
+    Ws, bs = layout.unpack(params)
+    s, B, d, dims = check_step_args(tableau_static, y, J_dense, inv_op, Ws, bs,
+                                    activation, what)
+    _check_tensor(tgt, 2, what, "tgt", y.device)
+    _check_tensor(params, 1, what, "params", y.device)
+    if (B, dims) != (layout.B, layout.dims) or params.numel() != layout.total:
+        raise ValueError(f"{what}: operands do not match the layout "
+                         f"(B {layout.B}, dims {layout.dims})")
+    if tuple(tgt.shape) != (B, d):
+        raise ValueError(f"{what}: tgt must be {(B, d)}, got "
+                         f"{tuple(tgt.shape)}")
+    if not fused_train_loop_fits(B, d, dims[1:], stages=s):
+        raise ValueError(f"{what}: configuration exceeds the loop kernels' "
+                         "shared-memory budget (gate with "
+                         "fused_train_loop_fits)")
+    if y.device.type == "cpu":
+        return fused_grad_step_plain(layout, tableau_static, dt, y, tgt,
+                                     J_dense, inv_op, params, activation,
+                                     sign, global_count)
+    lib = _build.library()
+    count = float(global_count if global_count is not None else B * d)
+    out = torch.empty(layout.total + 1, dtype=y.dtype, device=y.device)
+    with torch.cuda.device(y.device):
+        smem = lib.pnode_train_loop_smem(d, s, max(dims),
+                                         ROWS_PER_BLOCK * sum(dims[:-1]))
+        cap = _build.int_array([0])
+        _build.check(lib.pnode_grad_step_capacity(smem, cap),
+                     "fused_grad_step occupancy query")
+        grid = min(-(-B // ROWS_PER_BLOCK), cap[0])
+        partial = torch.empty(grid * (layout.total + 1), dtype=y.dtype,
+                              device=y.device)
+        rc = lib.pnode_grad_step(
+            y.data_ptr(), tgt.data_ptr(), J_dense.data_ptr(),
+            inv_op.data_ptr(), params.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), B, d, s, tableau_array(tableau_static), float(dt),
+            float(sign), len(Ws), _build.int_array(dims),
+            _ACT_CODES[activation], count, grid, _build.stream_of(y))
+    _build.check(rc, "fused_grad_step kernel")
+    fused_grad_step.launches += 1
+    return out[-1], out[:-1]
+
+
+fused_grad_step.launches = 0
 
 
 def fused_train_loop(tableau_static, dt, y_stack, tgt_stack, J_dense, inv_op,

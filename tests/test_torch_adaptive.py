@@ -12,10 +12,14 @@ inputs.
 - The KS fused route (K2 with its err output and K3, plain versions on the
   CPU) in fp32, at the reference test's tolerances (loss rtol 1e-5,
   gradients rtol 5e-4 / atol 1e-6).
-The reference tests that need dopri5, bosh3 or cn wait for the other
-stepper families (ROADMAP queue A slice 4); the direct dense stage solver
-(``linear_solver="torch"``) stands in for the reference's matrix-free GMRES
-(slice 4) in the scalar ARK twins, on both sides."""
+- The explicit-RK twins (dopri5, bosh3 on ``ExplicitRK``) of
+  tests/test_adaptive.py:28, 43, 56, 87, 451 and 491 in fp64: each
+  reference test's own checks on the port, and the port against JAX
+  (solutions and gradients rtol 1e-10, stats equal).
+The reference tests that need cn wait for the theta steppers (ROADMAP queue
+A slice 4); the direct dense stage solver (``linear_solver="torch"``) stands
+in for the reference's matrix-free GMRES (slice 4) in the scalar ARK twins,
+on both sides."""
 
 import jax
 import jax.numpy as jnp
@@ -172,15 +176,16 @@ def _ark_pair(flags, f_ex_kind="square", a=-3.0, b=0.1, step=0.1,
     return jode, jp, tode, tp
 
 
-def _assert_stats(st_t, st_j):
+def _assert_stats(st_t, st_j, dt_last_rtol=1e-10):
     assert (st_t.accepted, st_t.rejected, st_t.steps, st_t.newton_iters,
             st_t.completed, st_t.newton_converged) == (
         int(st_j.accepted), int(st_j.rejected), int(st_j.steps),
         int(st_j.newton_iters), bool(st_j.completed),
         bool(st_j.newton_converged))
-    np.testing.assert_allclose([st_t.dt_first, st_t.dt_last],
-                               [float(st_j.dt_first), float(st_j.dt_last)],
+    np.testing.assert_allclose(st_t.dt_first, float(st_j.dt_first),
                                rtol=1e-10)
+    np.testing.assert_allclose(st_t.dt_last, float(st_j.dt_last),
+                               rtol=dt_last_rtol)
 
 
 @pytest.mark.parametrize("tab, tol, f_ex_kind, a, b", [
@@ -319,6 +324,190 @@ def test_dt_first_threaded_through_three_solves_matches_jax():
                                    rtol=1e-10)
         dj, dt = st_j.dt_first, st_t.dt_first
     assert tode.last_stats is st_t
+
+
+# -- explicit RK under the controller (tests/test_adaptive.py) ---------------
+
+P_DECAY = {"a": -0.6, "c": 0.3}
+
+
+def _jf_decay(t, y, p):
+    return p["a"] * y + jnp.sin(t) * p["c"]
+
+
+def _tf_decay(t, y, p):
+    return p["a"] * y + torch.sin(torch.as_tensor(t, dtype=y.dtype)) * p["c"]
+
+
+def _decay_pair(flags, step, method, enable_adjoint=True):
+    """tests/test_adaptive.py's f_decay problem in both packages, fp64."""
+    jp = {k: jnp.array(v) for k, v in P_DECAY.items()}
+    tp = {k: torch.tensor(v, dtype=torch.float64) for k, v in P_DECAY.items()}
+    pnode_tpu.clear_options()
+    pnode_tpu.init(["p"] + flags)
+    jode = JODESolver()
+    jode.setupTS(jnp.asarray(Y0), JFunc(_jf_decay, jp), step_size=step,
+                 method=method, enable_adjoint=enable_adjoint)
+    pt.clear_options()
+    pt.init(["p"] + flags)
+    tode = pt.ODESolver()
+    tode.setupTS(torch.from_numpy(Y0), pt.Func(_tf_decay, tp),
+                 step_size=step, method=method, enable_adjoint=enable_adjoint)
+    return jode, jp, tode, tp
+
+
+def _exact(t_arr):
+    """The reference's fine fixed-step dopri5 solution (JAX)."""
+    pnode_tpu.clear_options()
+    ode = JODESolver()
+    ode.setupTS(jnp.asarray(Y0), JFunc(_jf_decay, {
+        k: jnp.array(v) for k, v in P_DECAY.items()}), step_size=1e-3,
+        method="dopri5", enable_adjoint=False)
+    return np.asarray(ode.odeint(jnp.asarray(Y0), jnp.asarray(t_arr)))
+
+
+# dt_last is the controller's proposal after the landing trial, a sliver
+# whose error estimate at rtol 1e-8 and 1e-10 is within a few hundred ulps
+# of fp64 rounding of the stage sums, raised to 1/(order+1): the two
+# packages' proposals part by 2e-10 and 3e-9 there; nothing consumes it
+DT_LAST_RTOL = 1e-7
+
+
+def _tol_flags(tol):
+    return ["-ts_adapt_type", "basic", "-ts_rtol", tol, "-ts_atol", tol]
+
+
+def test_adaptive_forward_accuracy_and_landing_matches_jax():
+    """Twin of test_adaptive_forward_accuracy_and_landing (:28)."""
+    t = np.array([0.0, 0.7, 1.3, 2.0])
+    jode, jp, tode, tp = _decay_pair(_tol_flags("1e-8"), 0.05, "dopri5",
+                                     enable_adjoint=False)
+    sol_j, st_j = jode.solve(jnp.asarray(Y0), t, with_adjoint=False)
+    sol, st = tode.solve(torch.from_numpy(Y0), t, with_adjoint=False)
+    assert st.completed and st.accepted < 2.0 / 0.05
+    np.testing.assert_allclose(sol.numpy(), _exact(t), rtol=1e-6, atol=1e-8)
+    _assert_stats(st, st_j, DT_LAST_RTOL)
+    np.testing.assert_allclose(sol.numpy(), np.asarray(sol_j), rtol=1e-10)
+
+
+def test_adaptive_rejects_then_grows_matches_jax():
+    """Twin of test_adaptive_rejects_then_grows (:43): bosh3 from dt 1.0
+    rejects at least once and lands on the exact solution."""
+    t = np.array([0.0, 2.0])
+    jode, jp, tode, tp = _decay_pair(_tol_flags("1e-10"), 1.0, "bosh3",
+                                     enable_adjoint=False)
+    sol_j, st_j = jode.solve(jnp.asarray(Y0), t, with_adjoint=False)
+    sol, st = tode.solve(torch.from_numpy(Y0), t, with_adjoint=False)
+    assert st.completed and st.rejected >= 1
+    np.testing.assert_allclose(sol[-1].numpy(), _exact(t)[-1], rtol=1e-6,
+                               atol=1e-7)
+    _assert_stats(st, st_j, DT_LAST_RTOL)
+    np.testing.assert_allclose(sol.numpy(), np.asarray(sol_j), rtol=1e-10)
+
+
+def _decay_grads(tode, tp, t, y0=Y0):
+    """d sum(sol[-1]^2) / d(a, c, y0) through the port's solve."""
+    prm = {k: v.detach().clone().requires_grad_(True) for k, v in tp.items()}
+    y = torch.from_numpy(np.array(y0)).requires_grad_(True)
+    sol = tode.solve(y, t, params=prm)[0]
+    torch.sum(sol[-1] ** 2).backward()
+    return np.array([float(prm["a"].grad), float(prm["c"].grad)]), \
+        y.grad.numpy()
+
+
+def _jax_decay_grads(jode, jp, t):
+    def loss(p, y0):
+        return jnp.sum(jode.solve(y0, jnp.asarray(t), params=p)[0][-1] ** 2)
+
+    g = jax.grad(loss, argnums=(0, 1))(jp, jnp.asarray(Y0))
+    return np.array([float(g[0]["a"]), float(g[0]["c"])]), np.asarray(g[1])
+
+
+def test_adaptive_adjoint_matches_fixed_step_gradient_and_jax():
+    """Twin of test_adaptive_adjoint_matches_fixed_step_gradient (:56): the
+    adaptive reverse against a fixed-step (0.005) discrete adjoint within
+    1e-6, and against JAX's adaptive gradient within 1e-10."""
+    t = np.array([0.0, 1.0])
+    jode, jp, tode, tp = _decay_pair(_tol_flags("1e-10"), 0.05, "dopri5")
+    gp, gy = _decay_grads(tode, tp, t)
+    jgp, jgy = _jax_decay_grads(jode, jp, t)
+    np.testing.assert_allclose(gp, jgp, rtol=1e-10)
+    np.testing.assert_allclose(gy, jgy, rtol=1e-10)
+    pt.clear_options()
+    fixed = pt.ODESolver()
+    fixed.setupTS(torch.from_numpy(Y0), pt.Func(_tf_decay, tp),
+                  step_size=0.005, method="dopri5")
+    fp, fy = _decay_grads(fixed, tp, t)
+    np.testing.assert_allclose(gp, fp, rtol=1e-6)
+    np.testing.assert_allclose(gy, fy, rtol=1e-6)
+
+
+def test_adaptive_adjoint_consistent_with_own_forward_fd():
+    """Twin of test_adaptive_adjoint_consistent_with_own_forward_fd (:87):
+    the gradient against central differences of the same adaptive solve
+    (rel 1e-4, abs 1e-9), and against JAX's."""
+    t = np.array([0.0, 1.0])
+    jode, jp, tode, tp = _decay_pair(_tol_flags("1e-9"), 0.05, "dopri5")
+    gp, _ = _decay_grads(tode, tp, t)
+    np.testing.assert_allclose(gp, _jax_decay_grads(jode, jp, t)[0],
+                               rtol=1e-10)
+    eps = 1e-6
+
+    def loss(prm):
+        sol = tode.solve(torch.from_numpy(Y0), t, params=prm,
+                         with_adjoint=False)[0]
+        return float(torch.sum(sol[-1] ** 2))
+
+    for i, k in enumerate(("a", "c")):
+        up = dict(tp, **{k: tp[k] + eps})
+        dn = dict(tp, **{k: tp[k] - eps})
+        fd = (loss(up) - loss(dn)) / (2 * eps)
+        assert gp[i] == pytest.approx(fd, rel=1e-4, abs=1e-9)
+
+
+def test_adaptive_dt_warm_start_matches_jax():
+    """Twin of test_adaptive_dt_warm_start (:451): from an oversized dt0
+    the cold solve rejects; restarting from its dt_last rejects no more and
+    from its dt_first not at all, all three landing on the cold solution;
+    the warm-started gradient within 1e-4 of the cold one. Each solve's
+    stats and solution equal JAX's."""
+    t = np.array([0.0, 1.0])
+    jode, jp, tode, tp = _decay_pair(_tol_flags("1e-6"), 5.0, "dopri5")
+    y0t, y0j = torch.from_numpy(Y0), jnp.asarray(Y0)
+    sol_c, st_c = tode.solve(y0t, t, params=tp)
+    sol_w, st_w = tode.solve(y0t, t, params=tp, dt0=st_c.dt_last)
+    sol_f, st_f = tode.solve(y0t, t, params=tp, dt0=st_c.dt_first)
+    assert st_c.completed and st_w.completed and st_f.completed
+    assert st_w.rejected <= st_c.rejected and st_f.rejected == 0
+    assert st_c.dt_first > 0.0 and st_w.dt_last > 0.0
+    for sol in (sol_w, sol_f):
+        np.testing.assert_allclose(sol[-1].detach().numpy(),
+                                   sol_c[-1].detach().numpy(), rtol=1e-5)
+    sj_c, stj_c = jode.solve(y0j, t, params=jp)
+    for (sol, st), dt0 in (((sol_c, st_c), None), ((sol_w, st_w), "last"),
+                           ((sol_f, st_f), "first")):
+        d0 = None if dt0 is None else getattr(stj_c, "dt_" + dt0)
+        sj, stj = jode.solve(y0j, t, params=jp, dt0=d0)
+        _assert_stats(st, stj)
+        np.testing.assert_allclose(sol.detach().numpy(), np.asarray(sj),
+                                   rtol=1e-10)
+    prm = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    sol = tode.solve(y0t, t, params=prm, dt0=st_c.dt_last)[0]
+    torch.sum(sol[-1] ** 2).backward()
+    g_ref, _ = _decay_grads(tode, tp, t)
+    np.testing.assert_allclose([float(prm["a"].grad), float(prm["c"].grad)],
+                               g_ref, rtol=1e-4)
+
+
+def test_adaptive_no_growth_after_rejection_matches_jax():
+    """Twin of test_adaptive_no_growth_after_rejection (:491): bosh3 from
+    dt 50 reaches the working dt in at most 6 rejections, as JAX does."""
+    t = np.array([0.0, 0.5])
+    jode, jp, tode, tp = _decay_pair(_tol_flags("1e-7"), 50.0, "bosh3")
+    _, st = tode.solve(torch.from_numpy(Y0), t, params=tp)
+    _, st_j = jode.solve(jnp.asarray(Y0), t, params=jp)
+    assert st.completed and st.rejected <= 6
+    _assert_stats(st, st_j)
 
 
 # -- the KS fused route ------------------------------------------------------

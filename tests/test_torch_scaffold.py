@@ -2,6 +2,7 @@
 the numpy-only modules the port carries as copies (tableaus, time grid,
 KS data, options database) pinned to their originals."""
 
+import ast
 import os
 import re
 import subprocess
@@ -35,8 +36,9 @@ def _fresh_torch_options():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port (every module, the trainer and chip_smoke) pulls
-    in none of jax, flax, optax or pnode_tpu."""
+    """Importing the port (every module, parallel/ and tools/ included, the
+    trainers and chip_smoke) pulls in none of jax, flax, optax or
+    pnode_tpu."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "import pnode_tpu_torch, pnode_tpu_torch.solver, "
@@ -49,7 +51,10 @@ def test_import_leaves_jax_out():
         "pnode_tpu_torch.tableaus_ark5, pnode_tpu_torch.tableaus_ark5l, "
         "pnode_tpu_torch.ops.fused_sqnxt, pnode_tpu_torch.models.sqnxt, "
         "pnode_tpu_torch.ops.circular_stencil, "
-        "pnode_tpu_torch.steppers, pnode_tpu_torch.utils\n"
+        "pnode_tpu_torch.steppers, pnode_tpu_torch.utils, "
+        "pnode_tpu_torch.parallel, pnode_tpu_torch.parallel.data_parallel, "
+        "pnode_tpu_torch.parallel.fused_dp, pnode_tpu_torch.tools, "
+        "pnode_tpu_torch.tools.probe_smem_limit\n"
         "import chip_smoke\n"
         "import importlib.util as u\n"
         "for name, path in %r:\n"
@@ -212,3 +217,65 @@ def test_trainer_runs_on_cpu(tmp_path):
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("Epoch")][-1]
     val = float(line.split("Val")[1].split("|")[0])
     assert np.isfinite(val), out.stdout
+
+
+def _pallas_kernel_bodies():
+    """{pallas_call site: kernel body} for every ``pallas_call(`` under
+    pnode_tpu/ and tools/, each as "path:line": the body is the function
+    the call's first argument names, directly, through
+    ``functools.partial``, or through a name assigned one of those in the
+    enclosing function."""
+    def body_name(node, scope):
+        if isinstance(node, ast.Call):  # functools.partial(f, ...)
+            return body_name(node.args[0], scope)
+        if isinstance(node, ast.Name):
+            for stmt in ast.walk(scope):
+                if (isinstance(stmt, ast.Assign) and len(stmt.targets) == 1
+                        and isinstance(stmt.targets[0], ast.Name)
+                        and stmt.targets[0].id == node.id):
+                    return body_name(stmt.value, scope)
+            return node.id
+        raise AssertionError(f"unresolved kernel argument {ast.dump(node)}")
+
+    sites = {}
+    roots = [os.path.join(REPO, "pnode_tpu"), os.path.join(REPO, "tools")]
+    for root in roots:
+        for dirpath, _, names in os.walk(root):
+            for n in sorted(names):
+                if not n.endswith(".py"):
+                    continue
+                path = os.path.join(dirpath, n)
+                rel = os.path.relpath(path, REPO)
+                tree = ast.parse(open(path).read())
+                defs = {}
+                for node in ast.walk(tree):
+                    if isinstance(node, ast.FunctionDef):
+                        defs.setdefault(node.name, []).append(node)
+                for fn in [f for fs in defs.values() for f in fs]:
+                    for node in ast.walk(fn):
+                        if (isinstance(node, ast.Call)
+                                and isinstance(node.func, ast.Attribute)
+                                and node.func.attr == "pallas_call"):
+                            name = body_name(node.args[0], fn)
+                            lines = [d.lineno for d in defs[name]
+                                     if d is not fn]
+                            assert len(lines) == 1, (rel, name, lines)
+                            sites[f"{rel}:{node.lineno}"] = \
+                                f"{rel}:{lines[0]}"
+    return sites
+
+
+def test_every_pallas_call_has_a_ported_kernel():
+    """Every TPU kernel (each pallas_call site's body) has an entry in
+    chip_smoke.py's KERNELS whose ``replaces`` names it: the kernel table
+    cannot fall behind the JAX package."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    sites = _pallas_kernel_bodies()
+    assert len(sites) == 14, sites
+    replaced = {entry[2] for entry in chip_smoke.KERNELS.values()}
+    missing = {site: body for site, body in sites.items()
+               if body not in replaced}
+    assert not missing, missing
+    assert replaced <= set(sites.values()), replaced - set(sites.values())
