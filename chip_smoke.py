@@ -26,7 +26,10 @@ exits non-zero without printing the final line):
    / max |ref|) against the fp32 plain version (<= 1e-5 forward outputs,
    <= 1e-4 gradients and lam_prev) and against the plain version in
    float64 (<= 1e-4); median per-call times of kernel and plain version
-   over CUDA events (30 samples of 10 back-to-back calls each). Then K4,
+   over CUDA events (30 samples of 10 back-to-back calls each). K1 also at
+   the edges of its 32 x 32 tiling (K1_EDGES: B 1, B 37, widths 13 and
+   100, 1 and 8 layers, tanh) with the same gates, every K1 backward
+   repeated bitwise, and scratch one float short refused. Then K4,
    the fused training loop, against fused_train_loop_plain on K = 8
    distinct KS minibatches (Adam lr 5e-3) at the main path's shapes, at
    the ragged size (chunk=8) and at a batch whose row tiles outnumber the
@@ -96,12 +99,15 @@ exits non-zero without printing the final line):
    circulant; timed beside the plain versions and nn.Conv1d (circular, no
    bias, cuDNN TF32 off) forward and backward. K1 forward and backward at
    the Burgers stack (512 -> 576 x4 -> 512) against its plain versions,
-   with its shared memory per block. (b) The kernel path (f_EX on K1, f_IM
-   on K10/K11; K2/K3's gate closes at nx 512) against the plain path
+   its scratch sizes, the device memory one backward allocates, a second backward equal bitwise, times in turns with the
+   plain version (the JSON line's ``burgers`` entries of K1). (b) The
+   kernel path (f_EX on K1, f_IM on K10/K11; K2/K3's gate closes at nx
+   512) against the plain path
    (nn.Linear, the roll chain) in phase 4(a)'s form over 4 iterations, the
    frozen J through K10 equal to the roll chain's bitwise; 50 iterations
    on the kernel path (finite losses, the mean of the last 10 below the
-   first 10), steps/s of both paths, one traced iteration each. The launch
+   first 10), steps/s of both paths, one traced iteration each (K1's
+   share of the kernel path's device time). The launch
    counts of K1 forward and backward, K10 and K11 over (b) must be above 0,
    K2's and K3's 0. (c) examples/burgers_torch.py at its defaults but
    --batch_time 2, 3 iterations and 20 ICs of data: a finite loss.
@@ -124,8 +130,10 @@ exits non-zero without printing the final line):
 Phases 1-6 run at their full depth; phase 7 adds about 60 s, phase 8 about
 60 s.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel (K1's
+two also carry ``burgers``: its readings at the Burgers stack and its
+launches over phase 7(b)); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -491,6 +499,7 @@ def phase_kernels(device, u):
         flat = lambda r: [r[0], *r[1], *r[2]]  # noqa: E731
         check_kernel("fused_mlp_bwd", flat(got), flat(pl), flat(r64), 1e-4,
                      reports["fused_mlp_bwd"] if main else {})
+        check_k1_repeat(label, x, g, Ws, bs, got)
         # K2
         args = (tab, dt, x, J, inv, Ws, bs)
         args64 = (tab, dt, x.double(), J.double(), inv.double(), f64(Ws),
@@ -558,11 +567,93 @@ def phase_kernels(device, u):
                     f"{k2[0]:.4f} ms (p66 {k1[1]:.4f} / {k2[1]:.4f}), plain "
                     f"median {p1[0]:.4f} / {p2[0]:.4f} ms (p66 {p1[1]:.4f} / "
                     f"{p2[1]:.4f}); 30 samples of 10 back-to-back calls")
+    phase_k1_edges(device, u)
     reports["fused_train_loop"] = phase_loop_kernel(device, u, J, inv, tab,
                                                     dt)
     reports["fused_adaptive_train_loop"] = phase_adaptive_kernel(device, u,
                                                                  stp)
     return reports
+
+
+# K1 at the edges of its 32 x 32 tiling: one row, a ragged row tile,
+# widths no multiple of a tile, the shortest and the longest stack, tanh
+K1_EDGES = (("B 1", 1, [NX] + [HIDDEN] * 4 + [NX], "relu"),
+            ("B 37", 37, [NX] + [HIDDEN] * 4 + [NX], "relu"),
+            ("widths 13 and 100", 37, [13, 100, 13, 100, 13], "relu"),
+            ("1 layer", 37, [100, 13], "relu"),
+            ("8 layers", 37, [NX] + [24] * 7 + [NX], "relu"),
+            ("tanh", BATCH, [NX] + [HIDDEN] * 4 + [NX], "tanh"))
+
+
+def check_k1_repeat(label, x, g, Ws, bs, got, act="relu"):
+    """A second K1 backward on the same inputs must equal ``got`` bitwise:
+    one thread sums each dW/db element over the rows in a fixed order."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd
+
+    again = fused_mlp_bwd(x, g, Ws, bs, act)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        [got[0], *got[1], *got[2]], [again[0], *again[1], *again[2]]))
+    log(f"[kernels]   fused_mlp_bwd {label}: a second call "
+        f"{'equals' if same else 'DIFFERS FROM'} the first bitwise")
+    if not same:
+        raise AssertionError("K1's backward is not deterministic")
+
+
+def phase_k1_edges(device, u):
+    """Phase 3's K1 edge cases (K1_EDGES) against the plain versions in fp32
+    and fp64 with phase 3's gates (forward 1e-5, backward 1e-4 of max |ref|;
+    1e-4 against fp64), weights N(0, 1 / fan_in), biases N(0, 0.1), KS
+    states where the input width is the grid's, else N(0, 1); each backward
+    repeated bitwise; then scratch one float short of what the C entry
+    point computes must be refused."""
+    import torch
+
+    from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops.fused_mlp import (
+        _ACT_CODES, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_fwd,
+        fused_mlp_plain, mlp_scratch)
+
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
+    f64 = lambda ts: [t.to(torch.float64) for t in ts]  # noqa: E731
+    flat = lambda r: [r[0], *r[1], *r[2]]  # noqa: E731
+    for i, (label, B, dims, act) in enumerate(K1_EDGES):
+        rng = np.random.default_rng(100 + i)
+        Ws = [f32(rng.normal(0.0, a ** -0.5, size=(a, b)))
+              for a, b in zip(dims, dims[1:])]
+        bs = [f32(rng.normal(0.0, 0.1, size=b)) for b in dims[1:]]
+        x = f32(u[rng.choice(len(u), B, replace=False)] if dims[0] == NX
+                else rng.normal(size=(B, dims[0])))
+        g = f32(rng.normal(size=(B, dims[-1])))
+        log(f"[kernels] K1 edge: {label} (B {B}, {dims}, {act})")
+        out = fused_mlp_fwd(x, Ws, bs, act)
+        torch.cuda.synchronize()
+        check_kernel("fused_mlp_fwd", [out], [fused_mlp_plain(x, Ws, bs, act)],
+                     [fused_mlp_plain(x.double(), f64(Ws), f64(bs), act)],
+                     1e-5, {})
+        got = fused_mlp_bwd(x, g, Ws, bs, act)
+        torch.cuda.synchronize()
+        check_kernel("fused_mlp_bwd", flat(got),
+                     flat(fused_mlp_bwd_plain(x, g, Ws, bs, act)),
+                     flat(fused_mlp_bwd_plain(x.double(), g.double(), f64(Ws),
+                                              f64(bs), act)), 1e-4, {})
+        check_k1_repeat(label, x, g, Ws, bs, got, act)
+    # the C entry point computes the scratch it needs and refuses a size
+    # that differs (the last case's operands, one float short)
+    lib = _build.library()
+    size = mlp_scratch(tuple(dims), B)[0]
+    out = torch.empty(B, dims[-1], device=device)
+    scratch = torch.empty(size, device=device)
+    rc = lib.pnode_mlp_fwd(x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                           size - 1, B, len(Ws), _build.int_array(dims),
+                           _build.ptr_array(Ws), _build.ptr_array(bs),
+                           _ACT_CODES[act], _build.stream_of(x))
+    log(f"[kernels] K1 given scratch one float short: rc {rc} "
+        f"({lib.pnode_error_string(rc).decode() if rc else 'accepted'})")
+    if rc != 1:  # cudaErrorInvalidValue
+        raise AssertionError("K1 took scratch of another size than its own")
 
 
 def check_embedded(tab, berr, dt, x, J, inv, Ws, bs, args64, report):
@@ -1048,10 +1139,12 @@ def device_kernels(events):
     return kernels, busy_us
 
 
-def profile_steps(label, ode, ex, opt, batches, device, dt=DT):
+def profile_steps(label, ode, ex, opt, batches, device, dt=DT, focus=None):
     """A traced run of kernel-path training steps: host time per layer
     (spans around the solve, the loss, the adjoint and Adam), device time
-    per kernel, and the device's busy share of the traced wall time."""
+    per kernel, and the device's busy share of the traced wall time. With
+    ``focus`` = (substring, label), also the device time of the kernels
+    whose name holds the substring, and its share of the step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1089,6 +1182,12 @@ def profile_steps(label, ode, ex, opt, batches, device, dt=DT):
         f"device busy {busy_us * 1e-6 / wall:.3f} of the wall time")
     log("[profile] host us/step: " + ", ".join(
         f"{k[5:]} {v / n:.1f}" for k, v in sorted(spans.items())))
+    if focus is not None:
+        mine = [v for k, v in per_kernel.items() if focus[0] in k]
+        us, count = sum(v[0] for v in mine), sum(v[1] for v in mine)
+        log(f"[profile] {focus[1]} ({focus[0]}*): {us / n:.1f} us/step over "
+            f"{count // n} launches, {us / max(busy_us, 1e-9):.3f} of the "
+            f"device's busy time, {us * 1e-6 / wall:.3f} of the wall time")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     for name, (us, count) in top[:8]:
         log(f"[profile]   {us / n:9.1f} us/step x{count // n:<3d} {name[:90]}")
@@ -1669,6 +1768,23 @@ def bound(flops, byts):
                                  else "bytes")
 
 
+def mlp_costs(B, dims):
+    """(flops, bytes) of one K1 forward and one backward call at batch B and
+    widths dims, fp32: the forward reads x and the stack and writes its
+    output; the backward reads x, g and the stack and writes dx and the
+    gradients. Its FLOPs: the forward of layers 0..n-2 (the inputs of
+    layers 1..n-1; the last layer's output is not needed) and each layer's
+    dX and dW products."""
+    mlp = sum(a * b for a, b in zip(dims, dims[1:]))
+    params = sum(a * b + b for a, b in zip(dims, dims[1:]))
+    return {
+        "fused_mlp_fwd": (2 * B * mlp, 4 * (B * (dims[0] + dims[-1])
+                                           + params)),
+        "fused_mlp_bwd": (B * (6 * mlp - 2 * dims[-2] * dims[-1]),
+                          4 * (B * (2 * dims[0] + dims[-1]) + 2 * params)),
+    }
+
+
 def ks_costs(tab, adaptive_report):
     """(flops, bytes) per call of K1-K3 and per iteration of K4 and K5 at
     the KS main path (B 256, 64 -> 104 x4 -> 64, ARK3's 4 stages), counted
@@ -1695,8 +1811,7 @@ def ks_costs(tab, adaptive_report):
             4 * (2 * B * d + 1 + 6 * params) + 4 * 2 * d * d / 8)
     acc, rej = adaptive_report["accepted"], adaptive_report["rejected"]
     return {
-        "fused_mlp_fwd": (2 * B * mlp, 4 * (2 * B * d + params)),
-        "fused_mlp_bwd": (6 * B * mlp, 4 * (3 * B * d + 2 * params)),
+        **mlp_costs(B, dims),
         "fused_ark_step_fwd": fwd,
         "fused_ark_step_fwd_embedded": (fwd[0] + 2 * s * B * d,
                                         fwd[1] + 4 * B * d),
@@ -2167,13 +2282,13 @@ def stencil_cost(rows, n, k):
             "circular_stencil_bwd": (4 * k * e, 4 * (3 * e + 2 * k))}
 
 
-def device_us_per_call(fn, names, n=20):
+def device_us_per_call(fn, names, n=20, per_call=None):
     """(device us per call, launches traced) of the kernels whose names hold
-    one of ``names`` (one launch of each per call), from a trace of ``n``
-    calls: the mean over the traced launches of each, summed (a trace may
-    miss launches). CUDA events time what a caller of back-to-back calls
-    waits for, which is the host's launch cost when that is the slower
-    side."""
+    one of ``names`` (``per_call`` launches of each per call, default one),
+    from a trace of ``n`` calls: the mean over the traced launches of each,
+    times its launches per call, summed (a trace may miss launches). CUDA
+    events time what a caller of back-to-back calls waits for, which is the
+    host's launch cost when that is the slower side."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2186,9 +2301,9 @@ def device_us_per_call(fn, names, n=20):
         torch.cuda.synchronize()
     kernels, _ = device_kernels(prof.events())
     total, traced = 0.0, 0
-    for part in names:
+    for part, k in zip(names, per_call or [1] * len(names)):
         us = [e.time_range.elapsed_us() for e in kernels if part in e.name]
-        total += sum(us) / len(us) if us else float("nan")
+        total += k * sum(us) / len(us) if us else float("nan")
         traced += len(us)
     return total, traced
 
@@ -2326,34 +2441,30 @@ def phase_stencil_kernels(device):
 
 def phase_burgers_mlp(device, state0):
     """Phase 7(a), K1 at the Burgers stack (B 200, 512 -> 576 x4 -> 512,
-    seed-0 weights, bench.py's N(0, 1) states): the forward against the
-    plain fp32 and fp64 versions (1e-5 and 1e-4 of max |ref|, as at KS),
-    the backward norm-wise (check_grads, 5e-3): at these widths 460,800
-    ReLU pre-activations of std 2-10 put some within fp32 rounding of 0, and
-    such a unit flips between two correct fp32 evaluations (on these inputs
-    layer 3's unit 381 at row 144, |z| 9.8e-7 in fp64, moved dx, dW and db
-    1.2e-3 to 1.6e-3 norm-wise and 1.5e-2 max relative, all in that row's
-    backprop). Shared memory per block, the dW/db partial buffer; times."""
+    seed-0 weights, bench.py's N(0, 1) states): its scratch; the forward
+    against the plain fp32 and fp64 versions (1e-5 and 1e-4 of max |ref|,
+    as at KS), the backward norm-wise (check_grads, 5e-3): at these widths
+    460,800 ReLU pre-activations of std 2-10 put some within fp32 rounding
+    of 0, and such a unit flips between two correct fp32 evaluations (on
+    these inputs layer 3's unit 381 at row 144, |z| 9.8e-7 in fp64, moved
+    dx, dW and db 1.2e-3 to 1.6e-3 norm-wise and 1.5e-2 max relative, all in
+    that row's backprop); a second backward equal bitwise; the device memory
+    one backward allocates; times in turns with the plain version (the
+    cuBLAS chain). Returns the JSON line's ``burgers`` entries of K1."""
     import torch
 
-    from pnode_tpu_torch.ops import _build
     from pnode_tpu_torch.ops.fused_mlp import (
-        ROWS_PER_BLOCK, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_fwd,
-        fused_mlp_plain, grad_buffer_size)
+        fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_fwd, fused_mlp_plain,
+        grad_buffer_size, mlp_scratch)
 
     n = 5
     Ws = [state0[f"net.kernel_{i}"] for i in range(n)]
     bs = [state0[f"net.bias_{i}"] for i in range(n)]
     dims = [BNX] + [int(W.shape[1]) for W in Ws]
-    lib = _build.library()
-    smem = [lib.pnode_mlp_smem(n, _build.int_array(dims), b) for b in (0, 1)]
-    nblk = -(-BB // ROWS_PER_BLOCK)
-    log(f"[burgers] K1 at the Burgers stack {dims}, B {BB}: shared memory "
-        f"per block forward {smem[0]} B, backward {smem[1]} B (limit 232448 "
-        f"B); dW/db partials {nblk} blocks x "
-        f"{4 * grad_buffer_size(dims) / 1e6:.2f} MB")
-    if not 0 < max(smem) <= 232448:
-        raise AssertionError("K1 does not take the Burgers stack")
+    fwd_scratch, bwd_scratch = mlp_scratch(tuple(dims), BB)
+    log(f"[burgers] K1 at the Burgers stack {dims}, B {BB}: scratch forward "
+        f"{4 * fwd_scratch / 1e6:.3f} MB, backward {4 * bwd_scratch / 1e6:.3f}"
+        " MB; no partial sums")
     rng = np.random.default_rng(7)
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
     x, g = f32(rng.normal(size=(BB, BNX))), f32(rng.normal(size=(BB, BNX)))
@@ -2362,13 +2473,22 @@ def phase_burgers_mlp(device, state0):
     torch.cuda.synchronize()
     check_kernel("fused_mlp_fwd (Burgers)", [out], [fused_mlp_plain(x, Ws, bs)],
                  [fused_mlp_plain(x.double(), f64(Ws), f64(bs))], 1e-5, {})
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = fused_mlp_bwd(x, g, Ws, bs)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outputs = 4 * (BB * BNX + grad_buffer_size(dims))
+    log(f"[burgers]   K1 backward allocates {peak / 1e6:.3f} MB of device "
+        f"memory: outputs {outputs / 1e6:.3f} MB, scratch "
+        f"{4 * bwd_scratch / 1e6:.3f} MB")
     flat = lambda r: [r[0], *r[1], *r[2]]  # noqa: E731
     plain = fused_mlp_bwd_plain(x, g, Ws, bs)
     check_grads("fused_mlp_bwd (Burgers)", flat(got), flat(plain),
                 flat(fused_mlp_bwd_plain(x.double(), g.double(), f64(Ws),
                                          f64(bs))), {})
+    check_k1_repeat("(Burgers)", x, g, Ws, bs, got)
     # where two correct fp32 evaluations can part: the pre-activations
     # nearest 0 (fp64), and the row of dx farthest from the plain version
     h = x.double()
@@ -2382,14 +2502,29 @@ def phase_burgers_mlp(device, state0):
     row = int((got[0] - plain[0]).abs().amax(dim=1).argmax())
     log(f"[burgers]   K1 backward: dx farthest from the plain fp32 version "
         f"in row {row}")
-    for name, kern, plain in (
+    reports = {}
+    costs = mlp_costs(BB, dims)
+    # kernel launches per call: the forward one per layer; the backward
+    # recomputes layers 0..n-2, then one launch per layer for dX and [dW; db]
+    for name, kern, plain, per_call in (
             ("fused_mlp_fwd", lambda: fused_mlp_fwd(x, Ws, bs),
-             lambda: fused_mlp_plain(x, Ws, bs)),
+             lambda: fused_mlp_plain(x, Ws, bs), {"mlp_fwd_layer": n}),
             ("fused_mlp_bwd", lambda: fused_mlp_bwd(x, g, Ws, bs),
-             lambda: fused_mlp_bwd_plain(x, g, Ws, bs))):
+             lambda: fused_mlp_bwd_plain(x, g, Ws, bs),
+             {"mlp_fwd_layer": n - 1, "mlp_bwd_layer": n})):
         t = [summary(cuda_times_ms(f))[0] for f in (plain, kern, kern, plain)]
+        b_ms, b_by = bound(*costs[name])
+        reports[name] = dict(ms=min(t[1], t[2]), plain_ms=min(t[0], t[3]),
+                             bound_ms=b_ms, bound_by=b_by)
+        us, traced = device_us_per_call(kern, list(per_call),
+                                        per_call=list(per_call.values()))
         log(f"[burgers]   {name} at the Burgers stack: kernel {t[1]:.4f} / "
-            f"{t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms")
+            f"{t[2]:.4f} ms (device {us:.1f} us per call of "
+            f"{sum(per_call.values())} launches, {traced} traced over 20 "
+            f"calls), plain {t[0]:.4f} / {t[3]:.4f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by}: {costs[name][0] / 1e6:.1f} MFLOP, "
+            f"{costs[name][1] / 1e6:.3f} MB)")
+    return reports
 
 
 def burgers_batches(n, seed=0):
@@ -2537,8 +2672,9 @@ def phase_burgers_trainer(device):
 
 
 def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
-    """Phase 7: the Burgers slice. Returns K10's and K11's reports and
-    their launch counts on the kernel path."""
+    """Phase 7: the Burgers slice. Returns K10's and K11's reports, their
+    launch counts on the kernel path, and K1's readings at the Burgers
+    stack with its launches over (b)."""
     import torch
 
     from pnode_tpu_torch.models import BurgersFuncEX
@@ -2553,7 +2689,7 @@ def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
     init = BurgersFuncEX(nx=BNX, use_fused=True, device=device,
                          generator=torch.Generator(device=device).manual_seed(0))
     state0 = {k: v.detach().clone() for k, v in init.state_dict().items()}
-    phase_burgers_mlp(device, state0)
+    k1_reports = phase_burgers_mlp(device, state0)
 
     layers = [BNX * 9 // 8] * 4 + [BNX]
     log(f"[burgers] (b) bench.py's burgers recipe: B {BB}, nx {BNX}, dt "
@@ -2588,7 +2724,7 @@ def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
     log(f"[burgers] launches over (b)'s agreement and training "
         f"({8 + n_steps} kernel-path iterations): {counts}")
     profile_steps("Burgers kernel path", ode, ex, opt, batches[:1], device,
-                  BDT)
+                  BDT, focus=("mlp_", "K1"))
     ode_p, ex_p, opt_p = build_burgers(device, state0, False)
     train(ode_p, ex_p, opt_p, batches[:3], device, BDT)
     torch.cuda.synchronize()
@@ -2610,7 +2746,10 @@ def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
     if counts["fused_ark_step_fwd"] or counts["fused_ark_step_adj"]:
         raise AssertionError("the fused ARK step kernels ran at nx 512")
     phase_burgers_trainer(device)
-    return reports, {name: counts[name] for name in STENCIL_KERNELS}
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd"):
+        k1_reports[name]["launches"] = counts[name]
+    return (reports, {name: counts[name] for name in STENCIL_KERNELS},
+            k1_reports)
 
 
 # -- phase 8: the data-parallel slice -----------------------------------------
@@ -2906,7 +3045,7 @@ def main():
     sq_reports, sq_counts = phase_cifar("cuda")
     reports.update(sq_reports)
     counts.update(sq_counts)
-    b_reports, b_counts = phase_burgers("cuda")
+    b_reports, b_counts, k1_burgers = phase_burgers("cuda")
     reports.update(b_reports)
     counts.update(b_counts)
     reports["fused_grad_step"], counts["fused_grad_step"] = phase_dp("cuda", u)
@@ -2921,6 +3060,8 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
+        if name in k1_burgers:  # K1's readings at the Burgers stack too
+            kernels[-1]["burgers"] = k1_burgers[name]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_S = ctypes.c_size_t
 _PI = ctypes.POINTER(ctypes.c_int)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PD = ctypes.POINTER(ctypes.c_double)
@@ -46,10 +47,9 @@ _PD = ctypes.POINTER(ctypes.c_double)
 # C entry points: name -> (restype, argtypes)
 _SIGNATURES = {
     "pnode_error_string": (ctypes.c_char_p, [_I]),
-    "pnode_mlp_fwd": (_I, [_P, _P, _I, _I, _PI, _PP, _PP, _I, _P]),
-    "pnode_mlp_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _PI, _PP, _PP, _I,
+    "pnode_mlp_fwd": (_I, [_P, _P, _P, _S, _I, _I, _PI, _PP, _PP, _I, _P]),
+    "pnode_mlp_bwd": (_I, [_P, _P, _P, _P, _P, _S, _I, _I, _PI, _PP, _PP, _I,
                            _P]),
-    "pnode_mlp_smem": (ctypes.c_size_t, [_I, _PI, _I]),
     "pnode_ark_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _PD, _D,
                            _F, _I, _PI, _PP, _PP, _I, _P]),
     "pnode_ark_adj": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _D,
