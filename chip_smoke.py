@@ -77,16 +77,20 @@ exits non-zero without printing the final line):
    in fp64 with fp64 statistics (forward: <= 1e-5 and 1e-4 relative to
    max |ref|; gradients: <= 5e-3 norm-wise, check_grads says why), on the
    first ODE block's input of each
-   stage (from the model's own forward) in both modes and on a ragged
-   shape; conv-bias gradients, whose true value is 0, in absolute terms
-   (check_bias); each timed per evaluation beside its plain version and the
-   module path's evaluation. (b) The kernel path against the module path
+   stage (from the model's own forward) in both modes and at the edges of
+   K7's and K9's tiling (SQNXT_EDGES: ragged, no power of two, H = 1, W =
+   1, N below a tile); conv-bias gradients, whose true value is 0, in
+   absolute terms (check_bias); two K7 and two K9 calls bitwise equal; K7
+   refuses scratch one float short; each timed per evaluation beside its
+   plain version and the module path's evaluation, K7 and K9 also by the
+   profiler's device time. (b) The kernel path against the module path
    from the same weights: logits, loss, gradient cosine and norm ratio
    (CIFAR_TOL). (c) 22 SGD iterations (lr 0.1, momentum 0.9, wd 5e-4) on
    the kernel path and 12 on the module path: finite losses, the mean of
    the last 5 below the first 5, images/s after 2 warm iterations, peak
-   device memory; one traced iteration each; K6-K9's launch counts over the
-   kernel path's iterations must be above 0.
+   device memory; one traced iteration each (K6-K9's milliseconds and
+   shares in it); K6-K9's launch counts over the kernel path's iterations
+   must be above 0.
 7. The Burgers slice, bench.py's burgers recipe (B 200, nx 512, dt 1e-3,
    ARK3, hpddm + frozen J + ksponly + ksp_rtol 1e-6, one-step MSE, Adam lr
    5e-3, seed-0 weights; y0 ~ N(0, 1), target y0 + 0.05 N(0, 1), a fresh
@@ -132,7 +136,8 @@ Phases 1-6 run at their full depth; phase 7 adds about 60 s, phase 8 about
 
 The line before the last is a JSON object with one entry per kernel (K1's
 two also carry ``burgers``: its readings at the Burgers stack and its
-launches over phase 7(b)); the last line is {"ok": true, "device":
+launches over phase 7(b); K7 and K9 carry ``device_ms``, K7 ``stage3``:
+its readings at stage 3); the last line is {"ok": true, "device":
 {...}}.
 """
 
@@ -189,6 +194,16 @@ KERNELS = {
 }
 SQNXT_KERNELS = ("fused_sqnxt_fwd", "fused_sqnxt_bwd", "fused_sqnxt_layer_fwd",
                  "fused_sqnxt_layer_bwd")
+# K6-K9 beyond the stage shapes, at the edges of K7's and K9's tiling:
+# (label, stage whose activation is sliced, dim, B, H, W). Ragged widths
+# (dim 16: Cout 4), widths that are no power of two (dim 48: 48, 24, 12),
+# H = 1 and W = 1 (every off-centre (3,1) or (1,3) tap masked) and N
+# below one column tile.
+SQNXT_EDGES = (("ragged B3 5x7 dim 16", 0, 16, 3, 5, 7),
+               ("dim 48 B4 8x8", 1, 48, 4, 8, 8),
+               ("B5 1x9 dim 16", 0, 16, 5, 1, 9),
+               ("B5 9x1 dim 16", 0, 16, 5, 9, 1),
+               ("B1 3x3 dim 16", 0, 16, 1, 3, 3))
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): fp32 outside the tensor
 # cores, and HBM3
 FP32_PEAK, HBM_RATE = 67e12, 3.35e12
@@ -1916,9 +1931,23 @@ def check_grads(name, got, plain, ref64, report, tol=5e-3):
         raise AssertionError(f"{name} disagrees with its plain version")
 
 
+def check_repeat(name, first, second):
+    """Two kernel calls on the same inputs: every output bitwise equal (K7
+    and K9 sum in fixed orders, with no atomics)."""
+    import torch
+
+    flat = lambda r: [r[0]] + list(r[1])  # noqa: E731
+    ok = all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
+    log(f"[kernels]   {name}: a second call bitwise equal "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+
+
 def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
     """K6-K9 against their plain versions (fp32, and fp64 with fp64
-    statistics) on the model's activation h (NCHW) and ODEDynamics mod."""
+    statistics) on the model's activation h (NCHW) and ODEDynamics mod;
+    K7 and K9 also called twice, bitwise equal."""
     import torch
 
     from pnode_tpu_torch.ops import fused_sqnxt as fs
@@ -1947,8 +1976,10 @@ def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
     is_b = lambda i: i % 4 == 1  # noqa: E731  the conv biases of flat
     split = lambda r: ([r[0]] + [t for i, t in enumerate(r[1]) if not is_b(i)],
                        [t for i, t in enumerate(r[1]) if is_b(i)])  # noqa
-    got = split(fs.fused_sqnxt_bwd(x, g, flat, meta))
+    first = fs.fused_sqnxt_bwd(x, g, flat, meta)
     torch.cuda.synchronize()
+    check_repeat("fused_sqnxt_bwd", first, fs.fused_sqnxt_bwd(x, g, flat, meta))
+    got = split(first)
     pl = split(fs.fused_sqnxt_bwd_plain(x, g, flat, meta))
     r64 = split(fs.fused_sqnxt_bwd_plain(x.double(), g.double(), flat64, meta,
                                          work=f64))
@@ -1963,6 +1994,7 @@ def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
         hh = fs.fused_sqnxt_layer_plain(hh, fs._layer(flat, li), meta, li)
     outs = [[], [], []]
     bw = [[[], [], []], [[], [], []]]
+    repeats = []
     for li in range(5):
         lf, lf64 = fs._layer(flat, li), fs._layer(flat64, li)
         outs[0].append(fs.fused_sqnxt_layer_fwd(hs[li], lf, meta, li))
@@ -1971,14 +2003,19 @@ def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
                                                   li, work=f64))
         gl = torch.randn(meta.cdims[li + 1], x.shape[1], generator=gen,
                          device=device)
+        kern = fs.fused_sqnxt_layer_bwd(hs[li], gl, lf, meta, li)
+        repeats.append((kern, fs.fused_sqnxt_layer_bwd(hs[li], gl, lf, meta,
+                                                       li)))
         for k, r in enumerate((
-                fs.fused_sqnxt_layer_bwd(hs[li], gl, lf, meta, li),
+                kern,
                 fs.fused_sqnxt_layer_bwd_plain(hs[li], gl, lf, meta, li),
                 fs.fused_sqnxt_layer_bwd_plain(hs[li].double(), gl.double(),
                                                lf64, meta, li, work=f64))):
             bw[0][k] += [r[0], r[1][0], r[1][2], r[1][3]]
             bw[1][k].append(r[1][1])
     torch.cuda.synchronize()
+    for li, (a, b) in enumerate(repeats):
+        check_repeat(f"fused_sqnxt_layer_bwd layer {li}", a, b)
     check_kernel("fused_sqnxt_layer_fwd (5 layers)", *outs, 1e-5,
                  report_layer["fwd"])
     check_grads("fused_sqnxt_layer_bwd (5 layers)", *bw[0],
@@ -1987,6 +2024,33 @@ def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
     check_bias("fused_sqnxt_layer_bwd", bw[1][0], bw[1][2], dbet,
                report_layer["bwd"])
     return x, g, flat, meta, hs
+
+
+def check_short_scratch(x, g, flat, meta):
+    """K7's C entry point refuses scratch one float short of its plan
+    (cudaErrorInvalidValue, 1), before it launches."""
+    import torch
+
+    from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    lis = list(range(5))
+    flats = [fs._layer(flat, li) for li in lis]
+    grid, floats = fs.bwd_plan(meta, lis, x.device)
+    zs = [torch.empty(meta.cdims[li + 1], meta.n_real, device=x.device)
+          for li in lis]
+    grads = [tuple(torch.empty_like(t) for t in lf) for lf in flats]
+    ints, ptrs = fs._layer_args(meta, lis, flats, zs, grads)
+    dx = torch.empty_like(x)
+    scratch = torch.empty(floats, device=x.device)
+    rc = _build.library().pnode_sqnxt_bwd(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), 5, ints, ptrs,
+        meta.n_real, meta.H, meta.W, scratch.data_ptr(), floats - 1, grid,
+        _build.stream_of(x))
+    log(f"[kernels]   fused_sqnxt_bwd with scratch one float short of "
+        f"{floats}: rc {rc} {'ok' if rc == 1 else 'FAIL'}")
+    if rc != 1:
+        raise AssertionError("K7 took a scratch of the wrong size")
 
 
 def time_sqnxt(label, h, mod, x, g, flat, meta, hs, reports):
@@ -2043,9 +2107,16 @@ def time_sqnxt(label, h, mod, x, g, flat, meta, hs, reports):
         out[name] = dict(ms=min(t[1], t[3]), plain_ms=min(t[0], t[4]),
                          module_ms=min(t[2], t[5]), bound_ms=b_ms,
                          bound_by=b_by)
+        dev = ""
+        if backward:  # K7 and K9: the profiler's device time beside
+            us, traced = device_us_per_call(
+                kern, ["sqnxt_bwd_kernel"],
+                per_call=[1 if name == "fused_sqnxt_bwd" else 5])
+            out[name]["device_ms"] = us / 1e3
+            dev = f", device {us / 1e3:.4f} ms ({traced} launches traced)"
         log(f"[cifar]   {label} {name} per evaluation: kernel {t[1]:.4f} / "
-            f"{t[3]:.4f} ms, plain {t[0]:.4f} / {t[4]:.4f} ms, module path "
-            f"{t[2]:.4f} / {t[5]:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{t[3]:.4f} ms{dev}, plain {t[0]:.4f} / {t[4]:.4f} ms, module "
+            f"path {t[2]:.4f} / {t[5]:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
             f"{flops / 1e9:.3f} GFLOP, {byts / 1e6:.2f} MB); medians of 10 "
             f"samples of 5 back-to-back calls")
     reports[label] = out
@@ -2076,16 +2147,20 @@ def phase_sqnxt_kernels(device, x):
             reports[name]["max_abs_err"] = max(
                 reports[name].get("max_abs_err", 0.0), r["max_abs_err"])
         time_sqnxt(label, h, mod, *case, timed)
+    # K6-K9 at the edges of K7's and K9's tiling (SQNXT_EDGES), each on a
+    # slice of a stage's activation with a lecun-normal ODEDynamics
     gen = torch.Generator().manual_seed(1)
-    dim = min(16, stages[0][0].shape[1])
-    rag = ODEDynamics(dim)
-    for conv in rag.convs:
-        w = conv.weight
-        _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], gen)
-    rag = rag.to(device)
-    h1 = stages[0][0][:3, :dim, :5, :7].contiguous()
-    sqnxt_case(f"ragged B3 5x7 dim {dim}", h1, rag, device, 20,
-               {"fwd": {}, "bwd": {}}, {"fwd": {}, "bwd": {}})
+    for k, (label, si, dim, B, H, W) in enumerate(SQNXT_EDGES):
+        edge = ODEDynamics(dim)
+        for conv in edge.convs:
+            w = conv.weight
+            _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], gen)
+        edge = edge.to(device)
+        h1 = stages[si][0][:B, :dim, :H, :W].contiguous()
+        case = sqnxt_case(label, h1, edge, device, 20 + k,
+                          {"fwd": {}, "bwd": {}}, {"fwd": {}, "bwd": {}})
+        if k == 0:
+            check_short_scratch(*case[:4])
     # the JSON line's times: K6/K7 at stage 2 (the larger of the chain's
     # shapes), K8/K9 at stage 1 (the layered mode's only stage); every
     # stage's times are in the log above
@@ -2094,6 +2169,7 @@ def phase_sqnxt_kernels(device, x):
                         ("fused_sqnxt_layer_fwd", "stage 1"),
                         ("fused_sqnxt_layer_bwd", "stage 1")):
         reports[name].update(timed[label][name])
+    reports["fused_sqnxt_bwd"]["stage3"] = timed["stage 3"]["fused_sqnxt_bwd"]
     return reports
 
 
@@ -2193,6 +2269,15 @@ def profile_cifar(label, model, opt, x, y):
         f"time {busy_us / 1e3:.1f} ms")
     for name, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"[profile]   {us / 1e3:9.3f} ms x{n:<5d} {name[:90]}")
+    # K6-K9 (sqnxt_fwd_kernel<5>/<1>, sqnxt_bwd_kernel<5>/<1>): their
+    # milliseconds in the iteration and their shares of its wall time and
+    # of the device's busy time
+    for name, (us, n) in sorted(per.items()):
+        if "sqnxt_fwd_kernel" in name or "sqnxt_bwd_kernel" in name:
+            log(f"[profile]   CIFAR {label} {name[:100]}: "
+                f"{us / 1e3:.3f} ms per iteration over {n} launches, "
+                f"{us * 1e-6 / wall:.3f} of the traced wall time, "
+                f"{us / busy_us:.3f} of the busy time")
 
 
 def phase_cifar(device, n_iters=22, warm=2, n_off=12):
@@ -3060,6 +3145,9 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
+        for extra in ("device_ms", "stage3"):  # K7's and K9's extra readings
+            if extra in r:
+                kernels[-1][extra] = r[extra]
         if name in k1_burgers:  # K1's readings at the Burgers stack too
             kernels[-1]["burgers"] = k1_burgers[name]
     print(json.dumps({"kernels": kernels}))

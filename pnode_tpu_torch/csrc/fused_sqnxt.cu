@@ -34,17 +34,23 @@
 // ordered sum in every block (no atomics: bitwise repeatable). A layer's
 // ReLU(norm(z)) is never stored: the next layer's loads recompute it from
 // the anchor and the statistics in shared memory, as the TPU kernel's
-// backward recomputes its layer inputs. The backward recomputes the forward
-// from x (five anchors), then per layer in reverse: the four row sums of
-// the norm's backward, a barrier, g_z into device memory with d_b's sums, a
-// barrier, dW as per-block (Cout x taps*Cin) partials over the block's
-// columns and g_h gathered from g_z at n - s_t, a barrier, and the dW
-// partials summed in block order. Both variance branches of BatchStatsNorm
-// (single pass above 2^20 elements, centered below) run, chosen per layer.
+// backward recomputes its layer inputs. Both variance branches of
+// BatchStatsNorm (single pass above 2^20 elements, centered below) run,
+// chosen per layer.
+//
+// K7 and K9 (sqnxt_bwd_kernel<5> and <1>, redesigned) have their own tile
+// code, forward recompute included, in csrc/sqnxt_bwd.cuh, whose note
+// gives their bound and design: row tiles shaped to each layer, each input
+// staged once with its halo, g_z kept in shared memory, two grid barriers
+// per backward layer, dynamic shared memory sized per launch. Their entry
+// points own the grid (pnode_sqnxt_bwd_plan) and take one scratch
+// allocation whose size they check.
 #include <cooperative_groups.h>
 
 #include <cstdint>
+#include <mutex>
 
+#include "sqnxt_bwd.cuh"
 #include "sqnxt_kernels.cuh"
 
 using namespace sqnxt;
@@ -67,30 +73,8 @@ sqnxt_fwd_kernel(Chain<kLayers> c, const float* __restrict__ x, float* out,
 }
 
 template <int kLayers>
-__global__ void __launch_bounds__(kThreads)
-sqnxt_bwd_kernel(Chain<kLayers> c, const float* __restrict__ x,
-                 const float* __restrict__ g, float* dx, float* part,
-                 float* dwpart, int dw_stride, float* gbuf, size_t gstride,
-                 float* gz) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ Smem<kLayers> s;
-  const size_t slot_size = (size_t)gridDim.x * kMaxQ * kMaxC;
-  int slot = 0;
-  forward_chain(c, s, x, part, slot_size, slot, grid);
-#pragma unroll
-  for (int l = kLayers - 1; l >= 0; --l) {
-    const float* gin = l == kLayers - 1 ? g : gbuf + (size_t)((l + 1) & 1) * gstride;
-    float* gout = l == 0 ? dx : gbuf + (size_t)(l & 1) * gstride;
-    // gout is complete at backward_layer's last grid.sync, before the
-    // ordered dW sum: the next layer reads it with no further barrier
-    backward_layer(c, s, l, x, gin, gout, gz, part, slot_size, slot, dwpart,
-                   dw_stride, grid);
-  }
-}
-
-template <int kLayers>
 int make_chain(Chain<kLayers>* c, int nl, const int* ints, void* const* ptrs,
-               int N, int H, int W, bool backward) {
+               int N, int H, int W) {
   if (nl != kLayers || N < 1 || H < 1 || W < 1 || N % (H * W) != 0)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < kLayers; ++l) {
@@ -118,8 +102,6 @@ int make_chain(Chain<kLayers>* c, int nl, const int* ints, void* const* ptrs,
     p.dgam = (float*)v[7];
     p.dbet = (float*)v[8];
     if (!p.w || !p.b || !p.gam || !p.bet || !p.z)
-      return (int)cudaErrorInvalidValue;
-    if (backward && (!p.dw || !p.db || !p.dgam || !p.dbet))
       return (int)cudaErrorInvalidValue;
   }
   c->N = N;
@@ -152,7 +134,7 @@ int launch_fwd(const float* x, float* out, int nl, const int* ints,
                void* const* ptrs, int N, int H, int W, float* part, int grid,
                void* stream) {
   Chain<kLayers> c;
-  int rc = make_chain(&c, nl, ints, ptrs, N, H, W, false);
+  int rc = make_chain(&c, nl, ints, ptrs, N, H, W);
   if (rc) return rc;
   if (grid < 1) return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&c, (void*)&x, (void*)&out, (void*)&part};
@@ -163,25 +145,209 @@ int launch_fwd(const float* x, float* out, int nl, const int* ints,
   return (int)cudaGetLastError();
 }
 
+// -- K7 and K9 --------------------------------------------------------------
+
+namespace sb = sqnxt_bwd;
+
+// K7 (kLayers 5) and K9 (kLayers 1): the forward recompute, then every
+// layer's backward in reverse (csrc/sqnxt_bwd.cuh). The plan rides as a
+// __grid_constant__ parameter, copied once into shared memory.
+template <int kLayers>
+__global__ void __launch_bounds__(sb::kThreads, 1)
+sqnxt_bwd_kernel(const __grid_constant__ sb::Chain c,
+                 const float* __restrict__ x, const float* __restrict__ g,
+                 float* dx, float* scratch) {
+  extern __shared__ float4 sqnxt_bwd_smem[];
+  SQNXT_BWD_NS(0);
+  SQNXT_BWD_MARK(sb::kMarks - 2);
+  float* base = reinterpret_cast<float*>(sqnxt_bwd_smem);
+  const int* src = reinterpret_cast<const int*>(&c);
+  int* dst = reinterpret_cast<int*>(base);
+  for (int e = threadIdx.x; e < (int)(sizeof(sb::Chain) / 4); e += sb::kThreads)
+    dst[e] = src[e];
+  __syncthreads();
+  const sb::Smem& s = sb::shared_view(base);
+  sb::stage_norm_params(s);
+  cg::grid_group grid = cg::this_grid();
+  const size_t slot_size = (size_t)gridDim.x * sb::kMaxQ * sb::kMaxC;
+  float* part = scratch;
+  float* dwpart = scratch + 2 * slot_size;
+  float* gbuf = dwpart + (size_t)gridDim.x * c.dw_stride;
+  int slot = 0;
+  sb::forward_recompute(s, x, part, slot_size, slot, grid);
+#pragma unroll 1
+  for (int l = kLayers - 1; l >= 0; --l) {
+    const float* gin =
+        l == kLayers - 1 ? g : gbuf + (size_t)((l + 1) & 1) * c.gstride;
+    float* gout = l == 0 ? dx : gbuf + (size_t)(l & 1) * c.gstride;
+    // gout is complete at backward_layer's second grid.sync, before the
+    // ordered dW sum: the next layer reads it with no further barrier
+    sb::backward_layer(s, l, x, gin, gout, part, slot_size, slot, dwpart,
+                       grid);
+  }
+  SQNXT_BWD_MARK(sb::kMarks - 1);
+  SQNXT_BWD_NS(1);
+}
+
+// The layer table from ints (per layer cin, cout, taps, axis, single_pass)
+// and its plan; cudaErrorInvalidValue for a chain the kernels do not take.
+int bwd_shape(sb::Chain* c, int nl, const int* ints, int N, int H, int W) {
+  if (nl < 1 || nl > sb::kMaxLayers || N < 1 || H < 1 || W < 1 ||
+      N % (H * W) != 0)
+    return (int)cudaErrorInvalidValue;
+  *c = sb::Chain{};
+  c->nl = nl;
+  c->N = N;
+  c->H = H;
+  c->W = W;
+  c->inv_n = (float)(1.0 / (double)N);
+  for (int l = 0; l < nl; ++l) {
+    sb::Layer& p = c->L[l];
+    const int* q = ints + l * kIntsPerLayer;
+    p.cin = q[0];
+    p.cout = q[1];
+    p.taps = q[2];
+    p.axis = q[3];
+    p.single_pass = q[4];
+    if (p.cin < 1 || p.cin > sb::kMaxC || p.cout < 1 || p.cout > sb::kMaxC)
+      return (int)cudaErrorInvalidValue;
+    if (!((p.taps == 1 && p.axis == 0) ||
+          (p.taps == 3 && (p.axis == 1 || p.axis == 2))))
+      return (int)cudaErrorInvalidValue;
+    if (l > 0 && p.cin != c->L[l - 1].cout) return (int)cudaErrorInvalidValue;
+  }
+  return sb::plan(*c) ? (int)cudaErrorInvalidValue : 0;
+}
+
+int bwd_pointers(sb::Chain* c, void* const* ptrs) {
+  for (int l = 0; l < c->nl; ++l) {
+    sb::Layer& p = c->L[l];
+    void* const* v = ptrs + l * kPtrsPerLayer;
+    for (int k = 0; k < kPtrsPerLayer; ++k)
+      if (!v[k]) return (int)cudaErrorInvalidValue;
+    p.w = (const float*)v[0];
+    p.b = (const float*)v[1];
+    p.gam = (const float*)v[2];
+    p.bet = (const float*)v[3];
+    p.z = (float*)v[4];
+    p.dw = (float*)v[5];
+    p.db = (float*)v[6];
+    p.dgam = (float*)v[7];
+    p.dbet = (float*)v[8];
+  }
+  return 0;
+}
+
+// Blocks per SM of a kernel at `smem` bytes of dynamic shared memory on
+// the current device, raising its opt-in attribute where needed; cached
+// per (kernel, device, size): the wrapper asks before every launch.
+template <typename Kernel>
+int bwd_occupancy(Kernel kernel, size_t smem, int* per_sm, int* sms) {
+  struct Entry {
+    const void* fn;
+    int dev;
+    size_t smem;
+    int per_sm, sms;
+  };
+  static Entry cache[64];
+  static int used = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  int dev = 0, rc;
+  if ((rc = (int)cudaGetDevice(&dev))) return rc;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == (const void*)kernel && cache[i].dev == dev &&
+        cache[i].smem == smem) {
+      *per_sm = cache[i].per_sm;
+      *sms = cache[i].sms;
+      return 0;
+    }
+  int coop = 0, optin = 0;
+  if ((rc = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                        dev)))
+    return rc;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if ((rc = (int)cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
+    return rc;
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  if ((rc = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                        dev)))
+    return rc;
+  // the attribute only grows: a smaller launch stays within it
+  int attr_max = 0;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == (const void*)kernel && cache[i].dev == dev &&
+        (int)cache[i].smem > attr_max)
+      attr_max = (int)cache[i].smem;
+  if ((int)smem > attr_max &&
+      (rc = (int)cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return rc;
+  if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           per_sm, kernel, sb::kThreads, smem)))
+    return rc;
+  if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (used < 64) cache[used++] = Entry{(const void*)kernel, dev, smem, *per_sm,
+                                       *sms};
+  return 0;
+}
+
+// The cooperative grid: co-resident blocks at the plan's shared memory,
+// at most the largest tile count of any pass.
+template <int kLayers>
+int bwd_grid(const sb::Chain& c, int* grid) {
+  int per_sm = 0, sms = 0;
+  const int rc = bwd_occupancy(sqnxt_bwd_kernel<kLayers>,
+                               (size_t)c.smem_floats * 4, &per_sm, &sms);
+  if (rc) return rc;
+  int tiles = 1;
+  for (int l = 0; l < c.nl; ++l) {
+    const int tf = (c.N + c.L[l].tn_f - 1) / c.L[l].tn_f;
+    const int tb = (c.N + c.L[l].tn_b - 1) / c.L[l].tn_b;
+    tiles = tiles > tf ? tiles : tf;
+    tiles = tiles > tb ? tiles : tb;
+  }
+  *grid = per_sm * sms < tiles ? per_sm * sms : tiles;
+  return 0;
+}
+
+int bwd_plan(int nl, const int* ints, int N, int H, int W, int* grid,
+             long long* scratch) {
+  sb::Chain c;
+  int rc = bwd_shape(&c, nl, ints, N, H, W);
+  if (rc) return rc;
+  if (nl == 5)
+    rc = bwd_grid<5>(c, grid);
+  else if (nl == 1)
+    rc = bwd_grid<1>(c, grid);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (rc) return rc;
+  *scratch = (long long)sb::scratch_floats(c, *grid);
+  return 0;
+}
+
 template <int kLayers>
 int launch_bwd(const float* x, const float* g, float* dx, int nl,
                const int* ints, void* const* ptrs, int N, int H, int W,
-               float* part, float* dwpart, int dw_stride, float* gbuf,
-               float* gz, int grid, void* stream) {
-  Chain<kLayers> c;
-  int rc = make_chain(&c, nl, ints, ptrs, N, H, W, true);
-  if (rc) return rc;
-  if (grid < 1) return (int)cudaErrorInvalidValue;
-  size_t gstride = 0;
-  for (int l = 0; l < kLayers; ++l)
-    if ((size_t)c.L[l].cin * N > gstride) gstride = (size_t)c.L[l].cin * N;
-  void* args[] = {(void*)&c,      (void*)&x,        (void*)&g,
-                  (void*)&dx,     (void*)&part,     (void*)&dwpart,
-                  (void*)&dw_stride, (void*)&gbuf,  (void*)&gstride,
-                  (void*)&gz};
-  rc = (int)cudaLaunchCooperativeKernel((const void*)sqnxt_bwd_kernel<kLayers>,
-                                        dim3(grid), dim3(kThreads), args, 0,
-                                        (cudaStream_t)stream);
+               float* scratch, long long scratch_floats, int grid,
+               void* stream) {
+  sb::Chain c;
+  if (nl != kLayers || !x || !g || !dx || !scratch)
+    return (int)cudaErrorInvalidValue;
+  int rc = bwd_shape(&c, nl, ints, N, H, W);
+  if (rc || (rc = bwd_pointers(&c, ptrs))) return rc;
+  int want = 0;
+  if ((rc = bwd_grid<kLayers>(c, &want))) return rc;
+  if (grid != want ||
+      scratch_floats != (long long)sb::scratch_floats(c, grid))
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&c, (void*)&x, (void*)&g, (void*)&dx,
+                  (void*)&scratch};
+  rc = (int)cudaLaunchCooperativeKernel(
+      (const void*)sqnxt_bwd_kernel<kLayers>, dim3(grid), dim3(sb::kThreads),
+      args, (size_t)c.smem_floats * 4, (cudaStream_t)stream);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }
@@ -190,14 +356,13 @@ int launch_bwd(const float* x, const float* g, float* dx, int nl,
 
 extern "C" {
 
-// Co-resident blocks of kernel `which` (0: K6, 1: K7, 2: K8, 3: K9) on the
-// current device: blocks per SM x SMs. Fails without cooperative launch.
+// Co-resident blocks of kernel `which` (0: K6, 2: K8) on the current
+// device: blocks per SM x SMs. Fails without cooperative launch. K7's and
+// K9's grids depend on the launch's shared memory: pnode_sqnxt_bwd_plan.
 int pnode_sqnxt_capacity(int which, int* blocks) {
   switch (which) {
     case 0: return capacity(sqnxt_fwd_kernel<5>, blocks);
-    case 1: return capacity(sqnxt_bwd_kernel<5>, blocks);
     case 2: return capacity(sqnxt_fwd_kernel<1>, blocks);
-    case 3: return capacity(sqnxt_bwd_kernel<1>, blocks);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -219,24 +384,43 @@ int pnode_sqnxt_fwd_layer(const float* x, float* out, int nl, const int* ints,
   return launch_fwd<1>(x, out, nl, ints, ptrs, N, H, W, part, grid, stream);
 }
 
-// K7 (nl 5) and K9 (nl 1): dx (cin_0, N) and every layer's dw, db, dgam,
-// dbet from x and the output cotangent g. dwpart: grid * dw_stride floats
-// (dw_stride >= max taps * cin * cout); gbuf: 2 * max cin * N floats; gz:
-// max cout * N floats.
+// K7 (nl 5) and K9 (nl 1): the grid their launch takes and the floats of
+// its one scratch allocation (two partial-slot buffers of grid x 4 x 128,
+// grid dW slots of round4(max taps * cin * cout), and for nl 5 two g
+// buffers of max cin_l * N, l >= 1). ints as for pnode_sqnxt_fwd.
+int pnode_sqnxt_bwd_plan(int nl, const int* ints, int N, int H, int W,
+                         int* grid, long long* scratch_floats) {
+  return bwd_plan(nl, ints, N, H, W, grid, scratch_floats);
+}
+
+// dx (cin_0, N) and every layer's dw, db, dgam, dbet from x and the output
+// cotangent g. ptrs: per layer w, b, gam, bet, z (cout, N) workspace, dw,
+// db, dgam, dbet. grid and scratch_floats must equal the plan's (else
+// cudaErrorInvalidValue).
 int pnode_sqnxt_bwd(const float* x, const float* g, float* dx, int nl,
                     const int* ints, void* const* ptrs, int N, int H, int W,
-                    float* part, float* dwpart, int dw_stride, float* gbuf,
-                    float* gz, int grid, void* stream) {
-  return launch_bwd<5>(x, g, dx, nl, ints, ptrs, N, H, W, part, dwpart,
-                       dw_stride, gbuf, gz, grid, stream);
+                    float* scratch, long long scratch_floats, int grid,
+                    void* stream) {
+  return launch_bwd<5>(x, g, dx, nl, ints, ptrs, N, H, W, scratch,
+                       scratch_floats, grid, stream);
 }
 
 int pnode_sqnxt_bwd_layer(const float* x, const float* g, float* dx, int nl,
                           const int* ints, void* const* ptrs, int N, int H,
-                          int W, float* part, float* dwpart, int dw_stride,
-                          float* gbuf, float* gz, int grid, void* stream) {
-  return launch_bwd<1>(x, g, dx, nl, ints, ptrs, N, H, W, part, dwpart,
-                       dw_stride, gbuf, gz, grid, stream);
+                          int W, float* scratch, long long scratch_floats,
+                          int grid, void* stream) {
+  return launch_bwd<1>(x, g, dx, nl, ints, ptrs, N, H, W, scratch,
+                       scratch_floats, grid, stream);
 }
+
+#ifdef SQNXT_BWD_TRACE
+// The last K7/K9 launch's phase marks (csrc/sqnxt_bwd.cuh): kMarks
+// clock64() values, then the two globaltimer readings.
+int pnode_sqnxt_bwd_marks(long long* marks, unsigned long long* ns) {
+  int rc = (int)cudaMemcpyFromSymbol(marks, sb::marks, sizeof(sb::marks));
+  if (rc) return rc;
+  return (int)cudaMemcpyFromSymbol(ns, sb::ns, sizeof(sb::ns));
+}
+#endif
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-// Shared tile functions of the fused SqueezeNext dynamics kernels K6-K9
-// (csrc/fused_sqnxt.cu), sm_90a, fp32 CUDA cores.
+// Shared tile functions of the fused SqueezeNext forward kernels K6 and K8
+// (csrc/fused_sqnxt.cu), sm_90a, fp32 CUDA cores. The backward kernels K7
+// and K9 have their own, in csrc/sqnxt_bwd.cuh.
 //
 // Layout: activations ride as (C, N), N = B*H*W ordered b-major, then i,
 // then j (ops/fused_sqnxt.py to_cn); no pad columns. One conv layer is
@@ -306,193 +307,6 @@ __device__ __forceinline__ void normalize_out(const Chain<kLayers>& c,
         }
       }
     }
-  }
-}
-
-// Stage-exact backprop of layer l (the TPU kernel's per-layer block):
-//   zh = (z - m) / sr;  g_a = g where zh gam + bet > 0;  g_zh = g_a gam
-//   d_gam = sum g_a zh;  d_bet = sum g_a;  c1 = mean g_zh;  c2 = mean g_zh zh
-//   g_z = (g_zh - c1 - zh c2) / sr;  d_b = sum g_z
-//   dW[t, co, ci] = sum_n g_z[co, n] h[ci, n + s_t] ok_t(n)
-//   g_h[ci, n] = sum_{t, co} W[t, co, ci] g_z[co, n - s_t] ok_t(n - s_t)
-// gin: the cotangent of layer l's output; gout: of its input.
-template <int kLayers>
-__device__ __forceinline__ void backward_layer(
-    const Chain<kLayers>& c, Smem<kLayers>& s, int l, const float* x,
-    const float* gin, float* gout, float* gz, float* part, size_t slot_size,
-    int& slot, float* dwpart, int dw_stride, cg::grid_group& grid) {
-  const Layer& p = c.L[l];
-  const int N = c.N, R = p.cout, tn = threadIdx.x & 15, tr = threadIdx.x >> 4;
-  const int ntiles = (N + kTileN - 1) / kTileN;
-
-  // pass A: the four row sums
-  float* sl = part + (size_t)(slot++ & 1) * slot_size;
-  {
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[0][i] = acc[1][i] = acc[2][i] = acc[3][i] = 0.0f;
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int n0 = tile * kTileN;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = tr + 16 * i;
-        if (r >= R) continue;
-        const float m = s.mean[l][r], sr = s.sr[l][r];
-        const float gam = __ldg(p.gam + r), bet = __ldg(p.bet + r);
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const int n = n0 + tn + 16 * cc;
-          if (n < N) {
-            const size_t o = (size_t)r * N + n;
-            const float zh = (__ldcg(p.z + o) - m) / sr;
-            const float ga = zh * gam + bet > 0.0f ? __ldcg(gin + o) : 0.0f;
-            const float gzh = ga * gam;
-            acc[0][i] += ga * zh;
-            acc[1][i] += ga;
-            acc[2][i] += gzh;
-            acc[3][i] += gzh * zh;
-          }
-        }
-      }
-    }
-    write_partials<4>(acc, R, sl);
-  }
-  grid.sync();
-  sum_partials(sl, 4, R, &s.red[0][0]);
-  if (blockIdx.x == 0)
-    for (int r = threadIdx.x; r < R; r += kThreads) {
-      p.dgam[r] = s.red[0][r];
-      p.dbet[r] = s.red[1][r];
-    }
-
-  // pass B: g_z into device memory, with the row sums of d_b
-  sl = part + (size_t)(slot++ & 1) * slot_size;
-  {
-    float acc[1][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[0][i] = 0.0f;
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int n0 = tile * kTileN;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = tr + 16 * i;
-        if (r >= R) continue;
-        const float m = s.mean[l][r], sr = s.sr[l][r];
-        const float gam = __ldg(p.gam + r), bet = __ldg(p.bet + r);
-        const float c1 = s.red[2][r] * c.inv_n, c2 = s.red[3][r] * c.inv_n;
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const int n = n0 + tn + 16 * cc;
-          if (n < N) {
-            const size_t o = (size_t)r * N + n;
-            const float zh = (__ldcg(p.z + o) - m) / sr;
-            const float ga = zh * gam + bet > 0.0f ? __ldcg(gin + o) : 0.0f;
-            const float g = (ga * gam - c1 - zh * c2) / sr;
-            gz[o] = g;
-            acc[0][i] += g;
-          }
-        }
-      }
-    }
-    write_partials<1>(acc, R, sl);
-  }
-  grid.sync();
-  sum_partials(sl, 1, R, &s.red[0][0]);
-  if (blockIdx.x == 0)
-    for (int r = threadIdx.x; r < R; r += kThreads) p.db[r] = s.red[0][r];
-
-  // pass C1: this block's dW partial, rows co, columns k = (t, ci), the
-  // reduction over this block's columns n in chunks of kChunk
-  const int K = p.taps * p.cin;
-  float* mine = dwpart + (size_t)blockIdx.x * dw_stride;
-  for (int k0 = 0; k0 < K; k0 += kTileN) {
-    Acc a;
-    acc_zero(a);
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      for (int nn = tile * kTileN; nn < tile * kTileN + kTileN; nn += kChunk) {
-        for (int e = threadIdx.x; e < kChunk * R; e += kThreads) {
-          const int r = e / kChunk, kk = e - r * kChunk, n = nn + kk;
-          s.A[kk * kAStride + r] = n < N ? __ldcg(gz + (size_t)r * N + n) : 0.0f;
-        }
-        for (int e = threadIdx.x; e < kChunk * kTileN; e += kThreads) {
-          const int j = e / kChunk, kk = e - j * kChunk, n = nn + kk;
-          const int k = k0 + j;
-          float v = 0.0f;
-          if (k < K && n < N) {
-            const int t = k / p.cin, ci = k - t * p.cin;
-            if (tap_ok(p.axis, t, n, c.H, c.W))
-              v = layer_input(c, s, l, x, ci, n + tap_shift(p.axis, t, c.W));
-          }
-          s.X[kk * kXStride + j] = v;
-        }
-        __syncthreads();
-        acc_chunk(a, s.A, s.X, kChunk, R);
-        __syncthreads();
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = tr + 16 * i;
-      if (r >= R) continue;
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int k = k0 + tn + 16 * cc;
-        if (k < K) {
-          const int t = k / p.cin, ci = k - t * p.cin;
-          mine[((size_t)t * R + r) * p.cin + ci] = a.v[i][cc];
-        }
-      }
-    }
-  }
-
-  // pass C2: g_h, rows ci, reduction over (t, co), g_z read at n - s_t
-  const int K2 = p.taps * R, R2 = p.cin;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int n0 = tile * kTileN;
-    Acc a;
-    acc_zero(a);
-    for (int k0 = 0; k0 < K2; k0 += kChunk) {
-      const int kc = min(kChunk, K2 - k0);
-      for (int e = threadIdx.x; e < kc * R2; e += kThreads) {
-        const int kk = e / R2, r = e - kk * R2, k = k0 + kk;
-        const int t = k / R, co = k - t * R;
-        s.A[kk * kAStride + r] = __ldg(p.w + ((size_t)t * R + co) * p.cin + r);
-      }
-      for (int e = threadIdx.x; e < kc * kTileN; e += kThreads) {
-        const int kk = e / kTileN, j = e - kk * kTileN, k = k0 + kk;
-        const int t = k / R, co = k - t * R, n = n0 + j;
-        const int src = n - tap_shift(p.axis, t, c.W);
-        float v = 0.0f;
-        if (n < N && src >= 0 && src < N && tap_ok(p.axis, t, src, c.H, c.W))
-          v = __ldcg(gz + (size_t)co * N + src);
-        s.X[kk * kXStride + j] = v;
-      }
-      __syncthreads();
-      acc_chunk(a, s.A, s.X, kc, R2);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = tr + 16 * i;
-      if (r >= R2) continue;
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int n = n0 + tn + 16 * cc;
-        if (n < N) gout[(size_t)r * N + n] = a.v[i][cc];
-      }
-    }
-  }
-  grid.sync();
-
-  // dW: the blocks' partials summed in block order, one entry per thread
-  const int total = K * R;
-  for (int e = blockIdx.x * kThreads + threadIdx.x; e < total;
-       e += gridDim.x * kThreads) {
-    float v = 0.0f;
-#pragma unroll 8
-    for (int b = 0; b < (int)gridDim.x; ++b)
-      v += __ldcg(dwpart + (size_t)b * dw_stride + e);
-    p.dw[e] = v;
   }
 }
 

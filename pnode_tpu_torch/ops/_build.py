@@ -43,6 +43,8 @@ _S = ctypes.c_size_t
 _PI = ctypes.POINTER(ctypes.c_int)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PD = ctypes.POINTER(ctypes.c_double)
+_L = ctypes.c_longlong
+_PL = ctypes.POINTER(ctypes.c_longlong)
 
 # C entry points: name -> (restype, argtypes)
 _SIGNATURES = {
@@ -74,10 +76,11 @@ _SIGNATURES = {
     "pnode_sqnxt_fwd": (_I, [_P, _P, _I, _PI, _PP, _I, _I, _I, _P, _I, _P]),
     "pnode_sqnxt_fwd_layer": (_I, [_P, _P, _I, _PI, _PP, _I, _I, _I, _P, _I,
                                    _P]),
-    "pnode_sqnxt_bwd": (_I, [_P, _P, _P, _I, _PI, _PP, _I, _I, _I, _P, _P, _I,
-                             _P, _P, _I, _P]),
+    "pnode_sqnxt_bwd_plan": (_I, [_I, _PI, _I, _I, _I, _PI, _PL]),
+    "pnode_sqnxt_bwd": (_I, [_P, _P, _P, _I, _PI, _PP, _I, _I, _I, _P, _L, _I,
+                             _P]),
     "pnode_sqnxt_bwd_layer": (_I, [_P, _P, _P, _I, _PI, _PP, _I, _I, _I, _P,
-                                   _P, _I, _P, _P, _I, _P]),
+                                   _L, _I, _P]),
     "pnode_stencil_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     "pnode_stencil_bwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _P]),

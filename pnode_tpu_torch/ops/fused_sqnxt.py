@@ -43,8 +43,10 @@ from . import _build
 
 EPS = 1e-5
 SINGLE_PASS_MIN = 1 << 20       # BatchStatsNorm.single_pass_min_size
-MAX_CHANNELS = 128              # csrc/sqnxt_kernels.cuh kMaxC
-TILE_N = 64                     # csrc/sqnxt_kernels.cuh kTileN
+MAX_CHANNELS = 128              # csrc/sqnxt_kernels.cuh, sqnxt_bwd.cuh kMaxC
+TILE_N = 64                     # csrc/sqnxt_kernels.cuh kTileN (K6, K8)
+TILE_OUT = 4096                 # csrc/sqnxt_bwd.cuh kTileOut (K7, K9)
+MAX_DW_TILES = 3                # csrc/sqnxt_bwd.cuh kMaxSub
 CHAIN_WORKSPACE_BYTES = 32 << 20
 # the products' rounding and the statistics' dtype of the plain versions: the
 # Pallas kernels' fp32 (a test of true fp64 sets it to float64)
@@ -305,8 +307,8 @@ _capacity = {}
 
 
 def kernel_grid(which: int, N: int, device) -> int:
-    """Grid of kernel ``which`` (0 K6, 1 K7, 2 K8, 3 K9): min(co-resident
-    blocks of the cooperative launch, 64-column tiles of N)."""
+    """Grid of kernel ``which`` (0 K6, 2 K8): min(co-resident blocks of the
+    cooperative launch, 64-column tiles of N). K7's and K9's: bwd_plan."""
     key = (which, torch.device(device).index)
     if key not in _capacity:
         cap = _build.int_array([0])
@@ -317,19 +319,87 @@ def kernel_grid(which: int, N: int, device) -> int:
     return max(1, min(_capacity[key], -(-N // TILE_N)))
 
 
+def _row_tile(c: int) -> int:
+    return next(t for t in (8, 16, 32, 64, 128) if c <= t)
+
+
+def _layer_ints(meta, lis):
+    ints = []
+    for li in lis:
+        ints += [meta.cdims[li], meta.cdims[li + 1], len(meta.taps[li]),
+                 _AXIS_CODES[meta.axis[li]], int(meta.single_pass[li])]
+    return ints
+
+
+def bwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
+    """Floats of K7's (``lis`` = 0..4) or K9's (one layer) scratch for a
+    grid of ``grid`` blocks, as csrc/sqnxt_bwd.cuh's scratch_floats counts
+    them: two partial-slot buffers (grid x 4 x 128 each), one dW slot per
+    block (the largest taps * Cin * Cout rounded up to 4) and, for the
+    chain, two g buffers of the largest Cin * N past the first layer.
+    Raises ValueError for a chain the kernels do not take (more than 128
+    channels, layers that do not chain, a dW too large for three register
+    tiles per thread)."""
+    lis = list(lis)
+    if len(lis) not in (1, 5) or grid < 1:
+        raise ValueError(f"the backward kernels take 1 or 5 layers and a "
+                         f"grid >= 1, got {len(lis)} and {grid}")
+    dw, gmax = 0, 0
+    for k, li in enumerate(lis):
+        cin, cout = meta.cdims[li], meta.cdims[li + 1]
+        taps = len(meta.taps[li])
+        if not (1 <= cin <= MAX_CHANNELS and 1 <= cout <= MAX_CHANNELS):
+            raise ValueError(f"the kernels take 1 to {MAX_CHANNELS} channels,"
+                             f" got layer {li}: {cin} -> {cout}")
+        if taps != (1 if meta.axis[li] is None else 3):
+            raise ValueError(f"layer {li}: {taps} taps along {meta.axis[li]}")
+        if k > 0 and li != lis[k - 1] + 1:
+            raise ValueError(f"layers {lis} do not chain")
+        if -(-taps * cin * _row_tile(cout) // TILE_OUT) > MAX_DW_TILES:
+            raise ValueError(f"layer {li}: dW of {cout} x {taps * cin} takes "
+                             f"more than {MAX_DW_TILES} register tiles")
+        dw = max(dw, -(-taps * cin * cout // 4) * 4)
+        if k > 0:
+            gmax = max(gmax, cin * meta.n_real)
+    return grid * _PARTIAL_FLOATS + grid * dw + 2 * gmax
+
+
+_bwd_plans = {}
+
+
+def bwd_plan(meta: SqnxtMeta, lis: Sequence[int], device) -> Tuple[int, int]:
+    """(grid, scratch floats) of K7 or K9 at this shape, from the C side
+    (csrc/fused_sqnxt.cu pnode_sqnxt_bwd_plan: the co-resident blocks at
+    the launch's shared memory, at most its tile count); cached."""
+    lis = list(lis)
+    key = (meta, tuple(lis), torch.device(device).index)
+    if key not in _bwd_plans:
+        bwd_scratch_floats(meta, lis, 1)  # refuses what the kernels refuse
+        grid, floats = _build.int_array([0]), (ctypes.c_longlong * 1)(0)
+        with torch.cuda.device(device):
+            _build.check(_build.library().pnode_sqnxt_bwd_plan(
+                len(lis), _build.int_array(_layer_ints(meta, lis)),
+                meta.n_real, meta.H, meta.W, grid, floats),
+                "fused_sqnxt backward plan (cooperative launch)")
+        want = bwd_scratch_floats(meta, lis, grid[0])
+        if floats[0] != want:
+            raise RuntimeError(f"backward scratch: C counts {floats[0]} "
+                               f"floats, bwd_scratch_floats {want}")
+        _bwd_plans[key] = (grid[0], floats[0])
+    return _bwd_plans[key]
+
+
 def _ptrs(values):
     return (ctypes.c_void_p * len(values))(*values)
 
 
 def _layer_args(meta, lis, flats, zs, grads=None):
-    ints, ptrs = [], []
-    for k, (li, lf) in enumerate(zip(lis, flats)):
-        ints += [meta.cdims[li], meta.cdims[li + 1], len(meta.taps[li]),
-                 _AXIS_CODES[meta.axis[li]], int(meta.single_pass[li])]
+    ptrs = []
+    for k, lf in enumerate(flats):
         ptrs += [t.data_ptr() for t in lf] + [zs[k].data_ptr()]
         ptrs += ([t.data_ptr() for t in grads[k]] if grads is not None
                  else [0, 0, 0, 0])
-    return _build.int_array(ints), _ptrs(ptrs)
+    return _build.int_array(_layer_ints(meta, lis)), _ptrs(ptrs)
 
 
 def _launch_fwd(which, entry, x, flats, meta, lis):
@@ -348,26 +418,31 @@ def _launch_fwd(which, entry, x, flats, meta, lis):
     return out
 
 
-def _launch_bwd(which, entry, x, g, flats, meta, lis):
+def _launch_bwd(entry, x, g, flats, meta, lis):
+    """One launch of K7 or K9. Two allocations: the gradients (every
+    layer's dW, db, dgam, dbet as views of one buffer, and dx) and the
+    workspace (the scratch the plan counts, then the anchors z_l)."""
     lib = _build.library()
     N, dev = meta.n_real, x.device
-    zs = [torch.empty(meta.cdims[li + 1], N, device=dev) for li in lis]
-    grads = [tuple(torch.empty_like(t) for t in lf) for lf in flats]
-    dx = torch.empty(meta.cdims[lis[0]], N, device=dev)
-    dw_stride = max(len(meta.taps[li]) * meta.cdims[li] * meta.cdims[li + 1]
-                    for li in lis)
+    grid, floats = bwd_plan(meta, lis, dev)
+    sizes = [t.numel() for lf in flats for t in lf]
+    cin0 = meta.cdims[lis[0]]
+    out = torch.empty(sum(sizes) + cin0 * N, device=dev)
+    views = list(out.split(sizes + [cin0 * N]))
+    dx = views.pop().view(cin0, N)
+    grads, k = [], 0
+    for lf in flats:
+        grads.append(tuple(v.view(t.shape) for v, t in zip(views[k:], lf)))
+        k += len(lf)
+    zsizes = [meta.cdims[li + 1] * N for li in lis]
+    work = torch.empty(floats + sum(zsizes), device=dev)
+    scratch, *zs = work.split([floats] + zsizes)  # scratch 16-byte aligned
+    ints, ptrs = _layer_args(meta, lis, flats, zs, grads)
     with torch.cuda.device(dev):
-        grid = kernel_grid(which, N, dev)
-        part = torch.empty(grid * _PARTIAL_FLOATS, device=dev)
-        dwpart = torch.empty(grid * dw_stride, device=dev)
-        gbuf = torch.empty(2 * max(meta.cdims[li] for li in lis) * N,
-                           device=dev)
-        gz = torch.empty(max(meta.cdims[li + 1] for li in lis) * N, device=dev)
-        ints, ptrs = _layer_args(meta, lis, flats, zs, grads)
         rc = getattr(lib, entry)(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), len(lis), ints, ptrs,
-            N, meta.H, meta.W, part.data_ptr(), dwpart.data_ptr(), dw_stride,
-            gbuf.data_ptr(), gz.data_ptr(), grid, _build.stream_of(x))
+            N, meta.H, meta.W, scratch.data_ptr(), floats, grid,
+            _build.stream_of(x))
     _build.check(rc, f"{entry} kernel")
     return dx, grads
 
@@ -387,7 +462,7 @@ def fused_sqnxt_bwd(x, g, flat, meta):
     flats = [_layer(flat, li) for li in range(5)]
     if not _check("fused_sqnxt_bwd", x, flats, meta, range(5), g):
         return fused_sqnxt_bwd_plain(x, g, flat, meta)
-    dx, grads = _launch_bwd(1, "pnode_sqnxt_bwd", x, g, flats, meta,
+    dx, grads = _launch_bwd("pnode_sqnxt_bwd", x, g, flats, meta,
                             list(range(5)))
     fused_sqnxt_bwd.launches += 1
     return dx, tuple(t for lg in grads for t in lg)
@@ -406,7 +481,7 @@ def fused_sqnxt_layer_bwd(h, g, layer_flat, meta, li):
     """K9: (dh, (dW, db, dgam, dbet)) of layer li from its saved input."""
     if not _check("fused_sqnxt_layer_bwd", h, [layer_flat], meta, [li], g):
         return fused_sqnxt_layer_bwd_plain(h, g, layer_flat, meta, li)
-    dh, grads = _launch_bwd(3, "pnode_sqnxt_bwd_layer", h, g, [layer_flat],
+    dh, grads = _launch_bwd("pnode_sqnxt_bwd_layer", h, g, [layer_flat],
                             meta, [li])
     fused_sqnxt_layer_bwd.launches += 1
     return dh, grads[0]

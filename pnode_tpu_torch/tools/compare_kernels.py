@@ -1,0 +1,243 @@
+"""A kernel of this checkout against the same kernel of another checkout,
+timed in turns.
+
+Run on a machine with the card, from the repository root::
+
+    git archive <commit> | tar -x -C build/other   # any other checkout
+    python -m pnode_tpu_torch.tools.compare_kernels build/other --kernel k7
+
+The other checkout's ``pnode_tpu_torch`` is loaded as a second package
+(its kernels build into that checkout's ``build/``; both builds run at
+once).
+
+``--kernel k1`` (the fused MLP, forward and backward): at the KS stack (B 256, 64 -> 104 x4 -> 64) and the Burgers stack
+(B 200, 512 -> 576 x4 -> 512), with N(0, 1 / fan_in) weights, N(0, 0.1)
+biases and N(0, 1) inputs and cotangents from seed 0, it checks that the
+two forwards agree (max |diff| / max |ref| <= 1e-5) and the two dx
+norm-wise (5e-3: a ReLU unit within fp32 rounding of 0 may flip between
+two correct evaluations), then times each K1 forward and backward in
+turns (other, this, this, other): the median of 30 samples of 10
+back-to-back calls by CUDA events, and the device time per call, every
+kernel of the call summed over a profiler trace of 20 calls (the timing
+helpers are ``chip_smoke.py``'s, so it runs from the repository root).
+
+``--kernel k7`` (the SqueezeNext chain backward, ``fused_sqnxt_bwd``) and
+``--kernel k9`` (its one-layer backward, ``fused_sqnxt_layer_bwd``, all
+five layers per evaluation, each on the plain forward's layer input): at
+the three ODE stage shapes of SqNxt-23 at B 128 (dim 32 at 32x32, 64 at
+16x16, 128 at 8x8), with lecun-normal weights (``ODEDynamics``' own
+init), N(1, 0.1) norm scales, N(0, 0.1) norm shifts, ReLU(N(0, 1)) inputs
+and N(0, 1) cotangents from seed 0, it checks every output of the two
+kernels norm-wise (5e-3, ``chip_smoke.check_grads``' tolerance: a ReLU
+pre-activation within fp32 rounding of 0 may flip between two correct
+evaluations), then times one evaluation of each in turns as for K1.
+
+The last line printed is a JSON object of the readings.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+
+STACKS = (("KS", 256, [64] + [104] * 4 + [64]),
+          ("Burgers", 200, [512] + [576] * 4 + [512]))
+
+
+SQNXT_STAGES = (("stage 1", 32, 32), ("stage 2", 64, 16), ("stage 3", 128, 8))
+SQNXT_B = 128
+
+
+def load_other(root: str, module: str):
+    """The other checkout's ``ops.<module>``, under another package name."""
+    pkg = Path(root).resolve() / "pnode_tpu_torch"
+    name = "other_pnode_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    package = importlib.util.module_from_spec(spec)
+    sys.modules[name] = package
+    spec.loader.exec_module(package)
+    return importlib.import_module(name + ".ops." + module)
+
+
+def device_us(fn, n=20):
+    """(device us per call, kernel launches per call) over a trace of ``n``
+    calls: every device kernel the calls launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import device_kernels
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels, _ = device_kernels(prof.events())
+    return (sum(e.time_range.elapsed_us() for e in kernels) / n,
+            len(kernels) / n)
+
+
+def time_in_turns(label, calls, result):
+    """CUDA events in turns (other, this, this, other) and the device time
+    per call of each side."""
+    from chip_smoke import cuda_times_ms, summary
+
+    ms = {side: [] for side in calls}
+    for side in ("other", "this", "this", "other"):
+        ms[side].append(summary(cuda_times_ms(calls[side]))[0])
+    row = {}
+    for side, fn in calls.items():
+        us, launches = device_us(fn)
+        row[side] = dict(ms=ms[side], device_us=us,
+                         launches_per_call=launches)
+        print(f"[compare] {label} {side}: CUDA events {ms[side][0]:.4f} / "
+              f"{ms[side][1]:.4f} ms, device {us:.1f} us per call over "
+              f"{launches:.0f} launches")
+    result[label] = row
+
+
+def compare_k1(this, other, result):
+    import torch
+
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device="cuda")
+    for label, B, dims in STACKS:
+        Ws = [f32(rng.normal(0, a ** -0.5, size=(a, b)))
+              for a, b in zip(dims, dims[1:])]
+        bs = [f32(rng.normal(0, 0.1, size=b)) for b in dims[1:]]
+        x = f32(rng.normal(size=(B, dims[0])))
+        g = f32(rng.normal(size=(B, dims[-1])))
+        out, ref = (m.fused_mlp_fwd(x, Ws, bs) for m in (this, other))
+        dx, dx_ref = (m.fused_mlp_bwd(x, g, Ws, bs)[0] for m in (this, other))
+        d_out = float((out - ref).abs().max() / ref.abs().max())
+        d_dx = float((dx - dx_ref).norm() / dx_ref.norm())
+        print(f"[compare] {label}: this vs other, forward {d_out:.3e} (max), "
+              f"dx {d_dx:.3e} (norm-wise)")
+        if not (d_out <= 1e-5 and d_dx <= 5e-3):
+            raise SystemExit(f"{label}: the two K1 disagree")
+        for what in ("fused_mlp_fwd", "fused_mlp_bwd"):
+            call_args = (x, Ws, bs) if what == "fused_mlp_fwd" else (
+                x, g, Ws, bs)
+            calls = {side: (lambda fn=getattr(mod, what), a=call_args:
+                            fn(*a))
+                     for side, mod in (("other", other), ("this", this))}
+            time_in_turns(f"{label} {what}", calls, result)
+
+
+def sqnxt_inputs(dim, H, rng):
+    """(x, g, flat, meta) of one stage shape on the card, from ``rng``."""
+    import torch
+
+    from ..models.sqnxt import ODEDynamics, _lecun_normal_
+    from ..ops import fused_sqnxt as fs
+
+    gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+    mod = ODEDynamics(dim)
+    for conv in mod.convs:
+        w = conv.weight
+        _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], gen)
+    meta = fs.make_meta(dim, SQNXT_B, H, H)
+    params = {k: v.detach() for k, v in mod.named_parameters()}
+    for li in range(5):
+        c = params[f"norms.{li}.scale"].shape[0]
+        params[f"norms.{li}.scale"] = torch.tensor(
+            rng.normal(1.0, 0.1, c), dtype=torch.float32)
+        params[f"norms.{li}.bias"] = torch.tensor(
+            rng.normal(0.0, 0.1, c), dtype=torch.float32)
+    flat = [t.cuda() for t in fs.pack_params(params, meta, torch.float32)]
+    N = meta.n_real
+    x = torch.tensor(np.maximum(rng.normal(size=(dim, N)), 0.0),
+                     dtype=torch.float32, device="cuda")
+    g = torch.tensor(rng.normal(size=(dim, N)), dtype=torch.float32,
+                     device="cuda")
+    return x, g, flat, meta
+
+
+def compare_sqnxt(this, other, kernel, result):
+    """K7 (``fused_sqnxt_bwd``) or K9 (``fused_sqnxt_layer_bwd`` over the
+    five layers) of both checkouts at the three stage shapes."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    for label, dim, H in SQNXT_STAGES:
+        x, g, flat, meta = sqnxt_inputs(dim, H, rng)
+        layer = this._layer
+        if kernel == "k7":
+            name = "fused_sqnxt_bwd"
+            calls = {side: (lambda m=mod: m.fused_sqnxt_bwd(x, g, flat, meta))
+                     for side, mod in (("other", other), ("this", this))}
+        else:
+            name = "fused_sqnxt_layer_bwd"
+            hs, h = [], x
+            for li in range(5):
+                hs.append(h)
+                h = this.fused_sqnxt_layer_plain(h, layer(flat, li), meta, li)
+            gls = [g[:meta.cdims[li + 1]].contiguous() for li in range(5)]
+            calls = {side: (lambda m=mod: [
+                m.fused_sqnxt_layer_bwd(hs[li], gls[li], layer(flat, li),
+                                        meta, li) for li in range(5)])
+                for side, mod in (("other", other), ("this", this))}
+        outs = {}
+        for side, fn in calls.items():
+            r = fn()
+            r = r if kernel == "k9" else [r]
+            # (output, is a conv bias); a conv bias feeding a batch-stats
+            # norm has a true gradient of 0, so both sides return noise
+            outs[side] = [(t, k % 4 == 1) for dh, d in r
+                          for t, k in [(dh, 0)] + [(t, k) for k, t in
+                                                   enumerate(d)]]
+        torch.cuda.synchronize()
+        errs = []
+        for (a, bias), (b, _) in zip(outs["this"], outs["other"]):
+            if bias:
+                continue
+            errs.append(float((a - b).double().norm()
+                              / b.double().norm().clamp_min(1e-30)))
+        print(f"[compare] {label} {name}: this vs other, worst norm-wise "
+              f"{max(errs):.3e} over {len(errs)} outputs")
+        if not max(errs) <= 5e-3:
+            raise SystemExit(f"{label}: the two {name} disagree")
+        time_in_turns(f"{label} {name}", calls, result)
+
+
+def main(argv=None):
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", help="root of the other checkout")
+    ap.add_argument("--kernel", choices=("k1", "k7", "k9"), default="k1")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_kernels needs a CUDA card")
+    module = "fused_mlp" if args.kernel == "k1" else "fused_sqnxt"
+    this = importlib.import_module(f"{__package__.rsplit('.', 1)[0]}.ops."
+                                   f"{module}")
+    other = load_other(args.other, module)
+    builds = [threading.Thread(target=m._build.library)
+              for m in (this, other)]
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join()
+    result = {}
+    if args.kernel == "k1":
+        compare_k1(this, other, result)
+    else:
+        compare_sqnxt(this, other, args.kernel, result)
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()
