@@ -16,7 +16,7 @@ exits non-zero without printing the final line):
    bisected to 4 bytes, must equal the gates' MAX_SMEM_BYTES and the card's
    opt-in attribute; the co-resident capacities the loop kernels' grids
    assume; K13 at that size against 3x (bitwise), timed beside it and
-   torch.mul(x, 3).
+   torch.mul(x, 3), by CUDA events and by the profiler's device time.
 3. Kernels: K1 forward, K1 backward, K2 (ARK forward step) and K3 (ARK
    reverse step) against their plain PyTorch versions on the card, at the
    main path's shapes (B 256, 64 -> 104 x4 -> 64, ARK3, dt 0.2, J and the
@@ -78,12 +78,14 @@ exits non-zero without printing the final line):
    max |ref|; gradients: <= 5e-3 norm-wise, check_grads says why), on the
    first ODE block's input of each
    stage (from the model's own forward) in both modes and at the edges of
-   K7's and K9's tiling (SQNXT_EDGES: ragged, no power of two, H = 1, W =
+   the kernels' tiling (SQNXT_EDGES: ragged, no power of two, H = 1, W =
    1, N below a tile); conv-bias gradients, whose true value is 0, in
-   absolute terms (check_bias); two K7 and two K9 calls bitwise equal; K7
-   refuses scratch one float short; each timed per evaluation beside its
-   plain version and the module path's evaluation, K7 and K9 also by the
-   profiler's device time. (b) The kernel path against the module path
+   absolute terms (check_bias); two calls of each kernel bitwise equal; K6
+   and K7 refuse scratch one float short; each timed per evaluation beside
+   its plain version and the module path's evaluation, and by the
+   profiler's device time (the JSON line: K6/K7 at stage 2 with a stage3
+   sub-object, K8/K9 at stage 1). The build phase fails where ptxas
+   reports spill in csrc/sqnxt_fwd.cu (K6, K8). (b) The kernel path against the module path
    from the same weights: logits, loss, gradient cosine and norm ratio
    (CIFAR_TOL). (c) 22 SGD iterations (lr 0.1, momentum 0.9, wd 5e-4) on
    the kernel path and 12 on the module path: finite losses, the mean of
@@ -175,11 +177,11 @@ KERNELS = {
     "fused_adaptive_train_loop": (
         "cuda", "pnode_tpu_torch/csrc/fused_adaptive_loop.cu",
         "pnode_tpu/ops/fused_adaptive_loop.py:262"),
-    "fused_sqnxt_fwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
+    "fused_sqnxt_fwd": ("cuda", "pnode_tpu_torch/csrc/sqnxt_fwd.cu",
                         "pnode_tpu/ops/fused_sqnxt.py:192"),
     "fused_sqnxt_bwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
                         "pnode_tpu/ops/fused_sqnxt.py:206"),
-    "fused_sqnxt_layer_fwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
+    "fused_sqnxt_layer_fwd": ("cuda", "pnode_tpu_torch/csrc/sqnxt_fwd.cu",
                               "pnode_tpu/ops/fused_sqnxt.py:508"),
     "fused_sqnxt_layer_bwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
                               "pnode_tpu/ops/fused_sqnxt.py:522"),
@@ -194,16 +196,21 @@ KERNELS = {
 }
 SQNXT_KERNELS = ("fused_sqnxt_fwd", "fused_sqnxt_bwd", "fused_sqnxt_layer_fwd",
                  "fused_sqnxt_layer_bwd")
-# K6-K9 beyond the stage shapes, at the edges of K7's and K9's tiling:
-# (label, stage whose activation is sliced, dim, B, H, W). Ragged widths
-# (dim 16: Cout 4), widths that are no power of two (dim 48: 48, 24, 12),
-# H = 1 and W = 1 (every off-centre (3,1) or (1,3) tap masked) and N
-# below one column tile.
+# K6-K9 beyond the stage shapes, at the edges of their tiling:
+# (label, stage whose activation is sliced (its batch repeated past B 128),
+# dim, B, H, W). Ragged widths (dim 16: Cout 4), widths that are no power
+# of two (dim 48: 48, 24, 12), H = 1 and W = 1 (every off-centre (3,1) or
+# (1,3) tap masked), N below one column tile, and an N whose last z is
+# past K6's and K8's store at the largest co-resident grid on 132 SMs
+# (2,560 tiles of 256 columns: 10 a block at 264 blocks), so their last
+# layer writes its anchor.
 SQNXT_EDGES = (("ragged B3 5x7 dim 16", 0, 16, 3, 5, 7),
                ("dim 48 B4 8x8", 1, 48, 4, 8, 8),
                ("B5 1x9 dim 16", 0, 16, 5, 1, 9),
                ("B5 9x1 dim 16", 0, 16, 5, 9, 1),
-               ("B1 3x3 dim 16", 0, 16, 1, 3, 3))
+               ("B1 3x3 dim 16", 0, 16, 1, 3, 3),
+               ("B640 32x32 dim 16, last z past the store", 0, 16, 640, 32,
+                32))
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): fp32 outside the tensor
 # cores, and HBM3
 FP32_PEAK, HBM_RATE = 67e12, 3.35e12
@@ -298,6 +305,35 @@ def phase_device():
     return smi.splitlines()[0]
 
 
+def ptxas_report(log, source):
+    """{function: [registers or None, spill store bytes, spill load bytes]}
+    of every function ptxas compiled from ``source`` (a csrc file name),
+    read from the build log's -Xptxas -v lines."""
+    import re
+
+    funcs, src, fn = {}, None, None
+    for line in log.splitlines():
+        if " -c -o " in line:  # an nvcc command: its source is last
+            src = line.split()[-1].rsplit("/", 1)[-1]
+            continue
+        if src != source:
+            continue
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$.]+)'?", line)
+        if m:
+            fn = m.group(1)
+            funcs.setdefault(fn, [None, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            funcs[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            funcs[fn][0] = int(m.group(1))
+    return funcs
+
+
 def phase_build():
     from pnode_tpu_torch.ops import _build
     from pnode_tpu_torch.ops.fused_adaptive_loop import _adaptive_smem_bytes
@@ -310,10 +346,21 @@ def phase_build():
     info = _build.build_info
     log(f"[build] {info['path']} in {secs:.1f} s "
         f"({'cached' if info.get('cached') else 'nvcc'})")
-    for line in info.get("log", "").splitlines():
+    build_log = info.get("log") or (_build.BUILD_DIR / "build.log").read_text()
+    for line in build_log.splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
             log(f"[build]   {line.strip()}")
+    # K6 and K8 (csrc/sqnxt_fwd.cu): every function ptxas compiled there,
+    # the kernels and their out-of-line tile functions, without spill
+    fwd = ptxas_report(build_log, "sqnxt_fwd.cu")
+    for fn, (regs, st, ld) in sorted(fwd.items()):
+        log(f"[build] sqnxt_fwd.cu {fn}: {regs} registers, spill stores "
+            f"{st} B, spill loads {ld} B")
+    if not any("sqnxt_fwd_kernel" in fn for fn in fwd) or any(
+            st or ld for _, st, ld in fwd.values()):
+        raise AssertionError("K6/K8: ptxas reports spill in csrc/sqnxt_fwd.cu"
+                             " (or no kernel there)")
     # the fits gate mirrors the kernels' shared-memory layout in Python
     for d, layers, s in ((NX, [HIDDEN] * 4 + [NX], 4), (512, [576] * 4 + [512], 8)):
         dims = [d] + layers
@@ -372,14 +419,22 @@ def phase_probe():
     fns = (lambda: probe.probe_smem_plain(x), lambda: probe.probe_smem(x, n),
            lambda: torch.mul(x, 3))
     t = [summary(cuda_times_ms(fns[i]))[0] for i in (0, 1, 2, 1, 0, 2)]
+    # the profiler's device time of K13 and of torch.mul's kernel: CUDA
+    # events time what a caller of back-to-back calls waits for, which may
+    # be the host's side of the call
+    dev_k13, n_k13 = device_us_per_call(fns[1], ["probe_smem_kernel"])
+    dev_mul, n_mul = device_us_per_call(fns[2], [""])
     report = dict(max_abs_err=err, ms=min(t[1], t[3]),
                   plain_ms=min(t[0], t[4]), library_ms=min(t[2], t[5]),
-                  launches=launches)
+                  launches=launches, device_ms=dev_k13 / 1e3,
+                  library_device_ms=dev_mul / 1e3)
     report["bound_ms"], report["bound_by"] = bound(2 * x.numel(),
                                                    8 * x.numel())
     log(f"[probe] K13 at {n} B x {x.numel()} floats: kernel {t[1]:.4f} / "
-        f"{t[3]:.4f} ms, plain {t[0]:.4f} / {t[4]:.4f} ms, torch.mul "
-        f"{t[2]:.4f} / {t[5]:.4f} ms; bound {report['bound_ms']:.5f} ms "
+        f"{t[3]:.4f} ms (device {dev_k13 / 1e3:.4f} ms, {n_k13} launches "
+        f"traced), plain {t[0]:.4f} / {t[4]:.4f} ms, torch.mul "
+        f"{t[2]:.4f} / {t[5]:.4f} ms (device {dev_mul / 1e3:.4f} ms, "
+        f"{n_mul} launches traced); bound {report['bound_ms']:.5f} ms "
         f"({report['bound_by']}); bitwise equal to 3x")
     return report
 
@@ -1932,11 +1987,13 @@ def check_grads(name, got, plain, ref64, report, tol=5e-3):
 
 
 def check_repeat(name, first, second):
-    """Two kernel calls on the same inputs: every output bitwise equal (K7
-    and K9 sum in fixed orders, with no atomics)."""
+    """Two kernel calls on the same inputs: every output bitwise equal (K6-K9
+    sum in fixed orders, with no atomics). An output is a tensor (K6, K8)
+    or (dx, gradients) (K7, K9)."""
     import torch
 
-    flat = lambda r: [r[0]] + list(r[1])  # noqa: E731
+    flat = lambda r: (  # noqa: E731
+        [r] if isinstance(r, torch.Tensor) else [r[0]] + list(r[1]))
     ok = all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
     log(f"[kernels]   {name}: a second call bitwise equal "
         f"{'ok' if ok else 'FAIL'}")
@@ -1947,7 +2004,7 @@ def check_repeat(name, first, second):
 def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
     """K6-K9 against their plain versions (fp32, and fp64 with fp64
     statistics) on the model's activation h (NCHW) and ODEDynamics mod;
-    K7 and K9 also called twice, bitwise equal."""
+    each also called twice, bitwise equal."""
     import torch
 
     from pnode_tpu_torch.ops import fused_sqnxt as fs
@@ -1969,6 +2026,7 @@ def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
     # K6
     out = fs.fused_sqnxt_fwd(x, flat, meta)
     torch.cuda.synchronize()
+    check_repeat("fused_sqnxt_fwd", out, fs.fused_sqnxt_fwd(x, flat, meta))
     check_kernel("fused_sqnxt_fwd", [out], [fs.fused_sqnxt_plain(x, flat, meta)],
                  [fs.fused_sqnxt_plain(x.double(), flat64, meta, work=f64)],
                  1e-5, report_chain["fwd"])
@@ -1998,6 +2056,8 @@ def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
     for li in range(5):
         lf, lf64 = fs._layer(flat, li), fs._layer(flat64, li)
         outs[0].append(fs.fused_sqnxt_layer_fwd(hs[li], lf, meta, li))
+        repeats.append((outs[0][-1],
+                        fs.fused_sqnxt_layer_fwd(hs[li], lf, meta, li)))
         outs[1].append(fs.fused_sqnxt_layer_plain(hs[li], lf, meta, li))
         outs[2].append(fs.fused_sqnxt_layer_plain(hs[li].double(), lf64, meta,
                                                   li, work=f64))
@@ -2014,8 +2074,9 @@ def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
             bw[0][k] += [r[0], r[1][0], r[1][2], r[1][3]]
             bw[1][k].append(r[1][1])
     torch.cuda.synchronize()
-    for li, (a, b) in enumerate(repeats):
-        check_repeat(f"fused_sqnxt_layer_bwd layer {li}", a, b)
+    for k, (a, b) in enumerate(repeats):
+        check_repeat(f"fused_sqnxt_layer_{('fwd', 'bwd')[k % 2]} layer "
+                     f"{k // 2}", a, b)
     check_kernel("fused_sqnxt_layer_fwd (5 layers)", *outs, 1e-5,
                  report_layer["fwd"])
     check_grads("fused_sqnxt_layer_bwd (5 layers)", *bw[0],
@@ -2027,8 +2088,8 @@ def sqnxt_case(label, h, mod, device, seed, report_chain, report_layer):
 
 
 def check_short_scratch(x, g, flat, meta):
-    """K7's C entry point refuses scratch one float short of its plan
-    (cudaErrorInvalidValue, 1), before it launches."""
+    """K6's and K7's C entry points refuse scratch one float short of their
+    plan (cudaErrorInvalidValue, 1), before they launch."""
     import torch
 
     from pnode_tpu_torch.ops import _build
@@ -2036,6 +2097,17 @@ def check_short_scratch(x, g, flat, meta):
 
     lis = list(range(5))
     flats = [fs._layer(flat, li) for li in lis]
+    lib = _build.library()
+    grid, floats, ints = fs.fwd_plan(meta, lis, x.device)
+    out = torch.empty_like(x)
+    scratch = torch.empty(floats, device=x.device)
+    rc6 = lib.pnode_sqnxt_fwd(
+        x.data_ptr(), out.data_ptr(), 5, ints,
+        fs._ptrs([t.data_ptr() for lf in flats for t in lf]), meta.n_real,
+        meta.H, meta.W, scratch.data_ptr(), floats - 1, grid,
+        _build.stream_of(x))
+    log(f"[kernels]   fused_sqnxt_fwd with scratch one float short of "
+        f"{floats}: rc {rc6} {'ok' if rc6 == 1 else 'FAIL'}")
     grid, floats = fs.bwd_plan(meta, lis, x.device)
     zs = [torch.empty(meta.cdims[li + 1], meta.n_real, device=x.device)
           for li in lis]
@@ -2043,14 +2115,14 @@ def check_short_scratch(x, g, flat, meta):
     ints, ptrs = fs._layer_args(meta, lis, flats, zs, grads)
     dx = torch.empty_like(x)
     scratch = torch.empty(floats, device=x.device)
-    rc = _build.library().pnode_sqnxt_bwd(
+    rc7 = lib.pnode_sqnxt_bwd(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), 5, ints, ptrs,
         meta.n_real, meta.H, meta.W, scratch.data_ptr(), floats - 1, grid,
         _build.stream_of(x))
     log(f"[kernels]   fused_sqnxt_bwd with scratch one float short of "
-        f"{floats}: rc {rc} {'ok' if rc == 1 else 'FAIL'}")
-    if rc != 1:
-        raise AssertionError("K7 took a scratch of the wrong size")
+        f"{floats}: rc {rc7} {'ok' if rc7 == 1 else 'FAIL'}")
+    if rc6 != 1 or rc7 != 1:
+        raise AssertionError("K6 or K7 took a scratch of the wrong size")
 
 
 def time_sqnxt(label, h, mod, x, g, flat, meta, hs, reports):
@@ -2084,39 +2156,45 @@ def time_sqnxt(label, h, mod, x, g, flat, meta, hs, reports):
         return lambda: [fn(hs[li], gls[li], fs._layer(flat, li), meta, li)
                         for li in range(5)]
 
+    # (kernel, plain, module path, (flops, bytes), launches per evaluation,
+    # the kernel's name in a trace): the layered rows' bound counts each
+    # launch's own input and output (sqnxt_layered_cost)
+    chain = range(5)
     rows = {
         "fused_sqnxt_fwd": (lambda: fs.fused_sqnxt_fwd(x, flat, meta),
                             lambda: fs.fused_sqnxt_plain(x, flat, meta),
-                            module_fwd, False, range(5)),
+                            module_fwd, fs.sqnxt_cost(meta, chain, False), 1,
+                            "sqnxt_fwd_kernel"),
         "fused_sqnxt_bwd": (lambda: fs.fused_sqnxt_bwd(x, g, flat, meta),
                             lambda: fs.fused_sqnxt_bwd_plain(x, g, flat, meta),
-                            module_bwd, True, range(5)),
+                            module_bwd, fs.sqnxt_cost(meta, chain, True), 1,
+                            "sqnxt_bwd_kernel"),
         "fused_sqnxt_layer_fwd": (layers(fs.fused_sqnxt_layer_fwd),
                                   layers(fs.fused_sqnxt_layer_plain),
-                                  module_fwd, False, range(5)),
+                                  module_fwd,
+                                  fs.sqnxt_layered_cost(meta, False), 5,
+                                  "sqnxt_fwd_kernel"),
         "fused_sqnxt_layer_bwd": (layers_bwd(fs.fused_sqnxt_layer_bwd),
                                   layers_bwd(fs.fused_sqnxt_layer_bwd_plain),
-                                  module_bwd, True, range(5)),
+                                  module_bwd,
+                                  fs.sqnxt_layered_cost(meta, True), 5,
+                                  "sqnxt_bwd_kernel"),
     }
     out = {}
-    for name, (kern, plain, module, backward, lis) in rows.items():
+    for name, (kern, plain, module, (flops, byts), per_call,
+               kname) in rows.items():
         t = [summary(cuda_times_ms(f, reps=10, warmup=2, inner=5))[0]
              for f in (plain, kern, module, kern, plain, module)]
-        flops, byts = fs.sqnxt_cost(meta, list(lis), backward)
         b_ms, b_by = bound(flops, byts)
+        # the profiler's device time beside the CUDA events
+        us, traced = device_us_per_call(kern, [kname], per_call=[per_call])
         out[name] = dict(ms=min(t[1], t[3]), plain_ms=min(t[0], t[4]),
                          module_ms=min(t[2], t[5]), bound_ms=b_ms,
-                         bound_by=b_by)
-        dev = ""
-        if backward:  # K7 and K9: the profiler's device time beside
-            us, traced = device_us_per_call(
-                kern, ["sqnxt_bwd_kernel"],
-                per_call=[1 if name == "fused_sqnxt_bwd" else 5])
-            out[name]["device_ms"] = us / 1e3
-            dev = f", device {us / 1e3:.4f} ms ({traced} launches traced)"
+                         bound_by=b_by, device_ms=us / 1e3)
         log(f"[cifar]   {label} {name} per evaluation: kernel {t[1]:.4f} / "
-            f"{t[3]:.4f} ms{dev}, plain {t[0]:.4f} / {t[4]:.4f} ms, module "
-            f"path {t[2]:.4f} / {t[5]:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{t[3]:.4f} ms, device {us / 1e3:.4f} ms ({traced} launches "
+            f"traced), plain {t[0]:.4f} / {t[4]:.4f} ms, module path "
+            f"{t[2]:.4f} / {t[5]:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
             f"{flops / 1e9:.3f} GFLOP, {byts / 1e6:.2f} MB); medians of 10 "
             f"samples of 5 back-to-back calls")
     reports[label] = out
@@ -2147,7 +2225,7 @@ def phase_sqnxt_kernels(device, x):
             reports[name]["max_abs_err"] = max(
                 reports[name].get("max_abs_err", 0.0), r["max_abs_err"])
         time_sqnxt(label, h, mod, *case, timed)
-    # K6-K9 at the edges of K7's and K9's tiling (SQNXT_EDGES), each on a
+    # K6-K9 at the edges of their tiling (SQNXT_EDGES), each on a
     # slice of a stage's activation with a lecun-normal ODEDynamics
     gen = torch.Generator().manual_seed(1)
     for k, (label, si, dim, B, H, W) in enumerate(SQNXT_EDGES):
@@ -2156,7 +2234,9 @@ def phase_sqnxt_kernels(device, x):
             w = conv.weight
             _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], gen)
         edge = edge.to(device)
-        h1 = stages[si][0][:B, :dim, :H, :W].contiguous()
+        h1 = stages[si][0]
+        h1 = h1.repeat(-(-B // h1.shape[0]), 1, 1, 1)[:B, :dim, :H, :W]
+        h1 = h1.contiguous()
         case = sqnxt_case(label, h1, edge, device, 20 + k,
                           {"fwd": {}, "bwd": {}}, {"fwd": {}, "bwd": {}})
         if k == 0:
@@ -2169,7 +2249,8 @@ def phase_sqnxt_kernels(device, x):
                         ("fused_sqnxt_layer_fwd", "stage 1"),
                         ("fused_sqnxt_layer_bwd", "stage 1")):
         reports[name].update(timed[label][name])
-    reports["fused_sqnxt_bwd"]["stage3"] = timed["stage 3"]["fused_sqnxt_bwd"]
+    for name in ("fused_sqnxt_fwd", "fused_sqnxt_bwd"):
+        reports[name]["stage3"] = timed["stage 3"][name]
     return reports
 
 
@@ -3145,7 +3226,7 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
-        for extra in ("device_ms", "stage3"):  # K7's and K9's extra readings
+        for extra in ("device_ms", "stage3", "library_device_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if name in k1_burgers:  # K1's readings at the Burgers stack too

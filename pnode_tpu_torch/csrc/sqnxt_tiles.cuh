@@ -1,25 +1,29 @@
-// K7 and K9: the stage-exact backward of the fused SqueezeNext dynamics
-// (csrc/fused_sqnxt.cu's sqnxt_bwd_kernel<5> and <1>), sm_90a, fp32 FFMA on
-// the CUDA cores (no tensor cores, no TF32). Only the backward kernels
-// include this header; K6 and K8 keep csrc/sqnxt_kernels.cuh.
+// The tile machinery of the fused SqueezeNext kernels, sm_90a, fp32 FFMA on
+// the CUDA cores (no tensor cores, no TF32): the forward kernels K6 and K8
+// (csrc/sqnxt_fwd.cu's sqnxt_fwd_kernel<5> and <1>) and the stage-exact
+// backward kernels K7 and K9 (csrc/fused_sqnxt.cu's sqnxt_bwd_kernel<5> and
+// <1>), which recompute the same forward before they backprop.
 //
-// Replaces pnode_tpu/ops/fused_sqnxt.py: _bwd_kernel (:206, the chain at
-// ODE stages 2-3) and _bwd_layer_kernel (:522, one layer per launch at
-// stage 1). Both recompute the layer's forward, then backprop:
-//   zh = (z - m) / sr;  g_a = g where zh gam + bet > 0;  g_zh = g_a gam
+// Replaces pnode_tpu/ops/fused_sqnxt.py: _fwd_kernel (:192) and _bwd_kernel
+// (:206), the chain at ODE stages 2-3, and _fwd_layer_kernel (:508) and
+// _bwd_layer_kernel (:522), one layer per launch at stage 1. A layer is
+//   z = conv(h) + b;  zh = (z - m) / sr;  h' = ReLU(zh gam + bet)
+// and its backward
+//   g_a = g where zh gam + bet > 0;  g_zh = g_a gam
 //   d_gam = sum g_a zh;  d_bet = sum g_a;  c1 = mean g_zh;  c2 = mean g_zh zh
 //   g_z = (g_zh - c1 - zh c2) / sr;  d_b = sum g_z
 //   dW[t, co, ci] = sum_n g_z[co, n] h[ci, n + s_t] ok_t(n)
 //   g_h[ci, n] = sum_{t, co} W[t, co, ci] g_z[co, n - s_t] ok_t(n - s_t)
 //
-// Bound on the H100 (67 TFLOP/s fp32 FFMA, 3.35 TB/s): a backward is 3x
-// the forward's 4.5 D^2 N FLOP (the recompute, dW and g_h), 1.81 GFLOP at
-// every stage of SqNxt-23 at B 128 (D 32, N 131,072; D 64, N 32,768;
-// D 128, N 8,192): 27.0 us, set by operations (the bytes, x, g, dx and the
-// parameter gradients, 50.3, 25.2 and 12.9 MB, take 15.0, 7.5 and 3.8 us).
+// Bound on the H100 (67 TFLOP/s fp32 FFMA, 3.35 TB/s): a forward is 4.5
+// D^2 N FLOP, a backward 3x that (the recompute, dW and g_h): 604 MFLOP and
+// 1.81 GFLOP at every stage of SqNxt-23 at B 128 (D 32, N 131,072; D 64, N
+// 32,768; D 128, N 8,192), 9.0 and 27.0 us, set by operations for the chain
+// (its x and out, 8.4 MB at stage 2, take 5.0 us). One layer per launch
+// reads and writes every layer's input and output: 92.3 MB over K8's five
+// launches at stage 1, 27.5 us, set by bytes.
 //
-// The previous design (one 128 x 64 tile routine for every product) ran at
-// 1.5-1.8% of that bound. What this one does about each cause:
+// The design, per cause of lost time:
 // 1. Row tiles shaped to the layer. Every product is a template on its row
 //    tile RT (the layer's rows rounded up to 8, 16, 32, 64 or 128) and its
 //    taps (1, or 3 along j or i: the axis only sets the shift and the
@@ -33,60 +37,63 @@
 //    the block adds in group order; above 4096 entries a thread sweeps the
 //    tile once for each of up to three 16-entry register tiles (the chain
 //    of make_meta needs at most 12,288 entries: Cout 64 x 3 x 64 at D 128;
-//    more is refused). Where a pass would have fewer than 256 tiles (N
-//    8,192 at stage 3, and the narrow layers at stage 2), its tile is
-//    halved, once or twice, and the products' reduction is split over 2
+//    the backward refuses more). Where a pass would have fewer than 256
+//    tiles (N 8,192 at stage 3, and the narrow layers at stage 2), its tile
+//    is halved, once or twice, and the products' reduction is split over 2
 //    or 4 thread groups that meet in shared memory, so the 16-output
 //    register tile stays and every SM gets two tiles.
 // 2. Each input staged once per tile, with its halo. A layer's column tile
-//    (TN = 4096 / the smaller row tile, so both products of the backward
-//    fill their register tiles) is staged with 1 column ((1,3)) or W
-//    columns ((3,1)) on each side, and the three taps are read from shared
-//    memory at offsets -s, 0, +s. Each column's image coordinate and its
-//    two tap masks are computed once per tile (the only integer division
-//    by a runtime value, outside every FMA loop). The previous layer's
-//    ReLU(norm(z)) is computed once per staged element as ReLU(z sc + sh)
-//    (sc = gam / sr, sh = bet - m sc, per channel in shared memory: one
-//    FMA; the ReLU gates of the norm's backward use the same form, so the
-//    two agree; the plain version divides, so a value at 0 may round to
-//    either side, which the norm-wise gates allow). Rows come in raw by
-//    cp.async, 16 bytes where N, the tile's first column and the row
-//    stride are multiples of 4 and 4 bytes otherwise (K1's path in
-//    csrc/fused_mlp.cu), and are turned in place (the input's norm and
-//    ReLU; z into g_z, with g loaded 16 elements a thread at a time, all
-//    in flight before any is used). The next layer's weights are copied
-//    in while the grid meets.
-// 3. One pass for g_z, d_b, dW and g_h. After pass A (the four row sums of
-//    the norm's backward) and its grid.sync, each tile computes g_z for
-//    itself and its halo in shared memory from z, g and the statistics,
-//    adds d_b's row sums, runs g_h (written to device memory for the next
-//    layer) and dW in one sweep over the staged tile, and adds its dW into
-//    the block's partial (a block-private slot that stays in L2: up to
-//    48 KB of dW, beside the staged tile and the layer's weights in shared
-//    memory). No g_z scratch. Then one grid.sync,
-//    and the ordered sums of dW and d_b, which overlap the next layer's
-//    pass A. Two grid barriers per backward layer, plus the recompute's
-//    one per layer (two where the variance is centered). The next layer's
-//    weights are copied in while the grid meets. After each barrier every
-//    block sums every block's partials, spread over all its threads with
-//    16-byte loads; at 132 blocks that read, nb x Q x R floats a block,
-//    and the barrier itself take 4-15 us (tools/trace_sqnxt_bwd.py), the
-//    largest cost left beside the products.
-// 4. Registers and occupancy: __launch_bounds__(256, 1): about 210
-//    registers, no spill, one block of 8 warps per SM, so the cooperative
-//    grid is 132 blocks and every pass has two or more tiles a block. At
-//    (256, 2) the 128-register cap spilled 100-760 B in the kernel and
-//    in dW's function, yet ran 10-15% faster at stages 1-2 (PERF.md).
-//    Dynamic shared memory is sized per launch (61, 80 and
-//    101 KB at stages 1-3), and the same size is given to the occupancy
-//    query that sets the grid. The layer table, and the pointers into
-//    shared memory, live in shared memory, so no loop indexes a by-value
-//    struct and no register holds them across the passes; the products
-//    are out of line (their 50 template instances inlined twice would
-//    double the build).
-// 5. Anchors, g buffers and partial slots are written inside the launch:
+//    is staged with 1 column ((1,3)) or W columns ((3,1)) on each side, and
+//    the three taps are read from shared memory at offsets -s, 0, +s. Each
+//    column's image coordinate and its two tap masks are computed once per
+//    tile (the only integer division by a runtime value, outside every FMA
+//    loop). The previous layer's ReLU(norm(z)) is computed once per staged
+//    element as ReLU(z sc + sh) (sc = gam / sr, sh = bet - m sc, per channel
+//    in shared memory: one FMA; the forward's output and the ReLU gates of
+//    the norm's backward use the same form, so all three agree; the plain
+//    version divides, so a value at 0 may round to either side). Rows come
+//    in raw by cp.async, 16 bytes where N, the tile's first column and the
+//    row stride are multiples of 4 and 4 bytes otherwise (K1's path in
+//    csrc/fused_mlp.cu), and are turned in place. The next layer's weights
+//    are copied in while the grid meets.
+// 3. The forward keeps z on chip where it is read again. A layer's anchor
+//    z_l (conv + bias) goes to device memory only where another block reads
+//    it: the next layer's halo crosses tiles, so each layer but the chain's
+//    last writes its anchor. The last layer's z (read by the normalize-out
+//    pass after the statistics' grid barrier) and a layer's z with a
+//    centered variance (read by its second pass) stay in a store of this
+//    block's tiles in shared memory, where the store fits kStoreFloats at
+//    the launch's grid (plan_fwd; L[l].keep), so K8 writes and reads no
+//    anchor at the CIFAR shapes. The forward kernels instantiate only the
+//    forward product, so the occupancy query may give them two blocks per
+//    SM where the store is small.
+// 4. One pass for the backward's g_z, d_b, dW and g_h. After pass A (the
+//    four row sums of the norm's backward) and its grid.sync, each tile
+//    computes g_z for itself and its halo in shared memory from z, g and
+//    the statistics, adds d_b's row sums, runs g_h (written to device
+//    memory for the next layer) and dW in one sweep over the staged tile,
+//    and adds its dW into the block's partial (a block-private slot that
+//    stays in L2: up to 48 KB of dW, beside the staged tile and the layer's
+//    weights in shared memory). No g_z scratch. Then one grid.sync, and the
+//    ordered sums of dW and d_b, which overlap the next layer's pass A. Two
+//    grid barriers per backward layer, plus the forward's one per layer
+//    (two where the variance is centered). After each barrier every block
+//    sums every block's partials, spread over all its threads with 16-byte
+//    loads; at 132 blocks that read, nb x Q x R floats a block, and the
+//    barrier itself take 4-15 us (tools/trace_sqnxt.py), the largest cost
+//    left beside the products.
+// 5. Registers and occupancy: the backward kernels run at
+//    __launch_bounds__(256, 1): about 210 registers, no spill, one block of
+//    8 warps per SM (at (256, 2) the 128-register cap spilled 100-760 B).
+//    Dynamic shared memory is sized per launch, and the same size is given
+//    to the occupancy query that sets the grid. The layer table, and the
+//    pointers into shared memory, live in shared memory, so no loop indexes
+//    a by-value struct and no register holds them across the passes; the
+//    products are out of line (their template instances inlined twice
+//    would double the build).
+// 6. Anchors, g buffers and partial slots are written inside the launch:
 //    read with __ldcg (L2), never __ldg.
-// 6. Deterministic: no atomics; statistics, d_b and dW are summed in fixed
+// 7. Deterministic: no atomics; statistics, d_b and dW are summed in fixed
 //    orders (warp shuffle trees, group order, block order), only over the
 //    blocks that had a tile, each float4 of dW entries by one warp.
 #pragma once
@@ -95,8 +102,9 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <mutex>
 
-namespace sqnxt_bwd {
+namespace sqnxt {
 
 namespace cg = cooperative_groups;
 
@@ -123,11 +131,12 @@ struct Layer {
   int dw_groups;    // dW's thread groups over a tile's columns (G)
   int ld_b;         // row stride of the backward pass's staged tile
   int stat;         // offset of its rows in the statistics arrays
+  int keep;         // forward kernels: z's tiles stay in the block's store
   const float* w;   // (taps, cout, cin)
   const float* b;   // (cout,)
   const float* gam;
   const float* bet;
-  float* z;         // the recompute's anchor (cout, N)
+  float* z;         // the anchor (cout, N); null where keep holds all of z
   float* dw;        // outputs, shaped as w, b, gam, bet
   float* db;
   float* dgam;
@@ -135,7 +144,8 @@ struct Layer {
 };
 
 // The launch's plan: the layer table and the shared-memory layout (in
-// floats), computed on the host (plan()) and copied into shared memory.
+// floats), computed on the host (plan() for the backward kernels,
+// plan_fwd() for the forward ones) and copied into shared memory.
 struct Chain {
   Layer L[kMaxLayers];
   int nl, N, H, W;
@@ -151,6 +161,8 @@ struct Chain {
   int off_x;       // g_h's reduction groups meet here
   int off_tile;    // the staged tile, then dW's group sums
   int tile_floats;
+  int off_zs;      // the forward's store of this block's z tiles
+  int zs_floats;
   int smem_floats;
   int dw_stride;   // floats of one block's dW slot
   size_t gstride;  // floats of one g buffer
@@ -172,11 +184,9 @@ inline int split_for(int N, int rt) {
   return ks;
 }
 
-// Fill the derived fields of c.L[0..nl) and the layout. 0, or 1 where the
-// chain exceeds what the kernel takes (the caller refuses it).
-inline int plan(Chain& c) {
-  int w_need = 0, tile_need = 0, dw_stride = 0, stat = 0, x_need = 0;
-  size_t gmax = 0;
+// The per-layer fields of c.L[0..nl) that both plans use.
+inline void derive(Chain& c) {
+  int stat = 0;
   for (int l = 0; l < c.nl; ++l) {
     Layer& p = c.L[l];
     p.rt_o = row_tile(p.cout);
@@ -189,8 +199,6 @@ inline int plan(Chain& c) {
     p.ks_b = split_for(c.N, rmin);
     p.tn_f = kTileOut / (p.rt_o * p.ks_f);
     p.tn_b = kTileOut / (rmin * p.ks_b);
-    const int xn = (p.ks_b - 1) * (kTileOut / p.ks_b);
-    x_need = x_need > xn ? x_need : xn;
     p.halo = p.axis == 0 ? 0 : (p.axis == 1 ? 1 : c.W);
     p.step = p.axis == 2 ? c.W : 1;
     const int K = p.taps * p.cin;
@@ -206,25 +214,18 @@ inline int plan(Chain& c) {
     else
       p.ld_b += ((p.dw_groups - p.ld_b) % 32 + 32) % 32;
     p.stat = stat;
+    p.keep = 0;
     stat += round4(p.cout);
-    if (p.dw_sub > kMaxSub) return 1;
-    const int wf = p.taps * p.cin * p.rt_o, wb = p.taps * p.cout * p.rt_i;
-    w_need = w_need > wf ? w_need : wf;
-    w_need = w_need > wb ? w_need : wb;
-    const int t_f = p.cin * (p.tn_f + 2 * p.halo);
-    const int t_b = (p.cin + p.cout) * p.ld_b;
-    // kTileOut: the z tile with the groups' exchange, or dW's group sums
-    int t = t_f > kTileOut ? t_f : kTileOut;
-    t = t > t_b ? t : t_b;
-    tile_need = tile_need > t ? tile_need : t;
-    const int e = round4(K * p.cout);
-    dw_stride = dw_stride > e ? dw_stride : e;
-    if (l > 0 && (size_t)p.cin * c.N > gmax) gmax = (size_t)p.cin * c.N;
   }
+  c.stat_floats = stat;
+}
+
+// The layout from the statistics to the staged tile (x_need floats for
+// g_h's groups, tile_need for the tile); returns the next free offset.
+inline int layout(Chain& c, int w_need, int x_need, int tile_need) {
   int off = round4((int)((sizeof(Chain) + 3) / 4));
   c.off_stats = off;
-  c.stat_floats = stat;
-  off += 6 * stat;
+  off += 6 * c.stat_floats;
   c.off_acc = off;
   off += kMaxQ * kMaxC;
   c.off_red = off;
@@ -239,19 +240,104 @@ inline int plan(Chain& c) {
   off += round4(x_need);
   c.off_tile = off;
   c.tile_floats = round4(tile_need);
-  off += c.tile_floats;
+  return off + c.tile_floats;
+}
+
+// The backward kernels' plan: the derived fields and the layout. 0, or 1
+// where the chain exceeds what the kernel takes (the caller refuses it).
+inline int plan(Chain& c) {
+  derive(c);
+  int w_need = 0, tile_need = 0, dw_stride = 0, x_need = 0;
+  size_t gmax = 0;
+  for (int l = 0; l < c.nl; ++l) {
+    const Layer& p = c.L[l];
+    if (p.dw_sub > kMaxSub) return 1;
+    const int xn = (p.ks_b - 1) * (kTileOut / p.ks_b);
+    x_need = x_need > xn ? x_need : xn;
+    const int wf = p.taps * p.cin * p.rt_o, wb = p.taps * p.cout * p.rt_i;
+    w_need = w_need > wf ? w_need : wf;
+    w_need = w_need > wb ? w_need : wb;
+    const int t_f = p.cin * (p.tn_f + 2 * p.halo);
+    const int t_b = (p.cin + p.cout) * p.ld_b;
+    // kTileOut: the z tile with the groups' exchange, or dW's group sums
+    int t = t_f > kTileOut ? t_f : kTileOut;
+    t = t > t_b ? t : t_b;
+    tile_need = tile_need > t ? tile_need : t;
+    const int e = round4(p.taps * p.cin * p.cout);
+    dw_stride = dw_stride > e ? dw_stride : e;
+    if (l > 0 && (size_t)p.cin * c.N > gmax) gmax = (size_t)p.cin * c.N;
+  }
+  const int off = layout(c, w_need, x_need, tile_need);
+  c.off_zs = off;
+  c.zs_floats = 0;
   c.smem_floats = off;
   c.dw_stride = dw_stride;
   c.gstride = gmax;
   return 0;
 }
 
-// Floats of the launch's one scratch allocation, for a grid of `grid`
-// blocks: two partial-slot buffers (grid x kMaxQ x kMaxC each), the dW
-// slots (grid x dw_stride) and, for a chain, two g buffers.
+// Floats of the backward kernels' one scratch allocation, for a grid of
+// `grid` blocks: two partial-slot buffers (grid x kMaxQ x kMaxC each), the
+// dW slots (grid x dw_stride) and, for a chain, two g buffers.
 inline size_t scratch_floats(const Chain& c, int grid) {
   return (size_t)2 * grid * kMaxQ * kMaxC + (size_t)grid * c.dw_stride +
          2 * c.gstride;
+}
+
+// The forward kernels' store of z tiles may take up to 128 KB of a block's
+// shared memory, beside the staged tile and the weights within the 227 KB
+// a block may have; past it a layer keeps its anchor in device memory.
+constexpr int kStoreFloats = 32768;
+
+// Floats of the store at a grid of `grid` blocks: the most that one block's
+// tiles of z take (ceil(tiles / grid) tiles of cout x tn_f) over the layers
+// whose z the forward reads again: the last (the normalize-out pass) and
+// each one with a centered variance (its second pass).
+inline int store_floats(const Chain& c, int grid) {
+  int need = 0;
+  for (int l = 0; l < c.nl; ++l) {
+    const Layer& p = c.L[l];
+    if (l + 1 < c.nl && p.single_pass) continue;
+    const int tiles = (c.N + p.tn_f - 1) / p.tn_f;
+    const int mine = (tiles + grid - 1) / grid * p.cout * p.tn_f;
+    need = need > mine ? need : mine;
+  }
+  return round4(need);
+}
+
+// The forward kernels' plan at a grid of `grid` blocks: the derived fields
+// and the layout (the staged tile with its halo, the layer's weights, the
+// statistics, no g buffers or dW slots), with the store where it fits
+// kStoreFloats at this grid (L[l].keep set for the layers it serves).
+inline void plan_fwd(Chain& c, int grid) {
+  derive(c);
+  int w_need = 0, tile_need = kTileOut;  // the z tile with the groups' exchange
+  for (int l = 0; l < c.nl; ++l) {
+    const Layer& p = c.L[l];
+    const int wf = p.taps * p.cin * p.rt_o, t_f = p.cin * (p.tn_f + 2 * p.halo);
+    w_need = w_need > wf ? w_need : wf;
+    tile_need = tile_need > t_f ? tile_need : t_f;
+  }
+  const int store = store_floats(c, grid), keep = store <= kStoreFloats;
+  for (int l = 0; l < c.nl; ++l)
+    c.L[l].keep = keep && (l + 1 == c.nl || !c.L[l].single_pass);
+  const int off = layout(c, w_need, 0, tile_need);
+  c.off_zs = off;
+  c.zs_floats = keep ? store : 0;
+  c.smem_floats = off + c.zs_floats;
+  c.dw_stride = 0;
+  c.gstride = 0;
+}
+
+// Floats of the forward kernels' one scratch allocation: two partial-slot
+// buffers (grid x kMaxQ x kMaxC each), then the anchors that go to device
+// memory: every layer's but the last's, and the last's where the store
+// does not keep it.
+inline size_t fwd_scratch_floats(const Chain& c, int grid) {
+  size_t n = (size_t)2 * grid * kMaxQ * kMaxC;
+  for (int l = 0; l < c.nl; ++l)
+    if (l + 1 < c.nl || !c.L[l].keep) n += (size_t)c.L[l].cout * c.N;
+  return n;
 }
 
 // -- shared memory, copies, reductions -----------------------------------------
@@ -270,6 +356,7 @@ struct Smem {
   float* w;
   float* x;
   float* tile;
+  float* zs;    // the forward's store: tile k of this block at k cout tn_f
 };
 
 __device__ __forceinline__ Smem smem_view(float* base) {
@@ -288,6 +375,7 @@ __device__ __forceinline__ Smem smem_view(float* base) {
   s.w = base + c->off_w;
   s.x = base + c->off_x;
   s.tile = base + c->off_tile;
+  s.zs = base + c->off_zs;
   return s;
 }
 
@@ -785,57 +873,62 @@ __device__ __forceinline__ void dw_product(const Layer& p, const float* gz,
 
 // -- the passes ----------------------------------------------------------------
 //
-// Phase marks, compiled in only with -DSQNXT_BWD_TRACE (the build of
-// tools/trace_sqnxt_bwd.py): thread 0 of block 0 stores clock64() at each
+// Phase marks, compiled in only with -DSQNXT_TRACE (the build of
+// tools/trace_sqnxt.py): thread 0 of block 0 stores clock64() at each
 // phase boundary of the launch into marks[] (forward layer l at 4 l ..
-// 4 l + 3, backward layer l at kMarkBwd + 6 l .. + 5; inside block 0's
+// 4 l + 3, then the forward kernels' normalize-out pass ending at
+// kMarkBwd, or backward layer l at kMarkBwd + 6 l .. + 5; inside block 0's
 // first tile of forward layer l at kMarkSub + 3 l .. + 2 and of backward
 // layer l at kMarkSub + 15 + 3 l .. + 2; the launch's start and end last),
-// and the globaltimer at start and end into ns[].
+// and the globaltimer at start and end into ns[]. Each source that
+// includes this header has its own marks (static), read by its own entry
+// point.
 constexpr int kMarkBwd = 4 * kMaxLayers;
 constexpr int kMarkSub = kMarkBwd + 6 * kMaxLayers;  // inside a first tile
 constexpr int kMarks = kMarkSub + 6 * kMaxLayers + 2;
-#ifdef SQNXT_BWD_TRACE
-__device__ long long marks[kMarks];
-__device__ unsigned long long ns[2];
-#define SQNXT_BWD_MARK(k)                                   \
-  do {                                                      \
-    if (blockIdx.x == 0 && threadIdx.x == 0)                        \
-      ::sqnxt_bwd::marks[k] = clock64();                            \
+#ifdef SQNXT_TRACE
+static __device__ long long marks[kMarks];
+static __device__ unsigned long long ns[2];
+#define SQNXT_MARK(k)                            \
+  do {                                           \
+    if (blockIdx.x == 0 && threadIdx.x == 0)     \
+      ::sqnxt::marks[k] = clock64();             \
   } while (0)
-#define SQNXT_BWD_NS(k)                                                   \
-  do {                                                                    \
-    if (blockIdx.x == 0 && threadIdx.x == 0) {                            \
-      unsigned long long t;                                               \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));               \
-      ::sqnxt_bwd::ns[k] = t;                                             \
-    }                                                                     \
+#define SQNXT_NS(k)                                         \
+  do {                                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {              \
+      unsigned long long t;                                 \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); \
+      ::sqnxt::ns[k] = t;                                   \
+    }                                                       \
   } while (0)
 #else
-#define SQNXT_BWD_MARK(k) \
-  do {                    \
+#define SQNXT_MARK(k) \
+  do {                \
   } while (0)
-#define SQNXT_BWD_NS(k) \
-  do {                  \
+#define SQNXT_NS(k) \
+  do {              \
   } while (0)
 #endif
 
-// One forward tile of layer p: the product, then z = acc + b into the
-// anchor (device memory) and into zt (CT columns a row, in shared memory,
-// over the staged input, for the row sums; the groups meet after it).
+// One forward tile of layer p: the product, then z = acc + b into zt (CT
+// columns a row, in shared memory: over the staged input xs, or the
+// block's store, for the row sums) and, where the layer has one, into the
+// anchor in device memory. The groups meet over xs.
 template <int RT, int TAPS, int KS>
 __device__ __forceinline__ void fwd_tile(const Chain& c, const Layer& p,
                                          const float* wf, const float* h,
                                          int ld, const unsigned char* msk,
-                                         int n0, float* zt) {
+                                         int n0, float* zt, float* xs) {
   using S = Shape<RT, KS>;
   float acc[4][4];
   fwd_product<RT, TAPS, KS>(p, wf, h, ld, msk, acc);
   __syncthreads();  // every read of the staged input is done
-  join_groups<KS, S::TG>(acc, zt + RT * S::CT);
+  join_groups<KS, S::TG>(acc, xs + RT * S::CT);
   const int grp = threadIdx.x / S::TG, lt = threadIdx.x % S::TG;
   if (grp > 0) return;
   const int ty = lt / S::TX, tx = lt % S::TX, N = c.N;
+  float* z_out = p.z;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
@@ -846,75 +939,99 @@ __device__ __forceinline__ void fwd_tile(const Chain& c, const Layer& p,
       const int j = tx + S::TX * q, n = n0 + j;
       const float z = acc[i][q] + b;
       zt[r * S::CT + j] = z;
-      if (n < N) p.z[(size_t)r * N + n] = z;
+      if (z_out && n < N) z_out[(size_t)r * N + n] = z;
     }
   }
 }
 
-#define SQNXT_BWD_RT_SWITCH(rt, CALL)       \
-  switch (rt) {                             \
-    case 8: { constexpr int RT = 8; CALL; } break;     \
-    case 16: { constexpr int RT = 16; CALL; } break;   \
-    case 32: { constexpr int RT = 32; CALL; } break;   \
-    case 64: { constexpr int RT = 64; CALL; } break;   \
-    default: { constexpr int RT = 128; CALL; } break;  \
+#define SQNXT_RT_SWITCH(rt, CALL)                     \
+  switch (rt) {                                       \
+    case 8: { constexpr int RT = 8; CALL; } break;    \
+    case 16: { constexpr int RT = 16; CALL; } break;  \
+    case 32: { constexpr int RT = 32; CALL; } break;  \
+    case 64: { constexpr int RT = 64; CALL; } break;  \
+    default: { constexpr int RT = 128; CALL; } break; \
   }
 
-#define SQNXT_BWD_KS_SWITCH(ks, CALL)                 \
-  switch (ks) {                                       \
-    case 1: { constexpr int KS = 1; CALL; } break;    \
-    case 2: { constexpr int KS = 2; CALL; } break;    \
-    default: { constexpr int KS = 4; CALL; } break;   \
+#define SQNXT_KS_SWITCH(ks, CALL)                   \
+  switch (ks) {                                     \
+    case 1: { constexpr int KS = 1; CALL; } break;  \
+    case 2: { constexpr int KS = 2; CALL; } break;  \
+    default: { constexpr int KS = 4; CALL; } break; \
   }
 
-__device__ __noinline__ void fwd_tile_any(const Chain& c, const Layer& p,
-                                          const float* wf, const float* h,
-                                          int ld, const unsigned char* msk,
-                                          int n0, float* zt) {
+static __device__ __noinline__ void fwd_tile_any(const Chain& c, const Layer& p,
+                                                 const float* wf, const float* h,
+                                                 int ld, const unsigned char* msk,
+                                                 int n0, float* zt, float* xs) {
   if (p.taps == 1) {
-    SQNXT_BWD_RT_SWITCH(p.rt_o, SQNXT_BWD_KS_SWITCH(p.ks_f, (fwd_tile<RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   } else {
-    SQNXT_BWD_RT_SWITCH(p.rt_o, SQNXT_BWD_KS_SWITCH(p.ks_f, (fwd_tile<RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   }
 }
 
-__device__ __noinline__ void gh_any(const Chain& c, const Layer& p,
-                                    const float* wb, const float* gz, int ld,
-                                    const unsigned char* msk, int n0, int tn,
-                                    float* gout, float* xb) {
-  if (p.taps == 1) {
-    SQNXT_BWD_RT_SWITCH(p.rt_i, SQNXT_BWD_KS_SWITCH(p.ks_b, (gh_product<RT, 1, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
+// The forward tile at the layer's row tile, taps and reduction groups:
+// inlined into the caller (kInline: the forward kernels, whose
+// 128-register cap would otherwise save live values around the call), or
+// the out-of-line fwd_tile_any (the backward kernels: their products
+// inlined as well would double their build).
+template <bool kInline>
+__device__ __forceinline__ void fwd_tile_at(const Chain& c, const Layer& p,
+                                            const float* wf, const float* h,
+                                            int ld, const unsigned char* msk,
+                                            int n0, float* zt, float* xs) {
+  if constexpr (!kInline) {
+    fwd_tile_any(c, p, wf, h, ld, msk, n0, zt, xs);
+  } else if (p.taps == 1) {
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   } else {
-    SQNXT_BWD_RT_SWITCH(p.rt_i, SQNXT_BWD_KS_SWITCH(p.ks_b, (gh_product<RT, 3, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   }
 }
 
-__device__ __noinline__ void dw_any(const Layer& p, const float* gz,
-                                    const float* h, int ld,
-                                    const unsigned char* msk, int tn,
-                                    float* red, float* slot, bool first) {
+static __device__ __noinline__ void gh_any(const Chain& c, const Layer& p,
+                                           const float* wb, const float* gz, int ld,
+                                           const unsigned char* msk, int n0, int tn,
+                                           float* gout, float* xb) {
   if (p.taps == 1) {
-    SQNXT_BWD_RT_SWITCH(p.rt_o, (dw_product<RT, 1>(p, gz, h, ld, msk, tn, red, slot, first)))
+    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<RT, 1, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
   } else {
-    SQNXT_BWD_RT_SWITCH(p.rt_o, (dw_product<RT, 3>(p, gz, h, ld, msk, tn, red, slot, first)))
+    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<RT, 3, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
   }
 }
 
-#undef SQNXT_BWD_RT_SWITCH
-#undef SQNXT_BWD_KS_SWITCH
+static __device__ __noinline__ void dw_any(const Layer& p, const float* gz,
+                                           const float* h, int ld,
+                                           const unsigned char* msk, int tn,
+                                           float* red, float* slot, bool first) {
+  if (p.taps == 1) {
+    SQNXT_RT_SWITCH(p.rt_o, (dw_product<RT, 1>(p, gz, h, ld, msk, tn, red, slot, first)))
+  } else {
+    SQNXT_RT_SWITCH(p.rt_o, (dw_product<RT, 3>(p, gz, h, ld, msk, tn, red, slot, first)))
+  }
+}
+
+#undef SQNXT_RT_SWITCH
+#undef SQNXT_KS_SWITCH
 
 __device__ __forceinline__ float* slot_of(float* part, size_t slot_size,
                                           int& slot) {
   return part + (size_t)(slot++ & 1) * slot_size;
 }
 
-// The forward chain again: every layer's anchor z_l in device memory and
-// its statistics (mean, sqrt(var + eps)) in this block's shared memory,
-// identical in every block.
-__device__ __forceinline__ void forward_recompute(const Smem& s,
-                                                  const float* x, float* part,
-                                                  size_t slot_size, int& slot,
-                                                  cg::grid_group& grid) {
+// The forward chain: every layer's statistics (mean, 1 / sqrt(var + eps),
+// and the norm as sc, sh) in this block's shared memory, identical in
+// every block; each layer's z in its anchor (device memory) where it has
+// one and, for a layer with keep, this block's tiles of it in the store
+// (tile k of the block at zs + k cout tn_f). kBackward (K7, K9): the
+// backward's first weights are copied in after the last layer, and the
+// tiles' products are called out of line (fwd_tile_at).
+template <bool kBackward>
+__device__ __forceinline__ void forward_layers(const Smem& s, const float* x,
+                                               float* part, size_t slot_size,
+                                               int& slot,
+                                               cg::grid_group& grid) {
   const Chain& c = *s.c;
   const int N = c.N, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   stage_w_fwd(c.L[0], s.w);
@@ -923,23 +1040,25 @@ __device__ __forceinline__ void forward_recompute(const Smem& s,
     const Layer& p = c.L[l];
     const int tn = p.tn_f, ld = tn + 2 * p.halo;
     const int ntiles = (N + tn - 1) / tn;
-    SQNXT_BWD_MARK(4 * l);
+    SQNXT_MARK(4 * l);
     cp_async_wait_all();  // this layer's weights, issued before the barrier
     zero_acc(s);
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    for (int tile = blockIdx.x, k = 0; tile < ntiles;
+         tile += gridDim.x, ++k) {
       const int n0 = tile * tn, cols = min(tn, N - n0);
-      const bool first = tile == (int)blockIdx.x;
+      const bool first = k == 0;
+      float* zt = p.keep ? s.zs + k * p.cout * tn : s.tile;
       stage_input(s, l, x, n0, p.halo, ld, ld, s.tile);
       stage_masks(c, p, n0, tn, s.msk);
       __syncthreads();
-      if (first) SQNXT_BWD_MARK(kMarkSub + 3 * l);
-      fwd_tile_any(c, p, s.w, s.tile, ld, s.msk, n0, s.tile);
+      if (first) SQNXT_MARK(kMarkSub + 3 * l);
+      fwd_tile_at<!kBackward>(c, p, s.w, s.tile, ld, s.msk, n0, zt, s.tile);
       __syncthreads();
-      if (first) SQNXT_BWD_MARK(kMarkSub + 3 * l + 1);
+      if (first) SQNXT_MARK(kMarkSub + 3 * l + 1);
       for (int r = warp; r < p.cout; r += kWarps) {
         float s1 = 0.0f, s2 = 0.0f;
         for (int j = lane; j < cols; j += 32) {
-          const float z = s.tile[r * tn + j];
+          const float z = zt[r * tn + j];
           s1 += z;
           s2 += z * z;
         }
@@ -951,14 +1070,14 @@ __device__ __forceinline__ void forward_recompute(const Smem& s,
         }
       }
       __syncthreads();
-      if (first) SQNXT_BWD_MARK(kMarkSub + 3 * l + 2);
+      if (first) SQNXT_MARK(kMarkSub + 3 * l + 2);
     }
-    SQNXT_BWD_MARK(4 * l + 1);
-    // the next weights (the backward's first after the last layer) land
-    // while the grid meets
+    SQNXT_MARK(4 * l + 1);
+    // the next weights (K7's and K9's: the backward's first after the last
+    // layer) land while the grid meets
     if (l + 1 < c.nl)
       stage_w_fwd(c.L[l + 1], s.w);
-    else
+    else if (kBackward)
       stage_w_bwd(p, s.w);
     float* sl = slot_of(part, slot_size, slot);
     if (blockIdx.x < ntiles) write_slot(s, 2, p.cout, sl);
@@ -973,19 +1092,24 @@ __device__ __forceinline__ void forward_recompute(const Smem& s,
             fmaxf(s.red[kMaxC + r] * c.inv_n - m * m, 0.0f) + kEps);
     }
     __syncthreads();
-    SQNXT_BWD_MARK(4 * l + 2);
+    SQNXT_MARK(4 * l + 2);
     if (!p.single_pass) {  // centered variance: a second pass over z_l
       zero_acc(s);
-      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      for (int tile = blockIdx.x, k = 0; tile < ntiles;
+           tile += gridDim.x, ++k) {
         const int n0 = tile * tn, cols = min(tn, N - n0);
-        copy_rows(s.tile, tn, p.z, p.cout, n0, cols, N);
-        cp_async_wait_all();
-        __syncthreads();
+        const float* zt = s.zs + k * p.cout * tn;
+        if (!p.keep) {
+          copy_rows(s.tile, tn, p.z, p.cout, n0, cols, N);
+          cp_async_wait_all();
+          __syncthreads();
+          zt = s.tile;
+        }
         for (int r = warp; r < p.cout; r += kWarps) {
           const float m = s.mean[p.stat + r];
           float v = 0.0f;
           for (int j = lane; j < cols; j += 32) {
-            const float d = s.tile[r * tn + j] - m;
+            const float d = zt[r * tn + j] - m;
             v += d * d;
           }
           v = warp_sum(v);
@@ -1008,7 +1132,47 @@ __device__ __forceinline__ void forward_recompute(const Smem& s,
       s.sh[k] = s.bet[k] - s.mean[k] * s.sc[k];
     }
     __syncthreads();
-    SQNXT_BWD_MARK(4 * l + 3);
+    SQNXT_MARK(4 * l + 3);
+  }
+}
+
+// The forward kernels' output: out = ReLU(z sc + sh) of the last layer
+// over this block's tiles of it (the form of the staging and of the
+// backward's ReLU gates), z read from the store where the layer keeps it,
+// else from its anchor; 16-byte loads and stores where N is a multiple of
+// 4 (every tile's first column is).
+__device__ __forceinline__ void normalize_out(const Smem& s, float* out) {
+  const Chain& c = *s.c;
+  const Layer& p = c.L[c.nl - 1];
+  const int N = c.N, R = p.cout, tn = p.tn_f, st = p.stat;
+  const int ntiles = (N + tn - 1) / tn;
+  const int lg = __ffs(tn) - 1;  // tn is a power of two
+  const bool keep = p.keep;
+  const float* z = p.z;
+  for (int tile = blockIdx.x, k = 0; tile < ntiles; tile += gridDim.x, ++k) {
+    const int n0 = tile * tn, cols = min(tn, N - n0);
+    const float* zt = s.zs + k * R * tn;
+    if ((N & 3) == 0) {
+      for (int e = 4 * threadIdx.x; e < R * tn; e += 4 * kThreads) {
+        const int r = e >> lg, j = e & (tn - 1);
+        if (j >= cols) continue;
+        const size_t o = (size_t)r * N + n0 + j;
+        const float4 v = keep ? *reinterpret_cast<const float4*>(zt + e)
+                              : __ldcg(reinterpret_cast<const float4*>(z + o));
+        const float sc = s.sc[st + r], sh = s.sh[st + r];
+        *reinterpret_cast<float4*>(out + o) = make_float4(
+            fmaxf(fmaf(v.x, sc, sh), 0.0f), fmaxf(fmaf(v.y, sc, sh), 0.0f),
+            fmaxf(fmaf(v.z, sc, sh), 0.0f), fmaxf(fmaf(v.w, sc, sh), 0.0f));
+      }
+    } else {
+      for (int e = threadIdx.x; e < R * tn; e += kThreads) {
+        const int r = e >> lg, j = e & (tn - 1);
+        if (j >= cols) continue;
+        const size_t o = (size_t)r * N + n0 + j;
+        const float v = keep ? zt[e] : __ldcg(z + o);
+        out[o] = fmaxf(fmaf(v, s.sc[st + r], s.sh[st + r]), 0.0f);
+      }
+    }
   }
 }
 
@@ -1090,7 +1254,7 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
   const int N = c.N, R = p.cout, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tn = p.tn_b, ld = p.ld_b, width = tn + 2 * p.halo;
   const int ntiles = (N + tn - 1) / tn, nb = min((int)gridDim.x, ntiles);
-  SQNXT_BWD_MARK(kMarkBwd + 6 * l);
+  SQNXT_MARK(kMarkBwd + 6 * l);
   zero_acc(s);  // this layer's weights were issued before the last barrier
 
   // pass A: the four row sums of the norm's backward, over z and g staged
@@ -1134,12 +1298,12 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
     }
   }
   __syncthreads();
-  SQNXT_BWD_MARK(kMarkBwd + 6 * l + 1);
+  SQNXT_MARK(kMarkBwd + 6 * l + 1);
   float* sl = slot_of(part, slot_size, slot);
   if (blockIdx.x < ntiles) write_slot(s, 4, R, sl);
   grid.sync();
   sum_slots(s, sl, nb, 4, R);
-  SQNXT_BWD_MARK(kMarkBwd + 6 * l + 2);
+  SQNXT_MARK(kMarkBwd + 6 * l + 2);
   if (blockIdx.x == 0)
     for (int r = threadIdx.x; r < R; r += kThreads) {
       p.dgam[r] = s.red[r];
@@ -1160,19 +1324,19 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
     stage_masks(c, p, n0, tn, s.msk);
     __syncthreads();
     const bool first = tile == (int)blockIdx.x;
-    if (first) SQNXT_BWD_MARK(kMarkSub + 15 + 3 * l);
+    if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l);
     gh_any(c, p, s.w, gz, ld, s.msk, n0, tn, gout, s.x);
-    if (first) SQNXT_BWD_MARK(kMarkSub + 15 + 3 * l + 1);
+    if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 1);
     dw_any(p, gz, h, ld, s.msk, tn, s.tile, mine, first);
     __syncthreads();
-    if (first) SQNXT_BWD_MARK(kMarkSub + 15 + 3 * l + 2);
+    if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 2);
   }
-  SQNXT_BWD_MARK(kMarkBwd + 6 * l + 3);
+  SQNXT_MARK(kMarkBwd + 6 * l + 3);
   if (l > 0) stage_w_bwd(c.L[l - 1], s.w);  // lands while the grid meets
   float* sl2 = slot_of(part, slot_size, slot);
   if (blockIdx.x < ntiles) write_slot(s, 1, R, sl2);
   grid.sync();
-  SQNXT_BWD_MARK(kMarkBwd + 6 * l + 4);
+  SQNXT_MARK(kMarkBwd + 6 * l + 4);
 
   // d_b by the last block; dW by every block: each float4 of entries summed by
   // one warp, lane k over blocks b = k, k + 32, ... (in order), then a
@@ -1205,7 +1369,99 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
         if (4 * col + i < E) p.dw[4 * col + i] = vv[i];
     }
   }
-  SQNXT_BWD_MARK(kMarkBwd + 6 * l + 5);
+  SQNXT_MARK(kMarkBwd + 6 * l + 5);
 }
 
-}  // namespace sqnxt_bwd
+// -- host side: the launch's layer table and occupancy ------------------------
+
+constexpr int kIntsPerLayer = 5;  // cin, cout, taps, axis, single_pass
+
+// The layer table from ints (per layer cin, cout, taps, axis (0 1x1, 1 j,
+// 2 i), single_pass) with N, H, W: 0, or cudaErrorInvalidValue for a chain
+// the kernels do not take. The plans fill in the rest.
+inline int shape(Chain* c, int nl, const int* ints, int N, int H, int W) {
+  if (nl < 1 || nl > kMaxLayers || !ints || N < 1 || H < 1 || W < 1 ||
+      N % (H * W) != 0)
+    return (int)cudaErrorInvalidValue;
+  *c = Chain{};
+  c->nl = nl;
+  c->N = N;
+  c->H = H;
+  c->W = W;
+  c->inv_n = (float)(1.0 / (double)N);
+  for (int l = 0; l < nl; ++l) {
+    Layer& p = c->L[l];
+    const int* q = ints + l * kIntsPerLayer;
+    p.cin = q[0];
+    p.cout = q[1];
+    p.taps = q[2];
+    p.axis = q[3];
+    p.single_pass = q[4];
+    if (p.cin < 1 || p.cin > kMaxC || p.cout < 1 || p.cout > kMaxC)
+      return (int)cudaErrorInvalidValue;
+    if (!((p.taps == 1 && p.axis == 0) ||
+          (p.taps == 3 && (p.axis == 1 || p.axis == 2))))
+      return (int)cudaErrorInvalidValue;
+    if (l > 0 && p.cin != c->L[l - 1].cout) return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+// Blocks per SM of a cooperative kernel at `smem` bytes of dynamic shared
+// memory on the current device, and the device's SMs, raising the
+// kernel's opt-in attribute where needed; cudaErrorInvalidValue where smem
+// exceeds the device's opt-in limit. Cached per (kernel, device, size):
+// the wrappers ask before every launch.
+template <typename Kernel>
+inline int occupancy(Kernel kernel, size_t smem, int* per_sm, int* sms) {
+  struct Entry {
+    const void* fn;
+    int dev;
+    size_t smem;
+    int per_sm, sms;
+  };
+  static Entry cache[64];
+  static int used = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  int dev = 0, rc;
+  if ((rc = (int)cudaGetDevice(&dev))) return rc;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == (const void*)kernel && cache[i].dev == dev &&
+        cache[i].smem == smem) {
+      *per_sm = cache[i].per_sm;
+      *sms = cache[i].sms;
+      return 0;
+    }
+  int coop = 0, optin = 0;
+  if ((rc = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                        dev)))
+    return rc;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if ((rc = (int)cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
+    return rc;
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  if ((rc = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                        dev)))
+    return rc;
+  // the attribute only grows: a smaller launch stays within it
+  int attr_max = 0;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == (const void*)kernel && cache[i].dev == dev &&
+        (int)cache[i].smem > attr_max)
+      attr_max = (int)cache[i].smem;
+  if ((int)smem > attr_max &&
+      (rc = (int)cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return rc;
+  if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           per_sm, kernel, kThreads, smem)))
+    return rc;
+  if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (used < 64) cache[used++] = Entry{(const void*)kernel, dev, smem, *per_sm,
+                                       *sms};
+  return 0;
+}
+
+}  // namespace sqnxt

@@ -72,10 +72,11 @@ _SIGNATURES = {
                                              _I, _P]),
     "pnode_adaptive_loop_smem": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
     "pnode_adaptive_loop_capacity": (_I, [ctypes.c_size_t, _PI]),
-    "pnode_sqnxt_capacity": (_I, [_I, _PI]),
-    "pnode_sqnxt_fwd": (_I, [_P, _P, _I, _PI, _PP, _I, _I, _I, _P, _I, _P]),
-    "pnode_sqnxt_fwd_layer": (_I, [_P, _P, _I, _PI, _PP, _I, _I, _I, _P, _I,
-                                   _P]),
+    "pnode_sqnxt_fwd_plan": (_I, [_I, _PI, _I, _I, _I, _PI, _PL]),
+    "pnode_sqnxt_fwd": (_I, [_P, _P, _I, _PI, _PP, _I, _I, _I, _P, _L, _I,
+                             _P]),
+    "pnode_sqnxt_fwd_layer": (_I, [_P, _P, _I, _PI, _PP, _I, _I, _I, _P, _L,
+                                   _I, _P]),
     "pnode_sqnxt_bwd_plan": (_I, [_I, _PI, _I, _I, _I, _PI, _PL]),
     "pnode_sqnxt_bwd": (_I, [_P, _P, _P, _I, _PI, _PP, _I, _I, _I, _P, _L, _I,
                              _P]),

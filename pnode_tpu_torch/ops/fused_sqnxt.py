@@ -2,9 +2,10 @@
 
 Replaces ``pnode_tpu/ops/fused_sqnxt.py``: ``_fwd_kernel`` (:192, K6),
 ``_bwd_kernel`` (:206, K7), ``_fwd_layer_kernel`` (:508, K8) and
-``_bwd_layer_kernel`` (:522, K9). The CUDA source is ``csrc/fused_sqnxt.cu``
-(tile functions in ``csrc/sqnxt_kernels.cuh``); its note says what bounds
-the kernels on the H100 and what the design does about that.
+``_bwd_layer_kernel`` (:522, K9). The CUDA sources are ``csrc/sqnxt_fwd.cu``
+(K6, K8) and ``csrc/fused_sqnxt.cu`` (K7, K9), both on the tile functions
+of ``csrc/sqnxt_tiles.cuh``, whose note says what bounds the kernels on the
+H100 and what the design does about that.
 
 One evaluation of ``ODEDynamics(dim)`` (``models/sqnxt.py``) is a chain of
 five layers, each conv -> +b -> batch-stats norm -> ReLU, on a (C, N) state
@@ -20,14 +21,18 @@ N is a tiling artifact the port drops: its meta has no ``n_pad``.
 - ``fused_sqnxt_fwd`` / ``fused_sqnxt_bwd`` / ``fused_sqnxt_layer_fwd`` /
   ``fused_sqnxt_layer_bwd`` launch their kernel for CUDA tensors (fp32 only;
   each counts its launches in ``.launches``) and run the plain PyTorch
-  version for CPU tensors (any float dtype).
+  version for CPU tensors (any float dtype). Each launch takes its grid and
+  the size of its one scratch allocation from the C side's plan
+  (``fwd_plan``, ``bwd_plan``: cached per shape and device), checked against
+  the Python mirrors ``fwd_scratch_floats`` and ``bwd_scratch_floats``.
 - The plain versions repeat the JAX kernels' dtype round-trips: products in
   the input dtype rounded to ``work`` (float32, the Pallas kernels'
   ``preferred_element_type``), statistics and the norm's backward in
   ``work``. In fp32 these are identities; ``work=torch.float64`` gives a true
   fp64 reference.
-- ``gate_meta``: the Hopper gate that replaces the TPU's VMEM estimates. The chain keeps its five anchors in one device workspace; it
-  runs when they fit ``CHAIN_WORKSPACE_BYTES`` (32 MB, inside the 50 MB L2),
+- ``gate_meta``: the Hopper gate that replaces the TPU's VMEM estimates. The
+  chain's backward (K7) keeps its five anchors in one device workspace; the
+  chain runs when they fit ``CHAIN_WORKSPACE_BYTES`` (32 MB, inside the 50 MB L2),
   else the layered mode. At B 128 of the full-width model: layered at stage
   1 (46 MB), chain at stages 2 (23 MB) and 3 (11.5 MB).
 """
@@ -43,10 +48,12 @@ from . import _build
 
 EPS = 1e-5
 SINGLE_PASS_MIN = 1 << 20       # BatchStatsNorm.single_pass_min_size
-MAX_CHANNELS = 128              # csrc/sqnxt_kernels.cuh, sqnxt_bwd.cuh kMaxC
-TILE_N = 64                     # csrc/sqnxt_kernels.cuh kTileN (K6, K8)
-TILE_OUT = 4096                 # csrc/sqnxt_bwd.cuh kTileOut (K7, K9)
-MAX_DW_TILES = 3                # csrc/sqnxt_bwd.cuh kMaxSub
+# csrc/sqnxt_tiles.cuh: kMaxC, kTileOut, kMinTiles, kMaxSub, kStoreFloats
+MAX_CHANNELS = 128              # channels of a layer
+TILE_OUT = 4096                 # outputs of one product tile
+MIN_TILES = 256                 # a pass's tiles, halved (split) below it
+MAX_DW_TILES = 3                # dW register tiles a thread may hold
+STORE_FLOATS = 32768            # K6/K8's store of z tiles in shared memory
 CHAIN_WORKSPACE_BYTES = 32 << 20
 # the products' rounding and the statistics' dtype of the plain versions: the
 # Pallas kernels' fp32 (a test of true fp64 sets it to float64)
@@ -303,22 +310,6 @@ def _check(what, x, flats, meta, lis, g=None):
     return cuda
 
 
-_capacity = {}
-
-
-def kernel_grid(which: int, N: int, device) -> int:
-    """Grid of kernel ``which`` (0 K6, 2 K8): min(co-resident blocks of the
-    cooperative launch, 64-column tiles of N). K7's and K9's: bwd_plan."""
-    key = (which, torch.device(device).index)
-    if key not in _capacity:
-        cap = _build.int_array([0])
-        with torch.cuda.device(device):
-            _build.check(_build.library().pnode_sqnxt_capacity(which, cap),
-                         "fused_sqnxt occupancy query (cooperative launch)")
-        _capacity[key] = cap[0]
-    return max(1, min(_capacity[key], -(-N // TILE_N)))
-
-
 def _row_tile(c: int) -> int:
     return next(t for t in (8, 16, 32, 64, 128) if c <= t)
 
@@ -331,20 +322,14 @@ def _layer_ints(meta, lis):
     return ints
 
 
-def bwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
-    """Floats of K7's (``lis`` = 0..4) or K9's (one layer) scratch for a
-    grid of ``grid`` blocks, as csrc/sqnxt_bwd.cuh's scratch_floats counts
-    them: two partial-slot buffers (grid x 4 x 128 each), one dW slot per
-    block (the largest taps * Cin * Cout rounded up to 4) and, for the
-    chain, two g buffers of the largest Cin * N past the first layer.
-    Raises ValueError for a chain the kernels do not take (more than 128
-    channels, layers that do not chain, a dW too large for three register
-    tiles per thread)."""
+def _chain_layers(meta: SqnxtMeta, lis: Sequence[int], grid: int):
+    """``lis`` as a list, after the refusals every SqueezeNext kernel makes:
+    1 or 5 layers, a grid >= 1, 1 to 128 channels, taps that match their
+    axis, layers that chain."""
     lis = list(lis)
     if len(lis) not in (1, 5) or grid < 1:
-        raise ValueError(f"the backward kernels take 1 or 5 layers and a "
+        raise ValueError(f"the SqueezeNext kernels take 1 or 5 layers and a "
                          f"grid >= 1, got {len(lis)} and {grid}")
-    dw, gmax = 0, 0
     for k, li in enumerate(lis):
         cin, cout = meta.cdims[li], meta.cdims[li + 1]
         taps = len(meta.taps[li])
@@ -355,6 +340,58 @@ def bwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
             raise ValueError(f"layer {li}: {taps} taps along {meta.axis[li]}")
         if k > 0 and li != lis[k - 1] + 1:
             raise ValueError(f"layers {lis} do not chain")
+    return lis
+
+
+def fwd_tile_columns(meta: SqnxtMeta, li: int) -> int:
+    """Columns of one forward tile of layer li (csrc/sqnxt_tiles.cuh's
+    tn_f): 4096 / RT, RT the layer's rows rounded up to 8-128, halved (its
+    reduction split over thread groups) at most twice while N would give
+    fewer than MIN_TILES tiles."""
+    rt, ks = _row_tile(meta.cdims[li + 1]), 1
+    while ks < 4 and -(-meta.n_real // (TILE_OUT // (rt * ks))) < MIN_TILES:
+        ks *= 2
+    return TILE_OUT // (rt * ks)
+
+
+def fwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
+    """Floats of K6's (``lis`` = 0..4) or K8's (one layer) scratch for a
+    grid of ``grid`` blocks, as csrc/sqnxt_tiles.cuh's fwd_scratch_floats
+    counts them: two partial-slot buffers (grid x 4 x 128 each), then the
+    anchors Cout x N that go to device memory. Every layer but the last
+    writes one (the next layer's halo comes from other blocks); the last
+    writes none where the kernel keeps the z it reads again in shared
+    memory: the store (the most one block's tiles of z take, over the last
+    layer and those with a centered variance) fits STORE_FLOATS at this
+    grid. Raises ValueError for a chain the kernels do not take."""
+    lis = _chain_layers(meta, lis, grid)
+    N, store = meta.n_real, 0
+    for k, li in enumerate(lis):
+        if k + 1 < len(lis) and meta.single_pass[li]:
+            continue
+        tn = fwd_tile_columns(meta, li)
+        tiles = -(-N // tn)
+        store = max(store, -(-tiles // grid) * meta.cdims[li + 1] * tn)
+    anchors = sum(meta.cdims[li + 1] for li in lis[:-1])
+    if store > STORE_FLOATS:
+        anchors += meta.cdims[lis[-1] + 1]
+    return grid * _PARTIAL_FLOATS + anchors * N
+
+
+def bwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
+    """Floats of K7's (``lis`` = 0..4) or K9's (one layer) scratch for a
+    grid of ``grid`` blocks, as csrc/sqnxt_tiles.cuh's scratch_floats
+    counts them: two partial-slot buffers (grid x 4 x 128 each), one dW
+    slot per block (the largest taps * Cin * Cout rounded up to 4) and, for
+    the chain, two g buffers of the largest Cin * N past the first layer.
+    Raises ValueError for a chain the kernels do not take (more than 128
+    channels, layers that do not chain, a dW too large for three register
+    tiles per thread)."""
+    lis = _chain_layers(meta, lis, grid)
+    dw, gmax = 0, 0
+    for k, li in enumerate(lis):
+        cin, cout = meta.cdims[li], meta.cdims[li + 1]
+        taps = len(meta.taps[li])
         if -(-taps * cin * _row_tile(cout) // TILE_OUT) > MAX_DW_TILES:
             raise ValueError(f"layer {li}: dW of {cout} x {taps * cin} takes "
                              f"more than {MAX_DW_TILES} register tiles")
@@ -364,28 +401,49 @@ def bwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
     return grid * _PARTIAL_FLOATS + grid * dw + 2 * gmax
 
 
+def _c_plan(entry, mirror, meta, lis, device):
+    """(grid, scratch floats, ctypes ints) of a launch at this shape from
+    the C side's ``entry`` (the co-resident blocks at the launch's shared
+    memory, at most its tile count), its scratch checked against
+    ``mirror``."""
+    mirror(meta, lis, 1)  # refuses what the kernels refuse
+    ints = _build.int_array(_layer_ints(meta, lis))
+    grid, floats = _build.int_array([0]), (ctypes.c_longlong * 1)(0)
+    with torch.cuda.device(device):
+        _build.check(getattr(_build.library(), entry)(
+            len(lis), ints, meta.n_real, meta.H, meta.W, grid, floats),
+            f"{entry} (cooperative launch)")
+    want = mirror(meta, lis, grid[0])
+    if floats[0] != want:
+        raise RuntimeError(f"{entry}: C counts {floats[0]} scratch floats, "
+                           f"{mirror.__name__} {want}")
+    return grid[0], floats[0], ints
+
+
+_fwd_plans = {}
 _bwd_plans = {}
 
 
+def fwd_plan(meta: SqnxtMeta, lis: Sequence[int], device):
+    """(grid, scratch floats, ctypes ints) of K6 or K8 at this shape, from
+    csrc/sqnxt_fwd.cu's pnode_sqnxt_fwd_plan; cached per (meta, layers,
+    device)."""
+    lis = list(lis)
+    key = (meta, tuple(lis), torch.device(device).index)
+    if key not in _fwd_plans:
+        _fwd_plans[key] = _c_plan("pnode_sqnxt_fwd_plan", fwd_scratch_floats,
+                                  meta, lis, device)
+    return _fwd_plans[key]
+
+
 def bwd_plan(meta: SqnxtMeta, lis: Sequence[int], device) -> Tuple[int, int]:
-    """(grid, scratch floats) of K7 or K9 at this shape, from the C side
-    (csrc/fused_sqnxt.cu pnode_sqnxt_bwd_plan: the co-resident blocks at
-    the launch's shared memory, at most its tile count); cached."""
+    """(grid, scratch floats) of K7 or K9 at this shape, from
+    csrc/fused_sqnxt.cu's pnode_sqnxt_bwd_plan; cached."""
     lis = list(lis)
     key = (meta, tuple(lis), torch.device(device).index)
     if key not in _bwd_plans:
-        bwd_scratch_floats(meta, lis, 1)  # refuses what the kernels refuse
-        grid, floats = _build.int_array([0]), (ctypes.c_longlong * 1)(0)
-        with torch.cuda.device(device):
-            _build.check(_build.library().pnode_sqnxt_bwd_plan(
-                len(lis), _build.int_array(_layer_ints(meta, lis)),
-                meta.n_real, meta.H, meta.W, grid, floats),
-                "fused_sqnxt backward plan (cooperative launch)")
-        want = bwd_scratch_floats(meta, lis, grid[0])
-        if floats[0] != want:
-            raise RuntimeError(f"backward scratch: C counts {floats[0]} "
-                               f"floats, bwd_scratch_floats {want}")
-        _bwd_plans[key] = (grid[0], floats[0])
+        _bwd_plans[key] = _c_plan("pnode_sqnxt_bwd_plan", bwd_scratch_floats,
+                                  meta, lis, device)[:2]
     return _bwd_plans[key]
 
 
@@ -402,18 +460,19 @@ def _layer_args(meta, lis, flats, zs, grads=None):
     return _build.int_array(_layer_ints(meta, lis)), _ptrs(ptrs)
 
 
-def _launch_fwd(which, entry, x, flats, meta, lis):
+def _launch_fwd(entry, x, flats, meta, lis):
+    """One launch of K6 or K8. Two allocations: out, and the workspace the
+    plan counts (the partial slots, then the anchors, carved by C)."""
     lib = _build.library()
     N, dev = meta.n_real, x.device
-    zs = [torch.empty(meta.cdims[li + 1], N, device=dev) for li in lis]
+    grid, floats, ints = fwd_plan(meta, lis, dev)
     out = torch.empty(meta.cdims[lis[-1] + 1], N, device=dev)
+    scratch = torch.empty(floats, device=dev)
+    ptrs = _ptrs([t.data_ptr() for lf in flats for t in lf])
     with torch.cuda.device(dev):
-        grid = kernel_grid(which, N, dev)
-        part = torch.empty(grid * _PARTIAL_FLOATS, device=dev)
-        ints, ptrs = _layer_args(meta, lis, flats, zs)
         rc = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), len(lis), ints,
-                                 ptrs, N, meta.H, meta.W, part.data_ptr(),
-                                 grid, _build.stream_of(x))
+                                 ptrs, N, meta.H, meta.W, scratch.data_ptr(),
+                                 floats, grid, _build.stream_of(x))
     _build.check(rc, f"{entry} kernel")
     return out
 
@@ -452,7 +511,7 @@ def fused_sqnxt_fwd(x, flat, meta):
     flats = [_layer(flat, li) for li in range(5)]
     if not _check("fused_sqnxt_fwd", x, flats, meta, range(5)):
         return fused_sqnxt_plain(x, flat, meta)
-    out = _launch_fwd(0, "pnode_sqnxt_fwd", x, flats, meta, list(range(5)))
+    out = _launch_fwd("pnode_sqnxt_fwd", x, flats, meta, list(range(5)))
     fused_sqnxt_fwd.launches += 1
     return out
 
@@ -472,7 +531,7 @@ def fused_sqnxt_layer_fwd(h, layer_flat, meta, li):
     """K8: layer li alone, (Cin, N) -> (Cout, N)."""
     if not _check("fused_sqnxt_layer_fwd", h, [layer_flat], meta, [li]):
         return fused_sqnxt_layer_plain(h, layer_flat, meta, li)
-    out = _launch_fwd(2, "pnode_sqnxt_fwd_layer", h, [layer_flat], meta, [li])
+    out = _launch_fwd("pnode_sqnxt_fwd_layer", h, [layer_flat], meta, [li])
     fused_sqnxt_layer_fwd.launches += 1
     return out
 
@@ -553,3 +612,11 @@ def sqnxt_cost(meta: SqnxtMeta, lis: Sequence[int], backward: bool):
     if backward:
         return 3 * conv, 4 * (2 * cin * N + cout * N + 2 * params)
     return conv, 4 * (cin * N + cout * N + params)
+
+
+def sqnxt_layered_cost(meta: SqnxtMeta, backward: bool):
+    """(flops, bytes) of one evaluation in the layered mode (K8 or K9): five
+    launches, each reading its own layer's input (and cotangent) and
+    writing its own output, so sqnxt_cost of each layer alone, summed."""
+    costs = [sqnxt_cost(meta, [li], backward) for li in range(5)]
+    return sum(c[0] for c in costs), sum(c[1] for c in costs)

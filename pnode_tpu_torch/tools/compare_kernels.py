@@ -4,7 +4,7 @@ timed in turns.
 Run on a machine with the card, from the repository root::
 
     git archive <commit> | tar -x -C build/other   # any other checkout
-    python -m pnode_tpu_torch.tools.compare_kernels build/other --kernel k7
+    python -m pnode_tpu_torch.tools.compare_kernels build/other --kernel k6 k8
 
 The other checkout's ``pnode_tpu_torch`` is loaded as a second package
 (its kernels build into that checkout's ``build/``; both builds run at
@@ -21,16 +21,20 @@ back-to-back calls by CUDA events, and the device time per call, every
 kernel of the call summed over a profiler trace of 20 calls (the timing
 helpers are ``chip_smoke.py``'s, so it runs from the repository root).
 
-``--kernel k7`` (the SqueezeNext chain backward, ``fused_sqnxt_bwd``) and
-``--kernel k9`` (its one-layer backward, ``fused_sqnxt_layer_bwd``, all
+``--kernel k6`` (the SqueezeNext chain forward, ``fused_sqnxt_fwd``),
+``--kernel k8`` (its one-layer forward, ``fused_sqnxt_layer_fwd``),
+``--kernel k7`` (the chain backward, ``fused_sqnxt_bwd``) and ``--kernel
+k9`` (the one-layer backward, ``fused_sqnxt_layer_bwd``; K8 and K9 run all
 five layers per evaluation, each on the plain forward's layer input): at
 the three ODE stage shapes of SqNxt-23 at B 128 (dim 32 at 32x32, 64 at
 16x16, 128 at 8x8), with lecun-normal weights (``ODEDynamics``' own
 init), N(1, 0.1) norm scales, N(0, 0.1) norm shifts, ReLU(N(0, 1)) inputs
-and N(0, 1) cotangents from seed 0, it checks every output of the two
-kernels norm-wise (5e-3, ``chip_smoke.check_grads``' tolerance: a ReLU
-pre-activation within fp32 rounding of 0 may flip between two correct
-evaluations), then times one evaluation of each in turns as for K1.
+and N(0, 1) cotangents from seed 0, it checks the two forwards' outputs
+(max |diff| / max |ref| <= 1e-5, ``chip_smoke``'s forward tolerance) and
+every output of the two backwards norm-wise (5e-3,
+``chip_smoke.check_grads``' tolerance: a ReLU pre-activation within fp32
+rounding of 0 may flip between two correct evaluations), then times one
+evaluation of each in turns as for K1.
 
 The last line printed is a JSON object of the readings.
 """
@@ -59,11 +63,12 @@ def load_other(root: str, module: str):
     """The other checkout's ``ops.<module>``, under another package name."""
     pkg = Path(root).resolve() / "pnode_tpu_torch"
     name = "other_pnode_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    package = importlib.util.module_from_spec(spec)
-    sys.modules[name] = package
-    spec.loader.exec_module(package)
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        package = importlib.util.module_from_spec(spec)
+        sys.modules[name] = package
+        spec.loader.exec_module(package)
     return importlib.import_module(name + ".ops." + module)
 
 
@@ -164,33 +169,49 @@ def sqnxt_inputs(dim, H, rng):
     return x, g, flat, meta
 
 
+SQNXT_NAMES = {"k6": "fused_sqnxt_fwd", "k7": "fused_sqnxt_bwd",
+               "k8": "fused_sqnxt_layer_fwd", "k9": "fused_sqnxt_layer_bwd"}
+
+
 def compare_sqnxt(this, other, kernel, result):
-    """K7 (``fused_sqnxt_bwd``) or K9 (``fused_sqnxt_layer_bwd`` over the
-    five layers) of both checkouts at the three stage shapes."""
+    """K6 (``fused_sqnxt_fwd``), K7 (``fused_sqnxt_bwd``), K8
+    (``fused_sqnxt_layer_fwd`` over the five layers) or K9
+    (``fused_sqnxt_layer_bwd`` over the five layers) of both checkouts at
+    the three stage shapes."""
     import torch
 
     rng = np.random.default_rng(0)
+    name = SQNXT_NAMES[kernel]
+    sides = (("other", other), ("this", this))
     for label, dim, H in SQNXT_STAGES:
         x, g, flat, meta = sqnxt_inputs(dim, H, rng)
         layer = this._layer
-        if kernel == "k7":
-            name = "fused_sqnxt_bwd"
+        hs, h = [], x
+        for li in range(5):
+            hs.append(h)
+            h = this.fused_sqnxt_layer_plain(h, layer(flat, li), meta, li)
+        gls = [g[:meta.cdims[li + 1]].contiguous() for li in range(5)]
+        if kernel == "k6":
+            calls = {side: (lambda m=mod: m.fused_sqnxt_fwd(x, flat, meta))
+                     for side, mod in sides}
+        elif kernel == "k7":
             calls = {side: (lambda m=mod: m.fused_sqnxt_bwd(x, g, flat, meta))
-                     for side, mod in (("other", other), ("this", this))}
+                     for side, mod in sides}
+        elif kernel == "k8":
+            calls = {side: (lambda m=mod: [
+                m.fused_sqnxt_layer_fwd(hs[li], layer(flat, li), meta, li)
+                for li in range(5)]) for side, mod in sides}
         else:
-            name = "fused_sqnxt_layer_bwd"
-            hs, h = [], x
-            for li in range(5):
-                hs.append(h)
-                h = this.fused_sqnxt_layer_plain(h, layer(flat, li), meta, li)
-            gls = [g[:meta.cdims[li + 1]].contiguous() for li in range(5)]
             calls = {side: (lambda m=mod: [
                 m.fused_sqnxt_layer_bwd(hs[li], gls[li], layer(flat, li),
                                         meta, li) for li in range(5)])
-                for side, mod in (("other", other), ("this", this))}
+                for side, mod in sides}
         outs = {}
         for side, fn in calls.items():
             r = fn()
+            if kernel in ("k6", "k8"):
+                outs[side] = r if kernel == "k8" else [r]
+                continue
             r = r if kernel == "k9" else [r]
             # (output, is a conv bias); a conv bias feeding a batch-stats
             # norm has a true gradient of 0, so both sides return noise
@@ -198,16 +219,24 @@ def compare_sqnxt(this, other, kernel, result):
                           for t, k in [(dh, 0)] + [(t, k) for k, t in
                                                    enumerate(d)]]
         torch.cuda.synchronize()
-        errs = []
-        for (a, bias), (b, _) in zip(outs["this"], outs["other"]):
-            if bias:
-                continue
-            errs.append(float((a - b).double().norm()
-                              / b.double().norm().clamp_min(1e-30)))
-        print(f"[compare] {label} {name}: this vs other, worst norm-wise "
-              f"{max(errs):.3e} over {len(errs)} outputs")
-        if not max(errs) <= 5e-3:
-            raise SystemExit(f"{label}: the two {name} disagree")
+        if kernel in ("k6", "k8"):
+            err = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(outs["this"], outs["other"]))
+            print(f"[compare] {label} {name}: this vs other, max |diff| / "
+                  f"max |other| {err:.3e} over {len(outs['this'])} outputs")
+            if not err <= 1e-5:
+                raise SystemExit(f"{label}: the two {name} disagree")
+        else:
+            errs = []
+            for (a, bias), (b, _) in zip(outs["this"], outs["other"]):
+                if bias:
+                    continue
+                errs.append(float((a - b).double().norm()
+                                  / b.double().norm().clamp_min(1e-30)))
+            print(f"[compare] {label} {name}: this vs other, worst "
+                  f"norm-wise {max(errs):.3e} over {len(errs)} outputs")
+            if not max(errs) <= 5e-3:
+                raise SystemExit(f"{label}: the two {name} disagree")
         time_in_turns(f"{label} {name}", calls, result)
 
 
@@ -216,25 +245,28 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
-    ap.add_argument("--kernel", choices=("k1", "k7", "k9"), default="k1")
+    ap.add_argument("--kernel", nargs="+", default=["k1"],
+                    choices=("k1", "k6", "k7", "k8", "k9"),
+                    help="one or more kernels, compared in this order")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels needs a CUDA card")
-    module = "fused_mlp" if args.kernel == "k1" else "fused_sqnxt"
-    this = importlib.import_module(f"{__package__.rsplit('.', 1)[0]}.ops."
-                                   f"{module}")
-    other = load_other(args.other, module)
-    builds = [threading.Thread(target=m._build.library)
-              for m in (this, other)]
-    for t in builds:
-        t.start()
-    for t in builds:
-        t.join()
     result = {}
-    if args.kernel == "k1":
-        compare_k1(this, other, result)
-    else:
-        compare_sqnxt(this, other, args.kernel, result)
+    for kernel in args.kernel:
+        module = "fused_mlp" if kernel == "k1" else "fused_sqnxt"
+        this = importlib.import_module(
+            f"{__package__.rsplit('.', 1)[0]}.ops.{module}")
+        other = load_other(args.other, module)
+        builds = [threading.Thread(target=m._build.library)
+                  for m in (this, other)]
+        for t in builds:
+            t.start()
+        for t in builds:
+            t.join()
+        if kernel == "k1":
+            compare_k1(this, other, result)
+        else:
+            compare_sqnxt(this, other, kernel, result)
     print(json.dumps(result))
     return result
 

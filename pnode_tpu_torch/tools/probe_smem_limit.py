@@ -125,20 +125,19 @@ def capacities():
              _adaptive_smem_bytes(64, ks, 4, 32))):
         _build.check(fn(smem, cap), f"{name} occupancy query")
         out[name] = (cap[0], smem)
-    for which, name in ((0, "sqnxt_fwd (K6)"), (2, "sqnxt_layer_fwd (K8)")):
-        _build.check(lib.pnode_sqnxt_capacity(which, cap),
-                     f"{name} occupancy query")
-        out[name] = (cap[0], None)
-    # K7 and K9 size their shared memory per launch: their grid at the
+    # K6-K9 size their shared memory per launch: their plans' grids at the
     # full-width CIFAR shapes (stage 2's chain, stage 1's (3,1) layer)
     from ..ops import fused_sqnxt as fs
-    for name, meta, lis in (
-            ("sqnxt_bwd (K7), stage 2", fs.make_meta(64, 128, 16, 16),
-             list(range(5))),
-            ("sqnxt_layer_bwd (K9), stage 1 layer 3",
-             fs.make_meta(32, 128, 32, 32), [3])):
-        grid, floats = fs.bwd_plan(meta, lis, torch.device("cuda"))
-        out[name] = (grid, None)
+    stage2, stage1 = fs.make_meta(64, 128, 16, 16), fs.make_meta(32, 128, 32,
+                                                                  32)
+    for name, plan, meta, lis in (
+            ("sqnxt_fwd (K6), stage 2", fs.fwd_plan, stage2, range(5)),
+            ("sqnxt_layer_fwd (K8), stage 1 layer 3", fs.fwd_plan, stage1,
+             [3]),
+            ("sqnxt_bwd (K7), stage 2", fs.bwd_plan, stage2, range(5)),
+            ("sqnxt_layer_bwd (K9), stage 1 layer 3", fs.bwd_plan, stage1,
+             [3])):
+        out[name] = (plan(meta, lis, torch.device("cuda"))[0], None)
     return out
 
 

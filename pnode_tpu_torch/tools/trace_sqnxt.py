@@ -1,20 +1,20 @@
-"""Where K7's and K9's time goes: per-phase microseconds of one launch.
+"""Where K6's, K7's and K9's time goes: per-phase microseconds of a launch.
 
 Run on a machine with the card, from the repository root::
 
-    python -m pnode_tpu_torch.tools.trace_sqnxt_bwd
+    python -m pnode_tpu_torch.tools.trace_sqnxt
 
-It builds the kernels a second time with ``-DSQNXT_BWD_TRACE`` (into its
-own library beside the usual one), under which thread 0 of block 0 of a
-K7 or K9 launch stores ``clock64()`` at each phase boundary
-(csrc/sqnxt_bwd.cuh). At the three ODE stage shapes of SqNxt-23 at B 128
-(the inputs of ``compare_kernels``), it runs K7 at each stage and K9 on
-each layer of stage 1, after a warm-up call, and prints block 0's view of
-each phase: a pass's own tiles (and inside its first tile, the staging,
-the products and the row sums), then the grid barrier with the partial
-sums after it (which includes waiting for the slowest block). Cycles
-become microseconds at the rate of the launch's own globaltimer. The last
-line printed is a JSON object of the phases.
+It builds the kernels a second time with ``-DSQNXT_TRACE`` (into its own
+library beside the usual one), under which thread 0 of block 0 of a K6-K9
+launch stores ``clock64()`` at each phase boundary (csrc/sqnxt_tiles.cuh).
+At the three ODE stage shapes of SqNxt-23 at B 128 (the inputs of
+``compare_kernels``), it runs K6 and K7 at each stage and K9 on each layer
+of stage 1, after a warm-up call, and prints block 0's view of each phase:
+a pass's own tiles (and inside its first tile, the staging, the products
+and the row sums), then the grid barrier with the partial sums after it
+(which includes waiting for the slowest block), and K6's normalize-out
+pass. Cycles become microseconds at the rate of the launch's own
+globaltimer. The last line printed is a JSON object of the phases.
 """
 
 from __future__ import annotations
@@ -24,23 +24,26 @@ import json
 
 import numpy as np
 
+N_MARKS = 4 * 5 + 6 * 5 + 6 * 5 + 2  # csrc/sqnxt_tiles.cuh kMarks
+SUB = 50                              # kMarkSub: inside a pass's first tile
 
-def marks_us(lib, nl):
-    """{phase: us} of the last launch (nl layers)."""
+
+def marks_us(read, nl, backward=True):
+    """{phase: us} of the last launch (nl layers) whose marks ``read``
+    (pnode_sqnxt_bwd_marks or pnode_sqnxt_fwd_marks) returns."""
     from ..ops import _build
 
-    n = 4 * 5 + 6 * 5 + 6 * 5 + 2
+    n = N_MARKS
     m = (ctypes.c_longlong * n)()
     ns = (ctypes.c_ulonglong * 2)()
-    _build.check(lib.pnode_sqnxt_bwd_marks(m, ns), "phase marks")
+    _build.check(read(m, ns), "phase marks")
     rate = (m[n - 1] - m[n - 2]) / max(1, ns[1] - ns[0])  # cycles per ns
     us = lambda a, b: (b - a) / rate / 1e3  # noqa: E731
     out = {"launch": us(m[n - 2], m[n - 1])}
     prev = m[n - 2]
-    sub = 50  # kMarkSub: marks inside block 0's first tile of a pass
     for l in range(nl):
         f = m[4 * l: 4 * l + 4]
-        t = m[sub + 3 * l: sub + 3 * l + 3]
+        t = m[SUB + 3 * l: SUB + 3 * l + 3]
         out[f"fwd {l} tiles"] = us(prev, f[1])
         out[f"fwd {l}   1st tile: weights + staging"] = us(prev, t[0])
         out[f"fwd {l}   1st tile: product"] = us(t[0], t[1])
@@ -48,9 +51,12 @@ def marks_us(lib, nl):
         out[f"fwd {l} barrier + stats"] = us(f[1], f[2])
         out[f"fwd {l} centered variance"] = us(f[2], f[3])
         prev = f[3]
+    if not backward:
+        out["normalize out"] = us(prev, m[20])
+        return out
     for l in range(nl - 1, -1, -1):
         b = m[20 + 6 * l: 26 + 6 * l]
-        t = m[sub + 15 + 3 * l: sub + 18 + 3 * l]
+        t = m[SUB + 15 + 3 * l: SUB + 18 + 3 * l]
         out[f"bwd {l} pass A"] = us(prev, b[1])
         out[f"bwd {l} barrier + sums"] = us(b[1], b[2])
         out[f"bwd {l} pass B"] = us(b[2], b[3])
@@ -71,16 +77,18 @@ def main(argv=None):
     from .compare_kernels import SQNXT_STAGES, sqnxt_inputs
 
     if not torch.cuda.is_available():
-        raise SystemExit("trace_sqnxt_bwd needs a CUDA card")
-    _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DSQNXT_BWD_TRACE",)
+        raise SystemExit("trace_sqnxt needs a CUDA card")
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DSQNXT_TRACE",)
     lib = _build.library()
-    lib.pnode_sqnxt_bwd_marks.restype = ctypes.c_int
-    lib.pnode_sqnxt_bwd_marks.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    for name in ("pnode_sqnxt_bwd_marks", "pnode_sqnxt_fwd_marks"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     rng = np.random.default_rng(0)
     result = {}
     for label, dim, H in SQNXT_STAGES:
         x, g, flat, meta = sqnxt_inputs(dim, H, rng)
-        runs = [("K7", lambda: fs.fused_sqnxt_bwd(x, g, flat, meta), 5)]
+        runs = [("K6", lambda: fs.fused_sqnxt_fwd(x, flat, meta), 5, False),
+                ("K7", lambda: fs.fused_sqnxt_bwd(x, g, flat, meta), 5, True)]
         if label == "stage 1":
             hs, h = [], x
             for li in range(5):
@@ -92,17 +100,19 @@ def main(argv=None):
                 runs.append((f"K9 layer {li}", lambda li=li, gl=gl:
                              fs.fused_sqnxt_layer_bwd(hs[li], gl,
                                                       fs._layer(flat, li),
-                                                      meta, li), 1))
-        for name, fn, nl in runs:
+                                                      meta, li), 1, True))
+        for name, fn, nl, backward in runs:
             fn()
             fn()
             torch.cuda.synchronize()
-            ph = marks_us(lib, nl)
+            read = (lib.pnode_sqnxt_bwd_marks if backward
+                    else lib.pnode_sqnxt_fwd_marks)
+            ph = marks_us(read, nl, backward)
             result[f"{label} {name}"] = ph
             print(f"[trace] {label} {name}: launch {ph['launch']:.1f} us")
             for k, v in ph.items():
                 if k != "launch":
-                    print(f"[trace]   {k:28s} {v:9.1f} us")
+                    print(f"[trace]   {k:32s} {v:9.1f} us")
     print(json.dumps(result))
     return result
 

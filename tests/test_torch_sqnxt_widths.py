@@ -121,7 +121,7 @@ def _chain_scratch(dim, B, H, W, grid):
     ((32, 128, 32, 32), 264), ((64, 128, 16, 16), 264),
     ((128, 128, 8, 8), 256), ((16, 3, 5, 7), 1), ((48, 4, 8, 8), 2)])
 def test_bwd_scratch_floats(shape, grid):
-    """The scratch one K7 or K9 launch takes, as csrc/sqnxt_bwd.cuh counts
+    """The scratch one K7 or K9 launch takes, as csrc/sqnxt_tiles.cuh counts
     it: two partial-slot buffers of grid x 4 x 128, one dW slot per block
     (the largest taps Cin Cout, rounded up to 4) and, for the chain only,
     two g buffers of the largest Cin past the first layer x N."""
