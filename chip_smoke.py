@@ -10,12 +10,16 @@ exits non-zero without printing the final line):
 
 1. Device: CUDA present, compute capability 9.0; prints the card's name and
    power limit as nvidia-smi reports them.
-2. Build: compiles pnode_tpu_torch/csrc/*.cu for sm_90a with nvcc (timed).
+2. Build: compiles pnode_tpu_torch/csrc/*.cu for sm_90a with nvcc (timed);
+   fails where ptxas reports spill in csrc/sqnxt_fwd.cu (K6, K8) or
+   csrc/fused_ark_forward.cu (K2), and where K2's C plan (rows per block,
+   grid, shared memory) differs from its Python mirror at FWD_PLANS.
    Then the probe (python -m pnode_tpu_torch.tools.probe_smem_limit, K13):
    the largest dynamic shared memory one block takes, up a ladder and
    bisected to 4 bytes, must equal the gates' MAX_SMEM_BYTES and the card's
    opt-in attribute; the co-resident capacities the loop kernels' grids
-   assume; K13 at that size against 3x (bitwise), timed beside it and
+   assume; K13 at sizes its bulk copies do not reach (probe_edges) and at
+   the largest size against 3x (bitwise), timed beside it and
    torch.mul(x, 3), by CUDA events and by the profiler's device time.
 3. Kernels: K1 forward, K1 backward, K2 (ARK forward step) and K3 (ARK
    reverse step) against their plain PyTorch versions on the card, at the
@@ -29,7 +33,12 @@ exits non-zero without printing the final line):
    over CUDA events (30 samples of 10 back-to-back calls each). K1 also at
    the edges of its 32 x 32 tiling (K1_EDGES: B 1, B 37, widths 13 and
    100, 1 and 8 layers, tanh) with the same gates, every K1 backward
-   repeated bitwise, and scratch one float short refused. Then K4,
+   repeated bitwise, and scratch one float short refused. K2 at the edges
+   of its plan and tiling (K2_EDGES: B 1, 37 and 3173, widths 13 and 100,
+   1 and 8 layers, tanh, 2, 6 and 8 stages, the Burgers forward at d 512,
+   B 200), with and without err, against the plain versions in fp32 and
+   fp64, each call repeated bitwise (phase_k2_edges says how it gates);
+   the device times of K2 (with and without err) and K3. Then K4,
    the fused training loop, against fused_train_loop_plain on K = 8
    distinct KS minibatches (Adam lr 5e-3) at the main path's shapes, at
    the ragged size (chunk=8) and at a batch whose row tiles outnumber the
@@ -334,10 +343,28 @@ def ptxas_report(log, source):
     return funcs
 
 
+# sources whose every function must compile without spill: K6/K8 and K2
+NO_SPILL = (("sqnxt_fwd.cu", "sqnxt_fwd_kernel", "K6/K8"),
+            ("fused_ark_forward.cu", "ark_fwd_kernel", "K2"))
+# K2's plan against its Python mirror: (B, d, layer widths, stages)
+KS_LAYERS = [HIDDEN] * 4 + [NX]
+FWD_PLANS = ((BATCH, NX, KS_LAYERS, 4), (37, NX, KS_LAYERS, 4),
+             (1, NX, KS_LAYERS, 4), (3173, NX, KS_LAYERS, 4),
+             (200, 512, [576] * 4 + [512], 4),
+             (200, 512, [576] * 4 + [512], 8),
+             (37, 13, [100, 13], 4), (37, 100, [13, 100], 4),
+             (37, NX, [NX], 2), (37, NX, [24] * 7 + [NX], 6),
+             (16, NX, [1100, NX], 4))
+
+
 def phase_build():
+    import torch
+
     from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops import fused_ark_forward as fwd
     from pnode_tpu_torch.ops.fused_adaptive_loop import _adaptive_smem_bytes
-    from pnode_tpu_torch.ops.fused_ark_adjoint import _smem_bytes
+    from pnode_tpu_torch.ops.fused_ark_adjoint import (adj_smem_bytes,
+                                                       ark_fwd_plan)
     from pnode_tpu_torch.ops.fused_train_loop import _loop_smem_bytes
 
     t0 = time.perf_counter()
@@ -351,35 +378,43 @@ def phase_build():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
             log(f"[build]   {line.strip()}")
-    # K6 and K8 (csrc/sqnxt_fwd.cu): every function ptxas compiled there,
-    # the kernels and their out-of-line tile functions, without spill
-    fwd = ptxas_report(build_log, "sqnxt_fwd.cu")
-    for fn, (regs, st, ld) in sorted(fwd.items()):
-        log(f"[build] sqnxt_fwd.cu {fn}: {regs} registers, spill stores "
-            f"{st} B, spill loads {ld} B")
-    if not any("sqnxt_fwd_kernel" in fn for fn in fwd) or any(
-            st or ld for _, st, ld in fwd.values()):
-        raise AssertionError("K6/K8: ptxas reports spill in csrc/sqnxt_fwd.cu"
-                             " (or no kernel there)")
-    # the fits gate mirrors the kernels' shared-memory layout in Python
+    # every function ptxas compiled from these sources, the kernels and
+    # their out-of-line functions, without spill
+    for source, kernel, name in NO_SPILL:
+        funcs = ptxas_report(build_log, source)
+        for fn, (regs, st, ld) in sorted(funcs.items()):
+            log(f"[build] {source} {fn}: {regs} registers, spill stores "
+                f"{st} B, spill loads {ld} B")
+        if not any(kernel in fn for fn in funcs) or any(
+                st or ld for _, st, ld in funcs.values()):
+            raise AssertionError(f"{name}: ptxas reports spill in "
+                                 f"csrc/{source} (or no kernel there)")
+    # the fits gates mirror the kernels' shared-memory layout in Python
     for d, layers, s in ((NX, [HIDDEN] * 4 + [NX], 4), (512, [576] * 4 + [512], 8)):
         dims = [d] + layers
-        fwd = lib.pnode_ark_fwd_smem(d, s, max(dims))
         adj = lib.pnode_ark_adj_smem(d, s, max(dims), 8 * sum(dims[:-1]))
         loop = lib.pnode_train_loop_smem(d, s, max(dims), 8 * sum(dims[:-1]))
         adapt = lib.pnode_adaptive_loop_smem(d, s, max(dims),
                                              8 * sum(dims[:-1]), MAX_TRIALS)
-        if (fwd, adj, loop, adapt) != (
-                _smem_bytes(d, layers, s, False),
-                _smem_bytes(d, layers, s, True),
+        if (adj, loop, adapt) != (
+                adj_smem_bytes(d, layers, s),
                 _loop_smem_bytes(d, layers, s),
                 _adaptive_smem_bytes(d, layers, s, MAX_TRIALS)):
             raise AssertionError(f"the fits gates disagree with the kernels' "
-                                 f"shared memory ({fwd}, {adj}, {loop}, "
-                                 f"{adapt}) at d={d}")
-        log(f"[build] kernels' shared memory at d={d}, s={s}: forward step "
-            f"{fwd} B, reverse step {adj} B, training loop {loop} B, "
-            f"adaptive loop ({MAX_TRIALS} trials) {adapt} B")
+                                 f"shared memory ({adj}, {loop}, {adapt}) at "
+                                 f"d={d}")
+        log(f"[build] kernels' shared memory at d={d}, s={s}: reverse step "
+            f"{adj} B, training loop {loop} B, adaptive loop ({MAX_TRIALS} "
+            f"trials) {adapt} B")
+    # K2's plan (rows per block, grid, bytes) against its mirror
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, d, layers, s in FWD_PLANS:
+        got = fwd.plan(B, d, layers, s, torch.device("cuda", 0))
+        want = ark_fwd_plan(B, d, layers, s, sms)
+        log(f"[build] K2's plan at B {B}, {[d] + layers}, s {s}: {got} "
+            f"(mirror {want}; {sms} SMs)")
+        if got != want:
+            raise AssertionError("K2's plan disagrees with ark_fwd_plan")
     # K4's and K5's grids: min(ceil(B / 8), co-resident blocks of a launch)
     for name, cap in (("training loop", loop_capacity(HIDDEN)),
                       ("adaptive loop", loop_capacity(HIDDEN, adaptive=True))):
@@ -416,6 +451,7 @@ def phase_probe():
     err = abs_err(got, probe.probe_smem_plain(x))
     if not torch.equal(got, probe.probe_smem_plain(x)):
         raise AssertionError(f"probe_smem disagrees with 3x ({err:.3e})")
+    probe_edges(n)
     fns = (lambda: probe.probe_smem_plain(x), lambda: probe.probe_smem(x, n),
            lambda: torch.mul(x, 3))
     t = [summary(cuda_times_ms(fns[i]))[0] for i in (0, 1, 2, 1, 0, 2)]
@@ -437,6 +473,34 @@ def phase_probe():
         f"{n_mul} launches traced); bound {report['bound_ms']:.5f} ms "
         f"({report['bound_by']}); bitwise equal to 3x")
     return report
+
+
+def probe_edges(largest):
+    """K13 where its bulk copies do not reach: sizes that are no multiple
+    of 16 B (the opt-in less 4 B, 100 B, 4 KB + 12 B), a ragged n, x 4-12
+    B past a 16-byte boundary (each tile's slots rotate, and out, a fresh
+    allocation, is aligned otherwise than x: scalar stores), bitwise
+    against 3x, each call repeated bitwise."""
+    import torch
+
+    from pnode_tpu_torch.tools import probe_smem_limit as probe
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for nbytes, n, off in ((largest, 3 * (largest // 4) + 5, 0),
+                           (largest - 4, 2 * (largest // 4) + 7, 1),
+                           (100, 1001, 3), (4096 + 12, 9999, 2),
+                           (largest, 132 * (largest // 4), 2)):
+        x = torch.randn(n + 4, generator=gen, device="cuda")[off:off + n]
+        got = probe.probe_smem(x, nbytes)
+        again = probe.probe_smem(x, nbytes)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, 3.0 * x) and torch.equal(got, again)
+        log(f"[probe] K13 edge at {nbytes} B, n {n}, x {4 * off} B past "
+            f"16-byte alignment: "
+            f"{'bitwise 3x, repeat equal' if ok else 'WRONG'}")
+        if not ok:
+            raise AssertionError(f"probe_smem at {nbytes} B, n {n}, offset "
+                                 f"{off} disagrees with 3x")
 
 
 def loop_capacity(hidden, stages=4, adaptive=False):
@@ -637,7 +701,19 @@ def phase_kernels(device, u):
                     f"{k2[0]:.4f} ms (p66 {k1[1]:.4f} / {k2[1]:.4f}), plain "
                     f"median {p1[0]:.4f} / {p2[0]:.4f} ms (p66 {p1[1]:.4f} / "
                     f"{p2[1]:.4f}); 30 samples of 10 back-to-back calls")
+            # the profiler's device time of K2 (with and without err) and
+            # of K3 (its step kernel and its block-order sum of partials)
+            for name, parts in (
+                    ("fused_ark_step_fwd", ["ark_fwd_kernel"]),
+                    ("fused_ark_step_fwd_embedded", ["ark_fwd_kernel"]),
+                    ("fused_ark_step_adj", ["ark_adj_kernel",
+                                            "sum_partials_kernel"])):
+                us, traced = device_us_per_call(timings[name][0], parts)
+                reports[name]["device_ms"] = us / 1e3
+                log(f"[kernels]   {name}: device {us:.2f} us per call "
+                    f"({traced} launches traced)")
     phase_k1_edges(device, u)
+    phase_k2_edges(device, u)
     reports["fused_train_loop"] = phase_loop_kernel(device, u, J, inv, tab,
                                                     dt)
     reports["fused_adaptive_train_loop"] = phase_adaptive_kernel(device, u,
@@ -724,6 +800,100 @@ def phase_k1_edges(device, u):
         f"({lib.pnode_error_string(rc).decode() if rc else 'accepted'})")
     if rc != 1:  # cudaErrorInvalidValue
         raise AssertionError("K1 took scratch of another size than its own")
+
+
+# K2 at the edges of its plan and tiling: (label, B, dims, activation,
+# tableau). One row; a ragged last block; a grid of 397 blocks of 8 rows;
+# widths 13 and 100 (no multiple of the 4-column register tile, k split
+# into 25 groups); 1 and 8 layers; tanh; 2, 6 and 8 stages; the Burgers
+# forward at d 512, whose operators and weights stream through the ring.
+K2_EDGES = (("B 1", 1, [NX] + [HIDDEN] * 4 + [NX], "relu", "3"),
+            ("B 37", 37, [NX] + [HIDDEN] * 4 + [NX], "relu", "3"),
+            ("B 3173", 3173, [NX] + [HIDDEN] * 4 + [NX], "relu", "3"),
+            ("width 13", 37, [13, 100, 13], "relu", "3"),
+            ("width 100", 37, [100, 13, 100], "relu", "3"),
+            ("1 layer", 37, [NX, NX], "relu", "3"),
+            ("8 layers", 37, [NX] + [24] * 7 + [NX], "relu", "3"),
+            ("tanh", BATCH, [NX] + [HIDDEN] * 4 + [NX], "tanh", "3"),
+            ("2 stages", 37, [NX] + [HIDDEN] * 4 + [NX], "relu", "1bee"),
+            ("6 stages", 37, [NX] + [HIDDEN] * 4 + [NX], "relu", "4"),
+            ("8 stages", 37, [NX] + [HIDDEN] * 4 + [NX], "relu", "5"),
+            ("Burgers d 512", BB, [BNX] + [576] * 4 + [BNX], "relu", "3"))
+
+
+def phase_k2_edges(device, u):
+    """Phase 3's K2 edge cases (K2_EDGES), each without and with the
+    embedded error output, against the plain versions in fp32 and fp64:
+    y1 and Ys within 1e-5 of max |ref| of the plain fp32 version and 1e-4
+    of the fp64 one; err within max(1e-4, 3 e) of both, e being the plain
+    fp32 version's own distance from fp64 (err is a small difference of
+    stage sums: check_embedded says why). Each call repeated bitwise.
+    The operators: J and the stage inverse of the KS main path at d 64,
+    ARK3, dt 0.2; else J = -2 A A^T / d (A ~ N(0, 1)) and inv = (I - dt
+    gamma J)^{-1} formed in float64, gamma the tableau's first nonzero
+    diagonal coefficient. States: KS data at d 64 (drawn with replacement
+    past its 600 samples), N(0, 1) elsewhere; weights N(0, 1 / fan_in),
+    biases N(0, 0.1)."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_ark_forward import (
+        fused_ark_step_fwd, fused_ark_step_fwd_embedded,
+        fused_ark_step_fwd_plain)
+    from pnode_tpu_torch.tableaus import get_ark_tableau
+
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
+    f64 = lambda ts: [t.to(torch.float64) for t in ts]  # noqa: E731
+    J_ks, inv_ks, tab_ks, _ = ks_operators(device)
+    dt = float(np.float32(DT))
+    for i, (label, B, dims, act, tname) in enumerate(K2_EDGES):
+        rng = np.random.default_rng(200 + i)
+        d = dims[0]
+        t = get_ark_tableau(tname)
+        tab = ([[float(x) for x in r] for r in t.a_im],
+               [[float(x) for x in r] for r in t.a_ex],
+               [float(x) for x in t.b_im], [float(x) for x in t.b_ex])
+        berr = ([float(x) for x in t.b_im_err],
+                [float(x) for x in t.b_ex_err])
+        if d == NX and tname == "3":
+            J, inv, tab = J_ks, inv_ks, tab_ks
+        else:
+            A = rng.normal(size=(d, d))
+            J64 = -2.0 * (A @ A.T) / d
+            gamma = [g for g in np.diag(t.a_im) if g != 0.0][0]
+            J = f32(J64)
+            inv = f32(np.linalg.inv(np.eye(d) - dt * gamma * J64))
+        Ws = [f32(rng.normal(0.0, a ** -0.5, size=(a, b)))
+              for a, b in zip(dims, dims[1:])]
+        bs = [f32(rng.normal(0.0, 0.1, size=b)) for b in dims[1:]]
+        x = f32(u[rng.choice(len(u), B, replace=B > len(u))] if d == NX
+                else rng.normal(size=(B, d)))
+        args = (tab, dt, x, J, inv, Ws, bs, act)
+        args64 = (tab, dt, x.double(), J.double(), inv.double(), f64(Ws),
+                  f64(bs), act)
+        log(f"[kernels] K2 edge: {label} (B {B}, {dims}, {act}, ARK "
+            f"{tname}, {len(tab[2])} stages)")
+        got = fused_ark_step_fwd(*args)
+        again = fused_ark_step_fwd(*args)
+        torch.cuda.synchronize()
+        check_kernel("fused_ark_step_fwd", list(got),
+                     list(fused_ark_step_fwd_plain(*args)),
+                     list(fused_ark_step_fwd_plain(*args64)), 1e-5, {})
+        y1, e, Ys = fused_ark_step_fwd_embedded(tab, berr, *args[1:])
+        again_e = fused_ark_step_fwd_embedded(tab, berr, *args[1:])
+        torch.cuda.synchronize()
+        p = fused_ark_step_fwd_plain(*args, b_err=berr)
+        r = fused_ark_step_fwd_plain(*args64, b_err=berr)
+        check_kernel("fused_ark_step_fwd_embedded (y1, Ys)", [y1, Ys],
+                     [p[0], p[2]], [r[0], r[2]], 1e-5, {})
+        tol = max(1e-4, 3.0 * rel_err(p[1], r[1]))
+        check_kernel("fused_ark_step_fwd_embedded (err)", [e], [p[1]], [r[1]],
+                     tol, {}, tol64=tol)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(list(got) + [y1, e, Ys], list(again) + list(again_e)))
+        log(f"[kernels]   K2 {label}: a second call of each "
+            f"{'equals' if same else 'DIFFERS FROM'} the first bitwise")
+        if not same:
+            raise AssertionError("K2 is not deterministic")
 
 
 def check_embedded(tab, berr, dt, x, J, inv, Ws, bs, args64, report):
@@ -1860,8 +2030,9 @@ def ks_costs(tab, adaptive_report):
     the KS main path (B 256, 64 -> 104 x4 -> 64, ARK3's 4 stages), counted
     from the shapes: each input read once, each output written once, fp32.
     A stage is one (d, d) product (the stage inverse, or J on the explicit
-    stage) and one MLP; the reverse recomputes the MLP's layer inputs and
-    backprops (3x the forward MLP). K5's work depends on the data: its
+    stage) and one MLP; the reverse recomputes the MLP's layer inputs (all
+    but the last layer's forward) and backprops (dX and dW: 2x the forward
+    MLP), as mlp_costs counts K1's backward. K5's work depends on the data: its
     timed runs' accepted and rejected trials per iteration. K4's and K5's
     flops per iteration are fused_train_loop_cost's (forward, reverse,
     Adam); their partial-sum traffic is the kernels' choice, not counted."""
@@ -1873,7 +2044,7 @@ def ks_costs(tab, adaptive_report):
     params = sum(a * b + b for a, b in zip(dims, dims[1:]))
     fwd = (s * (2 * B * d * d + 2 * B * mlp),
            4 * (2 * B * d + 2 * d * d + params + s * B * d))
-    rev = (s * (2 * B * d * d + 6 * B * mlp),
+    rev = (s * (2 * B * d * d + 6 * B * mlp - 2 * B * dims[-2] * dims[-1]),
            4 * ((s + 2) * B * d + 2 * d * d + 2 * params))
     # per iteration: y and the target in, the loss out, W, m and v read and
     # written (Adam); J and the stage inverse once per launch of K = 8
@@ -2847,7 +3018,7 @@ def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
     from pnode_tpu_torch.ops.circular_stencil import (
         circular_stencil_bwd, circular_stencil_fwd)
     from pnode_tpu_torch.ops.fused_ark_adjoint import (
-        _smem_bytes, fused_ark_fits, fused_ark_step_adj)
+        adj_smem_bytes, ark_fwd_plan, fused_ark_fits, fused_ark_step_adj)
     from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd
     from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
 
@@ -2862,9 +3033,9 @@ def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
         f"{BDT}, ARK3, hpddm + frozen J, {' '.join(BURGERS_FLAGS)}, one-step "
         f"MSE, Adam lr {LR}, seed-0 weights; the fused ARK step kernels "
         f"(K2, K3) stay off: fused_ark_fits {fused_ark_fits(BNX, layers, 4)} "
-        f"(forward step {_smem_bytes(BNX, layers, 4, False)} B, reverse step "
-        f"{_smem_bytes(BNX, layers, 4, True)} B per 8-row block, limit "
-        f"232448 B)")
+        f"(forward step: plan {ark_fwd_plan(BB, BNX, layers, 4)} (rows, "
+        f"grid, B); reverse step {adj_smem_bytes(BNX, layers, 4)} B per "
+        f"8-row block, limit 232448 B)")
     batches = burgers_batches(n_steps)
     wrappers = {"fused_mlp_fwd": fused_mlp_fwd, "fused_mlp_bwd": fused_mlp_bwd,
                 "circular_stencil_fwd": circular_stencil_fwd,

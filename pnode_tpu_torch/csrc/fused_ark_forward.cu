@@ -20,41 +20,61 @@
 // block already holds, and one (B, d) store.
 //
 // Bound on the H100: per ARK3 step at the KS shapes, 4 stiff (B,64)x(64,64)
-// products and 4 MLP evaluations, ~102 MFLOP against 185 KB of weights and
-// 32 KB of operators. Latency and L2 weight streaming bound it, not FLOPs.
-// Design: one block per 8 batch rows holds y, every kI/kE, G and Y in
-// shared memory for the whole step, so nothing but y1 and the stage values
-// (the adjoint's trajectory payload) goes back to device memory. The step
-// body is ark_forward_tile (pnode_kernels.cuh), which K4 shares.
+// products and 4 MLP evaluations, ~102 MFLOP (1.5 us at the fp32 peak)
+// against 185 KB of weights and 32 KB of operators. The step's 24 products
+// depend on each other, so latency bounds it, not FLOPs. Design
+// (csrc/ark_tiles.cuh): R rows per block from the plan, a grid that fills
+// the card, every stage value and derivative in shared memory for the
+// whole step, the operators staged once and the weights streamed through
+// a two-slot ring, the MLP's products on R x 4 register tiles with k split
+// over thread groups, the stiff products one FMA chain per output. Only
+// y1, the stage values (the adjoint's trajectory payload) and err go back
+// to device memory.
+//
+// Rows per block, device us per call on an H100 SXM (PERF.md): KS
+// B 256: R 1 83.7-84.4, R 2 44.7-45.0, R 4 55.0-55.4, R 8 77.4-78.0;
+// Burgers B 200: R 1 1635-1644, R 2 929-937, R 4 1200-1216 (R 8 does not
+// fit). The plan's rule, the fewest rows whose grid fits one block per SM,
+// takes R 2 at both.
 #include <cstdint>
 
-#include "pnode_kernels.cuh"
+#include "ark_tiles.cuh"
 
 namespace pnode {
 
-__global__ void __launch_bounds__(kThreads)
-ark_fwd_kernel(const float* __restrict__ y, const float* __restrict__ J,
-               const float* __restrict__ inv, float* __restrict__ y1,
-               float* __restrict__ ys, float* __restrict__ err, int B, int d,
-               Tableau tb, float sign, Mlp p) {
-  extern __shared__ float smem[];
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, B - row0);
-  const int s = tb.s;
-  const int tile = kRows * d;
-  float* ys_ = smem;               // y rows
-  float* kI = ys_ + tile;          // s tiles
-  float* kE = kI + s * tile;       // s tiles
-  float* G = kE + s * tile;
-  float* Y = G + tile;             // the current stage value
-  float* a = Y + tile;             // MLP ping-pong, kRows * maxd each
-  float* b = a + kRows * p.maxd;
-  copy_rows(y + (size_t)row0 * d, d, ys_, d, rows, d, 1.0f);
-  __syncthreads();
-  ark_forward_tile<false>(p, tb, sign, J, inv, d, rows, ys_, kI, kE, G, Y, 0,
-                          ys + (size_t)row0 * d, (size_t)B * d, a, b,
-                          y1 + (size_t)row0 * d,
-                          err != nullptr ? err + (size_t)row0 * d : nullptr);
+template <int R>
+__global__ void __launch_bounds__(ark::kThreads, 1)
+ark_fwd_kernel(const float* __restrict__ y, float* __restrict__ y1,
+               float* __restrict__ ys, float* __restrict__ err, int B,
+               float sign, ark::StepArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  ark::forward_step<R>(a, y, y1, ys, err, B, sign, smem);
+}
+
+template <int R>
+static int launch_fwd(const float* y, float* y1, float* ys, float* err,
+                      int B, float sign, const ark::StepArgs& a,
+                      cudaStream_t stream) {
+  int rc = prepare_smem(ark_fwd_kernel<R>, a.p.smem);
+  if (rc) return rc;
+  ark_fwd_kernel<R><<<a.p.grid, ark::kThreads, a.p.smem, stream>>>(
+      y, y1, ys, err, B, sign, a);
+  return (int)cudaGetLastError();
+}
+
+static int sm_count(int* sms) {
+  static int cached[64] = {};
+  int dev = 0, rc;
+  if ((rc = (int)cudaGetDevice(&dev))) return rc;
+  if (dev < 64 && cached[dev]) {
+    *sms = cached[dev];
+    return 0;
+  }
+  if ((rc = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                        dev)))
+    return rc;
+  if (dev < 64) cached[dev] = *sms;
+  return 0;
 }
 
 }  // namespace pnode
@@ -63,37 +83,63 @@ using namespace pnode;
 
 extern "C" {
 
-// Shared memory of one ark_fwd_kernel block, in bytes (mirrored by
-// fused_ark_forward.py's fits check).
-size_t pnode_ark_fwd_smem(int d, int s, int maxd) {
-  return sizeof(float) * ((size_t)kRows * d * (3 + 2 * s) +
-                          2 * (size_t)kRows * maxd);
+// K2's plan for y (B, d), s stages and the stack dims[0..n_layers]: rows
+// per block, grid and shared-memory bytes (mirrored by
+// ops/fused_ark_adjoint.py's ark_fwd_plan). cudaErrorInvalidValue when the
+// configuration does not fit.
+int pnode_ark_fwd_plan(int B, int d, int s, int n_layers, const int* dims,
+                       int* rows, int* grid, long long* smem) {
+  if (B < 1 || s < 1 || s > kMaxStages || n_layers < 1 ||
+      n_layers > kMaxLayers || dims[0] != d || dims[n_layers] != d)
+    return cudaErrorInvalidValue;
+  for (int l = 0; l <= n_layers; ++l)
+    if (dims[l] < 1) return cudaErrorInvalidValue;
+  int sms, rc;
+  if ((rc = sm_count(&sms))) return rc;
+  ark::Plan p;
+  if (!ark::plan_fwd(B, d, s, n_layers, dims, sms, &p))
+    return cudaErrorInvalidValue;
+  *rows = p.rows;
+  *grid = p.grid;
+  *smem = (long long)p.smem;
+  return 0;
 }
 
 // y1 (B, d), ys (s, B, d) of one ARK step from y (B, d); J, inv (d, d).
 // tab: host doubles aI (s*s), aE (s*s), bI (s), bE (s). With err_tab (host
 // doubles bI_err (s), bE_err (s)) also the embedded error estimate err
-// (B, d); err and err_tab are both null or both given.
+// (B, d); err and err_tab are both null or both given. rows: 0 for the
+// plan's rows per block, or 1, 2, 4 or 8 to force them (kernel
+// comparisons).
 int pnode_ark_fwd(const float* y, const float* J, const float* inv,
                   float* y1, float* ys, float* err, int B, int d, int s,
                   const double* tab, const double* err_tab, double dt,
                   float sign, int n_layers, const int* dims,
                   const void* const* Ws, const void* const* bs, int act,
-                  void* stream) {
-  Mlp p;
-  Tableau tb;
-  int rc = make_mlp(&p, n_layers, dims, Ws, bs, act);
+                  int rows, void* stream) {
+  ark::StepArgs a;
+  a.J = J;
+  a.inv = inv;
+  int rc = make_mlp(&a.m, n_layers, dims, Ws, bs, act);
   if (rc) return rc;
   if ((err == nullptr) != (err_tab == nullptr)) return cudaErrorInvalidValue;
-  if ((rc = make_tableau(&tb, s, tab, dt, err_tab))) return rc;
+  if ((rc = make_tableau(&a.tb, s, tab, dt, err_tab))) return rc;
   if (B < 1 || dims[0] != d || dims[n_layers] != d)
     return cudaErrorInvalidValue;
-  const size_t smem = pnode_ark_fwd_smem(d, s, p.maxd);
-  if ((rc = prepare_smem(ark_fwd_kernel, smem))) return rc;
-  const int nblk = (B + kRows - 1) / kRows;
-  ark_fwd_kernel<<<nblk, kThreads, smem, (cudaStream_t)stream>>>(
-      y, J, inv, y1, ys, err, B, d, tb, sign, p);
-  return (int)cudaGetLastError();
+  int sms;
+  if ((rc = sm_count(&sms))) return rc;
+  const bool ok =
+      rows == 0 ? ark::plan_fwd(B, d, s, n_layers, dims, sms, &a.p)
+                : ((rows == 1 || rows == 2 || rows == 4 || rows == 8) &&
+                   ark::plan_rows(rows, B, d, s, n_layers, dims, &a.p));
+  if (!ok) return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (a.p.rows) {
+    case 1: return launch_fwd<1>(y, y1, ys, err, B, sign, a, st);
+    case 2: return launch_fwd<2>(y, y1, ys, err, B, sign, a, st);
+    case 4: return launch_fwd<4>(y, y1, ys, err, B, sign, a, st);
+    default: return launch_fwd<8>(y, y1, ys, err, B, sign, a, st);
+  }
 }
 
 }  // extern "C"

@@ -53,10 +53,10 @@ _SIGNATURES = {
     "pnode_mlp_bwd": (_I, [_P, _P, _P, _P, _P, _S, _I, _I, _PI, _PP, _PP, _I,
                            _P]),
     "pnode_ark_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _PD, _D,
-                           _F, _I, _PI, _PP, _PP, _I, _P]),
+                           _F, _I, _PI, _PP, _PP, _I, _I, _P]),
+    "pnode_ark_fwd_plan": (_I, [_I, _I, _I, _I, _PI, _PI, _PI, _PL]),
     "pnode_ark_adj": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _D,
                            _F, _I, _PI, _PP, _PP, _I, _P]),
-    "pnode_ark_fwd_smem": (ctypes.c_size_t, [_I, _I, _I]),
     "pnode_ark_adj_smem": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "pnode_train_loop": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _PD, _D, _F, _I, _PI, _I, _I, _F, _D,

@@ -29,6 +29,7 @@ storage were MXU workarounds; every product here is a true fp32 FMA.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -61,38 +62,106 @@ def check_stiff_dot_precision() -> None:
     raise ValueError(f"-pnode_fused_ark_precision {name!r}: use auto|highest")
 
 
-def _smem_bytes(d: int, layer_dims: Sequence[int], stages: int,
-                reverse: bool) -> int:
-    """Shared memory of one block of the step kernels (csrc/*.cu
-    pnode_ark_{fwd,adj}_smem)."""
+def adj_smem_bytes(d: int, layer_dims: Sequence[int], stages: int) -> int:
+    """Shared memory of one block of the reverse step kernel (K3: 8 rows;
+    csrc/fused_ark_adjoint.cu pnode_ark_adj_smem)."""
     dims = [d] + list(layer_dims)
     R = ROWS_PER_BLOCK
     pingpong = 2 * R * max(dims)
-    if reverse:
-        return 4 * (R * d * (6 + stages) + R * sum(dims[:-1]) + pingpong)
-    return 4 * (R * d * (3 + 2 * stages) + pingpong)
+    return 4 * (R * d * (6 + stages) + R * sum(dims[:-1]) + pingpong)
+
+
+# K2's register tile (csrc/ark_tiles.cuh kThreads, kCols): a product takes
+# layers up to kThreads * kCols wide
+FWD_THREADS, FWD_COLS = 256, 4
+
+
+def _split_k(K: int, N: int) -> int:
+    nct = -(-N // FWD_COLS)
+    return max(1, min(FWD_THREADS // nct, max(1, K // 4)))
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def _fwd_plan_rows(R: int, d: int, dims: Sequence[int], stages: int):
+    """Shared-memory bytes of K2 at R rows per block (csrc/ark_tiles.cuh
+    plan_rows), or None when it does not fit."""
+    maxd = max(dims)
+    if maxd > FWD_THREADS * FWD_COLS:
+        return None
+    red = 0  # the MLP layers' split-k partials (the stiff products: none)
+    for K, N in zip(dims, dims[1:]):
+        g = _split_k(K, N)
+        if g > 1:
+            red = max(red, g * N)
+    fixed = (3 * _round4(R * d) + 2 * _round4(stages * R * d)
+             + 2 * _round4(R * maxd) + _round4(R * red))
+    budget = MAX_SMEM_BYTES // 4
+    op = _round4(d * (d | 1))
+    whole = _round4(max(K * N for K, N in zip(dims, dims[1:])))
+    if fixed + 2 * op + 2 * whole <= budget:
+        return 4 * (fixed + 2 * op + 2 * whole)
+    slot = min((budget - fixed) // 2 & ~3, max(whole, op))
+    if slot < _round4(maxd):
+        return None
+    return 4 * (fixed + 2 * slot)
+
+
+def ark_fwd_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
+                 sms: int = 132):
+    """K2's launch (csrc/ark_tiles.cuh plan_fwd, C entry point
+    pnode_ark_fwd_plan): (rows per block, grid, shared-memory bytes), or
+    None when the configuration does not fit. Rows: the fewest in {1, 2,
+    4, 8} whose grid ceil(B / rows) fits one block per SM (``sms``, 132 on
+    an H100 SXM), else 8; halved while the block's shared memory (stage
+    values, operators, the weight ring) passes MAX_SMEM_BYTES. Memoized:
+    every step wrapper's gate asks it."""
+    return _ark_fwd_plan(int(B), int(d), tuple(int(n) for n in layer_dims),
+                         int(stages), int(sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def _ark_fwd_plan(B: int, d: int, layer_dims: tuple, stages: int, sms: int):
+    dims = [d] + list(layer_dims)
+    if (B < 1 or not 1 <= stages <= MAX_STAGES
+            or not 1 <= len(layer_dims) <= MAX_LAYERS or dims[-1] != d
+            or min(dims) < 1):
+        return None
+    R = 1
+    while R < 8 and -(-B // R) > sms:
+        R *= 2
+    while R >= 1:
+        smem = _fwd_plan_rows(R, d, dims, stages)
+        if smem is not None:
+            return R, -(-B // R), smem
+        R //= 2
+    return None
 
 
 def fused_ark_fits(d: int, layer_dims: Sequence[int], stages: int,
                    reverse: bool = True) -> bool:
     """True when the step kernels take this configuration on the H100.
 
-    The kernels keep one 8-row tile's stage values, covectors and layer
-    activations in shared memory, so that is the budget that binds: at most
-    227 KB per block (the KS config needs 29 KB forward, 42 KB reverse;
-    Burgers-512 needs ~290 KB reverse and does not fit). Registers do not
-    bind: each thread carries a fixed 4-row accumulator whatever the
-    widths. Weight gradients go to a per-block scratch slice in device
-    memory, not to shared memory. ``reverse=False`` checks the forward
-    kernel alone."""
+    The forward kernel (K2) takes it when its plan does at one row per
+    block (``ark_fwd_plan``; the KS config needs 125 KB there, most of it
+    the weight ring and the staged operators; Burgers-512 streams them).
+    The reverse kernel (K3) keeps one 8-row tile's stage values, covectors
+    and layer activations in shared memory: at most 227 KB per block (the
+    KS config needs 42 KB; Burgers-512 ~290 KB and does not fit).
+    Registers do not bind: each thread carries a fixed accumulator tile
+    whatever the widths. Weight gradients go to a per-block scratch slice
+    in device memory, not to shared memory. ``reverse=False`` checks the
+    forward kernel alone."""
     if not 1 <= len(layer_dims) <= MAX_LAYERS or not 1 <= stages <= MAX_STAGES:
         return False
     if layer_dims[-1] != d:
         return False
-    need = _smem_bytes(d, layer_dims, stages, reverse=False)
-    if reverse:
-        need = max(need, _smem_bytes(d, layer_dims, stages, reverse=True))
-    return need <= MAX_SMEM_BYTES
+    if ark_fwd_plan(1, d, layer_dims, stages) is None:
+        return False
+    return (not reverse
+            or adj_smem_bytes(d, layer_dims, stages) <= MAX_SMEM_BYTES)
 
 
 def pick_weight_dtype(d: int, layer_dims: Sequence[int], stages: int):
@@ -109,9 +178,10 @@ def pick_weight_dtype(d: int, layer_dims: Sequence[int], stages: int):
 
 
 def check_step_args(tableau_static, y, J_dense, inv_op, weights, biases,
-                    activation, what):
+                    activation, what, reverse=True):
     """Validate the operands shared by the forward and reverse step
-    kernels; returns (s, B, d, dims)."""
+    kernels; returns (s, B, d, dims). ``reverse=False`` (the forward step)
+    asks only that the forward kernel take the configuration."""
     aI, aE, bI, bE = tableau_static
     s = len(bI)
     if not 1 <= s <= MAX_STAGES:
@@ -128,7 +198,7 @@ def check_step_args(tableau_static, y, J_dense, inv_op, weights, biases,
         if tuple(op.shape) != (d, d):
             raise ValueError(f"{what}: {name} must be {(d, d)}, got "
                              f"{tuple(op.shape)}")
-    if not fused_ark_fits(d, dims[1:], s):
+    if not fused_ark_fits(d, dims[1:], s, reverse):
         raise ValueError(f"{what}: configuration exceeds the kernels' "
                          "shared-memory budget (gate with fused_ark_fits)")
     return s, B, d, dims

@@ -2,8 +2,11 @@
 
 Replaces ``pnode_tpu/ops/fused_ark_forward.py`` ``_kernel`` (:53), launched
 by ``fused_ark_step_fwd`` (:157). The CUDA source is
-``csrc/fused_ark_forward.cu``; its note says what bounds it on the H100 and
-what the design does about that.
+``csrc/fused_ark_forward.cu`` with its body in ``csrc/ark_tiles.cuh``;
+their notes say what bounds it on the H100 and what the design does about
+that. The launch's rows per block, grid and shared memory come from the C
+plan, which ``fused_ark_adjoint.ark_fwd_plan`` mirrors (the fits gate
+reads the mirror).
 
 Scope: the fused reverse step's (``fused_ark_adjoint.py``) plus
 ``-snes_type ksponly``. For a linear f_IM the single linearized solve is
@@ -26,6 +29,8 @@ launches count on ``fused_ark_step_fwd_embedded``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -134,7 +139,7 @@ def _fwd(counter, tableau_static, b_err, dt, y, J_dense, inv_op, weights,
          biases, activation, sign):
     s, B, d, dims = check_step_args(tableau_static, y, J_dense, inv_op,
                                     weights, biases, activation,
-                                    "fused_ark_step_fwd")
+                                    "fused_ark_step_fwd", reverse=False)
     diffs = None if b_err is None else _err_weights(tableau_static, b_err)
     if y.device.type == "cpu":
         return fused_ark_step_fwd_plain(tableau_static, dt, y, J_dense,
@@ -153,11 +158,24 @@ def _fwd(counter, tableau_static, b_err, dt, y, J_dense, inv_op, weights,
             None if err is None else err.data_ptr(), B, d, s,
             tableau_array(tableau_static), err_tab, float(dt), float(sign),
             len(weights), _build.int_array(dims), _build.ptr_array(weights),
-            _build.ptr_array(biases), _ACT_CODES[activation],
+            _build.ptr_array(biases), _ACT_CODES[activation], 0,
             _build.stream_of(y))
     _build.check(rc, "fused_ark_step_fwd kernel")
     counter.launches += 1
     return (y1, Ys) if err is None else (y1, err, Ys)
+
+
+def plan(B, d, layer_dims, stages, device):
+    """The C plan's (rows per block, grid, shared-memory bytes) on
+    ``device``'s card: what ``ark_fwd_plan`` mirrors."""
+    lib = _build.library()
+    dims = [d] + list(layer_dims)
+    rows, grid, smem = (_build.int_array([0]), _build.int_array([0]),
+                        (ctypes.c_longlong * 1)(0))
+    with torch.cuda.device(device):
+        rc = lib.pnode_ark_fwd_plan(B, d, stages, len(layer_dims),
+                                    _build.int_array(dims), rows, grid, smem)
+    return None if rc else (rows[0], grid[0], smem[0])
 
 
 fused_ark_step_fwd.launches = 0

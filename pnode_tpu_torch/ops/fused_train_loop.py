@@ -105,9 +105,10 @@ def fused_train_loop_cost(tableau_static, B, d, layer_dims, K):
     logical sizes, the JAX package's convention with K4's choices.
 
     Per iteration: forward = s stiff products + s MLPs; reverse = one stiff
-    product per stage + an MLP recompute and its backprop (~3x the forward
-    MLP: K4 recomputes the layer inputs, as K3 does); Adam ~10 elementwise
-    ops per parameter. Device memory: (y, target) in and the loss out; each
+    product per stage + an MLP recompute of the layer inputs (every layer
+    but the last, whose output the backprop does not need, as K3 does) and
+    its backprop (dX and dW per layer: 2x the forward MLP); Adam ~10
+    elementwise ops per parameter. Device memory: (y, target) in and the loss out; each
     of the ceil(B/8) blocks writes its dW/db partial and phase B reads them
     all; Adam reads and writes W, m and v. The operators and the packing of
     the state into flat buffers are paid once per call, so 1/K each.
@@ -117,8 +118,9 @@ def fused_train_loop_cost(tableau_static, B, d, layer_dims, K):
     mlp = sum(2 * B * a * b for a, b in zip(dims, dims[1:]))
     w_elems = grad_buffer_size(dims)
     nblk = -(-B // ROWS_PER_BLOCK)
-    flops = s * (2 * B * d * d + mlp)        # forward
-    flops += s * (2 * B * d * d + 3 * mlp)   # reverse
+    last = 2 * B * dims[-2] * dims[-1]
+    flops = s * (2 * B * d * d + mlp)               # forward
+    flops += s * (2 * B * d * d + 3 * mlp - last)   # reverse
     flops += 10 * w_elems + 3 * B * d        # adam + loss
     byts = 4 * (2 * B * d + 1)
     byts += 4 * (2 * nblk * w_elems + 6 * w_elems)
@@ -136,7 +138,8 @@ def fused_grad_step_cost(tableau_static, B, d, layer_dims):
     dims = [d] + list(layer_dims)
     mlp = sum(2 * B * a * b for a, b in zip(dims, dims[1:]))
     w_elems = grad_buffer_size(dims)
-    flops = s * (2 * B * d * d + mlp) + s * (2 * B * d * d + 3 * mlp)
+    last = 2 * B * dims[-2] * dims[-1]
+    flops = s * (2 * B * d * d + mlp) + s * (2 * B * d * d + 3 * mlp - last)
     flops += 3 * B * d
     byts = 4 * (2 * B * d + 2 * d * d + 2 * w_elems + 1)
     return flops, byts

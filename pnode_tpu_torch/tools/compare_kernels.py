@@ -36,6 +36,24 @@ every output of the two backwards norm-wise (5e-3,
 rounding of 0 may flip between two correct evaluations), then times one
 evaluation of each in turns as for K1.
 
+``--kernel k2`` (the fused ARK forward step, ``fused_ark_step_fwd``):
+at the KS main path (B 256, 64 -> 104 x4 -> 64, ARK3, dt 0.2, J and the
+stage inverse of the port's KSFuncIM, KS states), at a ragged B 37 of the
+same, and at the Burgers forward (B 200, 512 -> 576 x4 -> 512, J = -2 A
+A^T / d, N(0, 1) states), each without and with the embedded error
+output, N(0, 1 / fan_in) weights and N(0, 0.1) biases from seed 0. Both
+sides are called through their C entry points (the other checkout's
+wrapper may refuse the Burgers forward). It checks y1 and Ys (max |diff|
+/ max |ref| <= 1e-5) and err (1e-4 of max |err|), times each in turns as
+for K1, and then times this checkout's K2 at forced rows per block (1, 2,
+4, 8 where they fit) in turns at the KS and Burgers shapes: the readings
+that chose the plan's rule (every R must give the same bits).
+
+``--kernel k13`` (the shared-memory probe, ``probe_smem``): at the card's
+opt-in size, on the probe's own input (one tile per SM), both sides
+bitwise 3x, timed in turns, with ``torch.mul(x, 3)``'s device time beside
+them.
+
 The last line printed is a JSON object of the readings.
 """
 
@@ -60,7 +78,8 @@ SQNXT_B = 128
 
 
 def load_other(root: str, module: str):
-    """The other checkout's ``ops.<module>``, under another package name."""
+    """The other checkout's ``<module>`` (e.g. ``ops.fused_mlp``), under
+    another package name."""
     pkg = Path(root).resolve() / "pnode_tpu_torch"
     name = "other_pnode_tpu_torch"
     if name not in sys.modules:
@@ -69,12 +88,14 @@ def load_other(root: str, module: str):
         package = importlib.util.module_from_spec(spec)
         sys.modules[name] = package
         spec.loader.exec_module(package)
-    return importlib.import_module(name + ".ops." + module)
+    return importlib.import_module(name + "." + module)
 
 
-def device_us(fn, n=20):
+def device_us(fn, n=20, per_call=None):
     """(device us per call, kernel launches per call) over a trace of ``n``
-    calls: every device kernel the calls launched."""
+    calls: every device kernel the calls launched, or, given ``per_call``
+    (the launches one call makes), the mean traced launch times that (a
+    trace may miss launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -88,13 +109,16 @@ def device_us(fn, n=20):
             fn()
         torch.cuda.synchronize()
     kernels, _ = device_kernels(prof.events())
-    return (sum(e.time_range.elapsed_us() for e in kernels) / n,
-            len(kernels) / n)
+    total = sum(e.time_range.elapsed_us() for e in kernels)
+    if per_call:
+        return (per_call * total / len(kernels) if kernels else float("nan"),
+                len(kernels) / n)
+    return total / n, len(kernels) / n
 
 
-def time_in_turns(label, calls, result):
+def time_in_turns(label, calls, result, per_call=None):
     """CUDA events in turns (other, this, this, other) and the device time
-    per call of each side."""
+    per call of each side (``device_us``)."""
     from chip_smoke import cuda_times_ms, summary
 
     ms = {side: [] for side in calls}
@@ -102,12 +126,12 @@ def time_in_turns(label, calls, result):
         ms[side].append(summary(cuda_times_ms(calls[side]))[0])
     row = {}
     for side, fn in calls.items():
-        us, launches = device_us(fn)
+        us, launches = device_us(fn, per_call=per_call)
         row[side] = dict(ms=ms[side], device_us=us,
                          launches_per_call=launches)
         print(f"[compare] {label} {side}: CUDA events {ms[side][0]:.4f} / "
               f"{ms[side][1]:.4f} ms, device {us:.1f} us per call over "
-              f"{launches:.0f} launches")
+              f"{launches:.2f} launches traced per call")
     result[label] = row
 
 
@@ -240,22 +264,171 @@ def compare_sqnxt(this, other, kernel, result):
         time_in_turns(f"{label} {name}", calls, result)
 
 
+def k2_call(mod, tab, b_err, dt, y, J, inv, Ws, bs, rows=0):
+    """One K2 launch of ``mod`` (a checkout's ops.fused_ark_forward) through
+    its C entry point: (y1, Ys) or (y1, err, Ys). ``rows`` forces the rows
+    per block where the entry point takes them."""
+    import torch
+
+    b = mod._build
+    fn = b.library().pnode_ark_fwd
+    s, (B, d) = len(tab[2]), y.shape
+    dims = [d] + [int(w.shape[1]) for w in Ws]
+    y1 = torch.empty_like(y)
+    Ys = torch.empty((s, B, d), device=y.device)
+    err = None if b_err is None else torch.empty_like(y)
+    args = [y.data_ptr(), J.data_ptr(), inv.data_ptr(), y1.data_ptr(),
+            Ys.data_ptr(), None if err is None else err.data_ptr(), B, d, s,
+            mod.tableau_array(tab),
+            None if b_err is None else b.double_array(b_err[0] + b_err[1]),
+            dt, -1.0, len(Ws), b.int_array(dims), b.ptr_array(Ws),
+            b.ptr_array(bs), 1]
+    if len(fn.argtypes) == 20:
+        args.append(rows)
+    elif rows:
+        raise SystemExit("the other checkout's K2 takes no rows per block")
+    rc = fn(*args, b.stream_of(y))
+    b.check(rc, "K2")
+    return (y1, Ys) if err is None else (y1, err, Ys)
+
+
+def k2_cases():
+    """(label, tableau, embedded weights, dt, y, J, inv, Ws, bs) of the K2
+    comparisons on the card."""
+    import torch
+
+    from chip_smoke import GAMMA, ks_data, ks_operators
+
+    from ..tableaus import get_ark_tableau
+
+    t = get_ark_tableau("3")
+    b_err = ([float(x) for x in t.b_im_err], [float(x) for x in t.b_ex_err])
+    dt = float(np.float32(0.2))
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device="cuda")
+    J, inv, tab, _ = ks_operators("cuda")
+    u = ks_data()
+    cases = []
+    for label, B, dims in (("KS B256", 256, STACKS[0][2]),
+                           ("KS B37", 37, STACKS[0][2]),
+                           ("Burgers B200", 200, STACKS[1][2])):
+        d = dims[0]
+        Ws = [f32(rng.normal(0, a ** -0.5, size=(a, b)))
+              for a, b in zip(dims, dims[1:])]
+        bs = [f32(rng.normal(0, 0.1, size=b)) for b in dims[1:]]
+        if d == 64:
+            y, Jc, invc = f32(u[rng.choice(len(u), B, replace=False)]), J, inv
+        else:
+            A = rng.normal(size=(d, d))
+            J64 = -2.0 * (A @ A.T) / d
+            y, Jc = f32(rng.normal(size=(B, d))), f32(J64)
+            invc = f32(np.linalg.inv(np.eye(d) - dt * GAMMA * J64))
+        for be in (None, b_err):
+            cases.append((label + (" err" if be else ""), tab, be, dt, y, Jc,
+                          invc, Ws, bs))
+    return cases
+
+
+def compare_k2(this, other, result):
+    import torch
+
+    for label, tab, be, dt, y, J, inv, Ws, bs in k2_cases():
+        outs = {side: k2_call(mod, tab, be, dt, y, J, inv, Ws, bs)
+                for side, mod in (("this", this), ("other", other))}
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(outs["this"], outs["other"])]
+        tols = [1e-4 if be and i == 1 else 1e-5 for i in range(len(errs))]
+        print(f"[compare] {label} fused_ark_step_fwd: this vs other, max "
+              f"|diff| / max |other| {', '.join(f'{e:.3e}' for e in errs)}")
+        if any(e > t for e, t in zip(errs, tols)):
+            raise SystemExit(f"{label}: the two K2 disagree")
+        calls = {side: (lambda m=mod, a=(tab, be, dt, y, J, inv, Ws, bs):
+                        k2_call(m, *a))
+                 for side, mod in (("other", other), ("this", this))}
+        time_in_turns(f"{label} fused_ark_step_fwd", calls, result,
+                      per_call=1)
+    # this checkout's K2 at forced rows per block, in turns
+    from chip_smoke import cuda_times_ms, summary
+
+    for label, tab, be, dt, y, J, inv, Ws, bs in k2_cases():
+        if be is not None or label == "KS B37":
+            continue
+        args = (tab, be, dt, y, J, inv, Ws, bs)
+        rows = [r for r in (1, 2, 4, 8) if _fits_rows(this, r, args)]
+        ref = k2_call(this, *args, rows=rows[0])
+        ms = {r: [] for r in rows}
+        for r in rows + rows[::-1]:
+            ms[r].append(summary(cuda_times_ms(
+                lambda r=r: k2_call(this, *args, rows=r)))[0])
+        row = {}
+        for r in rows:
+            got = k2_call(this, *args, rows=r)
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            us, launches = device_us(
+                lambda r=r: k2_call(this, *args, rows=r), per_call=1)
+            row[r] = dict(ms=ms[r], device_us=us, bitwise_equal=same)
+            print(f"[compare] {label} K2 at {r} rows per block (grid "
+                  f"{-(-y.shape[0] // r)}): CUDA events {ms[r][0]:.4f} / "
+                  f"{ms[r][1]:.4f} ms, device {us:.1f} us; same bits as "
+                  f"{rows[0]} rows: {same}")
+            if not same:
+                raise SystemExit(f"{label}: K2 at {r} rows gives other bits")
+        result[f"{label} rows"] = row
+
+
+def _fits_rows(mod, rows, args):
+    """True when the C entry point takes ``rows`` rows per block here."""
+    try:
+        k2_call(mod, *args, rows=rows)
+    except RuntimeError:
+        return False
+    return True
+
+
+def compare_k13(this, other, result):
+    import torch
+
+    from chip_smoke import device_us_per_call
+
+    lib = this._build.library()
+    optin = this._build.int_array([0])
+    this._build.check(lib.pnode_smem_optin(optin), "opt-in query")
+    n = optin[0]
+    x = this.probe_input(n, "cuda")
+    for side, mod in (("this", this), ("other", other)):
+        if not torch.equal(mod.probe_smem(x, n), 3.0 * x):
+            raise SystemExit(f"{side}'s K13 is not 3x at {n} B")
+    print(f"[compare] K13 at {n} B x {x.numel()} floats: both bitwise 3x")
+    calls = {side: (lambda m=mod: m.probe_smem(x, n))
+             for side, mod in (("other", other), ("this", this))}
+    time_in_turns(f"K13 at {n} B", calls, result, per_call=1)
+    us, _ = device_us_per_call(lambda: torch.mul(x, 3), [""])
+    result[f"K13 at {n} B"]["torch.mul"] = dict(device_us=us)
+    print(f"[compare] K13 at {n} B torch.mul(x, 3): device {us:.1f} us")
+
+
+MODULES = {"k1": "ops.fused_mlp", "k2": "ops.fused_ark_forward",
+           "k13": "tools.probe_smem_limit"}
+
+
 def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--kernel", nargs="+", default=["k1"],
-                    choices=("k1", "k6", "k7", "k8", "k9"),
+                    choices=("k1", "k2", "k6", "k7", "k8", "k9", "k13"),
                     help="one or more kernels, compared in this order")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels needs a CUDA card")
     result = {}
     for kernel in args.kernel:
-        module = "fused_mlp" if kernel == "k1" else "fused_sqnxt"
+        module = MODULES.get(kernel, "ops.fused_sqnxt")
         this = importlib.import_module(
-            f"{__package__.rsplit('.', 1)[0]}.ops.{module}")
+            f"{__package__.rsplit('.', 1)[0]}.{module}")
         other = load_other(args.other, module)
         builds = [threading.Thread(target=m._build.library)
                   for m in (this, other)]
@@ -265,6 +438,10 @@ def main(argv=None):
             t.join()
         if kernel == "k1":
             compare_k1(this, other, result)
+        elif kernel == "k2":
+            compare_k2(this, other, result)
+        elif kernel == "k13":
+            compare_k13(this, other, result)
         else:
             compare_sqnxt(this, other, kernel, result)
     print(json.dumps(result))

@@ -1,0 +1,201 @@
+"""K2's launch plan and its plain version at the KS widths.
+
+``ark_fwd_plan`` (ops/fused_ark_adjoint.py) mirrors the C plan of the fused
+ARK forward step (csrc/ark_tiles.cuh plan_fwd, entry point
+pnode_ark_fwd_plan): rows per block, grid and shared-memory bytes. The
+pinned triples are the C plan's own on an H100 (132 SMs), which
+chip_smoke.py's build phase holds against this mirror at the same shapes.
+Beside them: the rule's dependence on the SM count, the refusals, the fits
+gate's answers, the forward wrapper's own gate, and the reverse-step cost
+counts without the MLP's last-layer forward. Then K2's plain version
+against the JAX package's ``_kernel`` in interpret mode at the KS widths
+(d 64, hidden 104, B 16) with the embedded error output, at the forward's
+tolerances (rtol 3e-5 / atol 1e-6, tests/test_fused_ark_adjoint.py:183);
+err, a difference that cancels, within max(1e-4, 3 e64) of max |err|, e64
+the plain version's own distance from fp64 (the test says why).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pnode_tpu.ops.fused_ark_forward import fused_ark_step_fwd as j_fwd
+from pnode_tpu.tableaus import get_ark_tableau
+from pnode_tpu_torch.ops.fused_ark_adjoint import (
+    MAX_SMEM_BYTES, adj_smem_bytes, ark_fwd_plan, fused_ark_fits,
+    fused_ark_step_adj,
+)
+from pnode_tpu_torch.ops.fused_ark_forward import (
+    fused_ark_step_fwd, fused_ark_step_fwd_plain,
+)
+from pnode_tpu_torch.ops.fused_train_loop import (
+    fused_grad_step_cost, fused_train_loop_cost,
+)
+
+torch.set_num_threads(1)
+
+KS = [104] * 4 + [64]
+BURGERS = [576] * 4 + [512]
+
+# (B, d, layer widths, stages) -> the C plan's (rows, grid, bytes) on 132
+# SMs, as chip_smoke.py's build phase printed them
+C_PLANS = [
+    ((256, 64, KS, 4), (2, 128, 135296)),
+    ((37, 64, KS, 4), (1, 37, 127552)),
+    ((1, 64, KS, 4), (1, 1, 127552)),
+    ((3173, 64, KS, 4), (8, 397, 181760)),
+    ((200, 512, BURGERS, 4), (2, 100, 232448)),
+    ((200, 512, BURGERS, 8), (2, 100, 232448)),
+    ((37, 13, [100, 13], 4), (1, 37, 14496)),
+    ((37, 100, [13, 100], 4), (1, 37, 97712)),
+    ((37, 64, [64], 2), (1, 37, 72448)),
+    ((37, 64, [24] * 7 + [64], 6), (1, 37, 51456)),
+]
+
+
+@pytest.mark.parametrize("shape, plan", C_PLANS,
+                         ids=[f"B{a[0]}-d{a[1]}-s{a[3]}-{len(a[2])}l"
+                              for a, _ in C_PLANS])
+def test_mirror_equals_the_c_plan(shape, plan):
+    assert ark_fwd_plan(*shape) == plan
+    assert plan[2] <= MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("stages", [1, 2, 4, 6, 8])
+def test_ks_rows_and_grid_at_every_stage_count(stages):
+    """At B 256 the grid is 128 blocks of 2 rows whatever the tableau; the
+    stage tiles (2 s R d floats) are all that grows."""
+    rows, grid, smem = ark_fwd_plan(256, 64, KS, stages)
+    assert (rows, grid) == (2, 128)
+    assert smem == ark_fwd_plan(256, 64, KS, 1)[2] + 4 * 2 * 2 * 64 * (
+        stages - 1)
+
+
+@pytest.mark.parametrize("sms, B, rows", [(132, 132, 1), (132, 133, 2),
+                                          (132, 264, 2), (132, 265, 4),
+                                          (64, 256, 4), (16, 256, 8),
+                                          (8, 256, 8)])
+def test_rows_are_the_fewest_whose_grid_fits_one_block_per_sm(sms, B, rows):
+    assert ark_fwd_plan(B, 64, KS, 4, sms)[:2] == (rows, -(-B // rows))
+
+
+@pytest.mark.parametrize("args", [
+    (16, 64, [1100, 64], 4),          # a layer wider than 256 x 4 columns
+    (16, 64, [104] * 8 + [64], 4),    # 9 layers
+    (16, 64, KS, 9),                  # 9 stages
+    (16, 64, KS, 0),
+    (16, 64, [104] * 4 + [32], 4),    # the MLP does not map d to d
+    (0, 64, KS, 4),
+    (16, 64, [0, 64], 4),
+])
+def test_plan_refuses(args):
+    assert ark_fwd_plan(*args) is None
+
+
+def test_fits_gate_answers():
+    """The steppers route as before: KS fits both step kernels, the
+    Burgers-512 forward fits alone and its reverse (K3, 8-row blocks) does
+    not."""
+    assert fused_ark_fits(64, KS, 4)
+    assert fused_ark_fits(512, BURGERS, 4, reverse=False)
+    assert not fused_ark_fits(512, BURGERS, 4)
+    assert adj_smem_bytes(64, KS, 4) == 42496
+    assert adj_smem_bytes(512, BURGERS, 4) > MAX_SMEM_BYTES
+    assert not fused_ark_fits(64, [1100, 64], 4, reverse=False)
+
+
+def _tableau(name):
+    t = get_ark_tableau(name)
+    return (([[float(x) for x in r] for r in t.a_im],
+             [[float(x) for x in r] for r in t.a_ex],
+             [float(x) for x in t.b_im], [float(x) for x in t.b_ex]),
+            ([float(x) for x in t.b_im_err], [float(x) for x in t.b_ex_err]),
+            t)
+
+
+def _operands(name, B, d, layers, seed, dt=0.2):
+    tbl, b_err, t = _tableau(name)
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(d, d))
+    J = -2.0 * (A @ A.T) / d
+    gamma = [g for g in np.diag(t.a_im) if g != 0.0][0]
+    inv = np.linalg.inv(np.eye(d) - dt * gamma * J)
+    dims = [d] + list(layers)
+    Ws = [rng.normal(0, a ** -0.5, size=(a, b)) for a, b in zip(dims, dims[1:])]
+    bs = [0.1 * rng.normal(size=b) for b in dims[1:]]
+    y = rng.normal(size=(B, d))
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return (tbl, b_err, float(np.float32(dt)), f32(y), f32(J), f32(inv),
+            [f32(w) for w in Ws], [f32(b) for b in bs])
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def test_forward_wrapper_gates_on_the_forward_alone():
+    """fused_ark_step_fwd takes the Burgers-512 stack (its kernel streams the
+    operators and weights); the reverse step refuses it."""
+    tbl, _, dt, y, J, inv, Ws, bs = _operands("3", 2, 512, BURGERS, seed=4,
+                                              dt=1e-3)
+    W, b = [_t(w) for w in Ws], [_t(v) for v in bs]
+    y1, ys = fused_ark_step_fwd(tbl, dt, _t(y), _t(J), _t(inv), W, b)
+    assert y1.shape == (2, 512) and ys.shape == (4, 2, 512)
+    assert bool(torch.isfinite(y1).all())
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        fused_ark_step_adj(tbl, dt, ys, _t(y), _t(J), _t(inv), W, b)
+
+
+def test_reverse_costs_leave_out_the_last_layer_forward():
+    """The reverse recomputes layers 0..n-2's inputs and backprops every
+    layer (dX, dW): 3x the forward MLP less the last layer's forward, as
+    chip_smoke.mlp_costs counts K1's backward."""
+    tbl = _tableau("3")[0]
+    B, d, s = 256, 64, 4
+    dims = [d] + KS
+    mlp = sum(2 * B * a * b for a, b in zip(dims, dims[1:]))
+    last = 2 * B * 104 * 64
+    stiff = 2 * B * d * d
+    w = sum(a * b + b for a, b in zip(dims, dims[1:]))
+    flops, _ = fused_train_loop_cost(tbl, B, d, KS, 8)
+    assert flops == (s * (stiff + mlp) + s * (stiff + 3 * mlp - last)
+                     + 10 * w + 3 * B * d)
+    gflops, _ = fused_grad_step_cost(tbl, B, d, KS)
+    assert gflops == flops - 10 * w
+
+
+@pytest.mark.parametrize("name", ["3", "4"])
+def test_k2_plain_matches_jax_interpret_at_ks_widths(name):
+    """K2's plain version (what chip_smoke holds the kernel to) against the
+    JAX package's _kernel in interpret mode at d 64, hidden 104, B 16, with
+    the embedded error output."""
+    tbl, b_err, dt, y, J, inv, Ws, bs = _operands(name, 16, 64, KS, seed=7)
+    y1_j, err_j, ys_j = j_fwd(tbl, dt, jnp.asarray(y), jnp.asarray(J),
+                              jnp.asarray(inv), [jnp.asarray(w) for w in Ws],
+                              [jnp.asarray(b) for b in bs], b_err=b_err,
+                              interpret=True, stiff_prec="highest")
+    y1_t, err_t, ys_t = fused_ark_step_fwd(
+        tbl, dt, _t(y), _t(J), _t(inv), [_t(w) for w in Ws],
+        [_t(b) for b in bs], b_err=b_err)
+    np.testing.assert_allclose(y1_t.numpy(), np.asarray(y1_j), rtol=3e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=3e-5,
+                               atol=1e-6)
+    # err is a small difference of stage sums whose implicit kI is the
+    # difference quotient (Y - G) / (dt a_ii): two fp32 evaluations part by
+    # up to a few times either one's distance from fp64 (6 stages: ~3e-4
+    # of max |err|), so the gate is max(1e-4, 3 e64) of max |err|, e64 the
+    # plain version's own distance from its fp64 run (chip_smoke's K2 edge
+    # gate)
+    err_j = np.asarray(err_j)
+    scale = float(np.abs(err_j).max())
+    assert scale > 0.0
+    err64 = fused_ark_step_fwd_plain(
+        tbl, dt, _t(y).double(), _t(J).double(), _t(inv).double(),
+        [_t(w).double() for w in Ws], [_t(b).double() for b in bs],
+        b_err=b_err)[1].numpy()
+    e64 = float(np.abs(err_t.numpy() - err64).max()) / scale
+    tol = max(1e-4, 3.0 * e64) * scale
+    np.testing.assert_allclose(err_t.numpy(), err_j, rtol=0, atol=tol)
+    np.testing.assert_allclose(err64, err_j, rtol=0, atol=tol)
