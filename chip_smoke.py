@@ -11,9 +11,11 @@ exits non-zero without printing the final line):
 1. Device: CUDA present, compute capability 9.0; prints the card's name and
    power limit as nvidia-smi reports them.
 2. Build: compiles pnode_tpu_torch/csrc/*.cu for sm_90a with nvcc (timed);
-   fails where ptxas reports spill in csrc/sqnxt_fwd.cu (K6, K8) or
-   csrc/fused_ark_forward.cu (K2), and where K2's C plan (rows per block,
-   grid, shared memory) differs from its Python mirror at FWD_PLANS.
+   fails where ptxas reports spill in csrc/sqnxt_fwd.cu (K6, K8),
+   csrc/fused_ark_forward.cu (K2), csrc/fused_ark_adjoint.cu (K3) or
+   csrc/fused_grad_step.cu (K12), and where K2's, K3's or K12's C plan
+   (rows per block, grid, shared memory) differs from its Python mirror at
+   FWD_PLANS (K3 and K12 also at the DP shards).
    Then the probe (python -m pnode_tpu_torch.tools.probe_smem_limit, K13):
    the largest dynamic shared memory one block takes, up a ladder and
    bisected to 4 bytes, must equal the gates' MAX_SMEM_BYTES and the card's
@@ -38,7 +40,13 @@ exits non-zero without printing the final line):
    1 and 8 layers, tanh, 2, 6 and 8 stages, the Burgers forward at d 512,
    B 200), with and without err, against the plain versions in fp32 and
    fp64, each call repeated bitwise (phase_k2_edges says how it gates);
-   the device times of K2 (with and without err) and K3. Then K4,
+   the device times of K2 (with and without err) and K3. K3 at the edges
+   of its plan and tiling (K3_EDGES: K2's without Burgers, whose reverse
+   the fits gate keeps closed, a stack whose layer store the plan
+   shrinks, and d 200 and 300, whose inv and J are read in place) at
+   the plan's rows per block and at every forced R that fits: against
+   the plain versions in fp32 and fp64 with K3's gates,
+   lam_prev bitwise equal across R, each call repeated bitwise. Then K4,
    the fused training loop, against fused_train_loop_plain on K = 8
    distinct KS minibatches (Adam lr 5e-3) at the main path's shapes, at
    the ragged size (chunk=8) and at a batch whose row tiles outnumber the
@@ -130,8 +138,9 @@ exits non-zero without printing the final line):
    x4 -> 64, ARK3, dt 0.2, frozen J, ksponly, Adam lr 5e-3, KS states).
    (a) K12 (fused_grad_step) against its plain version in fp32 and fp64 at
    B_local 256, 128, 64 and 32 (the shard at world 1, 2, 4 and 8) and at B
-   37, hidden 24, with phase 3's K3 gates; per call beside its plain
-   version. (b) dp_fused_train_loop in a spawned one-rank NCCL group with
+   37, hidden 24, with phase 3's K3 gates, at the plan's rows per block and
+   at every forced R that fits; per call beside its plain version, and its
+   device time. (b) dp_fused_train_loop in a spawned one-rank NCCL group with
    force_general, K = 8 iterations against K4 on the same full batch in
    phase 4(a)'s form (runs_agree); without force_general K4 launches and
    K12 does not. (c) The same over gloo in groups of 2 and 4 processes on
@@ -147,9 +156,9 @@ Phases 1-6 run at their full depth; phase 7 adds about 60 s, phase 8 about
 
 The line before the last is a JSON object with one entry per kernel (K1's
 two also carry ``burgers``: its readings at the Burgers stack and its
-launches over phase 7(b); K7 and K9 carry ``device_ms``, K7 ``stage3``:
-its readings at stage 3); the last line is {"ok": true, "device":
-{...}}.
+launches over phase 7(b); K2, K3, K6-K9, K12 and K13 carry
+``device_ms``, the profiler's device time per call; K7 ``stage3``: its
+readings at stage 3); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -198,7 +207,7 @@ KERNELS = {
                              "pnode_tpu/ops/circular_stencil.py:32"),
     "circular_stencil_bwd": ("cuda", "pnode_tpu_torch/csrc/circular_stencil.cu",
                              "pnode_tpu/ops/circular_stencil.py:41"),
-    "fused_grad_step": ("cuda", "pnode_tpu_torch/csrc/fused_train_loop.cu",
+    "fused_grad_step": ("cuda", "pnode_tpu_torch/csrc/fused_grad_step.cu",
                         "pnode_tpu/ops/fused_train_loop.py:613"),
     "probe_smem": ("cuda", "pnode_tpu_torch/csrc/probe_smem.cu",
                    "tools/probe_vmem_limit.py:35"),
@@ -343,10 +352,14 @@ def ptxas_report(log, source):
     return funcs
 
 
-# sources whose every function must compile without spill: K6/K8 and K2
+# sources whose every function must compile without spill: K6/K8, K2, K3
+# and K12
 NO_SPILL = (("sqnxt_fwd.cu", "sqnxt_fwd_kernel", "K6/K8"),
-            ("fused_ark_forward.cu", "ark_fwd_kernel", "K2"))
-# K2's plan against its Python mirror: (B, d, layer widths, stages)
+            ("fused_ark_forward.cu", "ark_fwd_kernel", "K2"),
+            ("fused_ark_adjoint.cu", "ark_adj_kernel", "K3"),
+            ("fused_grad_step.cu", "grad_step_kernel", "K12"))
+# K2's, K3's and K12's plans against their Python mirrors: (B, d, layer
+# widths, stages); K3 and K12 also at the DP shards (DP_PLANS)
 KS_LAYERS = [HIDDEN] * 4 + [NX]
 FWD_PLANS = ((BATCH, NX, KS_LAYERS, 4), (37, NX, KS_LAYERS, 4),
              (1, NX, KS_LAYERS, 4), (3173, NX, KS_LAYERS, 4),
@@ -354,17 +367,18 @@ FWD_PLANS = ((BATCH, NX, KS_LAYERS, 4), (37, NX, KS_LAYERS, 4),
              (200, 512, [576] * 4 + [512], 8),
              (37, 13, [100, 13], 4), (37, 100, [13, 100], 4),
              (37, NX, [NX], 2), (37, NX, [24] * 7 + [NX], 6),
-             (16, NX, [1100, NX], 4))
+             (16, NX, [1100, NX], 4), (37, 200, [200, 200], 4),
+             (37, 300, [300], 4))
+DP_PLANS = tuple((B, NX, KS_LAYERS, 4) for B in (128, 64, 32))
 
 
 def phase_build():
     import torch
 
     from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops import fused_ark_adjoint as adj
     from pnode_tpu_torch.ops import fused_ark_forward as fwd
     from pnode_tpu_torch.ops.fused_adaptive_loop import _adaptive_smem_bytes
-    from pnode_tpu_torch.ops.fused_ark_adjoint import (adj_smem_bytes,
-                                                       ark_fwd_plan)
     from pnode_tpu_torch.ops.fused_train_loop import _loop_smem_bytes
 
     t0 = time.perf_counter()
@@ -389,32 +403,35 @@ def phase_build():
                 st or ld for _, st, ld in funcs.values()):
             raise AssertionError(f"{name}: ptxas reports spill in "
                                  f"csrc/{source} (or no kernel there)")
-    # the fits gates mirror the kernels' shared-memory layout in Python
+    # the loop kernels' fits gates mirror their shared-memory layout
     for d, layers, s in ((NX, [HIDDEN] * 4 + [NX], 4), (512, [576] * 4 + [512], 8)):
         dims = [d] + layers
-        adj = lib.pnode_ark_adj_smem(d, s, max(dims), 8 * sum(dims[:-1]))
         loop = lib.pnode_train_loop_smem(d, s, max(dims), 8 * sum(dims[:-1]))
         adapt = lib.pnode_adaptive_loop_smem(d, s, max(dims),
                                              8 * sum(dims[:-1]), MAX_TRIALS)
-        if (adj, loop, adapt) != (
-                adj_smem_bytes(d, layers, s),
-                _loop_smem_bytes(d, layers, s),
-                _adaptive_smem_bytes(d, layers, s, MAX_TRIALS)):
+        if (loop, adapt) != (_loop_smem_bytes(d, layers, s),
+                             _adaptive_smem_bytes(d, layers, s, MAX_TRIALS)):
             raise AssertionError(f"the fits gates disagree with the kernels' "
-                                 f"shared memory ({adj}, {loop}, {adapt}) at "
-                                 f"d={d}")
-        log(f"[build] kernels' shared memory at d={d}, s={s}: reverse step "
-            f"{adj} B, training loop {loop} B, adaptive loop ({MAX_TRIALS} "
-            f"trials) {adapt} B")
-    # K2's plan (rows per block, grid, bytes) against its mirror
+                                 f"shared memory ({loop}, {adapt}) at d={d}")
+        log(f"[build] kernels' shared memory at d={d}, s={s}: training loop "
+            f"{loop} B, adaptive loop ({MAX_TRIALS} trials) {adapt} B")
+    # K2's, K3's and K12's plans (rows per block, grid, bytes) against
+    # their mirrors
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for B, d, layers, s in FWD_PLANS:
-        got = fwd.plan(B, d, layers, s, torch.device("cuda", 0))
-        want = ark_fwd_plan(B, d, layers, s, sms)
-        log(f"[build] K2's plan at B {B}, {[d] + layers}, s {s}: {got} "
-            f"(mirror {want}; {sms} SMs)")
-        if got != want:
-            raise AssertionError("K2's plan disagrees with ark_fwd_plan")
+    dev = torch.device("cuda", 0)
+    for name, shapes, c_plan, mirror in (
+            ("K2", FWD_PLANS, fwd.plan, adj.ark_fwd_plan),
+            ("K3", FWD_PLANS + DP_PLANS, adj.plan, adj.ark_adj_plan),
+            ("K12", FWD_PLANS + DP_PLANS,
+             lambda *a: adj.plan(*a, grad=True), adj.grad_step_plan)):
+        for B, d, layers, s in shapes:
+            got = c_plan(B, d, layers, s, dev)
+            want = mirror(B, d, layers, s, sms)
+            log(f"[build] {name}'s plan at B {B}, {[d] + layers}, s {s}: "
+                f"{got} (mirror {want}; {sms} SMs)")
+            if got != want:
+                raise AssertionError(f"{name}'s plan disagrees with its "
+                                     "mirror")
     # K4's and K5's grids: min(ceil(B / 8), co-resident blocks of a launch)
     for name, cap in (("training loop", loop_capacity(HIDDEN)),
                       ("adaptive loop", loop_capacity(HIDDEN, adaptive=True))):
@@ -712,8 +729,10 @@ def phase_kernels(device, u):
                 reports[name]["device_ms"] = us / 1e3
                 log(f"[kernels]   {name}: device {us:.2f} us per call "
                     f"({traced} launches traced)")
+            log(f"[kernels]   fused_ark_step_adj: {partial_bytes(B, HIDDEN)}")
     phase_k1_edges(device, u)
     phase_k2_edges(device, u)
+    phase_k3_edges(device, u)
     reports["fused_train_loop"] = phase_loop_kernel(device, u, J, inv, tab,
                                                     dt)
     reports["fused_adaptive_train_loop"] = phase_adaptive_kernel(device, u,
@@ -894,6 +913,108 @@ def phase_k2_edges(device, u):
             f"{'equals' if same else 'DIFFERS FROM'} the first bitwise")
         if not same:
             raise AssertionError("K2 is not deterministic")
+
+
+# K3 at the edges of its plan and tiling: K2_EDGES without the Burgers
+# reverse (the fits gate keeps it closed), three 1024-wide layers at 8
+# stages, where no R holds every stage's layer store (the plan keeps 7
+# stage slots at one row, so dW/db are flushed twice, and the weights
+# stream in chunks), and d 200 and 300, where inv and J do not fit in
+# shared memory and are read in place (at d 300 the stiff products take
+# two column blocks); every case at the plan's rows per block and at each
+# forced R that fits
+K3_EDGES = K2_EDGES[:-1] + (
+    ("store flushed twice", 5, [NX, 1024, 1024, 1024, NX], "relu", "5"),
+    ("inv, J in place d 200", 37, [200, 200, 200], "relu", "3"),
+    ("inv, J in place d 300", 37, [300, 300], "relu", "3"))
+
+
+def partial_bytes(B, hidden, grad=False):
+    """K3's (or K12's) partials at the KS widths and batch B: the plan's
+    grid, and the bytes the blocks write and the block-order sum reads back
+    (fp32), beside the kernel's time (not in its bound)."""
+    from pnode_tpu_torch.ops.fused_ark_adjoint import (ark_adj_plan,
+                                                       grad_step_plan)
+
+    dims = [NX] + [hidden] * 4 + [NX]
+    plan = (grad_step_plan if grad else ark_adj_plan)(B, NX, dims[1:], 4)
+    per = sum(a * b + b for a, b in zip(dims, dims[1:]))
+    if grad:  # and the loss, in a slice rounded up to 16 bytes
+        per = -(-(per + 1) // 4) * 4
+    return (f"plan {plan} (rows, grid, B); partials {plan[1]} x {per} floats"
+            f": {4 * plan[1] * per} B written, the same read back by the sum")
+
+
+def phase_k3_edges(device, u):
+    """Phase 3's K3 edge cases (K3_EDGES), K2_EDGES' operators, states and
+    weights, a covector lam ~ N(0, 1) and the plain fp32 forward's stage
+    values, at the plan's rows per block and at every forced R whose plan
+    fits: lam_prev, dW and db within 1e-4 of max |ref| of the plain version
+    in fp32 and in fp64 (K3's gates); lam_prev bitwise equal across R (every
+    R runs the same chains); each call repeated bitwise."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_ark_adjoint import (
+        ark_adj_plan, forced_rows, fused_ark_step_adj,
+        fused_ark_step_adj_plain)
+    from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd_plain
+    from pnode_tpu_torch.tableaus import get_ark_tableau
+
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
+    f64 = lambda ts: [t.to(torch.float64) for t in ts]  # noqa: E731
+    flat3 = lambda r: [r[0], *r[1][0], *r[1][1]]  # noqa: E731
+    J_ks, inv_ks, tab_ks, _ = ks_operators(device)
+    dt = float(np.float32(DT))
+    for i, (label, B, dims, act, tname) in enumerate(K3_EDGES):
+        rng = np.random.default_rng(300 + i)
+        d = dims[0]
+        t = get_ark_tableau(tname)
+        tab = ([[float(x) for x in r] for r in t.a_im],
+               [[float(x) for x in r] for r in t.a_ex],
+               [float(x) for x in t.b_im], [float(x) for x in t.b_ex])
+        s = len(tab[2])
+        if d == NX and tname == "3":
+            J, inv, tab = J_ks, inv_ks, tab_ks
+        else:
+            A = rng.normal(size=(d, d))
+            J64 = -2.0 * (A @ A.T) / d
+            gamma = [g for g in np.diag(t.a_im) if g != 0.0][0]
+            J = f32(J64)
+            inv = f32(np.linalg.inv(np.eye(d) - dt * gamma * J64))
+        Ws = [f32(rng.normal(0.0, a ** -0.5, size=(a, b)))
+              for a, b in zip(dims, dims[1:])]
+        bs = [f32(rng.normal(0.0, 0.1, size=b)) for b in dims[1:]]
+        x = f32(u[rng.choice(len(u), B, replace=B > len(u))] if d == NX
+                else rng.normal(size=(B, d)))
+        lam = f32(rng.normal(size=(B, d)))
+        Ys = fused_ark_step_fwd_plain(tab, dt, x, J, inv, Ws, bs, act)[1]
+        args = (tab, dt, Ys, lam, J, inv, Ws, bs, act)
+        plain = flat3(fused_ark_step_adj_plain(*args))
+        ref64 = flat3(fused_ark_step_adj_plain(
+            tab, dt, Ys.double(), lam.double(), J.double(), inv.double(),
+            f64(Ws), f64(bs), act))
+        forced = forced_rows(d, dims[1:], s)
+        log(f"[kernels] K3 edge: {label} (B {B}, {dims}, {act}, ARK "
+            f"{tname}, {s} stages): plan {ark_adj_plan(B, d, dims[1:], s)} "
+            f"(rows, grid, B), forced R {forced}")
+        outs = {}
+        for R in [0] + forced:
+            got = fused_ark_step_adj(*args, rows=R)
+            again = fused_ark_step_adj(*args, rows=R)
+            torch.cuda.synchronize()
+            check_kernel(f"fused_ark_step_adj R {R or 'plan'}", flat3(got),
+                         plain, ref64, 1e-4, {})
+            if not all(torch.equal(a, b)
+                       for a, b in zip(flat3(got), flat3(again))):
+                raise AssertionError(f"K3 {label} at R {R} is not "
+                                     "deterministic")
+            outs[R] = got[0]
+        same = all(torch.equal(lp, outs[0]) for lp in outs.values())
+        log(f"[kernels]   K3 {label}: each call repeated bitwise; lam_prev "
+            f"{'bitwise equal' if same else 'DIFFERENT'} across R "
+            f"{sorted(outs)}")
+        if not same:
+            raise AssertionError(f"K3 {label}: lam_prev differs across R")
 
 
 def check_embedded(tab, berr, dt, x, J, inv, Ws, bs, args64, report):
@@ -3018,7 +3139,8 @@ def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
     from pnode_tpu_torch.ops.circular_stencil import (
         circular_stencil_bwd, circular_stencil_fwd)
     from pnode_tpu_torch.ops.fused_ark_adjoint import (
-        adj_smem_bytes, ark_fwd_plan, fused_ark_fits, fused_ark_step_adj)
+        ark_adj_plan, ark_fwd_plan, fused_ark_fits, fused_ark_step_adj,
+        reverse_gate_bytes)
     from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd
     from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
 
@@ -3034,8 +3156,9 @@ def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
         f"MSE, Adam lr {LR}, seed-0 weights; the fused ARK step kernels "
         f"(K2, K3) stay off: fused_ark_fits {fused_ark_fits(BNX, layers, 4)} "
         f"(forward step: plan {ark_fwd_plan(BB, BNX, layers, 4)} (rows, "
-        f"grid, B); reverse step {adj_smem_bytes(BNX, layers, 4)} B per "
-        f"8-row block, limit 232448 B)")
+        f"grid, B); reverse step: plan {ark_adj_plan(BB, BNX, layers, 4)}, "
+        f"inv and J read in place, but the gate's 8-row budget "
+        f"{reverse_gate_bytes(BNX, layers, 4)} B is over)")
     batches = burgers_batches(n_steps)
     wrappers = {"fused_mlp_fwd": fused_mlp_fwd, "fused_mlp_bwd": fused_mlp_bwd,
                 "circular_stencil_fwd": circular_stencil_fwd,
@@ -3098,9 +3221,14 @@ DP_SHARDS = (256, 128, 64, 32)  # B_local at world 1, 2, 4 and 8
 
 def check_grad_step(label, tab, dt, J, inv, Ws, bs, y, tgt, report):
     """K12 against fused_grad_step_plain in fp32 and in fp64, phase 3's K3
-    gates: loss, dW and db within 1e-4 relative (to max |ref|) of both."""
+    gates: loss, dW and db within 1e-4 relative (to max |ref|) of both, at
+    the plan's rows per block and at every forced R whose plan fits (the
+    loss at each R is printed: each block sums its own rows' squared
+    errors, so R regroups the sum)."""
     import torch
 
+    from pnode_tpu_torch.ops.fused_ark_adjoint import (forced_rows,
+                                                       grad_step_plan)
     from pnode_tpu_torch.ops.fused_train_loop import (
         LoopLayout, fused_grad_step, fused_grad_step_plain)
 
@@ -3109,20 +3237,50 @@ def check_grad_step(label, tab, dt, J, inv, Ws, bs, y, tgt, report):
     args = (layout, tab, dt, y, tgt, J, inv, params)
     flat = lambda out: [out[0], *layout.unpack(out[1])[0],  # noqa: E731
                         *layout.unpack(out[1])[1]]
-    got = fused_grad_step(*args)
-    torch.cuda.synchronize()
     plain = fused_grad_step_plain(*args)
     ref64 = fused_grad_step_plain(layout, tab, dt, y.double(), tgt.double(),
                                   J.double(), inv.double(), params.double())
-    check_kernel(f"fused_grad_step {label}", flat(got), flat(plain),
-                 flat(ref64), 1e-4, report)
+    s, dims = len(tab[2]), layout.dims
+    forced = forced_rows(dims[0], dims[1:], s, grad=True)
+    losses = {}
+    for R in [0] + forced:
+        got = fused_grad_step(*args, rows=R)
+        torch.cuda.synchronize()
+        check_kernel(f"fused_grad_step {label} R {R or 'plan'}", flat(got),
+                     flat(plain), flat(ref64), 1e-4, report if R == 0 else {})
+        losses[R] = float(got[0])
+    log(f"[dp]   K12 {label}: plan {grad_step_plan(*y.shape, dims[1:], s)} "
+        f"(rows, grid, B); loss by R {losses}")
     return args
 
 
+def wide_case(device, B, d, seed=6):
+    """K12 operands past the staged operators' reach: J = -2 A A^T / d and
+    ARK3's stage inverse at the main path's dt, one d-wide hidden layer,
+    states ~ N(0, 1) and targets 0.05 from them: (J, inv, Ws, bs, y,
+    tgt)."""
+    import torch
+
+    from pnode_tpu_torch.tableaus import get_ark_tableau
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device=device)
+    A = rng.normal(size=(d, d))
+    J64 = -2.0 * (A @ A.T) / d
+    gamma = [g for g in np.diag(get_ark_tableau("3").a_im) if g != 0.0][0]
+    inv = np.linalg.inv(np.eye(d) - float(np.float32(DT)) * gamma * J64)
+    Ws = [f32(rng.normal(0.0, d ** -0.5, size=(d, d))) for _ in range(2)]
+    bs = [f32(rng.normal(0.0, 0.1, size=d)) for _ in range(2)]
+    y = rng.normal(size=(B, d))
+    return (f32(J64), f32(inv), Ws, bs, f32(y),
+            f32(y + 0.05 * rng.normal(size=(B, d))))
+
+
 def phase_grad_step(device, u, J, inv, tab, dt):
-    """Phase 8(a): K12 at the shards of world 1, 2, 4 and 8 and at the
-    ragged size, then per call at B_local 256 in turns with its plain
-    version."""
+    """Phase 8(a): K12 at the shards of world 1, 2, 4 and 8, at the
+    ragged size and at d 200 (inv and J read in place), then per call at
+    B_local 256 in turns with its plain version."""
     from pnode_tpu_torch.ops.fused_train_loop import (
         fused_grad_step, fused_grad_step_plain)
 
@@ -3137,12 +3295,19 @@ def phase_grad_step(device, u, J, inv, tab, dt):
     Ws, bs, y, tgt = loop_case(device, u, 37, 24, True, 2, 1)
     check_grad_step("B37 h24 biased", tab, dt, J, inv, Ws, bs, y[0], tgt[0],
                     report)
+    check_grad_step("B37 d 200 (inv, J in place)", tab, dt,
+                    *wide_case(device, 37, 200), report)
     fns = (lambda: fused_grad_step_plain(*main_args),
            lambda: fused_grad_step(*main_args))
     t = [summary(cuda_times_ms(fns[i], reps=20))[0] for i in (0, 1, 1, 0)]
     report["ms"], report["plain_ms"] = min(t[1], t[2]), min(t[0], t[3])
+    us, traced = device_us_per_call(fns[1], ["grad_step_kernel",
+                                             "grad_step_sum_kernel"])
+    report["device_ms"] = us / 1e3
     log(f"[dp]   fused_grad_step per call at B_local {BATCH}: kernel "
-        f"{t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms")
+        f"{t[1]:.4f} / {t[2]:.4f} ms (device {us:.2f} us, {traced} launches "
+        f"traced), plain {t[0]:.4f} / {t[3]:.4f} ms; "
+        f"{partial_bytes(BATCH, HIDDEN, grad=True)}")
     return report
 
 

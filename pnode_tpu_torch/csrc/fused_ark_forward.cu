@@ -48,7 +48,11 @@ ark_fwd_kernel(const float* __restrict__ y, float* __restrict__ y1,
                float* __restrict__ ys, float* __restrict__ err, int B,
                float sign, ark::StepArgs a) {
   extern __shared__ __align__(16) float smem[];
-  ark::forward_step<R>(a, y, y1, ys, err, B, sign, smem);
+  const int d = a.m.dims[0];
+  const size_t row0 = (size_t)blockIdx.x * R * d;
+  ark::forward_step<R>(a, y + row0, y1 + row0, ys + row0, (size_t)B * d,
+                       err != nullptr ? err + row0 : nullptr,
+                       min(R, B - (int)blockIdx.x * R), sign, smem);
 }
 
 template <int R>
@@ -60,21 +64,6 @@ static int launch_fwd(const float* y, float* y1, float* ys, float* err,
   ark_fwd_kernel<R><<<a.p.grid, ark::kThreads, a.p.smem, stream>>>(
       y, y1, ys, err, B, sign, a);
   return (int)cudaGetLastError();
-}
-
-static int sm_count(int* sms) {
-  static int cached[64] = {};
-  int dev = 0, rc;
-  if ((rc = (int)cudaGetDevice(&dev))) return rc;
-  if (dev < 64 && cached[dev]) {
-    *sms = cached[dev];
-    return 0;
-  }
-  if ((rc = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
-                                        dev)))
-    return rc;
-  if (dev < 64) cached[dev] = *sms;
-  return 0;
 }
 
 }  // namespace pnode
@@ -95,7 +84,7 @@ int pnode_ark_fwd_plan(int B, int d, int s, int n_layers, const int* dims,
   for (int l = 0; l <= n_layers; ++l)
     if (dims[l] < 1) return cudaErrorInvalidValue;
   int sms, rc;
-  if ((rc = sm_count(&sms))) return rc;
+  if ((rc = ark::sm_count(&sms))) return rc;
   ark::Plan p;
   if (!ark::plan_fwd(B, d, s, n_layers, dims, sms, &p))
     return cudaErrorInvalidValue;
@@ -127,7 +116,7 @@ int pnode_ark_fwd(const float* y, const float* J, const float* inv,
   if (B < 1 || dims[0] != d || dims[n_layers] != d)
     return cudaErrorInvalidValue;
   int sms;
-  if ((rc = sm_count(&sms))) return rc;
+  if ((rc = ark::sm_count(&sms))) return rc;
   const bool ok =
       rows == 0 ? ark::plan_fwd(B, d, s, n_layers, dims, sms, &a.p)
                 : ((rows == 1 || rows == 2 || rows == 4 || rows == 8) &&

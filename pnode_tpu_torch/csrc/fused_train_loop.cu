@@ -23,8 +23,8 @@
 // barrier cannot deadlock) runs every iteration of the call:
 //   phase A, per block of 8 rows: the forward step with all s stage values
 //     kept in shared memory (never written to device memory), the loss and
-//     its seed, and the reverse step (recomputing each stage's layer inputs,
-//     as K3 does; the TPU kernel cached them). The block writes its dW/db
+//     its seed, and the reverse step (recomputing each stage's layer inputs;
+//     the TPU kernel cached them). The block writes its dW/db
 //     partial and its partial loss sum to its own scratch slice. Rows past B
 //     are never computed, the counterpart of the TPU's row_mask.
 //   grid.sync()
@@ -38,20 +38,8 @@
 // reads them with coherent loads (load_operand<true>), never through the
 // read-only path. Parameters and moments live in one flat [W0, b0, W1, b1,
 // ...] buffer each, the layout of the gradient partials, so phase B is one
-// loop over that layout.
-//
-// K12, beside it: one iteration's phase A without Adam, the per-rank kernel
-// of the data-parallel loop. Replaces pnode_tpu/ops/fused_train_loop.py:
-// _grad_kernel (:613), launched by fused_grad_step (:688) from
-// parallel/fused_dp.py. It computes the loss and the flat gradient of the
-// local shard; the caller all-reduces them and runs Adam. What bounds it is
-// phase A's (one K2 and one K3 per 8-row tile, ~0.2 GFLOP at the KS shard
-// of B 128). Design: two ordinary launches, so that several processes can
-// share one card with no co-residency to guarantee: grad_step_kernel (phase
-// A, loop_phase_a, with each block's loss sum stored after its dW/db
-// partial), then grad_step_sum_kernel (the partials and the loss summed in
-// block order, no atomics). The weights do not change during the launch,
-// so K12 reads them through the read-only path.
+// loop over that layout. (K12, one iteration's phase A without Adam, is
+// csrc/fused_grad_step.cu.)
 #include <cooperative_groups.h>
 
 #include <cmath>
@@ -85,8 +73,7 @@ struct LoopSmem {
 // tgt), and the reverse step into this block's dW/db partial `part` (the
 // first tile overwrites it, later tiles add). Rows past B are never
 // computed. Returns the block's sum of squared differences in thread 0.
-// K4 (kCoherent: it rewrites the weights between iterations of one launch)
-// and K12 (weights fixed during its launch) share it.
+// kCoherent: K4 rewrites the weights between iterations of one launch.
 template <bool kCoherent>
 __device__ __forceinline__ float loop_phase_a(
     const float* y, const float* tgt, const float* J, const float* inv, int B,
@@ -178,53 +165,6 @@ train_loop_kernel(const float* __restrict__ y_stack,
   }
 }
 
-// K12: one iteration's phase A (loop_phase_a) per block; each block's slice
-// of `partial` (wtotal + 1 floats) holds its dW/db partial, then its sum of
-// squared differences.
-__global__ void __launch_bounds__(kThreads)
-grad_step_kernel(const float* __restrict__ y, const float* __restrict__ tgt,
-                 const float* __restrict__ J, const float* __restrict__ inv,
-                 float* __restrict__ partial, int B, int d, Tableau tb,
-                 float sign, Mlp p, float two_inv_count) {
-  extern __shared__ float smem[];
-  float* part = partial + (size_t)blockIdx.x * (p.wtotal + 1);
-  const float block_loss = loop_phase_a<false>(y, tgt, J, inv, B, d, tb, sign,
-                                               p, two_inv_count, smem, part);
-  if (threadIdx.x == 0) part[p.wtotal] = block_loss;
-}
-
-// K12's second launch: out[i] = sum_b partial[b * (wtotal + 1) + i] in block
-// order (deterministic, no atomics); the last slot, the squared-error sum,
-// times inv_count is the loss.
-__global__ void grad_step_sum_kernel(const float* __restrict__ partial,
-                                     int nblk, int wtotal, float inv_count,
-                                     float* __restrict__ out) {
-  const int n = wtotal + 1;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    float acc = 0.0f;
-    for (int b = 0; b < nblk; ++b) acc += partial[(size_t)b * n + i];
-    out[i] = i == wtotal ? acc * inv_count : acc;
-  }
-}
-
-// Host: the Mlp of a flat [W0, b0, W1, b1, ...] parameter buffer.
-static int flat_mlp(Mlp* p, const float* params, int n_layers,
-                    const int* dims, int d, int act) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
-  if (dims[0] != d || dims[n_layers] != d) return cudaErrorInvalidValue;
-  const void* Ws[kMaxLayers];
-  const void* bs[kMaxLayers];
-  size_t off = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    Ws[l] = params + off;
-    off += (size_t)dims[l] * dims[l + 1];
-    bs[l] = params + off;
-    off += dims[l + 1];
-  }
-  return make_mlp(p, n_layers, dims, Ws, bs, act);
-}
-
 }  // namespace pnode
 
 using namespace pnode;
@@ -294,56 +234,6 @@ int pnode_train_loop(const float* y_stack, const float* tgt_stack,
                                         dim3(grid), dim3(kThreads), args,
                                         smem, (cudaStream_t)stream);
   if (rc) return rc;
-  return (int)cudaGetLastError();
-}
-
-// Resident grad_step_kernel blocks on the current device with `smem` bytes
-// of dynamic shared memory each (blocks per SM x SMs), into *blocks: the
-// wrapper's cap on K12's grid.
-int pnode_grad_step_capacity(size_t smem, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  int rc;
-  if ((rc = (int)cudaGetDevice(&dev))) return rc;
-  if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                        dev)))
-    return rc;
-  if ((rc = prepare_smem(grad_step_kernel, smem))) return rc;
-  if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, grad_step_kernel, kThreads, smem)))
-    return rc;
-  *blocks = per_sm * sms;
-  return 0;
-}
-
-// K12: one iteration's loss and gradient on y, tgt (B, d) without Adam. out
-// (wtotal + 1 floats): the flat [W0, b0, W1, b1, ...] gradient, then the
-// loss sum((y1 - tgt)^2) / count; the seed is 2 (y1 - tgt) / count. params
-// as pnode_train_loop's (read only). partial: grid * (wtotal + 1) floats of
-// scratch. Two ordinary launches on `stream`: phase A with `grid` blocks
-// (blocks stride over the ceil(B / 8) row tiles), then the ordered sums.
-int pnode_grad_step(const float* y, const float* tgt, const float* J,
-                    const float* inv, const float* params, float* partial,
-                    float* out, int B, int d, int s, const double* tab,
-                    double dt, float sign, int n_layers, const int* dims,
-                    int act, double count, int grid, void* stream) {
-  if (B < 1 || grid < 1 || !(count > 0.0)) return cudaErrorInvalidValue;
-  Mlp p;
-  Tableau tb;
-  int rc = flat_mlp(&p, params, n_layers, dims, d, act);
-  if (rc) return rc;
-  if ((rc = make_tableau(&tb, s, tab, dt))) return rc;
-  const float inv_count = (float)(1.0 / count);
-  const float two_inv_count = (float)(2.0 / count);
-  const size_t smem = pnode_train_loop_smem(d, s, p.maxd, p.htotal);
-  if ((rc = prepare_smem(grad_step_kernel, smem))) return rc;
-  cudaStream_t st = (cudaStream_t)stream;
-  grad_step_kernel<<<grid, kThreads, smem, st>>>(y, tgt, J, inv, partial, B,
-                                                 d, tb, sign, p,
-                                                 two_inv_count);
-  if ((rc = (int)cudaGetLastError())) return rc;
-  const int n = p.wtotal + 1;
-  grad_step_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      partial, grid, p.wtotal, inv_count, out);
   return (int)cudaGetLastError();
 }
 

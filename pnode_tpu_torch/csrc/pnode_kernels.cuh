@@ -233,13 +233,13 @@ __device__ __forceinline__ float* mlp_backward(const Mlp& p, const float* hs,
   return gA;
 }
 
-// One ARK-IMEX forward step on one tile of `rows` rows (K2's body, shared
-// with K4 and K5). Shared memory: y (the input rows), kI and kE (s tiles
-// each of kRows * d), G (one tile), a and b (MLP ping-pong, kRows * maxd
-// each). Stage value i goes to Ys + i * ys_step (shared memory: K2 passes
-// one tile and ys_step 0, K4 keeps all s tiles for its reverse sweep), and,
-// when ys_out != nullptr, to ys_out + i * ys_out_step (K2's global
-// trajectory payload). y1 (row stride d) is shared or global memory; so is
+// One ARK-IMEX forward step on one tile of `rows` rows (K4's and K5's;
+// K2 and K12 run ark::forward_step, csrc/ark_tiles.cuh). Shared memory: y
+// (the input rows), kI and kE (s tiles each of kRows * d), G (one tile), a
+// and b (MLP ping-pong, kRows * maxd each). Stage value i goes to Ys + i *
+// ys_step (shared memory: K4 keeps all s tiles for its reverse sweep), and,
+// when ys_out != nullptr, to ys_out + i * ys_out_step (a global trajectory
+// payload). y1 (row stride d) is shared or global memory; so is
 // err, the embedded error estimate sum_i (dt (bI - bI_err)_i kI_i + dt (bE -
 // bE_err)_i kE_i), written when err != nullptr.
 // kInvPlain: `inv` lies in shared memory (K5's per-trial stage inverse).
@@ -314,11 +314,10 @@ __device__ __forceinline__ void ark_forward_tile(
   }
 }
 
-// One stage-exact reverse step on one tile of `rows` rows (K3's body,
-// shared with K4 and K5; kInvPlain as in ark_forward_tile). lam_s: the
-// incoming covector (shared). Stage value i is read from Ys + i * ys_step
-// (K3: its global trajectory payload; K4, K5: their shared-memory
-// stages). Shared scratch: xis (s tiles), u, uh, pv, q (one
+// One stage-exact reverse step on one tile of `rows` rows (K4's and K5's;
+// K3 and K12 run ark::reverse_step, csrc/ark_tiles.cuh; kInvPlain as in
+// ark_forward_tile). lam_s: the incoming covector (shared). Stage value i
+// is read from Ys + i * ys_step (K4, K5: their shared-memory stages). Shared scratch: xis (s tiles), u, uh, pv, q (one
 // tile each), hs (p.htotal: recomputed layer inputs), gA and gB (kRows *
 // maxd each). When lp != nullptr, lam_prev = lam + sum_i xi_i is added to
 // lp (shared, holding lam on entry). The tile's dW/db go to `part` in the
@@ -526,6 +525,23 @@ static inline int make_mlp(Mlp* p, int n_layers, const int* dims,
     p->htotal += kRows * dims[l];
   }
   return 0;
+}
+
+// Host: the Mlp of a flat [W0, b0, W1, b1, ...] parameter buffer.
+static inline int flat_mlp(Mlp* p, const float* params, int n_layers,
+                           const int* dims, int d, int act) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
+  if (dims[0] != d || dims[n_layers] != d) return cudaErrorInvalidValue;
+  const void* Ws[kMaxLayers];
+  const void* bs[kMaxLayers];
+  size_t off = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    Ws[l] = params + off;
+    off += (size_t)dims[l] * dims[l + 1];
+    bs[l] = params + off;
+    off += dims[l + 1];
+  }
+  return make_mlp(p, n_layers, dims, Ws, bs, act);
 }
 
 // Host: fill a Tableau from the raw (aI s*s, aE s*s, bI s, bE s) doubles

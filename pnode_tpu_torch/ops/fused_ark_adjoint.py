@@ -36,8 +36,8 @@ import torch
 
 from . import _build
 from .fused_mlp import (
-    MAX_LAYERS, ROWS_PER_BLOCK, _ACT_CODES, _check_tensor, check_stack,
-    fused_mlp_bwd_plain, grad_buffer_size, split_grads,
+    MAX_LAYERS, _ACT_CODES, _check_tensor, check_stack, fused_mlp_bwd_plain,
+    grad_buffer_size, split_grads,
 )
 
 MAX_STAGES = 8
@@ -62,15 +62,6 @@ def check_stiff_dot_precision() -> None:
     raise ValueError(f"-pnode_fused_ark_precision {name!r}: use auto|highest")
 
 
-def adj_smem_bytes(d: int, layer_dims: Sequence[int], stages: int) -> int:
-    """Shared memory of one block of the reverse step kernel (K3: 8 rows;
-    csrc/fused_ark_adjoint.cu pnode_ark_adj_smem)."""
-    dims = [d] + list(layer_dims)
-    R = ROWS_PER_BLOCK
-    pingpong = 2 * R * max(dims)
-    return 4 * (R * d * (6 + stages) + R * sum(dims[:-1]) + pingpong)
-
-
 # K2's register tile (csrc/ark_tiles.cuh kThreads, kCols): a product takes
 # layers up to kThreads * kCols wide
 FWD_THREADS, FWD_COLS = 256, 4
@@ -85,19 +76,26 @@ def _round4(v: int) -> int:
     return (v + 3) & ~3
 
 
+def _fwd_scratch(R: int, d: int, dims: Sequence[int], stages: int) -> int:
+    """Floats of forward_step's regions at R rows per block (y, kI, kE, G,
+    Y, two layer buffers, the split-k partials; csrc/ark_tiles.cuh
+    layout_fwd): K2's plan and K12's both lay them out."""
+    red = 0  # the MLP layers' split-k partials (the stiff products: none)
+    for K, N in zip(dims, dims[1:]):
+        g = _split_k(K, N)
+        if g > 1:
+            red = max(red, g * N)
+    return (3 * _round4(R * d) + 2 * _round4(stages * R * d)
+            + 2 * _round4(R * max(dims)) + _round4(R * red))
+
+
 def _fwd_plan_rows(R: int, d: int, dims: Sequence[int], stages: int):
     """Shared-memory bytes of K2 at R rows per block (csrc/ark_tiles.cuh
     plan_rows), or None when it does not fit."""
     maxd = max(dims)
     if maxd > FWD_THREADS * FWD_COLS:
         return None
-    red = 0  # the MLP layers' split-k partials (the stiff products: none)
-    for K, N in zip(dims, dims[1:]):
-        g = _split_k(K, N)
-        if g > 1:
-            red = max(red, g * N)
-    fixed = (3 * _round4(R * d) + 2 * _round4(stages * R * d)
-             + 2 * _round4(R * maxd) + _round4(R * red))
+    fixed = _fwd_scratch(R, d, dims, stages)
     budget = MAX_SMEM_BYTES // 4
     op = _round4(d * (d | 1))
     whole = _round4(max(K * N for K, N in zip(dims, dims[1:])))
@@ -140,6 +138,128 @@ def _ark_fwd_plan(B: int, d: int, layer_dims: tuple, stages: int, sms: int):
     return None
 
 
+def _row_stride(N: int) -> int:
+    """Row stride of a streamed weight chunk (csrc/ark_tiles.cuh
+    row_stride)."""
+    return N | 1 if N % 4 else (N if N // 4 % 2 else N + 4)
+
+
+def _rev_plan_rows(R: int, d: int, dims: Sequence[int], stages: int,
+                   nst: int, grad: bool, resident: bool = True):
+    """Shared-memory bytes of K3 (``grad`` False) or K12 at R rows per
+    block with ``nst`` stage slots in the layer store, inv and J staged
+    whole (``resident``) or read in place from device memory
+    (csrc/ark_tiles.cuh plan_rev_rows), or None when it does not fit."""
+    pairs = list(zip(dims, dims[1:]))
+    if max(dims) > FWD_THREADS * FWD_COLS:
+        return None
+    redw = max(max(_split_k(K, N) * N, _split_k(N, K) * K) for K, N in pairs)
+    whole = max(K * _row_stride(N) for K, N in pairs)
+    minslot = max(_row_stride(N) for _, N in pairs)
+    sst = sum(_round4(R * K) + _round4(R * N) for K, N in pairs)
+    tile, stiles = _round4(R * d), _round4(stages * R * d)
+    off = stiles + tile if grad else 2 * tile  # (Ys, seed) or (lam, lam_prev)
+    scratch = off
+    off += stiles + 3 * tile + nst * sst + _round4(R * redw)
+    if grad:  # forward_step's regions overlay the reverse's
+        off = max(off, scratch + _fwd_scratch(R, d, dims, stages))
+    if resident:
+        off += 2 * _round4(d * (d | 1))  # inv and J
+    slot = _round4(whole)
+    avail = MAX_SMEM_BYTES // 4 - off
+    if 2 * slot > avail:
+        slot = (avail // 2) & ~3
+    if slot < _round4(minslot):
+        return None
+    return 4 * (off + 2 * slot)
+
+
+@functools.lru_cache(maxsize=1024)
+def _rev_plan(B: int, d: int, layer_dims: tuple, stages: int, sms: int,
+              grad: bool):
+    dims = [d] + list(layer_dims)
+    if (B < 1 or not 1 <= stages <= MAX_STAGES
+            or not 1 <= len(layer_dims) <= MAX_LAYERS or dims[-1] != d
+            or min(dims) < 1):
+        return None
+    for resident in (True, False):
+        R = 1
+        while R < 8 and -(-B // R) > sms:
+            R *= 2
+        while R >= 1:
+            smem = _rev_plan_rows(R, d, dims, stages, stages, grad, resident)
+            if smem is not None:
+                return R, -(-B // R), smem
+            R //= 2
+        for nst in range(stages - 1, 0, -1):
+            smem = _rev_plan_rows(1, d, dims, stages, nst, grad, resident)
+            if smem is not None:
+                return 1, B, smem
+    return None
+
+
+def ark_adj_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
+                 sms: int = 132):
+    """K3's launch (csrc/ark_tiles.cuh plan_rev, C entry point
+    pnode_ark_adj_plan): (rows per block, grid, shared-memory bytes), or
+    None when the configuration does not fit. Rows: the fewest in {1, 2,
+    4, 8} whose grid ceil(B / rows) fits one block per SM (``sms``, 132 on
+    an H100 SXM), else 8; halved while the block's shared memory (lam,
+    lam_prev, the stage covectors, the store of every stage's layer inputs
+    and covectors, inv and J staged whole, the two-slot weight ring) passes
+    MAX_SMEM_BYTES; at one row the store then holds fewer stages. All of
+    that first with inv and J staged, then (where their two copies do not
+    fit, past d ~160 at KS-like stacks) with the reverse reading them from
+    device memory. None only for what no kernel takes: a layer wider than
+    1024, more than 8 stages or layers. Memoized: every reverse wrapper's
+    gate asks it."""
+    return _rev_plan(int(B), int(d), tuple(int(n) for n in layer_dims),
+                     int(stages), int(sms), False)
+
+
+def grad_step_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
+                   sms: int = 132):
+    """K12's launch (plan_rev with the forward's regions, C entry point
+    pnode_grad_step_plan): (rows per block, grid, shared-memory bytes) for a
+    (B, d) shard, or None. ``ark_adj_plan``'s rule; each block keeps its
+    stage values and seed beside the larger of the forward's and the
+    reverse's scratch."""
+    return _rev_plan(int(B), int(d), tuple(int(n) for n in layer_dims),
+                     int(stages), int(sms), True)
+
+
+def forced_rows(d: int, layer_dims: Sequence[int], stages: int,
+                grad: bool = False) -> list:
+    """The rows per block that a forced launch of K3 (or K12, ``grad``;
+    the wrappers' ``rows=``) takes: each R in (1, 2, 4, 8) whose layout
+    holds every stage's store, with inv and J staged or in place."""
+    dims = [d] + list(layer_dims)
+    return [R for R in (1, 2, 4, 8)
+            if any(_rev_plan_rows(R, d, dims, stages, stages, grad, res)
+                   is not None for res in (True, False))]
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device) -> int:
+    """SMs of ``device``'s card: what the C plans take their rule from."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def reverse_gate_bytes(d: int, layer_dims: Sequence[int],
+                       stages: int) -> int:
+    """The budget ``fused_ark_fits`` holds the reverse to: the shared memory
+    of one 8-row tile's stage values, covectors and layer activations, as
+    the 8-row reverse tile keeps them (csrc/pnode_kernels.cuh
+    ark_reverse_tile, which K4 and K5 run). K3's own plan takes more than
+    this gate opens (``ark_adj_plan`` reads inv and J from device memory
+    where they do not fit, Burgers-512 included); the gate keeps this
+    budget so that the steppers route Burgers-512 (~291 KB here) to the
+    generic path until K3 is measured there (ROADMAP, queue A)."""
+    dims = [d] + list(layer_dims)
+    R = 8
+    return 4 * (R * d * (6 + stages) + R * sum(dims[:-1]) + 2 * R * max(dims))
+
+
 def fused_ark_fits(d: int, layer_dims: Sequence[int], stages: int,
                    reverse: bool = True) -> bool:
     """True when the step kernels take this configuration on the H100.
@@ -147,21 +267,22 @@ def fused_ark_fits(d: int, layer_dims: Sequence[int], stages: int,
     The forward kernel (K2) takes it when its plan does at one row per
     block (``ark_fwd_plan``; the KS config needs 125 KB there, most of it
     the weight ring and the staged operators; Burgers-512 streams them).
-    The reverse kernel (K3) keeps one 8-row tile's stage values, covectors
-    and layer activations in shared memory: at most 227 KB per block (the
-    KS config needs 42 KB; Burgers-512 ~290 KB and does not fit).
-    Registers do not bind: each thread carries a fixed accumulator tile
-    whatever the widths. Weight gradients go to a per-block scratch slice
-    in device memory, not to shared memory. ``reverse=False`` checks the
-    forward kernel alone."""
+    The reverse kernel (K3) takes it when its plan does at one row per
+    block (``ark_adj_plan``) and it keeps within ``reverse_gate_bytes``
+    (the KS config needs 42 KB there; Burgers-512 ~291 KB, so its reverse,
+    and with it the stepper's fused path, stays off). Registers do not
+    bind: each thread carries a fixed accumulator tile whatever the widths.
+    Weight gradients go to a per-block partial in device memory.
+    ``reverse=False`` checks the forward kernel alone."""
     if not 1 <= len(layer_dims) <= MAX_LAYERS or not 1 <= stages <= MAX_STAGES:
         return False
     if layer_dims[-1] != d:
         return False
     if ark_fwd_plan(1, d, layer_dims, stages) is None:
         return False
-    return (not reverse
-            or adj_smem_bytes(d, layer_dims, stages) <= MAX_SMEM_BYTES)
+    return not reverse or (
+        ark_adj_plan(1, d, layer_dims, stages) is not None
+        and reverse_gate_bytes(d, layer_dims, stages) <= MAX_SMEM_BYTES)
 
 
 def pick_weight_dtype(d: int, layer_dims: Sequence[int], stages: int):
@@ -280,13 +401,15 @@ def fused_ark_step_adj_plain(tableau_static, dt, Ys, lam, J_dense, inv_op,
 # -- kernel wrapper ---------------------------------------------------------
 
 def fused_ark_step_adj(tableau_static, dt, Ys, lam, J_dense, inv_op,
-                       weights, biases, activation="relu", sign=-1.0):
+                       weights, biases, activation="relu", sign=-1.0,
+                       rows=0):
     """One fused reverse ARK step. Returns (lam_prev, (dWs, dbs)).
 
     tableau_static: (a_im, a_ex, b_im, b_ex) as nested Python floats; dt a
     Python float; Ys (s, B, d) the stored stage values; lam (B, d); J_dense
-    and inv_op (d, d). CUDA tensors launch the kernel; CPU tensors run
-    ``fused_ark_step_adj_plain``.
+    and inv_op (d, d). CUDA tensors launch the kernel (at the plan's rows
+    per block, or ``rows`` 1, 2, 4 or 8 forced, for kernel comparisons);
+    CPU tensors run ``fused_ark_step_adj_plain``.
     """
     s, B, d, dims = check_step_args(tableau_static, lam, J_dense, inv_op,
                                     weights, biases, activation,
@@ -300,10 +423,11 @@ def fused_ark_step_adj(tableau_static, dt, Ys, lam, J_dense, inv_op,
                                         inv_op, weights, biases, activation,
                                         sign)
     lib = _build.library()
-    nblk = -(-B // ROWS_PER_BLOCK)
+    grid = (ark_adj_plan(B, d, dims[1:], s, sm_count(lam.device))[1]
+            if rows == 0 else -(-B // rows))
     total = grad_buffer_size(dims)
     lam_prev = torch.empty_like(lam)
-    partial = torch.empty(nblk * total, dtype=lam.dtype, device=lam.device)
+    partial = torch.empty(grid * total, dtype=lam.dtype, device=lam.device)
     grads = torch.empty(total, dtype=lam.dtype, device=lam.device)
     with torch.cuda.device(lam.device):
         rc = lib.pnode_ark_adj(
@@ -312,10 +436,28 @@ def fused_ark_step_adj(tableau_static, dt, Ys, lam, J_dense, inv_op,
             grads.data_ptr(), B, d, s, tableau_array(tableau_static),
             float(dt), float(sign), len(weights), _build.int_array(dims),
             _build.ptr_array(weights), _build.ptr_array(biases),
-            _ACT_CODES[activation], _build.stream_of(lam))
+            _ACT_CODES[activation], int(rows), partial.numel(),
+            _build.stream_of(lam))
     _build.check(rc, "fused_ark_step_adj kernel")
     fused_ark_step_adj.launches += 1
     return lam_prev, split_grads(grads, dims)
+
+
+def plan(B, d, layer_dims, stages, device, grad=False):
+    """The C plan's (rows per block, grid, shared-memory bytes) of K3 (or
+    of K12, ``grad``) on ``device``'s card: what ``ark_adj_plan`` (or
+    ``grad_step_plan``) mirrors."""
+    import ctypes
+
+    lib = _build.library()
+    dims = [d] + list(layer_dims)
+    rows, grid, smem = (_build.int_array([0]), _build.int_array([0]),
+                        (ctypes.c_longlong * 1)(0))
+    fn = lib.pnode_grad_step_plan if grad else lib.pnode_ark_adj_plan
+    with torch.cuda.device(device):
+        rc = fn(B, d, stages, len(layer_dims), _build.int_array(dims), rows,
+                grid, smem)
+    return None if rc else (rows[0], grid[0], smem[0])
 
 
 fused_ark_step_adj.launches = 0

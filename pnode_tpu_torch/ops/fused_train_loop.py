@@ -25,9 +25,12 @@ K12, ``fused_grad_step``, is one iteration's forward step, MSE and reverse
 step without Adam (replaces ``_grad_kernel`` (:613), launched by
 ``fused_grad_step`` (:688)): the per-rank kernel of
 ``parallel.fused_dp.dp_fused_train_loop``, which all-reduces its loss and
-gradient and runs Adam outside it. ``LoopLayout`` describes the operands of
-both kernels: the flat ``[W0, b0, W1, b1, ...]`` buffer that holds the
-parameters, the Adam moments and the gradient (no TPU lane padding).
+gradient and runs Adam outside it. Its source is ``csrc/fused_grad_step.cu``
+on K2's and K3's bodies (``csrc/ark_tiles.cuh``); its grid comes from its
+plan, which ``fused_ark_adjoint.grad_step_plan`` mirrors. ``LoopLayout``
+describes the operands of both kernels: the flat ``[W0, b0, W1, b1, ...]``
+buffer that holds the parameters, the Adam moments and the gradient (no
+TPU lane padding).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import torch
 from . import _build
 from .fused_ark_adjoint import (
     MAX_SMEM_BYTES, MAX_STAGES, check_step_args, check_stiff_dot_precision,
-    fused_ark_step_adj_plain, tableau_array,
+    fused_ark_step_adj_plain, grad_step_plan, sm_count, tableau_array,
 )
 from .fused_ark_forward import fused_ark_step_fwd_plain
 from .fused_mlp import (
@@ -80,7 +83,7 @@ def fused_train_loop_fits(B: int, d: int, layer_dims: Sequence[int],
     tableau's stage count (ARK3's 4 by default).
 
     Burgers-512 (512 -> 576 x4 -> 512) does not fit: ~340 KB per block at
-    4 stages, as K3 alone needs ~291 KB. The JAX gate says it fits the
+    4 stages. The JAX gate says it fits the
     TPU's VMEM at chunk 16 (tests/test_fused_train_loop.py:175); the two
     budgets are different memories.
     """
@@ -248,8 +251,10 @@ def adam_step_plain(params, m, v, grads, t, lr, b1, b2, eps):
 def check_loop_operands(what, tableau_static, y_stack, tgt_stack, J_dense,
                         inv_op, weights, biases, m_state, v_state,
                         activation):
-    """Validate the operands shared by the loop kernels (K4, K5); returns
-    (K, B, d, s, dims)."""
+    """Validate the operands shared by the loop kernels (K4, K5 and the DP
+    loop); returns (K, B, d, s, dims). Each caller gates on its own
+    kernel's budget (``fused_train_loop_fits``, ``fused_adaptive_loop_fits``),
+    not on the step kernels' reverse gate."""
     dev = y_stack.device if isinstance(y_stack, torch.Tensor) else None
     _check_tensor(y_stack, 3, what, "y_stack", dev)
     _check_tensor(tgt_stack, 3, what, "tgt_stack", dev)
@@ -260,7 +265,8 @@ def check_loop_operands(what, tableau_static, y_stack, tgt_stack, J_dense,
     if K < 1 or y_stack.shape[1] < 1:
         raise ValueError(f"{what}: empty y_stack {tuple(y_stack.shape)}")
     s, B, d, dims = check_step_args(tableau_static, y_stack[0], J_dense,
-                                    inv_op, weights, biases, activation, what)
+                                    inv_op, weights, biases, activation, what,
+                                    reverse=False)
     for name, state in (("m_state", m_state), ("v_state", v_state)):
         if len(state) != 2:
             raise ValueError(f"{what}: {name} must be (weights, biases)")
@@ -301,14 +307,16 @@ def _flat(ws, bs):
 
 
 def fused_grad_step(layout, tableau_static, dt, y, tgt, J_dense, inv_op,
-                    params, activation="relu", sign=-1.0, global_count=None):
+                    params, activation="relu", sign=-1.0, global_count=None,
+                    rows=0):
     """(loss, flat gradient) of ONE training iteration on the local batch:
     the forward ARK step of y (B, d), the MSE against tgt and the
     stage-exact reverse step, without Adam. ``params`` is the flat buffer
     (``layout.pack``). The loss and its seed 2 (y1 - tgt) / count use the
     local count B d unless ``global_count`` is given: the data-parallel
     caller keeps it local and means the result over the ranks, which is the
-    global mean. CUDA tensors launch K12; CPU tensors run
+    global mean. CUDA tensors launch K12 (at its plan's rows per block, or
+    ``rows`` 1, 2, 4 or 8 forced, for kernel comparisons); CPU tensors run
     ``fused_grad_step_plain``."""
     what = "fused_grad_step"
     check_stiff_dot_precision()
@@ -323,7 +331,10 @@ def fused_grad_step(layout, tableau_static, dt, y, tgt, J_dense, inv_op,
     if tuple(tgt.shape) != (B, d):
         raise ValueError(f"{what}: tgt must be {(B, d)}, got "
                          f"{tuple(tgt.shape)}")
-    if not fused_train_loop_fits(B, d, dims[1:], stages=s):
+    # K4's gate: the DP loop delegates one rank to K4, so K12 takes what
+    # K4 takes (its plan does wherever that gate opens)
+    if (not fused_train_loop_fits(B, d, dims[1:], stages=s)
+            or grad_step_plan(B, d, dims[1:], s) is None):
         raise ValueError(f"{what}: configuration exceeds the loop kernels' "
                          "shared-memory budget (gate with "
                          "fused_train_loop_fits)")
@@ -333,22 +344,20 @@ def fused_grad_step(layout, tableau_static, dt, y, tgt, J_dense, inv_op,
                                      sign, global_count)
     lib = _build.library()
     count = float(global_count if global_count is not None else B * d)
+    grid = (grad_step_plan(B, d, dims[1:], s, sm_count(y.device))[1]
+            if rows == 0 else -(-B // rows))
     out = torch.empty(layout.total + 1, dtype=y.dtype, device=y.device)
+    # one 16-byte-aligned slice per block: the gradient, then the loss
+    partial = torch.empty(grid * (-(-(layout.total + 1) // 4) * 4),
+                          dtype=y.dtype, device=y.device)
     with torch.cuda.device(y.device):
-        smem = lib.pnode_train_loop_smem(d, s, max(dims),
-                                         ROWS_PER_BLOCK * sum(dims[:-1]))
-        cap = _build.int_array([0])
-        _build.check(lib.pnode_grad_step_capacity(smem, cap),
-                     "fused_grad_step occupancy query")
-        grid = min(-(-B // ROWS_PER_BLOCK), cap[0])
-        partial = torch.empty(grid * (layout.total + 1), dtype=y.dtype,
-                              device=y.device)
         rc = lib.pnode_grad_step(
             y.data_ptr(), tgt.data_ptr(), J_dense.data_ptr(),
             inv_op.data_ptr(), params.data_ptr(), partial.data_ptr(),
             out.data_ptr(), B, d, s, tableau_array(tableau_static), float(dt),
             float(sign), len(Ws), _build.int_array(dims),
-            _ACT_CODES[activation], count, grid, _build.stream_of(y))
+            _ACT_CODES[activation], count, int(rows), partial.numel(),
+            _build.stream_of(y))
     _build.check(rc, "fused_grad_step kernel")
     fused_grad_step.launches += 1
     return out[-1], out[:-1]

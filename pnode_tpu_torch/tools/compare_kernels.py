@@ -49,6 +49,24 @@ for K1, and then times this checkout's K2 at forced rows per block (1, 2,
 4, 8 where they fit) in turns at the KS and Burgers shapes: the readings
 that chose the plan's rule (every R must give the same bits).
 
+``--kernel k3`` (the fused ARK reverse step, ``fused_ark_step_adj``): at
+the KS main path (B 256, 64 -> 104 x4 -> 64, ARK3, dt 0.2, J and the stage
+inverse of the port's KSFuncIM, KS states and the plain forward's stage
+values, a covector lam ~ N(0, 1)) and at B 37 of the same, N(0, 1 /
+fan_in) weights and N(0, 0.1) biases from seed 0, both sides through their
+wrappers. It checks lam_prev (max |diff| / max |ref| <= 1e-4) and dW/db
+norm-wise (5e-3: a ReLU unit within fp32 rounding of 0 may flip between two
+correct evaluations), times each in turns as for K1 (device time: its step
+kernel and its block-order sum of partials), then times this checkout's K3
+at forced rows per block (1, 2, 4, 8) in turns at KS B 256, each with the
+bytes of its partials (lam_prev must have the same bits at every R).
+
+``--kernel k12`` (the grads-only training step, ``fused_grad_step``): at
+the KS shards B_local 256 and 128 (one-step targets from the KS data), as
+for k3: loss and gradient (max |diff| / max |ref| <= 1e-4 on the loss,
+5e-3 norm-wise on the gradient), times in turns, then this checkout's K12
+at forced rows per block at B_local 256 and 128.
+
 ``--kernel k13`` (the shared-memory probe, ``probe_smem``): at the card's
 opt-in size, on the probe's own input (one tile per SM), both sides
 bitwise 3x, timed in turns, with ``torch.mul(x, 3)``'s device time beside
@@ -114,6 +132,29 @@ def device_us(fn, n=20, per_call=None):
         return (per_call * total / len(kernels) if kernels else float("nan"),
                 len(kernels) / n)
     return total / n, len(kernels) / n
+
+
+def device_by_kernel(fn, n=20):
+    """{kernel name: mean device us per launch} over a trace of ``n``
+    calls (which launch of a call takes the time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import device_kernels
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels, _ = device_kernels(prof.events())
+    by = {}
+    for e in kernels:
+        by.setdefault(e.name.split("(")[0][:60], []).append(
+            e.time_range.elapsed_us())
+    return {k: sum(v) / len(v) for k, v in by.items()}
 
 
 def time_in_turns(label, calls, result, per_call=None):
@@ -387,6 +428,143 @@ def _fits_rows(mod, rows, args):
     return True
 
 
+def ks_case(B, seed):
+    """(tab, dt, J, inv, Ws, bs, y, tgt, lam) at the KS main path's widths:
+    KS states y and their one-step targets, N(0, 1 / fan_in) weights, N(0,
+    0.1) biases and a covector lam ~ N(0, 1) from ``seed``, on the card."""
+    import torch
+
+    from chip_smoke import DT, ks_data, ks_operators
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device="cuda")
+    J, inv, tab, _ = ks_operators("cuda")
+    u = ks_data()
+    dims = STACKS[0][2]
+    Ws = [f32(rng.normal(0, a ** -0.5, size=(a, b)))
+          for a, b in zip(dims, dims[1:])]
+    bs = [f32(rng.normal(0, 0.1, size=b)) for b in dims[1:]]
+    idx = rng.choice(len(u) - 1, B, replace=False)
+    return (tab, float(np.float32(DT)), J, inv, Ws, bs, f32(u[idx]),
+            f32(u[idx + 1]), f32(rng.normal(size=(B, dims[0]))))
+
+
+def _rel(a, b, norm=False):
+    a, b = a.double(), b.double()
+    if norm:
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def forced_rows(label, result, calls, pick, bitwise, partial_floats):
+    """This checkout's kernel at forced rows per block, in turns: ``calls``
+    maps R to a call; ``pick(out)`` is the output compared across R,
+    bitwise where ``bitwise`` (K3's lam_prev), else norm-wise (K12's
+    gradient, whose sums R regroups; 5e-3 as between checkouts)."""
+    import torch
+
+    from chip_smoke import cuda_times_ms, summary
+
+    rows = sorted(calls)
+    ref = pick(calls[rows[0]]())
+    ms = {r: [] for r in rows}
+    for r in rows + rows[::-1]:
+        ms[r].append(summary(cuda_times_ms(calls[r]))[0])
+    row = {}
+    for r in rows:
+        out = pick(calls[r]())
+        ok = torch.equal(out, ref) if bitwise else _rel(out, ref, True) <= 5e-3
+        us, _ = device_us(calls[r], per_call=2)
+        row[r] = dict(ms=ms[r], device_us=us, agrees=ok,
+                      partial_bytes=4 * partial_floats[r])
+        print(f"[compare] {label} at {r} rows per block: CUDA events "
+              f"{ms[r][0]:.4f} / {ms[r][1]:.4f} ms, device {us:.1f} us; "
+              f"partials {4 * partial_floats[r]} B, written once and read "
+              f"back once; {'same bits as' if bitwise else 'agrees with'} "
+              f"{rows[0]} rows: {ok}")
+        if not ok:
+            raise SystemExit(f"{label}: {r} rows disagree with {rows[0]}")
+    result[f"{label} rows"] = row
+
+
+def compare_k3(this, other, result):
+    import torch
+
+    from ..ops.fused_ark_forward import fused_ark_step_fwd_plain
+    from ..ops.fused_mlp import grad_buffer_size
+
+    for B in (256, 37):
+        tab, dt, J, inv, Ws, bs, y, _, lam = ks_case(B, 0)
+        Ys = fused_ark_step_fwd_plain(tab, dt, y, J, inv, Ws, bs)[1]
+        args = (tab, dt, Ys, lam, J, inv, Ws, bs)
+        outs = {side: mod.fused_ark_step_adj(*args)
+                for side, mod in (("this", this), ("other", other))}
+        torch.cuda.synchronize()
+        flat = {k: [v[0], *v[1][0], *v[1][1]] for k, v in outs.items()}
+        e_lp = _rel(flat["this"][0], flat["other"][0])
+        e_g = max(_rel(a, b, norm=True)
+                  for a, b in zip(flat["this"][1:], flat["other"][1:]))
+        label = f"KS B{B} fused_ark_step_adj"
+        print(f"[compare] {label}: this vs other, lam_prev {e_lp:.3e} (max), "
+              f"dW/db {e_g:.3e} (norm-wise)")
+        if not (e_lp <= 1e-4 and e_g <= 5e-3):
+            raise SystemExit(f"{label}: the two K3 disagree")
+        calls = {side: (lambda m=mod: m.fused_ark_step_adj(*args))
+                 for side, mod in (("other", other), ("this", this))}
+        time_in_turns(label, calls, result, per_call=2)
+        for side, fn in calls.items():
+            by = device_by_kernel(fn)
+            result[label][side]["by_kernel_us"] = by
+            print(f"[compare] {label} {side} by kernel: "
+                  + ", ".join(f"{k} {v:.1f} us" for k, v in by.items()))
+        if B == 256:
+            total = grad_buffer_size([64] + [int(w.shape[1]) for w in Ws])
+            forced_rows(
+                f"KS B{B} K3", result,
+                {r: (lambda r=r: this.fused_ark_step_adj(*args, rows=r))
+                 for r in (1, 2, 4, 8)},
+                lambda out: out[0], True,
+                {r: -(-B // r) * total for r in (1, 2, 4, 8)})
+
+
+def compare_k12(this, other, result):
+    import torch
+
+    for B in (256, 128):
+        tab, dt, J, inv, Ws, bs, y, tgt, _ = ks_case(B, 1)
+        args = {}
+        for side, mod in (("this", this), ("other", other)):
+            layout = mod.LoopLayout(B, 64, [int(w.shape[1]) for w in Ws])
+            args[side] = (layout, tab, dt, y, tgt, J, inv,
+                          layout.pack(Ws, bs))
+        outs = {side: mod.fused_grad_step(*args[side])
+                for side, mod in (("this", this), ("other", other))}
+        torch.cuda.synchronize()
+        e_l = _rel(outs["this"][0], outs["other"][0])
+        e_g = _rel(outs["this"][1], outs["other"][1], norm=True)
+        label = f"KS B_local {B} fused_grad_step"
+        print(f"[compare] {label}: this vs other, loss {e_l:.3e}, gradient "
+              f"{e_g:.3e} (norm-wise)")
+        if not (e_l <= 1e-4 and e_g <= 5e-3):
+            raise SystemExit(f"{label}: the two K12 disagree")
+        calls = {side: (lambda m=mod, a=args[side]: m.fused_grad_step(*a))
+                 for side, mod in (("other", other), ("this", this))}
+        time_in_turns(label, calls, result, per_call=2)
+        for side, fn in calls.items():
+            by = device_by_kernel(fn)
+            result[label][side]["by_kernel_us"] = by
+            print(f"[compare] {label} {side} by kernel: "
+                  + ", ".join(f"{k} {v:.1f} us" for k, v in by.items()))
+        total = -(-(args["this"][0].total + 1) // 4) * 4  # a block's slice
+        forced_rows(
+            f"KS B_local {B} K12", result,
+            {r: (lambda r=r: this.fused_grad_step(*args["this"], rows=r))
+             for r in (1, 2, 4, 8)},
+            lambda out: out[1], False,
+            {r: -(-B // r) * total for r in (1, 2, 4, 8)})
+
+
 def compare_k13(this, other, result):
     import torch
 
@@ -410,6 +588,7 @@ def compare_k13(this, other, result):
 
 
 MODULES = {"k1": "ops.fused_mlp", "k2": "ops.fused_ark_forward",
+           "k3": "ops.fused_ark_adjoint", "k12": "ops.fused_train_loop",
            "k13": "tools.probe_smem_limit"}
 
 
@@ -419,7 +598,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--kernel", nargs="+", default=["k1"],
-                    choices=("k1", "k2", "k6", "k7", "k8", "k9", "k13"),
+                    choices=("k1", "k2", "k3", "k6", "k7", "k8", "k9",
+                             "k12", "k13"),
                     help="one or more kernels, compared in this order")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -440,6 +620,10 @@ def main(argv=None):
             compare_k1(this, other, result)
         elif kernel == "k2":
             compare_k2(this, other, result)
+        elif kernel == "k3":
+            compare_k3(this, other, result)
+        elif kernel == "k12":
+            compare_k12(this, other, result)
         elif kernel == "k13":
             compare_k13(this, other, result)
         else:

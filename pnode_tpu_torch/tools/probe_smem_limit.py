@@ -119,8 +119,6 @@ def capacities():
     for name, fn, smem in (
             ("train_loop (K4)", lib.pnode_train_loop_capacity,
              _loop_smem_bytes(64, ks, 4)),
-            ("grad_step (K12)", lib.pnode_grad_step_capacity,
-             _loop_smem_bytes(64, ks, 4)),
             ("adaptive_loop (K5)", lib.pnode_adaptive_loop_capacity,
              _adaptive_smem_bytes(64, ks, 4, 32))):
         _build.check(fn(smem, cap), f"{name} occupancy query")

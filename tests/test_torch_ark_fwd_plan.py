@@ -23,8 +23,8 @@ import torch
 from pnode_tpu.ops.fused_ark_forward import fused_ark_step_fwd as j_fwd
 from pnode_tpu.tableaus import get_ark_tableau
 from pnode_tpu_torch.ops.fused_ark_adjoint import (
-    MAX_SMEM_BYTES, adj_smem_bytes, ark_fwd_plan, fused_ark_fits,
-    fused_ark_step_adj,
+    MAX_SMEM_BYTES, ark_adj_plan, ark_fwd_plan, fused_ark_fits,
+    fused_ark_step_adj, reverse_gate_bytes,
 )
 from pnode_tpu_torch.ops.fused_ark_forward import (
     fused_ark_step_fwd, fused_ark_step_fwd_plain,
@@ -95,13 +95,14 @@ def test_plan_refuses(args):
 
 def test_fits_gate_answers():
     """The steppers route as before: KS fits both step kernels, the
-    Burgers-512 forward fits alone and its reverse (K3, 8-row blocks) does
-    not."""
+    Burgers-512 forward fits alone and its reverse (the 8-row budget of
+    the reverse gate) does not."""
     assert fused_ark_fits(64, KS, 4)
     assert fused_ark_fits(512, BURGERS, 4, reverse=False)
     assert not fused_ark_fits(512, BURGERS, 4)
-    assert adj_smem_bytes(64, KS, 4) == 42496
-    assert adj_smem_bytes(512, BURGERS, 4) > MAX_SMEM_BYTES
+    assert reverse_gate_bytes(64, KS, 4) == 42496
+    assert reverse_gate_bytes(512, BURGERS, 4) > MAX_SMEM_BYTES
+    assert ark_adj_plan(1, 64, KS, 4) == (1, 1, 144896)
     assert not fused_ark_fits(64, [1100, 64], 4, reverse=False)
 
 
