@@ -12,15 +12,18 @@ exits non-zero without printing the final line):
    power limit as nvidia-smi reports them.
 2. Build: compiles pnode_tpu_torch/csrc/*.cu for sm_90a with nvcc (timed);
    fails where ptxas reports spill in csrc/sqnxt_fwd.cu (K6, K8),
-   csrc/fused_ark_forward.cu (K2), csrc/fused_ark_adjoint.cu (K3) or
-   csrc/fused_grad_step.cu (K12), and where K2's, K3's or K12's C plan
-   (rows per block, grid, shared memory) differs from its Python mirror at
-   FWD_PLANS (K3 and K12 also at the DP shards).
+   csrc/fused_ark_forward.cu (K2), csrc/fused_ark_adjoint.cu (K3),
+   csrc/fused_grad_step.cu (K12), csrc/fused_train_loop.cu (K4) or
+   csrc/fused_adaptive_loop.cu (K5), and where K2's, K3's, K12's, K4's or
+   K5's C plan (rows per block, grid, shared memory; K5's workspace)
+   differs from its Python mirror at FWD_PLANS (K3, K12 and K4 also at the
+   DP shards, K4 and K5 at LOOP_PLANS and at every forced R of phase 3's
+   loop cases).
    Then the probe (python -m pnode_tpu_torch.tools.probe_smem_limit, K13):
    the largest dynamic shared memory one block takes, up a ladder and
    bisected to 4 bytes, must equal the gates' MAX_SMEM_BYTES and the card's
-   opt-in attribute; the co-resident capacities the loop kernels' grids
-   assume; K13 at sizes its bulk copies do not reach (probe_edges) and at
+   opt-in attribute; the grids the cooperative kernels take; K13 at sizes
+   its bulk copies do not reach (probe_edges) and at
    the largest size against 3x (bitwise), timed beside it and
    torch.mul(x, 3), by CUDA events and by the profiler's device time.
 3. Kernels: K1 forward, K1 backward, K2 (ARK forward step) and K3 (ARK
@@ -48,17 +51,21 @@ exits non-zero without printing the final line):
    the plain versions in fp32 and fp64 with K3's gates,
    lam_prev bitwise equal across R, each call repeated bitwise. Then K4,
    the fused training loop, against fused_train_loop_plain on K = 8
-   distinct KS minibatches (Adam lr 5e-3) at the main path's shapes, at
-   the ragged size (chunk=8) and at a batch whose row tiles outnumber the
-   co-resident blocks, and K = 16 as two chunks of 8 against one launch
-   (check_loop says how it gates); per-iteration times in turns. K2 with
-   its embedded error output (the adaptive trial step) at both sizes
+   distinct KS minibatches (Adam lr 5e-3) at every rows per block its plan
+   takes (1, 2, 4, 8): the main path's shapes, the ragged size (chunk=8),
+   an odd hidden width 13 (the 4-byte weight copies, read through L2) and
+   a batch whose row tiles outnumber the grid's blocks (check_loop says how
+   it gates); K = 16 as two chunks of 8 against one launch; two calls
+   bitwise equal; per-iteration times in turns and the device time. K2
+   with its embedded error output (the adaptive trial step) at both sizes
    (check_embedded). K5, the fused adaptive loop, against
    fused_adaptive_train_loop_plain on K = 8 KS minibatches (rtol = atol =
-   1e-4, 32 trials): the main path from a dt0 warmed by a probe call, the
-   ragged case, a cold dt0 = 0.2 that must reject, and a batch whose row
-   tiles outnumber the co-resident blocks (check_adaptive says how it
-   gates); per-iteration times in turns.
+   1e-4, 32 trials) at every rows per block its plan takes: the main path
+   from a dt0 warmed by a probe call, the ragged case, the odd width, a
+   cold dt0 = 0.2 that must reject, and a batch whose row tiles outnumber
+   the grid's blocks (check_adaptive says how it gates); two calls bitwise
+   equal, K/2 + K/2 launches bitwise equal to one of K; per-iteration
+   times in turns and the device time.
 4. The slice: KS SINODE training through ODESolver.odeint_adjoint at full
    width, batch 256, torch.optim.Adam at lr 5e-3, on KS data from the
    port's generator. (a) 4 Adam iterations on the kernel path against the
@@ -156,8 +163,8 @@ Phases 1-6 run at their full depth; phase 7 adds about 60 s, phase 8 about
 
 The line before the last is a JSON object with one entry per kernel (K1's
 two also carry ``burgers``: its readings at the Burgers stack and its
-launches over phase 7(b); K2, K3, K6-K9, K12 and K13 carry
-``device_ms``, the profiler's device time per call; K7 ``stage3``: its
+launches over phase 7(b); K2-K13 carry ``device_ms``, the profiler's
+device time per call (K4 and K5: per iteration); K7 ``stage3``: its
 readings at stage 3); the last line is {"ok": true, "device": {...}}.
 """
 
@@ -178,7 +185,8 @@ sys.path.insert(0, ROOT)
 NX, HIDDEN, BATCH, DT, LR = 64, 104, 256, 0.2, 5e-3
 GAMMA = 1767732205903 / 4055673282236  # ARK3(2)4L[2]SA's ESDIRK diagonal
 KERNELS = {
-    # name: (route, source, replaces)
+    # name: (route, source, replaces); K2-K5 and K12 build on the ARK
+    # bodies of pnode_tpu_torch/csrc/ark_tiles.cuh
     "fused_mlp_fwd": ("cuda", "pnode_tpu_torch/csrc/fused_mlp.cu",
                       "pnode_tpu/ops/fused_mlp.py:75"),
     "fused_mlp_bwd": ("cuda", "pnode_tpu_torch/csrc/fused_mlp.cu",
@@ -352,12 +360,14 @@ def ptxas_report(log, source):
     return funcs
 
 
-# sources whose every function must compile without spill: K6/K8, K2, K3
-# and K12
+# sources whose every function must compile without spill: K6/K8, K2, K3,
+# K12, K4 and K5
 NO_SPILL = (("sqnxt_fwd.cu", "sqnxt_fwd_kernel", "K6/K8"),
             ("fused_ark_forward.cu", "ark_fwd_kernel", "K2"),
             ("fused_ark_adjoint.cu", "ark_adj_kernel", "K3"),
-            ("fused_grad_step.cu", "grad_step_kernel", "K12"))
+            ("fused_grad_step.cu", "grad_step_kernel", "K12"),
+            ("fused_train_loop.cu", "train_loop_kernel", "K4"),
+            ("fused_adaptive_loop.cu", "adaptive_loop_kernel", "K5"))
 # K2's, K3's and K12's plans against their Python mirrors: (B, d, layer
 # widths, stages); K3 and K12 also at the DP shards (DP_PLANS)
 KS_LAYERS = [HIDDEN] * 4 + [NX]
@@ -370,6 +380,10 @@ FWD_PLANS = ((BATCH, NX, KS_LAYERS, 4), (37, NX, KS_LAYERS, 4),
              (16, NX, [1100, NX], 4), (37, 200, [200, 200], 4),
              (37, 300, [300], 4))
 DP_PLANS = tuple((B, NX, KS_LAYERS, 4) for B in (128, 64, 32))
+# the loop kernels' own edges: the odd width, d 100 at 8 stages and the
+# widest d the adaptive gate opens with the KS hidden layers (134)
+LOOP_PLANS = ((37, NX, [13] * 4 + [NX], 4), (37, 100, [HIDDEN] * 4 + [100], 8),
+              (256, 134, [HIDDEN] * 4 + [134], 4))
 
 
 def phase_build():
@@ -377,9 +391,9 @@ def phase_build():
 
     from pnode_tpu_torch.ops import _build
     from pnode_tpu_torch.ops import fused_ark_adjoint as adj
+    from pnode_tpu_torch.ops import fused_adaptive_loop as adapt
     from pnode_tpu_torch.ops import fused_ark_forward as fwd
-    from pnode_tpu_torch.ops.fused_adaptive_loop import _adaptive_smem_bytes
-    from pnode_tpu_torch.ops.fused_train_loop import _loop_smem_bytes
+    from pnode_tpu_torch.ops import fused_train_loop as loop
 
     t0 = time.perf_counter()
     lib = _build.library()
@@ -403,27 +417,21 @@ def phase_build():
                 st or ld for _, st, ld in funcs.values()):
             raise AssertionError(f"{name}: ptxas reports spill in "
                                  f"csrc/{source} (or no kernel there)")
-    # the loop kernels' fits gates mirror their shared-memory layout
-    for d, layers, s in ((NX, [HIDDEN] * 4 + [NX], 4), (512, [576] * 4 + [512], 8)):
-        dims = [d] + layers
-        loop = lib.pnode_train_loop_smem(d, s, max(dims), 8 * sum(dims[:-1]))
-        adapt = lib.pnode_adaptive_loop_smem(d, s, max(dims),
-                                             8 * sum(dims[:-1]), MAX_TRIALS)
-        if (loop, adapt) != (_loop_smem_bytes(d, layers, s),
-                             _adaptive_smem_bytes(d, layers, s, MAX_TRIALS)):
-            raise AssertionError(f"the fits gates disagree with the kernels' "
-                                 f"shared memory ({loop}, {adapt}) at d={d}")
-        log(f"[build] kernels' shared memory at d={d}, s={s}: training loop "
-            f"{loop} B, adaptive loop ({MAX_TRIALS} trials) {adapt} B")
-    # K2's, K3's and K12's plans (rows per block, grid, bytes) against
-    # their mirrors
+    # K2's, K3's, K12's, K4's and K5's plans (rows per block, grid, bytes;
+    # K5's workspace floats) against their mirrors
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = torch.device("cuda", 0)
     for name, shapes, c_plan, mirror in (
             ("K2", FWD_PLANS, fwd.plan, adj.ark_fwd_plan),
             ("K3", FWD_PLANS + DP_PLANS, adj.plan, adj.ark_adj_plan),
             ("K12", FWD_PLANS + DP_PLANS,
-             lambda *a: adj.plan(*a, grad=True), adj.grad_step_plan)):
+             lambda *a: adj.plan(*a, grad=True), adj.grad_step_plan),
+            ("K4", FWD_PLANS + DP_PLANS + LOOP_PLANS, loop.plan,
+             loop.train_loop_plan),
+            ("K5", FWD_PLANS + LOOP_PLANS,
+             lambda B, d, l, s, dev: adapt.plan(B, d, l, s, MAX_TRIALS, dev),
+             lambda B, d, l, s, sms: adapt.adaptive_loop_plan(
+                 B, d, l, s, MAX_TRIALS, sms))):
         for B, d, layers, s in shapes:
             got = c_plan(B, d, layers, s, dev)
             want = mirror(B, d, layers, s, sms)
@@ -432,11 +440,23 @@ def phase_build():
             if got != want:
                 raise AssertionError(f"{name}'s plan disagrees with its "
                                      "mirror")
-    # K4's and K5's grids: min(ceil(B / 8), co-resident blocks of a launch)
-    for name, cap in (("training loop", loop_capacity(HIDDEN)),
-                      ("adaptive loop", loop_capacity(HIDDEN, adaptive=True))):
-        log(f"[build] {name} at the main path: {cap} co-resident blocks "
-            f"(grid {min(-(-BATCH // 8), cap)} at B {BATCH})")
+    # the loop kernels at forced rows: each R's C plan against its mirror
+    for B, hidden in ((BATCH, HIDDEN), (37, 13), (strided_batch(), 24)):
+        layers = [hidden] * 4 + [NX]
+        for r in (1, 2, 4, 8):
+            for name, got, want in (
+                    ("K4", loop.plan(B, NX, layers, 4, dev, rows=r),
+                     loop.train_loop_plan(B, NX, layers, 4, sms, rows=r)),
+                    ("K5", adapt.plan(B, NX, layers, 4, MAX_TRIALS, dev,
+                                      rows=r),
+                     adapt.adaptive_loop_plan(B, NX, layers, 4, MAX_TRIALS,
+                                              sms, rows=r))):
+                if got != want:
+                    raise AssertionError(
+                        f"{name}'s plan at B {B}, hidden {hidden}, R {r}: "
+                        f"{got}, mirror {want}")
+        log(f"[build] K4's and K5's plans at B {B}, hidden {hidden}, R 1, 2, "
+            f"4, 8 equal their mirrors")
 
 
 def phase_probe():
@@ -518,26 +538,6 @@ def probe_edges(largest):
         if not ok:
             raise AssertionError(f"probe_smem at {nbytes} B, n {n}, offset "
                                  f"{off} disagrees with 3x")
-
-
-def loop_capacity(hidden, stages=4, adaptive=False):
-    """Co-resident K4 (or K5, at MAX_TRIALS) blocks for 64 -> hidden x4 ->
-    64: the occupancy query the wrapper sizes its grid with."""
-    from pnode_tpu_torch.ops import _build
-
-    lib = _build.library()
-    dims = [NX] + [hidden] * 4 + [NX]
-    h = 8 * sum(dims[:-1])
-    cap = _build.int_array([0])
-    if adaptive:
-        smem = lib.pnode_adaptive_loop_smem(NX, stages, max(dims), h,
-                                            MAX_TRIALS)
-        rc = lib.pnode_adaptive_loop_capacity(smem, cap)
-    else:
-        smem = lib.pnode_train_loop_smem(NX, stages, max(dims), h)
-        rc = lib.pnode_train_loop_capacity(smem, cap)
-    _build.check(rc, "loop kernel occupancy query")
-    return cap[0]
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -1087,7 +1087,7 @@ def norm_rel(got, ref):
                for a, b in zip(got, ref))
 
 
-def check_loop(label, run, K, chunk, report, tol=5e-4):
+def check_loop(label, run, K, chunk, report, tol=5e-4, rows=0):
     """K4 against fused_train_loop_plain on the same operands.
 
     - The first iteration's gradient, read as m1 / (1 - b1) after one
@@ -1098,6 +1098,7 @@ def check_loop(label, run, K, chunk, report, tol=5e-4):
       1e-4 relative; the final parameters within ``tol`` in max abs at eps
       1e-8 and norm-wise relative at eps 1e-6 (phase 4(a)'s form: below
       eps, Adam passes a gradient's rounding on amplified by up to lr/eps).
+    ``rows``: the kernel's rows per block (0: its plan's).
     """
     import torch
 
@@ -1105,7 +1106,7 @@ def check_loop(label, run, K, chunk, report, tol=5e-4):
         fused_train_loop, fused_train_loop_plain)
 
     grad = lambda out: [m / 0.1 for m in out[2][0] + out[2][1]]  # noqa: E731
-    g_k = grad(run(fused_train_loop, 1, 1e-8))
+    g_k = grad(run(fused_train_loop, 1, 1e-8, rows=rows))
     torch.cuda.synchronize()
     g_p = grad(run(fused_train_loop_plain, 1, 1e-8))
     g_d = grad(run(fused_train_loop_plain, 1, 1e-8, torch.float64))
@@ -1118,7 +1119,7 @@ def check_loop(label, run, K, chunk, report, tol=5e-4):
         f"{e64:.3e} (norm-wise, tol 1e-4; plain fp32 vs fp64 "
         f"{e_plain:.3e})")
     for eps in (1e-8, 1e-6):
-        kk = run(fused_train_loop, K, eps, chunk=chunk)
+        kk = run(fused_train_loop, K, eps, chunk=chunk, rows=rows)
         torch.cuda.synchronize()
         pp = run(fused_train_loop_plain, K, eps)
         lk, lp = kk[4].double().cpu(), pp[4].double().cpu()
@@ -1139,50 +1140,93 @@ def check_loop(label, run, K, chunk, report, tol=5e-4):
                              "plain version")
 
 
+def card_sms():
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def loop_rows(plan, B, hidden, *args):
+    """The rows per block in (1, 2, 4, 8) that a loop kernel's plan takes
+    at B, 64 -> hidden x4 -> 64 (``args``: the plan's after the layers),
+    on this card."""
+    layers = [hidden] * 4 + [NX]
+    return [r for r in (1, 2, 4, 8)
+            if plan(B, NX, layers, *args, sms=card_sms(), rows=r) is not None]
+
+
+def strided_batch():
+    """A batch with more row tiles of 8 rows than the card has SMs: the
+    loop kernels' grid is at most one block per SM, so at every R some
+    block strides over a second row tile."""
+    return 8 * card_sms() + 5
+
+
+def loop_device_ms(fn, name, K):
+    """The profiler's device time per iteration of loop kernel ``name``
+    over calls of ``fn`` (K iterations each)."""
+    us, traced = device_us_per_call(fn, [name], n=5)
+    return us / 1e3 / K, traced
+
+
 def phase_loop_kernel(device, u, J, inv, tab, dt, K=8, tol=5e-4):
-    """Phase 3 for K4: the main path (B 256, 64 -> 104 x4 -> 64), the
-    ragged case (B 37, hidden 24, nonzero biases, chunk=8) and a batch
-    with more row tiles than co-resident blocks, against the plain loop;
-    K = 16 as two launches of 8 against one launch; time per iteration,
-    kernel and plain version in turns."""
+    """Phase 3 for K4, against the plain loop at every rows per block its
+    plan takes (1, 2, 4, 8): the main path (B 256, 64 -> 104 x4 -> 64),
+    the ragged case (B 37, hidden 24, nonzero biases, chunk=8), an odd
+    hidden width (B 37, hidden 13: every weight takes the 4-byte copies,
+    through L2, where a stale L1 line would show) and a batch with more row
+    tiles than the grid has blocks; K = 16 as two launches of 8 against one
+    launch; two calls bitwise equal; time per iteration, kernel and plain
+    version in turns, and the kernel's device time."""
     import torch
 
     from pnode_tpu_torch.ops.fused_train_loop import (
-        fused_train_loop, fused_train_loop_plain)
+        fused_train_loop, fused_train_loop_plain, train_loop_plan)
 
     report = {}
+    s = len(tab[2])
     log(f"[kernels] fused_train_loop: K {K} distinct KS minibatches, Adam "
         f"lr {LR}")
     main = loop_case(device, u, BATCH, HIDDEN, False, 1, 2 * K)
     run = loop_runner(tab, dt, J, inv, *main)
-    check_loop(f"B{BATCH} h{HIDDEN}", run, K, None, report, tol)
-    rag = loop_runner(tab, dt, J, inv,
-                      *loop_case(device, u, 37, 24, True, 2, K))
-    check_loop("B37 h24 biased", rag, K, 8, report, tol)
-    # more row tiles than co-resident blocks: blocks stride over tiles,
-    # summing their partials and loss over more than one tile
-    wide = 8 * loop_capacity(24, len(tab[2])) + 5
-    strided = loop_runner(tab, dt, J, inv,
-                          *loop_case(device, u, wide, 24, True, 3, K))
-    check_loop(f"B{wide} h24 biased (blocks stride)", strided, K, None,
-               report, tol)
+    wide = strided_batch()
+    for label, B, hidden, chunk, seed in (
+            (f"B{BATCH} h{HIDDEN}", BATCH, HIDDEN, None, 1),
+            ("B37 h24 biased", 37, 24, 8, 2),
+            ("B37 h13 biased (odd width)", 37, 13, None, 4),
+            (f"B{wide} h24 biased (blocks stride)", wide, 24, None, 3)):
+        case = run if B == BATCH else loop_runner(
+            tab, dt, J, inv, *loop_case(device, u, B, hidden, True, seed, K))
+        rows = loop_rows(train_loop_plan, B, hidden, s)
+        plan = train_loop_plan(B, NX, [hidden] * 4 + [NX], s,
+                               sms=card_sms())
+        log(f"[kernels]   fused_train_loop {label}: plan (rows, grid, smem) "
+            f"{plan}; forced rows {rows}")
+        for r in rows:
+            check_loop(f"{label} R {r}", case, K, chunk, report, tol, rows=r)
 
     # persistence across launches: the state one launch leaves in device
     # memory seeds the next
     one = run(fused_train_loop, 2 * K, 1e-8)
     two = run(fused_train_loop, 2 * K, 1e-8, chunk=K)
+    again = run(fused_train_loop, 2 * K, 1e-8)
     torch.cuda.synchronize()
     lrel = float(((two[4] - one[4]).abs() / one[4].abs()).max())
     pabs = max(abs_err(a, b) for a, b in zip(two[0] + two[1],
                                              one[0] + one[1]))
     same = all(torch.equal(a, b) for a, b in zip(
         two[0] + two[1] + [two[4]], one[0] + one[1] + [one[4]]))
+    repeat = all(torch.equal(a, b) for a, b in zip(
+        again[0] + again[1] + [again[4]], one[0] + one[1] + [one[4]]))
     log(f"[kernels]   fused_train_loop K {2 * K}: chunk {K} vs one launch: "
         f"losses max rel {lrel:.3e}, params max abs {pabs:.3e} (bitwise "
-        f"equal: {same}; tol 1e-4, {tol:.0e})")
+        f"equal: {same}; tol 1e-4, {tol:.0e}); two calls bitwise equal: "
+        f"{repeat}")
     if not (lrel <= 1e-4 and pabs <= tol):
         raise AssertionError("fused_train_loop loses its state across "
                              "launches")
+    if not repeat:
+        raise AssertionError("fused_train_loop: two calls differ")
 
     # per iteration: plain, kernel, kernel, plain
     kern = lambda: run(fused_train_loop, K, 1e-8)  # noqa: E731
@@ -1193,11 +1237,15 @@ def phase_loop_kernel(device, u, J, inv, tab, dt, K=8, tol=5e-4):
     p2 = summary(cuda_times_ms(plain, reps=10, warmup=1, inner=1))
     report["ms"] = min(k1[0], k2[0]) / K
     report["plain_ms"] = min(p1[0], p2[0]) / K
+    report["device_ms"], traced = loop_device_ms(kern, "train_loop_kernel",
+                                                 K)
     log(f"[kernels]   fused_train_loop per iteration: kernel median "
         f"{k1[0] / K:.4f} / {k2[0] / K:.4f} ms (p66 {k1[1] / K:.4f} / "
         f"{k2[1] / K:.4f}), plain median {p1[0] / K:.4f} / {p2[0] / K:.4f} ms "
         f"(p66 {p1[1] / K:.4f} / {p2[1] / K:.4f}); 10 samples of 3 (kernel) "
-        f"or 1 (plain) back-to-back calls of K {K}")
+        f"or 1 (plain) back-to-back calls of K {K}; device "
+        f"{report['device_ms']:.4f} ms per iteration ({traced} launches "
+        f"traced)")
     return report
 
 
@@ -1206,24 +1254,26 @@ def adaptive_runner(stp, Ws, bs, y, tgt, dt0):
     version) over minibatches k0 .. k0 + K - 1 with the main path's
     controller (rtol = atol = 1e-4, MAX_TRIALS trials, window [0, DT]),
     from ``state`` = (weights, biases, m, v, t0, dt0), by default
-    ``run.state0``: the case's weights, zero Adam moments, t0 0 and dt0."""
+    ``run.state0``: the case's weights, zero Adam moments, t0 0 and dt0;
+    ``run.shape`` is (B, d, stages)."""
     import torch
 
     J = stp.setup.frozen_J_blocks[0]
     lam, Q = stp._spectral_stage_basis(J)
     tab = stp._tableau_static() + (stp._bIe, stp._bEe)
 
-    def run(fn, K, eps, dtype=torch.float32, k0=0, state=None):
+    def run(fn, K, eps, dtype=torch.float32, k0=0, state=None, **kw):
         cast = lambda ts: [t.to(dtype) for t in ts]  # noqa: E731
         W, b, m, v, t0, d0 = run.state0 if state is None else state
         return fn(tab, GAMMA, lam.to(dtype), Q.to(dtype), J.to(dtype), DT,
                   d0, y[k0:k0 + K].to(dtype), tgt[k0:k0 + K].to(dtype),
                   cast(W), cast(b), (cast(m[0]), cast(m[1])),
                   (cast(v[0]), cast(v[1])), t0, MAX_TRIALS, rtol=1e-4,
-                  atol=1e-4, order=stp.tab.order, lr=LR, eps=eps)
+                  atol=1e-4, order=stp.tab.order, lr=LR, eps=eps, **kw)
 
     z = ([torch.zeros_like(w) for w in Ws], [torch.zeros_like(b) for b in bs])
     run.state0 = (Ws, bs, z, z, 0, dt0)
+    run.shape = (int(y.shape[1]), int(y.shape[2]), len(tab[2]))
     return run
 
 
@@ -1241,7 +1291,7 @@ def rel_max(a, b):
 
 
 def check_adaptive(label, run, K, report, tol=5e-4, min_rejected=0,
-                   drift=False):
+                   drift=False, block_rows=0):
     """K5 against fused_adaptive_train_loop_plain on the same operands.
 
     - On one trajectory (phase 4(a)'s per-step form): K iterations, one
@@ -1256,13 +1306,18 @@ def check_adaptive(label, run, K, report, tol=5e-4, min_rejected=0,
       power: two correct fp32 evaluations put it up to 1e-2 apart on the
       card, and nothing consumes it; a wrong controller branch, the clip
       or no growth after a rejection, moves it by 10% or more); loss
-      within 1e-4 relative; gradient within ``tol`` norm-wise per tensor.
+      within 1e-4 relative; gradient within ``tol`` norm-wise per tensor
+      of the plain version or of the plain version in fp64 with the
+      kernel's own ReLU decisions (``adaptive_masked_reference``), both
+      printed.
     - Free-running, K iterations in one launch at Adam eps 1e-8 and 1e-6:
       decisions equal, losses within 1e-4 relative, at least
       ``min_rejected`` rejections; at eps 1e-6 the final parameters within
-      ``tol`` norm-wise (phase 4(a)'s form). dt_first, dt_last and the
-      final parameters at eps 1e-8 (max abs, phase 4(a)'s form there) are
-      printed and not gated: with kI = Y J^T the rounding of a stage
+      ``tol`` norm-wise (phase 4(a)'s form) of the plain version or of the
+      plain version in fp64 with the kernel's own ReLU decisions
+      (``adaptive_params_gap``). dt_first, dt_last and
+      the final parameters at eps 1e-8 (max abs, phase 4(a)'s form there)
+      are printed and not gated: with kI = Y J^T the rounding of a stage
       product reaches the gradient multiplied by |J|, and Adam below eps
       multiplies a gradient's rounding by up to lr/eps = 5e5, so two
       free-running fp32 trajectories part (after 8 iterations the plain
@@ -1270,6 +1325,7 @@ def check_adaptive(label, run, K, report, tol=5e-4, min_rejected=0,
       in fp64 at the main path), and with them the error estimates that
       set a rejected first trial's dt. ``drift`` runs the fp64 plain
       version and prints that distance beside the kernel's.
+    ``block_rows``: the kernel's rows per block (0: its plan's).
     """
     import torch
 
@@ -1281,30 +1337,38 @@ def check_adaptive(label, run, K, report, tol=5e-4, min_rejected=0,
     W, b, m, v, t0, dt = run.state0
     z = run.state0[2]
     same, ea = True, 0.0
-    worst = {"grad": 0.0, "loss": 0.0, "dt_first": 0.0, "dt_last": 0.0}
+    worst = {"grad": 0.0, "loss": 0.0, "dt_first": 0.0, "dt_last": 0.0,
+             "fp32": 0.0, "masked": 0.0}
     rows = []
     for k in range(K):
         probe = (W, b, z, z, 0, dt)
-        pk = run(kern, 1, 1e-8, k0=k, state=probe)
+        pk = run(kern, 1, 1e-8, k0=k, state=probe, rows=block_rows)
         torch.cuda.synchronize()
         pp = run(plain, 1, 1e-8, k0=k, state=probe)
-        if k == 0:
-            pd = run(plain, 1, 1e-8, torch.float64, state=probe)
-            log(f"[kernels]   fused_adaptive_train_loop {label}: first-"
-                f"iteration gradient vs plain fp32 "
-                f"{norm_rel(grad(pk), grad(pp)):.3e}, vs plain fp64 "
+        e32 = norm_rel(grad(pk), grad(pp))
+        pm, note = adaptive_masked_reference(run, 1, 1e-8, pk, block_rows,
+                                             probe, k)
+        em = norm_rel(grad(pk), grad(pm)) if pm else float("inf")
+        if k == 0 or e32 > tol:
+            pd = run(plain, 1, 1e-8, torch.float64, k0=k, state=probe)
+            log(f"[kernels]   fused_adaptive_train_loop {label}: iteration "
+                f"{k}'s gradient vs plain fp32 {e32:.3e}, vs plain fp64 "
                 f"{norm_rel(grad(pk), grad(pd)):.3e} (plain fp32 vs fp64 "
                 f"{norm_rel(grad(pp), grad(pd)):.3e}; fp64 trials "
-                f"{stats_rows(pd)})")
+                f"{stats_rows(pd)}), vs plain fp64 with the kernel's ReLU "
+                f"decisions {em:.3e}{note}")
         rows += stats_rows(pk)
         same = same and stats_rows(pk) == stats_rows(pp)
         for name in ("dt_first", "dt_last"):
             worst[name] = max(worst[name], rel_max(pk[5][name], pp[5][name]))
         worst["loss"] = max(worst["loss"], rel_max(pk[4], pp[4]))
-        worst["grad"] = max(worst["grad"], norm_rel(grad(pk), grad(pp)))
+        worst["fp32"] = max(worst["fp32"], e32)
+        worst["masked"] = max(worst["masked"], em)
+        worst["grad"] = max(worst["grad"], min(e32, em))
         ea = max([ea, abs_err(pk[4], pp[4])]
                  + [abs_err(x, y) for x, y in zip(grad(pk), grad(pp))])
-        adv = run(kern, 1, 1e-8, k0=k, state=(W, b, m, v, t0, dt))
+        adv = run(kern, 1, 1e-8, k0=k, state=(W, b, m, v, t0, dt),
+                  rows=block_rows)
         W, b, m, v = adv[0], adv[1], adv[2], adv[3]
         t0, dt = t0 + 1, float(adv[5]["dt_first"][0])
     ok = (same and worst["dt_first"] <= 1e-5 and worst["dt_last"] <= 5e-2
@@ -1313,11 +1377,13 @@ def check_adaptive(label, run, K, report, tol=5e-4, min_rejected=0,
         f"one trajectory, (accepted, rejected, completed) {rows} (plain "
         f"{'equal' if same else 'DIFFERENT'}); max rel err dt_first "
         f"{worst['dt_first']:.3e} (tol 1e-5), dt_last {worst['dt_last']:.3e} "
-        f"(tol 5e-2), loss {worst['loss']:.3e} (tol 1e-4), gradient "
+        f"(tol 5e-2), loss {worst['loss']:.3e} (tol 1e-4), gradient vs "
+        f"plain fp32 {worst['fp32']:.3e}, vs plain fp64 with the kernel's "
+        f"ReLU decisions {worst['masked']:.3e}, the nearer "
         f"{worst['grad']:.3e} (norm-wise, tol {tol:.0e}) "
         f"{'ok' if ok else 'FAIL'}")
     for eps in (1e-8, 1e-6):
-        kk = run(kern, K, eps)
+        kk = run(kern, K, eps, rows=block_rows)
         torch.cuda.synchronize()
         pp = run(plain, K, eps)
         rows_k, rows_p = stats_rows(kk), stats_rows(pp)
@@ -1326,23 +1392,24 @@ def check_adaptive(label, run, K, report, tol=5e-4, min_rejected=0,
         lrel = rel_max(kk[4], pp[4])
         pk, pq = kk[0] + kk[1], pp[0] + pp[1]
         n_rej = sum(r[1] for r in rows_k)
-        prel = norm_rel(pk, pq)
         ea = max(ea, abs_err(kk[4], pp[4]))
+        prel, gated = norm_rel(pk, pq), ""
+        if eps == 1e-6:
+            prel, gated = adaptive_params_gap(run, K, eps, kk, pp,
+                                              block_rows, tol)
         good = (rows_k == rows_p and lrel <= 1e-4 and n_rej >= min_rejected
                 and (eps == 1e-8 or prel <= tol))
         ok = ok and good
         log(f"[kernels]   fused_adaptive_train_loop {label}: K {K} in one "
             f"launch, Adam eps {eps:.0e}: (accepted, rejected, completed) "
             f"{rows_k} (plain {'equal' if rows_k == rows_p else rows_p}); "
-            f"losses max rel err {lrel:.3e} (tol 1e-4)"
-            + ("" if eps == 1e-8 else f"; final parameters rel (norm-wise) "
-               f"{prel:.3e} (tol {tol:.0e})")
+            f"losses max rel err {lrel:.3e} (tol 1e-4)" + gated
             + (f"; rejections {n_rej} (at least {min_rejected})"
                if min_rejected else "") + f" {'ok' if good else 'FAIL'}")
         line = (f"[kernels]     not gated: max rel err dt_first {dtf:.3e}, "
                 f"dt_last {dtl:.3e}; final parameters kernel vs plain fp32 "
                 f"max abs {max(abs_err(x, y) for x, y in zip(pk, pq)):.3e}, "
-                f"rel (norm-wise) {prel:.3e}")
+                f"rel (norm-wise) {norm_rel(pk, pq):.3e}")
         if drift and eps == 1e-8:
             dd = run(plain, K, eps, torch.float64)
             pd = dd[0] + dd[1]
@@ -1358,18 +1425,101 @@ def check_adaptive(label, run, K, report, tol=5e-4, min_rejected=0,
                              "with its plain version")
 
 
-def phase_adaptive_kernel(device, u, stp, K=8):
-    """Phase 3 for K5, against its plain version on K KS minibatches: the
-    main path (B 256, hidden 104, dt0 warm from a probe call), the ragged
-    case (B 37, hidden 24, nonzero biases), a cold dt0 = DT that must
-    reject, and a batch whose row tiles outnumber the co-resident blocks;
-    then time per iteration, kernel and plain version in turns."""
+def adaptive_masked_reference(run, K, eps, out, block_rows, state=None,
+                              k0=0):
+    """The plain version in fp64 with K5's own ReLU decisions: the
+    reference, beside the plain fp32 version, for a K5 result ``out`` (K
+    iterations from ``state``, by default ``run.state0``, minibatches k0
+    ..). A hidden unit whose preactivation is within fp32
+    rounding of 0 goes either way in two correct fp32 evaluations, and the
+    flip moves a layer's gradient by ~1e-3 norm-wise, so neither plain run
+    can tell a right kernel from a wrong one there. The kernel's
+    decisions: the same K iterations as K chained one-iteration launches
+    (equal to ``out`` bitwise, or no reference), each with a device
+    workspace read after it, which holds that iteration's trial stage
+    values; ``reverse_relu_masks`` recomputes from them, with the launch's
+    weights, the preactivations in the kernel's summation order. The fp64
+    run computes everything else itself, so a kernel whose stage values,
+    weights or sums were wrong still misses it. Returns (the fp64 run, or
+    None where the chain is not bitwise or the fp64 run's decisions
+    differ, and a note for the log)."""
     import torch
 
     from pnode_tpu_torch.ops.fused_adaptive_loop import (
-        fused_adaptive_train_loop, fused_adaptive_train_loop_plain)
+        adaptive_loop_plan, fused_adaptive_train_loop as kern,
+        fused_adaptive_train_loop_plain as plain)
+    from pnode_tpu_torch.ops.fused_ark_adjoint import reverse_relu_masks
+
+    state = run.state0 if state is None else state
+    W, b, m, v, t0, dt = state
+    B, d, s = run.shape
+    floats = adaptive_loop_plan(B, d, [int(w.shape[1]) for w in W], s,
+                                MAX_TRIALS, sms=card_sms(),
+                                rows=block_rows)[3]
+    masks = {}
+    for k in range(K):
+        ws = torch.empty(floats, dtype=torch.float32, device=W[0].device)
+        one = run(kern, 1, eps, k0=k0 + k, state=(W, b, m, v, t0, dt),
+                  rows=block_rows, workspace=ws)
+        n = int(one[5]["accepted"][0]) + int(one[5]["rejected"][0])
+        per = reverse_relu_masks(ws[:n * s * B * d].view(n, s, B, d), W, b)
+        for t in range(n):
+            masks[k, t] = [[mm[t, i] for mm in per] for i in range(s)]
+        W, b, m, v = one[0], one[1], one[2], one[3]
+        t0, dt = t0 + 1, float(one[5]["dt_first"][0])
+    chained = all(torch.equal(x, y) for x, y in zip(W + b, out[0] + out[1]))
+    ref = run(plain, K, eps, torch.float64, k0=k0, state=state,
+              relu_masks=lambda k, n: masks.get((k, n)))
+    same = stats_rows(ref) == stats_rows(out)
+    note = (f" ({K} chained launches bitwise equal: {chained}; its "
+            f"decisions {'equal' if same else stats_rows(ref)})")
+    return (ref if chained and same else None), note
+
+
+def adaptive_params_gap(run, K, eps, out, pp, block_rows, tol):
+    """The gate on a free-running K5 result ``out`` (K iterations in one
+    launch from ``run.state0``): its final parameters' norm-wise distance
+    from the plain version's ``pp`` or from the plain version in fp64 with
+    the kernel's own ReLU decisions (``adaptive_masked_reference``),
+    whichever is nearer; the plain fp64 run without them is printed
+    beside them. Returns (the distance, a part of a log line)."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_adaptive_loop import (
+        fused_adaptive_train_loop_plain as plain)
+
+    pk = out[0] + out[1]
+    e32 = norm_rel(pk, pp[0] + pp[1])
+    dd = run(plain, K, eps, torch.float64)
+    pd = dd[0] + dd[1]
+    ref, note = adaptive_masked_reference(run, K, eps, out, block_rows)
+    em = norm_rel(pk, ref[0] + ref[1]) if ref else float("inf")
+    return min(e32, em), (
+        f"; final parameters rel (norm-wise) {e32:.3e}, vs plain fp64 "
+        f"{norm_rel(pk, pd):.3e} (plain fp32 vs fp64 "
+        f"{norm_rel(pp[0] + pp[1], pd):.3e}), vs plain fp64 with the "
+        f"kernel's ReLU decisions {em:.3e}{note}, the nearer "
+        f"{min(e32, em):.3e} (tol {tol:.0e})")
+
+
+def phase_adaptive_kernel(device, u, stp, K=8):
+    """Phase 3 for K5, against its plain version on K KS minibatches at
+    every rows per block its plan takes (1, 2, 4, 8): the main path (B 256,
+    hidden 104, dt0 warm from a probe call), the ragged case (B 37, hidden
+    24, nonzero biases), an odd hidden width (B 37, hidden 13: the 4-byte
+    weight copies), a cold dt0 = DT that must reject, and a batch whose row
+    tiles outnumber the grid's blocks; two calls bitwise equal, and two
+    launches of K/2 carrying the state bitwise equal to one of K; then
+    time per iteration, kernel and plain version in turns, and the
+    kernel's device time."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_adaptive_loop import (
+        adaptive_loop_plan, fused_adaptive_train_loop,
+        fused_adaptive_train_loop_plain)
 
     report = {}
+    s = len(stp._tableau_static()[2])
     log(f"[kernels] fused_adaptive_train_loop: K {K} distinct KS "
         f"minibatches, rtol = atol = 1e-4, {MAX_TRIALS} trials, Adam lr {LR}")
     main = loop_case(device, u, BATCH, HIDDEN, False, 1, K)
@@ -1378,26 +1528,65 @@ def phase_adaptive_kernel(device, u, stp, K=8):
     dt_warm = float(probe[5]["dt_first"][0])
     log(f"[kernels]   probe call from dt0 {DT}: dt_first {dt_warm:.6g}")
     run = adaptive_runner(stp, *main, dt_warm)
-    check_adaptive(f"B{BATCH} h{HIDDEN} warm", run, K, report, drift=True)
-    rag = adaptive_runner(stp, *loop_case(device, u, 37, 24, True, 2, K),
-                          dt_warm)
-    check_adaptive("B37 h24 biased", rag, K, report)
-    cold = adaptive_runner(stp, *main, DT)
-    check_adaptive(f"B{BATCH} h{HIDDEN} cold dt0 {DT}", cold, K, report,
-                   min_rejected=1)
-    wide = 8 * loop_capacity(24, adaptive=True) + 5
-    strided = adaptive_runner(stp, *loop_case(device, u, wide, 24, True, 3,
-                                              K), dt_warm)
-    check_adaptive(f"B{wide} h24 biased (blocks stride)", strided, K, report)
+    wide = strided_batch()
+    for label, B, hidden, runner, extra in (
+            (f"B{BATCH} h{HIDDEN} warm", BATCH, HIDDEN, run,
+             dict(drift=True)),
+            ("B37 h24 biased", 37, 24, adaptive_runner(
+                stp, *loop_case(device, u, 37, 24, True, 2, K), dt_warm), {}),
+            ("B37 h13 biased (odd width)", 37, 13, adaptive_runner(
+                stp, *loop_case(device, u, 37, 13, True, 4, K), dt_warm), {}),
+            (f"B{BATCH} h{HIDDEN} cold dt0 {DT}", BATCH, HIDDEN,
+             adaptive_runner(stp, *main, DT), dict(min_rejected=1)),
+            (f"B{wide} h24 biased (blocks stride)", wide, 24, adaptive_runner(
+                stp, *loop_case(device, u, wide, 24, True, 3, K), dt_warm),
+             {})):
+        rows = loop_rows(adaptive_loop_plan, B, hidden, s, MAX_TRIALS)
+        plan = adaptive_loop_plan(B, NX, [hidden] * 4 + [NX], s, MAX_TRIALS,
+                                  sms=card_sms())
+        log(f"[kernels]   fused_adaptive_train_loop {label}: plan (rows, "
+            f"grid, smem, workspace floats) {plan}; forced rows {rows}")
+        for r in rows:
+            # the fp64 drift once per case, at its first R
+            kw = extra if r == rows[0] else {
+                k: v for k, v in extra.items() if k != "drift"}
+            check_adaptive(f"{label} R {r}", runner, K, report,
+                           block_rows=r, **kw)
 
     kern = lambda: run(fused_adaptive_train_loop, K, 1e-8)  # noqa: E731
     plain = lambda: run(fused_adaptive_train_loop_plain, K, 1e-8)  # noqa
+    first, second = kern(), kern()
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(
+        first[0] + first[1] + [first[4]] + list(first[5].values()),
+        second[0] + second[1] + [second[4]] + list(second[5].values())))
+    # persistence across launches: two launches of K/2, the second from the
+    # first's parameters, moments, t0 and dt_first warm start, equal one
+    # launch of K
+    half = run(fused_adaptive_train_loop, K // 2, 1e-8)
+    rest = run(fused_adaptive_train_loop, K - K // 2, 1e-8, k0=K // 2,
+               state=(half[0], half[1], half[2], half[3], K // 2,
+                      float(half[5]["dt_first"][-1])))
+    torch.cuda.synchronize()
+    chained = all(torch.equal(a, b) for a, b in zip(
+        rest[0] + rest[1] + [torch.cat([half[4], rest[4]])],
+        first[0] + first[1] + [first[4]]))
+    log(f"[kernels]   fused_adaptive_train_loop: two calls bitwise equal: "
+        f"{repeat}; {K // 2} + {K - K // 2} iterations in two launches "
+        f"bitwise equal to {K} in one: {chained}")
+    if not repeat:
+        raise AssertionError("fused_adaptive_train_loop: two calls differ")
+    if not chained:
+        raise AssertionError("fused_adaptive_train_loop loses its state "
+                             "across launches")
     p1 = summary(cuda_times_ms(plain, reps=5, warmup=1, inner=1))
     k1 = summary(cuda_times_ms(kern, reps=10, warmup=2, inner=3))
     k2 = summary(cuda_times_ms(kern, reps=10, warmup=2, inner=3))
     p2 = summary(cuda_times_ms(plain, reps=5, warmup=1, inner=1))
     report["ms"] = min(k1[0], k2[0]) / K
     report["plain_ms"] = min(p1[0], p2[0]) / K
+    report["device_ms"], traced = loop_device_ms(
+        kern, "adaptive_loop_kernel", K)
     rows = stats_rows(run(fused_adaptive_train_loop, K, 1e-8))
     # the timed runs' work per iteration, for the roofline bound
     report["accepted"] = float(np.mean([r[0] for r in rows]))
@@ -1406,8 +1595,9 @@ def phase_adaptive_kernel(device, u, stp, K=8):
         f"{k1[0] / K:.4f} / {k2[0] / K:.4f} ms (p66 {k1[1] / K:.4f} / "
         f"{k2[1] / K:.4f}), plain median {p1[0] / K:.4f} / {p2[0] / K:.4f} ms "
         f"(p66 {p1[1] / K:.4f} / {p2[1] / K:.4f}); 10 samples of 3 (kernel) "
-        f"or 5 samples of 1 (plain) back-to-back calls of K {K}; trials per "
-        f"iteration {rows}")
+        f"or 5 samples of 1 (plain) back-to-back calls of K {K}; device "
+        f"{report['device_ms']:.4f} ms per iteration ({traced} launches "
+        f"traced); trials per iteration {rows}")
     return report
 
 
@@ -2826,6 +3016,7 @@ def time_stencil(label, y, g, w):
                         ("circular_stencil_bwd", ("stencil_bwd",
                                                   "sum_partials"))):
         us, n = device_us_per_call(rows[name][0], parts)
+        out[name]["device_ms"] = us / 1e3
         log(f"[burgers]   {label} {name}: device time {us:.2f} us per call "
             f"({n} kernel launches traced over 20 calls)")
     return out

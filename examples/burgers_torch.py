@@ -16,8 +16,8 @@ data: nx 512, batch 200, dt 1e-3, ARK3 IMEX, ``linear_solver hpddm`` with a
 frozen Jacobian and ``-snes_type ksponly`` (a programmatic default that a
 command-line flag overrides). ``--use_fused`` (on by default) puts f_EX on
 K1 and f_IM on K10/K11; the fused ARK step kernels stay off at nx 512
-(their 8-row tile needs more shared memory than the H100's 227 KB), so the
-step runs the generic stage loop. PETSc-style flags after the script's own
+(their gate's 8-row budget needs more shared memory than the H100's 227
+KB), so the step runs the generic stage loop. PETSc-style flags after the script's own
 options go to the port's options database (``-ts_arkimex_type l2``, ...).
 ``--device cuda`` raises when CUDA is absent: the CPU is an explicit
 choice, never a fallback.

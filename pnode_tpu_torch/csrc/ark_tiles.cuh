@@ -1,9 +1,9 @@
-// K2's body: one ARK-IMEX forward step on R batch rows per block, its
-// operands staged in shared memory and its products on register tiles.
-//
-// csrc/pnode_kernels.cuh's ark_forward_tile (which K4 and K5 keep) takes 8
-// rows per block and reads every operand element with one __ldg per k per
-// thread, straight from L2, the stiff products' reads strided by K. Here:
+// The ARK bodies of K2, K3, K4, K5 and K12: one ARK-IMEX forward step
+// (forward_step) and one stage-exact reverse step (reverse_step) on R batch
+// rows per block, their operands staged in shared memory and their products
+// on register tiles. K2 runs forward_step alone, K3 reverse_step alone, K12
+// one of each; the loop kernels (K4, K5) run them inside one cooperative
+// launch, with Adam between iterations.
 //
 // - Rows per block, R in {1, 2, 4, 8}, come from a plan (plan_fwd): the
 //   fewest rows whose grid, ceil(B / R), fits one block per SM, so the grid
@@ -26,16 +26,25 @@
 //   split k (split_k: G groups of nct threads, as many as the block holds,
 //   at least 4 k each); their groups' partials meet in shared memory and
 //   are summed in group order. The stiff products keep G = 1, one FMA
-//   chain over k ascending per output (C = 1 up to 256 columns), as
-//   ark_forward_tile and the plain version's matmul sum them: the stage
-//   derivative kI = (Y - G) / (dt aI_ii) and the error estimate built on
-//   it cancel most of Y, and a split sum's other rounding there showed
-//   1.6e-4 of max |err| from the plain version where the chain stays
-//   under 1e-4. Every output is one fixed sum, so two calls, and any two
-//   R, give the same bits.
-// - The stage sums keep ark_forward_tile's order (j ascending, implicit
-//   term first) and the difference quotient kI = (Y - G) / (dt aI_ii); Ys
-//   keeps its (s, B, d) layout, which K3 reads.
+//   chain over k ascending per output (C = 1 up to 256 columns), as the
+//   plain version's matmul sums them: the stage derivative kI = (Y - G) /
+//   (dt aI_ii) and the error estimate built on it cancel most of Y, and a
+//   split sum's other rounding there showed 1.6e-4 of max |err| from the
+//   plain version where the chain stays under 1e-4. Every output is one
+//   fixed sum, so two calls, and any two R, give the same bits.
+// - The stage sums run j ascending, implicit term first, as the plain
+//   version's; the implicit stages' derivative is the difference quotient
+//   kI = (Y - G) / (dt aI_ii) (K2, K4, K12) or the product kI = Y J^T
+//   (kJY: K5, whose error estimate the quotient's cancellation would put a
+//   dt-independent floor under, stalling the controller). Ys keeps its (s,
+//   B, d) layout, which K3 reads.
+// - Coherence (kCoherent, the loop kernels): Adam rewrites W and b in
+//   place between iterations of one launch, and the L1 of an SM is not
+//   kept coherent with another SM's stores. So in the loop kernels every
+//   weight and bias read goes through L2: 16-byte cp.async.cg, 4-byte
+//   copies as __ldcg plus a shared store (cp.async.ca would allocate in
+//   L1), biases by __ldcg (not the read-only __ldg). K2, K3 and K12 keep
+//   cp.async.ca and __ldg: their weights never change inside a launch.
 //
 // Bound on the H100 at KS (B 256, 64 -> 104 x4 -> 64, ARK3): ~102 MFLOP
 // per step, 1.5 us at the fp32 peak. What limits this design on the card
@@ -227,15 +236,37 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// One float into shared memory: cp.async.ca, or (kCoherent) a load
+// through L2 and a shared store, complete before the next commit.
+template <bool kCoherent>
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  if constexpr (kCoherent)
+    *dst = __ldcg(src);
+  else
+    cp_async4(dst, src);
+}
+
+// A bias read: through L2 in the loop kernels (kCoherent), else the
+// read-only path.
+template <bool kCoherent>
+__device__ __forceinline__ float load_bias(const float* p) {
+  if constexpr (kCoherent)
+    return __ldcg(p);
+  else
+    return __ldg(p);
+}
+
 // n contiguous floats, by the block: 16-byte copies where both ends are
 // aligned and n is a multiple of 4, else 4-byte copies.
+template <bool kCoherent = false>
 __device__ __forceinline__ void copy_contig(float* dst, const float* src,
                                            int n) {
   if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0 && (n & 3) == 0) {
     for (int e = 4 * threadIdx.x; e < n; e += 4 * kThreads)
       cp_async16(dst + e, src + e);
   } else {
-    for (int e = threadIdx.x; e < n; e += kThreads) cp_async4(dst + e, src + e);
+    for (int e = threadIdx.x; e < n; e += kThreads)
+      copy4<kCoherent>(dst + e, src + e);
   }
 }
 
@@ -251,11 +282,13 @@ __device__ __forceinline__ void copy_cols(float* dst, int ld, const float* src,
 
 // -- the chunk stream ----------------------------------------------------------
 
-// The step's operand sequence, block-uniform: per stage, the stage
-// operator (when not resident; u = -1), then W_0 .. W_{n-1}, each in
-// chunks of k rows. `cur` is the chunk in flight in slot `par`.
+// The step's operand sequence, block-uniform: per stage, when inv and J
+// are not resident, the stage operator (u = -2: inv on an implicit stage,
+// else J) and, with kI = Y J^T (jy) on an implicit stage, J (u = -1);
+// then W_0 .. W_{n-1}; each in chunks of k rows. The chunk in flight is in
+// slot `par`.
 struct Stream {
-  int stage, u, k0, par;
+  int stage, u, k0, par, jy;
 };
 
 struct StepArgs {
@@ -279,31 +312,39 @@ __device__ __forceinline__ void operand_shape(const StepArgs& a, int u,
   }
 }
 
-__device__ __forceinline__ void stream_advance(const StepArgs& a, Stream* st) {
+__device__ __forceinline__ void stream_advance(const StepArgs& a,
+                                              const Tableau& tb, Stream* st) {
   int kc, K, N;
   operand_shape(a, st->u, &kc, &K, &N);
   st->k0 += kc;
   if (st->k0 < K) return;
   st->k0 = 0;
-  if (++st->u == a.m.n) {
-    st->u = a.p.resident ? 0 : -1;
+  if (st->u == -2 && st->jy && tb.nzI[st->stage][st->stage]) {
+    st->u = -1;
+  } else if (st->u < 0) {
+    st->u = 0;
+  } else if (++st->u == a.m.n) {
+    st->u = a.p.resident ? 0 : -2;
     ++st->stage;
   }
 }
 
 // Copy chunk *st into ring slot `slot` and commit it (an empty group past
 // the last chunk, so that every wait counts the same groups).
+template <bool kCoherent>
 __device__ __forceinline__ void stream_issue(const StepArgs& a,
+                                            const Tableau& tb,
                                             const Stream& st, float* slot) {
-  if (st.stage < a.tb.s) {
+  if (st.stage < tb.s) {
     int kc, K, N;
     operand_shape(a, st.u, &kc, &K, &N);
     const int kn = min(kc, K - st.k0);
     if (st.u < 0) {
-      const float* op = a.tb.nzI[st.stage][st.stage] ? a.inv : a.J;
+      const float* op =
+          st.u == -2 && tb.nzI[st.stage][st.stage] ? a.inv : a.J;
       copy_cols(slot, a.p.ld_op, op, N, K, st.k0, kn);
     } else {
-      copy_contig(slot, a.m.W[st.u] + (size_t)st.k0 * N, kn * N);
+      copy_contig<kCoherent>(slot, a.m.W[st.u] + (size_t)st.k0 * N, kn * N);
     }
   }
   cp_async_commit();
@@ -343,8 +384,9 @@ __device__ __forceinline__ void tile_fma(float (&acc)[R][C], const float* mp,
 // or the stream's next operand, taken chunk by chunk from the ring (W
 // chunks: M(k, n) = slot[(k - k0) * N + n]; operator chunks: slot[n *
 // ld_op + (k - k0)]). red: the split-k partials. Ends with a barrier.
-template <int R, int C>
-__device__ __forceinline__ void product(const StepArgs& a, Stream* st,
+template <int R, int C, bool kCoherent>
+__device__ __forceinline__ void product(const StepArgs& a, const Tableau& tb,
+                                        Stream* st,
                                         float* ring, const float* res,
                                         const float* in, int ldi, int rows,
                                         int K, int N, int G,
@@ -384,9 +426,9 @@ __device__ __forceinline__ void product(const StepArgs& a, Stream* st,
       const bool tmajor = st->u < 0;
       ldk = tmajor ? 1 : N;
       ldn = tmajor ? a.p.ld_op : 1;
-      stream_advance(a, st);
+      stream_advance(a, tb, st);
       st->par ^= 1;
-      stream_issue(a, *st, ring + st->par * a.p.slot);
+      stream_issue<kCoherent>(a, tb, *st, ring + st->par * a.p.slot);
     }
     if (active) {
       const int r0 = k0 % G;
@@ -397,7 +439,7 @@ __device__ __forceinline__ void product(const StepArgs& a, Stream* st,
   }
 
   auto post = [&](float v, int n) {
-    if (bias != nullptr) v = v + __ldg(bias + n);
+    if (bias != nullptr) v = v + load_bias<kCoherent>(bias + n);
     v = act_fwd(v, act);
     return scale == 1.0f ? v : scale * v;
   };
@@ -433,16 +475,23 @@ __device__ __forceinline__ void product(const StepArgs& a, Stream* st,
 
 // One ARK-IMEX forward step on the block's `rows` rows: y, y1 and err
 // (when not null) point at the block's first row (row stride d), stage i's
-// rows go to ys + i * ys_step. K2 passes device memory; K12 keeps y1 and
-// the stage values in its shared memory.
-template <int R>
+// rows go to ys + i * ys_step. K2 passes device memory; K4 and K12 keep y1
+// and the stage values in their shared memory; K5 writes y1 and the stage
+// values to device memory and err to shared memory. tb: the step's tableau
+// (K5's is rescaled per trial in shared memory; the others pass a.tb).
+// stage_ops: copy inv and J into the resident region first (K5 forms its
+// stage inverse there itself and stages J once per launch; K4 stages both
+// on its first call only). kJY: implicit stages take kI = Y J^T, not the
+// difference quotient. Ends with no barrier.
+template <int R, bool kJY = false, bool kCoherent = false>
 __device__ __forceinline__ void forward_step(const StepArgs& a,
+                                             const Tableau& tb,
                                              const float* y, float* y1,
                                              float* ys, size_t ys_step,
                                              float* err, int rows,
-                                             float sign, float* smem) {
+                                             float sign, bool stage_ops,
+                                             float* smem) {
   const Plan& p = a.p;
-  const Tableau& tb = a.tb;
   const Mlp& m = a.m;
   const int d = m.dims[0];
   const int s = tb.s;
@@ -460,16 +509,30 @@ __device__ __forceinline__ void forward_step(const StepArgs& a,
   const int opf = round4(d * p.ld_op);
 
   // y's rows and the resident operators, then the stream's first chunk
-  copy_contig(yb, y, rows * d);
-  if (p.resident) {
+  copy_contig<kCoherent>(yb, y, rows * d);
+  if (p.resident && stage_ops) {
     copy_cols(ops, p.ld_op, a.inv, d, d, 0, d);
     copy_cols(ops + opf, p.ld_op, a.J, d, d, 0, d);
   }
   cp_async_commit();
-  Stream st{0, p.resident ? 0 : -1, 0, 0};
-  stream_issue(a, st, ring);
+  Stream st{0, p.resident ? 0 : -2, 0, 0, kJY};
+  stream_issue<kCoherent>(a, tb, st, ring);
   cp_async_wait<1>();
   __syncthreads();
+
+  // out = in op^T on the block's rows (res: the resident operator, else
+  // the stream's next operand): one FMA chain per output
+  auto stiff = [&](const float* res, const float* in, float* out) {
+    if (d <= kThreads)
+      product<R, 1, kCoherent>(a, tb, &st, ring, res, in, d, rows, d, d, 1,
+                               nullptr, kActNone, 1.0f, out, d, red);
+    else if (d <= 2 * kThreads)
+      product<R, 2, kCoherent>(a, tb, &st, ring, res, in, d, rows, d, d, 1,
+                               nullptr, kActNone, 1.0f, out, d, red);
+    else
+      product<R, 4, kCoherent>(a, tb, &st, ring, res, in, d, rows, d, d, 1,
+                               nullptr, kActNone, 1.0f, out, d, red);
+  };
 
   for (int i = 0; i < s; ++i) {
     // G = y + sum_{j<i} (dt aI_ij kI_j + dt aE_ij kE_j), in the reference's
@@ -485,26 +548,22 @@ __device__ __forceinline__ void forward_step(const StepArgs& a,
     __syncthreads();
     float* kIi = kI + i * tile;
     const bool implicit = tb.nzI[i][i];
-    const float* res =
-        p.resident ? (implicit ? ops : ops + opf) : nullptr;
-    // implicit: Y = G inv^T; explicit: kI = G J^T (and Y = G); one FMA
-    // chain per output
-    float* so = implicit ? Yb : kIi;
-    if (d <= kThreads)
-      product<R, 1>(a, &st, ring, res, Gb, d, rows, d, d, 1, nullptr,
-                    kActNone, 1.0f, so, d, red);
-    else if (d <= 2 * kThreads)
-      product<R, 2>(a, &st, ring, res, Gb, d, rows, d, d, 1, nullptr,
-                    kActNone, 1.0f, so, d, red);
-    else
-      product<R, 4>(a, &st, ring, res, Gb, d, rows, d, d, 1, nullptr,
-                    kActNone, 1.0f, so, d, red);
-    const float* Yi = implicit ? Yb : Gb;
+    const float* Jres = p.resident ? ops + opf : nullptr;
+    // implicit: Y = G inv^T, then kI = Y J^T (kJY) or (Y - G) / (dt aI_ii);
+    // explicit: kI = G J^T (and Y = G)
     if (implicit) {
-      const float inv_dt = tb.inv_dt[i];
-      for (int e = threadIdx.x; e < rows * d; e += kThreads)
-        kIi[e] = (Yb[e] - Gb[e]) * inv_dt;
+      stiff(p.resident ? ops : nullptr, Gb, Yb);
+      if constexpr (kJY) {
+        stiff(Jres, Yb, kIi);
+      } else {
+        const float inv_dt = tb.inv_dt[i];
+        for (int e = threadIdx.x; e < rows * d; e += kThreads)
+          kIi[e] = (Yb[e] - Gb[e]) * inv_dt;
+      }
+    } else {
+      stiff(Jres, Gb, kIi);
     }
+    const float* Yi = implicit ? Yb : Gb;
     float* yo = ys + i * ys_step;
     for (int e = threadIdx.x; e < rows * d; e += kThreads) yo[e] = Yi[e];
     // kE_i = sign * MLP(Y_i)
@@ -513,11 +572,12 @@ __device__ __forceinline__ void forward_step(const StepArgs& a,
     for (int l = 0; l < m.n; ++l) {
       const bool last = l == m.n - 1;
       float* dst = last ? kEi : ((l & 1) ? hb : ha);
-      product<R, kCols>(a, &st, ring, nullptr, src, m.dims[l], rows,
-                        m.dims[l], m.dims[l + 1],
-                        split_k(m.dims[l], m.dims[l + 1]), m.b[l],
-                        last ? kActNone : m.act, last ? sign : 1.0f, dst,
-                        last ? d : m.dims[l + 1], red);
+      const int K = m.dims[l], N = m.dims[l + 1];
+      product<R, kCols, kCoherent>(a, tb, &st, ring, nullptr, src, K, rows, K,
+                                   N, split_k(K, N), m.b[l],
+                                   last ? kActNone : m.act,
+                                   last ? sign : 1.0f, dst, last ? d : N,
+                                   red);
       src = dst;
     }
   }
@@ -545,9 +605,9 @@ __device__ __forceinline__ void forward_step(const StepArgs& a,
 
 // -- the reverse step ---------------------------------------------------------------
 //
-// K3's and K12's body: one stage-exact reverse step on R rows per block,
-// on forward_step's pieces. For i = s-1 .. 0 (the stages some covector
-// reaches), in ark_reverse_tile's order:
+// K3's, K4's, K5's and K12's body: one stage-exact reverse step on R rows
+// per block, on forward_step's pieces. For i = s-1 .. 0 (the stages some
+// covector reaches), in the plain version's order:
 //
 //   u_i  = dt (bI_i lam + sum_{m>i} aI_mi xi_m)   (lam term, m ascending)
 //   uh_i = dt (bE_i lam + sum_{m>i} aE_mi xi_m)
@@ -558,7 +618,7 @@ __device__ __forceinline__ void forward_step(const StepArgs& a,
 // - inv and J are staged once per block at the odd stride ld_op (K12 reads
 //   the copies its forward staged). The reverse reads them row-wise, M(k,
 //   n) = op[k][n], one FMA chain per output over k ascending (G = 1), as
-//   ark_reverse_tile and the plain version's matmul sum them. Where the
+//   the plain version's matmul sums them. Where the
 //   two copies do not fit beside the rest (past d ~160 at KS-like stacks; the
 //   plan says), the reverse reads them in place from device memory, still
 //   row-wise (consecutive lanes on consecutive n, coalesced), with the same
@@ -650,16 +710,24 @@ struct RevPlan {
   size_t smem;   // bytes
 };
 
-// Host: the layout at R rows per block with nst store slots: K3's (grad
-// false: lam, lam_prev, then the reverse's scratch) or K12's (grad: the
-// stage values and the seed, then the forward's scratch overlaid by the
-// reverse's; *f is the forward's plan over the same ring, with inv and J
-// streamed through it where they are not resident). `resident`: inv and J
-// staged whole, else the reverse reads them from device memory. false when
-// it does not fit kMaxSmemBytes or a layer is wider than a product takes.
+// The reverse's layouts: K3's (kRevStep: lam, lam_prev, then the
+// reverse's scratch), K4's and K12's (kRevGrad: the stage values and the
+// seed, then the forward's scratch overlaid by the reverse's) and K5's
+// (kRevAdapt: lam, lam_prev, then both scratches overlaid). Where the
+// forward runs too, *f is its plan over the same ring, with inv and J
+// streamed through it where they are not resident.
+enum RevKind { kRevStep = 0, kRevGrad = 1, kRevAdapt = 2 };
+
+// Host: the layout of `kind` at R rows per block with nst store slots,
+// from offset `head` (floats the kernel keeps for itself: K5's trial
+// header). `resident`: inv and J staged whole, else the reverse reads them
+// from device memory. false when it does not fit kMaxSmemBytes or a layer
+// is wider than a product takes.
 static inline bool plan_rev_rows(int R, int B, int d, int s, int n_layers,
-                                 const int* dims, int nst, bool grad,
-                                 bool resident, RevPlan* q, Plan* f) {
+                                 const int* dims, int nst, int kind,
+                                 bool resident, RevPlan* q, Plan* f,
+                                 int head = 0) {
+  const bool fwd = kind != kRevStep;
   int maxd = d, redw = 0, whole = 0, minslot = 0;
   int hw = 0, gw = 0;  // floats of a stage slot's layer inputs, covectors
   for (int l = 0; l < n_layers; ++l) {
@@ -686,8 +754,8 @@ static inline bool plan_rev_rows(int R, int B, int d, int s, int n_layers,
     gw += round4(R * dims[l + 1]);
   }
   q->sst = hw + gw;
-  int off = 0;
-  if (grad) {
+  int off = head;
+  if (kind == kRevGrad) {
     q->o_ys = off;  off += round4(s * R * d);
     q->o_lam = off; off += round4(R * d);  // the seed
   } else {
@@ -701,7 +769,7 @@ static inline bool plan_rev_rows(int R, int B, int d, int s, int n_layers,
   q->o_q = off;   off += round4(R * d);
   q->o_st = off;  off += nst * q->sst;
   q->o_red = off; off += round4(R * redw);
-  if (grad) {
+  if (fwd) {
     *f = Plan{};
     f->rows = R;
     f->grid = q->grid;
@@ -722,7 +790,7 @@ static inline bool plan_rev_rows(int R, int B, int d, int s, int n_layers,
     q->kc[l] = kc < dims[l] ? kc : dims[l];
   }
   q->smem = sizeof(float) * ((size_t)q->o_ring + 2 * (size_t)q->slot);
-  if (grad) {
+  if (fwd) {
     f->resident = resident;
     f->slot = q->slot;
     f->o_op = q->o_op;
@@ -733,8 +801,9 @@ static inline bool plan_rev_rows(int R, int B, int d, int s, int n_layers,
   return true;
 }
 
-// Host: the plan of K3 (grad false) or K12 (grad). R is the fewest rows
-// per block in {1, 2, 4, 8} whose grid fits one block per SM (else 8),
+// Host: the plan of `kind` (K3's, K4's and K12's, or K5's, after `head`
+// floats). R is the fewest rows per block in {1, 2, 4, 8} whose grid
+// ceil(B / R) fits one block per SM (else 8),
 // halved while the store of all s stages does not fit; at R = 1 the store
 // then shrinks to the most stage slots that fit. All of that first with
 // inv and J resident, then with them read from device memory (where the
@@ -742,24 +811,25 @@ static inline bool plan_rev_rows(int R, int B, int d, int s, int n_layers,
 // stacks). false when nothing fits. `rows` 1, 2, 4 or 8 forces R (with
 // the whole store, inv and J resident where they fit).
 static inline bool plan_rev(int B, int d, int s, int n_layers,
-                            const int* dims, int sms, bool grad, int rows,
-                            RevPlan* q, Plan* f) {
+                            const int* dims, int sms, int kind, int rows,
+                            RevPlan* q, Plan* f, int head = 0) {
   for (int resident = 1; resident >= 0; --resident) {
     if (rows != 0) {
       if ((rows == 1 || rows == 2 || rows == 4 || rows == 8) &&
-          plan_rev_rows(rows, B, d, s, n_layers, dims, s, grad, resident, q,
-                        f))
+          plan_rev_rows(rows, B, d, s, n_layers, dims, s, kind, resident, q,
+                        f, head))
         return true;
       continue;
     }
     int R = 1;
     while (R < kMaxRows && (B + R - 1) / R > sms) R *= 2;
     for (; R >= 1; R /= 2)
-      if (plan_rev_rows(R, B, d, s, n_layers, dims, s, grad, resident, q, f))
+      if (plan_rev_rows(R, B, d, s, n_layers, dims, s, kind, resident, q, f,
+                        head))
         return true;
     for (int nst = s - 1; nst >= 1; --nst)
-      if (plan_rev_rows(1, B, d, s, n_layers, dims, nst, grad, resident, q,
-                        f))
+      if (plan_rev_rows(1, B, d, s, n_layers, dims, nst, kind, resident, q,
+                        f, head))
         return true;
   }
   return false;
@@ -784,6 +854,7 @@ __device__ __forceinline__ int chunk_id(int l, int k0) {
 
 // Copy chunk k0 of W_l into `slot`, rows at row_stride(N), a warp per
 // row (16-byte copies where N and W_l allow), and commit it.
+template <bool kCoherent>
 __device__ __forceinline__ void ring_issue(const RevPlan& q, const Mlp& m,
                                            int l, int k0, float* slot) {
   const int N = m.dims[l + 1], ldw = row_stride(N);
@@ -797,12 +868,13 @@ __device__ __forceinline__ void ring_issue(const RevPlan& q, const Mlp& m,
   } else {
     for (int k = warp; k < kn; k += kThreads / 32)
       for (int n = lane; n < N; n += 32)
-        cp_async4(slot + k * ldw + n, src + (size_t)k * N + n);
+        copy4<kCoherent>(slot + k * ldw + n, src + (size_t)k * N + n);
   }
   cp_async_commit();
 }
 
 // Start the ring at the first MLP stage (the highest bit of `mlp`).
+template <bool kCoherent>
 __device__ __forceinline__ void ring_start(const RevPlan& q, const Mlp& m,
                                            unsigned mlp, RevRing* rg,
                                            float* ring) {
@@ -812,13 +884,14 @@ __device__ __forceinline__ void ring_start(const RevPlan& q, const Mlp& m,
     return;
   }
   const int l = rev_layer_of(0, m.n);
-  ring_issue(q, m, l, 0, ring);
+  ring_issue<kCoherent>(q, m, l, 0, ring);
   rg->held0 = chunk_id(l, 0);
 }
 
 // The chunk in use from here to the next call (it has landed, and every
 // reader of the other slot is done); the one after it is brought into the
 // other slot unless a slot holds it already.
+template <bool kCoherent>
 __device__ __forceinline__ const float* ring_acquire(const RevPlan& q,
                                                      const Mlp& m,
                                                      unsigned mlp,
@@ -852,7 +925,7 @@ __device__ __forceinline__ const float* ring_acquire(const RevPlan& q,
     } else {
       rg->nslot = cur ^ 1;
       if (there != id) {
-        ring_issue(q, m, l, rg->k0, ring + (cur ^ 1) * q.slot);
+        ring_issue<kCoherent>(q, m, l, rg->k0, ring + (cur ^ 1) * q.slot);
         if (cur == 0) rg->held1 = id;
         else rg->held0 = id;
         mark(kMarkIssued);
@@ -920,7 +993,7 @@ __device__ __forceinline__ void stiff_product(const float* op, int ld_op,
 
 // The recompute of layer l, h_{l+1} = act(h_l W_l + b_l) (in: rows x K,
 // out: rows x N), over the ring's chunks of W_l. Ends with a barrier.
-template <int R>
+template <int R, bool kCoherent>
 __device__ __forceinline__ void rev_forward(const RevPlan& q, const Mlp& m,
                                             unsigned mlp, RevRing* rg,
                                             float* ring, int l,
@@ -936,7 +1009,7 @@ __device__ __forceinline__ void rev_forward(const RevPlan& q, const Mlp& m,
   for (int j = 0; j < C; ++j) ok[j] = c + nct * j < N;
   float acc[R][C] = {};
   for (int k0 = 0; k0 < K; k0 += q.kc[l]) {
-    const float* M = ring_acquire(q, m, mlp, rg, ring);
+    const float* M = ring_acquire<kCoherent>(q, m, mlp, rg, ring);
     const int kn = min(q.kc[l], K - k0);
     if (g < G) {
       const int r0 = k0 % G;
@@ -949,7 +1022,8 @@ __device__ __forceinline__ void rev_forward(const RevPlan& q, const Mlp& m,
   const int act = m.act;
   tile_store<R, C>(acc, c, g, nct, G, ok, rows, N, red,
                    [&](float v, int r, int n) {
-                     out[r * N + n] = act_fwd(v + __ldg(bias + n), act);
+                     out[r * N + n] =
+                         act_fwd(v + load_bias<kCoherent>(bias + n), act);
                    });
   __syncthreads();
   mark(kMarkFwd);
@@ -991,7 +1065,7 @@ __device__ __forceinline__ void tile_fma4(float (&acc)[R][C], const float* M,
 // and hg: rows x K; hg null: no activation), chunk by chunk of W_l's rows
 // (each chunk a block of outputs, summed over all of n; 4 n at a time
 // where N is a multiple of 4). Ends with a barrier.
-template <int R>
+template <int R, bool kCoherent>
 __device__ __forceinline__ void rev_backward(const RevPlan& q, const Mlp& m,
                                              unsigned mlp, RevRing* rg,
                                              float* ring, int l,
@@ -1003,7 +1077,7 @@ __device__ __forceinline__ void rev_backward(const RevPlan& q, const Mlp& m,
   const int G = split_k(N, K);
   const int act = m.act;
   for (int k0 = 0; k0 < K; k0 += q.kc[l]) {
-    const float* M = ring_acquire(q, m, mlp, rg, ring);
+    const float* M = ring_acquire<kCoherent>(q, m, mlp, rg, ring);
     const int kn = min(q.kc[l], K - k0);
     const int nct = (kn + C - 1) / C;
     const int c = threadIdx.x % nct, g = threadIdx.x / nct;
@@ -1113,16 +1187,18 @@ __device__ __forceinline__ void form_grads(const RevPlan& q, const Mlp& m,
 // One stage-exact reverse step on the block's `rows` rows. lam (shared,
 // R x d): the incoming covector; stage i's values at ys + i * ys_step (the
 // block's first row: K3's device-memory trajectory, K12's shared stage
-// values). lam_prev (device memory, the block's first row) or null. part:
-// the block's dW/db partial (m.wtotal floats, written whole). stage_ops:
-// stage inv and J here where the plan keeps them resident (K3); K12's
-// forward staged them already. Ends with a barrier.
-template <int R>
+// values; K5's stored trial). lam_prev (device memory, the block's first
+// row) or null. part: the block's dW/db partial (m.wtotal floats), written
+// whole, or added to (`add`: a loop kernel's block past its first row tile
+// or trial). stage_ops: stage inv and J here where the plan keeps them
+// resident (K3); K4's, K5's and K12's are staged already. Ends with a
+// barrier.
+template <int R, bool kCoherent = false>
 __device__ __forceinline__ void reverse_step(
     const RevPlan& q, const Mlp& m, const Tableau& tb, const float* J,
     const float* inv, const float* lam, const float* ys, size_t ys_step,
     float* lam_prev, float* part, int rows, float sign, bool stage_ops,
-    float* smem) {
+    bool add, float* smem) {
   const int d = m.dims[0];
   const int s = tb.s;
   const int n = m.n;
@@ -1158,7 +1234,7 @@ __device__ __forceinline__ void reverse_step(
     cp_async_commit();
   }
   RevRing rg;
-  ring_start(q, m, emask, &rg, ring);
+  ring_start<kCoherent>(q, m, emask, &rg, ring);
   float* lp = lam_prev != nullptr ? smem + q.o_lp : nullptr;
   if (lp != nullptr)
     for (int e = threadIdx.x; e < rows * d; e += kThreads) lp[e] = lam[e];
@@ -1167,7 +1243,7 @@ __device__ __forceinline__ void reverse_step(
   mark(kMarkStaged);
 
   int cnt = 0;         // stage slots of the store in use
-  bool flushed = false;
+  bool flushed = add;  // the partial holds what the next flush adds to
   for (int i = s - 1; i >= 0; --i) {
     const bool has_u = (umask >> i) & 1u, has_uh = (emask >> i) & 1u;
     if (!has_u && !has_uh) continue;
@@ -1202,12 +1278,13 @@ __device__ __forceinline__ void reverse_step(
     }
     if (has_uh) {
       for (int l = 0; l < n - 1; ++l)
-        rev_forward<R>(q, m, emask, &rg, ring, l, slot + q.ho[l], rows,
-                       slot + q.ho[l + 1], red);
+        rev_forward<R, kCoherent>(q, m, emask, &rg, ring, l, slot + q.ho[l],
+                                  rows, slot + q.ho[l + 1], red);
       for (int l = n - 1; l >= 0; --l)
-        rev_backward<R>(q, m, emask, &rg, ring, l, slot + q.go[l], rows,
-                        l > 0 ? slot + q.ho[l] : nullptr,
-                        l > 0 ? slot + q.go[l - 1] : qb, red);
+        rev_backward<R, kCoherent>(q, m, emask, &rg, ring, l,
+                                   slot + q.go[l], rows,
+                                   l > 0 ? slot + q.ho[l] : nullptr,
+                                   l > 0 ? slot + q.go[l - 1] : qb, red);
       for (int e = threadIdx.x; e < rows * d; e += kThreads)
         pv[e] = has_p ? pv[e] + qb[e] : qb[e];
       has_p = true;

@@ -4,7 +4,7 @@
 //
 // Replaces pnode_tpu/ops/fused_adaptive_loop.py: _kernel (:262), with
 // _ark_trial (:123) and _ark_adjoint (:173), launched by
-// fused_adaptive_train_loop (:462). Scope: K4's (ksponly, a frozen linear
+// fused_adaptive_train_loop (:607). Scope: K4's (ksponly, a frozen linear
 // implicit part, f_EX = sign * MLP) with a SYMMETRIC J given by its
 // eigenbasis (lam, Q), the basic controller, one output window [0, t_end].
 // Per iteration k, from y0 = y_stack[k] and dt = the previous iteration's
@@ -20,48 +20,58 @@
 //             dt <- dt fac; on accept t += dt_try, y = y1, landed when
 //             t >= t_end - 1e-10 max(|t_end|, 1)
 //   loss = mean((y_landed - tgt)^2); lam = 2 (y_landed - tgt) / (B d)
-//   reverse: the accepted trials, last to first, each replayed from its
-//            recorded pre-step state and transposed (K3's body); rejected
-//            trials are identities
+//   reverse: the accepted trials, last to first, each transposed from its
+//            stored stage values (K3's body); rejected trials are identities
 //   Adam (optax's form, K4's phase B)
 //
 // What bounds it on the H100: with the dt_first warm start a KS window
-// (B 256, rtol = atol = 1e-4) takes 3 accepted trials, so one iteration is
-// 3 K2-sized forward steps plus 3 replays and K3-sized reverse steps, one
-// stage inverse per trial and per replay, and one grid-wide reduction per
-// trial: latency-bound small products on 32 blocks, as K2-K4.
+// (B 256, rtol = atol = 1e-4) takes ~3 accepted trials, so one iteration
+// is ~3 K2-sized forward steps (~45 us each on an H100), ~3 K3-sized
+// reverse steps (~120 us each), one stage inverse per trial and per
+// reverse, one grid barrier per trial and one Adam update: latency-bound
+// small products.
 //
-// Design: one cooperative launch (all blocks co-resident), blocks of 8 rows
-// striding over the row tiles, as K4. The accept test is a reduction over
-// the WHOLE batch, once per trial: each block writes its partial sum of
-// squares to a slot, grid.sync(), and every thread of the grid sums the
-// slots in block order, so every block reads the bit-identical enorm and
-// takes the same accept and dt decision (no atomics: their order would
-// make the decision change from run to run). The slots are double-buffered
-// by trial parity, so one barrier per trial suffices: a block rewrites a
-// slot set only after the next barrier, when every block has read it. The
-// controller's scalar math runs redundantly in every thread. The trial loop
-// ends when the window has landed, in every block at the same trial (the
-// TPU kernel runs the rest of its static trial axis as masked no-ops; the
-// outputs are the same). The state of trial n is a slot of a (max_trials,
-// B, d) device workspace (2.1 MB at KS with 32 trials, L2-resident; each
-// block reads and writes only its own rows), so the records are never
-// register values (the TPU's unrolled loop spilled 131 MB of vregs); a
-// trial's scalars (dt_try, pre-step slot or -1 when rejected) live in
-// shared memory, the same in every block. dt changes per trial inside the
-// launch, so the tableau is scaled on the device in fp32 (scale_tableau),
-// and each block forms the trial's stage inverse M in shared memory: one
-// (d, d) product per trial and per replay, with M[i][j] = sum_k (Q_ik
-// Q_jk) w_k exactly symmetric, so the forward's G M^T and the reverse's
-// q M read the same matrix. The reverse walks the accepted trials trial by
-// trial, each block over its tiles, carrying its rows of lam in a (B, d)
-// workspace; the dW/db partials and phase B are K4's.
+// Design: K4's plan and bodies (ark::forward_step, ark::reverse_step,
+// csrc/ark_tiles.cuh), R rows per block, the grid capped at one block per
+// SM, blocks striding over the row tiles past it.
+// - The trial forward is forward_step with the embedded error output and
+//   kI = Y J^T (kJY). It writes y1 to one of two (B, d) state buffers in
+//   device memory (the other holds the current state), the stage values to
+//   the trial's slot of a (max_trials, s, B, d) store (8.4 MB at KS with 32
+//   trials: the reverse reads them as K3 does, with no replay; a replay
+//   would cost one more forward step per accepted trial), and err to
+//   shared memory. Each block reads and writes only its own rows there, so
+//   its own stores are what it reads back.
+// - The trial's stage inverse M = Q diag(w) Q^T is formed by each block in
+//   fp32, M[i][j] = sum_k (Q_ik Q_jk) w_k, exactly symmetric, so the
+//   forward's G M^T and the reverse's q M read the same matrix, straight
+//   into the plan's resident inv region (at stride ld_op), where J is staged
+//   once per launch. Q^T comes from device memory (the wrapper passes it
+//   transposed, so a warp's reads are coalesced). The plan takes only
+//   layouts with inv and J resident: wherever the gate
+//   (fused_adaptive_loop_fits) opens, they are.
+// - The accept test is a reduction over the WHOLE batch, once per trial:
+//   each block writes its partial sum of squares to a slot, grid.sync(),
+//   and every thread of the grid sums the slots in block order, so every
+//   block reads the bit-identical enorm and takes the same accept and dt
+//   decision (no atomics: their order would make the decision change from
+//   run to run). The slots are double-buffered by trial parity, so one
+//   barrier per trial suffices: a block rewrites a slot set only after the
+//   next barrier, when every block has read it. The controller's scalar
+//   math runs redundantly in every thread; a trial's dt_try and its
+//   decision live in shared memory, the same in every block.
+// - dt changes per trial inside the launch, so the tableau is scaled on the
+//   device in fp32 (scale_tableau) into shared memory.
+// - The reverse walks the accepted trials, last to first, each block over
+//   its row tiles with reverse_step, carrying its rows of lam in a (B, d)
+//   buffer; the dW/db partials and phase B are K4's. Weights and biases
+//   are read through L2 (kCoherent), as K4's.
 #include <cooperative_groups.h>
 
 #include <cmath>
 #include <cstdint>
 
-#include "pnode_kernels.cuh"
+#include "ark_tiles.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -70,6 +80,8 @@ namespace pnode {
 constexpr int kAdaptReduce = 32;  // per-warp partial sums
 constexpr int kStatCols = 6;      // loss, accepted, rejected, completed,
                                   // dt_first, dt_last
+// floats of the shared Tableau, rounded up to a 16-byte multiple
+constexpr int kTabFloats = ((int)sizeof(Tableau) + 15) / 16 * 4;
 
 // The controller's constants, rounded to fp32 from the host's doubles as
 // the reference's Python floats are.
@@ -85,6 +97,21 @@ struct Controller {
   int max_trials;
 };
 
+// Floats of the block's trial header, ahead of the plan's regions: the
+// trial's tableau, the weights w (d), the warp sums, and per trial its
+// dt_try and decision.
+__host__ __device__ inline int adapt_head(int d, int max_trials) {
+  return kTabFloats + ark::round4(d) + kAdaptReduce +
+         ark::round4(2 * max_trials);
+}
+
+// Floats of the device workspace: the stage store (max_trials, s, B, d),
+// two state buffers and lam (B, d each).
+static inline long long adapt_ws_floats(int B, int d, int s,
+                                        int max_trials) {
+  return ((long long)max_trials * s + 3) * B * d;
+}
+
 // jnp.minimum / jnp.maximum: a NaN operand propagates (fminf and fmaxf
 // would return the other one).
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -94,141 +121,106 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? a + b : fmaxf(a, b);
 }
 
-// Shared-memory layout of one block, in floats: the trial's tableau, Q^T,
-// the trial's stage inverse M and its weights w, the s stage values, lam
-// and lam_prev (persistent), the forward's or the reverse's scratch
-// (overlaid), the reduction scratch, then the trial records.
-struct AdaptSmem {
-  int tile, tab, work, total;
-  __host__ __device__ AdaptSmem(int d, int s, int maxd, int htotal,
-                                int max_trials) {
-    tile = kRows * d;
-    tab = ((int)sizeof(Tableau) + 15) / 16 * 4;
-    const int fwd = tile * (2 * s + 4) + 2 * kRows * maxd;  // y, kI, kE, G,
-                                                            // y1, err, a, b
-    const int rev = tile * (s + 4) + htotal + 2 * kRows * maxd;  // xis, u,
-                                                      // uh, pv, q, hs, gA, gB
-    work = fwd > rev ? fwd : rev;
-    total = tab + 2 * d * d + d + tile * (s + 2) + work + kAdaptReduce +
-            2 * max_trials;
-  }
-};
-
-// The trial's coefficients (scale_tableau, one thread) and its stage inverse
-// M = Q diag(w) Q^T, w = 1 / (1 - (dt gamma) lam), in fp32 with the
-// reference's roundings; Qt = Q^T in shared memory (bank-conflict-free
-// reads). Every thread returns after a barrier.
+// The trial's coefficients (scale_tableau, one thread) and its stage
+// inverse M = Q diag(w) Q^T, w = 1 / (1 - (dt gamma) lam), in fp32 with the
+// reference's roundings, into M (shared) at row stride ldm; Qt = Q^T in
+// device memory. Starts and ends with a barrier.
 __device__ __forceinline__ void prepare_trial(const Tableau& base, float dt,
                                               const Controller& c,
-                                              const float* Qt,
+                                              const float* __restrict__ Qt,
                                               const float* __restrict__ lamv,
                                               int d, Tableau* tb, float* w,
-                                              float* M) {
+                                              float* M, int ldm) {
   __syncthreads();  // every thread is done with the previous tb and M
   if (threadIdx.x == 0) scale_tableau(base, dt, tb);
   const float dtg = __fmul_rn(dt, c.gamma);
-  for (int k = threadIdx.x; k < d; k += blockDim.x)
+  for (int k = threadIdx.x; k < d; k += ark::kThreads)
     w[k] = __fdiv_rn(1.0f, __fsub_rn(1.0f, __fmul_rn(dtg, __ldg(lamv + k))));
   __syncthreads();
-  for (int e = threadIdx.x; e < d * d; e += blockDim.x) {
-    const int i = e / d, j = e % d;
+  for (int e = threadIdx.x; e < d * d; e += ark::kThreads) {
+    const int i = e / d, j = e - (e / d) * d;
     float acc = 0.0f;
     for (int k = 0; k < d; ++k)
-      acc = fmaf(__fmul_rn(Qt[k * d + i], Qt[k * d + j]), w[k], acc);
-    M[e] = acc;
+      acc = fmaf(__fmul_rn(__ldg(Qt + k * d + i), __ldg(Qt + k * d + j)),
+                 w[k], acc);
+    M[i * ldm + j] = acc;
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int R>
+__global__ void __launch_bounds__(ark::kThreads, 1)
 adaptive_loop_kernel(const float* __restrict__ y_stack,
                      const float* __restrict__ tgt_stack,
-                     const float* __restrict__ J, const float* __restrict__ Q,
+                     const float* __restrict__ Qt,
                      const float* __restrict__ lamv, float* params,
                      float* m_state, float* v_state, float* partial,
-                     float* lpart, float* eslot, float* yws, float* lamws,
-                     float* stats, float* dt_io, int K, int B, int d,
-                     Tableau base, float sign, Mlp p, Adam adam,
-                     Controller ctl, int t0) {
+                     float* lpart, float* eslot, float* ws, float* stats,
+                     float* dt_io, int K, int B, float sign, ark::StepArgs a,
+                     ark::RevPlan q, Adam adam, Controller ctl, int t0) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  const Tableau& base = a.tb;  // the coefficients at dt = 1
+  const int d = a.m.dims[0];
   const int s = base.s;
-  const AdaptSmem lay(d, s, p.maxd, p.htotal, ctl.max_trials);
-  const int tile = lay.tile;
   Tableau* tb = reinterpret_cast<Tableau*>(smem);
-  float* Qt = smem + lay.tab;
-  float* M = Qt + d * d;
-  float* w = M + d * d;
-  float* Ys = w + d;                  // s tiles: the stage values
-  float* lam = Ys + s * tile;
-  float* lp = lam + tile;
-  float* work = lp + tile;
-  // trial forward scratch
-  float* yv = work;
-  float* kI = yv + tile;
-  float* kE = kI + s * tile;
-  float* G = kE + s * tile;
-  float* y1s = G + tile;
-  float* errs = y1s + tile;
-  float* a = errs + tile;
-  float* b = a + kRows * p.maxd;
-  // reverse scratch (overlays the forward's)
-  float* xis = work;
-  float* u = xis + s * tile;
-  float* uh = u + tile;
-  float* pv = uh + tile;
-  float* q = pv + tile;
-  float* hs = q + tile;
-  float* gA = hs + p.htotal;
-  float* gB = gA + kRows * p.maxd;
-  float* red = work + lay.work;
-  float* rdt = red + kAdaptReduce;                   // dt_try per trial
-  int* rpre = reinterpret_cast<int*>(rdt + ctl.max_trials);  // pre-step
-                                                     // slot, -1: rejected
-  float* part = partial + (size_t)blockIdx.x * p.wtotal;
-
-  for (int e = threadIdx.x; e < d * d; e += blockDim.x)
-    Qt[(e % d) * d + e / d] = __ldg(Q + e);
-
-  const int ntiles = (B + kRows - 1) / kRows;
+  float* w = smem + kTabFloats;
+  float* red = w + ark::round4(d);
+  float* rdt = red + kAdaptReduce;  // dt_try per trial
+  int* racc = reinterpret_cast<int*>(rdt + ctl.max_trials);  // accepted
+  float* lam_s = smem + q.o_lam;
+  float* err = smem + q.o_lp;  // the trial's err rows (lam_prev's region)
+  const float* yb = smem + a.p.o_y;  // the trial's input rows
+  float* M = smem + q.o_op;  // the trial's stage inverse, then J
+  const int ntiles = (B + R - 1) / R;
   const size_t plane = (size_t)B * d;
+  float* ysws = ws;  // (max_trials, s, B, d)
+  float* ybuf = ysws + (size_t)ctl.max_trials * s * plane;  // 2 x (B, d)
+  float* lamws = ybuf + 2 * plane;                          // (B, d)
+  const int slice = ark::round4(a.m.wtotal);
+  float* part = partial + (size_t)blockIdx.x * slice;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+
+  // J, once per launch
+  ark::copy_cols(M + ark::round4(d * q.ld_op), q.ld_op, a.J, d, d, 0, d);
+  ark::cp_async_commit();
+  ark::cp_async_wait<0>();
   float dt_carry = __ldcg(dt_io);
 
   for (int k = 0; k < K; ++k) {
     const float* y0 = y_stack + (size_t)k * plane;
     const float* tgt = tgt_stack + (size_t)k * plane;
-    // slot 0 is y0; slot n + 1 holds trial n's candidate y1
-    auto state = [&](int slot) -> const float* {
-      return slot == 0 ? y0 : yws + (size_t)(slot - 1) * plane;
+    // the state: y0 (cur -1) or state buffer cur
+    auto state = [&](int cur) -> const float* {
+      return cur < 0 ? y0 : ybuf + (size_t)cur * plane;
     };
 
     // ---- forward: the trial loop, grid-uniform ----------------------------
     float t = 0.0f, dt = dt_carry, dt_first = 0.0f;
     bool done = false, rejprev = false, have_first = false;
-    int n_acc = 0, n_rej = 0, cur = 0, n = 0;
+    int n_acc = 0, n_rej = 0, cur = -1, n = 0;
     for (; n < ctl.max_trials && !done; ++n) {
       const float dt_try = nan_max(nan_min(dt, ctl.t_end - t), 0.0f);
-      prepare_trial(base, dt_try, ctl, Qt, lamv, d, tb, w, M);
+      prepare_trial(base, dt_try, ctl, Qt, lamv, d, tb, w, M, q.ld_op);
       const float* ypre = state(cur);
-      float* ynew = yws + (size_t)n * plane;
+      const int nxt = cur == 0 ? 1 : 0;
+      float* ynew = ybuf + (size_t)nxt * plane;
+      float* ys = ysws + (size_t)n * s * plane;
       float esum = 0.0f;
       for (int tt = blockIdx.x; tt < ntiles; tt += gridDim.x) {
-        const int row0 = tt * kRows;
-        const int rows = min(kRows, B - row0);
-        copy_rows<true>(ypre + (size_t)row0 * d, d, yv, d, rows, d, 1.0f);
+        const int rows = min(R, B - tt * R);
+        const size_t row0 = (size_t)tt * R * d;
+        ark::forward_step<R, true, true>(a, *tb, ypre + row0, ynew + row0,
+                                         ys + row0, plane, err, rows, sign,
+                                         false, smem);
         __syncthreads();
-        ark_forward_tile<true, true, true>(p, *tb, sign, J, M, d, rows, yv,
-                                           kI, kE, G, Ys, 0, nullptr, 0, a, b,
-                                           y1s, errs);
-        __syncthreads();
-        for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
-          const float y1 = y1s[e];
+        // each thread reads back the y1 it wrote (forward_step's mapping)
+        for (int e = threadIdx.x; e < rows * d; e += ark::kThreads) {
+          const float y1 = ynew[row0 + e];
           const float sc = __fadd_rn(
-              ctl.atol, __fmul_rn(ctl.rtol, fmaxf(fabsf(yv[e]), fabsf(y1))));
-          const float r = errs[e] / sc;
+              ctl.atol, __fmul_rn(ctl.rtol, fmaxf(fabsf(yb[e]), fabsf(y1))));
+          const float r = err[e] / sc;
           esum = fmaf(r, r, esum);
-          ynew[(size_t)row0 * d + e] = y1;
         }
         __syncthreads();
       }
@@ -253,11 +245,11 @@ adaptive_loop_kernel(const float* __restrict__ y_stack,
       rejprev = !accept;
       if (threadIdx.x == 0) {
         rdt[n] = dt_try;
-        rpre[n] = accept ? cur : -1;
+        racc[n] = accept;
       }
       if (accept) {
         t = __fadd_rn(t, dt_try);
-        cur = n + 1;
+        cur = nxt;
         ++n_acc;
         if (!have_first) {
           dt_first = dt_try;
@@ -277,10 +269,10 @@ adaptive_loop_kernel(const float* __restrict__ y_stack,
     const float* yout = completed ? state(cur) : y0;
     float lsum = 0.0f;
     for (int tt = blockIdx.x; tt < ntiles; tt += gridDim.x) {
-      const size_t off = (size_t)tt * kRows * d;
-      const int n_el = min(kRows, B - tt * kRows) * d;
-      for (int e = threadIdx.x; e < n_el; e += blockDim.x) {
-        const float diff = __ldcg(yout + off + e) - tgt[off + e];
+      const size_t off = (size_t)tt * R * d;
+      const int n_el = min(R, B - tt * R) * d;
+      for (int e = threadIdx.x; e < n_el; e += ark::kThreads) {
+        const float diff = yout[off + e] - tgt[off + e];
         lsum = fmaf(diff, diff, lsum);
         lamws[off + e] = ctl.two_inv_count * diff;
       }
@@ -288,43 +280,36 @@ adaptive_loop_kernel(const float* __restrict__ y_stack,
 
     // ---- reverse: the accepted trials, last to first ----------------------
     // (without a landing nothing seeds lam, and the gradient is zero). The
-    // barrier publishes thread 0's last trial record to the block: a thread
-    // that read a stale rpre would skip or replay the wrong trial.
+    // barrier publishes thread 0's last trial record to the block.
     __syncthreads();
-    bool first_grad = true;
-    for (int m = completed ? n_trials - 1 : -1; m >= 0; --m) {
-      const int pre = rpre[m];
-      if (pre < 0) continue;  // a rejected trial reverses as the identity
-      prepare_trial(base, rdt[m], ctl, Qt, lamv, d, tb, w, M);
-      const float* ypre = state(pre);
+    bool add = false;
+    for (int mt = completed ? n_trials - 1 : -1; mt >= 0; --mt) {
+      if (!racc[mt]) continue;  // a rejected trial reverses as the identity
+      prepare_trial(base, rdt[mt], ctl, Qt, lamv, d, tb, w, M, q.ld_op);
+      const float* ys = ysws + (size_t)mt * s * plane;
       for (int tt = blockIdx.x; tt < ntiles; tt += gridDim.x) {
-        const int row0 = tt * kRows;
-        const int rows = min(kRows, B - row0);
-        copy_rows<true>(ypre + (size_t)row0 * d, d, yv, d, rows, d, 1.0f);
-        copy_rows<true>(lamws + (size_t)row0 * d, d, lam, d, rows, d, 1.0f);
-        copy_rows<true>(lamws + (size_t)row0 * d, d, lp, d, rows, d, 1.0f);
+        const int rows = min(R, B - tt * R);
+        const size_t row0 = (size_t)tt * R * d;
+        for (int e = threadIdx.x; e < rows * d; e += ark::kThreads)
+          lam_s[e] = lamws[row0 + e];
         __syncthreads();
-        ark_forward_tile<true, true, true>(p, *tb, sign, J, M, d, rows, yv,
-                                           kI, kE, G, Ys, tile, nullptr, 0, a,
-                                           b, y1s);
-        __syncthreads();
-        ark_reverse_tile<true, true>(p, *tb, sign, J, M, d, rows, lam, Ys,
-                                     (size_t)tile, xis, u, uh, pv, q, hs, gA,
-                                     gB, lp, part, first_grad);
-        copy_rows(lp, d, lamws + (size_t)row0 * d, d, rows, d, 1.0f);
-        __syncthreads();
+        // (M and J are resident: the reverse reads them there)
+        ark::reverse_step<R, true>(q, a.m, *tb, a.J, nullptr, lam_s,
+                                   ys + row0, plane, lamws + row0, part, rows,
+                                   sign, false, add, smem);
+        add = true;
       }
     }
-    if (first_grad) {  // no accepted trial reached the MLP
-      for (int e = threadIdx.x; e < p.wtotal; e += blockDim.x) part[e] = 0.0f;
-    }
+    if (!add)  // no accepted trial (or row tile) reached the MLP
+      for (int e = threadIdx.x; e < a.m.wtotal; e += ark::kThreads)
+        part[e] = 0.0f;
     const float block_loss = block_sum(lsum, red);
     if (threadIdx.x == 0) lpart[blockIdx.x] = block_loss;
     grid.sync();
 
     // ---- phase B: ordered sum of the partials, then Adam (K4's) -----------
-    sum_partials_adam(adam, t0 + k + 1, partial, p.wtotal, params, m_state,
-                      v_state);
+    sum_partials_adam(adam, t0 + k + 1, partial, a.m.wtotal, slice, params,
+                      m_state, v_state);
     if (gtid == 0) {
       float l = 0.0f;
       for (int blk = 0; blk < (int)gridDim.x; ++blk)
@@ -343,83 +328,97 @@ adaptive_loop_kernel(const float* __restrict__ y_stack,
   if (gtid == 0) dt_io[0] = dt_carry;
 }
 
+// K5's plan: plan_rev's (kRevAdapt, after the trial header; `rows` 0, or
+// 1, 2, 4 or 8 forced) with the grid capped at one block per SM, refused
+// where inv and J are not resident. 0 or a CUDA error code.
+static int adapt_plan(int B, int d, int s, int n_layers, const int* dims,
+                      int max_trials, int rows, ark::RevPlan* q,
+                      ark::Plan* f) {
+  if (B < 1 || s < 1 || s > kMaxStages || n_layers < 1 ||
+      n_layers > kMaxLayers || max_trials < 1 || dims[0] != d ||
+      dims[n_layers] != d)
+    return cudaErrorInvalidValue;
+  for (int l = 0; l <= n_layers; ++l)
+    if (dims[l] < 1) return cudaErrorInvalidValue;
+  int sms, rc;
+  if ((rc = ark::sm_count(&sms))) return rc;
+  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, ark::kRevAdapt, rows, q, f,
+                     adapt_head(d, max_trials)) ||
+      !q->resident)
+    return cudaErrorInvalidValue;
+  if (q->grid > sms) q->grid = f->grid = sms;
+  return 0;
+}
+
 }  // namespace pnode
 
 using namespace pnode;
 
 extern "C" {
 
-// Shared memory of one adaptive_loop_kernel block, in bytes (mirrored by
-// fused_adaptive_loop.py's fits check).
-size_t pnode_adaptive_loop_smem(int d, int s, int maxd, int htotal,
-                                int max_trials) {
-  return sizeof(float) *
-         (size_t)AdaptSmem(d, s, maxd, htotal, max_trials).total;
-}
-
-// Co-resident adaptive_loop_kernel blocks on the current device with
-// `smem` bytes of dynamic shared memory each, into *blocks.
-int pnode_adaptive_loop_capacity(size_t smem, int* blocks) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  int rc;
-  if ((rc = (int)cudaGetDevice(&dev))) return rc;
-  if ((rc = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                        dev)))
-    return rc;
-  if (!coop) return cudaErrorNotSupported;
-  if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                        dev)))
-    return rc;
-  if ((rc = prepare_smem(adaptive_loop_kernel, smem))) return rc;
-  if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, adaptive_loop_kernel, kThreads, smem)))
-    return rc;
-  *blocks = per_sm * sms;
+// K5's plan for y (B, d), s stages, the stack dims[0..n_layers] and
+// max_trials: rows per block, grid, shared-memory bytes and the device
+// workspace's floats (mirrored by ops/fused_adaptive_loop.py's
+// adaptive_loop_plan). rows_in: 0 for the plan's rows, or 1, 2, 4 or 8
+// forced. cudaErrorInvalidValue when the configuration does not fit.
+int pnode_adaptive_loop_plan(int B, int d, int s, int n_layers,
+                             const int* dims, int max_trials, int rows_in,
+                             int* rows, int* grid, long long* smem,
+                             long long* ws_floats) {
+  ark::RevPlan q;
+  ark::Plan f;
+  const int rc =
+      adapt_plan(B, d, s, n_layers, dims, max_trials, rows_in, &q, &f);
+  if (rc) return rc;
+  *rows = q.rows;
+  *grid = q.grid;
+  *smem = (long long)q.smem;
+  *ws_floats = adapt_ws_floats(B, d, s, max_trials);
   return 0;
 }
 
-// K adaptive iterations on y_stack, tgt_stack (K, B, d). J, Q (d, d) and
-// lamv (d): the frozen symmetric J and its eigenbasis (J = Q diag(lamv)
-// Q^T). params, m, v: flat [W0, b0, W1, b1, ...] buffers, updated in place.
-// Scratch: partial (grid * wtotal), lpart (grid), eslot (2 * grid), yws
-// (max_trials * B * d), lamws (B * d). stats: K rows of (loss, accepted,
-// rejected, completed, dt_first, dt_last). dt_io: the first iteration's dt
-// on entry, the last iteration's dt_first on return (the next call's warm
-// start). tab: host doubles aI (s*s), aE (s*s), bI (s), bE (s); err_tab:
-// bI_err (s), bE_err (s). expo = 1 / (order + 1). grid must not exceed
-// pnode_adaptive_loop_capacity's answer.
+// K adaptive iterations on y_stack, tgt_stack (K, B, d). J and Qt (d, d),
+// lamv (d): the frozen symmetric J and its eigenbasis, passed transposed
+// (J = Q diag(lamv) Q^T, Qt = Q^T row-major). params, m, v: flat [W0, b0,
+// W1, b1, ...] buffers, updated in place. Scratch at the plan's grid:
+// partial (grid slices of round4(wtotal) floats, `partial_floats`), lpart
+// (grid), eslot (2 grid), ws (the plan's `ws_floats`); a size that differs
+// from the plan's is refused (cudaErrorInvalidValue). stats: K rows of
+// (loss, accepted, rejected, completed, dt_first, dt_last). dt_io: the
+// first iteration's dt on entry, the last iteration's dt_first on return
+// (the next call's warm start). tab: host doubles aI (s*s), aE (s*s), bI
+// (s), bE (s); err_tab: bI_err (s), bE_err (s). expo = 1 / (order + 1).
+// rows: 0 for the plan's rows per block, or 1, 2, 4 or 8 forced. One
+// cooperative launch on `stream`.
 int pnode_adaptive_loop(const float* y_stack, const float* tgt_stack,
-                        const float* J, const float* Q, const float* lamv,
+                        const float* J, const float* Qt, const float* lamv,
                         float* params, float* m_state, float* v_state,
                         float* partial, float* lpart, float* eslot,
-                        float* yws, float* lamws, float* stats, float* dt_io,
-                        int K, int B, int d, int s, const double* tab,
+                        float* ws, float* stats, float* dt_io, int K, int B,
+                        int d, int s, const double* tab,
                         const double* err_tab, double gamma, float sign,
                         int n_layers, const int* dims, int act, int t0,
                         float lr, double b1, double b2, double eps,
                         int max_trials, double rtol, double atol,
                         double safety, double facmin, double facmax,
-                        double expo, double t_end, int grid, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
-  if (K < 1 || B < 1 || grid < 1 || max_trials < 1 || dims[0] != d ||
-      dims[n_layers] != d || err_tab == nullptr)
-    return cudaErrorInvalidValue;
-  const void* Ws[kMaxLayers];
-  const void* bs[kMaxLayers];
-  size_t off = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    Ws[l] = params + off;
-    off += (size_t)dims[l] * dims[l + 1];
-    bs[l] = params + off;
-    off += dims[l + 1];
-  }
-  Mlp p;
-  Tableau base;
-  int rc = make_mlp(&p, n_layers, dims, Ws, bs, act);
+                        double expo, double t_end, int rows,
+                        long long partial_floats, long long ws_floats,
+                        void* stream) {
+  if (K < 1 || err_tab == nullptr) return cudaErrorInvalidValue;
+  ark::StepArgs a;
+  a.J = J;
+  a.inv = nullptr;  // formed per trial in shared memory
+  int rc = flat_mlp(&a.m, params, n_layers, dims, d, act);
   if (rc) return rc;
   // the coefficients at dt = 1: the kernel scales them per trial
-  if ((rc = make_tableau(&base, s, tab, 1.0, err_tab))) return rc;
-  const Adam adam = make_adam(lr, b1, b2, eps);
+  if ((rc = make_tableau(&a.tb, s, tab, 1.0, err_tab))) return rc;
+  ark::RevPlan q;
+  if ((rc = adapt_plan(B, d, s, n_layers, dims, max_trials, rows, &q, &a.p)))
+    return rc;
+  if (partial_floats != (long long)q.grid * ark::round4(a.m.wtotal) ||
+      ws_floats != adapt_ws_floats(B, d, s, max_trials))
+    return cudaErrorInvalidValue;
+  Adam adam = make_adam(lr, b1, b2, eps);
   Controller ctl;
   ctl.rtol = (float)rtol;
   ctl.atol = (float)atol;
@@ -435,22 +434,28 @@ int pnode_adaptive_loop(const float* y_stack, const float* tgt_stack,
   ctl.inv_count = (float)(1.0 / ((double)B * d));
   ctl.two_inv_count = (float)(2.0 / ((double)B * d));
   ctl.max_trials = max_trials;
-  const size_t smem =
-      pnode_adaptive_loop_smem(d, s, p.maxd, p.htotal, max_trials);
-  if ((rc = prepare_smem(adaptive_loop_kernel, smem))) return rc;
-  void* args[] = {(void*)&y_stack, (void*)&tgt_stack, (void*)&J,
-                  (void*)&Q,       (void*)&lamv,      (void*)&params,
-                  (void*)&m_state, (void*)&v_state,   (void*)&partial,
-                  (void*)&lpart,   (void*)&eslot,     (void*)&yws,
-                  (void*)&lamws,   (void*)&stats,     (void*)&dt_io,
-                  (void*)&K,       (void*)&B,         (void*)&d,
-                  (void*)&base,    (void*)&sign,      (void*)&p,
+  void* args[] = {(void*)&y_stack, (void*)&tgt_stack, (void*)&Qt,
+                  (void*)&lamv,    (void*)&params,    (void*)&m_state,
+                  (void*)&v_state, (void*)&partial,   (void*)&lpart,
+                  (void*)&eslot,   (void*)&ws,        (void*)&stats,
+                  (void*)&dt_io,   (void*)&K,         (void*)&B,
+                  (void*)&sign,    (void*)&a,         (void*)&q,
                   (void*)&adam,    (void*)&ctl,       (void*)&t0};
-  rc = (int)cudaLaunchCooperativeKernel((const void*)adaptive_loop_kernel,
-                                        dim3(grid), dim3(kThreads), args,
-                                        smem, (cudaStream_t)stream);
-  if (rc) return rc;
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (q.rows) {
+    case 1:
+      return launch_cooperative(adaptive_loop_kernel<1>, q.grid, q.smem,
+                                args, st);
+    case 2:
+      return launch_cooperative(adaptive_loop_kernel<2>, q.grid, q.smem,
+                                args, st);
+    case 4:
+      return launch_cooperative(adaptive_loop_kernel<4>, q.grid, q.smem,
+                                args, st);
+    default:
+      return launch_cooperative(adaptive_loop_kernel<8>, q.grid, q.smem,
+                                args, st);
+  }
 }
 
 }  // extern "C"

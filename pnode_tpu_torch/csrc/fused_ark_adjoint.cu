@@ -56,7 +56,7 @@ ark_adj_kernel(const float* __restrict__ ys, const float* __restrict__ lam,
   ark::reverse_step<R>(q, m, tb, J, inv, lam_s, ys + row0, (size_t)B * d,
                        lam_prev + row0,
                        partial + (size_t)blockIdx.x * m.wtotal, rows, sign,
-                       true, smem);
+                       true, false, smem);
   ark::mark(ark::kMarkEnd);
 }
 
@@ -92,7 +92,8 @@ int pnode_ark_adj_plan(int B, int d, int s, int n_layers, const int* dims,
   int sms, rc;
   if ((rc = ark::sm_count(&sms))) return rc;
   ark::RevPlan q;
-  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, false, 0, &q, nullptr))
+  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, ark::kRevStep, 0, &q,
+                     nullptr))
     return cudaErrorInvalidValue;
   *rows = q.rows;
   *grid = q.grid;
@@ -121,7 +122,8 @@ int pnode_ark_adj(const float* ys, const float* lam, const float* J,
   int sms;
   if ((rc = ark::sm_count(&sms))) return rc;
   ark::RevPlan q;
-  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, false, rows, &q, nullptr))
+  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, ark::kRevStep, rows, &q,
+                     nullptr))
     return cudaErrorInvalidValue;
   if (partial_floats != (long long)q.grid * m.wtotal)
     return cudaErrorInvalidValue;

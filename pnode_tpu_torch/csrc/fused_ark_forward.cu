@@ -50,9 +50,9 @@ ark_fwd_kernel(const float* __restrict__ y, float* __restrict__ y1,
   extern __shared__ __align__(16) float smem[];
   const int d = a.m.dims[0];
   const size_t row0 = (size_t)blockIdx.x * R * d;
-  ark::forward_step<R>(a, y + row0, y1 + row0, ys + row0, (size_t)B * d,
-                       err != nullptr ? err + row0 : nullptr,
-                       min(R, B - (int)blockIdx.x * R), sign, smem);
+  ark::forward_step<R>(a, a.tb, y + row0, y1 + row0, ys + row0,
+                       (size_t)B * d, err != nullptr ? err + row0 : nullptr,
+                       min(R, B - (int)blockIdx.x * R), sign, true, smem);
 }
 
 template <int R>

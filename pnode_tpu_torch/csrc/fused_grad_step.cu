@@ -51,8 +51,8 @@ grad_step_kernel(const float* __restrict__ y, const float* __restrict__ tgt,
   const size_t row0 = (size_t)blockIdx.x * R * d;
   float* Ys = smem + q.o_ys;
   float* seed = smem + q.o_lam;
-  ark::forward_step<R>(a, y + row0, seed, Ys, (size_t)R * d, nullptr, rows,
-                       sign, smem);
+  ark::forward_step<R>(a, a.tb, y + row0, seed, Ys, (size_t)R * d, nullptr,
+                       rows, sign, true, smem);
   __syncthreads();
   ark::mark(ark::kMarkForward);
   float lsum = 0.0f;
@@ -65,7 +65,7 @@ grad_step_kernel(const float* __restrict__ y, const float* __restrict__ tgt,
   ark::mark(ark::kMarkSeed);
   float* part = partial + (size_t)blockIdx.x * ark::round4(a.m.wtotal + 1);
   ark::reverse_step<R>(q, a.m, a.tb, a.J, a.inv, seed, Ys, (size_t)R * d,
-                       nullptr, part, rows, sign, false, smem);
+                       nullptr, part, rows, sign, false, false, smem);
   const float block_loss = block_sum(lsum, smem + q.o_red);
   if (threadIdx.x == 0) part[a.m.wtotal] = block_loss;
   ark::mark(ark::kMarkEnd);
@@ -119,7 +119,7 @@ int pnode_grad_step_plan(int B, int d, int s, int n_layers, const int* dims,
   if ((rc = ark::sm_count(&sms))) return rc;
   ark::RevPlan q;
   ark::Plan f;
-  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, true, 0, &q, &f))
+  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, ark::kRevGrad, 0, &q, &f))
     return cudaErrorInvalidValue;
   *rows = q.rows;
   *grid = q.grid;
@@ -152,7 +152,8 @@ int pnode_grad_step(const float* y, const float* tgt, const float* J,
   int sms;
   if ((rc = ark::sm_count(&sms))) return rc;
   ark::RevPlan q;
-  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, true, rows, &q, &a.p))
+  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, ark::kRevGrad, rows, &q,
+                     &a.p))
     return cudaErrorInvalidValue;
   if (partial_floats != (long long)q.grid * ark::round4(a.m.wtotal + 1))
     return cudaErrorInvalidValue;

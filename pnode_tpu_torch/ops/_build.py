@@ -58,20 +58,19 @@ _SIGNATURES = {
     "pnode_ark_adj": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _D,
                            _F, _I, _PI, _PP, _PP, _I, _I, _L, _P]),
     "pnode_ark_adj_plan": (_I, [_I, _I, _I, _I, _PI, _PI, _PI, _PL]),
-    "pnode_train_loop": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _PD, _D, _F, _I, _PI, _I, _I, _F, _D,
-                              _D, _D, _I, _P]),
-    "pnode_train_loop_smem": (ctypes.c_size_t, [_I, _I, _I, _I]),
-    "pnode_train_loop_capacity": (_I, [ctypes.c_size_t, _PI]),
+    "pnode_train_loop": (_I, [_P] * 10 + [_I, _I, _I, _I, _PD, _D, _F, _I,
+                                           _PI, _I, _I, _F, _D, _D, _D, _I,
+                                           _L, _P]),
+    "pnode_train_loop_plan": (_I, [_I, _I, _I, _I, _PI, _I, _PI, _PI, _PL]),
     "pnode_grad_step": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _D,
                              _F, _I, _PI, _I, _D, _I, _L, _P]),
     "pnode_grad_step_plan": (_I, [_I, _I, _I, _I, _PI, _PI, _PI, _PL]),
-    "pnode_adaptive_loop": (_I, [_P] * 15 + [_I, _I, _I, _I, _PD, _PD, _D, _F,
+    "pnode_adaptive_loop": (_I, [_P] * 14 + [_I, _I, _I, _I, _PD, _PD, _D, _F,
                                              _I, _PI, _I, _I, _F, _D, _D, _D,
                                              _I, _D, _D, _D, _D, _D, _D, _D,
-                                             _I, _P]),
-    "pnode_adaptive_loop_smem": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
-    "pnode_adaptive_loop_capacity": (_I, [ctypes.c_size_t, _PI]),
+                                             _I, _L, _L, _P]),
+    "pnode_adaptive_loop_plan": (_I, [_I, _I, _I, _I, _PI, _I, _I, _PI, _PI,
+                                      _PL, _PL]),
     "pnode_sqnxt_fwd_plan": (_I, [_I, _PI, _I, _I, _I, _PI, _PL]),
     "pnode_sqnxt_fwd": (_I, [_P, _P, _I, _PI, _PP, _I, _I, _I, _P, _L, _I,
                              _P]),

@@ -144,12 +144,20 @@ def _row_stride(N: int) -> int:
     return N | 1 if N % 4 else (N if N // 4 % 2 else N + 4)
 
 
+# the reverse's layouts (csrc/ark_tiles.cuh RevKind): K3's; K4's and
+# K12's (the stage values kept, the forward overlaid); K5's (lam and
+# lam_prev, the forward overlaid, after the kernel's own header)
+REV_STEP, REV_GRAD, REV_ADAPT = 0, 1, 2
+
+
 def _rev_plan_rows(R: int, d: int, dims: Sequence[int], stages: int,
-                   nst: int, grad: bool, resident: bool = True):
-    """Shared-memory bytes of K3 (``grad`` False) or K12 at R rows per
-    block with ``nst`` stage slots in the layer store, inv and J staged
-    whole (``resident``) or read in place from device memory
+                   nst: int, grad, resident: bool = True, head: int = 0):
+    """Shared-memory bytes of K3 (``grad`` False or REV_STEP), K4 and K12
+    (True or REV_GRAD) or K5 (REV_ADAPT, after ``head`` floats) at R rows
+    per block with ``nst`` stage slots in the layer store, inv and J
+    staged whole (``resident``) or read in place from device memory
     (csrc/ark_tiles.cuh plan_rev_rows), or None when it does not fit."""
+    kind = int(grad)
     pairs = list(zip(dims, dims[1:]))
     if max(dims) > FWD_THREADS * FWD_COLS:
         return None
@@ -158,10 +166,11 @@ def _rev_plan_rows(R: int, d: int, dims: Sequence[int], stages: int,
     minslot = max(_row_stride(N) for _, N in pairs)
     sst = sum(_round4(R * K) + _round4(R * N) for K, N in pairs)
     tile, stiles = _round4(R * d), _round4(stages * R * d)
-    off = stiles + tile if grad else 2 * tile  # (Ys, seed) or (lam, lam_prev)
+    # (Ys, seed) or (lam, lam_prev)
+    off = head + (stiles + tile if kind == REV_GRAD else 2 * tile)
     scratch = off
     off += stiles + 3 * tile + nst * sst + _round4(R * redw)
-    if grad:  # forward_step's regions overlay the reverse's
+    if kind != REV_STEP:  # forward_step's regions overlay the reverse's
         off = max(off, scratch + _fwd_scratch(R, d, dims, stages))
     if resident:
         off += 2 * _round4(d * (d | 1))  # inv and J
@@ -174,27 +183,47 @@ def _rev_plan_rows(R: int, d: int, dims: Sequence[int], stages: int,
     return 4 * (off + 2 * slot)
 
 
+def _rev_plan(B, d, layer_dims, stages, sms, kind):
+    """``rev_plan_full``'s (rows, grid, bytes) at the rule's rows."""
+    plan = rev_plan_full(int(B), int(d), tuple(int(n) for n in layer_dims),
+                         int(stages), int(sms), kind)
+    return None if plan is None else plan[:3]
+
+
 @functools.lru_cache(maxsize=1024)
-def _rev_plan(B: int, d: int, layer_dims: tuple, stages: int, sms: int,
-              grad: bool):
+def rev_plan_full(B: int, d: int, layer_dims: tuple, stages: int, sms: int,
+                  kind: int, rows: int = 0, head: int = 0):
+    """csrc/ark_tiles.cuh plan_rev for the layout ``kind`` after ``head``
+    floats: (rows per block, grid ceil(B / rows), shared-memory bytes,
+    inv and J resident), or None. ``rows`` 1, 2, 4 or 8 forces R with the
+    whole store; 0 takes the rule."""
     dims = [d] + list(layer_dims)
     if (B < 1 or not 1 <= stages <= MAX_STAGES
             or not 1 <= len(layer_dims) <= MAX_LAYERS or dims[-1] != d
             or min(dims) < 1):
         return None
     for resident in (True, False):
+        if rows:
+            smem = (_rev_plan_rows(rows, d, dims, stages, stages, kind,
+                                   resident, head)
+                    if rows in (1, 2, 4, 8) else None)
+            if smem is not None:
+                return rows, -(-B // rows), smem, resident
+            continue
         R = 1
         while R < 8 and -(-B // R) > sms:
             R *= 2
         while R >= 1:
-            smem = _rev_plan_rows(R, d, dims, stages, stages, grad, resident)
+            smem = _rev_plan_rows(R, d, dims, stages, stages, kind, resident,
+                                  head)
             if smem is not None:
-                return R, -(-B // R), smem
+                return R, -(-B // R), smem, resident
             R //= 2
         for nst in range(stages - 1, 0, -1):
-            smem = _rev_plan_rows(1, d, dims, stages, nst, grad, resident)
+            smem = _rev_plan_rows(1, d, dims, stages, nst, kind, resident,
+                                  head)
             if smem is not None:
-                return 1, B, smem
+                return 1, B, smem, resident
     return None
 
 
@@ -213,8 +242,7 @@ def ark_adj_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
     device memory. None only for what no kernel takes: a layer wider than
     1024, more than 8 stages or layers. Memoized: every reverse wrapper's
     gate asks it."""
-    return _rev_plan(int(B), int(d), tuple(int(n) for n in layer_dims),
-                     int(stages), int(sms), False)
+    return _rev_plan(B, d, layer_dims, stages, sms, REV_STEP)
 
 
 def grad_step_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
@@ -224,8 +252,7 @@ def grad_step_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
     (B, d) shard, or None. ``ark_adj_plan``'s rule; each block keeps its
     stage values and seed beside the larger of the forward's and the
     reverse's scratch."""
-    return _rev_plan(int(B), int(d), tuple(int(n) for n in layer_dims),
-                     int(stages), int(sms), True)
+    return _rev_plan(B, d, layer_dims, stages, sms, REV_GRAD)
 
 
 def forced_rows(d: int, layer_dims: Sequence[int], stages: int,
@@ -249,9 +276,9 @@ def reverse_gate_bytes(d: int, layer_dims: Sequence[int],
                        stages: int) -> int:
     """The budget ``fused_ark_fits`` holds the reverse to: the shared memory
     of one 8-row tile's stage values, covectors and layer activations, as
-    the 8-row reverse tile keeps them (csrc/pnode_kernels.cuh
-    ark_reverse_tile, which K4 and K5 run). K3's own plan takes more than
-    this gate opens (``ark_adj_plan`` reads inv and J from device memory
+    the port's first, 8-row reverse tile kept them (a routing budget: no
+    kernel runs that tile now). K3's own plan takes more than this gate
+    opens (``ark_adj_plan`` reads inv and J from device memory
     where they do not fit, Burgers-512 included); the gate keeps this
     budget so that the steppers route Burgers-512 (~291 KB here) to the
     generic path until K3 is measured there (ROADMAP, queue A)."""
@@ -337,11 +364,13 @@ def tableau_array(tableau_static):
 # -- plain PyTorch version --------------------------------------------------
 
 def fused_ark_step_adj_plain(tableau_static, dt, Ys, lam, J_dense, inv_op,
-                             weights, biases, activation="relu", sign=-1.0):
+                             weights, biases, activation="relu", sign=-1.0,
+                             masks=None):
     """Plain PyTorch version of the fused reverse step (same signature and
     algebraic collapse as the kernel). Returns (lam_prev, (dWs, dbs)).
     ``dt`` is a Python float, or a 0-d tensor whose dtype then rounds every
-    coefficient dt * a (K5's plain version)."""
+    coefficient dt * a (K5's plain version). ``masks``: per stage, the
+    ReLU decisions ``fused_mlp_bwd_plain`` takes at that stage."""
     aI, aE, bI, bE = tableau_static
     s = len(bI)
     n = len(weights)
@@ -373,8 +402,9 @@ def fused_ark_step_adj_plain(tableau_static, dt, Ys, lam, J_dense, inv_op,
         if u is not None and not implicit:
             p = u @ J_dense
         if uh is not None:
-            dyE, dW, db = fused_mlp_bwd_plain(Ys[i], sign * uh, weights,
-                                              biases, activation)
+            dyE, dW, db = fused_mlp_bwd_plain(
+                Ys[i], sign * uh, weights, biases, activation,
+                None if masks is None else masks[i])
             for l in range(n):
                 dWs[l] = dW[l] if dWs[l] is None else dWs[l] + dW[l]
                 dbs[l] = db[l] if dbs[l] is None else dbs[l] + db[l]
@@ -396,6 +426,39 @@ def fused_ark_step_adj_plain(tableau_static, dt, Ys, lam, J_dense, inv_op,
             dWs[l] = torch.zeros_like(weights[l])
             dbs[l] = torch.zeros_like(biases[l])
     return lam_prev, (tuple(dWs), tuple(dbs))
+
+
+def reverse_relu_masks(ys, weights, biases):
+    """The ReLU decisions z > 0 that ``ark::reverse_step``'s recompute
+    (csrc/ark_tiles.cuh ``rev_forward``) takes on fp32 stage values ``ys``
+    (..., d), one bool tensor (..., N) per hidden layer: z summed as the
+    kernel sums it, k split over ``_split_k(K, N)`` groups (group g one FMA
+    chain over k = g, g + G, ... ascending, from 0), the groups' sums added
+    in group order, then the bias, and the next layer's input relu(z) in
+    fp32. Each FMA is formed in fp64 and rounded to fp32: the product is
+    exact there, and the sum's two roundings differ from the FMA's one
+    about once in 2^29. A kernel check hands these to the plain version
+    (``masks``) where two correct fp32 evaluations part on a unit within
+    rounding of 0."""
+    lead = tuple(ys.shape[:-1])
+    h = ys.reshape(-1, ys.shape[-1]).float()
+    out = []
+    for W, b in zip(weights[:-1], biases[:-1]):
+        K, N = (int(n) for n in W.shape)
+        G = _split_k(K, N)
+        h64, W64 = h.double(), W.float().double()
+        z = None
+        for g in range(G):
+            acc = torch.zeros(h.shape[0], N, dtype=torch.float32,
+                              device=h.device)
+            for k in range(g, K, G):
+                acc = (h64[:, k:k + 1] * W64[k] + acc.double()).float()
+            z = acc if z is None else z + acc
+        z = z + b.float()
+        mask = z > 0
+        out.append(mask.reshape(lead + (N,)))
+        h = torch.where(mask, z, torch.zeros_like(z))
+    return out
 
 
 # -- kernel wrapper ---------------------------------------------------------

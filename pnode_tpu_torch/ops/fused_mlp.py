@@ -31,7 +31,6 @@ import torch
 from . import _build
 
 MAX_LAYERS = 8
-ROWS_PER_BLOCK = 8  # csrc/pnode_kernels.cuh kRows: K2-K5 and K12's row tile
 _ACT_CODES = {"relu": 1, "tanh": 2}
 
 
@@ -140,21 +139,30 @@ def fused_mlp_plain(x, weights, biases, activation="relu"):
     return h
 
 
-def fused_mlp_bwd_plain(x, g, weights, biases, activation="relu"):
+def fused_mlp_bwd_plain(x, g, weights, biases, activation="relu",
+                        masks=None):
     """Plain PyTorch backward: recompute the layer inputs, then backprop.
-    Returns (dx, dWs, dbs) of <g, MLP(x)>."""
+    Returns (dx, dWs, dbs) of <g, MLP(x)>. ``masks`` (relu only): one bool
+    tensor per hidden layer taking the place of z > 0, in the recompute (h
+    = z where it holds, else 0) and in the backprop: another evaluation's
+    ReLU decisions (a kernel check's reference)."""
     n = len(weights)
+    if masks is not None and activation != "relu":
+        raise ValueError("fused_mlp_bwd_plain: masks need relu")
     hs = [x]
     h = x
     for i in range(n - 1):
-        h = _act(h @ weights[i] + biases[i], activation)
+        z = h @ weights[i] + biases[i]
+        h = (_act(z, activation) if masks is None
+             else torch.where(masks[i], z, torch.zeros_like(z)))
         hs.append(h)
     dWs: list = [None] * n
     dbs: list = [None] * n
     for i in range(n - 1, -1, -1):
         if i < n - 1:
             if activation == "relu":
-                g = g * (hs[i + 1] > 0).to(g.dtype)
+                keep = hs[i + 1] > 0 if masks is None else masks[i]
+                g = g * keep.to(g.dtype)
             else:
                 g = g * (1.0 - hs[i + 1] * hs[i + 1])
         dWs[i] = hs[i].T @ g

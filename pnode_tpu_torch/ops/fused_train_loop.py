@@ -25,9 +25,10 @@ K12, ``fused_grad_step``, is one iteration's forward step, MSE and reverse
 step without Adam (replaces ``_grad_kernel`` (:613), launched by
 ``fused_grad_step`` (:688)): the per-rank kernel of
 ``parallel.fused_dp.dp_fused_train_loop``, which all-reduces its loss and
-gradient and runs Adam outside it. Its source is ``csrc/fused_grad_step.cu``
-on K2's and K3's bodies (``csrc/ark_tiles.cuh``); its grid comes from its
-plan, which ``fused_ark_adjoint.grad_step_plan`` mirrors. ``LoopLayout``
+gradient and runs Adam outside it. Its source is ``csrc/fused_grad_step.cu``.
+Both run K2's and K3's bodies (``csrc/ark_tiles.cuh``) on K12's plan, which
+``fused_ark_adjoint.grad_step_plan`` mirrors; K4's caps the grid at one
+block per SM (``train_loop_plan``). ``LoopLayout``
 describes the operands of both kernels: the flat ``[W0, b0, W1, b1, ...]``
 buffer that holds the parameters, the Adam moments and the gradient (no
 TPU lane padding).
@@ -42,24 +43,28 @@ import torch
 
 from . import _build
 from .fused_ark_adjoint import (
-    MAX_SMEM_BYTES, MAX_STAGES, check_step_args, check_stiff_dot_precision,
-    fused_ark_step_adj_plain, grad_step_plan, sm_count, tableau_array,
+    MAX_SMEM_BYTES, MAX_STAGES, REV_GRAD, _round4, check_step_args,
+    check_stiff_dot_precision, fused_ark_step_adj_plain, grad_step_plan,
+    rev_plan_full, sm_count, tableau_array,
 )
 from .fused_ark_forward import fused_ark_step_fwd_plain
 from .fused_mlp import (
-    MAX_LAYERS, ROWS_PER_BLOCK, _ACT_CODES, _check_tensor, grad_buffer_size,
-    split_grads,
+    MAX_LAYERS, _ACT_CODES, _check_tensor, grad_buffer_size, split_grads,
 )
 
-_REDUCE_FLOATS = 32  # csrc/fused_train_loop.cu kReduceFloats
+_REDUCE_FLOATS = 32  # the 8-row tile's loss reduction
+GATE_ROWS = 8  # rows of the tile the loop gates budget (see _loop_smem_bytes)
 
 
 def _loop_smem_bytes(d: int, layer_dims: Sequence[int], stages: int) -> int:
-    """Shared memory of one K4 block (csrc/fused_train_loop.cu LoopSmem):
-    the s stage values and the seed tile, then the forward's or the
-    reverse's scratch, whichever is larger, then the loss reduction."""
+    """The routing budget of K4 (and K5, fused_adaptive_loop): the shared
+    memory of the port's first K4 block, an 8-row tile's s stage values and
+    seed, then the forward's or the reverse's scratch, whichever is larger,
+    then the loss reduction. No kernel lays memory out so now (K4 runs on
+    ``train_loop_plan``); the gate keeps the budget so that every
+    configuration routes as before."""
     dims = [d] + list(layer_dims)
-    R = ROWS_PER_BLOCK
+    R = GATE_ROWS
     tile = R * d
     pingpong = 2 * R * max(dims)
     fwd = tile * (2 + 2 * stages) + pingpong
@@ -71,16 +76,15 @@ def fused_train_loop_fits(B: int, d: int, layer_dims: Sequence[int],
                           chunk: int = 8, stages: int = 4) -> bool:
     """True when K4 takes this configuration on the H100.
 
-    One block keeps an 8-row tile's s stage values, its loss seed and the
-    larger of the forward's and the reverse's scratch in shared memory, at
-    most 227 KB (the KS recipe, 64 -> 104 x4 -> 64 at ARK3's 4 stages,
-    needs 48,768 B). That budget is also what co-residency needs: the
-    wrapper sizes the grid from the occupancy query, min(ceil(B/8),
-    co-resident blocks), so the grid is co-resident whenever one block fits
-    on an SM, and 256 threads of at most 255 registers always do. Neither B
-    nor ``chunk`` binds: blocks stride over row tiles, and the minibatches
-    stream from device memory whatever the chunk. ``stages`` is the
-    tableau's stage count (ARK3's 4 by default).
+    The gate is the 8-row budget (``_loop_smem_bytes``, at most 227 KB;
+    the KS recipe, 64 -> 104 x4 -> 64 at ARK3's 4 stages, needs 48,768 B),
+    and wherever it opens with the step kernels' forward gate (which the
+    wrapper asks too), K4's plan (``train_loop_plan``) takes every batch:
+    its grid is at most one block per SM, so it is co-resident whenever one
+    block fits on an SM, and 256 threads of at most 255 registers always
+    do. Neither B nor ``chunk`` binds: blocks stride over row tiles, and
+    the minibatches stream from device memory whatever the chunk.
+    ``stages`` is the tableau's stage count (ARK3's 4 by default).
 
     Burgers-512 (512 -> 576 x4 -> 512) does not fit: ~340 KB per block at
     4 stages. The JAX gate says it fits the
@@ -92,6 +96,23 @@ def fused_train_loop_fits(B: int, d: int, layer_dims: Sequence[int],
     if not 1 <= len(layer_dims) <= MAX_LAYERS or layer_dims[-1] != d:
         return False
     return _loop_smem_bytes(d, layer_dims, stages) <= MAX_SMEM_BYTES
+
+
+def train_loop_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
+                    sms: int = 132, rows: int = 0):
+    """K4's launch (C entry point pnode_train_loop_plan): (rows per block,
+    grid, shared-memory bytes), or None. K12's plan (``grad_step_plan``:
+    the fewest rows in {1, 2, 4, 8} whose grid fits one block per SM, the
+    stage values, the seed and both steps' scratch in shared memory) with
+    the grid capped at ``sms`` blocks, which stride over the row tiles
+    past it (R 2, 128 blocks at KS B 256; R 8, 132 blocks at B 3173).
+    ``rows`` 1, 2, 4 or 8 forces R."""
+    plan = rev_plan_full(int(B), int(d), tuple(int(n) for n in layer_dims),
+                         int(stages), int(sms), REV_GRAD, int(rows))
+    if plan is None:
+        return None
+    R, grid, smem, _ = plan
+    return R, min(grid, int(sms)), smem
 
 
 def pick_chunk(K: int, B: int, d: int, layer_dims: Sequence[int]) -> int:
@@ -111,22 +132,22 @@ def fused_train_loop_cost(tableau_static, B, d, layer_dims, K):
     product per stage + an MLP recompute of the layer inputs (every layer
     but the last, whose output the backprop does not need, as K3 does) and
     its backprop (dX and dW per layer: 2x the forward MLP); Adam ~10
-    elementwise ops per parameter. Device memory: (y, target) in and the loss out; each
-    of the ceil(B/8) blocks writes its dW/db partial and phase B reads them
-    all; Adam reads and writes W, m and v. The operators and the packing of
-    the state into flat buffers are paid once per call, so 1/K each.
+    elementwise ops per parameter. Device memory, each input read once and
+    each output written once (the roofline's, not the kernel's partial-sum
+    traffic): (y, target) in and the loss out; Adam reads and writes W, m
+    and v. The operators and the packing of the state into flat buffers are
+    paid once per call, so 1/K each.
     """
     s = len(tableau_static[2])
     dims = [d] + list(layer_dims)
     mlp = sum(2 * B * a * b for a, b in zip(dims, dims[1:]))
     w_elems = grad_buffer_size(dims)
-    nblk = -(-B // ROWS_PER_BLOCK)
     last = 2 * B * dims[-2] * dims[-1]
     flops = s * (2 * B * d * d + mlp)               # forward
     flops += s * (2 * B * d * d + 3 * mlp - last)   # reverse
     flops += 10 * w_elems + 3 * B * d        # adam + loss
     byts = 4 * (2 * B * d + 1)
-    byts += 4 * (2 * nblk * w_elems + 6 * w_elems)
+    byts += 4 * (6 * w_elems)
     byts += 4 * (2 * d * d + 6 * w_elems) / max(1, K)
     return flops, byts
 
@@ -161,7 +182,7 @@ class LoopLayout:
 
     def pad_batch(self, a):
         """(..., B, d) -> the contiguous kernel operand. Nothing is padded:
-        the kernels mask the rows past B of their last 8-row tile."""
+        the kernels mask the rows past B of their last row tile."""
         if tuple(a.shape[-2:]) != (self.B, self.dims[0]):
             raise ValueError(f"batch must be (..., {self.B}, {self.dims[0]}), "
                              f"got {tuple(a.shape)}")
@@ -369,7 +390,7 @@ fused_grad_step.launches = 0
 def fused_train_loop(tableau_static, dt, y_stack, tgt_stack, J_dense, inv_op,
                      weights, biases, m_state, v_state, t0,
                      activation="relu", sign=-1.0, lr=1e-3, b1=0.9, b2=0.999,
-                     eps=1e-8, chunk=None):
+                     eps=1e-8, chunk=None, rows=0):
     """Run K complete training iterations; ``chunk=None`` runs all K in one
     launch, an explicit ``chunk`` C (1 or a multiple of 8 dividing K) runs
     K/C launches of C iterations with the state carried in device memory.
@@ -379,13 +400,17 @@ def fused_train_loop(tableau_static, dt, y_stack, tgt_stack, J_dense, inv_op,
     biases[i] (d_{i+1},); m_state and v_state: (Ws, bs) lists of the same
     shapes; t0: Adam updates already applied. Returns (weights', biases',
     (mW', mb'), (vW', vb'), losses (K,)); the inputs are not modified.
-    CUDA tensors launch the kernel; CPU tensors run
+    CUDA tensors launch the kernel (at its plan's rows per block, or
+    ``rows`` 1, 2, 4 or 8 forced, for kernel comparisons); CPU tensors run
     ``fused_train_loop_plain`` once per chunk.
     """
     check_stiff_dot_precision()
     K, B, d, s, dims, C = _check_loop_args(
         tableau_static, y_stack, tgt_stack, J_dense, inv_op, weights, biases,
         m_state, v_state, activation, chunk)
+    if rows not in (0, 1, 2, 4, 8):
+        raise ValueError(f"fused_train_loop: rows must be 0, 1, 2, 4 or 8, "
+                         f"got {rows}")
     if y_stack.device.type == "cpu":
         Ws, bs, m, v = weights, biases, m_state, v_state
         losses = []
@@ -396,35 +421,48 @@ def fused_train_loop(tableau_static, dt, y_stack, tgt_stack, J_dense, inv_op,
                 b1, b2, eps)
             losses.append(ls)
         return Ws, bs, m, v, torch.cat(losses)
-    lib = _build.library()
+    with torch.cuda.device(y_stack.device):
+        return run_train_loop(
+            _build.library(), sm_count(y_stack.device),
+            _build.stream_of(y_stack), tableau_static, dt, y_stack,
+            tgt_stack, J_dense, inv_op, weights, biases, m_state, v_state, t0,
+            activation, sign, lr, b1, b2, eps, C, rows)
+
+
+def run_train_loop(lib, sms, stream, tableau_static, dt, y_stack, tgt_stack,
+                   J_dense, inv_op, weights, biases, m_state, v_state, t0,
+                   activation, sign, lr, b1, b2, eps, chunk, rows):
+    """``fused_train_loop``'s launches through ``lib`` (the kernel library)
+    on a card of ``sms`` SMs, operands validated: the scratch at K4's plan,
+    then one launch per chunk on ``stream``."""
+    K, B, d = (int(x) for x in y_stack.shape)
+    s = len(tableau_static[2])
+    dims = [d] + [int(w.shape[1]) for w in weights]
+    plan = train_loop_plan(B, d, dims[1:], s, sms, rows)
+    if plan is None:
+        raise ValueError(f"fused_train_loop: no plan at rows {rows} for B {B}"
+                         f", {dims}, {s} stages")
+    grid = plan[1]
     params = _flat(weights, biases)
     m_flat = _flat(*m_state)
     v_flat = _flat(*v_state)
     total = grad_buffer_size(dims)
-    losses = torch.empty(K, dtype=y_stack.dtype, device=y_stack.device)
-    with torch.cuda.device(y_stack.device):
-        smem = lib.pnode_train_loop_smem(d, s, max(dims),
-                                         ROWS_PER_BLOCK * sum(dims[:-1]))
-        cap = _build.int_array([0])
-        _build.check(lib.pnode_train_loop_capacity(smem, cap),
-                     "fused_train_loop occupancy query (cooperative launch)")
-        grid = min(-(-B // ROWS_PER_BLOCK), cap[0])
-        partial = torch.empty(grid * total, dtype=y_stack.dtype,
-                              device=y_stack.device)
-        lpart = torch.empty(grid, dtype=y_stack.dtype, device=y_stack.device)
-        stream = _build.stream_of(y_stack)
-        for c in range(0, K, C):
-            rc = lib.pnode_train_loop(
-                y_stack[c].data_ptr(), tgt_stack[c].data_ptr(),
-                J_dense.data_ptr(), inv_op.data_ptr(), params.data_ptr(),
-                m_flat.data_ptr(), v_flat.data_ptr(), partial.data_ptr(),
-                lpart.data_ptr(), losses[c].data_ptr(), C, B, d, s,
-                tableau_array(tableau_static), float(dt), float(sign),
-                len(weights), _build.int_array(dims), _ACT_CODES[activation],
-                int(t0) + c, float(lr), float(b1), float(b2), float(eps),
-                grid, stream)
-            _build.check(rc, "fused_train_loop kernel")
-            fused_train_loop.launches += 1
+    f32 = dict(dtype=y_stack.dtype, device=y_stack.device)
+    losses = torch.empty(K, **f32)
+    partial = torch.empty(grid * _round4(total), **f32)
+    lpart = torch.empty(grid, **f32)
+    for c in range(0, K, chunk):
+        rc = lib.pnode_train_loop(
+            y_stack[c].data_ptr(), tgt_stack[c].data_ptr(),
+            J_dense.data_ptr(), inv_op.data_ptr(), params.data_ptr(),
+            m_flat.data_ptr(), v_flat.data_ptr(), partial.data_ptr(),
+            lpart.data_ptr(), losses[c].data_ptr(), chunk, B, d, s,
+            tableau_array(tableau_static), float(dt), float(sign),
+            len(weights), _build.int_array(dims), _ACT_CODES[activation],
+            int(t0) + c, float(lr), float(b1), float(b2), float(eps),
+            int(rows), partial.numel(), stream)
+        _build.check(rc, "fused_train_loop kernel")
+        fused_train_loop.launches += 1
     Ws, bs = split_grads(params, dims)
     mW, mb = split_grads(m_flat, dims)
     vW, vb = split_grads(v_flat, dims)
@@ -433,3 +471,18 @@ def fused_train_loop(tableau_static, dt, y_stack, tgt_stack, J_dense, inv_op,
 
 
 fused_train_loop.launches = 0
+
+
+def plan(B, d, layer_dims, stages, device, rows=0):
+    """The C plan's (rows per block, grid, shared-memory bytes) of K4 on
+    ``device``'s card: what ``train_loop_plan`` mirrors."""
+    import ctypes
+
+    lib = _build.library()
+    dims = [d] + list(layer_dims)
+    out = (_build.int_array([0]), _build.int_array([0]),
+           (ctypes.c_longlong * 1)(0))
+    with torch.cuda.device(device):
+        rc = lib.pnode_train_loop_plan(B, d, stages, len(layer_dims),
+                                       _build.int_array(dims), rows, *out)
+    return None if rc else tuple(o[0] for o in out)

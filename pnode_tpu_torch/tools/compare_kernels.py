@@ -67,6 +67,26 @@ for k3: loss and gradient (max |diff| / max |ref| <= 1e-4 on the loss,
 5e-3 norm-wise on the gradient), times in turns, then this checkout's K12
 at forced rows per block at B_local 256 and 128.
 
+``--kernel k4`` (the fused training loop, ``fused_train_loop``): K = 8
+iterations from the same N(0, 1 / fan_in) weights (zero biases at KS B
+256, N(0, 0.1) at B 37), zero Adam moments, KS minibatches and their
+one-step targets, Adam lr 5e-3, eps 1e-6, at KS B 256 and B 37. It holds
+this checkout's losses (max relative 1e-4) and final parameters (5e-4
+norm-wise, ``chip_smoke.check_loop``'s gate) against the plain version
+and prints the other's beside them, times one call of K iterations in
+turns as for K1, with the device time of the loop kernel alone per
+iteration, then this checkout's K4 at forced rows per block (1, 2, 4, 8)
+at B 256.
+
+``--kernel k5`` (the fused adaptive loop, ``fused_adaptive_train_loop``):
+at KS B 256 (weights as for k4, rtol = atol = 1e-4, 32 trials, dt0 warmed
+by one call of this checkout's kernel from 0.2), K = 8. It holds this
+checkout's (accepted, rejected, completed) at every iteration, its
+losses (max relative 1e-4) and its final parameters (5e-4 norm-wise, with
+``chip_smoke.adaptive_params_gap``'s reference where the plain fp32
+version misses) against the plain version, prints the other's beside
+them, then times as for k4.
+
 ``--kernel k13`` (the shared-memory probe, ``probe_smem``): at the card's
 opt-in size, on the probe's own input (one tile per SM), both sides
 bitwise 3x, timed in turns, with ``torch.mul(x, 3)``'s device time beside
@@ -587,8 +607,146 @@ def compare_k13(this, other, result):
     print(f"[compare] K13 at {n} B torch.mul(x, 3): device {us:.1f} us")
 
 
+def loop_operands(B, seed, K=8):
+    """(tab, dt, J, inv, Ws, bs, y, tgt) at KS widths, y and tgt (K, B,
+    64): K minibatches of KS states and their one-step targets."""
+    import torch
+
+    from chip_smoke import DT, ks_data, ks_operators
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device="cuda")
+    J, inv, tab, stp = ks_operators("cuda")
+    u = ks_data()
+    dims = STACKS[0][2]
+    Ws = [f32(rng.normal(0, a ** -0.5, size=(a, b)))
+          for a, b in zip(dims, dims[1:])]
+    bs = [f32(rng.normal(0, 0.1, size=b) if B != 256 else np.zeros(b))
+          for b in dims[1:]]
+    idx = rng.integers(0, len(u) - 1, size=(K, B))
+    return (tab, float(np.float32(DT)), J, inv, Ws, bs, f32(u[idx]),
+            f32(u[idx + 1]), stp)
+
+
+def loop_turns(label, calls, kernel, K, result):
+    """CUDA events in turns (other, this, this, other) per call of K
+    iterations, and the device time of ``kernel`` alone per iteration."""
+    from chip_smoke import cuda_times_ms, summary
+
+    ms = {side: [] for side in calls}
+    for side in ("other", "this", "this", "other"):
+        ms[side].append(summary(cuda_times_ms(calls[side], reps=10, warmup=2,
+                                              inner=3))[0] / K)
+    row = {}
+    for side, fn in calls.items():
+        by = device_by_kernel(fn, n=5)
+        us = sum(v for k, v in by.items() if kernel in k) / K
+        row[side] = dict(ms_per_iteration=ms[side],
+                         device_us_per_iteration=us, by_kernel_us=by)
+        print(f"[compare] {label} {side}: CUDA events {ms[side][0]:.4f} / "
+              f"{ms[side][1]:.4f} ms per iteration, device {us:.1f} us per "
+              f"iteration ({kernel})")
+    gain = (row["other"]["device_us_per_iteration"]
+            / row["this"]["device_us_per_iteration"])
+    print(f"[compare] {label}: this is {gain:.2f}x faster than the other by "
+          "device time")
+    result[label] = row
+
+
+def compare_k4(this, other, result, K=8):
+    import torch
+
+    for B in (256, 37):
+        tab, dt, J, inv, Ws, bs, y, tgt, _ = loop_operands(B, 0, K)
+        z = ([torch.zeros_like(w) for w in Ws], [torch.zeros_like(b)
+                                                  for b in bs])
+
+        def call(mod, **kw):
+            return mod.fused_train_loop(tab, dt, y, tgt, J, inv, Ws, bs, z, z,
+                                        0, lr=5e-3, eps=1e-6, **kw)
+
+        outs = {side: call(mod) for side, mod in (("this", this),
+                                                  ("other", other))}
+        torch.cuda.synchronize()
+        plain = this.fused_train_loop_plain(tab, dt, y, tgt, J, inv, Ws, bs,
+                                            z, z, 0, lr=5e-3, eps=1e-6)
+        label = f"KS B{B} fused_train_loop K {K}"
+        errs = {}
+        for side, out in outs.items():
+            errs[side] = (_rel(out[4], plain[4]), max(
+                _rel(a, b, norm=True) for a, b in zip(out[0] + out[1],
+                                                      plain[0] + plain[1])))
+            print(f"[compare] {label}: {side} vs the plain version, losses "
+                  f"{errs[side][0]:.3e}, final parameters {errs[side][1]:.3e}"
+                  " (norm-wise)")
+        if not (errs["this"][0] <= 1e-4 and errs["this"][1] <= 5e-4):
+            raise SystemExit(f"{label}: this K4 disagrees with its plain "
+                             "version")
+        loop_turns(label, {side: (lambda m=mod: call(m))
+                           for side, mod in (("other", other),
+                                             ("this", this))},
+                   "train_loop_kernel", K, result)
+        if B == 256:
+            ref = outs["this"]
+            row = {}
+            for r in (1, 2, 4, 8):
+                if this.train_loop_plan(B, 64, STACKS[0][2][1:], 4,
+                                        rows=r) is None:
+                    continue
+                out = call(this, rows=r)
+                e = _rel(out[4], ref[4])
+                by = device_by_kernel(lambda r=r: call(this, rows=r), n=5)
+                us = sum(v for k, v in by.items()
+                         if "train_loop_kernel" in k) / K
+                row[r] = dict(device_us_per_iteration=us, losses_rel=e)
+                print(f"[compare] {label} at {r} rows per block: device "
+                      f"{us:.1f} us per iteration, losses vs the plan's "
+                      f"{e:.3e}")
+                if e > 1e-4:
+                    raise SystemExit(f"{label}: {r} rows disagree")
+            result[f"{label} rows"] = row
+
+
+def compare_k5(this, other, result, K=8):
+    import torch
+
+    from chip_smoke import DT, adaptive_params_gap, adaptive_runner
+
+    B = 256
+    _, _, _, _, Ws, bs, y, tgt, stp = loop_operands(B, 0, K)
+    dt0 = float(adaptive_runner(stp, Ws, bs, y, tgt, DT)(
+        this.fused_adaptive_train_loop, 1, 1e-6)[5]["dt_first"][0])
+    run = adaptive_runner(stp, Ws, bs, y, tgt, dt0)
+    outs = {side: run(mod.fused_adaptive_train_loop, K, 1e-6)
+            for side, mod in (("this", this), ("other", other))}
+    torch.cuda.synchronize()
+    outs["plain"] = run(this.fused_adaptive_train_loop_plain, K, 1e-6)
+    rows = {side: [tuple(int(o[5][n][i]) for n in ("accepted", "rejected",
+                                                   "completed"))
+                   for i in range(K)] for side, o in outs.items()}
+    label = f"KS B{B} fused_adaptive_train_loop K {K}"
+    print(f"[compare] {label} from dt0 {dt0:.6g}: trials this {rows['this']}"
+          f", other {rows['other']}, plain {rows['plain']}")
+    for side in ("this", "other"):
+        e_l = _rel(outs[side][4], outs["plain"][4])
+        gap, line = ((None, "") if side == "other" else adaptive_params_gap(
+            run, K, 1e-6, outs[side], outs["plain"], 0, 5e-4))
+        print(f"[compare] {label}: {side} vs the plain version, losses "
+              f"{e_l:.3e}{line}")
+        if side == "this" and (rows["this"] != rows["plain"] or e_l > 1e-4
+                               or gap > 5e-4):
+            raise SystemExit(f"{label}: this K5 disagrees with its plain "
+                             "version")
+    loop_turns(label, {side: (lambda m=mod: run(m.fused_adaptive_train_loop,
+                                                K, 1e-6))
+                       for side, mod in (("other", other), ("this", this))},
+               "adaptive_loop_kernel", K, result)
+
+
 MODULES = {"k1": "ops.fused_mlp", "k2": "ops.fused_ark_forward",
            "k3": "ops.fused_ark_adjoint", "k12": "ops.fused_train_loop",
+           "k4": "ops.fused_train_loop", "k5": "ops.fused_adaptive_loop",
            "k13": "tools.probe_smem_limit"}
 
 
@@ -598,8 +756,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--kernel", nargs="+", default=["k1"],
-                    choices=("k1", "k2", "k3", "k6", "k7", "k8", "k9",
-                             "k12", "k13"),
+                    choices=("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8",
+                             "k9", "k12", "k13"),
                     help="one or more kernels, compared in this order")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -624,6 +782,10 @@ def main(argv=None):
             compare_k3(this, other, result)
         elif kernel == "k12":
             compare_k12(this, other, result)
+        elif kernel == "k4":
+            compare_k4(this, other, result)
+        elif kernel == "k5":
+            compare_k5(this, other, result)
         elif kernel == "k13":
             compare_k13(this, other, result)
         else:

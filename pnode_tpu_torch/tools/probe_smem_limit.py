@@ -9,7 +9,7 @@ gate of the port's loop and step kernels assumes its limit:
 (``csrc/probe_smem.cu``: out = 3 x through ``bytes`` of dynamic shared
 memory per block) up an ascending ladder of sizes until one fails, then
 bisecting to 4 bytes. It also prints the card's opt-in attribute and the
-co-resident capacities the loop kernels' grids assume::
+grids the cooperative kernels take::
 
     python -m pnode_tpu_torch.tools.probe_smem_limit
 """
@@ -17,6 +17,7 @@ co-resident capacities the loop kernels' grids assume::
 from __future__ import annotations
 
 import argparse
+import ctypes
 
 import torch
 
@@ -106,23 +107,22 @@ def search(try_fn):
 
 
 def capacities():
-    """Co-resident blocks per launch that the loop kernels' grids assume at
-    the KS main path (64 -> 104 x4 -> 64, ARK3's 4 stages; K5 at 32
-    trials) and the SqueezeNext kernels' (K6-K9)."""
-    from ..ops.fused_adaptive_loop import _adaptive_smem_bytes
-    from ..ops.fused_train_loop import _loop_smem_bytes
-
+    """Grids of the cooperative kernels at their full-width shapes: the
+    loop kernels' plans at the KS main path (B 256, 64 -> 104 x4 -> 64,
+    ARK3's 4 stages; K5 at 32 trials; one block per SM, co-resident) and
+    the SqueezeNext kernels' (K6-K9)."""
     lib = _build.library()
-    ks = [104] * 4 + [64]
-    cap = _build.int_array([0])
+    dims = _build.int_array([64] + [104] * 4 + [64])
     out = {}
-    for name, fn, smem in (
-            ("train_loop (K4)", lib.pnode_train_loop_capacity,
-             _loop_smem_bytes(64, ks, 4)),
-            ("adaptive_loop (K5)", lib.pnode_adaptive_loop_capacity,
-             _adaptive_smem_bytes(64, ks, 4, 32))):
-        _build.check(fn(smem, cap), f"{name} occupancy query")
-        out[name] = (cap[0], smem)
+    rows, grid = _build.int_array([0]), _build.int_array([0])
+    smem, ws = (ctypes.c_longlong * 1)(), (ctypes.c_longlong * 1)()
+    _build.check(lib.pnode_train_loop_plan(256, 64, 4, 5, dims, 0, rows, grid,
+                                           smem), "train_loop (K4) plan")
+    out["train_loop (K4)"] = (grid[0], smem[0])
+    _build.check(lib.pnode_adaptive_loop_plan(256, 64, 4, 5, dims, 32, 0, rows,
+                                              grid, smem, ws),
+                 "adaptive_loop (K5) plan")
+    out["adaptive_loop (K5)"] = (grid[0], smem[0])
     # K6-K9 size their shared memory per launch: their plans' grids at the
     # full-width CIFAR shapes (stage 2's chain, stage 1's (3,1) layer)
     from ..ops import fused_sqnxt as fs
@@ -158,7 +158,7 @@ def main(argv=None):
               + (f" (fails at {hi} B)" if hi else " (never failed)"))
         caps = capacities()
     for name, (blocks, smem) in caps.items():
-        print(f"co-resident blocks, {name}: {blocks}"
+        print(f"grid, {name}: {blocks} blocks"
               + (f" at {smem} B per block" if smem else ""))
     return {"largest": lo, "fails_at": hi, "optin": optin[0],
             "capacities": caps}
