@@ -122,12 +122,17 @@ exits non-zero without printing the final line):
    5e-3, seed-0 weights; y0 ~ N(0, 1), target y0 + 0.05 N(0, 1), a fresh
    minibatch per iteration). (a) K10 and K11 (the circular stencil and its
    backward) against their plain versions in fp32 and fp64 at the Burgers
-   stage (200, 512) k 3, the KS stage (256, 64) k 5, a ragged (37, 100)
-   k 7, rows too wide to stage (3, 13001) k 5 and k > N (5, 3) k 7, with
-   random asymmetric taps (phase_stencil_kernels says how it gates): dy and dw, K11 without its dw pass, the autograd Function with a
+   stage (200, 512) k 3, the KS stage (256, 64) k 5 and the other
+   STENCIL_CASES (ragged, rows too wide to stage, k > N, 512 blocks, k > N
+   and an even k on the register tile), with random asymmetric taps
+   (phase_stencil_kernels says how it gates): dy and dw, K11 without its
+   dw pass, two K11 calls bitwise equal, the autograd Function with a
    learnable stencil, torch.func.jacfwd through K10 against the dense
-   circulant; timed beside the plain versions and nn.Conv1d (circular, no
-   bias, cuDNN TF32 off) forward and backward. K1 forward and backward at
+   circulant; a trace of one device kernel per K10 and K11 call in every
+   mode and through BurgersFuncIM; timed (K11 without dw, the main path's
+   mode, and with dw) beside the plain versions, nn.Conv1d (circular, no
+   bias, cuDNN TF32 off) forward and backward and the launch floor (the
+   JSON line's ``with_dw`` and ``ks_stage`` entries). K1 forward and backward at
    the Burgers stack (512 -> 576 x4 -> 512) against its plain versions,
    its scratch sizes, the device memory one backward allocates, a second backward equal bitwise, times in turns with the
    plain version (the JSON line's ``burgers`` entries of K1). (b) The
@@ -252,12 +257,21 @@ MAX_TRIALS = 32
 # ksp_rtol 1e-6, the one-step MSE, Adam at lr 5e-3
 BNX, BB, BDT = 512, 200, 1e-3
 BURGERS_FLAGS = ["-snes_type", "ksponly", "-ksp_rtol", "1e-6"]
-# K10/K11's shapes: the Burgers stage, the KS stage, a ragged one, rows
-# too wide to stage in 48 KB of shared memory (both kernels read global
-# memory there) and k > N (the taps wrap more than once)
+# K10/K11's shapes: the Burgers stage, the KS stage (both on the register
+# tile), a ragged one, rows too wide to stage in 48 KB of shared memory
+# (both staged, read from global memory there) and k > N (the taps wrap
+# more than once; staged), then on the register tile: far more blocks than
+# SMs (the dw ticket across 512 blocks), k > N with 16 rows a warp and
+# lanes past the last row, an even k with a row on one lane
 STENCIL_CASES = (("Burgers stage", 200, 512, 3), ("KS stage", 256, 64, 5),
                  ("ragged", 37, 100, 7), ("wide", 3, 13001, 5),
-                 ("wrapped", 5, 3, 7))
+                 ("wrapped", 5, 3, 7), ("many blocks", 4096, 512, 3),
+                 ("k > N on the tile", 33, 8, 9),
+                 ("even k, a lane a row", 70, 4, 6))
+# K10/K11's C plan against its mirror beyond STENCIL_CASES: (rows, N, k)
+STENCIL_PLANS = tuple((rows, n, k) for rows in (1, 200, 4096)
+                      for n in (1, 3, 64, 100, 512, 13001)
+                      for k in (1, 3, 5, 7))
 STENCIL_KERNELS = ("circular_stencil_fwd", "circular_stencil_bwd")
 
 
@@ -367,7 +381,8 @@ NO_SPILL = (("sqnxt_fwd.cu", "sqnxt_fwd_kernel", "K6/K8"),
             ("fused_ark_adjoint.cu", "ark_adj_kernel", "K3"),
             ("fused_grad_step.cu", "grad_step_kernel", "K12"),
             ("fused_train_loop.cu", "train_loop_kernel", "K4"),
-            ("fused_adaptive_loop.cu", "adaptive_loop_kernel", "K5"))
+            ("fused_adaptive_loop.cu", "adaptive_loop_kernel", "K5"),
+            ("circular_stencil.cu", "stencil_fwd_tile", "K10/K11"))
 # K2's, K3's and K12's plans against their Python mirrors: (B, d, layer
 # widths, stages); K3 and K12 also at the DP shards (DP_PLANS)
 KS_LAYERS = [HIDDEN] * 4 + [NX]
@@ -390,6 +405,7 @@ def phase_build():
     import torch
 
     from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops import circular_stencil as stencil
     from pnode_tpu_torch.ops import fused_ark_adjoint as adj
     from pnode_tpu_torch.ops import fused_adaptive_loop as adapt
     from pnode_tpu_torch.ops import fused_ark_forward as fwd
@@ -457,6 +473,25 @@ def phase_build():
                         f"{got}, mirror {want}")
         log(f"[build] K4's and K5's plans at B {B}, hidden {hidden}, R 1, 2, "
             f"4, 8 equal their mirrors")
+    # K10/K11's plan (body, rows per warp, rows per block, grid)
+    shapes = [c[1:] for c in STENCIL_CASES] + list(STENCIL_PLANS)
+    for rows, n, k in shapes:
+        for aligned in (True, False):
+            for need_dw in (False, True):
+                got = stencil.plan(rows, n, k, dev, aligned, need_dw)
+                want = stencil.stencil_plan(rows, n, k, sms, aligned,
+                                            need_dw)
+                if got != want:
+                    raise AssertionError(
+                        f"K10/K11's plan at ({rows}, {n}), k {k}, aligned "
+                        f"{aligned}, dw {need_dw}: {got}, mirror {want}")
+    for label, rows, n, k in STENCIL_CASES:
+        log(f"[build] K10/K11's plan at the {label} shape ({rows}, {n}), k "
+            f"{k}: {stencil.plan(rows, n, k, dev)}, with dw "
+            f"{stencil.plan(rows, n, k, dev, need_dw=True)} (body, rows per "
+            "warp, rows per block, grid)")
+    log(f"[build] K10/K11's plans at {4 * len(shapes)} shapes and modes "
+        "equal their mirrors")
 
 
 def phase_probe():
@@ -2922,47 +2957,58 @@ def circulant(w, n):
     return C
 
 
-def stencil_cost(rows, n, k):
-    """(flops, bytes) of K10 and K11 (dy and dw) at (rows, n), k taps: fp32,
-    each input read once, each output written once."""
+def stencil_cost(rows, n, k, need_dw=True):
+    """(flops, bytes) of K10 and K11 at (rows, n), k taps, fp32, each input
+    read once, each output written once: K11 as dy alone (g and w in, dy
+    out) or, with ``need_dw``, dy and dw (y, g and w in, dy and dw out)."""
     e = rows * n
     return {"circular_stencil_fwd": (2 * k * e, 4 * (2 * e + k)),
-            "circular_stencil_bwd": (4 * k * e, 4 * (3 * e + 2 * k))}
+            "circular_stencil_bwd": ((4 if need_dw else 2) * k * e,
+                                     4 * ((3 if need_dw else 2) * e
+                                          + (2 if need_dw else 1) * k))}
 
 
-def device_us_per_call(fn, names, n=20, per_call=None):
+def device_us_per_call(fn, names, n=20, per_call=None, tries=4):
     """(device us per call, launches traced) of the kernels whose names hold
     one of ``names`` (``per_call`` launches of each per call, default one),
     from a trace of ``n`` calls: the mean over the traced launches of each,
-    times its launches per call, summed (a trace may miss launches). CUDA
-    events time what a caller of back-to-back calls waits for, which is the
-    host's launch cost when that is the slower side."""
+    times its launches per call, summed. A trace may miss launches, and
+    now and then all of one kernel's: then it traces again, up to
+    ``tries`` traces. CUDA events time what a caller of back-to-back calls
+    waits for, which is the host's launch cost when that is the slower
+    side."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels, _ = device_kernels(prof.events())
-    total, traced = 0.0, 0
-    for part, k in zip(names, per_call or [1] * len(names)):
-        us = [e.time_range.elapsed_us() for e in kernels if part in e.name]
-        total += k * sum(us) / len(us) if us else float("nan")
-        traced += len(us)
-    return total, traced
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels, _ = device_kernels(prof.events())
+        found = [[e.time_range.elapsed_us() for e in kernels if part in e.name]
+                 for part in names]
+        if all(found):
+            break
+    total = sum(k * sum(us) / len(us) if us else float("nan")
+                for us, k in zip(found, per_call or [1] * len(names)))
+    return total, sum(len(us) for us in found)
 
 
 def time_stencil(label, y, g, w):
     """Per call, in turns (plain, kernel, library, kernel, plain, library):
     K10 beside its plain version and nn.Conv1d(1, 1, k, padding k//2,
     circular, no bias) with cuDNN's TF32 off (the library call for the same
-    function, which the port never makes); K11 beside its plain version and
-    that conv's backward alone (autograd.grad over a retained graph: dx and
-    dw). The conv's forward + backward is logged beside them."""
+    function, which the port never makes); K11 without dw (the main path's
+    mode, a fixed stencil) beside its plain version and that conv's
+    backward to its input alone, and K11 with dw beside the conv's backward
+    to input and weight (autograd.grad over a retained graph). The device
+    time per call of each (the profiler) and the launch floor, a
+    one-element torch.add's device time, by the same helper. The conv's
+    forward + backward is logged beside them."""
     import torch
 
     from pnode_tpu_torch.ops import circular_stencil as cs
@@ -2986,8 +3032,8 @@ def time_stencil(label, y, g, w):
         with torch.no_grad():
             conv(y[:, None])
 
-    def lib_bwd():
-        torch.autograd.grad(graph, (x, conv.weight), g3, retain_graph=True)
+    def lib_bwd(wrt):
+        return lambda: torch.autograd.grad(graph, wrt, g3, retain_graph=True)
 
     def lib_both():
         torch.autograd.grad(conv(x), (x, conv.weight), g3)
@@ -2995,41 +3041,103 @@ def time_stencil(label, y, g, w):
     rows = {
         "circular_stencil_fwd": (lambda: cs.circular_stencil_fwd(y, w),
                                  lambda: cs.circular_stencil_plain(y, w),
-                                 lib_fwd),
-        "circular_stencil_bwd": (lambda: cs.circular_stencil_bwd(y, g, w),
-                                 lambda: cs.circular_stencil_bwd_plain(y, g, w),
-                                 lib_bwd),
+                                 lib_fwd, "stencil_fwd"),
+        "circular_stencil_bwd": (
+            lambda: cs.circular_stencil_bwd(y, g, w, need_dw=False),
+            lambda: cs.circular_stencil_bwd_plain(y, g, w, need_dw=False),
+            lib_bwd((x,)), "stencil_bwd"),
+        "circular_stencil_bwd with dw": (
+            lambda: cs.circular_stencil_bwd(y, g, w),
+            lambda: cs.circular_stencil_bwd_plain(y, g, w),
+            lib_bwd((x, conv.weight)), "stencil_bwd"),
     }
+    one = torch.ones(1, device=y.device)
+    floor_us, _ = device_us_per_call(lambda: torch.add(one, one), [""])
+    log(f"[burgers]   {label} launch floor: a one-element torch.add takes "
+        f"{floor_us:.2f} us on the device")
     out = {}
-    for name, (kern, plain, lib) in rows.items():
+    for name, (kern, plain, lib, part) in rows.items():
         t = [summary(cuda_times_ms(f))[0]
              for f in (plain, kern, lib, kern, plain, lib)]
+        us, n = device_us_per_call(kern, [part])
         out[name] = dict(ms=min(t[1], t[3]), plain_ms=min(t[0], t[4]),
-                         library_ms=min(t[2], t[5]))
+                         library_ms=min(t[2], t[5]), device_ms=us / 1e3,
+                         launch_floor_device_ms=floor_us / 1e3)
         log(f"[burgers]   {label} {name}: kernel {t[1]:.4f} / {t[3]:.4f} ms, "
             f"plain {t[0]:.4f} / {t[4]:.4f} ms, nn.Conv1d {t[2]:.4f} / "
-            f"{t[5]:.4f} ms; medians of 30 samples of 10 back-to-back calls")
+            f"{t[5]:.4f} ms; medians of 30 samples of 10 back-to-back calls; "
+            f"device time {us:.2f} us per call ({n} kernel launches traced "
+            f"over 20 calls), {us / floor_us:.2f}x the launch floor")
     both = summary(cuda_times_ms(lib_both))[0]
     log(f"[burgers]   {label} nn.Conv1d forward + backward {both:.4f} ms "
         f"(its output vs the roll chain: rel err {lib_err:.3e})")
-    for name, parts in (("circular_stencil_fwd", ("stencil_fwd",)),
-                        ("circular_stencil_bwd", ("stencil_bwd",
-                                                  "sum_partials"))):
-        us, n = device_us_per_call(rows[name][0], parts)
-        out[name]["device_ms"] = us / 1e3
-        log(f"[burgers]   {label} {name}: device time {us:.2f} us per call "
-            f"({n} kernel launches traced over 20 calls)")
     return out
+
+
+def trace_stencil_launches(device, y, g, w, n=20):
+    """Each K10 call and each K11 call, in both modes, launches its stencil
+    kernel and no other (no fill, no cast, no second pass), over a trace of
+    ``n`` calls; so does each forward and backward of the Burgers implicit
+    part (BurgersFuncIM's fixed stencil in fp64, used in y's fp32) on the
+    main path's route: the autograd Function through the module. A trace
+    may miss launches (the earlier phases' traces show it too), so it must
+    hold at least one launch of each expected kernel (tracing again, up to
+    4 times, until it does), at most one per call, and nothing else."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pnode_tpu_torch.models import BurgersFuncIM
+    from pnode_tpu_torch.ops import circular_stencil as cs
+
+    f_im = BurgersFuncIM(nx=y.shape[1], use_fused=True, device=device)
+    yr = y.clone().requires_grad_(True)
+
+    def module_call():
+        out = f_im(0.0, yr)
+        torch.autograd.grad(out, yr, g)
+
+    calls = (("K10", lambda: cs.circular_stencil_fwd(y, w), ["stencil_fwd"]),
+             ("K11 without dw",
+              lambda: cs.circular_stencil_bwd(y, g, w, need_dw=False),
+              ["stencil_bwd"]),
+             ("K11 with dw", lambda: cs.circular_stencil_bwd(y, g, w),
+              ["stencil_bwd"]),
+             ("BurgersFuncIM forward + backward", module_call,
+              ["stencil_fwd", "stencil_bwd"]))
+    for label, fn, want in calls:
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(4):  # a trace now and then drops every launch
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            kernels, _ = device_kernels(prof.events())
+            names = [e.name.split("(")[0] for e in kernels]
+            counts = {part: sum(part in name for name in names)
+                      for part in want}
+            if all(counts.values()):
+                break
+        log(f"[burgers]   trace of {n} calls, {label}: {len(names)} device "
+            f"kernels traced, {sorted(set(names))}")
+        if not (all(0 < c <= n for c in counts.values())
+                and sum(counts.values()) == len(names)):
+            raise AssertionError(f"{label}: not one stencil kernel per "
+                                 f"launch and nothing else ({names})")
 
 
 def phase_stencil_kernels(device):
     """Phase 7(a), K10 and K11: against their plain versions in fp32 and
-    fp64 at STENCIL_CASES' shapes with random asymmetric taps (forward <= 1e-6 of max |ref|, the same sums in the
-    same order; dy and dw <= 1e-5, dw's sums in another order; fp64 <=
-    1e-4); K11 without its dw pass gives the same dy; the autograd
-    Function with a learnable stencil runs K10/K11; torch.func.jacfwd
-    through K10 (its jvp and vmap rules) equals the dense circulant
-    exactly; times at the Burgers and KS shapes."""
+    fp64 at STENCIL_CASES' shapes with random asymmetric taps (forward <=
+    1e-6 of max |ref|, the same sums in the same order; dy and dw <= 1e-5,
+    dw's sums in another order; fp64 <= 1e-4); K10's output and K11's dy
+    bitwise equal to the plain fp32 version's; K11 without its dw pass
+    gives the same dy; two K11 calls give the same dw bitwise (the last
+    block's ordered sum); the autograd Function with a learnable stencil
+    runs K10/K11; torch.func.jacfwd through K10 (its jvp and vmap rules)
+    equals the dense circulant exactly; one device kernel per call in
+    every mode; times at the Burgers and KS shapes, K11 in both modes."""
     import torch
 
     from pnode_tpu_torch.ops import circular_stencil as cs
@@ -3048,16 +3156,25 @@ def phase_stencil_kernels(device):
                      reports["circular_stencil_fwd"])
         dy, dw = cs.circular_stencil_bwd(y, g, w)
         dy_only, no_dw = cs.circular_stencil_bwd(y, g, w, need_dw=False)
+        dy_again, dw_again = cs.circular_stencil_bwd(y, g, w)
         torch.cuda.synchronize()
-        check_kernel("circular_stencil_bwd", [dy, dw],
-                     list(cs.circular_stencil_bwd_plain(y, g, w)),
+        plain_dy = cs.circular_stencil_bwd_plain(y, g, w)
+        check_kernel("circular_stencil_bwd", [dy, dw], list(plain_dy),
                      list(cs.circular_stencil_bwd_plain(y64, g64, w64)),
                      1e-5, reports["circular_stencil_bwd"])
+        same = (bool(torch.equal(out, plain)),
+                bool(torch.equal(dy, plain_dy[0])))
         log(f"[kernels]   bitwise equal to the plain fp32 version: forward "
-            f"{bool(torch.equal(out, plain))}, dy "
-            f"{bool(torch.equal(dy, cs.circular_stencil_bwd_plain(y, g, w)[0]))}")
+            f"{same[0]}, dy {same[1]}; a second K11 call's dw "
+            f"{'equals' if torch.equal(dw, dw_again) else 'DIFFERS FROM'} "
+            "the first bitwise")
+        if not all(same):
+            raise AssertionError("K10's output or K11's dy is not the roll "
+                                 "chain's, bitwise")
         if no_dw is not None or not torch.equal(dy_only, dy):
             raise AssertionError("K11 without its dw pass changed dy")
+        if not (torch.equal(dw, dw_again) and torch.equal(dy, dy_again)):
+            raise AssertionError("two K11 calls differ")
         yr = y.clone().requires_grad_(True)
         wr = w.clone().requires_grad_(True)
         cs.circular_stencil(yr, wr).backward(g)
@@ -3074,17 +3191,28 @@ def phase_stencil_kernels(device):
             if not exact:
                 raise AssertionError("jacfwd through K10 is not the "
                                      "circulant")
+        if si == 0:
+            trace_stencil_launches(device, y, g, w)
         if si < 2:
             times = time_stencil(label, y, g, w)
-            if si == 0:  # the Burgers stage: the JSON line's shape
-                for name, (flops, byts) in stencil_cost(rows, n, k).items():
-                    reports[name].update(times[name])
-                    reports[name]["bound_ms"], reports[name]["bound_by"] = \
-                        bound(flops, byts)
-                    log(f"[burgers]   {name} bound "
-                        f"{reports[name]['bound_ms']:.5f} ms "
-                        f"({reports[name]['bound_by']}: {flops / 1e6:.3f} "
-                        f"MFLOP, {byts / 1e6:.3f} MB)")
+            for name in STENCIL_KERNELS:
+                costs = {False: stencil_cost(rows, n, k, False)[name],
+                         True: stencil_cost(rows, n, k, True)[name]}
+                row = times[name]
+                row["bound_ms"], row["bound_by"] = bound(*costs[False])
+                if name == "circular_stencil_bwd":
+                    dw_row = times[name + " with dw"]
+                    dw_row["bound_ms"], dw_row["bound_by"] = bound(
+                        *costs[True])
+                    row["with_dw"] = dw_row
+                for r, mode in ((row, ""), (row.get("with_dw"), " with dw")):
+                    if r:
+                        log(f"[burgers]   {label} {name}{mode} bound "
+                            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+                if si == 0:  # the Burgers stage: the JSON line's shape
+                    reports[name].update(row)
+                else:
+                    reports[name]["ks_stage"] = row
     return reports
 
 
@@ -3753,7 +3881,8 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
-        for extra in ("device_ms", "stage3", "library_device_ms"):
+        for extra in ("device_ms", "stage3", "library_device_ms",
+                      "launch_floor_device_ms", "with_dw", "ks_stage"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if name in k1_burgers:  # K1's readings at the Burgers stack too

@@ -87,14 +87,26 @@ class CircularConv1D(nn.Module):
                                       dtype=torch.float64, device=device),
                 persistent=False)
             self.kernel = None
+            self._cast = (None, None)  # (the buffer, it in y's dtype/device)
         else:
             bound = math.sqrt(1.0 / kernel_size)
             w = torch.empty(kernel_size, dtype=dtype, device=device)
             w.uniform_(-bound, bound, generator=generator)
             self.kernel = nn.Parameter(w)
 
+    def fixed_as(self, y):
+        """The fixed stencil in y's dtype on y's device, cast once and kept
+        while the buffer, the dtype and the device stay: a call then makes
+        no copy (on the card, no cast kernel beside K10/K11)."""
+        src, cast = self._cast
+        if (src is not self.fixed or cast.dtype != y.dtype
+                or cast.device != y.device):
+            cast = self.fixed.to(device=y.device, dtype=y.dtype)
+            self._cast = (self.fixed, cast)
+        return cast
+
     def forward(self, y):
-        kernel = self.fixed if self.kernel is None else self.kernel
+        kernel = self.fixed_as(y) if self.kernel is None else self.kernel
         if self.use_fused:
             return circular_stencil(y, kernel)
         return circular_stencil_apply(y, kernel.to(y.dtype))

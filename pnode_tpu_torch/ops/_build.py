@@ -81,8 +81,9 @@ _SIGNATURES = {
                              _P]),
     "pnode_sqnxt_bwd_layer": (_I, [_P, _P, _P, _I, _PI, _PP, _I, _I, _I, _P,
                                    _L, _I, _P]),
-    "pnode_stencil_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "pnode_stencil_bwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "pnode_stencil_plan": (_I, [_I, _I, _I, _I, _I, _PI]),
+    "pnode_stencil_fwd": (_I, [_P, _P, _P, _I, _I, _I, _P]),
+    "pnode_stencil_bwd": (_I, [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                _P]),
     "pnode_smem_optin": (_I, [_PI]),
     "pnode_probe_smem": (_I, [_P, _P, ctypes.c_longlong, _I, _P]),
@@ -188,6 +189,8 @@ def double_array(values):
 
 
 def stream_of(t) -> int:
+    """The current stream of ``t``'s card, as the raw handle (no Stream
+    object per call)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

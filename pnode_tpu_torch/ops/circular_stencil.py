@@ -18,26 +18,104 @@ note says what bounds it on the H100 and what the design does about that.
   function and its VJP are the same.
 - ``circular_stencil_fwd`` / ``circular_stencil_bwd`` check their inputs
   and, for CUDA float32 tensors, launch the kernel (and count the launch)
-  or raise. CPU tensors of any floating dtype run the plain versions
+  or raise: one launch per call in every mode, K11's dw summed inside it.
+  CPU tensors of any floating dtype run the plain versions
   ``circular_stencil_plain`` (the roll chain) and
   ``circular_stencil_bwd_plain``, which are what the kernels are compared
   with on the card. Any other dtype or device raises: there is no fallback.
+- ``stencil_plan`` mirrors the C plan (``plan`` asks the C one): the body
+  (the register tile or the staged rows), rows per warp, rows per block and
+  grid.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-# elements of one block's row tile (csrc/circular_stencil.cu): ~4 per thread
-TILE_ELEMS = 1024
-MAX_ROWS_PER_BLOCK = 64
+TILE_MAX_CHUNKS = 4   # float4s of a row one lane holds: 16 floats
+TILE_MAX_TAPS = 9     # k/2 and k-1-k/2 within one neighbouring float4
+TILE_MAX_WARPS = 8
+STAGE_ELEMS = 1024    # elements of a staged block's rows
+MAX_STAGE_ROWS = 64
 
 
-def rows_per_block(n: int) -> int:
-    """Rows of one block's tile at row length ``n``."""
-    return max(1, min(MAX_ROWS_PER_BLOCK, TILE_ELEMS // n))
+def tile_lanes(n: int) -> int:
+    """Lanes per row of the register tile at row length ``n``: the largest
+    power of two <= 32 dividing N/4, where that leaves each lane 1, 2 or 4
+    float4s; 0 where the tile does not take N."""
+    if n % 4:
+        return 0
+    v4 = n // 4
+    lanes = 32
+    while v4 % lanes:
+        lanes //= 2
+    chunks = v4 // lanes
+    return lanes if chunks <= TILE_MAX_CHUNKS and chunks & (chunks - 1) == 0 \
+        else 0
+
+
+def stencil_plan(rows: int, n: int, k: int, sms: int, aligned: bool = True,
+                 need_dw: bool = False):
+    """The C plan (csrc/circular_stencil.cu ``make_plan``) of K10 and K11
+    at (rows, N), k taps, on a card of ``sms`` SMs, the operands 16-byte
+    aligned or not, with or without K11's dw: (body, rows per warp, rows
+    per block, grid). Body 1 is the register tile, a row on
+    ``tile_lanes(N)`` lanes, with 8, 4, 2 or 1 warps a block, the most that
+    keep a block per SM, and 8 with dw (fewer blocks take the last block's
+    ticket); body 0 the staged rows (rows per warp 0), ~1024 elements a
+    block."""
+    lanes = tile_lanes(n) if aligned and k <= TILE_MAX_TAPS else 0
+    if lanes:
+        per_warp = 32 // lanes
+        warps = -(-rows // per_warp)
+        w = TILE_MAX_WARPS
+        while not need_dw and w > 1 and -(-warps // w) < sms:
+            w //= 2
+        return 1, per_warp, w * per_warp, -(-warps // w)
+    rpb = max(1, min(MAX_STAGE_ROWS, STAGE_ELEMS // n))
+    return 0, 0, rpb, -(-rows // rpb)
+
+
+def plan(rows: int, n: int, k: int, device, aligned: bool = True,
+         need_dw: bool = False):
+    """The C plan on ``device``'s card: what ``stencil_plan`` mirrors."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = _build.library().pnode_stencil_plan(rows, n, k, int(aligned),
+                                                 int(need_dw), out)
+    _build.check(rc, "circular_stencil plan")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def _dw_words(device_index, rows, n, k, aligned):
+    """4-byte words of K11's dw scratch at this shape: the counter's 4, then
+    k partials per block of the C plan's grid."""
+    return 4 + k * plan(rows, n, k, device_index, aligned, True)[3]
+
+
+# (device index, stream handle) -> int32 zeros: K11's dw counter (word 0,
+# which every dw launch leaves at 0) and its partials (from word 4).
+# Launches on one stream run one after another, so no two in flight share
+# a counter.
+_dw_scratch: dict = {}
+
+
+def dw_scratch(device, stream: int, words: int) -> torch.Tensor:
+    """K11's dw scratch for ``stream`` on ``device``, at least ``words``
+    long: allocated once, zeroed on that stream (the current one), grown
+    when a larger grid needs more, never cleared again."""
+    key = (device.index, stream)
+    buf = _dw_scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=torch.int32, device=device)
+        _dw_scratch[key] = buf
+    return buf
 
 
 # -- plain PyTorch versions -------------------------------------------------
@@ -72,52 +150,64 @@ def circular_stencil_bwd_plain(y, g, w, need_dw: bool = True):
 
 # -- kernel wrappers --------------------------------------------------------
 
-def _check(y, w, what, others=()):
-    """Validate (rows, N) operands and a (k,) stencil; return (rows, n, k)."""
-    for name, t, ndim in (("y", y, 2), ("w", w, 1)) + tuple(others):
+def _check(y, w, what, g=None):
+    """Validate (rows, N) operands (y and, given, g) and a (k,) stencil;
+    return (rows, n, k, on the card)."""
+    ops = (("y", y, 2), ("w", w, 1)) if g is None else (
+        ("y", y, 2), ("w", w, 1), ("g", g, 2))
+    for name, t, ndim in ops:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{what}: {name} must be a tensor")
         if t.dim() != ndim:
             raise ValueError(f"{what}: {name} must be {ndim}-D, got "
                              f"{tuple(t.shape)}")
-        if t.device != y.device or t.dtype != y.dtype:
-            raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}, "
-                             f"expected {y.dtype} on {y.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if y.device.type == "cpu":
-        if not y.is_floating_point():
-            raise ValueError(f"{what}: y must be floating point, got "
-                             f"{y.dtype}")
-    elif y.device.type == "cuda":
-        if y.dtype != torch.float32:
+    dev, dtype = y.device, y.dtype
+    for name, t, _ in ops[1:]:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}, "
+                             f"expected {dtype} on {dev}")
+    kind = dev.type
+    if kind == "cuda":
+        if dtype != torch.float32:
             raise ValueError(f"{what}: the kernel takes float32 CUDA tensors, "
-                             f"got {y.dtype}")
-    else:
-        raise ValueError(f"{what}: unsupported device {y.device}")
-    rows, n, k = int(y.shape[0]), int(y.shape[1]), int(w.shape[0])
+                             f"got {dtype}")
+    elif kind != "cpu":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    elif not y.is_floating_point():
+        raise ValueError(f"{what}: y must be floating point, got {dtype}")
+    rows, n = y.shape
+    k = w.shape[0]
     if n < 1 or k < 1:
         raise ValueError(f"{what}: needs N >= 1 and k >= 1, got N {n}, k {k}")
     if rows * n >= 2**31:
         raise ValueError(f"{what}: {rows} x {n} elements exceed the kernel's "
                          "32-bit indexing")
-    return rows, n, k
+    return rows, n, k, kind == "cuda"
+
+
+def _on_device(device, fn, *args):
+    """fn(*args) with ``device`` current, entered only when it is not (the
+    operands are on the card, so CUDA is initialised: the raw getter)."""
+    if device.index == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def circular_stencil_fwd(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """stencil(y (rows, N), w (k,)) through K10 (CUDA) or the plain version
     (CPU)."""
-    rows, n, k = _check(y, w, "circular_stencil_fwd")
-    if y.device.type == "cpu":
+    rows, n, k, cuda = _check(y, w, "circular_stencil_fwd")
+    if not cuda:
         return circular_stencil_plain(y, w)
     out = torch.empty_like(y)
     if rows == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(y.device):
-        rc = lib.pnode_stencil_fwd(y.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                   rows, n, k, rows_per_block(n),
-                                   _build.stream_of(y))
+    rc = _on_device(y.device, _build.library().pnode_stencil_fwd,
+                    y.data_ptr(), w.data_ptr(), out.data_ptr(), rows, n, k,
+                    _build.stream_of(y))
     _build.check(rc, "circular_stencil_fwd kernel")
     circular_stencil_fwd.launches += 1
     return out
@@ -130,27 +220,30 @@ def circular_stencil_bwd(y: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
                          need_dw: bool = True):
     """(dy, dw) of <g, stencil(y, w)> through K11 (CUDA) or the plain
     version (CPU); dw is None when ``need_dw`` is False (a fixed stencil:
-    the kernel then skips its dw pass)."""
-    rows, n, k = _check(y, w, "circular_stencil_bwd", (("g", g, 2),))
-    if tuple(g.shape) != tuple(y.shape):
+    the kernel then skips its dw pass). One launch either way: with dw,
+    the blocks' partials are summed by the last block to finish, in
+    ``dw_scratch``."""
+    rows, n, k, cuda = _check(y, w, "circular_stencil_bwd", g)
+    if g.shape != y.shape:
         raise ValueError(f"circular_stencil_bwd: g must be {tuple(y.shape)}, "
                          f"got {tuple(g.shape)}")
-    if y.device.type == "cpu":
+    if not cuda:
         return circular_stencil_bwd_plain(y, g, w, need_dw)
     dy = torch.empty_like(y)
-    dw = torch.zeros_like(w) if need_dw else None
     if rows == 0:
-        return dy, dw
+        return dy, (torch.zeros_like(w) if need_dw else None)
     lib = _build.library()
-    rpb = rows_per_block(n)
-    nblk = -(-rows // rpb)
-    partial = (torch.empty(nblk * k, dtype=y.dtype, device=y.device)
-               if need_dw else dy)  # unread without the dw pass
-    with torch.cuda.device(y.device):
-        rc = lib.pnode_stencil_bwd(
-            y.data_ptr(), g.data_ptr(), w.data_ptr(), dy.data_ptr(),
-            partial.data_ptr(), dw.data_ptr() if need_dw else None, rows, n,
-            k, rpb, int(need_dw), _build.stream_of(y))
+    stream = _build.stream_of(y)
+    dw, scratch, words = None, None, 0
+    ptrs = (y.data_ptr(), g.data_ptr(), dy.data_ptr())
+    if need_dw:
+        dw = torch.empty_like(w)
+        aligned = (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0
+        words = _dw_words(y.device.index, rows, n, k, aligned)
+        scratch = dw_scratch(y.device, stream, words).data_ptr()
+    rc = _on_device(y.device, lib.pnode_stencil_bwd, ptrs[0], ptrs[1],
+                    w.data_ptr(), ptrs[2], dw.data_ptr() if need_dw else None,
+                    scratch, words, rows, n, k, int(need_dw), stream)
     _build.check(rc, "circular_stencil_bwd kernel")
     circular_stencil_bwd.launches += 1
     return dy, dw
@@ -212,7 +305,7 @@ class _CircularStencil(torch.autograd.Function):
 def circular_stencil(y: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Differentiable periodic cross-correlation along the last axis through
     K10/K11: y (..., N), kernel (k,) (cast to y's dtype, as the JAX op
-    does)."""
+    does; a stencil already in y's dtype is used as it is, with no copy)."""
     n = y.shape[-1]
     k = int(kernel.shape[0])
     y2 = y.reshape(-1, n).contiguous()

@@ -92,6 +92,16 @@ opt-in size, on the probe's own input (one tile per SM), both sides
 bitwise 3x, timed in turns, with ``torch.mul(x, 3)``'s device time beside
 them.
 
+``--kernel k10`` (the circular stencil, ``circular_stencil_fwd``) and
+``--kernel k11`` (its backward, ``circular_stencil_bwd``, without dw, the
+main path's mode for a fixed stencil, and with dw): at the Burgers stage
+shape (200, 512), k 3, and the KS stage shape (256, 64), k 5, with N(0, 1)
+inputs and cotangents and U(-1, 1) asymmetric taps from seed 0. It checks
+that both sides' outputs and dy equal the plain fp32 version's bitwise (the
+roll chain's sums in the same order) and both dw within 1e-5 of max |ref|,
+then times each in turns as for K1 (the device time sums every kernel a
+call launches, so a fill or a second pass counts).
+
 The last line printed is a JSON object of the readings.
 """
 
@@ -607,6 +617,47 @@ def compare_k13(this, other, result):
     print(f"[compare] K13 at {n} B torch.mul(x, 3): device {us:.1f} us")
 
 
+STENCIL_SHAPES = (("Burgers stage", 200, 512, 3), ("KS stage", 256, 64, 5))
+
+
+def compare_stencil(this, other, kernel, result):
+    """K10 or K11 (both modes) of both checkouts at STENCIL_SHAPES."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    sides = (("other", other), ("this", this))
+    for label, rows, n, k in STENCIL_SHAPES:
+        f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                     device="cuda")
+        y, g = f32(rng.normal(size=(rows, n))), f32(rng.normal(size=(rows, n)))
+        w = f32(rng.uniform(-1.0, 1.0, size=k))
+        if kernel == "k10":
+            modes = {"circular_stencil_fwd": lambda m: (
+                m.circular_stencil_fwd(y, w),)}
+            ref = (this.circular_stencil_plain(y, w),)
+        else:
+            modes = {"circular_stencil_bwd without dw": lambda m: (
+                m.circular_stencil_bwd(y, g, w, need_dw=False)[0],),
+                "circular_stencil_bwd with dw": lambda m:
+                m.circular_stencil_bwd(y, g, w)}
+            ref = this.circular_stencil_bwd_plain(y, g, w)
+        for what, call in modes.items():
+            for side, mod in sides:
+                got = call(mod)
+                torch.cuda.synchronize()
+                bitwise = bool(torch.equal(got[0], ref[0]))
+                d_dw = (float((got[1] - ref[1]).abs().max()
+                              / ref[1].abs().max()) if len(got) > 1 else 0.0)
+                print(f"[compare] {label} {what} {side}: bitwise equal to the "
+                      f"plain fp32 version {bitwise}"
+                      + (f", dw {d_dw:.3e}" if len(got) > 1 else ""))
+                if not (bitwise and d_dw <= 1e-5):
+                    raise SystemExit(f"{label}: {side}'s {what} disagrees "
+                                     "with the plain version")
+            calls = {side: (lambda m=mod: call(m)) for side, mod in sides}
+            time_in_turns(f"{label} {what}", calls, result)
+
+
 def loop_operands(B, seed, K=8):
     """(tab, dt, J, inv, Ws, bs, y, tgt) at KS widths, y and tgt (K, B,
     64): K minibatches of KS states and their one-step targets."""
@@ -747,7 +798,8 @@ def compare_k5(this, other, result, K=8):
 MODULES = {"k1": "ops.fused_mlp", "k2": "ops.fused_ark_forward",
            "k3": "ops.fused_ark_adjoint", "k12": "ops.fused_train_loop",
            "k4": "ops.fused_train_loop", "k5": "ops.fused_adaptive_loop",
-           "k13": "tools.probe_smem_limit"}
+           "k13": "tools.probe_smem_limit", "k10": "ops.circular_stencil",
+           "k11": "ops.circular_stencil"}
 
 
 def main(argv=None):
@@ -757,7 +809,7 @@ def main(argv=None):
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--kernel", nargs="+", default=["k1"],
                     choices=("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8",
-                             "k9", "k12", "k13"),
+                             "k9", "k10", "k11", "k12", "k13"),
                     help="one or more kernels, compared in this order")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -788,6 +840,8 @@ def main(argv=None):
             compare_k5(this, other, result)
         elif kernel == "k13":
             compare_k13(this, other, result)
+        elif kernel in ("k10", "k11"):
+            compare_stencil(this, other, kernel, result)
         else:
             compare_sqnxt(this, other, kernel, result)
     print(json.dumps(result))
