@@ -163,12 +163,38 @@ exits non-zero without printing the final line):
    one epoch of 3 iterations: its train loss equal to the run without --dp
    within 1e-5 relative. K12's launches over (b) and (c) must be above 0.
 
+9. The theta slice (CN with mass matrices, matrix-free GMRES, the solve
+   without the adjoint). (a) K10 and K11 under torch.func at the KS snode
+   (128, 64) k 5 and the Burgers (200, 512) k 3 fixed stencils: jvp
+   through K10 bitwise equal to the roll chain's, vjp through K11 bitwise
+   equal to K11's plain version and within 1e-6 of autograd's vjp through
+   the roll chain (phase_theta_stencil says why not bitwise). (b) One GMRES
+   stage solve of the snode's CN operator at a (128, 64) KS state: the
+   residual within -ksp_rtol, the dense fp64 solve of the same operator
+   within cond(A) x 2 rtol, iterations and cycles, and the solve's host
+   reads (one per cycle and one before) under torch.cuda's sync check.
+   (c) examples/ks_torch.py's snode / cn / petsc recipe at hidden 200,
+   batch 128: at step 1 the kernel path (the stencil on K10/K11) against
+   the plain path (loss and gradient within 1e-4) and the gradient's
+   cosine against the port's CPU fp64 run (>= 0.999); 5 Adam steps that
+   lower the loss, steps/s, Newton and GMRES iterations per step, one
+   traced step's busy share; K10's and K11's launches above 0. (d)
+   examples/burgers_torch.py --node's computation at B 200, nx 512: dopri5
+   at 1e-3 over 100 steps, autograd through the steps, the kernel path
+   (K1, K10/K11) against the plain path (loss and gradient within 1e-4),
+   K1's, K10's and K11's launches above 0, iterations/s, peak memory. (e)
+   examples/pendulum_dae_torch.py for 20 iterations: the loss goes down,
+   the first loss within 1e-5 of the port's CPU fp64 run, the constraint
+   violation.
+
 Phases 1-6 run at their full depth; phase 7 adds about 60 s, phase 8 about
-60 s.
+60 s, phase 9 about 90 s.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 two also carry ``burgers``: its readings at the Burgers stack and its
-launches over phase 7(b); K2-K13 carry ``device_ms``, the profiler's
+launches over phase 7(b); K1's, K10's and K11's carry ``theta_launches``:
+their launches over phase 9's snode CN path (c) and Burgers --node path
+(d); K2-K13 carry ``device_ms``, the profiler's
 device time per call (K4 and K5: per iteration); K7 ``stage3``: its
 readings at stage 3); the last line is {"ok": true, "device": {...}}.
 """
@@ -1730,7 +1756,8 @@ def profile_steps(label, ode, ex, opt, batches, device, dt=DT, focus=None):
     (spans around the solve, the loss, the adjoint and Adam), device time
     per kernel, and the device's busy share of the traced wall time. With
     ``focus`` = (substring, label), also the device time of the kernels
-    whose name holds the substring, and its share of the step."""
+    whose name holds the substring, and its share of the step. Returns the
+    busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1779,6 +1806,7 @@ def profile_steps(label, ode, ex, opt, batches, device, dt=DT, focus=None):
         log(f"[profile]   {us / n:9.1f} us/step x{count // n:<3d} {name[:90]}")
     if not kernels:
         log("[profile] the profiler recorded no device time")
+    return busy_us * 1e-6 / wall
 
 
 def to_linear_state(fused_state):
@@ -1983,13 +2011,14 @@ def profile_loop(make_loop, ys, tgts, kernel="train_loop_kernel",
         f"measured")
 
 
-def load_ks_torch():
-    """examples/ks_torch.py as a module (its FusedLoop is the gate and the
-    state of ``--fused_loop``)."""
+def load_example(name):
+    """examples/<name>.py as a module (ks_torch's FusedLoop is the gate and
+    the state of ``--fused_loop``; train_cifar10_torch's surrogate data;
+    the trainers' main())."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "ks_torch", os.path.join(ROOT, "examples", "ks_torch.py"))
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2005,7 +2034,7 @@ def phase_fused_loop(device, state0, batches, kernel_runs, per_step_last,
 
     from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop
 
-    ks = load_ks_torch()
+    ks = load_example("ks_torch")
     as_t = lambda i: torch.tensor(  # noqa: E731
         np.stack([b[i] for b in batches]), dtype=torch.float32,
         device=device)
@@ -2244,7 +2273,7 @@ def phase_fused_adaptive_loop(device, state0, batches, generic_runs,
     from pnode_tpu_torch.ops.fused_adaptive_loop import (
         fused_adaptive_train_loop)
 
-    ks = load_ks_torch()
+    ks = load_example("ks_torch")
     as_t = lambda i: torch.tensor(  # noqa: E731
         np.stack([b[i] for b in batches]), dtype=torch.float32,
         device=device)
@@ -2408,18 +2437,6 @@ def ks_costs(tab, adaptive_report):
             (acc + rej) * fwd[0] + acc * rev[0] + loop[0] - fwd[0] - rev[0],
             loop[1]),
     }
-
-
-def load_cifar_torch():
-    """examples/train_cifar10_torch.py as a module (its surrogate data)."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "train_cifar10_torch", os.path.join(ROOT, "examples",
-                                            "train_cifar10_torch.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def cifar_model(device, use_kernels, state=None):
@@ -2884,7 +2901,7 @@ def phase_cifar(device, n_iters=22, warm=2, n_off=12):
 
     from pnode_tpu_torch.ops import fused_sqnxt as fs
 
-    cif = load_cifar_torch()
+    cif = load_example("train_cifar10_torch")
     x_np, y_np, _, _, synthetic = cif.load_cifar10(
         os.path.join(ROOT, "data", "cifar-10-batches-py"))
     x_tr = torch.as_tensor(x_np, device=device)
@@ -3426,14 +3443,9 @@ def phase_burgers_trainer(device):
     defaults (nx 512, batch 200, dt 1e-3, --use_fused), except
     --batch_time 2, 3 iterations of one epoch and 20 ICs of data (the
     default 100 take ~18 s of numpy generation on the card's host)."""
-    import importlib.util
-
     import pnode_tpu_torch as pt
 
-    spec = importlib.util.spec_from_file_location(
-        "burgers_torch", os.path.join(ROOT, "examples", "burgers_torch.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = load_example("burgers_torch")
     pt.clear_options()
     t0 = time.perf_counter()
     final = mod.main(["--batch_time", "2", "--epochs", "1",
@@ -3843,6 +3855,473 @@ def phase_dp(device, u):
     return report, launches
 
 
+# -- phase 9: the theta slice --------------------------------------------------
+
+SNODE_B, SNODE_H, SNODE_STEPS = 128, 200, 5
+# 9(d): burgers --node, one window of two outputs 0.1 apart, dopri5 at 1e-3
+NODE_WINDOW, NODE_DT = 0.1, 1e-3
+
+
+def phase_theta_stencil(device):
+    """9(a): K10 and K11 under torch.func at the slice's stencils, the KS
+    (128, 64) k 5 and the Burgers (200, 512) k 3 fixed stencils: jvp
+    through K10 (its jvp rule: K10 on the tangent) bitwise equal to jvp
+    through the roll chain; vjp through K11 bitwise equal to K11's plain
+    version (the flipped stencil summed in tap order), and within 1e-6 of
+    max |ref| of autograd's vjp through the roll chain, which sums the k
+    shifted cotangents in another order."""
+    import torch
+
+    from pnode_tpu_torch.models import burgers_fixed_kernel, ks_fixed_kernel
+    from pnode_tpu_torch.ops import circular_stencil as cs
+
+    for label, rows, n, taps in (
+            ("KS snode", SNODE_B, NX, ks_fixed_kernel(22.0 / NX)),
+            ("Burgers", BB, BNX, burgers_fixed_kernel(1.0 / BNX))):
+        y, v = stencil_case(device, rows, n, len(taps), 90 + rows)[:2]
+        g = stencil_case(device, rows, n, len(taps), 91 + rows)[0]
+        w = torch.tensor(taps, dtype=torch.float32, device=device)
+        kern = lambda yy: cs.circular_stencil(yy, w)  # noqa: E731
+        roll = lambda yy: cs.circular_stencil_plain(yy, w)  # noqa: E731
+        out_k, jv_k = torch.func.jvp(kern, (y,), (v,))
+        out_p, jv_p = torch.func.jvp(roll, (y,), (v,))
+        (vt_k,) = torch.func.vjp(kern, y)[1](g)
+        (vt_p,) = torch.func.vjp(roll, y)[1](g)
+        dy_plain = cs.circular_stencil_bwd_plain(y, g, w, need_dw=False)[0]
+        torch.cuda.synchronize()
+        same = (bool(torch.equal(out_k, out_p)), bool(torch.equal(jv_k, jv_p)),
+                bool(torch.equal(vt_k, dy_plain)))
+        e_roll = rel_err(vt_k, vt_p)
+        log(f"[theta] (a) {label} stencil ({rows}, {n}) k {len(taps)} under "
+            f"torch.func: jvp through K10 {'equals' if all(same[:2]) else 'DIFFERS FROM'} "
+            f"the roll chain's bitwise (primal and tangent); vjp through K11 "
+            f"{'equals' if same[2] else 'DIFFERS FROM'} K11's plain version "
+            f"bitwise, {e_roll:.3e} of max |ref| from autograd's vjp "
+            "through the roll chain (tol 1e-6)")
+        if not all(same) or e_roll > 1e-6:
+            raise AssertionError(f"K10/K11 under torch.func disagree at the "
+                                 f"{label} stencil")
+
+
+class GMRESCounter:
+    """Counts the GMRES solves and iterations of the stage solvers while it
+    is entered (wraps linsolve.gmres): ``solves``/``iters``/``cycles`` by
+    direction, "forward" (J v, the Newton iterations) and "transpose" (J^T
+    v, the adjoint)."""
+
+    def __init__(self):
+        self.solves = {"forward": 0, "transpose": 0}
+        self.iters = {"forward": 0, "transpose": 0}
+        self.cycles = {"forward": 0, "transpose": 0}
+
+    def __enter__(self):
+        from pnode_tpu_torch import linsolve
+
+        self._orig = linsolve.gmres
+        orig = self._orig
+
+        def counted(matvec, b, *args, **kw):
+            res = orig(matvec, b, *args, **kw)
+            way = ("transpose" if getattr(matvec, "__name__", "")
+                   == "_apply_T" else "forward")
+            m = min(kw.get("restart", 30), int(b.shape[0]))
+            self.solves[way] += 1
+            self.iters[way] += res.iters
+            self.cycles[way] += res.iters // m
+            return res
+
+        linsolve.gmres = counted
+        return self
+
+    def __exit__(self, *exc):
+        from pnode_tpu_torch import linsolve
+
+        linsolve.gmres = self._orig
+        return False
+
+
+def snode_state(seed=0):
+    """The KS snode model's seed weights (hidden 200), fp32 on the CPU."""
+    import torch
+
+    from pnode_tpu_torch.models import KSSnodeFunc
+
+    mod = KSSnodeFunc(nx=NX, hidden=SNODE_H,
+                      generator=torch.Generator().manual_seed(seed))
+    return {k: v.detach().clone() for k, v in mod.state_dict().items()}
+
+
+def build_snode(device, state, fused, dtype=None):
+    """(ode, module, Adam) of examples/ks_torch.py --pnode_model snode
+    --pnode_method cn --linear_solver petsc --no-fixed_jacobian at batch
+    128: CN, Newton (newtonls), matrix-free GMRES stage solves; the
+    stencil on K10/K11 when ``fused``."""
+    import torch
+
+    import pnode_tpu_torch as pt
+    from pnode_tpu_torch.models import KSSnodeFunc
+
+    dtype = dtype or torch.float32
+    pt.clear_options()
+    pt.init(["chip_smoke"])
+    mod = KSSnodeFunc(nx=NX, hidden=SNODE_H, dtype=dtype, device=device,
+                      use_fused=fused)
+    mod.load_state_dict({k: v.to(dtype) for k, v in state.items()})
+    ode = pt.ODESolver().setupTS(
+        torch.zeros(SNODE_B, NX, dtype=dtype, device=device),
+        pt.TorchFunc(mod), step_size=DT, method="cn", implicit_form=True,
+        linear_solver="petsc", fixed_jacobian=False, batch_size=SNODE_B)
+    return ode, mod, torch.optim.Adam(mod.parameters(), lr=LR)
+
+
+def snode_grads(ode, mod, y0, tgt, dtype=None):
+    """(loss, flat gradient) of one step's MSE through the discrete
+    adjoint."""
+    import torch
+
+    dtype = dtype or torch.float32
+    dev = next(mod.parameters()).device
+    y0 = torch.as_tensor(y0, dtype=dtype, device=dev)
+    tgt = torch.as_tensor(tgt, dtype=dtype, device=dev)
+    for p in mod.parameters():
+        p.grad = None
+    pred = ode.odeint_adjoint(y0, np.array([0.0, DT]))
+    loss = torch.mean((pred[-1] - tgt) ** 2)
+    loss.backward()
+    return float(loss.detach()), torch.cat(
+        [p.grad.detach().reshape(-1).double().cpu()
+         for p in mod.parameters()])
+
+
+def phase_theta_gmres(device, u):
+    """9(b): one GMRES stage solve of the snode's CN operator (I - dt/2 J)
+    at a (128, 64) KS linearization point, rtol 1e-5 (the default
+    -ksp_rtol): the residual within rtol; against a dense fp64 solve of the
+    same operator per batch block, within cond(A) times twice rtol; the
+    host reads of the solve (torch.cuda's sync debug mode): one before the
+    first cycle and one after each."""
+    import warnings
+
+    import torch
+
+    from pnode_tpu_torch.linsolve import (
+        LinearSolveConfig, assemble_block_jacobian, make_stage_solver)
+
+    state = snode_state()
+    _, mod, _ = build_snode(device, state, True)
+    _, mod64, _ = build_snode(device, state, False, torch.float64)
+    y = torch.tensor(u[:SNODE_B], dtype=torch.float32, device=device)
+    b = torch.tensor(np.random.default_rng(9).normal(size=SNODE_B * NX),
+                     dtype=torch.float32, device=device)
+    cfg = LinearSolveConfig(kind="gmres", rtol=1e-5, block_size=NX)
+    gamma = 0.5 * DT
+
+    def f_flat(m):
+        return lambda zf: m(DT, zf.reshape(SNODE_B, NX)).reshape(-1)
+
+    def sync_reads(fn):
+        """(fn(), the synchronizing calls torch.cuda's sync check reports
+        while it runs, as "file:line message")."""
+        seen = []
+
+        def note(message, category, filename, lineno, *rest):
+            if "called a synchronizing CUDA operation" in str(message):
+                seen.append(f"{os.path.basename(filename)}:{lineno} "
+                            f"{str(message)[:60]!r}")
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, seen
+
+    with torch.no_grad():  # a stage solve records no graph
+        solver = make_stage_solver(f_flat(mod), y.reshape(-1), None, 1.0,
+                                   gamma, cfg)
+        solver.solve(b)  # a warm pass
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, seen = sync_reads(lambda: solver.solve(b))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    syncs = len(seen)
+    log(f"[theta] (b) the sync check's reports over the solve: "
+        f"{'; '.join(seen)}")
+    res = solver.last
+    m = min(cfg.restart, SNODE_B * NX)
+    cycles = res.iters // m
+    with torch.no_grad():
+        J = assemble_block_jacobian(f_flat(mod64), y.double().reshape(-1),
+                                    cfg, shared=False)
+        A = torch.eye(NX, dtype=torch.float64, device=device) - gamma * J
+        b64 = b.double().reshape(SNODE_B, NX)
+        x64 = torch.linalg.solve(A, b64)
+        xg = x.double().reshape(SNODE_B, NX)
+        resid = float((b64 - torch.einsum("bij,bj->bi", A, xg)).norm()
+                      / b64.norm())
+        err = float((xg - x64).norm() / x64.norm())
+        cond = float(torch.linalg.cond(A).max())
+    log(f"[theta] (b) GMRES stage solve of the snode CN operator at B "
+        f"{SNODE_B}, n {SNODE_B * NX}: {res.iters} iterations in {cycles} "
+        f"cycles of {m}, converged {res.converged}, {ms:.2f} ms (host "
+        f"clock, with torch.cuda's sync check on); relative residual in "
+        f"fp64 {resid:.3e} (rtol {cfg.rtol:.0e}); against the dense fp64 "
+        f"solve {err:.3e} (max block cond {cond:.1f}, tol "
+        f"{2 * cfg.rtol * cond:.3e}); host syncs in the solve {syncs} "
+        f"(allowed: {cycles + 1}, one norm read before the first cycle and "
+        "after each)")
+    if not (res.converged and resid <= 2 * cfg.rtol
+            and err <= 2 * cfg.rtol * cond and syncs <= cycles + 1):
+        raise AssertionError("the GMRES stage solve on the card failed its "
+                             "checks")
+    return {"iters": res.iters, "cycles": cycles, "ms": ms}
+
+
+def phase_theta_snode(device, u):
+    """9(c): the snode CN + GMRES trainer at full width (hidden 200, batch
+    128, dt 0.2, Adam lr 5e-3, KS windows): at step 1 the kernel path
+    (the stencil on K10/K11) against the plain path (the roll chain) on the
+    card, loss and gradient within 1e-4 relative, and the gradient's cosine
+    against the port's CPU fp64 run >= 0.999 (tools/hardware_smoke.py's
+    gate 4); then 5 Adam steps on the kernel path: finite losses, the last
+    below the first, steps/s, Newton and GMRES iterations per step; K10's
+    and K11's launches over the 5 steps above 0; one traced step's device
+    busy share."""
+    import torch
+
+    from pnode_tpu_torch.ops.circular_stencil import (
+        circular_stencil_bwd, circular_stencil_fwd)
+
+    state = snode_state()
+    batches = ks_batches(u, SNODE_STEPS + 1, SNODE_B, seed=11)
+    y0, tgt = batches[0]
+    ode_k, mod_k, opt_k = build_snode(device, state, True)
+    ode_p, mod_p, _ = build_snode(device, state, False)
+    l_k, g_k = snode_grads(ode_k, mod_k, y0, tgt)
+    l_p, g_p = snode_grads(ode_p, mod_p, y0, tgt)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    try:
+        ode_c, mod_c, _ = build_snode("cpu", state, False, torch.float64)
+        t0 = time.perf_counter()
+        l_c, g_c = snode_grads(ode_c, mod_c, y0, tgt, torch.float64)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    e_loss = abs(l_k - l_p) / abs(l_p)
+    e_grad = norm_err(g_k, g_p)
+    cos = float(torch.dot(g_k, g_c) / (g_k.norm() * g_c.norm()))
+    log(f"[theta] (c) snode CN + GMRES, B {SNODE_B}, hidden {SNODE_H}, step "
+        f"1: kernel path vs plain path loss {e_loss:.3e}, gradient "
+        f"{e_grad:.3e} norm-wise (tol 1e-4); cosine against the CPU fp64 "
+        f"run {cos:.6f} (tol 0.999; loss {l_k:.6e} vs {l_c:.6e}; the CPU "
+        f"run took {cpu_s:.1f} s)")
+    if not (e_loss <= 1e-4 and e_grad <= 1e-4 and cos >= 0.999):
+        raise AssertionError("the snode CN kernel path disagrees with the "
+                             "plain path or the CPU fp64 run")
+
+    ode, mod, opt = build_snode(device, state, True)
+    circular_stencil_fwd.launches = circular_stencil_bwd.launches = 0
+    losses, newton = [], 0
+    with GMRESCounter() as cnt:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for y0, tgt in batches[1:]:
+            y0 = torch.as_tensor(y0, dtype=torch.float32, device=device)
+            tgt = torch.as_tensor(tgt, dtype=torch.float32, device=device)
+            pred = ode.odeint_adjoint(y0, np.array([0.0, DT]))
+            loss = torch.mean((pred[-1] - tgt) ** 2)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            newton += ode.last_stats.newton_iters
+            losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {"circular_stencil_fwd": circular_stencil_fwd.launches,
+              "circular_stencil_bwd": circular_stencil_bwd.launches}
+    n = len(losses)
+    log(f"[theta] (c) {n} Adam steps on the kernel path: losses "
+        f"{', '.join(f'{x:.6e}' for x in losses)}; {n / wall:.3f} steps/s; "
+        f"per step {newton / n:.1f} Newton iterations, GMRES "
+        f"{cnt.iters['forward'] / n:.1f} iterations ({cnt.solves['forward'] / n:.1f} "
+        f"solves, {cnt.cycles['forward'] / n:.1f} cycles) forward and "
+        f"{cnt.iters['transpose'] / n:.1f} ({cnt.solves['transpose'] / n:.1f} "
+        f"solves) transposed; launches {counts}")
+    busy = profile_steps("snode CN + GMRES kernel path", ode, mod, opt,
+                         batches[1:2], device, DT, focus=("stencil", "K10/K11"))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("the snode CN trainer did not lower its loss")
+    if min(counts.values()) <= 0:
+        raise AssertionError("K10 or K11 was never launched on the snode CN "
+                             "path")
+    return counts, {"steps_per_s": n / wall, "newton": newton / n,
+                    "gmres_fwd": cnt.iters["forward"] / n,
+                    "gmres_T": cnt.iters["transpose"] / n, "busy": busy}
+
+
+def phase_theta_burgers_node(device):
+    """9(d): examples/burgers_torch.py --node's computation at full width
+    (B 200, nx 512, f_EX 512 -> 576 x4 -> 512): f_IM + f_EX by dopri5 at
+    1e-3 over one window of two outputs (100 steps), the mean-abs loss
+    differentiated by autograd through the steps. The kernel path (f_EX on
+    K1, f_IM on K10/K11) against the plain path (nn.Linear, the roll
+    chain) from the same weights and batch: loss and gradient within 1e-4
+    relative (the gradient norm-wise); K1's, K10's and K11's launches
+    above 0; iterations/s of both paths; peak device memory."""
+    import torch
+
+    import pnode_tpu_torch as pt
+    from pnode_tpu_torch.models import BurgersFuncEX, BurgersFuncIM, IMEXSum
+    from pnode_tpu_torch.ops.circular_stencil import (
+        circular_stencil_bwd, circular_stencil_fwd)
+    from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+
+    init = BurgersFuncEX(nx=BNX, use_fused=True, device=device,
+                         generator=torch.Generator(device=device).manual_seed(0))
+    state0 = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    y0, tgt = burgers_batches(1, seed=3)[0]
+    window = np.array([0.0, NODE_WINDOW])
+
+    def build(fused):
+        pt.clear_options()
+        im = BurgersFuncIM(nx=BNX, use_fused=fused, device=device)
+        ex = BurgersFuncEX(nx=BNX, use_fused=fused, device=device)
+        ex.load_state_dict(state0 if fused else to_linear_state(state0))
+        ode = pt.ODESolver().setupTS(
+            torch.zeros(BB, BNX, device=device), pt.TorchFunc(IMEXSum(im, ex)),
+            step_size=NODE_DT, method="dopri5", enable_adjoint=False)
+        return ode, ex
+
+    def grad_step(ode, ex):
+        for p in ex.parameters():
+            p.grad = None
+        pred, _ = ode.solve(torch.as_tensor(y0, device=device), window,
+                            with_adjoint=False)
+        target = torch.stack([torch.as_tensor(y0, device=device),
+                              torch.as_tensor(tgt, device=device)])
+        loss = torch.mean(torch.abs(pred - target))
+        loss.backward()
+        return float(loss.detach()), fused_layout(ex, grads=True)
+
+    wrappers = (fused_mlp_fwd, fused_mlp_bwd, circular_stencil_fwd,
+                circular_stencil_bwd)
+    for w in wrappers:
+        w.launches = 0
+    ode_k, ex_k = build(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    l_k, g_k = grad_step(ode_k, ex_k)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = {w.__name__: w.launches for w in wrappers}
+    ode_p, ex_p = build(False)
+    l_p, g_p = grad_step(ode_p, ex_p)
+    e_loss = abs(l_k - l_p) / abs(l_p)
+    flat = lambda gs: torch.cat([g.reshape(-1).double() for g in gs])  # noqa
+    e_grad = norm_err(flat(g_k), flat(g_p))
+    e_max = max(norm_err(a, b) for a, b in zip(g_k, g_p))
+    times = {}
+    for label, ode, ex in (("plain", ode_p, ex_p), ("kernel", ode_k, ex_k),
+                           ("kernel ", ode_k, ex_k), ("plain ", ode_p, ex_p)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad_step(ode, ex)
+        torch.cuda.synchronize()
+        times.setdefault(label.strip(), []).append(time.perf_counter() - t0)
+    n_steps = int(round(NODE_WINDOW / NODE_DT))
+    log(f"[theta] (d) Burgers --node, B {BB}, nx {BNX}, dopri5 at {NODE_DT} "
+        f"over {n_steps} steps: loss {l_k:.6e}; kernel vs plain path loss "
+        f"{e_loss:.3e}, gradient {e_grad:.3e} norm-wise over the stack "
+        f"(per tensor max {e_max:.3e}; tol 1e-4); one iteration (forward "
+        f"and autograd backward) {min(times['kernel']):.3f} s on the kernel "
+        f"path ({1 / min(times['kernel']):.3f} iterations/s), "
+        f"{min(times['plain']):.3f} s on the plain path (in turns, best of "
+        f"two); peak device memory of the kernel path's iteration "
+        f"{peak / 2**30:.3f} GiB; launches {counts}")
+    if not (e_loss <= 1e-4 and e_grad <= 1e-4):
+        raise AssertionError("Burgers --node's kernel path disagrees with "
+                             "its plain path")
+    if min(counts.values()) <= 0:
+        raise AssertionError("K1, K10 or K11 was never launched on the "
+                             "Burgers --node path")
+    return counts, {"iter_s": min(times["kernel"]),
+                    "plain_iter_s": min(times["plain"]),
+                    "peak_gib": peak / 2**30}
+
+
+def phase_theta_pendulum(device, n_iters=20):
+    """9(e): examples/pendulum_dae_torch.py through its main() (M =
+    diag(1,1,1,1,0), CN with GMRES through the mass matrix, AdamW), 20
+    iterations on the card at its default fp32: finite losses, the last
+    below the first, the constraint violation reports; the first loss
+    within 1e-5 relative of the port's CPU fp64 run's (the trainer draws
+    its weights in fp64 from a CPU generator, so both runs start from the
+    same net)."""
+    import torch
+
+    import pnode_tpu_torch as pt
+
+    pend = load_example("pendulum_dae_torch")
+    train_dir = os.path.join(ROOT, "build", "pendulum_dae_torch")
+
+    def run(dev, n, *flags):
+        pt.clear_options()
+        return pend.main(["--device", dev, "--niters", str(n), "--test_freq",
+                          "10", "--train_dir", train_dir, *flags])
+
+    t0 = time.perf_counter()
+    out = run(device, n_iters)
+    wall = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # more threads only slow its tiny ops
+    try:
+        cpu64 = run("cpu", 1, "--double_prec")["losses"][0]
+    finally:
+        torch.set_num_threads(threads)
+    losses = out["losses"]
+    e_first = abs(losses[0] - cpu64) / abs(cpu64)
+    log(f"[theta] (e) pendulum_dae_torch, {n_iters} iterations on the card "
+        f"in {wall:.1f} s (data included), fp32: loss {losses[0]:.6e} -> "
+        f"{losses[-1]:.6e}; first loss against the CPU fp64 run "
+        f"{cpu64:.6e}: {e_first:.3e} relative (tol 1e-5); constraint "
+        "violation " + ", ".join(f"iter {i} {cv:.3e}" for i, cv in out["cv"]))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and e_first <= 1e-5):
+        raise AssertionError("the pendulum DAE trainer failed its checks")
+    return {"iters_per_s": n_iters / wall, "first": losses[0],
+            "last": losses[-1]}
+
+
+def phase_theta(device, u):
+    """Phase 9: the theta slice. Returns the launches of K1, K10 and K11
+    over its paths, by path."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[theta] the theta slice on {smi.splitlines()[0]}")
+    phase_theta_stencil(device)
+    gm = phase_theta_gmres(device, u)
+    snode_counts, sn = phase_theta_snode(device, u)
+    node_counts, nd = phase_theta_burgers_node(device)
+    pend = phase_theta_pendulum(device)
+    log(f"[theta] phase 9 took {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for name, c in snode_counts.items():
+        launches.setdefault(name, {})["snode_cn"] = c
+    for name, c in node_counts.items():
+        launches.setdefault(name, {})["burgers_node"] = c
+    return launches, {"gmres": gm, "snode": sn, "node": nd,
+                      "pendulum": pend}
+
+
 def main():
     import torch
 
@@ -3870,6 +4349,7 @@ def main():
     reports.update(b_reports)
     counts.update(b_counts)
     reports["fused_grad_step"], counts["fused_grad_step"] = phase_dp("cuda", u)
+    theta_launches, _ = phase_theta("cuda", u)
     reports["probe_smem"] = probe_report
     counts["probe_smem"] = probe_report["launches"]
     kernels = []
@@ -3887,6 +4367,8 @@ def main():
                 kernels[-1][extra] = r[extra]
         if name in k1_burgers:  # K1's readings at the Burgers stack too
             kernels[-1]["burgers"] = k1_burgers[name]
+        if name in theta_launches:  # launches over phase 9's paths
+            kernels[-1]["theta_launches"] = theta_launches[name]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

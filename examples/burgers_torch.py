@@ -11,20 +11,26 @@ window) minibatches, the mean-abs window loss, Adam, trained through
     python examples/burgers_torch.py --device cpu --nx 32 --batch_size 4 \\
         --batch_time 2 --step_size 0.05 --epochs 1 --iters_per_epoch 2
 
+    python examples/burgers_torch.py --node           # autodiff baseline
+    python examples/burgers_torch.py --no-imex        # cn on f_IM
+
 The defaults are ``bench.py --workload burgers``'s numerics at the example's
 data: nx 512, batch 200, dt 1e-3, ARK3 IMEX, ``linear_solver hpddm`` with a
 frozen Jacobian and ``-snes_type ksponly`` (a programmatic default that a
 command-line flag overrides). ``--use_fused`` (on by default) puts f_EX on
 K1 and f_IM on K10/K11; the fused ARK step kernels stay off at nx 512
 (their gate's 8-row budget needs more shared memory than the H100's 227
-KB), so the step runs the generic stage loop. PETSc-style flags after the script's own
+KB), so the step runs the generic stage loop. ``--linear_solver petsc`` is
+the matrix-free GMRES. ``--node`` (the reference's torchdiffeq baseline)
+integrates f_IM + f_EX by dopri5 at ``--step_size`` without the adjoint,
+the gradients by autograd through the steps (K1 and K10/K11 under
+autograd); it keeps every step's activations, so its memory grows with
+``--batch_time``. ``--no-imex`` integrates f_IM alone by Crank-Nicolson,
+as ``examples/burgers.py --no-imex`` does (f_EX then takes no part, and
+its parameters get no gradient). PETSc-style flags after the script's own
 options go to the port's options database (``-ts_arkimex_type l2``, ...).
 ``--device cuda`` raises when CUDA is absent: the CPU is an explicit
 choice, never a fallback.
-
-Not ported yet, all ROADMAP queue A slice 4: ``--linear_solver petsc``
-(the matrix-free GMRES; the flag takes hpddm or torch), ``--no-imex`` (the
-theta stepper) and ``--node`` (autodiff through the solver), which raise.
 """
 
 from __future__ import annotations
@@ -56,12 +62,13 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--train_dir", type=str,
                    default="./train_results_burgers_torch")
-    p.add_argument("--linear_solver", choices=["hpddm", "torch"],
+    p.add_argument("--linear_solver", choices=["petsc", "hpddm", "torch"],
                    default="hpddm")
     p.add_argument("--fixed_jacobian", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--node", action="store_true",
-                   help="autodiff through the solver (not ported: raises)")
+                   help="autodiff through the solver: f_IM + f_EX by dopri5, "
+                   "enable_adjoint=False")
     p.add_argument("--iters_per_epoch", type=int, default=0,
                    help="override the data-derived iteration count")
     p.add_argument("--n_ic", type=int, default=100,
@@ -90,13 +97,10 @@ def main(argv=None):
 
     import pnode_tpu_torch as pt
     from pnode_tpu_torch.data import generate_burgers_data
-    from pnode_tpu_torch.models import BurgersFuncEX, BurgersFuncIM
+    from pnode_tpu_torch.models import (
+        BurgersFuncEX, BurgersFuncIM, IMEXSum)
     from pnode_tpu_torch.utils import RunningAverageMeter
 
-    if args.node:
-        raise NotImplementedError(
-            "--node (autodiff through the solver, ODESolver.solve with "
-            "with_adjoint=False differentiable) is ROADMAP queue A slice 4")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda: CUDA is not available (pass "
                          "--device cpu to run on the CPU)")
@@ -120,14 +124,26 @@ def main(argv=None):
     ex = BurgersFuncEX(nx=args.nx, use_fused=args.use_fused, generator=gen,
                        dtype=dtype, device=device)
     ode = pt.ODESolver()
-    ode.setupTS(
-        torch.zeros(args.batch_size, args.nx, dtype=dtype, device=device),
-        pt.TorchFunc(im), step_size=args.step_size,
-        method=args.method if args.imex else "cn", imex_form=args.imex,
-        implicit_form=True, func2=pt.TorchFunc(ex) if args.imex else None,
-        linear_solver=args.linear_solver,
-        fixed_jacobian=args.fixed_jacobian, batch_size=args.batch_size)
+    y_tmpl = torch.zeros(args.batch_size, args.nx, dtype=dtype, device=device)
+    if args.node:
+        # integrate the combined right-hand side explicitly and
+        # differentiate straight through the steps
+        ode.setupTS(y_tmpl, pt.TorchFunc(IMEXSum(im, ex)),
+                    step_size=args.step_size, method="dopri5",
+                    enable_adjoint=False)
+    else:
+        ode.setupTS(
+            y_tmpl, pt.TorchFunc(im), step_size=args.step_size,
+            method=args.method if args.imex else "cn", imex_form=args.imex,
+            implicit_form=True, func2=pt.TorchFunc(ex) if args.imex else None,
+            linear_solver=args.linear_solver,
+            fixed_jacobian=args.fixed_jacobian, batch_size=args.batch_size)
     opt = torch.optim.Adam(ex.parameters(), lr=args.lr)
+
+    def predict(y0):
+        if args.node:
+            return ode.solve(y0, window_t, with_adjoint=False)[0]
+        return ode.odeint_adjoint(y0, window_t)
 
     def as_t(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
@@ -145,11 +161,11 @@ def main(argv=None):
         for _ in range(iters_per_epoch):
             y0, target = get_batch(u_train, rng, args.batch_size,
                                    args.batch_time)
-            loss = window_loss(ode.odeint_adjoint(as_t(y0), window_t),
-                               as_t(target))
+            loss = window_loss(predict(as_t(y0)), as_t(target))
             opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
+            if loss.requires_grad:  # not under --no-imex: f_EX takes no part
+                loss.backward()
+                opt.step()
             loss_meter.update(float(loss.detach()))
             if np.isnan(loss_meter.val):
                 print("NaN loss - stopping")

@@ -16,19 +16,29 @@ two integrated by ``--pnode_method``::
         -ts_atol 1e-4                                 # adaptive, per step
     python examples/ks_torch.py --fused_loop -ts_adapt_type basic   # K5
     python examples/ks_torch.py --pnode_model snode --pnode_method rk4
+    python examples/ks_torch.py --pnode_model snode --pnode_method cn \
+        --linear_solver petsc --no-fixed_jacobian    # examples/ks.py's
+    python examples/ks_torch.py --node                # autodiff baseline
 
 The defaults are the main-path recipe: ``--pnode_model imex``, ARK3 IMEX,
 ``linear_solver hpddm`` with a frozen Jacobian, ``-snes_type ksponly`` (a
-programmatic default that a command-line flag overrides), and
-``--use_fused``: the fused MLP, which on CUDA runs the fused ARK step
-kernels, and the stencil on K10/K11 wherever the generic stage loop
-evaluates f_IM (``-pnode_fused_ark_adjoint off``) and in the frozen
-Jacobian's assembly. ``examples/ks.py`` defaults to ``snode`` with
-``cn``; the theta methods (``cn``, ``beuler``) are ROADMAP queue A slice 4
-and raise here, so the port's default model stays ``imex`` until then,
-while ``--pnode_method`` keeps ``cn`` as its default and takes the explicit
-RK methods (euler, rk2, bosh3, rk4, dopri5, ...). PETSc-style flags after
-the script's own options go to the port's options database
+programmatic default of the imex model that a command-line flag
+overrides), and ``--use_fused``: the fused MLP, which on CUDA runs the
+fused ARK step kernels, and the stencil on K10/K11 wherever the generic
+stage loop evaluates f_IM (``-pnode_fused_ark_adjoint off``) and in the
+frozen Jacobian's assembly. ``snode`` and ``mlp`` are integrated by
+``--pnode_method``: ``cn`` (the default) or ``beuler``, the theta methods,
+with Newton (PETSc's newtonls, ``examples/ks.py``'s default) on stage
+solves by ``--linear_solver`` (``petsc``: matrix-free GMRES), or an
+explicit RK method (euler, rk2, bosh3, rk4, dopri5, ...); ``--use_fused``
+puts snode's stencil on K10/K11 (its MLP stays on ``nn.Linear``: the GMRES
+matvec is forward mode, which K1 has no rule for). ``examples/ks.py``
+defaults to ``snode`` with ``cn`` and ``petsc``; the port keeps its own
+defaults for now. ``--node`` (the reference's torchdiffeq baseline)
+integrates the imex model's combined right-hand side f_IM + f_EX by dopri5
+at ``step_size / 100`` without the adjoint (``enable_adjoint=False``), the
+gradients by autograd through the steps. PETSc-style flags after the
+script's own options go to the port's options database
 (``-ts_arkimex_type ars122``, ``-pnode_fused_ark_adjoint off``, ...).
 ``--device cuda`` raises when CUDA is absent: the CPU is an explicit
 choice, never a fallback.
@@ -81,13 +91,12 @@ NX, L = 64, 22.0
 def parse_args(argv=None):
     p = argparse.ArgumentParser("KS (PyTorch port)")
     p.add_argument("--pnode_model", choices=["imex", "snode", "mlp"],
-                   default="imex", help="imex (default; examples/ks.py's "
-                   "default snode waits for the theta methods, ROADMAP queue "
-                   "A slice 4), snode or mlp")
+                   default="imex", help="imex (the default; examples/ks.py "
+                   "defaults to snode), snode or mlp")
     p.add_argument("--pnode_method", type=str, default="cn",
-                   help="stepper of snode and mlp: an explicit RK method "
-                   "(euler, rk2, bosh3, rk4, dopri5, ...); cn and beuler "
-                   "raise (ROADMAP queue A slice 4)")
+                   help="stepper of snode and mlp: cn or beuler (the theta "
+                   "methods, Newton on --linear_solver stage solves) or an "
+                   "explicit RK method (euler, rk2, bosh3, rk4, dopri5, ...)")
     p.add_argument("--normalize", choices=["minmax", "mean"], default=None)
     p.add_argument("--step_size", type=float, default=0.2)
     p.add_argument("--data_size", type=int, default=2000)
@@ -96,12 +105,15 @@ def parse_args(argv=None):
     p.add_argument("--time_window_endpoint", action="store_true")
     p.add_argument("--max_epochs", type=int, default=100)
     p.add_argument("--validate_freq", type=int, default=1)
+    p.add_argument("--implicit_form", action="store_true")
     p.add_argument("--double_prec", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--train_dir", type=str, default="./train_results_ks_torch")
     p.add_argument("--lr", type=float, default=5e-3)
-    p.add_argument("--linear_solver", choices=["hpddm", "torch"],
-                   default="hpddm")
+    p.add_argument("--linear_solver", choices=["petsc", "hpddm", "torch"],
+                   default="hpddm", help="the implicit stages' solves: "
+                   "petsc (matrix-free GMRES), hpddm (one shared dense "
+                   "block) or torch (dense LU per batch row)")
     p.add_argument("--fixed_jacobian", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--use_fused", action=argparse.BooleanOptionalAction,
@@ -111,6 +123,10 @@ def parse_args(argv=None):
     p.add_argument("--fused_loop", action="store_true",
                    help="each epoch as K iterations of the fused training "
                    "loop (K4; K5 under -ts_adapt_type basic) in one call")
+    p.add_argument("--node", action="store_true",
+                   help="autodiff-through-solver baseline (the reference's "
+                   "KS_node torchdiffeq comparison): imex's f_IM + f_EX by "
+                   "dopri5 at step_size/100, gradients by autograd")
     p.add_argument("--dp", type=int, default=0,
                    help="data-parallel training over N ranks (-1 = the "
                    "world size): each rank solves its shard of every "
@@ -316,11 +332,15 @@ def main(argv=None):
     import pnode_tpu_torch as pt
     from pnode_tpu_torch.data import generate_ks_data
     from pnode_tpu_torch.models import (
-        KSFuncEX, KSFuncIM, KSMLPFunc, KSSnodeFunc)
+        IMEXSum, KSFuncEX, KSFuncIM, KSMLPFunc, KSSnodeFunc)
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda: CUDA is not available (pass "
                          "--device cpu to run on the CPU)")
+    if args.node and args.fused_loop:
+        raise SystemExit("--fused_loop runs the discrete adjoint's fused "
+                         "kernels; --node differentiates through dopri5: "
+                         "drop one of the two flags")
     if args.dp and args.fused_loop:
         raise SystemExit("--dp composes with the per-step training path; "
                          "--fused_loop is a single-card kernel: drop one of "
@@ -336,7 +356,8 @@ def main(argv=None):
     mesh, own_group = (start_dp(args.dp, args.batch_size, device) if args.dp
                        else (None, False))
     dtype = torch.float64 if args.double_prec else torch.float32
-    pt.set_option("snes_type", "ksponly")
+    if args.pnode_model == "imex":
+        pt.set_option("snes_type", "ksponly")
     pt.init([sys.argv[0]] + unknown)
 
     u_all, dt_data = generate_ks_data(
@@ -363,21 +384,41 @@ def main(argv=None):
                       use_fused=args.use_fused)
         ex = KSFuncEX(nx=NX, use_fused=args.use_fused, generator=gen,
                       dtype=dtype, device=device)
-        ode.setupTS(
-            y_tmpl, pt.TorchFunc(im), step_size=args.step_size,
-            method="imex", imex_form=True, implicit_form=True,
-            func2=pt.TorchFunc(ex), linear_solver=args.linear_solver,
-            fixed_jacobian=args.fixed_jacobian, batch_size=args.batch_size)
+        if args.node:
+            # the autodiff baseline integrates the combined right-hand side
+            # explicitly (differentiating through implicit Newton solves is
+            # the discrete adjoint's job, not plain autodiff's)
+            ode.setupTS(y_tmpl, pt.TorchFunc(IMEXSum(im, ex)),
+                        step_size=args.step_size / 100, method="dopri5",
+                        enable_adjoint=False)
+        else:
+            ode.setupTS(
+                y_tmpl, pt.TorchFunc(im), step_size=args.step_size,
+                method="imex", imex_form=True, implicit_form=True,
+                func2=pt.TorchFunc(ex), linear_solver=args.linear_solver,
+                fixed_jacobian=args.fixed_jacobian,
+                batch_size=args.batch_size)
     else:
         # the trained module keeps the name ex below
         ex = (KSSnodeFunc(nx=NX, L=L, generator=gen, dtype=dtype,
-                          device=device) if args.pnode_model == "snode"
+                          device=device, use_fused=args.use_fused)
+              if args.pnode_model == "snode"
               else KSMLPFunc(nx=NX, generator=gen, dtype=dtype,
                              device=device))
         ode.setupTS(
             y_tmpl, pt.TorchFunc(ex), step_size=args.step_size,
-            method=args.pnode_method, linear_solver=args.linear_solver,
+            method=args.pnode_method,
+            implicit_form=(args.implicit_form
+                           or args.pnode_method in ("cn", "beuler")),
+            linear_solver=args.linear_solver,
             fixed_jacobian=args.fixed_jacobian, batch_size=args.batch_size)
+
+    def predict(y0):
+        """The solve whose gradients train: the discrete adjoint, or under
+        --node autograd through the steps."""
+        if args.node:
+            return ode.solve(y0, t_out, with_adjoint=False)[0]
+        return ode.odeint_adjoint(y0, t_out)
     vg = None
     if mesh is not None:
         from pnode_tpu_torch.parallel import (
@@ -389,8 +430,8 @@ def main(argv=None):
                 p.copy_(r)
         # each rank solves its shard; the loss reads the live parameters
         vg = dp_value_and_grad(
-            lambda params, batch: data_loss(
-                ode.odeint_adjoint(batch[0], t_out), batch[1]), mesh)
+            lambda params, batch: data_loss(predict(batch[0]), batch[1]),
+            mesh)
     opt = torch.optim.Adam(ex.parameters(), lr=args.lr)
     fused = None
     if args.fused_loop:
@@ -440,8 +481,7 @@ def main(argv=None):
                     for p, g in zip(params, grads):
                         p.grad = g
                 else:
-                    pred = ode.odeint_adjoint(as_t(y0), t_out)
-                    loss = data_loss(pred, as_t(tgt))
+                    loss = data_loss(predict(as_t(y0)), as_t(tgt))
                     opt.zero_grad(set_to_none=True)
                     loss.backward()
                 opt.step()

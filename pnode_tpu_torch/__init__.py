@@ -30,6 +30,7 @@ from .modules import DynamicsModule, Func, TorchFunc, as_dynamics  # noqa: E402
 from .solver import ODESolver, ODEPnode  # noqa: E402
 from .adjoint import TrajectoryConfig  # noqa: E402
 from .tableaus import get_ark_tableau, get_rk_tableau  # noqa: E402
+from .linsolve import gmres  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -48,4 +49,5 @@ __all__ = [
     "TrajectoryConfig",
     "get_rk_tableau",
     "get_ark_tableau",
+    "gmres",
 ]

@@ -152,7 +152,10 @@ def make_odeint(stepper, grid, traj: TrajectoryConfig,
     ``grid`` is a TimeGrid; ``outputs`` stacks the state at each requested
     output time. With ``with_adjoint`` the outputs are differentiable with
     respect to ``y0`` and every tensor in ``params`` through the
-    hand-written discrete adjoint.
+    hand-written discrete adjoint; without it, through autograd of the
+    step loop (the explicit steppers: reverse mode through a Newton solve
+    has no reference, as ``jax.grad`` cannot differentiate the JAX
+    package's ``lax.while_loop``).
     """
     if traj.kind not in ("store_all", "solution_only"):
         raise NotImplementedError(
@@ -166,8 +169,10 @@ def make_odeint(stepper, grid, traj: TrajectoryConfig,
             out = _OdeintFunction.apply(engine, template, y0,
                                         *tree_leaves(params))
             return out, engine.last_stats
-        with torch.no_grad():
-            out, stats, _ = engine.forward(y0, params, store=False)
+        # no adjoint: the step loop runs under autograd, so the outputs are
+        # differentiable through the steps themselves, as jax.grad of the
+        # JAX package's solve_noadj is
+        out, stats, _ = engine.forward(y0, params, store=False)
         return out, stats
 
     return solve

@@ -16,6 +16,11 @@ matching PyTorch ``state_dict``:
 
 Any other flax module raises ``KeyError``.
 
+``dense_stack_from_flax(variables, prefix)`` maps a flax module built of
+``Dense`` layers alone (the pendulum DAE's nets, ``Dense(use_bias=False)``)
+onto a ``layers`` ModuleList of ``nn.Linear``: ``Dense_i/kernel`` ->
+``{prefix}layers.i.weight`` (transposed), and the bias where there is one.
+
 ``sqnxt_state_dict_from_flax(param_list)`` does the same for the
 SqueezeNext ODE-net (``models.SqueezeNextODE``) from the list of per-piece
 flax variables its JAX counterpart's ``init`` returns.
@@ -39,6 +44,24 @@ _MODULE_NAMES = {
 
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def dense_stack_from_flax(variables: Mapping,
+                          prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The state_dict entries of a ``layers`` ModuleList of ``nn.Linear``
+    from a flax module of ``Dense_i`` layers (kernel (in, out) -> weight
+    (out, in); a layer with ``use_bias=False`` has no bias entry)."""
+    params = variables.get("params", variables)
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in params.items():
+        kind, i = name.rsplit("_", 1)
+        if kind != "Dense":
+            raise KeyError(f"no port counterpart for flax module {name!r}")
+        out[f"{prefix}layers.{i}.weight"] = _tensor(
+            np.asarray(leaf["kernel"]).T)
+        if "bias" in leaf:
+            out[f"{prefix}layers.{i}.bias"] = _tensor(leaf["bias"])
+    return out
 
 
 def sqnxt_piece_from_flax(variables: Mapping,

@@ -13,13 +13,16 @@ Counterpart of ``pnode_tpu/models/sinode.py``:
   the Burgers implicit part; ``BurgersFuncEX``: +MLP(y), N -> 9N/8 x4 -> N
   with ReLU and N(0, 0.1) weights, the Burgers explicit part.
 
+``IMEXSum(im, ex)``: f_IM + f_EX as one function, the trainers' ``--node``
+baseline.
+
 ``use_fused=True`` (the JAX package's ``use_pallas``) puts a stack on K1
 (``FusedStackedMLP``, parameters ``kernel_i`` (in, out) and ``bias_i`` as in
 JAX; the explicit parts then opt into the fused ARK step kernels through
 ``fused_mlp_spec``) and a stencil on K10/K11 (``ops.circular_stencil``);
 ``use_fused=False`` uses ``nn.Linear`` layers and the roll chain. Stencils
 are never a conv1d, so cuDNN's TF32 default never touches a stiff operator.
-``KSSnodeFunc``'s stencil has no such flag, as in JAX.
+``KSSnodeFunc``'s ``use_fused`` routes its stencil alone (see the class).
 
 Every module takes ``forward(t, y)`` and an explicit ``torch.Generator``,
 dtype and device, so weights are reproducible from a seed.
@@ -97,11 +100,15 @@ class CircularConv1D(nn.Module):
     def fixed_as(self, y):
         """The fixed stencil in y's dtype on y's device, cast once and kept
         while the buffer, the dtype and the device stay: a call then makes
-        no copy (on the card, no cast kernel beside K10/K11)."""
+        no copy (on the card, no cast kernel beside K10/K11). The cast runs
+        outside any torch.func transform: inside jvp, a cast of the plain
+        buffer comes back wrapped for that transform's level, and caching
+        it would hand a dead wrapper to every later call."""
         src, cast = self._cast
         if (src is not self.fixed or cast.dtype != y.dtype
                 or cast.device != y.device):
-            cast = self.fixed.to(device=y.device, dtype=y.dtype)
+            with torch._C._DisableFuncTorch():
+                cast = self.fixed.to(device=y.device, dtype=y.dtype)
             self._cast = (self.fixed, cast)
         return cast
 
@@ -276,16 +283,24 @@ class KSFuncEX(nn.Module):
 
 
 class KSSnodeFunc(nn.Module):
-    """KS "snode" single function: conv(y) - MLP(y), hidden 200, ReLU."""
+    """KS "snode" single function: conv(y) - MLP(y), hidden 200, ReLU.
+
+    use_fused puts the stencil on K10/K11: under CN with GMRES, J v runs
+    K10's ``jvp`` rule (K10 on the tangent) and J^T v K11. The MLP stays
+    on ``nn.Linear``: the GMRES matvec is ``torch.func.jvp``, and K1's
+    autograd Function has no forward-mode rule (nor has the JAX
+    ``fused_mlp``, a ``custom_vjp``).
+    """
 
     def __init__(self, nx: int = 64, L: float = 22.0, hidden: int = 200,
                  fixed_linear: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 dtype=None, device=None):
+                 dtype=None, device=None, use_fused: bool = False):
         super().__init__()
         self.nx, self.L, self.hidden = nx, L, hidden
         fixed = tuple(ks_fixed_kernel(L / nx)) if fixed_linear else None
-        self.conv = CircularConv1D(5, fixed, generator, dtype, device)
+        self.conv = CircularConv1D(5, fixed, generator, dtype, device,
+                                   use_fused=use_fused)
         self.net = StackedMLP(nx, (hidden,) * 4 + (nx,), "relu", 0.01,
                               generator, dtype, device)
 
@@ -357,3 +372,17 @@ class BurgersFuncEX(nn.Module):
         if not self.use_fused:
             return None
         return _fused_stack_spec(params, "relu", 1.0)
+
+
+class IMEXSum(nn.Module):
+    """f_IM + f_EX of an IMEX split as one function, ``forward(t, y) =
+    im(t, y) + ex(t, y)``, with the two modules' own parameters (``im.*``,
+    ``ex.*``): the right-hand side the trainers' ``--node`` baseline
+    integrates explicitly and differentiates by autograd."""
+
+    def __init__(self, im: nn.Module, ex: nn.Module):
+        super().__init__()
+        self.im, self.ex = im, ex
+
+    def forward(self, t, y):
+        return self.im(t, y) + self.ex(t, y)

@@ -270,8 +270,15 @@ class _CircularStencil(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y2, w = ctx.saved_tensors
-        return circular_stencil_bwd(y2, g.contiguous(), w,
-                                    need_dw=ctx.needs_input_grad[1])
+        need_dw = ctx.needs_input_grad[1]
+        g = g.contiguous()
+        if _wrapped(y2, g, w):
+            # inside torch.func.vjp / grad the backward sees the transform's
+            # wrapped tensors, which have no storage for K11: the op below
+            # reaches the kernel with plain ones
+            out = _CircularStencilBwd.apply(y2, g, w, need_dw)
+            return out if need_dw else (out, None)
+        return circular_stencil_bwd(y2, g, w, need_dw=need_dw)
 
     @staticmethod
     def jvp(ctx, y_t, w_t):
@@ -299,6 +306,61 @@ class _CircularStencil(torch.autograd.Function):
         outs = [_CircularStencil.apply(
             (y2 if ys is None else ys[b]).contiguous(), ws[b].contiguous())
             for b in range(info.batch_size)]
+        return torch.stack(outs), 0
+
+
+def _wrapped(*ts):
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in ts)
+
+
+class _CircularStencilBwd(torch.autograd.Function):
+    """K11 as an op of its own: (dy, dw) of <g, stencil(y2, w)>, or dy
+    alone without ``need_dw``. torch.func hands an autograd.Function's
+    forward plain tensors, so _CircularStencil's backward goes through this
+    op where it runs inside a transform (the adjoint's transposed GMRES
+    applies J^T v through torch.func.vjp). Under vmap a batch folds into
+    the rows for dy alone and loops otherwise (dw sums over the rows).
+    Its own backward is not ported: the port differentiates the stencil
+    once in reverse mode."""
+
+    @staticmethod
+    def forward(y2, g, w, need_dw):
+        dy, dw = circular_stencil_bwd(y2, g, w, need_dw=need_dw)
+        return (dy, dw) if need_dw else dy
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the circular stencil's second derivative in reverse mode is not "
+            "ported")
+
+    @staticmethod
+    def vmap(info, in_dims, y2, g, w, need_dw):
+        y_dim, g_dim, w_dim = in_dims[:3]
+        n = g.shape[-1]
+        B = info.batch_size
+
+        def take(t, d, b):
+            return (t if d is None else t.movedim(d, 0)[b]).contiguous()
+
+        if not need_dw and w_dim is None:
+            # dy = S^T g needs no y: the folded g stands in for it
+            gb = (g.movedim(g_dim, 0) if g_dim is not None
+                  else g.expand(B, *g.shape))
+            flat = gb.reshape(-1, n).contiguous()
+            dy = _CircularStencilBwd.apply(flat, flat, w, False)
+            return dy.reshape(gb.shape), 0
+        outs = [_CircularStencilBwd.apply(take(y2, y_dim, b),
+                                          take(g, g_dim, b),
+                                          take(w, w_dim, b), need_dw)
+                for b in range(B)]
+        if need_dw:
+            return ((torch.stack([o[0] for o in outs]),
+                     torch.stack([o[1] for o in outs])), (0, 0))
         return torch.stack(outs), 0
 
 

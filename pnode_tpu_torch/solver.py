@@ -19,11 +19,16 @@ Runtime options override programmatic choices (setFromOptions-last):
 ``-pnode_linear_solver``, and the adaptive controller's ``-ts_adapt_type
 basic|pi``, ``-ts_rtol``, ``-ts_atol``, ``-ts_adapt_safety``,
 ``-ts_adapt_clip low,high`` and ``-ts_adapt_max_steps`` (``adaptive.py``;
-``solve(..., dt0=)`` warm-starts it). The port runs the explicit RK
-methods (euler, rk2, bosh3, rk4, dopri5, ...) and the IMEX method with the
-``store_all`` / ``solution_only`` policies, on fixed steps or under the
-controller; the theta methods and the other trajectory policies raise
-``NotImplementedError`` naming their ROADMAP slice.
+``solve(..., dt0=)`` warm-starts it), and the stage solver's
+``-ksp_rtol``, ``-ksp_atol``, ``-ksp_max_it`` and ``-ksp_gmres_restart``
+(also under the ``-pnode_inner_`` prefix). The port runs the explicit RK
+methods (euler, rk2, bosh3, rk4, dopri5, ...), the theta methods
+(``beuler``/``be``, ``cn``/``theta``; ``mass=`` makes them DAE solvers) and
+the IMEX method with the ``store_all`` / ``solution_only`` policies, on
+fixed steps or under the controller; the other trajectory policies raise
+``NotImplementedError`` naming their ROADMAP slice. ``solve(...,
+with_adjoint=False)`` (and ``odeint``) runs the step loop under autograd,
+so its outputs are differentiable by plain autograd through the steps.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from .linsolve import LinearSolveConfig, normalize_linear_solver_name
 from .modules import as_dynamics
 from .newton import NewtonConfig
 from .options import Options
-from .steppers import ARKIMEX, ExplicitRK, ImplicitSolveSetup
+from .steppers import ARKIMEX, ExplicitRK, ImplicitSolveSetup, Theta
 from .tableaus import THETA_METHODS, get_ark_tableau, get_rk_tableau
 
 _THETA_TS_TYPES = {"beuler": 1.0, "be": 1.0, "cn": 0.5, "theta": 0.5}
@@ -88,10 +93,10 @@ class ODESolver:
         self.dtype = self.template.dtype
         self.device = self.template.device
         self.state_shape = tuple(self.template.shape)
-        if mass is not None:
-            raise NotImplementedError(
-                "mass matrices (DAEs) need the theta methods, ROADMAP queue A "
-                "slice 4")
+        # the mass matrix, per block (d, d), in the state's dtype and on its
+        # device
+        self.mass = (None if mass is None else torch.as_tensor(
+            mass, dtype=self.dtype, device=self.device))
         self.imex = bool(imex_form)
         self.enable_adjoint = bool(enable_adjoint)
         self.step_size = step_size
@@ -203,26 +208,29 @@ class ODESolver:
     # ------------------------------------------------------------------
     def _build_stepper(self):
         meth = self.method
-        if not (self.imex or meth == "imex"):
-            if meth in THETA_METHODS or meth in _THETA_TS_TYPES:
-                raise NotImplementedError(
-                    f"method {meth!r}: the theta steppers (beuler/cn, with "
-                    "mass matrices for DAEs) are ROADMAP queue A slice 4 "
-                    "(theta and DAE); the port runs the explicit RK methods "
-                    "and method='imex'")
-            return ExplicitRK(get_rk_tableau(meth), self.f)
-        if not self.imex:
-            raise ValueError("method='imex' needs imex_form=True and func2")
         # with a frozen Jacobian the adjoint reuses it too (the reference's
         # dense-path semantics; the cached inverse serves the transposes)
         exact_adj = not self.lin_cfg.fixed_jacobian
-        tab = get_ark_tableau(self.opts.get_string("ts_arkimex_type"))
         setup = ImplicitSolveSetup(self.lin_cfg, self.newton_cfg,
                                    adjoint_exact_jacobian=exact_adj,
                                    im_linear_in_y=self._im_linear)
-        f_im, f_ex = self.f
-        return ARKIMEX(tab, f_im, f_ex, setup,
-                       fused_ex_spec=self._fused_ex_spec)
+        if self.imex or meth == "imex":
+            if not self.imex:
+                raise ValueError("method='imex' needs imex_form=True and "
+                                 "func2")
+            tab = get_ark_tableau(self.opts.get_string("ts_arkimex_type"))
+            f_im, f_ex = self.f
+            return ARKIMEX(tab, f_im, f_ex, setup, mass=self.mass,
+                           fused_ex_spec=self._fused_ex_spec)
+        if meth in THETA_METHODS or meth in _THETA_TS_TYPES:
+            theta = THETA_METHODS.get(meth, _THETA_TS_TYPES.get(meth))
+            return Theta(theta, self.f, setup, mass=self.mass)
+        tab = get_rk_tableau(meth)
+        if self.mass is not None:
+            raise ValueError(
+                "mass matrices require an implicit method (beuler/cn) — the "
+                "reference has the same constraint (IFunction-based DAEs)")
+        return ExplicitRK(tab, self.f)
 
     def _get_solve_fn(self, grid, with_adjoint: bool):
         # t0/dt0 are part of the key: prepare() linearizes at t0 and
@@ -353,7 +361,8 @@ class ODESolver:
     # -- reference-parity entry points ----------------------------------
 
     def odeint(self, u0, t, params=None):
-        """Forward solve without adjoint bookkeeping."""
+        """Forward solve without adjoint bookkeeping: differentiable by
+        autograd through the steps (the JAX package's ``solve_noadj``)."""
         sol, _ = self.solve(u0, t, params=params, with_adjoint=False)
         return sol
 

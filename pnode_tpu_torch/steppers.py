@@ -1,9 +1,13 @@
-"""Explicit RK and ARK-IMEX time steppers with stage-exact hand-written
-discrete adjoints.
+"""Explicit RK, theta and ARK-IMEX time steppers with stage-exact
+hand-written discrete adjoints.
 
-Counterpart of ``pnode_tpu/steppers.py:54-273, 471-929`` (the theta family
-is ROADMAP queue A slice 4). ``ExplicitRK`` is the classical transposed-RK
-recursion, one vector-Jacobian product per stage. The ARK stepper provides:
+Counterpart of ``pnode_tpu/steppers.py``. ``ExplicitRK`` is the classical
+transposed-RK recursion, one vector-Jacobian product per stage. ``Theta``
+is backward Euler (theta 1) and Crank-Nicolson (theta 1/2) with an
+optional, possibly singular, mass matrix (index-1 DAEs): the one-stage
+residual ``R(z) = M(z - y) - h[(1-theta) f(t,y) + theta f(t+h,z)]``, its
+transpose one transposed stage solve at the converged state. The ARK
+stepper provides:
 
 - ``step(t, dt, y, params) -> (y1, aux, stats)``: one step; ``aux`` stacks
   the stage values Y_i (the trajectory payload of ``store_all``).
@@ -219,6 +223,144 @@ class ExplicitRK:
         return lam_prev.to(lam.dtype), gp
 
 
+def _mass_apply(mass, v):
+    """M v over the last axis (v (..., d), M (d, d)); the identity for
+    None. A plain fp32 product on the card: TF32 is off (package import)."""
+    if mass is None:
+        return v
+    return torch.einsum("ij,...j->...i", mass.to(v.dtype), v)
+
+
+def _mass_apply_T(mass, v):
+    if mass is None:
+        return v
+    return torch.einsum("ji,...j->...i", mass.to(v.dtype), v)
+
+
+class Theta:
+    """Theta method: backward Euler (theta 1, TSBE) / Crank-Nicolson (theta
+    1/2, TSCN), with an optional mass matrix for DAEs (``F = M udot -
+    f(t, u)``; the pendulum DAE uses M = diag(1,1,1,1,0)). Counterpart of
+    ``pnode_tpu/steppers.py:275-468``; ``aux`` is the converged stage, the
+    new state."""
+
+    def __init__(self, theta: float, f: Callable, setup: ImplicitSolveSetup,
+                 mass: Optional[torch.Tensor] = None):
+        self.theta = float(theta)
+        self.f = f
+        self.setup = setup
+        self.mass = mass
+        self.nfe_per_step = 2 if self.theta < 1.0 else 1
+
+    def prepare(self, t0, y0, params, dt0=None):
+        """Freeze the dense/block Jacobian at (t0, y0) for this solve (only
+        with ``fixed_jacobian``; GMRES is matrix-free) and, for a uniform
+        step dt0 without a mass matrix, pre-invert the stage operator,
+        keyed by theta. Shares ARKIMEX's freeze-and-memo path."""
+        if (self.setup.lin_cfg.kind == "gmres"
+                or not self.setup.lin_cfg.fixed_jacobian):
+            return self
+
+        def f_flat(zf):
+            return self.f(t0, zf.reshape(y0.shape), params).reshape(-1)
+
+        def build_cache(J):
+            if dt0 is None or self.mass is not None or self.theta <= 0.0:
+                return None
+            return {self.theta: DenseStageSolver(
+                J, None, 1.0, dt0 * self.theta, int(y0.numel()),
+                use_inverse=True)}
+
+        J, cache = _frozen_setup(self, self.setup, params, t0, dt0, y0,
+                                 f_flat, build_cache)
+        new = copy.copy(self)
+        new.setup = dataclasses.replace(self.setup, frozen_J_blocks=J,
+                                        solver_cache=cache)
+        return new
+
+    def _solver(self, t1, params, gamma, z_flat, shape, frozen):
+        def f_flat(zf):
+            return self.f(t1, zf.reshape(shape), params).reshape(-1)
+
+        return make_stage_solver(f_flat, z_flat, self.mass, sigma=1.0,
+                                 gamma=gamma, cfg=self.setup.lin_cfg,
+                                 cached_J_blocks=frozen)
+
+    def step(self, t, dt, y, params):
+        th = self.theta
+        t1 = t + dt
+        shape = y.shape
+        f_n = self.f(t, y, params) if th < 1.0 else None
+
+        def residual_flat(z_flat):
+            z = z_flat.reshape(shape)
+            rhs = th * self.f(t1, z, params)
+            if f_n is not None:
+                rhs = rhs + (1.0 - th) * f_n
+            return (_mass_apply(self.mass, z - y) - dt * rhs).reshape(-1)
+
+        cache = self.setup.solver_cache
+        if cache is not None and th in cache:
+            cached = cache[th]
+            make = lambda zf: cached  # noqa: E731
+        else:
+            make = lambda zf: self._solver(  # noqa: E731
+                t1, params, dt * th, zf, shape, self.setup.frozen_J_blocks)
+        # Newton (and GMRES) at promote_types(y, fp32); the result is cast
+        # back to the state's dtype
+        work = torch.promote_types(y.dtype, torch.float32)
+        z_flat, nstats = newton_solve(residual_flat, make,
+                                      y.reshape(-1).to(work),
+                                      self.setup.newton_cfg)
+        y1 = z_flat.reshape(shape).to(y.dtype)
+        return y1, y1, StepStats(newton_iters=nstats.iters,
+                                 newton_converged=nstats.converged)
+
+    def step_embedded(self, t, dt, y, params):
+        """Step plus the adaptive controller's error estimate, the
+        trapezoid-vs-implicit-Euler difference at the same converged
+        stage: err = dt/2 (f(t, y) - f(t+dt, y1)), O(dt^2) for both BE and
+        CN. With a mass matrix the algebraic rows (diag(M) == 0) carry no
+        truncation error and are masked out."""
+        y1, aux, stats = self.step(t, dt, y, params)
+        err = (0.5 * dt) * (self.f(t, y, params) - self.f(t + dt, y1, params))
+        if self.mass is not None:
+            diff_rows = torch.diagonal(self.mass) != 0.0
+            err = torch.where(diff_rows.expand(err.shape), err,
+                              torch.zeros_like(err))
+        return y1, err, aux, stats
+
+    def step_adj(self, t, dt, y, params, aux, lam):
+        """(M - dt theta J1)^T w = lam at the converged state, then
+        lam_prev = M^T w + dt (1-theta) J0^T w and the parameter gradients
+        from the vjps at t+dt and (theta < 1) at t."""
+        th = self.theta
+        t1 = t + dt
+        shape = y.shape
+        y1 = self.step(t, dt, y, params)[0] if aux is None else aux
+        setup = self.setup
+        work = torch.promote_types(y.dtype, torch.float32)
+        cache = setup.solver_cache
+        if (cache is not None and th in cache
+                and not setup.adjoint_exact_jacobian):
+            solver = cache[th]
+        else:
+            frozen = (None if setup.adjoint_exact_jacobian
+                      else setup.frozen_J_blocks)
+            solver = self._solver(t1, params, dt * th,
+                                  y1.reshape(-1).to(work), shape, frozen)
+        w = solver.solve_transpose(lam.reshape(-1).to(work)).reshape(shape)
+        _, vjp1 = _vjp(lambda yy, pp: self.f(t1, yy, pp), y1, params)
+        _, gp = vjp1((dt * th) * w)
+        lam_prev = _mass_apply_T(self.mass, w)
+        if th < 1.0:
+            _, vjp0 = _vjp(lambda yy, pp: self.f(t, yy, pp), y, params)
+            dly0, gp0 = vjp0((dt * (1.0 - th)) * w)
+            lam_prev = lam_prev + dly0
+            gp = tree_add(gp, gp0)
+        return lam_prev.to(lam.dtype), gp
+
+
 class ARKIMEX:
     """Additive IMEX Runge-Kutta: f_IM treated implicitly (ESDIRK part),
     f_EX explicitly -- the SINODE semi-implicit capability.
@@ -232,8 +374,9 @@ class ARKIMEX:
                  fused_ex_spec: Optional[Callable] = None):
         if mass is not None:
             raise NotImplementedError(
-                "mass matrices belong to the theta methods (DAEs), ROADMAP "
-                "queue A slice 4")
+                "mass matrices are supported for the theta methods (DAEs: "
+                "method beuler or cn); ARKIMEX refuses them, as the JAX "
+                "package's does")
         self.tab = tableau
         self.f_im = f_im
         self.f_ex = f_ex

@@ -16,10 +16,9 @@ inputs.
   tests/test_adaptive.py:28, 43, 56, 87, 451 and 491 in fp64: each
   reference test's own checks on the port, and the port against JAX
   (solutions and gradients rtol 1e-10, stats equal).
-The reference tests that need cn wait for the theta steppers (ROADMAP queue
-A slice 4); the direct dense stage solver (``linear_solver="torch"``) stands
-in for the reference's matrix-free GMRES (slice 4) in the scalar ARK twins,
-on both sides."""
+The controller on cn (Theta with GMRES) is twinned in
+tests/test_torch_theta_trainers.py; the scalar ARK twins here run the direct
+dense stage solver (``linear_solver="torch"``) on both sides."""
 
 import jax
 import jax.numpy as jnp

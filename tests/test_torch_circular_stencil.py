@@ -224,3 +224,47 @@ def test_library_conv1d_computes_the_same_function(k):
     _close(out.detach(), ref, 1e-12)
     _close(yt.grad, dy, 1e-12)
     _close(conv.weight.grad.reshape(k), dw, 1e-12)
+
+
+@pytest.mark.parametrize("mode", ["vjp", "vjp with dw", "jacrev",
+                                  "vmap of vjp with dw", "autograd"])
+def test_k11_gets_plain_tensors_under_torch_func(mode, monkeypatch):
+    """K11 takes raw pointers, so inside torch.func (the transposed GMRES's
+    vjp, jacrev) the backward must reach circular_stencil_bwd with plain
+    tensors, not the transform's wrappers, and give the roll chain's
+    adjoint (dy bitwise equal to the plain K11, dw to 1e-12)."""
+    y, g, w = (torch.from_numpy(a) for a in _case(41, 4, 16, 5,
+                                                  np.float64))
+    orig = cs.circular_stencil_bwd
+    seen = []
+
+    def spy(yy, gg, ww, need_dw=True):
+        seen.append(any(torch._C._functorch.is_functorch_wrapped_tensor(t)
+                        for t in (yy, gg, ww)))
+        return orig(yy, gg, ww, need_dw)
+
+    monkeypatch.setattr(cs, "circular_stencil_bwd", spy)
+    dy_ref, dw_ref = circular_stencil_bwd_plain(y, g, w)
+    if mode == "vjp":
+        (dy,) = torch.func.vjp(lambda yy: cs.circular_stencil(yy, w), y)[1](g)
+        assert torch.equal(dy, dy_ref)
+    elif mode == "vjp with dw":
+        dy, dw = torch.func.vjp(cs.circular_stencil, y, w)[1](g)
+        assert torch.equal(dy, dy_ref)
+        _close(dw, dw_ref, 1e-12)
+    elif mode == "jacrev":
+        J = torch.func.jacrev(lambda r: cs.circular_stencil(r, w))(y[0])
+        _close(J, torch.func.jacfwd(
+            lambda r: circular_stencil_plain(r, w))(y[0]), 1e-12)
+    elif mode == "vmap of vjp with dw":
+        gs = torch.stack([g, 2.0 * g])
+        dys, dws = torch.func.vmap(
+            lambda gg: torch.func.vjp(cs.circular_stencil, y, w)[1](gg))(gs)
+        assert torch.equal(dys[0], dy_ref)
+        _close(dws[1], 2.0 * dw_ref, 1e-12)
+    else:
+        yr, wr = y.clone().requires_grad_(), w.clone().requires_grad_()
+        cs.circular_stencil(yr, wr).backward(g)
+        assert torch.equal(yr.grad, dy_ref)
+        _close(wr.grad, dw_ref, 1e-12)
+    assert seen and not any(seen)

@@ -65,7 +65,7 @@ def test_import_leaves_jax_out():
         "print('BAD', bad)\n"
     ) % (REPO, [(n, os.path.join(REPO, "examples", n + ".py"))
                 for n in ("ks_torch", "train_cifar10_torch",
-                          "burgers_torch")])
+                          "burgers_torch", "pendulum_dae_torch")])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -80,7 +80,8 @@ def test_sources_name_no_jax_package():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "examples", "ks_torch.py"),
              os.path.join(REPO, "examples", "train_cifar10_torch.py"),
-             os.path.join(REPO, "examples", "burgers_torch.py")]
+             os.path.join(REPO, "examples", "burgers_torch.py"),
+             os.path.join(REPO, "examples", "pendulum_dae_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pnode_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if pat.search(open(f).read())]
