@@ -144,8 +144,9 @@ exits non-zero without printing the final line):
    first 10), steps/s of both paths, one traced iteration each (K1's
    share of the kernel path's device time). The launch
    counts of K1 forward and backward, K10 and K11 over (b) must be above 0,
-   K2's and K3's 0. (c) examples/burgers_torch.py at its defaults but
-   --batch_time 2, 3 iterations and 20 ICs of data: a finite loss.
+   K2's and K3's 0. (c) examples/burgers_torch.py with bench.py's
+   numerics (--linear_solver hpddm --fixed_jacobian), --batch_time 2, 3
+   iterations and 20 ICs of data: a finite loss.
 8. The data-parallel slice at the KS main path's shapes (B 256, 64 -> 104
    x4 -> 64, ARK3, dt 0.2, frozen J, ksponly, Adam lr 5e-3, KS states).
    (a) K12 (fused_grad_step) against its plain version in fp32 and fp64 at
@@ -186,15 +187,48 @@ exits non-zero without printing the final line):
    examples/pendulum_dae_torch.py for 20 iterations: the loss goes down,
    the first loss within 1e-5 of the port's CPU fp64 run, the constraint
    violation.
+10. The checkpointed trajectories and the new drivers. (a) KS IMEX at B
+   256, seed-0 weights, full width, a 100-step window of dt 0.2 from the KS
+   data with outputs at every 10th step and the MSE against the data
+   there: one gradient (loss, dL/dy0, dL/dtheta) through odeint_adjoint
+   under each of store_all, solution_only, checkpoint, revolve and cams
+   (-ts_trajectory_max_cps_ram 8), on the kernel path (K2 steps and
+   re-steps, K3 reverses) and on the generic path (-pnode_fused_ark_adjoint
+   off: K1 in every step): each policy's gradient bitwise store_all's; the
+   steps counted (StepCounter: the engine's re-steps after the original
+   pass apart from the stage recomputes inside step_adj) equal to the
+   planners' costs (traj_costs gives the formula); the planners built from
+   csrc/ loaded; on the kernel path seconds per gradient (best of 3) and
+   the peak device memory above the pre-solve baseline, revolve's and
+   CAMS's below half of store_all's; one replayed step (a re-step and a
+   step_adj with aux=None) traced on each path (K1's, K2's and K3's device
+   time), and K1's device time per call at the KS stack; K1's, K2's and
+   K3's launches over (a) above 0. (b) examples/spiral_torch.py --niters
+   40 --test_freq 20, spiral_unstable_torch.py --niters 20 and
+   rober_torch.py --niters 20 --test_freq 10 on the card, each in a
+   subprocess, beside each one's first iteration on the CPU in fp64: the
+   losses fall (the mean of the last quarter below the first quarter's),
+   the first loss within DRIVER_TOL of the CPU's, seconds per iteration;
+   then rober_torch.py --hotstart resumes after its best checkpoint and
+   refuses a checkpoint of another normalization. (c) examples/ks_torch.py
+   at its defaults (snode, cn, petsc: K10/K11 under torch.func) for one
+   epoch of 4 iterations, and examples/burgers_torch.py at its defaults
+   (ARK3 IMEX, Newton on GMRES) for 4 iterations of a 2-output window,
+   each trainer on its first minibatch throughout: finite losses that
+   fall, and the launches of their kernels above 0.
+   (b) runs while (c) does.
 
 Phases 1-6 run at their full depth; phase 7 adds about 60 s, phase 8 about
-60 s, phase 9 about 90 s.
+60 s, phase 9 about 90 s, phase 10 about 120 s.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 two also carry ``burgers``: its readings at the Burgers stack and its
 launches over phase 7(b); K1's, K10's and K11's carry ``theta_launches``:
 their launches over phase 9's snode CN path (c) and Burgers --node path
-(d); K2-K13 carry ``device_ms``, the profiler's
+(d); K1-K3, K10 and K11 carry ``slice5_launches``, their launches over
+phase 10(a) and (c), and K1-K3 ``replayed_step``, their device time per
+launch and launches in one replayed step of phase 10(a); K1-K13 carry
+``device_ms``, the profiler's
 device time per call (K4 and K5: per iteration); K7 ``stage3``: its
 readings at stage 3); the last line is {"ok": true, "device": {...}}.
 """
@@ -3439,8 +3473,9 @@ def phase_burgers_paths_agree(device, state0, batches, tol=5e-4,
 
 
 def phase_burgers_trainer(device):
-    """Phase 7(c): examples/burgers_torch.py through its main() at its
-    defaults (nx 512, batch 200, dt 1e-3, --use_fused), except
+    """Phase 7(c): examples/burgers_torch.py through its main() with
+    bench.py's numerics (nx 512, batch 200, dt 1e-3, --use_fused,
+    --linear_solver hpddm --fixed_jacobian: its defaults until slice 4(b)),
     --batch_time 2, 3 iterations of one epoch and 20 ICs of data (the
     default 100 take ~18 s of numpy generation on the card's host)."""
     import pnode_tpu_torch as pt
@@ -3450,6 +3485,7 @@ def phase_burgers_trainer(device):
     t0 = time.perf_counter()
     final = mod.main(["--batch_time", "2", "--epochs", "1",
                       "--iters_per_epoch", "3", "--n_ic", "20",
+                      "--linear_solver", "hpddm", "--fixed_jacobian",
                       "--device", device,
                       "--train_dir", os.path.join(ROOT, "build",
                                                   "burgers_torch")])
@@ -3784,7 +3820,11 @@ def start_ks_torch_dp(device):
         cmd = head + ["examples/ks_torch.py", "--max_epochs", "1",
                       "--data_size", "300", "--batch_size", "64", "--device",
                       device, "--train_dir",
-                      os.path.join(ROOT, "build", f"ks_torch_{name}")] + tail
+                      os.path.join(ROOT, "build", f"ks_torch_{name}"),
+                      # the main path (the trainer's defaults until slice
+                      # 4(b) set them to examples/ks.py's)
+                      "--pnode_model", "imex", "--linear_solver", "hpddm",
+                      "--fixed_jacobian"] + tail
         runs[name] = (cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             cwd=ROOT, env=env))
@@ -4322,6 +4362,560 @@ def phase_theta(device, u):
                       "pendulum": pend}
 
 
+
+# -- phase 10: trajectory policies, the new drivers, the trainers' defaults ----
+
+TRAJ_STEPS, TRAJ_EVERY, TRAJ_CPS = 100, 10, 8
+REPLAY_NAMES = {"fused_mlp_fwd": ("K1 fwd",), "fused_mlp_bwd": ("K1 bwd",),
+                "fused_ark_step_fwd": ("K2",),
+                "fused_ark_step_adj": ("K3", "K3 sum")}
+TRAJ_POLICIES = {
+    "store_all": [],
+    "solution_only": ["-ts_trajectory_solution_only", "1"],
+    "checkpoint": ["-ts_trajectory_max_cps_ram", str(TRAJ_CPS)],
+    "revolve": ["-ts_trajectory_max_cps_ram", str(TRAJ_CPS),
+                "-ts_trajectory_schedule", "revolve"],
+    "cams": ["-ts_trajectory_max_cps_ram", str(TRAJ_CPS),
+             "-ts_trajectory_schedule", "cams"],
+}
+
+
+class StepCounter:
+    """Counts ARKIMEX's steps while entered (class-level wrappers, so the
+    copies ``prepare`` makes count too): ``steps`` outside ``step_adj``
+    (the original pass and the engine's re-steps) apart from ``inner``,
+    the stage recomputes that ``step_adj(aux=None)`` runs inside itself."""
+
+    def __enter__(self):
+        from pnode_tpu_torch.steppers import ARKIMEX
+
+        self.steps = self.inner = 0
+        self._depth = 0
+        self._orig = (ARKIMEX.step, ARKIMEX.step_adj)
+        step, step_adj = self._orig
+        counter = self
+
+        def counted_step(stp, *a, **k):
+            if counter._depth:
+                counter.inner += 1
+            else:
+                counter.steps += 1
+            return step(stp, *a, **k)
+
+        def counted_adj(stp, *a, **k):
+            counter._depth += 1
+            try:
+                return step_adj(stp, *a, **k)
+            finally:
+                counter._depth -= 1
+
+        ARKIMEX.step, ARKIMEX.step_adj = counted_step, counted_adj
+        return self
+
+    def __exit__(self, *exc):
+        from pnode_tpu_torch.steppers import ARKIMEX
+
+        ARKIMEX.step, ARKIMEX.step_adj = self._orig
+
+
+def traj_case(u, batch=BATCH, seed=7):
+    """(y0, targets (10, B, 64), output times): a 100-step window of dt 0.2
+    from the KS data, outputs at every 10th step."""
+    rng = np.random.default_rng(seed)
+    s = rng.choice(len(u) - TRAJ_STEPS, size=batch, replace=False)
+    tgt = np.stack([u[s + TRAJ_EVERY * j]
+                    for j in range(1, TRAJ_STEPS // TRAJ_EVERY + 1)])
+    t_out = np.arange(TRAJ_STEPS // TRAJ_EVERY + 1) * TRAJ_EVERY * DT
+    return u[s], tgt, t_out
+
+
+def traj_gradient(device, state0, policy, case, route_flags=()):
+    """One gradient of the window's MSE under ``policy`` through
+    ``odeint_adjoint``: (loss, dL/dy0, dL/dtheta flat, the solver)."""
+    import torch
+
+    y0, tgt, t_out = case
+    ode, ex, _ = build_trainer(device, state0, fused=True,
+                               flags=TRAJ_POLICIES[policy] + list(route_flags))
+    if ode.traj.kind != policy:
+        raise AssertionError(f"{policy}: the solver took {ode.traj.kind}")
+    y = torch.as_tensor(y0, dtype=torch.float32, device=device)
+    y.requires_grad_(True)
+    tg = torch.as_tensor(tgt, dtype=torch.float32, device=device)
+    loss = torch.mean((ode.odeint_adjoint(y, t_out)[1:] - tg) ** 2)
+    loss.backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in ex.parameters()])
+    return loss.detach(), y.grad.detach(), flat.detach(), (ode, ex, y, tg)
+
+
+def traj_timed(run, reps=3):
+    """(best synchronized seconds of ``run`` over ``reps``, peak device
+    bytes above the baseline before it)."""
+    import torch
+
+    best, peak = float("inf"), 0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+    return best, peak
+
+
+def traj_costs(n, c, w):
+    """Forward-step evaluations after the original pass that each policy's
+    plan costs, as (engine re-steps, stage recomputes in step_adj).
+    revolve: optimal_cost(n, c) re-steps (the ADVANCE steps) and n
+    recomputes (every REVERSE). CAMS: cams.validate_plan(...)["cost"] =
+    ADVANCE steps + CAPTURE steps of the reverse + REVERSE recomputes, the
+    REVERSE ones inside step_adj. checkpoint: every step once more, its
+    stages kept. solution_only: n recomputes. store_all: none."""
+    from pnode_tpu_torch import cams, revolve
+
+    fwd, rev = cams.cams_plan(n, c, w)
+    cost = cams.validate_plan(fwd, rev, n, c, w)["cost"]
+    inner = sum(1 for op, _ in rev if op == cams.REVERSE)
+    return {"store_all": (0, 0), "solution_only": (0, n),
+            "checkpoint": (n, 0),
+            "revolve": (revolve.optimal_cost(n, c), n),
+            "cams": (cost - inner, inner)}
+
+
+def replay_trace(device, ode, ex, y, names, n=10):
+    """Device us per launch and launches per replayed step of the kernels
+    in ``names``, from a profiler trace of ``n`` replayed steps: one step
+    and one step_adj with aux=None (the revolve and CAMS REVERSE) at y."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    params = ode._get_params()
+    stp = ode._stepper.prepare(0.0, y, params, dt0=DT)
+    lam = torch.ones_like(y)
+
+    def replay():
+        with torch.no_grad():
+            y1, _, _ = stp.step(0.0, DT, y, params)
+            stp.step_adj(0.0, DT, y, params, None, lam)
+        return y1
+
+    replay()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(4):  # the profiler may drop a kernel: trace again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                replay()
+            torch.cuda.synchronize()
+        kernels, _ = device_kernels(prof.events())
+        for label, part in names.items():
+            us = [e.time_range.elapsed_us() for e in kernels
+                  if part in e.name]
+            if us:
+                out[label] = (sum(us) / len(us), len(us) / n)
+        if len(out) == len(names):
+            break
+    return out
+
+
+def phase_traj_policies(device, u):
+    """10(a): the trajectory policies on the KS per-step kernel path."""
+    import torch
+
+    from pnode_tpu_torch import cams, revolve
+    from pnode_tpu_torch.models import KSFuncEX
+    from pnode_tpu_torch.ops.fused_ark_adjoint import fused_ark_step_adj
+    from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd
+    from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+
+    if not (revolve.using_native() and cams.using_native()):
+        raise AssertionError("the checkpoint planners built from csrc/ did "
+                             "not load")
+    init = KSFuncEX(nx=NX, hidden=HIDDEN, use_fused=True, device=device,
+                    generator=torch.Generator(device=device).manual_seed(0))
+    state0 = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    case = traj_case(u)
+    n, c = TRAJ_STEPS, TRAJ_CPS
+    w = cams.stage_weight(4 * BATCH * NX, BATCH * NX)  # ARK3's 4 stages
+    costs = traj_costs(n, c, w)
+    log(f"[traj] KS IMEX B {BATCH}, MLP {NX} -> {HIDDEN} x4 -> {NX}, seed-0 "
+        f"weights, {n} steps of dt {DT}, outputs every {TRAJ_EVERY}th step; "
+        f"c {c}, CAMS stage weight {w} state units")
+    wrappers = {"fused_mlp_fwd": fused_mlp_fwd, "fused_mlp_bwd": fused_mlp_bwd,
+                "fused_ark_step_fwd": fused_ark_step_fwd,
+                "fused_ark_step_adj": fused_ark_step_adj}
+    for wr in wrappers.values():
+        wr.launches = 0
+    results, ref, readings = {}, None, {}
+    routes = (("kernels", ()), ("generic", ("-pnode_fused_ark_adjoint", "off")))
+    for route, flags in routes:
+        for policy in TRAJ_POLICIES:
+            with StepCounter() as cnt:
+                loss, gy, gp, (ode, ex, y, tg) = traj_gradient(
+                    device, state0, policy, case, flags)
+            results[(route, policy)] = (loss, gy, gp)
+            got = (cnt.steps - n, cnt.inner)
+            if got != costs[policy]:
+                raise AssertionError(
+                    f"{route} {policy}: {got} re-steps and stage recomputes "
+                    f"after the original pass, the plan costs "
+                    f"{costs[policy]}")
+            if route != "kernels":
+                continue
+
+            def run(ode=ode, ex=ex, y=y, tg=tg):
+                for p in ex.parameters():
+                    p.grad = None
+                y.grad = None
+                torch.mean((ode.odeint_adjoint(y, case[2])[1:] - tg)
+                           ** 2).backward()
+
+            secs, peak = traj_timed(run)
+            readings[policy] = {"s": secs, "peak_mib": peak / 2**20,
+                                "resteps": got[0], "recomputes": got[1]}
+    counts = {k: wr.launches for k, wr in wrappers.items()}
+    for route, _ in routes:
+        ref = results[(route, "store_all")]
+        for policy in TRAJ_POLICIES:
+            loss, gy, gp = results[(route, policy)]
+            same = (torch.equal(loss, ref[0]) and torch.equal(gy, ref[1])
+                    and torch.equal(gp, ref[2]))
+            log(f"[traj] {route} {policy}: loss {float(loss):.9e}, dL/dy0 "
+                f"and dL/dtheta {'bitwise' if same else 'NOT bitwise'} "
+                f"store_all's (rel {norm_err(gy, ref[1]):.3e}, "
+                f"{norm_err(gp, ref[2]):.3e}); re-steps and stage "
+                f"recomputes {costs[policy]}")
+            if not same:
+                raise AssertionError(f"{route} {policy}: the gradient is "
+                                     "not store_all's bit for bit")
+            if not bool(torch.isfinite(loss)):
+                raise AssertionError(f"{policy}: non-finite loss")
+    # the reverse's own transient (K3's per-block partials, the gradient):
+    # the peak of one replayed step, which every policy pays
+    ode, ex, _ = build_trainer(device, state0, fused=True)
+    y0 = torch.as_tensor(case[0], dtype=torch.float32, device=device)
+    params = ode._get_params()
+    stp = ode._stepper.prepare(0.0, y0, params, dt0=DT)
+    with torch.no_grad():
+        _, floor = traj_timed(lambda: stp.step_adj(
+            0.0, DT, stp.step(0.0, DT, y0, params)[0], params, None,
+            torch.ones_like(y0)), reps=1)
+    floor /= 2**20
+    base = readings["store_all"]
+    for policy, r in readings.items():
+        r["trajectory_mib"] = r["peak_mib"] - floor
+        log(f"[traj] kernels {policy}: {r['s'] * 1e3:.3f} ms per gradient "
+            f"(best of 3, {r['s'] / base['s']:.3f}x store_all's), peak "
+            f"{r['peak_mib']:.3f} MiB above the pre-solve baseline "
+            f"({r['peak_mib'] / base['peak_mib']:.3f}x; "
+            f"{r['trajectory_mib']:.3f} MiB above one replayed step's "
+            f"{floor:.3f}), forward steps {n} + {r['resteps']} re-steps + "
+            f"{r['recomputes']} stage recomputes")
+    for policy in ("revolve", "cams"):
+        if not readings[policy]["peak_mib"] < 0.5 * base["peak_mib"]:
+            raise AssertionError(f"{policy}'s peak is not below half of "
+                                 "store_all's")
+    log(f"[traj] launches over (a): {counts}")
+    if min(counts.values()) <= 0:
+        raise AssertionError("K1, K2 or K3 was never launched on the "
+                             "trajectory policies' path")
+    # one replayed step (the revolve/CAMS REVERSE: a re-step, then step_adj
+    # recomputing its stages) traced on each route
+    trace = {}
+    for route, flags, names in (
+            ("kernels", (), {"K2": "ark_fwd_kernel", "K3": "ark_adj_kernel",
+                             "K3 sum": "sum_partials_kernel"}),
+            ("generic", ("-pnode_fused_ark_adjoint", "off"),
+             {"K1 fwd": "mlp_fwd_layer_kernel",
+              "K1 bwd": "mlp_bwd_layer_kernel"})):
+        ode, ex, _ = build_trainer(device, state0, fused=True,
+                                   flags=TRAJ_POLICIES["revolve"]
+                                   + list(flags))
+        trace.update(replay_trace(device, ode, ex, y0, names))
+    log("[traj] one replayed step traced (device us per launch x launches "
+        "per step): " + ", ".join(f"{k} {us:.2f} x{per:.1f}"
+                                  for k, (us, per) in trace.items()))
+    # K1's device time per call at the KS stack (B 256), the generic
+    # route's f_EX: 5 layer launches forward; 4 recomputes and 5 layer
+    # launches backward
+    spec = ex.fused_mlp_spec(dict(ex.named_parameters()))
+    g = torch.ones_like(y0)
+    k1 = {}
+    for name, fn, parts, per in (
+            ("fused_mlp_fwd",
+             lambda: fused_mlp_fwd(y0, spec["Ws"], spec["bs"]),
+             ["mlp_fwd_layer_kernel"], [5]),
+            ("fused_mlp_bwd",
+             lambda: fused_mlp_bwd(y0, g, spec["Ws"], spec["bs"]),
+             ["mlp_fwd_layer_kernel", "mlp_bwd_layer_kernel"], [4, 5])):
+        us, traced = device_us_per_call(fn, parts, per_call=per)
+        k1[name] = us / 1e3
+        log(f"[traj] {name} at B {BATCH}, {NX} -> {HIDDEN} x4 -> {NX}: "
+            f"device {us:.2f} us per call ({traced} launches traced)")
+    return counts, readings, trace, k1
+
+
+DRIVER_RUN = (
+    "import json, sys, importlib.util as u\n"
+    "sys.path.insert(0, {root!r})\n"
+    "s = u.spec_from_file_location({name!r}, {path!r})\n"
+    "m = u.module_from_spec(s); s.loader.exec_module(m)\n"
+    "print('RESULT ' + json.dumps(m.main({argv!r})))\n")
+
+
+def start_driver(name, argv, cpu=False):
+    """examples/<name>.py's main(argv) in a subprocess; its result comes
+    back as the JSON line after RESULT."""
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    if cpu:
+        env.update(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    code = DRIVER_RUN.format(root=ROOT, name=name, argv=list(argv),
+                             path=os.path.join(ROOT, "examples", f"{name}.py"))
+    return (name, argv), subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+
+
+def finish_driver(run, timeout=600):
+    (name, argv), proc = run
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{name} {' '.join(argv)} timed out")
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} {' '.join(argv)} failed "
+                             f"({proc.returncode}):\n{out[-2000:]}\n"
+                             f"{err[-3000:]}")
+    line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1]
+    return json.loads(line[len("RESULT "):])
+
+
+DRIVERS = {
+    "spiral_torch": ["--niters", "40", "--test_freq", "20"],
+    "spiral_unstable_torch": ["--niters", "20"],
+    "rober_torch": ["--niters", "20", "--test_freq", "10"],
+}
+DRIVER_TOL = 1e-4  # first loss, card fp32 against CPU fp64
+
+
+def start_drivers():
+    """10(b), started: the three drivers on the card at their defaults but
+    the short run, and each one's first iteration on the CPU in fp64."""
+    runs = {}
+    for name, argv in DRIVERS.items():
+        train_dir = ["--train_dir", os.path.join(ROOT, "build", name)]
+        if name == "spiral_unstable_torch":
+            train_dir = []
+        runs[name] = start_driver(name, argv + train_dir)
+        runs[name + " cpu"] = start_driver(
+            name, ["--device", "cpu", "--double_prec", "--niters", "1"]
+            + ([] if not train_dir else
+               ["--train_dir", train_dir[1] + "_cpu"]), cpu=True)
+    return runs
+
+
+def check_drivers(res):
+    """10(b), read: each loss falls, each first loss within DRIVER_TOL of
+    the CPU fp64 run's (``res``: each run's result)."""
+    first = {"spiral_torch": lambda o: o["losses"],
+             "spiral_unstable_torch": lambda o: o["pnode"],
+             "rober_torch": lambda o: o["losses"]}
+    report = {}
+    for name, argv in DRIVERS.items():
+        out, cpu = res[name], res[name + " cpu"]
+        losses = first[name](out)
+        e_first = abs(losses[0] - first[name](cpu)[0]) / abs(
+            first[name](cpu)[0])
+        k = max(1, len(losses) // 4)
+        falls = [np.mean(losses[-k:]) < np.mean(losses[:k])]
+        if name == "spiral_unstable_torch":
+            e_ref = abs(out["ref"][0] - cpu["ref"][0]) / abs(cpu["ref"][0])
+            e_first = max(e_first, e_ref)
+            falls.append(np.mean(out["ref"][-k:]) < np.mean(out["ref"][:k]))
+        n_it = len(losses)
+        report[name] = {"s_per_iter": out["seconds"] / n_it,
+                        "first": losses[0], "e_first": e_first}
+        log(f"[drivers] (b) {name} {' '.join(argv)}: losses "
+            f"{losses[0]:.6e} -> {losses[-1]:.6e} (mean of the first {k} "
+            f"{np.mean(losses[:k]):.6e}, of the last {k} "
+            f"{np.mean(losses[-k:]):.6e}); first loss against the CPU fp64 "
+            f"run {e_first:.3e} relative (tol {DRIVER_TOL}); "
+            f"{out['seconds'] / n_it:.3f} s per iteration")
+        if not (np.all(np.isfinite(losses)) and all(falls)
+                and e_first <= DRIVER_TOL):
+            raise AssertionError(f"{name} failed its checks")
+    return report
+
+
+def start_rober_hotstart(n_more=3):
+    """10(b), started: rober_torch.py --hotstart for n_more iterations
+    after its best checkpoint's, and one with another normalization."""
+    import torch
+
+    name = "rober_torch"
+    train_dir = os.path.join(ROOT, "build", name)
+    ck = torch.load(os.path.join(train_dir, "best.pt"), map_location="cpu")
+    niters = int(ck["iter"]) + 1 + n_more
+    run = start_driver(name, ["--niters", str(niters), "--test_freq", "10",
+                              "--hotstart", "--train_dir", train_dir])
+    bad = start_driver(name, ["--niters", str(niters + 1), "--hotstart",
+                              "--normalize", "mean", "--train_dir",
+                              train_dir])[1]
+    return ck, niters, run, bad
+
+
+def finish_rober_hotstart(ck, niters, run, bad):
+    """10(b), read: the resumed run starts after the checkpoint's
+    iteration; the other normalization is refused."""
+    out = finish_driver(run)
+    log(f"[drivers] (b) rober_torch --hotstart: the checkpoint of iteration "
+        f"{ck['iter']} (loss {ck['best_loss']:.6e}); resumed at "
+        f"{out['start']}, {len(out['losses'])} iterations, losses "
+        + ", ".join(f"{x:.6e}" for x in out["losses"]))
+    if not (out["start"] == ck["iter"] + 1
+            and len(out["losses"]) == niters - out["start"]
+            and np.all(np.isfinite(out["losses"]))):
+        raise AssertionError("rober_torch --hotstart did not resume")
+    _, err = bad.communicate(timeout=300)
+    if bad.returncode == 0 or "normalization mismatch" not in err:
+        raise AssertionError("rober_torch --hotstart took a checkpoint of "
+                             "another normalization")
+
+
+class StampedList(list):
+    """A list that notes the clock at each append (a trainer's per-
+    iteration history)."""
+
+    def append(self, x):
+        self.__dict__.setdefault("stamps", []).append(time.perf_counter())
+        super().append(x)
+
+    def gaps(self):
+        st = self.__dict__.get("stamps", [])
+        return [b - a for a, b in zip(st, st[1:])]
+
+
+def fix_first_batch(mod):
+    """Every minibatch the trainer draws is its first one (its batch
+    functions wrapped), so the losses of a few iterations show the
+    optimizer's progress rather than the batches' spread."""
+    if hasattr(mod, "make_batches"):  # ks_torch: an epoch's batches
+        draw = mod.make_batches
+
+        def first_only(*a):
+            batches = list(draw(*a))
+            return batches[:1] * len(batches)
+
+        mod.make_batches = first_only
+    else:  # burgers_torch: one (y0, targets) window batch per call
+        draw, first = mod.get_batch, []
+
+        def first_only(*a):
+            if not first:
+                first.append(draw(*a))
+            return first[0]
+
+        mod.get_batch = first_only
+
+
+DEFAULT_RUNS = {
+    "ks_torch": ["--max_epochs", "1", "--data_size", "700"],
+    # ~40 s an iteration on the card: two iterations
+    "burgers_torch": ["--batch_time", "2", "--epochs", "1",
+                      "--iters_per_epoch", "2", "--n_ic", "20"],
+}
+
+
+def phase_default(device, name):
+    """10(c): ``name`` (ks_torch.py or burgers_torch.py) at its new
+    defaults (the reference's: snode / cn / petsc; ARK3 IMEX with Newton
+    on GMRES), in this process, on its first minibatch throughout
+    (fix_first_batch): finite losses that fall, the wall time, and the
+    launches of K10/K11 (ks) and K1, K10, K11 (burgers)."""
+    import pnode_tpu_torch as pt
+    from pnode_tpu_torch.ops.circular_stencil import (
+        circular_stencil_bwd, circular_stencil_fwd)
+    from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+
+    wrappers = (fused_mlp_fwd, fused_mlp_bwd, circular_stencil_fwd,
+                circular_stencil_bwd)
+    need = {"ks_torch": (circular_stencil_fwd, circular_stencil_bwd),
+            "burgers_torch": wrappers}[name]
+    mod = load_example(name)
+    fix_first_batch(mod)
+    pt.clear_options()
+    for wr in wrappers:
+        wr.launches = 0
+    argv = DEFAULT_RUNS[name] + ["--device", device, "--train_dir",
+                                 os.path.join(ROOT, "build",
+                                              name + "_defaults")]
+    t0 = time.perf_counter()
+    if name == "ks_torch":
+        losses = mod.main(argv)[1][0]
+        per_iter = ""
+    else:
+        losses = StampedList()
+        mod.main(argv, history=losses)
+        per_iter = "; between iterations " + ", ".join(
+            f"{x:.2f}" for x in losses.gaps()) + " s"
+    wall = time.perf_counter() - t0
+    counts = {wr.__name__: wr.launches for wr in wrappers}
+    args, _ = mod.parse_args(argv)
+    log(f"[defaults] (c) {name} {' '.join(argv[:-2])} (linear_solver "
+        f"{args.linear_solver}, fixed_jacobian {args.fixed_jacobian}"
+        + (f", model {args.pnode_model}, method {args.pnode_method}"
+           if name == "ks_torch" else f", method {args.method}")
+        + f"): {len(losses)} iterations, losses "
+        + ", ".join(f"{x:.6e}" for x in losses)
+        + f"; {wall:.1f} s in all (data and validation included), "
+        f"{wall / len(losses):.2f} s an iteration so counted{per_iter}; "
+        f"launches {counts}")
+    if not (len(losses) >= 2 and np.all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{name} at its defaults: the loss did not "
+                             "fall")
+    if min(counts[wr.__name__] for wr in need) <= 0:
+        raise AssertionError(f"{name} at its defaults did not launch its "
+                             "kernels")
+    return {"losses": list(losses), "wall_s": wall, "launches": counts}
+
+
+def phase_slice5(device, u):
+    """Phase 10: the trajectory policies (a), the new drivers (b) and the
+    trainers at their new defaults (c). Returns the launches of phase
+    10(a) and 10(c) by kernel."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[traj] phase 10 on {smi.splitlines()[0]}")
+    traj_counts, _, trace, k1 = phase_traj_policies(device, u)
+    # (b) runs beside (c): the drivers in subprocesses, rober's --hotstart
+    # once its first run is done
+    runs = start_drivers()
+    defaults = {"ks_torch": phase_default(device, "ks_torch")}
+    res = {"rober_torch": finish_driver(runs.pop("rober_torch"))}
+    hot = start_rober_hotstart()
+    defaults["burgers_torch"] = phase_default(device, "burgers_torch")
+    res.update({k: finish_driver(r) for k, r in runs.items()})
+    check_drivers(res)
+    finish_rober_hotstart(*hot)
+    log(f"[traj] phase 10 took {time.perf_counter() - t0:.1f} s")
+    launches = {name: {"trajectory_policies": c}
+                for name, c in traj_counts.items()}
+    for run, d in defaults.items():
+        for name, c in d["launches"].items():
+            launches.setdefault(name, {})[f"{run}_defaults"] = c
+    return launches, trace, k1
+
+
 def main():
     import torch
 
@@ -4350,6 +4944,7 @@ def main():
     counts.update(b_counts)
     reports["fused_grad_step"], counts["fused_grad_step"] = phase_dp("cuda", u)
     theta_launches, _ = phase_theta("cuda", u)
+    slice5_launches, replay, k1_ks = phase_slice5("cuda", u)
     reports["probe_smem"] = probe_report
     counts["probe_smem"] = probe_report["launches"]
     kernels = []
@@ -4369,6 +4964,15 @@ def main():
             kernels[-1]["burgers"] = k1_burgers[name]
         if name in theta_launches:  # launches over phase 9's paths
             kernels[-1]["theta_launches"] = theta_launches[name]
+        if name in slice5_launches:  # launches over phase 10's paths
+            kernels[-1]["slice5_launches"] = slice5_launches[name]
+        if name in k1_ks:  # K1's device time per call at the KS stack
+            kernels[-1]["device_ms"] = k1_ks[name]
+        mine = {k: {"us_per_launch": us, "launches": per}
+                for k, (us, per) in replay.items()
+                if k in REPLAY_NAMES.get(name, ())}
+        if mine:  # one replayed step of phase 10(a), traced
+            kernels[-1]["replayed_step"] = mine
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

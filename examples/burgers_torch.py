@@ -10,24 +10,27 @@ window) minibatches, the mean-abs window loss, Adam, trained through
     python examples/burgers_torch.py                  # the H100 (default)
     python examples/burgers_torch.py --device cpu --nx 32 --batch_size 4 \\
         --batch_time 2 --step_size 0.05 --epochs 1 --iters_per_epoch 2
+    python examples/burgers_torch.py --linear_solver hpddm --fixed_jacobian
 
     python examples/burgers_torch.py --node           # autodiff baseline
     python examples/burgers_torch.py --no-imex        # cn on f_IM
 
-The defaults are ``bench.py --workload burgers``'s numerics at the example's
-data: nx 512, batch 200, dt 1e-3, ARK3 IMEX, ``linear_solver hpddm`` with a
-frozen Jacobian and ``-snes_type ksponly`` (a programmatic default that a
-command-line flag overrides). ``--use_fused`` (on by default) puts f_EX on
-K1 and f_IM on K10/K11; the fused ARK step kernels stay off at nx 512
-(their gate's 8-row budget needs more shared memory than the H100's 227
-KB), so the step runs the generic stage loop. ``--linear_solver petsc`` is
-the matrix-free GMRES. ``--node`` (the reference's torchdiffeq baseline)
-integrates f_IM + f_EX by dopri5 at ``--step_size`` without the adjoint,
-the gradients by autograd through the steps (K1 and K10/K11 under
-autograd); it keeps every step's activations, so its memory grows with
-``--batch_time``. ``--no-imex`` integrates f_IM alone by Crank-Nicolson,
-as ``examples/burgers.py --no-imex`` does (f_EX then takes no part, and
-its parameters get no gradient). PETSc-style flags after the script's own
+The defaults are ``examples/burgers.py``'s: nx 512, batch 200, dt 1e-3,
+ARK3 IMEX with Newton (PETSc's newtonls) on matrix-free GMRES stage solves
+(``--linear_solver petsc``) against an unfrozen Jacobian. ``bench.py
+--workload burgers``'s numerics are ``--linear_solver hpddm
+--fixed_jacobian``: the frozen, pre-inverted stage operator with
+``-snes_type ksponly`` (a programmatic default under ``--fixed_jacobian``
+that a command-line flag overrides). ``--use_fused`` (on by default) puts
+f_EX on K1 and f_IM on K10/K11; the fused ARK step kernels stay off at nx
+512 (their gate's 8-row budget needs more shared memory than the H100's
+227 KB), so the step runs the generic stage loop. ``--node`` (the
+reference's torchdiffeq baseline) integrates f_IM + f_EX by dopri5 at
+``--step_size`` without the adjoint, the gradients by autograd through the
+steps (K1 and K10/K11 under autograd); it keeps every step's activations,
+so its memory grows with ``--batch_time``. ``--no-imex`` integrates f_IM
+alone by Crank-Nicolson, as ``examples/burgers.py --no-imex`` does (f_EX
+then takes no part, and its parameters get no gradient). PETSc-style flags after the script's own
 options go to the port's options database (``-ts_arkimex_type l2``, ...).
 ``--device cuda`` raises when CUDA is absent: the CPU is an explicit
 choice, never a fallback.
@@ -63,9 +66,9 @@ def parse_args(argv=None):
     p.add_argument("--train_dir", type=str,
                    default="./train_results_burgers_torch")
     p.add_argument("--linear_solver", choices=["petsc", "hpddm", "torch"],
-                   default="hpddm")
+                   default="petsc")
     p.add_argument("--fixed_jacobian", action=argparse.BooleanOptionalAction,
-                   default=True)
+                   default=False)
     p.add_argument("--node", action="store_true",
                    help="autodiff through the solver: f_IM + f_EX by dopri5, "
                    "enable_adjoint=False")
@@ -90,7 +93,9 @@ def get_batch(u, rng, batch_size, batch_time):
     return y0, y
 
 
-def main(argv=None):
+def main(argv=None, history=None):
+    """Train; returns the running mean of the train loss. ``history``, a
+    list, receives each iteration's loss."""
     args, unknown = parse_args(argv)
     sys.path.insert(0, ROOT)
     import torch
@@ -106,7 +111,8 @@ def main(argv=None):
                          "--device cpu to run on the CPU)")
     device = torch.device(args.device)
     dtype = torch.float64 if args.double_prec else torch.float32
-    pt.set_option("snes_type", "ksponly")
+    if args.fixed_jacobian:
+        pt.set_option("snes_type", "ksponly")
     pt.init([sys.argv[0]] + unknown)
 
     rng = np.random.default_rng(args.seed)
@@ -167,6 +173,8 @@ def main(argv=None):
                 loss.backward()
                 opt.step()
             loss_meter.update(float(loss.detach()))
+            if history is not None:
+                history.append(loss_meter.val)
             if np.isnan(loss_meter.val):
                 print("NaN loss - stopping")
                 return float("nan")

@@ -9,38 +9,39 @@ plateau LR decay on the validation loss. ``--pnode_model`` picks the model:
 two integrated by ``--pnode_method``::
 
     python examples/ks_torch.py                       # the H100 (default)
-    python examples/ks_torch.py --fused_loop          # one launch per epoch
     python examples/ks_torch.py --device cpu --max_epochs 1 --data_size 80 \
         --batch_size 16
-    python examples/ks_torch.py -ts_adapt_type basic -ts_rtol 1e-4 \
+    python examples/ks_torch.py --pnode_model imex --linear_solver hpddm \
+        --fixed_jacobian                              # the main path
+    python examples/ks_torch.py --pnode_model imex --linear_solver hpddm \
+        --fixed_jacobian --fused_loop                 # one launch per epoch
+    python examples/ks_torch.py --pnode_model imex --linear_solver hpddm \
+        --fixed_jacobian -ts_adapt_type basic -ts_rtol 1e-4 \
         -ts_atol 1e-4                                 # adaptive, per step
-    python examples/ks_torch.py --fused_loop -ts_adapt_type basic   # K5
     python examples/ks_torch.py --pnode_model snode --pnode_method rk4
-    python examples/ks_torch.py --pnode_model snode --pnode_method cn \
-        --linear_solver petsc --no-fixed_jacobian    # examples/ks.py's
-    python examples/ks_torch.py --node                # autodiff baseline
+    python examples/ks_torch.py --pnode_model imex --node   # autodiff baseline
 
-The defaults are the main-path recipe: ``--pnode_model imex``, ARK3 IMEX,
-``linear_solver hpddm`` with a frozen Jacobian, ``-snes_type ksponly`` (a
-programmatic default of the imex model that a command-line flag
-overrides), and ``--use_fused``: the fused MLP, which on CUDA runs the
-fused ARK step kernels, and the stencil on K10/K11 wherever the generic
-stage loop evaluates f_IM (``-pnode_fused_ark_adjoint off``) and in the
-frozen Jacobian's assembly. ``snode`` and ``mlp`` are integrated by
-``--pnode_method``: ``cn`` (the default) or ``beuler``, the theta methods,
-with Newton (PETSc's newtonls, ``examples/ks.py``'s default) on stage
-solves by ``--linear_solver`` (``petsc``: matrix-free GMRES), or an
-explicit RK method (euler, rk2, bosh3, rk4, dopri5, ...); ``--use_fused``
-puts snode's stencil on K10/K11 (its MLP stays on ``nn.Linear``: the GMRES
-matvec is forward mode, which K1 has no rule for). ``examples/ks.py``
-defaults to ``snode`` with ``cn`` and ``petsc``; the port keeps its own
-defaults for now. ``--node`` (the reference's torchdiffeq baseline)
-integrates the imex model's combined right-hand side f_IM + f_EX by dopri5
-at ``step_size / 100`` without the adjoint (``enable_adjoint=False``), the
-gradients by autograd through the steps. PETSc-style flags after the
-script's own options go to the port's options database
-(``-ts_arkimex_type ars122``, ``-pnode_fused_ark_adjoint off``, ...).
-``--device cuda`` raises when CUDA is absent: the CPU is an explicit
+The defaults are ``examples/ks.py``'s: ``--pnode_model snode``, integrated
+by ``--pnode_method cn`` with Newton (PETSc's newtonls) on matrix-free
+GMRES stage solves (``--linear_solver petsc``) against an unfrozen
+Jacobian, and ``--use_fused``, which puts snode's stencil on K10/K11 (its
+MLP stays on ``nn.Linear``: the GMRES matvec is forward mode, which K1
+has no rule for). ``snode`` and ``mlp`` take ``--pnode_method`` ``cn`` or
+``beuler``, the theta methods, or an explicit RK method (euler, rk2,
+bosh3, rk4, dopri5, ...). The main path (``bench.py``'s recipe) is
+``--pnode_model imex --linear_solver hpddm --fixed_jacobian``: ARK3 IMEX
+against the frozen, pre-inverted stage operator, with ``-snes_type
+ksponly`` (a programmatic default under ``--fixed_jacobian`` that a
+command-line flag overrides), where ``--use_fused`` runs the fused MLP
+and, on CUDA, the fused ARK step kernels, and the stencil on K10/K11
+wherever the generic stage loop evaluates f_IM (``-pnode_fused_ark_adjoint
+off``) and in the frozen Jacobian's assembly. ``--node`` (the reference's
+torchdiffeq baseline) integrates the imex model's combined right-hand side
+f_IM + f_EX by dopri5 at ``step_size / 100`` without the adjoint
+(``enable_adjoint=False``), the gradients by autograd through the steps.
+PETSc-style flags after the script's own options go to the port's options
+database (``-ts_arkimex_type ars122``, ``-pnode_fused_ark_adjoint off``,
+...). ``--device cuda`` raises when CUDA is absent: the CPU is an explicit
 choice, never a fallback.
 
 ``--fused_loop`` (twin of ``examples/ks.py --fused_loop``) runs each epoch's
@@ -91,8 +92,8 @@ NX, L = 64, 22.0
 def parse_args(argv=None):
     p = argparse.ArgumentParser("KS (PyTorch port)")
     p.add_argument("--pnode_model", choices=["imex", "snode", "mlp"],
-                   default="imex", help="imex (the default; examples/ks.py "
-                   "defaults to snode), snode or mlp")
+                   default="snode", help="snode (the default, as "
+                   "examples/ks.py's), imex or mlp")
     p.add_argument("--pnode_method", type=str, default="cn",
                    help="stepper of snode and mlp: cn or beuler (the theta "
                    "methods, Newton on --linear_solver stage solves) or an "
@@ -111,11 +112,11 @@ def parse_args(argv=None):
     p.add_argument("--train_dir", type=str, default="./train_results_ks_torch")
     p.add_argument("--lr", type=float, default=5e-3)
     p.add_argument("--linear_solver", choices=["petsc", "hpddm", "torch"],
-                   default="hpddm", help="the implicit stages' solves: "
+                   default="petsc", help="the implicit stages' solves: "
                    "petsc (matrix-free GMRES), hpddm (one shared dense "
                    "block) or torch (dense LU per batch row)")
     p.add_argument("--fixed_jacobian", action=argparse.BooleanOptionalAction,
-                   default=True)
+                   default=False)
     p.add_argument("--use_fused", action=argparse.BooleanOptionalAction,
                    default=True, help="imex: fused MLP (K1) and, on the "
                    "fused gate, the ARK step kernels (K2, K3); the stencil "
@@ -356,7 +357,7 @@ def main(argv=None):
     mesh, own_group = (start_dp(args.dp, args.batch_size, device) if args.dp
                        else (None, False))
     dtype = torch.float64 if args.double_prec else torch.float32
-    if args.pnode_model == "imex":
+    if args.pnode_model == "imex" and args.fixed_jacobian:
         pt.set_option("snes_type", "ksponly")
     pt.init([sys.argv[0]] + unknown)
 

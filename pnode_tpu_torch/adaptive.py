@@ -43,7 +43,7 @@ import torch
 from .adjoint import TrajectoryConfig, _numpy_dtype, _unflatten
 from .misc import tree_add, tree_leaves, tree_map, tree_zeros_like
 
-_SLICE5 = "ROADMAP queue A slice 5 (trajectory policies)"
+_SLICE5 = "ROADMAP queue A slice 5(b) (the adaptive path's trajectory policies)"
 
 
 @dataclass(frozen=True)
@@ -283,8 +283,9 @@ def make_adaptive_odeint(stepper, t_out, cfg: AdaptConfig, dt0,
     kind = traj.kind if with_adjoint else "solution_only"
     if kind in ("checkpoint", "revolve", "cams", "disk"):
         raise NotImplementedError(
-            f"adaptive trajectory policy {kind!r} is {_SLICE5}; the port "
-            "runs store_all and solution_only")
+            f"adaptive trajectory policy {kind!r} is {_SLICE5}; the port's "
+            "adaptive path runs store_all and solution_only (the fixed grid "
+            "runs every policy)")
     if kind not in ("store_all", "solution_only"):
         raise ValueError(f"unknown trajectory kind {kind!r}")
     engine = _AdaptiveEngine(stepper, t_out, cfg, dt0, kind)

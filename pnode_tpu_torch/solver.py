@@ -14,7 +14,9 @@ discrete adjoint and fills the parameters' ``.grad``.
 
 Runtime options override programmatic choices (setFromOptions-last):
 ``-ts_type``, ``-ts_rk_type``, ``-ts_arkimex_type``, ``-ts_max_steps``,
-``-ts_trajectory_solution_only``, ``-snes_type``, ``-snes_rtol``,
+``-ts_trajectory_solution_only``, ``-ts_trajectory_max_cps_ram`` with
+``-ts_trajectory_schedule uniform|revolve|cams`` (``adjoint.py``),
+``-snes_type``, ``-snes_rtol``,
 ``-snes_atol``, ``-snes_stol``, ``-snes_max_it``, ``-snes_ksponly_check``,
 ``-pnode_linear_solver``, and the adaptive controller's ``-ts_adapt_type
 basic|pi``, ``-ts_rtol``, ``-ts_atol``, ``-ts_adapt_safety``,
@@ -24,8 +26,10 @@ basic|pi``, ``-ts_rtol``, ``-ts_atol``, ``-ts_adapt_safety``,
 (also under the ``-pnode_inner_`` prefix). The port runs the explicit RK
 methods (euler, rk2, bosh3, rk4, dopri5, ...), the theta methods
 (``beuler``/``be``, ``cn``/``theta``; ``mass=`` makes them DAE solvers) and
-the IMEX method with the ``store_all`` / ``solution_only`` policies, on
-fixed steps or under the controller; the other trajectory policies raise
+the IMEX method, on fixed steps with every in-memory trajectory policy
+(store_all, solution_only, checkpoint, revolve, CAMS) or under the
+controller with store_all and solution_only; disk and compressed
+trajectories, and the controller's checkpointed policies, raise
 ``NotImplementedError`` naming their ROADMAP slice. ``solve(...,
 with_adjoint=False)`` (and ``odeint``) runs the step loop under autograd,
 so its outputs are differentiable by plain autograd through the steps.
@@ -188,16 +192,34 @@ class ODESolver:
         if self.opts.get_int("ts_trajectory_solution_only", 0):
             traj_kind = "solution_only"
         max_cps = self.opts.get_int("ts_trajectory_max_cps_ram", 0)
+        if max_cps and max_cps > 0:
+            # uniform segments by default; "revolve" selects the optimal
+            # binomial schedule (csrc/revolve.cpp), "cams" the optimal
+            # multistage mixed solution/stage-set schedule (csrc/cams.cpp)
+            sched = self.opts.get_string("ts_trajectory_schedule", "uniform")
+            traj_kind = sched if sched in ("revolve", "cams") else "checkpoint"
+        # the JAX package's executor switches (its scanned executors keep
+        # its compiled program flat); the port's eager loop has one executor
+        for name in ("pnode_revolve_executor", "pnode_cams_executor"):
+            self.opts.get_string(name, "auto")
         tt = self.opts.get_string("ts_trajectory_type", "memory")
-        store_dtype = self.opts.get_string("pnode_trajectory_dtype", "")
-        if (max_cps and max_cps > 0) or tt != "memory" or store_dtype:
+        if tt == "disk" or self.opts.get_string("pnode_trajectory_dtype", ""):
             raise NotImplementedError(
-                "checkpointed, revolve, CAMS, disk and compressed trajectories "
-                "are ROADMAP queue A slice 5; this slice runs store_all and "
-                "solution_only (-ts_trajectory_solution_only)")
-        self.traj = TrajectoryConfig(kind=traj_kind)
+                "disk and compressed (-pnode_trajectory_dtype) trajectories "
+                "are ROADMAP queue A slice 5(b); the port runs store_all, "
+                "solution_only and -ts_trajectory_max_cps_ram c with "
+                "-ts_trajectory_schedule uniform|revolve|cams")
+        if tt != "memory":
+            warnings.warn(f"-ts_trajectory_type {tt!r} unknown; using memory")
+        self.traj = TrajectoryConfig(kind=traj_kind, max_cps=max_cps or 0)
 
         self.adapt_type = self.opts.get_string("ts_adapt_type", "none")
+        if (self.adapt_type not in (None, "none")
+                and traj_kind in ("checkpoint", "revolve", "cams")):
+            raise NotImplementedError(
+                "the adaptive path's checkpoint, revolve and CAMS policies "
+                "are ROADMAP queue A slice 5(b); under -ts_adapt_type the "
+                "port runs store_all and solution_only")
         self.max_steps = self.opts.get_int("ts_max_steps", 1_000_000)
 
         self._cache.clear()

@@ -1,10 +1,13 @@
 """Trainer helpers: the port's own copies of the JAX package's
-``RunningAverageMeter`` (``pnode_tpu/utils/meters.py``) and ``makedirs``
-(``pnode_tpu/utils/logging.py``)."""
+``RunningAverageMeter`` (``pnode_tpu/utils/meters.py``), ``makedirs``
+(``pnode_tpu/utils/logging.py``) and ``MetricsWriter``
+(``pnode_tpu/utils/metrics.py``, in ``metrics.py``)."""
 
 from __future__ import annotations
 
 import os
+
+from .metrics import MetricsWriter
 
 
 class RunningAverageMeter:
@@ -30,4 +33,4 @@ def makedirs(dirname: str) -> None:
     os.makedirs(dirname, exist_ok=True)
 
 
-__all__ = ["RunningAverageMeter", "makedirs"]
+__all__ = ["RunningAverageMeter", "makedirs", "MetricsWriter"]

@@ -319,7 +319,9 @@ def test_burgers_trainer_runs_on_cpu(tmp_path):
     out = _run("burgers_torch.py", "--device", "cpu", "--nx", "32",
                "--batch_size", "4", "--batch_time", "2", "--step_size",
                "0.05", "--epochs", "2", "--iters_per_epoch", "2",
-               "--train_dir", str(tmp_path))
+               "--train_dir", str(tmp_path),
+               # the trainer's defaults before slice 4(b)
+               "--linear_solver", "hpddm", "--fixed_jacobian")
     final = float(out.strip().splitlines()[-1].split()[-1])
     test = float([ln for ln in out.splitlines()
                   if ln.startswith("Epoch")][-1].split("Test")[1].split()[0])
@@ -330,6 +332,8 @@ def test_burgers_trainer_runs_on_cpu(tmp_path):
 def test_ks_trainer_single_function_models(model, tmp_path):
     out = _run("ks_torch.py", "--device", "cpu", "--max_epochs", "1",
                "--data_size", "80", "--batch_size", "16", "--pnode_model",
-               model, "--pnode_method", "rk4", "--train_dir", str(tmp_path))
+               model, "--pnode_method", "rk4", "--train_dir", str(tmp_path),
+               # the trainer's defaults before slice 4(b)
+               "--linear_solver", "hpddm", "--fixed_jacobian")
     line = [ln for ln in out.splitlines() if ln.startswith("Epoch")][-1]
     assert np.isfinite(float(line.split("Val")[1].split("|")[0])), out

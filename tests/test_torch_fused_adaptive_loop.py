@@ -278,7 +278,10 @@ def test_ks_torch_fused_adaptive_loop_drive(tmp_path, capsys):
     the dt warm start; a call whose window cannot land stops the run."""
     ks = _ks_torch()
     argv = ["--device", "cpu", "--max_epochs", "2", "--data_size", "80",
-            "--batch_size", "16", "--train_dir", str(tmp_path)]
+            "--batch_size", "16", "--train_dir", str(tmp_path),
+            # the main path, the trainer's defaults before slice 4(b)
+            "--pnode_model", "imex", "--linear_solver", "hpddm",
+            "--fixed_jacobian"]
     _, fused = ks.main(argv + ["--fused_loop"] + ADAPT)
     vals = [float(ln.split("Val")[1].split("|")[0])
             for ln in capsys.readouterr().out.splitlines()

@@ -305,7 +305,10 @@ def test_ks_torch_dp_drive(tmp_path, capsys):
     means against one mean, in fp32), and equal across ranks; --dp 1
     starts its own one-rank group."""
     argv = ["--device", "cpu", "--max_epochs", "1", "--data_size", "80",
-            "--batch_size", "16", "--train_dir", str(tmp_path)]
+            "--batch_size", "16", "--train_dir", str(tmp_path),
+            # the main path, the trainer's defaults before slice 4(b)
+            "--pnode_model", "imex", "--linear_solver", "hpddm",
+            "--fixed_jacobian"]
     ks = _ks_torch()
     _, ref = ks.main(argv)
     _, one = ks.main(argv + ["--dp", "1"])
@@ -324,7 +327,10 @@ def test_ks_torch_dp_refusals(tmp_path):
     batch, and N ranks must exist."""
     ks = _ks_torch()
     argv = ["--device", "cpu", "--max_epochs", "1", "--data_size", "80",
-            "--batch_size", "16", "--train_dir", str(tmp_path)]
+            "--batch_size", "16", "--train_dir", str(tmp_path),
+            # the main path, the trainer's defaults before slice 4(b)
+            "--pnode_model", "imex", "--linear_solver", "hpddm",
+            "--fixed_jacobian"]
     with pytest.raises(SystemExit, match="fused_loop"):
         ks.main(argv + ["--dp", "2", "--fused_loop"])
     with pytest.raises(SystemExit, match="must divide"):

@@ -342,7 +342,10 @@ def test_ks_torch_fused_loop_drive(tmp_path, capsys):
     the loop against torch.optim.Adam's, both in fp32)."""
     ks = _ks_torch()
     argv = ["--device", "cpu", "--max_epochs", "2", "--data_size", "80",
-            "--batch_size", "16", "--train_dir", str(tmp_path)]
+            "--batch_size", "16", "--train_dir", str(tmp_path),
+            # the main path, the trainer's defaults before slice 4(b)
+            "--pnode_model", "imex", "--linear_solver", "hpddm",
+            "--fixed_jacobian"]
     _, fused = ks.main(argv + ["--fused_loop"])
     vals = [float(ln.split("Val")[1].split("|")[0])
             for ln in capsys.readouterr().out.splitlines()

@@ -233,13 +233,13 @@ def test_linear_solver_strategies_agree(solver):
 
 
 def test_trajectory_policies_gradients_identical():
-    """Twin of :236 for store_all against solution_only: the same CN
-    gradients (rtol 1e-10). The checkpoint case of the JAX test waits for
-    the checkpoint policy (ROADMAP queue A slice 5)."""
+    """Twin of :236: store_all, solution_only and checkpoint(2) give the
+    same CN gradients (rtol 1e-10)."""
     grads = {}
     for flags, name in [([], "store_all"),
                         (["-ts_trajectory_solution_only", "1"],
-                         "solution_only")]:
+                         "solution_only"),
+                        (["-ts_trajectory_max_cps_ram", "2"], "checkpoint")]:
         pt.clear_options()
         pt.init(["prog"] + flags)
         ode = pt.ODESolver().setupTS(true_y0, pt.Func(rober, p_full()),
@@ -249,6 +249,8 @@ def test_trajectory_policies_gradients_identical():
         _, (gk,), _ = _loss_and_grads(ode, p_full())
         grads[name] = gk.numpy()
     np.testing.assert_allclose(grads["store_all"], grads["solution_only"],
+                               rtol=1e-10)
+    np.testing.assert_allclose(grads["store_all"], grads["checkpoint"],
                                rtol=1e-10)
 
 

@@ -3,6 +3,7 @@ the numpy-only modules the port carries as copies (tableaus, time grid,
 KS data, options database) pinned to their originals."""
 
 import ast
+import json
 import os
 import re
 import subprocess
@@ -13,19 +14,30 @@ import pytest
 import torch
 
 import pnode_tpu
+import pnode_tpu.cams as jax_cams
 import pnode_tpu.data.spectral as jax_spectral
 import pnode_tpu.grid as jax_grid
 import pnode_tpu.options as jax_options
+import pnode_tpu.order_conditions as jax_oc
+import pnode_tpu.revolve as jax_revolve
 import pnode_tpu.tableaus as jax_tableaus
+import pnode_tpu.utils.metrics as jax_metrics
 import pnode_tpu_torch
+import pnode_tpu_torch.cams as pt_cams
 import pnode_tpu_torch.data.spectral as pt_spectral
 import pnode_tpu_torch.grid as pt_grid
 import pnode_tpu_torch.options as pt_options
+import pnode_tpu_torch.order_conditions as pt_oc
+import pnode_tpu_torch.revolve as pt_revolve
 import pnode_tpu_torch.tableaus as pt_tableaus
+import pnode_tpu_torch.utils.metrics as pt_metrics
 from pnode_tpu_torch.misc import tree_add, tree_leaves, tree_map, tree_zeros_like
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DRIVERS = ("ks_torch", "train_cifar10_torch", "burgers_torch",
+           "pendulum_dae_torch", "spiral_torch", "spiral_unstable_torch",
+           "rober_torch")
 
 
 @pytest.fixture(autouse=True)
@@ -54,7 +66,9 @@ def test_import_leaves_jax_out():
         "pnode_tpu_torch.steppers, pnode_tpu_torch.utils, "
         "pnode_tpu_torch.parallel, pnode_tpu_torch.parallel.data_parallel, "
         "pnode_tpu_torch.parallel.fused_dp, pnode_tpu_torch.tools, "
-        "pnode_tpu_torch.tools.probe_smem_limit\n"
+        "pnode_tpu_torch.tools.probe_smem_limit, pnode_tpu_torch.revolve, "
+        "pnode_tpu_torch.cams, pnode_tpu_torch.native, "
+        "pnode_tpu_torch.order_conditions, pnode_tpu_torch.utils.metrics\n"
         "import chip_smoke\n"
         "import importlib.util as u\n"
         "for name, path in %r:\n"
@@ -64,8 +78,7 @@ def test_import_leaves_jax_out():
         "('jax', 'jaxlib', 'flax', 'optax', 'pnode_tpu'))\n"
         "print('BAD', bad)\n"
     ) % (REPO, [(n, os.path.join(REPO, "examples", n + ".py"))
-                for n in ("ks_torch", "train_cifar10_torch",
-                          "burgers_torch", "pendulum_dae_torch")])
+                for n in DRIVERS])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -77,11 +90,8 @@ def test_sources_name_no_jax_package():
     flax, optax or pnode_tpu (the package, not pnode_tpu_torch)."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|pnode_tpu)"
                      r"(\s|\.|$)", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "examples", "ks_torch.py"),
-             os.path.join(REPO, "examples", "train_cifar10_torch.py"),
-             os.path.join(REPO, "examples", "burgers_torch.py"),
-             os.path.join(REPO, "examples", "pendulum_dae_torch.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "examples", n + ".py") for n in DRIVERS]
     for root, _, names in os.walk(os.path.join(REPO, "pnode_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if pat.search(open(f).read())]
@@ -196,6 +206,77 @@ def test_options_typed_getters_and_prefix_equal():
     jax_options.clear_options()
 
 
+def test_order_conditions_equal():
+    """order_conditions.py: the same colored trees, densities and residuals
+    (bitwise) on every ARK tableau at orders 1-5."""
+    assert jax_oc.all_conditions(5) == pt_oc.all_conditions(5)
+    for tree in pt_oc.all_conditions(5):
+        assert jax_oc.tree_density(tree) == pt_oc.tree_density(tree)
+        assert jax_oc.tree_order(tree) == pt_oc.tree_order(tree)
+    for name in sorted(jax_tableaus._ARK_TABLEAUS):
+        tab = jax_tableaus.get_ark_tableau(name)
+        for p in range(1, 6):
+            np.testing.assert_array_equal(
+                jax_oc.residuals(tab.a_im, tab.a_ex, tab.b_im, p),
+                pt_oc.residuals(tab.a_im, tab.a_ex, tab.b_im, p))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 17, 64, 100, 333])
+def test_revolve_plans_equal(n):
+    """revolve.py: plan, cost and the compiled action table element by
+    element at c 1, 2, 3, 8, 16."""
+    for c in (1, 2, 3, 8, 16):
+        assert pt_revolve.revolve_plan(n, c) == jax_revolve.revolve_plan(n, c)
+        assert pt_revolve.optimal_cost(n, c) == jax_revolve.optimal_cost(n, c)
+        np.testing.assert_array_equal(pt_revolve.compile_actions(n, c),
+                                      jax_revolve.compile_actions(n, c))
+    assert (pt_revolve.RESTORE, pt_revolve.ADVANCE, pt_revolve.STORE,
+            pt_revolve.REVERSE, pt_revolve.DROP) == (
+        jax_revolve.RESTORE, jax_revolve.ADVANCE, jax_revolve.STORE,
+        jax_revolve.REVERSE, jax_revolve.DROP)
+
+
+@pytest.mark.parametrize("n", [1, 3, 10, 37, 100, 1500])
+def test_cams_plans_equal(n):
+    """cams.py: the forward and reverse plans, the cost and the compiled
+    tables element by element at m 0, 1, 4, 8, 20 and w 1, 2, 5 (n 1500
+    takes the two-level plan), and the stage weight."""
+    for m in (0, 1, 4, 8, 20):
+        for w in (1, 2, 5):
+            if n > jax_cams.EXACT_N_CAP and m < 4:
+                # the two-level plan needs a slot per segment, and both
+                # emitters recurse once per step of a segment's plain pass
+                continue
+            fwd, rev = pt_cams.cams_plan(n, m, w)
+            assert (fwd, rev) == jax_cams.cams_plan(n, m, w), (m, w)
+            assert pt_cams.optimal_cost(n, m, w) == \
+                jax_cams.optimal_cost(n, m, w)
+            a = pt_cams.compile_plan(fwd, rev, n)
+            b = jax_cams.compile_plan(fwd, rev, n)
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for aux, state in ((1, 1), (256, 64), (1024, 256), (7, 3), (0, 5)):
+        assert pt_cams.stage_weight(aux, state) == \
+            jax_cams.stage_weight(aux, state)
+    assert (pt_cams.CAPTURE, pt_cams.REVERSE_STAGE) == (
+        jax_cams.CAPTURE, jax_cams.REVERSE_STAGE)
+
+
+def test_metrics_writer_equal(tmp_path):
+    """utils/metrics.py: the same metrics.jsonl records (but the clock)."""
+    recs = {}
+    for name, mod in (("jax", jax_metrics), ("port", pt_metrics)):
+        w = mod.MetricsWriter(str(tmp_path / name), use_tensorboard=False)
+        w.add_scalar("Train/Loss", 0.5, 1)
+        w.add_scalar("Train/Gradient", 3, 2)
+        w.close()
+        lines = (tmp_path / name / "metrics.jsonl").read_text().splitlines()
+        recs[name] = [{k: v for k, v in json.loads(x).items() if k != "ts"}
+                      for x in lines]
+    assert recs["jax"] == recs["port"]
+
+
 def test_tree_helpers():
     a = ({"w": torch.ones(2)}, {"x": torch.arange(3.0), "y": torch.ones(1)})
     z = tree_zeros_like(a)
@@ -211,7 +292,10 @@ def test_trainer_runs_on_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "examples", "ks_torch.py"),
          "--device", "cpu", "--max_epochs", "1", "--data_size", "80",
-         "--batch_size", "16", "--train_dir", str(tmp_path)],
+         "--batch_size", "16", "--train_dir", str(tmp_path),
+         # the main path, the trainer's defaults before slice 4(b)
+         "--pnode_model", "imex", "--linear_solver", "hpddm",
+         "--fixed_jacobian"],
         capture_output=True, text=True, timeout=300, cwd=REPO,
         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr

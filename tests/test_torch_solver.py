@@ -349,9 +349,12 @@ def test_slice_adam_steps_match_jax_fp32_fused_biased_weights():
     # the JAX package's does (the case keeps its id)
     pytest.param(dict(mass=np.eye(8)), [], "ARKIMEX refuses",
                  id="kwargs0-flags0-slice 4"),
-    (dict(), ["-ts_trajectory_max_cps_ram", "4"], "slice 5"),
+    # checkpointed trajectories run since slice 5(a); compressed storage
+    # is slice 5(b) (the case keeps its id)
+    pytest.param(dict(), ["-pnode_trajectory_dtype", "bfloat16"], "slice 5",
+                 id="kwargs1-flags1-slice 5"),
     (dict(), ["-ts_trajectory_type", "disk"], "slice 5"),
-    # the adaptive mode (slice 3) under a slice-5 trajectory policy
+    # the adaptive mode (slice 3) under a checkpointed policy (slice 5(b))
     pytest.param(dict(), ["-ts_adapt_type", "basic",
                           "-ts_trajectory_max_cps_ram", "4"], "slice 5",
                  id="kwargs3-flags3-slice 3"),
