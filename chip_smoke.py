@@ -184,7 +184,7 @@ exits non-zero without printing the final line):
    at 1e-3 over 100 steps, autograd through the steps, the kernel path
    (K1, K10/K11) against the plain path (loss and gradient within 1e-4),
    K1's, K10's and K11's launches above 0, iterations/s, peak memory. (e)
-   examples/pendulum_dae_torch.py for 20 iterations: the loss goes down,
+   examples/pendulum_dae_torch.py for 10 iterations: the loss goes down,
    the first loss within 1e-5 of the port's CPU fp64 run, the constraint
    violation.
 10. The checkpointed trajectories and the new drivers. (a) KS IMEX at B
@@ -217,9 +217,37 @@ exits non-zero without printing the final line):
    each trainer on its first minibatch throughout: finite losses that
    fall, and the launches of their kernels above 0.
    (b) runs while (c) does.
+11. The adaptive path's trajectory policies, disk, bf16 storage and bf16
+   states. (a) KS IMEX at B 256, seed-0 weights, full width, under
+   -ts_adapt_type basic (rtol = atol = 1e-4, 64 trial slots, dt0 0.2),
+   outputs at t = 0, 0.4, ..., 2.0 and the MSE against the KS data there:
+   one gradient through odeint_adjoint under each of store_all,
+   solution_only, checkpoint, revolve and cams (c 4) and disk (chunk 16),
+   on the kernel path (K2 with err in the trials, K2 re-steps, K3) and on
+   the generic path (K1): each policy's loss, dL/dy0 and dL/dtheta bitwise
+   store_all's; the re-steps and stage recomputes after the trials
+   (StepCounter) equal to the plans' costs over the accepted trials
+   (adaptive_costs); on the kernel path seconds per gradient (best of 3)
+   and peak device memory above the pre-solve baseline; K1's, K2's (with
+   and without err) and K3's launches above 0. (b) store_all,
+   solution_only and revolve with -pnode_trajectory_dtype bfloat16 on the
+   kernel path: loss and gradients within 2e-2 (norm-wise) of the exact
+   store_all's, time and peak beside (a)'s. (c) The reference's two disk
+   gates (tools/hardware_smoke.py:427-505): the explicit disk driver
+   against the in-memory adjoint on the KS IMEX model at B 16, nx 16,
+   hidden 24 (12 steps, an interior output, chunk 5) and on the adaptive
+   dopri5 solve of the MLP alone (48 trial slots, chunk 16): max gradient
+   difference below 1e-3 of the gradient's scale. (d) A bf16 state at
+   tests/test_bf16_state.py's shapes (rk4, dopri5, cn, beuler, IMEX, the
+   frozen-Jacobian block solver, the adaptive controller) against fp32 at
+   that file's tolerances. (e) dp_value_and_grad under revolve (c 3, a
+   10-step window, two outputs) on a gloo group of 2 processes on the one
+   card against the single process on the whole batch: loss within 1e-5,
+   gradient within 1e-4 norm-wise, every rank on revolve launching K2 and
+   K3, the ranks' gradients bitwise equal.
 
 Phases 1-6 run at their full depth; phase 7 adds about 60 s, phase 8 about
-60 s, phase 9 about 90 s, phase 10 about 120 s.
+60 s, phase 9 about 90 s, phase 10 about 160 s, phase 11 about 45 s.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 two also carry ``burgers``: its readings at the Burgers stack and its
@@ -227,7 +255,9 @@ launches over phase 7(b); K1's, K10's and K11's carry ``theta_launches``:
 their launches over phase 9's snode CN path (c) and Burgers --node path
 (d); K1-K3, K10 and K11 carry ``slice5_launches``, their launches over
 phase 10(a) and (c), and K1-K3 ``replayed_step``, their device time per
-launch and launches in one replayed step of phase 10(a); K1-K13 carry
+launch and launches in one replayed step of phase 10(a); K1-K3 carry
+``slice5b_launches``, their launches over phase 11(a), (b) and (e);
+K1-K13 carry
 ``device_ms``, the profiler's
 device time per call (K4 and K5: per iteration); K7 ``stage3``: its
 readings at stage 3); the last line is {"ok": true, "device": {...}}.
@@ -1712,9 +1742,10 @@ def ks_batches(u, n_iters, batch, seed):
     return out[:n_iters]
 
 
-def build_trainer(device, state, fused, flags=(), eps=1e-8):
-    """(ode, ex module, optimizer) of the KS IMEX model from ``state``;
-    Adam at lr 5e-3 and epsilon ``eps`` (torch's and optax's default)."""
+def build_trainer(device, state, fused, flags=(), eps=1e-8, batch=BATCH):
+    """(ode, ex module, optimizer) of the KS IMEX model from ``state`` for
+    ``batch`` rows; Adam at lr 5e-3 and epsilon ``eps`` (torch's and
+    optax's default)."""
     import torch
 
     import pnode_tpu_torch as pt
@@ -1726,10 +1757,10 @@ def build_trainer(device, state, fused, flags=(), eps=1e-8):
     ex = KSFuncEX(nx=NX, hidden=HIDDEN, use_fused=fused, device=device)
     ex.load_state_dict(state)
     ode = pt.ODESolver()
-    ode.setupTS(torch.zeros(BATCH, NX, device=device), pt.TorchFunc(im),
+    ode.setupTS(torch.zeros(batch, NX, device=device), pt.TorchFunc(im),
                 step_size=DT, method="imex", imex_form=True,
                 func2=pt.TorchFunc(ex), linear_solver="hpddm",
-                fixed_jacobian=True, batch_size=BATCH)
+                fixed_jacobian=True, batch_size=batch)
     return ode, ex, torch.optim.Adam(ex.parameters(), lr=LR, eps=eps)
 
 
@@ -4295,14 +4326,14 @@ def phase_theta_burgers_node(device):
                     "peak_gib": peak / 2**30}
 
 
-def phase_theta_pendulum(device, n_iters=20):
+def phase_theta_pendulum(device, n_iters=10):
     """9(e): examples/pendulum_dae_torch.py through its main() (M =
-    diag(1,1,1,1,0), CN with GMRES through the mass matrix, AdamW), 20
-    iterations on the card at its default fp32: finite losses, the last
-    below the first, the constraint violation reports; the first loss
-    within 1e-5 relative of the port's CPU fp64 run's (the trainer draws
-    its weights in fp64 from a CPU generator, so both runs start from the
-    same net)."""
+    diag(1,1,1,1,0), CN with GMRES through the mass matrix, AdamW), 10
+    iterations on the card at its default fp32 (~5 s each): finite
+    losses, the last below the first, the constraint violation reports;
+    the first loss within 1e-5 relative of the port's CPU fp64 run's (the
+    trainer draws its weights in fp64 from a CPU generator, so both runs
+    start from the same net)."""
     import torch
 
     import pnode_tpu_torch as pt
@@ -4313,7 +4344,7 @@ def phase_theta_pendulum(device, n_iters=20):
     def run(dev, n, *flags):
         pt.clear_options()
         return pend.main(["--device", dev, "--niters", str(n), "--test_freq",
-                          "10", "--train_dir", train_dir, *flags])
+                          "5", "--train_dir", train_dir, *flags])
 
     t0 = time.perf_counter()
     out = run(device, n_iters)
@@ -4916,6 +4947,504 @@ def phase_slice5(device, u):
     return launches, trace, k1
 
 
+# -- phase 11: the adaptive path's policies, disk, bf16 storage and states ----
+
+ADAPT_POLICY_FLAGS = ["-ts_adapt_type", "basic", "-ts_rtol", "1e-4",
+                      "-ts_atol", "1e-4", "-ts_adapt_max_steps", "64"]
+ADAPT_SLOTS, ADAPT_CPS, ADAPT_EVERY, DISK_CHUNK = 64, 4, 2, 16
+DISK_DIR = os.path.join(ROOT, "build", "ts_trajectory")
+BF16 = ["-pnode_trajectory_dtype", "bfloat16"]
+ADAPT_POLICIES = {
+    "store_all": [],
+    "solution_only": ["-ts_trajectory_solution_only", "1"],
+    "checkpoint": ["-ts_trajectory_max_cps_ram", str(ADAPT_CPS)],
+    "revolve": ["-ts_trajectory_max_cps_ram", str(ADAPT_CPS),
+                "-ts_trajectory_schedule", "revolve"],
+    "cams": ["-ts_trajectory_max_cps_ram", str(ADAPT_CPS),
+             "-ts_trajectory_schedule", "cams"],
+    "disk": ["-ts_trajectory_type", "disk", "-ts_trajectory_dirname",
+             DISK_DIR, "-pnode_disk_chunk", str(DISK_CHUNK)],
+}
+
+
+def adaptive_policy_case(u, batch=BATCH, seed=11):
+    """(y0, targets (5, B, 64), output times 0, 0.4, ..., 2.0): a window of
+    the KS data, the targets every ADAPT_EVERY-th data step."""
+    rng = np.random.default_rng(seed)
+    n = 5 * ADAPT_EVERY
+    s = rng.choice(len(u) - n, size=batch, replace=False)
+    tgt = np.stack([u[s + ADAPT_EVERY * j] for j in range(1, 6)])
+    return u[s], tgt, np.arange(6) * ADAPT_EVERY * DT
+
+
+def adaptive_policy_gradient(device, state0, policy, case, flags=()):
+    """One gradient of the window's MSE through odeint_adjoint under the
+    adaptive controller and ``policy``: (loss, dL/dy0, dL/dtheta flat,
+    stats, (ode, ex, y, tg))."""
+    import torch
+
+    y0, tgt, t_out = case
+    ode, ex, _ = build_trainer(
+        device, state0, fused=True,
+        flags=ADAPT_POLICY_FLAGS + ADAPT_POLICIES[policy] + list(flags))
+    if ode.traj.kind != policy:
+        raise AssertionError(f"{policy}: the solver took {ode.traj.kind}")
+    y = torch.as_tensor(y0, dtype=torch.float32, device=device)
+    y.requires_grad_(True)
+    tg = torch.as_tensor(tgt, dtype=torch.float32, device=device)
+    loss = torch.mean((ode.odeint_adjoint(y, t_out)[1:] - tg) ** 2)
+    loss.backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in ex.parameters()])
+    return (loss.detach(), y.grad.detach(), flat.detach(), ode.last_stats,
+            (ode, ex, y, tg))
+
+
+def gated_cams_cost(plan_rev, live):
+    """(re-steps, stage recomputes) of CAMS's reverse plan over the trial
+    slots when a rejected or unreached slot computes nothing: ADVANCE and
+    CAPTURE step the live slots they pass, REVERSE recomputes a live
+    slot's stages inside step_adj."""
+    from pnode_tpu_torch import cams
+
+    alive = lambda k: k < len(live) and live[k]  # noqa: E731
+    resteps = inner = node = 0
+    for op, k in plan_rev:
+        if op == cams.RESTORE:
+            node = k
+        elif op == cams.ADVANCE:
+            resteps += sum(1 for j in range(node, k) if alive(j))
+            node = k
+        elif op == cams.CAPTURE:
+            resteps += alive(k)
+            node = k + 1
+        elif op == cams.REVERSE:
+            inner += alive(k)
+    return resteps, inner
+
+
+def adaptive_costs(acc, c, w):
+    """(re-steps, stage recomputes) after the forward's trials that each
+    policy costs over the accepted trials (``acc``: the accept flag per
+    trial): revolve plans over the n accepted trials; checkpoint steps each
+    accepted trial once more; CAMS walks cams_plan(64 slots, c, w) gated;
+    solution_only and disk recompute each accepted trial's stages."""
+    from pnode_tpu_torch import cams, revolve
+
+    n = int(sum(acc))
+    _, rev = cams.cams_plan(ADAPT_SLOTS, c, w)
+    return {"store_all": (0, 0), "solution_only": (0, n), "checkpoint": (n, 0),
+            "revolve": (revolve.optimal_cost(n, c), n),
+            "cams": gated_cams_cost(rev, acc), "disk": (0, n)}
+
+
+def phase_adaptive_policies(device, u):
+    """11(a) and (b): every trajectory policy under the adaptive controller
+    on the KS kernel path (K2 with err, K2, K3) and the generic path (K1),
+    bitwise store_all's; bf16-compressed storage within bf16 distance."""
+    import shutil
+
+    import torch
+
+    from pnode_tpu_torch import cams
+    from pnode_tpu_torch.models import KSFuncEX
+    from pnode_tpu_torch.ops.fused_ark_adjoint import fused_ark_step_adj
+    from pnode_tpu_torch.ops.fused_ark_forward import (
+        fused_ark_step_fwd, fused_ark_step_fwd_embedded)
+    from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+
+    init = KSFuncEX(nx=NX, hidden=HIDDEN, use_fused=True, device=device,
+                    generator=torch.Generator(device=device).manual_seed(0))
+    state0 = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    case = adaptive_policy_case(u)
+    w = cams.stage_weight(4 * BATCH * NX, BATCH * NX)  # ARK3's 4 stages
+    log(f"[adapt-traj] KS IMEX B {BATCH}, MLP {NX} -> {HIDDEN} x4 -> {NX}, "
+        f"seed-0 weights, outputs at t = "
+        f"{[round(float(x), 6) for x in case[2]]}, "
+        f"rtol = atol = 1e-4, "
+        f"{ADAPT_SLOTS} trial slots, c {ADAPT_CPS}, CAMS stage weight {w}, "
+        f"disk chunk {DISK_CHUNK}")
+    wrappers = {"fused_mlp_fwd": fused_mlp_fwd, "fused_mlp_bwd": fused_mlp_bwd,
+                "fused_ark_step_fwd": fused_ark_step_fwd,
+                "fused_ark_step_fwd_embedded": fused_ark_step_fwd_embedded,
+                "fused_ark_step_adj": fused_ark_step_adj}
+    for wr in wrappers.values():
+        wr.launches = 0
+    results, readings, costs = {}, {}, {}
+    routes = (("kernels", ()), ("generic", ("-pnode_fused_ark_adjoint", "off")))
+    for route, flags in routes:
+        for policy in ADAPT_POLICIES:
+            with StepCounter() as cnt:
+                loss, gy, gp, st, (ode, ex, y, tg) = adaptive_policy_gradient(
+                    device, state0, policy, case, flags)
+            if not st.completed:
+                raise AssertionError(f"{route} {policy}: the controller did "
+                                     f"not reach t = 2.0 in {ADAPT_SLOTS} "
+                                     "trials")
+            if route not in costs:  # the accept flags, from one forward
+                fn = ode._get_adaptive_fn(case[2], True)
+                with torch.no_grad():
+                    _, _, trials = fn.forward_for_test(y.detach(),
+                                                       ode._get_params())
+                costs[route] = adaptive_costs(trials.acc, ADAPT_CPS, w)
+            results[(route, policy)] = (loss, gy, gp, st)
+            got = (cnt.steps, cnt.inner)
+            if got != costs[route][policy]:
+                raise AssertionError(
+                    f"{route} {policy}: {got} re-steps and stage recomputes "
+                    f"after the trials, the plan costs "
+                    f"{costs[route][policy]}")
+            if route != "kernels":
+                continue
+
+            def run(ode=ode, ex=ex, y=y, tg=tg):
+                for p in ex.parameters():
+                    p.grad = None
+                y.grad = None
+                torch.mean((ode.odeint_adjoint(y, case[2])[1:] - tg)
+                           ** 2).backward()
+
+            secs, peak = traj_timed(run)
+            readings[policy] = {"s": secs, "peak_mib": peak / 2**20,
+                                "resteps": got[0], "recomputes": got[1]}
+    counts = {k: wr.launches for k, wr in wrappers.items()}
+    for route, _ in routes:
+        ref = results[(route, "store_all")]
+        st = ref[3]
+        log(f"[adapt-traj] {route}: {st.accepted} accepted and {st.rejected} "
+            f"rejected trials, dt_first {st.dt_first:.4e}")
+        for policy in ADAPT_POLICIES:
+            loss, gy, gp, _ = results[(route, policy)]
+            same = (torch.equal(loss, ref[0]) and torch.equal(gy, ref[1])
+                    and torch.equal(gp, ref[2]))
+            log(f"[adapt-traj] {route} {policy}: loss {float(loss):.9e}, "
+                f"dL/dy0 and dL/dtheta {'bitwise' if same else 'NOT bitwise'}"
+                f" store_all's (rel {norm_err(gy, ref[1]):.3e}, "
+                f"{norm_err(gp, ref[2]):.3e}); re-steps and stage recomputes "
+                f"{costs[route][policy]}")
+            if not same:
+                raise AssertionError(f"{route} {policy}: the gradient is not "
+                                     "store_all's bit for bit")
+            if not bool(torch.isfinite(loss)):
+                raise AssertionError(f"{policy}: non-finite loss")
+    base = readings["store_all"]
+    for policy, r in readings.items():
+        log(f"[adapt-traj] kernels {policy}: {r['s'] * 1e3:.3f} ms per "
+            f"gradient (best of 3, {r['s'] / base['s']:.3f}x store_all's), "
+            f"peak {r['peak_mib']:.3f} MiB above the pre-solve baseline "
+            f"({r['peak_mib'] / base['peak_mib']:.3f}x), {r['resteps']} "
+            f"re-steps + {r['recomputes']} stage recomputes")
+    log(f"[adapt-traj] launches over (a): {counts}")
+    need = ("fused_ark_step_fwd_embedded", "fused_ark_step_fwd",
+            "fused_ark_step_adj", "fused_mlp_fwd", "fused_mlp_bwd")
+    if min(counts[k] for k in need) <= 0:
+        raise AssertionError("K2 (with err or without), K3 or K1 was never "
+                             "launched on the adaptive policies' path")
+    if os.path.isdir(DISK_DIR) and os.listdir(DISK_DIR):
+        raise AssertionError(f"the disk policy left {os.listdir(DISK_DIR)}")
+
+    # (b) bf16-compressed storage on the kernel path
+    exact = results[("kernels", "store_all")]
+    for wr in wrappers.values():
+        wr.launches = 0
+    for policy in ("store_all", "solution_only", "revolve"):
+        loss, gy, gp, _, (ode, ex, y, tg) = adaptive_policy_gradient(
+            device, state0, policy, case, BF16)
+
+        def run(ode=ode, ex=ex, y=y, tg=tg):
+            for p in ex.parameters():
+                p.grad = None
+            y.grad = None
+            torch.mean((ode.odeint_adjoint(y, case[2])[1:] - tg)
+                       ** 2).backward()
+
+        secs, peak = traj_timed(run)
+        errs = (rel_err(loss, exact[0]), norm_err(gy, exact[1]),
+                norm_err(gp, exact[2]))
+        log(f"[adapt-traj] (b) {policy} with bf16 storage: loss rel "
+            f"{errs[0]:.3e}, dL/dy0 {errs[1]:.3e}, dL/dtheta {errs[2]:.3e} "
+            f"(norm-wise, against the exact store_all; tol 2e-2); "
+            f"{secs * 1e3:.3f} ms per gradient, peak {peak / 2**20:.3f} MiB "
+            f"(fp32 storage: {readings[policy]['peak_mib']:.3f})")
+        if not max(errs) <= 2e-2:
+            raise AssertionError(f"{policy} with bf16 storage is not within "
+                                 "bf16 distance of the exact gradient")
+    counts_b = {k: wr.launches for k, wr in wrappers.items()}
+    log(f"[adapt-traj] launches over (b): {counts_b}")
+    shutil.rmtree(DISK_DIR, ignore_errors=True)
+    return {k: counts[k] + counts_b[k] for k in counts}
+
+
+def max_leaf_diff(got, ref):
+    """(max |got - ref| over every leaf, max |ref|): the reference's gate
+    numbers."""
+    num = max(abs_err(a, b) for a, b in zip(got, ref))
+    den = max(float(b.detach().abs().max()) for b in ref)
+    return num, den
+
+
+def phase_disk_gates(device):
+    """11(c): the reference's two disk gates (tools/hardware_smoke.py:427-
+    505). The explicit disk driver against the in-memory adjoint: the KS
+    IMEX model at B 16, nx 16, hidden 24 (kernels on) over 12 steps with an
+    interior output, chunk 5; the adaptive dopri5 solve of the MLP alone
+    (rtol 1e-3, atol 1e-5, 48 trial slots), chunk 16. Each: max grad diff
+    < 1e-3 x the gradient's scale."""
+    import shutil
+
+    import torch
+
+    import pnode_tpu_torch as pt
+    from pnode_tpu_torch.models import KSFuncEX, KSFuncIM
+
+    Bd, dd = 16, 16
+    gen = torch.Generator(device=device)
+    im = KSFuncIM(nx=dd, device=device)
+    ex = KSFuncEX(nx=dd, hidden=24, use_fused=True, device=device,
+                  generator=gen.manual_seed(3))
+    y8 = torch.randn(Bd, dd, device=device, generator=gen.manual_seed(4))
+    params = dict(ex.named_parameters())
+    gates = {}
+
+    pt.clear_options()
+    pt.init(["chip_smoke", "-snes_type", "ksponly", "-ts_trajectory_dirname",
+             DISK_DIR])
+    ode = pt.ODESolver()
+    ode.setupTS(torch.zeros(Bd, dd, device=device), pt.TorchFunc(im),
+                step_size=DT, method="imex", imex_form=True,
+                implicit_form=True, func2=pt.TorchFunc(ex),
+                linear_solver="hpddm", fixed_jacobian=True, batch_size=Bd)
+    t8 = np.array([0.0, 1.2, 2.4])  # 12 steps, interior output forcing
+    loss8 = lambda o: torch.mean(o[1:] ** 2)  # noqa: E731
+    for p in ex.parameters():
+        p.grad = None
+    loss8(ode.odeint_adjoint(y8, t8)).backward()
+    g_mem = [p.grad.clone() for p in ex.parameters()]
+    dsk = ode.disk_trajectory_solver(t8, chunk=5)  # ragged chunks
+    _, (_, g_dsk) = dsk.value_and_grad(loss8, y8, ode._get_params())
+    dsk.close()
+    gates["disk"] = max_leaf_diff(list(g_dsk[1].values()), g_mem)
+
+    pt.clear_options()
+    pt.init(["chip_smoke", "-ts_adapt_type", "basic", "-ts_rtol", "1e-3",
+             "-ts_atol", "1e-5", "-ts_adapt_max_steps", "48",
+             "-ts_trajectory_dirname", DISK_DIR])
+    ode9 = pt.ODESolver()
+    ode9.setupTS(torch.zeros(Bd, dd, device=device), pt.TorchFunc(ex),
+                 step_size=0.05, method="dopri5")
+    t9 = np.array([0.0, 0.5])
+    loss9 = lambda o: torch.mean(o[-1] ** 2)  # noqa: E731
+    for p in ex.parameters():
+        p.grad = None
+    loss9(ode9.odeint_adjoint(y8, t9)).backward()
+    g_mem9 = [p.grad.clone() for p in ex.parameters()]
+    dsk9 = ode9.disk_trajectory_solver(t9, chunk=16)
+    _, (_, g_dsk9) = dsk9.value_and_grad(loss9, y8, params)
+    dsk9.close()
+    gates["adaptive disk"] = max_leaf_diff(list(g_dsk9.values()), g_mem9)
+    shutil.rmtree(DISK_DIR, ignore_errors=True)
+    for name, (num, den) in gates.items():
+        log(f"[disk] (c) {name} trajectory adjoint vs in-memory: max grad "
+            f"diff {num:.3e} on scale {den:.3e} (gate < 1e-3 x scale)")
+        if not num < 1e-3 * max(den, 1e-6):
+            raise AssertionError(f"the {name} gate failed")
+    return gates
+
+
+BF16_METHODS = {"rk4": 2e-2, "dopri5": 2e-2, "cn": 2e-2, "beuler": 2e-2}
+
+
+def phase_bf16_state(device):
+    """11(d): a bf16 state on the card, tests/test_bf16_state.py's shapes
+    (4 x 8, y0 linspace(0.1, 1)): each method's dL/dw and the IMEX, frozen-
+    Jacobian block-solver and adaptive cases against fp32 at that file's
+    tolerances; the state stays bf16, the parameter gradients fp32."""
+    import torch
+
+    import pnode_tpu_torch as pt
+
+    y32 = torch.linspace(0.1, 1.0, 32, device=device).reshape(4, 8)
+
+    def run(dtype, setup, f_im, f_ex=None, w0=None, t_out=(1.0,), flags=()):
+        pt.clear_options()
+        pt.init(["chip_smoke"] + list(flags))
+        y0 = y32.to(dtype)
+        master = (torch.tensor(0.5 if f_ex is None else 0.8, device=device)
+                  if w0 is None else w0.clone()).requires_grad_(True)
+        ode = pt.ODESolver()
+        if f_ex is None:
+            ode.setupTS(y0, pt.Func(f_im, {"w": master.detach()}), **setup)
+            params = {"w": master}
+        else:
+            ode.setupTS(y0, pt.Func(f_im, {}),
+                        func2=pt.Func(f_ex, {"w": master.detach()}), **setup)
+            params = ({}, {"w": master.to(dtype) if w0 is not None
+                           else master})
+        s, _ = ode.solve(y0, np.asarray(t_out), params=params)
+        s[-1].float().sum().backward()
+        return s.detach(), master.grad
+
+    def tanh_w(t, y, p):
+        return torch.tanh(y) * p["w"]
+
+    cases = {m: (dict(step_size=0.25, method=m), tanh_w, None, None, (1.0,),
+                 (), tol, 0.0) for m, tol in BF16_METHODS.items()}
+    imex = dict(step_size=0.25, method="imex", imex_form=True,
+                implicit_form=True)
+    cases["imex"] = (imex, lambda t, y, p: -0.5 * y,
+                     lambda t, y, p: torch.sin(y) * p["w"], None, (1.0,), (),
+                     3e-2, 0.0)
+    cases["frozen J block"] = (
+        dict(imex, linear_solver="hpddm", fixed_jacobian=True, batch_size=4),
+        lambda t, y, p: 40.0 * (torch.roll(y, 1, -1) - 2 * y
+                                + torch.roll(y, -1, -1)),
+        lambda t, y, p: torch.tanh(y @ p["w"].to(y.dtype)),
+        0.3 * torch.eye(8, device=device), (0.5,), ("-snes_type", "ksponly"),
+        5e-2, 5e-3)
+    cases["adaptive dopri5"] = (
+        dict(step_size=0.1, method="dopri5"), tanh_w, None, None, (0.0, 1.0),
+        ("-ts_adapt_type", "basic", "-ts_rtol", "1e-2", "-ts_atol", "1e-2"),
+        5e-2, 0.0)
+    out = {}
+    for name, (setup, f_im, f_ex, w0, t_out, flags, rtol, atol) in \
+            cases.items():
+        sol_b, g_b = run(torch.bfloat16, setup, f_im, f_ex, w0, t_out, flags)
+        sol_f, g_f = run(torch.float32, setup, f_im, f_ex, w0, t_out, flags)
+        err = rel_err(g_b, g_f)
+        ok = (sol_b.dtype == torch.bfloat16 and g_b.dtype == torch.float32
+              and bool(torch.isfinite(sol_b.float()).all())
+              and torch.allclose(g_b.double(), g_f.double(), rtol=rtol,
+                                 atol=atol))
+        if name == "adaptive dopri5":
+            ok = ok and torch.allclose(sol_b[-1].float(), sol_f[-1],
+                                       rtol=3e-2, atol=3e-2)
+        log(f"[bf16] (d) {name}: state {sol_b.dtype}, dL/dw {g_b.dtype}; "
+            f"dL/dw bf16 against fp32: max |diff| / max |fp32| {err:.3e} "
+            f"(gate: rtol {rtol}, atol {atol} elementwise)")
+        if not ok:
+            raise AssertionError(f"the bf16 state's {name} case disagrees "
+                                 "with fp32")
+        out[name] = err
+    return out
+
+
+DP_REVOLVE = ["-ts_trajectory_max_cps_ram", "3", "-ts_trajectory_schedule",
+              "revolve"]
+
+
+def dp_revolve_case(u, batch=BATCH, seed=13):
+    """(y0, targets (2, B, 64), t_out [0, 1, 2]): a 10-step window of the
+    KS data, the targets at steps 5 and 10."""
+    rng = np.random.default_rng(seed)
+    s = rng.choice(len(u) - 10, size=batch, replace=False)
+    return u[s], np.stack([u[s + 5], u[s + 10]]), np.array([0.0, 1.0, 2.0])
+
+
+def dp_revolve_grads(device, state, y0, tgt, t_out, mesh=None):
+    """(loss, flat gradient, trajectory kind, K2/K3 launches) of the KS
+    window's MSE under revolve c 3 on the kernel path, on the whole batch
+    or (``mesh``) this rank's shard meaned over the mesh by
+    dp_value_and_grad."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_ark_adjoint import fused_ark_step_adj
+    from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd
+    from pnode_tpu_torch.parallel import dp_value_and_grad, shard_batch
+
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device=device)
+    batch = (f32(y0), f32(tgt).transpose(0, 1))  # rows first, to shard
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    ode, ex, _ = build_trainer(device, {k: f32(v) for k, v in state.items()},
+                               fused=True, flags=DP_REVOLVE,
+                               batch=batch[0].shape[0])
+    params = list(ex.parameters())
+
+    def loss_fn(prm, b):
+        pred = ode.odeint_adjoint(b[0], t_out)
+        return torch.mean((pred[1:] - b[1].transpose(0, 1)) ** 2)
+
+    fused_ark_step_fwd.launches = fused_ark_step_adj.launches = 0
+    if mesh is None:
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+    else:
+        loss, grads = dp_value_and_grad(loss_fn, mesh)(params, batch)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    return (float(loss), flat.cpu().numpy(), ode.traj.kind,
+            (fused_ark_step_fwd.launches, fused_ark_step_adj.launches))
+
+
+def dp_revolve_rank(device, state, y0, tgt, t_out):
+    """One rank of 11(e): the flat mesh of every rank."""
+    from pnode_tpu_torch.parallel import make_mesh
+
+    return dp_revolve_grads(device, state, y0, tgt, t_out, make_mesh())
+
+
+def phase_dp_revolve(device, u):
+    """11(e): dp_value_and_grad under revolve checkpointing on a gloo group
+    of 2 processes on the one card, each rank 128 rows of the B 256 window,
+    against the single process on the whole batch: the loss within rtol
+    1e-5 and the gradient within 1e-4 norm-wise, every rank on revolve and
+    launching K2 and K3, the ranks' gradients bitwise equal."""
+    import torch
+
+    from pnode_tpu_torch.models import KSFuncEX
+    from pnode_tpu_torch.parallel import run_ranks
+
+    init = KSFuncEX(nx=NX, hidden=HIDDEN, use_fused=True, device=device,
+                    generator=torch.Generator(device=device).manual_seed(0))
+    state = {k: v.detach().cpu().numpy() for k, v in init.state_dict().items()}
+    y0, tgt, t_out = dp_revolve_case(u)
+    loss1, g1, kind1, launches1 = dp_revolve_grads(device, state, y0, tgt,
+                                                   t_out)
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, dp_revolve_rank, state, y0, tgt, t_out,
+                      backend="gloo", device=device, timeout=300.0)
+    wall = time.perf_counter() - t0
+    errs = [(abs(r[0] - loss1) / abs(loss1),
+             float(np.linalg.norm(r[1] - g1) / np.linalg.norm(g1)))
+            for r in ranks]
+    same = all(np.array_equal(r[1], ranks[0][1]) for r in ranks)
+    log(f"[dp-revolve] (e) 2 gloo ranks on the one card ({wall:.1f} s with "
+        f"the spawn), revolve c 3 over 10 steps: loss {ranks[0][0]:.9e} "
+        f"against the single process's {loss1:.9e}; per rank (loss rel, "
+        f"gradient rel) {errs}; ranks' gradients "
+        f"{'bitwise equal' if same else 'DIFFERENT'}; kinds "
+        f"{[r[2] for r in ranks]}; K2, K3 launches per rank "
+        f"{[r[3] for r in ranks]} (single process {launches1})")
+    ok = (same and kind1 == "revolve"
+          and all(r[2] == "revolve" and min(r[3]) > 0 for r in ranks)
+          and max(e[0] for e in errs) <= 1e-5
+          and max(e[1] for e in errs) <= 1e-4)
+    if not ok:
+        raise AssertionError("DP under revolve disagrees with the single "
+                             "process")
+    return {"fused_ark_step_fwd": sum(r[3][0] for r in ranks),
+            "fused_ark_step_adj": sum(r[3][1] for r in ranks)}
+
+
+def phase_slice5b(device, u):
+    """Phase 11: the adaptive path's policies (a), bf16 storage (b), the
+    disk gates (c), bf16 states (d) and DP under revolve (e). Returns the
+    launches over (a), (b) and (e) by kernel."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[adapt-traj] phase 11 on {smi.splitlines()[0]}")
+    launches = phase_adaptive_policies(device, u)
+    phase_disk_gates(device)
+    phase_bf16_state(device)
+    for k, c in phase_dp_revolve(device, u).items():
+        launches[k] += c
+    log(f"[adapt-traj] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -4945,6 +5474,7 @@ def main():
     reports["fused_grad_step"], counts["fused_grad_step"] = phase_dp("cuda", u)
     theta_launches, _ = phase_theta("cuda", u)
     slice5_launches, replay, k1_ks = phase_slice5("cuda", u)
+    slice5b_launches = phase_slice5b("cuda", u)
     reports["probe_smem"] = probe_report
     counts["probe_smem"] = probe_report["launches"]
     kernels = []
@@ -4966,6 +5496,8 @@ def main():
             kernels[-1]["theta_launches"] = theta_launches[name]
         if name in slice5_launches:  # launches over phase 10's paths
             kernels[-1]["slice5_launches"] = slice5_launches[name]
+        if name in slice5b_launches:  # launches over phase 11's paths
+            kernels[-1]["slice5b_launches"] = slice5b_launches[name]
         if name in k1_ks:  # K1's device time per call at the KS stack
             kernels[-1]["device_ms"] = k1_ks[name]
         mine = {k: {"us_per_launch": us, "launches": per}

@@ -29,6 +29,7 @@ from .options import Options, clear_options, init, options_left, set_option  # n
 from .modules import DynamicsModule, Func, TorchFunc, as_dynamics  # noqa: E402
 from .solver import ODESolver, ODEPnode  # noqa: E402
 from .adjoint import TrajectoryConfig  # noqa: E402
+from .disk_host import HostDiskTrajectory  # noqa: E402
 from .tableaus import get_ark_tableau, get_rk_tableau  # noqa: E402
 from .linsolve import gmres  # noqa: E402
 
@@ -47,6 +48,7 @@ __all__ = [
     "TorchFunc",
     "as_dynamics",
     "TrajectoryConfig",
+    "HostDiskTrajectory",
     "get_rk_tableau",
     "get_ark_tableau",
     "gmres",

@@ -15,7 +15,9 @@ discrete adjoint and fills the parameters' ``.grad``.
 Runtime options override programmatic choices (setFromOptions-last):
 ``-ts_type``, ``-ts_rk_type``, ``-ts_arkimex_type``, ``-ts_max_steps``,
 ``-ts_trajectory_solution_only``, ``-ts_trajectory_max_cps_ram`` with
-``-ts_trajectory_schedule uniform|revolve|cams`` (``adjoint.py``),
+``-ts_trajectory_schedule uniform|revolve|cams``, ``-ts_trajectory_type
+memory|disk`` with ``-ts_trajectory_dirname`` and ``-pnode_disk_chunk``,
+``-pnode_trajectory_dtype`` (bf16/bfloat16 storage; ``adjoint.py``),
 ``-snes_type``, ``-snes_rtol``,
 ``-snes_atol``, ``-snes_stol``, ``-snes_max_it``, ``-snes_ksponly_check``,
 ``-pnode_linear_solver``, and the adaptive controller's ``-ts_adapt_type
@@ -26,13 +28,14 @@ basic|pi``, ``-ts_rtol``, ``-ts_atol``, ``-ts_adapt_safety``,
 (also under the ``-pnode_inner_`` prefix). The port runs the explicit RK
 methods (euler, rk2, bosh3, rk4, dopri5, ...), the theta methods
 (``beuler``/``be``, ``cn``/``theta``; ``mass=`` makes them DAE solvers) and
-the IMEX method, on fixed steps with every in-memory trajectory policy
-(store_all, solution_only, checkpoint, revolve, CAMS) or under the
-controller with store_all and solution_only; disk and compressed
-trajectories, and the controller's checkpointed policies, raise
-``NotImplementedError`` naming their ROADMAP slice. ``solve(...,
-with_adjoint=False)`` (and ``odeint``) runs the step loop under autograd,
-so its outputs are differentiable by plain autograd through the steps.
+the IMEX method, on fixed steps or under the controller, with every
+trajectory policy (store_all, solution_only, checkpoint, revolve, CAMS,
+disk), compressed or not, on the card and on the CPU; a bf16 state is
+carried and stored at bf16 with the stage math at fp32.
+``disk_trajectory_solver(t)`` returns the explicit disk driver
+(``disk_host.py``). ``solve(..., with_adjoint=False)`` (and ``odeint``)
+runs the step loop under autograd, so its outputs are differentiable by
+plain autograd through the steps.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .adjoint import TrajectoryConfig, make_odeint
+from .adjoint import TrajectoryConfig, make_odeint, storage_dtype
 from .grid import build_time_grid
 from .linsolve import LinearSolveConfig, normalize_linear_solver_name
 from .modules import as_dynamics
@@ -203,23 +206,18 @@ class ODESolver:
         for name in ("pnode_revolve_executor", "pnode_cams_executor"):
             self.opts.get_string(name, "auto")
         tt = self.opts.get_string("ts_trajectory_type", "memory")
-        if tt == "disk" or self.opts.get_string("pnode_trajectory_dtype", ""):
-            raise NotImplementedError(
-                "disk and compressed (-pnode_trajectory_dtype) trajectories "
-                "are ROADMAP queue A slice 5(b); the port runs store_all, "
-                "solution_only and -ts_trajectory_max_cps_ram c with "
-                "-ts_trajectory_schedule uniform|revolve|cams")
-        if tt != "memory":
+        if tt == "disk":
+            # stream the states to a memmap (PETSc's default trajectory
+            # backend): the port's eager loop runs it on the card and on
+            # the CPU alike, where the JAX package substitutes CAMS on TPU
+            traj_kind = "disk"
+        elif tt != "memory":
             warnings.warn(f"-ts_trajectory_type {tt!r} unknown; using memory")
-        self.traj = TrajectoryConfig(kind=traj_kind, max_cps=max_cps or 0)
-
+        store_dtype = self.opts.get_string("pnode_trajectory_dtype", "")
+        storage_dtype(store_dtype)  # refuse an unknown name here
+        self.traj = TrajectoryConfig(kind=traj_kind, max_cps=max_cps or 0,
+                                     store_dtype=store_dtype)
         self.adapt_type = self.opts.get_string("ts_adapt_type", "none")
-        if (self.adapt_type not in (None, "none")
-                and traj_kind in ("checkpoint", "revolve", "cams")):
-            raise NotImplementedError(
-                "the adaptive path's checkpoint, revolve and CAMS policies "
-                "are ROADMAP queue A slice 5(b); under -ts_adapt_type the "
-                "port runs store_all and solution_only")
         self.max_steps = self.opts.get_int("ts_max_steps", 1_000_000)
 
         self._cache.clear()
@@ -379,6 +377,36 @@ class ODESolver:
         self.nfe_forward += grid.n_steps * self._stepper.nfe_per_step
         self.last_stats = stats
         return outputs[sel], stats
+
+    def disk_trajectory_solver(self, t, chunk: Optional[int] = None):
+        """The explicit disk driver for the step schedule of ``t``: a
+        ``disk_host.HostDiskTrajectory`` bound to this solver's stepper, or
+        under ``-ts_adapt_type`` an ``AdaptiveHostDiskTrajectory`` over the
+        controller's trial axis. ``.solve(y0, params)`` writes every step's
+        state to a memmap in ``-ts_trajectory_dirname``;
+        ``.adjoint_solve(g_outputs, params)`` and ``.value_and_grad(loss_fn,
+        y0, params)`` read it back (the reference's TSSolve /
+        TSAdjointSolve loop, outside autograd). ``chunk`` (or
+        ``-pnode_disk_chunk``, default 64) bounds the states on the device;
+        ``-pnode_trajectory_dtype`` compresses the memmap."""
+        if not self._configured:
+            raise RuntimeError("call setupTS before disk_trajectory_solver")
+        from .disk_host import (
+            AdaptiveHostDiskTrajectory, HostDiskTrajectory, disk_options)
+
+        t_full, sel = self._prep_times(t)
+        dirname, default_chunk = disk_options(self.opts)
+        chunk = default_chunk if chunk is None else chunk
+        kw = dict(dirname=dirname, chunk=chunk,
+                  store_dtype=self.traj.store_dtype, sel=sel,
+                  dtype=self.dtype)
+        if self.adapt_type not in (None, "none"):
+            cfg, dt0 = self._build_adapt_cfg()
+            return AdaptiveHostDiskTrajectory(self._stepper, t_full, cfg, dt0,
+                                              **kw)
+        grid = build_time_grid(t_full, self.step_size,
+                               max_steps=self.max_steps)
+        return HostDiskTrajectory(self._stepper, grid, **kw)
 
     # -- reference-parity entry points ----------------------------------
 

@@ -156,16 +156,27 @@ class ExplicitRK:
         """Per-solve setup hook (nothing to do for explicit methods)."""
         return self
 
+    def static_newton_iters(self):
+        """Newton iterations of one step: none, whatever the data."""
+        return 0
+
     def step(self, t, dt, y, params):
         a, b, c = self._a, self._b, self._c
+        # stage math at promote_types(y, fp32): a bf16 state's increments
+        # are summed at fp32, and f sees its stage values at bf16
+        work = torch.promote_types(y.dtype, torch.float32)
+        low = y.dtype != work
+        yw = y.to(work)
         ks = []
         for i in range(self.tab.stages):
-            Yi = y
+            Yi = yw
             for j in range(i):
                 if a[i][j] != 0.0:
                     Yi = Yi + (dt * a[i][j]) * ks[j]
-            ks.append(self.f(t + c[i] * dt, Yi, params))
-        y1 = y
+            ks.append(_at_least(self.f(t + c[i] * dt,
+                                       Yi.to(y.dtype) if low else Yi,
+                                       params), work))
+        y1 = yw
         for i, k in enumerate(ks):
             if b[i] != 0.0:
                 y1 = y1 + (dt * b[i]) * k
@@ -173,13 +184,15 @@ class ExplicitRK:
         return y1.to(y.dtype), torch.stack(ks).to(y.dtype), StepStats(0, True)
 
     def step_embedded(self, t, dt, y, params):
-        """Step plus the embedded error estimate: (y1, err, aux, stats)."""
+        """Step plus the embedded error estimate: (y1, err, aux, stats),
+        err at promote_types(y, fp32)."""
         if self._berr is None:
             raise ValueError(f"RK tableau {self.tab.name!r} has no embedded "
                              "weights; -ts_adapt_type basic needs bosh3 or "
                              "dopri5")
         y1, aux, stats = self.step(t, dt, y, params)
-        err = torch.zeros_like(y)
+        work = torch.promote_types(y.dtype, torch.float32)
+        err = torch.zeros_like(y, dtype=work)
         for i in range(self.tab.stages):
             d = self._b[i] - self._berr[i]
             if d != 0.0:
@@ -198,29 +211,42 @@ class ExplicitRK:
         return Ys
 
     def step_adj(self, t, dt, y, params, aux, lam):
+        """The transposed-RK recursion at promote_types(y, fp32); each vjp
+        at the stage value in the state's dtype, its seed cast to f's
+        output dtype (``_vjp``); parameter gradients at their own dtype."""
         a, b, c = self._a, self._b, self._c
         s = self.tab.stages
         if aux is None:
             _, aux, _ = self.step(t, dt, y, params)
-        Ys = self._stage_values(dt, y, [aux[i] for i in range(s)])
+        work = torch.promote_types(y.dtype, torch.float32)
+        low = y.dtype != work
+        Ys = self._stage_values(dt, y.to(work),
+                                [aux[i].to(work) for i in range(s)])
+        lamw = lam.to(work)
         xis: list = [None] * s
         gp = tree_zeros_like(params)
-        lam_prev = lam
+        lam_prev = lamw
         for i in range(s - 1, -1, -1):
             if not self._adj_active[i]:
                 continue
-            u = (dt * b[i]) * lam
+            u = (dt * b[i]) * lamw
             for m in range(i + 1, s):
                 if a[m][i] != 0.0 and xis[m] is not None:
                     u = u + (dt * a[m][i]) * xis[m]
             ti = t + c[i] * dt
-            _, vjp = _vjp(lambda yy, pp, ti=ti: self.f(ti, yy, pp), Ys[i],
-                          params)
+            _, vjp = _vjp(lambda yy, pp, ti=ti: self.f(ti, yy, pp),
+                          Ys[i].to(y.dtype) if low else Ys[i], params)
             dly, dlp = vjp(u)
+            dly = _at_least(dly, work)
             xis[i] = dly
             gp = tree_add(gp, dlp)
             lam_prev = lam_prev + dly
         return lam_prev.to(lam.dtype), gp
+
+
+def _at_least(x, dtype):
+    """x at promote_types(x.dtype, dtype): never a downcast."""
+    return x.to(torch.promote_types(x.dtype, dtype))
 
 
 def _mass_apply(mass, v):

@@ -596,14 +596,32 @@ def test_spectral_stage_inverse_matches_the_direct_inverse():
     assert stp2._spectral_stage_basis(J) is basis
 
 
-# -- what the adaptive mode does not run -------------------------------------
+# -- the policies the adaptive mode refused until slice 5(b) -----------------
 
 @pytest.mark.parametrize("kind", ["checkpoint", "revolve", "cams", "disk"])
-def test_slice5_policies_raise(kind):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tad.make_adaptive_odeint(TStub(), np.array([0.0, 1.0]),
-                                 tad.AdaptConfig(), 0.1,
-                                 traj=pt.TrajectoryConfig(kind=kind))
+def test_slice5_policies_raise(kind, tmp_path):
+    """These four policies raised NotImplementedError until slice 5(b);
+    now each runs the adaptive dopri5 solve of the decay problem and its
+    gradients equal store_all's bit for bit (the case keeps its name)."""
+    from pnode_tpu_torch.steppers import ExplicitRK
+    from pnode_tpu_torch.tableaus import get_rk_tableau
+
+    pt.set_option("ts_trajectory_dirname", str(tmp_path))
+    stepper = ExplicitRK(get_rk_tableau("dopri5"), _tf_decay)
+    cfg = tad.AdaptConfig(rtol=1e-7, atol=1e-7, max_steps=64)
+    grads = {}
+    for k in ("store_all", kind):
+        solve = tad.make_adaptive_odeint(
+            stepper, np.array([0.0, 0.5, 1.0]), cfg, 0.05,
+            traj=pt.TrajectoryConfig(kind=k, max_cps=3))
+        prm = {n: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+               for n, v in P_DECAY.items()}
+        y = torch.from_numpy(Y0.copy()).requires_grad_(True)
+        torch.sum(solve(y, prm)[0] ** 2).backward()
+        grads[k] = [prm["a"].grad, prm["c"].grad, y.grad]
+    for a, b in zip(grads[kind], grads["store_all"]):
+        assert torch.equal(a, b)
+    assert not list(tmp_path.iterdir())  # the disk rows were removed
 
 
 def test_dt0_outside_adaptive_mode_raises():

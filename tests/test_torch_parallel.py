@@ -8,17 +8,18 @@ once (tests/torch_dp_ranks.py ``suite_rank``); each test reads its case:
 
 - y' = tanh(y w), rk4, B 16, D 8, fp64, on the flat mesh (:18) and on a
   2 x 4 ("dcn", "dp") mesh sharded over both axes (:60); dopri5 under
-  -ts_adapt_type basic on identical shards (:144, marked slow in the
-  reference: its twin runs in seconds at B 16, D 8). DP loss and gradient
-  against JAX's single-device value_and_grad at the reference's rtol 1e-12
-  and 1e-10.
+  -ts_adapt_type basic on identical shards (:144), and rk4 under revolve
+  checkpointing (-ts_trajectory_max_cps_ram 3, step 0.05, an interior
+  output in the loss: :105), both marked slow in the reference, their
+  twins running in seconds at B 16, D 8. DP loss and gradient against
+  JAX's single-device value_and_grad at the reference's rtol 1e-12 and
+  1e-10.
 - The mesh validation errors (:54, :96).
 - dryrun_multichip's train step on the KS IMEX model (flax weights through
   state_dict_from_flax), one Adam step: the flat and 2 x 4 meshes,
   adaptive stepping, the headline shapes (nx 64, B 256 over 8 ranks), and
   fp64 loss equality against the single-process solve at rel < 1e-13; the
-  fused loop over 8 ranks against K4's plain version. DP with revolve
-  checkpointing waits for ROADMAP slice 5."""
+  fused loop over 8 ranks against K4's plain version."""
 
 import jax
 import jax.numpy as jnp
@@ -62,13 +63,18 @@ def _adaptive_problem():
 
 
 ADAPT = ["-ts_adapt_type", "basic", "-ts_rtol", "1e-8", "-ts_atol", "1e-8"]
+REVOLVE = ["-ts_trajectory_max_cps_ram", "3", "-ts_trajectory_schedule",
+           "revolve"]
 TANH_CASES = {
     # name: (flags, method, step, mesh_shape, axis, problem)
     "flat": ([], "rk4", 0.1, None, "dp", _tanh_problem),
     "dcn_dp": ([], "rk4", 0.1, (2, 4), ("dcn", "dp"), _tanh_problem),
     "dp_of_dcn_dp": ([], "rk4", 0.1, (2, 4), "dp", _tanh_problem),
     "adaptive": (ADAPT, "dopri5", 0.1, None, "dp", _adaptive_problem),
+    "revolve": (REVOLVE, "rk4", 0.05, None, "dp", _tanh_problem),
 }
+# output times (the loss adds mean(pred[1]^2) where there are three)
+TANH_T_OUT = {"revolve": [0.0, 0.25, 0.5]}
 KS_CASES = {
     # name: (flags, nx, per rank, dtype, mesh_shape, axis)
     "flat": ([], 16, 2, "float32", None, "dp"),
@@ -121,7 +127,7 @@ _SUITE = {}
 def _suite():
     """Every case through one group of 8 ranks, with the JAX references."""
     if not _SUITE:
-        tanh = {n: (f, m, s, ms, ax, *prob()) + (T_OUT,)
+        tanh = {n: (f, m, s, ms, ax, *prob()) + (TANH_T_OUT.get(n, T_OUT),)
                 for n, (f, m, s, ms, ax, prob) in TANH_CASES.items()}
         refs, ks = {}, {}
         for name, (flags, nx, _, dtype, ms, ax) in KS_CASES.items():
@@ -149,7 +155,8 @@ def _jax_tanh(name):
 
     def loss_fn(p, batch):
         pred, _ = ode.solve(batch[0], jnp.asarray(t_out), params=p)
-        return jnp.mean((pred[-1] - batch[1]) ** 2)
+        interior = jnp.mean(pred[1] ** 2) if len(t_out) > 2 else 0.0
+        return jnp.mean((pred[-1] - batch[1]) ** 2) + interior
 
     loss, g = jax.value_and_grad(loss_fn)(P, (jnp.asarray(y0),
                                               jnp.asarray(tgt)))
@@ -159,17 +166,21 @@ def _jax_tanh(name):
 @pytest.mark.parametrize("name", sorted(TANH_CASES))
 def test_dp_matches_single_device(name):
     """Twins of tests/test_parallel.py:18 (flat), :60 (2 x 4, sharded over
-    ("dcn", "dp")) and :144 (adaptive, identical shards): every rank's DP
-    loss and gradient equal JAX's single-device ones; rank r holds rows
-    2r .. 2r + 1 (JAX's device order). On the 2 x 4 mesh sharded over "dp"
-    alone, each "dcn" row of ranks holds the whole batch, rank r rows
-    4 (r % 4) .. + 3, and the mean runs over each row's "dp" group."""
+    ("dcn", "dp")), :144 (adaptive, identical shards) and :105 (revolve:
+    the schedule depends on the step index only, so every rank replays the
+    same plan): every rank's DP loss and gradient equal JAX's
+    single-device ones; rank r holds rows 2r .. 2r + 1 (JAX's device
+    order). On the 2 x 4 mesh sharded over "dp" alone, each "dcn" row of
+    ranks holds the whole batch, rank r rows 4 (r % 4) .. + 3, and the
+    mean runs over each row's "dp" group."""
     suite = _suite()
     loss_1, g_1 = _jax_tanh(name)
     y0 = suite["tanh"][name][6]
     rows = 4 if name == "dp_of_dcn_dp" else 2
     for r, res in enumerate(suite["ranks"]):
-        loss, g, local = res["tanh"][name]
+        loss, g, local, kind = res["tanh"][name]
+        assert kind == ("revolve" if name == "revolve" else
+                        "store_all"), kind
         shard = (r % 4) if name == "dp_of_dcn_dp" else r
         np.testing.assert_array_equal(local,
                                       y0[rows * shard:rows * (shard + 1)])

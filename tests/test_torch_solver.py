@@ -349,25 +349,53 @@ def test_slice_adam_steps_match_jax_fp32_fused_biased_weights():
     # the JAX package's does (the case keeps its id)
     pytest.param(dict(mass=np.eye(8)), [], "ARKIMEX refuses",
                  id="kwargs0-flags0-slice 4"),
-    # checkpointed trajectories run since slice 5(a); compressed storage
-    # is slice 5(b) (the case keeps its id)
+    # compressed storage, disk and the adaptive mode's checkpointed
+    # policies raised until slice 5(b); these cases now run them (they
+    # keep their ids)
     pytest.param(dict(), ["-pnode_trajectory_dtype", "bfloat16"], "slice 5",
                  id="kwargs1-flags1-slice 5"),
     (dict(), ["-ts_trajectory_type", "disk"], "slice 5"),
-    # the adaptive mode (slice 3) under a checkpointed policy (slice 5(b))
     pytest.param(dict(), ["-ts_adapt_type", "basic",
                           "-ts_trajectory_max_cps_ram", "4"], "slice 5",
                  id="kwargs3-flags3-slice 3"),
 ])
-def test_later_slices_raise(kwargs, flags, match):
-    pt.init(["p"] + flags)
-    im, ex = KSFuncIM(nx=8), KSFuncEX(nx=8, hidden=4)
+def test_later_slices_raise(kwargs, flags, match, tmp_path):
+    """The refusal that stays (ARKIMEX with a mass matrix) and the slice 5
+    paths on the KS IMEX model (ksponly, frozen J): each policy's
+    gradients against the same run without it, bit for bit for disk and
+    the adaptive checkpoint, within bf16 distance (rtol 2e-2) for bf16
+    storage."""
+    im = KSFuncIM(nx=8)
+    ex = KSFuncEX(nx=8, hidden=4, generator=torch.Generator().manual_seed(0))
     setup = dict(step_size=0.2, method="imex", imex_form=True,
                  func2=pt.TorchFunc(ex), linear_solver="hpddm",
                  fixed_jacobian=True, batch_size=2)
     setup.update(kwargs)
-    with pytest.raises(NotImplementedError, match=match):
-        pt.ODESolver().setupTS(torch.zeros(2, 8), pt.TorchFunc(im), **setup)
+    if "mass" in kwargs:
+        pt.init(["p"] + flags)
+        with pytest.raises(NotImplementedError, match=match):
+            pt.ODESolver().setupTS(torch.zeros(2, 8), pt.TorchFunc(im),
+                                   **setup)
+        return
+    y0 = torch.linspace(-1, 1, 16).reshape(2, 8)
+    grads = []
+    for fl in (flags, flags[:2] if "-ts_adapt_type" in flags else []):
+        pt.clear_options()
+        pt.init(["p", "-snes_type", "ksponly", "-ts_trajectory_dirname",
+                  str(tmp_path)] + fl)
+        ex.zero_grad()
+        ode = pt.ODESolver().setupTS(torch.zeros(2, 8), pt.TorchFunc(im),
+                                     **setup)
+        sol = ode.odeint_adjoint(y0, np.array([0.0, 0.4, 0.8]))
+        torch.sum(sol[-1] ** 2).backward()
+        grads.append([p.grad.clone() for p in ex.parameters()])
+    for a, b in zip(*grads):
+        if "-pnode_trajectory_dtype" in flags:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-2,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(a, b)
+    assert not list(tmp_path.iterdir())
 
 
 def test_gmres_stage_solver_raises():

@@ -411,16 +411,36 @@ def test_resteps_equal_planner_costs(policy):
     assert all(torch.isfinite(p.grad) for p in tree_leaves(params))
 
 
-def test_later_slice_policies_raise():
+def test_later_slice_policies_raise(tmp_path):
     """Disk and compressed storage, and the adaptive path's checkpointed
-    policies, are slice 5(b)."""
-    y0 = torch.zeros(2, dtype=torch.float64)
-    f = pt.Func(_tanh_f, {"a": torch.tensor(-0.4), "b": torch.tensor(0.3)})
-    for flags in (["-ts_trajectory_type", "disk"],
-                  ["-pnode_trajectory_dtype", "bfloat16"],
-                  ["-ts_adapt_type", "basic", "-ts_trajectory_max_cps_ram",
-                   "4", "-ts_trajectory_schedule", "revolve"]):
-        pt.clear_options()
-        pt.init(["p"] + flags)
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            pt.ODESolver().setupTS(y0, f, step_size=0.1, method="bosh3")
+    policies, raised until slice 5(b). Each now runs through setupTS and
+    odeint_adjoint (the test keeps its name): disk and adaptive revolve
+    give store_all's gradients bit for bit, bf16 storage within bf16
+    distance (test_revolve.py:142's rtol 2e-2)."""
+    y0 = np.array([1.0, -0.4])
+    cases = (
+        (["-ts_trajectory_type", "disk", "-ts_trajectory_dirname",
+          str(tmp_path)], [], 0.0),
+        (["-pnode_trajectory_dtype", "bfloat16"], [], 2e-2),
+        (["-ts_adapt_type", "basic", "-ts_trajectory_max_cps_ram", "4",
+          "-ts_trajectory_schedule", "revolve"],
+         ["-ts_adapt_type", "basic"], 0.0))
+    for flags, ref_flags, rtol in cases:
+        grads = []
+        for fl in (flags, ref_flags):
+            pt.clear_options()
+            pt.init(["p"] + fl)
+            params = {"a": torch.tensor(-0.4, requires_grad=True),
+                      "b": torch.tensor(0.3, requires_grad=True)}
+            y = torch.tensor(y0, dtype=torch.float32, requires_grad=True)
+            ode = pt.ODESolver().setupTS(y.detach(), pt.Func(_tanh_f, params),
+                                         step_size=0.1, method="bosh3")
+            sol = ode.odeint_adjoint(y, np.array([0.0, 1.0]), params=params)
+            torch.sum(sol[-1] ** 2).backward()
+            grads.append([params["a"].grad, params["b"].grad, y.grad])
+        for a, b in zip(*grads):
+            if rtol:
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol)
+            else:
+                assert torch.equal(a, b), flags
+    assert not list(tmp_path.iterdir())

@@ -69,8 +69,10 @@ def _tanh(t, y, p):
 
 def tanh_case_rank(device, cases):
     """The test_parallel.py problems: d/dw of the MSE of an ODE solve of
-    y' = tanh(y w), batch-sharded over the case's mesh, in fp64. Each case:
-    (flags, method, step, mesh_shape, axis, w, y0, tgt, t_out)."""
+    y' = tanh(y w) (plus mean(pred[1]^2) where t_out has three times),
+    batch-sharded over the case's mesh, in fp64. Each case: (flags,
+    method, step, mesh_shape, axis, w, y0, tgt, t_out). Returns per case
+    (loss, dL/dw, the local shard, the solver's trajectory policy)."""
     out = {}
     for name, (flags, method, step, mesh_shape, axis, w, y0, tgt,
                t_out) in cases.items():
@@ -87,10 +89,12 @@ def tanh_case_rank(device, cases):
 
         def loss_fn(p, batch):
             pred, _ = ode.solve(batch[0], np.asarray(t_out), params=p)
-            return torch.mean((pred[-1] - batch[1]) ** 2)
+            interior = torch.mean(pred[1] ** 2) if len(t_out) > 2 else 0.0
+            return torch.mean((pred[-1] - batch[1]) ** 2) + interior
 
         loss, g = dp_value_and_grad(loss_fn, mesh, axis=axis)(P, local)
-        out[name] = (float(loss), g["w"].numpy(), local[0].numpy())
+        out[name] = (float(loss), g["w"].numpy(), local[0].numpy(),
+                     ode.traj.kind)
     return out
 
 
