@@ -111,8 +111,8 @@ exits non-zero without printing the final line):
    sub-object, K8/K9 at stage 1). The build phase fails where ptxas
    reports spill in csrc/sqnxt_fwd.cu (K6, K8). (b) The kernel path against the module path
    from the same weights: logits, loss, gradient cosine and norm ratio
-   (CIFAR_TOL). (c) 22 SGD iterations (lr 0.1, momentum 0.9, wd 5e-4) on
-   the kernel path and 12 on the module path: finite losses, the mean of
+   (CIFAR_TOL). (c) 12 SGD iterations (lr 0.1, momentum 0.9, wd 5e-4) on
+   the kernel path and 6 on the module path: finite losses, the mean of
    the last 5 below the first 5, images/s after 2 warm iterations, peak
    device memory; one traced iteration each (K6-K9's milliseconds and
    shares in it); K6-K9's launch counts over the kernel path's iterations
@@ -245,9 +245,42 @@ exits non-zero without printing the final line):
    card against the single process on the whole batch: loss within 1e-5,
    gradient within 1e-4 norm-wise, every rank on revolve launching K2 and
    K3, the ranks' gradients bitwise equal.
+12. bf16 CIFAR: phase 6's model and recipe (SqNxt-23, B 128, rk4, Nt 2)
+   with SqueezeNextODE(dtype="bf16"). (a) The bf16 instances of K6-K9
+   against their plain bf16 versions on the bf16 model's stage
+   activations and at every SQNXT_EDGES case: outputs, dx and parameter
+   gradients within BF16_TOL (2^-6, max |diff| / max |plain|); K7's
+   anchors against the plain forward's and its gradients against the plain
+   backward on its own forward (k7_anchored_plain); its distance from the
+   free plain backward printed, not gated; conv biases absolutely; each
+   kernel twice bitwise; each timed per evaluation beside its fp32
+   instance, its plain version and the bf16 module path (CUDA events and
+   the profiler; the JSON line at stage 1, K6/K7 with stage2 and stage3).
+   (b) The bf16 kernel path against the bf16 module path from the same
+   weights (CIFAR_BF16_TOL: the loss, the head's gradient cosine); one ODE
+   block's gradient at each stage (stage 1 also layered) on both paths
+   from the same input and cotangent (BF16_BLOCK_TOL: each tensor's
+   cosine and norm ratio), beside the bf16-against-fp32 control; its
+   argmax against the fp32 kernel path's. (c) 12 SGD iterations each
+   on the bf16 kernel path, the bf16 module path and the fp32 kernel path:
+   images/s and peak memory; the bf16 instances' launches. (d)
+   examples/train_cifar10_torch.py --precision bf16 at B 256 (stage 1 runs
+   layered there) for 2 iterations with --use_kernels on and off, its
+   memstat.txt carrying the precision; every bf16 instance launched over
+   (c) and (d).
+13. Slice 10: tools/hardware_smoke.py's gate 1 (one ARK3 IMEX step on the
+   KS data, u[300:428], B 128, hpddm, frozen J, ksponly: MSE below 50x
+   the identity's) and gate 4 (the one-step MSE gradient by
+   odeint_adjoint on the card in fp32 against the port's CPU fp64 run
+   from the same weights: cosine above 0.99); WindowedLoader built and
+   iterated; examples/ks_torch.py on the main path's flags for 2 epochs,
+   then --hotstart to 3; annotate's span inside a trace()d step and
+   device_memory_gb.
 
-Phases 1-6 run at their full depth; phase 7 adds about 60 s, phase 8 about
-60 s, phase 9 about 90 s, phase 10 about 160 s, phase 11 about 45 s.
+Phases 1-6 run at their full depth but phase 6(c) (12 and 6 iterations,
+22 and 12 before phase 12 came); phase 7 adds about 60 s, phase 8 about
+60 s, phase 9 about 90 s, phase 10 about 160 s, phase 11 about 40 s,
+phase 12 about 90 s, phase 13 a few seconds; the build about 90 s.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 two also carry ``burgers``: its readings at the Burgers stack and its
@@ -259,8 +292,14 @@ launch and launches in one replayed step of phase 10(a); K1-K3 carry
 ``slice5b_launches``, their launches over phase 11(a), (b) and (e);
 K1-K13 carry
 ``device_ms``, the profiler's
-device time per call (K4 and K5: per iteration); K7 ``stage3``: its
-readings at stage 3); the last line is {"ok": true, "device": {...}}.
+device time per call (K4 and K5: per iteration); K6 and K7 ``stage3``:
+their readings at stage 3; the bf16 instances carry ``fp32_ms`` (their
+fp32 instance), ``module_ms`` (the bf16 module path), ``max_rel_err``
+and, for K6/K7, ``stage2`` and ``stage3``, K7's also
+``free_norm_err`` and ``free_max_rel_err`` (against the free plain
+backward, not gated); K1-K3 carry
+``slice10_launches``, their launches over phase 13's gates); the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -306,6 +345,17 @@ KERNELS = {
                               "pnode_tpu/ops/fused_sqnxt.py:508"),
     "fused_sqnxt_layer_bwd": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
                               "pnode_tpu/ops/fused_sqnxt.py:522"),
+    # the bf16 instances of K6-K9 (phase 12)
+    "fused_sqnxt_fwd_bf16": ("cuda", "pnode_tpu_torch/csrc/sqnxt_fwd.cu",
+                             "pnode_tpu/ops/fused_sqnxt.py:192"),
+    "fused_sqnxt_bwd_bf16": ("cuda", "pnode_tpu_torch/csrc/fused_sqnxt.cu",
+                             "pnode_tpu/ops/fused_sqnxt.py:206"),
+    "fused_sqnxt_layer_fwd_bf16": ("cuda",
+                                   "pnode_tpu_torch/csrc/sqnxt_fwd.cu",
+                                   "pnode_tpu/ops/fused_sqnxt.py:508"),
+    "fused_sqnxt_layer_bwd_bf16": ("cuda",
+                                   "pnode_tpu_torch/csrc/fused_sqnxt.cu",
+                                   "pnode_tpu/ops/fused_sqnxt.py:522"),
     "circular_stencil_fwd": ("cuda", "pnode_tpu_torch/csrc/circular_stencil.cu",
                              "pnode_tpu/ops/circular_stencil.py:32"),
     "circular_stencil_bwd": ("cuda", "pnode_tpu_torch/csrc/circular_stencil.cu",
@@ -332,9 +382,6 @@ SQNXT_EDGES = (("ragged B3 5x7 dim 16", 0, 16, 3, 5, 7),
                ("B1 3x3 dim 16", 0, 16, 1, 3, 3),
                ("B640 32x32 dim 16, last z past the store", 0, 16, 640, 32,
                 32))
-# H100 SXM peaks (NVIDIA's data sheet, 700 W): fp32 outside the tensor
-# cores, and HBM3
-FP32_PEAK, HBM_RATE = 67e12, 3.35e12
 CIFAR_B, CIFAR_LR = 128, 0.1
 # phase 6(b)'s gates, kernel path against module path (PERF.md says why)
 CIFAR_TOL = {"logits": 1e-3, "loss": 1e-5, "cos": 0.99, "ratio": 0.01}
@@ -2439,11 +2486,18 @@ def phase_fused_adaptive_loop(device, state0, batches, generic_runs,
 
 # -- phase 6: the CIFAR slice -------------------------------------------------
 
-def bound(flops, byts):
+def bound(flops, byts, dtype=None):
     """(ms, "operations" | "bytes"): the least time the card could take,
-    the larger of flops at the fp32 CUDA-core peak and bytes at the memory
-    rate (H100 SXM, NVIDIA's data sheet, at the 700 W limit)."""
-    t_ops, t_bytes = 1e3 * flops / FP32_PEAK, 1e3 * byts / HBM_RATE
+    the larger of flops at the peak for ``dtype``'s operands (default fp32,
+    outside the tensor cores; bf16 on them) and bytes at the memory rate
+    (H100 SXM, NVIDIA's data sheet, at the 700 W limit:
+    pnode_tpu_torch.utils.roofline.H100_PEAKS)."""
+    import torch
+
+    from pnode_tpu_torch.utils.roofline import H100_PEAKS, peaks_for
+
+    peak, rate = peaks_for(H100_PEAKS, dtype or torch.float32)
+    t_ops, t_bytes = 1e3 * flops / peak, 1e3 * byts / rate
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
@@ -2504,13 +2558,14 @@ def ks_costs(tab, adaptive_report):
     }
 
 
-def cifar_model(device, use_kernels, state=None):
-    """SqNxt-23 ODE at full width, rk4, Nt 2: seed-0 weights or ``state``."""
+def cifar_model(device, use_kernels, state=None, dtype=None):
+    """SqNxt-23 ODE at full width, rk4, Nt 2: seed-0 weights or ``state``;
+    ``dtype`` "bf16" for the mixed-precision model."""
     import torch
 
     from pnode_tpu_torch.models import SqueezeNextODE
 
-    m = SqueezeNextODE(width_x=1.0, method="rk4", Nt=2,
+    m = SqueezeNextODE(width_x=1.0, method="rk4", Nt=2, dtype=dtype,
                        use_kernels=use_kernels,
                        generator=torch.Generator().manual_seed(0)).to(device)
     if state is not None:
@@ -2960,7 +3015,7 @@ def profile_cifar(label, model, opt, x, y):
                 f"{us / busy_us:.3f} of the busy time")
 
 
-def phase_cifar(device, n_iters=22, warm=2, n_off=12):
+def phase_cifar(device, n_iters=12, warm=2, n_off=6):
     """Phase 6: the CIFAR slice at full width, batch 128, rk4, Nt 2."""
     import torch
 
@@ -4787,11 +4842,11 @@ def check_drivers(res):
 def start_rober_hotstart(n_more=3):
     """10(b), started: rober_torch.py --hotstart for n_more iterations
     after its best checkpoint's, and one with another normalization."""
-    import torch
+    from pnode_tpu_torch.utils import load_checkpoint
 
     name = "rober_torch"
     train_dir = os.path.join(ROOT, "build", name)
-    ck = torch.load(os.path.join(train_dir, "best.pt"), map_location="cpu")
+    ck = load_checkpoint(os.path.join(train_dir, "best.ckpt"))
     niters = int(ck["iter"]) + 1 + n_more
     run = start_driver(name, ["--niters", str(niters), "--test_freq", "10",
                               "--hotstart", "--train_dir", train_dir])
@@ -5445,6 +5500,741 @@ def phase_slice5b(device, u):
     return launches
 
 
+# -- phase 12: bf16 CIFAR ------------------------------------------------------
+
+# phase 12(a)'s gate: each bf16 instance of K6-K9 against its plain bf16
+# version on the same inputs, max |kernel - plain| / max |plain| per output
+# tensor: two bf16 epsilons (2^-8 each). Both round the same fp32 values to
+# bf16 at the same points; their fp32 sums run in other orders, so a value
+# within an fp32 ulp of a bf16 rounding boundary lands one bf16 ulp apart
+# (~1e-5 of the elements), and the next layer carries that on. K7 recomputes
+# the chain's forward itself, so it is held in two parts, each at this gate:
+# its anchors z_l against the plain forward's, and its gradients against
+# the plain layer backward on its own anchors (k7_anchored_plain). Against
+# the free plain backward its distance is printed, not gated: there the two
+# forwards part by a bf16 ulp at some elements, which moves the next
+# layers' pre-activations by ~1e-2 there and flips a few ReLU decisions,
+# each an O(1) change of one cotangent element (max relative 5e-2 to
+# 1.7e-1, norm-wise up to 2.2e-2 at the stage shapes, PERF.md §6), and no
+# reading sets a limit that such flips pass and a fault fails
+BF16_TOL = 2.0 ** -6
+# phase 12(b)'s model gates, the bf16 kernel path against the bf16 module
+# path (PERF.md §6 says why): the loss, relative, and the cosine of the
+# head's dense-layer gradient. The whole gradient's cosine is printed, not
+# gated: at the random init the deep layers' gradients are dominated by
+# rounding noise that the 20 ODE blocks' batch-stats norms amplify, in the
+# JAX package as in the port (tests/torch_bf16_witness.py, on the CPU at
+# width 0.25, B 16, whole-gradient cosines: JAX's own bf16 model against
+# its fp32 model -0.04, the port's two bf16 paths 0.12, the port's fp32
+# model against JAX's 0.98; the head's 0.81, 0.97 and 1.00). On the card
+# (PERF.md §6): losses 4.7e-3 to 8.0e-3
+# apart, head cosines 0.991 to 0.995, inside the limits by 2.5x and more
+CIFAR_BF16_TOL = {"loss": 2e-2, "head_cos": 0.98}
+# phase 12(b)'s gate on the backward through the ODE blocks: one block's
+# solve (rk4, Nt 2, the discrete adjoint: K6/K7 or K8/K9 through the
+# solver and the model's autograd wiring) on the kernel path against the
+# module path, from the same bf16 input and cotangent; every parameter
+# gradient but the conv biases (true value 0) and dx: each tensor's cosine
+# at least ``cos`` and its norm ratio within ``ratio``. One block is as
+# well conditioned as its five layers, unlike the whole net. Readings on
+# the CPU (the plain versions, width 0.5, B 8-16): the two bf16 paths
+# 0.9934 at the least, ratios 0.97-1.03; the lower-precision control, the
+# bf16 module path against the fp32 one (printed beside it on the card),
+# 0.9908 and ratios 0.92-1.37, the narrowest layer's dgamma the farthest;
+# the planted faults of tests/test_torch_sqnxt_bf16.py fail it (least
+# cosine 0.56 and -0.64, ratio 0.50). On the card at full width, B 128
+# (PERF.md §6): the two bf16 paths 0.9951 at the least, ratios 1.017 to
+# 1.054; the control 0.9804 at the least, ratios 0.93 to 1.03
+BF16_BLOCK_TOL = {"cos": 0.98, "ratio": (0.8, 1.25)}
+
+
+def check_bf16(name, got, plain, report, failed):
+    """max |got - plain| / max |plain| over each pair of tensors, gated at
+    BF16_TOL; the largest, and the largest absolute difference, go to
+    ``report``; a failure is noted in ``failed`` (raised at the phase's
+    end, after every value is printed)."""
+    e = max(rel_err(a, b) for a, b in zip(got, plain))
+    ea = max(abs_err(a, b) for a, b in zip(got, plain))
+    report["max_abs_err"] = max(report.get("max_abs_err", 0.0), ea)
+    report["max_rel_err"] = max(report.get("max_rel_err", 0.0), e)
+    ok = e <= BF16_TOL
+    log(f"[bf16]   {name}: max rel err vs plain bf16 {e:.3e} (tol 2^-6 = "
+        f"{BF16_TOL:.3e}), max abs {ea:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(name)
+
+
+def print_bf16_free(name, got, plain, report):
+    """||got - plain|| / ||plain|| and max |got - plain| / max |plain| over
+    each pair of tensors, printed (not gated: see BF16_TOL); the largest
+    go to ``report``."""
+    e = max(norm_err(a, b) for a, b in zip(got, plain))
+    m = max(rel_err(a, b) for a, b in zip(got, plain))
+    report["free_norm_err"] = max(report.get("free_norm_err", 0.0), e)
+    report["free_max_rel_err"] = max(report.get("free_max_rel_err", 0.0), m)
+    log(f"[bf16]   {name}, against the free plain backward (not gated): "
+        f"norm-wise rel err {e:.3e}, max rel {m:.3e}")
+
+
+def k7_anchored_plain(x, g, flat, meta):
+    """K7's bf16 instance once more, keeping the anchors z_l its forward
+    recompute wrote, and the plain layer backward chained over them: layer
+    l's norm and ReLU decisions from the kernel's z_l, its input rebuilt
+    from the kernel's z_(l-1) (norm_relu with the plain statistics), so
+    the reference takes the kernel's forward. Returns ((dx, dflat) of K7,
+    (dx, dflat) of the reference, K7's anchors)."""
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    flats = [fs._layer(flat, li) for li in range(5)]
+    dx, grads, zs = fs._launch_bwd("pnode_sqnxt_bwd", x, g, flats, meta,
+                                   list(range(5)), anchors=True)
+    zs = [z.view(meta.cdims[li + 1], meta.n_real) for li, z in enumerate(zs)]
+    hs = [x] + [fs.norm_relu(zs[li], flats[li], meta, li)[0]
+                for li in range(4)]
+    masks = fs._tap_masks(meta, x.device)
+    gg, dflat = g, [None] * len(flat)
+    for li in range(4, -1, -1):
+        gg, d = fs._layer_bwd(hs[li], gg, flats[li], meta, li, masks, None,
+                              z=zs[li])
+        dflat[4 * li: 4 * li + 4] = d
+    return ((dx, tuple(t for lg in grads for t in lg)), (gg, tuple(dflat)),
+            zs)
+
+
+def check_bf16_bias(name, got, plain, dbet, failed):
+    """Conv-bias gradients in bf16: their true value is 0 (the bias feeds a
+    batch-stats norm), so both versions return the sum of the rounding of
+    g_z to bf16; gated in absolute terms at BF16_TOL of the largest
+    |d_beta| of the same layers."""
+    ea = max(abs_err(a, b) for a, b in zip(got, plain))
+    ok = ea <= BF16_TOL * dbet
+    log(f"[bf16]   {name} conv-bias gradients: max |kernel - plain| "
+        f"{ea:.3e}, max |kernel| {max(float(t.abs().max()) for t in got):.3e}"
+        f", against 2^-6 x max |d_beta| {dbet:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(name + " bias")
+
+
+def sqnxt_bf16_case(label, h, mod, device, seed, reports, failed):
+    """The bf16 instances of K6-K9 against their plain bf16 versions on the
+    bf16 activation h (NCHW) and the ODEDynamics mod (fp32 parameters, cast
+    to bf16 as pack_params does): outputs, dx and every parameter gradient
+    (check_bf16; conv biases by check_bf16_bias), each kernel called twice
+    bitwise equal. K8/K9 run layer by layer on the plain chain's layer
+    inputs."""
+    import torch
+
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    bf = torch.bfloat16
+    B, C, H, W = h.shape
+    meta = fs.make_meta(C, B, H, W)
+    x = h.permute(1, 0, 2, 3).reshape(C, -1).contiguous().to(bf)
+    flat = [t.detach().contiguous() for t in
+            fs.pack_params(dict(mod.named_parameters()), meta, bf)]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn(C, x.shape[1], generator=gen, device=device).to(bf)
+    log(f"[bf16] {label}: C {C}, N {x.shape[1]} (B {B}, {H}x{W}), chain "
+        f"workspace {fs.chain_workspace_bytes(meta, 2) / 2**20:.1f} MiB "
+        f"({'layered' if fs.gate_meta(C, B, H, W, bf).layered else 'chain'}"
+        f" on the bf16 model)")
+    out = fs.fused_sqnxt_fwd(x, flat, meta)
+    torch.cuda.synchronize()
+    check_repeat("fused_sqnxt_fwd_bf16", out,
+                 fs.fused_sqnxt_fwd(x, flat, meta))
+    check_bf16("fused_sqnxt_fwd_bf16 out", [out],
+               [fs.fused_sqnxt_plain(x, flat, meta)],
+               reports["fused_sqnxt_fwd_bf16"], failed)
+    is_b = lambda i: i % 4 == 1  # noqa: E731  the conv biases of flat
+
+    def split(r):
+        return ([r[0]] + [t for i, t in enumerate(r[1]) if not is_b(i)],
+                [t for i, t in enumerate(r[1]) if is_b(i)])
+
+    first = fs.fused_sqnxt_bwd(x, g, flat, meta)
+    torch.cuda.synchronize()
+    check_repeat("fused_sqnxt_bwd_bf16", first,
+                 fs.fused_sqnxt_bwd(x, g, flat, meta))
+    got, pl = split(first), split(fs.fused_sqnxt_bwd_plain(x, g, flat, meta))
+    raw_k7, raw_ref, zs = k7_anchored_plain(x, g, flat, meta)
+    check_repeat("fused_sqnxt_bwd_bf16 (anchors kept)", first, raw_k7)
+    k7, anchored = split(raw_k7), split(raw_ref)
+    masks, hh, z_plain = fs._tap_masks(meta, x.device), x, []
+    for li in range(5):
+        hh, zf, _, _ = fs._layer_fwd(hh, fs._layer(flat, li), meta, li,
+                                     masks, None)
+        z_plain.append(zf)
+    check_bf16("fused_sqnxt_bwd_bf16 anchors z_1..z_5", zs, z_plain,
+               {}, failed)
+    check_bf16("fused_sqnxt_bwd_bf16 dx, on its own anchors", k7[0][:1],
+               anchored[0][:1], reports["fused_sqnxt_bwd_bf16"], failed)
+    check_bf16("fused_sqnxt_bwd_bf16 dW, dgamma, dbeta, on its own anchors",
+               k7[0][1:], anchored[0][1:], reports["fused_sqnxt_bwd_bf16"],
+               failed)
+    print_bf16_free("fused_sqnxt_bwd_bf16 dx", got[0][:1], pl[0][:1],
+                    reports["fused_sqnxt_bwd_bf16"])
+    print_bf16_free("fused_sqnxt_bwd_bf16 dW, dgamma, dbeta", got[0][1:],
+                    pl[0][1:], reports["fused_sqnxt_bwd_bf16"])
+    dbet = max(float(t.abs().max()) for i, t in enumerate(pl[0][1:])
+               if i % 3 == 2)
+    check_bf16_bias("fused_sqnxt_bwd_bf16", got[1], pl[1], dbet, failed)
+    check_bf16_bias("fused_sqnxt_bwd_bf16 on its own anchors", k7[1],
+                    anchored[1], dbet, failed)
+    hs, hh = [], x
+    for li in range(5):
+        hs.append(hh)
+        hh = fs.fused_sqnxt_layer_plain(hh, fs._layer(flat, li), meta, li)
+    fk, fp, bk, bp, bias_k, bias_p, dbets = [], [], [], [], [], [], []
+    for li in range(5):
+        lf = fs._layer(flat, li)
+        fk.append(fs.fused_sqnxt_layer_fwd(hs[li], lf, meta, li))
+        check_repeat(f"fused_sqnxt_layer_fwd_bf16 layer {li}", fk[-1],
+                     fs.fused_sqnxt_layer_fwd(hs[li], lf, meta, li))
+        fp.append(fs.fused_sqnxt_layer_plain(hs[li], lf, meta, li))
+        gl = torch.randn(meta.cdims[li + 1], x.shape[1], generator=gen,
+                         device=device).to(bf)
+        kern = fs.fused_sqnxt_layer_bwd(hs[li], gl, lf, meta, li)
+        check_repeat(f"fused_sqnxt_layer_bwd_bf16 layer {li}", kern,
+                     fs.fused_sqnxt_layer_bwd(hs[li], gl, lf, meta, li))
+        plain = fs.fused_sqnxt_layer_bwd_plain(hs[li], gl, lf, meta, li)
+        bk += [kern[0], kern[1][0], kern[1][2], kern[1][3]]
+        bp += [plain[0], plain[1][0], plain[1][2], plain[1][3]]
+        bias_k.append(kern[1][1])
+        bias_p.append(plain[1][1])
+        dbets.append(float(plain[1][3].abs().max()))
+    torch.cuda.synchronize()
+    check_bf16("fused_sqnxt_layer_fwd_bf16 (5 layers) out", fk, fp,
+               reports["fused_sqnxt_layer_fwd_bf16"], failed)
+    check_bf16("fused_sqnxt_layer_bwd_bf16 (5 layers) dh", bk[0::4],
+               bp[0::4], reports["fused_sqnxt_layer_bwd_bf16"], failed)
+    check_bf16("fused_sqnxt_layer_bwd_bf16 (5 layers) dW, dgamma, dbeta",
+               [t for i, t in enumerate(bk) if i % 4],
+               [t for i, t in enumerate(bp) if i % 4],
+               reports["fused_sqnxt_layer_bwd_bf16"], failed)
+    check_bf16_bias("fused_sqnxt_layer_bwd_bf16", bias_k, bias_p,
+                    max(dbets), failed)
+    return x, g, flat, meta, hs
+
+
+def time_sqnxt_bf16(label, h, mod, x, g, flat, meta, hs):
+    """Per evaluation, in turns: each bf16 instance of K6-K9 beside its
+    plain bf16 version, its fp32 instance on the same values in fp32, and
+    the bf16 module path (F.conv2d in bf16 + BatchStatsNorm + ReLU; its
+    backward by autograd); the profiler's device time of the bf16
+    instance. Bounds at 2-byte storage."""
+    import torch
+
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    f32 = torch.float32
+    x32, g32 = x.to(f32), g.to(f32)
+    flat32 = [t.to(f32) for t in flat]
+    hs32 = [t.to(f32) for t in hs]
+    hg = h.detach().clone().requires_grad_(True)
+    B, H, W = h.shape[0], h.shape[2], h.shape[3]
+    g_nchw = g.reshape(meta.cdims[5], B, H, W).permute(1, 0, 2, 3)
+    g_nchw = g_nchw.contiguous()
+    params = list(mod.parameters())
+    gls = [g[:meta.cdims[li + 1]].contiguous() for li in range(5)]
+    gls32 = [t.to(f32) for t in gls]
+
+    def module_fwd():
+        with torch.no_grad():
+            mod(0.0, h)
+
+    def module_bwd():
+        torch.autograd.grad(mod(0.0, hg), [hg] + params, g_nchw)
+
+    def layers(fn, inp, fl):
+        return lambda: [fn(inp[li], fs._layer(fl, li), meta, li)
+                        for li in range(5)]
+
+    def layers_bwd(fn, inp, gg, fl):
+        return lambda: [fn(inp[li], gg[li], fs._layer(fl, li), meta, li)
+                        for li in range(5)]
+
+    chain = range(5)
+    rows = {
+        "fused_sqnxt_fwd_bf16": (
+            lambda: fs.fused_sqnxt_fwd(x, flat, meta),
+            lambda: fs.fused_sqnxt_plain(x, flat, meta),
+            lambda: fs.fused_sqnxt_fwd(x32, flat32, meta), module_fwd,
+            fs.sqnxt_cost(meta, chain, False, 2), 1, "sqnxt_fwd_kernel"),
+        "fused_sqnxt_bwd_bf16": (
+            lambda: fs.fused_sqnxt_bwd(x, g, flat, meta),
+            lambda: fs.fused_sqnxt_bwd_plain(x, g, flat, meta),
+            lambda: fs.fused_sqnxt_bwd(x32, g32, flat32, meta), module_bwd,
+            fs.sqnxt_cost(meta, chain, True, 2), 1, "sqnxt_bwd_kernel"),
+        "fused_sqnxt_layer_fwd_bf16": (
+            layers(fs.fused_sqnxt_layer_fwd, hs, flat),
+            layers(fs.fused_sqnxt_layer_plain, hs, flat),
+            layers(fs.fused_sqnxt_layer_fwd, hs32, flat32), module_fwd,
+            fs.sqnxt_layered_cost(meta, False, 2), 5, "sqnxt_fwd_kernel"),
+        "fused_sqnxt_layer_bwd_bf16": (
+            layers_bwd(fs.fused_sqnxt_layer_bwd, hs, gls, flat),
+            layers_bwd(fs.fused_sqnxt_layer_bwd_plain, hs, gls, flat),
+            layers_bwd(fs.fused_sqnxt_layer_bwd, hs32, gls32, flat32),
+            module_bwd, fs.sqnxt_layered_cost(meta, True, 2), 5,
+            "sqnxt_bwd_kernel"),
+    }
+    out = {}
+    for name, (kern, plain, k32, module, (flops, byts), per_call,
+               kname) in rows.items():
+        t = [summary(cuda_times_ms(f, reps=10, warmup=2, inner=5))[0]
+             for f in (plain, kern, k32, module, module, k32, kern, plain)]
+        b_ms, b_by = bound(flops, byts, torch.bfloat16)
+        us, traced = device_us_per_call(kern, [kname], per_call=[per_call])
+        # the profiler may drop every launch of a trace: then not measured
+        out[name] = dict(ms=min(t[1], t[6]), plain_ms=min(t[0], t[7]),
+                         fp32_ms=min(t[2], t[5]), module_ms=min(t[3], t[4]),
+                         bound_ms=b_ms, bound_by=b_by,
+                         device_ms=us / 1e3 if traced else None)
+        log(f"[bf16]   {label} {name} per evaluation: kernel {t[1]:.4f} / "
+            f"{t[6]:.4f} ms, device {us / 1e3:.4f} ms ({traced} launches "
+            f"traced), fp32 instance {t[2]:.4f} / {t[5]:.4f} ms, plain bf16 "
+            f"{t[0]:.4f} / {t[7]:.4f} ms, bf16 module path {t[3]:.4f} / "
+            f"{t[4]:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{flops / 1e9:.3f} GFLOP, {byts / 1e6:.2f} MB at 2-byte "
+            f"storage); medians of 10 samples of 5 back-to-back calls")
+    return out
+
+
+def phase_sqnxt_bf16_kernels(device, x):
+    """Phase 12(a): the bf16 instances of K6-K9 at the three full-width
+    stage shapes (B 128, on the bf16 model's own stage activations) and at
+    every SQNXT_EDGES case, against their plain bf16 versions; timed at the
+    stage shapes."""
+    import torch
+
+    from pnode_tpu_torch.models.sqnxt import ODEDynamics, _lecun_normal_
+
+    bf = torch.bfloat16
+    model = cifar_model(device, "off", dtype="bf16")
+    stages = stage_inputs(model, x)
+    reports = {k + "_bf16": {} for k in SQNXT_KERNELS}
+    timed, failed = {}, []
+    for si, (h, mod) in enumerate(stages):
+        label = f"stage {si + 1}"
+        case = sqnxt_bf16_case(label, h, mod, device, 30 + si, reports,
+                               failed)
+        timed[label] = time_sqnxt_bf16(label, h, mod, *case)
+    gen = torch.Generator().manual_seed(1)
+    for k, (label, si, dim, B, H, W) in enumerate(SQNXT_EDGES):
+        edge = ODEDynamics(dim, dtype=bf)
+        for conv in edge.convs:
+            w = conv.weight
+            _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], gen)
+        edge = edge.to(device)
+        h1 = stages[si][0]
+        h1 = h1.repeat(-(-B // h1.shape[0]), 1, 1, 1)[:B, :dim, :H, :W]
+        sqnxt_bf16_case(label, h1.contiguous(), edge, device, 40 + k,
+                        reports, failed)
+    if failed:
+        raise AssertionError(f"bf16 K6-K9 disagree with their plain bf16 "
+                             f"versions: {failed}")
+    # the JSON line's times: stage 1, where the bf16 model runs the chain
+    # (K6/K7) at B 128 and the layered mode (K8/K9) past B 186; stages 2
+    # and 3 of K6/K7 beside them
+    for name in reports:
+        reports[name].update(timed["stage 1"][name])
+    for name in ("fused_sqnxt_fwd_bf16", "fused_sqnxt_bwd_bf16"):
+        reports[name]["stage2"] = timed["stage 2"][name]
+        reports[name]["stage3"] = timed["stage 3"][name]
+    return reports
+
+
+def ode_block_grads(model, idx, h, g, layered=False):
+    """One ODE block's gradient: the model's own solver for piece ``idx``
+    (rk4, Nt 2, through the discrete adjoint; the kernel path on the (C, N)
+    layout, in the layered mode where ``layered``) from the NCHW input h
+    against the cotangent g of its output. Returns [dx, then every
+    parameter gradient but the conv biases'], in fp64."""
+    import torch
+
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    mod = model.pieces[idx]
+    hin = h.detach().clone().requires_grad_(True)
+    params = dict(mod.named_parameters())
+    B, C, H, W = h.shape
+    if model.use_kernels:
+        y0 = hin.permute(1, 0, 2, 3).reshape(C, -1).contiguous()
+        meta = fs.gate_meta(mod.dim, B, H, W, dtype=h.dtype)
+        ode = model._fused_solver(meta._replace(
+            layered=meta.layered or layered), y0)
+    else:
+        y0 = hin
+        ode = model._module_solver(mod, y0)
+    sol, _ = ode.solve(y0, np.array([model.t1]), params=params,
+                       with_adjoint=True)
+    out = sol[-1]
+    if model.use_kernels:
+        out = out.reshape(C, B, H, W).permute(1, 0, 2, 3)
+    keep = [p for k, p in params.items()
+            if not (k.startswith("convs.") and k.endswith(".bias"))]
+    grads = torch.autograd.grad(out, [hin] + keep, g.to(out.dtype))
+    return [t.double() for t in grads]
+
+
+def block_gate(got, ref):
+    """(least cosine, norm ratio farthest from 1) over the pairs of
+    tensors of ode_block_grads, and whether they pass BF16_BLOCK_TOL."""
+    cos, ratio = 1.0, 1.0
+    for a, b in zip(got, ref):
+        a, b = a.reshape(-1), b.reshape(-1)
+        cos = min(cos, float(a @ b / (a.norm() * b.norm())))
+        r = float(a.norm() / b.norm())
+        ratio = r if abs(r - 1) > abs(ratio - 1) else ratio
+    lo, hi = BF16_BLOCK_TOL["ratio"]
+    return cos, ratio, cos >= BF16_BLOCK_TOL["cos"] and lo <= ratio <= hi
+
+
+def phase_bf16_blocks(m_on, m_off, m_32, x, seed=50):
+    """Phase 12(b), the backward through the ODE blocks: at each stage's
+    first ODE block, on the bf16 model's own stage activation and a random
+    bf16 cotangent, the kernel path's block gradient against the module
+    path's (block_gate, BF16_BLOCK_TOL); stage 1 also in the layered mode
+    (K8/K9). Beside it the lower-precision control: the bf16 module path
+    against the fp32 module path on the same input. Returns the failed
+    cases."""
+    import torch
+
+    failed = []
+    for si, (h, mod) in enumerate(stage_inputs(m_off, x)):
+        idx = next(i for i, p in enumerate(m_off.pieces) if p is mod)
+        gen = torch.Generator(device=h.device).manual_seed(seed + si)
+        g = torch.randn(h.shape, generator=gen, device=h.device).to(h.dtype)
+        ref = ode_block_grads(m_off, idx, h, g)
+        ctl = block_gate(ref, ode_block_grads(m_32, idx, h.float(),
+                                              g.float()))
+        for layered in ((False, True) if si == 0 else (False,)):
+            cos, ratio, ok = block_gate(
+                ode_block_grads(m_on, idx, h, g, layered), ref)
+            label = (f"stage {si + 1} block {idx}"
+                     f"{' layered' if layered else ''}")
+            log(f"[bf16] (b) {label}, input {tuple(h.shape)}: kernel path "
+                f"vs module path, least cosine over dx and the parameter "
+                f"gradients {cos:.6f} (tol {BF16_BLOCK_TOL['cos']}), norm "
+                f"ratio {ratio:.6f} (tol {BF16_BLOCK_TOL['ratio']}); "
+                f"control, bf16 vs fp32 module path: {ctl[0]:.6f}, "
+                f"{ctl[1]:.6f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(label)
+    return failed
+
+
+def phase_cifar_bf16_paths(device, x, y, state0):
+    """Phase 12(b), the gates: the bf16 kernel path against the bf16
+    module path from the same weights on one batch (loss and the head's
+    gradient cosine, CIFAR_BF16_TOL; the whole gradient's cosine and norm
+    ratio printed), the backward through the ODE blocks
+    (phase_bf16_blocks), and the bf16 kernel path's predictions against the
+    fp32 kernel path's (as tests/test_models.py: every image whose fp32
+    top-2 margin exceeds twice the largest logit difference keeps its
+    argmax; at the random init the bf16 and fp32 logits part by more than
+    any image's margin, so this decides no image and the agreement is
+    printed, not gated)."""
+    import torch
+
+    m_on = cifar_model(device, "on", state0, dtype="bf16")
+    m_off = cifar_model(device, "off", state0, dtype="bf16")
+    lo_on, l_on, g_on = grads_of(m_on, x, y)
+    lo_off, l_off, g_off = grads_of(m_off, x, y)
+    heads = [torch.cat([p.grad.reshape(-1).double()
+                        for p in m.pieces[-1].dense.parameters()])
+             for m in (m_on, m_off)]
+    head_cos = float(heads[0] @ heads[1]
+                     / (heads[0].norm() * heads[1].norm()))
+    m_32 = cifar_model(device, "on", state0)
+    with torch.no_grad():
+        lo_32 = m_32(x, training=False)
+        lo_bf = m_on(x, training=False)
+    m_32.use_kernels = False  # the fp32 module path for the block control
+    e_loss = abs(l_on - l_off) / abs(l_off)
+    cos = float(g_on @ g_off / (g_on.norm() * g_off.norm()))
+    ratio = float(g_on.norm() / g_off.norm())
+    diff = float((lo_bf - lo_32).abs().max())
+    top2 = lo_32.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    agree = lo_bf.argmax(-1) == lo_32.argmax(-1)
+    ok = (e_loss <= CIFAR_BF16_TOL["loss"]
+          and head_cos >= CIFAR_BF16_TOL["head_cos"]
+          and bool(agree[sure].all()))
+    log(f"[bf16] (b) bf16 kernel path vs bf16 module path, B {CIFAR_B}, "
+        f"seed-0 weights: logits rel {rel_err(lo_on, lo_off):.3e}, loss "
+        f"{l_on:.6f} vs {l_off:.6f} rel {e_loss:.3e} (tol "
+        f"{CIFAR_BF16_TOL['loss']:.0e}), head gradient cosine "
+        f"{head_cos:.6f} (tol {CIFAR_BF16_TOL['head_cos']}), whole gradient "
+        f"cosine {cos:.6f}, norm ratio {ratio:.6f} (not gated); against "
+        f"the fp32 kernel path: max |logit diff| {diff:.3e} of max |logit| "
+        f"{float(lo_32.abs().max()):.3e}, argmax equal on "
+        f"{int(agree.sum())} of {len(agree)} images (not gated), on all "
+        f"{int(sure.sum())} whose fp32 margin exceeds 2x that "
+        f"{'ok' if ok else 'FAIL'}")
+    failed = phase_bf16_blocks(m_on, m_off, m_32, x)
+    if not ok or failed:
+        raise AssertionError(f"the bf16 CIFAR paths disagree: model "
+                             f"{'ok' if ok else 'FAIL'}, blocks {failed}")
+
+
+def phase_cifar_bf16(device, n_iters=12, warm=2, n_trainer=2):
+    """Phase 12: bf16 CIFAR at full width, batch 128, rk4, Nt 2."""
+    import torch
+
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    cif = load_example("train_cifar10_torch")
+    x_np, y_np, _, _, _ = cif.load_cifar10(
+        os.path.join(ROOT, "data", "cifar-10-batches-py"))
+    x_tr = torch.as_tensor(x_np, device=device)
+    y_tr = torch.as_tensor(y_np, device=device).long()
+    rng = np.random.default_rng(1)
+    batches = [torch.as_tensor(rng.choice(len(x_np), CIFAR_B, replace=False),
+                               device=device) for _ in range(n_iters)]
+    reports = phase_sqnxt_bf16_kernels(device, x_tr[batches[0]])
+    state0 = {k: v.detach().clone()
+              for k, v in cifar_model(device, "off").state_dict().items()}
+    phase_cifar_bf16_paths(device, x_tr[batches[0]], y_tr[batches[0]],
+                           state0)
+    wrappers = [fs.fused_sqnxt_fwd, fs.fused_sqnxt_bwd,
+                fs.fused_sqnxt_layer_fwd, fs.fused_sqnxt_layer_bwd]
+    # (c) images/s and peak memory in one call: bf16 kernels, bf16 module,
+    # fp32 kernels, the same batches; the bf16 kernel path's launches
+    for w in wrappers:
+        w.launches_bf16 = 0
+    runs = {}
+    for label, uk, dt in (("bf16 kernel path", "on", "bf16"),
+                          ("bf16 module path", "off", "bf16"),
+                          ("fp32 kernel path", "on", None)):
+        m = cifar_model(device, uk, state0, dtype=dt)
+        losses, ips, peak, _ = train_cifar(label, m, batches, x_tr, y_tr,
+                                           warm)
+        runs[label] = (losses, ips, peak)
+        if label == "bf16 kernel path":
+            counts = {w.__name__ + "_bf16": w.launches_bf16
+                      for w in wrappers}
+    losses = runs["bf16 kernel path"][0]
+    log(f"[bf16] (c) images/s: " + ", ".join(
+        f"{k} {v[1]:.1f}" for k, v in runs.items()) + "; peak GB: " +
+        ", ".join(f"{k} {v[2]:.3f}" for k, v in runs.items()))
+    log(f"[bf16] (c) bf16 launches over the kernel path's {n_iters} "
+        f"iterations at B {CIFAR_B} (chain at every stage): {counts}")
+    if not (np.all(np.isfinite(losses)) and losses[-5:].mean()
+            < losses[:5].mean()):
+        raise AssertionError(f"bf16 CIFAR training did not lower the loss: "
+                             f"{losses}")
+    # (d) examples/train_cifar10_torch.py --precision bf16 at B 256, where
+    # the bf16 gate runs stage 1 layered (K8/K9) and stages 2-3 chained
+    # (K6/K7), then --use_kernels off
+    before = {w.__name__: w.launches_bf16 for w in wrappers}
+    for uk in ("on", "off"):
+        t0 = time.perf_counter()
+        acc = cif.main(["--precision", "bf16", "--use_kernels", uk,
+                        "--batch_size", "256", "--epochs", "1",
+                        "--iters_per_epoch", str(n_trainer), "--train_dir",
+                        os.path.join(ROOT, "build", "cifar_bf16_" + uk)])
+        log(f"[bf16] (d) train_cifar10_torch.py --precision bf16 "
+            f"--use_kernels {uk} --batch_size 256, {n_trainer} iterations: "
+            f"test accuracy {acc:.4f}, {time.perf_counter() - t0:.1f} s")
+        if uk == "on":
+            for w in wrappers:
+                counts[w.__name__ + "_bf16"] += (w.launches_bf16
+                                                 - before[w.__name__])
+    memstat = open(os.path.join(ROOT, "build", "cifar_bf16_on",
+                                "memstat.txt")).read().split()
+    log(f"[bf16] (d) memstat.txt: {' '.join(memstat[-6:])}")
+    if memstat[-1] != "bf16":
+        raise AssertionError("memstat.txt does not carry the dtype")
+    log(f"[bf16] bf16 launches over (c) and (d): {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the bf16 "
+                                 "CIFAR path")
+    return reports, counts
+
+
+# -- phase 13: slice 10 --------------------------------------------------------
+
+GATE_B = 128  # tools/hardware_smoke.py's batch
+
+
+def ks_gate_model(device, state, dtype):
+    """(ode, ex) of tools/hardware_smoke.py's KS setup at batch 128: ARK3
+    IMEX at dt 0.2, hpddm with the frozen Jacobian, ksponly, f_EX on the
+    fused MLP (K1, and on the card K2/K3 through the fused gate) in
+    ``dtype``, the weights ``state``."""
+    import torch
+
+    import pnode_tpu_torch as pt
+    from pnode_tpu_torch.models import KSFuncEX, KSFuncIM
+
+    pt.clear_options()
+    pt.init(["chip_smoke", "-snes_type", "ksponly"])
+    im = KSFuncIM(nx=NX, dtype=dtype, device=device)
+    ex = KSFuncEX(nx=NX, hidden=HIDDEN, use_fused=True, dtype=dtype,
+                  device=device)
+    ex.load_state_dict({k: v.to(dtype) for k, v in state.items()})
+    ode = pt.ODESolver()
+    ode.setupTS(torch.zeros(GATE_B, NX, dtype=dtype, device=device),
+                pt.TorchFunc(im), step_size=DT, method="imex",
+                imex_form=True, func2=pt.TorchFunc(ex), linear_solver="hpddm",
+                fixed_jacobian=True, batch_size=GATE_B)
+    return ode, ex
+
+
+def gate_gradient(device, state, y0, tgt, dtype):
+    """(loss, flat gradient in fp64) of the one-step MSE through
+    odeint_adjoint in ``dtype`` (hardware_smoke.py's gate 4)."""
+    import torch
+
+    ode, ex = ks_gate_model(device, state, dtype)
+    pred = ode.odeint_adjoint(torch.as_tensor(y0, dtype=dtype, device=device),
+                              np.array([0.0, DT]))
+    loss = torch.mean((pred[-1] - torch.as_tensor(tgt, dtype=dtype,
+                                                  device=device)) ** 2)
+    loss.backward()
+    return float(loss.detach()), torch.cat(
+        [p.grad.reshape(-1).double().cpu() for p in ex.parameters()])
+
+
+def phase_hardware_gates(device, u):
+    """13, gates 1 and 4 of tools/hardware_smoke.py on the port: one ARK3
+    IMEX step of the KS data (u[300:428] -> u[301:429]) on the kernel path,
+    its MSE below 50x the identity's; the one-step MSE gradient by
+    odeint_adjoint on the card in fp32 and on the CPU in fp64 from the
+    same weights (drawn on the CPU), cosine above 0.99 (the reference's
+    gate). Returns the K1-K3 launches of the card's runs."""
+    import torch
+
+    from pnode_tpu_torch.models import KSFuncEX
+    from pnode_tpu_torch.ops.fused_ark_adjoint import fused_ark_step_adj
+    from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd
+    from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+
+    wrappers = {"fused_mlp_fwd": fused_mlp_fwd, "fused_mlp_bwd": fused_mlp_bwd,
+                "fused_ark_step_fwd": fused_ark_step_fwd,
+                "fused_ark_step_adj": fused_ark_step_adj}
+    state = {k: v.detach().clone() for k, v in KSFuncEX(
+        nx=NX, hidden=HIDDEN, use_fused=True,
+        generator=torch.Generator().manual_seed(0)).state_dict().items()}
+    y0, tgt = u[300:300 + GATE_B], u[301:301 + GATE_B]
+    for w in wrappers.values():
+        w.launches = 0
+    ode, _ = ks_gate_model(device, state, torch.float32)
+    with torch.no_grad():
+        pred = ode.odeint(torch.as_tensor(y0, dtype=torch.float32,
+                                          device=device), np.array([0.0, DT]))
+    mse = float(torch.mean((pred[-1].cpu().double()
+                            - torch.as_tensor(tgt)) ** 2))
+    ident = float(np.mean((y0 - tgt) ** 2))
+    ok1 = mse < 50 * max(ident, 1e-6)
+    log(f"[slice10] gate 1, one-step MSE against the KS data (B {GATE_B}, "
+        f"dt {DT}, ARK3 IMEX, hpddm, frozen J, ksponly): solver {mse:.6f}, "
+        f"identity {ident:.6f} (bound 50x: {50 * ident:.4f}) "
+        f"{'ok' if ok1 else 'FAIL'}")
+    t0 = time.perf_counter()
+    l_k, g_k = gate_gradient(device, state, y0, tgt, torch.float32)
+    t_card = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    t0 = time.perf_counter()
+    l_c, g_c = gate_gradient("cpu", state, y0, tgt, torch.float64)
+    cos = float(g_k @ g_c / (g_k.norm() * g_c.norm()))
+    ok4 = cos > 0.99
+    log(f"[slice10] gate 4, the one-step MSE gradient by odeint_adjoint: "
+        f"card fp32 (loss {l_k:.6e}, {t_card:.2f} s) against the port's CPU "
+        f"fp64 run (loss {l_c:.6e}, {time.perf_counter() - t0:.2f} s): "
+        f"cosine {cos:.8f} (tol > 0.99) {'ok' if ok4 else 'FAIL'}")
+    log(f"[slice10] K1-K3 launches over gates 1 and 4 on the card: {counts}")
+    if not (ok1 and ok4):
+        raise AssertionError("hardware gate 1 or 4 failed")
+    for k in ("fused_ark_step_fwd", "fused_ark_step_adj"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} was never launched by gates 1 and 4")
+    return counts
+
+
+def phase_loader_and_hotstart(device, u):
+    """13: WindowedLoader built from csrc/ on this machine and its batches;
+    examples/ks_torch.py on the main path's flags for 2 epochs, then
+    --hotstart to 3, which resumes after the best checkpoint's epoch (epoch
+    2 where epoch 1 validated best) with its best validation loss; annotate's
+    span in a trace()d step; the device's memory readings."""
+    import torch
+
+    from pnode_tpu_torch import native
+    from pnode_tpu_torch.data import WindowedLoader
+    from pnode_tpu_torch.utils import (
+        annotate, device_memory_gb, load_checkpoint, trace)
+
+    t0 = time.perf_counter()
+    u32 = u[:480].astype(np.float32)
+    ld = WindowedLoader(u32, window=1, batch=BATCH, seed=0)
+    batches = list(ld)
+    rows = {r.tobytes(): i for i, r in enumerate(u32)}
+    ok = ld.native and len(batches) == 1 and all(
+        np.array_equal(tgt[:, 0], u32[[rows[r.tobytes()] + 1 for r in y0]])
+        for y0, tgt in batches)
+    log(f"[slice10] WindowedLoader: native {ld.native} "
+        f"({native.build('windowed_loader').name}), {len(batches)} batch of "
+        f"{BATCH} per epoch from 480 states, targets the next state "
+        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.2f} s with "
+        f"the build)")
+    ld.close()
+    if not ok:
+        raise AssertionError("WindowedLoader failed on the card's machine")
+    ks = load_example("ks_torch")
+    train_dir = os.path.join(ROOT, "build", "ks_hotstart")
+    argv = ["--pnode_model", "imex", "--linear_solver", "hpddm",
+            "--fixed_jacobian", "--data_size", "600", "--train_dir",
+            train_dir]
+    t0 = time.perf_counter()
+    best1, hist1 = ks.main(argv + ["--max_epochs", "2"])
+    ck1 = load_checkpoint(os.path.join(train_dir, "best_imex.ckpt"))
+    best2, hist2 = ks.main(argv + ["--max_epochs", "3", "--hotstart"])
+    ck2 = load_checkpoint(os.path.join(train_dir, "best_imex.ckpt"))
+    start = int(ck1["epoch"]) + 1
+    ok = (len(hist1) == 2 and len(hist2) == 3 - start
+          and ck1["best_val"] == best1 and best2 <= best1
+          and ck2["best_val"] == best2
+          and int(ck2["epoch"]) in [ck1["epoch"]] + list(range(start, 3))
+          and np.all(np.isfinite(sum(hist1 + hist2, []))))
+    log(f"[slice10] ks_torch.py (imex, hpddm, frozen J) 2 epochs: best val "
+        f"{best1:.6e} at epoch {ck1['epoch']}; --hotstart to 3: resumed at "
+        f"epoch {start}, {len(hist2)} epochs of {len(hist2[0])} iterations, "
+        f"best val {best2:.6e} (the checkpoint's epoch {ck2['epoch']}); "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ks_torch.py --hotstart did not resume")
+    ode, ex = ks_gate_model(device, {k: torch.as_tensor(v) for k, v in
+                                     ck2["params"].items()}, torch.float32)
+    logdir = os.path.join(ROOT, "build", "slice10_trace")
+    with trace(logdir) as prof:
+        with annotate("pnode-slice10-step"):
+            loss_and_grads(ode, ex, u[300:300 + GATE_B],
+                           u[301:301 + GATE_B], device)
+            torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    text = open(os.path.join(logdir, "trace.json")).read()
+    mem = device_memory_gb()
+    ok = "pnode-slice10-step" in names and "pnode-slice10-step" in text \
+        and mem["peak_gb"] > 0
+    log(f"[slice10] trace(): annotate's span in the profiler's events and "
+        f"in {logdir}/trace.json; device_memory_gb {mem} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("trace/annotate/device_memory_gb failed")
+
+
+def phase_slice10(device, u):
+    """Phase 13: slice 10 on the card. Returns the K1-K3 launches of the
+    hardware gates."""
+    t0 = time.perf_counter()
+    counts = phase_hardware_gates(device, u)
+    phase_loader_and_hotstart(device, u)
+    log(f"[slice10] phase 13 took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     import torch
 
@@ -5475,6 +6265,10 @@ def main():
     theta_launches, _ = phase_theta("cuda", u)
     slice5_launches, replay, k1_ks = phase_slice5("cuda", u)
     slice5b_launches = phase_slice5b("cuda", u)
+    bf_reports, bf_counts = phase_cifar_bf16("cuda")
+    reports.update(bf_reports)
+    counts.update(bf_counts)
+    slice10_launches = phase_slice10("cuda", u)
     reports["probe_smem"] = probe_report
     counts["probe_smem"] = probe_report["launches"]
     kernels = []
@@ -5486,8 +6280,10 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
-        for extra in ("device_ms", "stage3", "library_device_ms",
-                      "launch_floor_device_ms", "with_dw", "ks_stage"):
+        for extra in ("device_ms", "stage2", "stage3", "library_device_ms",
+                      "launch_floor_device_ms", "with_dw", "ks_stage",
+                      "fp32_ms", "module_ms", "max_rel_err",
+                      "free_norm_err", "free_max_rel_err"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if name in k1_burgers:  # K1's readings at the Burgers stack too
@@ -5498,6 +6294,8 @@ def main():
             kernels[-1]["slice5_launches"] = slice5_launches[name]
         if name in slice5b_launches:  # launches over phase 11's paths
             kernels[-1]["slice5b_launches"] = slice5b_launches[name]
+        if name in slice10_launches:  # launches over phase 13's gates
+            kernels[-1]["slice10_launches"] = slice10_launches[name]
         if name in k1_ks:  # K1's device time per call at the KS stack
             kernels[-1]["device_ms"] = k1_ks[name]
         mine = {k: {"us_per_launch": us, "launches": per}

@@ -65,6 +65,20 @@ initial dt. A call in which an iteration runs out of trials before its
 window lands stops the training (``SystemExit``). The JAX package reaches
 this kernel only through ``bench.py --workload adaptive``.
 
+Training minibatches come from ``pnode_tpu_torch.data.WindowedLoader``, as
+``examples/ks.py``'s do: the shared native loader (``csrc/windowed_loader.cpp``),
+whose batches equal ``ks.py``'s bit for bit at the same ``--seed``, epoch
+after epoch; validation is one full batch of ``make_batches`` under
+``default_rng(0)``, as in ``ks.py``. The best validation loss's weights go
+to ``best_<pnode_model>.ckpt`` in ``--train_dir`` (``epoch``, ``params``,
+``best_val``, ``normalize``: the JAX package's pickle of numpy arrays,
+``pnode_tpu_torch.utils.save_checkpoint``); ``--hotstart`` resumes from it
+at the next epoch with its best validation loss, and refuses a checkpoint
+of another ``--normalize``::
+
+    python examples/ks_torch.py --max_epochs 2
+    python examples/ks_torch.py --max_epochs 3 --hotstart   # epoch 2 on
+
 ``--dp N`` (twin of ``examples/ks.py --dp``) trains data-parallel over N
 ranks of a ``torch.distributed`` group: every rank draws the same global
 minibatch from the seed, solves its B/N rows, and one all-reduce per step
@@ -110,6 +124,8 @@ def parse_args(argv=None):
     p.add_argument("--double_prec", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--train_dir", type=str, default="./train_results_ks_torch")
+    p.add_argument("--hotstart", action="store_true",
+                   help="resume from best_<pnode_model>.ckpt in --train_dir")
     p.add_argument("--lr", type=float, default=5e-3)
     p.add_argument("--linear_solver", choices=["petsc", "hpddm", "torch"],
                    default="petsc", help="the implicit stages' solves: "
@@ -331,9 +347,10 @@ def main(argv=None):
     import torch
 
     import pnode_tpu_torch as pt
-    from pnode_tpu_torch.data import generate_ks_data
+    from pnode_tpu_torch.data import WindowedLoader, generate_ks_data
     from pnode_tpu_torch.models import (
         IMEXSum, KSFuncEX, KSFuncIM, KSMLPFunc, KSSnodeFunc)
+    from pnode_tpu_torch.utils import load_checkpoint, save_checkpoint
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda: CUDA is not available (pass "
@@ -434,6 +451,20 @@ def main(argv=None):
             lambda params, batch: data_loss(predict(batch[0]), batch[1]),
             mesh)
     opt = torch.optim.Adam(ex.parameters(), lr=args.lr)
+    start_epoch, best_val = 0, float("inf")
+    ckpt_path = os.path.join(args.train_dir, f"best_{args.pnode_model}.ckpt")
+    if args.hotstart and os.path.exists(ckpt_path):
+        ck = load_checkpoint(ckpt_path)
+        if ck.get("normalize") != args.normalize:
+            raise RuntimeError(
+                "checkpoint normalization mismatch: the checkpoint is "
+                f"{ck.get('normalize')!r}, the run {args.normalize!r}")
+        ex.load_state_dict({k: torch.as_tensor(v)
+                            for k, v in ck["params"].items()})
+        start_epoch, best_val = int(ck["epoch"]) + 1, float(ck["best_val"])
+        print(f"hotstart from epoch {start_epoch} (best val {best_val:.6e})")
+    # one rank writes the checkpoint
+    writes = mesh is None or torch.distributed.get_rank() == 0
     fused = None
     if args.fused_loop:
         if args.pnode_model != "imex":
@@ -458,13 +489,14 @@ def main(argv=None):
     # plateau LR decay on the per-epoch validation loss (halve after 10
     # non-improving validations), as examples/ks.py does
     lr_now, lr_best, lr_bad = args.lr, float("inf"), 0
-    best_val = float("inf")
-    rng = np.random.default_rng(args.seed)
+    # the native windowed loader, examples/ks.py's (the same batches)
+    train_loader = WindowedLoader(u_train, window=W, batch=args.batch_size,
+                                  seed=args.seed,
+                                  endpoint_only=args.time_window_endpoint)
     history = []  # per epoch, the per-iteration train losses
-    for epoch in range(args.max_epochs):
+    for epoch in range(start_epoch, args.max_epochs):
         t0 = time.time()
-        batches = list(make_batches(u_train, rng, W, args.batch_size,
-                                    args.time_window_endpoint))
+        batches = list(train_loader)
         if fused is not None and batches:
             # the whole epoch as one call; targets (B, 1, d) -> (B, d)
             losses = fused.run(as_t(np.stack([b[0] for b in batches])),
@@ -509,10 +541,16 @@ def main(argv=None):
                 for group in opt.param_groups:
                     group["lr"] = lr_now
                 print(f"plateau: lr -> {lr_now:.2e}")
-        best_val = min(best_val, vl)
         print(f"Epoch {epoch:04d} | Time {time.time() - t0:.2f}s | "
               f"Train {train_loss:.6e} | Val {vl:.6e} | "
               f"NFE-F {ode.nfe_forward}")
+        if vl < best_val:
+            best_val = vl
+            if writes:
+                save_checkpoint(ckpt_path, {
+                    "epoch": epoch, "params": ex.state_dict(),
+                    "best_val": best_val, "normalize": args.normalize})
+    train_loader.close()
     if own_group:
         torch.distributed.destroy_process_group()
     return best_val, history

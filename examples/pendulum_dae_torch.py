@@ -17,9 +17,11 @@ trajectory::
         --niters 200
     python examples/pendulum_dae_torch.py --unknown_alg --pretrained
 
-Checkpoints are the port's own ``torch.save`` files in ``--train_dir``
-(``best_pendulum_dae.pt``, ``best_pendulum_dae_unknown_alg.pt``), read by
-``--pretrained`` and ``--hotstart``. As in the JAX example, the nets use
+Checkpoints are the JAX package's pickles of numpy arrays
+(``pnode_tpu_torch.utils.save_checkpoint``, as ``examples/pendulum_dae.py``
+writes them) in ``--train_dir`` (``best_pendulum_dae.ckpt``,
+``best_pendulum_dae_unknown_alg.ckpt``), read by ``--pretrained`` and
+``--hotstart``. As in the JAX example, the nets use
 the tanh form of GELU (flax's ``nn.gelu`` default) and AdamW decays weights
 by 1e-4 (optax's ``adamw`` default; torch's is 1e-2). PETSc-style flags
 after the script's own options go to the port's options database.
@@ -168,7 +170,8 @@ def main(argv=None, state=None):
     args, unknown = parse_args(argv)
     sys.path.insert(0, ROOT)
     import pnode_tpu_torch as pt
-    from pnode_tpu_torch.utils import RunningAverageMeter, makedirs
+    from pnode_tpu_torch.utils import (
+        RunningAverageMeter, load_checkpoint, makedirs, save_checkpoint)
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda: CUDA is not available (pass "
@@ -189,15 +192,15 @@ def main(argv=None, state=None):
     if state is not None:
         model.load_state_dict(state)
     makedirs(args.train_dir)
-    ckpt_known = os.path.join(args.train_dir, "best_pendulum_dae.pt")
+    ckpt_known = os.path.join(args.train_dir, "best_pendulum_dae.ckpt")
     ckpt_path = os.path.join(
-        args.train_dir, "best_pendulum_dae_unknown_alg.pt"
-        if args.unknown_alg else "best_pendulum_dae.pt")
+        args.train_dir, "best_pendulum_dae_unknown_alg.ckpt"
+        if args.unknown_alg else "best_pendulum_dae.ckpt")
     if args.pretrained and os.path.exists(ckpt_known):
-        ck = torch.load(ckpt_known, map_location=device)
+        ck = load_checkpoint(ckpt_known)
         model.diff.load_state_dict(
-            {k[len("diff."):]: v for k, v in ck["params"].items()
-             if k.startswith("diff.")})
+            {k[len("diff."):]: torch.as_tensor(v)
+             for k, v in ck["params"].items() if k.startswith("diff.")})
         print("warm-started differential net from pretrained checkpoint")
     ode = make_solver(model, true_y0, args.method, step_size)
 
@@ -209,9 +212,10 @@ def main(argv=None, state=None):
 
     start_iter, best_loss = 0, float("inf")
     if args.hotstart and os.path.exists(ckpt_path):
-        ck = torch.load(ckpt_path, map_location=device)
-        model.load_state_dict(ck["params"])
-        start_iter, best_loss = ck["iter"] + 1, ck["best_loss"]
+        ck = load_checkpoint(ckpt_path)
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in ck["params"].items()})
+        start_iter, best_loss = int(ck["iter"]) + 1, float(ck["best_loss"])
         print(f"hotstart at iter {start_iter}")
 
     time_meter = RunningAverageMeter(0.97)
@@ -236,8 +240,9 @@ def main(argv=None, state=None):
                   f"NFE-F {ode.nfe_forward}")
             if lv < best_loss:
                 best_loss = lv
-                torch.save({"iter": itr, "params": model.state_dict(),
-                            "best_loss": best_loss}, ckpt_path)
+                save_checkpoint(ckpt_path, {"iter": itr,
+                                            "params": model.state_dict(),
+                                            "best_loss": best_loss})
         end = time.time()
     return {"losses": losses, "cv": cvs, "final": loss_meter.avg}
 

@@ -11,9 +11,10 @@ The data is scipy's BDF solution, minmax- or mean-normalized. Every
 ``--test_freq`` iterations it prints ``Iter | Time | Loss | Grad | NFE-F |
 NFE-B``, logs Train/Loss and Train/Gradient through ``MetricsWriter``
 (``metrics.jsonl``, and TensorBoard where it imports) and saves the best
-weights (``best.pt`` in ``--train_dir``, the port's own ``torch.save``
-file), which ``--hotstart`` resumes from; a checkpoint of another
-normalization is refused::
+weights (``best.ckpt`` in ``--train_dir``, the JAX package's pickle of
+numpy arrays through ``pnode_tpu_torch.utils.save_checkpoint``, as
+``examples/rober.py`` writes it), which ``--hotstart`` resumes from; a
+checkpoint of another normalization is refused::
 
     python examples/rober_torch.py                    # the H100
     python examples/rober_torch.py --device cpu --double_prec --niters 200
@@ -151,7 +152,8 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     import pnode_tpu_torch as pt
     from pnode_tpu_torch.utils import (
-        MetricsWriter, RunningAverageMeter, makedirs)
+        MetricsWriter, RunningAverageMeter, load_checkpoint, makedirs,
+        save_checkpoint)
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda: CUDA is not available (pass "
@@ -170,16 +172,17 @@ def main(argv=None):
     opt = torch.optim.Adam(func.parameters(), lr=args.lr)
 
     makedirs(args.train_dir)
-    ckpt = os.path.join(args.train_dir, "best.pt")
+    ckpt = os.path.join(args.train_dir, "best.ckpt")
     start_iter, best_loss = 0, float("inf")
     if args.hotstart and os.path.exists(ckpt):
-        ck = torch.load(ckpt, map_location=device)
+        ck = load_checkpoint(ckpt)
         if ck.get("normalize") != args.normalize:
             raise RuntimeError("hotstart normalization mismatch: the "
                                f"checkpoint is {ck.get('normalize')!r}, the "
                                f"run {args.normalize!r}")
-        func.load_state_dict(ck["params"])
-        start_iter, best_loss = ck["iter"] + 1, ck["best_loss"]
+        func.load_state_dict({k: torch.as_tensor(v)
+                              for k, v in ck["params"].items()})
+        start_iter, best_loss = int(ck["iter"]) + 1, float(ck["best_loss"])
         print(f"hotstart at iter {start_iter}, best {best_loss:.3e}")
 
     writer = MetricsWriter(args.train_dir)
@@ -201,9 +204,10 @@ def main(argv=None):
             writer.add_scalar("Train/Gradient", gnorm, itr)
             if loss < best_loss:
                 best_loss = loss
-                torch.save({"iter": itr, "params": func.state_dict(),
-                            "best_loss": best_loss,
-                            "normalize": args.normalize}, ckpt)
+                save_checkpoint(ckpt, {"iter": itr,
+                                       "params": func.state_dict(),
+                                       "best_loss": best_loss,
+                                       "normalize": args.normalize})
         end = time.time()
     writer.close()
     return {"losses": losses, "start": start_iter, "final": loss_meter.avg,

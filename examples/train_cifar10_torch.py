@@ -5,18 +5,23 @@ Twin of ``examples/train_cifar10.py``: SqueezeNext with ODE blocks
 trained through the discrete adjoint, SGD with momentum and weight decay on
 the piecewise schedule (x0.1 at 30, 60 and 80 epochs of iterations), the
 per-epoch train and test accuracy, and the ``memstat.txt`` record
-``Nt mem_gb epoch_time method source`` (peak device memory from
+``Nt mem_gb epoch_time method source precision`` (peak device memory from
 ``torch.cuda.max_memory_allocated``)::
 
     python examples/train_cifar10_torch.py --Nt 2 --method rk4 --epochs 2
+    python examples/train_cifar10_torch.py --precision bf16 --epochs 2
     python examples/train_cifar10_torch.py --device cpu --epochs 1 \
         --iters_per_epoch 2 --batch_size 4 --width_x 0.25 --method euler --Nt 1
 
 The same flags as the JAX trainer, with ``--device`` (default ``cuda``; it
 raises when CUDA is absent: the CPU is an explicit choice, never a fallback)
 and ``--use_kernels auto|on|off`` (the fused ODE-dynamics kernels K6-K9, or
-the module path) in place of ``--cpu`` and ``--use_pallas``. PETSc-style
-flags after the script's own options go to the port's options database.
+the module path) in place of ``--cpu`` and ``--use_pallas``. ``--precision
+bf16`` trains the JAX trainer's mixed precision (fp32 parameters, bf16
+activations and ODE states, fp32 norm statistics and logits), with the bf16
+instances of K6-K9 under ``--use_kernels auto|on`` and bf16 ``F.conv2d``
+under ``off``. PETSc-style flags after the script's own options go to the
+port's options database.
 
 The CIFAR-10 pickles are read from ``--data_dir`` when present (then the
 random crop and flip run on the device from a ``torch.Generator``);
@@ -226,7 +231,7 @@ def main(argv=None):
               f"Mem {mem_gb:.2f}GB ({mem_src})")
         with open(os.path.join(args.train_dir, "memstat.txt"), "a") as f:
             f.write(f"{args.Nt} {mem_gb:.3f} {epoch_time:.2f} {args.method} "
-                    f"{mem_src}\n")
+                    f"{mem_src} {args.precision}\n")
     return float(np.mean(te_accs)) if te_accs else 0.0
 
 

@@ -18,6 +18,12 @@
 // layer, each input staged once with its halo, dynamic shared memory sized
 // per launch. The entry points own the grid (pnode_sqnxt_bwd_plan) and
 // take one scratch allocation whose size they check.
+//
+// Each kernel has two instances: fp32 (pnode_sqnxt_bwd, _bwd_layer) and
+// bf16 storage (pnode_sqnxt_bwd_bf16, _bwd_layer_bf16: x, g, dx, the taps,
+// b, the anchors and the g buffers in bf16; the parameter gradients, the
+// products, the statistics and the norm's backward in fp32, rounded where
+// the JAX kernels cast; csrc/sqnxt_tiles.cuh note 8).
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -31,14 +37,15 @@ namespace sq = sqnxt;
 
 constexpr int kPtrsPerLayer = 9;  // w, b, gam, bet, z, dw, db, dgam, dbet
 
-// K7 (kLayers 5) and K9 (kLayers 1): the forward recompute, then every
-// layer's backward in reverse (csrc/sqnxt_tiles.cuh). The plan rides as a
-// __grid_constant__ parameter, copied once into shared memory.
-template <int kLayers>
+// K7 (kLayers 5) and K9 (kLayers 1), storage type T: the forward
+// recompute, then every layer's backward in reverse (csrc/sqnxt_tiles.cuh).
+// The plan rides as a __grid_constant__ parameter, copied once into shared
+// memory.
+template <typename T, int kLayers>
 __global__ void __launch_bounds__(sq::kThreads, 1)
 sqnxt_bwd_kernel(const __grid_constant__ sq::Chain c,
-                 const float* __restrict__ x, const float* __restrict__ g,
-                 float* dx, float* scratch) {
+                 const T* __restrict__ x, const T* __restrict__ g,
+                 T* dx, float* scratch) {
   extern __shared__ float4 sqnxt_smem[];
   SQNXT_NS(0);
   SQNXT_MARK(sq::kMarks - 2);
@@ -54,18 +61,18 @@ sqnxt_bwd_kernel(const __grid_constant__ sq::Chain c,
   const size_t slot_size = (size_t)gridDim.x * sq::kMaxQ * sq::kMaxC;
   float* part = scratch;
   float* dwpart = scratch + 2 * slot_size;
-  float* gbuf = dwpart + (size_t)gridDim.x * c.dw_stride;
+  T* gbuf = reinterpret_cast<T*>(dwpart + (size_t)gridDim.x * c.dw_stride);
   int slot = 0;
-  sq::forward_layers<true>(s, x, part, slot_size, slot, grid);
+  sq::forward_layers<T, true>(s, x, part, slot_size, slot, grid);
 #pragma unroll 1
   for (int l = kLayers - 1; l >= 0; --l) {
-    const float* gin =
+    const T* gin =
         l == kLayers - 1 ? g : gbuf + (size_t)((l + 1) & 1) * c.gstride;
-    float* gout = l == 0 ? dx : gbuf + (size_t)(l & 1) * c.gstride;
+    T* gout = l == 0 ? dx : gbuf + (size_t)(l & 1) * c.gstride;
     // gout is complete at backward_layer's second grid.sync, before the
     // ordered dW sum: the next layer reads it with no further barrier
-    sq::backward_layer(s, l, x, gin, gout, part, slot_size, slot, dwpart,
-                       grid);
+    sq::backward_layer<T>(s, l, x, gin, gout, part, slot_size, slot, dwpart,
+                          grid);
   }
   SQNXT_MARK(sq::kMarks - 1);
   SQNXT_NS(1);
@@ -85,11 +92,11 @@ int bwd_pointers(sq::Chain* c, void* const* ptrs) {
     void* const* v = ptrs + l * kPtrsPerLayer;
     for (int k = 0; k < kPtrsPerLayer; ++k)
       if (!v[k]) return (int)cudaErrorInvalidValue;
-    p.w = (const float*)v[0];
-    p.b = (const float*)v[1];
+    p.w = v[0];
+    p.b = v[1];
     p.gam = (const float*)v[2];
     p.bet = (const float*)v[3];
-    p.z = (float*)v[4];
+    p.z = v[4];
     p.dw = (float*)v[5];
     p.db = (float*)v[6];
     p.dgam = (float*)v[7];
@@ -100,10 +107,10 @@ int bwd_pointers(sq::Chain* c, void* const* ptrs) {
 
 // The cooperative grid: co-resident blocks at the plan's shared memory,
 // at most the largest tile count of any pass.
-template <int kLayers>
+template <typename T, int kLayers>
 int bwd_grid(const sq::Chain& c, int* grid) {
   int per_sm = 0, sms = 0;
-  const int rc = sq::occupancy(sqnxt_bwd_kernel<kLayers>,
+  const int rc = sq::occupancy(sqnxt_bwd_kernel<T, kLayers>,
                                (size_t)c.smem_floats * 4, &per_sm, &sms);
   if (rc) return rc;
   int tiles = 1;
@@ -117,41 +124,45 @@ int bwd_grid(const sq::Chain& c, int* grid) {
   return 0;
 }
 
+template <typename T>
 int bwd_plan(int nl, const int* ints, int N, int H, int W, int* grid,
              long long* scratch) {
   sq::Chain c;
   int rc = bwd_shape(&c, nl, ints, N, H, W);
   if (rc) return rc;
   if (nl == 5)
-    rc = bwd_grid<5>(c, grid);
+    rc = bwd_grid<T, 5>(c, grid);
   else if (nl == 1)
-    rc = bwd_grid<1>(c, grid);
+    rc = bwd_grid<T, 1>(c, grid);
   else
     return (int)cudaErrorInvalidValue;
   if (rc) return rc;
-  *scratch = (long long)sq::scratch_floats(c, *grid);
+  *scratch = (long long)sq::scratch_floats(c, *grid, sizeof(T));
   return 0;
 }
 
-template <int kLayers>
-int launch_bwd(const float* x, const float* g, float* dx, int nl,
+template <typename T, int kLayers>
+int launch_bwd(const void* xv, const void* gv, void* dxv, int nl,
                const int* ints, void* const* ptrs, int N, int H, int W,
                float* scratch, long long scratch_floats, int grid,
                void* stream) {
+  const T* x = static_cast<const T*>(xv);
+  const T* g = static_cast<const T*>(gv);
+  T* dx = static_cast<T*>(dxv);
   sq::Chain c;
   if (nl != kLayers || !x || !g || !dx || !scratch)
     return (int)cudaErrorInvalidValue;
   int rc = bwd_shape(&c, nl, ints, N, H, W);
   if (rc || (rc = bwd_pointers(&c, ptrs))) return rc;
   int want = 0;
-  if ((rc = bwd_grid<kLayers>(c, &want))) return rc;
+  if ((rc = bwd_grid<T, kLayers>(c, &want))) return rc;
   if (grid != want ||
-      scratch_floats != (long long)sq::scratch_floats(c, grid))
+      scratch_floats != (long long)sq::scratch_floats(c, grid, sizeof(T)))
     return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&c, (void*)&x, (void*)&g, (void*)&dx,
                   (void*)&scratch};
   rc = (int)cudaLaunchCooperativeKernel(
-      (const void*)sqnxt_bwd_kernel<kLayers>, dim3(grid), dim3(sq::kThreads),
+      (const void*)sqnxt_bwd_kernel<T, kLayers>, dim3(grid), dim3(sq::kThreads),
       args, (size_t)c.smem_floats * 4, (cudaStream_t)stream);
   if (rc) return rc;
   return (int)cudaGetLastError();
@@ -164,31 +175,56 @@ extern "C" {
 // K7 (nl 5) and K9 (nl 1): the grid their launch takes and the floats of
 // its one scratch allocation (two partial-slot buffers of grid x 4 x 128,
 // grid dW slots of round4(max taps * cin * cout), and for nl 5 two g
-// buffers of max cin_l * N, l >= 1). ints: per layer cin, cout, taps, axis
-// (0 1x1, 1 j, 2 i), single_pass.
+// buffers of max cin_l * N elements, l >= 1: 2 max cin_l N floats for
+// fp32, max cin_l N for bf16). ints: per layer cin, cout, taps, axis (0
+// 1x1, 1 j, 2 i), single_pass. _bf16: the bf16 instances.
 int pnode_sqnxt_bwd_plan(int nl, const int* ints, int N, int H, int W,
                          int* grid, long long* scratch_floats) {
-  return bwd_plan(nl, ints, N, H, W, grid, scratch_floats);
+  return bwd_plan<float>(nl, ints, N, H, W, grid, scratch_floats);
+}
+
+int pnode_sqnxt_bwd_plan_bf16(int nl, const int* ints, int N, int H, int W,
+                              int* grid, long long* scratch_floats) {
+  return bwd_plan<sq::bf16>(nl, ints, N, H, W, grid, scratch_floats);
 }
 
 // dx (cin_0, N) and every layer's dw, db, dgam, dbet from x and the output
 // cotangent g. ptrs: per layer w (taps, cout, cin), b, gam, bet, z (cout,
-// N) workspace, dw, db, dgam, dbet. grid and scratch_floats must equal the
-// plan's (else cudaErrorInvalidValue).
-int pnode_sqnxt_bwd(const float* x, const float* g, float* dx, int nl,
+// N) workspace, dw, db, dgam, dbet (x, g, dx, w, b and z fp32, or bf16 for
+// _bf16; gam, bet and the gradients fp32, each dW rounded through the
+// storage type). grid and scratch_floats must equal the plan's (else
+// cudaErrorInvalidValue).
+int pnode_sqnxt_bwd(const void* x, const void* g, void* dx, int nl,
                     const int* ints, void* const* ptrs, int N, int H, int W,
                     float* scratch, long long scratch_floats, int grid,
                     void* stream) {
-  return launch_bwd<5>(x, g, dx, nl, ints, ptrs, N, H, W, scratch,
-                       scratch_floats, grid, stream);
+  return launch_bwd<float, 5>(x, g, dx, nl, ints, ptrs, N, H, W, scratch,
+                              scratch_floats, grid, stream);
 }
 
-int pnode_sqnxt_bwd_layer(const float* x, const float* g, float* dx, int nl,
+int pnode_sqnxt_bwd_layer(const void* x, const void* g, void* dx, int nl,
                           const int* ints, void* const* ptrs, int N, int H,
                           int W, float* scratch, long long scratch_floats,
                           int grid, void* stream) {
-  return launch_bwd<1>(x, g, dx, nl, ints, ptrs, N, H, W, scratch,
-                       scratch_floats, grid, stream);
+  return launch_bwd<float, 1>(x, g, dx, nl, ints, ptrs, N, H, W, scratch,
+                              scratch_floats, grid, stream);
+}
+
+int pnode_sqnxt_bwd_bf16(const void* x, const void* g, void* dx, int nl,
+                         const int* ints, void* const* ptrs, int N, int H,
+                         int W, float* scratch, long long scratch_floats,
+                         int grid, void* stream) {
+  return launch_bwd<sq::bf16, 5>(x, g, dx, nl, ints, ptrs, N, H, W, scratch,
+                                 scratch_floats, grid, stream);
+}
+
+int pnode_sqnxt_bwd_layer_bf16(const void* x, const void* g, void* dx,
+                               int nl, const int* ints, void* const* ptrs,
+                               int N, int H, int W, float* scratch,
+                               long long scratch_floats, int grid,
+                               void* stream) {
+  return launch_bwd<sq::bf16, 1>(x, g, dx, nl, ints, ptrs, N, H, W, scratch,
+                                 scratch_floats, grid, stream);
 }
 
 #ifdef SQNXT_TRACE

@@ -40,6 +40,15 @@
 // at the plan's shared memory, at most the largest tile count) and take
 // one scratch allocation (the partial slots and the anchors) whose size
 // they check.
+//
+// Each kernel has two instances: fp32 (pnode_sqnxt_fwd, _fwd_layer) and
+// bf16 storage (pnode_sqnxt_fwd_bf16, _fwd_layer_bf16: x, the taps, b, the
+// anchors and out in bf16, the products, statistics and shared memory in
+// fp32, rounded where the JAX kernels cast; csrc/sqnxt_tiles.cuh note 8).
+// The bf16 instances' bound takes bf16 operands at the tensor cores' 989
+// TFLOP/s (these kernels run them as fp32 FFMA all the same): 0.6 us for a
+// chain evaluation, so bytes set it, 16.8 MB for the stage-1 chain's x,
+// out and parameters at B 128, 5.0 us.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -57,12 +66,12 @@ constexpr int kPtrsPerLayer = 4;  // w, b, gam, bet
 constexpr int kBlocksPerSm = 2;
 constexpr int kMaxBlocksPerSm = 8;  // 2048 threads an SM
 
-// K6 (kLayers 5) and K8 (kLayers 1). The plan rides as a __grid_constant__
-// parameter, copied once into shared memory.
-template <int kLayers>
+// K6 (kLayers 5) and K8 (kLayers 1), storage type T. The plan rides as a
+// __grid_constant__ parameter, copied once into shared memory.
+template <typename T, int kLayers>
 __global__ void __launch_bounds__(sq::kThreads, kBlocksPerSm)
 sqnxt_fwd_kernel(const __grid_constant__ sq::Chain c,
-                 const float* __restrict__ x, float* out, float* part) {
+                 const T* __restrict__ x, T* out, float* part) {
   extern __shared__ float4 sqnxt_smem[];
   SQNXT_NS(0);
   SQNXT_MARK(sq::kMarks - 2);
@@ -77,8 +86,8 @@ sqnxt_fwd_kernel(const __grid_constant__ sq::Chain c,
   cg::grid_group grid = cg::this_grid();
   const size_t slot_size = (size_t)gridDim.x * sq::kMaxQ * sq::kMaxC;
   int slot = 0;
-  sq::forward_layers<false>(s, x, part, slot_size, slot, grid);
-  sq::normalize_out(s, out);
+  sq::forward_layers<T, false>(s, x, part, slot_size, slot, grid);
+  sq::normalize_out<T>(s, out);
   SQNXT_MARK(sq::kMarkBwd);
   SQNXT_MARK(sq::kMarks - 1);
   SQNXT_NS(1);
@@ -89,7 +98,7 @@ sqnxt_fwd_kernel(const __grid_constant__ sq::Chain c,
 // tiles) is planned (the store sized at that grid) and kept where that
 // many blocks are co-resident at the plan's shared memory. c ends planned
 // at the grid chosen. cudaErrorInvalidValue where no grid fits.
-template <int kLayers>
+template <typename T, int kLayers>
 int fwd_grid(sq::Chain& c, int* grid) {
   int dev = 0, sms = 0, rc;
   if ((rc = (int)cudaGetDevice(&dev)) ||
@@ -109,8 +118,8 @@ int fwd_grid(sq::Chain& c, int* grid) {
     prev = g;
     sq::plan_fwd(c, g);
     int per_sm = 0, n_sm = 0;
-    rc = sq::occupancy(sqnxt_fwd_kernel<kLayers>, (size_t)c.smem_floats * 4,
-                       &per_sm, &n_sm);
+    rc = sq::occupancy(sqnxt_fwd_kernel<T, kLayers>,
+                       (size_t)c.smem_floats * 4, &per_sm, &n_sm);
     if (rc == (int)cudaErrorInvalidValue) continue;  // over the opt-in size
     if (rc) return rc;
     if (per_sm * n_sm >= g) best = g;
@@ -121,35 +130,38 @@ int fwd_grid(sq::Chain& c, int* grid) {
   return 0;
 }
 
+template <typename T>
 int fwd_plan(int nl, const int* ints, int N, int H, int W, int* grid,
              long long* scratch) {
   sq::Chain c;
   int rc = sq::shape(&c, nl, ints, N, H, W);
   if (rc) return rc;
   if (nl == 5)
-    rc = fwd_grid<5>(c, grid);
+    rc = fwd_grid<T, 5>(c, grid);
   else if (nl == 1)
-    rc = fwd_grid<1>(c, grid);
+    rc = fwd_grid<T, 1>(c, grid);
   else
     return (int)cudaErrorInvalidValue;
   if (rc) return rc;
-  *scratch = (long long)sq::fwd_scratch_floats(c, *grid);
+  *scratch = (long long)sq::fwd_scratch_floats(c, *grid, sizeof(T));
   return 0;
 }
 
-template <int kLayers>
-int launch_fwd(const float* x, float* out, int nl, const int* ints,
+template <typename T, int kLayers>
+int launch_fwd(const void* xv, void* outv, int nl, const int* ints,
                void* const* ptrs, int N, int H, int W, float* scratch,
                long long scratch_floats, int grid, void* stream) {
+  const T* x = static_cast<const T*>(xv);
+  T* out = static_cast<T*>(outv);
   sq::Chain c;
   if (nl != kLayers || !x || !out || !ptrs || !scratch)
     return (int)cudaErrorInvalidValue;
   int rc = sq::shape(&c, nl, ints, N, H, W);
   if (rc) return rc;
   int want = 0;
-  if ((rc = fwd_grid<kLayers>(c, &want))) return rc;
+  if ((rc = fwd_grid<T, kLayers>(c, &want))) return rc;
   if (grid != want ||
-      scratch_floats != (long long)sq::fwd_scratch_floats(c, grid))
+      scratch_floats != (long long)sq::fwd_scratch_floats(c, grid, sizeof(T)))
     return (int)cudaErrorInvalidValue;
   // the anchors follow the partial slots in the scratch
   float* z = scratch + (size_t)2 * grid * sq::kMaxQ * sq::kMaxC;
@@ -158,19 +170,19 @@ int launch_fwd(const float* x, float* out, int nl, const int* ints,
     void* const* v = ptrs + l * kPtrsPerLayer;
     for (int k = 0; k < kPtrsPerLayer; ++k)
       if (!v[k]) return (int)cudaErrorInvalidValue;
-    p.w = (const float*)v[0];
-    p.b = (const float*)v[1];
+    p.w = v[0];
+    p.b = v[1];
     p.gam = (const float*)v[2];
     p.bet = (const float*)v[3];
     p.z = nullptr;
     if (l + 1 < nl || !p.keep) {
       p.z = z;
-      z += (size_t)p.cout * N;
+      z += sq::elem_floats((size_t)p.cout * N, sizeof(T));
     }
   }
   void* args[] = {(void*)&c, (void*)&x, (void*)&out, (void*)&scratch};
   rc = (int)cudaLaunchCooperativeKernel(
-      (const void*)sqnxt_fwd_kernel<kLayers>, dim3(grid), dim3(sq::kThreads),
+      (const void*)sqnxt_fwd_kernel<T, kLayers>, dim3(grid), dim3(sq::kThreads),
       args, (size_t)c.smem_floats * 4, (cudaStream_t)stream);
   if (rc) return rc;
   return (int)cudaGetLastError();
@@ -182,30 +194,54 @@ extern "C" {
 
 // K6 (nl 5) and K8 (nl 1): the grid their launch takes and the floats of
 // its one scratch allocation (two partial-slot buffers of grid x 4 x 128,
-// then the anchors z_l (cout_l x N) of every layer but the last, and of
-// the last where the plan does not keep it in shared memory). ints: per
-// layer cin, cout, taps, axis (0 1x1, 1 j, 2 i), single_pass.
+// then the anchors z_l (cout_l x N, in floats: cout_l N fp32, ceil(cout_l
+// N / 2) for bf16) of every layer but the last, and of the last where the
+// plan does not keep it in shared memory). ints: per layer cin, cout,
+// taps, axis (0 1x1, 1 j, 2 i), single_pass. _bf16: the bf16 instances.
 int pnode_sqnxt_fwd_plan(int nl, const int* ints, int N, int H, int W,
                          int* grid, long long* scratch_floats) {
-  return fwd_plan(nl, ints, N, H, W, grid, scratch_floats);
+  return fwd_plan<float>(nl, ints, N, H, W, grid, scratch_floats);
+}
+
+int pnode_sqnxt_fwd_plan_bf16(int nl, const int* ints, int N, int H, int W,
+                              int* grid, long long* scratch_floats) {
+  return fwd_plan<sq::bf16>(nl, ints, N, H, W, grid, scratch_floats);
 }
 
 // out (cout_last, N) from x (cin_0, N). ptrs: per layer w (taps, cout,
-// cin), b, gam, bet. grid and scratch_floats must equal the plan's (else
+// cin), b, gam, bet (w, b, x and out fp32, or bf16 for _bf16; gam, bet
+// fp32). grid and scratch_floats must equal the plan's (else
 // cudaErrorInvalidValue, before any launch).
-int pnode_sqnxt_fwd(const float* x, float* out, int nl, const int* ints,
+int pnode_sqnxt_fwd(const void* x, void* out, int nl, const int* ints,
                     void* const* ptrs, int N, int H, int W, float* scratch,
                     long long scratch_floats, int grid, void* stream) {
-  return launch_fwd<5>(x, out, nl, ints, ptrs, N, H, W, scratch,
-                       scratch_floats, grid, stream);
+  return launch_fwd<float, 5>(x, out, nl, ints, ptrs, N, H, W, scratch,
+                              scratch_floats, grid, stream);
 }
 
-int pnode_sqnxt_fwd_layer(const float* x, float* out, int nl,
+int pnode_sqnxt_fwd_layer(const void* x, void* out, int nl,
                           const int* ints, void* const* ptrs, int N, int H,
                           int W, float* scratch, long long scratch_floats,
                           int grid, void* stream) {
-  return launch_fwd<1>(x, out, nl, ints, ptrs, N, H, W, scratch,
-                       scratch_floats, grid, stream);
+  return launch_fwd<float, 1>(x, out, nl, ints, ptrs, N, H, W, scratch,
+                              scratch_floats, grid, stream);
+}
+
+int pnode_sqnxt_fwd_bf16(const void* x, void* out, int nl, const int* ints,
+                         void* const* ptrs, int N, int H, int W,
+                         float* scratch, long long scratch_floats, int grid,
+                         void* stream) {
+  return launch_fwd<sq::bf16, 5>(x, out, nl, ints, ptrs, N, H, W, scratch,
+                                 scratch_floats, grid, stream);
+}
+
+int pnode_sqnxt_fwd_layer_bf16(const void* x, void* out, int nl,
+                               const int* ints, void* const* ptrs, int N,
+                               int H, int W, float* scratch,
+                               long long scratch_floats, int grid,
+                               void* stream) {
+  return launch_fwd<sq::bf16, 1>(x, out, nl, ints, ptrs, N, H, W, scratch,
+                                 scratch_floats, grid, stream);
 }
 
 #ifdef SQNXT_TRACE

@@ -96,13 +96,33 @@
 // 7. Deterministic: no atomics; statistics, d_b and dW are summed in fixed
 //    orders (warp shuffle trees, group order, block order), only over the
 //    blocks that had a tile, each float4 of dW entries by one warp.
+// 8. Two storage types. Every kernel has an fp32 and a bf16 instance (T =
+//    float or __nv_bfloat16, the JAX kernels' activation dtype): T is the
+//    type of x, the taps, b, the anchors z_l, the output and the cotangents
+//    (g, the g buffers, dx) in device memory. Shared memory, the products,
+//    the statistics, the norm's backward and the partial slots stay fp32
+//    (a bf16 value is exact in fp32, so the products of two bf16 values
+//    are exact and only their sums round, as in the JAX kernels' f32
+//    accumulation). The bf16 instance rounds where the JAX kernels cast to
+//    the activation dtype (pnode_tpu/ops/fused_sqnxt.py): z = bf16(bf16(acc)
+//    + b) (:157), the norm's output before the ReLU (:176), g_z (:277), g_h
+//    (:301) and each dW through bf16 (:291); rnd<float> is the identity, so
+//    the fp32 instance computes what it did before. The bf16 rows come in
+//    by plain 4-byte (or 2-byte) loads converted on the way (cp.async
+//    cannot convert), the fp32 rows by cp.async as above. The scratch is counted in floats for both: its
+//    partial slots and dW slots are fp32, its anchors and g buffers take
+//    ceil(elements * sizeof(T) / 4) floats (elem_floats), so at bf16 they
+//    take half the room. The shared-memory layout, and with it the store
+//    (kStoreFloats) and the grid, is the same for both.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <mutex>
+#include <type_traits>
 
 namespace sqnxt {
 
@@ -120,6 +140,43 @@ constexpr int kMinTiles = 256;  // a pass's tiles, split smaller below it
 constexpr int kViewFloats = 32;  // room for the Smem view
 constexpr float kEps = 1e-5f;   // BatchStatsNorm eps
 
+using bf16 = __nv_bfloat16;
+
+// Floats that n elements of a storage type of esize bytes take.
+__host__ __device__ inline size_t elem_floats(size_t n, int esize) {
+  return (n * (size_t)esize + 3) / 4;
+}
+
+// The storage type's conversions: to_f exact, from_f round to nearest
+// even, rnd<T>(v) = float(T(v)) (the identity for float).
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+
+// Loads as fp32: through L2 (ld_cg, for what the launch itself writes) or
+// the read-only path (ld_in, for its inputs).
+__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ld_cg(const bf16* p) {
+  return __uint_as_float(
+      (unsigned)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ float ld_in(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_in(const bf16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
 struct Layer {
   int cin, cout, taps, axis, single_pass;  // axis: 0 1x1, 1 j taps, 2 i taps
   int rt_o, rt_i;   // row tiles of Cout and Cin (8, 16, 32, 64, 128)
@@ -132,12 +189,12 @@ struct Layer {
   int ld_b;         // row stride of the backward pass's staged tile
   int stat;         // offset of its rows in the statistics arrays
   int keep;         // forward kernels: z's tiles stay in the block's store
-  const float* w;   // (taps, cout, cin)
-  const float* b;   // (cout,)
+  const void* w;    // (taps, cout, cin), of the storage type T
+  const void* b;    // (cout,), T
   const float* gam;
   const float* bet;
-  float* z;         // the anchor (cout, N); null where keep holds all of z
-  float* dw;        // outputs, shaped as w, b, gam, bet
+  void* z;          // the anchor (cout, N), T; null where keep holds all of z
+  float* dw;        // outputs (fp32), shaped as w, b, gam, bet
   float* db;
   float* dgam;
   float* dbet;
@@ -277,11 +334,12 @@ inline int plan(Chain& c) {
 }
 
 // Floats of the backward kernels' one scratch allocation, for a grid of
-// `grid` blocks: two partial-slot buffers (grid x kMaxQ x kMaxC each), the
-// dW slots (grid x dw_stride) and, for a chain, two g buffers.
-inline size_t scratch_floats(const Chain& c, int grid) {
+// `grid` blocks and a storage type of esize bytes: two partial-slot
+// buffers (grid x kMaxQ x kMaxC each), the dW slots (grid x dw_stride) and,
+// for a chain, two g buffers of gstride elements of the storage type.
+inline size_t scratch_floats(const Chain& c, int grid, int esize) {
   return (size_t)2 * grid * kMaxQ * kMaxC + (size_t)grid * c.dw_stride +
-         2 * c.gstride;
+         elem_floats(2 * c.gstride, esize);
 }
 
 // The forward kernels' store of z tiles may take up to 128 KB of a block's
@@ -331,12 +389,13 @@ inline void plan_fwd(Chain& c, int grid) {
 
 // Floats of the forward kernels' one scratch allocation: two partial-slot
 // buffers (grid x kMaxQ x kMaxC each), then the anchors that go to device
-// memory: every layer's but the last's, and the last's where the store
-// does not keep it.
-inline size_t fwd_scratch_floats(const Chain& c, int grid) {
+// memory, each elem_floats(cout N, esize): every layer's but the last's,
+// and the last's where the store does not keep it.
+inline size_t fwd_scratch_floats(const Chain& c, int grid, int esize) {
   size_t n = (size_t)2 * grid * kMaxQ * kMaxC;
   for (int l = 0; l < c.nl; ++l)
-    if (l + 1 < c.nl || !c.L[l].keep) n += (size_t)c.L[l].cout * c.N;
+    if (l + 1 < c.nl || !c.L[l].keep)
+      n += elem_floats((size_t)c.L[l].cout * c.N, esize);
   return n;
 }
 
@@ -476,14 +535,21 @@ __device__ __forceinline__ void sum_slots(const Smem& s, const float* part,
 }
 
 // Layer l's weights for the forward product: wf[(t cin + ci) rt_o + co] =
-// W[t, co, ci], rows co >= cout zero (4-byte copies: the layout turns).
-// One warp a row (t, co) of W, its lanes along ci.
+// W[t, co, ci], rows co >= cout zero (4-byte copies: the layout turns; bf16
+// by plain loads). One warp a row (t, co) of W, its lanes along ci.
+template <typename T>
 __device__ __forceinline__ void stage_w_fwd(const Layer& p, float* wf) {
   const int rt = p.rt_o, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* w = static_cast<const T*>(p.w);
   for (int row = warp; row < p.taps * p.cout; row += kWarps) {
     const int t = row / p.cout, co = row - t * p.cout;
-    for (int ci = lane; ci < p.cin; ci += 32)
-      cp_async4(wf + (t * p.cin + ci) * rt + co, p.w + (size_t)row * p.cin + ci);
+    for (int ci = lane; ci < p.cin; ci += 32) {
+      float* d = wf + (t * p.cin + ci) * rt + co;
+      if constexpr (std::is_same<T, float>::value)
+        cp_async4(d, w + (size_t)row * p.cin + ci);
+      else
+        *d = ld_in(w + (size_t)row * p.cin + ci);
+    }
   }
   const int pad = rt - p.cout;
   for (int k = warp; k < p.taps * p.cin; k += kWarps)
@@ -492,16 +558,26 @@ __device__ __forceinline__ void stage_w_fwd(const Layer& p, float* wf) {
 
 // Layer l's weights for g_h: wb[(t cout + co) rt_i + ci] = W[t, co, ci],
 // columns ci >= cin zero; 16-byte copies where cin % 4 == 0 (and W is
-// 16-byte aligned), else 4-byte ones.
+// 16-byte aligned), else 4-byte ones; bf16 by plain loads.
+template <typename T>
 __device__ __forceinline__ void stage_w_bwd(const Layer& p, float* wb) {
   const int rt = p.rt_i, rows = p.taps * p.cout;
-  if ((p.cin & 3) == 0 && (reinterpret_cast<size_t>(p.w) & 15) == 0) {
+  if constexpr (!std::is_same<T, float>::value) {
+    const T* w = static_cast<const T*>(p.w);
+    for (int e = threadIdx.x; e < rows * rt; e += kThreads) {
+      const int r = e / rt, j = e - r * rt;
+      wb[e] = j < p.cin ? ld_in(w + (size_t)r * p.cin + j) : 0.0f;
+    }
+    return;
+  }
+  const float* w = static_cast<const float*>(p.w);
+  if ((p.cin & 3) == 0 && (reinterpret_cast<size_t>(w) & 15) == 0) {
     const int v = rt >> 2;
     for (int e = threadIdx.x; e < rows * v; e += kThreads) {
       const int r = e / v, j = 4 * (e - r * v);
       float* d = wb + r * rt + j;
       if (j < p.cin)
-        cp_async16(d, p.w + (size_t)r * p.cin + j);
+        cp_async16(d, w + (size_t)r * p.cin + j);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -509,7 +585,7 @@ __device__ __forceinline__ void stage_w_bwd(const Layer& p, float* wb) {
     for (int e = threadIdx.x; e < rows * rt; e += kThreads) {
       const int r = e / rt, j = e - r * rt;
       if (j < p.cin)
-        cp_async4(wb + e, p.w + (size_t)r * p.cin + j);
+        cp_async4(wb + e, w + (size_t)r * p.cin + j);
       else
         wb[e] = 0.0f;
     }
@@ -566,17 +642,61 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld,
   }
 }
 
+// The same from bf16 rows, converted to fp32 on the way: plain loads
+// through L2 (the anchors and g buffers are written in the launch), 4 bytes
+// (two columns) where N and base are even and the rows 4-byte aligned (a
+// pair then lies wholly inside or outside [0, N); the second column is
+// stored only inside width, since ld may equal width), else 2 bytes. One
+// warp a row; stored before the function returns.
+__device__ __forceinline__ void copy_rows(float* dst, int ld, const bf16* src,
+                                          int rows, int base, int width,
+                                          int N) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (((N | base) & 1) == 0 && (reinterpret_cast<size_t>(src) & 3) == 0) {
+    const int w2 = (width + 1) >> 1;
+    for (int r = warp; r < rows; r += kWarps) {
+      const unsigned* sr =
+          reinterpret_cast<const unsigned*>(src + (size_t)r * N);
+      float* d = dst + r * ld;
+#pragma unroll 4
+      for (int j2 = lane; j2 < w2; j2 += 32) {
+        const int j = 2 * j2, n = base + j;
+        float lo = 0.0f, hi = 0.0f;
+        if ((unsigned)n < (unsigned)N) {
+          const unsigned v = __ldcg(sr + (n >> 1));
+          lo = __uint_as_float(v << 16);  // column n: the low half
+          hi = __uint_as_float(v & 0xffff0000u);
+        }
+        d[j] = lo;
+        if (j + 1 < width) d[j + 1] = hi;
+      }
+    }
+    return;
+  }
+  for (int r = warp; r < rows; r += kWarps) {
+    const bf16* sr = src + (size_t)r * N;
+    float* d = dst + r * ld;
+#pragma unroll 4
+    for (int j = lane; j < width; j += 32) {
+      const int n = base + j;
+      d[j] = (unsigned)n < (unsigned)N ? ld_cg(sr + n) : 0.0f;
+    }
+  }
+}
+
 // Layer l's input rows for the tile's columns n0 - halo .. (width of
 // them, ld apart): x for the first layer, else the previous layer's
-// anchor, copied raw and then turned in place into ReLU(z sc + sh), once
-// per element (0 stays outside [0, N)). Ends with every
+// anchor, copied raw and then turned in place into ReLU(z sc + sh) rounded
+// to T, once per element (0 stays outside [0, N)). Ends with every
 // element in place for every thread.
+template <typename T>
 __device__ __forceinline__ void stage_input(const Smem& s, int l,
-                                            const float* x, int n0, int halo,
+                                            const T* x, int n0, int halo,
                                             int width, int ld, float* dst) {
   const Chain& c = *s.c;
   const int cin = c.L[l].cin, base = n0 - halo, N = c.N;
-  copy_rows(dst, ld, l == 0 ? x : c.L[l - 1].z, cin, base, width, N);
+  copy_rows(dst, ld, l == 0 ? x : static_cast<const T*>(c.L[l - 1].z), cin,
+            base, width, N);
   cp_async_wait_all();
   __syncthreads();
   if (l == 0) return;
@@ -588,7 +708,7 @@ __device__ __forceinline__ void stage_input(const Smem& s, int l,
       const int n = base + j;
       float* d = dst + ci * ld + j;
       if ((unsigned)n < (unsigned)N)
-        *d = fmaxf(fmaf(*d, sc, sh), 0.0f);
+        *d = rnd<T>(fmaxf(fmaf(*d, sc, sh), 0.0f));
     }
   }
   __syncthreads();
@@ -704,12 +824,12 @@ __device__ __forceinline__ void fwd_product(const Layer& p, const float* wf,
 // g_h over the tile's columns: gout[ci, n0 + c] = sum_{t, co} W[t, co, ci]
 // g_z[co, c - s_t] ok_t(c - s_t), with g_z staged (rows ld apart, halo
 // columns each side). The tile's tn columns are tn / CT product tiles;
-// the groups split co and meet in xb.
-template <int RT, int TAPS, int KS>
+// the groups split co and meet in xb. gout is rounded to T.
+template <typename T, int RT, int TAPS, int KS>
 __device__ __forceinline__ void gh_product(const Chain& c, const Layer& p,
                                            const float* wb, const float* gz,
                                            int ld, const unsigned char* msk,
-                                           int n0, int tn, float* gout,
+                                           int n0, int tn, T* gout,
                                            float* xb) {
   using S = Shape<RT, KS>;
   const int grp = threadIdx.x / S::TG, lt = threadIdx.x % S::TG;
@@ -760,7 +880,7 @@ __device__ __forceinline__ void gh_product(const Chain& c, const Layer& p,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int n = n0 + c0 + tx + S::TX * q;
-          if (n < N) gout[(size_t)ci * N + n] = acc[i][q];
+          if (n < N) gout[(size_t)ci * N + n] = from_f<T>(acc[i][q]);
         }
       }
     if (KS > 1) __syncthreads();  // xb is free for the next product tile
@@ -911,11 +1031,12 @@ static __device__ unsigned long long ns[2];
   } while (0)
 #endif
 
-// One forward tile of layer p: the product, then z = acc + b into zt (CT
-// columns a row, in shared memory: over the staged input xs, or the
-// block's store, for the row sums) and, where the layer has one, into the
-// anchor in device memory. The groups meet over xs.
-template <int RT, int TAPS, int KS>
+// One forward tile of layer p: the product, then z = acc + b (in T's
+// rounding: bf16(bf16(acc) + b)) into zt (CT columns a row, in shared
+// memory: over the staged input xs, or the block's store, for the row
+// sums) and, where the layer has one, into the anchor in device memory.
+// The groups meet over xs.
+template <typename T, int RT, int TAPS, int KS>
 __device__ __forceinline__ void fwd_tile(const Chain& c, const Layer& p,
                                          const float* wf, const float* h,
                                          int ld, const unsigned char* msk,
@@ -928,18 +1049,18 @@ __device__ __forceinline__ void fwd_tile(const Chain& c, const Layer& p,
   const int grp = threadIdx.x / S::TG, lt = threadIdx.x % S::TG;
   if (grp > 0) return;
   const int ty = lt / S::TX, tx = lt % S::TX, N = c.N;
-  float* z_out = p.z;
+  T* z_out = static_cast<T*>(p.z);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
     if (r >= p.cout) continue;
-    const float b = __ldg(p.b + r);
+    const float b = ld_in(static_cast<const T*>(p.b) + r);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int j = tx + S::TX * q, n = n0 + j;
-      const float z = acc[i][q] + b;
+      const float z = rnd<T>(rnd<T>(acc[i][q]) + b);
       zt[r * S::CT + j] = z;
-      if (z_out && n < N) z_out[(size_t)r * N + n] = z;
+      if (z_out && n < N) z_out[(size_t)r * N + n] = from_f<T>(z);
     }
   }
 }
@@ -960,14 +1081,15 @@ __device__ __forceinline__ void fwd_tile(const Chain& c, const Layer& p,
     default: { constexpr int KS = 4; CALL; } break; \
   }
 
+template <typename T>
 static __device__ __noinline__ void fwd_tile_any(const Chain& c, const Layer& p,
                                                  const float* wf, const float* h,
                                                  int ld, const unsigned char* msk,
                                                  int n0, float* zt, float* xs) {
   if (p.taps == 1) {
-    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<T, RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   } else {
-    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<T, RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   }
 }
 
@@ -976,28 +1098,29 @@ static __device__ __noinline__ void fwd_tile_any(const Chain& c, const Layer& p,
 // 128-register cap would otherwise save live values around the call), or
 // the out-of-line fwd_tile_any (the backward kernels: their products
 // inlined as well would double their build).
-template <bool kInline>
+template <typename T, bool kInline>
 __device__ __forceinline__ void fwd_tile_at(const Chain& c, const Layer& p,
                                             const float* wf, const float* h,
                                             int ld, const unsigned char* msk,
                                             int n0, float* zt, float* xs) {
   if constexpr (!kInline) {
-    fwd_tile_any(c, p, wf, h, ld, msk, n0, zt, xs);
+    fwd_tile_any<T>(c, p, wf, h, ld, msk, n0, zt, xs);
   } else if (p.taps == 1) {
-    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<T, RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   } else {
-    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<T, RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   }
 }
 
+template <typename T>
 static __device__ __noinline__ void gh_any(const Chain& c, const Layer& p,
                                            const float* wb, const float* gz, int ld,
                                            const unsigned char* msk, int n0, int tn,
-                                           float* gout, float* xb) {
+                                           T* gout, float* xb) {
   if (p.taps == 1) {
-    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<RT, 1, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
+    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<T, RT, 1, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
   } else {
-    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<RT, 3, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
+    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<T, RT, 3, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
   }
 }
 
@@ -1027,14 +1150,14 @@ __device__ __forceinline__ float* slot_of(float* part, size_t slot_size,
 // (tile k of the block at zs + k cout tn_f). kBackward (K7, K9): the
 // backward's first weights are copied in after the last layer, and the
 // tiles' products are called out of line (fwd_tile_at).
-template <bool kBackward>
-__device__ __forceinline__ void forward_layers(const Smem& s, const float* x,
+template <typename T, bool kBackward>
+__device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
                                                float* part, size_t slot_size,
                                                int& slot,
                                                cg::grid_group& grid) {
   const Chain& c = *s.c;
   const int N = c.N, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  stage_w_fwd(c.L[0], s.w);
+  stage_w_fwd<T>(c.L[0], s.w);
 #pragma unroll 1
   for (int l = 0; l < c.nl; ++l) {
     const Layer& p = c.L[l];
@@ -1052,7 +1175,8 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const float* x,
       stage_masks(c, p, n0, tn, s.msk);
       __syncthreads();
       if (first) SQNXT_MARK(kMarkSub + 3 * l);
-      fwd_tile_at<!kBackward>(c, p, s.w, s.tile, ld, s.msk, n0, zt, s.tile);
+      fwd_tile_at<T, !kBackward>(c, p, s.w, s.tile, ld, s.msk, n0, zt,
+                                 s.tile);
       __syncthreads();
       if (first) SQNXT_MARK(kMarkSub + 3 * l + 1);
       for (int r = warp; r < p.cout; r += kWarps) {
@@ -1076,9 +1200,9 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const float* x,
     // the next weights (K7's and K9's: the backward's first after the last
     // layer) land while the grid meets
     if (l + 1 < c.nl)
-      stage_w_fwd(c.L[l + 1], s.w);
+      stage_w_fwd<T>(c.L[l + 1], s.w);
     else if (kBackward)
-      stage_w_bwd(p, s.w);
+      stage_w_bwd<T>(p, s.w);
     float* sl = slot_of(part, slot_size, slot);
     if (blockIdx.x < ntiles) write_slot(s, 2, p.cout, sl);
     grid.sync();
@@ -1100,7 +1224,8 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const float* x,
         const int n0 = tile * tn, cols = min(tn, N - n0);
         const float* zt = s.zs + k * p.cout * tn;
         if (!p.keep) {
-          copy_rows(s.tile, tn, p.z, p.cout, n0, cols, N);
+          copy_rows(s.tile, tn, static_cast<const T*>(p.z), p.cout, n0, cols,
+                    N);
           cp_async_wait_all();
           __syncthreads();
           zt = s.tile;
@@ -1138,21 +1263,30 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const float* x,
 
 // The forward kernels' output: out = ReLU(z sc + sh) of the last layer
 // over this block's tiles of it (the form of the staging and of the
-// backward's ReLU gates), z read from the store where the layer keeps it,
-// else from its anchor; 16-byte loads and stores where N is a multiple of
-// 4 (every tile's first column is).
-__device__ __forceinline__ void normalize_out(const Smem& s, float* out) {
+// backward's ReLU gates), rounded to T, z read from the store where the
+// layer keeps it, else from its anchor; fp32: 16-byte loads and stores
+// where N is a multiple of 4 (every tile's first column is).
+template <typename T>
+__device__ __forceinline__ void normalize_out(const Smem& s, T* out) {
   const Chain& c = *s.c;
   const Layer& p = c.L[c.nl - 1];
   const int N = c.N, R = p.cout, tn = p.tn_f, st = p.stat;
   const int ntiles = (N + tn - 1) / tn;
   const int lg = __ffs(tn) - 1;  // tn is a power of two
   const bool keep = p.keep;
-  const float* z = p.z;
+  const T* z = static_cast<const T*>(p.z);
   for (int tile = blockIdx.x, k = 0; tile < ntiles; tile += gridDim.x, ++k) {
     const int n0 = tile * tn, cols = min(tn, N - n0);
     const float* zt = s.zs + k * R * tn;
-    if ((N & 3) == 0) {
+    if constexpr (!std::is_same<T, float>::value) {
+      for (int e = threadIdx.x; e < R * tn; e += kThreads) {
+        const int r = e >> lg, j = e & (tn - 1);
+        if (j >= cols) continue;
+        const size_t o = (size_t)r * N + n0 + j;
+        const float v = keep ? zt[e] : ld_cg(z + o);
+        out[o] = from_f<T>(fmaxf(fmaf(v, s.sc[st + r], s.sh[st + r]), 0.0f));
+      }
+    } else if ((N & 3) == 0) {
       for (int e = 4 * threadIdx.x; e < R * tn; e += 4 * kThreads) {
         const int r = e >> lg, j = e & (tn - 1);
         if (j >= cols) continue;
@@ -1179,10 +1313,12 @@ __device__ __forceinline__ void normalize_out(const Smem& s, float* out) {
 // g_z of layer l in place over its staged anchor rows (dst[co * ld + j]
 // at n = n0 - halo + j, 0 outside [0, N)), with g loaded from device
 // memory: each warp walks its rows' elements 16 at a time, all 16 loads
-// in flight before any is used. Then d_b's row sums over the tile's
-// own columns into acc[0][co]. Ends with g_z in place for every thread.
+// in flight before any is used. g_z is rounded to T (the JAX kernels'
+// g_zd). Then d_b's row sums over the tile's own columns into acc[0][co].
+// Ends with g_z in place for every thread.
+template <typename T>
 __device__ __forceinline__ void stage_gz(const Smem& s, int l,
-                                         const float* gin, int n0, int tn,
+                                         const T* gin, int n0, int tn,
                                          int ld, float* dst) {
   const Chain& c = *s.c;
   const Layer& p = c.L[l];
@@ -1199,7 +1335,7 @@ __device__ __forceinline__ void stage_gz(const Smem& s, int l,
     for (int u = 0; u < 16; ++u) {
       const int r = warp + kWarps * i, j = lane + 32 * jj, n = base + j;
       gv[u] = i < rows && j < width && (unsigned)n < (unsigned)N
-                  ? __ldcg(gin + (size_t)r * N + n)
+                  ? ld_cg(gin + (size_t)r * N + n)
                   : 0.0f;
       if (++jj == iters) {
         jj = 0;
@@ -1223,7 +1359,7 @@ __device__ __forceinline__ void stage_gz(const Smem& s, int l,
                zh * (s.red[3 * kMaxC + r] * c.inv_n)) *
               isr;
         }
-        *d = v;
+        *d = rnd<T>(v);
       }
       if (++jj == iters) {
         jj = 0;
@@ -1243,14 +1379,16 @@ __device__ __forceinline__ void stage_gz(const Smem& s, int l,
 
 // Stage-exact backprop of layer l: gin the cotangent of its output, gout
 // of its input (complete at this function's grid.sync).
+template <typename T>
 __device__ __forceinline__ void backward_layer(const Smem& s, int l,
-                                               const float* x,
-                                               const float* gin, float* gout,
+                                               const T* x,
+                                               const T* gin, T* gout,
                                                float* part, size_t slot_size,
                                                int& slot, float* dwpart,
                                                cg::grid_group& grid) {
   const Chain& c = *s.c;
   const Layer& p = c.L[l];
+  const T* z = static_cast<const T*>(p.z);
   const int N = c.N, R = p.cout, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tn = p.tn_b, ld = p.ld_b, width = tn + 2 * p.halo;
   const int ntiles = (N + tn - 1) / tn, nb = min((int)gridDim.x, ntiles);
@@ -1265,7 +1403,7 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     for (int a0 = tile * tn; a0 < min(tile * tn + tn, N); a0 += wa) {
       const int cols = min(min(wa, tile * tn + tn - a0), N - a0);
-      copy_rows(zs, wa, p.z, R, a0, cols, N);
+      copy_rows(zs, wa, z, R, a0, cols, N);
       copy_rows(gs, wa, gin, R, a0, cols, N);
       cp_async_wait_all();
       __syncthreads();
@@ -1318,21 +1456,21 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
   float* mine = dwpart + (size_t)blockIdx.x * c.dw_stride;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int n0 = tile * tn;
-    copy_rows(gz, ld, p.z, R, n0 - p.halo, width, N);  // waited below
-    stage_input(s, l, x, n0, p.halo, width, ld, h);
-    stage_gz(s, l, gin, n0, tn, ld, gz);
+    copy_rows(gz, ld, z, R, n0 - p.halo, width, N);  // waited below
+    stage_input<T>(s, l, x, n0, p.halo, width, ld, h);
+    stage_gz<T>(s, l, gin, n0, tn, ld, gz);
     stage_masks(c, p, n0, tn, s.msk);
     __syncthreads();
     const bool first = tile == (int)blockIdx.x;
     if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l);
-    gh_any(c, p, s.w, gz, ld, s.msk, n0, tn, gout, s.x);
+    gh_any<T>(c, p, s.w, gz, ld, s.msk, n0, tn, gout, s.x);
     if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 1);
     dw_any(p, gz, h, ld, s.msk, tn, s.tile, mine, first);
     __syncthreads();
     if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 2);
   }
   SQNXT_MARK(kMarkBwd + 6 * l + 3);
-  if (l > 0) stage_w_bwd(c.L[l - 1], s.w);  // lands while the grid meets
+  if (l > 0) stage_w_bwd<T>(c.L[l - 1], s.w);  // lands while the grid meets
   float* sl2 = slot_of(part, slot_size, slot);
   if (blockIdx.x < ntiles) write_slot(s, 1, R, sl2);
   grid.sync();
@@ -1366,7 +1504,7 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
       const float vv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        if (4 * col + i < E) p.dw[4 * col + i] = vv[i];
+        if (4 * col + i < E) p.dw[4 * col + i] = rnd<T>(vv[i]);
     }
   }
   SQNXT_MARK(kMarkBwd + 6 * l + 5);
@@ -1420,7 +1558,7 @@ inline int occupancy(Kernel kernel, size_t smem, int* per_sm, int* sms) {
     size_t smem;
     int per_sm, sms;
   };
-  static Entry cache[64];
+  static Entry cache[256];
   static int used = 0;
   static std::mutex mu;
   std::lock_guard<std::mutex> lock(mu);
@@ -1459,8 +1597,8 @@ inline int occupancy(Kernel kernel, size_t smem, int* per_sm, int* sms) {
            per_sm, kernel, kThreads, smem)))
     return rc;
   if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  if (used < 64) cache[used++] = Entry{(const void*)kernel, dev, smem, *per_sm,
-                                       *sms};
+  if (used < 256) cache[used++] = Entry{(const void*)kernel, dev, smem, *per_sm,
+                                        *sms};
   return 0;
 }
 

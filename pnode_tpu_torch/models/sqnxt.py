@@ -8,6 +8,15 @@ blocks integrating the BasicBlock2 dynamics (``ODEDynamics``) over [0, t1].
 averages), so the dynamics are a pure function of (t, y, params) and couple
 the whole batch: a solve never splits it.
 
+``dtype="bf16"`` is the JAX package's mixed precision: parameters and their
+gradients stay fp32, every conv (and the head's dense layer) casts its
+weights and its input to bf16 as flax's ``nn.Conv(dtype=...)`` does,
+``BatchStatsNorm`` computes its statistics in fp32 and returns the
+activation dtype, the stem casts the image to bf16, and the head returns
+fp32 logits. The ODE state and its trajectory are bf16 (the solvers sum
+the RK stages in fp32); on the kernel path the dynamics run the bf16
+instances of K6-K9.
+
 Layouts: the public input is NHWC ``(B, 32, 32, 3)``, as in the JAX package.
 The non-ODE pieces run NCHW through ``F.conv2d``. With ``use_kernels="on"``
 the ODE state rides the (C, N) layout of the fused dynamics kernels
@@ -32,26 +41,35 @@ from ..tableaus import get_rk_tableau
 # the dtype the JAX package pins at fp32 whatever the activation dtype: the
 # norm statistics and the logits (a test of true fp64 sets it to float64)
 FP32 = torch.float32
-_BF16 = ("ROADMAP queue A slice 9 item bf16 (--precision bf16): the port "
-         "runs fp32 (and fp64 on the CPU)")
+DTYPES = {None: None, "f32": None, "float32": None, torch.float32: None,
+          "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+          torch.bfloat16: torch.bfloat16}
+
+
+def _cast(x, dtype):
+    return x if dtype is None else x.to(dtype)
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(ch, ksize, strides, padding="SAME", use_bias=True)``
-    on NCHW: weight (Cout, Cin, kh, kw), bias (Cout,). For the model's
-    kernels (odd sizes at stride 1, 1x1 at stride 2 on even sizes) SAME pads
-    (k - 1) / 2 on each side."""
+    """flax ``nn.Conv(ch, ksize, strides, padding="SAME", use_bias=True,
+    dtype=dtype)`` on NCHW: weight (Cout, Cin, kh, kw), bias (Cout,), both
+    fp32; with a ``dtype`` the weight, the bias and the input are cast to it
+    before the conv. For the model's kernels (odd sizes at stride 1, 1x1 at
+    stride 2 on even sizes) SAME pads (k - 1) / 2 on each side."""
 
-    def __init__(self, cin, cout, ksize, stride=1):
+    def __init__(self, cin, cout, ksize, stride=1, dtype=None):
         super().__init__()
         kh, kw = (ksize, ksize) if isinstance(ksize, int) else ksize
         self.stride = stride
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(cout, cin, kh, kw))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
         kh, kw = self.weight.shape[2:]
-        return F.conv2d(x, self.weight, self.bias, self.stride,
+        dt = self.dtype
+        return F.conv2d(_cast(x, dt), _cast(self.weight, dt),
+                        _cast(self.bias, dt), self.stride,
                         ((kh - 1) // 2, (kw - 1) // 2))
 
 
@@ -96,7 +114,7 @@ class BasicBlock(nn.Module):
     """SqueezeNext residual block; the stride applies to the first 1x1 conv
     and to the shortcut only."""
 
-    def __init__(self, in_channels, out_channels, stride=1):
+    def __init__(self, in_channels, out_channels, stride=1, dtype=None):
         super().__init__()
         red = 0.5
         if stride == 2:
@@ -105,13 +123,14 @@ class BasicBlock(nn.Module):
             red = 0.25
         c1 = int(in_channels * red)
         c2 = int(in_channels * red * 0.5)
-        convs = [Conv(in_channels, c1, 1, stride), Conv(c1, c2, 1),
-                 Conv(c2, c1, (1, 3)), Conv(c1, c1, (3, 1)),
-                 Conv(c1, out_channels, 1)]
+        dt = dtype
+        convs = [Conv(in_channels, c1, 1, stride, dt), Conv(c1, c2, 1, 1, dt),
+                 Conv(c2, c1, (1, 3), 1, dt), Conv(c1, c1, (3, 1), 1, dt),
+                 Conv(c1, out_channels, 1, 1, dt)]
         chans = [c1, c2, c1, c1, out_channels]
         self.shortcut = stride == 2 or in_channels != out_channels
         if self.shortcut:
-            convs.append(Conv(in_channels, out_channels, 1, stride))
+            convs.append(Conv(in_channels, out_channels, 1, stride, dt))
             chans.append(out_channels)
         self.convs = nn.ModuleList(convs)
         self.norms = nn.ModuleList(BatchStatsNorm(c) for c in chans)
@@ -128,13 +147,15 @@ class BasicBlock(nn.Module):
 class ODEDynamics(nn.Module):
     """BasicBlock2, the conv stack without residual, as f(t, y) on NCHW."""
 
-    def __init__(self, dim):
+    def __init__(self, dim, dtype=None):
         super().__init__()
         self.dim = dim
         c1, c2 = int(dim * 0.5), int(dim * 0.25)
+        dt = dtype
         self.convs = nn.ModuleList([
-            Conv(dim, c1, 1), Conv(c1, c2, 1), Conv(c2, c1, (1, 3)),
-            Conv(c1, c1, (3, 1)), Conv(c1, dim, 1)])
+            Conv(dim, c1, 1, 1, dt), Conv(c1, c2, 1, 1, dt),
+            Conv(c2, c1, (1, 3), 1, dt), Conv(c1, c1, (3, 1), 1, dt),
+            Conv(c1, dim, 1, 1, dt)])
         self.norms = nn.ModuleList(BatchStatsNorm(c)
                                    for c in (c1, c2, c1, c1, dim))
 
@@ -143,31 +164,40 @@ class ODEDynamics(nn.Module):
 
 
 class Stem(nn.Module):
-    def __init__(self, width_x=1.0):
+    """The image cast to ``dtype`` (where given), then conv + norm +
+    ReLU."""
+
+    def __init__(self, width_x=1.0, dtype=None):
         super().__init__()
         ch = int(width_x * 64)
-        self.convs = nn.ModuleList([Conv(3, ch, 3)])
+        self.dtype = dtype
+        self.convs = nn.ModuleList([Conv(3, ch, 3, 1, dtype)])
         self.norms = nn.ModuleList([BatchStatsNorm(ch)])
 
     def forward(self, x):
-        return _chain(self.convs, self.norms, x)
+        return _chain(self.convs, self.norms, _cast(x, self.dtype))
 
 
 class Head(nn.Module):
-    """1x1 conv + norm + ReLU, 4x4 average pool, Dense; fp32 logits. The
-    pooled map is flattened in NHWC order, as flax does (32x32 inputs)."""
+    """1x1 conv + norm + ReLU, 4x4 average pool, Dense (in ``dtype`` where
+    given, as flax's ``nn.Dense(dtype=...)``); fp32 logits. The pooled map
+    is flattened in NHWC order, as flax does (32x32 inputs)."""
 
-    def __init__(self, width_x=1.0, in_channels=256, num_classes=10):
+    def __init__(self, width_x=1.0, in_channels=256, num_classes=10,
+                 dtype=None):
         super().__init__()
         ch = int(width_x * 128)
-        self.convs = nn.ModuleList([Conv(in_channels, ch, 1)])
+        self.dtype = dtype
+        self.convs = nn.ModuleList([Conv(in_channels, ch, 1, 1, dtype)])
         self.norms = nn.ModuleList([BatchStatsNorm(ch)])
         self.dense = nn.Linear(ch, num_classes)
 
     def forward(self, x):
         h = F.avg_pool2d(_chain(self.convs, self.norms, x), 4, 4)
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-        return self.dense(h).to(FP32)
+        dt = self.dtype
+        return F.linear(_cast(h, dt), _cast(self.dense.weight, dt),
+                        _cast(self.dense.bias, dt)).to(FP32)
 
 
 def _lecun_normal_(w, fan_in, generator):
@@ -188,9 +218,14 @@ class SqueezeNextODE(nn.Module):
         logits = model(x)          # x: (B, 32, 32, 3); logits (B, classes)
         loss.backward()            # ODE blocks through the discrete adjoint
 
+    ``dtype``: None / "f32" (fp32 throughout) or "bf16" (the JAX package's
+    mixed precision: see the module's note). Anything else raises
+    ``ValueError``.
+
     ``use_kernels``: "on" runs the ODE dynamics on the fused kernels (the
-    plain versions on CPU tensors), "off" on the module path (``F.conv2d``
-    plus ``BatchStatsNorm`` per layer). "auto" resolves to "on": the JAX
+    plain versions on CPU tensors; on the card their fp32 or bf16
+    instances), "off" on the module path (``F.conv2d`` plus
+    ``BatchStatsNorm`` per layer). "auto" resolves to "on": the JAX
     package's auto -> XLA was a TPU measurement (-23% end to end on the v5e
     for the layered kernels) and does not carry over to this card. On the
     card the kernels take up to 128 channels, the widest ODE stage at
@@ -206,10 +241,10 @@ class SqueezeNextODE(nn.Module):
                  enable_adjoint: bool = True, dtype=None,
                  use_kernels: str = "auto", generator=None):
         super().__init__()
-        if dtype in ("bf16", "bfloat16", torch.bfloat16):
-            raise NotImplementedError(f"dtype {dtype!r}: {_BF16}")
-        if dtype not in (None, "f32", "float32", torch.float32):
-            raise ValueError(f"dtype {dtype!r}: f32 (bf16 is {_BF16})")
+        try:
+            self.dtype = dt = DTYPES[dtype]
+        except (KeyError, TypeError):
+            raise ValueError(f"dtype {dtype!r}: f32 or bf16") from None
         if use_kernels not in ("auto", "on", "off"):
             raise ValueError(f"use_kernels={use_kernels!r}: auto|on|off")
         self.use_kernels = use_kernels != "off"
@@ -218,19 +253,19 @@ class SqueezeNextODE(nn.Module):
         self.t1 = t1
         self.step_size = t1 / float(Nt)
         self.enable_adjoint = enable_adjoint
-        kinds, pieces = ["stem"], [Stem(width_x)]
+        kinds, pieces = ["stem"], [Stem(width_x, dt)]
         in_ch = 64
         for nblocks, ch, stride in zip(self.BLOCKS, self.STAGE_CH,
                                        self.STAGE_STRIDE):
             kinds.append("entry")
             pieces.append(BasicBlock(int(width_x * in_ch), int(width_x * ch),
-                                     stride))
+                                     stride, dt))
             for _ in range(nblocks - 1):
                 kinds.append("ode")
-                pieces.append(ODEDynamics(int(width_x * ch)))
+                pieces.append(ODEDynamics(int(width_x * ch), dt))
             in_ch = ch
         kinds.append("head")
-        pieces.append(Head(width_x, int(width_x * in_ch), num_classes))
+        pieces.append(Head(width_x, int(width_x * in_ch), num_classes, dt))
         self.kinds = kinds
         self.pieces = nn.ModuleList(pieces)
         self._solvers = {}
@@ -292,7 +327,7 @@ class SqueezeNextODE(nn.Module):
                         B, C, H, W = h.shape
                         bhw = (B, H, W)
                         h = h.permute(1, 0, 2, 3).reshape(C, -1).contiguous()
-                    meta = fs.gate_meta(mod.dim, *bhw)
+                    meta = fs.gate_meta(mod.dim, *bhw, dtype=h.dtype)
                     ode = self._fused_solver(meta, h)
                 else:
                     ode = self._module_solver(mod, h)

@@ -1,11 +1,12 @@
-"""Build the shared C++ planners of ``csrc/`` with g++ and load them.
+"""Build the shared C++ libraries of ``csrc/`` with g++ and load them.
 
-The checkpoint planners (``csrc/revolve.cpp``, ``csrc/cams.cpp``) are plain
-C++ with a C interface, shared with the JAX package as source. The port
-compiles them itself at first use::
+The checkpoint planners (``csrc/revolve.cpp``, ``csrc/cams.cpp``) and the
+windowed minibatch loader (``csrc/windowed_loader.cpp``) are plain C++ with
+a C interface, shared with the JAX package as source. The port compiles
+them itself at first use::
 
-    g++ -O2 -fPIC -shared -std=c++17 -o build/pnode_tpu_torch/lib<name>_<hash>.so \
-        csrc/<name>.cpp
+    g++ -O2 -fPIC -shared -std=c++17 [-pthread] \
+        -o build/pnode_tpu_torch/lib<name>_<hash>.so csrc/<name>.cpp
 
 into ``build/pnode_tpu_torch/`` at the repository root, keyed by a hash of
 the source and the flags (as ``ops/_build.py`` keys the CUDA library), and
@@ -28,6 +29,9 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG.parent / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pnode_tpu_torch"
 CXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
+# per library, after CXX_FLAGS (csrc/Makefile's): the loader's producer
+# thread
+EXTRA_FLAGS = {"windowed_loader": ("-pthread",)}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -44,15 +48,16 @@ def _cxx() -> str:
 def build(name: str) -> Path:
     """``csrc/<name>.cpp`` compiled to a shared library (cached by hash)."""
     src = CSRC / f"{name}.cpp"
+    flags = CXX_FLAGS + EXTRA_FLAGS.get(name, ())
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     path = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         tmp = Path(work) / path.name
-        cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_cxx(), *flags, "-o", str(tmp), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):"

@@ -89,6 +89,12 @@ _SIGNATURES = {
     "pnode_probe_smem": (_I, [_P, _P, ctypes.c_longlong, _I, _P]),
 }
 
+# the bf16 instances of K6-K9 take the fp32 entries' arguments
+for _name in ("pnode_sqnxt_fwd_plan", "pnode_sqnxt_fwd",
+              "pnode_sqnxt_fwd_layer", "pnode_sqnxt_bwd_plan",
+              "pnode_sqnxt_bwd", "pnode_sqnxt_bwd_layer"):
+    _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
+
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}

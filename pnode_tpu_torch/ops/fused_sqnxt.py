@@ -19,22 +19,32 @@ N is a tiling artifact the port drops: its meta has no ``n_pad``.
   for the layered mode (K8 per layer forward, K9 per layer in reverse), the
   counterparts of the JAX package's ``jax.custom_vjp``s.
 - ``fused_sqnxt_fwd`` / ``fused_sqnxt_bwd`` / ``fused_sqnxt_layer_fwd`` /
-  ``fused_sqnxt_layer_bwd`` launch their kernel for CUDA tensors (fp32 only;
-  each counts its launches in ``.launches``) and run the plain PyTorch
-  version for CPU tensors (any float dtype). Each launch takes its grid and
-  the size of its one scratch allocation from the C side's plan
-  (``fwd_plan``, ``bwd_plan``: cached per shape and device), checked against
-  the Python mirrors ``fwd_scratch_floats`` and ``bwd_scratch_floats``.
-- The plain versions repeat the JAX kernels' dtype round-trips: products in
-  the input dtype rounded to ``work`` (float32, the Pallas kernels'
-  ``preferred_element_type``), statistics and the norm's backward in
-  ``work``. In fp32 these are identities; ``work=torch.float64`` gives a true
-  fp64 reference.
+  ``fused_sqnxt_layer_bwd`` launch their kernel for CUDA tensors and run the
+  plain PyTorch version for CPU tensors (any float dtype). On the card each
+  kernel has two instances: fp32, and bf16 storage (x, g, the taps and b in
+  bf16, gamma and beta in fp32, as ``pack_params`` packs them; the
+  ``_bf16`` C entry points). Each wrapper counts the launches of its fp32
+  instance in ``.launches`` and of its bf16 one in ``.launches_bf16``. Each
+  launch takes its grid and the size of its one scratch allocation from the
+  C side's plan (``fwd_plan``, ``bwd_plan``: cached per shape, dtype and
+  device), checked against the Python mirrors ``fwd_scratch_floats`` and
+  ``bwd_scratch_floats``. The scratch is counted in floats in both dtypes:
+  its anchors and g buffers take ``ceil(elements * esize / 4)`` floats.
+- The plain versions repeat the JAX kernels' dtype round-trips: products of
+  the input-dtype operands accumulated in ``work`` (float32, the Pallas
+  kernels' ``preferred_element_type``; a bf16 product is exact there), the
+  conv output rounded to the input dtype before the bias add, statistics
+  and the norm's backward in ``work``, the norm's output rounded to the
+  input dtype before the ReLU, g_z rounded to it, each dW rounded through
+  it, the cotangents carried in it between layers. In fp32 these are
+  identities; ``work=torch.float64`` gives a true fp64 reference.
 - ``gate_meta``: the Hopper gate that replaces the TPU's VMEM estimates. The
   chain's backward (K7) keeps its five anchors in one device workspace; the
   chain runs when they fit ``CHAIN_WORKSPACE_BYTES`` (32 MB, inside the 50 MB L2),
-  else the layered mode. At B 128 of the full-width model: layered at stage
-  1 (46 MB), chain at stages 2 (23 MB) and 3 (11.5 MB).
+  else the layered mode. At B 128 of the full-width model, in fp32: layered
+  at stage 1 (46 MB), chain at stages 2 (23 MB) and 3 (11.5 MB); in bf16 the
+  anchors take half (the JAX package's ``esize = 2``), so stage 1 (23 MB)
+  runs the chain too.
 """
 
 from __future__ import annotations
@@ -94,18 +104,25 @@ def make_meta(dim: int, B: int, H: int, W: int,
     return SqnxtMeta(taps, axis, cdims, single, H, W, n_real, bool(layered))
 
 
-def chain_workspace_bytes(meta: SqnxtMeta) -> int:
-    """The chain kernels' anchors z_1..z_5 in fp32."""
-    return 4 * meta.n_real * sum(meta.cdims[1:])
+def esize_of(dtype) -> int:
+    """Bytes of the kernels' storage type for activations of ``dtype``: 2
+    for bf16, else 4 (fp32; the CPU's fp64 runs follow the fp32 gate)."""
+    return 2 if dtype == torch.bfloat16 else 4
 
 
-def gate_meta(dim: int, B: int, H: int, W: int) -> SqnxtMeta:
-    """The meta the model runs: chain when its workspace fits
-    CHAIN_WORKSPACE_BYTES, else layered. Never "no kernel": every shape
-    runs one of the two modes."""
+def chain_workspace_bytes(meta: SqnxtMeta, esize: int = 4) -> int:
+    """The chain kernels' anchors z_1..z_5, ``esize`` bytes each."""
+    return esize * meta.n_real * sum(meta.cdims[1:])
+
+
+def gate_meta(dim: int, B: int, H: int, W: int,
+              dtype=torch.float32) -> SqnxtMeta:
+    """The meta the model runs at activations of ``dtype``: chain when its
+    workspace fits CHAIN_WORKSPACE_BYTES, else layered. Never "no kernel":
+    every shape runs one of the two modes."""
     meta = make_meta(dim, B, H, W)
-    return meta._replace(
-        layered=chain_workspace_bytes(meta) > CHAIN_WORKSPACE_BYTES)
+    return meta._replace(layered=chain_workspace_bytes(
+        meta, esize_of(dtype)) > CHAIN_WORKSPACE_BYTES)
 
 
 def pack_params(params, meta: SqnxtMeta, dtype):
@@ -178,10 +195,11 @@ def _tap_input(h, s, mask):
 
 
 def _conv(h, w, meta, li, masks, work):
+    pd = torch.promote_types(h.dtype, work)  # the products' accumulation
     z = None
     for t, s in enumerate(meta.taps[li]):
         mask = None if s == 0 else masks[(meta.axis[li], 1 if s > 0 else -1)]
-        d = (w[t] @ _tap_input(h, s, mask)).to(work)
+        d = (w[t].to(pd) @ _tap_input(h, s, mask).to(pd)).to(work)
         z = d if z is None else z + d
     return z
 
@@ -189,9 +207,19 @@ def _conv(h, w, meta, li, masks, work):
 def _layer_fwd(h, lf, meta, li, masks, work):
     """(h_next, zf, m, sr) of one layer in the JAX kernel's order."""
     work = WORK if work is None else work
-    w, b, gam, bet = lf
+    w, b = lf[:2]
     dt = h.dtype
     z = _conv(h, w, meta, li, masks, work).to(dt) + b.to(dt)[:, None]
+    return norm_relu(z, lf, meta, li, work)
+
+
+def norm_relu(z, lf, meta, li, work=None):
+    """(h_next, zf, m, sr) from layer li's anchor z = conv + b (in the
+    activation dtype): the batch-stats norm in ``work`` and the ReLU of its
+    output rounded to z's dtype."""
+    work = WORK if work is None else work
+    gam, bet = lf[2:]
+    dt = z.dtype
     zf = z.to(work)
     inv_n = 1.0 / meta.n_real
     m = zf.sum(dim=1, keepdim=True) * inv_n
@@ -206,13 +234,15 @@ def _layer_fwd(h, lf, meta, li, masks, work):
     return torch.relu(a.to(dt)), zf, m, sr
 
 
-def _layer_bwd(h, g, lf, meta, li, masks, work):
-    """(dh, (dW, db, dgam, dbet)) of one layer: recompute z from h, then the
-    stage-exact backprop of ``_bwd_layer_kernel``."""
+def _layer_bwd(h, g, lf, meta, li, masks, work, z=None):
+    """(dh, (dW, db, dgam, dbet)) of one layer: recompute z from h (or take
+    the anchor ``z``, conv + b in h's dtype), then the stage-exact backprop
+    of ``_bwd_layer_kernel``."""
     work = WORK if work is None else work
     w, b, gam, bet = lf
     dt = h.dtype
-    _, zf, m, sr = _layer_fwd(h, lf, meta, li, masks, work)
+    _, zf, m, sr = (_layer_fwd(h, lf, meta, li, masks, work) if z is None
+                    else norm_relu(z, lf, meta, li, work))
     gam, bet = gam.to(work)[:, None], bet.to(work)[:, None]
     zh = (zf - m) / sr
     a_d = (zh * gam + bet).to(dt)
@@ -225,12 +255,13 @@ def _layer_bwd(h, g, lf, meta, li, masks, work):
     c2 = (g_zh * zh).sum(dim=1, keepdim=True) * inv_n
     g_zd = ((g_zh - c1 - zh * c2) / sr).to(dt)
     d_b = g_zd.to(work).sum(dim=1)
+    pd = torch.promote_types(dt, work)  # the products' accumulation
     g_h, d_ws = None, []
     for t, s in enumerate(meta.taps[li]):
         mask = None if s == 0 else masks[(meta.axis[li], 1 if s > 0 else -1)]
         hk = _tap_input(h, s, mask)
-        d_ws.append((g_zd @ hk.t()).to(work).to(dt).to(work))
-        gk = (w[t].t() @ g_zd).to(work)
+        d_ws.append((g_zd.to(pd) @ hk.to(pd).t()).to(work).to(dt).to(work))
+        gk = (w[t].to(pd).t() @ g_zd.to(pd)).to(work)
         if s != 0:
             gk = _shift(gk * mask.to(gk.dtype), -s)
         g_h = gk if g_h is None else g_h + gk
@@ -287,26 +318,33 @@ def _check(what, x, flats, meta, lis, g=None):
     cuda = x.device.type == "cuda"
     if not cuda and x.device.type != "cpu":
         raise ValueError(f"{what}: unsupported device {x.device}")
+    # on the card: x, g, the taps and b in one storage type (fp32 or bf16),
+    # gamma and beta in fp32, all contiguous
+    dt = x.dtype
+    if cuda and dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: CUDA x must be float32 or bfloat16, got "
+                         f"{dt}")
     for li, lf in zip(lis, flats):
         cout, cin, ntap = meta.cdims[li + 1], meta.cdims[li], len(meta.taps[li])
         want = [(ntap, cout, cin), (cout,), (cout,), (cout,)]
-        for t, shape in zip(lf, want):
+        for k, (t, shape) in enumerate(zip(lf, want)):
             if tuple(t.shape) != shape or t.device != x.device:
                 raise ValueError(f"{what}: layer {li} argument {tuple(t.shape)}"
                                  f" on {t.device}, expected {shape} on "
                                  f"{x.device}")
-            if cuda and (t.dtype != torch.float32 or not t.is_contiguous()):
-                raise ValueError(f"{what}: CUDA arguments must be contiguous "
-                                 "float32")
+            need = dt if k < 2 else torch.float32
+            if cuda and (t.dtype != need or not t.is_contiguous()):
+                raise ValueError(f"{what}: CUDA arguments must be contiguous, "
+                                 f"layer {li} argument {k} {need} (got "
+                                 f"{t.dtype})")
     if cuda:
         if max(meta.cdims) > MAX_CHANNELS:
             raise ValueError(f"{what}: the kernels take at most "
                              f"{MAX_CHANNELS} channels, got {meta.cdims}")
         for t in (x, g):
-            if t is not None and (t.dtype != torch.float32
-                                  or not t.is_contiguous()):
-                raise ValueError(f"{what}: CUDA arguments must be contiguous "
-                                 "float32")
+            if t is not None and (t.dtype != dt or not t.is_contiguous()):
+                raise ValueError(f"{what}: CUDA x and g must be contiguous "
+                                 f"{dt}")
     return cuda
 
 
@@ -354,11 +392,19 @@ def fwd_tile_columns(meta: SqnxtMeta, li: int) -> int:
     return TILE_OUT // (rt * ks)
 
 
-def fwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
+def elem_floats(n: int, esize: int) -> int:
+    """Floats that n elements of ``esize`` bytes take (csrc's
+    elem_floats)."""
+    return -(-n * esize // 4)
+
+
+def fwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int,
+                       esize: int = 4) -> int:
     """Floats of K6's (``lis`` = 0..4) or K8's (one layer) scratch for a
-    grid of ``grid`` blocks, as csrc/sqnxt_tiles.cuh's fwd_scratch_floats
-    counts them: two partial-slot buffers (grid x 4 x 128 each), then the
-    anchors Cout x N that go to device memory. Every layer but the last
+    grid of ``grid`` blocks and a storage type of ``esize`` bytes, as
+    csrc/sqnxt_tiles.cuh's fwd_scratch_floats counts them: two partial-slot
+    buffers (grid x 4 x 128 each), then the anchors Cout x N that go to
+    device memory, ``elem_floats(Cout N, esize)`` each. Every layer but the last
     writes one (the next layer's halo comes from other blocks); the last
     writes none where the kernel keeps the z it reads again in shared
     memory: the store (the most one block's tiles of z take, over the last
@@ -372,18 +418,21 @@ def fwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
         tn = fwd_tile_columns(meta, li)
         tiles = -(-N // tn)
         store = max(store, -(-tiles // grid) * meta.cdims[li + 1] * tn)
-    anchors = sum(meta.cdims[li + 1] for li in lis[:-1])
+    anchors = [meta.cdims[li + 1] for li in lis[:-1]]
     if store > STORE_FLOATS:
-        anchors += meta.cdims[lis[-1] + 1]
-    return grid * _PARTIAL_FLOATS + anchors * N
+        anchors.append(meta.cdims[lis[-1] + 1])
+    return grid * _PARTIAL_FLOATS + sum(elem_floats(c * N, esize)
+                                        for c in anchors)
 
 
-def bwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
+def bwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int,
+                       esize: int = 4) -> int:
     """Floats of K7's (``lis`` = 0..4) or K9's (one layer) scratch for a
-    grid of ``grid`` blocks, as csrc/sqnxt_tiles.cuh's scratch_floats
-    counts them: two partial-slot buffers (grid x 4 x 128 each), one dW
-    slot per block (the largest taps * Cin * Cout rounded up to 4) and, for
-    the chain, two g buffers of the largest Cin * N past the first layer.
+    grid of ``grid`` blocks and a storage type of ``esize`` bytes, as
+    csrc/sqnxt_tiles.cuh's scratch_floats counts them: two partial-slot
+    buffers (grid x 4 x 128 each), one dW slot per block (the largest taps
+    * Cin * Cout rounded up to 4) and, for the chain, two g buffers of the
+    largest Cin * N past the first layer, ``elem_floats(2 Cin N, esize)``.
     Raises ValueError for a chain the kernels do not take (more than 128
     channels, layers that do not chain, a dW too large for three register
     tiles per thread)."""
@@ -398,22 +447,28 @@ def bwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int) -> int:
         dw = max(dw, -(-taps * cin * cout // 4) * 4)
         if k > 0:
             gmax = max(gmax, cin * meta.n_real)
-    return grid * _PARTIAL_FLOATS + grid * dw + 2 * gmax
+    return grid * _PARTIAL_FLOATS + grid * dw + elem_floats(2 * gmax, esize)
 
 
-def _c_plan(entry, mirror, meta, lis, device):
+def _suffix(esize: int) -> str:
+    """The C entry points' suffix of a storage type."""
+    return "_bf16" if esize == 2 else ""
+
+
+def _c_plan(entry, mirror, meta, lis, device, esize):
     """(grid, scratch floats, ctypes ints) of a launch at this shape from
     the C side's ``entry`` (the co-resident blocks at the launch's shared
     memory, at most its tile count), its scratch checked against
     ``mirror``."""
-    mirror(meta, lis, 1)  # refuses what the kernels refuse
+    mirror(meta, lis, 1, esize)  # refuses what the kernels refuse
+    entry += _suffix(esize)
     ints = _build.int_array(_layer_ints(meta, lis))
     grid, floats = _build.int_array([0]), (ctypes.c_longlong * 1)(0)
     with torch.cuda.device(device):
         _build.check(getattr(_build.library(), entry)(
             len(lis), ints, meta.n_real, meta.H, meta.W, grid, floats),
             f"{entry} (cooperative launch)")
-    want = mirror(meta, lis, grid[0])
+    want = mirror(meta, lis, grid[0], esize)
     if floats[0] != want:
         raise RuntimeError(f"{entry}: C counts {floats[0]} scratch floats, "
                            f"{mirror.__name__} {want}")
@@ -424,26 +479,28 @@ _fwd_plans = {}
 _bwd_plans = {}
 
 
-def fwd_plan(meta: SqnxtMeta, lis: Sequence[int], device):
-    """(grid, scratch floats, ctypes ints) of K6 or K8 at this shape, from
-    csrc/sqnxt_fwd.cu's pnode_sqnxt_fwd_plan; cached per (meta, layers,
+def fwd_plan(meta: SqnxtMeta, lis: Sequence[int], device, esize: int = 4):
+    """(grid, scratch floats, ctypes ints) of K6 or K8 at this shape and a
+    storage type of ``esize`` bytes, from csrc/sqnxt_fwd.cu's
+    pnode_sqnxt_fwd_plan (_bf16); cached per (meta, layers, esize,
     device)."""
     lis = list(lis)
-    key = (meta, tuple(lis), torch.device(device).index)
+    key = (meta, tuple(lis), esize, torch.device(device).index)
     if key not in _fwd_plans:
         _fwd_plans[key] = _c_plan("pnode_sqnxt_fwd_plan", fwd_scratch_floats,
-                                  meta, lis, device)
+                                  meta, lis, device, esize)
     return _fwd_plans[key]
 
 
-def bwd_plan(meta: SqnxtMeta, lis: Sequence[int], device) -> Tuple[int, int]:
-    """(grid, scratch floats) of K7 or K9 at this shape, from
-    csrc/fused_sqnxt.cu's pnode_sqnxt_bwd_plan; cached."""
+def bwd_plan(meta: SqnxtMeta, lis: Sequence[int], device,
+             esize: int = 4) -> Tuple[int, int]:
+    """(grid, scratch floats) of K7 or K9 at this shape and storage type,
+    from csrc/fused_sqnxt.cu's pnode_sqnxt_bwd_plan (_bf16); cached."""
     lis = list(lis)
-    key = (meta, tuple(lis), torch.device(device).index)
+    key = (meta, tuple(lis), esize, torch.device(device).index)
     if key not in _bwd_plans:
         _bwd_plans[key] = _c_plan("pnode_sqnxt_bwd_plan", bwd_scratch_floats,
-                                  meta, lis, device)[:2]
+                                  meta, lis, device, esize)[:2]
     return _bwd_plans[key]
 
 
@@ -461,12 +518,14 @@ def _layer_args(meta, lis, flats, zs, grads=None):
 
 
 def _launch_fwd(entry, x, flats, meta, lis):
-    """One launch of K6 or K8. Two allocations: out, and the workspace the
-    plan counts (the partial slots, then the anchors, carved by C)."""
+    """One launch of K6 or K8 (the bf16 instance for a bf16 x). Two
+    allocations: out (x's dtype), and the workspace the plan counts (the
+    partial slots, then the anchors, carved by C)."""
     lib = _build.library()
-    N, dev = meta.n_real, x.device
-    grid, floats, ints = fwd_plan(meta, lis, dev)
-    out = torch.empty(meta.cdims[lis[-1] + 1], N, device=dev)
+    N, dev, esize = meta.n_real, x.device, esize_of(x.dtype)
+    grid, floats, ints = fwd_plan(meta, lis, dev, esize)
+    entry += _suffix(esize)
+    out = torch.empty(meta.cdims[lis[-1] + 1], N, device=dev, dtype=x.dtype)
     scratch = torch.empty(floats, device=dev)
     ptrs = _ptrs([t.data_ptr() for lf in flats for t in lf])
     with torch.cuda.device(dev):
@@ -477,25 +536,44 @@ def _launch_fwd(entry, x, flats, meta, lis):
     return out
 
 
-def _launch_bwd(entry, x, g, flats, meta, lis):
-    """One launch of K7 or K9. Two allocations: the gradients (every
-    layer's dW, db, dgam, dbet as views of one buffer, and dx) and the
-    workspace (the scratch the plan counts, then the anchors z_l)."""
+def _carve(nbytes_first, dtype_first, sizes_first, dtype_rest, sizes_rest,
+           device):
+    """One byte buffer cut into ``sizes_first`` elements of
+    ``dtype_first`` (``nbytes_first`` bytes, a multiple of 16) followed by
+    ``sizes_rest`` elements of ``dtype_rest``: one allocation whatever the
+    two dtypes."""
+    esize = torch.empty(0, dtype=dtype_rest).element_size()
+    buf = torch.empty(nbytes_first + esize * sum(sizes_rest),
+                      dtype=torch.uint8, device=device)
+    first = buf[:nbytes_first].view(dtype_first).split(sizes_first)
+    rest = buf[nbytes_first:].view(dtype_rest).split(sizes_rest)
+    return list(first), list(rest)
+
+
+def _launch_bwd(entry, x, g, flats, meta, lis, anchors=False):
+    """One launch of K7 or K9 (the bf16 instance for a bf16 x). Two
+    allocations: the gradients (every layer's dW, db, dgam, dbet in fp32 as
+    views of one buffer, and dx in x's dtype) and the workspace (the
+    scratch the plan counts, then the anchors z_l in x's dtype).
+    ``anchors``: also return the anchors z_l that the launch's forward
+    recompute wrote (a check holds the backward against them)."""
     lib = _build.library()
-    N, dev = meta.n_real, x.device
-    grid, floats = bwd_plan(meta, lis, dev)
+    N, dev, esize = meta.n_real, x.device, esize_of(x.dtype)
+    grid, floats = bwd_plan(meta, lis, dev, esize)
+    entry += _suffix(esize)
     sizes = [t.numel() for lf in flats for t in lf]
     cin0 = meta.cdims[lis[0]]
-    out = torch.empty(sum(sizes) + cin0 * N, device=dev)
-    views = list(out.split(sizes + [cin0 * N]))
-    dx = views.pop().view(cin0, N)
+    views, (dx,) = _carve(4 * sum(sizes), torch.float32, sizes, x.dtype,
+                          [cin0 * N], dev)
+    dx = dx.view(cin0, N)
     grads, k = [], 0
     for lf in flats:
         grads.append(tuple(v.view(t.shape) for v, t in zip(views[k:], lf)))
         k += len(lf)
     zsizes = [meta.cdims[li + 1] * N for li in lis]
-    work = torch.empty(floats + sum(zsizes), device=dev)
-    scratch, *zs = work.split([floats] + zsizes)  # scratch 16-byte aligned
+    # the scratch first, so it is 16-byte aligned
+    (scratch,), zs = _carve(4 * floats, torch.float32, [floats], x.dtype,
+                            zsizes, dev)
     ints, ptrs = _layer_args(meta, lis, flats, zs, grads)
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
@@ -503,7 +581,15 @@ def _launch_bwd(entry, x, g, flats, meta, lis):
             N, meta.H, meta.W, scratch.data_ptr(), floats, grid,
             _build.stream_of(x))
     _build.check(rc, f"{entry} kernel")
-    return dx, grads
+    return (dx, grads, zs) if anchors else (dx, grads)
+
+
+def _count(fn, x):
+    """One launch more of ``fn``'s instance for x's dtype."""
+    if x.dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def fused_sqnxt_fwd(x, flat, meta):
@@ -512,18 +598,19 @@ def fused_sqnxt_fwd(x, flat, meta):
     if not _check("fused_sqnxt_fwd", x, flats, meta, range(5)):
         return fused_sqnxt_plain(x, flat, meta)
     out = _launch_fwd("pnode_sqnxt_fwd", x, flats, meta, list(range(5)))
-    fused_sqnxt_fwd.launches += 1
+    _count(fused_sqnxt_fwd, x)
     return out
 
 
 def fused_sqnxt_bwd(x, g, flat, meta):
-    """K7: (dx, dflat) of the chain at x for the output cotangent g."""
+    """K7: (dx, dflat) of the chain at x for the output cotangent g (dx in
+    x's dtype, dflat in fp32)."""
     flats = [_layer(flat, li) for li in range(5)]
     if not _check("fused_sqnxt_bwd", x, flats, meta, range(5), g):
         return fused_sqnxt_bwd_plain(x, g, flat, meta)
     dx, grads = _launch_bwd("pnode_sqnxt_bwd", x, g, flats, meta,
                             list(range(5)))
-    fused_sqnxt_bwd.launches += 1
+    _count(fused_sqnxt_bwd, x)
     return dx, tuple(t for lg in grads for t in lg)
 
 
@@ -532,7 +619,7 @@ def fused_sqnxt_layer_fwd(h, layer_flat, meta, li):
     if not _check("fused_sqnxt_layer_fwd", h, [layer_flat], meta, [li]):
         return fused_sqnxt_layer_plain(h, layer_flat, meta, li)
     out = _launch_fwd("pnode_sqnxt_fwd_layer", h, [layer_flat], meta, [li])
-    fused_sqnxt_layer_fwd.launches += 1
+    _count(fused_sqnxt_layer_fwd, h)
     return out
 
 
@@ -542,13 +629,14 @@ def fused_sqnxt_layer_bwd(h, g, layer_flat, meta, li):
         return fused_sqnxt_layer_bwd_plain(h, g, layer_flat, meta, li)
     dh, grads = _launch_bwd("pnode_sqnxt_bwd_layer", h, g, [layer_flat],
                             meta, [li])
-    fused_sqnxt_layer_bwd.launches += 1
+    _count(fused_sqnxt_layer_bwd, h)
     return dh, grads[0]
 
 
 for _fn in (fused_sqnxt_fwd, fused_sqnxt_bwd, fused_sqnxt_layer_fwd,
             fused_sqnxt_layer_bwd):
     _fn.launches = 0
+    _fn.launches_bf16 = 0
 
 
 def _grads_like(dflat, flat):
@@ -598,25 +686,31 @@ class _LayeredFn(torch.autograd.Function):
         return (None, g.to(hs[0].dtype), *_grads_like(dflat, flat))
 
 
-def sqnxt_cost(meta: SqnxtMeta, lis: Sequence[int], backward: bool):
+def sqnxt_cost(meta: SqnxtMeta, lis: Sequence[int], backward: bool,
+               esize: int = 4):
     """(flops, bytes) a kernel call must do at least, for the roofline bound:
     2 taps Cin Cout N per conv (backward: 3x, the recompute, dW and g_h),
-    each input read once and each output written once in fp32 (forward: x
-    and out; backward: x, g, dx and the parameter gradients)."""
+    each input read once and each output written once (forward: x, the
+    parameters and out; backward: x, g, the parameters, dx and the
+    parameter gradients), activations, taps and b at ``esize`` bytes (the
+    storage type), gamma, beta and the gradients in fp32."""
     N = meta.n_real
     conv = sum(2 * len(meta.taps[li]) * meta.cdims[li] * meta.cdims[li + 1] * N
                for li in lis)
-    params = sum(len(meta.taps[li]) * meta.cdims[li] * meta.cdims[li + 1]
-                 + 3 * meta.cdims[li + 1] for li in lis)
+    wb = sum(len(meta.taps[li]) * meta.cdims[li] * meta.cdims[li + 1]
+             + meta.cdims[li + 1] for li in lis)
+    norm = sum(2 * meta.cdims[li + 1] for li in lis)
+    params = esize * wb + 4 * norm
     cin, cout = meta.cdims[lis[0]], meta.cdims[lis[-1] + 1]
     if backward:
-        return 3 * conv, 4 * (2 * cin * N + cout * N + 2 * params)
-    return conv, 4 * (cin * N + cout * N + params)
+        return 3 * conv, (esize * (2 * cin * N + cout * N) + params
+                          + 4 * (wb + norm))
+    return conv, esize * (cin * N + cout * N) + params
 
 
-def sqnxt_layered_cost(meta: SqnxtMeta, backward: bool):
+def sqnxt_layered_cost(meta: SqnxtMeta, backward: bool, esize: int = 4):
     """(flops, bytes) of one evaluation in the layered mode (K8 or K9): five
     launches, each reading its own layer's input (and cotangent) and
     writing its own output, so sqnxt_cost of each layer alone, summed."""
-    costs = [sqnxt_cost(meta, [li], backward) for li in range(5)]
+    costs = [sqnxt_cost(meta, [li], backward, esize) for li in range(5)]
     return sum(c[0] for c in costs), sum(c[1] for c in costs)

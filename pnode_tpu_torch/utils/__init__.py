@@ -1,13 +1,19 @@
-"""Trainer helpers: the port's own copies of the JAX package's
-``RunningAverageMeter`` (``pnode_tpu/utils/meters.py``), ``makedirs``
-(``pnode_tpu/utils/logging.py``) and ``MetricsWriter``
-(``pnode_tpu/utils/metrics.py``, in ``metrics.py``)."""
+"""Trainer helpers, the port's counterparts of ``pnode_tpu/utils``: the
+meter, ``Tee`` / ``get_logger`` / ``makedirs`` (``logging.py``), the locking
+CSV ``Recorder``, ``MetricsWriter``, the failure checks (``debug.py``),
+profiling and device memory (``profiling.py``), pickle checkpoints
+(``checkpoint.py``) and ``flat_adam`` (``optim.py``). ``roofline.py`` is
+imported as a module."""
 
 from __future__ import annotations
 
-import os
-
+from .checkpoint import load_checkpoint, save_checkpoint
+from .debug import SolverDivergedError, assert_converged, dump_state, nan_guard
+from .logging import Tee, get_logger, makedirs
 from .metrics import MetricsWriter
+from .optim import FlatAdam as flat_adam
+from .profiling import annotate, device_memory_gb, trace
+from .recorder import Recorder
 
 
 class RunningAverageMeter:
@@ -29,8 +35,21 @@ class RunningAverageMeter:
         self.val = float(val)
 
 
-def makedirs(dirname: str) -> None:
-    os.makedirs(dirname, exist_ok=True)
-
-
-__all__ = ["RunningAverageMeter", "makedirs", "MetricsWriter"]
+__all__ = [
+    "RunningAverageMeter",
+    "Tee",
+    "get_logger",
+    "makedirs",
+    "Recorder",
+    "MetricsWriter",
+    "SolverDivergedError",
+    "assert_converged",
+    "dump_state",
+    "nan_guard",
+    "annotate",
+    "device_memory_gb",
+    "trace",
+    "save_checkpoint",
+    "load_checkpoint",
+    "flat_adam",
+]

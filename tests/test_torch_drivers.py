@@ -36,6 +36,7 @@ from pnode_tpu.models import BurgersFuncIM as JBurgersFuncIM
 from pnode_tpu.models import KSSnodeFunc as JKSSnodeFunc
 from pnode_tpu_torch.convert import dense_stack_from_flax, state_dict_from_flax
 from pnode_tpu_torch.models import BurgersFuncEX, BurgersFuncIM, KSSnodeFunc
+from pnode_tpu_torch.utils import load_checkpoint
 from pnode_tpu_torch.utils.optim import RMSprop
 
 torch.set_num_threads(1)
@@ -317,7 +318,7 @@ def test_rober_torch_checkpoints_and_hotstart(tmp_path):
               "--train_dir", str(tmp_path)] + ROBER_ARGS
     out = ro.main(common + ["--niters", "3"])
     assert len(out["losses"]) == 3 and np.all(np.isfinite(out["losses"]))
-    ck = torch.load(tmp_path / "best.pt")
+    ck = load_checkpoint(str(tmp_path / "best.ckpt"))
     assert ck["normalize"] == "minmax" and ck["iter"] in (0, 2)
     tags = [ln for ln in (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert len(tags) == 4  # Train/Loss and Train/Gradient at iters 0 and 2

@@ -208,10 +208,16 @@ def test_model_kernel_path_vs_module_path_fp32(jax_ref):
 
 
 def test_model_rejects_bf16_and_unknown_modes():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        SqueezeNextODE(width_x=0.25, dtype="bf16")
+    """The kernel mode "interpret" (the JAX package's) and an unknown dtype
+    are refused; bf16, the JAX package's mixed precision, builds with fp32
+    parameters (tests/test_torch_sqnxt_bf16.py trains it)."""
     with pytest.raises(ValueError):
         SqueezeNextODE(width_x=0.25, use_kernels="interpret")
+    with pytest.raises(ValueError, match="f16"):
+        SqueezeNextODE(width_x=0.25, dtype="f16")
+    m = SqueezeNextODE(width_x=0.25, dtype="bf16")
+    assert m.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in m.parameters())
 
 
 def test_init_follows_flax_distributions():

@@ -224,3 +224,72 @@ def test_layered_cost_counts_each_launch(backward, flops, byts):
     assert round(b / 3.35e12 * 1e3, 4) == (0.0413 if backward else 0.0275)
     chain = fs.sqnxt_cost(meta, range(5), backward)
     assert chain[0] == f and chain[1] < b
+
+
+# -- the bf16 instances' scratch (2-byte anchors and g buffers) -----------------
+
+@pytest.mark.parametrize("shape,grid,anchors,keep,store", STAGES)
+def test_fwd_scratch_floats_bf16(shape, grid, anchors, keep, store):
+    """K6's bf16 instance: the same partial slots and the same store (shared
+    memory is fp32 in both instances), its anchors at 2 bytes an element:
+    ceil(Cout N / 2) floats each, half the fp32 count."""
+    meta = fs.make_meta(*shape)
+    got = fs.fwd_scratch_floats(meta, range(5), grid, 2)
+    assert got == grid * PART + anchors * meta.n_real // 2
+    assert got - grid * PART == (fs.fwd_scratch_floats(meta, range(5), grid)
+                                 - grid * PART) // 2
+
+
+@pytest.mark.parametrize("shape,grid", [
+    ((32, 128, 32, 32), 264), ((64, 128, 16, 16), 264),
+    ((128, 128, 8, 8), 256), ((16, 3, 5, 7), 1), ((48, 4, 8, 8), 2)])
+def test_bwd_scratch_floats_bf16(shape, grid):
+    """K7's bf16 instance: the partial slots and dW slots stay fp32, its
+    two g buffers of max Cin N elements take 2 bytes an element (one
+    fp32 g buffer's floats for both); K9's has no g buffer, so its count
+    is the fp32 one."""
+    meta = fs.make_meta(*shape)
+    c, N = meta.cdims, meta.n_real
+    gmax = max(c[1:5]) * N
+    assert fs.bwd_scratch_floats(meta, range(5), grid, 2) == \
+        fs.bwd_scratch_floats(meta, range(5), grid) - gmax
+    for li in range(5):
+        assert fs.bwd_scratch_floats(meta, [li], grid, 2) == \
+            fs.bwd_scratch_floats(meta, [li], grid)
+
+
+def test_elem_floats_rounds_up():
+    """csrc's elem_floats: ceil(n esize / 4), so an odd count of bf16
+    elements takes the float it half fills."""
+    assert [fs.elem_floats(n, 2) for n in (0, 1, 2, 7, 8)] == [0, 1, 1, 4, 4]
+    assert fs.elem_floats(7, 4) == 7
+
+
+def test_bf16_costs_count_two_byte_storage():
+    """The bf16 rows' costs: the same FLOPs; activations, taps and b at 2
+    bytes, gamma, beta and the fp32 gradients at 4 (stage 1, B 128: the
+    chain's 16.8 MB forward and 25.2 MB backward, K8's five launches 46.1
+    MB, K9's 69.2 MB). Their bound rates those FLOPs at the H100's bf16
+    tensor-core peak, so every bf16 instance is bound by its bytes at every
+    stage (stage 1: K6 5.0 us, K7 7.5, K9 20.7)."""
+    from pnode_tpu_torch.utils.roofline import H100_PEAKS, peaks_for
+
+    meta = fs.make_meta(32, 128, 32, 32)
+    for bwd in (False, True):
+        f2, b2 = fs.sqnxt_cost(meta, range(5), bwd, 2)
+        f4, b4 = fs.sqnxt_cost(meta, range(5), bwd)
+        assert f2 == f4 and b2 < b4
+    assert round(fs.sqnxt_cost(meta, range(5), False, 2)[1] / 1e6, 2) == 16.78
+    assert round(fs.sqnxt_cost(meta, range(5), True, 2)[1] / 1e6, 2) == 25.18
+    assert round(fs.sqnxt_layered_cost(meta, False, 2)[1] / 1e6, 2) == 46.14
+    assert round(fs.sqnxt_layered_cost(meta, True, 2)[1] / 1e6, 2) == 69.22
+    peak, rate = peaks_for(H100_PEAKS, torch.bfloat16)
+    us = []
+    for dim, hw in ((32, 32), (64, 16), (128, 8)):
+        m = fs.make_meta(dim, 128, hw, hw)
+        for bwd in (False, True):
+            for f, b in (fs.sqnxt_cost(m, range(5), bwd, 2),
+                         fs.sqnxt_layered_cost(m, bwd, 2)):
+                assert f / peak < b / rate
+                us.append(round(1e6 * b / rate, 1))
+    assert us[:4] == [5.0, 13.8, 7.5, 20.7]

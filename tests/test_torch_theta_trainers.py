@@ -41,6 +41,7 @@ from pnode_tpu_torch.convert import dense_stack_from_flax, state_dict_from_flax
 from pnode_tpu_torch.models import (
     BurgersFuncEX, BurgersFuncIM, IMEXSum, KSSnodeFunc)
 from pnode_tpu_torch.steppers import Theta
+from pnode_tpu_torch.utils import load_checkpoint
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -392,7 +393,7 @@ def test_pendulum_dae_step_matches_jax(unknown_alg):
 
 
 def test_pendulum_dae_torch_checkpoints(tmp_path):
-    """The trainer on the CPU: known-constraint training saves its torch.save
+    """The trainer on the CPU: known-constraint training saves its pickle
     checkpoint, --unknown_alg --pretrained warm-starts the differential net
     from it and keeps it frozen, --hotstart resumes after the saved
     iteration; every loss and constraint report finite."""
@@ -402,14 +403,14 @@ def test_pendulum_dae_torch_checkpoints(tmp_path):
     out = pend.main(common + ["--niters", "2"])
     assert len(out["losses"]) == 2 and np.all(np.isfinite(out["losses"]))
     assert [i for i, _ in out["cv"]] == [0, 1]
-    ck = torch.load(tmp_path / "best_pendulum_dae.pt")
+    ck = load_checkpoint(str(tmp_path / "best_pendulum_dae.ckpt"))
     diff_saved = {k: v for k, v in ck["params"].items()
                   if k.startswith("diff.")}
     out = pend.main(common + ["--niters", "1", "--unknown_alg",
                               "--pretrained"])
     assert np.isfinite(out["losses"][0])
-    ck2 = torch.load(tmp_path / "best_pendulum_dae_unknown_alg.pt")
+    ck2 = load_checkpoint(str(tmp_path / "best_pendulum_dae_unknown_alg.ckpt"))
     for k, v in diff_saved.items():
-        assert torch.equal(ck2["params"][k], v), k
+        assert np.array_equal(ck2["params"][k], v), k
     out = pend.main(common + ["--niters", "3", "--hotstart"])
     assert len(out["losses"]) == 3 - (ck["iter"] + 1)
