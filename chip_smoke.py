@@ -276,11 +276,31 @@ exits non-zero without printing the final line):
    iterated; examples/ks_torch.py on the main path's flags for 2 epochs,
    then --hotstart to 3; annotate's span inside a trace()d step and
    device_memory_gb.
+14. FFJORD (no hand-written kernel on its path: every kernel's launch
+   count is zeroed before (a)'s iterations and read after, and must stay
+   0). (a) examples/ffjord_tabular_torch.py's miniboone recipe at full
+   width (D 43, 860-860, concatsquash, softplus, rk4 dt 0.25 over T 1, B
+   1000, Rademacher probe, Adam lr 1e-3 wd 1e-6) on the synthetic
+   surrogate, through the driver's functions: one iteration's gradient
+   through the discrete adjoint on the card in fp32 against the port's CPU
+   fp64 run at the same weights, batch and probe (cosine above 0.9999);
+   the brute-force NLL of tst[:1000] before and after, finite; 3 warm and
+   20 timed iterations (iterations/s, NFE-F per iteration, peak memory),
+   one traced iteration (the busy share). (b) x -> z -> x of tst[:1000]
+   through the trained model: within 1e-4 of max |x|, delta_logp
+   cancelling to 1e-4. (c) tools/hardware_smoke.py's gate 5: ODENVP((8, 8,
+   1), 2 scales, hidden 8) takes 10 Adam steps at 1e-3 on 16 images; the
+   fixed-probe NLL falls, every gradient finite. (d)
+   examples/ffjord_image_torch.py (ODENVP on the MNIST surrogate, B 64) for
+   6 iterations and ffjord_toy_torch.py (8gaussians, dopri5, B 512) for
+   12, at their defaults otherwise, each in a subprocess: iterations/s and
+   images/s.
 
 Phases 1-6 run at their full depth but phase 6(c) (12 and 6 iterations,
 22 and 12 before phase 12 came); phase 7 adds about 60 s, phase 8 about
 60 s, phase 9 about 90 s, phase 10 about 160 s, phase 11 about 40 s,
-phase 12 about 90 s, phase 13 a few seconds; the build about 90 s.
+phase 12 about 90 s, phase 13 a few seconds, phase 14 about 100 s; the
+build about 90 s.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 two also carry ``burgers``: its readings at the Burgers stack and its
@@ -6235,6 +6255,339 @@ def phase_slice10(device, u):
     return counts
 
 
+
+# -- phase 14: FFJORD ---------------------------------------------------------
+
+FFJORD_WARM = 3       # miniboone iterations before the timed ones
+FFJORD_ITERS = 20     # timed miniboone iterations
+FFJORD_COS = 0.9999   # card fp32 gradient against the CPU fp64 one
+FFJORD_TRIP = 1e-4    # x -> z -> x (relative to max |x|) and delta_logp
+GATE5_STEPS = 10      # tools/hardware_smoke.py's gate 5
+FFJORD_DRIVERS = {    # (d): the image and toy drivers at their defaults
+    "ffjord_image_torch": ["--epochs", "1", "--iters_per_epoch", "6",
+                           "--n_sample", "4"],
+    "ffjord_toy_torch": ["--niters", "12"],
+}
+
+
+def kernel_wrappers():
+    """Every KERNELS entry's wrapper and the attribute that counts its
+    launches (the bf16 instances count in ``launches_bf16``)."""
+    import pnode_tpu_torch.ops.circular_stencil as cs
+    import pnode_tpu_torch.ops.fused_adaptive_loop as fal
+    import pnode_tpu_torch.ops.fused_ark_adjoint as faa
+    import pnode_tpu_torch.ops.fused_ark_forward as faf
+    import pnode_tpu_torch.ops.fused_mlp as fm
+    import pnode_tpu_torch.ops.fused_sqnxt as fs
+    import pnode_tpu_torch.ops.fused_train_loop as ftl
+    from pnode_tpu_torch.tools import probe_smem_limit as probe
+
+    out = {}
+    for mod, names in ((fm, ("fused_mlp_fwd", "fused_mlp_bwd")),
+                       (faf, ("fused_ark_step_fwd",
+                              "fused_ark_step_fwd_embedded")),
+                       (faa, ("fused_ark_step_adj",)),
+                       (ftl, ("fused_train_loop", "fused_grad_step")),
+                       (fal, ("fused_adaptive_train_loop",)),
+                       (fs, SQNXT_KERNELS),
+                       (cs, STENCIL_KERNELS),
+                       (probe, ("probe_smem",))):
+        for name in names:
+            out[name] = (getattr(mod, name), "launches")
+    for name in SQNXT_KERNELS:
+        out[name + "_bf16"] = (getattr(fs, name), "launches_bf16")
+    if set(out) != set(KERNELS):
+        raise AssertionError(f"kernel_wrappers misses "
+                             f"{sorted(set(KERNELS) ^ set(out))}")
+    return out
+
+
+def zero_launches(wrappers):
+    for w, attr in wrappers.values():
+        setattr(w, attr, 0)
+
+
+def read_launches(wrappers):
+    return {k: getattr(w, attr) for k, (w, attr) in wrappers.items()}
+
+
+def ffjord_grad(tab, model, x, e):
+    """(NLL, flat fp64 gradient on the CPU) of one miniboone iteration's
+    loss through the discrete adjoint, on the probe ``e``."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    total, nll = tab.nll_and_regs(model, x, (), True, probes=[e])
+    total.backward()
+    return float(nll.detach()), torch.cat([p.grad.reshape(-1).double().cpu()
+                                  for p in model.parameters()])
+
+
+def profile_ffjord(tab, model, opt, x, gen):
+    """One traced miniboone iteration: its wall time, host spans (the
+    forward solve with the loss, the adjoint, Adam), the device's busy
+    share and its top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("span:solve"):
+            total, _ = tab.nll_and_regs(model, x, (), True, generator=gen)
+        opt.zero_grad(set_to_none=True)
+        with record_function("span:adjoint"):
+            total.backward()
+        with record_function("span:adam"):
+            opt.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels, busy_us = device_kernels(events)
+    spans, per_kernel = {}, {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("span:"):
+            spans[e.name[5:]] = spans.get(e.name[5:], 0.0) \
+                + e.time_range.elapsed_us() * 1e-3
+    for e in kernels:
+        us, n = per_kernel.get(e.name, (0.0, 0))
+        per_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy = busy_us * 1e-6 / wall
+    log(f"[ffjord] (a) one traced iteration: {1e3 * wall:.2f} ms, device "
+        f"busy {busy:.3f} of it ({busy_us * 1e-3:.2f} ms of kernels, "
+        f"{len(kernels)} launches); host spans ms: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(spans.items())))
+    for name, (us, n) in sorted(per_kernel.items(),
+                                key=lambda kv: -kv[1][0])[:6]:
+        log(f"[ffjord]   {us * 1e-3:8.3f} ms x{n:<4d} {name[:90]}")
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    return {"wall_ms": 1e3 * wall, "busy": busy, "spans_ms": spans,
+            "kernel_ms": busy_us * 1e-3, "device_launches": len(kernels)}
+
+
+def phase_ffjord_tabular(device, wrappers):
+    """14(a): examples/ffjord_tabular_torch.py's miniboone recipe at full
+    width (D 43, 860-860, concatsquash, softplus, rk4 dt 0.25 over T 1, B
+    1000, a Rademacher probe, Adam at 1e-3 with weight decay 1e-6) on the
+    synthetic surrogate, through the driver's own functions. One
+    iteration's gradient on the card in fp32 against the port's CPU fp64
+    gradient at the same weights, batch and probe (cosine above
+    FFJORD_COS); the brute-force NLL of the first 1,000 test rows before
+    and after; FFJORD_WARM warm and FFJORD_ITERS timed iterations
+    (iterations/s, NFE-F per iteration, peak device memory), one traced
+    iteration (the busy share). The kernels' launch counts are zeroed
+    before the training iterations and read after: the FFJORD path runs
+    no hand-written kernel. Returns (report, model, data)."""
+    import torch
+
+    from pnode_tpu_torch.ffjord import sample_probe
+    from pnode_tpu_torch.ffjord.datasets import load_tabular
+
+    tab = load_example("ffjord_tabular_torch")
+    args, _ = tab.parse_args(["--device", device])
+    data = load_tabular(args.data)
+    D, B = data.dim, args.batch_size
+    model = tab.build_model(args, D, [], device, torch.float32)
+    state0 = {k: v.detach().cpu().double()
+              for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[ffjord] (a) miniboone recipe: D {D}, hidden "
+        f"{(args.hdim_factor * D,) * args.nhidden}, {args.layer_type}, "
+        f"{args.nonlinearity}, {args.solver} dt {args.step_size} over T "
+        f"{args.time_length}, B {B}, Adam lr {args.lr} wd "
+        f"{args.weight_decay}; {n_params} parameters; surrogate data "
+        f"{data.synthetic} ({len(data.trn)} training rows)")
+    rng = np.random.default_rng(args.seed)
+    x_np = data.trn[rng.integers(0, len(data.trn), B)]
+    e = sample_probe((B, D), torch.float64,
+                     generator=torch.Generator().manual_seed(args.seed))
+    t0 = time.perf_counter()
+    l_k, g_k = ffjord_grad(tab, model, torch.as_tensor(
+        x_np, dtype=torch.float32, device=device), e.float().to(device))
+    t_card = time.perf_counter() - t0
+    cpu_model = tab.build_model(args, D, [], "cpu", torch.float64)
+    cpu_model.load_state_dict(state0)
+    t0 = time.perf_counter()
+    l_c, g_c = ffjord_grad(tab, cpu_model, torch.as_tensor(
+        x_np, dtype=torch.float64), e)
+    t_cpu = time.perf_counter() - t0
+    cos = float(g_k @ g_c / (g_k.norm() * g_c.norm()))
+    ok_grad = cos > FFJORD_COS and np.isfinite(l_k)
+    log(f"[ffjord] (a) one iteration's gradient: card fp32 (NLL {l_k:.6f}, "
+        f"{t_card:.2f} s with the first call) against the port's CPU fp64 "
+        f"run (NLL {l_c:.6f}, {t_cpu:.2f} s): cosine {cos:.8f} (tol > "
+        f"{FFJORD_COS}), NLL {abs(l_k - l_c) / abs(l_c):.3e} relative "
+        f"{'ok' if ok_grad else 'FAIL'}")
+
+    x_tst = torch.as_tensor(data.tst[:1000], dtype=torch.float32,
+                            device=device)
+    t0 = time.perf_counter()
+    exact0 = tab.exact_nll(model, x_tst)
+    t_exact = time.perf_counter() - t0
+    opt = tab.make_optimizer(model, args)
+    gen = torch.Generator().manual_seed(args.seed)
+    batches = [torch.as_tensor(data.trn[rng.integers(0, len(data.trn), B)],
+                               dtype=torch.float32, device=device)
+               for _ in range(FFJORD_WARM + FFJORD_ITERS + 1)]
+    zero_launches(wrappers)
+    nfe0 = tab.nfe_total(model)
+    losses = [tab.train_step(model, opt, x, (), 1.0, generator=gen)
+              for x in batches[:FFJORD_WARM]]
+    nfe_iter = (tab.nfe_total(model) - nfe0) / FFJORD_WARM
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for x in batches[FFJORD_WARM:FFJORD_WARM + FFJORD_ITERS]:
+        losses.append(tab.train_step(model, opt, x, (), 1.0, generator=gen))
+    torch.cuda.synchronize()
+    its = FFJORD_ITERS / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trace = profile_ffjord(tab, model, opt, batches[-1], gen)
+    counts = read_launches(wrappers)
+    losses = torch.stack(losses).cpu().numpy()
+    t0 = time.perf_counter()
+    exact1 = tab.exact_nll(model, x_tst)
+    ok = (ok_grad and np.all(np.isfinite(losses)) and np.isfinite(exact0)
+          and np.isfinite(exact1) and nfe_iter == 16
+          and not any(counts.values()))
+    log(f"[ffjord] (a) {FFJORD_WARM} + {FFJORD_ITERS} Adam iterations: NLL "
+        f"{np.array2string(losses, precision=4, max_line_width=240)}; "
+        f"{its:.3f} iterations/s ({B * its:.0f} rows/s) over the "
+        f"{FFJORD_ITERS}; NFE-F {nfe_iter:g} per iteration (NFE-B equal); "
+        f"peak device memory {peak:.3f} GiB (max_memory_allocated); "
+        f"brute-force NLL of tst[:1000] {exact0:.6f} before ({t_exact:.2f} "
+        f"s), {exact1:.6f} after ({time.perf_counter() - t0:.2f} s); "
+        f"hand-written kernel launches over the iterations: "
+        f"{sum(counts.values())} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 14(a), the miniboone recipe, failed")
+    return {"its": its, "nfe_iter": nfe_iter, "peak_gib": peak,
+            "cos": cos, "exact": (exact0, exact1), "trace": trace,
+            "launches": counts}, model, data
+
+
+def phase_ffjord_roundtrip(device, model, data):
+    """14(b): x -> z -> x on the card through the trained miniboone model
+    (forward, then the time-flipped reverse solve, one probe): x within
+    FFJORD_TRIP of max |x|, delta_logp cancelling to FFJORD_TRIP."""
+    import torch
+
+    from pnode_tpu_torch.ffjord import sample_probe
+
+    x = torch.as_tensor(data.tst[:1000], dtype=torch.float32, device=device)
+    e = sample_probe(tuple(x.shape), torch.float32,
+                     generator=torch.Generator().manual_seed(5), device=device)
+    with torch.no_grad():
+        z, dlp, _ = model.apply(x, probes=[e], training=False)
+        x_back, dlp_back, _ = model.apply(z, probes=[e], training=False,
+                                          reverse=True)
+    err_x = float((x_back - x).abs().max() / x.abs().max())
+    err_d = float((dlp + dlp_back).abs().max())
+    ok = err_x <= FFJORD_TRIP and err_d <= FFJORD_TRIP
+    log(f"[ffjord] (b) round trip x -> z -> x of tst[:1000] on the card "
+        f"(fp32): max |x_back - x| / max |x| {err_x:.3e}, max |dlp + "
+        f"dlp_back| {err_d:.3e} (|dlp| up to "
+        f"{float(dlp.abs().max()):.3f}; tol {FFJORD_TRIP}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 14(b), the round trip, failed")
+    return {"err_x": err_x, "err_dlp": err_d}
+
+
+def phase_ffjord_gate5(device):
+    """14(c): tools/hardware_smoke.py's gate 5: ODENVP((8, 8, 1), 2 scales,
+    1 block, hidden 8, rk4 0.25) takes GATE5_STEPS Adam steps at 1e-3 on
+    16 images (numpy seed 7, 0.05 + 0.9 U[0, 1)); the NLL on a fixed probe
+    (a generator seeded 99) falls and every gradient is finite."""
+    import torch
+
+    from pnode_tpu_torch.ffjord import ODENVP
+
+    torch.manual_seed(3)
+    model = ODENVP((8, 8, 1), n_scales=2, n_blocks=1, hidden_dims=(8,),
+                   step_size=0.25, device=device)
+    x = torch.as_tensor(np.random.default_rng(7).random((16, 8, 8, 1)),
+                        dtype=torch.float32, device=device) * 0.9 + 0.05
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def fixed_nll():
+        with torch.no_grad():
+            lp, _ = model.log_prob(x, generator=torch.Generator()
+                                   .manual_seed(99))
+        return float(-lp.mean())
+
+    nll0 = fixed_nll()
+    finite = True
+    t0 = time.perf_counter()
+    for i in range(GATE5_STEPS):
+        lp, _ = model.log_prob(x, generator=torch.Generator()
+                               .manual_seed(10 + i))
+        opt.zero_grad(set_to_none=True)
+        (-lp.mean()).backward()
+        finite = finite and all(bool(torch.isfinite(p.grad).all())
+                                for p in model.parameters())
+        opt.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nll1 = fixed_nll()
+    ok = finite and nll1 < nll0
+    log(f"[ffjord] (c) hardware gate 5, ODENVP((8, 8, 1)) {GATE5_STEPS} "
+        f"Adam steps: fixed-probe NLL {nll0:.4f} -> {nll1:.4f}, gradients "
+        f"finite {finite}, {GATE5_STEPS / secs:.2f} steps/s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 14(c), hardware gate 5, failed")
+    return {"nll": (nll0, nll1), "steps_per_s": GATE5_STEPS / secs}
+
+
+def phase_ffjord_drivers():
+    """14(d): examples/ffjord_image_torch.py (ODENVP on the MNIST
+    surrogate, B 64) and ffjord_toy_torch.py (8gaussians, B 512, dopri5)
+    at their defaults for a few iterations, each in a subprocess in turn:
+    finite losses, iterations/s and images (samples)/s."""
+    res = {}
+    for name, argv in FFJORD_DRIVERS.items():  # one at a time on the card
+        out = "--train_dir" if name == "ffjord_image_torch" else "--save"
+        res[name] = finish_driver(start_driver(
+            name, argv + [out, os.path.join(ROOT, "build", name)]))
+    img, toy = res["ffjord_image_torch"], res["ffjord_toy_torch"]
+    img_its = img["iters"] / img["seconds"]
+    toy_its = len(toy["losses"]) / toy["seconds"]
+    ok = (np.all(np.isfinite(img["bpd"])) and np.all(np.isfinite(
+        toy["losses"])) and img["iters"] > 0)
+    log(f"[ffjord] (d) ffjord_image_torch.py "
+        f"{' '.join(FFJORD_DRIVERS['ffjord_image_torch'])}: bits/dim "
+        f"{img['bpd'][0]:.4f} -> {img['bpd'][-1]:.4f}, {img_its:.3f} "
+        f"iterations/s, {img['images_per_s']:.1f} images/s (B 64, the first "
+        f"iteration included)")
+    log(f"[ffjord] (d) ffjord_toy_torch.py "
+        f"{' '.join(FFJORD_DRIVERS['ffjord_toy_torch'])}: NLL "
+        f"{toy['losses'][0]:.4f} -> {toy['losses'][-1]:.4f}, {toy_its:.3f} "
+        f"iterations/s, {512 * toy_its:.0f} samples/s (the first iteration "
+        f"included) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 14(d), the FFJORD drivers, failed")
+    return {"image_its": img_its, "image_ips": img["images_per_s"],
+            "toy_its": toy_its}
+
+
+def phase_ffjord(device):
+    """Phase 14: FFJORD on the card, (a)-(c) in this process, then (d)'s
+    drivers in subprocesses (one at a time: nothing else runs on the card
+    while (a) is timed)."""
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    report, model, data = phase_ffjord_tabular(device, wrappers)
+    report["roundtrip"] = phase_ffjord_roundtrip(device, model, data)
+    report["gate5"] = phase_ffjord_gate5(device)
+    report["drivers"] = phase_ffjord_drivers()
+    log(f"[ffjord] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return report
+
+
 def main():
     import torch
 
@@ -6269,6 +6622,7 @@ def main():
     reports.update(bf_reports)
     counts.update(bf_counts)
     slice10_launches = phase_slice10("cuda", u)
+    phase_ffjord("cuda")
     reports["probe_smem"] = probe_report
     counts["probe_smem"] = probe_report["launches"]
     kernels = []

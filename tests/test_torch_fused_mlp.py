@@ -11,7 +11,8 @@ as is a bad cotangent; and the plain forward and backward against JAX's
 chip_smoke's KS stack and K1 edge shapes (B 1 and 37, widths 13 and 100,
 1 and 8 layers, tanh), seeded numpy inputs, fp32 (max |diff| within 1e-5
 of max |ref| forward, 1e-4 backward: fp32 products summed in another
-order)."""
+order); and the input VJP at tests/test_ops.py's divergence-path dims
+[16, 24, 16] at that test's tolerances."""
 
 import jax
 import jax.numpy as jnp
@@ -188,3 +189,34 @@ def test_grad_buffer_layout_puts_each_bias_after_its_weight():
         block = flat[off:off + (K + 1) * N].view(K + 1, N)
         assert torch.equal(block[:K], dW) and torch.equal(block[K], db)
         off += (K + 1) * N
+
+
+def test_vjp_for_the_divergence_path_matches_jax_interpret():
+    """The twin of tests/test_ops.py::test_fused_mlp_jvp_for_divergence_path
+    at its dims [16, 24, 16], B 4, relu, on its draws (numpy seed 2, weights
+    and biases N(0, 1) x 0.1 in fp32): the input VJP of K1's plain version,
+    directly and through its autograd Function, against the VJP of JAX's
+    fused_mlp in interpret mode, within the JAX test's tolerances (rtol
+    2e-4, atol 1e-5)."""
+    rng = np.random.default_rng(2)
+    dims = [16, 24, 16]
+    Ws = [rng.normal(size=(dims[i], dims[i + 1])).astype(np.float32)
+          * np.float32(0.1) for i in range(len(dims) - 1)]
+    bs = [rng.normal(size=(dims[i + 1],)).astype(np.float32)
+          * np.float32(0.1) for i in range(len(dims) - 1)]
+    x = rng.normal(size=(4, 16)).astype(np.float32)
+    v = rng.normal(size=(4, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda xx: j_fused_mlp(
+        xx, [jnp.asarray(w) for w in Ws], [jnp.asarray(b) for b in bs],
+        "relu", interpret=True), jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(v))[0])
+    T = torch.from_numpy
+    dx, _, _ = fused_mlp_bwd(T(x), T(v), [T(w) for w in Ws],
+                             [T(b) for b in bs], "relu")
+    np.testing.assert_allclose(dx.numpy(), ref, rtol=2e-4, atol=1e-5)
+    xt = T(x).requires_grad_(True)
+    (g,) = torch.autograd.grad(
+        fused_mlp(xt, [T(w) for w in Ws], [T(b) for b in bs], "relu"), xt,
+        grad_outputs=T(v))
+    np.testing.assert_allclose(g.numpy(), ref, rtol=2e-4, atol=1e-5)
+    assert fused_mlp_bwd.launches == 0

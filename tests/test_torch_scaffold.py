@@ -37,7 +37,8 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRIVERS = ("ks_torch", "train_cifar10_torch", "burgers_torch",
            "pendulum_dae_torch", "spiral_torch", "spiral_unstable_torch",
-           "rober_torch")
+           "rober_torch", "ffjord_tabular_torch", "ffjord_toy_torch",
+           "ffjord_image_torch")
 
 
 @pytest.fixture(autouse=True)
@@ -68,7 +69,9 @@ def test_import_leaves_jax_out():
         "pnode_tpu_torch.parallel.fused_dp, pnode_tpu_torch.tools, "
         "pnode_tpu_torch.tools.probe_smem_limit, pnode_tpu_torch.revolve, "
         "pnode_tpu_torch.cams, pnode_tpu_torch.native, "
-        "pnode_tpu_torch.order_conditions, pnode_tpu_torch.utils.metrics\n"
+        "pnode_tpu_torch.order_conditions, pnode_tpu_torch.utils.metrics, "
+        "pnode_tpu_torch.ffjord, pnode_tpu_torch.ffjord.resnet, "
+        "pnode_tpu_torch.ffjord.datasets, pnode_tpu_torch.ffjord.toy_data\n"
         "import chip_smoke\n"
         "import importlib.util as u\n"
         "for name, path in %r:\n"
