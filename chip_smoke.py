@@ -111,8 +111,11 @@ exits non-zero without printing the final line):
    sub-object, K8/K9 at stage 1). The build phase fails where ptxas
    reports spill in csrc/sqnxt_fwd.cu (K6, K8). (b) The kernel path against the module path
    from the same weights: logits, loss, gradient cosine and norm ratio
-   (CIFAR_TOL). (c) 12 SGD iterations (lr 0.1, momentum 0.9, wd 5e-4) on
-   the kernel path and 6 on the module path: finite losses, the mean of
+   (CIFAR_TOL). (c) On cuDNN's deterministic algorithms (so the losses
+   repeat from run to run): after each of the kernel path's first 2 SGD
+   steps (lr 0.1, momentum 0.9, wd 5e-4), the module path at its weights
+   on the next batch, as (b); then 12 SGD iterations on the kernel path
+   and 6 on the module path: finite losses, the mean of
    the last 5 below the first 5, images/s after 2 warm iterations, peak
    device memory; one traced iteration each (K6-K9's milliseconds and
    shares in it); K6-K9's launch counts over the kernel path's iterations
@@ -184,7 +187,7 @@ exits non-zero without printing the final line):
    at 1e-3 over 100 steps, autograd through the steps, the kernel path
    (K1, K10/K11) against the plain path (loss and gradient within 1e-4),
    K1's, K10's and K11's launches above 0, iterations/s, peak memory. (e)
-   examples/pendulum_dae_torch.py for 10 iterations: the loss goes down,
+   examples/pendulum_dae_torch.py for 5 iterations: the loss goes down,
    the first loss within 1e-5 of the port's CPU fp64 run, the constraint
    violation.
 10. The checkpointed trajectories and the new drivers. (a) KS IMEX at B
@@ -204,7 +207,7 @@ exits non-zero without printing the final line):
    step_adj with aux=None) traced on each path (K1's, K2's and K3's device
    time), and K1's device time per call at the KS stack; K1's, K2's and
    K3's launches over (a) above 0. (b) examples/spiral_torch.py --niters
-   40 --test_freq 20, spiral_unstable_torch.py --niters 20 and
+   40 --test_freq 20, spiral_unstable_torch.py --niters 12 and
    rober_torch.py --niters 20 --test_freq 10 on the card, each in a
    subprocess, beside each one's first iteration on the CPU in fp64: the
    losses fall (the mean of the last quarter below the first quarter's),
@@ -212,11 +215,11 @@ exits non-zero without printing the final line):
    then rober_torch.py --hotstart resumes after its best checkpoint and
    refuses a checkpoint of another normalization. (c) examples/ks_torch.py
    at its defaults (snode, cn, petsc: K10/K11 under torch.func) for one
-   epoch of 4 iterations, and examples/burgers_torch.py at its defaults
-   (ARK3 IMEX, Newton on GMRES) for 4 iterations of a 2-output window,
-   each trainer on its first minibatch throughout: finite losses that
-   fall, and the launches of their kernels above 0.
-   (b) runs while (c) does.
+   epoch of 4 iterations on its first minibatch throughout, finite losses
+   that fall, and examples/burgers_torch.py at its defaults (ARK3 IMEX,
+   Newton on GMRES: K1 in f_EX, K10/K11 under GMRES's jvp and vjp) for
+   one iteration of a 2-output window, a finite loss; the launches of
+   their kernels above 0. (b) runs while (c) does.
 11. The adaptive path's trajectory policies, disk, bf16 storage and bf16
    states. (a) KS IMEX at B 256, seed-0 weights, full width, under
    -ts_adapt_type basic (rtol = atol = 1e-4, 64 trial slots, dt0 0.2),
@@ -295,12 +298,33 @@ exits non-zero without printing the final line):
    6 iterations and ffjord_toy_torch.py (8gaussians, dopri5, B 512) for
    12, at their defaults otherwise, each in a subprocess: iterations/s and
    images/s.
+15. GRAND (no hand-written kernel on its path: every kernel's launch
+   count is zeroed at the phase's start and must read 0 after (c)). (a)
+   examples/grand_node_torch.py's defaults (hidden 64, dopri5 dt 0.5 over
+   T 3, AdamW lr 0.01 wd 5e-4, dropout 0.5 / 0.5 from a seeded generator)
+   at Cora's scale (the SBM surrogate: 2,708 nodes, 1,433 features, 7
+   classes, 13,278 edges with self loops), through the driver's functions,
+   for laplacian/pnode and transformer/imex (heads 4): one CE gradient
+   through the discrete adjoint on the card in fp32 against the port's CPU
+   fp64 run at the same weights (cosine >= 0.9999, CE within 1e-5
+   relative); 3 warm and 20 timed full-batch epochs (transformer/imex,
+   ~3 s an epoch: 1 and 5) (epochs/s, peak memory, accuracies; the CE
+   falls), one traced epoch (the busy share, launches). (b)
+   tools/hardware_smoke.py's gate 6: six GRAND families on a 96-node SBM
+   take 8 Adam steps (the CE falls, gradients finite), and GRANDImage at 8
+   x 8 takes 12 (6b). (c) GRANDImage at MNIST's shape (28 x 28, B 256,
+   rk4 0.25 over T 1) on random pixels: one gradient's cosine against CPU
+   fp64, 20 timed Adam iterations (images/s), one traced. (d)
+   grand_node_torch.py (10 epochs), grand_image_torch.py (one epoch of
+   its surrogate) and grand_sweep_torch.py (one random trial of 3 epochs)
+   in subprocesses, all three at once.
 
 Phases 1-6 run at their full depth but phase 6(c) (12 and 6 iterations,
 22 and 12 before phase 12 came); phase 7 adds about 60 s, phase 8 about
-60 s, phase 9 about 90 s, phase 10 about 160 s, phase 11 about 40 s,
-phase 12 about 90 s, phase 13 a few seconds, phase 14 about 100 s; the
-build about 90 s.
+60 s, phase 9 about 75 s, phase 10 about 130 s, phase 11 about 40 s,
+phase 12 about 90 s, phase 13 a few seconds, phase 14 about 100 s,
+phase 15 about 100-130 s; the build
+about 90 s.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 two also carry ``burgers``: its readings at the Burgers stack and its
@@ -2950,12 +2974,11 @@ def grads_of(model, x, y):
     return logits.detach(), float(loss.detach()), g.double()
 
 
-def phase_cifar_paths_agree(device, x, y, state0):
-    """Phase 6(b): the kernel path against the module path from the same
-    weights on one surrogate batch: logits, loss, and the whole gradient's
-    cosine and norm ratio (tolerances and their reasons in PERF.md)."""
-    m_on = cifar_model(device, "on", state0)
-    m_off = cifar_model(device, "off", state0)
+def compare_paths(label, m_on, m_off, x, y):
+    """The kernel path against the module path at the same weights on one
+    batch: logits, loss, and the whole gradient's cosine and norm ratio
+    (CIFAR_TOL; the tolerances and their reasons in PERF.md). Logs the
+    reading and returns whether it is within them."""
     lo_on, l_on, g_on = grads_of(m_on, x, y)
     lo_off, l_off, g_off = grads_of(m_off, x, y)
     e_logit = rel_err(lo_on, lo_off)
@@ -2965,14 +2988,49 @@ def phase_cifar_paths_agree(device, x, y, state0):
     ok = (e_logit <= CIFAR_TOL["logits"] and e_loss <= CIFAR_TOL["loss"]
           and cos >= CIFAR_TOL["cos"]
           and abs(ratio - 1.0) <= CIFAR_TOL["ratio"])
-    log(f"[cifar] (b) kernel path vs module path, B {CIFAR_B}, seed-0 "
-        f"weights: logits rel {e_logit:.3e} (tol {CIFAR_TOL['logits']:.0e}), "
-        f"loss {l_on:.6f} vs {l_off:.6f} rel {e_loss:.3e} (tol "
-        f"{CIFAR_TOL['loss']:.0e}), gradient cosine {cos:.6f} (tol "
-        f"{CIFAR_TOL['cos']}), norm ratio {ratio:.6f} (tol 1 +- "
-        f"{CIFAR_TOL['ratio']}) {'ok' if ok else 'FAIL'}")
-    if not ok:
+    log(f"[cifar] {label}: logits rel {e_logit:.3e} (tol "
+        f"{CIFAR_TOL['logits']:.0e}), loss {l_on:.6f} vs {l_off:.6f} rel "
+        f"{e_loss:.3e} (tol {CIFAR_TOL['loss']:.0e}), gradient cosine "
+        f"{cos:.6f} (tol {CIFAR_TOL['cos']}), norm ratio {ratio:.6f} (tol 1 "
+        f"+- {CIFAR_TOL['ratio']}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_cifar_paths_agree(device, x, y, state0):
+    """Phase 6(b): the kernel path against the module path from the same
+    weights on one surrogate batch."""
+    if not compare_paths(f"(b) kernel path vs module path, B {CIFAR_B}, "
+                         "seed-0 weights", cifar_model(device, "on", state0),
+                         cifar_model(device, "off", state0), x, y):
         raise AssertionError("the CIFAR kernel and module paths disagree")
+
+
+def phase_cifar_stepwise(device, state0, batches, x_tr, y_tr, n_steps=2):
+    """6(c), first: the kernel path's SGD trajectory (6(c)'s optimizer and
+    batches) held against the module path step by step: after each of
+    its first ``n_steps`` steps, the module path at the kernel path's
+    weights, on the next batch, as 6(b). The two paths' own trajectories
+    part from the first step on, each as far from the fp64 truth's as
+    from the other's (fp32 rounding amplified by the first steps from the
+    seed-0 weights; PERF.md), so their losses are compared at the same
+    weights, not along their own trajectories."""
+    import torch
+
+    m_on = cifar_model(device, "on", state0)
+    m_off = cifar_model(device, "off", state0)
+    opt = torch.optim.SGD(m_on.parameters(), lr=CIFAR_LR, momentum=0.9,
+                          weight_decay=5e-4)
+    ok = True
+    for t in range(1, n_steps + 1):
+        grads_of(m_on, x_tr[batches[t - 1]], y_tr[batches[t - 1]])
+        opt.step()
+        m_off.load_state_dict(m_on.state_dict())
+        ok = compare_paths(f"(c) after SGD step {t} of the kernel path",
+                           m_on, m_off, x_tr[batches[t]],
+                           y_tr[batches[t]]) and ok
+    if not ok:
+        raise AssertionError("the CIFAR kernel and module paths disagree "
+                             "along the kernel path's trajectory")
 
 
 def train_cifar(label, model, batches, x_tr, y_tr, warm):
@@ -3059,21 +3117,31 @@ def phase_cifar(device, n_iters=12, warm=2, n_off=6):
 
     wrappers = [fs.fused_sqnxt_fwd, fs.fused_sqnxt_bwd,
                 fs.fused_sqnxt_layer_fwd, fs.fused_sqnxt_layer_bwd]
-    m_on = cifar_model(device, "on", state0)
-    for w in wrappers:
-        w.launches = 0
-    losses, ips_on, peak_on, opt = train_cifar(
-        "kernel path", m_on, batches, x_tr, y_tr, warm)
-    counts = {w.__name__: w.launches for w in wrappers}
-    log(f"[cifar] (c) launches over the kernel path's {n_iters} iterations: "
-        f"{counts} (per iteration: "
-        f"{ {k: v / n_iters for k, v in counts.items()} })")
-    profile_cifar("kernel path", m_on, opt, x_tr[batches[0]], y_tr[batches[0]])
-    m_off = cifar_model(device, "off", state0)
-    _, ips_off, peak_off, opt_off = train_cifar(
-        "module path", m_off, batches[:n_off], x_tr, y_tr, warm)
-    profile_cifar("module path", m_off, opt_off, x_tr[batches[0]],
-                  y_tr[batches[0]])
+    # cuDNN's default fp32 weight-gradient algorithms for the non-ODE convs
+    # add by atomics: without its deterministic ones the loss sequence,
+    # and the gate below, changed from run to run
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        phase_cifar_stepwise(device, state0, batches, x_tr, y_tr)
+        m_on = cifar_model(device, "on", state0)
+        for w in wrappers:
+            w.launches = 0
+        losses, ips_on, peak_on, opt = train_cifar(
+            "kernel path", m_on, batches, x_tr, y_tr, warm)
+        counts = {w.__name__: w.launches for w in wrappers}
+        log(f"[cifar] (c) launches over the kernel path's {n_iters} "
+            f"iterations: {counts} (per iteration: "
+            f"{ {k: v / n_iters for k, v in counts.items()} })")
+        profile_cifar("kernel path", m_on, opt, x_tr[batches[0]],
+                      y_tr[batches[0]])
+        m_off = cifar_model(device, "off", state0)
+        _, ips_off, peak_off, opt_off = train_cifar(
+            "module path", m_off, batches[:n_off], x_tr, y_tr, warm)
+        profile_cifar("module path", m_off, opt_off, x_tr[batches[0]],
+                      y_tr[batches[0]])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     log(f"[cifar] (c) images/s: kernel path {ips_on:.1f}, module path "
         f"{ips_off:.1f}; memstat peak GB: kernel path {peak_on:.3f}, module "
         f"path {peak_off:.3f}")
@@ -4401,10 +4469,10 @@ def phase_theta_burgers_node(device):
                     "peak_gib": peak / 2**30}
 
 
-def phase_theta_pendulum(device, n_iters=10):
+def phase_theta_pendulum(device, n_iters=5):
     """9(e): examples/pendulum_dae_torch.py through its main() (M =
-    diag(1,1,1,1,0), CN with GMRES through the mass matrix, AdamW), 10
-    iterations on the card at its default fp32 (~5 s each): finite
+    diag(1,1,1,1,0), CN with GMRES through the mass matrix, AdamW), 5
+    iterations on the card at its default fp32 (~6 s each): finite
     losses, the last below the first, the constraint violation reports;
     the first loss within 1e-5 relative of the port's CPU fp64 run's (the
     trainer draws its weights in fp64 from a CPU generator, so both runs
@@ -4804,7 +4872,7 @@ def finish_driver(run, timeout=600):
 
 DRIVERS = {
     "spiral_torch": ["--niters", "40", "--test_freq", "20"],
-    "spiral_unstable_torch": ["--niters", "20"],
+    "spiral_unstable_torch": ["--niters", "12"],  # ~4 s an iteration
     "rober_torch": ["--niters", "20", "--test_freq", "10"],
 }
 DRIVER_TOL = 1e-4  # first loss, card fp32 against CPU fp64
@@ -4894,56 +4962,35 @@ def finish_rober_hotstart(ck, niters, run, bad):
                              "another normalization")
 
 
-class StampedList(list):
-    """A list that notes the clock at each append (a trainer's per-
-    iteration history)."""
-
-    def append(self, x):
-        self.__dict__.setdefault("stamps", []).append(time.perf_counter())
-        super().append(x)
-
-    def gaps(self):
-        st = self.__dict__.get("stamps", [])
-        return [b - a for a, b in zip(st, st[1:])]
-
-
 def fix_first_batch(mod):
     """Every minibatch the trainer draws is its first one (its batch
-    functions wrapped), so the losses of a few iterations show the
+    function wrapped), so the losses of a few iterations show the
     optimizer's progress rather than the batches' spread."""
-    if hasattr(mod, "make_batches"):  # ks_torch: an epoch's batches
-        draw = mod.make_batches
+    draw = mod.make_batches
 
-        def first_only(*a):
-            batches = list(draw(*a))
-            return batches[:1] * len(batches)
+    def first_only(*a):
+        batches = list(draw(*a))
+        return batches[:1] * len(batches)
 
-        mod.make_batches = first_only
-    else:  # burgers_torch: one (y0, targets) window batch per call
-        draw, first = mod.get_batch, []
-
-        def first_only(*a):
-            if not first:
-                first.append(draw(*a))
-            return first[0]
-
-        mod.get_batch = first_only
+    mod.make_batches = first_only
 
 
 DEFAULT_RUNS = {
     "ks_torch": ["--max_epochs", "1", "--data_size", "700"],
-    # ~40 s an iteration on the card: two iterations
+    # ARK3 IMEX with Newton on GMRES, ~50 s an iteration on the card: one
     "burgers_torch": ["--batch_time", "2", "--epochs", "1",
-                      "--iters_per_epoch", "2", "--n_ic", "20"],
+                      "--iters_per_epoch", "1", "--n_ic", "20"],
 }
 
 
 def phase_default(device, name):
     """10(c): ``name`` (ks_torch.py or burgers_torch.py) at its new
     defaults (the reference's: snode / cn / petsc; ARK3 IMEX with Newton
-    on GMRES), in this process, on its first minibatch throughout
-    (fix_first_batch): finite losses that fall, the wall time, and the
-    launches of K10/K11 (ks) and K1, K10, K11 (burgers)."""
+    on GMRES), in this process: ks_torch for an epoch of 4 iterations on
+    its first minibatch throughout (fix_first_batch), its losses finite
+    and falling; burgers_torch for one iteration, its loss finite; the
+    wall time, and the launches of K10/K11 (ks) and K1, K10, K11
+    (burgers), each above 0."""
     import pnode_tpu_torch as pt
     from pnode_tpu_torch.ops.circular_stencil import (
         circular_stencil_bwd, circular_stencil_fwd)
@@ -4954,7 +5001,6 @@ def phase_default(device, name):
     need = {"ks_torch": (circular_stencil_fwd, circular_stencil_bwd),
             "burgers_torch": wrappers}[name]
     mod = load_example(name)
-    fix_first_batch(mod)
     pt.clear_options()
     for wr in wrappers:
         wr.launches = 0
@@ -4963,13 +5009,11 @@ def phase_default(device, name):
                                               name + "_defaults")]
     t0 = time.perf_counter()
     if name == "ks_torch":
+        fix_first_batch(mod)
         losses = mod.main(argv)[1][0]
-        per_iter = ""
     else:
-        losses = StampedList()
+        losses = []
         mod.main(argv, history=losses)
-        per_iter = "; between iterations " + ", ".join(
-            f"{x:.2f}" for x in losses.gaps()) + " s"
     wall = time.perf_counter() - t0
     counts = {wr.__name__: wr.launches for wr in wrappers}
     args, _ = mod.parse_args(argv)
@@ -4980,12 +5024,13 @@ def phase_default(device, name):
         + f"): {len(losses)} iterations, losses "
         + ", ".join(f"{x:.6e}" for x in losses)
         + f"; {wall:.1f} s in all (data and validation included), "
-        f"{wall / len(losses):.2f} s an iteration so counted{per_iter}; "
-        f"launches {counts}")
-    if not (len(losses) >= 2 and np.all(np.isfinite(losses))
-            and losses[-1] < losses[0]):
-        raise AssertionError(f"{name} at its defaults: the loss did not "
-                             "fall")
+        f"{wall / len(losses):.2f} s an iteration so counted; launches "
+        f"{counts}")
+    falls = name != "ks_torch" or (len(losses) >= 2
+                                   and losses[-1] < losses[0])
+    if not (len(losses) >= 1 and np.all(np.isfinite(losses)) and falls):
+        raise AssertionError(f"{name} at its defaults: the loss was not "
+                             "finite" + ("" if falls else " or did not fall"))
     if min(counts[wr.__name__] for wr in need) <= 0:
         raise AssertionError(f"{name} at its defaults did not launch its "
                              "kernels")
@@ -6311,22 +6356,34 @@ def read_launches(wrappers):
     return {k: getattr(w, attr) for k, (w, attr) in wrappers.items()}
 
 
+def flat_grads(model):
+    """Every parameter's gradient, flattened in fp64 on the CPU (0 where a
+    parameter got none)."""
+    import torch
+
+    return torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                      .reshape(-1).double().cpu()
+                      for p in model.parameters()])
+
+
+def cosine(a, b):
+    return float(a @ b / (a.norm() * b.norm()))
+
+
 def ffjord_grad(tab, model, x, e):
     """(NLL, flat fp64 gradient on the CPU) of one miniboone iteration's
     loss through the discrete adjoint, on the probe ``e``."""
-    import torch
-
     model.zero_grad(set_to_none=True)
     total, nll = tab.nll_and_regs(model, x, (), True, probes=[e])
     total.backward()
-    return float(nll.detach()), torch.cat([p.grad.reshape(-1).double().cpu()
-                                  for p in model.parameters()])
+    return float(nll.detach()), flat_grads(model)
 
 
-def profile_ffjord(tab, model, opt, x, gen):
-    """One traced miniboone iteration: its wall time, host spans (the
-    forward solve with the loss, the adjoint, Adam), the device's busy
-    share and its top kernels."""
+def profile_spans(label, spans):
+    """One traced iteration run as ``spans``, (name, callable) pairs called
+    in turn: its wall time, each span's host time, the device's busy share
+    and its top kernels. Raises where the profiler recorded no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -6335,37 +6392,50 @@ def profile_ffjord(tab, model, opt, x, gen):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        with record_function("span:solve"):
-            total, _ = tab.nll_and_regs(model, x, (), True, generator=gen)
-        opt.zero_grad(set_to_none=True)
-        with record_function("span:adjoint"):
-            total.backward()
-        with record_function("span:adam"):
-            opt.step()
+        for name, fn in spans:
+            with record_function("span:" + name):
+                fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
     kernels, busy_us = device_kernels(events)
-    spans, per_kernel = {}, {}
+    times, per_kernel = {}, {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name.startswith("span:"):
-            spans[e.name[5:]] = spans.get(e.name[5:], 0.0) \
+            times[e.name[5:]] = times.get(e.name[5:], 0.0) \
                 + e.time_range.elapsed_us() * 1e-3
     for e in kernels:
         us, n = per_kernel.get(e.name, (0.0, 0))
         per_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy = busy_us * 1e-6 / wall
-    log(f"[ffjord] (a) one traced iteration: {1e3 * wall:.2f} ms, device "
+    log(f"{label} one traced iteration: {1e3 * wall:.2f} ms, device "
         f"busy {busy:.3f} of it ({busy_us * 1e-3:.2f} ms of kernels, "
         f"{len(kernels)} launches); host spans ms: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in sorted(spans.items())))
+            f"{k} {v:.2f}" for k, v in sorted(times.items())))
     for name, (us, n) in sorted(per_kernel.items(),
                                 key=lambda kv: -kv[1][0])[:6]:
-        log(f"[ffjord]   {us * 1e-3:8.3f} ms x{n:<4d} {name[:90]}")
+        log(f"{label}   {us * 1e-3:8.3f} ms x{n:<4d} {name[:90]}")
     if not kernels:
         raise AssertionError("the profiler recorded no device time")
-    return {"wall_ms": 1e3 * wall, "busy": busy, "spans_ms": spans,
+    return {"wall_ms": 1e3 * wall, "busy": busy, "spans_ms": times,
             "kernel_ms": busy_us * 1e-3, "device_launches": len(kernels)}
+
+
+def profile_ffjord(tab, model, opt, x, gen):
+    """One traced miniboone iteration: spans solve (the forward solve with
+    the loss), adjoint and Adam."""
+    box = {}
+
+    def solve():
+        box["total"] = tab.nll_and_regs(model, x, (), True, generator=gen)[0]
+
+    def adjoint():
+        opt.zero_grad(set_to_none=True)
+        box["total"].backward()
+
+    return profile_spans("[ffjord] (a)", [("solve", solve),
+                                          ("adjoint", adjoint),
+                                          ("adam", opt.step)])
 
 
 def phase_ffjord_tabular(device, wrappers):
@@ -6414,7 +6484,7 @@ def phase_ffjord_tabular(device, wrappers):
     l_c, g_c = ffjord_grad(tab, cpu_model, torch.as_tensor(
         x_np, dtype=torch.float64), e)
     t_cpu = time.perf_counter() - t0
-    cos = float(g_k @ g_c / (g_k.norm() * g_c.norm()))
+    cos = cosine(g_k, g_c)
     ok_grad = cos > FFJORD_COS and np.isfinite(l_k)
     log(f"[ffjord] (a) one iteration's gradient: card fp32 (NLL {l_k:.6f}, "
         f"{t_card:.2f} s with the first call) against the port's CPU fp64 "
@@ -6588,6 +6658,379 @@ def phase_ffjord(device):
     return report
 
 
+# -- phase 15: GRAND ----------------------------------------------------------
+
+# Cora's scale (2,708 nodes, 1,433 features, 7 classes, ~5,280 undirected
+# edges; homophily ~0.81) as the SBM surrogate: the Planetoid files are not
+# in the repository
+CORA = dict(n_nodes=2708, n_classes=7, feat_dim=1433, p_in=0.0082,
+            p_out=0.00032, seed=0)
+# grand_node_torch.py's defaults but these flags, with the full-batch
+# epochs before the timed ones and the timed ones: transformer/imex's
+# epoch is ~3 s (GMRES's whole cycle per stage solve), so it takes 1 + 5
+GRAND_CONFIGS = {
+    "laplacian/pnode": ([], 3, 20),
+    "transformer/imex": (["--function", "transformer", "--block", "imex"],
+                         1, 5),
+}
+GRAND_COS = 0.9999       # card fp32 gradient against the CPU fp64 one
+GRAND_LOSS_RTOL = 1e-5   # and their losses
+GATE6_STEPS, GATE6B_STEPS = 8, 12  # tools/hardware_smoke.py's gate 6
+MNIST_B, MNIST_ITERS = 256, 20     # (c): GRANDImage at MNIST's shape
+GRAND_DRIVERS = {                  # (d), at their defaults otherwise
+    "grand_node_torch": ["--epochs", "10"],
+    "grand_image_torch": ["--epochs", "1"],
+    "grand_sweep_torch": ["--scheduler", "random", "--trials", "1",
+                          "--epochs", "3"],
+}
+
+
+def grand_grad(gn, model, x, y, mask):
+    """(masked CE, flat gradient) of one full-batch step through the
+    discrete adjoint, dropout off."""
+    model.zero_grad(set_to_none=True)
+    loss = gn.masked_ce(model(x, training=True), y, mask)
+    loss.backward()
+    return float(loss.detach()), flat_grads(model)
+
+
+def grand_config(gn, name, data, device, wrappers):
+    """15(a) for one configuration: the gradient gate against the port's
+    CPU fp64 run at the same weights, its warm and timed epochs (an AdamW step with dropout, then the evaluation), one
+    traced epoch; the kernels' launch counts over the epochs."""
+    import torch
+
+    flags, n_warm, n_timed = GRAND_CONFIGS[name]
+    args, _ = gn.parse_args(["--device", device] + flags)
+    graph, _ = gn.build_graph(args, data)
+    n_cls, in_dim = int(data["y"].max()) + 1, data["x"].shape[1]
+    model = gn.build_model(args, graph, in_dim, n_cls, device, torch.float32)
+    state0 = {k: v.detach().cpu().double()
+              for k, v in model.state_dict().items()}
+    x, y, masks, _ = gn.to_device(data, None, device, torch.float32)
+    t0 = time.perf_counter()
+    l_k, g_k = grand_grad(gn, model, x, y, masks["train_mask"])
+    t_card = time.perf_counter() - t0
+    cpu = gn.build_model(args, graph, in_dim, n_cls, "cpu", torch.float64)
+    cpu.load_state_dict(state0)
+    xc, yc, mc, _ = gn.to_device(data, None, "cpu", torch.float64)
+    t0 = time.perf_counter()
+    l_c, g_c = grand_grad(gn, cpu, xc, yc, mc["train_mask"])
+    t_cpu = time.perf_counter() - t0
+    cos, l_rel = cosine(g_k, g_c), abs(l_k - l_c) / abs(l_c)
+    ok_grad = cos >= GRAND_COS and l_rel <= GRAND_LOSS_RTOL
+    n_par = sum(p.numel() for p in model.parameters())
+    method = ("ARK IMEX, Newton on GMRES" if args.block == "imex"
+              else args.method)
+    log(f"[grand] (a) {name} (hidden {args.hidden_dim}, {method} dt "
+        f"{args.step_size} over T {args.time}, {n_par} parameters): one CE "
+        f"gradient through the adjoint, card fp32 (CE {l_k:.7f}, "
+        f"{t_card:.2f} s with the first call) against the port's CPU fp64 "
+        f"(CE {l_c:.7f}, {t_cpu:.2f} s): cosine {cos:.8f} (tol >= "
+        f"{GRAND_COS}), CE {l_rel:.3e} relative (tol {GRAND_LOSS_RTOL}) "
+        f"{'ok' if ok_grad else 'FAIL'}")
+
+    opt = gn.make_optimizer(model, args)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    mask = masks["train_mask"]
+
+    def epoch():
+        loss = gn.train_step(model, opt, x, y, mask, gen)
+        return loss, gn.accuracy(model, x, y, masks)
+
+    zero_launches(wrappers)
+    losses = [epoch()[0] for _ in range(n_warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        loss, accs = epoch()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    eps = n_timed / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    box = {}
+
+    def forward():
+        box["loss"] = gn.masked_ce(model(x, training=True, generator=gen),
+                                   y, mask)
+
+    def adjoint():
+        opt.zero_grad(set_to_none=True)
+        box["loss"].backward()
+
+    trace = profile_spans(f"[grand] (a) {name}", [
+        ("forward", forward), ("adjoint", adjoint), ("adamw", opt.step),
+        ("eval", lambda: gn.accuracy(model, x, y, masks))])
+    counts = read_launches(wrappers)
+    losses = torch.stack(losses).cpu().numpy()
+    ok = (ok_grad and np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and not any(counts.values()))
+    log(f"[grand] (a) {name}: {n_warm} + {n_timed} AdamW epochs "
+        f"(lr {args.lr}, wd {args.decay}, dropout {args.input_dropout} / "
+        f"{args.dropout}): CE "
+        f"{np.array2string(losses, precision=4, max_line_width=260)}; "
+        f"{eps:.3f} epochs/s over the {n_timed}; peak device memory "
+        f"{peak:.3f} GiB; accuracy train {accs['train_mask']:.3f} val "
+        f"{accs['val_mask']:.3f} test {accs['test_mask']:.3f}; hand-written "
+        f"kernel launches {sum(counts.values())} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 15(a), GRAND {name}, failed")
+    return {"cos": cos, "ce_rel": l_rel, "epochs_per_s": eps,
+            "peak_gib": peak, "accs": accs, "losses": losses.tolist(),
+            "trace": trace}
+
+
+def phase_grand_cora(device, wrappers):
+    """15(a): node classification at Cora's scale, grand_node_torch.py's
+    defaults (hidden 64, dopri5 dt 0.5 over T 3, AdamW lr 0.01 wd 5e-4,
+    dropout 0.5 / 0.5 from a seeded generator on the card) through the
+    driver's functions, for each of GRAND_CONFIGS."""
+    from pnode_tpu_torch.models.grand import synthetic_sbm
+
+    gn = load_example("grand_node_torch")
+    t0 = time.perf_counter()
+    data = synthetic_sbm(**CORA)
+    E = data["edge_index"].shape[1]
+    src, dst = data["edge_index"]
+    homophily = float(np.mean(data["y"][src] == data["y"][dst]))
+    log(f"[grand] (a) Cora-scale SBM: {len(data['y'])} nodes, "
+        f"{data['x'].shape[1]} features, {int(data['y'].max()) + 1} classes, "
+        f"{E} directed edges ({E + len(data['y'])} with self loops), "
+        f"homophily {homophily:.3f}, train/val/test "
+        f"{int(data['train_mask'].sum())}/{int(data['val_mask'].sum())}/"
+        f"{int(data['test_mask'].sum())} ({time.perf_counter() - t0:.2f} s "
+        f"to draw)")
+    return {name: grand_config(gn, name, data, device, wrappers)
+            for name in GRAND_CONFIGS}
+
+
+def phase_grand_gate6(device):
+    """15(b): tools/hardware_smoke.py's gate 6: the six families on a
+    96-node SBM (hidden 16, dopri5 dt 0.25 over T 1, dropout off) take
+    GATE6_STEPS Adam steps at 5e-3 on the mean CE through the adjoint;
+    the CE falls and every gradient is finite. 6b: GRANDImage at 8 x 8
+    (rk4) takes GATE6B_STEPS Adam steps at 5e-2 on 32 quadrant blobs; the
+    CE falls."""
+    import torch
+    import torch.nn.functional as F
+
+    from pnode_tpu_torch.models.grand import (
+        GRANDModel, gcn_norm_adj, get_rw_adj, synthetic_sbm)
+    from pnode_tpu_torch.models.grand_image import GRANDImage
+
+    def train(model, x, y, lr, steps):
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+        losses, finite = [], True
+        for _ in range(steps):
+            loss = F.cross_entropy(model(x, training=True), y)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            finite = finite and all(bool(torch.isfinite(p.grad).all())
+                                    for p in model.parameters()
+                                    if p.grad is not None)
+            opt.step()
+            losses.append(float(loss.detach()))
+        return losses, finite
+
+    data = synthetic_sbm(n_nodes=96, n_classes=3, feat_dim=16, seed=0)
+    graph = get_rw_adj(data["edge_index"], 96)
+    graph_gcn = gcn_norm_adj(data["edge_index"], 96)
+    x = torch.as_tensor(data["x"], device=device)
+    y = torch.as_tensor(data["y"], dtype=torch.int64, device=device)
+    families = [
+        ("transformer/pnode", dict(function="transformer"), graph),
+        ("gat/pnode", dict(function="gat"), graph),
+        ("hbnode/heavyball", dict(function="hbnode", block="heavyball"),
+         graph),
+        ("cgnn/pnode", dict(function="cgnn"), graph_gcn),
+        ("laplacian/hard_att", dict(block="hard_att", att_samp_pct=0.7),
+         graph),
+        ("laplacian/rewire_att", dict(block="rewire_att", rw_addD=0.25),
+         graph),
+    ]
+    res, ok_all = {}, True
+    for name, kw, g in families:
+        torch.manual_seed(4)
+        model = GRANDModel(g, 16, 16, 3, T=1.0, step_size=0.25,
+                           method="dopri5", input_dropout=0.0, dropout=0.0,
+                           device=device, **kw)
+        t0 = time.perf_counter()
+        losses, finite = train(model, x, y, 5e-3, GATE6_STEPS)
+        secs = time.perf_counter() - t0
+        ok = finite and losses[-1] < losses[0]
+        ok_all = ok_all and ok
+        res[name] = {"ce": (losses[0], losses[-1]), "seconds": secs}
+        log(f"[grand] (b) gate 6 {name}: ce {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} over {GATE6_STEPS} Adam steps, gradients "
+            f"finite {finite}, {GATE6_STEPS / secs:.2f} steps/s "
+            f"{'ok' if ok else 'FAIL'}")
+
+    rng = np.random.default_rng(0)
+    ys = rng.integers(0, 4, size=32)
+    xs = np.zeros((32, 8, 8, 1), np.float32)
+    for i, c in enumerate(ys):
+        oy, ox = (c // 2) * 4, (c % 2) * 4
+        xs[i, oy + 1: oy + 3, ox + 1: ox + 3, 0] = 1.0
+    xs += rng.normal(scale=0.15, size=xs.shape).astype(np.float32)
+    torch.manual_seed(0)
+    model = GRANDImage(8, 8, 4, T=1.0, step_size=0.25, method="rk4",
+                       input_dropout=0.0, dropout=0.0, device=device)
+    losses, finite = train(model, torch.as_tensor(xs, device=device),
+                           torch.as_tensor(ys, device=device), 5e-2,
+                           GATE6B_STEPS)
+    ok = finite and np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+    ok_all = ok_all and ok
+    res["image"] = {"ce": (losses[0], losses[-1])}
+    log(f"[grand] (b) gate 6b GRANDImage 8x8: ce {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {GATE6B_STEPS} Adam steps "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok_all:
+        raise AssertionError("phase 15(b), hardware gate 6, failed")
+    return res
+
+
+def phase_grand_image(device):
+    """15(c): GRANDImage at MNIST's shape (28 x 28, 10 classes, B 256, rk4
+    dt 0.25 over T 1, dropout off) on seeded random pixels: one CE
+    gradient through the adjoint on the card in fp32 against the port's
+    CPU fp64 run at the same weights (cosine >= GRAND_COS), then
+    MNIST_ITERS timed Adam iterations (images/s, peak memory) and one
+    traced iteration."""
+    import torch
+    import torch.nn.functional as F
+
+    from pnode_tpu_torch.models.grand_image import GRANDImage
+
+    rng = np.random.default_rng(0)
+    xs = rng.random((MNIST_B, 28, 28, 1), dtype=np.float32)
+    ys = rng.integers(0, 10, MNIST_B)
+
+    def build(dev, dtype):
+        torch.manual_seed(0)
+        return GRANDImage(28, 28, 10, T=1.0, step_size=0.25, method="rk4",
+                          input_dropout=0.0, dropout=0.0, device=dev,
+                          dtype=dtype)
+
+    def grad(model, dev, dtype):
+        model.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(
+            model(torch.as_tensor(xs, dtype=dtype, device=dev),
+                  training=True),
+            torch.as_tensor(ys, dtype=torch.int64, device=dev))
+        loss.backward()
+        return float(loss.detach()), flat_grads(model)
+
+    model = build(device, torch.float32)
+    l_k, g_k = grad(model, device, torch.float32)
+    l_c, g_c = grad(build("cpu", torch.float64), "cpu", torch.float64)
+    cos, l_rel = cosine(g_k, g_c), abs(l_k - l_c) / abs(l_c)
+    x = torch.as_tensor(xs, device=device)
+    y = torch.as_tensor(ys, dtype=torch.int64, device=device)
+    opt = torch.optim.Adam(model.parameters(), lr=0.01)
+    box = {}
+
+    def forward():
+        box["loss"] = F.cross_entropy(model(x, training=True), y)
+
+    def adjoint():
+        opt.zero_grad(set_to_none=True)
+        box["loss"].backward()
+
+    for _ in range(2):  # warm
+        forward()
+        adjoint()
+        opt.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(MNIST_ITERS):
+        forward()
+        adjoint()
+        opt.step()
+        losses.append(box["loss"].detach())
+    torch.cuda.synchronize()
+    ips = MNIST_B * MNIST_ITERS / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trace = profile_spans("[grand] (c)", [("forward", forward),
+                                          ("adjoint", adjoint),
+                                          ("adam", opt.step)])
+    losses = torch.stack(losses).cpu().numpy()
+    ok = cos >= GRAND_COS and np.all(np.isfinite(losses))
+    log(f"[grand] (c) GRANDImage 28x28, B {MNIST_B}, rk4 0.25 over T 1: "
+        f"one CE gradient, card fp32 (CE {l_k:.7f}) against CPU fp64 (CE "
+        f"{l_c:.7f}): cosine {cos:.8f} (tol >= {GRAND_COS}), CE "
+        f"{l_rel:.3e} relative; {MNIST_ITERS} Adam iterations: CE "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {ips:.1f} images/s, peak "
+        f"device memory {peak:.3f} GiB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 15(c), GRANDImage at MNIST's shape, "
+                             "failed")
+    return {"cos": cos, "ce_rel": l_rel, "images_per_s": ips,
+            "peak_gib": peak, "trace": trace}
+
+
+def phase_grand_drivers():
+    """15(d): examples/grand_node_torch.py (10 epochs), grand_image_torch.py
+    (one epoch of the surrogate) and grand_sweep_torch.py (one random
+    trial of 3 epochs), at their defaults otherwise, each in a subprocess,
+    all three at once (their start-up, ~15 s a process, is most of their
+    time; the rates they report share the host)."""
+    t0 = time.perf_counter()
+    runs = {name: start_driver(name, argv + (
+        [] if name == "grand_image_torch" else
+        ["--train_dir", os.path.join(ROOT, "build", name)]))
+        for name, argv in GRAND_DRIVERS.items()}
+    res = {}
+    for name, run in runs.items():
+        res[name] = finish_driver(run)
+        res[name]["wall_s"] = time.perf_counter() - t0
+    node, img = res["grand_node_torch"], res["grand_image_torch"]
+    trials = res["grand_sweep_torch"]["trials"]
+    ok = (np.all(np.isfinite(node["losses"])) and node["epochs"] == 10
+          and np.all(np.isfinite(img["losses"])) and len(trials) == 1
+          and trials[0][2] >= 0)
+    log(f"[grand] (d) grand_node_torch.py --epochs 10: CE "
+        f"{node['losses'][0]:.4f} -> {node['losses'][-1]:.4f}, best val "
+        f"{node['best_val']:.4f} (test {node['best_test']:.4f}), "
+        f"{node['epochs'] / node['seconds']:.2f} epochs/s, done "
+        f"{node['wall_s']:.1f} s after the start")
+    log(f"[grand] (d) grand_image_torch.py --epochs 1: loss "
+        f"{img['losses'][0]:.4f}, test acc {img['test_acc'][0]:.4f}, "
+        f"{img['images_per_s']:.1f} images/s ({img['iters']} iterations, "
+        f"the first included), done {img['wall_s']:.1f} s after the start")
+    log(f"[grand] (d) grand_sweep_torch.py "
+        f"{' '.join(GRAND_DRIVERS['grand_sweep_torch'])}: trial "
+        f"{trials[0][0]} -> best val {trials[0][2]:.4f}, done "
+        f"{res['grand_sweep_torch']['wall_s']:.1f} s after the start "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 15(d), the GRAND drivers, failed")
+    return res
+
+
+def phase_grand(device):
+    """Phase 15: GRAND on the card, (a)-(c) in this process, then (d)'s
+    drivers in subprocesses. The kernels' launch counts are zeroed at the
+    start and must read 0 after (c): the GRAND path runs no hand-written
+    kernel."""
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    report = {"cora": phase_grand_cora(device, wrappers)}
+    report["gate6"] = phase_grand_gate6(device)
+    report["mnist"] = phase_grand_image(device)
+    counts = read_launches(wrappers)
+    log(f"[grand] hand-written kernel launches over phase 15(a)-(c): "
+        f"{sum(counts.values())}")
+    if any(counts.values()):
+        raise AssertionError(f"phase 15 launched kernels: {counts}")
+    report["drivers"] = phase_grand_drivers()
+    log(f"[grand] phase 15 took {time.perf_counter() - t0:.1f} s")
+    return report
+
+
 def main():
     import torch
 
@@ -6623,6 +7066,7 @@ def main():
     counts.update(bf_counts)
     slice10_launches = phase_slice10("cuda", u)
     phase_ffjord("cuda")
+    phase_grand("cuda")
     reports["probe_smem"] = probe_report
     counts["probe_smem"] = probe_report["launches"]
     kernels = []

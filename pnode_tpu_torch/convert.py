@@ -39,6 +39,11 @@ paired with the port's children in registration order.
 ``ffjord_states_from_flax`` carries MovingBatchNorm's running statistics
 (the flow state).
 
+``grand_state_dict_from_flax(model, params)`` does the same for a GRAND
+model (``models.grand.GRANDModel`` or ``models.grand_image.GRANDImage``)
+from the dict of per-part flax variables its JAX counterpart's ``init``
+returns.
+
 Nothing here imports JAX: the caller converts the arrays to numpy.
 """
 
@@ -166,8 +171,9 @@ def _flax_children(module, tree: Mapping):
     """(flax name, port path, child) of a port module's children: flax
     names a compact module's submodules ``<Kind>_<i>`` counted per kind in
     creation order (the port registers its children in that order, a
-    ModuleList's members in turn) and a setup module's list members
-    ``<attr>_<i>``."""
+    ModuleList's members in turn), a setup module's list members
+    ``<attr>_<i>``, and a submodule given ``name=`` by that name (the port
+    registers it under the same attribute; it takes no count)."""
     counts: Dict[str, int] = {}
 
     def counted(child):
@@ -181,6 +187,8 @@ def _flax_children(module, tree: Mapping):
             for i, c in enumerate(child):
                 key = f"{name}_{i}"
                 yield (key if key in tree else counted(c)), f"{name}.{i}", c
+        elif name in tree:  # a submodule flax names explicitly (name=...)
+            yield name, name, child
         else:
             yield counted(child), name, child
 
@@ -273,3 +281,22 @@ def ffjord_states_from_flax(states):
     if isinstance(states, (list, tuple)):
         return [ffjord_states_from_flax(v) for v in states]
     return _tensor(states)
+
+
+# -- GRAND --------------------------------------------------------------------
+
+
+def grand_state_dict_from_flax(model, params) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a JAX ``GRANDModel`` or ``GRANDImage``:
+    ``model`` is the port's counterpart and ``params`` what the JAX
+    object's ``init`` returned (``{"enc", "func", "dec"}`` and, where the
+    model has them, ``"enc_pos"`` and ``"hard_att"``; ``{"func", "dec"}``
+    for GRANDImage), as numpy arrays. Each entry maps onto the port
+    module of its name: Dense kernels transposed; the dynamics' own
+    variables (``alpha_train``, ``beta_train``, ``gamma``, ``a_src``,
+    ``a_dst``) copied; flax's ``W`` and ``Wout`` by name."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, variables in params.items():
+        out.update(_flax_state_dict(getattr(model, name), variables,
+                                    name + "."))
+    return out

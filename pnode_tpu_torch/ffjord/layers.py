@@ -55,6 +55,24 @@ def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
         return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
 
 
+def fan_avg_(w: torch.Tensor, fan_in: int, fan_out: int,
+             distribution: str = "truncated_normal") -> torch.Tensor:
+    """flax's ``variance_scaling(1, "fan_avg", distribution)`` at variance
+    2 / (fan_in + fan_out): ``glorot_normal`` (a normal truncated at 2
+    std) or, with ``distribution="uniform"``, U(-limit, limit) at limit
+    sqrt(3 variance)."""
+    var = 2.0 / (fan_in + fan_out)
+    with torch.no_grad():
+        if distribution == "uniform":
+            limit = math.sqrt(3.0 * var)
+            return w.uniform_(-limit, limit)
+        if distribution != "truncated_normal":
+            raise ValueError(f"distribution {distribution!r}: "
+                             "truncated_normal or uniform")
+        std = math.sqrt(var) / _TRUNC_STD
+        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
+
+
 def dense(d_in: int, d_out: int, bias: bool = True,
           std: float = None) -> nn.Linear:
     """An ``nn.Linear`` drawn as flax's ``Dense``: LeCun-normal kernel (or
