@@ -44,12 +44,14 @@ exits non-zero without printing the final line):
    B 200), with and without err, against the plain versions in fp32 and
    fp64, each call repeated bitwise (phase_k2_edges says how it gates);
    the device times of K2 (with and without err) and K3. K3 at the edges
-   of its plan and tiling (K3_EDGES: K2's without Burgers, whose reverse
-   the fits gate keeps closed, a stack whose layer store the plan
-   shrinks, and d 200 and 300, whose inv and J are read in place) at
-   the plan's rows per block and at every forced R that fits: against
-   the plain versions in fp32 and fp64 with K3's gates,
-   lam_prev bitwise equal across R, each call repeated bitwise. Then K4,
+   of its plan and tiling (K3_EDGES: K2's, the Burgers reverse at d 512
+   on BurgersFuncIM's J and stage inverse at dt 1e-3, a stack whose layer
+   store the plan shrinks, and d 200 and 300; from d 200 up inv and J are
+   read in place) at the plan's rows per block and at every forced R
+   that fits: against the plain versions in fp32 and fp64 with K3's
+   gates, lam_prev bitwise equal across R, each call repeated bitwise;
+   at d 512 the ReLU decisions on which kernel and plain version part are
+   printed first (relu_flips). Then K4,
    the fused training loop, against fused_train_loop_plain on K = 8
    distinct KS minibatches (Adam lr 5e-3) at every rows per block its plan
    takes (1, 2, 4, 8): the main path's shapes, the ragged size (chunk=8),
@@ -65,7 +67,16 @@ exits non-zero without printing the final line):
    cold dt0 = 0.2 that must reject, and a batch whose row tiles outnumber
    the grid's blocks (check_adaptive says how it gates); two calls bitwise
    equal, K/2 + K/2 launches bitwise equal to one of K; per-iteration
-   times in turns and the device time.
+   times in turns and the device time. Then Burgers-512 on bench.py's
+   recipe (phase_burgers_kernels: B 200, 512 -> 576 x4 -> 512, dt 1e-3,
+   BurgersFuncIM's operators, the seed-0 BurgersFuncEX stack, f_EX =
+   +MLP, y ~ N(0, 1), target y + 0.05 N(0, 1)): K2 and K3 (its plan's R 1
+   and forced R 2) against their plain versions with the gates above;
+   K12 at (200, 512) and at the two-rank shard (100, 512)
+   (check_grad_step); K4 over K = 8 distinct minibatches (check_loop,
+   K4's gates, at every R its plan takes: R 1 on 132 blocks, 68 of them
+   taking a second row tile), two calls bitwise equal; each timed in
+   turns with its plain version and by the profiler.
 4. The slice: KS SINODE training through ODESolver.odeint_adjoint at full
    width, batch 256, torch.optim.Adam at lr 5e-3, on KS data from the
    port's generator. (a) 4 Adam iterations on the kernel path against the
@@ -139,17 +150,26 @@ exits non-zero without printing the final line):
    the Burgers stack (512 -> 576 x4 -> 512) against its plain versions,
    its scratch sizes, the device memory one backward allocates, a second backward equal bitwise, times in turns with the
    plain version (the JSON line's ``burgers`` entries of K1). (b) The
-   kernel path (f_EX on K1, f_IM on K10/K11; K2/K3's gate closes at nx
-   512) against the plain path
-   (nn.Linear, the roll chain) in phase 4(a)'s form over 4 iterations, the
-   frozen J through K10 equal to the roll chain's bitwise; 50 iterations
-   on the kernel path (finite losses, the mean of the last 10 below the
-   first 10), steps/s of both paths, one traced iteration each (K1's
-   share of the kernel path's device time). The launch
-   counts of K1 forward and backward, K10 and K11 over (b) must be above 0,
-   K2's and K3's 0. (c) examples/burgers_torch.py with bench.py's
-   numerics (--linear_solver hpddm --fixed_jacobian), --batch_time 2, 3
-   iterations and 20 ICs of data: a finite loss.
+   kernel path on the fused ARK step kernels (K2 forward, K3 reverse; the
+   JAX package's route) and, under -pnode_fused_ark_adjoint off, on the
+   generic stage loop (f_EX on K1, f_IM on K10/K11), each against the
+   plain path (nn.Linear, the roll chain) over 4 iterations
+   (phase_burgers_paths_agree, phase 4(a)'s form with the Burgers
+   gates), the frozen J through K10 equal to the roll chain's bitwise;
+   50 iterations on K2/K3 and 20 on the off path (finite losses, the mean
+   of the last 10 below the first 10), steps/s of the three paths, one
+   traced iteration each. K2's and K3's launch counts over the K2/K3
+   runs must be above 0; over the off runs K1's forward and backward,
+   K10's and K11's above 0 and K2's and K3's 0. (c)
+   examples/burgers_torch.py with bench.py's numerics (--linear_solver
+   hpddm --fixed_jacobian: K2/K3), --batch_time 2, 3 iterations and 20
+   ICs of data: a finite loss. (d) bench.py's Burgers training loop on
+   the port (phase_burgers_loop): K4 on the operands of the stepper's
+   fused gate (ks_torch's FusedLoop), its first 4 iterations against
+   (b)'s K2/K3 runs in (b)'s form; a traced launch of 20 iterations (busy
+   share, K4's device time); a launch of 20 and a timed launch of 300 on
+   fresh minibatches: finite losses, the last 20 below the first 20,
+   steps/s beside (b)'s three paths; K4's launches above 0.
 8. The data-parallel slice at the KS main path's shapes (B 256, 64 -> 104
    x4 -> 64, ARK3, dt 0.2, frozen J, ksponly, Adam lr 5e-3, KS states).
    (a) K12 (fused_grad_step) against its plain version in fp32 and fp64 at
@@ -166,6 +186,10 @@ exits non-zero without printing the final line):
    torchrun --standalone --nproc_per_node 1 examples/ks_torch.py --dp 1 for
    one epoch of 3 iterations: its train loss equal to the run without --dp
    within 1e-5 relative. K12's launches over (b) and (c) must be above 0.
+   (f) Burgers-512 (phase_dp_burgers): dp_fused_train_loop at world 1
+   with force_general (K12 at B 200) on bench.py's recipe, K = 8
+   iterations against K4 on the same batches in phase 7(b)'s form, K12
+   launched.
 
 9. The theta slice (CN with mass matrices, matrix-free GMRES, the solve
    without the adjoint). (a) K10 and K11 under torch.func at the KS snode
@@ -320,8 +344,8 @@ exits non-zero without printing the final line):
    in subprocesses, all three at once.
 
 Phases 1-6 run at their full depth but phase 6(c) (12 and 6 iterations,
-22 and 12 before phase 12 came); phase 7 adds about 60 s, phase 8 about
-60 s, phase 9 about 75 s, phase 10 about 130 s, phase 11 about 40 s,
+22 and 12 before phase 12 came); phase 3's Burgers checks add about 30
+s, phase 7 about 25 s, phase 8 about 95 s, phase 9 about 75 s, phase 10 about 130 s, phase 11 about 40 s,
 phase 12 about 90 s, phase 13 a few seconds, phase 14 about 100 s,
 phase 15 about 100-130 s; the build
 about 90 s.
@@ -342,12 +366,17 @@ fp32 instance), ``module_ms`` (the bf16 module path), ``max_rel_err``
 and, for K6/K7, ``stage2`` and ``stage3``, K7's also
 ``free_norm_err`` and ``free_max_rel_err`` (against the free plain
 backward, not gated); K1-K3 carry
-``slice10_launches``, their launches over phase 13's gates); the last line
-is {"ok": true, "device": {...}}.
+``slice10_launches``, their launches over phase 13's gates; K2, K3, K4
+and K12 carry ``burgers``: their readings at Burgers-512 (phase 3) with
+their launches over phase 7(b)'s K2/K3 runs (K2, K3), 7(d) (K4) and 8(f)
+(K12), K3's also ``forced_r2_ms`` and ``forced_r2_device_ms``); a line
+``[done]`` gives the whole script's seconds; the last line is {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -437,6 +466,7 @@ MAX_TRIALS = 32
 # 512-point grid, one ARK3 step of 1e-3, hpddm + frozen J + ksponly,
 # ksp_rtol 1e-6, the one-step MSE, Adam at lr 5e-3
 BNX, BB, BDT = 512, 200, 1e-3
+BURGERS_LAYERS = [BNX * 9 // 8] * 4 + [BNX]
 BURGERS_FLAGS = ["-snes_type", "ksponly", "-ksp_rtol", "1e-6"]
 # K10/K11's shapes: the Burgers stage, the KS stage (both on the register
 # tile), a ragged one, rows too wide to stage in 48 KB of shared memory
@@ -951,6 +981,8 @@ def phase_kernels(device, u):
     phase_k3_edges(device, u)
     reports["fused_train_loop"] = phase_loop_kernel(device, u, J, inv, tab,
                                                     dt)
+    for name, r in phase_burgers_kernels(device).items():
+        reports[name]["burgers"] = r
     reports["fused_adaptive_train_loop"] = phase_adaptive_kernel(device, u,
                                                                  stp)
     return reports
@@ -1131,15 +1163,17 @@ def phase_k2_edges(device, u):
             raise AssertionError("K2 is not deterministic")
 
 
-# K3 at the edges of its plan and tiling: K2_EDGES without the Burgers
-# reverse (the fits gate keeps it closed), three 1024-wide layers at 8
-# stages, where no R holds every stage's layer store (the plan keeps 7
+# K3 at the edges of its plan and tiling: K2_EDGES (the Burgers reverse
+# at d 512, B 200 on the port's own BurgersFuncIM operators at dt 1e-3:
+# R 1 on 200 blocks, forced R 2, inv and J read in place), three
+# 1024-wide layers at
+# 8 stages, where no R holds every stage's layer store (the plan keeps 7
 # stage slots at one row, so dW/db are flushed twice, and the weights
 # stream in chunks), and d 200 and 300, where inv and J do not fit in
 # shared memory and are read in place (at d 300 the stiff products take
 # two column blocks); every case at the plan's rows per block and at each
 # forced R that fits
-K3_EDGES = K2_EDGES[:-1] + (
+K3_EDGES = K2_EDGES + (
     ("store flushed twice", 5, [NX, 1024, 1024, 1024, NX], "relu", "5"),
     ("inv, J in place d 200", 37, [200, 200, 200], "relu", "3"),
     ("inv, J in place d 300", 37, [300, 300], "relu", "3"))
@@ -1161,13 +1195,42 @@ def partial_bytes(B, hidden, grad=False):
             f": {4 * plan[1] * per} B written, the same read back by the sum")
 
 
+def relu_flips(Ys, Ws, bs):
+    """(count, largest fp64 |z|) of the ReLU decisions on which K3's
+    recompute (``reverse_relu_masks``, the kernel's summation order) and
+    the plain version's cuBLAS products part, over the stage values Ys:
+    a unit within fp32 rounding of 0 goes either way in two correct fp32
+    evaluations (phase_burgers_mlp), and moves the reverse's gradients by
+    ~1e-3; an |z| far above rounding would be an error."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_ark_adjoint import reverse_relu_masks
+
+    kernel = reverse_relu_masks(Ys, Ws, bs)
+    n, worst = 0, 0.0
+    for i in range(Ys.shape[0]):
+        h, h64 = Ys[i], Ys[i].double()
+        for li, mask in enumerate(kernel):
+            z = h @ Ws[li] + bs[li]
+            z64 = h64 @ Ws[li].double() + bs[li].double()
+            flip = (z > 0) != mask[i]
+            n += int(flip.sum())
+            if bool(flip.any()):
+                worst = max(worst, float(z64[flip].abs().max()))
+            h, h64 = torch.relu(z), torch.relu(z64)
+    return n, worst
+
+
 def phase_k3_edges(device, u):
     """Phase 3's K3 edge cases (K3_EDGES), K2_EDGES' operators, states and
-    weights, a covector lam ~ N(0, 1) and the plain fp32 forward's stage
+    weights (at Burgers d 512 the port's own BurgersFuncIM operators at dt
+    1e-3), a covector lam ~ N(0, 1) and the plain fp32 forward's stage
     values, at the plan's rows per block and at every forced R whose plan
     fits: lam_prev, dW and db within 1e-4 of max |ref| of the plain version
     in fp32 and in fp64 (K3's gates); lam_prev bitwise equal across R (every
-    R runs the same chains); each call repeated bitwise."""
+    R runs the same chains); each call repeated bitwise. At d 512 the ReLU
+    decisions on which the kernel and the plain version part are printed
+    first (relu_flips)."""
     import torch
 
     from pnode_tpu_torch.ops.fused_ark_adjoint import (
@@ -1180,10 +1243,10 @@ def phase_k3_edges(device, u):
     f64 = lambda ts: [t.to(torch.float64) for t in ts]  # noqa: E731
     flat3 = lambda r: [r[0], *r[1][0], *r[1][1]]  # noqa: E731
     J_ks, inv_ks, tab_ks, _ = ks_operators(device)
-    dt = float(np.float32(DT))
     for i, (label, B, dims, act, tname) in enumerate(K3_EDGES):
         rng = np.random.default_rng(300 + i)
         d = dims[0]
+        dt = float(np.float32(BDT if d == BNX else DT))
         t = get_ark_tableau(tname)
         tab = ([[float(x) for x in r] for r in t.a_im],
                [[float(x) for x in r] for r in t.a_ex],
@@ -1191,6 +1254,8 @@ def phase_k3_edges(device, u):
         s = len(tab[2])
         if d == NX and tname == "3":
             J, inv, tab = J_ks, inv_ks, tab_ks
+        elif d == BNX:
+            J, inv, tab = burgers_operators(device)[:3]
         else:
             A = rng.normal(size=(d, d))
             J64 = -2.0 * (A @ A.T) / d
@@ -1213,6 +1278,11 @@ def phase_k3_edges(device, u):
         log(f"[kernels] K3 edge: {label} (B {B}, {dims}, {act}, ARK "
             f"{tname}, {s} stages): plan {ark_adj_plan(B, d, dims[1:], s)} "
             f"(rows, grid, B), forced R {forced}")
+        if d == BNX:
+            n, worst = relu_flips(Ys, Ws, bs)
+            log(f"[kernels]   K3 {label}: {n} ReLU decisions part between "
+                f"the kernel's and the plain version's products (largest "
+                f"fp64 |z| {worst:.3e})")
         outs = {}
         for R in [0] + forced:
             got = fused_ark_step_adj(*args, rows=R)
@@ -1278,20 +1348,65 @@ def loop_case(device, u, B, hidden, biased, seed, K):
     return Ws, bs, f32(y), f32(tgt)
 
 
-def loop_runner(tab, dt, J, inv, Ws, bs, y, tgt):
-    """run(fn, K, eps, dtype, **kw): fn (the kernel's wrapper or its plain
-    version) over the first K minibatches from zero Adam moments."""
+def loop_runner(tab, dt, J, inv, Ws, bs, y, tgt, sign=-1.0):
+    """run(fn, K, eps, dtype, k0, state, **kw): fn (the kernel's wrapper or
+    its plain version) over minibatches k0 .. k0 + K - 1, from ``state``
+    (weights, biases, m, v after k0 updates) or from the given weights and
+    zero Adam moments; f_EX = sign * MLP (KS -1, Burgers +1)."""
     import torch
 
-    def run(fn, K, eps, dtype=torch.float32, **kw):
+    def run(fn, K, eps, dtype=torch.float32, k0=0, state=None, **kw):
         cast = lambda ts: [t.to(dtype) for t in ts]  # noqa: E731
-        z = ([torch.zeros_like(w, dtype=dtype) for w in Ws],
-             [torch.zeros_like(b, dtype=dtype) for b in bs])
-        return fn(tab, dt, y[:K].to(dtype), tgt[:K].to(dtype), J.to(dtype),
-                  inv.to(dtype), cast(Ws), cast(bs), z, z, 0, lr=LR, eps=eps,
-                  **kw)
+        if state is None:
+            z = ([torch.zeros_like(w, dtype=dtype) for w in Ws],
+                 [torch.zeros_like(b, dtype=dtype) for b in bs])
+            state = (cast(Ws), cast(bs), z, z)
+        return fn(tab, dt, y[k0:k0 + K].to(dtype), tgt[k0:k0 + K].to(dtype),
+                  J.to(dtype), inv.to(dtype), *state, k0, sign=sign, lr=LR,
+                  eps=eps, **kw)
 
+    run.operands = (tab, dt, J, inv, Ws, bs, y, tgt, sign)
     return run
+
+
+def loop_masked_step(run, k, eps, state):
+    """Iteration k of ``run``'s loop from ``state`` (weights, biases, m, v
+    after k updates; None: the start) by the plain version in fp64 with
+    the kernel's own ReLU decisions: K2, whose forward_step chains K4's
+    forward shares, gives the fp32 stage values, and reverse_relu_masks
+    the reverse's decisions on them in the kernel's summation order; the
+    fp64 run computes everything else itself. Returns (ReLU decisions
+    that part from the plain fp32 version's, the largest fp64 |z| among
+    them, the weights and biases after the step)."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_ark_adjoint import (
+        fused_ark_step_adj_plain, reverse_relu_masks)
+    from pnode_tpu_torch.ops.fused_ark_forward import (
+        fused_ark_step_fwd, fused_ark_step_fwd_plain)
+    from pnode_tpu_torch.ops.fused_train_loop import adam_step_plain
+
+    tab, dt, J, inv, Ws, bs, y, tgt, sign = run.operands
+    if state is None:
+        zeros = lambda ts: [torch.zeros_like(t) for t in ts]  # noqa: E731
+        state = (Ws, bs, (zeros(Ws), zeros(bs)), (zeros(Ws), zeros(bs)))
+    W, b, m, v = state
+    Ys = fused_ark_step_fwd(tab, dt, y[k], J, inv, W, b, "relu", sign)[1]
+    flips, worst = relu_flips(Ys, W, b)
+    per = reverse_relu_masks(Ys, W, b)
+    masks = [[mm[i] for mm in per] for i in range(len(tab[2]))]
+    d64 = lambda ts: [t.double() for t in ts]  # noqa: E731
+    J64, inv64 = J.double(), inv.double()
+    params = [d64(W), d64(b)]
+    y1, Ys64 = fused_ark_step_fwd_plain(tab, dt, y[k].double(), J64, inv64,
+                                        *params, "relu", sign)
+    lam = (2.0 / y1.numel()) * (y1 - tgt[k].double())
+    _, grads = fused_ark_step_adj_plain(tab, dt, Ys64, lam, J64, inv64,
+                                        *params, "relu", sign, masks=masks)
+    adam_step_plain(params, [d64(m[0]), d64(m[1])], [d64(v[0]), d64(v[1])],
+                    [list(grads[0]), list(grads[1])], k + 1, LR, 0.9, 0.999,
+                    eps)
+    return flips, worst, params[0] + params[1]
 
 
 def norm_rel(got, ref):
@@ -1303,7 +1418,8 @@ def norm_rel(got, ref):
                for a, b in zip(got, ref))
 
 
-def check_loop(label, run, K, chunk, report, tol=5e-4, rows=0):
+def check_loop(label, run, K, chunk, report, tol=5e-4, rows=0,
+               stepwise=False):
     """K4 against fused_train_loop_plain on the same operands.
 
     - The first iteration's gradient, read as m1 / (1 - b1) after one
@@ -1314,6 +1430,20 @@ def check_loop(label, run, K, chunk, report, tol=5e-4, rows=0):
       1e-4 relative; the final parameters within ``tol`` in max abs at eps
       1e-8 and norm-wise relative at eps 1e-6 (phase 4(a)'s form: below
       eps, Adam passes a gradient's rounding on amplified by up to lr/eps).
+    - ``stepwise`` (Burgers-512): those parameter gates hold per iteration
+      on the kernel's own trajectory, as check_adaptive's: at each of the
+      K iterations kernel and plain version take one Adam step from the
+      kernel's parameters, moments and count, and the kernel's parameters
+      lie within ``tol`` of the plain fp32 version's or, where a ReLU unit
+      within fp32 rounding of 0 parts the two (~1e-3 on a bias norm-wise),
+      of the plain version in fp64 with the kernel's decisions
+      (loop_masked_step), the nearer, both printed. The free-running parameters
+      are printed beside the plain version's own distance from its fp64
+      run and not gated: there each Adam step is ~lr against N(0, 0.1)
+      weights, and an update whose gradient is near 0 moves by up to
+      lr/eps times that gradient's change, so fp32 rounding alone parts
+      two free runs by ~1e-2 in 8 iterations (the plain fp32 version from
+      its fp64 run at eps 1e-8 and 1e-6 on an H100, PERF.md).
     ``rows``: the kernel's rows per block (0: its plan's).
     """
     import torch
@@ -1343,13 +1473,55 @@ def check_loop(label, run, K, chunk, report, tol=5e-4, rows=0):
         pk, pq = kk[0] + kk[1], pp[0] + pp[1]
         pabs = max(abs_err(a, b) for a, b in zip(pk, pq))
         prel = norm_rel(pk, pq)
-        ea = max(ea, pabs, float((lk - lp).abs().max()))
-        ok = ok and lrel <= 1e-4 and (pabs <= tol if eps == 1e-8
-                                      else prel <= tol)
-        log(f"[kernels]   fused_train_loop {label}: K {K}, chunk {chunk}, "
-            f"Adam eps {eps:.0e}: losses max rel err {lrel:.3e} (tol 1e-4); "
-            f"params max abs {pabs:.3e}, rel (norm-wise) {prel:.3e}; gated "
-            f"{'max abs' if eps == 1e-8 else 'rel'} at {tol:.0e}")
+        ea = max(ea, float((lk - lp).abs().max()))
+        ok = ok and lrel <= 1e-4
+        line = (f"[kernels]   fused_train_loop {label}: K {K}, chunk {chunk}, "
+                f"Adam eps {eps:.0e}: losses max rel err {lrel:.3e} (tol "
+                f"1e-4); params max abs {pabs:.3e}, rel (norm-wise) "
+                f"{prel:.3e}")
+        if stepwise:
+            dd = run(fused_train_loop_plain, K, eps, torch.float64)
+            pd = dd[0] + dd[1]
+            line += (f"; not gated: kernel vs plain fp64 max abs "
+                     f"{max(abs_err(a, b) for a, b in zip(pk, pd)):.3e}, rel "
+                     f"{norm_rel(pk, pd):.3e}; plain fp32 vs fp64 max abs "
+                     f"{max(abs_err(a, b) for a, b in zip(pq, pd)):.3e}, rel "
+                     f"{norm_rel(pq, pd):.3e}")
+        else:
+            ea = max(ea, pabs)
+            ok = ok and (pabs <= tol if eps == 1e-8 else prel <= tol)
+            line += (f"; gated {'max abs' if eps == 1e-8 else 'rel'} at "
+                     f"{tol:.0e}")
+        log(line)
+    for eps in (1e-8, 1e-6) if stepwise else ():
+        state, lmax, gated = None, 0.0, 0.0
+        for k in range(K):
+            kk = run(fused_train_loop, 1, eps, k0=k, state=state, rows=rows)
+            torch.cuda.synchronize()
+            pp = run(fused_train_loop_plain, 1, eps, k0=k, state=state)
+            pk, pq = kk[0] + kk[1], pp[0] + pp[1]
+            gap = (max(abs_err(a, b) for a, b in zip(pk, pq)) if eps == 1e-8
+                   else norm_rel(pk, pq))
+            lmax = max(lmax, rel_max(kk[4], pp[4]))
+            ea = max(ea, max(abs_err(a, b) for a, b in zip(pk, pq)))
+            if gap > tol:
+                flips, z, pm = loop_masked_step(run, k, eps, state)
+                gm = (max(abs_err(a, b) for a, b in zip(pk, pm))
+                      if eps == 1e-8 else norm_rel(pk, pm))
+                log(f"[kernels]     step {k}: params vs plain fp32 {gap:.3e}"
+                    f", vs plain fp64 with the kernel's ReLU decisions "
+                    f"{gm:.3e} ({flips} decisions part from the plain fp32 "
+                    f"version's, largest fp64 |z| {z:.3e})")
+                gap = min(gap, gm)
+            gated = max(gated, gap)
+            state = kk[:4]
+        good = lmax <= 1e-4 and gated <= tol
+        ok = ok and good
+        log(f"[kernels]   fused_train_loop {label}: {K} iterations one at a "
+            f"time on the kernel's trajectory, Adam eps {eps:.0e}: loss max "
+            f"rel err {lmax:.3e} (tol 1e-4), params after each step "
+            f"{'max abs' if eps == 1e-8 else 'rel (norm-wise)'} "
+            f"{gated:.3e} (tol {tol:.0e}) {'ok' if good else 'FAIL'}")
     report["max_abs_err"] = max(report.get("max_abs_err", 0.0), ea)
     if not ok:
         raise AssertionError(f"fused_train_loop ({label}) disagrees with its "
@@ -2574,10 +2746,32 @@ def ks_costs(tab, adaptive_report):
     timed runs' accepted and rejected trials per iteration. K4's and K5's
     flops per iteration are fused_train_loop_cost's (forward, reverse,
     Adam); their partial-sum traffic is the kernels' choice, not counted."""
-    from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop_cost
-
     B, d, s = BATCH, NX, 4
     dims = [NX] + [HIDDEN] * 4 + [NX]
+    costs = ark_costs(tab, B, dims, 8)
+    fwd, rev, loop = (costs[k] for k in ("fused_ark_step_fwd",
+                                         "fused_ark_step_adj",
+                                         "fused_train_loop"))
+    acc, rej = adaptive_report["accepted"], adaptive_report["rejected"]
+    return {
+        **mlp_costs(B, dims),
+        **costs,
+        "fused_ark_step_fwd_embedded": (fwd[0] + 2 * s * B * d,
+                                        fwd[1] + 4 * B * d),
+        "fused_adaptive_train_loop": (
+            (acc + rej) * fwd[0] + acc * rev[0] + loop[0] - fwd[0] - rev[0],
+            loop[1]),
+    }
+
+
+def ark_costs(tab, B, dims, K):
+    """(flops, bytes) per call of K2, K3 and K12 and per iteration of K4 in
+    a launch of K iterations, at batch B and widths dims (ks_costs' counts;
+    K12's from fused_grad_step_cost)."""
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        fused_grad_step_cost, fused_train_loop_cost)
+
+    s, d = len(tab[2]), dims[0]
     mlp = sum(a * b for a, b in zip(dims, dims[1:]))
     params = sum(a * b + b for a, b in zip(dims, dims[1:]))
     fwd = (s * (2 * B * d * d + 2 * B * mlp),
@@ -2585,21 +2779,12 @@ def ks_costs(tab, adaptive_report):
     rev = (s * (2 * B * d * d + 6 * B * mlp - 2 * B * dims[-2] * dims[-1]),
            4 * ((s + 2) * B * d + 2 * d * d + 2 * params))
     # per iteration: y and the target in, the loss out, W, m and v read and
-    # written (Adam); J and the stage inverse once per launch of K = 8
-    loop = (fused_train_loop_cost(tab, B, d, dims[1:], 8)[0],
-            4 * (2 * B * d + 1 + 6 * params) + 4 * 2 * d * d / 8)
-    acc, rej = adaptive_report["accepted"], adaptive_report["rejected"]
-    return {
-        **mlp_costs(B, dims),
-        "fused_ark_step_fwd": fwd,
-        "fused_ark_step_fwd_embedded": (fwd[0] + 2 * s * B * d,
-                                        fwd[1] + 4 * B * d),
-        "fused_ark_step_adj": rev,
-        "fused_train_loop": loop,
-        "fused_adaptive_train_loop": (
-            (acc + rej) * fwd[0] + acc * rev[0] + loop[0] - fwd[0] - rev[0],
-            loop[1]),
-    }
+    # written (Adam); J and the stage inverse once per launch of K
+    loop = (fused_train_loop_cost(tab, B, d, dims[1:], K)[0],
+            4 * (2 * B * d + 1 + 6 * params) + 4 * 2 * d * d / K)
+    return {"fused_ark_step_fwd": fwd, "fused_ark_step_adj": rev,
+            "fused_train_loop": loop,
+            "fused_grad_step": fused_grad_step_cost(tab, B, d, dims[1:])}
 
 
 def cifar_model(device, use_kernels, state=None, dtype=None):
@@ -3541,17 +3726,18 @@ def burgers_batches(n, seed=0):
     return out
 
 
-def build_burgers(device, state, fused, eps=1e-8):
+def build_burgers(device, state, fused, eps=1e-8, flags=()):
     """(ode, ex, Adam) of the Burgers IMEX model on bench.py's recipe from
-    ``state`` (FusedStackedMLP layout): the kernel path (``use_fused``: K1
-    and K10/K11) or the plain path (nn.Linear, the roll chain)."""
+    ``state`` (FusedStackedMLP layout): the kernel path (``use_fused``: the
+    fused ARK step kernels K2/K3, or under ``flags`` -pnode_fused_ark_adjoint
+    off K1 and K10/K11) or the plain path (nn.Linear, the roll chain)."""
     import torch
 
     import pnode_tpu_torch as pt
     from pnode_tpu_torch.models import BurgersFuncEX, BurgersFuncIM
 
     pt.clear_options()
-    pt.init(["chip_smoke"] + BURGERS_FLAGS)
+    pt.init(["chip_smoke"] + BURGERS_FLAGS + list(flags))
     im = BurgersFuncIM(nx=BNX, use_fused=fused, device=device)
     ex = BurgersFuncEX(nx=BNX, use_fused=fused, device=device)
     ex.load_state_dict(state if fused else to_linear_state(state))
@@ -3585,23 +3771,262 @@ def frozen_J(ode, ex, device):
     return stp.setup.frozen_J_blocks
 
 
+@functools.lru_cache(maxsize=2)
+def burgers_operators(device):
+    """bench.py's Burgers recipe as the port's stepper hands it to the fused
+    kernels (``_fused_reverse_args``): the frozen J of BurgersFuncIM, ARK3's
+    stage inverse at BDT, the tableau, and the seed-0 BurgersFuncEX stack
+    (phase 7's state0) as (Ws, bs); f_EX = +MLP."""
+    import torch
+
+    import pnode_tpu_torch as pt
+    from pnode_tpu_torch.models import BurgersFuncEX, BurgersFuncIM
+
+    pt.clear_options()
+    pt.init(["chip_smoke"] + BURGERS_FLAGS)
+    im = BurgersFuncIM(nx=BNX, use_fused=True, device=device)
+    ex = BurgersFuncEX(nx=BNX, use_fused=True, device=device,
+                       generator=torch.Generator(device=device).manual_seed(0))
+    ode = pt.ODESolver()
+    y = torch.zeros(BB, BNX, device=device)
+    ode.setupTS(y, pt.TorchFunc(im), step_size=BDT, method="imex",
+                imex_form=True, implicit_form=True, func2=pt.TorchFunc(ex),
+                linear_solver="hpddm", fixed_jacobian=True, batch_size=BB)
+    params = ({}, dict(ex.named_parameters()))
+    stp = ode._stepper.prepare(0.0, y, params, dt0=BDT)
+    spec, J, inv = stp._fused_reverse_args(params)
+    if spec["sign"] != 1.0:
+        raise AssertionError("Burgers' f_EX is +MLP")
+    return (J, inv, stp._tableau_static(),
+            [w.detach().clone() for w in spec["Ws"]],
+            [b.detach().clone() for b in spec["bs"]])
+
+
+def burgers_partials(name, grid, total):
+    """A log line of a Burgers kernel's dW/db partials: grid slices of
+    ``total`` floats, written by the blocks and read back by the sum."""
+    return (f"{name}: partials {grid} x {total} floats = "
+            f"{4 * grid * total / 1e6:.1f} MB written and read back")
+
+
+def time_in_turns(fns, reps=20, inner=10):
+    """Median ms per call of each of ``fns`` (label -> fn), in the order
+    given and then reversed (plain, kernel, kernel, plain): the smaller of
+    each one's two medians, each over ``reps`` samples of ``inner``
+    back-to-back calls."""
+    order = list(fns) + list(fns)[::-1]
+    got = {}
+    for k in order:
+        t = summary(cuda_times_ms(fns[k], reps=reps, warmup=2,
+                                  inner=inner))[0]
+        got[k] = min(got.get(k, t), t)
+    return got
+
+
+def phase_burgers_kernels(device):
+    """Phase 3 at Burgers-512, bench.py's recipe (B 200, 512 -> 576 x4 ->
+    512, ARK3, dt 1e-3, BurgersFuncIM's J and stage inverse, the seed-0
+    BurgersFuncEX stack, f_EX = +MLP; y ~ N(0, 1), target y + 0.05 N(0, 1)).
+    K2 and K3 (at the plan's R 1 and forced R 2) on those inputs against
+    their plain versions in fp32 and fp64 with phase 3's gates, each timed
+    in turns with its plain version and by the profiler; K12 at (200, 512)
+    and at the two-rank shard (100, 512) (check_grad_step), timed at B 200;
+    K4 over K = 8 distinct minibatches against fused_train_loop_plain
+    (check_loop, K4's gates, at every R its plan takes), two calls bitwise
+    equal, per iteration in turns with its plain version and by the
+    profiler. Returns the JSON line's ``burgers`` entries of K2, K3, K4
+    and K12 (bounds from ark_costs at these shapes)."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_ark_adjoint import (
+        ark_adj_plan, fused_ark_step_adj, fused_ark_step_adj_plain,
+        grad_step_plan)
+    from pnode_tpu_torch.ops.fused_ark_forward import (
+        fused_ark_step_fwd, fused_ark_step_fwd_plain)
+    from pnode_tpu_torch.ops.fused_mlp import grad_buffer_size
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        fused_grad_step, fused_grad_step_plain, fused_train_loop,
+        fused_train_loop_plain, train_loop_plan)
+
+    J, inv, tab, Ws, bs = burgers_operators(device)
+    dt = float(np.float32(BDT))
+    s, dims, K = len(tab[2]), [BNX] + BURGERS_LAYERS, DP_K
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device=device)
+    f64 = lambda ts: [t.double() for t in ts]  # noqa: E731
+    pairs = burgers_batches(K + 1, seed=5)
+    ys, tgts = (f32(np.stack([p[i] for p in pairs[:K]])) for i in (0, 1))
+    y, tgt = f32(pairs[K][0]), f32(pairs[K][1])
+    lam = f32(np.random.default_rng(6).normal(size=(BB, BNX)))
+    total = grad_buffer_size(dims)
+    costs = ark_costs(tab, BB, dims, K)
+    reports = {}
+    log(f"[kernels] Burgers-512 (B {BB}, {dims}, ARK3, dt {BDT}): K2, K3, "
+        f"K12 and K4 on bench.py's recipe")
+
+    # K2
+    args = (tab, dt, y, J, inv, Ws, bs, "relu", 1.0)
+    args64 = (tab, dt, y.double(), J.double(), inv.double(), f64(Ws),
+              f64(bs), "relu", 1.0)
+    rep = {}
+    got = fused_ark_step_fwd(*args)
+    torch.cuda.synchronize()
+    plain = fused_ark_step_fwd_plain(*args)
+    check_kernel("fused_ark_step_fwd (Burgers)", list(got), list(plain),
+                 list(fused_ark_step_fwd_plain(*args64)), 1e-5, rep)
+    t = time_in_turns({"plain": lambda: fused_ark_step_fwd_plain(*args),
+                       "kernel": lambda: fused_ark_step_fwd(*args)})
+    us, traced = device_us_per_call(lambda: fused_ark_step_fwd(*args),
+                                    ["ark_fwd_kernel"])
+    reports["fused_ark_step_fwd"] = dict(
+        rep, ms=t["kernel"], plain_ms=t["plain"], device_ms=us / 1e3)
+    log(f"[kernels]   fused_ark_step_fwd (Burgers): kernel {t['kernel']:.4f}"
+        f" ms (device {us:.1f} us, {traced} traced), plain {t['plain']:.4f} "
+        "ms, in turns")
+
+    # K3 on the plain forward's stage values, at the plan's R and forced R 2
+    Ys = plain[1]
+    aargs = (tab, dt, Ys, lam, J, inv, Ws, bs, "relu", 1.0)
+    flat3 = lambda r: [r[0], *r[1][0], *r[1][1]]  # noqa: E731
+    n, worst = relu_flips(Ys, Ws, bs)
+    log(f"[kernels]   fused_ark_step_adj (Burgers): {n} ReLU decisions part "
+        f"between the kernel's and the plain version's products (largest "
+        f"fp64 |z| {worst:.3e})")
+    plan = ark_adj_plan(BB, BNX, BURGERS_LAYERS, s, card_sms())
+    rep = {}
+    plain3 = flat3(fused_ark_step_adj_plain(*aargs))
+    ref3 = flat3(fused_ark_step_adj_plain(
+        tab, dt, Ys.double(), lam.double(), J.double(), inv.double(),
+        f64(Ws), f64(bs), "relu", 1.0))
+    for R in (0, 2):
+        check_kernel(f"fused_ark_step_adj (Burgers) R {R or 'plan'}",
+                     flat3(fused_ark_step_adj(*aargs, rows=R)), plain3, ref3,
+                     1e-4, rep)
+    t = time_in_turns({
+        "plain": lambda: fused_ark_step_adj_plain(*aargs),
+        "kernel": lambda: fused_ark_step_adj(*aargs),
+        "R 2": lambda: fused_ark_step_adj(*aargs, rows=2)}, reps=5, inner=4)
+    dev = {R: device_us_per_call(
+        lambda: fused_ark_step_adj(*aargs, rows=R),
+        ["ark_adj_kernel", "sum_partials_kernel"], n=5)[0] for R in (0, 2)}
+    reports["fused_ark_step_adj"] = dict(
+        rep, ms=t["kernel"], plain_ms=t["plain"], device_ms=dev[0] / 1e3,
+        forced_r2_ms=t["R 2"], forced_r2_device_ms=dev[2] / 1e3)
+    log(f"[kernels]   fused_ark_step_adj (Burgers): plan {plan} (rows, "
+        f"grid, B): kernel {t['kernel']:.4f} ms (device {dev[0]:.1f} us), "
+        f"forced R 2 {t['R 2']:.4f} ms (device {dev[2]:.1f} us; one row of "
+        f"W a ring chunk), plain {t['plain']:.4f} ms, in turns; "
+        + burgers_partials("K3", plan[1], total))
+
+    # K12 at the whole batch and the two-rank shard
+    rep = {}
+    for B in (BB, BB // 2):
+        gargs = check_grad_step(f"Burgers B {B}", tab, dt, J, inv, Ws, bs,
+                                y[:B], tgt[:B], rep if B == BB else {},
+                                sign=1.0)
+        if B == BB:
+            main_args = gargs
+    t = time_in_turns({"plain": lambda: fused_grad_step_plain(*main_args),
+                       "kernel": lambda: fused_grad_step(*main_args)},
+                      reps=5, inner=4)
+    us, traced = device_us_per_call(lambda: fused_grad_step(*main_args),
+                                    ["grad_step_kernel",
+                                     "grad_step_sum_kernel"])
+    reports["fused_grad_step"] = dict(
+        rep, ms=t["kernel"], plain_ms=t["plain"], device_ms=us / 1e3)
+    gplan = grad_step_plan(BB, BNX, BURGERS_LAYERS, s, card_sms())
+    log(f"[kernels]   fused_grad_step (Burgers): plan {gplan}: kernel "
+        f"{t['kernel']:.4f} ms (device {us:.1f} us, {traced} traced), plain "
+        f"{t['plain']:.4f} ms, in turns; "
+        + burgers_partials("K12", gplan[1], -(-(total + 1) // 4) * 4))
+
+    # K4 over K distinct minibatches
+    rep = {}
+    run = loop_runner(tab, dt, J, inv, Ws, bs, ys, tgts, sign=1.0)
+    lplan = train_loop_plan(BB, BNX, BURGERS_LAYERS, s, sms=card_sms())
+    rows = [r for r in (1, 2, 4, 8)
+            if train_loop_plan(BB, BNX, BURGERS_LAYERS, s, sms=card_sms(),
+                               rows=r) is not None]
+    log(f"[kernels]   fused_train_loop (Burgers): plan (rows, grid, smem) "
+        f"{lplan}, {-(-BB // lplan[0]) - lplan[1]} blocks take a second row "
+        f"tile; forced rows {rows}; "
+        + burgers_partials("K4", lplan[1], -(-total // 4) * 4))
+    for r in rows:
+        check_loop(f"Burgers B{BB} R {r}", run, K, None, rep, rows=r,
+                   stepwise=True)
+    one = run(fused_train_loop, K, 1e-8)
+    again = run(fused_train_loop, K, 1e-8)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(
+            one[0] + one[1] + [one[4]], again[0] + again[1] + [again[4]])):
+        raise AssertionError("fused_train_loop (Burgers): two calls differ")
+    kern = lambda: run(fused_train_loop, K, 1e-8)  # noqa: E731
+    t = time_in_turns({"plain": lambda: run(fused_train_loop_plain, K, 1e-8),
+                       "kernel": kern}, reps=5, inner=2)
+    dev_ms, traced = loop_device_ms(kern, "train_loop_kernel", K)
+    reports["fused_train_loop"] = dict(
+        rep, ms=t["kernel"] / K, plain_ms=t["plain"] / K, device_ms=dev_ms)
+    log(f"[kernels]   fused_train_loop (Burgers): two calls bitwise equal; "
+        f"per iteration kernel {t['kernel'] / K:.4f} ms (device "
+        f"{dev_ms:.4f} ms, {traced} launches traced), plain "
+        f"{t['plain'] / K:.4f} ms, in turns, K {K}")
+    for name, r in reports.items():
+        r["bound_ms"], r["bound_by"] = bound(*costs[name])
+    return reports
+
+
+def burgers_runs_agree(label, eps, got, ref, tol=5e-4, tol_flip=5e-3,
+                       params=True):
+    """Phase 7(b)'s form for two free-running Burgers runs (losses, params
+    in FusedStackedMLP's layout): the losses within ``tol`` relative, the
+    params within ``tol_flip`` norm-wise over the whole stack at either
+    Adam eps (printed only, without ``params``). A ReLU flip between two
+    correct fp32 evaluations moves a gradient ~1e-3 norm-wise, and the
+    weight gradients, which dt 1e-3 scales, lie near eps 1e-8, where Adam
+    passes a gradient's rounding on amplified by up to lr/eps (per tensor
+    and in max abs the figures are printed). Logs, returns ok."""
+    import torch
+
+    (lk, pk), (lg, pg) = got, ref
+    lk, lg = lk.double().cpu(), lg.double().cpu()
+    lrel = float(((lk - lg).abs() / lg.abs()).max())
+    flat = lambda ps: torch.cat([p.detach().double().cpu().reshape(-1)  # noqa
+                                 for p in ps])
+    pnorm = norm_err(flat(pk), flat(pg))
+    log(f"[burgers]     free-running vs {label}, Adam eps {eps:.0e}: losses "
+        f"max rel err {lrel:.3e} (tol {tol:.0e}); params norm-wise over the "
+        f"stack {pnorm:.3e} (tol {tol_flip:.0e}), per tensor max "
+        f"{norm_rel(pk, pg):.3e}, max abs diff "
+        f"{max(abs_err(a, b) for a, b in zip(pk, pg)):.3e}"
+        + ("" if params else "; params not gated"))
+    return lrel <= tol and (pnorm <= tol_flip or not params)
+
+
 def phase_burgers_paths_agree(device, state0, batches, tol=5e-4,
-                              tol_flip=5e-3):
-    """Phase 7(b), in phase 4(a)'s form: the kernel path against the plain
+                              tol_flip=5e-3, flags=()):
+    """Phase 7(b), in phase 4(a)'s form: the kernel path (K2/K3, or under
+    ``flags`` -pnode_fused_ark_adjoint off K1 and K10/K11) against the plain
     path from the same weights and batches. Per Adam step, both evaluate the
     loss (within ``tol`` relative) and the gradients (norm-wise per tensor,
     within ``tol_flip``) from the kernel path's parameters; run free at
     Adam eps 1e-8 and 1e-6, the losses within ``tol`` and the final
-    parameters within ``tol_flip`` norm-wise over the whole stack. The
+    parameters within ``tol_flip`` norm-wise over the whole stack (on the
+    K2/K3 route at eps 1e-6 only, printed at 1e-8: a ReLU flip between
+    K3's recompute and cuBLAS at a step, then Adam at eps 1e-8 on
+    gradients near eps, parted the stack by 4.8e-3 in 4 steps on an H100,
+    PERF.md). The
     gradient and parameter gates take a ReLU flip between two correct fp32
     evaluations (phase_burgers_mlp: ~1.5e-3 norm-wise on the gradients;
     Adam then steps a flipped unit's parameters up to lr apart); a wrong
     stencil or stack moves the losses by far more than ``tol``. The frozen
-    J assembled through K10 must equal the roll chain's bitwise."""
+    J assembled through K10 must equal the roll chain's bitwise. Returns
+    the kernel path's free-running runs, {eps: (losses, params)}."""
     import torch
 
-    ode_k, ex_k, opt_k = build_burgers(device, state0, True)
+    # the plain path first: each build resets the options, and the kernel
+    # path reads its route flag at every step
     ode_p, ex_p, _ = build_burgers(device, state0, False)
+    ode_k, ex_k, opt_k = build_burgers(device, state0, True, flags=flags)
     step_l = step_g = 0.0
     losses = []
     for y0, tgt in batches:
@@ -3617,33 +4042,27 @@ def phase_burgers_paths_agree(device, state0, batches, tol=5e-4,
         losses.append(l_k)
     J_k, J_p = frozen_J(ode_k, ex_k, device), frozen_J(ode_p, ex_p, device)
     same_J = bool(torch.equal(J_k, J_p))
-    log(f"[burgers] (b) {len(batches)} Adam steps, kernel path vs plain path "
+    log(f"[burgers] (b) {len(batches)} Adam steps, kernel path "
+        f"{' '.join(flags) or '(K2/K3)'} vs plain path "
         f"from the same parameters: max rel err loss {step_l:.3e} (tol "
         f"{tol:.0e}), gradients {step_g:.3e} (norm-wise; tol "
         f"{tol_flip:.0e}); frozen J through K10 "
         f"{'equals' if same_J else 'DIFFERS FROM'} the roll chain's "
         f"(max |J| {float(J_k.abs().max()):.3e})")
     kernel_runs = {1e-8: (torch.tensor(losses), fused_layout(ex_k))}
-    ode, ex, opt = build_burgers(device, state0, True, eps=1e-6)
+    ode, ex, opt = build_burgers(device, state0, True, eps=1e-6, flags=flags)
     kernel_runs[1e-6] = (train(ode, ex, opt, batches, device, BDT),
                          fused_layout(ex))
     ok = step_l <= tol and step_g <= tol_flip and same_J
     for eps, (lk, pk) in kernel_runs.items():
         ode, ex, opt = build_burgers(device, state0, False, eps=eps)
         lg, pg = train(ode, ex, opt, batches, device, BDT), fused_layout(ex)
-        lk, lg = lk.double().cpu(), lg.double().cpu()
-        lrel = float(((lk - lg).abs() / lg.abs()).max())
-        flat = lambda ps: torch.cat([p.detach().double().reshape(-1)  # noqa
-                                     for p in ps])
-        pnorm = norm_err(flat(pk), flat(pg))
-        log(f"[burgers]     free-running vs the plain path, Adam eps "
-            f"{eps:.0e}: losses max rel err {lrel:.3e} (tol {tol:.0e}); "
-            f"params norm-wise over the stack {pnorm:.3e} (tol "
-            f"{tol_flip:.0e}), per tensor max {norm_rel(pk, pg):.3e}, max "
-            f"abs diff {max(abs_err(a, b) for a, b in zip(pk, pg)):.3e}")
-        ok = ok and lrel <= tol and pnorm <= tol_flip
+        ok = burgers_runs_agree("the plain path", eps, (lk, pk), (lg, pg),
+                                tol, tol_flip,
+                                params=eps != 1e-8 or bool(flags)) and ok
     if not ok:
         raise AssertionError("the Burgers kernel and plain paths disagree")
+    return kernel_runs
 
 
 def phase_burgers_trainer(device):
@@ -3670,18 +4089,104 @@ def phase_burgers_trainer(device):
         raise AssertionError("burgers_torch.py gave a non-finite loss")
 
 
-def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
-    """Phase 7: the Burgers slice. Returns K10's and K11's reports, their
-    launch counts on the kernel path, and K1's readings at the Burgers
-    stack with its launches over (b)."""
+def train_timed(ode, ex, opt, batches, warm, device):
+    """Adam iterations over ``batches``: the losses, and steps/s over those
+    after the first ``warm``."""
+    import torch
+
+    l_warm = train(ode, ex, opt, batches[:warm], device, BDT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_rest = train(ode, ex, opt, batches[warm:], device, BDT)
+    torch.cuda.synchronize()
+    sps = (len(batches) - warm) / (time.perf_counter() - t0)
+    return torch.cat([l_warm, l_rest]).cpu().numpy(), sps
+
+
+def phase_burgers_loop(device, state0, kernel_runs, per_step, n_iters=320,
+                       warm=20):
+    """Phase 7(d): bench.py's Burgers training loop on the port, K4 on the
+    operands of the stepper's fused gate (ks_torch's FusedLoop, the state
+    of ``--fused_loop``), from state0. Its first 4 iterations against
+    (b)'s per-step K2/K3 path in phase 7(b)'s form (burgers_runs_agree)
+    on (b)'s batches, the parameters at Adam eps 1e-8 printed only: K4's
+    fp32 bias correction against torch.optim.Adam's double one alone parts
+    them by ~2e-3 of the stack in 4 steps there (the plain versions on the
+    CPU); one traced launch of 20 iterations (the device's busy share,
+    K4's device time); then bench.py's protocol on fresh minibatches, one
+    per iteration (y ~ N(0, 1), target y + 0.05 N(0, 1), made in bulk): a
+    warm launch of ``warm`` iterations and a timed launch of the rest:
+    finite losses, the mean of the last 20 below the first 20, steps/s
+    beside ``per_step`` ({path: steps/s} of (b), same call). Returns K4's
+    launches over the phase."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop
+
+    ks = load_example("ks_torch")
+    fused_train_loop.launches = 0
+
+    def fresh_loop():
+        ode, ex, _ = build_burgers(device, state0, True)
+        return ex, ks.FusedLoop(ode, ex, BB, BDT)
+
+    as_t = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=device)
+    first = burgers_batches(4)
+    ok = True
+    for eps, ref in kernel_runs.items():
+        ex, loop = fresh_loop()
+        losses = loop.run(as_t(np.stack([b[0] for b in first])),
+                          as_t(np.stack([b[1] for b in first])), LR, eps=eps)
+        loop.copy_to(ex)
+        ok = burgers_runs_agree("(b)'s per-step K2/K3 path", eps,
+                                (losses, fused_layout(ex)), ref,
+                                params=eps != 1e-8) and ok
+    if not ok:
+        raise AssertionError("the Burgers fused loop and per-step kernel "
+                             "path disagree")
+    rng = np.random.default_rng(21)
+    y = rng.normal(size=(n_iters, BB, BNX)).astype(np.float32)
+    ys = as_t(y)
+    tgts = as_t(y + np.float32(0.05) * rng.normal(
+        size=y.shape).astype(np.float32))
+    profile_loop(lambda: fresh_loop()[1], ys[:warm], tgts[:warm])
+    ex, loop = fresh_loop()
+    loss_warm = loop.run(ys[:warm], tgts[:warm], LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_rest = loop.run(ys[warm:], tgts[warm:], LR)
+    torch.cuda.synchronize()
+    sps = (n_iters - warm) / (time.perf_counter() - t0)
+    losses = torch.cat([loss_warm, loss_rest]).cpu().numpy()
+    count = fused_train_loop.launches
+    lo, hi = float(losses[:20].mean()), float(losses[-20:].mean())
+    log(f"[burgers] (d) bench.py's Burgers loop on K4: {n_iters} Adam "
+        f"iterations on fresh minibatches, mean loss first 20 {lo:.6e}, last "
+        f"20 {hi:.6e}; {sps:.2f} steps/s (a launch of {n_iters - warm} after "
+        f"one of {warm}) beside the per-step paths' "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items())
+        + f" steps/s, same call; {count} launches")
+    if not (np.all(np.isfinite(losses)) and hi < lo):
+        raise AssertionError("bench.py's Burgers loop on K4 did not reduce "
+                             "the loss")
+    if count <= 0:
+        raise AssertionError("fused_train_loop was never launched on the "
+                             "Burgers loop")
+    return count
+
+
+def phase_burgers(device, n_steps=50, warm=5, n_off=20, n_plain=20):
+    """Phase 7: the Burgers slice. Returns K10's and K11's reports, the
+    launch counts of K2, K3, K4, K10 and K11 over (b) and (d), and K1's
+    readings at the Burgers stack with its launches over (b)'s off path."""
     import torch
 
     from pnode_tpu_torch.models import BurgersFuncEX
     from pnode_tpu_torch.ops.circular_stencil import (
         circular_stencil_bwd, circular_stencil_fwd)
     from pnode_tpu_torch.ops.fused_ark_adjoint import (
-        ark_adj_plan, ark_fwd_plan, fused_ark_fits, fused_ark_step_adj,
-        reverse_gate_bytes)
+        ark_adj_plan, ark_fwd_plan, fused_ark_fits, fused_ark_step_adj)
     from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd
     from pnode_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
 
@@ -3691,66 +4196,79 @@ def phase_burgers(device, n_steps=50, warm=5, n_plain=20):
     state0 = {k: v.detach().clone() for k, v in init.state_dict().items()}
     k1_reports = phase_burgers_mlp(device, state0)
 
-    layers = [BNX * 9 // 8] * 4 + [BNX]
+    layers = BURGERS_LAYERS
     log(f"[burgers] (b) bench.py's burgers recipe: B {BB}, nx {BNX}, dt "
         f"{BDT}, ARK3, hpddm + frozen J, {' '.join(BURGERS_FLAGS)}, one-step "
         f"MSE, Adam lr {LR}, seed-0 weights; the fused ARK step kernels "
-        f"(K2, K3) stay off: fused_ark_fits {fused_ark_fits(BNX, layers, 4)} "
-        f"(forward step: plan {ark_fwd_plan(BB, BNX, layers, 4)} (rows, "
-        f"grid, B); reverse step: plan {ark_adj_plan(BB, BNX, layers, 4)}, "
-        f"inv and J read in place, but the gate's 8-row budget "
-        f"{reverse_gate_bytes(BNX, layers, 4)} B is over)")
+        f"take it: fused_ark_fits {fused_ark_fits(BNX, layers, 4)} (K2: plan "
+        f"{ark_fwd_plan(BB, BNX, layers, 4)} (rows, grid, B); K3: plan "
+        f"{ark_adj_plan(BB, BNX, layers, 4)}, inv and J read in place)")
     batches = burgers_batches(n_steps)
     wrappers = {"fused_mlp_fwd": fused_mlp_fwd, "fused_mlp_bwd": fused_mlp_bwd,
                 "circular_stencil_fwd": circular_stencil_fwd,
                 "circular_stencil_bwd": circular_stencil_bwd,
                 "fused_ark_step_fwd": fused_ark_step_fwd,
                 "fused_ark_step_adj": fused_ark_step_adj}
-    for w in wrappers.values():
-        w.launches = 0
-    phase_burgers_paths_agree(device, state0, batches[:4])
-    ode, ex, opt = build_burgers(device, state0, True)
-    l_warm = train(ode, ex, opt, batches[:warm], device, BDT)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    l_rest = train(ode, ex, opt, batches[warm:], device, BDT)
-    torch.cuda.synchronize()
-    sps = (n_steps - warm) / (time.perf_counter() - t0)
-    counts = {k: w.launches for k, w in wrappers.items()}
-    losses = torch.cat([l_warm, l_rest]).cpu().numpy()
-    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
-    log(f"[burgers] (b) {n_steps} Adam steps on the kernel path: mean loss "
-        f"first 10 {first:.6e}, last 10 {last:.6e}; {sps:.2f} steps/s "
-        f"(steps {warm}..{n_steps})")
-    log(f"[burgers] launches over (b)'s agreement and training "
-        f"({8 + n_steps} kernel-path iterations): {counts}")
-    profile_steps("Burgers kernel path", ode, ex, opt, batches[:1], device,
-                  BDT, focus=("mlp_", "K1"))
+    off = ["-pnode_fused_ark_adjoint", "off"]
+    counts, sps, runs = {}, {}, {}
+    for route, flags, n in (("K2/K3", (), n_steps),
+                            ("off (K1, K10/K11)", off, n_off)):
+        for w in wrappers.values():
+            w.launches = 0
+        runs[route] = phase_burgers_paths_agree(device, state0, batches[:4],
+                                                flags=flags)
+        ode, ex, opt = build_burgers(device, state0, True, flags=flags)
+        losses, sps[route] = train_timed(ode, ex, opt, batches[:n], warm,
+                                         device)
+        counts[route] = {k: w.launches for k, w in wrappers.items()}
+        lo, hi = float(losses[:10].mean()), float(losses[-10:].mean())
+        log(f"[burgers] (b) {n} Adam steps on the kernel path {route}: mean "
+            f"loss first 10 {lo:.6e}, last 10 {hi:.6e}; {sps[route]:.2f} "
+            f"steps/s (steps {warm}..{n})")
+        log(f"[burgers] launches over (b)'s agreement and training on "
+            f"{route} ({8 + n} kernel-path iterations): {counts[route]}")
+        if not (np.all(np.isfinite(losses)) and hi < lo):
+            raise AssertionError(f"Burgers training on {route} did not "
+                                 "reduce the loss")
+        profile_steps(f"Burgers kernel path {route}", ode, ex, opt,
+                      batches[:1], device, BDT,
+                      focus=("ark_", "K2/K3") if not flags else ("mlp_",
+                                                                 "K1"))
     ode_p, ex_p, opt_p = build_burgers(device, state0, False)
     train(ode_p, ex_p, opt_p, batches[:3], device, BDT)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     train(ode_p, ex_p, opt_p, batches[3:3 + n_plain], device, BDT)
     torch.cuda.synchronize()
-    plain_sps = n_plain / (time.perf_counter() - t0)
-    log(f"[burgers] plain path (nn.Linear, the roll chain): {plain_sps:.2f} "
-        f"steps/s over {n_plain} steps, beside the kernel path's {sps:.2f}")
+    sps["plain"] = n_plain / (time.perf_counter() - t0)
+    log(f"[burgers] plain path (nn.Linear, the roll chain): "
+        f"{sps['plain']:.2f} steps/s over {n_plain} steps, beside the kernel "
+        f"paths' " + ", ".join(f"{k} {v:.2f}" for k, v in sps.items()
+                              if k != "plain"))
     profile_steps("Burgers plain path", ode_p, ex_p, opt_p, batches[:1],
                   device, BDT)
-    if not (np.all(np.isfinite(losses)) and last < first):
-        raise AssertionError("Burgers training did not reduce the loss")
-    for name in ("fused_mlp_fwd", "fused_mlp_bwd", "circular_stencil_fwd",
-                 "circular_stencil_bwd"):
-        if counts[name] <= 0:
+    k23, k1 = counts["K2/K3"], counts["off (K1, K10/K11)"]
+    for name in ("fused_ark_step_fwd", "fused_ark_step_adj"):
+        if k23[name] <= 0:
             raise AssertionError(f"{name} was never launched on the Burgers "
                                  "path")
-    if counts["fused_ark_step_fwd"] or counts["fused_ark_step_adj"]:
-        raise AssertionError("the fused ARK step kernels ran at nx 512")
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd", "circular_stencil_fwd",
+                 "circular_stencil_bwd"):
+        if k1[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the Burgers "
+                                 "path under -pnode_fused_ark_adjoint off")
+    if k1["fused_ark_step_fwd"] or k1["fused_ark_step_adj"]:
+        raise AssertionError("the fused ARK step kernels ran under "
+                             "-pnode_fused_ark_adjoint off")
     phase_burgers_trainer(device)
+    k4 = phase_burgers_loop(device, state0, runs["K2/K3"], sps)
     for name in ("fused_mlp_fwd", "fused_mlp_bwd"):
-        k1_reports[name]["launches"] = counts[name]
-    return (reports, {name: counts[name] for name in STENCIL_KERNELS},
-            k1_reports)
+        k1_reports[name]["launches"] = k1[name]
+    launches = {name: k23[name] + k1[name] for name in STENCIL_KERNELS}
+    launches.update({name: k23[name] for name in ("fused_ark_step_fwd",
+                                                  "fused_ark_step_adj")})
+    launches["fused_train_loop"] = k4
+    return reports, launches, k1_reports
 
 
 # -- phase 8: the data-parallel slice -----------------------------------------
@@ -3760,12 +4278,13 @@ DP_ITERS = 200      # (d): a warm call of 20, a timed call of 180
 DP_SHARDS = (256, 128, 64, 32)  # B_local at world 1, 2, 4 and 8
 
 
-def check_grad_step(label, tab, dt, J, inv, Ws, bs, y, tgt, report):
+def check_grad_step(label, tab, dt, J, inv, Ws, bs, y, tgt, report,
+                    sign=-1.0):
     """K12 against fused_grad_step_plain in fp32 and in fp64, phase 3's K3
     gates: loss, dW and db within 1e-4 relative (to max |ref|) of both, at
     the plan's rows per block and at every forced R whose plan fits (the
     loss at each R is printed: each block sums its own rows' squared
-    errors, so R regroups the sum)."""
+    errors, so R regroups the sum). f_EX = sign * MLP."""
     import torch
 
     from pnode_tpu_torch.ops.fused_ark_adjoint import (forced_rows,
@@ -3775,12 +4294,13 @@ def check_grad_step(label, tab, dt, J, inv, Ws, bs, y, tgt, report):
 
     layout = LoopLayout(y.shape[0], y.shape[1], [w.shape[1] for w in Ws])
     params = layout.pack(Ws, bs)
-    args = (layout, tab, dt, y, tgt, J, inv, params)
+    args = (layout, tab, dt, y, tgt, J, inv, params, "relu", sign)
     flat = lambda out: [out[0], *layout.unpack(out[1])[0],  # noqa: E731
                         *layout.unpack(out[1])[1]]
     plain = fused_grad_step_plain(*args)
     ref64 = fused_grad_step_plain(layout, tab, dt, y.double(), tgt.double(),
-                                  J.double(), inv.double(), params.double())
+                                  J.double(), inv.double(), params.double(),
+                                  "relu", sign)
     s, dims = len(tab[2]), layout.dims
     forced = forced_rows(dims[0], dims[1:], s, grad=True)
     losses = {}
@@ -3980,6 +4500,113 @@ def phase_dp_loops(device, u, J, inv, tab, dt, worlds, tol=5e-4):
     return launches
 
 
+def dp_burgers_rank(device, tab, dt, ops, Ws, bs, y, tgt):
+    """Phase 8(f)'s rank (world 1): dp_fused_train_loop with force_general
+    (K12 at B 200, the all-reduce and Adam outside it) over the minibatches
+    of y and tgt one iteration a call, at Adam eps 1e-8 and 1e-6, and at
+    each iteration K4 one step from the same state. Returns per eps the
+    DP run's losses and final parameters and the largest per-step gaps
+    (loss relative, parameters max abs and norm-wise per tensor), and
+    K12's launches."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        fused_grad_step, fused_train_loop)
+    from pnode_tpu_torch.parallel import dp_fused_train_loop, make_mesh
+
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device=device)
+    J, inv = f32(ops[0]), f32(ops[1])
+    Ws, bs = [f32(w) for w in Ws], [f32(b) for b in bs]
+    y, tgt = f32(y), f32(tgt)
+    mesh = make_mesh()
+    out = {"runs": {}, "steps": {}}
+    fused_grad_step.launches = 0
+    for eps in (1e-8, 1e-6):
+        z = ([torch.zeros_like(w) for w in Ws],
+             [torch.zeros_like(b) for b in bs])
+        state, losses, gaps = (Ws, bs, z, z), [], [0.0, 0.0, 0.0]
+        for k in range(y.shape[0]):
+            args = (tab, dt, y[k:k + 1], tgt[k:k + 1], J, inv, *state, k)
+            kw = dict(sign=1.0, lr=LR, eps=eps)
+            W, b, m, v, loss = dp_fused_train_loop(mesh, *args, **kw,
+                                                   force_general=True)
+            W4, b4, _, _, loss4 = fused_train_loop(*args, **kw)
+            gaps = [max(gaps[0], rel_max(loss, loss4)),
+                    max(gaps[1], max(abs_err(a, c)
+                                     for a, c in zip(W + b, W4 + b4))),
+                    max(gaps[2], norm_rel(W + b, W4 + b4))]
+            losses.append(float(loss[0]))
+            state = (W, b, m, v)
+        out["runs"][eps] = (np.array(losses),
+                            [p.cpu().numpy() for p in state[0] + state[1]])
+        out["steps"][eps] = gaps
+    torch.cuda.synchronize()
+    out["launches"] = fused_grad_step.launches
+    return out
+
+
+def phase_dp_burgers(device, tol=5e-4):
+    """Phase 8(f): dp_fused_train_loop at world 1 with force_general (K12 at
+    B 200, in a spawned one-rank group) on bench.py's Burgers recipe
+    (burgers_operators, f_EX = +MLP, fresh minibatches y ~ N(0, 1), target
+    y + 0.05 N(0, 1)), DP_K iterations at Adam eps 1e-8 and 1e-6, against
+    K4 (the counterpart of ``bench.py --workload burgers --dp``): per
+    iteration, K4 one step from the DP loop's state (dp_burgers_rank), the
+    loss within 1e-4 relative and the parameters within ``tol`` in max abs
+    at eps 1e-8 and norm-wise per tensor at eps 1e-6 (check_loop's gates);
+    the free runs against K4's own run over the same batches in phase
+    7(b)'s form (burgers_runs_agree), the parameters at eps 1e-8 printed
+    only: the two sum the dW partials in another order, and at eps 1e-8
+    Adam carries that rounding on to parts of ~5e-3 of the stack in 8
+    iterations at Burgers (PERF.md). Returns K12's launches over the rank's
+    runs."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop
+    from pnode_tpu_torch.parallel import run_ranks
+
+    J, inv, tab, Ws, bs = burgers_operators(device)
+    dt = float(np.float32(BDT))
+    pairs = burgers_batches(DP_K, seed=8)
+    y, tgt = (np.stack([p[i] for p in pairs]) for i in (0, 1))
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device=device)
+    z = ([torch.zeros_like(w) for w in Ws], [torch.zeros_like(b) for b in bs])
+    ref = {}
+    for eps in (1e-8, 1e-6):
+        W, b, _, _, losses = fused_train_loop(tab, dt, f32(y), f32(tgt), J,
+                                              inv, Ws, bs, z, z, 0, sign=1.0,
+                                              lr=LR, eps=eps)
+        ref[eps] = (losses.cpu(), [t.cpu() for t in W + b])
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    np_ = lambda ts: [t.cpu().numpy() for t in ts]  # noqa: E731
+    t0 = time.perf_counter()
+    rank = run_ranks(1, dp_burgers_rank, tab, dt, np_([J, inv]), np_(Ws),
+                     np_(bs), y, tgt, backend=backend, device=device,
+                     timeout=300.0)[0]
+    log(f"[dp] (f) Burgers-512 (B {BB}, dt {BDT}), world 1 over {backend}, "
+        f"force_general ({time.perf_counter() - t0:.1f} s with the spawn): "
+        f"K12 launches {rank['launches']}")
+    ok = rank["launches"] > 0
+    for eps, (lk, pk) in rank["runs"].items():
+        lrel, pabs, prel = rank["steps"][eps]
+        good = lrel <= 1e-4 and (pabs if eps == 1e-8 else prel) <= tol
+        log(f"[dp]     Adam eps {eps:.0e}, K4 one step from each of the DP "
+            f"loop's {DP_K} states: loss max rel err {lrel:.3e} (tol 1e-4), "
+            f"params max abs {pabs:.3e}, rel (norm-wise per tensor) "
+            f"{prel:.3e}; gated {'max abs' if eps == 1e-8 else 'rel'} at "
+            f"{tol:.0e} {'ok' if good else 'FAIL'}")
+        ok = burgers_runs_agree("K4's own run (world 1)", eps,
+                                (torch.from_numpy(lk),
+                                 [torch.from_numpy(a) for a in pk]),
+                                ref[eps], params=eps != 1e-8) and good and ok
+    if not ok:
+        raise AssertionError("dp_fused_train_loop disagrees with K4 at "
+                             "Burgers-512")
+    return rank["launches"]
+
+
 def start_ks_torch_dp(device):
     """Phase 8(e), started: torchrun --standalone --nproc_per_node 1
     examples/ks_torch.py --dp 1, and the same run without --dp, one epoch
@@ -4035,8 +4662,8 @@ def finish_ks_torch_dp(runs, t0):
 
 
 def phase_dp(device, u):
-    """Phase 8: the data-parallel slice. Returns K12's report and its launch
-    count over (b) and (c)."""
+    """Phase 8: the data-parallel slice. Returns K12's report, its launch
+    count over (b) and (c), and its launches at Burgers-512 (f)."""
     import torch
 
     from pnode_tpu_torch.ops.fused_train_loop import fused_grad_step_cost
@@ -4049,6 +4676,7 @@ def phase_dp(device, u):
         tab, BATCH, NX, [HIDDEN] * 4 + [NX]))
     one = "nccl" if torch.device(device).type == "cuda" else "gloo"
     launches = phase_dp_loops(device, u, J, inv, tab, dt, ((1, one),))
+    burgers = phase_dp_burgers(device)
     # (e) runs beside (c): neither is timed
     t_e = time.perf_counter()
     runs = start_ks_torch_dp(device)
@@ -4066,7 +4694,7 @@ def phase_dp(device, u):
     if launches <= 0:
         raise AssertionError("fused_grad_step was never launched on the "
                              "data-parallel path")
-    return report, launches
+    return report, launches, burgers
 
 
 # -- phase 9: the theta slice --------------------------------------------------
@@ -7034,6 +7662,7 @@ def phase_grand(device):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     probe_report = phase_probe()
@@ -7054,10 +7683,16 @@ def main():
     sq_reports, sq_counts = phase_cifar("cuda")
     reports.update(sq_reports)
     counts.update(sq_counts)
-    b_reports, b_counts, k1_burgers = phase_burgers("cuda")
+    b_reports, b_launches, k1_burgers = phase_burgers("cuda")
     reports.update(b_reports)
-    counts.update(b_counts)
-    reports["fused_grad_step"], counts["fused_grad_step"] = phase_dp("cuda", u)
+    counts.update({name: b_launches[name] for name in STENCIL_KERNELS})
+    burgers12 = reports["fused_grad_step"]["burgers"]
+    reports["fused_grad_step"], counts["fused_grad_step"], \
+        burgers12["launches"] = phase_dp("cuda", u)
+    reports["fused_grad_step"]["burgers"] = burgers12
+    for name in ("fused_ark_step_fwd", "fused_ark_step_adj",
+                 "fused_train_loop"):
+        reports[name]["burgers"]["launches"] = b_launches[name]
     theta_launches, _ = phase_theta("cuda", u)
     slice5_launches, replay, k1_ks = phase_slice5("cuda", u)
     slice5b_launches = phase_slice5b("cuda", u)
@@ -7069,6 +7704,7 @@ def main():
     phase_grand("cuda")
     reports["probe_smem"] = probe_report
     counts["probe_smem"] = probe_report["launches"]
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = reports[name]
@@ -7081,7 +7717,7 @@ def main():
         for extra in ("device_ms", "stage2", "stage3", "library_device_ms",
                       "launch_floor_device_ms", "with_dw", "ks_stage",
                       "fp32_ms", "module_ms", "max_rel_err",
-                      "free_norm_err", "free_max_rel_err"):
+                      "free_norm_err", "free_max_rel_err", "burgers"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if name in k1_burgers:  # K1's readings at the Burgers stack too

@@ -22,9 +22,10 @@ ARK3 IMEX with Newton (PETSc's newtonls) on matrix-free GMRES stage solves
 --fixed_jacobian``: the frozen, pre-inverted stage operator with
 ``-snes_type ksponly`` (a programmatic default under ``--fixed_jacobian``
 that a command-line flag overrides). ``--use_fused`` (on by default) puts
-f_EX on K1 and f_IM on K10/K11; the fused ARK step kernels stay off at nx
-512 (their gate's 8-row budget needs more shared memory than the H100's
-227 KB), so the step runs the generic stage loop. ``--node`` (the
+f_EX on K1 and f_IM on K10/K11; with bench.py's numerics each step then
+runs on the fused ARK step kernels instead (K2 forward, K3 reverse, as
+the JAX package routes it), and ``-pnode_fused_ark_adjoint off`` keeps it
+on the generic stage loop (K1 and K10/K11). ``--node`` (the
 reference's torchdiffeq baseline) integrates f_IM + f_EX by dopri5 at
 ``--step_size`` without the adjoint, the gradients by autograd through the
 steps (K1 and K10/K11 under autograd); it keeps every step's activations,

@@ -801,10 +801,26 @@ static inline bool plan_rev_rows(int R, int B, int d, int s, int n_layers,
   return true;
 }
 
+// Fewest rows of each W_l (all of it where it has fewer) that a ring chunk
+// of a reverse plan at R > 1 holds: below it the ring's per-chunk wait and
+// barrier take the step. K3 at Burgers-512 (B 200) ran 92.2 ms at R 2,
+// one row a chunk, against 10.0 ms at R 1, 25 rows (H100 SXM, PERF.md).
+constexpr int kMinChunkRows = 8;
+
+// Host: true when every layer's chunk of *q holds kMinChunkRows rows.
+static inline bool chunks_fill(const RevPlan& q, int n_layers,
+                               const int* dims) {
+  for (int l = 0; l < n_layers; ++l)
+    if (q.kc[l] < (dims[l] < kMinChunkRows ? dims[l] : kMinChunkRows))
+      return false;
+  return true;
+}
+
 // Host: the plan of `kind` (K3's, K4's and K12's, or K5's, after `head`
 // floats). R is the fewest rows per block in {1, 2, 4, 8} whose grid
 // ceil(B / R) fits one block per SM (else 8),
-// halved while the store of all s stages does not fit; at R = 1 the store
+// halved while the store of all s stages does not fit or, at R > 1, the
+// ring's chunks hold fewer than kMinChunkRows rows; at R = 1 the store
 // then shrinks to the most stage slots that fit. All of that first with
 // inv and J resident, then with them read from device memory (where the
 // two (d, d) copies do not fit beside the rest, past d ~160 at KS-like
@@ -825,7 +841,8 @@ static inline bool plan_rev(int B, int d, int s, int n_layers,
     while (R < kMaxRows && (B + R - 1) / R > sms) R *= 2;
     for (; R >= 1; R /= 2)
       if (plan_rev_rows(R, B, d, s, n_layers, dims, s, kind, resident, q, f,
-                        head))
+                        head) &&
+          (R == 1 || chunks_fill(*q, n_layers, dims)))
         return true;
     for (int nst = s - 1; nst >= 1; --nst)
       if (plan_rev_rows(1, B, d, s, n_layers, dims, nst, kind, resident, q,

@@ -348,7 +348,8 @@ class BurgersFuncIM(nn.Module):
 class BurgersFuncEX(nn.Module):
     """Burgers explicit part: +MLP(y), ReLU stack N -> 9N/8 x4 -> N with
     N(0, 0.1) weights. use_fused selects K1 and opts into the fused ARK
-    step kernels (whose gate closes at N 512: their shared memory)."""
+    step kernels (K2/K3 per step, K4 and K12 in the fused loops), whose
+    plans take N 512."""
 
     def __init__(self, nx: int = 512, use_fused: bool = False,
                  generator: Optional[torch.Generator] = None,

@@ -49,11 +49,10 @@ from .fused_ark_forward import fused_ark_step_fwd_plain
 from .fused_mlp import (
     MAX_LAYERS, _ACT_CODES, _check_tensor, grad_buffer_size, split_grads,
 )
-from .fused_train_loop import (
-    GATE_ROWS, _flat, adam_step_plain, check_loop_operands,
-)
+from .fused_train_loop import _flat, adam_step_plain, check_loop_operands
 
 _REDUCE_FLOATS = 32  # csrc/fused_adaptive_loop.cu kAdaptReduce
+GATE_ROWS = 8  # rows of the tile K5's gate budgets (_adaptive_smem_bytes)
 # sizeof(Tableau) in csrc/pnode_kernels.cuh: int s, 2 s*s + 5 s floats and
 # 2 s*s + 4 s bytes of zero flags, at kMaxStages
 _TABLEAU_BYTES = 4 + 4 * (2 * MAX_STAGES ** 2 + 5 * MAX_STAGES) \

@@ -148,15 +148,21 @@ def _row_stride(N: int) -> int:
 # K12's (the stage values kept, the forward overlaid); K5's (lam and
 # lam_prev, the forward overlaid, after the kernel's own header)
 REV_STEP, REV_GRAD, REV_ADAPT = 0, 1, 2
+# fewest rows of each W_l a ring chunk of the rule's R > 1 holds
+# (csrc/ark_tiles.cuh kMinChunkRows)
+MIN_CHUNK_ROWS = 8
 
 
 def _rev_plan_rows(R: int, d: int, dims: Sequence[int], stages: int,
-                   nst: int, grad, resident: bool = True, head: int = 0):
+                   nst: int, grad, resident: bool = True, head: int = 0,
+                   min_rows: int = 0):
     """Shared-memory bytes of K3 (``grad`` False or REV_STEP), K4 and K12
     (True or REV_GRAD) or K5 (REV_ADAPT, after ``head`` floats) at R rows
     per block with ``nst`` stage slots in the layer store, inv and J
     staged whole (``resident``) or read in place from device memory
-    (csrc/ark_tiles.cuh plan_rev_rows), or None when it does not fit."""
+    (csrc/ark_tiles.cuh plan_rev_rows), or None when it does not fit, or
+    when a ring chunk holds fewer than ``min_rows`` rows of some W_l (all
+    of it where it has fewer; plan_rev's chunks_fill)."""
     kind = int(grad)
     pairs = list(zip(dims, dims[1:]))
     if max(dims) > FWD_THREADS * FWD_COLS:
@@ -179,6 +185,8 @@ def _rev_plan_rows(R: int, d: int, dims: Sequence[int], stages: int,
     if 2 * slot > avail:
         slot = (avail // 2) & ~3
     if slot < _round4(minslot):
+        return None
+    if any(slot // _row_stride(N) < min(min_rows, K) for K, N in pairs):
         return None
     return 4 * (off + 2 * slot)
 
@@ -215,7 +223,7 @@ def rev_plan_full(B: int, d: int, layer_dims: tuple, stages: int, sms: int,
             R *= 2
         while R >= 1:
             smem = _rev_plan_rows(R, d, dims, stages, stages, kind, resident,
-                                  head)
+                                  head, MIN_CHUNK_ROWS if R > 1 else 0)
             if smem is not None:
                 return R, -(-B // R), smem, resident
             R //= 2
@@ -236,7 +244,9 @@ def ark_adj_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
     an H100 SXM), else 8; halved while the block's shared memory (lam,
     lam_prev, the stage covectors, the store of every stage's layer inputs
     and covectors, inv and J staged whole, the two-slot weight ring) passes
-    MAX_SMEM_BYTES; at one row the store then holds fewer stages. All of
+    MAX_SMEM_BYTES or, above one row, a ring chunk holds fewer than
+    MIN_CHUNK_ROWS rows of a layer (Burgers-512 at R 2: one row, so R 1);
+    at one row the store then holds fewer stages. All of
     that first with inv and J staged, then (where their two copies do not
     fit, past d ~160 at KS-like stacks) with the reverse reading them from
     device memory. None only for what no kernel takes: a layer wider than
@@ -272,34 +282,20 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def reverse_gate_bytes(d: int, layer_dims: Sequence[int],
-                       stages: int) -> int:
-    """The budget ``fused_ark_fits`` holds the reverse to: the shared memory
-    of one 8-row tile's stage values, covectors and layer activations, as
-    the port's first, 8-row reverse tile kept them (a routing budget: no
-    kernel runs that tile now). K3's own plan takes more than this gate
-    opens (``ark_adj_plan`` reads inv and J from device memory
-    where they do not fit, Burgers-512 included); the gate keeps this
-    budget so that the steppers route Burgers-512 (~291 KB here) to the
-    generic path until K3 is measured there (ROADMAP, queue A)."""
-    dims = [d] + list(layer_dims)
-    R = 8
-    return 4 * (R * d * (6 + stages) + R * sum(dims[:-1]) + 2 * R * max(dims))
-
-
 def fused_ark_fits(d: int, layer_dims: Sequence[int], stages: int,
                    reverse: bool = True) -> bool:
-    """True when the step kernels take this configuration on the H100.
-
-    The forward kernel (K2) takes it when its plan does at one row per
-    block (``ark_fwd_plan``; the KS config needs 125 KB there, most of it
-    the weight ring and the staged operators; Burgers-512 streams them).
-    The reverse kernel (K3) takes it when its plan does at one row per
-    block (``ark_adj_plan``) and it keeps within ``reverse_gate_bytes``
-    (the KS config needs 42 KB there; Burgers-512 ~291 KB, so its reverse,
-    and with it the stepper's fused path, stays off). Registers do not
-    bind: each thread carries a fixed accumulator tile whatever the widths.
-    Weight gradients go to a per-block partial in device memory.
+    """True when the step kernels take this configuration on the H100:
+    the forward kernel (K2) when its plan does at one row per block
+    (``ark_fwd_plan``), and with ``reverse`` the reverse kernel (K3) too
+    when its plan does (``ark_adj_plan``). A plan that takes one row takes
+    every batch, so the gate is the plans' own answer: they refuse only a
+    layer wider than 1024, more than 8 stages or layers, or a stack that
+    does not map the state to itself. The KS config needs 125 KB for K2
+    and 142 KB for K3 at one row; Burgers-512 (512 -> 576 x4 -> 512)
+    fills the 227 KB of both, streaming the operators and weights through
+    the ring (K2) or reading inv and J in place (K3). Registers do not
+    bind: each thread carries a fixed accumulator tile whatever the
+    widths. Weight gradients go to a per-block partial in device memory.
     ``reverse=False`` checks the forward kernel alone."""
     if not 1 <= len(layer_dims) <= MAX_LAYERS or not 1 <= stages <= MAX_STAGES:
         return False
@@ -307,9 +303,7 @@ def fused_ark_fits(d: int, layer_dims: Sequence[int], stages: int,
         return False
     if ark_fwd_plan(1, d, layer_dims, stages) is None:
         return False
-    return not reverse or (
-        ark_adj_plan(1, d, layer_dims, stages) is not None
-        and reverse_gate_bytes(d, layer_dims, stages) <= MAX_SMEM_BYTES)
+    return not reverse or ark_adj_plan(1, d, layer_dims, stages) is not None
 
 
 def pick_weight_dtype(d: int, layer_dims: Sequence[int], stages: int):

@@ -43,7 +43,7 @@ import torch
 
 from . import _build
 from .fused_ark_adjoint import (
-    MAX_SMEM_BYTES, MAX_STAGES, REV_GRAD, _round4, check_step_args,
+    MAX_STAGES, REV_GRAD, _round4, check_step_args,
     check_stiff_dot_precision, fused_ark_step_adj_plain, grad_step_plan,
     rev_plan_full, sm_count, tableau_array,
 )
@@ -52,50 +52,24 @@ from .fused_mlp import (
     MAX_LAYERS, _ACT_CODES, _check_tensor, grad_buffer_size, split_grads,
 )
 
-_REDUCE_FLOATS = 32  # the 8-row tile's loss reduction
-GATE_ROWS = 8  # rows of the tile the loop gates budget (see _loop_smem_bytes)
-
-
-def _loop_smem_bytes(d: int, layer_dims: Sequence[int], stages: int) -> int:
-    """The routing budget of K4 (and K5, fused_adaptive_loop): the shared
-    memory of the port's first K4 block, an 8-row tile's s stage values and
-    seed, then the forward's or the reverse's scratch, whichever is larger,
-    then the loss reduction. No kernel lays memory out so now (K4 runs on
-    ``train_loop_plan``); the gate keeps the budget so that every
-    configuration routes as before."""
-    dims = [d] + list(layer_dims)
-    R = GATE_ROWS
-    tile = R * d
-    pingpong = 2 * R * max(dims)
-    fwd = tile * (2 + 2 * stages) + pingpong
-    rev = tile * (stages + 4) + R * sum(dims[:-1]) + pingpong
-    return 4 * (tile * (stages + 1) + max(fwd, rev) + _REDUCE_FLOATS)
-
-
 def fused_train_loop_fits(B: int, d: int, layer_dims: Sequence[int],
                           chunk: int = 8, stages: int = 4) -> bool:
-    """True when K4 takes this configuration on the H100.
-
-    The gate is the 8-row budget (``_loop_smem_bytes``, at most 227 KB;
-    the KS recipe, 64 -> 104 x4 -> 64 at ARK3's 4 stages, needs 48,768 B),
-    and wherever it opens with the step kernels' forward gate (which the
-    wrapper asks too), K4's plan (``train_loop_plan``) takes every batch:
-    its grid is at most one block per SM, so it is co-resident whenever one
-    block fits on an SM, and 256 threads of at most 255 registers always
-    do. Neither B nor ``chunk`` binds: blocks stride over row tiles, and
-    the minibatches stream from device memory whatever the chunk.
-    ``stages`` is the tableau's stage count (ARK3's 4 by default).
-
-    Burgers-512 (512 -> 576 x4 -> 512) does not fit: ~340 KB per block at
-    4 stages. The JAX gate says it fits the
-    TPU's VMEM at chunk 16 (tests/test_fused_train_loop.py:175); the two
-    budgets are different memories.
-    """
+    """True when K4 takes this configuration on the H100: where its plan
+    (``train_loop_plan``) does. The plan's grid is at most one block per
+    SM, so the cooperative launch is co-resident whenever one block fits
+    on an SM, and 256 threads of at most 255 registers always do. Neither
+    B nor ``chunk`` binds: blocks stride over row tiles, and the
+    minibatches stream from device memory whatever the chunk. ``stages``
+    is the tableau's stage count (ARK3's 4 by default). The KS recipe (64
+    -> 104 x4 -> 64) takes R 2 on 128 blocks at B 256; Burgers-512 (512
+    -> 576 x4 -> 512) R 1 on 132 blocks at B 200, inv and J read in place,
+    as the JAX gate takes it into the TPU's VMEM at chunk 16
+    (tests/test_fused_train_loop.py:175)."""
     if B < 1 or chunk < 1 or not 1 <= stages <= MAX_STAGES:
         return False
     if not 1 <= len(layer_dims) <= MAX_LAYERS or layer_dims[-1] != d:
         return False
-    return _loop_smem_bytes(d, layer_dims, stages) <= MAX_SMEM_BYTES
+    return train_loop_plan(B, d, layer_dims, stages) is not None
 
 
 def train_loop_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
@@ -274,7 +248,7 @@ def check_loop_operands(what, tableau_static, y_stack, tgt_stack, J_dense,
                         activation):
     """Validate the operands shared by the loop kernels (K4, K5 and the DP
     loop); returns (K, B, d, s, dims). Each caller gates on its own
-    kernel's budget (``fused_train_loop_fits``, ``fused_adaptive_loop_fits``),
+    kernel's plan (``fused_train_loop_fits``, ``fused_adaptive_loop_fits``),
     not on the step kernels' reverse gate."""
     dev = y_stack.device if isinstance(y_stack, torch.Tensor) else None
     _check_tensor(y_stack, 3, what, "y_stack", dev)
@@ -352,10 +326,9 @@ def fused_grad_step(layout, tableau_static, dt, y, tgt, J_dense, inv_op,
     if tuple(tgt.shape) != (B, d):
         raise ValueError(f"{what}: tgt must be {(B, d)}, got "
                          f"{tuple(tgt.shape)}")
-    # K4's gate: the DP loop delegates one rank to K4, so K12 takes what
-    # K4 takes (its plan does wherever that gate opens)
-    if (not fused_train_loop_fits(B, d, dims[1:], stages=s)
-            or grad_step_plan(B, d, dims[1:], s) is None):
+    # K12's plan is K4's without the grid cap, so the two take the same
+    # shapes (the DP loop delegates one rank to K4)
+    if grad_step_plan(B, d, dims[1:], s) is None:
         raise ValueError(f"{what}: configuration exceeds the loop kernels' "
                          "shared-memory budget (gate with "
                          "fused_train_loop_fits)")

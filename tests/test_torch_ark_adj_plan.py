@@ -10,8 +10,8 @@ shapes. Beside them: the rule's dependence on the SM count, the refusals
 (more than 8 stages or layers, a layer wider than a product takes), inv
 and J read in place where their staged copies do not fit, the smaller
 layer store where the whole one does not fit at one row, the fits gate's
-answers (the 8-row budget, Burgers-512 closed) and the wrappers' and the
-loop kernels' gates. Then
+answers (the plans at one row per block, Burgers-512 open) and the
+wrappers' and the loop kernels' gates. Then
 K3's and K12's plain versions against the JAX package's ``_kernel`` and
 ``_grad_kernel`` in interpret mode at d 64, hidden 104, B 16, ARK3, at the
 tolerances of tests/test_torch_fused_ark.py (reverse rtol 2e-4 / atol
@@ -32,7 +32,7 @@ from pnode_tpu.tableaus import get_ark_tableau
 from pnode_tpu_torch.ops.fused_ark_adjoint import (
     MAX_SMEM_BYTES, _rev_plan_rows, ark_adj_plan, ark_fwd_plan,
     forced_rows, fused_ark_fits, fused_ark_step_adj, grad_step_plan,
-    reverse_gate_bytes,
+    rev_plan_full,
 )
 from pnode_tpu_torch.ops.fused_adaptive_loop import fused_adaptive_train_loop
 from pnode_tpu_torch.ops.fused_train_loop import (
@@ -49,15 +49,15 @@ BURGERS = [576] * 4 + [512]
 
 # (B, d, layer widths, stages) -> the C plans' (rows, grid, bytes) on 132
 # SMs, K3's then K12's: chip_smoke.py's FWD_PLANS and the DP shards of
-# world 2, 4 and 8 (B_local 128, 64, 32). From d 200 up (and at
-# Burgers-512, which the fits gate keeps closed) inv and J are read in
-# place.
+# world 2, 4 and 8 (B_local 128, 64, 32). From d 200 up (Burgers-512
+# included) inv and J are read in place. At Burgers-512 K3's R 2 (100
+# blocks) fits, but its ring chunks hold one row: the rule takes R 1.
 C_PLANS = [
     ((256, 64, KS, 4), (2, 128, 166656), (2, 128, 168192)),
     ((37, 64, KS, 4), (1, 37, 144896), (1, 37, 145664)),
     ((1, 64, KS, 4), (1, 1, 144896), (1, 1, 145664)),
     ((3173, 64, KS, 4), (8, 397, 232448), (8, 397, 232448)),
-    ((200, 512, BURGERS, 4), (2, 100, 232448), (1, 200, 232448)),
+    ((200, 512, BURGERS, 4), (1, 200, 232448), (1, 200, 232448)),
     ((200, 512, BURGERS, 8), (1, 200, 232448), (1, 200, 232448)),
     ((37, 200, [200, 200], 4), (1, 37, 232448), (1, 37, 232448)),
     ((37, 300, [300], 4), (1, 37, 232448), (1, 37, 232432)),
@@ -80,6 +80,22 @@ def test_mirrors_equal_the_c_plans(shape, adj, grad):
     assert grad_step_plan(*shape) == grad
     for plan in (adj, grad):
         assert plan is None or plan[2] <= MAX_SMEM_BYTES
+
+
+def test_rule_halves_rows_while_a_chunk_holds_fewer_than_8_rows():
+    """At Burgers-512 B 200, K3's R 2 (100 blocks) fits with one 580-float
+    row of W per ring chunk (92.2 ms on the card against R 1's 10.0 ms,
+    PERF.md), so the rule halves to R 1 (25 rows a chunk); forced R
+    2 still takes its layout. The KS plans keep whole layers a chunk."""
+    dims = [512] + BURGERS
+    assert _rev_plan_rows(2, 512, dims, 4, 4, False, False) is not None
+    assert _rev_plan_rows(2, 512, dims, 4, 4, False, False, 0, 8) is None
+    assert _rev_plan_rows(1, 512, dims, 4, 4, False, False, 0, 8) is not None
+    assert ark_adj_plan(200, 512, BURGERS, 4)[:2] == (1, 200)
+    assert forced_rows(512, BURGERS, 4) == [1, 2]
+    assert rev_plan_full(200, 512, tuple(BURGERS), 4, 132, 0, 2)[:2] == (
+        2, 100)
+    assert ark_adj_plan(256, 64, KS, 4)[:2] == (2, 128)
 
 
 @pytest.mark.parametrize("sms, B, rows", [(132, 132, 1), (132, 133, 2),
@@ -153,25 +169,24 @@ def test_ks_store_grows_with_the_stages():
 
 
 def test_fits_gate_answers_at_ks_and_burgers():
-    """The steppers route as before: KS fits both step kernels, the
-    Burgers-512 forward fits alone and its reverse does not (the 8-row
-    budget closes it, though K3's plan would take it)."""
+    """The gate is the plans at one row per block: KS and Burgers-512 fit
+    both step kernels at 4 and 8 stages (K3 reads Burgers-512's inv and J
+    in place), 9 stages fit neither."""
     assert fused_ark_fits(64, KS, 4)
     assert fused_ark_fits(64, KS, 8)
     assert fused_ark_fits(512, BURGERS, 4, reverse=False)
-    assert not fused_ark_fits(512, BURGERS, 4)
-    assert not fused_ark_fits(512, BURGERS, 8)
+    assert fused_ark_fits(512, BURGERS, 4)
+    assert fused_ark_fits(512, BURGERS, 8)
     assert not fused_ark_fits(64, KS, 9)
-    assert reverse_gate_bytes(64, KS, 4) == 42496
-    assert reverse_gate_bytes(512, BURGERS, 4) == 290816
+    assert ark_adj_plan(1, 64, KS, 4) == (1, 1, 144896)
+    assert ark_adj_plan(1, 512, BURGERS, 4) == (1, 1, MAX_SMEM_BYTES)
 
 
 @pytest.mark.parametrize("stages", [1, 2, 4, 8])
-def test_fits_gate_is_the_8_row_budget_and_the_plans_take_all_it_opens(
-        stages):
-    """The reverse gate opens exactly where the forward plan and the 8-row
-    budget do (up to d 726 at one stage), and wherever it opens, K3's plan
-    takes every batch; wherever K4's gate and the step kernels' open (as
+def test_fits_gate_is_the_plans_and_they_take_every_batch(stages):
+    """The reverse gate opens exactly where the forward plan and K3's plan
+    do at one row per block, and wherever it opens, K3's plan takes every
+    batch; wherever K4's gate and the step kernels' open (as
     fused_grad_step asks), K12's plan does."""
     rng = np.random.default_rng(stages)
     for _ in range(300):
@@ -180,7 +195,7 @@ def test_fits_gate_is_the_8_row_budget_and_the_plans_take_all_it_opens(
                   for _ in range(int(rng.integers(0, 8)))]
         layers = hidden + [d]
         want = (ark_fwd_plan(1, d, layers, stages) is not None
-                and reverse_gate_bytes(d, layers, stages) <= MAX_SMEM_BYTES)
+                and ark_adj_plan(1, d, layers, stages) is not None)
         assert fused_ark_fits(d, layers, stages) == want
         for B in (1, 37, 256, 3173):
             if want:
@@ -218,15 +233,27 @@ def _t(a):
 
 
 def test_wrappers_gate_on_the_plans():
-    """fused_ark_step_adj and fused_grad_step refuse the Burgers-512 stack
-    (the fits gate and K4's gate do), whatever the device."""
+    """fused_ark_step_adj and fused_grad_step take the Burgers-512 stack,
+    whose plans read inv and J in place (on CPU tensors: their plain
+    versions), and refuse a layer wider than a product takes, whatever the
+    device."""
     tbl, dt, y, J, inv, Ws, bs, lam = _operands("3", 2, 512, BURGERS, seed=4,
                                                 dt=1e-3)
     W, b = [_t(w) for w in Ws], [_t(v) for v in bs]
     ys = torch.zeros(4, 2, 512)
-    with pytest.raises(ValueError, match="shared-memory budget"):
-        fused_ark_step_adj(tbl, dt, ys, _t(lam), _t(J), _t(inv), W, b)
+    lp, _ = fused_ark_step_adj(tbl, dt, ys, _t(lam), _t(J), _t(inv), W, b)
+    assert lp.shape == (2, 512) and bool(torch.isfinite(lp).all())
     layout = LoopLayout(2, 512, BURGERS)
+    loss, grad = fused_grad_step(layout, tbl, dt, _t(y), _t(y), _t(J),
+                                 _t(inv), layout.pack(W, b))
+    assert grad.shape == (layout.total,) and bool(torch.isfinite(loss))
+    tbl, dt, y, J, inv, Ws, bs, lam = _operands("3", 2, 64, [1100, 64],
+                                                seed=5)
+    W, b = [_t(w) for w in Ws], [_t(v) for v in bs]
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        fused_ark_step_adj(tbl, dt, torch.zeros(4, 2, 64), _t(lam), _t(J),
+                           _t(inv), W, b)
+    layout = LoopLayout(2, 64, [1100, 64])
     with pytest.raises(ValueError, match="shared-memory budget"):
         fused_grad_step(layout, tbl, dt, _t(y), _t(y), _t(J), _t(inv),
                         layout.pack(W, b))
@@ -291,8 +318,8 @@ def _wide_case(B, K, d=200, seed=5):
 
 
 def test_step_wrappers_take_d_200():
-    """K3 and K12 take d 200 (the 8-row budget opens it; their plans read
-    inv and J in place): on CPU tensors they run their plain versions."""
+    """K3 and K12 take d 200 (their plans read inv and J in place): on CPU
+    tensors they run their plain versions."""
     tbl, dt, J, inv, Ws, bs, lam, ys, tgt = _wide_case(4, 4)
     W, b = [_t(w) for w in Ws], [_t(v) for v in bs]
     lp, (dW, db) = fused_ark_step_adj(tbl, dt, _t(ys), _t(lam), _t(J),

@@ -6,8 +6,9 @@ pnode_ark_fwd_plan): rows per block, grid and shared-memory bytes. The
 pinned triples are the C plan's own on an H100 (132 SMs), which
 chip_smoke.py's build phase holds against this mirror at the same shapes.
 Beside them: the rule's dependence on the SM count, the refusals, the fits
-gate's answers, the forward wrapper's own gate, and the reverse-step cost
-counts without the MLP's last-layer forward. Then K2's plain version
+gate's answers (the plans at one row per block), the forward wrapper's own
+gate, and the reverse-step cost counts without the MLP's last-layer
+forward. Then K2's plain version
 against the JAX package's ``_kernel`` in interpret mode at the KS widths
 (d 64, hidden 104, B 16) with the embedded error output, at the forward's
 tolerances (rtol 3e-5 / atol 1e-6, tests/test_fused_ark_adjoint.py:183);
@@ -24,7 +25,7 @@ from pnode_tpu.ops.fused_ark_forward import fused_ark_step_fwd as j_fwd
 from pnode_tpu.tableaus import get_ark_tableau
 from pnode_tpu_torch.ops.fused_ark_adjoint import (
     MAX_SMEM_BYTES, ark_adj_plan, ark_fwd_plan, fused_ark_fits,
-    fused_ark_step_adj, reverse_gate_bytes,
+    fused_ark_step_adj,
 )
 from pnode_tpu_torch.ops.fused_ark_forward import (
     fused_ark_step_fwd, fused_ark_step_fwd_plain,
@@ -94,14 +95,14 @@ def test_plan_refuses(args):
 
 
 def test_fits_gate_answers():
-    """The steppers route as before: KS fits both step kernels, the
-    Burgers-512 forward fits alone and its reverse (the 8-row budget of
-    the reverse gate) does not."""
+    """The gate is the plans at one row per block: KS and Burgers-512 fit
+    both step kernels (at Burgers-512 both plans fill the opt-in shared
+    memory), a layer wider than a product takes fits neither."""
     assert fused_ark_fits(64, KS, 4)
     assert fused_ark_fits(512, BURGERS, 4, reverse=False)
-    assert not fused_ark_fits(512, BURGERS, 4)
-    assert reverse_gate_bytes(64, KS, 4) == 42496
-    assert reverse_gate_bytes(512, BURGERS, 4) > MAX_SMEM_BYTES
+    assert fused_ark_fits(512, BURGERS, 4)
+    assert ark_fwd_plan(1, 512, BURGERS, 4) == (1, 1, MAX_SMEM_BYTES)
+    assert ark_adj_plan(1, 512, BURGERS, 4) == (1, 1, MAX_SMEM_BYTES)
     assert ark_adj_plan(1, 64, KS, 4) == (1, 1, 144896)
     assert not fused_ark_fits(64, [1100, 64], 4, reverse=False)
 
@@ -137,15 +138,23 @@ def _t(a):
 
 def test_forward_wrapper_gates_on_the_forward_alone():
     """fused_ark_step_fwd takes the Burgers-512 stack (its kernel streams the
-    operators and weights); the reverse step refuses it."""
+    operators and weights), and so does the reverse step (its kernel reads
+    inv and J in place); a layer wider than a product takes is refused by
+    the forward wrapper's own gate."""
     tbl, _, dt, y, J, inv, Ws, bs = _operands("3", 2, 512, BURGERS, seed=4,
                                               dt=1e-3)
     W, b = [_t(w) for w in Ws], [_t(v) for v in bs]
     y1, ys = fused_ark_step_fwd(tbl, dt, _t(y), _t(J), _t(inv), W, b)
     assert y1.shape == (2, 512) and ys.shape == (4, 2, 512)
     assert bool(torch.isfinite(y1).all())
+    lam_prev, (dW, _) = fused_ark_step_adj(tbl, dt, ys, _t(y), _t(J),
+                                           _t(inv), W, b)
+    assert lam_prev.shape == (2, 512) and len(dW) == 5
+    assert bool(torch.isfinite(lam_prev).all())
+    tbl, _, dt, y, J, inv, Ws, bs = _operands("3", 2, 64, [1100, 64], seed=5)
     with pytest.raises(ValueError, match="shared-memory budget"):
-        fused_ark_step_adj(tbl, dt, ys, _t(y), _t(J), _t(inv), W, b)
+        fused_ark_step_fwd(tbl, dt, _t(y), _t(J), _t(inv),
+                           [_t(w) for w in Ws], [_t(v) for v in bs])
 
 
 def test_reverse_costs_leave_out_the_last_layer_forward():

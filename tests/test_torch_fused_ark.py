@@ -153,13 +153,20 @@ def test_step_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_fits_from_the_kernels_shared_memory_budget():
-    assert fused_ark_fits(64, [104] * 4 + [64], 4)      # KS: 125 / 42 KB
+    """The gate is the kernels' own plans at one row per block: KS (K2 125
+    KB, K3 142 KB) and Burgers-512 (both 227 KB, inv and J read in place
+    by K3) open, as tests/test_fused_ark_adjoint.py:281 has the JAX
+    package's gate open both; past 8 layers or stages, or past a 1024-wide
+    layer, no plan takes the stack."""
+    assert fused_ark_fits(64, [104] * 4 + [64], 4)
     assert fused_ark_fits(512, [576] * 4 + [512], 4, reverse=False)
-    assert not fused_ark_fits(512, [576] * 4 + [512], 4)  # ~291 KB reverse
+    assert fused_ark_fits(512, [576] * 4 + [512], 4)
     assert not fused_ark_fits(64, [104] * 9 + [64], 4)  # > 8 layers
     assert not fused_ark_fits(64, [104] * 4 + [64], 9)  # > 8 stages
+    assert not fused_ark_fits(2048, [4096] * 4 + [2048], 4)
     assert pick_weight_dtype(64, [104] * 4 + [64], 4) == "f32"
-    assert pick_weight_dtype(512, [576] * 4 + [512], 4) is None
+    assert pick_weight_dtype(512, [576] * 4 + [512], 4) == "f32"
+    assert pick_weight_dtype(2048, [4096] * 4 + [2048], 4) is None
     pt.init(["p", "-pnode_fused_ark_weights", "bf16"])
     with pytest.raises(ValueError, match="not ported"):
         pick_weight_dtype(64, [104] * 4 + [64], 4)

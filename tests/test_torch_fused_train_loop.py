@@ -29,8 +29,8 @@ from pnode_tpu import FlaxFunc, ODESolver
 from pnode_tpu.models import KSFuncEX, KSFuncIM
 from pnode_tpu.ops.fused_train_loop import fused_train_loop as j_loop
 from pnode_tpu_torch.ops.fused_train_loop import (
-    _loop_smem_bytes, fused_train_loop, fused_train_loop_cost,
-    fused_train_loop_fits, fused_train_loop_plain, pick_chunk,
+    fused_train_loop, fused_train_loop_cost, fused_train_loop_fits,
+    fused_train_loop_plain, pick_chunk, train_loop_plan,
 )
 
 torch.set_num_threads(1)
@@ -180,15 +180,17 @@ def test_fused_train_loop_distinct_minibatches():
 
 
 def test_fused_train_loop_fits_the_h100():
-    """The shared-memory gate answers for the H100, not the TPU's VMEM."""
+    """The gate is K4's plan on the H100, not the TPU's VMEM. It opens at
+    Burgers-512, as the JAX gate does at chunk 16
+    (tests/test_fused_train_loop.py:175), and both refuse (4096, 2048,
+    [4096, 4096])."""
     ks = [104] * 4 + [64]
-    assert _loop_smem_bytes(64, ks, 4) == 48768
+    assert train_loop_plan(256, 64, ks, 4) == (2, 128, 168192)
     assert fused_train_loop_fits(256, 64, ks)
     assert fused_train_loop_fits(256, 64, [64, 64])
-    # the JAX gate says Burgers-512 fits VMEM at chunk 16; K4's block needs
-    # ~340 KB of shared memory there, against 227 KB
-    assert _loop_smem_bytes(512, [576] * 4 + [512], 4) == 340096
-    assert not fused_train_loop_fits(200, 512, [576] * 4 + [512], chunk=16)
+    assert train_loop_plan(200, 512, [576] * 4 + [512], 4) == (1, 132,
+                                                                232448)
+    assert fused_train_loop_fits(200, 512, [576] * 4 + [512], chunk=16)
     assert not fused_train_loop_fits(4096, 2048, [4096, 4096])
     # neither the batch nor the chunk binds; stages and layers do
     assert fused_train_loop_fits(1 << 20, 64, ks, chunk=1024)
@@ -199,7 +201,7 @@ def test_fused_train_loop_fits_the_h100():
     assert pick_chunk(32, 256, 64, ks) == 32
     assert pick_chunk(24, 256, 64, ks) == 8
     assert pick_chunk(5, 256, 64, ks) == 1
-    assert pick_chunk(32, 200, 512, [576] * 4 + [512]) == 1
+    assert pick_chunk(32, 200, 512, [576] * 4 + [512]) == 32
     flops, byts = fused_train_loop_cost(([[0.0] * 4] * 4, None, [0.0] * 4,
                                          None), 256, 64, ks, 1000)
     assert flops > 0 and byts > 4 * 2 * 256 * 64

@@ -9,9 +9,9 @@ co-resident; the blocks stride over the row tiles past it), shared-memory
 bytes and, for K5, the device workspace. chip_smoke.py's build phase holds
 the mirrors against the C plans on the card. Here: the plans at the KS
 main path, B 37 and B 3173; every shape the loop gates open (with the
-step kernels' forward gate, as the wrappers ask) has a plan; the gates
-answer as the 8-row budget they have always been, pinned at KS and
-Burgers-512; the K5 workspace; the wrappers' scratch and arguments, read
+step kernels' forward gate, as the wrappers ask) has a plan; K4's gate is
+its plan and K5's the 8-row budget it has always been, pinned at KS and
+Burgers-512 (K4 open there, K5 closed); the K5 workspace; the wrappers' scratch and arguments, read
 through a stand-in for the kernel library (no card here).
 """
 
@@ -33,15 +33,6 @@ torch.set_num_threads(1)
 
 KS = [104] * 4 + [64]
 BURGERS = [576] * 4 + [512]
-
-
-def _budget_4(d, layers, s):
-    """The loop gate's 8-row budget as the parent wrote it (K4)."""
-    dims = [d] + list(layers)
-    tile = 8 * d
-    fwd = tile * (2 + 2 * s) + 16 * max(dims)
-    rev = tile * (s + 4) + 8 * sum(dims[:-1]) + 16 * max(dims)
-    return 4 * (tile * (s + 1) + max(fwd, rev) + 32)
 
 
 def _budget_5(d, layers, s, trials):
@@ -129,24 +120,31 @@ def test_k5_takes_only_resident_layouts():
 
 
 def test_gates_pinned_at_ks_and_burgers():
-    assert ftl._loop_smem_bytes(64, KS, 4) == 48768
-    assert ftl._loop_smem_bytes(512, BURGERS, 4) == 340096
+    """K4 opens where its plan does: R 2 on 128 blocks at KS B 256, R 1 on
+    132 blocks (68 of them striding over a second row) at Burgers-512 B
+    200, as the JAX gate opens there (tests/test_fused_train_loop.py:175).
+    K5's 8-row budget closes Burgers-512, and so does its plan: it forms
+    the trial's stage inverse beside J in shared memory."""
+    assert ftl.train_loop_plan(256, 64, KS, 4) == (2, 128, 168192)
+    assert ftl.train_loop_plan(200, 512, BURGERS, 4) == (1, 132,
+                                                          MAX_SMEM_BYTES)
     assert fal._adaptive_smem_bytes(64, KS, 4, 32) == 84944
     assert fal._adaptive_smem_bytes(512, BURGERS, 4, 32) == 2456784
     assert ftl.fused_train_loop_fits(256, 64, KS)
     assert fal.fused_adaptive_loop_fits(256, 64, KS, 32)
-    assert not ftl.fused_train_loop_fits(200, 512, BURGERS)
+    assert ftl.fused_train_loop_fits(200, 512, BURGERS)
     assert not fal.fused_adaptive_loop_fits(200, 512, BURGERS, 32)
+    assert fal.adaptive_loop_plan(200, 512, BURGERS, 4, 32) is None
 
 
 @pytest.mark.parametrize("stages", [1, 2, 4, 6, 8])
 def test_gates_are_the_8_row_budget_and_the_plans_take_all_they_open(
         stages):
     """Swept over d, hidden widths and depths, batches and trial counts:
-    each gate answers as the parent's 8-row budget does, and wherever a
-    gate and the step kernels' forward gate open (the wrappers ask both),
-    its kernel's plan takes the shape at every batch, K5's with its
-    operators staged."""
+    K4's gate answers as its plan does and K5's as the parent's 8-row
+    budget does, and wherever a gate and the step kernels' forward gate
+    open (the wrappers ask both), its kernel's plan takes the shape at
+    every batch, K5's with its operators staged."""
     rng = np.random.default_rng(100 + stages)
     opened = [0, 0]
     for _ in range(250):
@@ -157,7 +155,8 @@ def test_gates_are_the_8_row_budget_and_the_plans_take_all_they_open(
         trials = int(rng.choice([1, 4, 32, 200, 1024]))
         fits4 = ftl.fused_train_loop_fits(16, d, layers, stages=stages)
         fits5 = fal.fused_adaptive_loop_fits(16, d, layers, trials, stages)
-        assert fits4 == (_budget_4(d, layers, stages) <= MAX_SMEM_BYTES)
+        assert fits4 == (ftl.train_loop_plan(16, d, layers, stages)
+                         is not None)
         assert fits5 == (_budget_5(d, layers, stages, trials)
                          <= MAX_SMEM_BYTES)
         if not fused_ark_fits(d, layers, stages, reverse=False):
@@ -176,7 +175,8 @@ def test_gates_are_the_8_row_budget_and_the_plans_take_all_they_open(
 
 def test_gates_at_the_ks_widths_over_d():
     """At the KS hidden widths every d either gate opens has a plan; the
-    widest are d 427 (K4) and d 134 (K5)."""
+    widest are d 1024 (K4, the widest layer a product takes) and d 134
+    (K5)."""
     for d in range(1, 200):
         layers = [104] * 4 + [d]
         if not fused_ark_fits(d, layers, 4, reverse=False):
@@ -186,8 +186,8 @@ def test_gates_at_the_ks_widths_over_d():
         if fal.fused_adaptive_loop_fits(256, d, layers, 32):
             assert fal.adaptive_loop_plan(256, d, layers, 4, 32) is not None
             assert d <= 134
-    assert ftl.fused_train_loop_fits(256, 427, [104] * 4 + [427])
-    assert not ftl.fused_train_loop_fits(256, 428, [104] * 4 + [428])
+    assert ftl.fused_train_loop_fits(256, 1024, [104] * 4 + [1024])
+    assert not ftl.fused_train_loop_fits(256, 1025, [104] * 4 + [1025])
     assert fal.fused_adaptive_loop_fits(256, 134, [104] * 4 + [134], 32)
 
 
