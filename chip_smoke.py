@@ -18,7 +18,10 @@ exits non-zero without printing the final line):
    K5's C plan (rows per block, grid, shared memory; K5's workspace)
    differs from its Python mirror at FWD_PLANS (K3, K12 and K4 also at the
    DP shards, K4 and K5 at LOOP_PLANS and at every forced R of phase 3's
-   loop cases).
+   loop cases), or the grid form's (grid, shared memory, workspace; K3's
+   and K4's where the row form cannot keep inv and J resident) at the
+   shapes that take it, or the grid form's phases (its products, listed by
+   the C generator on the host) from their mirror's at grid_phase_cases.
    Then the probe (python -m pnode_tpu_torch.tools.probe_smem_limit, K13):
    the largest dynamic shared memory one block takes, up a ladder and
    bisected to 4 bytes, must equal the gates' MAX_SMEM_BYTES and the card's
@@ -46,10 +49,11 @@ exits non-zero without printing the final line):
    the device times of K2 (with and without err) and K3. K3 at the edges
    of its plan and tiling (K3_EDGES: K2's, the Burgers reverse at d 512
    on BurgersFuncIM's J and stage inverse at dt 1e-3, a stack whose layer
-   store the plan shrinks, and d 200 and 300; from d 200 up inv and J are
-   read in place) at the plan's rows per block and at every forced R
-   that fits: against the plain versions in fp32 and fp64 with K3's
-   gates, lam_prev bitwise equal across R, each call repeated bitwise;
+   store the plan shrinks, d 200 and 300, and d 197 with a 201-wide layer;
+   from d 197 up the plan takes the grid form and the forced R read inv
+   and J in place) in the plan's form and at every forced R that fits:
+   against the plain versions in fp32 and fp64 with K3's gates, lam_prev
+   bitwise equal across the forms and R, each call repeated bitwise;
    at d 512 the ReLU decisions on which kernel and plain version part are
    printed first (relu_flips). Then K4,
    the fused training loop, against fused_train_loop_plain on K = 8
@@ -57,7 +61,10 @@ exits non-zero without printing the final line):
    takes (1, 2, 4, 8): the main path's shapes, the ragged size (chunk=8),
    an odd hidden width 13 (the 4-byte weight copies, read through L2) and
    a batch whose row tiles outnumber the grid's blocks (check_loop says how
-   it gates); K = 16 as two chunks of 8 against one launch; two calls
+   it gates), and its grid form at LOOP_GRID_CASES (d 200 at B 37, rows of
+   197 and 201 floats, one layer; per iteration on the kernel's
+   trajectory, bitwise across two calls and across the plan's grid and
+   half of it); K = 16 as two chunks of 8 against one launch; two calls
    bitwise equal; per-iteration times in turns and the device time. K2
    with its embedded error output (the adaptive trial step) at both sizes
    (check_embedded). K5, the fused adaptive loop, against
@@ -70,13 +77,19 @@ exits non-zero without printing the final line):
    times in turns and the device time. Then Burgers-512 on bench.py's
    recipe (phase_burgers_kernels: B 200, 512 -> 576 x4 -> 512, dt 1e-3,
    BurgersFuncIM's operators, the seed-0 BurgersFuncEX stack, f_EX =
-   +MLP, y ~ N(0, 1), target y + 0.05 N(0, 1)): K2 and K3 (its plan's R 1
-   and forced R 2) against their plain versions with the gates above;
-   K12 at (200, 512) and at the two-rank shard (100, 512)
-   (check_grad_step); K4 over K = 8 distinct minibatches (check_loop,
-   K4's gates, at every R its plan takes: R 1 on 132 blocks, 68 of them
-   taking a second row tile), two calls bitwise equal; each timed in
-   turns with its plain version and by the profiler.
+   +MLP, y ~ N(0, 1), target y + 0.05 N(0, 1)): K2 and K3 against their
+   plain versions with the gates above, K3 in its plan's grid form (at the
+   plan's grid and at half of it) and in the row form at forced R 1 (the
+   form the plan took before the grid form); K12 at (200, 512) and at the
+   two-rank shard (100, 512) (check_grad_step); K4 over K = 8 distinct
+   minibatches (check_loop, K4's gates) in the grid form and in the row
+   form at forced R 1 (132 blocks, 68 of them taking a second row tile);
+   K3's
+   lam_prev, dW and db and K4's parameters, moments and losses bitwise
+   equal across two calls and across the plan's grid and half of it, K3's
+   lam_prev bitwise equal to the row form's; each timed in turns with its
+   plain version and the row form, by the profiler, and by the device
+   memory one call allocates.
 4. The slice: KS SINODE training through ODESolver.odeint_adjoint at full
    width, batch 256, torch.optim.Adam at lr 5e-3, on KS data from the
    port's generator. (a) 4 Adam iterations on the kernel path against the
@@ -369,7 +382,10 @@ backward, not gated); K1-K3 carry
 ``slice10_launches``, their launches over phase 13's gates; K2, K3, K4
 and K12 carry ``burgers``: their readings at Burgers-512 (phase 3) with
 their launches over phase 7(b)'s K2/K3 runs (K2, K3), 7(d) (K4) and 8(f)
-(K12), K3's also ``forced_r2_ms`` and ``forced_r2_device_ms``); a line
+(K12); K3's and K4's also their plan's ``form``, ``grid``,
+``smem_bytes``, ``workspace_bytes`` and ``peak_bytes``, and the row
+form's at forced R 1: ``row_r1_ms``, ``row_r1_device_ms``,
+``row_r1_peak_bytes``); a line
 ``[done]`` gives the whole script's seconds; the last line is {"ok":
 true, "device": {...}}.
 """
@@ -612,6 +628,30 @@ LOOP_PLANS = ((37, NX, [13] * 4 + [NX], 4), (37, 100, [HIDDEN] * 4 + [100], 8),
               (256, 134, [HIDDEN] * 4 + [134], 4))
 
 
+def grid_phase_cases():
+    """(B, d, layer widths, tableau) at which phase 2 holds the grid form's
+    phases against their mirror: Burgers-512 (ARK3, the 8-stage ARK 5),
+    d 200, rows of 197 and 201 floats, one layer (ARK3, ARK 4), and a
+    tableau whose explicit stage is stage 1 (its G from the workspace), at
+    one and two layers."""
+    from pnode_tpu_torch.tableaus import get_ark_tableau
+
+    def tab(name):
+        t = get_ark_tableau(name)
+        return ([[float(x) for x in r] for r in t.a_im],
+                [[float(x) for x in r] for r in t.a_ex],
+                [float(x) for x in t.b_im], [float(x) for x in t.b_ex])
+
+    late = ([[0.5, 0.0, 0.0], [0.25, 0.0, 0.0], [0.25, 0.25, 0.5]],
+            [[0.0, 0.0, 0.0], [0.5, 0.0, 0.0], [0.25, 0.5, 0.0]],
+            [0.25, 0.25, 0.5], [0.25, 0.5, 0.25])
+    return ((BB, BNX, BURGERS_LAYERS, tab("3")),
+            (BB, BNX, BURGERS_LAYERS, tab("5")),
+            (37, 200, [200, 200], tab("3")), (37, 197, [201, 197], tab("3")),
+            (37, 300, [300], tab("3")), (9, 300, [300], tab("4")),
+            (37, 300, [300], late), (9, 200, [200, 200], late))
+
+
 def phase_build():
     import torch
 
@@ -667,6 +707,37 @@ def phase_build():
             if got != want:
                 raise AssertionError(f"{name}'s plan disagrees with its "
                                      "mirror")
+    # the grid form's plans (grid, bytes, workspace floats) where K3's and
+    # K4's take it
+    for B, d, layers, s in FWD_PLANS:
+        plan = adj.ark_adj_plan(B, d, layers, s, sms)
+        if plan is None or plan[0] != 0:
+            continue
+        for kind in (adj.GRID_STEP, adj.GRID_LOOP):
+            got = adj.c_grid_plan(kind, B, d, layers, s, dev)
+            want = adj.grid_plan(kind, B, d, layers, s, sms)
+            log(f"[build] grid form {kind}'s plan at B {B}, {[d] + layers}, "
+                f"s {s}: {got} (mirror {want})")
+            if got != want:
+                raise AssertionError("the grid form's plan disagrees with "
+                                     "its mirror")
+    # the grid form's phases: the C generator's products (next_phase, run
+    # on the host) against the mirror's, whose reads and writes the tests
+    # check phase by phase
+    n = 0
+    for B, d, layers, tab in grid_phase_cases():
+        for kind, k in ((adj.GRID_STEP, 0), (adj.GRID_LOOP, 0),
+                        (adj.GRID_LOOP, 1)):
+            got = adj.c_grid_phases(kind, B, d, layers, tab, k)
+            if got != adj.grid_phases(kind, B, d, layers, tab, k):
+                raise AssertionError(
+                    f"the grid form's phases at B {B}, {[d] + layers}, "
+                    f"{len(tab[2])} stages, kind {kind}, k {k} differ from "
+                    "their mirror's")
+            n += sum(len(ph["products"]) for ph in got)
+    log(f"[build] grid form's phases equal their mirror's at "
+        f"{len(grid_phase_cases())} shapes, K3's step and K4's first and "
+        f"later iterations ({n} products)")
     # the loop kernels at forced rows: each R's C plan against its mirror
     for B, hidden in ((BATCH, HIDDEN), (37, 13), (strided_batch(), 24)):
         layers = [hidden] * 4 + [NX]
@@ -1165,18 +1236,21 @@ def phase_k2_edges(device, u):
 
 # K3 at the edges of its plan and tiling: K2_EDGES (the Burgers reverse
 # at d 512, B 200 on the port's own BurgersFuncIM operators at dt 1e-3:
-# R 1 on 200 blocks, forced R 2, inv and J read in place), three
+# the grid form, and forced R 1 and 2 reading inv and J in place), three
 # 1024-wide layers at
 # 8 stages, where no R holds every stage's layer store (the plan keeps 7
 # stage slots at one row, so dW/db are flushed twice, and the weights
 # stream in chunks), and d 200 and 300, where inv and J do not fit in
-# shared memory and are read in place (at d 300 the stiff products take
-# two column blocks); every case at the plan's rows per block and at each
-# forced R that fits
+# shared memory (the plan takes the grid form; the row form reads them in
+# place, at d 300 in two column blocks), and d 197 with a 201-wide layer,
+# where the grid form's rows are not 16-byte aligned (its 4-byte loads,
+# the ones row of dW/db); every case at the plan's form and at each forced
+# R that fits
 K3_EDGES = K2_EDGES + (
     ("store flushed twice", 5, [NX, 1024, 1024, 1024, NX], "relu", "5"),
     ("inv, J in place d 200", 37, [200, 200, 200], "relu", "3"),
-    ("inv, J in place d 300", 37, [300, 300], "relu", "3"))
+    ("inv, J in place d 300", 37, [300, 300], "relu", "3"),
+    ("grid form, ragged d 197", 37, [197, 201, 197], "relu", "3"))
 
 
 def partial_bytes(B, hidden, grad=False):
@@ -1346,6 +1420,38 @@ def loop_case(device, u, B, hidden, biased, seed, K):
         y, tgt = u[idx], u[idx + 1]
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
     return Ws, bs, f32(y), f32(tgt)
+
+
+# K4's grid form off Burgers, as K3_EDGES holds K3's: d 200 at a B no tile
+# height divides, rows of 197 and 201 floats (the 4-byte loads, dW's ones
+# row) and a one-layer stack, whose explicit stage runs its layer a phase
+# after its stiff product
+LOOP_GRID_CASES = (
+    ("grid form d 200", 37, [200, 200, 200]),
+    ("grid form ragged d 197", 37, [197, 201, 197]),
+    ("grid form one layer d 300", 37, [300, 300]))
+
+
+def grid_loop_runner(device, B, dims, tab, dt, seed, K):
+    """loop_runner on K4 operands at widths ``dims`` (phase_k3_edges'
+    kind): J = -2 A A^T / d with A ~ N(0, 1), inv its ARK stage inverse at
+    dt, the stack N(0, 1 / fan-in) with biases N(0, 0.1), K minibatches y ~
+    N(0, 1) with targets y + 0.05 N(0, 1)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d = dims[0]
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
+    A = rng.normal(size=(d, d))
+    J64 = -2.0 * (A @ A.T) / d
+    gamma = [g for g in np.diag(tab[0]) if g != 0.0][0]
+    inv = np.linalg.inv(np.eye(d) - dt * gamma * J64)
+    Ws = [f32(rng.normal(0.0, a ** -0.5, size=(a, b)))
+          for a, b in zip(dims, dims[1:])]
+    bs = [f32(rng.normal(0.0, 0.1, size=b)) for b in dims[1:]]
+    y = rng.normal(size=(K, B, d))
+    tgt = y + 0.05 * rng.normal(size=y.shape)
+    return loop_runner(tab, dt, f32(J64), f32(inv), Ws, bs, f32(y), f32(tgt))
 
 
 def loop_runner(tab, dt, J, inv, Ws, bs, y, tgt, sign=-1.0):
@@ -1557,15 +1663,51 @@ def loop_device_ms(fn, name, K):
     return us / 1e3 / K, traced
 
 
+def loop_grid_cases(device, tab, dt, K, tol, report):
+    """K4's grid form at LOOP_GRID_CASES against the plain loop, per
+    iteration on the kernel's trajectory (a ReLU unit within rounding of 0
+    parts fp32 runs, as at Burgers); parameters, moments and losses bitwise
+    across two calls and across the plan's grid and half of it."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        fused_train_loop, train_loop_plan)
+
+    s = len(tab[2])
+    for i, (label, B, dims) in enumerate(LOOP_GRID_CASES):
+        case = grid_loop_runner(device, B, dims, tab, dt, 20 + i, K)
+        plan = train_loop_plan(B, dims[0], dims[1:], s, sms=card_sms())
+        log(f"[kernels]   fused_train_loop {label} (B {B}, {dims}): plan "
+            f"(rows, grid, smem) {plan}")
+        if plan[0] != 0:
+            raise AssertionError(f"K4's plan at {label} is not the grid form")
+        check_loop(label, case, K, None, report, tol, stepwise=True)
+        outs = [case(fn, K, 1e-8) for fn in (
+            fused_train_loop, fused_train_loop, loop_at_grid(plan[1] // 2))]
+        torch.cuda.synchronize()
+        flat = [o[0] + o[1] + list(o[2][0]) + list(o[2][1]) + list(o[3][0])
+                + list(o[3][1]) + [o[4]] for o in outs]
+        bits = [all(torch.equal(a, b) for a, b in zip(flat[0], f))
+                for f in flat[1:]]
+        log(f"[kernels]   fused_train_loop {label}: parameters, moments and "
+            f"losses bitwise across two calls {bits[0]}, across grids "
+            f"{plan[1]} and {plan[1] // 2} {bits[1]}")
+        if not all(bits):
+            raise AssertionError(f"fused_train_loop {label}: the grid form is "
+                                 "not bitwise stable")
+
+
 def phase_loop_kernel(device, u, J, inv, tab, dt, K=8, tol=5e-4):
     """Phase 3 for K4, against the plain loop at every rows per block its
     plan takes (1, 2, 4, 8): the main path (B 256, 64 -> 104 x4 -> 64),
     the ragged case (B 37, hidden 24, nonzero biases, chunk=8), an odd
     hidden width (B 37, hidden 13: every weight takes the 4-byte copies,
     through L2, where a stale L1 line would show) and a batch with more row
-    tiles than the grid has blocks; K = 16 as two launches of 8 against one
-    launch; two calls bitwise equal; time per iteration, kernel and plain
-    version in turns, and the kernel's device time."""
+    tiles than the grid has blocks; the grid form at LOOP_GRID_CASES (per
+    iteration on the kernel's trajectory, bitwise across two calls and two
+    grids); K = 16 as two launches of 8 against one launch; two calls
+    bitwise equal; time per iteration, kernel and plain version in turns,
+    and the kernel's device time."""
     import torch
 
     from pnode_tpu_torch.ops.fused_train_loop import (
@@ -1592,6 +1734,8 @@ def phase_loop_kernel(device, u, J, inv, tab, dt, K=8, tol=5e-4):
             f"{plan}; forced rows {rows}")
         for r in rows:
             check_loop(f"{label} R {r}", case, K, chunk, report, tol, rows=r)
+
+    loop_grid_cases(device, tab, dt, K, tol, report)
 
     # persistence across launches: the state one launch leaves in device
     # memory seeds the next
@@ -3809,6 +3953,50 @@ def burgers_partials(name, grid, total):
             f"{4 * grid * total / 1e6:.1f} MB written and read back")
 
 
+def peak_bytes(fn):
+    """The device memory one call of ``fn`` allocates at its peak, above
+    what was allocated before it (max_memory_allocated)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def adj_at_grid(grid):
+    """fused_ark_step_adj in its plan's grid form on ``grid`` co-resident
+    blocks: the wrapper's own launch (run_ark_adj) at the grid it takes for
+    kernel comparisons. Outputs' bits do not depend on the grid."""
+    from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops.fused_ark_adjoint import run_ark_adj
+
+    def fn(tab, dt, Ys, lam, J, inv, Ws, bs, activation="relu", sign=-1.0):
+        return run_ark_adj(_build.library(), card_sms(),
+                           _build.stream_of(lam), tab, dt, Ys, lam, J, inv,
+                           Ws, bs, activation, sign, 0, grid)
+
+    return fn
+
+
+def loop_at_grid(grid):
+    """fused_train_loop (one launch) in its plan's grid form on ``grid``
+    co-resident blocks, through run_train_loop as adj_at_grid runs K3."""
+    from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops.fused_train_loop import run_train_loop
+
+    def fn(tab, dt, y, tgt, J, inv, Ws, bs, m, v, t0, activation="relu",
+           sign=-1.0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
+        return run_train_loop(_build.library(), card_sms(),
+                              _build.stream_of(y), tab, dt, y, tgt, J, inv,
+                              Ws, bs, m, v, t0, activation, sign, lr, b1, b2,
+                              eps, len(y), 0, grid)
+
+    return fn
+
+
 def time_in_turns(fns, reps=20, inner=10):
     """Median ms per call of each of ``fns`` (label -> fn), in the order
     given and then reversed (plain, kernel, kernel, plain): the smaller of
@@ -3827,20 +4015,25 @@ def phase_burgers_kernels(device):
     """Phase 3 at Burgers-512, bench.py's recipe (B 200, 512 -> 576 x4 ->
     512, ARK3, dt 1e-3, BurgersFuncIM's J and stage inverse, the seed-0
     BurgersFuncEX stack, f_EX = +MLP; y ~ N(0, 1), target y + 0.05 N(0, 1)).
-    K2 and K3 (at the plan's R 1 and forced R 2) on those inputs against
-    their plain versions in fp32 and fp64 with phase 3's gates, each timed
-    in turns with its plain version and by the profiler; K12 at (200, 512)
-    and at the two-rank shard (100, 512) (check_grad_step), timed at B 200;
-    K4 over K = 8 distinct minibatches against fused_train_loop_plain
-    (check_loop, K4's gates, at every R its plan takes), two calls bitwise
-    equal, per iteration in turns with its plain version and by the
-    profiler. Returns the JSON line's ``burgers`` entries of K2, K3, K4
-    and K12 (bounds from ark_costs at these shapes)."""
+    K2 and K3 on those inputs against their plain versions in fp32 and
+    fp64 with phase 3's gates, K3 in its plan's grid form (at the plan's
+    grid and at half of it) and in the row form at forced R 1 (the form
+    its plan took before the grid form), lam_prev, dW and db bitwise
+    across two calls and the two grids, lam_prev bitwise equal to the row
+    form's; each timed in turns with its plain version (K3 also with the
+    row form) and by the profiler; K12 at (200, 512) and at the two-rank
+    shard (100, 512) (check_grad_step), timed at B 200; K4 over K = 8
+    distinct minibatches against fused_train_loop_plain (check_loop, K4's
+    gates) in the grid form and in the row form at forced R 1, the grid
+    form's two calls and two grids bitwise equal, per iteration in turns
+    with its plain version and the row form and by the profiler; K3's and
+    K4's device memory per call in both forms. Returns the JSON line's ``burgers`` entries of K2, K3,
+    K4 and K12 (bounds from ark_costs at these shapes)."""
     import torch
 
     from pnode_tpu_torch.ops.fused_ark_adjoint import (
-        ark_adj_plan, fused_ark_step_adj, fused_ark_step_adj_plain,
-        grad_step_plan)
+        GRID_LOOP, GRID_STEP, ark_adj_plan, fused_ark_step_adj,
+        fused_ark_step_adj_plain, grad_step_plan, grid_plan)
     from pnode_tpu_torch.ops.fused_ark_forward import (
         fused_ark_step_fwd, fused_ark_step_fwd_plain)
     from pnode_tpu_torch.ops.fused_mlp import grad_buffer_size
@@ -3884,7 +4077,8 @@ def phase_burgers_kernels(device):
         f" ms (device {us:.1f} us, {traced} traced), plain {t['plain']:.4f} "
         "ms, in turns")
 
-    # K3 on the plain forward's stage values, at the plan's R and forced R 2
+    # K3 on the plain forward's stage values: the plan's grid form, at its
+    # grid and at half of it, and the row form at forced R 1
     Ys = plain[1]
     aargs = (tab, dt, Ys, lam, J, inv, Ws, bs, "relu", 1.0)
     flat3 = lambda r: [r[0], *r[1][0], *r[1][1]]  # noqa: E731
@@ -3893,30 +4087,62 @@ def phase_burgers_kernels(device):
         f"between the kernel's and the plain version's products (largest "
         f"fp64 |z| {worst:.3e})")
     plan = ark_adj_plan(BB, BNX, BURGERS_LAYERS, s, card_sms())
+    ws = 4 * grid_plan(GRID_STEP, BB, BNX, BURGERS_LAYERS, s,
+                       card_sms())[2]
+    if plan[0] != 0:
+        raise AssertionError(f"K3's plan at Burgers-512 is not the grid "
+                             f"form: {plan}")
     rep = {}
     plain3 = flat3(fused_ark_step_adj_plain(*aargs))
     ref3 = flat3(fused_ark_step_adj_plain(
         tab, dt, Ys.double(), lam.double(), J.double(), inv.double(),
         f64(Ws), f64(bs), "relu", 1.0))
-    for R in (0, 2):
-        check_kernel(f"fused_ark_step_adj (Burgers) R {R or 'plan'}",
-                     flat3(fused_ark_step_adj(*aargs, rows=R)), plain3, ref3,
-                     1e-4, rep)
+    outs = {}
+    for label, fn in (
+            ("grid", fused_ark_step_adj), ("half grid", adj_at_grid(
+                plan[1] // 2)),
+            ("row R 1", functools.partial(fused_ark_step_adj, rows=1))):
+        outs[label] = flat3(fn(*aargs))
+        check_kernel(f"fused_ark_step_adj (Burgers) {label}", outs[label],
+                     plain3, ref3, 1e-4, rep if label == "grid" else {})
+    again = flat3(fused_ark_step_adj(*aargs))
+    torch.cuda.synchronize()
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))  # noqa
+    bits = (same(outs["grid"], again), same(outs["grid"], outs["half grid"]),
+            torch.equal(outs["grid"][0], outs["row R 1"][0]))
+    log(f"[kernels]   fused_ark_step_adj (Burgers): lam_prev, dW and db "
+        f"bitwise across two calls {bits[0]}, across grids {plan[1]} and "
+        f"{plan[1] // 2} {bits[1]}; lam_prev bitwise equal to the row "
+        f"form's {bits[2]}")
+    if not all(bits):
+        raise AssertionError("K3's grid form at Burgers-512 is not bitwise "
+                             "stable")
     t = time_in_turns({
         "plain": lambda: fused_ark_step_adj_plain(*aargs),
         "kernel": lambda: fused_ark_step_adj(*aargs),
-        "R 2": lambda: fused_ark_step_adj(*aargs, rows=2)}, reps=5, inner=4)
-    dev = {R: device_us_per_call(
-        lambda: fused_ark_step_adj(*aargs, rows=R),
-        ["ark_adj_kernel", "sum_partials_kernel"], n=5)[0] for R in (0, 2)}
+        "row R 1": lambda: fused_ark_step_adj(*aargs, rows=1)},
+        reps=5, inner=4)
+    dev = device_us_per_call(lambda: fused_ark_step_adj(*aargs),
+                             ["ark_adj_grid_kernel"], n=5)[0]
+    dev_row = device_us_per_call(
+        lambda: fused_ark_step_adj(*aargs, rows=1),
+        ["ark_adj_kernel", "sum_partials_kernel"], n=5)[0]
+    peak = peak_bytes(lambda: fused_ark_step_adj(*aargs))
+    peak_row = peak_bytes(lambda: fused_ark_step_adj(*aargs, rows=1))
+    bms = bound(*costs["fused_ark_step_adj"])[0]
     reports["fused_ark_step_adj"] = dict(
-        rep, ms=t["kernel"], plain_ms=t["plain"], device_ms=dev[0] / 1e3,
-        forced_r2_ms=t["R 2"], forced_r2_device_ms=dev[2] / 1e3)
-    log(f"[kernels]   fused_ark_step_adj (Burgers): plan {plan} (rows, "
-        f"grid, B): kernel {t['kernel']:.4f} ms (device {dev[0]:.1f} us), "
-        f"forced R 2 {t['R 2']:.4f} ms (device {dev[2]:.1f} us; one row of "
-        f"W a ring chunk), plain {t['plain']:.4f} ms, in turns; "
-        + burgers_partials("K3", plan[1], total))
+        rep, ms=t["kernel"], plain_ms=t["plain"], device_ms=dev / 1e3,
+        form="grid", grid=plan[1], smem_bytes=plan[2], workspace_bytes=ws,
+        peak_bytes=peak, row_r1_ms=t["row R 1"],
+        row_r1_device_ms=dev_row / 1e3, row_r1_peak_bytes=peak_row)
+    log(f"[kernels]   fused_ark_step_adj (Burgers): plan {plan} (rows 0: "
+        f"the grid form; grid, shared-memory bytes), workspace {ws} B; "
+        f"kernel {t['kernel']:.4f} ms (device {dev / 1e3:.4f} ms), plain "
+        f"{t['plain']:.4f} ms, bound {bms:.5f} ms; the row form at R 1 "
+        f"{t['row R 1']:.4f} ms (device {dev_row / 1e3:.4f} ms), in turns; "
+        f"device memory a call allocates: grid form {peak / 1e6:.1f} MB, "
+        f"row form {peak_row / 1e6:.1f} MB ("
+        + burgers_partials("the row form's", BB, total) + ")")
 
     # K12 at the whole batch and the two-rank shard
     rep = {}
@@ -3940,36 +4166,59 @@ def phase_burgers_kernels(device):
         f"{t['plain']:.4f} ms, in turns; "
         + burgers_partials("K12", gplan[1], -(-(total + 1) // 4) * 4))
 
-    # K4 over K distinct minibatches
-    rep = {}
+    # K4 over K distinct minibatches: the grid form and the row form at R 1,
+    # each against the plain version
     run = loop_runner(tab, dt, J, inv, Ws, bs, ys, tgts, sign=1.0)
     lplan = train_loop_plan(BB, BNX, BURGERS_LAYERS, s, sms=card_sms())
-    rows = [r for r in (1, 2, 4, 8)
-            if train_loop_plan(BB, BNX, BURGERS_LAYERS, s, sms=card_sms(),
-                               rows=r) is not None]
+    ws = 4 * grid_plan(GRID_LOOP, BB, BNX, BURGERS_LAYERS, s,
+                       card_sms())[2]
+    rplan = train_loop_plan(BB, BNX, BURGERS_LAYERS, s, sms=card_sms(),
+                            rows=1)
+    if lplan[0] != 0:
+        raise AssertionError(f"K4's plan at Burgers-512 is not the grid "
+                             f"form: {lplan}")
     log(f"[kernels]   fused_train_loop (Burgers): plan (rows, grid, smem) "
-        f"{lplan}, {-(-BB // lplan[0]) - lplan[1]} blocks take a second row "
-        f"tile; forced rows {rows}; "
-        + burgers_partials("K4", lplan[1], -(-total // 4) * 4))
-    for r in rows:
-        check_loop(f"Burgers B{BB} R {r}", run, K, None, rep, rows=r,
-                   stepwise=True)
+        f"{lplan} (rows 0: the grid form), workspace {ws} B; the row form "
+        f"at R 1: {rplan}, {-(-BB // rplan[0]) - rplan[1]} blocks take a "
+        f"second row tile; "
+        + burgers_partials("the row form's", rplan[1], -(-total // 4) * 4))
+    rep = {}
+    check_loop(f"Burgers B{BB} grid form", run, K, None, rep, stepwise=True)
+    check_loop(f"Burgers B{BB} row form R 1", run, K, None, {}, rows=1,
+               stepwise=True)
+    flat = lambda o: o[0] + o[1] + list(o[2][0]) + list(o[2][1]) \
+        + list(o[3][0]) + list(o[3][1]) + [o[4]]  # noqa: E731
     one = run(fused_train_loop, K, 1e-8)
     again = run(fused_train_loop, K, 1e-8)
+    half = run(loop_at_grid(lplan[1] // 2), K, 1e-8)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(
-            one[0] + one[1] + [one[4]], again[0] + again[1] + [again[4]])):
-        raise AssertionError("fused_train_loop (Burgers): two calls differ")
+    bits = (same(flat(one), flat(again)), same(flat(one), flat(half)))
+    log(f"[kernels]   fused_train_loop (Burgers): parameters, moments and "
+        f"losses bitwise across two calls {bits[0]}, across grids "
+        f"{lplan[1]} and {lplan[1] // 2} {bits[1]}")
+    if not all(bits):
+        raise AssertionError("fused_train_loop (Burgers): the grid form is "
+                             "not bitwise stable")
     kern = lambda: run(fused_train_loop, K, 1e-8)  # noqa: E731
+    row = lambda: run(fused_train_loop, K, 1e-8, rows=1)  # noqa: E731
     t = time_in_turns({"plain": lambda: run(fused_train_loop_plain, K, 1e-8),
-                       "kernel": kern}, reps=5, inner=2)
-    dev_ms, traced = loop_device_ms(kern, "train_loop_kernel", K)
+                       "kernel": kern, "row R 1": row}, reps=5, inner=2)
+    dev_ms, traced = loop_device_ms(kern, "train_loop_grid_kernel", K)
+    dev_row, _ = loop_device_ms(row, "train_loop_kernel", K)
+    peak, peak_row = peak_bytes(kern), peak_bytes(row)
+    bms = bound(*costs["fused_train_loop"])[0]
     reports["fused_train_loop"] = dict(
-        rep, ms=t["kernel"] / K, plain_ms=t["plain"] / K, device_ms=dev_ms)
-    log(f"[kernels]   fused_train_loop (Burgers): two calls bitwise equal; "
-        f"per iteration kernel {t['kernel'] / K:.4f} ms (device "
-        f"{dev_ms:.4f} ms, {traced} launches traced), plain "
-        f"{t['plain'] / K:.4f} ms, in turns, K {K}")
+        rep, ms=t["kernel"] / K, plain_ms=t["plain"] / K, device_ms=dev_ms,
+        form="grid", grid=lplan[1], smem_bytes=lplan[2], workspace_bytes=ws,
+        peak_bytes=peak, row_r1_ms=t["row R 1"] / K,
+        row_r1_device_ms=dev_row, row_r1_peak_bytes=peak_row)
+    log(f"[kernels]   fused_train_loop (Burgers): per iteration kernel "
+        f"{t['kernel'] / K:.4f} ms (device {dev_ms:.4f} ms, {traced} "
+        f"launches traced), plain {t['plain'] / K:.4f} ms, bound {bms:.5f} "
+        f"ms; the row form at R 1 {t['row R 1'] / K:.4f} ms (device "
+        f"{dev_row:.4f} ms), in turns, K {K}; device memory a call of K {K} "
+        f"allocates: grid form {peak / 1e6:.1f} MB, row form "
+        f"{peak_row / 1e6:.1f} MB")
     for name, r in reports.items():
         r["bound_ms"], r["bound_by"] = bound(*costs[name])
     return reports
@@ -4150,7 +4399,12 @@ def phase_burgers_loop(device, state0, kernel_runs, per_step, n_iters=320,
     ys = as_t(y)
     tgts = as_t(y + np.float32(0.05) * rng.normal(
         size=y.shape).astype(np.float32))
-    profile_loop(lambda: fresh_loop()[1], ys[:warm], tgts[:warm])
+    profile_loop(lambda: fresh_loop()[1], ys[:warm], tgts[:warm],
+                 kernel="train_loop_grid_kernel")
+    ex, loop = fresh_loop()
+    peak = peak_bytes(lambda: loop.run(ys[:warm], tgts[:warm], LR))
+    log(f"[burgers] (d) device memory a launch of {warm} iterations on K4 "
+        f"allocates at its peak: {peak / 1e6:.1f} MB")
     ex, loop = fresh_loop()
     loss_warm = loop.run(ys[:warm], tgts[:warm], LR)
     torch.cuda.synchronize()
@@ -4202,7 +4456,7 @@ def phase_burgers(device, n_steps=50, warm=5, n_off=20, n_plain=20):
         f"MSE, Adam lr {LR}, seed-0 weights; the fused ARK step kernels "
         f"take it: fused_ark_fits {fused_ark_fits(BNX, layers, 4)} (K2: plan "
         f"{ark_fwd_plan(BB, BNX, layers, 4)} (rows, grid, B); K3: plan "
-        f"{ark_adj_plan(BB, BNX, layers, 4)}, inv and J read in place)")
+        f"{ark_adj_plan(BB, BNX, layers, 4)}, the grid form)")
     batches = burgers_batches(n_steps)
     wrappers = {"fused_mlp_fwd": fused_mlp_fwd, "fused_mlp_bwd": fused_mlp_bwd,
                 "circular_stencil_fwd": circular_stencil_fwd,
@@ -4221,6 +4475,10 @@ def phase_burgers(device, n_steps=50, warm=5, n_off=20, n_plain=20):
         losses, sps[route] = train_timed(ode, ex, opt, batches[:n], warm,
                                          device)
         counts[route] = {k: w.launches for k, w in wrappers.items()}
+        peak = peak_bytes(lambda: train(ode, ex, opt, batches[:1], device,
+                                        BDT))
+        log(f"[burgers] (b) {route}: device memory one more Adam step "
+            f"allocates at its peak: {peak / 1e6:.1f} MB")
         lo, hi = float(losses[:10].mean()), float(losses[-10:].mean())
         log(f"[burgers] (b) {n} Adam steps on the kernel path {route}: mean "
             f"loss first 10 {lo:.6e}, last 10 {hi:.6e}; {sps[route]:.2f} "

@@ -662,7 +662,13 @@ __device__ __forceinline__ void forward_step(const StepArgs& a,
 enum MarkTag {
   kMarkStart, kMarkStaged, kMarkCovec, kMarkStiff, kMarkWait, kMarkGot,
   kMarkFwd, kMarkBwd, kMarkPv, kMarkGrads, kMarkXi, kMarkForward,
-  kMarkSeed, kMarkEnd, kMarkIssued, kMarkTile
+  kMarkSeed, kMarkEnd, kMarkIssued, kMarkTile,
+  // the grid form's phases (csrc/ark_grid.cuh): a phase of each kind
+  // starts, then block 0's tiles are done and it waits at the barrier; in
+  // a phase, each of block 0's tiles starts, ends its FMA loop, and ends
+  // its epilogue
+  kMarkGRecompute, kMarkGForward, kMarkGBackprop, kMarkGStiff, kMarkGGrads,
+  kMarkGDone, kMarkGTile, kMarkGEpi, kMarkGTileDone
 };
 #ifdef ARK_TRACE
 constexpr int kMarks = 2048;
@@ -687,6 +693,27 @@ __device__ __forceinline__ void mark(int tag) {
 #else
 __device__ __forceinline__ void mark(int) {}
 #endif
+
+// The stages a covector into kI (umask) or kE (emask) reaches, from the
+// last stage down: a stage's weight in the step's sum, or a later reached
+// stage's tableau entry.
+__host__ __device__ inline void reach_masks(const Tableau& tb,
+                                            unsigned* umask,
+                                            unsigned* emask) {
+  unsigned um = 0, em = 0;
+  for (int i = tb.s - 1; i >= 0; --i) {
+    bool hu = tb.nzbI[i], he = tb.nzbE[i];
+    for (int mm = i + 1; mm < tb.s; ++mm) {
+      if (!(((um | em) >> mm) & 1u)) continue;
+      hu = hu || tb.nzI[mm][i];
+      he = he || tb.nzE[mm][i];
+    }
+    um |= (unsigned)hu << i;
+    em |= (unsigned)he << i;
+  }
+  *umask = um;
+  *emask = em;
+}
 
 // Row stride of a streamed W_l chunk (N columns): a multiple of 4 with an
 // odd quotient where N is a multiple of 4, else odd.
@@ -1231,18 +1258,8 @@ __device__ __forceinline__ void reverse_step(
   const float* invop = q.resident ? ops : inv;
   const float* Jop = q.resident ? ops + round4(d * q.ld_op) : J;
 
-  // the stages a covector into kI (umask) or kE (emask) reaches
-  unsigned umask = 0, emask = 0;
-  for (int i = s - 1; i >= 0; --i) {
-    bool hu = tb.nzbI[i], he = tb.nzbE[i];
-    for (int mm = i + 1; mm < s; ++mm) {
-      if (!(((umask | emask) >> mm) & 1u)) continue;
-      hu = hu || tb.nzI[mm][i];
-      he = he || tb.nzE[mm][i];
-    }
-    umask |= (unsigned)hu << i;
-    emask |= (unsigned)he << i;
-  }
+  unsigned umask, emask;
+  reach_masks(tb, &umask, &emask);
   const int last_mlp = emask ? __ffs((int)emask) - 1 : -1;
 
   if (stage_ops && q.resident) {

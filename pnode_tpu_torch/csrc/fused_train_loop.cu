@@ -45,10 +45,30 @@
 // read goes through L2 (the bodies' kCoherent). Parameters and moments live
 // in one flat [W0, b0, W1, b1, ...] buffer each, the layout of the
 // gradient partials, so phase B is one loop over that layout.
+//
+// The grid form (csrc/ark_grid.cuh, whose note gives the design): where
+// the row plan cannot keep inv and J in shared memory (Burgers-512, B 200,
+// 512 -> 576 x4 -> 512, among them), each iteration runs over the whole
+// grid of one block per SM instead: the forward step's products (K2's
+// arithmetic, so its stage values and layer inputs are the row form's),
+// the MSE seed in the last product's epilogue, the reverse's backprop and
+// stiff products (no recompute: the forward's layer inputs are kept), then
+// one dW/db product per layer over the (stage, row) axis whose epilogue
+// applies Adam (adam_step, sum_partials_adam's update without partials),
+// with a grid-wide barrier between dependent products. The row form
+// wrote 132 partials of the 6.35 MB stack per iteration at Burgers (~0.84
+// GB) and pulled the stack through every block's ring twice a stage; none
+// of that remains. What bounds it: ~10.6 GFLOP an iteration, 0.16 ms at
+// the fp32 FMA peak; ~47 barriers an iteration on top (1.57 ms an
+// iteration on an H100 SXM at 700 W, PERF.md, against 13.26 for the row
+// form at R 1 and 8.22 for the plain version). The loss is a
+// per-row sum (each row one block's fixed-order sum), then the rows' sum
+// in a fixed order, so it too has the same bits at any grid.
 #include <cooperative_groups.h>
 
 #include <cstdint>
 
+#include "ark_grid.cuh"
 #include "ark_tiles.cuh"
 
 namespace cg = cooperative_groups;
@@ -120,10 +140,42 @@ train_loop_kernel(const float* __restrict__ y_stack,
   }
 }
 
+// The grid form: K iterations over the whole cooperative grid. A stage
+// that reaches no MLP adds nothing to dW/db: its covectors are zeroed once.
+__global__ void __launch_bounds__(ark::kGBlockThreads, 1)
+train_loop_grid_kernel(const float* __restrict__ y_stack,
+                       const float* __restrict__ tgt_stack, int K, int t0,
+                       const ark::GridArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  ark::mark(ark::kMarkStart);
+  const size_t bd = (size_t)a.B * a.m.dims[0];
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nthreads = gridDim.x * blockDim.x;
+  for (int i = 0; i < a.s; ++i) {
+    if (ark::reached_e(a, i)) continue;
+    for (int l = 0; l < a.m.n; ++l) {
+      const size_t w = (size_t)a.B * a.m.dims[l + 1];
+      for (size_t e = gtid; e < w; e += nthreads)
+        a.g[l][ark::slot_of(a, i) * w + e] = 0.0f;
+    }
+  }
+  for (int k = 0; k < K; ++k) {
+    ark::Iter it{y_stack + k * bd, tgt_stack + k * bd, 0.0f, 0.0f, k};
+    adam_corrections(a.adam, t0 + k + 1, &it.c1, &it.c2);
+    ark::grid_step<true>(grid, a, it, smem, ark::Cursor{ark::kSecFwd, 0, -1});
+  }
+  ark::grid_loss(a, K - 1);  // its per-row sums a barrier old
+  ark::mark(ark::kMarkEnd);
+}
+
 // K4's plan: K12's (plan_rev, kRevGrad; `rows` 0, or 1, 2, 4 or 8 forced)
-// with the grid capped at one block per SM. 0 or a CUDA error code.
+// with the grid capped at one block per SM; where the rule's plan cannot
+// keep inv and J resident (rows 0), the grid form's (*g, *grid_form set).
+// 0 or a CUDA error code.
 static int train_plan(int B, int d, int s, int n_layers, const int* dims,
-                      int rows, ark::RevPlan* q, ark::Plan* f) {
+                      int rows, ark::RevPlan* q, ark::Plan* f,
+                      ark::GridPlan* g, bool* grid_form) {
   if (B < 1 || s < 1 || s > kMaxStages || n_layers < 1 ||
       n_layers > kMaxLayers || dims[0] != d || dims[n_layers] != d)
     return cudaErrorInvalidValue;
@@ -134,6 +186,9 @@ static int train_plan(int B, int d, int s, int n_layers, const int* dims,
   if (!ark::plan_rev(B, d, s, n_layers, dims, sms, ark::kRevGrad, rows, q, f))
     return cudaErrorInvalidValue;
   if (q->grid > sms) q->grid = f->grid = sms;
+  *grid_form = rows == 0 && !q->resident;
+  if (*grid_form)
+    ark::plan_grid(ark::kGridLoop, B, d, s, n_layers, dims, sms, g);
   return 0;
 }
 
@@ -144,39 +199,46 @@ using namespace pnode;
 extern "C" {
 
 // K4's plan for y (B, d), s stages and the stack dims[0..n_layers]: rows
-// per block, grid and shared-memory bytes (mirrored by
+// per block (0: the grid form), grid and shared-memory bytes (mirrored by
 // ops/fused_train_loop.py's train_loop_plan). rows_in: 0 for the plan's
-// rows, or 1, 2, 4 or 8 forced. cudaErrorInvalidValue when the
-// configuration does not fit.
+// form, or 1, 2, 4 or 8 forced (the row form). cudaErrorInvalidValue when
+// the configuration does not fit.
 int pnode_train_loop_plan(int B, int d, int s, int n_layers, const int* dims,
                           int rows_in, int* rows, int* grid,
                           long long* smem) {
   ark::RevPlan q;
   ark::Plan f;
-  const int rc = train_plan(B, d, s, n_layers, dims, rows_in, &q, &f);
+  ark::GridPlan g;
+  bool grid_form;
+  const int rc =
+      train_plan(B, d, s, n_layers, dims, rows_in, &q, &f, &g, &grid_form);
   if (rc) return rc;
-  *rows = q.rows;
-  *grid = q.grid;
-  *smem = (long long)q.smem;
+  *rows = grid_form ? 0 : q.rows;
+  *grid = grid_form ? g.grid : q.grid;
+  *smem = (long long)(grid_form ? g.smem : q.smem);
   return 0;
 }
 
 // K iterations on y_stack, tgt_stack (K, B, d). params, m, v: flat [W0, b0,
 // W1, b1, ...] buffers of the stack (dims[0..n_layers]), updated in place.
 // tab: host doubles aI (s*s), aE (s*s), bI (s), bE (s). rows: 0 for the
-// plan's rows per block, or 1, 2, 4 or 8 forced. Scratch at the plan's
-// grid: partial, grid slices of round4(wtotal) floats (`partial_floats`
-// must say so, cudaErrorInvalidValue otherwise); lpart, grid floats.
-// losses: K floats. One cooperative launch on `stream`.
+// plan's form, or 1, 2, 4 or 8 to force the row form at those rows per
+// block. Row form: scratch at the plan's grid, partial of grid slices of
+// round4(wtotal) floats, lpart of grid floats. Grid form: partial is the
+// workspace of pnode_ark_grid_plan's floats (lpart unused), and `grid` (0:
+// the plan's) a smaller co-resident grid if wanted; every output has the
+// same bits at any grid. `partial_floats` must give the floats
+// (cudaErrorInvalidValue otherwise). losses: K floats. One cooperative
+// launch on `stream`.
 int pnode_train_loop(const float* y_stack, const float* tgt_stack,
                      const float* J, const float* inv, float* params,
                      float* m_state, float* v_state, float* partial,
                      float* lpart, float* losses, int K, int B, int d, int s,
                      const double* tab, double dt, float sign, int n_layers,
                      const int* dims, int act, int t0, float lr, double b1,
-                     double b2, double eps, int rows,
+                     double b2, double eps, int rows, int grid,
                      long long partial_floats, void* stream) {
-  if (K < 1) return cudaErrorInvalidValue;
+  if (K < 1 || grid < 0) return cudaErrorInvalidValue;
   ark::StepArgs a;
   a.J = J;
   a.inv = inv;
@@ -184,19 +246,48 @@ int pnode_train_loop(const float* y_stack, const float* tgt_stack,
   if (rc) return rc;
   if ((rc = make_tableau(&a.tb, s, tab, dt))) return rc;
   ark::RevPlan q;
-  if ((rc = train_plan(B, d, s, n_layers, dims, rows, &q, &a.p))) return rc;
-  if (partial_floats != (long long)q.grid * ark::round4(a.m.wtotal))
-    return cudaErrorInvalidValue;
+  ark::GridPlan gp;
+  bool grid_form;
+  if ((rc = train_plan(B, d, s, n_layers, dims, rows, &q, &a.p, &gp,
+                       &grid_form)))
+    return rc;
   Adam adam = make_adam(lr, b1, b2, eps);
   float inv_count = (float)(1.0 / ((double)B * d));
   float two_inv_count = (float)(2.0 / ((double)B * d));
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (grid_form) {
+    if (partial_floats != gp.ws) return cudaErrorInvalidValue;
+    ark::GridArgs ga{};
+    ga.m = a.m;
+    ga.tb = a.tb;
+    ga.J = J;
+    ga.inv = inv;
+    ga.B = B;
+    ga.s = s;
+    ga.sign = sign;
+    ark::reach_masks(a.tb, &ga.umask, &ga.emask);
+    ark::grid_regions(gp, partial, n_layers, &ga);
+    ga.params = params;
+    ga.m_state = m_state;
+    ga.v_state = v_state;
+    ga.losses = losses;
+    ga.adam = adam;
+    ga.inv_count = inv_count;
+    ga.two_inv_count = two_inv_count;
+    void* gargs[] = {(void*)&y_stack, (void*)&tgt_stack, (void*)&K,
+                     (void*)&t0, (void*)&ga};
+    return launch_cooperative(train_loop_grid_kernel, grid ? grid : gp.grid,
+                              gp.smem, gargs, st, ark::kGBlockThreads);
+  }
+  if (grid != 0 ||
+      partial_floats != (long long)q.grid * ark::round4(a.m.wtotal))
+    return cudaErrorInvalidValue;
   void* args[] = {(void*)&y_stack, (void*)&tgt_stack, (void*)&params,
                   (void*)&m_state, (void*)&v_state,   (void*)&partial,
                   (void*)&lpart,   (void*)&losses,    (void*)&K,
                   (void*)&B,       (void*)&sign,      (void*)&inv_count,
                   (void*)&two_inv_count, (void*)&a,   (void*)&q,
                   (void*)&adam,    (void*)&t0};
-  const cudaStream_t st = (cudaStream_t)stream;
   switch (q.rows) {
     case 1:
       return launch_cooperative(train_loop_kernel<1>, q.grid, q.smem, args,
@@ -212,5 +303,22 @@ int pnode_train_loop(const float* y_stack, const float* tgt_stack,
                                 st);
   }
 }
+
+#ifdef ARK_TRACE
+// The last K4 launch's phase marks (csrc/ark_tiles.cuh), as
+// pnode_ark_adj_marks reads K3's.
+int pnode_train_loop_marks(long long* t, int* tags, int* n,
+                           unsigned long long* ns) {
+  int rc;
+  if ((rc = (int)cudaMemcpyFromSymbol(t, ark::mark_t, sizeof(ark::mark_t))))
+    return rc;
+  if ((rc = (int)cudaMemcpyFromSymbol(tags, ark::mark_tag,
+                                      sizeof(ark::mark_tag))))
+    return rc;
+  if ((rc = (int)cudaMemcpyFromSymbol(n, ark::mark_n, sizeof(int))))
+    return rc;
+  return (int)cudaMemcpyFromSymbol(ns, ark::mark_ns, sizeof(ark::mark_ns));
+}
+#endif
 
 }  // extern "C"

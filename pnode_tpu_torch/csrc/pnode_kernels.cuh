@@ -96,34 +96,52 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
+// Adam's bias corrections c1, c2 = 1 - exp(t ln b) at update number t.
+__device__ __forceinline__ void adam_corrections(const Adam& adam, int t,
+                                                 float* c1, float* c2) {
+  const float tf = (float)t;
+  *c1 = 1.0f - expf(tf * adam.ln_b1);
+  *c2 = 1.0f - expf(tf * adam.ln_b2);
+}
+
+// optax's Adam update of one parameter p with moments m, v and gradient g,
+// in place:
+//   m <- b1 m + (1 - b1) g;  v <- b2 v + (1 - b2) g^2
+//   p <- p - lr (m / c1) / (sqrt(v / c2) + eps)
+__device__ __forceinline__ void adam_step(const Adam& adam, float c1,
+                                          float c2, float g, float& m,
+                                          float& v, float& p) {
+  m = adam.b1 * m + adam.omb1 * g;
+  v = adam.b2 * v + adam.omb2 * (g * g);
+  p = p - adam.lr * (m / c1) / (sqrtf(v / c2) + adam.eps);
+}
+
 // The loop kernels' phase B, on every thread of a cooperative grid: for its
 // slice of the flat [W0, b0, W1, b1, ...] parameters, sum the grid's block
 // partials (block b's at partial + b * slice) in block order
-// (deterministic, no atomics), then optax's Adam update number t (counting
-// from 1) in place:
-//   m <- b1 m + (1 - b1) g;  v <- b2 v + (1 - b2) g^2
-//   p <- p - lr (m / c1) / (sqrt(v / c2) + eps),  c = 1 - exp(t ln b)
+// (deterministic, no atomics), then Adam's update number t (counting from
+// 1) in place (adam_step; moments and parameters read through L2: other
+// SMs wrote them in the launch).
 __device__ __forceinline__ void sum_partials_adam(const Adam& adam, int t,
                                                   const float* partial,
                                                   int wtotal, int slice,
                                                   float* params,
                                                   float* m_state,
                                                   float* v_state) {
-  const float tf = (float)t;
-  const float c1 = 1.0f - expf(tf * adam.ln_b1);
-  const float c2 = 1.0f - expf(tf * adam.ln_b2);
+  float c1, c2;
+  adam_corrections(adam, t, &c1, &c2);
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nthreads = gridDim.x * blockDim.x;
   for (int i = gtid; i < wtotal; i += nthreads) {
     float g = 0.0f;
     for (int blk = 0; blk < (int)gridDim.x; ++blk)
       g += __ldcg(partial + (size_t)blk * slice + i);
-    const float mi = adam.b1 * __ldcg(m_state + i) + adam.omb1 * g;
-    const float vi = adam.b2 * __ldcg(v_state + i) + adam.omb2 * (g * g);
-    m_state[i] = mi;
-    v_state[i] = vi;
-    params[i] = __ldcg(params + i) -
-                adam.lr * (mi / c1) / (sqrtf(vi / c2) + adam.eps);
+    float m = __ldcg(m_state + i), v = __ldcg(v_state + i);
+    float p = __ldcg(params + i);
+    adam_step(adam, c1, c2, g, m, v, p);
+    m_state[i] = m;
+    v_state[i] = v;
+    params[i] = p;
   }
 }
 
@@ -269,13 +287,15 @@ static inline int prepare_smem(Kernel kernel, size_t bytes) {
   return 0;
 }
 
-// Host: a cooperative launch of `kernel` (kThreads threads a block, `smem`
-// bytes of dynamic shared memory) on `grid` blocks, after checking that the
+// Host: a cooperative launch of `kernel` (`threads` a block, `smem` bytes
+// of dynamic shared memory) on `grid` blocks, after checking that the
 // device takes one and that every block is co-resident (so a grid-wide
-// barrier cannot deadlock): the loop kernels' (K4, K5).
+// barrier cannot deadlock): the loop kernels' (K4, K5) and the grid form's
+// (K3, K4; csrc/ark_grid.cuh).
 template <typename Kernel>
 static inline int launch_cooperative(Kernel kernel, int grid, size_t smem,
-                                     void** args, cudaStream_t stream) {
+                                     void** args, cudaStream_t stream,
+                                     int threads = kThreads) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0, rc;
   if ((rc = (int)cudaGetDevice(&dev))) return rc;
   if ((rc = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
@@ -287,11 +307,11 @@ static inline int launch_cooperative(Kernel kernel, int grid, size_t smem,
     return rc;
   if ((rc = prepare_smem(kernel, smem))) return rc;
   if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)))
+           &per_sm, kernel, threads, smem)))
     return rc;
   if (grid > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
   if ((rc = (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                             dim3(kThreads), args, smem,
+                                             dim3(threads), args, smem,
                                              stream)))
     return rc;
   return (int)cudaGetLastError();

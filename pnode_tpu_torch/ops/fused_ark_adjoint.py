@@ -191,11 +191,192 @@ def _rev_plan_rows(R: int, d: int, dims: Sequence[int], stages: int,
     return 4 * (off + 2 * slot)
 
 
-def _rev_plan(B, d, layer_dims, stages, sms, kind):
-    """``rev_plan_full``'s (rows, grid, bytes) at the rule's rows."""
+# The grid form (csrc/ark_grid.cuh): every product of K3's step, or of
+# K4's iteration, tiled over one cooperative grid of one block per SM, two
+# tile groups of GRID_THREADS threads a block, in GRID_TILE x GRID_TILE
+# output tiles over GRID_CHUNK-deep staged chunks. K3's and K4's plans take
+# it where the row form's cannot keep inv and J in shared memory
+# (Burgers-512, d 200 and 300 among the pinned shapes); the KS shapes keep
+# the row form. The launches that run it: K3's step (GRID_STEP), K4's loop
+# (GRID_LOOP).
+GRID_THREADS, GRID_GROUPS, GRID_TILE, GRID_CHUNK = 128, 2, 32, 64
+GRID_SMEM = 4 * (GRID_GROUPS * 4 * GRID_CHUNK * (GRID_TILE + 4) + 32)
+GRID_STEP, GRID_LOOP = 0, 1
+
+
+def grid_workspace(kind: int, B: int, d: int, layer_dims: Sequence[int],
+                   stages: int):
+    """The grid form's device workspace (csrc/ark_grid.cuh plan_grid):
+    ({region: (offset, floats)}, total floats), each region at a multiple
+    of 4 floats. Every stage's layer inputs h_l (l >= 1) and covectors g_l
+    (g_{n-1}: the seeds sign uh_i), xi, u and q (s, B, d), pv (B, d), the
+    stage values h_0 ("ys", (s, B, d)); for K4 also kI, kE (s, B, d), G,
+    the seed lam and y1 - tgt (B, d) and the per-row losses (B). h_l, g_l
+    and the stage values hold stage i in slot s - 1 - i."""
+    dims = [int(d)] + [int(n) for n in layer_dims]
+    n, sb, bd = len(layer_dims), stages * B, B * d
+    regions, off = {}, 0
+
+    def take(name, floats):
+        nonlocal off
+        regions[name] = (off, floats)
+        off += _round4(floats)
+
+    for l in range(1, n):
+        take(f"h{l}", sb * dims[l])
+    for l in range(n):
+        take(f"g{l}", sb * dims[l + 1])
+    for name in ("xi", "u", "q"):
+        take(name, sb * d)
+    take("pv", bd)
+    take("ys", sb * d)
+    if kind == GRID_LOOP:
+        for name in ("kI", "kE"):
+            take(name, sb * d)
+        for name in ("G", "lam", "diff"):
+            take(name, bd)
+        take("lrow", B)
+    return regions, off
+
+
+def grid_plan(kind: int, B: int, d: int, layer_dims: Sequence[int],
+              stages: int, sms: int = 132):
+    """The grid form's launch (C entry point pnode_ark_grid_plan): (grid,
+    shared-memory bytes, workspace floats); the grid is one block per
+    SM."""
+    return (int(sms), GRID_SMEM,
+            grid_workspace(kind, int(B), int(d), layer_dims, int(stages))[1])
+
+
+def reach_masks(tableau_static):
+    """The stages a covector into kI (umask) or kE (emask) reaches, as bit
+    masks (csrc/ark_tiles.cuh reach_masks)."""
+    aI, aE, bI, bE = tableau_static
+    s = len(bI)
+    um = em = 0
+    for i in range(s - 1, -1, -1):
+        hu, he = bI[i] != 0.0, bE[i] != 0.0
+        for m in range(i + 1, s):
+            if (um | em) >> m & 1:
+                hu = hu or aI[m][i] != 0.0
+                he = he or aE[m][i] != 0.0
+        um |= int(hu) << i
+        em |= int(he) << i
+    return um, em
+
+
+# the grid form's epilogues and per-block work, in csrc/ark_grid.cuh's
+# order (GridEpi, GridPre)
+GRID_EPIS = ("act", "backprop", "pv", "stage_end", "xi", "grad", "adam",
+             "fwd_stiff", "fwd_ke")
+GRID_PRES = ("none", "stage", "loss", "rows")
+
+
+def grid_phases(kind: int, B: int, d: int, layer_dims: Sequence[int],
+                tableau_static, k: int = 1):
+    """The grid form's phases in order, at iteration ``k`` of K4's loop
+    (csrc/ark_grid.cuh next_phase; C entry point pnode_ark_grid_phases):
+    K4's forward, or K3's staging of the stage values and its recompute;
+    the reverse's stages; the dW/db products. Each phase is a dict of its
+    per-block work ``pre`` (GRID_PRES) and its ``products``, each a dict
+    of its epilogue ``epi`` (GRID_EPIS), ``stage``, ``layer``, the (M, N)
+    output over K reduction positions in G groups of blocks of v
+    positions dealt round-robin, ``ones`` (A's row that reads 1, dW's db
+    row, or -1), ``ldo``, the operands ``a`` and ``b`` as (region, first
+    float, row stride, k-major), ``out`` as (region, first float) or None
+    where the epilogue writes by element, and ``aux`` (kEpiBackprop's
+    h_l) likewise. Regions: the workspace's (``grid_workspace``; "ys"
+    holds h_0), "W{l}", "J", "inv" and K4's minibatch "y". Stage i's layer
+    inputs and covectors sit in slot s - 1 - i."""
+    aI, bI = tableau_static[0], tableau_static[2]
+    s = len(bI)
+    dims = [int(d)] + [int(n) for n in layer_dims]
+    n, bd = len(layer_dims), B * d
+    um, em = reach_masks(tableau_static)
+    reached = um | em
+    phases = []
+
+    def h(l, i=None):  # h_l, whole or at stage i's slot
+        return ("ys" if l == 0 else f"h{l}",
+                0 if i is None else (s - 1 - i) * B * dims[l])
+
+    def gemm(epi, stage, layer, M, N, K, G, v, a, b, out, ldo, aux=None,
+             ones=-1):
+        return dict(epi=epi, stage=stage, layer=layer, M=M, N=N, K=K, G=G,
+                    v=v, ones=ones, ldo=ldo, a=a, b=b, out=out, aux=aux)
+
+    def mlp(l, a, M, out, epi, stage):
+        K, N = dims[l], dims[l + 1]
+        return gemm(epi, stage, l, M, N, K, _split_k(K, N), 1, a + (K, 0),
+                    (f"W{l}", 0, N, 1), out, N)
+
+    def stiff(a, op, transposed, epi, i):
+        return gemm(epi, i, 0, B, d, d, 1, 1, a + (d, 0),
+                    (op, 0, d, int(not transposed)), None, d)
+
+    def phase(products, pre="none"):
+        phases.append(dict(pre=pre, products=products))
+
+    if kind == GRID_LOOP:
+        for i in range(s):
+            impl = aI[i][i] != 0.0
+            G = ("y", 0) if i == 0 else ("G", 0)
+            prods = [stiff(G, "inv" if impl else "J", True, "fwd_stiff", i)]
+            beside = not impl and n > 1
+            if beside:
+                prods.append(mlp(0, G, B, h(1, i), "act", i))
+            phase(prods, "loss" if i == 0 and k > 0 else "none")
+            for l in range(1 if beside else 0, n):
+                last = l == n - 1
+                phase([mlp(l, h(l, i), B,
+                           ("kE", i * bd) if last else h(l + 1, i),
+                           "fwd_ke" if last else "act", i)])
+    else:
+        phase([], "stage")
+        for l in range(n - 1):
+            phase([mlp(l, h(l), s * B, h(l + 1), "act", 0)])
+    i = max((j for j in range(s) if reached >> j & 1), default=-1)
+    while i >= 0:
+        hu, he, impl = um >> i & 1, em >> i & 1, aI[i][i] != 0.0
+        pv = hu and not impl
+        u = ("u", i * bd)
+        if he and pv and n == 1:
+            phase([stiff(u, "J", False, "pv", i)])
+        for l in range(n - 1, -1, -1) if he else ():
+            K, N = dims[l], dims[l + 1]
+            g = ("g%d" % l, (s - 1 - i) * B * N, N, 0)
+            prods = [gemm("backprop" if l else "stage_end", i, l, B, K, N,
+                          _split_k(N, K), 4 if N % 4 == 0 else 1, g,
+                          (f"W{l}", 0, N, 0),
+                          ("g%d" % (l - 1), (s - 1 - i) * B * K) if l
+                          else None, K, h(l, i) if l else None)]
+            if pv and n > 1 and l == n - 1:
+                prods.append(stiff(u, "J", False, "pv", i))
+            phase(prods)
+        if not he and pv:
+            phase([stiff(u, "J", False, "stage_end", i)])
+        if impl:
+            phase([stiff(("q", i * bd), "inv", False, "xi", i)])
+        i = max((j for j in range(i) if reached >> j & 1), default=-1)
+    phase([gemm("adam" if kind == GRID_LOOP else "grad", 0, l, dims[l] + 1,
+                dims[l + 1], s * B, 1, 1, h(l) + (dims[l], 1),
+                (f"g{l}", 0, dims[l + 1], 1), None, dims[l + 1],
+                ones=dims[l]) for l in range(n)],
+          "rows" if kind == GRID_LOOP else "none")
+    return phases
+
+
+def _rev_plan(B, d, layer_dims, stages, sms, kind, grid_form=False):
+    """``rev_plan_full``'s (rows, grid, bytes) at the rule's rows; with
+    ``grid_form``, the grid form's (0, grid, bytes) where the rule's plan
+    cannot keep inv and J resident."""
     plan = rev_plan_full(int(B), int(d), tuple(int(n) for n in layer_dims),
                          int(stages), int(sms), kind)
-    return None if plan is None else plan[:3]
+    if plan is None:
+        return None
+    if grid_form and not plan[3]:
+        return (0,) + grid_plan(GRID_STEP, B, d, layer_dims, stages, sms)[:2]
+    return plan[:3]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -239,7 +420,11 @@ def ark_adj_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
                  sms: int = 132):
     """K3's launch (csrc/ark_tiles.cuh plan_rev, C entry point
     pnode_ark_adj_plan): (rows per block, grid, shared-memory bytes), or
-    None when the configuration does not fit. Rows: the fewest in {1, 2,
+    None when the configuration does not fit. Where the row form below
+    cannot keep inv and J resident (past d ~160 at KS-like stacks:
+    Burgers-512, d 200, d 300), the grid form's (0, grid, bytes)
+    (``grid_plan``: one block per SM, 132 on an H100 SXM). Rows: the
+    fewest in {1, 2,
     4, 8} whose grid ceil(B / rows) fits one block per SM (``sms``, 132 on
     an H100 SXM), else 8; halved while the block's shared memory (lam,
     lam_prev, the stage covectors, the store of every stage's layer inputs
@@ -252,16 +437,16 @@ def ark_adj_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
     device memory. None only for what no kernel takes: a layer wider than
     1024, more than 8 stages or layers. Memoized: every reverse wrapper's
     gate asks it."""
-    return _rev_plan(B, d, layer_dims, stages, sms, REV_STEP)
+    return _rev_plan(B, d, layer_dims, stages, sms, REV_STEP, True)
 
 
 def grad_step_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
                    sms: int = 132):
     """K12's launch (plan_rev with the forward's regions, C entry point
     pnode_grad_step_plan): (rows per block, grid, shared-memory bytes) for a
-    (B, d) shard, or None. ``ark_adj_plan``'s rule; each block keeps its
-    stage values and seed beside the larger of the forward's and the
-    reverse's scratch."""
+    (B, d) shard, or None. ``ark_adj_plan``'s rule, always the row form;
+    each block keeps its stage values and seed beside the larger of the
+    forward's and the reverse's scratch."""
     return _rev_plan(B, d, layer_dims, stages, sms, REV_GRAD)
 
 
@@ -292,11 +477,11 @@ def fused_ark_fits(d: int, layer_dims: Sequence[int], stages: int,
     layer wider than 1024, more than 8 stages or layers, or a stack that
     does not map the state to itself. The KS config needs 125 KB for K2
     and 142 KB for K3 at one row; Burgers-512 (512 -> 576 x4 -> 512)
-    fills the 227 KB of both, streaming the operators and weights through
-    the ring (K2) or reading inv and J in place (K3). Registers do not
-    bind: each thread carries a fixed accumulator tile whatever the
-    widths. Weight gradients go to a per-block partial in device memory.
-    ``reverse=False`` checks the forward kernel alone."""
+    fills the 227 KB of K2, streaming the operators and weights through
+    its ring, and K3 takes the grid form there (its row plan would read
+    inv and J in place). Registers do not bind: each thread carries a
+    fixed accumulator tile whatever the widths. ``reverse=False`` checks
+    the forward kernel alone."""
     if not 1 <= len(layer_dims) <= MAX_LAYERS or not 1 <= stages <= MAX_STAGES:
         return False
     if layer_dims[-1] != d:
@@ -464,9 +649,9 @@ def fused_ark_step_adj(tableau_static, dt, Ys, lam, J_dense, inv_op,
 
     tableau_static: (a_im, a_ex, b_im, b_ex) as nested Python floats; dt a
     Python float; Ys (s, B, d) the stored stage values; lam (B, d); J_dense
-    and inv_op (d, d). CUDA tensors launch the kernel (at the plan's rows
-    per block, or ``rows`` 1, 2, 4 or 8 forced, for kernel comparisons);
-    CPU tensors run ``fused_ark_step_adj_plain``.
+    and inv_op (d, d). CUDA tensors launch the kernel in its plan's form
+    (``ark_adj_plan``), or for kernel comparisons the row form at ``rows``
+    1, 2, 4 or 8 forced; CPU tensors run ``fused_ark_step_adj_plain``.
     """
     s, B, d, dims = check_step_args(tableau_static, lam, J_dense, inv_op,
                                     weights, biases, activation,
@@ -479,25 +664,122 @@ def fused_ark_step_adj(tableau_static, dt, Ys, lam, J_dense, inv_op,
         return fused_ark_step_adj_plain(tableau_static, dt, Ys, lam, J_dense,
                                         inv_op, weights, biases, activation,
                                         sign)
-    lib = _build.library()
-    grid = (ark_adj_plan(B, d, dims[1:], s, sm_count(lam.device))[1]
-            if rows == 0 else -(-B // rows))
+    with torch.cuda.device(lam.device):
+        return run_ark_adj(_build.library(), sm_count(lam.device),
+                           _build.stream_of(lam), tableau_static, dt, Ys,
+                           lam, J_dense, inv_op, weights, biases, activation,
+                           sign, rows)
+
+
+def adj_scratch_floats(B, d, layer_dims, stages, sms=132, rows=0):
+    """Floats of K3's scratch: the row form's dW/db partials (its grid
+    times the stack's parameters), or the grid form's workspace."""
+    dims = [d] + list(layer_dims)
+    plan = (ark_adj_plan(B, d, layer_dims, stages, sms) if rows == 0
+            else (rows, -(-B // rows)))
+    if plan[0] == 0:
+        return grid_plan(GRID_STEP, B, d, layer_dims, stages, sms)[2]
+    return plan[1] * grad_buffer_size(dims)
+
+
+def run_ark_adj(lib, sms, stream, tableau_static, dt, Ys, lam, J_dense,
+                inv_op, weights, biases, activation, sign, rows, grid=0):
+    """``fused_ark_step_adj``'s launch through ``lib`` (the kernel library)
+    on a card of ``sms`` SMs, operands validated: the scratch of the
+    plan's form, one C call on ``stream``. ``grid`` (kernel comparisons
+    only): the grid form on that many co-resident blocks, not the plan's
+    (the outputs' bits do not depend on it)."""
+    B, d = (int(x) for x in lam.shape)
+    s = len(tableau_static[2])
+    dims = [d] + [int(w.shape[1]) for w in weights]
+    if rows not in (0, 1, 2, 4, 8) or grid < 0 or (rows and grid):
+        raise ValueError("fused_ark_step_adj: rows must be 0, 1, 2, 4 or 8 "
+                         "and grid 0 or positive (the grid form's), not both")
     total = grad_buffer_size(dims)
     lam_prev = torch.empty_like(lam)
-    partial = torch.empty(grid * total, dtype=lam.dtype, device=lam.device)
+    scratch = torch.empty(adj_scratch_floats(B, d, dims[1:], s, sms, rows),
+                          dtype=lam.dtype, device=lam.device)
     grads = torch.empty(total, dtype=lam.dtype, device=lam.device)
-    with torch.cuda.device(lam.device):
-        rc = lib.pnode_ark_adj(
-            Ys.data_ptr(), lam.data_ptr(), J_dense.data_ptr(),
-            inv_op.data_ptr(), lam_prev.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), B, d, s, tableau_array(tableau_static),
-            float(dt), float(sign), len(weights), _build.int_array(dims),
-            _build.ptr_array(weights), _build.ptr_array(biases),
-            _ACT_CODES[activation], int(rows), partial.numel(),
-            _build.stream_of(lam))
+    rc = lib.pnode_ark_adj(
+        Ys.data_ptr(), lam.data_ptr(), J_dense.data_ptr(),
+        inv_op.data_ptr(), lam_prev.data_ptr(), scratch.data_ptr(),
+        grads.data_ptr(), B, d, s, tableau_array(tableau_static),
+        float(dt), float(sign), len(weights), _build.int_array(dims),
+        _build.ptr_array(weights), _build.ptr_array(biases),
+        _ACT_CODES[activation], int(rows), int(grid), scratch.numel(),
+        stream)
     _build.check(rc, "fused_ark_step_adj kernel")
     fused_ark_step_adj.launches += 1
     return lam_prev, split_grads(grads, dims)
+
+
+def c_grid_plan(kind, B, d, layer_dims, stages, device):
+    """The C grid plan's (grid, shared-memory bytes, workspace floats) of
+    ``kind`` (GRID_STEP, GRID_LOOP) on ``device``'s card: what
+    ``grid_plan`` mirrors."""
+    import ctypes
+
+    lib = _build.library()
+    dims = [d] + list(layer_dims)
+    grid = _build.int_array([0])
+    smem, ws = (ctypes.c_longlong * 1)(0), (ctypes.c_longlong * 1)(0)
+    with torch.cuda.device(device):
+        rc = lib.pnode_ark_grid_plan(kind, B, d, stages, len(layer_dims),
+                                     _build.int_array(dims), grid, smem, ws)
+    return None if rc else (grid[0], smem[0], ws[0])
+
+
+def c_grid_phases(kind, B, d, layer_dims, tableau_static, k=1):
+    """The C generator's phases (pnode_ark_grid_phases, run on the host:
+    no launch), decoded into ``grid_phases``' form for comparison with the
+    mirror. The workspace and operands are named by addresses that are
+    never read."""
+    import ctypes
+
+    lib = _build.library()
+    s, n = len(tableau_static[2]), len(layer_dims)
+    dims = [d] + list(layer_dims)
+    regions, total = grid_workspace(kind, B, d, layer_dims, s)
+    names = ["ws", "J", "inv", "y"] + [f"W{l}" for l in range(n)] + [
+        f"b{l}" for l in range(n)]
+    base = {name: (j + 1) << 36 for j, name in enumerate(names)}
+    ptrs = lambda pre: (ctypes.c_void_p * n)(  # noqa: E731
+        *[base[f"{pre}{l}"] for l in range(n)])
+    cap, width = 64 * (n + 2) * (s + 2), 20
+    rec = (ctypes.c_longlong * (cap * width))()
+    count = _build.int_array([0])
+    rc = lib.pnode_ark_grid_phases(
+        kind, B, d, s, n, _build.int_array(dims),
+        tableau_array(tableau_static), k, base["ws"], base["J"],
+        base["inv"], base["y"], ptrs("W"), ptrs("b"), rec, cap, count)
+    _build.check(rc, "pnode_ark_grid_phases")
+
+    def where(addr):
+        if addr == 0:
+            return None
+        name = max((nm for nm in base if base[nm] <= addr),
+                   key=lambda nm: base[nm])
+        off = (addr - base[name]) // 4
+        if name != "ws":
+            return (name, off)
+        for region, (o, floats) in regions.items():
+            if o <= off < o + floats:
+                return (region, off - o)
+        raise AssertionError(f"address {addr} outside the workspace")
+
+    phases = []
+    for r in range(count[0]):
+        (ph, pre, epi, stage, layer, M, N, K, G, v, ones, akm, bkm, lda, ldb,
+         ldo, a, b, out, aux) = rec[r * width:(r + 1) * width]
+        if ph == len(phases):
+            phases.append(dict(pre=GRID_PRES[pre], products=[]))
+        if epi < 0:
+            continue
+        phases[ph]["products"].append(dict(
+            epi=GRID_EPIS[epi], stage=stage, layer=layer, M=M, N=N, K=K,
+            G=G, v=v, ones=ones, ldo=ldo, a=where(a) + (lda, akm),
+            b=where(b) + (ldb, bkm), out=where(out), aux=where(aux)))
+    return phases
 
 
 def plan(B, d, layer_dims, stages, device, grad=False):

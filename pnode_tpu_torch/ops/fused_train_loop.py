@@ -43,9 +43,9 @@ import torch
 
 from . import _build
 from .fused_ark_adjoint import (
-    MAX_STAGES, REV_GRAD, _round4, check_step_args,
+    GRID_LOOP, MAX_STAGES, REV_GRAD, _round4, check_step_args,
     check_stiff_dot_precision, fused_ark_step_adj_plain, grad_step_plan,
-    rev_plan_full, sm_count, tableau_array,
+    grid_plan, rev_plan_full, sm_count, tableau_array,
 )
 from .fused_ark_forward import fused_ark_step_fwd_plain
 from .fused_mlp import (
@@ -62,8 +62,8 @@ def fused_train_loop_fits(B: int, d: int, layer_dims: Sequence[int],
     minibatches stream from device memory whatever the chunk. ``stages``
     is the tableau's stage count (ARK3's 4 by default). The KS recipe (64
     -> 104 x4 -> 64) takes R 2 on 128 blocks at B 256; Burgers-512 (512
-    -> 576 x4 -> 512) R 1 on 132 blocks at B 200, inv and J read in place,
-    as the JAX gate takes it into the TPU's VMEM at chunk 16
+    -> 576 x4 -> 512) the grid form at B 200 (132 blocks), as the JAX gate
+    takes it into the TPU's VMEM at chunk 16
     (tests/test_fused_train_loop.py:175)."""
     if B < 1 or chunk < 1 or not 1 <= stages <= MAX_STAGES:
         return False
@@ -80,13 +80,27 @@ def train_loop_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
     stage values, the seed and both steps' scratch in shared memory) with
     the grid capped at ``sms`` blocks, which stride over the row tiles
     past it (R 2, 128 blocks at KS B 256; R 8, 132 blocks at B 3173).
-    ``rows`` 1, 2, 4 or 8 forces R."""
+    Where that plan cannot keep inv and J resident (Burgers-512, d 200),
+    the grid form's (0, grid, bytes) (``grid_plan``). ``rows`` 1, 2, 4 or
+    8 forces R in the row form."""
     plan = rev_plan_full(int(B), int(d), tuple(int(n) for n in layer_dims),
                          int(stages), int(sms), REV_GRAD, int(rows))
     if plan is None:
         return None
-    R, grid, smem, _ = plan
+    R, grid, smem, resident = plan
+    if rows == 0 and not resident:
+        return (0,) + grid_plan(GRID_LOOP, B, d, layer_dims, stages, sms)[:2]
     return R, min(grid, int(sms)), smem
+
+
+def loop_scratch_floats(B, d, layer_dims, stages, sms=132, rows=0):
+    """Floats of K4's scratch at its plan (``rows`` forced or 0): the row
+    form's dW/db partials (a round4 slice of the stack's parameters per
+    block), or the grid form's workspace."""
+    plan = train_loop_plan(B, d, layer_dims, stages, sms, rows)
+    if plan[0] == 0:
+        return grid_plan(GRID_LOOP, B, d, layer_dims, stages, sms)[2]
+    return plan[1] * _round4(grad_buffer_size([d] + list(layer_dims)))
 
 
 def pick_chunk(K: int, B: int, d: int, layer_dims: Sequence[int]) -> int:
@@ -373,9 +387,9 @@ def fused_train_loop(tableau_static, dt, y_stack, tgt_stack, J_dense, inv_op,
     biases[i] (d_{i+1},); m_state and v_state: (Ws, bs) lists of the same
     shapes; t0: Adam updates already applied. Returns (weights', biases',
     (mW', mb'), (vW', vb'), losses (K,)); the inputs are not modified.
-    CUDA tensors launch the kernel (at its plan's rows per block, or
-    ``rows`` 1, 2, 4 or 8 forced, for kernel comparisons); CPU tensors run
-    ``fused_train_loop_plain`` once per chunk.
+    CUDA tensors launch the kernel in its plan's form (``train_loop_plan``),
+    or for kernel comparisons the row form at ``rows`` 1, 2, 4 or 8
+    forced; CPU tensors run ``fused_train_loop_plain`` once per chunk.
     """
     check_stiff_dot_precision()
     K, B, d, s, dims, C = _check_loop_args(
@@ -404,10 +418,13 @@ def fused_train_loop(tableau_static, dt, y_stack, tgt_stack, J_dense, inv_op,
 
 def run_train_loop(lib, sms, stream, tableau_static, dt, y_stack, tgt_stack,
                    J_dense, inv_op, weights, biases, m_state, v_state, t0,
-                   activation, sign, lr, b1, b2, eps, chunk, rows):
+                   activation, sign, lr, b1, b2, eps, chunk, rows, grid=0):
     """``fused_train_loop``'s launches through ``lib`` (the kernel library)
-    on a card of ``sms`` SMs, operands validated: the scratch at K4's plan,
-    then one launch per chunk on ``stream``."""
+    on a card of ``sms`` SMs, operands validated: the scratch of K4's plan
+    (the row form's partials and per-block losses, or the grid form's
+    workspace), then one launch per chunk on ``stream``. ``grid`` (kernel
+    comparisons only): the grid form on that many co-resident blocks, not
+    the plan's (the outputs' bits do not depend on it)."""
     K, B, d = (int(x) for x in y_stack.shape)
     s = len(tableau_static[2])
     dims = [d] + [int(w.shape[1]) for w in weights]
@@ -415,15 +432,17 @@ def run_train_loop(lib, sms, stream, tableau_static, dt, y_stack, tgt_stack,
     if plan is None:
         raise ValueError(f"fused_train_loop: no plan at rows {rows} for B {B}"
                          f", {dims}, {s} stages")
-    grid = plan[1]
+    if grid < 0 or (grid and plan[0]):
+        raise ValueError(f"fused_train_loop: grid {grid} is for the grid form"
+                         f" only, and positive (plan {plan})")
     params = _flat(weights, biases)
     m_flat = _flat(*m_state)
     v_flat = _flat(*v_state)
-    total = grad_buffer_size(dims)
     f32 = dict(dtype=y_stack.dtype, device=y_stack.device)
     losses = torch.empty(K, **f32)
-    partial = torch.empty(grid * _round4(total), **f32)
-    lpart = torch.empty(grid, **f32)
+    partial = torch.empty(loop_scratch_floats(B, d, dims[1:], s, sms, rows),
+                          **f32)
+    lpart = torch.empty(plan[1], **f32) if plan[0] else partial
     for c in range(0, K, chunk):
         rc = lib.pnode_train_loop(
             y_stack[c].data_ptr(), tgt_stack[c].data_ptr(),
@@ -433,7 +452,7 @@ def run_train_loop(lib, sms, stream, tableau_static, dt, y_stack, tgt_stack,
             tableau_array(tableau_static), float(dt), float(sign),
             len(weights), _build.int_array(dims), _ACT_CODES[activation],
             int(t0) + c, float(lr), float(b1), float(b2), float(eps),
-            int(rows), partial.numel(), stream)
+            int(rows), int(grid), partial.numel(), stream)
         _build.check(rc, "fused_train_loop kernel")
         fused_train_loop.launches += 1
     Ws, bs = split_grads(params, dims)

@@ -11,7 +11,11 @@ shapes. Beside them: the rule's dependence on the SM count, the refusals
 and J read in place where their staged copies do not fit, the smaller
 layer store where the whole one does not fit at one row, the fits gate's
 answers (the plans at one row per block, Burgers-512 open) and the
-wrappers' and the loop kernels' gates. Then
+wrappers' and the loop kernels' gates. The grid form (K3's and K4's plans
+where the row form cannot keep inv and J resident: Burgers-512, d 200, d
+300): its tiles walked from the mirror (``grid_phases``), each output and
+each layer's dW/db covered once at any grid, the workspace's regions
+disjoint inside what the wrappers allocate. Then
 K3's and K12's plain versions against the JAX package's ``_kernel`` and
 ``_grad_kernel`` in interpret mode at d 64, hidden 104, B 16, ARK3, at the
 tolerances of tests/test_torch_fused_ark.py (reverse rtol 2e-4 / atol
@@ -29,11 +33,14 @@ from pnode_tpu.ops.fused_ark_forward import fused_ark_step_fwd as j_fwd
 from pnode_tpu.ops.fused_train_loop import LoopLayout as JLayout
 from pnode_tpu.ops.fused_train_loop import fused_grad_step as j_grad_step
 from pnode_tpu.tableaus import get_ark_tableau
+from pnode_tpu_torch.ops import fused_ark_adjoint as adj
 from pnode_tpu_torch.ops.fused_ark_adjoint import (
-    MAX_SMEM_BYTES, _rev_plan_rows, ark_adj_plan, ark_fwd_plan,
-    forced_rows, fused_ark_fits, fused_ark_step_adj, grad_step_plan,
-    rev_plan_full,
+    GRID_LOOP, GRID_SMEM, GRID_STEP, MAX_SMEM_BYTES, _rev_plan_rows,
+    ark_adj_plan, ark_fwd_plan, forced_rows, fused_ark_fits,
+    fused_ark_step_adj, grad_step_plan, grid_phases, grid_plan,
+    grid_workspace, rev_plan_full,
 )
+from pnode_tpu_torch.ops.fused_mlp import grad_buffer_size
 from pnode_tpu_torch.ops.fused_adaptive_loop import fused_adaptive_train_loop
 from pnode_tpu_torch.ops.fused_train_loop import (
     LoopLayout, fused_grad_step, fused_train_loop, fused_train_loop_fits,
@@ -50,17 +57,20 @@ BURGERS = [576] * 4 + [512]
 # (B, d, layer widths, stages) -> the C plans' (rows, grid, bytes) on 132
 # SMs, K3's then K12's: chip_smoke.py's FWD_PLANS and the DP shards of
 # world 2, 4 and 8 (B_local 128, 64, 32). From d 200 up (Burgers-512
-# included) inv and J are read in place. At Burgers-512 K3's R 2 (100
-# blocks) fits, but its ring chunks hold one row: the rule takes R 1.
+# included) the row form cannot keep inv and J resident: K3 takes the grid
+# form there (rows 0, one block per SM), K12 the row form reading them in
+# place. At Burgers-512 K12's R 2 (100 blocks) fits, but its ring chunks
+# hold one row: the rule takes R 1.
+GRID = (0, 132, GRID_SMEM)
 C_PLANS = [
     ((256, 64, KS, 4), (2, 128, 166656), (2, 128, 168192)),
     ((37, 64, KS, 4), (1, 37, 144896), (1, 37, 145664)),
     ((1, 64, KS, 4), (1, 1, 144896), (1, 1, 145664)),
     ((3173, 64, KS, 4), (8, 397, 232448), (8, 397, 232448)),
-    ((200, 512, BURGERS, 4), (1, 200, 232448), (1, 200, 232448)),
-    ((200, 512, BURGERS, 8), (1, 200, 232448), (1, 200, 232448)),
-    ((37, 200, [200, 200], 4), (1, 37, 232448), (1, 37, 232448)),
-    ((37, 300, [300], 4), (1, 37, 232448), (1, 37, 232432)),
+    ((200, 512, BURGERS, 4), GRID, (1, 200, 232448)),
+    ((200, 512, BURGERS, 8), GRID, (1, 200, 232448)),
+    ((37, 200, [200, 200], 4), GRID, (1, 37, 232448)),
+    ((37, 300, [300], 4), GRID, (1, 37, 232432)),
     ((37, 13, [100, 13], 4), (1, 37, 17328), (1, 37, 17472)),
     ((37, 100, [13, 100], 4), (1, 37, 99824), (1, 37, 101024)),
     ((37, 64, [64], 2), (1, 37, 75008), (1, 37, 75264)),
@@ -83,15 +93,19 @@ def test_mirrors_equal_the_c_plans(shape, adj, grad):
 
 
 def test_rule_halves_rows_while_a_chunk_holds_fewer_than_8_rows():
-    """At Burgers-512 B 200, K3's R 2 (100 blocks) fits with one 580-float
-    row of W per ring chunk (92.2 ms on the card against R 1's 10.0 ms,
-    PERF.md), so the rule halves to R 1 (25 rows a chunk); forced R
-    2 still takes its layout. The KS plans keep whole layers a chunk."""
+    """At Burgers-512 B 200, the row form's R 2 (100 blocks) fits with one
+    580-float row of W per ring chunk (92.2 ms on the card against R 1's
+    10.0 ms, PERF.md), so the rule halves to R 1 (25 rows a chunk), which
+    K12 takes; K3 takes the grid form there (inv and J not resident), and
+    forced R 1 and 2 still take their row layouts. The KS plans keep whole
+    layers a chunk."""
     dims = [512] + BURGERS
     assert _rev_plan_rows(2, 512, dims, 4, 4, False, False) is not None
     assert _rev_plan_rows(2, 512, dims, 4, 4, False, False, 0, 8) is None
     assert _rev_plan_rows(1, 512, dims, 4, 4, False, False, 0, 8) is not None
-    assert ark_adj_plan(200, 512, BURGERS, 4)[:2] == (1, 200)
+    assert rev_plan_full(200, 512, tuple(BURGERS), 4, 132, 0)[:2] == (1, 200)
+    assert ark_adj_plan(200, 512, BURGERS, 4)[:2] == (0, 132)
+    assert grad_step_plan(200, 512, BURGERS, 4)[:2] == (1, 200)
     assert forced_rows(512, BURGERS, 4) == [1, 2]
     assert rev_plan_full(200, 512, tuple(BURGERS), 4, 132, 0, 2)[:2] == (
         2, 100)
@@ -179,7 +193,7 @@ def test_fits_gate_answers_at_ks_and_burgers():
     assert fused_ark_fits(512, BURGERS, 8)
     assert not fused_ark_fits(64, KS, 9)
     assert ark_adj_plan(1, 64, KS, 4) == (1, 1, 144896)
-    assert ark_adj_plan(1, 512, BURGERS, 4) == (1, 1, MAX_SMEM_BYTES)
+    assert ark_adj_plan(1, 512, BURGERS, 4) == GRID
 
 
 @pytest.mark.parametrize("stages", [1, 2, 4, 8])
@@ -204,7 +218,404 @@ def test_fits_gate_is_the_plans_and_they_take_every_batch(stages):
                 assert grad_step_plan(B, d, layers, stages) is not None
 
 
+def test_grid_form_at_burgers_and_row_form_at_ks():
+    """K3's and K4's plans take the grid form at Burgers-512 (B 200, 4 and
+    8 stages) and where d 200 reads inv and J in place, the row form at
+    every pinned KS shape; K12 keeps the row form everywhere. The form
+    follows the row plan's residency alone, so the gates do not move."""
+    from pnode_tpu_torch.ops.fused_train_loop import train_loop_plan
+
+    for s in (4, 8):
+        assert ark_adj_plan(200, 512, BURGERS, s) == GRID
+        assert train_loop_plan(200, 512, BURGERS, s) == GRID
+        assert grad_step_plan(200, 512, BURGERS, s)[0] == 1
+        assert grid_plan(GRID_STEP, 200, 512, BURGERS, s)[:2] == GRID[1:]
+    assert ark_adj_plan(37, 200, [200, 200], 4) == GRID
+    assert train_loop_plan(37, 200, [200, 200], 4) == GRID
+    assert ark_adj_plan(200, 512, BURGERS, 4, sms=64)[:2] == (0, 64)
+    for shape, want, _ in C_PLANS:
+        full = rev_plan_full(shape[0], shape[1], tuple(shape[2]), shape[3],
+                             132, 0)
+        if full is not None:
+            assert (ark_adj_plan(*shape)[0] == 0) == (not full[3])
+        if shape[1] == 64 and want is not None:
+            assert ark_adj_plan(*shape)[0] > 0
+            assert train_loop_plan(*shape)[0] > 0
+
+
+# grid-form shapes: Burgers-512 at bench.py's B 200, a B no tile height
+# divides (37), d 200 at B 50, an 8-stage tableau, a tableau whose stage 1
+# has no explicit weight (ARK 4), one layer (ARK 4 and ARK3, whose
+# explicit stage 0 has no MLP product to share its stiff product's
+# phase), rows of 197 and 201 floats (not 16-byte aligned), and LATE's
+# explicit stage 1 at one and two layers
+GRID_CASES = [
+    (200, 512, BURGERS, "3"), (37, 512, BURGERS, "3"),
+    (50, 200, [200, 200], "3"), (13, 200, [200, 200], "5"),
+    (9, 300, [300], "4"), (7, 300, [300, 300], "3"),
+    (37, 300, [300], "3"), (37, 197, [201, 197], "3"),
+    (37, 300, [300], "late"), (9, 200, [200, 200], "late"),
+]
+GRID_IDS = [f"B{c[0]}-d{c[1]}-{len(c[2])}l-ARK{c[3]}" for c in GRID_CASES]
+
+
+def grid_tile(M, N, t):
+    """Output tile t of an (M, N) product, row-major over the tile grid
+    (csrc/ark_grid.cuh gemm_tile): (first row, first column, rows,
+    columns)."""
+    ntn = -(-N // 32)
+    m0, n0 = t // ntn * 32, t % ntn * 32
+    return m0, n0, min(32, M - m0), min(32, N - n0)
+
+
+def grid_tiles(M, N):
+    return -(-M // 32) * -(-N // 32)
+
+
+def grid_reduction_order(K, G, v):
+    """The reduction indices in the order a tile's chains take them
+    (csrc/ark_grid.cuh red_index over group_len's positions): group 0's,
+    then group 1's, ... (a chain per group, summed in group order)."""
+    nb = -(-K // v)
+    order = []
+    for g in range(G):
+        length = (nb - g + G - 1) // G * v if g < nb else 0
+        order += [g + G * q if v == 1 else 4 * (g + G * (q >> 2)) + (q & 3)
+                  for q in range(length)]
+    return order
+
+
+@pytest.mark.parametrize("kind", [GRID_STEP, GRID_LOOP])
+@pytest.mark.parametrize("B, d, layers, tname", GRID_CASES, ids=GRID_IDS)
+def test_grid_tiles_cover_every_output_once(B, d, layers, tname, kind):
+    """Walks the grid form's phases from the mirror: every product's tiles
+    cover its (M, N) output exactly once, the blocks of any grid take each
+    tile once, each tile's reduction takes every k once (the row form's
+    groups), the outputs and operands lie inside their workspace regions,
+    and the dW/db products cover each layer's [W; b] once, so the whole
+    flat gradient. The tile groups (two a block) take tile t at group t //
+    grid of block t % grid, then every 2 grid tiles. The regions are
+    disjoint, 16-byte aligned and inside the workspace the plan (and so
+    the wrapper) allocates."""
+    tbl, _ = _tableau(tname)
+    s = len(tbl[2])
+    regions, total = grid_workspace(kind, B, d, layers, s)
+    assert grid_plan(kind, B, d, layers, s)[2] == total
+    spans = sorted((o, o + f) for o, f in regions.values())
+    assert all(o % 4 == 0 for o, _ in spans) and spans[-1][1] <= total
+    assert all(a1 <= b0 for (_, a1), (b0, _) in zip(spans, spans[1:]))
+    dims = [d] + layers
+    woff = np.cumsum([0] + [K * N + N for K, N in zip(dims, dims[1:])])
+    grads = np.zeros(grad_buffer_size(dims), int)
+    phases = grid_phases(kind, B, d, layers, tbl)
+    for phase in phases:
+        prods = phase["products"]
+        ntile = sum(grid_tiles(p["M"], p["N"]) for p in prods)
+        for grid in (132, 66, 5):
+            walked = sorted(t for b in range(grid) for g in range(2)
+                            for t in range(b + g * grid, ntile, 2 * grid))
+            assert walked == list(range(ntile))
+        for p in prods:
+            M, N, K = p["M"], p["N"], p["K"]
+            cover = np.zeros((M, N), int)
+            for t in range(grid_tiles(M, N)):
+                m0, n0, r, c = grid_tile(M, N, t)
+                assert r > 0 and c > 0
+                cover[m0:m0 + r, n0:n0 + c] += 1
+            assert (cover == 1).all()
+            order = grid_reduction_order(K, p["G"], p["v"])
+            assert sorted(order) == list(range(K))
+            for name, off, ld, kmajor in (p["a"], p["b"]):
+                rows = K if kmajor else (N if (name, off, ld, kmajor) == p[
+                    "b"] else M - (p["ones"] >= 0))
+                if name in regions:
+                    assert off + rows * ld <= regions[name][1]
+            if p["epi"] in ("grad", "adam"):
+                grads[woff[p["layer"]]:woff[p["layer"]] + M * N] += 1
+            elif p["out"] is not None:
+                name, first = p["out"]
+                assert p["ldo"] == N and first + M * N <= regions[name][1]
+    assert (grads == 1).all()
+    # the step's phases: K3's staging and recompute or K4's forward, then
+    # per reached stage its backprop (and an implicit stage's solve), then
+    # dW
+    n = len(layers)
+    assert len(phases) >= s + 1 + (n if kind == GRID_STEP else s * n)
+
+
+def _grid_accesses(kind, B, d, layers, tbl, phase):
+    """What a phase's tiles read and write, as csrc/ark_grid.cuh's
+    tile_epilogue and phase_pre do: (owner, region, first, end, mode)
+    with mode "read" for a product's staged operands and the biases (any
+    tile reads any of it), "pr" / "pw" for an epilogue's reads and writes
+    at its own outputs' elements e < M ldo (the thread that writes an
+    element is the one that reads it there: owner (product, region,
+    first)). Regions: the workspace's, "W{l}", "b{l}", "J", "inv", the
+    inputs "y", "tgt", "lam_in", and the outputs "lam_prev", "grads",
+    Adam's "m", "v"."""
+    aI, s = tbl[0], len(tbl[2])
+    dims, n, bd = [d] + list(layers), len(layers), B * d
+    woff = np.cumsum([0] + [K * N + N for K, N in zip(dims, dims[1:])])
+    um, em = adj.reach_masks(tbl)
+    reached = [j for j in range(s) if (um | em) >> j & 1]
+    acc = []
+    if phase["pre"] == "loss":
+        acc.append(("pre", "lrow", 0, B, "read"))
+    elif phase["pre"] == "rows":
+        acc += [("pre", "diff", 0, bd, "read"), ("pre", "lrow", 0, B, "pw")]
+    for j, p in enumerate(phase["products"]):
+        span = p["M"] * p["ldo"]
+
+        def pt(mode, name, first, size=span):
+            acc.append(((j, name, first), name, first, first + size, mode))
+
+        def covectors(i, cur):
+            for mm in reached:
+                if mm > i and mm != cur:
+                    pt("pr", "xi", mm * bd)
+            pt("pw", "u", i * bd)
+            if em >> i & 1:
+                pt("pw", f"g{n - 1}", (s - 1 - i) * bd)
+            elif aI[i][i] != 0.0 and um >> i & 1:
+                pt("pw", "q", i * bd)
+
+        def xi_done(i):
+            pt("pr", "lam" if kind == GRID_LOOP else "lam_in", 0)
+            pt("pw", "xi", i * bd)
+            lower = [m for m in reached if m < i]
+            if lower:
+                covectors(lower[-1], i)
+            elif kind == GRID_STEP:
+                for st in reached:
+                    if st != i:
+                        pt("pr", "xi", st * bd)
+                pt("pw", "lam_prev", 0)
+
+        M, N, K = p["M"], p["N"], p["K"]
+        for op, rows in (("a", M - (p["ones"] >= 0)), ("b", N)):
+            name, off, ld, kmajor = p[op]
+            acc.append((j, name, off, off + (K if kmajor else rows) * ld,
+                        "read"))
+        i, l, epi = p["stage"], p["layer"], p["epi"]
+        hu, he, impl = um >> i & 1, em >> i & 1, aI[i][i] != 0.0
+        if epi == "act":
+            acc.append((j, f"b{l}", 0, N, "read"))
+            pt("pw", *p["out"])
+        elif epi == "backprop":
+            pt("pr", *p["aux"])
+            pt("pw", *p["out"])
+        elif epi == "pv":
+            pt("pw", "pv", 0)
+        elif epi == "stage_end":
+            if he and hu and not impl:
+                pt("pr", "pv", 0)
+            if not impl:
+                xi_done(i)
+            else:
+                if hu:
+                    pt("pr", "u", i * bd)
+                pt("pw", "q", i * bd)
+        elif epi == "xi":
+            if hu:
+                pt("pr", "u", i * bd)
+            xi_done(i)
+        elif epi == "grad":
+            pt("pw", "grads", woff[l])
+        elif epi == "adam":
+            for name in ("m", "v"):
+                pt("pr", name, woff[l])
+                pt("pw", name, woff[l])
+            pt("pw", f"W{l}", 0, dims[l] * N)
+            pt("pw", f"b{l}", 0, N)
+        elif epi == "fwd_stiff":
+            pt("pr", *p["a"][:2])
+            pt("pw", "ys", (s - 1 - i) * bd)
+            pt("pw", "kI", i * bd)
+        elif epi == "fwd_ke":
+            acc.append((j, f"b{n - 1}", 0, N, "read"))
+            pt("pr", "y", 0)
+            pt("pw", "kE", i * bd)
+            for jj in range(i + 1):
+                pt("pr", "kI", jj * bd)
+                if jj < i:
+                    pt("pr", "kE", jj * bd)
+            if i + 1 < s:
+                pt("pw", "G", 0)
+            else:
+                pt("pr", "tgt", 0)
+                for name in ("diff", "lam"):
+                    pt("pw", name, 0)
+                if reached:
+                    covectors(reached[-1], -1)
+        else:
+            raise AssertionError(f"no access model for {epi}")
+    return acc
+
+
+def _grid_hazards(acc):
+    """Pairs of a phase's accesses in which one tile writes what another
+    tile of the phase reads or writes: a write against a staged read, or
+    against an epilogue's access by another owner."""
+    return [(w, x) for w in acc if w[4] == "pw" for x in acc
+            if x is not w and x[1] == w[1] and x[2] < w[3] and w[2] < x[3]
+            and (x[4] == "read" or x[0] != w[0])]
+
+
+@pytest.mark.parametrize("kind", [GRID_STEP, GRID_LOOP])
+@pytest.mark.parametrize("B, d, layers, tname", GRID_CASES, ids=GRID_IDS)
+def test_grid_phases_write_nothing_another_tile_reads(B, d, layers, tname,
+                                                       kind):
+    """Within each of the mirror's phases (at K4's first iteration and a
+    later one), no tile writes an element that another tile of the phase
+    reads or writes, or that a product stages: the grid barrier between
+    phases is the only ordering the kernel has."""
+    tbl, _ = _tableau(tname)
+    for k in (0, 1) if kind == GRID_LOOP else (0,):
+        for phase in grid_phases(kind, B, d, layers, tbl, k):
+            assert _grid_hazards(_grid_accesses(kind, B, d, layers, tbl,
+                                                phase)) == []
+
+
+def test_grid_hazard_check_sees_a_shared_one_layer_phase():
+    """The check above sees the race of a one-layer stack whose explicit
+    stage's layer shared the stiff product's phase: kE_i's epilogue reads
+    kI_i, which the stiff product's epilogue writes, and writes G_{i+1}
+    over the G_i that both products stage. Apart (the layer on Y_i's
+    slot, a phase later), the two phases are clean."""
+    B, d, i = 37, 300, 1
+    phases = grid_phases(GRID_LOOP, B, d, [300], LATE, 1)
+    stage = [ph for ph in phases[:6] if ph["products"][0]["stage"] == i]
+    assert [ph["products"][0]["epi"] for ph in stage] == ["fwd_stiff",
+                                                          "fwd_ke"]
+    assert stage[1]["products"][0]["a"][:2] == ("ys", (3 - 1 - i) * B * d)
+    for ph in stage:
+        assert _grid_hazards(_grid_accesses(GRID_LOOP, B, d, [300], LATE,
+                                            ph)) == []
+    stiff, layer = stage[0]["products"][0], stage[1]["products"][0]
+    shared = dict(pre="none", products=[stiff, dict(layer, a=stiff["a"])])
+    bad = {(w[1], x[1]) for w, x in _grid_hazards(_grid_accesses(
+        GRID_LOOP, B, d, [300], LATE, shared))}
+    assert ("kI", "kI") in bad and ("G", "G") in bad
+
+
+@pytest.mark.parametrize("kind, k", [(GRID_STEP, 0), (GRID_LOOP, 0),
+                                     (GRID_LOOP, 1)])
+def test_c_grid_phases_reads_the_generator_records(monkeypatch, kind, k):
+    """``c_grid_phases`` (what chip_smoke.py's build phase holds against
+    the mirror) decodes pnode_ark_grid_phases' records, 20 long longs a
+    product with the operands' addresses, back to regions: a stand-in
+    library that writes the mirror's products at the addresses it is
+    given reads back as the mirror."""
+    B, d, layers = 37, 197, [201, 197]
+    tbl, _ = _tableau("3")
+    s, n = len(tbl[2]), len(layers)
+    want = grid_phases(kind, B, d, layers, tbl, k)
+    regions, _ = grid_workspace(kind, B, d, layers, s)
+
+    class Lib:
+        def pnode_ark_grid_phases(self, kind_, B_, d_, s_, n_, dims, tab, k_,
+                                  ws, J, inv, y, Ws, bs, rec, cap, count):
+            assert (kind_, B_, d_, s_, n_, k_) == (kind, B, d, s, n, k)
+            assert list(dims) == [d] + layers
+            base = {"ws": ws, "J": J, "inv": inv, "y": y}
+            base.update({f"W{l}": Ws[l] for l in range(n)})
+            base.update({f"b{l}": bs[l] for l in range(n)})
+
+            def addr(where):
+                if where is None:
+                    return 0
+                name, off = where[:2]
+                if name in regions:
+                    return ws + 4 * (regions[name][0] + off)
+                return base[name] + 4 * off
+
+            r = 0
+            for ph, phase in enumerate(want):
+                pre = adj.GRID_PRES.index(phase["pre"])
+                for p in phase["products"] or [None]:
+                    f = [ph, pre] + ([-1] + [0] * 17 if p is None else [
+                        adj.GRID_EPIS.index(p["epi"]), p["stage"],
+                        p["layer"], p["M"], p["N"], p["K"], p["G"], p["v"],
+                        p["ones"], p["a"][3], p["b"][3], p["a"][2],
+                        p["b"][2], p["ldo"], addr(p["a"]), addr(p["b"]),
+                        addr(p["out"]), addr(p["aux"])])
+                    rec[20 * r:20 * r + 20] = f
+                    r += 1
+            assert r <= cap
+            count[0] = r
+            return 0
+
+    monkeypatch.setattr(adj._build, "library", lambda: Lib())
+    assert adj.c_grid_phases(kind, B, d, layers, tbl, k) == want
+
+
+def _Lib():
+    """A stand-in kernel library recording each C call's arguments."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append((name, args))
+                return 0
+            return call
+
+    lib = Lib()
+    lib.calls = calls
+    return lib
+
+
+@pytest.mark.parametrize("B, rows, grid", [(200, 0, 0), (200, 0, 66),
+                                           (200, 1, 0), (256, 0, 0)])
+def test_k3_launch_arguments(B, rows, grid):
+    """K3's wrapper passes the scratch of its plan's form: the grid form's
+    workspace at Burgers (the plan's grid, or a smaller one asked for), the
+    row form's partials at forced rows and at KS."""
+    d, layers = (512, BURGERS) if B == 200 else (64, KS)
+    tbl, dt, y, J, inv, Ws, bs, lam = _operands("3", B, d, layers, seed=3)
+    lib = _Lib()
+    adj.run_ark_adj(lib, 132, 0, tbl, dt, torch.zeros(4, B, d), _t(lam),
+                    _t(J), _t(inv), [_t(w) for w in Ws], [_t(b) for b in bs],
+                    "relu", -1.0, rows, grid)
+    (name, a), = lib.calls
+    dims = [d] + layers
+    if B == 200 and rows == 0:
+        want = grid_plan(GRID_STEP, B, d, layers, 4)[2]
+    else:
+        R = rows or ark_adj_plan(B, d, layers, 4)[0]
+        want = -(-B // R) * grad_buffer_size(dims)
+    assert name == "pnode_ark_adj" and a[-4:-1] == (rows, grid, want)
+    assert adj.adj_scratch_floats(B, d, layers, 4, 132, rows) == want
+    with pytest.raises(ValueError, match="rows"):
+        adj.run_ark_adj(lib, 132, 0, tbl, dt, torch.zeros(4, B, d), _t(lam),
+                        _t(J), _t(inv), [_t(w) for w in Ws],
+                        [_t(b) for b in bs], "relu", -1.0, 2, 66)
+
+
+def test_grid_workspace_at_burgers():
+    """The workspace at Burgers-512, B 200, ARK3: every stage's layer
+    inputs (4 x 576 wide) and covectors (4 x 576 + 512), xi, u and q, pv
+    and the stage values: 23.3 MB for K3; K4 adds kI, kE, G, the seed,
+    y1 - tgt and the per-row losses: 27.9 MB. Both fit the 50 MB L2."""
+    s, sb = 4, 4 * 200
+    k3 = grid_plan(GRID_STEP, 200, 512, BURGERS, s)[2]
+    k4 = grid_plan(GRID_LOOP, 200, 512, BURGERS, s)[2]
+    assert k3 == sb * (4 * 576) + sb * (4 * 576 + 512) + 4 * sb * 512 \
+        + 200 * 512
+    assert k4 == k3 + 2 * sb * 512 + 3 * 200 * 512 + 200
+    assert 4 * k3 == 23_347_200 and 4 * k4 == 27_853_600
+
+
+# a 3-stage tableau whose explicit stage is not the first (stage 1: G_1
+# comes from the workspace, not the minibatch), with kI_1 in stage 2
+LATE = ([[0.5, 0.0, 0.0], [0.25, 0.0, 0.0], [0.25, 0.25, 0.5]],
+        [[0.0, 0.0, 0.0], [0.5, 0.0, 0.0], [0.25, 0.5, 0.0]],
+        [0.25, 0.25, 0.5], [0.25, 0.5, 0.25])
+
+
 def _tableau(name):
+    if name == "late":
+        return LATE, None
     t = get_ark_tableau(name)
     return ([[float(x) for x in r] for r in t.a_im],
             [[float(x) for x in r] for r in t.a_ex],

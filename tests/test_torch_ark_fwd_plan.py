@@ -24,7 +24,7 @@ import torch
 from pnode_tpu.ops.fused_ark_forward import fused_ark_step_fwd as j_fwd
 from pnode_tpu.tableaus import get_ark_tableau
 from pnode_tpu_torch.ops.fused_ark_adjoint import (
-    MAX_SMEM_BYTES, ark_adj_plan, ark_fwd_plan, fused_ark_fits,
+    GRID_SMEM, MAX_SMEM_BYTES, ark_adj_plan, ark_fwd_plan, fused_ark_fits,
     fused_ark_step_adj,
 )
 from pnode_tpu_torch.ops.fused_ark_forward import (
@@ -96,13 +96,14 @@ def test_plan_refuses(args):
 
 def test_fits_gate_answers():
     """The gate is the plans at one row per block: KS and Burgers-512 fit
-    both step kernels (at Burgers-512 both plans fill the opt-in shared
-    memory), a layer wider than a product takes fits neither."""
+    both step kernels (at Burgers-512 K2's plan fills the opt-in shared
+    memory and K3's takes the grid form: one block per SM, 132 on an H100
+    SXM), a layer wider than a product takes fits neither."""
     assert fused_ark_fits(64, KS, 4)
     assert fused_ark_fits(512, BURGERS, 4, reverse=False)
     assert fused_ark_fits(512, BURGERS, 4)
     assert ark_fwd_plan(1, 512, BURGERS, 4) == (1, 1, MAX_SMEM_BYTES)
-    assert ark_adj_plan(1, 512, BURGERS, 4) == (1, 1, MAX_SMEM_BYTES)
+    assert ark_adj_plan(1, 512, BURGERS, 4) == (0, 132, GRID_SMEM)
     assert ark_adj_plan(1, 64, KS, 4) == (1, 1, 144896)
     assert not fused_ark_fits(64, [1100, 64], 4, reverse=False)
 

@@ -28,6 +28,7 @@ import pnode_tpu_torch as pt
 from pnode_tpu import FlaxFunc, ODESolver
 from pnode_tpu.models import KSFuncEX, KSFuncIM
 from pnode_tpu.ops.fused_train_loop import fused_train_loop as j_loop
+from pnode_tpu_torch.ops.fused_ark_adjoint import GRID_SMEM
 from pnode_tpu_torch.ops.fused_train_loop import (
     fused_train_loop, fused_train_loop_cost, fused_train_loop_fits,
     fused_train_loop_plain, pick_chunk, train_loop_plan,
@@ -181,15 +182,15 @@ def test_fused_train_loop_distinct_minibatches():
 
 def test_fused_train_loop_fits_the_h100():
     """The gate is K4's plan on the H100, not the TPU's VMEM. It opens at
-    Burgers-512, as the JAX gate does at chunk 16
-    (tests/test_fused_train_loop.py:175), and both refuse (4096, 2048,
-    [4096, 4096])."""
+    Burgers-512 (the grid form, one block per SM), as the JAX gate does at
+    chunk 16 (tests/test_fused_train_loop.py:175), and both refuse (4096,
+    2048, [4096, 4096])."""
     ks = [104] * 4 + [64]
     assert train_loop_plan(256, 64, ks, 4) == (2, 128, 168192)
     assert fused_train_loop_fits(256, 64, ks)
     assert fused_train_loop_fits(256, 64, [64, 64])
-    assert train_loop_plan(200, 512, [576] * 4 + [512], 4) == (1, 132,
-                                                                232448)
+    assert train_loop_plan(200, 512, [576] * 4 + [512], 4) == (0, 132,
+                                                                GRID_SMEM)
     assert fused_train_loop_fits(200, 512, [576] * 4 + [512], chunk=16)
     assert not fused_train_loop_fits(4096, 2048, [4096, 4096])
     # neither the batch nor the chunk binds; stages and layers do

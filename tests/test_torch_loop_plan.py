@@ -24,7 +24,8 @@ import torch
 from pnode_tpu_torch.ops import fused_adaptive_loop as fal
 from pnode_tpu_torch.ops import fused_train_loop as ftl
 from pnode_tpu_torch.ops.fused_ark_adjoint import (
-    MAX_SMEM_BYTES, fused_ark_fits, grad_step_plan,
+    GRID_LOOP, GRID_SMEM, MAX_SMEM_BYTES, fused_ark_fits, grad_step_plan,
+    grid_plan,
 )
 from pnode_tpu_torch.ops.fused_mlp import grad_buffer_size
 from pnode_tpu_torch.tableaus import get_ark_tableau
@@ -120,14 +121,16 @@ def test_k5_takes_only_resident_layouts():
 
 
 def test_gates_pinned_at_ks_and_burgers():
-    """K4 opens where its plan does: R 2 on 128 blocks at KS B 256, R 1 on
-    132 blocks (68 of them striding over a second row) at Burgers-512 B
-    200, as the JAX gate opens there (tests/test_fused_train_loop.py:175).
-    K5's 8-row budget closes Burgers-512, and so does its plan: it forms
-    the trial's stage inverse beside J in shared memory."""
+    """K4 opens where its plan does: R 2 on 128 blocks at KS B 256, the
+    grid form at Burgers-512 B 200 (132 blocks, one an SM; the row form's R
+    1 on 132 blocks, forced, still fits), as the JAX gate opens there
+    (tests/test_fused_train_loop.py:175). K5's 8-row budget closes
+    Burgers-512, and so does its plan: it forms the trial's stage inverse
+    beside J in shared memory."""
     assert ftl.train_loop_plan(256, 64, KS, 4) == (2, 128, 168192)
-    assert ftl.train_loop_plan(200, 512, BURGERS, 4) == (1, 132,
-                                                          MAX_SMEM_BYTES)
+    assert ftl.train_loop_plan(200, 512, BURGERS, 4) == (0, 132, GRID_SMEM)
+    assert ftl.train_loop_plan(200, 512, BURGERS, 4, rows=1) == (
+        1, 132, MAX_SMEM_BYTES)
     assert fal._adaptive_smem_bytes(64, KS, 4, 32) == 84944
     assert fal._adaptive_smem_bytes(512, BURGERS, 4, 32) == 2456784
     assert ftl.fused_train_loop_fits(256, 64, KS)
@@ -235,7 +238,8 @@ def _loop_operands(K, B, d, hidden, seed=0):
                                             (3173, 0, 8)])
 def test_k4_launch_arguments(B, rows, chunk):
     """One launch per chunk, the scratch at the plan's grid: grid slices of
-    round4(wtotal) floats (C refuses any other count), lpart grid floats."""
+    round4(wtotal) floats (C refuses any other count), lpart grid floats;
+    the grid argument 0 (the row form takes its plan's)."""
     K, d, hidden = 16, 64, [104] * 4
     y, tgt, J, inv, Ws, bs, z = _loop_operands(K, B, d, hidden)
     lib = _Lib()
@@ -250,8 +254,34 @@ def test_k4_launch_arguments(B, rows, chunk):
     for i, (_, a) in enumerate(lib.calls):
         assert a[10:14] == (chunk or K, B, d, 4)
         assert a[20] == 3 + i * (chunk or K)  # t0 of the chunk
-        assert a[25:27] == (rows, grid * (-(-total // 4) * 4))
+        assert a[25:28] == (rows, 0, grid * (-(-total // 4) * 4))
     assert len(out[4]) == K
+
+
+@pytest.mark.parametrize("rows, grid", [(0, 0), (0, 66), (1, 0)])
+def test_k4_launch_arguments_at_burgers(rows, grid):
+    """At Burgers-512 (B 200) the plan's grid form takes the workspace of
+    ``grid_plan`` (27.9 MB at 4 stages, no dW/db partials: the row form's
+    132 partials of the stack at forced R 1 take 0.84 GB), and the grid
+    argument a smaller co-resident grid; the row form refuses one."""
+    K, B, d, hidden = 2, 200, 512, [576] * 4
+    y, tgt, J, inv, Ws, bs, z = _loop_operands(K, B, d, hidden)
+    tab, _ = _tab()
+    lib = _Lib()
+    ftl.run_train_loop(lib, 132, 0, tab, 1e-3, y, tgt, J, inv, Ws, bs, z, z,
+                       0, "relu", 1.0, 5e-3, 0.9, 0.999, 1e-8, K, rows, grid)
+    (name, a), = lib.calls
+    ws = grid_plan(GRID_LOOP, B, d, hidden + [d], 4)[2]
+    partials = 132 * (-(-grad_buffer_size([d] + hidden + [d]) // 4) * 4)
+    assert a[25:28] == (rows, grid, partials if rows else ws)
+    assert ftl.loop_scratch_floats(B, d, hidden + [d], 4, 132, rows) == \
+        a[27]
+    assert 4 * ws == 27_853_600 and 4 * partials > 8.3e8
+    with pytest.raises(ValueError, match="grid"):
+        ftl.run_train_loop(lib, 132, 0, tab, 1e-3, y, tgt, J, inv, Ws, bs, z,
+                           z, 0, "relu", 1.0, 5e-3, 0.9, 0.999, 1e-8, K, 1,
+                           66)
+    assert len(lib.calls) == 1
 
 
 def test_k5_launch_arguments():
