@@ -18,10 +18,11 @@ exits non-zero without printing the final line):
    K5's C plan (rows per block, grid, shared memory; K5's workspace)
    differs from its Python mirror at FWD_PLANS (K3, K12 and K4 also at the
    DP shards, K4 and K5 at LOOP_PLANS and at every forced R of phase 3's
-   loop cases), or the grid form's (grid, shared memory, workspace; K3's
-   and K4's where the row form cannot keep inv and J resident) at the
-   shapes that take it, or the grid form's phases (its products, listed by
-   the C generator on the host) from their mirror's at grid_phase_cases.
+   loop cases), or the grid form's (grid, shared memory, workspace; of
+   its four kinds, K3's, K4's, K12's and K2's, where the row form cannot
+   keep inv and J resident) at the shapes that take it, or the grid form's
+   phases (its products, listed by the C generator on the host, all four
+   kinds) from their mirror's at grid_phase_cases.
    Then the probe (python -m pnode_tpu_torch.tools.probe_smem_limit, K13):
    the largest dynamic shared memory one block takes, up a ladder and
    bisected to 4 bytes, must equal the gates' MAX_SMEM_BYTES and the card's
@@ -77,15 +78,18 @@ exits non-zero without printing the final line):
    times in turns and the device time. Then Burgers-512 on bench.py's
    recipe (phase_burgers_kernels: B 200, 512 -> 576 x4 -> 512, dt 1e-3,
    BurgersFuncIM's operators, the seed-0 BurgersFuncEX stack, f_EX =
-   +MLP, y ~ N(0, 1), target y + 0.05 N(0, 1)): K2 and K3 against their
-   plain versions with the gates above, K3 in its plan's grid form (at the
-   plan's grid and at half of it) and in the row form at forced R 1 (the
-   form the plan took before the grid form); K12 at (200, 512) and at the
-   two-rank shard (100, 512) (check_grad_step); K4 over K = 8 distinct
-   minibatches (check_loop, K4's gates) in the grid form and in the row
-   form at forced R 1 (132 blocks, 68 of them taking a second row tile);
-   K3's
-   lam_prev, dW and db and K4's parameters, moments and losses bitwise
+   +MLP, y ~ N(0, 1), target y + 0.05 N(0, 1)): K2 (without and with err)
+   and K3 against their plain versions with the gates above, each in its
+   plan's grid form (at the plan's grid and at half of it) and in the row
+   form at forced R (K2's 2, K3's 1: the forms the plans took before the
+   grid form); K12 at (200, 512) and at the two-rank shard (100, 512)
+   (check_grad_step), in the grid form at both grids, its gradient bitwise
+   equal to the K2 -> seed -> K3 chain's (grad_grid_checks); K4 over K =
+   8 distinct minibatches (check_loop, K4's gates) in the grid form and
+   in the row form at forced R 1 (132 blocks, 68 of them taking a second
+   row tile); K2's y1, stage values and err bitwise equal across two
+   calls, the two grids and the row form; K3's lam_prev, dW and db, K12's
+   loss and gradient and K4's parameters, moments and losses bitwise
    equal across two calls and across the plan's grid and half of it, K3's
    lam_prev bitwise equal to the row form's; each timed in turns with its
    plain version and the row form, by the profiler, and by the device
@@ -189,7 +193,10 @@ exits non-zero without printing the final line):
    B_local 256, 128, 64 and 32 (the shard at world 1, 2, 4 and 8) and at B
    37, hidden 24, with phase 3's K3 gates, at the plan's rows per block and
    at every forced R that fits; per call beside its plain version, and its
-   device time. (b) dp_fused_train_loop in a spawned one-rank NCCL group with
+   device time; K12 and K2 in the grid form at B 256 (which their plans
+   never take at KS) against their plain versions, K2's bitwise the row
+   form's, each timed beside the row form (ks_grid_reading). (b)
+   dp_fused_train_loop in a spawned one-rank NCCL group with
    force_general, K = 8 iterations against K4 on the same full batch in
    phase 4(a)'s form (runs_agree); without force_general K4 launches and
    K12 does not. (c) The same over gloo in groups of 2 and 4 processes on
@@ -199,10 +206,13 @@ exits non-zero without printing the final line):
    torchrun --standalone --nproc_per_node 1 examples/ks_torch.py --dp 1 for
    one epoch of 3 iterations: its train loss equal to the run without --dp
    within 1e-5 relative. K12's launches over (b) and (c) must be above 0.
-   (f) Burgers-512 (phase_dp_burgers): dp_fused_train_loop at world 1
-   with force_general (K12 at B 200) on bench.py's recipe, K = 8
-   iterations against K4 on the same batches in phase 7(b)'s form, K12
-   launched.
+   (f) Burgers-512 (dp_burgers_case, check_dp_burgers; its ranks run in
+   (b)'s and (c)'s groups of 1 and 2): dp_fused_train_loop with
+   force_general on bench.py's recipe at world 1 (K12 at B 200) and over
+   gloo in a group of 2 processes on the one card (K12 at B 100 on each),
+   K = 8 iterations against K4 on the full batch per step and in phase
+   7(b)'s form, the 2 ranks bitwise equal, K12 launched on every rank;
+   the DP loop's iterations/s at world 1 beside K4's.
 
 9. The theta slice (CN with mass matrices, matrix-free GMRES, the solve
    without the adjoint). (a) K10 and K11 under torch.func at the KS snode
@@ -224,7 +234,7 @@ exits non-zero without printing the final line):
    at 1e-3 over 100 steps, autograd through the steps, the kernel path
    (K1, K10/K11) against the plain path (loss and gradient within 1e-4),
    K1's, K10's and K11's launches above 0, iterations/s, peak memory. (e)
-   examples/pendulum_dae_torch.py for 5 iterations: the loss goes down,
+   examples/pendulum_dae_torch.py for 4 iterations: the loss goes down,
    the first loss within 1e-5 of the port's CPU fp64 run, the constraint
    violation.
 10. The checkpointed trajectories and the new drivers. (a) KS IMEX at B
@@ -301,9 +311,10 @@ exits non-zero without printing the final line):
    block's gradient at each stage (stage 1 also layered) on both paths
    from the same input and cotangent (BF16_BLOCK_TOL: each tensor's
    cosine and norm ratio), beside the bf16-against-fp32 control; its
-   argmax against the fp32 kernel path's. (c) 12 SGD iterations each
-   on the bf16 kernel path, the bf16 module path and the fp32 kernel path:
-   images/s and peak memory; the bf16 instances' launches. (d)
+   argmax against the fp32 kernel path's. (c) 12 SGD iterations on the
+   bf16 kernel path (the mean of the last 5 losses below the first 5), 6
+   each on the bf16 module path and the fp32 kernel path: images/s and
+   peak memory; the bf16 instances' launches. (d)
    examples/train_cifar10_torch.py --precision bf16 at B 256 (stage 1 runs
    layered there) for 2 iterations with --use_kernels on and off, its
    memstat.txt carrying the precision; every bf16 instance launched over
@@ -325,7 +336,7 @@ exits non-zero without printing the final line):
    through the discrete adjoint on the card in fp32 against the port's CPU
    fp64 run at the same weights, batch and probe (cosine above 0.9999);
    the brute-force NLL of tst[:1000] before and after, finite; 3 warm and
-   20 timed iterations (iterations/s, NFE-F per iteration, peak memory),
+   10 timed iterations (iterations/s, NFE-F per iteration, peak memory),
    one traced iteration (the busy share). (b) x -> z -> x of tst[:1000]
    through the trained model: within 1e-4 of max |x|, delta_logp
    cancelling to 1e-4. (c) tools/hardware_smoke.py's gate 5: ODENVP((8, 8,
@@ -344,8 +355,8 @@ exits non-zero without printing the final line):
    for laplacian/pnode and transformer/imex (heads 4): one CE gradient
    through the discrete adjoint on the card in fp32 against the port's CPU
    fp64 run at the same weights (cosine >= 0.9999, CE within 1e-5
-   relative); 3 warm and 20 timed full-batch epochs (transformer/imex,
-   ~3 s an epoch: 1 and 5) (epochs/s, peak memory, accuracies; the CE
+   relative); 3 warm and 10 timed full-batch epochs (transformer/imex,
+   ~3 s an epoch: 1 and 2) (epochs/s, peak memory, accuracies; the CE
    falls), one traced epoch (the busy share, launches). (b)
    tools/hardware_smoke.py's gate 6: six GRAND families on a 96-node SBM
    take 8 Adam steps (the CE falls, gradients finite), and GRANDImage at 8
@@ -360,7 +371,9 @@ Phases 1-6 run at their full depth but phase 6(c) (12 and 6 iterations,
 22 and 12 before phase 12 came); phase 3's Burgers checks add about 30
 s, phase 7 about 25 s, phase 8 about 95 s, phase 9 about 75 s, phase 10 about 130 s, phase 11 about 40 s,
 phase 12 about 90 s, phase 13 a few seconds, phase 14 about 100 s,
-phase 15 about 100-130 s; the build
+phase 15 about 100-130 s (8(f)'s ranks run in 8(b)'s and 8(c)'s
+groups; phases 9(e), 12(c), 14(a) and 15(a) run fewer timed iterations
+than they once did, to keep the whole script's time); the build
 about 90 s.
 
 The line before the last is a JSON object with one entry per kernel (K1's
@@ -382,10 +395,12 @@ backward, not gated); K1-K3 carry
 ``slice10_launches``, their launches over phase 13's gates; K2, K3, K4
 and K12 carry ``burgers``: their readings at Burgers-512 (phase 3) with
 their launches over phase 7(b)'s K2/K3 runs (K2, K3), 7(d) (K4) and 8(f)
-(K12); K3's and K4's also their plan's ``form``, ``grid``,
-``smem_bytes``, ``workspace_bytes`` and ``peak_bytes``, and the row
-form's at forced R 1: ``row_r1_ms``, ``row_r1_device_ms``,
-``row_r1_peak_bytes``); a line
+(K12); each also its plan's ``form``, ``grid``, ``smem_bytes``,
+``workspace_bytes`` and ``peak_bytes``, and the row form's at forced R
+(K2's 2: ``row_r2_ms``, ``row_r2_device_ms``, ``row_r2_peak_bytes``, its
+readings with err under ``err``; the others' 1: ``row_r1_*``; K12's at
+the two-rank shard under ``shard``); K12's and K2's ``ks_grid``: their
+grid form and row form at KS B 256 (phase 8(a)); a line
 ``[done]`` gives the whole script's seconds; the last line is {"ok":
 true, "device": {...}}.
 """
@@ -620,7 +635,7 @@ FWD_PLANS = ((BATCH, NX, KS_LAYERS, 4), (37, NX, KS_LAYERS, 4),
              (37, 13, [100, 13], 4), (37, 100, [13, 100], 4),
              (37, NX, [NX], 2), (37, NX, [24] * 7 + [NX], 6),
              (16, NX, [1100, NX], 4), (37, 200, [200, 200], 4),
-             (37, 300, [300], 4))
+             (37, 300, [300], 4), (37, 197, [201, 197], 4))
 DP_PLANS = tuple((B, NX, KS_LAYERS, 4) for B in (128, 64, 32))
 # the loop kernels' own edges: the odd width, d 100 at 8 stages and the
 # widest d the adaptive gate opens with the KS hidden layers (134)
@@ -707,13 +722,13 @@ def phase_build():
             if got != want:
                 raise AssertionError(f"{name}'s plan disagrees with its "
                                      "mirror")
-    # the grid form's plans (grid, bytes, workspace floats) where K3's and
-    # K4's take it
+    # the grid form's plans (grid, bytes, workspace floats) of its four
+    # kinds at the shapes where K3's plan takes it
     for B, d, layers, s in FWD_PLANS:
         plan = adj.ark_adj_plan(B, d, layers, s, sms)
         if plan is None or plan[0] != 0:
             continue
-        for kind in (adj.GRID_STEP, adj.GRID_LOOP):
+        for kind in adj.GRID_KINDS:
             got = adj.c_grid_plan(kind, B, d, layers, s, dev)
             want = adj.grid_plan(kind, B, d, layers, s, sms)
             log(f"[build] grid form {kind}'s plan at B {B}, {[d] + layers}, "
@@ -727,7 +742,8 @@ def phase_build():
     n = 0
     for B, d, layers, tab in grid_phase_cases():
         for kind, k in ((adj.GRID_STEP, 0), (adj.GRID_LOOP, 0),
-                        (adj.GRID_LOOP, 1)):
+                        (adj.GRID_LOOP, 1), (adj.GRID_GRAD, 0),
+                        (adj.GRID_FWD, 0)):
             got = adj.c_grid_phases(kind, B, d, layers, tab, k)
             if got != adj.grid_phases(kind, B, d, layers, tab, k):
                 raise AssertionError(
@@ -736,8 +752,9 @@ def phase_build():
                     "their mirror's")
             n += sum(len(ph["products"]) for ph in got)
     log(f"[build] grid form's phases equal their mirror's at "
-        f"{len(grid_phase_cases())} shapes, K3's step and K4's first and "
-        f"later iterations ({n} products)")
+        f"{len(grid_phase_cases())} shapes, all four kinds: K3's step, K4's "
+        f"first and later iterations, K12's gradient step and K2's forward "
+        f"step ({n} products)")
     # the loop kernels at forced rows: each R's C plan against its mirror
     for B, hidden in ((BATCH, HIDDEN), (37, 13), (strided_batch(), 24)):
         layers = [hidden] * 4 + [NX]
@@ -3997,6 +4014,46 @@ def loop_at_grid(grid):
     return fn
 
 
+def fwd_at(rows=0, grid=0, form="plan"):
+    """fused_ark_step_fwd (with err, given b_err) through its launch
+    (run_ark_fwd) at a form the plan does not take, for kernel comparisons:
+    the row form at ``rows``, the grid form on ``grid`` co-resident blocks,
+    or (``form`` "grid") the grid form where the plan takes the row form.
+    Outputs' bits do not depend on the grid."""
+    from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops.fused_ark_forward import run_ark_fwd
+
+    def fn(tab, b_err, dt, y, J, inv, Ws, bs, activation="relu", sign=-1.0):
+        return run_ark_fwd(_build.library(), card_sms(), _build.stream_of(y),
+                           tab, b_err, dt, y, J, inv, Ws, bs, activation,
+                           sign, rows, grid, form)
+
+    return fn
+
+
+def grad_at(rows=0, grid=0, form="plan"):
+    """fused_grad_step through its launch (run_grad_step) at a form the
+    plan does not take, as fwd_at runs K2."""
+    from pnode_tpu_torch.ops import _build
+    from pnode_tpu_torch.ops.fused_train_loop import run_grad_step
+
+    def fn(layout, tab, dt, y, tgt, J, inv, params, activation="relu",
+           sign=-1.0, global_count=None):
+        return run_grad_step(_build.library(), card_sms(),
+                             _build.stream_of(y), layout, tab, dt, y, tgt, J,
+                             inv, params, activation, sign, global_count,
+                             rows, grid, form)
+
+    return fn
+
+
+def bitwise(a, b):
+    """Every tensor of ``a`` equal to its partner in ``b``, bit for bit."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def time_in_turns(fns, reps=20, inner=10):
     """Median ms per call of each of ``fns`` (label -> fn), in the order
     given and then reversed (plain, kernel, kernel, plain): the smaller of
@@ -4015,31 +4072,37 @@ def phase_burgers_kernels(device):
     """Phase 3 at Burgers-512, bench.py's recipe (B 200, 512 -> 576 x4 ->
     512, ARK3, dt 1e-3, BurgersFuncIM's J and stage inverse, the seed-0
     BurgersFuncEX stack, f_EX = +MLP; y ~ N(0, 1), target y + 0.05 N(0, 1)).
-    K2 and K3 on those inputs against their plain versions in fp32 and
-    fp64 with phase 3's gates, K3 in its plan's grid form (at the plan's
-    grid and at half of it) and in the row form at forced R 1 (the form
-    its plan took before the grid form), lam_prev, dW and db bitwise
+    K2 (without and with err) and K3 on those inputs against their plain
+    versions in fp32 and fp64 with phase 3's gates, each in its plan's grid
+    form (at the plan's grid and at half of it) and in the row form at
+    forced R (K2's 2, K3's 1: the forms their plans took before the grid
+    form); K2's y1, stage values and err bitwise equal across two calls,
+    the two grids and the row form; K3's lam_prev, dW and db bitwise
     across two calls and the two grids, lam_prev bitwise equal to the row
-    form's; each timed in turns with its plain version (K3 also with the
-    row form) and by the profiler; K12 at (200, 512) and at the two-rank
-    shard (100, 512) (check_grad_step), timed at B 200; K4 over K = 8
+    form's; each timed in turns with its plain version and the row form
+    and by the profiler; K12 at (200, 512) and at the two-rank shard (100,
+    512) (check_grad_step, then grad_grid_checks: its grid form bitwise
+    across calls, grids and the K2 -> seed -> K3 chain, timed beside its
+    plain version and the row form at R 1); K4 over K = 8
     distinct minibatches against fused_train_loop_plain (check_loop, K4's
     gates) in the grid form and in the row form at forced R 1, the grid
     form's two calls and two grids bitwise equal, per iteration in turns
-    with its plain version and the row form and by the profiler; K3's and
-    K4's device memory per call in both forms. Returns the JSON line's ``burgers`` entries of K2, K3,
-    K4 and K12 (bounds from ark_costs at these shapes)."""
+    with its plain version and the row form and by the profiler; each
+    one's device memory per call in both forms. Returns the JSON line's
+    ``burgers`` entries of K2, K3, K4 and K12 (bounds from ark_costs at
+    these shapes)."""
     import torch
 
     from pnode_tpu_torch.ops.fused_ark_adjoint import (
-        GRID_LOOP, GRID_STEP, ark_adj_plan, fused_ark_step_adj,
-        fused_ark_step_adj_plain, grad_step_plan, grid_plan)
+        GRID_FWD, GRID_LOOP, GRID_STEP, ark_adj_plan, ark_fwd_plan,
+        fused_ark_step_adj, fused_ark_step_adj_plain, grid_plan)
     from pnode_tpu_torch.ops.fused_ark_forward import (
-        fused_ark_step_fwd, fused_ark_step_fwd_plain)
+        fused_ark_step_fwd, fused_ark_step_fwd_embedded,
+        fused_ark_step_fwd_plain)
     from pnode_tpu_torch.ops.fused_mlp import grad_buffer_size
     from pnode_tpu_torch.ops.fused_train_loop import (
-        fused_grad_step, fused_grad_step_plain, fused_train_loop,
-        fused_train_loop_plain, train_loop_plan)
+        fused_train_loop, fused_train_loop_plain, train_loop_plan)
+    from pnode_tpu_torch.tableaus import get_ark_tableau
 
     J, inv, tab, Ws, bs = burgers_operators(device)
     dt = float(np.float32(BDT))
@@ -4057,25 +4120,84 @@ def phase_burgers_kernels(device):
     log(f"[kernels] Burgers-512 (B {BB}, {dims}, ARK3, dt {BDT}): K2, K3, "
         f"K12 and K4 on bench.py's recipe")
 
-    # K2
+    # K2, without and with err: the plan's grid form, at its grid and at
+    # half of it, and the row form at forced R 2
     args = (tab, dt, y, J, inv, Ws, bs, "relu", 1.0)
     args64 = (tab, dt, y.double(), J.double(), inv.double(), f64(Ws),
               f64(bs), "relu", 1.0)
-    rep = {}
-    got = fused_ark_step_fwd(*args)
-    torch.cuda.synchronize()
+    t3 = get_ark_tableau("3")
+    berr = ([float(x) for x in t3.b_im_err], [float(x) for x in t3.b_ex_err])
+    fplan = ark_fwd_plan(BB, BNX, BURGERS_LAYERS, s, card_sms())
+    if fplan[0] != 0:
+        raise AssertionError(f"K2's plan at Burgers-512 is not the grid "
+                             f"form: {fplan}")
+    ws = 4 * grid_plan(GRID_FWD, BB, BNX, BURGERS_LAYERS, s, card_sms())[2]
     plain = fused_ark_step_fwd_plain(*args)
-    check_kernel("fused_ark_step_fwd (Burgers)", list(got), list(plain),
-                 list(fused_ark_step_fwd_plain(*args64)), 1e-5, rep)
-    t = time_in_turns({"plain": lambda: fused_ark_step_fwd_plain(*args),
-                       "kernel": lambda: fused_ark_step_fwd(*args)})
-    us, traced = device_us_per_call(lambda: fused_ark_step_fwd(*args),
-                                    ["ark_fwd_kernel"])
+    ref = fused_ark_step_fwd_plain(*args64)
+    plain_e = fused_ark_step_fwd_plain(*args, b_err=berr)
+    ref_e = fused_ark_step_fwd_plain(*args64, b_err=berr)
+    etol = max(1e-4, 3.0 * rel_err(plain_e[1], ref_e[1]))  # phase_k2_edges'
+    rep, outs = {}, {}
+    forms = {"grid": (fused_ark_step_fwd, fused_ark_step_fwd_embedded),
+             "half grid": (fwd_at(grid=fplan[1] // 2),) * 2,
+             "row R 2": (fwd_at(rows=2),) * 2}
+    for label, (fn, fn_e) in forms.items():
+        if label == "grid":
+            got, gote = fn(*args), fn_e(tab, berr, *args[1:])
+        else:
+            got, gote = fn(tab, None, *args[1:]), fn(tab, berr, *args[1:])
+        torch.cuda.synchronize()
+        check_kernel(f"fused_ark_step_fwd (Burgers) {label}", list(got),
+                     list(plain), list(ref), 1e-5,
+                     rep if label == "grid" else {})
+        check_kernel(f"fused_ark_step_fwd_embedded (Burgers) {label} (y1, "
+                     f"Ys)", [gote[0], gote[2]], [plain_e[0], plain_e[2]],
+                     [ref_e[0], ref_e[2]], 1e-5, {})
+        check_kernel(f"fused_ark_step_fwd_embedded (Burgers) {label} (err)",
+                     [gote[1]], [plain_e[1]], [ref_e[1]], etol, {},
+                     tol64=etol)
+        outs[label] = list(got) + list(gote)
+    again = list(fused_ark_step_fwd(*args)) + list(
+        fused_ark_step_fwd_embedded(tab, berr, *args[1:]))
+    torch.cuda.synchronize()
+    bits = (bitwise(outs["grid"], again),
+            bitwise(outs["grid"], outs["half grid"]),
+            bitwise(outs["grid"], outs["row R 2"]))
+    log(f"[kernels]   fused_ark_step_fwd (Burgers): y1, Ys and err bitwise "
+        f"across two calls {bits[0]}, across grids {fplan[1]} and "
+        f"{fplan[1] // 2} {bits[1]}, equal to the row form's at R 2 "
+        f"{bits[2]}")
+    if not all(bits):
+        raise AssertionError("K2's grid form at Burgers-512 is not bitwise "
+                             "stable, or not the row form's")
+    row2 = fwd_at(rows=2)
+    k2 = {}
+    for key, b_err, kern in (
+            ("", None, lambda: fused_ark_step_fwd(*args)),
+            ("err", berr,
+             lambda: fused_ark_step_fwd_embedded(tab, berr, *args[1:]))):
+        row = lambda e=b_err: row2(tab, e, *args[1:])  # noqa: E731
+        t = time_in_turns({
+            "plain": lambda e=b_err: fused_ark_step_fwd_plain(*args,
+                                                              b_err=e),
+            "kernel": kern, "row R 2": row}, reps=10)
+        dev, traced = device_us_per_call(kern, ["ark_fwd_grid_kernel"])
+        dev_row = device_us_per_call(row, ["ark_fwd_kernel"])[0]
+        peak, peak_row = peak_bytes(kern), peak_bytes(row)
+        k2[key] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                       device_ms=dev / 1e3, peak_bytes=peak,
+                       row_r2_ms=t["row R 2"], row_r2_device_ms=dev_row / 1e3,
+                       row_r2_peak_bytes=peak_row)
+        log(f"[kernels]   fused_ark_step_fwd (Burgers{', err' if key else ''}"
+            f"): plan {fplan} (rows 0: the grid form), workspace {ws} B; "
+            f"kernel {t['kernel']:.4f} ms (device {dev / 1e3:.4f} ms, "
+            f"{traced} traced), plain {t['plain']:.4f} ms; the row form at R "
+            f"2 {t['row R 2']:.4f} ms (device {dev_row / 1e3:.4f} ms), in "
+            f"turns; device memory a call allocates: grid form "
+            f"{peak / 1e6:.1f} MB, row form {peak_row / 1e6:.1f} MB")
     reports["fused_ark_step_fwd"] = dict(
-        rep, ms=t["kernel"], plain_ms=t["plain"], device_ms=us / 1e3)
-    log(f"[kernels]   fused_ark_step_fwd (Burgers): kernel {t['kernel']:.4f}"
-        f" ms (device {us:.1f} us, {traced} traced), plain {t['plain']:.4f} "
-        "ms, in turns")
+        rep, **k2[""], form="grid", grid=fplan[1], smem_bytes=fplan[2],
+        workspace_bytes=ws, err=k2["err"])
 
     # K3 on the plain forward's stage values: the plan's grid form, at its
     # grid and at half of it, and the row form at forced R 1
@@ -4107,8 +4229,8 @@ def phase_burgers_kernels(device):
                      plain3, ref3, 1e-4, rep if label == "grid" else {})
     again = flat3(fused_ark_step_adj(*aargs))
     torch.cuda.synchronize()
-    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))  # noqa
-    bits = (same(outs["grid"], again), same(outs["grid"], outs["half grid"]),
+    bits = (bitwise(outs["grid"], again),
+            bitwise(outs["grid"], outs["half grid"]),
             torch.equal(outs["grid"][0], outs["row R 1"][0]))
     log(f"[kernels]   fused_ark_step_adj (Burgers): lam_prev, dW and db "
         f"bitwise across two calls {bits[0]}, across grids {plan[1]} and "
@@ -4144,27 +4266,16 @@ def phase_burgers_kernels(device):
         f"row form {peak_row / 1e6:.1f} MB ("
         + burgers_partials("the row form's", BB, total) + ")")
 
-    # K12 at the whole batch and the two-rank shard
-    rep = {}
+    # K12 at the whole batch and the two-rank shard: against the plain
+    # versions in the plan's grid form and at every forced R, then the grid
+    # form's bits and times
+    rep, k12 = {}, {}
     for B in (BB, BB // 2):
         gargs = check_grad_step(f"Burgers B {B}", tab, dt, J, inv, Ws, bs,
                                 y[:B], tgt[:B], rep if B == BB else {},
                                 sign=1.0)
-        if B == BB:
-            main_args = gargs
-    t = time_in_turns({"plain": lambda: fused_grad_step_plain(*main_args),
-                       "kernel": lambda: fused_grad_step(*main_args)},
-                      reps=5, inner=4)
-    us, traced = device_us_per_call(lambda: fused_grad_step(*main_args),
-                                    ["grad_step_kernel",
-                                     "grad_step_sum_kernel"])
-    reports["fused_grad_step"] = dict(
-        rep, ms=t["kernel"], plain_ms=t["plain"], device_ms=us / 1e3)
-    gplan = grad_step_plan(BB, BNX, BURGERS_LAYERS, s, card_sms())
-    log(f"[kernels]   fused_grad_step (Burgers): plan {gplan}: kernel "
-        f"{t['kernel']:.4f} ms (device {us:.1f} us, {traced} traced), plain "
-        f"{t['plain']:.4f} ms, in turns; "
-        + burgers_partials("K12", gplan[1], -(-(total + 1) // 4) * 4))
+        k12[B] = grad_grid_checks(f"Burgers B {B}", gargs, Ws, bs)
+    reports["fused_grad_step"] = dict(rep, **k12[BB], shard=k12[BB // 2])
 
     # K4 over K distinct minibatches: the grid form and the row form at R 1,
     # each against the plain version
@@ -4192,7 +4303,7 @@ def phase_burgers_kernels(device):
     again = run(fused_train_loop, K, 1e-8)
     half = run(loop_at_grid(lplan[1] // 2), K, 1e-8)
     torch.cuda.synchronize()
-    bits = (same(flat(one), flat(again)), same(flat(one), flat(half)))
+    bits = (bitwise(flat(one), flat(again)), bitwise(flat(one), flat(half)))
     log(f"[kernels]   fused_train_loop (Burgers): parameters, moments and "
         f"losses bitwise across two calls {bits[0]}, across grids "
         f"{lplan[1]} and {lplan[1] // 2} {bits[1]}")
@@ -4534,6 +4645,7 @@ def phase_burgers(device, n_steps=50, warm=5, n_off=20, n_plain=20):
 DP_K = 8            # iterations held against K4 in (b) and (c)
 DP_ITERS = 200      # (d): a warm call of 20, a timed call of 180
 DP_SHARDS = (256, 128, 64, 32)  # B_local at world 1, 2, 4 and 8
+DP_BURGERS_ITERS = 64  # (f): the DP loop's and K4's iterations/s
 
 
 def check_grad_step(label, tab, dt, J, inv, Ws, bs, y, tgt, report,
@@ -4571,6 +4683,77 @@ def check_grad_step(label, tab, dt, J, inv, Ws, bs, y, tgt, report,
     log(f"[dp]   K12 {label}: plan {grad_step_plan(*y.shape, dims[1:], s)} "
         f"(rows, grid, B); loss by R {losses}")
     return args
+
+
+def grad_grid_checks(label, args, Ws, bs):
+    """K12 in its plan's grid form on ``args`` (check_grad_step's): the
+    loss and gradient bitwise across two calls and across the plan's grid
+    and half of it; the gradient bitwise equal to the K2 -> seed -> K3
+    chain (K2's grid form, the seed 2 (y1 - tgt) / (B d) in fp32 as K12
+    forms it, K3's grid form on K2's stage values), the loss printed
+    beside it; timed in turns with the plain version and the row form at R
+    1, by the profiler, and by the device memory one call allocates in
+    both forms. Returns the readings."""
+    import torch
+
+    from pnode_tpu_torch.ops.fused_ark_adjoint import (
+        GRID_GRAD, fused_ark_step_adj, grad_step_plan, grid_plan)
+    from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd
+    from pnode_tpu_torch.ops.fused_train_loop import (
+        fused_grad_step, fused_grad_step_plain)
+
+    layout, tab, dt, y, tgt, J, inv, params, act, sign = args
+    (B, d), s = y.shape, len(tab[2])
+    plan = grad_step_plan(B, d, layout.dims[1:], s, card_sms())
+    if plan[0] != 0:
+        raise AssertionError(f"K12's plan {label} is not the grid form: "
+                             f"{plan}")
+    ws = 4 * grid_plan(GRID_GRAD, B, d, layout.dims[1:], s, card_sms())[2]
+    one = fused_grad_step(*args)
+    again = fused_grad_step(*args)
+    half = grad_at(grid=plan[1] // 2)(*args)
+    y1, ys = fused_ark_step_fwd(tab, dt, y, J, inv, Ws, bs, act, sign)
+    seed = (y1 - tgt) * torch.tensor(np.float32(2.0 / (B * d)),
+                                     device=y.device)
+    _, (dW, db) = fused_ark_step_adj(tab, dt, ys, seed, J, inv, Ws, bs, act,
+                                     sign)
+    chain = layout.pack(dW, db)
+    diff = y1 - tgt
+    chain_loss = float((diff * diff).sum()) / (B * d)
+    torch.cuda.synchronize()
+    bits = (bitwise(one, again), bitwise(one, half),
+            torch.equal(one[1], chain))
+    log(f"[kernels]   fused_grad_step {label}: plan {plan} (rows 0: the grid "
+        f"form), workspace {ws} B; loss and gradient bitwise across two "
+        f"calls {bits[0]}, across grids {plan[1]} and {plan[1] // 2} "
+        f"{bits[1]}; the gradient bitwise equal to the K2 -> seed -> K3 "
+        f"chain's {bits[2]} (max abs {abs_err(one[1], chain):.3e}); loss "
+        f"{float(one[0]):.9e}, the chain's y1 summed by torch "
+        f"{chain_loss:.9e}")
+    if not all(bits):
+        raise AssertionError(f"K12's grid form {label} is not bitwise "
+                             "stable, or not the K2 -> seed -> K3 chain's")
+    kern = lambda: fused_grad_step(*args)  # noqa: E731
+    row = lambda: fused_grad_step(*args, rows=1)  # noqa: E731
+    t = time_in_turns({"plain": lambda: fused_grad_step_plain(*args),
+                       "kernel": kern, "row R 1": row}, reps=5, inner=4)
+    dev, traced = device_us_per_call(kern, ["grad_step_grid_kernel"], n=5)
+    dev_row = device_us_per_call(row, ["grad_step_kernel",
+                                       "grad_step_sum_kernel"], n=5)[0]
+    peak, peak_row = peak_bytes(kern), peak_bytes(row)
+    total = layout.total
+    log(f"[kernels]   fused_grad_step {label}: kernel {t['kernel']:.4f} ms "
+        f"(device {dev / 1e3:.4f} ms, {traced} traced), plain "
+        f"{t['plain']:.4f} ms; the row form at R 1 {t['row R 1']:.4f} ms "
+        f"(device {dev_row / 1e3:.4f} ms), in turns; device memory a call "
+        f"allocates: grid form {peak / 1e6:.1f} MB, row form "
+        f"{peak_row / 1e6:.1f} MB ("
+        + burgers_partials("the row form's", B, -(-(total + 1) // 4) * 4)
+        + ")")
+    return dict(ms=t["kernel"], plain_ms=t["plain"], device_ms=dev / 1e3,
+                form="grid", grid=plan[1], smem_bytes=plan[2],
+                workspace_bytes=ws, peak_bytes=peak, row_r1_ms=t["row R 1"],
+                row_r1_device_ms=dev_row / 1e3, row_r1_peak_bytes=peak_row)
 
 
 def wide_case(device, B, d, seed=6):
@@ -4627,10 +4810,67 @@ def phase_grad_step(device, u, J, inv, tab, dt):
         f"{t[1]:.4f} / {t[2]:.4f} ms (device {us:.2f} us, {traced} launches "
         f"traced), plain {t[0]:.4f} / {t[3]:.4f} ms; "
         f"{partial_bytes(BATCH, HIDDEN, grad=True)}")
+    report["ks_grid"] = ks_grid_reading(main_args)
     return report
 
 
-def dp_rank(device, tab, dt, ops, Ws, bs, y, tgt, timed):
+def ks_grid_reading(args):
+    """K12's and K2's grid form at the KS main path (B 256 on ``args``,
+    check_grad_step's), which their plans never take there (run_*'s form
+    "grid"), beside the row form the plans take: each against its plain
+    version in fp32 and fp64 with phase 3's gates, K2's y1 and Ys bitwise
+    the row form's; then timed in turns and by the profiler: the reading
+    for or against a later change dropping the row bodies. Returns
+    {"k2": ..., "k12": ...}."""
+    from pnode_tpu_torch.ops.fused_ark_forward import fused_ark_step_fwd_plain
+    from pnode_tpu_torch.ops.fused_train_loop import fused_grad_step_plain
+
+    layout, tab, dt, y, tgt, J, inv, params, act, sign = args
+    Ws, bs = layout.unpack(params)
+    d64 = lambda ts: [t.double() for t in ts]  # noqa: E731
+    fargs = (tab, None, dt, y, J, inv, Ws, bs, act, sign)
+    cases = {
+        "k2": dict(
+            run=lambda **kw: fwd_at(**kw)(*fargs), tol=1e-5,
+            plain=fused_ark_step_fwd_plain(tab, dt, y, J, inv, Ws, bs, act,
+                                           sign),
+            ref=fused_ark_step_fwd_plain(tab, dt, y.double(), J.double(),
+                                         inv.double(), d64(Ws), d64(bs), act,
+                                         sign),
+            names=(["ark_fwd_kernel"], ["ark_fwd_grid_kernel"])),
+        "k12": dict(
+            run=lambda **kw: grad_at(**kw)(*args), tol=1e-4,
+            plain=fused_grad_step_plain(*args),
+            ref=fused_grad_step_plain(layout, tab, dt, y.double(),
+                                      tgt.double(), J.double(), inv.double(),
+                                      params.double(), act, sign),
+            names=(["grad_step_kernel", "grad_step_sum_kernel"],
+                   ["grad_step_grid_kernel"]))}
+    out = {}
+    for name, c in cases.items():
+        row = lambda c=c: c["run"]()  # noqa: E731
+        grid = lambda c=c: c["run"](form="grid")  # noqa: E731
+        got = grid()
+        check_kernel(f"{name.upper()} at KS B {y.shape[0]} in the grid form",
+                     list(got), list(c["plain"]), list(c["ref"]), c["tol"],
+                     {})
+        if name == "k2" and not bitwise(got, row()):
+            raise AssertionError("K2's grid form at KS is not the row "
+                                 "form's bitwise")
+        t = time_in_turns({"row": row, "grid": grid}, reps=10)
+        dev_row = device_us_per_call(row, c["names"][0])[0]
+        dev_grid = device_us_per_call(grid, c["names"][1])[0]
+        out[name] = dict(row_ms=t["row"], grid_ms=t["grid"],
+                         row_device_ms=dev_row / 1e3,
+                         grid_device_ms=dev_grid / 1e3)
+        log(f"[dp]   {name.upper()} at KS B {y.shape[0]}: the row form (its "
+            f"plan) {t['row']:.4f} ms (device {dev_row / 1e3:.4f} ms), the "
+            f"grid form {t['grid']:.4f} ms (device {dev_grid / 1e3:.4f} ms), "
+            "in turns")
+    return out
+
+
+def dp_rank(device, tab, dt, ops, Ws, bs, y, tgt, timed, burgers=None):
     """One rank of phase 8(b)-(d): dp_fused_train_loop over the group (a
     flat mesh of every rank) on the first DP_K minibatches at Adam eps
     1e-8 and 1e-6, from the given weights and zero moments, with K12's
@@ -4638,7 +4878,9 @@ def dp_rank(device, tab, dt, ops, Ws, bs, y, tgt, timed):
     the same call without force_general (K4 must launch, K12 must not), a
     traced call of 20 iterations on the general path (its busy share), and
     iterations per second of the general path and of K4 over DP_ITERS
-    iterations (a warm call of 20, a timed call of the rest)."""
+    iterations (a warm call of 20, a timed call of the rest). With
+    ``burgers`` (dp_burgers_rank's operands), first phase 8(f)'s rank in
+    the same group, its result under "burgers"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4648,6 +4890,9 @@ def dp_rank(device, tab, dt, ops, Ws, bs, y, tgt, timed):
 
     f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
                                  device=device)
+    out = {"runs": {}}
+    if burgers is not None:
+        out["burgers"] = dp_burgers_rank(device, *burgers)
     J, inv = f32(ops[0]), f32(ops[1])
     Ws, bs = [f32(w) for w in Ws], [f32(b) for b in bs]
     y, tgt = f32(y), f32(tgt)
@@ -4659,7 +4904,6 @@ def dp_rank(device, tab, dt, ops, Ws, bs, y, tgt, timed):
                                    tgt[k0:k0 + K], J, inv, Ws, bs, z, z, 0,
                                    lr=LR, eps=eps, force_general=general)
 
-    out = {"runs": {}}
     fused_grad_step.launches = 0
     for eps in (1e-8, 1e-6):
         W, b, _, _, losses = run(0, DP_K, eps)
@@ -4692,14 +4936,16 @@ def dp_rank(device, tab, dt, ops, Ws, bs, y, tgt, timed):
     return out
 
 
-def phase_dp_loops(device, u, J, inv, tab, dt, worlds, tol=5e-4):
+def phase_dp_loops(device, u, J, inv, tab, dt, worlds, burgers, tol=5e-4):
     """Phase 8(b)-(d): dp_fused_train_loop in spawned groups of ranks,
     ``worlds`` (world size, backend) pairs: a one-rank NCCL group
     (force_general; with (b)'s delegation check and (d)), and gloo groups
     of 2 and 4 processes on the one card. Each rank against K4 on the full
     batch in phase 4(a)'s form (runs_agree), the parameters bitwise equal
-    across ranks. Returns K12's launch count over the groups' DP_K-iteration
-    runs."""
+    across ranks. The groups of 1 and 2 ranks also run 8(f) on
+    ``burgers`` (dp_burgers_case's), gated by check_dp_burgers. Returns
+    K12's launch count over the groups' DP_K-iteration runs, and over
+    8(f)'s."""
     import torch
 
     from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop
@@ -4714,18 +4960,22 @@ def phase_dp_loops(device, u, J, inv, tab, dt, worlds, tol=5e-4):
                                               eps=eps)
         ref[eps] = (losses.cpu(), [t.cpu() for t in W + b])
     np_ = lambda ts: [t.cpu().numpy() for t in ts]  # noqa: E731
-    launches, ok = 0, True
+    launches, b_launches, ok = 0, 0, True
     for world, backend in worlds:
         K = DP_ITERS if world == 1 else DP_K
+        with_b = world in (1, 2)
         t0 = time.perf_counter()
         ranks = run_ranks(world, dp_rank, tab, dt, np_([J, inv]), np_(Ws),
                           np_(bs), y[:K].cpu().numpy(), tgt[:K].cpu().numpy(),
-                          world == 1, backend=backend, device=device,
-                          timeout=300.0)
+                          world == 1, burgers[0] if with_b else None,
+                          backend=backend, device=device, timeout=300.0)
         log(f"[dp] ({'b' if world == 1 else 'c'}) world {world} over "
             f"{backend} on the one card ({time.perf_counter() - t0:.1f} s "
-            f"with the spawn): K12 launches per rank "
-            f"{[r['launches'] for r in ranks]}")
+            f"with the spawn{' and 8(f)' if with_b else ''}): K12 launches "
+            f"per rank {[r['launches'] for r in ranks]}")
+        if with_b:
+            b_launches += check_dp_burgers(
+                world, backend, [r["burgers"] for r in ranks], burgers[1])
         launches += sum(r["launches"] for r in ranks)
         for eps, (lk, pk) in ranks[0]["runs"].items():
             same = all(np.array_equal(lk, r["runs"][eps][0]) and all(
@@ -4755,17 +5005,20 @@ def phase_dp_loops(device, u, J, inv, tab, dt, worlds, tol=5e-4):
     if not ok:
         raise AssertionError("dp_fused_train_loop disagrees with K4, or its "
                              "ranks with each other")
-    return launches
+    return launches, b_launches
 
 
 def dp_burgers_rank(device, tab, dt, ops, Ws, bs, y, tgt):
-    """Phase 8(f)'s rank (world 1): dp_fused_train_loop with force_general
-    (K12 at B 200, the all-reduce and Adam outside it) over the minibatches
-    of y and tgt one iteration a call, at Adam eps 1e-8 and 1e-6, and at
-    each iteration K4 one step from the same state. Returns per eps the
-    DP run's losses and final parameters and the largest per-step gaps
-    (loss relative, parameters max abs and norm-wise per tensor), and
-    K12's launches."""
+    """Phase 8(f)'s rank: dp_fused_train_loop with force_general (K12 on
+    the rank's shard of B 200, the all-reduce and Adam outside it) over the
+    minibatches of y and tgt one iteration a call, at Adam eps 1e-8 and
+    1e-6, and at each iteration K4 one step on the full batch from the
+    same state. Returns per eps the DP run's losses and final parameters
+    and the largest per-step gaps (loss relative, parameters max abs and
+    norm-wise per tensor), and K12's launches; at world 1 also the
+    iterations/s of the DP loop and of K4 over DP_BURGERS_ITERS
+    iterations (the minibatches repeated; one call each after a warm
+    one)."""
     import torch
 
     from pnode_tpu_torch.ops.fused_train_loop import (
@@ -4801,28 +5054,33 @@ def dp_burgers_rank(device, tab, dt, ops, Ws, bs, y, tgt):
         out["steps"][eps] = gaps
     torch.cuda.synchronize()
     out["launches"] = fused_grad_step.launches
+    if torch.distributed.get_world_size() == 1:
+        n = DP_BURGERS_ITERS
+        reps = -(-n // y.shape[0])
+        yr, tr = torch.cat([y] * reps)[:n], torch.cat([tgt] * reps)[:n]
+        z = ([torch.zeros_like(w) for w in Ws],
+             [torch.zeros_like(b) for b in bs])
+        for name, general in (("general", True), ("K4", False)):
+            for k in (y.shape[0], n):  # a warm call, then the timed one
+                t0 = time.perf_counter()
+                dp_fused_train_loop(mesh, tab, dt, yr[:k], tr[:k], J, inv,
+                                    Ws, bs, z, z, 0, sign=1.0, lr=LR,
+                                    force_general=general)
+                torch.cuda.synchronize()
+            out[name] = n / (time.perf_counter() - t0)
     return out
 
 
-def phase_dp_burgers(device, tol=5e-4):
-    """Phase 8(f): dp_fused_train_loop at world 1 with force_general (K12 at
-    B 200, in a spawned one-rank group) on bench.py's Burgers recipe
+def dp_burgers_case(device):
+    """Phase 8(f)'s operands on bench.py's Burgers recipe
     (burgers_operators, f_EX = +MLP, fresh minibatches y ~ N(0, 1), target
-    y + 0.05 N(0, 1)), DP_K iterations at Adam eps 1e-8 and 1e-6, against
-    K4 (the counterpart of ``bench.py --workload burgers --dp``): per
-    iteration, K4 one step from the DP loop's state (dp_burgers_rank), the
-    loss within 1e-4 relative and the parameters within ``tol`` in max abs
-    at eps 1e-8 and norm-wise per tensor at eps 1e-6 (check_loop's gates);
-    the free runs against K4's own run over the same batches in phase
-    7(b)'s form (burgers_runs_agree), the parameters at eps 1e-8 printed
-    only: the two sum the dW partials in another order, and at eps 1e-8
-    Adam carries that rounding on to parts of ~5e-3 of the stack in 8
-    iterations at Burgers (PERF.md). Returns K12's launches over the rank's
-    runs."""
+    y + 0.05 N(0, 1)), as dp_burgers_rank takes them (numpy), and K4's
+    own runs over the same DP_K batches at Adam eps 1e-8 and 1e-6 on the
+    full batch (the counterpart of ``bench.py --workload burgers --dp``):
+    (rank operands, {eps: (losses, params)})."""
     import torch
 
     from pnode_tpu_torch.ops.fused_train_loop import fused_train_loop
-    from pnode_tpu_torch.parallel import run_ranks
 
     J, inv, tab, Ws, bs = burgers_operators(device)
     dt = float(np.float32(BDT))
@@ -4837,32 +5095,56 @@ def phase_dp_burgers(device, tol=5e-4):
                                               inv, Ws, bs, z, z, 0, sign=1.0,
                                               lr=LR, eps=eps)
         ref[eps] = (losses.cpu(), [t.cpu() for t in W + b])
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     np_ = lambda ts: [t.cpu().numpy() for t in ts]  # noqa: E731
-    t0 = time.perf_counter()
-    rank = run_ranks(1, dp_burgers_rank, tab, dt, np_([J, inv]), np_(Ws),
-                     np_(bs), y, tgt, backend=backend, device=device,
-                     timeout=300.0)[0]
-    log(f"[dp] (f) Burgers-512 (B {BB}, dt {BDT}), world 1 over {backend}, "
-        f"force_general ({time.perf_counter() - t0:.1f} s with the spawn): "
-        f"K12 launches {rank['launches']}")
-    ok = rank["launches"] > 0
+    return (tab, dt, np_([J, inv]), np_(Ws), np_(bs), y, tgt), ref
+
+
+def check_dp_burgers(world, backend, ranks, ref, tol=5e-4):
+    """Phase 8(f)'s gates on one group's dp_burgers_rank results: the DP
+    loop with force_general (K12 on each rank's shard of B 200) against K4
+    on the full batch: per iteration, K4 one step from the DP loop's state,
+    the loss within 1e-4 relative and the parameters within ``tol`` in max
+    abs at eps 1e-8 and norm-wise per tensor at eps 1e-6 (check_loop's
+    gates); the free runs against K4's own run (``ref``) in phase 7(b)'s
+    form (burgers_runs_agree), the parameters at eps 1e-8 printed only: a
+    run that sums dW in another order parts at eps 1e-8, where Adam
+    carries the rounding on to parts of ~5e-3 of the stack in 8 iterations
+    at Burgers (PERF.md); the ranks' losses and parameters bitwise equal;
+    K12 launched on every rank. Returns K12's launches over the ranks."""
+    import torch
+
+    rank = ranks[0]
+    log(f"[dp] (f) Burgers-512 (B {BB}, dt {BDT}), world {world} over "
+        f"{backend} on the one card, force_general (K12 at B "
+        f"{BB // world}): K12 launches per rank "
+        f"{[r['launches'] for r in ranks]}")
+    ok = all(r["launches"] > 0 for r in ranks)
+    if world == 1:
+        log(f"[dp]     the DP loop (K12 + all-reduce + Adam) "
+            f"{rank['general']:.1f} iterations/s beside K4's "
+            f"{rank['K4']:.1f} over {DP_BURGERS_ITERS} iterations (one call "
+            f"each, after a warm call)")
     for eps, (lk, pk) in rank["runs"].items():
         lrel, pabs, prel = rank["steps"][eps]
         good = lrel <= 1e-4 and (pabs if eps == 1e-8 else prel) <= tol
+        same = all(np.array_equal(lk, r["runs"][eps][0]) and all(
+            np.array_equal(a, b) for a, b in zip(pk, r["runs"][eps][1]))
+            for r in ranks[1:])
         log(f"[dp]     Adam eps {eps:.0e}, K4 one step from each of the DP "
             f"loop's {DP_K} states: loss max rel err {lrel:.3e} (tol 1e-4), "
             f"params max abs {pabs:.3e}, rel (norm-wise per tensor) "
             f"{prel:.3e}; gated {'max abs' if eps == 1e-8 else 'rel'} at "
-            f"{tol:.0e} {'ok' if good else 'FAIL'}")
-        ok = burgers_runs_agree("K4's own run (world 1)", eps,
-                                (torch.from_numpy(lk),
-                                 [torch.from_numpy(a) for a in pk]),
-                                ref[eps], params=eps != 1e-8) and good and ok
+            f"{tol:.0e} {'ok' if good else 'FAIL'}; losses and parameters "
+            f"{'bitwise equal' if same else 'DIFFERENT'} across the {world} "
+            f"rank(s)")
+        ok = burgers_runs_agree(
+            f"K4's own run (world {world})", eps,
+            (torch.from_numpy(lk), [torch.from_numpy(a) for a in pk]),
+            ref[eps], params=eps != 1e-8) and good and same and ok
     if not ok:
         raise AssertionError("dp_fused_train_loop disagrees with K4 at "
-                             "Burgers-512")
-    return rank["launches"]
+                             "Burgers-512, or its ranks with each other")
+    return sum(r["launches"] for r in ranks)
 
 
 def start_ks_torch_dp(device):
@@ -4933,14 +5215,17 @@ def phase_dp(device, u):
     report["bound_ms"], report["bound_by"] = bound(*fused_grad_step_cost(
         tab, BATCH, NX, [HIDDEN] * 4 + [NX]))
     one = "nccl" if torch.device(device).type == "cuda" else "gloo"
-    launches = phase_dp_loops(device, u, J, inv, tab, dt, ((1, one),))
-    burgers = phase_dp_burgers(device)
+    case = dp_burgers_case(device)  # (f) rides in (b)'s and (c)'s groups
+    launches, burgers = phase_dp_loops(device, u, J, inv, tab, dt,
+                                       ((1, one),), case)
     # (e) runs beside (c): neither is timed
     t_e = time.perf_counter()
     runs = start_ks_torch_dp(device)
     try:
-        launches += phase_dp_loops(device, u, J, inv, tab, dt,
-                                   ((2, "gloo"), (4, "gloo")))
+        more, more_b = phase_dp_loops(device, u, J, inv, tab, dt,
+                                      ((2, "gloo"), (4, "gloo")), case)
+        launches += more
+        burgers += more_b
         finish_ks_torch_dp(runs, t_e)
     finally:
         for _, proc in runs.values():
@@ -5355,9 +5640,9 @@ def phase_theta_burgers_node(device):
                     "peak_gib": peak / 2**30}
 
 
-def phase_theta_pendulum(device, n_iters=5):
+def phase_theta_pendulum(device, n_iters=4):
     """9(e): examples/pendulum_dae_torch.py through its main() (M =
-    diag(1,1,1,1,0), CN with GMRES through the mass matrix, AdamW), 5
+    diag(1,1,1,1,0), CN with GMRES through the mass matrix, AdamW), 4
     iterations on the card at its default fp32 (~6 s each): finite
     losses, the last below the first, the constraint violation reports;
     the first loss within 1e-5 relative of the port's CPU fp64 run's (the
@@ -6950,7 +7235,9 @@ def phase_cifar_bf16(device, n_iters=12, warm=2, n_trainer=2):
     wrappers = [fs.fused_sqnxt_fwd, fs.fused_sqnxt_bwd,
                 fs.fused_sqnxt_layer_fwd, fs.fused_sqnxt_layer_bwd]
     # (c) images/s and peak memory in one call: bf16 kernels, bf16 module,
-    # fp32 kernels, the same batches; the bf16 kernel path's launches
+    # fp32 kernels, the same batches (the two beside the bf16 kernel path,
+    # whose losses alone are gated, on the first half); the bf16 kernel
+    # path's launches
     for w in wrappers:
         w.launches_bf16 = 0
     runs = {}
@@ -6958,8 +7245,9 @@ def phase_cifar_bf16(device, n_iters=12, warm=2, n_trainer=2):
                           ("bf16 module path", "off", "bf16"),
                           ("fp32 kernel path", "on", None)):
         m = cifar_model(device, uk, state0, dtype=dt)
-        losses, ips, peak, _ = train_cifar(label, m, batches, x_tr, y_tr,
-                                           warm)
+        n = n_iters if label == "bf16 kernel path" else n_iters // 2
+        losses, ips, peak, _ = train_cifar(label, m, batches[:n], x_tr,
+                                           y_tr, warm)
         runs[label] = (losses, ips, peak)
         if label == "bf16 kernel path":
             counts = {w.__name__ + "_bf16": w.launches_bf16
@@ -7190,7 +7478,7 @@ def phase_slice10(device, u):
 # -- phase 14: FFJORD ---------------------------------------------------------
 
 FFJORD_WARM = 3       # miniboone iterations before the timed ones
-FFJORD_ITERS = 20     # timed miniboone iterations
+FFJORD_ITERS = 10     # timed miniboone iterations
 FFJORD_COS = 0.9999   # card fp32 gradient against the CPU fp64 one
 FFJORD_TRIP = 1e-4    # x -> z -> x (relative to max |x|) and delta_logp
 GATE5_STEPS = 10      # tools/hardware_smoke.py's gate 5
@@ -7553,11 +7841,11 @@ CORA = dict(n_nodes=2708, n_classes=7, feat_dim=1433, p_in=0.0082,
             p_out=0.00032, seed=0)
 # grand_node_torch.py's defaults but these flags, with the full-batch
 # epochs before the timed ones and the timed ones: transformer/imex's
-# epoch is ~3 s (GMRES's whole cycle per stage solve), so it takes 1 + 5
+# epoch is ~3 s (GMRES's whole cycle per stage solve), so it takes 1 + 2
 GRAND_CONFIGS = {
-    "laplacian/pnode": ([], 3, 20),
+    "laplacian/pnode": ([], 3, 10),
     "transformer/imex": (["--function", "transformer", "--block", "imex"],
-                         1, 5),
+                         1, 2),
 }
 GRAND_COS = 0.9999       # card fp32 gradient against the CPU fp64 one
 GRAND_LOSS_RTOL = 1e-5   # and their losses
@@ -7948,6 +8236,9 @@ def main():
     reports["fused_grad_step"], counts["fused_grad_step"], \
         burgers12["launches"] = phase_dp("cuda", u)
     reports["fused_grad_step"]["burgers"] = burgers12
+    ks_grid = reports["fused_grad_step"].pop("ks_grid")
+    reports["fused_grad_step"]["ks_grid"] = ks_grid["k12"]
+    reports["fused_ark_step_fwd"]["ks_grid"] = ks_grid["k2"]
     for name in ("fused_ark_step_fwd", "fused_ark_step_adj",
                  "fused_train_loop"):
         reports[name]["burgers"]["launches"] = b_launches[name]
@@ -7975,7 +8266,8 @@ def main():
         for extra in ("device_ms", "stage2", "stage3", "library_device_ms",
                       "launch_floor_device_ms", "with_dw", "ks_stage",
                       "fp32_ms", "module_ms", "max_rel_err",
-                      "free_norm_err", "free_max_rel_err", "burgers"):
+                      "free_norm_err", "free_max_rel_err", "burgers",
+                      "ks_grid"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if name in k1_burgers:  # K1's readings at the Burgers stack too

@@ -1,9 +1,10 @@
-// The grid form of K3's reverse step and of K4's training iteration: every
-// dependent product of the step runs over the whole cooperative grid. The
-// plans (plan_rev's caller in each source) take it where the row form
-// (ark_tiles.cuh) cannot keep inv and J in shared memory (RevPlan.resident
-// 0: past d ~160 at KS-like stacks, Burgers-512 among them); KS keeps the
-// row form.
+// The grid form of K3's reverse step, K4's training iteration, K12's
+// gradient step and K2's forward step: every dependent product of the step
+// runs over the whole cooperative grid. The plans (plan_rev's caller in
+// each source) take it where the row form (ark_tiles.cuh) cannot keep inv
+// and J in shared memory (RevPlan.resident 0: past d ~160 at KS-like
+// stacks, Burgers-512 among them; K2 and K12 from kGridMinD up); KS keeps
+// the row form.
 //
 // What it answers: at Burgers-512 (B 200, 512 -> 576 x4 -> 512) the row
 // form gives each block one batch row and pulls the whole 6.35 MB weight
@@ -29,43 +30,46 @@
 //   ascending, or where the row form splits k over G thread groups
 //   (split_k), G chains over the positions each group takes (k mod G, or
 //   blocks of 4 n in the backprop where the width allows), summed in
-//   group order. So the recompute's ReLU decisions, K4's forward (K2's
-//   arithmetic) and K3's lam_prev carry the row form's bits, and every
-//   output is one fixed sum whatever the grid.
+//   group order. So the recompute's ReLU decisions, the forward of K4,
+//   K12 and K2 (K2's arithmetic) and K3's lam_prev carry the row form's
+//   bits, and every output is one fixed sum whatever the grid.
 // - A grid-wide barrier separates dependent products; the elementwise
 //   terms fold into the epilogue of the product before them: the stage
-//   sums G_i, kI_i, y1 and the MSE seed (forward), u_i / uh_i, p_i, q_i,
-//   xi_i and lam_prev (reverse), in the row form's order, each thread's 8
-//   outputs' operands loaded together. K3 recomputes every stage's layer
-//   inputs at once (M = s B rows); K4 keeps its forward's, which have the
-//   recompute's bits. An explicit stage's u J shares the first backprop's
-//   barrier, its stiff forward product the first layer's where the stack
-//   has more than one layer. No phase writes what another tile of it
-//   reads, beyond a thread's own outputs.
+//   sums G_i, kI_i, y1, K2's err and the MSE seed (forward), u_i / uh_i,
+//   p_i, q_i, xi_i and lam_prev (reverse), in the row form's order, each
+//   thread's 8 outputs' operands loaded together. K3 recomputes every
+//   stage's layer inputs at once (M = s B rows); K4 and K12 keep their
+//   forward's, which have the recompute's bits. An explicit stage's u J
+//   shares the first backprop's barrier, its stiff forward product the
+//   first layer's where the stack has more than one layer. No phase
+//   writes what another tile of it reads, beyond a thread's own outputs.
 // - Layer inputs, covectors and stage values of every stage live in a
 //   device workspace (plan_grid; ~22 MB at Burgers, L2-resident), in
-//   stage-descending slots, written by one SM and read by another within
-//   the launch, so every read of it, and of K4's weights that Adam
-//   rewrites, goes through L2 (ld.global.cg).
+//   stage-descending slots (K2, which forms no dW/db, in ascending ones:
+//   its stage values are the caller's ys in stage order), written by one
+//   SM and read by another within the launch, so every read of it, and of
+//   K4's weights that Adam rewrites, goes through L2 (ld.global.cg).
 // - dW/db: one product per layer over the (slot, row) axis, stages
 //   descending, rows ascending, db as a row of ones against the
 //   covectors: no per-block partials and no second pass. K4 applies Adam
-//   in that product's epilogue; its loss is summed per row, then over the
-//   rows in a fixed order.
-// - The phases come from one generator (next_phase), so each kernel holds
-//   one copy of the tile loop. It runs on the host too:
-//   pnode_ark_grid_phases lists its products, which chip_smoke.py holds
-//   against ops/fused_ark_adjoint.py's grid_phases, the mirror whose
-//   reads and writes the tests check phase by phase.
+//   in that product's epilogue, K3 and K12 write the flat gradient; K4's
+//   and K12's loss is summed per row, then over the rows in a fixed order.
+// - The phases come from one generator (next_phase, by the launch's
+//   GridKind), so each kernel holds one copy of the tile loop. It runs on
+//   the host too: pnode_ark_grid_phases lists its products, which
+//   chip_smoke.py holds against ops/fused_ark_adjoint.py's grid_phases,
+//   the mirror whose reads and writes the tests check phase by phase.
 //
 // Bound on the H100 (fp32 FMA peak, 67 TFLOP/s at 700 W): ~8.0 GFLOP per
 // K3 call at Burgers (the recompute at M 800, 4 x 5 backprop products,
 // 4 stiff products, the dW products over 800 rows), ~0.12 ms; ~10.6 GFLOP
-// per K4 iteration (a forward in place of the recompute), ~0.16 ms. The
+// per K4 iteration (a forward in place of the recompute), ~0.16 ms, and
+// per K12 call; ~2.95 GFLOP per K2 call (the forward alone), ~0.044 ms. The
 // FMA loop issues 8 FMAs and 2 shared loads per position, so the products
 // run at most ~80% of that, and the M = 200 products fill 112-126 of the
 // 132 SMs with one tile group each; each barrier costs a few
-// microseconds, ~29 per K3 call and ~47 per K4 iteration.
+// microseconds, ~29 per K3 call, ~47 per K4 iteration or K12 call and 23
+// per K2 call.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -91,18 +95,31 @@ constexpr int kGBuf = 4 * kGChunk * kGLd;  // a group's two (A, B) buffers
 // each group's buffers, then 32 floats for block sums
 constexpr int kGSmemFloats = kGGroups * kGBuf + 32;
 
-// The launches that run the grid form: K3's step, K4's loop.
-enum GridKind { kGridStep = 0, kGridLoop = 1 };
+// The launches that run the grid form: K3's step (the staged stage values,
+// the recompute, the reverse, dW/db), K4's loop (per iteration the forward,
+// the MSE seed, the reverse, dW/db with Adam), K12's gradient step (K4's
+// iteration with the flat gradient and the loss in place of Adam) and K2's
+// forward step (the forward alone: y1, err and the stage values out).
+enum GridKind { kGridStep = 0, kGridLoop = 1, kGridGrad = 2, kGridFwd = 3 };
+constexpr int kGridKinds = 4;
+
+// K2 and K12 take the grid form where K3's and K4's plans do (inv and J
+// not resident) only from this state width up: their row form streams
+// inv or J (d x d) through every block's ring each stage, and below ~d
+// 280 that stream costs less than the grid form's 11-47 phases (an H100,
+// B 37: K2 at d 200 84 us in the row form against 160 in the grid form,
+// at d 384 214 against 142; K12 217 / 337 and 531 / 302; PERF.md).
+constexpr int kGridMinD = 280;
 
 __host__ __device__ inline long long round4ll(long long v) {
   return (v + 3) & ~3LL;
 }
 
 // The grid form's launch (one block per SM) and device workspace; offsets
-// in floats, each
-// region 16-byte aligned, -1 where the kind has none. h_l, g_l and the
-// stage values hold stage i in slot s - 1 - i.
+// in floats, each region 16-byte aligned, -1 where the kind has none. h_l,
+// g_l and the stage values hold stage i in slot s - 1 - i (K2: slot i).
 struct GridPlan {
+  int kind;
   int grid;
   size_t smem;                // bytes of dynamic shared memory per block
   long long ws;               // workspace floats
@@ -110,9 +127,9 @@ struct GridPlan {
   long long o_g[kMaxLayers];  // g_l: (s, B, dims[l + 1]); g_{n-1} the seeds
   long long o_xi, o_u, o_q;   // (s, B, d) each
   long long o_pv;             // (B, d)
-  long long o_ys;             // (s, B, d): the stage values, h_0
-  // K4: kI and kE (s, B, d); G, the seed lam and y1 - tgt (B, d); the
-  // per-row losses (B)
+  long long o_ys;             // (s, B, d): the stage values, h_0 (not K2's)
+  // K4, K12 and K2: kI and kE (s, B, d), G (B, d); K4 and K12: the seed
+  // lam and y1 - tgt (B, d), the per-row losses (B)
   long long o_kI, o_kE, o_G, o_lam, o_diff, o_lrow;
 };
 
@@ -122,6 +139,7 @@ struct GridPlan {
 static inline void plan_grid(int kind, int B, int d, int s, int n_layers,
                              const int* dims, int sms, GridPlan* p) {
   *p = GridPlan{};
+  p->kind = kind;
   p->grid = sms;
   p->smem = sizeof(float) * kGSmemFloats;
   const long long sb = (long long)s * B, bd = (long long)B * d;
@@ -132,18 +150,23 @@ static inline void plan_grid(int kind, int B, int d, int s, int n_layers,
     return o;
   };
   for (int l = 0; l < kMaxLayers; ++l) p->o_h[l] = p->o_g[l] = -1;
-  for (int l = 1; l < n_layers; ++l) p->o_h[l] = take(sb * dims[l]);
-  for (int l = 0; l < n_layers; ++l) p->o_g[l] = take(sb * dims[l + 1]);
-  p->o_xi = take(sb * d);
-  p->o_u = take(sb * d);
-  p->o_q = take(sb * d);
-  p->o_pv = take(bd);
-  p->o_ys = take(sb * d);
+  p->o_xi = p->o_u = p->o_q = p->o_pv = p->o_ys = -1;
   p->o_kI = p->o_kE = p->o_G = p->o_lam = p->o_diff = p->o_lrow = -1;
-  if (kind == kGridLoop) {
+  for (int l = 1; l < n_layers; ++l) p->o_h[l] = take(sb * dims[l]);
+  if (kind != kGridFwd) {  // the reverse's
+    for (int l = 0; l < n_layers; ++l) p->o_g[l] = take(sb * dims[l + 1]);
+    p->o_xi = take(sb * d);
+    p->o_u = take(sb * d);
+    p->o_q = take(sb * d);
+    p->o_pv = take(bd);
+    p->o_ys = take(sb * d);
+  }
+  if (kind != kGridStep) {  // the forward's
     p->o_kI = take(sb * d);
     p->o_kE = take(sb * d);
     p->o_G = take(bd);
+  }
+  if (kind == kGridLoop || kind == kGridGrad) {  // the MSE's
     p->o_lam = take(bd);
     p->o_diff = take(bd);
     p->o_lrow = take(B);
@@ -153,8 +176,11 @@ static inline void plan_grid(int kind, int B, int d, int s, int n_layers,
 
 // What the grid body reads and writes. K3: lam and ys_in its inputs,
 // lam_prev and grads its outputs. K4: lam, kI, kE, G, diff, lrow in the
-// workspace; W and b views of `params`, which Adam updates in place.
+// workspace; W and b views of `params`, which Adam updates in place. K12:
+// K4's workspace, grads and losses (the loss) its outputs. K2: kI, kE and
+// G in the workspace, h[0] the caller's ys, y1 and err its outputs.
 struct GridArgs {
+  int kind;  // GridKind
   Mlp m;
   Tableau tb;
   const float* J;
@@ -165,7 +191,7 @@ struct GridArgs {
   const float* lam;       // (B, d) the covector (K4: the MSE seed)
   const float* ys_in;     // K3's stage values (s, B, d), stage order
   float* lam_prev;        // K3
-  float* grads;           // K3: [W0, b0, W1, b1, ...]
+  float* grads;           // K3, K12: [W0, b0, W1, b1, ...]
   float* h[kMaxLayers];   // h[0]: the stage values, in slots
   float* g[kMaxLayers];
   float* xi;
@@ -182,33 +208,36 @@ struct GridArgs {
   float* params;
   float* m_state;
   float* v_state;
-  float* losses;
+  float* losses;  // K4: one an iteration; K12: the loss
+  float* y1;      // K2
+  float* err;     // K2, or null
   Adam adam;
   float inv_count, two_inv_count;
 };
 
-// Host: point a's workspace regions into ws at plan p.
+// Host: a's kind and its workspace regions in ws at plan p (null where the
+// kind has none; K2's h[0] is the caller's).
 static inline void grid_regions(const GridPlan& p, float* ws, int n_layers,
                                 GridArgs* a) {
-  a->h[0] = ws + p.o_ys;
-  for (int l = 1; l < n_layers; ++l) a->h[l] = ws + p.o_h[l];
-  for (int l = 0; l < n_layers; ++l) a->g[l] = ws + p.o_g[l];
-  a->xi = ws + p.o_xi;
-  a->u = ws + p.o_u;
-  a->q = ws + p.o_q;
-  a->pv = ws + p.o_pv;
-  if (p.o_kI >= 0) {
-    a->kI = ws + p.o_kI;
-    a->kE = ws + p.o_kE;
-    a->Gb = ws + p.o_G;
-    a->lam_w = ws + p.o_lam;
-    a->lam = a->lam_w;
-    a->diff = ws + p.o_diff;
-    a->lrow = ws + p.o_lrow;
-  }
+  auto at = [ws](long long o) { return o >= 0 ? ws + o : nullptr; };
+  a->kind = p.kind;
+  a->h[0] = at(p.o_ys);
+  for (int l = 1; l < n_layers; ++l) a->h[l] = at(p.o_h[l]);
+  for (int l = 0; l < n_layers; ++l) a->g[l] = at(p.o_g[l]);
+  a->xi = at(p.o_xi);
+  a->u = at(p.o_u);
+  a->q = at(p.o_q);
+  a->pv = at(p.o_pv);
+  a->kI = at(p.o_kI);
+  a->kE = at(p.o_kE);
+  a->Gb = at(p.o_G);
+  a->lam_w = at(p.o_lam);
+  a->diff = at(p.o_diff);
+  a->lrow = at(p.o_lrow);
+  if (a->lam_w != nullptr) a->lam = a->lam_w;
 }
 
-// One training iteration's operands (K4).
+// One training iteration's operands (K4, K12; K2: y alone).
 struct Iter {
   const float* y;    // (B, d)
   const float* tgt;  // (B, d)
@@ -231,9 +260,10 @@ __host__ __device__ __forceinline__ int first_reached(const GridArgs& a) {
   while (i >= 0 && !reached(a, i)) --i;
   return i;
 }
-// Stage i's slot in h_l, g_l and the stage values.
+// Stage i's slot in h_l, g_l and the stage values: descending, the order
+// the dW/db products sum them in; K2's ascending, the caller's ys.
 __host__ __device__ __forceinline__ size_t slot_of(const GridArgs& a, int i) {
-  return (size_t)(a.s - 1 - i);
+  return (size_t)(a.kind == kGridFwd ? i : a.s - 1 - i);
 }
 
 // -- epilogues ---------------------------------------------------------------------
@@ -245,10 +275,11 @@ enum GridEpi {
   kEpiPv,         // pv = v                               (u_i J)
   kEpiStageEnd,   // p_i = (pv +) v; then q_i, or xi_i = p_i
   kEpiXi,         // xi_i = v (- c_i)
-  kEpiGrad,       // dW/db element (K3's grads)
+  kEpiGrad,       // dW/db element (K3's and K12's grads)
   kEpiAdam,       // dW/db element, Adam's update (K4)
-  kEpiFwdStiff,   // Y_i and kI_i (K4's forward)
-  kEpiFwdKE,      // kE_i; then G_{i+1}, or y1, the seed and covectors
+  kEpiFwdStiff,   // Y_i and kI_i (the forward: K4, K12, K2)
+  kEpiFwdKE,      // kE_i; then G_{i+1}, or y1 and the seed and covectors
+                  // (K2: y1 and err)
 };
 
 // u_i, and the seed g_{n-1} = sign uh_i where stage i reaches the MLP, at
@@ -481,6 +512,11 @@ __device__ __forceinline__ void tile_epilogue(const Gemm& gm,
       }
       store(a.kE + i * bd, ke);
       const bool last = i + 1 == a.s;
+      // K2's err: from 0 with the weight differences, as y1
+      const bool with_err = last && a.err != nullptr;
+      float ea[8];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) ea[o] = 0.0f;
       // G_{i+1} = y + sum_{j<=i} (dt aI kI_j + dt aE kE_j), or y1 with the
       // weights b, j ascending, implicit term first
       for (int j = 0; j <= i; ++j) {
@@ -499,9 +535,21 @@ __device__ __forceinline__ void tile_epilogue(const Gemm& gm,
           if (zI) w[o] = w[o] + cI * kIj[o];
           if (zE) w[o] = w[o] + cE * kEj[o];
         }
+        if (with_err) {
+#pragma unroll
+          for (int o = 0; o < 8; ++o) {
+            if (tb.nzerrI[j]) ea[o] = ea[o] + tb.cerrI[j] * kIj[o];
+            if (tb.nzerrE[j]) ea[o] = ea[o] + tb.cerrE[j] * kEj[o];
+          }
+        }
       }
       if (!last) {
         store(a.Gb, w);
+        return;
+      }
+      if (a.kind == kGridFwd) {  // K2: y1 and err out
+        store(a.y1, w);
+        if (with_err) store(a.err, ea);
         return;
       }
       // y1 - tgt, the seed, then the first reached stage's covectors
@@ -911,21 +959,20 @@ enum GridPre {
               // stage's covectors (or lam_prev = lam), zero covectors of the
               // stages that reach no MLP
   kPreLoss,   // K4: the previous iteration's loss (block 0)
-  kPreRows,   // K4: this block's rows of the loss
+  kPreRows,   // K4, K12: this block's rows of the loss
 };
 
-// The step's position in its phases: K4's forward (stage i, layer l; -1:
-// the stiff product), K3's staging and recompute (layer l), the reverse's
-// stages (stage i, step l), the dW/db products.
+// The step's position in its phases: the forward of K4, K12 and K2 (stage
+// i, layer l; -1: the stiff product), K3's staging and recompute (layer
+// l), the reverse's stages (stage i, step l), the dW/db products.
 enum GridSection { kSecFwd, kSecStage, kSecRec, kSecRev, kSecGrads, kSecDone };
 
 struct Cursor {
   int sect, i, l;
 };
 
-// The next phase of the step at cursor c, or false after the last: its
-// products gs[0..*ng), its mark and its per-block work.
-template <bool kLoop>
+// The next phase of the step of kind a.kind at cursor c, or false after
+// the last: its products gs[0..*ng), its mark and its per-block work.
 __host__ __device__ __forceinline__ bool next_phase(const GridArgs& a, const Iter& it,
                                            Cursor& c, Gemm (&gs)[kMaxLayers],
                                            int* ng, int* tag, int* pre) {
@@ -936,8 +983,9 @@ __host__ __device__ __forceinline__ bool next_phase(const GridArgs& a, const Ite
   for (;;) {
     switch (c.sect) {
       case kSecFwd: {
-        if (c.i >= a.s) {
-          c = Cursor{kSecRev, first_reached(a), 0};
+        if (c.i >= a.s) {  // K2 ends with its forward
+          c = a.kind == kGridFwd ? Cursor{kSecDone, 0, 0}
+                                 : Cursor{kSecRev, first_reached(a), 0};
           continue;
         }
         const int i = c.i;
@@ -957,7 +1005,7 @@ __host__ __device__ __forceinline__ bool next_phase(const GridArgs& a, const Ite
           if (beside)
             gs[(*ng)++] = mlp_gemm(a, 0, Gin, a.B, a.h[1] + sb * a.m.dims[1],
                                    kEpiAct, i);
-          if (i == 0 && it.k > 0) *pre = kPreLoss;
+          if (i == 0 && it.k > 0 && a.kind == kGridLoop) *pre = kPreLoss;
           c.l = beside ? 1 : 0;
           return true;
         }
@@ -1035,8 +1083,9 @@ __host__ __device__ __forceinline__ bool next_phase(const GridArgs& a, const Ite
       case kSecGrads:
         *tag = kMarkGGrads;
         for (int l = 0; l < n; ++l)
-          gs[(*ng)++] = grad_gemm(a, l, kLoop ? kEpiAdam : kEpiGrad);
-        if (kLoop) *pre = kPreRows;
+          gs[(*ng)++] =
+              grad_gemm(a, l, a.kind == kGridLoop ? kEpiAdam : kEpiGrad);
+        if (a.kind != kGridStep) *pre = kPreRows;
         c = Cursor{kSecDone, 0, 0};
         return true;
       default:
@@ -1045,9 +1094,9 @@ __host__ __device__ __forceinline__ bool next_phase(const GridArgs& a, const Ite
   }
 }
 
-// K4: the loss of iteration k, from the per-row losses lrow, summed over
-// the rows in a fixed order (lane-strided, then a shuffle tree) by block
-// 0's first warp.
+// K4, K12: the loss of iteration k, from the per-row losses lrow, summed
+// over the rows in a fixed order (lane-strided, then a shuffle tree) by
+// block 0's first warp.
 __device__ __forceinline__ void grid_loss(const GridArgs& a, int k) {
   if (blockIdx.x != 0 || threadIdx.x >= 32) return;
   float l = 0.0f;
@@ -1057,10 +1106,26 @@ __device__ __forceinline__ void grid_loss(const GridArgs& a, int k) {
   if (threadIdx.x == 0) a.losses[k] = l * a.inv_count;
 }
 
+// Zero the covectors of the stages that reach no MLP: such a stage adds
+// nothing to dW/db (K3 in its staging; K4 and K12 once, before their
+// first phase's barrier).
+__device__ __forceinline__ void zero_unreached(const GridArgs& a) {
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nthreads = gridDim.x * blockDim.x;
+  for (int i = 0; i < a.s; ++i) {
+    if (reached_e(a, i)) continue;
+    for (int l = 0; l < a.m.n; ++l) {
+      const size_t w = (size_t)a.B * a.m.dims[l + 1];
+      for (size_t e = gtid; e < w; e += nthreads)
+        a.g[l][slot_of(a, i) * w + e] = 0.0f;
+    }
+  }
+}
+
 // A phase's per-block work before its tiles.
 __device__ __forceinline__ void phase_pre(int pre, const GridArgs& a,
                                           const Iter& it, float* smem) {
-  const int d = a.m.dims[0], n = a.m.n;
+  const int d = a.m.dims[0];
   const size_t bd = (size_t)a.B * d;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nthreads = gridDim.x * blockDim.x;
@@ -1077,15 +1142,7 @@ __device__ __forceinline__ void phase_pre(int pre, const GridArgs& a,
         else
           a.lam_prev[e] = lamv[0];
       }
-      // a stage that reaches no MLP adds nothing to dW/db
-      for (int i = 0; i < a.s; ++i) {
-        if (reached_e(a, i)) continue;
-        for (int l = 0; l < n; ++l) {
-          const size_t w = (size_t)a.B * a.m.dims[l + 1];
-          for (size_t e = gtid; e < w; e += nthreads)
-            a.g[l][slot_of(a, i) * w + e] = 0.0f;
-        }
-      }
+      zero_unreached(a);
       return;
     }
     case kPreLoss:
@@ -1113,14 +1170,13 @@ __device__ __forceinline__ void phase_pre(int pre, const GridArgs& a,
 // then its tiles walked by the grid's tile groups (tile t of the phase:
 // group t / grid of block t % grid, and so on every 2 grid tiles: the
 // first grid tiles land on distinct SMs), then the grid-wide barrier. K3
-// starts at kSecStage, K4's iterations at kSecFwd.
-template <bool kLoop>
+// starts at kSecStage; K4's iterations, K12 and K2 at kSecFwd.
 __device__ __forceinline__ void grid_step(cg::grid_group& grid,
                                           const GridArgs& a, const Iter& it,
                                           float* smem, Cursor c) {
   Gemm gs[kMaxLayers];
   int ng, tag, pre;
-  while (next_phase<kLoop>(a, it, c, gs, &ng, &tag, &pre)) {
+  while (next_phase(a, it, c, gs, &ng, &tag, &pre)) {
     mark(tag);
     phase_pre(pre, a, it, smem);
     int total = 0;

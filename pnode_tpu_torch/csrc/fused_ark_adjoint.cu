@@ -89,7 +89,7 @@ ark_adj_grid_kernel(const ark::GridArgs a) {
   extern __shared__ __align__(16) float smem[];
   ark::mark(ark::kMarkStart);
   const ark::Iter it{nullptr, nullptr, 0.0f, 0.0f, 0};
-  ark::grid_step<false>(grid, a, it, smem, ark::Cursor{ark::kSecStage, 0, 0});
+  ark::grid_step(grid, a, it, smem, ark::Cursor{ark::kSecStage, 0, 0});
   ark::mark(ark::kMarkEnd);
 }
 
@@ -142,13 +142,14 @@ int pnode_ark_adj_plan(int B, int d, int s, int n_layers, const int* dims,
   return 0;
 }
 
-// The grid form's plan of `kind` (0: K3's step, 1: K4's loop) for (B, d), s
-// stages and dims[0..n_layers] on this card: grid, shared-memory bytes and
+// The grid form's plan of `kind` (ark::GridKind: 0 K3's step, 1 K4's
+// loop, 2 K12's gradient step, 3 K2's forward step) for (B, d), s stages
+// and dims[0..n_layers] on this card: grid, shared-memory bytes and
 // workspace floats (mirrored by ops/fused_ark_adjoint.py's grid_plan).
 int pnode_ark_grid_plan(int kind, int B, int d, int s, int n_layers,
                         const int* dims, int* grid, long long* smem,
                         long long* ws) {
-  if ((kind != ark::kGridStep && kind != ark::kGridLoop) || B < 1 || s < 1 ||
+  if (kind < 0 || kind >= ark::kGridKinds || B < 1 || s < 1 ||
       s > kMaxStages || n_layers < 1 || n_layers > kMaxLayers ||
       dims[0] != d || dims[n_layers] != d)
     return cudaErrorInvalidValue;
@@ -162,12 +163,13 @@ int pnode_ark_grid_plan(int kind, int B, int d, int s, int n_layers,
   return 0;
 }
 
-// The grid form's phases of `kind` at iteration k (K4) as next_phase
-// generates them, one record of kGridRecord long longs per product: phase,
-// per-block work, epilogue, stage, layer, M, N, K, G, v, ones row, A and B
-// k-major, lda, ldb, ldo, then the addresses of A, B, the output and aux
-// (0 where none). The workspace and operands are taken at the addresses
-// given (ws, J, inv, y, Ws[l], bs[l]), never read. tab: as pnode_ark_adj's.
+// The grid form's phases of `kind` (as pnode_ark_grid_plan's) at
+// iteration k (K4) as next_phase generates them, one record of
+// kGridRecord long longs per product: phase, per-block work, epilogue,
+// stage, layer, M, N, K, G, v, ones row, A and B k-major, lda, ldb, ldo,
+// then the addresses of A, B, the output and aux (0 where none). The
+// workspace and operands are taken at the addresses given (ws, J, inv, y,
+// K2's stage values ys, Ws[l], bs[l]), never read. tab: as pnode_ark_adj's.
 // *n: the records; cudaErrorInvalidValue past `cap` (mirrored by
 // ops/fused_ark_adjoint.py's grid_phases).
 constexpr int kGridRecord = 20;
@@ -175,10 +177,10 @@ constexpr int kGridRecord = 20;
 int pnode_ark_grid_phases(int kind, int B, int d, int s, int n_layers,
                           const int* dims, const double* tab, int k,
                           const void* ws, const void* J, const void* inv,
-                          const void* y, const void* const* Ws,
-                          const void* const* bs, long long* rec, int cap,
-                          int* n) {
-  if ((kind != ark::kGridStep && kind != ark::kGridLoop) || B < 1 ||
+                          const void* y, const void* ys,
+                          const void* const* Ws, const void* const* bs,
+                          long long* rec, int cap, int* n) {
+  if (kind < 0 || kind >= ark::kGridKinds || B < 1 ||
       n_layers < 1 || n_layers > kMaxLayers || dims[0] != d ||
       dims[n_layers] != d)
     return cudaErrorInvalidValue;
@@ -195,15 +197,15 @@ int pnode_ark_grid_phases(int kind, int B, int d, int s, int n_layers,
   ark::plan_grid(kind, B, d, s, n_layers, dims, 1, &g);
   ark::grid_regions(g, static_cast<float*>(const_cast<void*>(ws)), n_layers,
                     &a);
+  if (kind == ark::kGridFwd)  // K2's stage values: the caller's ys
+    a.h[0] = static_cast<float*>(const_cast<void*>(ys));
   const ark::Iter it{static_cast<const float*>(y), nullptr, 0.0f, 0.0f, k};
-  const bool loop = kind == ark::kGridLoop;
-  ark::Cursor c = loop ? ark::Cursor{ark::kSecFwd, 0, -1}
-                       : ark::Cursor{ark::kSecStage, 0, 0};
+  ark::Cursor c = kind == ark::kGridStep ? ark::Cursor{ark::kSecStage, 0, 0}
+                                         : ark::Cursor{ark::kSecFwd, 0, -1};
   ark::Gemm gs[kMaxLayers] = {};
   int ng, tag, pre, phase = 0;
   *n = 0;
-  while (loop ? ark::next_phase<true>(a, it, c, gs, &ng, &tag, &pre)
-              : ark::next_phase<false>(a, it, c, gs, &ng, &tag, &pre)) {
+  while (ark::next_phase(a, it, c, gs, &ng, &tag, &pre)) {
     for (int p = 0; p < (ng ? ng : 1); ++p, ++*n) {
       if (*n >= cap) return cudaErrorInvalidValue;
       long long* r = rec + (size_t)*n * kGridRecord;

@@ -30,9 +30,31 @@
 // Rows per block, device us per call on an H100 SXM (PERF.md): B_local
 // 256: R 1 329.8, R 2 169.6, R 4 199.9, R 8 427.5; B_local 128: R 1
 // 157.1, R 2 165.4. The rule (K3's) takes R 2 and R 1 there.
+//
+// The grid form (csrc/ark_grid.cuh, whose note gives the design): where
+// the row plan cannot keep inv and J in shared memory (K4 switches there)
+// and the state is at least kGridMinD wide (Burgers-512, B 200, 512 -> 576
+// x4 -> 512, among them; below it the row form is faster), one
+// cooperative launch of one block per SM runs K4's iteration without Adam:
+// the forward step's products (K2's arithmetic), the MSE seed
+// two_inv_count (y1 - tgt) in the last product's epilogue, the reverse's
+// backprop and stiff products on the forward's layer inputs, then one
+// dW/db product per layer over the (stage, row) axis whose epilogue writes
+// the flat gradient into `out`, and the loss as the per-row sums summed
+// in a fixed order into out[wtotal]. At Burgers the row form pulled the
+// 6.35 MB stack through every block's ring three times a stage and wrote
+// 200 partials of it (~1.27 GB a call); here no partial exists, and every
+// output has the same bits at any grid. A cooperative launch needs every
+// block co-resident: one block per SM of this process's grid, however
+// many processes share the card (their launches take turns on it).
+#include <cooperative_groups.h>
+
 #include <cstdint>
 
+#include "ark_grid.cuh"
 #include "ark_tiles.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace pnode {
 
@@ -86,6 +108,48 @@ __global__ void grad_step_sum_kernel(const float* __restrict__ partial,
   }
 }
 
+// The grid form: one iteration's gradient and loss over the whole
+// cooperative grid (the covectors of the stages that reach no MLP zeroed
+// before the first phase's barrier).
+__global__ void __launch_bounds__(ark::kGBlockThreads, 1)
+grad_step_grid_kernel(const float* __restrict__ y,
+                      const float* __restrict__ tgt, const ark::GridArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  ark::mark(ark::kMarkStart);
+  ark::zero_unreached(a);
+  const ark::Iter it{y, tgt, 0.0f, 0.0f, 0};
+  ark::grid_step(grid, a, it, smem, ark::Cursor{ark::kSecFwd, 0, -1});
+  ark::grid_loss(a, 0);  // its per-row sums a barrier old
+  ark::mark(ark::kMarkEnd);
+}
+
+// K12's form for a (B, d) shard, s stages and dims[0..n_layers]: rows 0
+// the plan's (the grid form where plan_rev's layouts cannot keep inv and J
+// resident, as K4's, and d >= kGridMinD), -1 the grid form forced, 1, 2,
+// 4 or 8 the row form forced (kernel comparisons). Fills *q and *f (the
+// row form) or *g (the grid form); 0 or a CUDA error code.
+static int grad_plan(int B, int d, int s, int n_layers, const int* dims,
+                     int rows, ark::RevPlan* q, ark::Plan* f,
+                     ark::GridPlan* g, bool* grid_form) {
+  if (B < 1 || s < 1 || s > kMaxStages || n_layers < 1 ||
+      n_layers > kMaxLayers || dims[0] != d || dims[n_layers] != d ||
+      rows < -1)
+    return cudaErrorInvalidValue;
+  for (int l = 0; l <= n_layers; ++l)
+    if (dims[l] < 1) return cudaErrorInvalidValue;
+  int sms, rc;
+  if ((rc = ark::sm_count(&sms))) return rc;
+  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, ark::kRevGrad,
+                     rows < 0 ? 0 : rows, q, f))
+    return cudaErrorInvalidValue;
+  *grid_form =
+      rows == -1 || (rows == 0 && !q->resident && d >= ark::kGridMinD);
+  if (*grid_form)
+    ark::plan_grid(ark::kGridGrad, B, d, s, n_layers, dims, sms, g);
+  return 0;
+}
+
 template <int R>
 static int launch_grad(const float* y, const float* tgt, float* partial,
                        int B, float sign, float two_inv_count,
@@ -105,25 +169,21 @@ using namespace pnode;
 extern "C" {
 
 // K12's plan for a (B, d) shard, s stages and the stack dims[0..n_layers]:
-// rows per block, grid and shared-memory bytes (mirrored by
-// ops/fused_ark_adjoint.py's grad_step_plan). cudaErrorInvalidValue when
-// the configuration does not fit.
+// rows per block (0: the grid form), grid and shared-memory bytes
+// (mirrored by ops/fused_ark_adjoint.py's grad_step_plan).
+// cudaErrorInvalidValue when the configuration does not fit.
 int pnode_grad_step_plan(int B, int d, int s, int n_layers, const int* dims,
                          int* rows, int* grid, long long* smem) {
-  if (B < 1 || s < 1 || s > kMaxStages || n_layers < 1 ||
-      n_layers > kMaxLayers || dims[0] != d || dims[n_layers] != d)
-    return cudaErrorInvalidValue;
-  for (int l = 0; l <= n_layers; ++l)
-    if (dims[l] < 1) return cudaErrorInvalidValue;
-  int sms, rc;
-  if ((rc = ark::sm_count(&sms))) return rc;
   ark::RevPlan q;
   ark::Plan f;
-  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, ark::kRevGrad, 0, &q, &f))
-    return cudaErrorInvalidValue;
-  *rows = q.rows;
-  *grid = q.grid;
-  *smem = (long long)q.smem;
+  ark::GridPlan g;
+  bool grid_form;
+  const int rc = grad_plan(B, d, s, n_layers, dims, 0, &q, &f, &g,
+                           &grid_form);
+  if (rc) return rc;
+  *rows = grid_form ? 0 : q.rows;
+  *grid = grid_form ? g.grid : q.grid;
+  *smem = (long long)(grid_form ? g.smem : q.smem);
   return 0;
 }
 
@@ -132,34 +192,59 @@ int pnode_grad_step_plan(int B, int d, int s, int n_layers, const int* dims,
 // loss sum((y1 - tgt)^2) / count; the seed is 2 (y1 - tgt) / count.
 // params: the flat [W0, b0, ...] buffer of the stack (read only). tab:
 // host doubles aI (s*s), aE (s*s), bI (s), bE (s). rows: 0 for the plan's
-// rows per block, or 1, 2, 4 or 8 to force them. partial: scratch of grid
-// slices of round4(wtotal + 1) floats at the launch's grid;
-// `partial_floats` must say so (cudaErrorInvalidValue otherwise). Two
-// ordinary launches on `stream`.
+// form, -1 for the grid form, or 1, 2, 4 or 8 to force the row form at
+// those rows per block (kernel comparisons). Row form: partial is scratch
+// of grid slices of round4(wtotal + 1) floats at the launch's grid; two
+// ordinary launches on `stream`. Grid form: partial is the workspace of
+// pnode_ark_grid_plan's floats (kind 2), and `grid` (0: the plan's) a
+// smaller co-resident grid if wanted; every output has the same bits at
+// any grid; one cooperative launch. `partial_floats` must give the floats
+// (cudaErrorInvalidValue otherwise).
 int pnode_grad_step(const float* y, const float* tgt, const float* J,
                     const float* inv, const float* params, float* partial,
                     float* out, int B, int d, int s, const double* tab,
                     double dt, float sign, int n_layers, const int* dims,
-                    int act, double count, int rows, long long partial_floats,
-                    void* stream) {
-  if (B < 1 || !(count > 0.0)) return cudaErrorInvalidValue;
+                    int act, double count, int rows, int grid,
+                    long long partial_floats, void* stream) {
+  if (B < 1 || !(count > 0.0) || grid < 0) return cudaErrorInvalidValue;
   ark::StepArgs a;
   a.J = J;
   a.inv = inv;
   int rc = flat_mlp(&a.m, params, n_layers, dims, d, act);
   if (rc) return rc;
   if ((rc = make_tableau(&a.tb, s, tab, dt))) return rc;
-  int sms;
-  if ((rc = ark::sm_count(&sms))) return rc;
   ark::RevPlan q;
-  if (!ark::plan_rev(B, d, s, n_layers, dims, sms, ark::kRevGrad, rows, &q,
-                     &a.p))
-    return cudaErrorInvalidValue;
-  if (partial_floats != (long long)q.grid * ark::round4(a.m.wtotal + 1))
-    return cudaErrorInvalidValue;
+  ark::GridPlan g;
+  bool grid_form;
+  if ((rc = grad_plan(B, d, s, n_layers, dims, rows, &q, &a.p, &g,
+                      &grid_form)))
+    return rc;
   const float inv_count = (float)(1.0 / count);
   const float two_inv_count = (float)(2.0 / count);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (grid_form) {
+    if (partial_floats != g.ws) return cudaErrorInvalidValue;
+    ark::GridArgs ga{};
+    ga.m = a.m;
+    ga.tb = a.tb;
+    ga.J = J;
+    ga.inv = inv;
+    ga.B = B;
+    ga.s = s;
+    ga.sign = sign;
+    ark::reach_masks(a.tb, &ga.umask, &ga.emask);
+    ark::grid_regions(g, partial, n_layers, &ga);
+    ga.grads = out;
+    ga.losses = out + a.m.wtotal;
+    ga.inv_count = inv_count;
+    ga.two_inv_count = two_inv_count;
+    void* args[] = {(void*)&y, (void*)&tgt, (void*)&ga};
+    return launch_cooperative(grad_step_grid_kernel, grid ? grid : g.grid,
+                              g.smem, args, st, ark::kGBlockThreads);
+  }
+  if (grid != 0 ||
+      partial_floats != (long long)q.grid * ark::round4(a.m.wtotal + 1))
+    return cudaErrorInvalidValue;
   switch (q.rows) {
     case 1: rc = launch_grad<1>(y, tgt, partial, B, sign, two_inv_count, a,
                                 q, st); break;

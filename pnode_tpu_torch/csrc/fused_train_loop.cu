@@ -140,8 +140,8 @@ train_loop_kernel(const float* __restrict__ y_stack,
   }
 }
 
-// The grid form: K iterations over the whole cooperative grid. A stage
-// that reaches no MLP adds nothing to dW/db: its covectors are zeroed once.
+// The grid form: K iterations over the whole cooperative grid (the
+// covectors of the stages that reach no MLP zeroed once).
 __global__ void __launch_bounds__(ark::kGBlockThreads, 1)
 train_loop_grid_kernel(const float* __restrict__ y_stack,
                        const float* __restrict__ tgt_stack, int K, int t0,
@@ -150,20 +150,11 @@ train_loop_grid_kernel(const float* __restrict__ y_stack,
   extern __shared__ __align__(16) float smem[];
   ark::mark(ark::kMarkStart);
   const size_t bd = (size_t)a.B * a.m.dims[0];
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nthreads = gridDim.x * blockDim.x;
-  for (int i = 0; i < a.s; ++i) {
-    if (ark::reached_e(a, i)) continue;
-    for (int l = 0; l < a.m.n; ++l) {
-      const size_t w = (size_t)a.B * a.m.dims[l + 1];
-      for (size_t e = gtid; e < w; e += nthreads)
-        a.g[l][ark::slot_of(a, i) * w + e] = 0.0f;
-    }
-  }
+  ark::zero_unreached(a);
   for (int k = 0; k < K; ++k) {
     ark::Iter it{y_stack + k * bd, tgt_stack + k * bd, 0.0f, 0.0f, k};
     adam_corrections(a.adam, t0 + k + 1, &it.c1, &it.c2);
-    ark::grid_step<true>(grid, a, it, smem, ark::Cursor{ark::kSecFwd, 0, -1});
+    ark::grid_step(grid, a, it, smem, ark::Cursor{ark::kSecFwd, 0, -1});
   }
   ark::grid_loss(a, K - 1);  // its per-row sums a barrier old
   ark::mark(ark::kMarkEnd);

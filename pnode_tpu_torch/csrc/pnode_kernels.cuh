@@ -291,7 +291,7 @@ static inline int prepare_smem(Kernel kernel, size_t bytes) {
 // of dynamic shared memory) on `grid` blocks, after checking that the
 // device takes one and that every block is co-resident (so a grid-wide
 // barrier cannot deadlock): the loop kernels' (K4, K5) and the grid form's
-// (K3, K4; csrc/ark_grid.cuh).
+// (K2, K3, K4, K12; csrc/ark_grid.cuh).
 template <typename Kernel>
 static inline int launch_cooperative(Kernel kernel, int grid, size_t smem,
                                      void** args, cudaStream_t stream,

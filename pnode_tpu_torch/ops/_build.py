@@ -52,21 +52,21 @@ _SIGNATURES = {
     "pnode_mlp_fwd": (_I, [_P, _P, _P, _S, _I, _I, _PI, _PP, _PP, _I, _P]),
     "pnode_mlp_bwd": (_I, [_P, _P, _P, _P, _P, _S, _I, _I, _PI, _PP, _PP, _I,
                            _P]),
-    "pnode_ark_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _PD, _D,
-                           _F, _I, _PI, _PP, _PP, _I, _I, _P]),
+    "pnode_ark_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _PD,
+                           _D, _F, _I, _PI, _PP, _PP, _I, _I, _I, _L, _P]),
     "pnode_ark_fwd_plan": (_I, [_I, _I, _I, _I, _PI, _PI, _PI, _PL]),
     "pnode_ark_adj": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _D,
                            _F, _I, _PI, _PP, _PP, _I, _I, _I, _L, _P]),
     "pnode_ark_adj_plan": (_I, [_I, _I, _I, _I, _PI, _PI, _PI, _PL]),
     "pnode_ark_grid_plan": (_I, [_I, _I, _I, _I, _I, _PI, _PI, _PL, _PL]),
     "pnode_ark_grid_phases": (_I, [_I, _I, _I, _I, _I, _PI, _PD, _I, _P, _P,
-                                   _P, _P, _PP, _PP, _PL, _I, _PI]),
+                                   _P, _P, _P, _PP, _PP, _PL, _I, _PI]),
     "pnode_train_loop": (_I, [_P] * 10 + [_I, _I, _I, _I, _PD, _D, _F, _I,
                                            _PI, _I, _I, _F, _D, _D, _D, _I,
                                            _I, _L, _P]),
     "pnode_train_loop_plan": (_I, [_I, _I, _I, _I, _PI, _I, _PI, _PI, _PL]),
     "pnode_grad_step": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PD, _D,
-                             _F, _I, _PI, _I, _D, _I, _L, _P]),
+                             _F, _I, _PI, _I, _D, _I, _I, _L, _P]),
     "pnode_grad_step_plan": (_I, [_I, _I, _I, _I, _PI, _PI, _PI, _PL]),
     "pnode_adaptive_loop": (_I, [_P] * 14 + [_I, _I, _I, _I, _PD, _PD, _D, _F,
                                              _I, _PI, _I, _I, _F, _D, _D, _D,

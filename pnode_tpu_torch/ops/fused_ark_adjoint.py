@@ -109,15 +109,23 @@ def _fwd_plan_rows(R: int, d: int, dims: Sequence[int], stages: int):
 
 def ark_fwd_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
                  sms: int = 132):
-    """K2's launch (csrc/ark_tiles.cuh plan_fwd, C entry point
+    """K2's launch (csrc/fused_ark_forward.cu fwd_plan, C entry point
     pnode_ark_fwd_plan): (rows per block, grid, shared-memory bytes), or
-    None when the configuration does not fit. Rows: the fewest in {1, 2,
-    4, 8} whose grid ceil(B / rows) fits one block per SM (``sms``, 132 on
-    an H100 SXM), else 8; halved while the block's shared memory (stage
-    values, operators, the weight ring) passes MAX_SMEM_BYTES. Memoized:
-    every step wrapper's gate asks it."""
-    return _ark_fwd_plan(int(B), int(d), tuple(int(n) for n in layer_dims),
+    None when the configuration does not fit. Where K3's plan takes the
+    grid form (``ark_adj_plan``) and d >= GRID_MIN_D (Burgers-512, d 300),
+    K2's does too (0, grid, bytes). Else the row form
+    (csrc/ark_tiles.cuh plan_fwd): rows the fewest in {1, 2, 4, 8} whose
+    grid ceil(B / rows) fits one block per SM (``sms``, 132 on an H100
+    SXM), else 8; halved while the block's shared memory (stage values,
+    operators, the weight ring) passes MAX_SMEM_BYTES. Memoized: every
+    step wrapper's gate asks it."""
+    plan = _ark_fwd_plan(int(B), int(d), tuple(int(n) for n in layer_dims),
                          int(stages), int(sms))
+    adj = ark_adj_plan(B, d, layer_dims, stages, sms)
+    if (plan is not None and adj is not None and adj[0] == 0
+            and d >= GRID_MIN_D):
+        return (0,) + grid_plan(GRID_FWD, B, d, layer_dims, stages, sms)[:2]
+    return plan
 
 
 @functools.lru_cache(maxsize=1024)
@@ -191,28 +199,38 @@ def _rev_plan_rows(R: int, d: int, dims: Sequence[int], stages: int,
     return 4 * (off + 2 * slot)
 
 
-# The grid form (csrc/ark_grid.cuh): every product of K3's step, or of
-# K4's iteration, tiled over one cooperative grid of one block per SM, two
-# tile groups of GRID_THREADS threads a block, in GRID_TILE x GRID_TILE
-# output tiles over GRID_CHUNK-deep staged chunks. K3's and K4's plans take
-# it where the row form's cannot keep inv and J in shared memory
-# (Burgers-512, d 200 and 300 among the pinned shapes); the KS shapes keep
-# the row form. The launches that run it: K3's step (GRID_STEP), K4's loop
-# (GRID_LOOP).
+# The grid form (csrc/ark_grid.cuh): every product of K3's step, of K4's
+# iteration, of K12's gradient step or of K2's forward step, tiled over
+# one cooperative grid of one block per SM, two tile groups of
+# GRID_THREADS threads a block, in GRID_TILE x GRID_TILE output tiles over
+# GRID_CHUNK-deep staged chunks. K3's and K4's plans take it where the row
+# form's cannot keep inv and J in shared memory (Burgers-512, d 200, d 300
+# and d 197 among the pinned shapes), K2's and K12's there from d
+# GRID_MIN_D up; the KS shapes keep the row form. The
+# launches that run it (csrc/ark_grid.cuh GridKind): K3's step
+# (GRID_STEP), K4's loop (GRID_LOOP), K12's gradient step (GRID_GRAD), K2's
+# forward step (GRID_FWD).
 GRID_THREADS, GRID_GROUPS, GRID_TILE, GRID_CHUNK = 128, 2, 32, 64
 GRID_SMEM = 4 * (GRID_GROUPS * 4 * GRID_CHUNK * (GRID_TILE + 4) + 32)
-GRID_STEP, GRID_LOOP = 0, 1
+GRID_STEP, GRID_LOOP, GRID_GRAD, GRID_FWD = 0, 1, 2, 3
+GRID_KINDS = (GRID_STEP, GRID_LOOP, GRID_GRAD, GRID_FWD)
+# K2 and K12 take the grid form only from this state width up (csrc/
+# ark_grid.cuh kGridMinD): below it their row form, which streams inv or
+# J through every block's ring, is faster (d 200, 197 and 256; PERF.md)
+GRID_MIN_D = 280
 
 
 def grid_workspace(kind: int, B: int, d: int, layer_dims: Sequence[int],
                    stages: int):
     """The grid form's device workspace (csrc/ark_grid.cuh plan_grid):
     ({region: (offset, floats)}, total floats), each region at a multiple
-    of 4 floats. Every stage's layer inputs h_l (l >= 1) and covectors g_l
-    (g_{n-1}: the seeds sign uh_i), xi, u and q (s, B, d), pv (B, d), the
-    stage values h_0 ("ys", (s, B, d)); for K4 also kI, kE (s, B, d), G,
-    the seed lam and y1 - tgt (B, d) and the per-row losses (B). h_l, g_l
-    and the stage values hold stage i in slot s - 1 - i."""
+    of 4 floats. Every stage's layer inputs h_l (l >= 1); for the reverse
+    (all but K2) every stage's covectors g_l (g_{n-1}: the seeds sign
+    uh_i), xi, u and q (s, B, d), pv (B, d), the stage values h_0 ("ys",
+    (s, B, d)); for the forward (K4, K12, K2) kI, kE (s, B, d) and G (B,
+    d); for the MSE (K4, K12) the seed lam and y1 - tgt (B, d) and the
+    per-row losses (B). h_l, g_l and the stage values hold stage i in slot
+    s - 1 - i; K2's h_l in slot i, its stage values the caller's ys."""
     dims = [int(d)] + [int(n) for n in layer_dims]
     n, sb, bd = len(layer_dims), stages * B, B * d
     regions, off = {}, 0
@@ -224,16 +242,19 @@ def grid_workspace(kind: int, B: int, d: int, layer_dims: Sequence[int],
 
     for l in range(1, n):
         take(f"h{l}", sb * dims[l])
-    for l in range(n):
-        take(f"g{l}", sb * dims[l + 1])
-    for name in ("xi", "u", "q"):
-        take(name, sb * d)
-    take("pv", bd)
-    take("ys", sb * d)
-    if kind == GRID_LOOP:
+    if kind != GRID_FWD:
+        for l in range(n):
+            take(f"g{l}", sb * dims[l + 1])
+        for name in ("xi", "u", "q"):
+            take(name, sb * d)
+        take("pv", bd)
+        take("ys", sb * d)
+    if kind != GRID_STEP:
         for name in ("kI", "kE"):
             take(name, sb * d)
-        for name in ("G", "lam", "diff"):
+        take("G", bd)
+    if kind in (GRID_LOOP, GRID_GRAD):
+        for name in ("lam", "diff"):
             take(name, bd)
         take("lrow", B)
     return regions, off
@@ -274,10 +295,13 @@ GRID_PRES = ("none", "stage", "loss", "rows")
 
 def grid_phases(kind: int, B: int, d: int, layer_dims: Sequence[int],
                 tableau_static, k: int = 1):
-    """The grid form's phases in order, at iteration ``k`` of K4's loop
-    (csrc/ark_grid.cuh next_phase; C entry point pnode_ark_grid_phases):
-    K4's forward, or K3's staging of the stage values and its recompute;
-    the reverse's stages; the dW/db products. Each phase is a dict of its
+    """The grid form's phases of ``kind`` in order, at iteration ``k`` of
+    K4's loop (csrc/ark_grid.cuh next_phase; C entry point
+    pnode_ark_grid_phases): the forward (K4, K12, K2), or K3's staging of
+    the stage values and its recompute; then, but for K2, the reverse's
+    stages and the dW/db products (K4's with Adam, K12's and K3's the
+    flat gradient; K4's and K12's after the loss rows). Each phase is a
+    dict of its
     per-block work ``pre`` (GRID_PRES) and its ``products``, each a dict
     of its epilogue ``epi`` (GRID_EPIS), ``stage``, ``layer``, the (M, N)
     output over K reduction positions in G groups of blocks of v
@@ -286,8 +310,9 @@ def grid_phases(kind: int, B: int, d: int, layer_dims: Sequence[int],
     float, row stride, k-major), ``out`` as (region, first float) or None
     where the epilogue writes by element, and ``aux`` (kEpiBackprop's
     h_l) likewise. Regions: the workspace's (``grid_workspace``; "ys"
-    holds h_0), "W{l}", "J", "inv" and K4's minibatch "y". Stage i's layer
-    inputs and covectors sit in slot s - 1 - i."""
+    holds h_0, K2's the caller's), "W{l}", "J", "inv" and the minibatch
+    "y". Stage i's layer inputs and covectors sit in slot s - 1 - i (K2's
+    in slot i)."""
     aI, bI = tableau_static[0], tableau_static[2]
     s = len(bI)
     dims = [int(d)] + [int(n) for n in layer_dims]
@@ -297,8 +322,9 @@ def grid_phases(kind: int, B: int, d: int, layer_dims: Sequence[int],
     phases = []
 
     def h(l, i=None):  # h_l, whole or at stage i's slot
+        slot = i if kind == GRID_FWD else s - 1 - (i or 0)
         return ("ys" if l == 0 else f"h{l}",
-                0 if i is None else (s - 1 - i) * B * dims[l])
+                0 if i is None else slot * B * dims[l])
 
     def gemm(epi, stage, layer, M, N, K, G, v, a, b, out, ldo, aux=None,
              ones=-1):
@@ -317,7 +343,7 @@ def grid_phases(kind: int, B: int, d: int, layer_dims: Sequence[int],
     def phase(products, pre="none"):
         phases.append(dict(pre=pre, products=products))
 
-    if kind == GRID_LOOP:
+    if kind != GRID_STEP:
         for i in range(s):
             impl = aI[i][i] != 0.0
             G = ("y", 0) if i == 0 else ("G", 0)
@@ -325,12 +351,15 @@ def grid_phases(kind: int, B: int, d: int, layer_dims: Sequence[int],
             beside = not impl and n > 1
             if beside:
                 prods.append(mlp(0, G, B, h(1, i), "act", i))
-            phase(prods, "loss" if i == 0 and k > 0 else "none")
+            phase(prods, "loss" if i == 0 and k > 0 and kind == GRID_LOOP
+                  else "none")
             for l in range(1 if beside else 0, n):
                 last = l == n - 1
                 phase([mlp(l, h(l, i), B,
                            ("kE", i * bd) if last else h(l + 1, i),
                            "fwd_ke" if last else "act", i)])
+        if kind == GRID_FWD:
+            return phases
     else:
         phase([], "stage")
         for l in range(n - 1):
@@ -362,19 +391,19 @@ def grid_phases(kind: int, B: int, d: int, layer_dims: Sequence[int],
                 dims[l + 1], s * B, 1, 1, h(l) + (dims[l], 1),
                 (f"g{l}", 0, dims[l + 1], 1), None, dims[l + 1],
                 ones=dims[l]) for l in range(n)],
-          "rows" if kind == GRID_LOOP else "none")
+          "none" if kind == GRID_STEP else "rows")
     return phases
 
 
-def _rev_plan(B, d, layer_dims, stages, sms, kind, grid_form=False):
-    """``rev_plan_full``'s (rows, grid, bytes) at the rule's rows; with
-    ``grid_form``, the grid form's (0, grid, bytes) where the rule's plan
-    cannot keep inv and J resident."""
+def _rev_plan(B, d, layer_dims, stages, sms, kind, min_d=0):
+    """``rev_plan_full``'s (rows, grid, bytes) at the rule's rows, or the
+    grid form's (0, grid, bytes) where the rule's plan cannot keep inv and
+    J resident and d >= ``min_d``."""
     plan = rev_plan_full(int(B), int(d), tuple(int(n) for n in layer_dims),
                          int(stages), int(sms), kind)
     if plan is None:
         return None
-    if grid_form and not plan[3]:
+    if not plan[3] and d >= min_d:
         return (0,) + grid_plan(GRID_STEP, B, d, layer_dims, stages, sms)[:2]
     return plan[:3]
 
@@ -437,17 +466,20 @@ def ark_adj_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
     device memory. None only for what no kernel takes: a layer wider than
     1024, more than 8 stages or layers. Memoized: every reverse wrapper's
     gate asks it."""
-    return _rev_plan(B, d, layer_dims, stages, sms, REV_STEP, True)
+    return _rev_plan(B, d, layer_dims, stages, sms, REV_STEP)
 
 
 def grad_step_plan(B: int, d: int, layer_dims: Sequence[int], stages: int,
                    sms: int = 132):
     """K12's launch (plan_rev with the forward's regions, C entry point
     pnode_grad_step_plan): (rows per block, grid, shared-memory bytes) for a
-    (B, d) shard, or None. ``ark_adj_plan``'s rule, always the row form;
-    each block keeps its stage values and seed beside the larger of the
-    forward's and the reverse's scratch."""
-    return _rev_plan(B, d, layer_dims, stages, sms, REV_GRAD)
+    (B, d) shard, or None. ``ark_adj_plan``'s rule on K4's layout (each
+    block keeps its stage values and seed beside the larger of the
+    forward's and the reverse's scratch), and like K4's the grid form (0,
+    grid, bytes) where that layout cannot keep inv and J resident, from d
+    GRID_MIN_D up (Burgers-512, d 300; d 200 keeps the row form, which
+    reads them in place)."""
+    return _rev_plan(B, d, layer_dims, stages, sms, REV_GRAD, GRID_MIN_D)
 
 
 def forced_rows(d: int, layer_dims: Sequence[int], stages: int,
@@ -476,12 +508,12 @@ def fused_ark_fits(d: int, layer_dims: Sequence[int], stages: int,
     every batch, so the gate is the plans' own answer: they refuse only a
     layer wider than 1024, more than 8 stages or layers, or a stack that
     does not map the state to itself. The KS config needs 125 KB for K2
-    and 142 KB for K3 at one row; Burgers-512 (512 -> 576 x4 -> 512)
-    fills the 227 KB of K2, streaming the operators and weights through
-    its ring, and K3 takes the grid form there (its row plan would read
-    inv and J in place). Registers do not bind: each thread carries a
-    fixed accumulator tile whatever the widths. ``reverse=False`` checks
-    the forward kernel alone."""
+    and 142 KB for K3 at one row; at Burgers-512 (512 -> 576 x4 -> 512)
+    K2's row plan fills the 227 KB, streaming the operators and weights
+    through its ring, and K2 and K3 take the grid form (K3's row plan
+    would read inv and J in place). Registers do not bind: each thread
+    carries a fixed accumulator tile whatever the widths.
+    ``reverse=False`` checks the forward kernel alone."""
     if not 1 <= len(layer_dims) <= MAX_LAYERS or not 1 <= stages <= MAX_STAGES:
         return False
     if layer_dims[-1] != d:
@@ -715,7 +747,7 @@ def run_ark_adj(lib, sms, stream, tableau_static, dt, Ys, lam, J_dense,
 
 def c_grid_plan(kind, B, d, layer_dims, stages, device):
     """The C grid plan's (grid, shared-memory bytes, workspace floats) of
-    ``kind`` (GRID_STEP, GRID_LOOP) on ``device``'s card: what
+    ``kind`` (GRID_KINDS) on ``device``'s card: what
     ``grid_plan`` mirrors."""
     import ctypes
 
@@ -740,7 +772,7 @@ def c_grid_phases(kind, B, d, layer_dims, tableau_static, k=1):
     s, n = len(tableau_static[2]), len(layer_dims)
     dims = [d] + list(layer_dims)
     regions, total = grid_workspace(kind, B, d, layer_dims, s)
-    names = ["ws", "J", "inv", "y"] + [f"W{l}" for l in range(n)] + [
+    names = ["ws", "J", "inv", "y", "ys"] + [f"W{l}" for l in range(n)] + [
         f"b{l}" for l in range(n)]
     base = {name: (j + 1) << 36 for j, name in enumerate(names)}
     ptrs = lambda pre: (ctypes.c_void_p * n)(  # noqa: E731
@@ -751,7 +783,8 @@ def c_grid_phases(kind, B, d, layer_dims, tableau_static, k=1):
     rc = lib.pnode_ark_grid_phases(
         kind, B, d, s, n, _build.int_array(dims),
         tableau_array(tableau_static), k, base["ws"], base["J"],
-        base["inv"], base["y"], ptrs("W"), ptrs("b"), rec, cap, count)
+        base["inv"], base["y"], base["ys"], ptrs("W"), ptrs("b"), rec, cap,
+        count)
     _build.check(rc, "pnode_ark_grid_phases")
 
     def where(addr):

@@ -2,11 +2,13 @@
 
 Replaces ``pnode_tpu/ops/fused_ark_forward.py`` ``_kernel`` (:53), launched
 by ``fused_ark_step_fwd`` (:157). The CUDA source is
-``csrc/fused_ark_forward.cu`` with its body in ``csrc/ark_tiles.cuh``;
-their notes say what bounds it on the H100 and what the design does about
-that. The launch's rows per block, grid and shared memory come from the C
-plan, which ``fused_ark_adjoint.ark_fwd_plan`` mirrors (the fits gate
-reads the mirror).
+``csrc/fused_ark_forward.cu`` with its body in ``csrc/ark_tiles.cuh`` (the
+row form) or ``csrc/ark_grid.cuh`` (the grid form, where K3's plan takes
+it from d 280 up: Burgers-512, d 300); their notes say what bounds it on
+the H100 and what the design does about that. The launch's form, rows
+per block, grid and shared memory come from the C plan, which
+``fused_ark_adjoint.ark_fwd_plan`` mirrors (the fits gate reads the
+mirror).
 
 Scope: the fused reverse step's (``fused_ark_adjoint.py``) plus
 ``-snes_type ksponly``. For a linear f_IM the single linearized solve is
@@ -35,7 +37,10 @@ import ctypes
 import torch
 
 from . import _build
-from .fused_ark_adjoint import check_step_args, tableau_array
+from .fused_ark_adjoint import (
+    GRID_FWD, ark_fwd_plan, check_step_args, grid_plan, sm_count,
+    tableau_array,
+)
 from .fused_mlp import _ACT_CODES, fused_mlp_plain
 
 
@@ -114,8 +119,9 @@ def fused_ark_step_fwd(tableau_static, dt, y, J_dense, inv_op, weights,
 
     tableau_static: (a_im, a_ex, b_im, b_ex) as nested Python floats; dt a
     Python float; y (B, d); J_dense and inv_op (d, d), passed as they are
-    (the kernel applies their transposes). CUDA tensors launch the kernel;
-    CPU tensors run ``fused_ark_step_fwd_plain``.
+    (the kernel applies their transposes). CUDA tensors launch the kernel
+    in its plan's form (``ark_fwd_plan``); CPU tensors run
+    ``fused_ark_step_fwd_plain``.
     """
     if b_err is not None:
         return fused_ark_step_fwd_embedded(tableau_static, b_err, dt, y,
@@ -137,32 +143,74 @@ def fused_ark_step_fwd_embedded(tableau_static, b_err, dt, y, J_dense,
 
 def _fwd(counter, tableau_static, b_err, dt, y, J_dense, inv_op, weights,
          biases, activation, sign):
-    s, B, d, dims = check_step_args(tableau_static, y, J_dense, inv_op,
-                                    weights, biases, activation,
-                                    "fused_ark_step_fwd", reverse=False)
-    diffs = None if b_err is None else _err_weights(tableau_static, b_err)
+    check_step_args(tableau_static, y, J_dense, inv_op, weights, biases,
+                    activation, "fused_ark_step_fwd", reverse=False)
+    if b_err is not None:
+        _err_weights(tableau_static, b_err)
     if y.device.type == "cpu":
         return fused_ark_step_fwd_plain(tableau_static, dt, y, J_dense,
                                         inv_op, weights, biases, activation,
                                         sign, b_err)
-    lib = _build.library()
+    with torch.cuda.device(y.device):
+        return run_ark_fwd(_build.library(), sm_count(y.device),
+                           _build.stream_of(y), tableau_static, b_err, dt, y,
+                           J_dense, inv_op, weights, biases, activation, sign)
+
+
+def fwd_scratch_floats(B, d, layer_dims, stages, sms=132, rows=0,
+                       form="plan"):
+    """Floats of K2's workspace: the grid form's (``grid_plan``, GRID_FWD:
+    layer inputs, kI, kE and G) where the plan takes it at ``rows`` 0, or
+    with ``form`` "grid"; 0 in the row form."""
+    grid_form = form == "grid" or (
+        rows == 0 and ark_fwd_plan(B, d, layer_dims, stages, sms)[0] == 0)
+    return grid_plan(GRID_FWD, B, d, layer_dims, stages, sms)[2] \
+        if grid_form else 0
+
+
+def run_ark_fwd(lib, sms, stream, tableau_static, b_err, dt, y, J_dense,
+                inv_op, weights, biases, activation="relu", sign=-1.0,
+                rows=0, grid=0, form="plan"):
+    """``fused_ark_step_fwd``'s launch (with the err output given
+    ``b_err``) through ``lib`` (the kernel library) on a card of ``sms``
+    SMs, operands validated: the outputs and the workspace of the plan's
+    form, one C call on ``stream``. For kernel comparisons only: ``rows``
+    1, 2, 4 or 8 forces the row form; ``form`` "grid" the grid form
+    whatever the plan's (the KS shapes'); ``grid`` the grid form on that
+    many co-resident blocks, not the plan's (the outputs' bits do not
+    depend on it)."""
+    B, d = (int(x) for x in y.shape)
+    s = len(tableau_static[2])
+    dims = [d] + [int(w.shape[1]) for w in weights]
+    if (rows not in (0, 1, 2, 4, 8) or grid < 0
+            or form not in ("plan", "grid") or (rows and form == "grid")):
+        raise ValueError("fused_ark_step_fwd: rows must be 0, 1, 2, 4 or 8 "
+                         "(the row form), form plan or grid, grid 0 or "
+                         "positive")
+    ws_floats = fwd_scratch_floats(B, d, dims[1:], s, sms, rows, form)
+    if grid and not ws_floats:
+        raise ValueError(f"fused_ark_step_fwd: grid {grid} is for the grid "
+                         "form only")
     y1 = torch.empty_like(y)
     Ys = torch.empty((s, B, d), dtype=y.dtype, device=y.device)
-    err = None if diffs is None else torch.empty_like(y)
-    err_tab = None if diffs is None else _build.double_array(
+    ws = torch.empty(ws_floats, dtype=y.dtype, device=y.device)
+    err = None if b_err is None else torch.empty_like(y)
+    err_tab = None if b_err is None else _build.double_array(
         [float(x) for x in b_err[0]] + [float(x) for x in b_err[1]])
-    with torch.cuda.device(y.device):
-        rc = lib.pnode_ark_fwd(
-            y.data_ptr(), J_dense.data_ptr(), inv_op.data_ptr(),
-            y1.data_ptr(), Ys.data_ptr(),
-            None if err is None else err.data_ptr(), B, d, s,
-            tableau_array(tableau_static), err_tab, float(dt), float(sign),
-            len(weights), _build.int_array(dims), _build.ptr_array(weights),
-            _build.ptr_array(biases), _ACT_CODES[activation], 0,
-            _build.stream_of(y))
+    rc = lib.pnode_ark_fwd(
+        y.data_ptr(), J_dense.data_ptr(), inv_op.data_ptr(), y1.data_ptr(),
+        Ys.data_ptr(), None if err is None else err.data_ptr(),
+        ws.data_ptr(), B, d, s, tableau_array(tableau_static), err_tab,
+        float(dt), float(sign), len(weights), _build.int_array(dims),
+        _build.ptr_array(weights), _build.ptr_array(biases),
+        _ACT_CODES[activation], -1 if form == "grid" else int(rows),
+        int(grid), ws_floats, stream)
     _build.check(rc, "fused_ark_step_fwd kernel")
-    counter.launches += 1
-    return (y1, Ys) if err is None else (y1, err, Ys)
+    if b_err is None:
+        fused_ark_step_fwd.launches += 1
+        return y1, Ys
+    fused_ark_step_fwd_embedded.launches += 1
+    return y1, err, Ys
 
 
 def plan(B, d, layer_dims, stages, device):

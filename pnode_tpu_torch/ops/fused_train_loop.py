@@ -28,7 +28,11 @@ step without Adam (replaces ``_grad_kernel`` (:613), launched by
 gradient and runs Adam outside it. Its source is ``csrc/fused_grad_step.cu``.
 Both run K2's and K3's bodies (``csrc/ark_tiles.cuh``) on K12's plan, which
 ``fused_ark_adjoint.grad_step_plan`` mirrors; K4's caps the grid at one
-block per SM (``train_loop_plan``). ``LoopLayout``
+block per SM (``train_loop_plan``). Where that plan cannot keep inv and J
+in shared memory (Burgers-512, d 200, d 300), K4 takes the grid form
+(``csrc/ark_grid.cuh``) with a device workspace in place of the partials,
+and K12 from d 280 up (``GRID_MIN_D``).
+``LoopLayout``
 describes the operands of both kernels: the flat ``[W0, b0, W1, b1, ...]``
 buffer that holds the parameters, the Adam moments and the gradient (no
 TPU lane padding).
@@ -43,7 +47,7 @@ import torch
 
 from . import _build
 from .fused_ark_adjoint import (
-    GRID_LOOP, MAX_STAGES, REV_GRAD, _round4, check_step_args,
+    GRID_GRAD, GRID_LOOP, MAX_STAGES, REV_GRAD, _round4, check_step_args,
     check_stiff_dot_precision, fused_ark_step_adj_plain, grad_step_plan,
     grid_plan, rev_plan_full, sm_count, tableau_array,
 )
@@ -324,9 +328,9 @@ def fused_grad_step(layout, tableau_static, dt, y, tgt, J_dense, inv_op,
     (``layout.pack``). The loss and its seed 2 (y1 - tgt) / count use the
     local count B d unless ``global_count`` is given: the data-parallel
     caller keeps it local and means the result over the ranks, which is the
-    global mean. CUDA tensors launch K12 (at its plan's rows per block, or
-    ``rows`` 1, 2, 4 or 8 forced, for kernel comparisons); CPU tensors run
-    ``fused_grad_step_plain``."""
+    global mean. CUDA tensors launch K12 (in its plan's form, or for
+    kernel comparisons the row form at ``rows`` 1, 2, 4 or 8 forced); CPU
+    tensors run ``fused_grad_step_plain``."""
     what = "fused_grad_step"
     check_stiff_dot_precision()
     Ws, bs = layout.unpack(params)
@@ -350,28 +354,67 @@ def fused_grad_step(layout, tableau_static, dt, y, tgt, J_dense, inv_op,
         return fused_grad_step_plain(layout, tableau_static, dt, y, tgt,
                                      J_dense, inv_op, params, activation,
                                      sign, global_count)
-    lib = _build.library()
-    count = float(global_count if global_count is not None else B * d)
-    grid = (grad_step_plan(B, d, dims[1:], s, sm_count(y.device))[1]
-            if rows == 0 else -(-B // rows))
-    out = torch.empty(layout.total + 1, dtype=y.dtype, device=y.device)
-    # one 16-byte-aligned slice per block: the gradient, then the loss
-    partial = torch.empty(grid * (-(-(layout.total + 1) // 4) * 4),
-                          dtype=y.dtype, device=y.device)
     with torch.cuda.device(y.device):
-        rc = lib.pnode_grad_step(
-            y.data_ptr(), tgt.data_ptr(), J_dense.data_ptr(),
-            inv_op.data_ptr(), params.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), B, d, s, tableau_array(tableau_static), float(dt),
-            float(sign), len(Ws), _build.int_array(dims),
-            _ACT_CODES[activation], count, int(rows), partial.numel(),
-            _build.stream_of(y))
-    _build.check(rc, "fused_grad_step kernel")
-    fused_grad_step.launches += 1
-    return out[-1], out[:-1]
+        return run_grad_step(_build.library(), sm_count(y.device),
+                             _build.stream_of(y), layout, tableau_static, dt,
+                             y, tgt, J_dense, inv_op, params, activation,
+                             sign, global_count, rows)
 
 
 fused_grad_step.launches = 0
+
+
+def grad_scratch_floats(B, d, layer_dims, stages, sms=132, rows=0,
+                        form="plan"):
+    """Floats of K12's scratch: the grid form's workspace (``grid_plan``,
+    GRID_GRAD: K4's without the Adam state) where the plan takes it at
+    ``rows`` 0, or with ``form`` "grid"; else the row form's partials, one
+    16-byte-aligned slice of the gradient and the loss per block."""
+    plan = (grad_step_plan(B, d, layer_dims, stages, sms) if rows == 0
+            else (rows, -(-B // rows)))
+    if form == "grid" or plan[0] == 0:
+        return grid_plan(GRID_GRAD, B, d, layer_dims, stages, sms)[2]
+    return plan[1] * _round4(grad_buffer_size([d] + list(layer_dims)) + 1)
+
+
+def run_grad_step(lib, sms, stream, layout, tableau_static, dt, y, tgt,
+                  J_dense, inv_op, params, activation="relu", sign=-1.0,
+                  global_count=None, rows=0, grid=0, form="plan"):
+    """``fused_grad_step``'s launch through ``lib`` (the kernel library)
+    on a card of ``sms`` SMs, operands validated: the scratch of the plan's
+    form (the row form's partials or the grid form's workspace), one C call
+    on ``stream``. Returns (loss, flat gradient). For kernel comparisons
+    only: ``rows`` 1, 2, 4 or 8 forces the row form; ``form`` "grid" the
+    grid form whatever the plan's (the KS shapes'); ``grid`` the grid form
+    on that many co-resident blocks, not the plan's (the outputs' bits do
+    not depend on it)."""
+    B, d = (int(x) for x in y.shape)
+    s = len(tableau_static[2])
+    dims = layout.dims
+    if (rows not in (0, 1, 2, 4, 8) or grid < 0
+            or form not in ("plan", "grid") or (rows and form == "grid")):
+        raise ValueError("fused_grad_step: rows must be 0, 1, 2, 4 or 8 (the "
+                         "row form), form plan or grid, grid 0 or positive")
+    grid_form = form == "grid" or (
+        rows == 0 and grad_step_plan(B, d, dims[1:], s, sms)[0] == 0)
+    if grid and not grid_form:
+        raise ValueError(f"fused_grad_step: grid {grid} is for the grid form "
+                         "only")
+    count = float(global_count if global_count is not None else B * d)
+    out = torch.empty(layout.total + 1, dtype=y.dtype, device=y.device)
+    partial = torch.empty(grad_scratch_floats(B, d, dims[1:], s, sms, rows,
+                                              form),
+                          dtype=y.dtype, device=y.device)
+    rc = lib.pnode_grad_step(
+        y.data_ptr(), tgt.data_ptr(), J_dense.data_ptr(), inv_op.data_ptr(),
+        params.data_ptr(), partial.data_ptr(), out.data_ptr(), B, d, s,
+        tableau_array(tableau_static), float(dt), float(sign),
+        len(dims) - 1, _build.int_array(dims), _ACT_CODES[activation], count,
+        -1 if form == "grid" else int(rows), int(grid), partial.numel(),
+        stream)
+    _build.check(rc, "fused_grad_step kernel")
+    fused_grad_step.launches += 1
+    return out[-1], out[:-1]
 
 
 def fused_train_loop(tableau_static, dt, y_stack, tgt_stack, J_dense, inv_op,

@@ -338,10 +338,16 @@ def compare_sqnxt(this, other, kernel, result):
 def k2_call(mod, tab, b_err, dt, y, J, inv, Ws, bs, rows=0):
     """One K2 launch of ``mod`` (a checkout's ops.fused_ark_forward) through
     its C entry point: (y1, Ys) or (y1, err, Ys). ``rows`` forces the rows
-    per block where the entry point takes them."""
+    per block where the entry point takes them. A checkout whose K2 has a
+    grid form launches through its own ``run_ark_fwd``, which allocates
+    that form's workspace."""
     import torch
 
     b = mod._build
+    if hasattr(mod, "run_ark_fwd"):
+        return mod.run_ark_fwd(b.library(), mod.sm_count(y.device),
+                               b.stream_of(y), tab, b_err, dt, y, J, inv, Ws,
+                               bs, "relu", -1.0, rows)
     fn = b.library().pnode_ark_fwd
     s, (B, d) = len(tab[2]), y.shape
     dims = [d] + [int(w.shape[1]) for w in Ws]

@@ -1,4 +1,5 @@
-"""Where K3's, K4's and K12's time goes: block 0's phases of one launch.
+"""Where K3's, K4's, K12's and K2's time goes: block 0's phases of one
+launch.
 
 Run on a machine with the card, from the repository root::
 
@@ -6,7 +7,8 @@ Run on a machine with the card, from the repository root::
 
 It builds the kernels a second time with ``-DARK_TRACE`` (into its own
 library beside the usual one), under which thread 0 of block 0 of a K3,
-K4 or K12 launch logs ``clock64()`` and a tag at each phase boundary. In
+K4, K12 or K2 (grid form) launch logs ``clock64()`` and a tag at each
+phase boundary. In
 the row form (``ark::reverse_step``, csrc/ark_tiles.cuh): the staging,
 each stage's covectors, its stiff product, each wait for a weight chunk,
 each MLP recompute and backprop product, the dW/db flush, the implicit
@@ -18,8 +20,9 @@ At the KS main path (B 256, 64 -> 104 x4 -> 64, ARK3, dt 0.2;
 ``compare_kernels``' inputs) it runs K3 at the plan's rows per block and
 at R 1, 4 and 8, and K12 at B_local 256; at Burgers-512 (bench.py's
 recipe: B 200, 512 -> 576 x4 -> 512, ARK3, dt 1e-3, chip_smoke.py's
-operators) K3 and K4 (2 iterations) in the grid form, and K3 in the row
-form at R 1 (its first stages: the marks log holds 2048); each after a
+operators) K3, K4 (2 iterations), K12 (B 200 and the two-rank shard B
+100) and K2 in the grid form, and K3 in the row form at R 1 (its first
+stages: the marks log holds 2048); each after a
 warm-up call. It prints the time between consecutive marks summed by the
 pair of marks that bound it, largest first, and for the grid form block
 0's time per phase kind split into FMA loops, epilogues, the per-block
@@ -148,7 +151,7 @@ def main(argv=None):
     _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DARK_TRACE",)
     lib = _build.library()
     for name in ("pnode_ark_adj_marks", "pnode_grad_step_marks",
-                 "pnode_train_loop_marks"):
+                 "pnode_train_loop_marks", "pnode_ark_fwd_marks"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = [ctypes.c_void_p] * 4
     tab, dt, J, inv, Ws, bs, y, tgt, lam = ks_case(256, 0)
@@ -193,16 +196,17 @@ def main(argv=None):
 
 
 def burgers_runs(lib):
-    """K3 and K4 (2 iterations) in the grid form, and K3 in the row form at
-    R 1, at bench.py's Burgers-512 recipe, on chip_smoke.py's operators
-    and minibatches."""
+    """K3, K4 (2 iterations), K12 (B 200 and 100) and K2 in the grid form,
+    and K3 in the row form at R 1, at bench.py's Burgers-512 recipe, on
+    chip_smoke.py's operators and minibatches."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
     from ..ops import fused_ark_adjoint as adj
     from ..ops import fused_train_loop as ftl
-    from ..ops.fused_ark_forward import fused_ark_step_fwd_plain
+    from ..ops.fused_ark_forward import (fused_ark_step_fwd,
+                                         fused_ark_step_fwd_plain)
 
     dev = torch.device("cuda", 0)
     J, inv, tab, Ws, bs = cs.burgers_operators(dev)
@@ -216,7 +220,20 @@ def burgers_runs(lib):
     Ys = fused_ark_step_fwd_plain(tab, dt, y, J, inv, Ws, bs, "relu",
                                   1.0)[1]
     z = ([torch.zeros_like(w) for w in Ws], [torch.zeros_like(b) for b in bs])
-    return [
+    tgt = f32(pairs[2][1])
+    grad_runs = []
+    for B in (200, 100):
+        layout = ftl.LoopLayout(B, 512, [int(w.shape[1]) for w in Ws])
+        grad_runs.append((
+            f"K12 Burgers-512 B{B} grid",
+            lambda B=B, lo=layout: ftl.fused_grad_step(
+                lo, tab, dt, y[:B], tgt[:B], J, inv, lo.pack(Ws, bs), "relu",
+                1.0),
+            lib.pnode_grad_step_marks))
+    return grad_runs + [
+        ("K2 Burgers-512 B200 grid",
+         lambda: fused_ark_step_fwd(tab, dt, y, J, inv, Ws, bs, "relu", 1.0),
+         lib.pnode_ark_fwd_marks),
         ("K3 Burgers-512 B200 grid",
          lambda: adj.fused_ark_step_adj(tab, dt, Ys, lam, J, inv, Ws, bs,
                                         "relu", 1.0),

@@ -11,11 +11,13 @@ shapes. Beside them: the rule's dependence on the SM count, the refusals
 and J read in place where their staged copies do not fit, the smaller
 layer store where the whole one does not fit at one row, the fits gate's
 answers (the plans at one row per block, Burgers-512 open) and the
-wrappers' and the loop kernels' gates. The grid form (K3's and K4's plans
-where the row form cannot keep inv and J resident: Burgers-512, d 200, d
-300): its tiles walked from the mirror (``grid_phases``), each output and
-each layer's dW/db covered once at any grid, the workspace's regions
-disjoint inside what the wrappers allocate. Then
+wrappers' and the loop kernels' gates. The grid form (K3's, K4's, K12's
+and K2's plans where the row form cannot keep inv and J resident:
+Burgers-512, d 200, d 300, d 197): its tiles walked from the mirror
+(``grid_phases``) for each of the four kinds, each output and each
+layer's dW/db covered once at any grid, the workspace's regions disjoint
+inside what the wrappers allocate; K3's and K12's launch arguments through
+a stand-in for the kernel library. Then
 K3's and K12's plain versions against the JAX package's ``_kernel`` and
 ``_grad_kernel`` in interpret mode at d 64, hidden 104, B 16, ARK3, at the
 tolerances of tests/test_torch_fused_ark.py (reverse rtol 2e-4 / atol
@@ -35,13 +37,14 @@ from pnode_tpu.ops.fused_train_loop import fused_grad_step as j_grad_step
 from pnode_tpu.tableaus import get_ark_tableau
 from pnode_tpu_torch.ops import fused_ark_adjoint as adj
 from pnode_tpu_torch.ops.fused_ark_adjoint import (
-    GRID_LOOP, GRID_SMEM, GRID_STEP, MAX_SMEM_BYTES, _rev_plan_rows,
-    ark_adj_plan, ark_fwd_plan, forced_rows, fused_ark_fits,
-    fused_ark_step_adj, grad_step_plan, grid_phases, grid_plan,
-    grid_workspace, rev_plan_full,
+    GRID_FWD, GRID_GRAD, GRID_KINDS, GRID_LOOP, GRID_MIN_D, GRID_SMEM,
+    GRID_STEP, MAX_SMEM_BYTES, REV_GRAD, _rev_plan_rows, ark_adj_plan, ark_fwd_plan,
+    forced_rows, fused_ark_fits, fused_ark_step_adj, grad_step_plan,
+    grid_phases, grid_plan, grid_workspace, rev_plan_full,
 )
 from pnode_tpu_torch.ops.fused_mlp import grad_buffer_size
 from pnode_tpu_torch.ops.fused_adaptive_loop import fused_adaptive_train_loop
+from pnode_tpu_torch.ops import fused_train_loop as ftl
 from pnode_tpu_torch.ops.fused_train_loop import (
     LoopLayout, fused_grad_step, fused_train_loop, fused_train_loop_fits,
     fused_train_loop_plain,
@@ -58,19 +61,20 @@ BURGERS = [576] * 4 + [512]
 # SMs, K3's then K12's: chip_smoke.py's FWD_PLANS and the DP shards of
 # world 2, 4 and 8 (B_local 128, 64, 32). From d 200 up (Burgers-512
 # included) the row form cannot keep inv and J resident: K3 takes the grid
-# form there (rows 0, one block per SM), K12 the row form reading them in
-# place. At Burgers-512 K12's R 2 (100 blocks) fits, but its ring chunks
-# hold one row: the rule takes R 1.
+# form there (rows 0, one block per SM), K12 from d 280 up (Burgers-512, d
+# 300; before it K12 took the row form reading them in place: (1, 200,
+# 232448) at Burgers-512, (1, 37, 232432) at d 300), keeping the row form
+# at d 200, where it is faster.
 GRID = (0, 132, GRID_SMEM)
 C_PLANS = [
     ((256, 64, KS, 4), (2, 128, 166656), (2, 128, 168192)),
     ((37, 64, KS, 4), (1, 37, 144896), (1, 37, 145664)),
     ((1, 64, KS, 4), (1, 1, 144896), (1, 1, 145664)),
     ((3173, 64, KS, 4), (8, 397, 232448), (8, 397, 232448)),
-    ((200, 512, BURGERS, 4), GRID, (1, 200, 232448)),
-    ((200, 512, BURGERS, 8), GRID, (1, 200, 232448)),
+    ((200, 512, BURGERS, 4), GRID, GRID),
+    ((200, 512, BURGERS, 8), GRID, GRID),
     ((37, 200, [200, 200], 4), GRID, (1, 37, 232448)),
-    ((37, 300, [300], 4), GRID, (1, 37, 232432)),
+    ((37, 300, [300], 4), GRID, GRID),
     ((37, 13, [100, 13], 4), (1, 37, 17328), (1, 37, 17472)),
     ((37, 100, [13, 100], 4), (1, 37, 99824), (1, 37, 101024)),
     ((37, 64, [64], 2), (1, 37, 75008), (1, 37, 75264)),
@@ -95,17 +99,19 @@ def test_mirrors_equal_the_c_plans(shape, adj, grad):
 def test_rule_halves_rows_while_a_chunk_holds_fewer_than_8_rows():
     """At Burgers-512 B 200, the row form's R 2 (100 blocks) fits with one
     580-float row of W per ring chunk (92.2 ms on the card against R 1's
-    10.0 ms, PERF.md), so the rule halves to R 1 (25 rows a chunk), which
-    K12 takes; K3 takes the grid form there (inv and J not resident), and
-    forced R 1 and 2 still take their row layouts. The KS plans keep whole
-    layers a chunk."""
+    10.0 ms, PERF.md), so the rule halves to R 1 (25 rows a chunk); K3 and
+    K12 take the grid form there (inv and J not resident), and forced R 1
+    and 2 still take their row layouts. The KS plans keep whole layers a
+    chunk."""
     dims = [512] + BURGERS
     assert _rev_plan_rows(2, 512, dims, 4, 4, False, False) is not None
     assert _rev_plan_rows(2, 512, dims, 4, 4, False, False, 0, 8) is None
     assert _rev_plan_rows(1, 512, dims, 4, 4, False, False, 0, 8) is not None
     assert rev_plan_full(200, 512, tuple(BURGERS), 4, 132, 0)[:2] == (1, 200)
+    assert rev_plan_full(200, 512, tuple(BURGERS), 4, 132,
+                         REV_GRAD)[:2] == (1, 200)
     assert ark_adj_plan(200, 512, BURGERS, 4)[:2] == (0, 132)
-    assert grad_step_plan(200, 512, BURGERS, 4)[:2] == (1, 200)
+    assert grad_step_plan(200, 512, BURGERS, 4)[:2] == (0, 132)
     assert forced_rows(512, BURGERS, 4) == [1, 2]
     assert rev_plan_full(200, 512, tuple(BURGERS), 4, 132, 0, 2)[:2] == (
         2, 100)
@@ -219,28 +225,43 @@ def test_fits_gate_is_the_plans_and_they_take_every_batch(stages):
 
 
 def test_grid_form_at_burgers_and_row_form_at_ks():
-    """K3's and K4's plans take the grid form at Burgers-512 (B 200, 4 and
-    8 stages) and where d 200 reads inv and J in place, the row form at
-    every pinned KS shape; K12 keeps the row form everywhere. The form
-    follows the row plan's residency alone, so the gates do not move."""
+    """K3's, K4's, K12's and K2's plans take the grid form at Burgers-512
+    (B 200 and the two-rank shard B 100, 4 and 8 stages) and at d 300,
+    where the row form reads inv and J in place; at d 200 and 197 K3 and
+    K4 do, K12 and K2 keep the row form (faster there: their grid form
+    waits for d GRID_MIN_D); the row form at every pinned KS shape (K12
+    took the row form everywhere before). The form follows the row plan's
+    residency (and K2's and K12's the width), so the gates do not move."""
     from pnode_tpu_torch.ops.fused_train_loop import train_loop_plan
 
     for s in (4, 8):
-        assert ark_adj_plan(200, 512, BURGERS, s) == GRID
-        assert train_loop_plan(200, 512, BURGERS, s) == GRID
-        assert grad_step_plan(200, 512, BURGERS, s)[0] == 1
-        assert grid_plan(GRID_STEP, 200, 512, BURGERS, s)[:2] == GRID[1:]
-    assert ark_adj_plan(37, 200, [200, 200], 4) == GRID
-    assert train_loop_plan(37, 200, [200, 200], 4) == GRID
+        for B in (200, 100):
+            assert ark_adj_plan(B, 512, BURGERS, s) == GRID
+            assert train_loop_plan(B, 512, BURGERS, s) == GRID
+            assert grad_step_plan(B, 512, BURGERS, s) == GRID
+            assert ark_fwd_plan(B, 512, BURGERS, s) == GRID
+        for kind in GRID_KINDS:
+            assert grid_plan(kind, 200, 512, BURGERS, s)[:2] == GRID[1:]
+    for d, layers in ((200, [200, 200]), (300, [300]), (197, [201, 197])):
+        for plan in (ark_adj_plan, train_loop_plan):
+            assert plan(37, d, layers, 4) == GRID
+        for plan in (grad_step_plan, ark_fwd_plan):
+            assert (plan(37, d, layers, 4) == GRID) == (d >= GRID_MIN_D)
     assert ark_adj_plan(200, 512, BURGERS, 4, sms=64)[:2] == (0, 64)
+    assert grad_step_plan(200, 512, BURGERS, 4, sms=64)[:2] == (0, 64)
     for shape, want, _ in C_PLANS:
-        full = rev_plan_full(shape[0], shape[1], tuple(shape[2]), shape[3],
-                             132, 0)
-        if full is not None:
-            assert (ark_adj_plan(*shape)[0] == 0) == (not full[3])
+        for kind, plan, min_d in ((0, ark_adj_plan, 0),
+                                  (REV_GRAD, grad_step_plan, GRID_MIN_D)):
+            full = rev_plan_full(shape[0], shape[1], tuple(shape[2]),
+                                 shape[3], 132, kind)
+            if full is not None:
+                assert (plan(*shape)[0] == 0) == (not full[3]
+                                                  and shape[1] >= min_d)
         if shape[1] == 64 and want is not None:
             assert ark_adj_plan(*shape)[0] > 0
             assert train_loop_plan(*shape)[0] > 0
+            assert grad_step_plan(*shape)[0] > 0
+            assert ark_fwd_plan(*shape)[0] > 0
 
 
 # grid-form shapes: Burgers-512 at bench.py's B 200, a B no tile height
@@ -285,7 +306,7 @@ def grid_reduction_order(K, G, v):
     return order
 
 
-@pytest.mark.parametrize("kind", [GRID_STEP, GRID_LOOP])
+@pytest.mark.parametrize("kind", GRID_KINDS)
 @pytest.mark.parametrize("B, d, layers, tname", GRID_CASES, ids=GRID_IDS)
 def test_grid_tiles_cover_every_output_once(B, d, layers, tname, kind):
     """Walks the grid form's phases from the mirror: every product's tiles
@@ -293,7 +314,7 @@ def test_grid_tiles_cover_every_output_once(B, d, layers, tname, kind):
     tile once, each tile's reduction takes every k once (the row form's
     groups), the outputs and operands lie inside their workspace regions,
     and the dW/db products cover each layer's [W; b] once, so the whole
-    flat gradient. The tile groups (two a block) take tile t at group t //
+    flat gradient (K2 has none). The tile groups (two a block) take tile t at group t //
     grid of block t % grid, then every 2 grid tiles. The regions are
     disjoint, 16-byte aligned and inside the workspace the plan (and so
     the wrapper) allocates."""
@@ -335,12 +356,13 @@ def test_grid_tiles_cover_every_output_once(B, d, layers, tname, kind):
             elif p["out"] is not None:
                 name, first = p["out"]
                 assert p["ldo"] == N and first + M * N <= regions[name][1]
-    assert (grads == 1).all()
-    # the step's phases: K3's staging and recompute or K4's forward, then
-    # per reached stage its backprop (and an implicit stage's solve), then
-    # dW
+    assert (grads == (0 if kind == GRID_FWD else 1)).all()
+    # the step's phases: K3's staging and recompute or the forward (K4,
+    # K12, K2: a phase per layer and stage at least), then but for K2 per
+    # reached stage its backprop (and an implicit stage's solve), then dW
     n = len(layers)
-    assert len(phases) >= s + 1 + (n if kind == GRID_STEP else s * n)
+    want = {GRID_STEP: s + 1 + n, GRID_FWD: s * n}.get(kind, s + 1 + s * n)
+    assert len(phases) >= want
 
 
 def _grid_accesses(kind, B, d, layers, tbl, phase):
@@ -352,7 +374,7 @@ def _grid_accesses(kind, B, d, layers, tbl, phase):
     element is the one that reads it there: owner (product, region,
     first)). Regions: the workspace's, "W{l}", "b{l}", "J", "inv", the
     inputs "y", "tgt", "lam_in", and the outputs "lam_prev", "grads",
-    Adam's "m", "v"."""
+    Adam's "m", "v", K2's "ys", "y1" and "err"."""
     aI, s = tbl[0], len(tbl[2])
     dims, n, bd = [d] + list(layers), len(layers), B * d
     woff = np.cumsum([0] + [K * N + N for K, N in zip(dims, dims[1:])])
@@ -380,7 +402,8 @@ def _grid_accesses(kind, B, d, layers, tbl, phase):
                 pt("pw", "q", i * bd)
 
         def xi_done(i):
-            pt("pr", "lam" if kind == GRID_LOOP else "lam_in", 0)
+            pt("pr", "lam" if kind in (GRID_LOOP, GRID_GRAD) else "lam_in",
+               0)
             pt("pw", "xi", i * bd)
             lower = [m for m in reached if m < i]
             if lower:
@@ -429,7 +452,7 @@ def _grid_accesses(kind, B, d, layers, tbl, phase):
             pt("pw", f"b{l}", 0, N)
         elif epi == "fwd_stiff":
             pt("pr", *p["a"][:2])
-            pt("pw", "ys", (s - 1 - i) * bd)
+            pt("pw", "ys", (i if kind == GRID_FWD else s - 1 - i) * bd)
             pt("pw", "kI", i * bd)
         elif epi == "fwd_ke":
             acc.append((j, f"b{n - 1}", 0, N, "read"))
@@ -441,6 +464,9 @@ def _grid_accesses(kind, B, d, layers, tbl, phase):
                     pt("pr", "kE", jj * bd)
             if i + 1 < s:
                 pt("pw", "G", 0)
+            elif kind == GRID_FWD:
+                pt("pw", "y1", 0)
+                pt("pw", "err", 0)
             else:
                 pt("pr", "tgt", 0)
                 for name in ("diff", "lam"):
@@ -461,7 +487,7 @@ def _grid_hazards(acc):
             and (x[4] == "read" or x[0] != w[0])]
 
 
-@pytest.mark.parametrize("kind", [GRID_STEP, GRID_LOOP])
+@pytest.mark.parametrize("kind", GRID_KINDS)
 @pytest.mark.parametrize("B, d, layers, tname", GRID_CASES, ids=GRID_IDS)
 def test_grid_phases_write_nothing_another_tile_reads(B, d, layers, tname,
                                                        kind):
@@ -499,7 +525,8 @@ def test_grid_hazard_check_sees_a_shared_one_layer_phase():
 
 
 @pytest.mark.parametrize("kind, k", [(GRID_STEP, 0), (GRID_LOOP, 0),
-                                     (GRID_LOOP, 1)])
+                                     (GRID_LOOP, 1), (GRID_GRAD, 0),
+                                     (GRID_FWD, 0)])
 def test_c_grid_phases_reads_the_generator_records(monkeypatch, kind, k):
     """``c_grid_phases`` (what chip_smoke.py's build phase holds against
     the mirror) decodes pnode_ark_grid_phases' records, 20 long longs a
@@ -514,10 +541,10 @@ def test_c_grid_phases_reads_the_generator_records(monkeypatch, kind, k):
 
     class Lib:
         def pnode_ark_grid_phases(self, kind_, B_, d_, s_, n_, dims, tab, k_,
-                                  ws, J, inv, y, Ws, bs, rec, cap, count):
+                                  ws, J, inv, y, ys, Ws, bs, rec, cap, count):
             assert (kind_, B_, d_, s_, n_, k_) == (kind, B, d, s, n, k)
             assert list(dims) == [d] + layers
-            base = {"ws": ws, "J": J, "inv": inv, "y": y}
+            base = {"ws": ws, "J": J, "inv": inv, "y": y, "ys": ys}
             base.update({f"W{l}": Ws[l] for l in range(n)})
             base.update({f"b{l}": bs[l] for l in range(n)})
 
@@ -590,6 +617,56 @@ def test_k3_launch_arguments(B, rows, grid):
         adj.run_ark_adj(lib, 132, 0, tbl, dt, torch.zeros(4, B, d), _t(lam),
                         _t(J), _t(inv), [_t(w) for w in Ws],
                         [_t(b) for b in bs], "relu", -1.0, 2, 66)
+
+
+@pytest.mark.parametrize("B, rows, grid, form", [
+    (200, 0, 0, "plan"), (200, 0, 66, "plan"), (100, 0, 0, "plan"),
+    (200, 1, 0, "plan"), (256, 0, 0, "plan"), (256, 0, 0, "grid")])
+def test_k12_launch_arguments(B, rows, grid, form):
+    """K12's launch passes the scratch of its form: the grid form's
+    workspace at Burgers (B 200 and the two-rank shard B 100; the plan's
+    grid, or a smaller one asked for) and at KS with form "grid" (a kernel
+    comparison; C rows -1), the row form's partials (a slice of the
+    gradient and the loss per block) at forced R 1 and at KS; the count
+    the caller gives. A grid is refused in the row form."""
+    d, layers = (512, BURGERS) if B != 256 else (64, KS)
+    tbl, dt, y, J, inv, Ws, bs, _ = _operands("3", B, d, layers, seed=3)
+    layout = LoopLayout(B, d, layers)
+    params = layout.pack([_t(w) for w in Ws], [_t(b) for b in bs])
+    lib = _Lib()
+    loss, grad = ftl.run_grad_step(lib, 132, 0, layout, tbl, dt, _t(y),
+                                   _t(y), _t(J), _t(inv), params, "relu",
+                                   -1.0, 2.0 * B * d, rows, grid, form)
+    (name, a), = lib.calls
+    dims = [d] + layers
+    if form == "grid" or (B != 256 and rows == 0):
+        want = grid_plan(GRID_GRAD, B, d, layers, 4)[2]
+    else:
+        R = rows or grad_step_plan(B, d, layers, 4)[0]
+        want = -(-B // R) * (-(-(grad_buffer_size(dims) + 1) // 4) * 4)
+    assert name == "pnode_grad_step" and a[7:10] == (B, d, 4)
+    assert a[-5:-1] == (2.0 * B * d, -1 if form == "grid" else rows, grid,
+                        want)
+    assert ftl.grad_scratch_floats(B, d, layers, 4, 132, rows, form) == want
+    assert grad.shape == (layout.total,) and loss.shape == ()
+    with pytest.raises(ValueError, match="grid"):
+        ftl.run_grad_step(lib, 132, 0, layout, tbl, dt, _t(y), _t(y), _t(J),
+                          _t(inv), params, "relu", -1.0, None, 1, 66)
+    assert len(lib.calls) == 1
+
+
+def test_grid_workspace_of_k12_is_k4s():
+    """K12's grid-form workspace is K4's regions (the forward's kI, kE, G,
+    the seed, y1 - tgt and the per-row losses beside the reverse's): 27.9
+    MB at Burgers-512, B 200, ARK3, against the row form's 200 partials of
+    the stack (1.27 GB); 14.0 MB at the two-rank shard B 100."""
+    for B in (200, 100):
+        assert grid_workspace(GRID_GRAD, B, 512, BURGERS, 4) == \
+            grid_workspace(GRID_LOOP, B, 512, BURGERS, 4)
+    assert 4 * grid_plan(GRID_GRAD, 200, 512, BURGERS, 4)[2] == 27_853_600
+    assert 4 * grid_plan(GRID_GRAD, 100, 512, BURGERS, 4)[2] == 13_926_800
+    rows = 200 * (-(-(grad_buffer_size([512] + BURGERS) + 1) // 4) * 4)
+    assert 4 * rows > 1.26e9
 
 
 def test_grid_workspace_at_burgers():

@@ -8,7 +8,10 @@ chip_smoke.py's build phase holds against this mirror at the same shapes.
 Beside them: the rule's dependence on the SM count, the refusals, the fits
 gate's answers (the plans at one row per block), the forward wrapper's own
 gate, and the reverse-step cost counts without the MLP's last-layer
-forward. Then K2's plain version
+forward. The grid form (rows 0: where K3's plan takes it from d 280 up,
+Burgers-512 and d 300; d 200 and 197 keep the row form, faster there):
+its workspace, and the wrapper's launch arguments through a stand-in for
+the kernel library. Then K2's plain version
 against the JAX package's ``_kernel`` in interpret mode at the KS widths
 (d 64, hidden 104, B 16) with the embedded error output, at the forward's
 tolerances (rtol 3e-5 / atol 1e-6, tests/test_fused_ark_adjoint.py:183);
@@ -23,9 +26,11 @@ import torch
 
 from pnode_tpu.ops.fused_ark_forward import fused_ark_step_fwd as j_fwd
 from pnode_tpu.tableaus import get_ark_tableau
+from pnode_tpu_torch.ops import fused_ark_forward as fwd
 from pnode_tpu_torch.ops.fused_ark_adjoint import (
-    GRID_SMEM, MAX_SMEM_BYTES, ark_adj_plan, ark_fwd_plan, fused_ark_fits,
-    fused_ark_step_adj,
+    GRID_FWD, GRID_MIN_D, GRID_SMEM, MAX_SMEM_BYTES, _ark_fwd_plan,
+    ark_adj_plan, ark_fwd_plan, fused_ark_fits, fused_ark_step_adj,
+    grid_plan, grid_workspace,
 )
 from pnode_tpu_torch.ops.fused_ark_forward import (
     fused_ark_step_fwd, fused_ark_step_fwd_plain,
@@ -40,14 +45,17 @@ KS = [104] * 4 + [64]
 BURGERS = [576] * 4 + [512]
 
 # (B, d, layer widths, stages) -> the C plan's (rows, grid, bytes) on 132
-# SMs, as chip_smoke.py's build phase printed them
+# SMs, as chip_smoke.py's build phase printed them; at Burgers-512 the
+# grid form (rows 0, one block per SM), which K3's plan takes there (the
+# row form's R 2, 100 blocks of 232,448 B, before it)
+GRID = (0, 132, GRID_SMEM)
 C_PLANS = [
     ((256, 64, KS, 4), (2, 128, 135296)),
     ((37, 64, KS, 4), (1, 37, 127552)),
     ((1, 64, KS, 4), (1, 1, 127552)),
     ((3173, 64, KS, 4), (8, 397, 181760)),
-    ((200, 512, BURGERS, 4), (2, 100, 232448)),
-    ((200, 512, BURGERS, 8), (2, 100, 232448)),
+    ((200, 512, BURGERS, 4), GRID),
+    ((200, 512, BURGERS, 8), GRID),
     ((37, 13, [100, 13], 4), (1, 37, 14496)),
     ((37, 100, [13, 100], 4), (1, 37, 97712)),
     ((37, 64, [64], 2), (1, 37, 72448)),
@@ -96,16 +104,106 @@ def test_plan_refuses(args):
 
 def test_fits_gate_answers():
     """The gate is the plans at one row per block: KS and Burgers-512 fit
-    both step kernels (at Burgers-512 K2's plan fills the opt-in shared
-    memory and K3's takes the grid form: one block per SM, 132 on an H100
-    SXM), a layer wider than a product takes fits neither."""
+    both step kernels (at Burgers-512 K2's and K3's plans take the grid
+    form: one block per SM, 132 on an H100 SXM), a layer wider than a
+    product takes fits neither."""
     assert fused_ark_fits(64, KS, 4)
     assert fused_ark_fits(512, BURGERS, 4, reverse=False)
     assert fused_ark_fits(512, BURGERS, 4)
-    assert ark_fwd_plan(1, 512, BURGERS, 4) == (1, 1, MAX_SMEM_BYTES)
+    assert ark_fwd_plan(1, 512, BURGERS, 4) == GRID
     assert ark_adj_plan(1, 512, BURGERS, 4) == (0, 132, GRID_SMEM)
     assert ark_adj_plan(1, 64, KS, 4) == (1, 1, 144896)
     assert not fused_ark_fits(64, [1100, 64], 4, reverse=False)
+
+
+# K3's grid-form shapes: Burgers-512 at 4 and 8 stages, d 300 and 280 (K2
+# follows from d 280 up), d 256, 200 and d 197 with a 201-wide layer (rows
+# not 16-byte aligned; K2 keeps the row form, faster there)
+GRID_SHAPES = [(200, 512, BURGERS, 4), (200, 512, BURGERS, 8),
+               (37, 300, [300], 4), (37, 280, [280], 4), (37, 256, [256], 4),
+               (37, 200, [200, 200], 4), (37, 197, [201, 197], 4)]
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES,
+                         ids=[f"B{a[0]}-d{a[1]}-s{a[3]}" for a in GRID_SHAPES])
+def test_grid_form_where_k3_takes_it(shape):
+    """K2's plan takes the grid form where K3's does (rows 0, one block per
+    SM, at any SM count) from d GRID_MIN_D (280) up, and below it keeps its
+    row plan, which exists wherever K3's grid form does (the fits gate and
+    a forced R read it); every pinned KS shape keeps the row form."""
+    row = _ark_fwd_plan(*shape[:2], tuple(shape[2]), shape[3], 132)
+    assert ark_adj_plan(*shape) == GRID and row is not None
+    if shape[1] >= GRID_MIN_D:
+        assert ark_fwd_plan(*shape) == GRID
+        assert ark_fwd_plan(*shape, sms=64)[:2] == (0, 64)
+    else:
+        assert ark_fwd_plan(*shape) == row
+    for ks, plan in C_PLANS:
+        if ks[1] == 64 and plan is not None:
+            assert ark_fwd_plan(*ks)[0] > 0 and ark_adj_plan(*ks)[0] > 0
+
+
+def test_grid_workspace_at_burgers():
+    """K2's workspace at Burgers-512, B 200, ARK3: every stage's layer
+    inputs (4 x 576 wide), kI and kE (s, B, d) and G (B, d): 11.1 MB, no
+    covector, no stage values (they go to the caller's ys)."""
+    s, sb = 4, 4 * 200
+    regions, total = grid_workspace(GRID_FWD, 200, 512, BURGERS, s)
+    assert sorted(regions) == ["G", "h1", "h2", "h3", "h4", "kE", "kI"]
+    assert total == sb * 4 * 576 + 2 * sb * 512 + 200 * 512
+    assert grid_plan(GRID_FWD, 200, 512, BURGERS, s)[2] == total
+    assert 4 * total == 11_059_200
+
+
+def _Lib():
+    """A stand-in kernel library recording each C call's arguments."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append((name, args))
+                return 0
+            return call
+
+    lib = Lib()
+    lib.calls = calls
+    return lib
+
+
+@pytest.mark.parametrize("B, rows, grid, form, err", [
+    (200, 0, 0, "plan", False), (200, 0, 66, "plan", True),
+    (200, 2, 0, "plan", False), (256, 0, 0, "plan", True),
+    (256, 0, 0, "grid", False), (256, 0, 66, "grid", True)])
+def test_k2_launch_arguments(B, rows, grid, form, err):
+    """K2's launch passes the workspace of its form: the grid form's at
+    Burgers (the plan's grid, or a smaller one asked for) and at KS with
+    form "grid" (a kernel comparison), none in the row form (forced R 2 at
+    Burgers, the plan's R at KS); C rows -1 forces the grid form. The
+    stage values and y1 (and err) are the wrapper's outputs; a grid is
+    refused in the row form, a forced R with form "grid"."""
+    d, layers = (512, BURGERS) if B == 200 else (64, KS)
+    tbl, b_err, dt, y, J, inv, Ws, bs = _operands("3", B, d, layers, seed=3)
+    lib = _Lib()
+    W, b = [_t(w) for w in Ws], [_t(v) for v in bs]
+    out = fwd.run_ark_fwd(lib, 132, 0, tbl, b_err if err else None, dt,
+                          _t(y), _t(J), _t(inv), W, b, "relu", -1.0, rows,
+                          grid, form)
+    (name, a), = lib.calls
+    grid_form = form == "grid" or (B == 200 and rows == 0)
+    want = grid_plan(GRID_FWD, B, d, layers, 4)[2] if grid_form else 0
+    assert name == "pnode_ark_fwd"
+    assert a[7:10] == (B, d, 4)
+    assert a[-4:-1] == (-1 if form == "grid" else rows, grid, want)
+    assert (a[5] is not None) == err and (a[11] is not None) == err
+    assert len(out) == (3 if err else 2) and out[-1].shape == (4, B, d)
+    assert fwd.fwd_scratch_floats(B, d, layers, 4, 132, rows, form) == want
+    for bad in (dict(rows=2, grid=66, form="plan"),
+                dict(rows=2, grid=0, form="grid")):
+        with pytest.raises(ValueError):
+            fwd.run_ark_fwd(lib, 132, 0, tbl, None, dt, _t(y), _t(J),
+                            _t(inv), W, b, "relu", -1.0, **bad)
+    assert len(lib.calls) == 1
 
 
 def _tableau(name):

@@ -11,8 +11,10 @@ the mirrors against the C plans on the card. Here: the plans at the KS
 main path, B 37 and B 3173; every shape the loop gates open (with the
 step kernels' forward gate, as the wrappers ask) has a plan; K4's gate is
 its plan and K5's the 8-row budget it has always been, pinned at KS and
-Burgers-512 (K4 open there, K5 closed); the K5 workspace; the wrappers' scratch and arguments, read
-through a stand-in for the kernel library (no card here).
+Burgers-512 (K4 open there, K5 closed); K12's and K2's plans switching to
+the grid form exactly where K4's and K3's do; the K5 workspace; the
+wrappers' scratch and arguments, read through a stand-in for the kernel
+library (no card here).
 """
 
 import ctypes
@@ -24,8 +26,8 @@ import torch
 from pnode_tpu_torch.ops import fused_adaptive_loop as fal
 from pnode_tpu_torch.ops import fused_train_loop as ftl
 from pnode_tpu_torch.ops.fused_ark_adjoint import (
-    GRID_LOOP, GRID_SMEM, MAX_SMEM_BYTES, fused_ark_fits, grad_step_plan,
-    grid_plan,
+    GRID_LOOP, GRID_MIN_D, GRID_SMEM, MAX_SMEM_BYTES, ark_adj_plan,
+    ark_fwd_plan, fused_ark_fits, grad_step_plan, grid_plan,
 )
 from pnode_tpu_torch.ops.fused_mlp import grad_buffer_size
 from pnode_tpu_torch.tableaus import get_ark_tableau
@@ -174,6 +176,38 @@ def test_gates_are_the_8_row_budget_and_the_plans_take_all_they_open(
                 assert plan is not None
                 assert plan[3] == (trials * stages + 3) * B * d
     assert opened[0] > 0
+
+
+@pytest.mark.parametrize("stages", [1, 4, 8])
+def test_k12_and_k2_switch_forms_with_k4_and_k3(stages):
+    """Swept over d, hidden widths and depths, and batches: K12's plan
+    takes the grid form exactly where K4's does (the same row layout's
+    residency) from d GRID_MIN_D up, K2's likewise where K3's does, each
+    at the same grid and shared memory; where their row layouts keep inv
+    and J resident, or d is narrower, they keep the row form."""
+    rng = np.random.default_rng(300 + stages)
+    grid = [0, 0]
+    for _ in range(150):
+        d = int(rng.integers(1, 700))
+        hidden = [int(rng.integers(1, 1100))
+                  for _ in range(int(rng.integers(0, 4)))]
+        layers = hidden + [d]
+        for B in (1, 37, 256):
+            k4 = ftl.train_loop_plan(B, d, layers, stages)
+            k12 = grad_step_plan(B, d, layers, stages)
+            assert (k4 is None) == (k12 is None)
+            wide = d >= GRID_MIN_D
+            if k4 is not None:
+                assert (k12[0] == 0) == (k4[0] == 0 and wide)
+                if k12[0] == 0:
+                    assert k12 == k4 == (0, 132, GRID_SMEM)
+                grid[0] += k12[0] == 0
+            k3 = ark_adj_plan(B, d, layers, stages)
+            k2 = ark_fwd_plan(B, d, layers, stages)
+            if k2 is not None and k3 is not None:
+                assert (k2[0] == 0) == (k3[0] == 0 and wide)
+                grid[1] += k2[0] == 0
+    assert grid[0] > 0 and grid[1] > 0
 
 
 def test_gates_at_the_ks_widths_over_d():
