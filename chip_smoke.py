@@ -12,7 +12,8 @@ exits non-zero without printing the final line):
    power limit as nvidia-smi reports them.
 2. Build: compiles pnode_tpu_torch/csrc/*.cu for sm_90a with nvcc (timed);
    fails where ptxas reports spill in csrc/sqnxt_fwd.cu (K6, K8),
-   csrc/fused_ark_forward.cu (K2), csrc/fused_ark_adjoint.cu (K3),
+   csrc/fused_sqnxt.cu (K7, K9), csrc/fused_ark_forward.cu (K2),
+   csrc/fused_ark_adjoint.cu (K3),
    csrc/fused_grad_step.cu (K12), csrc/fused_train_loop.cu (K4) or
    csrc/fused_adaptive_loop.cu (K5), and where K2's, K3's, K12's, K4's or
    K5's C plan (rows per block, grid, shared memory; K5's workspace)
@@ -22,7 +23,14 @@ exits non-zero without printing the final line):
    its four kinds, K3's, K4's, K12's and K2's, where the row form cannot
    keep inv and J resident) at the shapes that take it, or the grid form's
    phases (its products, listed by the C generator on the host, all four
-   kinds) from their mirror's at grid_phase_cases.
+   kinds) from their mirror's at grid_phase_cases, or K6-K9's
+   shared-memory regions (staged tile and weights, both dtypes, chain and
+   each layer, forward and backward) from stage_layout at the stage shapes
+   and every SQNXT_EDGES and SQNXT_BF16_EDGES case; and unless the SASS
+   of the SqueezeNext cubins (cuobjdump, in other processes beside the
+   plan checks and the probe, waited for at the phase's end) holds bf16
+   HMMA in K6's and K7's bf16 chain instances and none in any other
+   SqueezeNext function.
    Then the probe (python -m pnode_tpu_torch.tools.probe_smem_limit, K13):
    the largest dynamic shared memory one block takes, up a ladder and
    bisected to 4 bytes, must equal the gates' MAX_SMEM_BYTES and the card's
@@ -137,7 +145,8 @@ exits non-zero without printing the final line):
    its plain version and the module path's evaluation, and by the
    profiler's device time (the JSON line: K6/K7 at stage 2 with a stage3
    sub-object, K8/K9 at stage 1). The build phase fails where ptxas
-   reports spill in csrc/sqnxt_fwd.cu (K6, K8). (b) The kernel path against the module path
+   reports spill in csrc/sqnxt_fwd.cu or csrc/fused_sqnxt.cu. (b) The
+   kernel path against the module path
    from the same weights: logits, loss, gradient cosine and norm ratio
    (CIFAR_TOL). (c) On cuDNN's deterministic algorithms (so the losses
    repeat from run to run): after each of the kernel path's first 2 SGD
@@ -298,23 +307,28 @@ exits non-zero without printing the final line):
 12. bf16 CIFAR: phase 6's model and recipe (SqNxt-23, B 128, rk4, Nt 2)
    with SqueezeNextODE(dtype="bf16"). (a) The bf16 instances of K6-K9
    against their plain bf16 versions on the bf16 model's stage
-   activations and at every SQNXT_EDGES case: outputs, dx and parameter
+   activations and at every SQNXT_EDGES and SQNXT_BF16_EDGES case:
+   outputs, dx and parameter
    gradients within BF16_TOL (2^-6, max |diff| / max |plain|); K7's
    anchors against the plain forward's and its gradients against the plain
    backward on its own forward (k7_anchored_plain); its distance from the
    free plain backward printed, not gated; conv biases absolutely; each
    kernel twice bitwise; each timed per evaluation beside its fp32
    instance, its plain version and the bf16 module path (CUDA events and
-   the profiler; the JSON line at stage 1, K6/K7 with stage2 and stage3).
+   the profiler, or CUDA events around single calls where a trace holds
+   none of its launches, labelled device_source; the JSON line at stage
+   1, K6/K7 with stage2 and stage3).
    (b) The bf16 kernel path against the bf16 module path from the same
    weights (CIFAR_BF16_TOL: the loss, the head's gradient cosine); one ODE
    block's gradient at each stage (stage 1 also layered) on both paths
    from the same input and cotangent (BF16_BLOCK_TOL: each tensor's
    cosine and norm ratio), beside the bf16-against-fp32 control; its
    argmax against the fp32 kernel path's. (c) 12 SGD iterations on the
-   bf16 kernel path (the mean of the last 5 losses below the first 5), 6
-   each on the bf16 module path and the fp32 kernel path: images/s and
-   peak memory; the bf16 instances' launches. (d)
+   bf16 kernel path (the mean of the last 5 losses below the first 5) and
+   6 on the bf16 module path: images/s and peak memory, the bf16 kernel
+   path's images/s over its last 10 beside phase 6(c)'s fp32 kernel path
+   over its last 10 (not gated), one traced iteration of the bf16 kernel
+   path (K6-K9's shares of it); the bf16 instances' launches. (d)
    examples/train_cifar10_torch.py --precision bf16 at B 256 (stage 1 runs
    layered there) for 2 iterations with --use_kernels on and off, its
    memstat.txt carrying the precision; every bf16 instance launched over
@@ -486,6 +500,11 @@ SQNXT_EDGES = (("ragged B3 5x7 dim 16", 0, 16, 3, 5, 7),
                ("B1 3x3 dim 16", 0, 16, 1, 3, 3),
                ("B640 32x32 dim 16, last z past the store", 0, 16, 640, 32,
                 32))
+# and for the bf16 chain, whose store holds bf16 z tiles (twice the tiles
+# of B640's at 264 blocks fit it): 20 tiles of 256 columns a block at the
+# largest co-resident grid, 264 (two blocks an SM at K6's 128 registers)
+SQNXT_BF16_EDGES = (("B1280 32x32 dim 16, the bf16 chain's last z past its "
+                     "store", 0, 16, 1280, 32, 32),)
 CIFAR_B, CIFAR_LR = 128, 0.1
 # phase 6(b)'s gates, kernel path against module path (PERF.md says why)
 CIFAR_TOL = {"logits": 1e-3, "loss": 1e-5, "cos": 0.99, "ratio": 0.01}
@@ -616,9 +635,11 @@ def ptxas_report(log, source):
     return funcs
 
 
-# sources whose every function must compile without spill: K6/K8, K2, K3,
-# K12, K4 and K5
+# sources whose every function must compile without spill: K6/K8 and K7/K9
+# (the bf16 chain's tensor-core instances among them), K2, K3, K12, K4 and
+# K5
 NO_SPILL = (("sqnxt_fwd.cu", "sqnxt_fwd_kernel", "K6/K8"),
+            ("fused_sqnxt.cu", "sqnxt_bwd_kernel", "K7/K9"),
             ("fused_ark_forward.cu", "ark_fwd_kernel", "K2"),
             ("fused_ark_adjoint.cu", "ark_adj_kernel", "K3"),
             ("fused_grad_step.cu", "grad_step_kernel", "K12"),
@@ -641,6 +662,120 @@ DP_PLANS = tuple((B, NX, KS_LAYERS, 4) for B in (128, 64, 32))
 # widest d the adaptive gate opens with the KS hidden layers (134)
 LOOP_PLANS = ((37, NX, [13] * 4 + [NX], 4), (37, 100, [HIDDEN] * 4 + [100], 8),
               (256, 134, [HIDDEN] * 4 + [134], 4))
+
+
+# the SqueezeNext functions whose SASS must hold bf16 HMMA (K6's and K7's
+# bf16 chain instances); every other SqueezeNext function must hold none
+SQNXT_TC_KERNELS = ("sqnxt_fwd_kernelI13__nv_bfloat16Li5E",
+                    "sqnxt_bwd_kernelI13__nv_bfloat16Li5E")
+
+
+def sass_hmma(lib_path):
+    """{function: (HMMA instructions, of them with bf16 operands, one such
+    line)} of every function in the SASS of the built library's
+    SqueezeNext cubins (cuobjdump, beside nvcc: -xelf all, then -sass of
+    each cubin that names sqnxt, all at once, each piped through grep so
+    that only the function names and the HMMA lines reach Python)."""
+    import re
+    import tempfile
+
+    from pnode_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(lib_path)) as d:
+        subprocess.run([tool, "-xelf", "all", lib_path], cwd=d,
+                       capture_output=True, check=True)
+        picked = [os.path.join(d, f) for f in sorted(os.listdir(d))
+                  if f.endswith(".cubin") and b"sqnxt" in
+                  open(os.path.join(d, f), "rb").read()]
+        pipes = []
+        for f in picked:
+            dump = subprocess.Popen([tool, "-sass", f],
+                                    stdout=subprocess.PIPE)
+            pipes.append((dump, subprocess.Popen(
+                ["grep", "-E", "Function :|HMMA"], stdin=dump.stdout,
+                stdout=subprocess.PIPE, text=True)))
+            dump.stdout.close()
+        out = ""
+        for dump, grep in pipes:
+            out += grep.communicate()[0]
+            if dump.wait() != 0:
+                raise RuntimeError(f"cuobjdump -sass failed ({dump.args})")
+    funcs, fn = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            funcs[fn] = [0, 0, ""]
+        elif fn and "HMMA" in line:
+            funcs[fn][0] += 1
+            if "BF16" in line:
+                funcs[fn][1] += 1
+                funcs[fn][2] = funcs[fn][2] or line.strip()
+    return funcs
+
+
+def check_tensor_cores(lib_path):
+    """Phase 2's tensor-core check: bf16 HMMA in K6's and K7's bf16 chain
+    instances, and no HMMA in any other SqueezeNext function (the fp32
+    instances, the one-layer bf16 instances, their out-of-line products)."""
+    t0 = time.perf_counter()
+    funcs = sass_hmma(lib_path)
+    bad = []
+    for fn, (n, nbf, line) in sorted(funcs.items()):
+        if "sqnxt" not in fn:
+            continue
+        tc = any(k in fn for k in SQNXT_TC_KERNELS)
+        log(f"[build] SASS {fn}: {n} HMMA, {nbf} with bf16 operands"
+            f"{' (' + line + ')' if line else ''}")
+        if (tc and nbf == 0) or (not tc and n):
+            bad.append(fn)
+    found = [k for k in SQNXT_TC_KERNELS if any(k in fn for fn in funcs)]
+    if bad or len(found) != len(SQNXT_TC_KERNELS):
+        raise AssertionError(f"tensor-core check: bf16 HMMA missing from, or "
+                             f"HMMA found in, {bad}; bf16 chain kernels found "
+                             f"{found}")
+    log(f"[build] bf16 HMMA in K6's and K7's bf16 chain instances, none in "
+        f"any other SqueezeNext function ({time.perf_counter() - t0:.1f} s)")
+
+
+def start_tensor_core_check(lib_path):
+    """check_tensor_cores in a thread (its time is cuobjdump's, in other
+    processes): returns a function that waits for it, logs the wait and
+    raises what it raised."""
+    import threading
+
+    failed = []
+
+    def run():
+        try:
+            check_tensor_cores(lib_path)
+        except BaseException as e:  # re-raised by the waiting function
+            failed.append(e)
+
+    worker = threading.Thread(target=run)
+    worker.start()
+
+    def wait():
+        t0 = time.perf_counter()
+        worker.join()
+        log(f"[build] waited {time.perf_counter() - t0:.1f} s for the "
+            "tensor-core check")
+        if failed:
+            raise failed[0]
+    return wait
+
+
+def sqnxt_layout_cases():
+    """(label, meta) at which phase 2 holds the C plans' shared-memory
+    regions against stage_layout: the three stage shapes at B 128 and
+    every SQNXT_EDGES case."""
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    cases = [(f"stage {i + 1}", fs.make_meta(d, CIFAR_B, h, h))
+             for i, (d, h) in enumerate(((32, 32), (64, 16), (128, 8)))]
+    return cases + [(e[0], fs.make_meta(e[2], e[3], e[4], e[5]))
+                    for e in SQNXT_EDGES + SQNXT_BF16_EDGES]
 
 
 def grid_phase_cases():
@@ -675,12 +810,14 @@ def phase_build():
     from pnode_tpu_torch.ops import fused_ark_adjoint as adj
     from pnode_tpu_torch.ops import fused_adaptive_loop as adapt
     from pnode_tpu_torch.ops import fused_ark_forward as fwd
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
     from pnode_tpu_torch.ops import fused_train_loop as loop
 
     t0 = time.perf_counter()
     lib = _build.library()
     secs = time.perf_counter() - t0
     info = _build.build_info
+    tensor_cores = start_tensor_core_check(info["path"])
     log(f"[build] {info['path']} in {secs:.1f} s "
         f"({'cached' if info.get('cached') else 'nvcc'})")
     build_log = info.get("log") or (_build.BUILD_DIR / "build.log").read_text()
@@ -791,6 +928,28 @@ def phase_build():
             "warp, rows per block, grid)")
     log(f"[build] K10/K11's plans at {4 * len(shapes)} shapes and modes "
         "equal their mirrors")
+    # K6-K9's staged tile and weights (floats), both dtypes, chain and each
+    # layer alone, forward and backward: the C plans against stage_layout
+    n = 0
+    for label, meta in sqnxt_layout_cases():
+        for lis in [list(range(5))] + [[li] for li in range(5)]:
+            for esize in (4, 2):
+                for backward in (False, True):
+                    got = fs.c_stage_layout(meta, lis, dev, esize, backward)
+                    want = fs.stage_layout(meta, lis, esize, backward)
+                    if got != want:
+                        raise AssertionError(
+                            f"K6-K9's layout at {label}, layers {lis}, esize "
+                            f"{esize}, backward {backward}: C {got}, mirror "
+                            f"{want}")
+                    n += 1
+        for esize in (4, 2):
+            log(f"[build] K6/K7 at {label}, esize {esize}: tile and weight "
+                f"floats forward {fs.stage_layout(meta, range(5), esize)}, "
+                f"backward {fs.stage_layout(meta, range(5), esize, True)}")
+    log(f"[build] K6-K9's shared-memory regions at {n} shapes, modes and "
+        "dtypes equal their mirror")
+    return tensor_cores
 
 
 def phase_probe():
@@ -3499,7 +3658,7 @@ def phase_cifar(device, n_iters=12, warm=2, n_off=6):
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the CIFAR "
                                  "path")
-    return reports, counts
+    return reports, counts, ips_on
 
 
 # -- phase 7: the Burgers slice -----------------------------------------------
@@ -3567,6 +3726,28 @@ def device_us_per_call(fn, names, n=20, per_call=None, tries=4):
     total = sum(k * sum(us) / len(us) if us else float("nan")
                 for us, k in zip(found, per_call or [1] * len(names)))
     return total, sum(len(us) for us in found)
+
+
+def single_call_ms(fn, n=10):
+    """Median device ms of one call of ``fn`` between two CUDA events, the
+    stream held busy (torch.cuda._sleep) while the host enqueues the
+    events and the call, so the events time the call's kernels and not its
+    launch: the device time where a profiler trace holds none of them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def time_stencil(label, y, g, w):
@@ -7020,14 +7201,21 @@ def time_sqnxt_bf16(label, h, mod, x, g, flat, meta, hs):
              for f in (plain, kern, k32, module, module, k32, kern, plain)]
         b_ms, b_by = bound(flops, byts, torch.bfloat16)
         us, traced = device_us_per_call(kern, [kname], per_call=[per_call])
-        # the profiler may drop every launch of a trace: then not measured
+        # the profiler may drop every launch of its traces: then single
+        # calls between CUDA events, labelled so
+        src = "profiler"
+        dev_ms = us / 1e3
+        if not traced:
+            src = "CUDA events around single calls"
+            dev_ms = single_call_ms(kern)
         out[name] = dict(ms=min(t[1], t[6]), plain_ms=min(t[0], t[7]),
                          fp32_ms=min(t[2], t[5]), module_ms=min(t[3], t[4]),
-                         bound_ms=b_ms, bound_by=b_by,
-                         device_ms=us / 1e3 if traced else None)
+                         bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms,
+                         device_source=src)
         log(f"[bf16]   {label} {name} per evaluation: kernel {t[1]:.4f} / "
-            f"{t[6]:.4f} ms, device {us / 1e3:.4f} ms ({traced} launches "
-            f"traced), fp32 instance {t[2]:.4f} / {t[5]:.4f} ms, plain bf16 "
+            f"{t[6]:.4f} ms, device {dev_ms:.4f} ms ({src}: {traced} "
+            f"launches traced), fp32 instance {t[2]:.4f} / {t[5]:.4f} ms, "
+            f"plain bf16 "
             f"{t[0]:.4f} / {t[7]:.4f} ms, bf16 module path {t[3]:.4f} / "
             f"{t[4]:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
             f"{flops / 1e9:.3f} GFLOP, {byts / 1e6:.2f} MB at 2-byte "
@@ -7038,8 +7226,8 @@ def time_sqnxt_bf16(label, h, mod, x, g, flat, meta, hs):
 def phase_sqnxt_bf16_kernels(device, x):
     """Phase 12(a): the bf16 instances of K6-K9 at the three full-width
     stage shapes (B 128, on the bf16 model's own stage activations) and at
-    every SQNXT_EDGES case, against their plain bf16 versions; timed at the
-    stage shapes."""
+    every SQNXT_EDGES and SQNXT_BF16_EDGES case, against their plain bf16
+    versions; timed at the stage shapes."""
     import torch
 
     from pnode_tpu_torch.models.sqnxt import ODEDynamics, _lecun_normal_
@@ -7055,7 +7243,8 @@ def phase_sqnxt_bf16_kernels(device, x):
                                failed)
         timed[label] = time_sqnxt_bf16(label, h, mod, *case)
     gen = torch.Generator().manual_seed(1)
-    for k, (label, si, dim, B, H, W) in enumerate(SQNXT_EDGES):
+    for k, (label, si, dim, B, H, W) in enumerate(SQNXT_EDGES +
+                                                  SQNXT_BF16_EDGES):
         edge = ODEDynamics(dim, dtype=bf)
         for conv in edge.convs:
             w = conv.weight
@@ -7213,8 +7402,11 @@ def phase_cifar_bf16_paths(device, x, y, state0):
                              f"{'ok' if ok else 'FAIL'}, blocks {failed}")
 
 
-def phase_cifar_bf16(device, n_iters=12, warm=2, n_trainer=2):
-    """Phase 12: bf16 CIFAR at full width, batch 128, rk4, Nt 2."""
+def phase_cifar_bf16(device, fp32_ips, n_iters=12, warm=2, n_trainer=2):
+    """Phase 12: bf16 CIFAR at full width, batch 128, rk4, Nt 2.
+    ``fp32_ips``: phase 6(c)'s fp32 kernel path's images/s over as many
+    iterations after as many warm ones, which (c) reads beside the bf16
+    kernel path's."""
     import torch
 
     from pnode_tpu_torch.ops import fused_sqnxt as fs
@@ -7234,28 +7426,35 @@ def phase_cifar_bf16(device, n_iters=12, warm=2, n_trainer=2):
                            state0)
     wrappers = [fs.fused_sqnxt_fwd, fs.fused_sqnxt_bwd,
                 fs.fused_sqnxt_layer_fwd, fs.fused_sqnxt_layer_bwd]
-    # (c) images/s and peak memory in one call: bf16 kernels, bf16 module,
-    # fp32 kernels, the same batches (the two beside the bf16 kernel path,
-    # whose losses alone are gated, on the first half); the bf16 kernel
-    # path's launches
+    # (c) images/s and peak memory: bf16 kernels, then bf16 module on the
+    # first half of the same batches (the kernel path's losses alone are
+    # gated); the bf16 kernel path's launches and one traced iteration.
+    # The fp32 kernel path's images/s is phase 6(c)'s, over as many timed
+    # iterations.
     for w in wrappers:
         w.launches_bf16 = 0
     runs = {}
-    for label, uk, dt in (("bf16 kernel path", "on", "bf16"),
-                          ("bf16 module path", "off", "bf16"),
-                          ("fp32 kernel path", "on", None)):
-        m = cifar_model(device, uk, state0, dtype=dt)
-        n = n_iters if label == "bf16 kernel path" else n_iters // 2
-        losses, ips, peak, _ = train_cifar(label, m, batches[:n], x_tr,
-                                           y_tr, warm)
+    for label, uk in (("bf16 kernel path", "on"), ("bf16 module path",
+                                                    "off")):
+        m = cifar_model(device, uk, state0, dtype="bf16")
+        n = n_iters if uk == "on" else n_iters // 2
+        losses, ips, peak, opt = train_cifar(label, m, batches[:n], x_tr,
+                                             y_tr, warm)
         runs[label] = (losses, ips, peak)
-        if label == "bf16 kernel path":
+        if uk == "on":
             counts = {w.__name__ + "_bf16": w.launches_bf16
                       for w in wrappers}
+            profile_cifar("bf16 kernel path", m, opt, x_tr[batches[0]],
+                          y_tr[batches[0]])
     losses = runs["bf16 kernel path"][0]
     log(f"[bf16] (c) images/s: " + ", ".join(
         f"{k} {v[1]:.1f}" for k, v in runs.items()) + "; peak GB: " +
         ", ".join(f"{k} {v[2]:.3f}" for k, v in runs.items()))
+    ratio = runs["bf16 kernel path"][1] / fp32_ips
+    log(f"[bf16] (c) bf16 kernel path {runs['bf16 kernel path'][1]:.1f} "
+        f"images/s against phase 6(c)'s fp32 kernel path {fp32_ips:.1f} "
+        f"(each over iterations {warm}..{n_iters}): {ratio:.3f}x, "
+        f"{'at least' if ratio >= 1.0 else 'below'} fp32's (not gated)")
     log(f"[bf16] (c) bf16 launches over the kernel path's {n_iters} "
         f"iterations at B {CIFAR_B} (chain at every stage): {counts}")
     if not (np.all(np.isfinite(losses)) and losses[-5:].mean()
@@ -8210,8 +8409,9 @@ def main():
 
     t_start = time.perf_counter()
     phase_device()
-    phase_build()
+    tensor_cores = phase_build()
     probe_report = phase_probe()
+    tensor_cores()
     u = ks_data()
     reports = phase_kernels("cuda", u)
     counts, _, _ = phase_slice("cuda", u)
@@ -8226,7 +8426,7 @@ def main():
             tab, reports["fused_adaptive_train_loop"]).items():
         reports[name]["bound_ms"], reports[name]["bound_by"] = bound(flops,
                                                                      byts)
-    sq_reports, sq_counts = phase_cifar("cuda")
+    sq_reports, sq_counts, fp32_ips = phase_cifar("cuda")
     reports.update(sq_reports)
     counts.update(sq_counts)
     b_reports, b_launches, k1_burgers = phase_burgers("cuda")
@@ -8245,7 +8445,7 @@ def main():
     theta_launches, _ = phase_theta("cuda", u)
     slice5_launches, replay, k1_ks = phase_slice5("cuda", u)
     slice5b_launches = phase_slice5b("cuda", u)
-    bf_reports, bf_counts = phase_cifar_bf16("cuda")
+    bf_reports, bf_counts = phase_cifar_bf16("cuda", fp32_ips)
     reports.update(bf_reports)
     counts.update(bf_counts)
     slice10_launches = phase_slice10("cuda", u)
@@ -8263,7 +8463,8 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
-        for extra in ("device_ms", "stage2", "stage3", "library_device_ms",
+        for extra in ("device_ms", "device_source", "stage2", "stage3",
+                      "library_device_ms",
                       "launch_floor_device_ms", "with_dw", "ks_stage",
                       "fp32_ms", "module_ms", "max_rel_err",
                       "free_norm_err", "free_max_rel_err", "burgers",

@@ -22,8 +22,10 @@
 // Each kernel has two instances: fp32 (pnode_sqnxt_bwd, _bwd_layer) and
 // bf16 storage (pnode_sqnxt_bwd_bf16, _bwd_layer_bf16: x, g, dx, the taps,
 // b, the anchors and the g buffers in bf16; the parameter gradients, the
-// products, the statistics and the norm's backward in fp32, rounded where
-// the JAX kernels cast; csrc/sqnxt_tiles.cuh note 8).
+// statistics and the norm's backward in fp32, rounded where the JAX
+// kernels cast; csrc/sqnxt_tiles.cuh note 8). K7's bf16 instance stages
+// its operands as bf16 by cp.async and runs the recompute, g_h and dW on
+// mma.sync with fp32 accumulation (note 9); K9's keeps the FFMA tiles.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -40,9 +42,12 @@ constexpr int kPtrsPerLayer = 9;  // w, b, gam, bet, z, dw, db, dgam, dbet
 // K7 (kLayers 5) and K9 (kLayers 1), storage type T: the forward
 // recompute, then every layer's backward in reverse (csrc/sqnxt_tiles.cuh).
 // The plan rides as a __grid_constant__ parameter, copied once into shared
-// memory.
+// memory. The FFMA instances hold ~210 registers, one block an SM; the
+// tensor-core instance (K7's bf16) is held to 128, two blocks an SM where
+// its shared memory allows.
 template <typename T, int kLayers>
-__global__ void __launch_bounds__(sq::kThreads, 1)
+__global__ void __launch_bounds__(sq::kThreads,
+                                  sq::kTensorCores<T, kLayers> ? 2 : 1)
 sqnxt_bwd_kernel(const __grid_constant__ sq::Chain c,
                  const T* __restrict__ x, const T* __restrict__ g,
                  T* dx, float* scratch) {
@@ -63,7 +68,8 @@ sqnxt_bwd_kernel(const __grid_constant__ sq::Chain c,
   float* dwpart = scratch + 2 * slot_size;
   T* gbuf = reinterpret_cast<T*>(dwpart + (size_t)gridDim.x * c.dw_stride);
   int slot = 0;
-  sq::forward_layers<T, true>(s, x, part, slot_size, slot, grid);
+  constexpr bool kTC = sq::kTensorCores<T, kLayers>;
+  sq::forward_layers<T, true, kTC>(s, x, part, slot_size, slot, grid);
 #pragma unroll 1
   for (int l = kLayers - 1; l >= 0; --l) {
     const T* gin =
@@ -71,19 +77,21 @@ sqnxt_bwd_kernel(const __grid_constant__ sq::Chain c,
     T* gout = l == 0 ? dx : gbuf + (size_t)(l & 1) * c.gstride;
     // gout is complete at backward_layer's second grid.sync, before the
     // ordered dW sum: the next layer reads it with no further barrier
-    sq::backward_layer<T>(s, l, x, gin, gout, part, slot_size, slot, dwpart,
-                          grid);
+    sq::backward_layer<T, kTC>(s, l, x, gin, gout, part, slot_size, slot,
+                               dwpart, grid);
   }
   SQNXT_MARK(sq::kMarks - 1);
   SQNXT_NS(1);
 }
 
-// The layer table from ints and its plan; cudaErrorInvalidValue for a
-// chain the kernels do not take.
-int bwd_shape(sq::Chain* c, int nl, const int* ints, int N, int H, int W) {
+// The layer table from ints and its plan (tc: the bf16 chain's
+// tensor-core layout); cudaErrorInvalidValue for a chain the kernels do
+// not take.
+int bwd_shape(sq::Chain* c, int nl, const int* ints, int N, int H, int W,
+              bool tc) {
   const int rc = sq::shape(c, nl, ints, N, H, W);
   if (rc) return rc;
-  return sq::plan(*c) ? (int)cudaErrorInvalidValue : 0;
+  return sq::plan(*c, tc) ? (int)cudaErrorInvalidValue : 0;
 }
 
 int bwd_pointers(sq::Chain* c, void* const* ptrs) {
@@ -128,7 +136,8 @@ template <typename T>
 int bwd_plan(int nl, const int* ints, int N, int H, int W, int* grid,
              long long* scratch) {
   sq::Chain c;
-  int rc = bwd_shape(&c, nl, ints, N, H, W);
+  int rc = bwd_shape(&c, nl, ints, N, H, W,
+                     nl == sq::kMaxLayers && sq::kTensorCores<T, 5>);
   if (rc) return rc;
   if (nl == 5)
     rc = bwd_grid<T, 5>(c, grid);
@@ -152,11 +161,11 @@ int launch_bwd(const void* xv, const void* gv, void* dxv, int nl,
   sq::Chain c;
   if (nl != kLayers || !x || !g || !dx || !scratch)
     return (int)cudaErrorInvalidValue;
-  int rc = bwd_shape(&c, nl, ints, N, H, W);
+  int rc = bwd_shape(&c, nl, ints, N, H, W, sq::kTensorCores<T, kLayers>);
   if (rc || (rc = bwd_pointers(&c, ptrs))) return rc;
   int want = 0;
   if ((rc = bwd_grid<T, kLayers>(c, &want))) return rc;
-  if (grid != want ||
+  if (grid < 1 || grid > want ||
       scratch_floats != (long long)sq::scratch_floats(c, grid, sizeof(T)))
     return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&c, (void*)&x, (void*)&g, (void*)&dx,
@@ -192,8 +201,10 @@ int pnode_sqnxt_bwd_plan_bf16(int nl, const int* ints, int N, int H, int W,
 // cotangent g. ptrs: per layer w (taps, cout, cin), b, gam, bet, z (cout,
 // N) workspace, dw, db, dgam, dbet (x, g, dx, w, b and z fp32, or bf16 for
 // _bf16; gam, bet and the gradients fp32, each dW rounded through the
-// storage type). grid and scratch_floats must equal the plan's (else
-// cudaErrorInvalidValue).
+// storage type). grid is the plan's, or fewer blocks (a comparison of
+// grids: the backward keeps nothing of a tile in shared memory across a
+// barrier, so any grid covers its tiles), and scratch_floats the plan's
+// count at that grid (else cudaErrorInvalidValue).
 int pnode_sqnxt_bwd(const void* x, const void* g, void* dx, int nl,
                     const int* ints, void* const* ptrs, int N, int H, int W,
                     float* scratch, long long scratch_floats, int grid,

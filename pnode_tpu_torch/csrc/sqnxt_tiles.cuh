@@ -1,5 +1,7 @@
-// The tile machinery of the fused SqueezeNext kernels, sm_90a, fp32 FFMA on
-// the CUDA cores (no tensor cores, no TF32): the forward kernels K6 and K8
+// The tile machinery of the fused SqueezeNext kernels, sm_90a: fp32 FFMA on
+// the CUDA cores (no TF32) for the fp32 instances and the one-layer bf16
+// ones, bf16 mma.sync on the tensor cores with fp32 accumulation for the
+// bf16 chain (note 9): the forward kernels K6 and K8
 // (csrc/sqnxt_fwd.cu's sqnxt_fwd_kernel<5> and <1>) and the stage-exact
 // backward kernels K7 and K9 (csrc/fused_sqnxt.cu's sqnxt_bwd_kernel<5> and
 // <1>), which recompute the same forward before they backprop.
@@ -99,21 +101,50 @@
 // 8. Two storage types. Every kernel has an fp32 and a bf16 instance (T =
 //    float or __nv_bfloat16, the JAX kernels' activation dtype): T is the
 //    type of x, the taps, b, the anchors z_l, the output and the cotangents
-//    (g, the g buffers, dx) in device memory. Shared memory, the products,
-//    the statistics, the norm's backward and the partial slots stay fp32
+//    (g, the g buffers, dx) in device memory. Shared memory (but the bf16
+//    chain's, note 9), the products' sums, the statistics, the norm's
+//    backward and the partial slots stay fp32
 //    (a bf16 value is exact in fp32, so the products of two bf16 values
 //    are exact and only their sums round, as in the JAX kernels' f32
 //    accumulation). The bf16 instance rounds where the JAX kernels cast to
 //    the activation dtype (pnode_tpu/ops/fused_sqnxt.py): z = bf16(bf16(acc)
 //    + b) (:157), the norm's output before the ReLU (:176), g_z (:277), g_h
 //    (:301) and each dW through bf16 (:291); rnd<float> is the identity, so
-//    the fp32 instance computes what it did before. The bf16 rows come in
-//    by plain 4-byte (or 2-byte) loads converted on the way (cp.async
-//    cannot convert), the fp32 rows by cp.async as above. The scratch is counted in floats for both: its
-//    partial slots and dW slots are fp32, its anchors and g buffers take
+//    the fp32 instance computes what it did before. In the one-layer bf16
+//    instances (K8, K9) the bf16 rows come in by plain 4-byte (or 2-byte)
+//    loads converted on the way (cp.async cannot convert), the fp32 rows
+//    by cp.async as above; the bf16 chain (K6, K7) keeps bf16 as bf16
+//    (note 9). The scratch is counted in floats for both: its partial
+//    slots and dW slots are fp32, its anchors and g buffers take
 //    ceil(elements * sizeof(T) / 4) floats (elem_floats), so at bf16 they
-//    take half the room. The shared-memory layout, and with it the store
-//    (kStoreFloats) and the grid, is the same for both.
+//    take half the room. The fp32 and one-layer instances share one
+//    shared-memory layout, and with it the store (kStoreFloats).
+// 9. The bf16 chain on the tensor cores (kTensorCores: K6's and K7's bf16
+//    instances, whose time went to the staging's plain loads, pass A and
+//    the FFMA products, each slower than in the fp32 instance;
+//    tools/trace_sqnxt.py --dtype bf16). Every product operand is an exact
+//    bf16 value, so it is staged as bf16 and nothing rounds that did not:
+//    x, the anchors, g and z raw by 16-byte cp.async (8 columns; the halo
+//    rounded up to 8 columns so every row starts aligned); the input
+//    turned in place (one tap) or into one row per (tap, channel), shifted
+//    and masked at the image border (three taps); g_z computed in place
+//    and turned into its tap rows the same way; the weights in the layouts
+//    the fragments want. Each product is then a plain matrix product over
+//    k = t C + c, K padded to 16 and Cout/Cin to 8 with zero rows, on
+//    mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with ldmatrix fragments
+//    (tc::product_t, tc::dw_product). The epilogues round where the FFMA
+//    path does (z = bf16(bf16(acc) + b), g_h, each dW through bf16); the
+//    statistics, the norm's backward and the partial slots stay fp32 in
+//    the FFMA path's order; only the order of each product's fp32 sums
+//    moves (over k in chunks of 16, the chunks in order). Tiles keep the
+//    FFMA path's column tiles (at least 32 columns, kTcMinTN) and store;
+//    z's tile in shared memory is column-swizzled (tc::zsw) so the
+//    fragments' stores are conflict-free. mma.sync and not wgmma: the
+//    products are small (K 16-192, Cout 8-128; a chain's 0.6 GFLOP
+//    forward is ~0.6 us at 989 TFLOP/s), and the kernels are bound by
+//    staging, loads and barriers, not by the tensor cores' rate. The plans
+//    lay out the bf16 tile and weights (tc::need; pnode_sqnxt_layout
+//    reports them).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -141,6 +172,13 @@ constexpr int kViewFloats = 32;  // room for the Smem view
 constexpr float kEps = 1e-5f;   // BatchStatsNorm eps
 
 using bf16 = __nv_bfloat16;
+
+// The instances that run the bf16 chain on the tensor cores (note 9):
+// K6's and K7's bf16 instances; the fp32 and the one-layer instances keep
+// the FFMA tiles.
+template <typename T, int kLayers>
+constexpr bool kTensorCores =
+    std::is_same<T, bf16>::value && kLayers == kMaxLayers;
 
 // Floats that n elements of a storage type of esize bytes take.
 __host__ __device__ inline size_t elem_floats(size_t n, int esize) {
@@ -241,8 +279,16 @@ inline int split_for(int N, int rt) {
   return ks;
 }
 
-// The per-layer fields of c.L[0..nl) that both plans use.
-inline void derive(Chain& c) {
+// The tensor-core path's least column tile (tc: the bf16 chain): a whole
+// number of 32-column blocks, so each product's 16-column jobs and k steps
+// and the z tile's swizzle (tc::zsw) stay inside the tile; and its largest
+// backward tile, so the backward's bf16 tile fits two blocks an SM.
+constexpr int kTcMinTN = 32;
+constexpr int kTcMaxTNb = 256;
+
+// The per-layer fields of c.L[0..nl) that both plans use (tc: column tiles
+// of at least kTcMinTN, backward ones of at most kTcMaxTNb).
+inline void derive(Chain& c, bool tc = false) {
   int stat = 0;
   for (int l = 0; l < c.nl; ++l) {
     Layer& p = c.L[l];
@@ -256,6 +302,11 @@ inline void derive(Chain& c) {
     p.ks_b = split_for(c.N, rmin);
     p.tn_f = kTileOut / (p.rt_o * p.ks_f);
     p.tn_b = kTileOut / (rmin * p.ks_b);
+    if (tc) {
+      p.tn_f = p.tn_f > kTcMinTN ? p.tn_f : kTcMinTN;
+      p.tn_b = p.tn_b > kTcMinTN ? p.tn_b : kTcMinTN;
+      p.tn_b = p.tn_b < kTcMaxTNb ? p.tn_b : kTcMaxTNb;
+    }
     p.halo = p.axis == 0 ? 0 : (p.axis == 1 ? 1 : c.W);
     p.step = p.axis == 2 ? c.W : 1;
     const int K = p.taps * p.cin;
@@ -276,6 +327,93 @@ inline void derive(Chain& c) {
   }
   c.stat_floats = stat;
 }
+
+// The bf16 chain's tensor-core layout (the bf16 instances of K6 and K7;
+// note 9). Sizes in bf16 elements: a layer's tile of tn columns stages hr
+// columns each side (its halo rounded up to 8, so each staged row starts
+// 16-byte aligned) in raw rows ldr apart, and its product operands in rows
+// ldh apart (a row stride of 16 bytes times an odd number, so ldmatrix's
+// eight rows fall on distinct banks); kf = taps cin and kb = taps cout
+// rounded up to 16 (the mma's k), cf = cout and cb = cin rounded up to 8
+// (its n).
+namespace tc {
+
+struct Geo {
+  int tn, hr, ldr, ldh, kf, kb, cf, cb;
+};
+
+__host__ __device__ inline int r8(int v) { return (v + 7) & ~7; }
+__host__ __device__ inline int r16(int v) { return (v + 15) & ~15; }
+
+__host__ __device__ inline Geo geo(const Layer& p, int tn) {
+  Geo g;
+  g.tn = tn;
+  g.hr = p.taps == 1 ? 0 : r8(p.halo);
+  g.ldr = tn + 2 * g.hr + 8;
+  g.ldh = tn + 8;
+  g.kf = r16(p.taps * p.cin);
+  g.kb = r16(p.taps * p.cout);
+  g.cf = r8(p.cout);
+  g.cb = r8(p.cin);
+  return g;
+}
+
+// Floats of the forward tile's operands: the raw rows (three taps: cin x
+// ldr, then the tap rows kf x ldh; one tap: the raw rows are the operand,
+// kf x ldh). The z tile (cout x tn bf16) follows them.
+__host__ __device__ inline int fwd_ops_floats(const Layer& p, const Geo& g) {
+  return round4(((p.taps == 1 ? 0 : p.cin * g.ldr) + g.kf * g.ldh) / 2);
+}
+
+__host__ __device__ inline int fwd_tile_floats(const Layer& p) {
+  return fwd_ops_floats(p, geo(p, p.tn_f)) + p.cout * p.tn_f / 2;
+}
+
+// Floats of the backward's pass-B tile: z (then g_z; one tap: kb rows,
+// g_h's operand), g, the raw input (one tap: kf x ldh, the dW operand),
+// and for three taps the tap rows of g_z (kb x ldh) and of the input (kf x
+// ldh).
+__host__ __device__ inline int bwd_tile_floats(const Layer& p) {
+  const Geo g = geo(p, p.tn_b);
+  const int zr = p.taps == 1 ? g.kb : p.cout;
+  const int e = (zr + p.cout) * g.ldr +
+                (p.taps == 1 ? g.kf * g.ldh
+                             : p.cin * g.ldr + (g.kb + g.kf) * g.ldh);
+  return round4(e / 2);
+}
+
+// Floats of the staged weights: the forward's cf x (kf + 8) (rows co, k =
+// t cin + ci), the backward's g_h weights cb x (kb + 8) (rows ci, k = t
+// cout + co).
+__host__ __device__ inline int wf_floats(const Layer& p) {
+  const Geo g = geo(p, 0);
+  return round4(g.cf * (g.kf + 8) / 2);
+}
+
+__host__ __device__ inline int wb_floats(const Layer& p) {
+  const Geo g = geo(p, 0);
+  return round4(g.cb * (g.kb + 8) / 2);
+}
+
+// The weights' and the tile's floats over the chain's layers (backward:
+// both passes and both weight layouts, the forward recompute's among
+// them), at least kTileOut (sum_slots' exchange).
+inline void need(const Chain& c, bool backward, int* w_need, int* tile_need) {
+  *w_need = 0;
+  *tile_need = kTileOut;
+  for (int l = 0; l < c.nl; ++l) {
+    const Layer& p = c.L[l];
+    int w = wf_floats(p), t = fwd_tile_floats(p);
+    if (backward) {
+      w = w > wb_floats(p) ? w : wb_floats(p);
+      t = t > bwd_tile_floats(p) ? t : bwd_tile_floats(p);
+    }
+    *w_need = *w_need > w ? *w_need : w;
+    *tile_need = *tile_need > t ? *tile_need : t;
+  }
+}
+
+}  // namespace tc
 
 // The layout from the statistics to the staged tile (x_need floats for
 // g_h's groups, tile_need for the tile); returns the next free offset.
@@ -300,10 +438,11 @@ inline int layout(Chain& c, int w_need, int x_need, int tile_need) {
   return off + c.tile_floats;
 }
 
-// The backward kernels' plan: the derived fields and the layout. 0, or 1
-// where the chain exceeds what the kernel takes (the caller refuses it).
-inline int plan(Chain& c) {
-  derive(c);
+// The backward kernels' plan: the derived fields and the layout (tc: the
+// bf16 chain's tensor-core tile and weights). 0, or 1 where the chain
+// exceeds what the kernel takes (the caller refuses it).
+inline int plan(Chain& c, bool tc = false) {
+  derive(c, tc);
   int w_need = 0, tile_need = 0, dw_stride = 0, x_need = 0;
   size_t gmax = 0;
   for (int l = 0; l < c.nl; ++l) {
@@ -323,6 +462,10 @@ inline int plan(Chain& c) {
     const int e = round4(p.taps * p.cin * p.cout);
     dw_stride = dw_stride > e ? dw_stride : e;
     if (l > 0 && (size_t)p.cin * c.N > gmax) gmax = (size_t)p.cin * c.N;
+  }
+  if (tc) {
+    tc::need(c, true, &w_need, &tile_need);
+    x_need = 0;
   }
   const int off = layout(c, w_need, x_need, tile_need);
   c.off_zs = off;
@@ -348,10 +491,11 @@ inline size_t scratch_floats(const Chain& c, int grid, int esize) {
 constexpr int kStoreFloats = 32768;
 
 // Floats of the store at a grid of `grid` blocks: the most that one block's
-// tiles of z take (ceil(tiles / grid) tiles of cout x tn_f) over the layers
-// whose z the forward reads again: the last (the normalize-out pass) and
-// each one with a centered variance (its second pass).
-inline int store_floats(const Chain& c, int grid) {
+// tiles of z take (ceil(tiles / grid) tiles of cout x tn_f; tc, the bf16
+// chain: bf16 tiles, half the floats) over the layers whose z the forward
+// reads again: the last (the normalize-out pass) and each one with a
+// centered variance (its second pass).
+inline int store_floats(const Chain& c, int grid, bool tc = false) {
   int need = 0;
   for (int l = 0; l < c.nl; ++l) {
     const Layer& p = c.L[l];
@@ -360,15 +504,16 @@ inline int store_floats(const Chain& c, int grid) {
     const int mine = (tiles + grid - 1) / grid * p.cout * p.tn_f;
     need = need > mine ? need : mine;
   }
-  return round4(need);
+  return round4(tc ? (need + 1) / 2 : need);  // tc: bf16 z tiles
 }
 
 // The forward kernels' plan at a grid of `grid` blocks: the derived fields
 // and the layout (the staged tile with its halo, the layer's weights, the
 // statistics, no g buffers or dW slots), with the store where it fits
-// kStoreFloats at this grid (L[l].keep set for the layers it serves).
-inline void plan_fwd(Chain& c, int grid) {
-  derive(c);
+// kStoreFloats at this grid (L[l].keep set for the layers it serves); tc:
+// the bf16 chain's tensor-core tile and weights.
+inline void plan_fwd(Chain& c, int grid, bool tc = false) {
+  derive(c, tc);
   int w_need = 0, tile_need = kTileOut;  // the z tile with the groups' exchange
   for (int l = 0; l < c.nl; ++l) {
     const Layer& p = c.L[l];
@@ -376,7 +521,8 @@ inline void plan_fwd(Chain& c, int grid) {
     w_need = w_need > wf ? w_need : wf;
     tile_need = tile_need > t_f ? tile_need : t_f;
   }
-  const int store = store_floats(c, grid), keep = store <= kStoreFloats;
+  if (tc) tc::need(c, false, &w_need, &tile_need);
+  const int store = store_floats(c, grid, tc), keep = store <= kStoreFloats;
   for (int l = 0; l < c.nl; ++l)
     c.L[l].keep = keep && (l + 1 == c.nl || !c.L[l].single_pass);
   const int off = layout(c, w_need, 0, tile_need);
@@ -1138,6 +1284,578 @@ static __device__ __noinline__ void dw_any(const Layer& p, const float* gz,
 #undef SQNXT_RT_SWITCH
 #undef SQNXT_KS_SWITCH
 
+// -- the bf16 chain on the tensor cores -------------------------------------
+//
+// K6's and K7's bf16 instances (note 9). Every operand is a bf16 value
+// staged as bf16: raw rows by 16-byte cp.async, then, for a layer with
+// three taps, one row per (tap, channel) holding the row shifted by the
+// tap and masked at the image border (the mask baked in, so the products
+// are plain matrix products over k = t C + c, padded with zero rows to a
+// multiple of 16). Each product runs on mma.sync.m16n8k16 (bf16 operands,
+// fp32 accumulation), its fragments loaded by ldmatrix:
+//   forward  z^T[n][co]  = sum_k Hs[k][n] Wf[co][k]   (A = Hs^T: .trans)
+//   g_h      gh^T[n][ci] = sum_k Gs[k][n] Wb[ci][k]   (the same form)
+//   dW       dW[co][k]   = sum_n Gc[co][n] Hs[k][n]   (k = the tile's n)
+// A warp takes jobs of 16 rows of the output by 8 NF columns; rows of B
+// past the layer's (n-frags of a pair past cf or cb) read the last row and
+// are not stored. The fp32 sums of each output run over k in chunks of 16,
+// the chunks added in order.
+namespace tc {
+
+using u16 = unsigned short;
+
+__device__ __forceinline__ float f(u16 v) {
+  return __uint_as_float((unsigned)v << 16);
+}
+__device__ __forceinline__ u16 h(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// The z tile's column swizzle: element (r, j) of a zt row of tn (>= 32)
+// columns at r tn + zsw(r, j), so the product's epilogue (lanes on 8
+// columns by 4 row pairs) stores to 32 distinct banks; a permutation
+// inside each 32 columns, so a warp's row reads stay conflict-free.
+__host__ __device__ inline int zsw(int r, int j) {
+  return j ^ (((r >> 1) & 3) << 3);
+}
+
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const u16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr(p)));
+}
+
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const u16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr(p)));
+}
+
+// d += a b on a 16 x 8 x 16 tile: a row-major (m, k), b column-major (k, n)
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// dst[r * ld + j] = src[r * N + base + j], raw bf16, for r < rows and j <
+// width, 0 outside [0, N): 16-byte cp.async (8 columns) where N and base
+// are multiples of 8 and src is 16-byte aligned (a chunk then lies wholly
+// inside or outside [0, N); the last may run past width, within ld), else
+// 2-byte loads through L2. One warp a row; the caller waits.
+__device__ __forceinline__ void copy_rows(u16* dst, int ld, const bf16* srcb,
+                                          int rows, int base, int width,
+                                          int N) {
+  const u16* src = reinterpret_cast<const u16*>(srcb);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (((N | base) & 7) == 0 && (reinterpret_cast<size_t>(src) & 15) == 0) {
+    const int w8 = (width + 7) >> 3;
+    for (int r = warp; r < rows; r += kWarps)
+      for (int j8 = lane; j8 < w8; j8 += 32) {
+        const int n = base + 8 * j8;
+        u16* d = dst + r * ld + 8 * j8;
+        if ((unsigned)n < (unsigned)N)
+          cp16(d, src + (size_t)r * N + n);
+        else
+          *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    return;
+  }
+  for (int r = warp; r < rows; r += kWarps)
+    for (int j = lane; j < width; j += 32) {
+      const int n = base + j;
+      dst[r * ld + j] =
+          (unsigned)n < (unsigned)N ? __ldcg(src + (size_t)r * N + n) : (u16)0;
+    }
+}
+
+// rows [r0, r1) of a tile operand (ld apart) zero over its tn columns: the
+// K padding of a product
+__device__ __forceinline__ void zero_rows(u16* a, int ld, int r0, int r1,
+                                          int tn) {
+  const int c8 = tn >> 3;
+  for (int e = threadIdx.x; e < (r1 - r0) * c8; e += kThreads) {
+    const int r = r0 + e / c8, j = 8 * (e % c8);
+    *reinterpret_cast<uint4*>(a + r * ld + j) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The forward's weights: Wf[co][t cin + ci] = W[t, co, ci], cf rows kf + 8
+// apart, zero past cout and past taps cin (4-byte cp.async where cin is
+// even, else 2-byte loads); the caller waits.
+__device__ __forceinline__ void stage_w_fwd(const Layer& p, float* wbase) {
+  u16* wf = reinterpret_cast<u16*>(wbase);
+  const Geo g = geo(p, 0);
+  const int ld = g.kf + 8, K = p.taps * p.cin, cin = p.cin;
+  const u16* w = static_cast<const u16*>(p.w);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool pairs = (cin & 1) == 0 && (reinterpret_cast<size_t>(w) & 3) == 0;
+  for (int row = warp; row < p.taps * p.cout; row += kWarps) {
+    const int t = row / p.cout, co = row - t * p.cout;
+    u16* d = wf + co * ld + t * cin;
+    const u16* sr = w + (size_t)row * cin;
+    if (pairs) {
+      for (int ci = 2 * lane; ci < cin; ci += 64) {
+        const unsigned a = saddr(d + ci);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+                     "l"(sr + ci)
+                     : "memory");
+      }
+    } else {
+      for (int ci = lane; ci < cin; ci += 32) d[ci] = __ldg(sr + ci);
+    }
+  }
+  for (int e = threadIdx.x; e < g.cf * g.kf; e += kThreads) {
+    const int co = e / g.kf, k = e - co * g.kf;
+    if (co >= p.cout || k >= K) wf[co * ld + k] = 0;
+  }
+}
+
+// g_h's weights: Wb[ci][t cout + co] = W[t, co, ci], cb rows kb + 8 apart,
+// zero past cin and past taps cout (2-byte loads: the layout turns).
+__device__ __forceinline__ void stage_w_bwd(const Layer& p, float* wbase) {
+  u16* wb = reinterpret_cast<u16*>(wbase);
+  const Geo g = geo(p, 0);
+  const int ld = g.kb + 8, K = p.taps * p.cout, cin = p.cin;
+  const u16* w = static_cast<const u16*>(p.w);
+  for (int e = threadIdx.x; e < g.cb * g.kb; e += kThreads) {
+    const int k = e / g.cb, ci = e - k * g.cb;  // neighbouring threads on ci
+    wb[ci * ld + k] = ci < cin && k < K ? __ldg(w + (size_t)k * cin + ci) : 0;
+  }
+}
+
+// Columns j .. j + 7 of a staged row shifted by sft (row[j + sft + i]),
+// element i zeroed where msk[j + i] lacks `bit` (0: none zeroed): one
+// 16-byte load where sft is a multiple of 8, two and funnel shifts where
+// it is +-1. j is a multiple of 8.
+__device__ __forceinline__ uint4 shifted8(const u16* row, int j, int sft,
+                                          const unsigned char* msk,
+                                          unsigned bit) {
+  uint4 v;
+  if ((sft & 7) == 0) {
+    v = *reinterpret_cast<const uint4*>(row + j + sft);
+  } else {
+    const uint4 a = *reinterpret_cast<const uint4*>(row + j);
+    if (sft == 1) {
+      const unsigned b = *reinterpret_cast<const unsigned*>(row + j + 8);
+      v = make_uint4(__funnelshift_r(a.x, a.y, 16),
+                     __funnelshift_r(a.y, a.z, 16),
+                     __funnelshift_r(a.z, a.w, 16),
+                     __funnelshift_r(a.w, b, 16));
+    } else {  // sft == -1
+      const unsigned b = *reinterpret_cast<const unsigned*>(row + j - 2);
+      v = make_uint4(__funnelshift_r(b, a.x, 16), __funnelshift_r(a.x, a.y, 16),
+                     __funnelshift_r(a.y, a.z, 16),
+                     __funnelshift_r(a.z, a.w, 16));
+    }
+  }
+  if (bit) {
+    const uint2 mm = *reinterpret_cast<const uint2*>(msk + j);
+    unsigned* w = reinterpret_cast<unsigned*>(&v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned mb = (q < 2 ? mm.x : mm.y) >> (16 * (q & 1));
+      w[q] &= ((mb & bit) ? 0xffffu : 0u) |
+              (((mb >> 8) & bit) ? 0xffff0000u : 0u);
+    }
+  }
+  return v;
+}
+
+// Tap rows over a tile's tn columns: dst[t rows + r][j] = src[r][j + sft_t]
+// masked (sft_t = dir (t - 1) step; bits[t] the mask bit, 0 for none), for
+// r < rows and t < 3, src rows lds apart from column 0 = the tile's first.
+// 8 columns a thread (shifted8) where every shift allows, else 2.
+__device__ __forceinline__ void tap_rows(const u16* src, int lds, int rows,
+                                         int step, int dir,
+                                         const unsigned (&bits)[3], u16* dst,
+                                         int ldd, int tn,
+                                         const unsigned char* msk) {
+  if ((step & 7) == 0 || step == 1) {
+    const int c8 = tn >> 3;
+    for (int e = threadIdx.x; e < 3 * rows * c8; e += kThreads) {
+      const int row = e / c8, j = 8 * (e - row * c8);
+      const int t = (row >= rows) + (row >= 2 * rows), r = row - t * rows;
+      *reinterpret_cast<uint4*>(dst + row * ldd + j) =
+          shifted8(src + r * lds, j, dir * (t - 1) * step, msk, bits[t]);
+    }
+    return;
+  }
+  const int w2 = tn >> 1;
+  for (int e = threadIdx.x; e < 3 * rows * w2; e += kThreads) {
+    const int row = e / w2, j = 2 * (e - row * w2);
+    const int t = (row >= rows) + (row >= 2 * rows), r = row - t * rows;
+    const u16* sr = src + r * lds + dir * (t - 1) * step;
+    unsigned o = 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (!bits[t] || (msk[j + i] & bits[t]))
+        o |= (unsigned)sr[j + i] << (16 * i);
+    *reinterpret_cast<unsigned*>(dst + row * ldd + j) = o;
+  }
+}
+
+// Rows [0, rows) of a staged input, columns [0, width) at n = base + j,
+// turned in place into rnd(ReLU(z sc + sh)) of the previous layer's norm
+// (statistics at st; 0 stays outside [0, N)), 8 columns a thread.
+__device__ __forceinline__ void turn_rows(const Smem& s, int st, u16* R,
+                                          int ld, int rows, int width,
+                                          int base, int N) {
+  const int c8 = width >> 3;
+  for (int e = threadIdx.x; e < rows * c8; e += kThreads) {
+    const int ci = e / c8, j = 8 * (e - ci * c8);
+    uint4* q = reinterpret_cast<uint4*>(R + ci * ld + j);
+    uint4 v = *q;
+    u16* u = reinterpret_cast<u16*>(&v);
+    const float sc = s.sc[st + ci], sh = s.sh[st + ci];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if ((unsigned)(base + j + i) < (unsigned)N)
+        u[i] = h(fmaxf(fmaf(f(u[i]), sc, sh), 0.0f));
+    *q = v;
+  }
+}
+
+// Layer l's input as the product operand over the tile's columns n0 .. n0 +
+// tn - 1: Hs[t cin + ci][j] = ok_t(n0 + j) h[ci][n0 + j + s_t], h = x (l =
+// 0) or the previous layer's rnd(ReLU(z sc + sh)) (the fp32 path's
+// stage_input form; 0 outside [0, N)), from the raw rows R (column hr at
+// n0), turned in place first; rows taps cin .. kf - 1 zero. One tap: R is
+// Hs. Ends without a barrier.
+__device__ __forceinline__ void build_input(const Smem& s, int l,
+                                            const Layer& p, const Geo& g,
+                                            u16* R, u16* Hs,
+                                            const unsigned char* msk, int n0) {
+  const Chain& c = *s.c;
+  if (l > 0)
+    turn_rows(s, c.L[l - 1].stat, R, g.ldr, p.cin, g.tn + 2 * g.hr,
+              n0 - g.hr, c.N);
+  if (p.taps == 3) {
+    if (l > 0) __syncthreads();
+    const unsigned bits[3] = {1u, 0u, 2u};
+    tap_rows(R + g.hr, g.ldr, p.cin, p.step, 1, bits, Hs, g.ldh, g.tn, msk);
+  }
+  zero_rows(Hs, g.ldh, p.taps * p.cin, g.kf, g.tn);
+}
+
+// out^T[m][n] = sum_k A[k][m] B[n][k] over a tile's tn columns m: A the
+// tap rows (kdim of them, lda apart), B the staged weights (nrows rows, ldb
+// apart). Warp jobs of 16 columns m by 8 NF rows n (NF even); epi(m, n, v)
+// for each of the job's sums, n possibly past nrows.
+template <int NF, typename Epi>
+__device__ __forceinline__ void product_t(const u16* A, int lda, const u16* B,
+                                          int ldb, int nrows, int kdim,
+                                          int tn, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int li = lane >> 3, lr = lane & 7, gq = lane >> 2, tq = lane & 3;
+  const int nm = tn >> 4, nn = (nrows + 8 * NF - 1) / (8 * NF);
+  for (int job = warp; job < nm * nn; job += kWarps) {
+    const int nb = job / nm, m0 = 16 * (job - nb * nm), c0 = 8 * NF * nb;
+    float acc[NF][4];
+#pragma unroll
+    for (int q = 0; q < NF; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+    const u16* pa = A + (lr + 8 * (li >> 1)) * lda + m0 + 8 * (li & 1);
+    const u16* pb[NF / 2];
+#pragma unroll
+    for (int q = 0; q < NF / 2; ++q)
+      pb[q] = B + min(c0 + 16 * q + lr + 8 * (li >> 1), nrows - 1) * ldb +
+              8 * (li & 1);
+#pragma unroll 2
+    for (int k0 = 0; k0 < kdim; k0 += 16) {
+      unsigned a[4];
+      ldsm4t(a, pa + k0 * lda);
+#pragma unroll
+      for (int q = 0; q < NF / 2; ++q) {
+        unsigned b[4];
+        ldsm4(b, pb[q] + k0);
+        mma(acc[2 * q], a, b[0], b[1]);
+        mma(acc[2 * q + 1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NF; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        epi(m0 + gq + 8 * (e >> 1), c0 + 8 * q + 2 * tq + (e & 1), acc[q][e]);
+  }
+}
+
+// One forward tile of layer l: the input staged raw and turned into the
+// operand, the product, z = bf16(bf16(acc) + b) into the bf16 z tile zt
+// (swizzled, zsw; row_sums writes the anchor from it).
+__device__ __forceinline__ void fwd_tile(const Smem& s, int l, const bf16* x,
+                                         int n0, u16* zt, bool first) {
+  const Chain& c = *s.c;
+  const Layer& p = c.L[l];
+  const Geo g = geo(p, p.tn_f);
+  const int cout = p.cout, tn = g.tn;
+  u16* R = reinterpret_cast<u16*>(s.tile);
+  u16* Hs = p.taps == 1 ? R : R + p.cin * g.ldr;
+  copy_rows(R, g.ldr, l == 0 ? x : static_cast<const bf16*>(c.L[l - 1].z),
+            p.cin, n0 - g.hr, tn + 2 * g.hr, c.N);
+  stage_masks(c, p, n0, tn, s.msk);
+  cp_async_wait_all();
+  __syncthreads();
+  build_input(s, l, p, g, R, Hs, s.msk, n0);
+  __syncthreads();
+  if (first) SQNXT_MARK(kMarkSub + 3 * l);
+  const bf16* bias = static_cast<const bf16*>(p.b);
+  auto epi = [&](int m, int co, float v) {
+    if (co < cout)
+      zt[co * tn + zsw(co, m)] = h(rnd<bf16>(v) + ld_in(bias + co));
+  };
+  const u16* wf = reinterpret_cast<const u16*>(s.w);
+  if (g.cf <= 16)
+    product_t<2>(Hs, g.ldh, wf, g.kf + 8, g.cf, g.kf, tn, epi);
+  else
+    product_t<4>(Hs, g.ldh, wf, g.kf + 8, g.cf, g.kf, tn, epi);
+  __syncthreads();
+}
+
+// Layer p's row sums of z and z^2 over the tile's cols columns from its z
+// tile zt (bf16, swizzled) into acc[0][r] and acc[1][r], in the FFMA
+// path's order, and from the same reads its anchor, where it has one
+// (lanes on neighbouring columns, as the fragments' 8 columns by 4 rows
+// are not).
+__device__ __forceinline__ void row_sums(const Smem& s, const Layer& p,
+                                         const u16* zt, int n0, int cols) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tn = p.tn_f, N = s.c->N;
+  u16* zo = static_cast<u16*>(p.z);
+  for (int r = warp; r < p.cout; r += kWarps) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int j = lane; j < cols; j += 32) {
+      const u16 v = zt[r * tn + zsw(r, j)];
+      const float z = f(v);
+      s1 += z;
+      s2 += z * z;
+      if (zo) zo[(size_t)r * N + n0 + j] = v;
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      s.acc[r] += s1;
+      s.acc[kMaxC + r] += s2;
+    }
+  }
+}
+
+// g_z of layer l in place over Z's columns 0 .. tn + 2 hr - 1 (n = n0 - hr
+// + j; 0 outside [0, N)), from z (Z) and the cotangent g (G), rounded to
+// bf16 (the fp32 path's stage_gz, 8 columns at a time); one tap: Z's rows
+// cout .. kb - 1, g_h's K padding, zeroed. No barrier.
+__device__ __forceinline__ void gz_in_place(const Smem& s, const Layer& p,
+                                            const Geo& g, u16* Z, const u16* G,
+                                            int n0) {
+  const Chain& c = *s.c;
+  const int N = c.N, R = p.cout, k = p.stat, base = n0 - g.hr;
+  const int w8 = (g.tn + 2 * g.hr) >> 3;
+  for (int e = threadIdx.x; e < R * w8; e += kThreads) {
+    const int r = e / w8, j = 8 * (e - r * w8);
+    const float isr = s.sr[k + r], gam = s.gam[k + r], m = s.mean[k + r];
+    const float sc = s.sc[k + r], sh = s.sh[k + r];
+    const float c1 = s.red[2 * kMaxC + r] * c.inv_n;
+    const float c2 = s.red[3 * kMaxC + r] * c.inv_n;
+    uint4* q = reinterpret_cast<uint4*>(Z + r * g.ldr + j);
+    uint4 zv = *q;
+    const uint4 gv = *reinterpret_cast<const uint4*>(G + r * g.ldr + j);
+    u16* zu = reinterpret_cast<u16*>(&zv);
+    const u16* gu = reinterpret_cast<const u16*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v = 0.0f;
+      if ((unsigned)(base + j + i) < (unsigned)N) {
+        const float z = f(zu[i]);
+        const float zh = (z - m) * isr;
+        const float ga = fmaf(z, sc, sh) > 0.0f ? f(gu[i]) : 0.0f;
+        v = (ga * gam - c1 - zh * c2) * isr;
+      }
+      zu[i] = h(v);
+    }
+    *q = zv;
+  }
+  if (p.taps == 1) zero_rows(Z, g.ldr, R, g.kb, g.tn);
+}
+
+// g_h's operand for three taps: Gs[t cout + co][j] = Z[co][hr + j - s_t]
+// where the source column exists (t = 0: the column has a neighbour at +1,
+// t = 2: at -1), else 0; rows 3 cout .. kb - 1 zero. No barrier.
+__device__ __forceinline__ void gz_taps(const Layer& p, const Geo& g,
+                                        const u16* Z, u16* Gs,
+                                        const unsigned char* msk) {
+  const unsigned bits[3] = {2u, 0u, 1u};
+  tap_rows(Z + g.hr, g.ldr, p.cout, p.step, -1, bits, Gs, g.ldh, g.tn, msk);
+  zero_rows(Gs, g.ldh, 3 * p.cout, g.kb, g.tn);
+}
+
+// dW of one tile, added to this block's slot (first tile: stored):
+// dW[co][k] = sum_n Gc[co][n] Hs[k][n] over the tile's tn columns, k = t
+// cin + ci < taps cin. Warp jobs of 16 rows co by 16 k, n in steps of 16.
+__device__ __forceinline__ void dw_product(const Layer& p, const Geo& g,
+                                           const u16* Gc, const u16* Hs,
+                                           float* slot, bool first) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int li = lane >> 3, lr = lane & 7, gq = lane >> 2, tq = lane & 3;
+  const int cout = p.cout, cin = p.cin, K = p.taps * cin;
+  const int nc = (cout + 15) >> 4, nk = g.kf >> 4;
+  for (int job = warp; job < nc * nk; job += kWarps) {
+    const int kb = job / nc, co0 = 16 * (job - kb * nc), k0 = 16 * kb;
+    float acc[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+    const u16* pa = Gc + min(co0 + lr + 8 * (li & 1), cout - 1) * g.ldh +
+                    8 * (li >> 1);
+    const u16* pb = Hs + (k0 + lr + 8 * (li >> 1)) * g.ldh + 8 * (li & 1);
+#pragma unroll 2
+    for (int n0 = 0; n0 < g.tn; n0 += 16) {
+      unsigned a[4], b[4];
+      ldsm4(a, pa + n0);
+      ldsm4(b, pb + n0);
+      mma(acc[0], a, b[0], b[1]);
+      mma(acc[1], a, b[2], b[3]);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int co = co0 + gq + 8 * (e >> 1);
+        const int k = k0 + 8 * q + 2 * tq + (e & 1);
+        if (co >= cout || k >= K) continue;
+        const int t = (k >= cin) + (k >= 2 * cin);
+        float* d = slot + ((size_t)t * cout + co) * cin + (k - t * cin);
+        *d = first ? acc[q][e] : *d + acc[q][e];
+      }
+  }
+}
+
+// Pass A's staging: z and g, wa columns a row from a0, raw into the tile
+// region (zs at 0, gs after it), waited on; returns gs.
+__device__ __forceinline__ const u16* stage_pass_a(u16* zs, int wa,
+                                                   const bf16* z,
+                                                   const bf16* gin, int R,
+                                                   int a0, int cols, int N) {
+  u16* gs = zs + R * wa;
+  copy_rows(zs, wa, z, R, a0, cols, N);
+  copy_rows(gs, wa, gin, R, a0, cols, N);
+  cp_async_wait_all();
+  __syncthreads();
+  return gs;
+}
+
+// One pass-B tile of layer l: z, g and the input staged raw; the input
+// turned into the dW operand, g_z in place (then d_b's row sums over the
+// tile's own columns into acc[0][co]) and, for three taps, into g_h's tap
+// rows; g_h (to gout) and dW (into the block's slot).
+__device__ __forceinline__ void bwd_tile(const Smem& s, int l, const bf16* x,
+                                         const bf16* gin, bf16* gout, int n0,
+                                         float* slot, bool first) {
+  const Chain& c = *s.c;
+  const Layer& p = c.L[l];
+  const Geo g = geo(p, p.tn_b);
+  const int N = c.N, cout = p.cout, cin = p.cin, tn = g.tn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool one = p.taps == 1;
+  u16* Z = reinterpret_cast<u16*>(s.tile);  // z, then g_z (one tap: kb rows)
+  u16* G = Z + (one ? g.kb : cout) * g.ldr;
+  u16* H = G + cout * g.ldr;  // the raw input (one tap: the dW operand)
+  u16* Gs = one ? Z : H + cin * g.ldr;
+  u16* Hs = one ? H : Gs + g.kb * g.ldh;
+  const int base = n0 - g.hr, width = tn + 2 * g.hr;
+  copy_rows(Z, g.ldr, static_cast<const bf16*>(p.z), cout, base, width, N);
+  copy_rows(G, g.ldr, gin, cout, base, width, N);
+  copy_rows(H, g.ldr, l == 0 ? x : static_cast<const bf16*>(c.L[l - 1].z),
+            cin, base, width, N);
+  stage_masks(c, p, n0, tn, s.msk);
+  cp_async_wait_all();
+  __syncthreads();
+  build_input(s, l, p, g, H, Hs, s.msk, n0);
+  gz_in_place(s, p, g, Z, G, n0);
+  __syncthreads();
+  const int cols = min(tn, N - n0);
+  for (int co = warp; co < cout; co += kWarps) {
+    float db = 0.0f;
+    for (int j = lane; j < cols; j += 32) db += f(Z[co * g.ldr + g.hr + j]);
+    db = warp_sum(db);
+    if (lane == 0) s.acc[co] += db;
+  }
+  if (!one) gz_taps(p, g, Z, Gs, s.msk);
+  __syncthreads();
+  if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l);
+  auto epi = [&](int m, int ci, float v) {
+    if (ci < cin && n0 + m < N) gout[(size_t)ci * N + n0 + m] = from_f<bf16>(v);
+  };
+  const u16* wb = reinterpret_cast<const u16*>(s.w);
+  if (g.cb <= 16)
+    product_t<2>(Gs, g.ldh, wb, g.kb + 8, g.cb, g.kb, tn, epi);
+  else
+    product_t<4>(Gs, g.ldh, wb, g.kb + 8, g.cb, g.kb, tn, epi);
+  if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 1);
+  dw_product(p, g, one ? Z : Gs + cout * g.ldh, Hs, slot, first);
+  __syncthreads();
+  if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 2);
+}
+
+// The forward kernel's output from the last layer's z (the block's store,
+// bf16 and swizzled, or its anchor): out = bf16(ReLU(z sc + sh)).
+__device__ __forceinline__ void normalize_out(const Smem& s, bf16* out) {
+  const Chain& c = *s.c;
+  const Layer& p = c.L[c.nl - 1];
+  const int N = c.N, R = p.cout, tn = p.tn_f, st = p.stat;
+  const int ntiles = (N + tn - 1) / tn;
+  const int lg = __ffs(tn) - 1;  // tn is a power of two
+  const bool keep = p.keep;
+  const u16* z = static_cast<const u16*>(p.z);
+  u16* o = reinterpret_cast<u16*>(out);
+  const bool vec = keep && (N & 7) == 0;  // whole 16-byte chunks
+  for (int tile = blockIdx.x, k = 0; tile < ntiles; tile += gridDim.x, ++k) {
+    const int n0 = tile * tn, cols = min(tn, N - n0);
+    const u16* zt = reinterpret_cast<const u16*>(s.zs) + k * R * tn;
+    if (vec) {  // 8 columns a thread: zsw keeps each aligned 8 together
+      for (int e = 8 * threadIdx.x; e < R * tn; e += 8 * kThreads) {
+        const int r = e >> lg, j = e & (tn - 1);
+        if (j >= cols) continue;
+        uint4 v = *reinterpret_cast<const uint4*>(zt + r * tn + zsw(r, j));
+        u16* u = reinterpret_cast<u16*>(&v);
+        const float sc = s.sc[st + r], sh = s.sh[st + r];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          u[i] = h(fmaxf(fmaf(f(u[i]), sc, sh), 0.0f));
+        *reinterpret_cast<uint4*>(o + (size_t)r * N + n0 + j) = v;
+      }
+      continue;
+    }
+    for (int e = threadIdx.x; e < R * tn; e += kThreads) {
+      const int r = e >> lg, j = e & (tn - 1);
+      if (j >= cols) continue;
+      const size_t off = (size_t)r * N + n0 + j;
+      const float v = f(keep ? zt[r * tn + zsw(r, j)] : __ldcg(z + off));
+      o[off] = h(fmaxf(fmaf(v, s.sc[st + r], s.sh[st + r]), 0.0f));
+    }
+  }
+}
+
+}  // namespace tc
+
 __device__ __forceinline__ float* slot_of(float* part, size_t slot_size,
                                           int& slot) {
   return part + (size_t)(slot++ & 1) * slot_size;
@@ -1149,15 +1867,19 @@ __device__ __forceinline__ float* slot_of(float* part, size_t slot_size,
 // one and, for a layer with keep, this block's tiles of it in the store
 // (tile k of the block at zs + k cout tn_f). kBackward (K7, K9): the
 // backward's first weights are copied in after the last layer, and the
-// tiles' products are called out of line (fwd_tile_at).
-template <typename T, bool kBackward>
+// tiles' products are called out of line (fwd_tile_at). kTC: the bf16
+// chain's tiles on the tensor cores (tc::fwd_tile; its z tiles swizzled).
+template <typename T, bool kBackward, bool kTC = false>
 __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
                                                float* part, size_t slot_size,
                                                int& slot,
                                                cg::grid_group& grid) {
   const Chain& c = *s.c;
   const int N = c.N, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  stage_w_fwd<T>(c.L[0], s.w);
+  if constexpr (kTC)
+    tc::stage_w_fwd(c.L[0], s.w);
+  else
+    stage_w_fwd<T>(c.L[0], s.w);
 #pragma unroll 1
   for (int l = 0; l < c.nl; ++l) {
     const Layer& p = c.L[l];
@@ -1170,27 +1892,37 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
          tile += gridDim.x, ++k) {
       const int n0 = tile * tn, cols = min(tn, N - n0);
       const bool first = k == 0;
-      float* zt = p.keep ? s.zs + k * p.cout * tn : s.tile;
-      stage_input(s, l, x, n0, p.halo, ld, ld, s.tile);
-      stage_masks(c, p, n0, tn, s.msk);
-      __syncthreads();
-      if (first) SQNXT_MARK(kMarkSub + 3 * l);
-      fwd_tile_at<T, !kBackward>(c, p, s.w, s.tile, ld, s.msk, n0, zt,
-                                 s.tile);
-      __syncthreads();
-      if (first) SQNXT_MARK(kMarkSub + 3 * l + 1);
-      for (int r = warp; r < p.cout; r += kWarps) {
-        float s1 = 0.0f, s2 = 0.0f;
-        for (int j = lane; j < cols; j += 32) {
-          const float z = zt[r * tn + j];
-          s1 += z;
-          s2 += z * z;
-        }
-        s1 = warp_sum(s1);
-        s2 = warp_sum(s2);
-        if (lane == 0) {
-          s.acc[r] += s1;
-          s.acc[kMaxC + r] += s2;
+      if constexpr (kTC) {  // z in bf16: the store's tile k, or after the
+                            // tile's operands
+        tc::u16* zt = reinterpret_cast<tc::u16*>(
+            p.keep ? s.zs : s.tile + tc::fwd_ops_floats(p, tc::geo(p, tn)));
+        if (p.keep) zt += k * p.cout * tn;
+        tc::fwd_tile(s, l, x, n0, zt, first);
+        if (first) SQNXT_MARK(kMarkSub + 3 * l + 1);
+        tc::row_sums(s, p, zt, n0, cols);
+      } else {
+        float* zt = p.keep ? s.zs + k * p.cout * tn : s.tile;
+        stage_input(s, l, x, n0, p.halo, ld, ld, s.tile);
+        stage_masks(c, p, n0, tn, s.msk);
+        __syncthreads();
+        if (first) SQNXT_MARK(kMarkSub + 3 * l);
+        fwd_tile_at<T, !kBackward>(c, p, s.w, s.tile, ld, s.msk, n0, zt,
+                                   s.tile);
+        __syncthreads();
+        if (first) SQNXT_MARK(kMarkSub + 3 * l + 1);
+        for (int r = warp; r < p.cout; r += kWarps) {
+          float s1 = 0.0f, s2 = 0.0f;
+          for (int j = lane; j < cols; j += 32) {
+            const float z = zt[r * tn + j];
+            s1 += z;
+            s2 += z * z;
+          }
+          s1 = warp_sum(s1);
+          s2 = warp_sum(s2);
+          if (lane == 0) {
+            s.acc[r] += s1;
+            s.acc[kMaxC + r] += s2;
+          }
         }
       }
       __syncthreads();
@@ -1199,10 +1931,16 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
     SQNXT_MARK(4 * l + 1);
     // the next weights (K7's and K9's: the backward's first after the last
     // layer) land while the grid meets
-    if (l + 1 < c.nl)
+    if constexpr (kTC) {
+      if (l + 1 < c.nl)
+        tc::stage_w_fwd(c.L[l + 1], s.w);
+      else if (kBackward)
+        tc::stage_w_bwd(p, s.w);
+    } else if (l + 1 < c.nl) {
       stage_w_fwd<T>(c.L[l + 1], s.w);
-    else if (kBackward)
+    } else if (kBackward) {
       stage_w_bwd<T>(p, s.w);
+    }
     float* sl = slot_of(part, slot_size, slot);
     if (blockIdx.x < ntiles) write_slot(s, 2, p.cout, sl);
     grid.sync();
@@ -1230,11 +1968,17 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
           __syncthreads();
           zt = s.tile;
         }
+        // kTC: the store's tiles are bf16, swizzled
+        const bool bf = kTC && p.keep;
+        const tc::u16* z16 =
+            reinterpret_cast<const tc::u16*>(s.zs) + k * p.cout * tn;
         for (int r = warp; r < p.cout; r += kWarps) {
           const float m = s.mean[p.stat + r];
           float v = 0.0f;
           for (int j = lane; j < cols; j += 32) {
-            const float d = zt[r * tn + j] - m;
+            const float d =
+                (bf ? tc::f(z16[r * tn + tc::zsw(r, j)]) : zt[r * tn + j]) -
+                m;
             v += d * d;
           }
           v = warp_sum(v);
@@ -1378,8 +2122,10 @@ __device__ __forceinline__ void stage_gz(const Smem& s, int l,
 }
 
 // Stage-exact backprop of layer l: gin the cotangent of its output, gout
-// of its input (complete at this function's grid.sync).
-template <typename T>
+// of its input (complete at this function's grid.sync). kTC: the bf16
+// chain's pass A staged raw by cp.async and pass B on the tensor cores
+// (tc::bwd_tile).
+template <typename T, bool kTC = false>
 __device__ __forceinline__ void backward_layer(const Smem& s, int l,
                                                const T* x,
                                                const T* gin, T* gout,
@@ -1397,24 +2143,34 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
 
   // pass A: the four row sums of the norm's backward, over z and g staged
   // in shared memory (wa columns at a time: both fit the tile region)
-  const int wa = min(tn, (c.tile_floats / (2 * R)) & ~3);
+  // (kTC: bf16 rows, so twice the columns fit, a multiple of 8)
+  const int wa = kTC ? min(tn, (c.tile_floats / R) & ~7)
+                     : min(tn, (c.tile_floats / (2 * R)) & ~3);
   float* zs = s.tile;
   float* gs = s.tile + R * wa;
+  tc::u16* zh16 = reinterpret_cast<tc::u16*>(s.tile);
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     for (int a0 = tile * tn; a0 < min(tile * tn + tn, N); a0 += wa) {
       const int cols = min(min(wa, tile * tn + tn - a0), N - a0);
-      copy_rows(zs, wa, z, R, a0, cols, N);
-      copy_rows(gs, wa, gin, R, a0, cols, N);
-      cp_async_wait_all();
-      __syncthreads();
+      const tc::u16* gh16 = nullptr;
+      if constexpr (kTC) {
+        gh16 = tc::stage_pass_a(zh16, wa, z, gin, R, a0, cols, N);
+      } else {
+        copy_rows(zs, wa, z, R, a0, cols, N);
+        copy_rows(gs, wa, gin, R, a0, cols, N);
+        cp_async_wait_all();
+        __syncthreads();
+      }
       for (int co = warp; co < R; co += kWarps) {
         const int k = p.stat + co;
         const float m = s.mean[k], isr = s.sr[k], gam = s.gam[k],
                     sc = s.sc[k], sh = s.sh[k];
         float a0s = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
         for (int j = lane; j < cols; j += 32) {
-          const float z = zs[co * wa + j], zh = (z - m) * isr;
-          const float ga = fmaf(z, sc, sh) > 0.0f ? gs[co * wa + j] : 0.0f;
+          const float z = kTC ? tc::f(zh16[co * wa + j]) : zs[co * wa + j];
+          const float zh = (z - m) * isr;
+          const float gv = kTC ? tc::f(gh16[co * wa + j]) : gs[co * wa + j];
+          const float ga = fmaf(z, sc, sh) > 0.0f ? gv : 0.0f;
           const float gzh = ga * gam;
           a0s += ga * zh;
           a1 += ga;
@@ -1456,21 +2212,30 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
   float* mine = dwpart + (size_t)blockIdx.x * c.dw_stride;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int n0 = tile * tn;
-    copy_rows(gz, ld, z, R, n0 - p.halo, width, N);  // waited below
-    stage_input<T>(s, l, x, n0, p.halo, width, ld, h);
-    stage_gz<T>(s, l, gin, n0, tn, ld, gz);
-    stage_masks(c, p, n0, tn, s.msk);
-    __syncthreads();
     const bool first = tile == (int)blockIdx.x;
-    if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l);
-    gh_any<T>(c, p, s.w, gz, ld, s.msk, n0, tn, gout, s.x);
-    if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 1);
-    dw_any(p, gz, h, ld, s.msk, tn, s.tile, mine, first);
-    __syncthreads();
-    if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 2);
+    if constexpr (kTC) {
+      tc::bwd_tile(s, l, x, gin, gout, n0, mine, first);
+    } else {
+      copy_rows(gz, ld, z, R, n0 - p.halo, width, N);  // waited below
+      stage_input<T>(s, l, x, n0, p.halo, width, ld, h);
+      stage_gz<T>(s, l, gin, n0, tn, ld, gz);
+      stage_masks(c, p, n0, tn, s.msk);
+      __syncthreads();
+      if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l);
+      gh_any<T>(c, p, s.w, gz, ld, s.msk, n0, tn, gout, s.x);
+      if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 1);
+      dw_any(p, gz, h, ld, s.msk, tn, s.tile, mine, first);
+      __syncthreads();
+      if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 2);
+    }
   }
   SQNXT_MARK(kMarkBwd + 6 * l + 3);
-  if (l > 0) stage_w_bwd<T>(c.L[l - 1], s.w);  // lands while the grid meets
+  if (l > 0) {  // lands while the grid meets
+    if constexpr (kTC)
+      tc::stage_w_bwd(c.L[l - 1], s.w);
+    else
+      stage_w_bwd<T>(c.L[l - 1], s.w);
+  }
   float* sl2 = slot_of(part, slot_size, slot);
   if (blockIdx.x < ntiles) write_slot(s, 1, R, sl2);
   grid.sync();

@@ -80,6 +80,7 @@ _SIGNATURES = {
     "pnode_sqnxt_fwd_layer": (_I, [_P, _P, _I, _PI, _PP, _I, _I, _I, _P, _L,
                                    _I, _P]),
     "pnode_sqnxt_bwd_plan": (_I, [_I, _PI, _I, _I, _I, _PI, _PL]),
+    "pnode_sqnxt_layout": (_I, [_I, _PI, _I, _I, _I, _I, _I, _PL]),
     "pnode_sqnxt_bwd": (_I, [_P, _P, _P, _I, _PI, _PP, _I, _I, _I, _P, _L, _I,
                              _P]),
     "pnode_sqnxt_bwd_layer": (_I, [_P, _P, _P, _I, _PI, _PP, _I, _I, _I, _P,

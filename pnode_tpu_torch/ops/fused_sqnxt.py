@@ -64,6 +64,8 @@ TILE_OUT = 4096                 # outputs of one product tile
 MIN_TILES = 256                 # a pass's tiles, halved (split) below it
 MAX_DW_TILES = 3                # dW register tiles a thread may hold
 STORE_FLOATS = 32768            # K6/K8's store of z tiles in shared memory
+TC_MIN_COLUMNS = 32             # kTcMinTN: the tensor-core path's least tile
+TC_MAX_BWD_COLUMNS = 256        # kTcMaxTNb: its largest backward tile
 CHAIN_WORKSPACE_BYTES = 32 << 20
 # the products' rounding and the statistics' dtype of the plain versions: the
 # Pallas kernels' fp32 (a test of true fp64 sets it to float64)
@@ -381,15 +383,127 @@ def _chain_layers(meta: SqnxtMeta, lis: Sequence[int], grid: int):
     return lis
 
 
-def fwd_tile_columns(meta: SqnxtMeta, li: int) -> int:
-    """Columns of one forward tile of layer li (csrc/sqnxt_tiles.cuh's
-    tn_f): 4096 / RT, RT the layer's rows rounded up to 8-128, halved (its
-    reduction split over thread groups) at most twice while N would give
-    fewer than MIN_TILES tiles."""
-    rt, ks = _row_tile(meta.cdims[li + 1]), 1
+def _tile_columns(meta: SqnxtMeta, rt: int) -> int:
+    """4096 / rt columns, halved (the reduction split over thread groups)
+    at most twice while N would give fewer than MIN_TILES tiles."""
+    ks = 1
     while ks < 4 and -(-meta.n_real // (TILE_OUT // (rt * ks))) < MIN_TILES:
         ks *= 2
     return TILE_OUT // (rt * ks)
+
+
+def fwd_tile_columns(meta: SqnxtMeta, li: int, tc: bool = False) -> int:
+    """Columns of one forward tile of layer li (csrc/sqnxt_tiles.cuh's
+    tn_f): ``_tile_columns`` at RT, the layer's rows rounded up to 8-128;
+    ``tc`` (the bf16 chain on the tensor cores): at least
+    TC_MIN_COLUMNS."""
+    tn = _tile_columns(meta, _row_tile(meta.cdims[li + 1]))
+    return max(tn, TC_MIN_COLUMNS) if tc else tn
+
+
+def bwd_tile_columns(meta: SqnxtMeta, li: int, tc: bool = False) -> int:
+    """Columns of one backward (pass A and B) tile of layer li
+    (csrc/sqnxt_tiles.cuh's tn_b): ``_tile_columns`` at RT, the smaller of
+    the rows of Cin and Cout rounded up to 8-128; ``tc``: at least
+    TC_MIN_COLUMNS, at most TC_MAX_BWD_COLUMNS."""
+    tn = _tile_columns(meta, min(_row_tile(meta.cdims[li]),
+                                 _row_tile(meta.cdims[li + 1])))
+    return min(max(tn, TC_MIN_COLUMNS), TC_MAX_BWD_COLUMNS) if tc else tn
+
+
+def _halo(meta: SqnxtMeta, li: int) -> int:
+    """Columns layer li's taps reach on each side: 0 for one tap, 1 along
+    j, W along i."""
+    return 0 if meta.axis[li] is None else (1 if meta.axis[li] == "j"
+                                            else meta.W)
+
+
+def tensor_cores(lis: Sequence[int], esize: int) -> bool:
+    """Whether a launch runs its products on the tensor cores: the bf16
+    chain (K6's and K7's bf16 instances); the fp32 and one-layer instances
+    keep the FFMA tiles (csrc/sqnxt_tiles.cuh's kTensorCores)."""
+    return esize == 2 and len(lis) == 5
+
+
+def _r(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def tc_geometry(meta: SqnxtMeta, li: int, tn: int) -> dict:
+    """csrc/sqnxt_tiles.cuh's tc::geo: layer li's tensor-core tile of tn
+    columns in bf16 elements. hr: staged columns each side (the halo, 1
+    along j or W along i, rounded up to 8); ldr and ldh: the row strides of
+    the raw rows and of the product operands; kf = taps Cin and kb = taps
+    Cout rounded up to 16 (the mma's k); cf = Cout and cb = Cin rounded up
+    to 8 (its n)."""
+    cin, cout = meta.cdims[li], meta.cdims[li + 1]
+    taps = len(meta.taps[li])
+    hr = 0 if taps == 1 else _r(_halo(meta, li), 8)
+    return dict(tn=tn, hr=hr, ldr=tn + 2 * hr + 8, ldh=tn + 8,
+                kf=_r(taps * cin, 16), kb=_r(taps * cout, 16),
+                cf=_r(cout, 8), cb=_r(cin, 8))
+
+
+def _ffma_layout(meta, li, backward):
+    """(tile floats, weight floats) the FFMA tiles of layer li need
+    (csrc/sqnxt_tiles.cuh's plan and plan_fwd)."""
+    cin, cout = meta.cdims[li], meta.cdims[li + 1]
+    taps = len(meta.taps[li])
+    rt_o, rt_i = _row_tile(cout), _row_tile(cin)
+    halo = _halo(meta, li)
+    tile = max(TILE_OUT, cin * (fwd_tile_columns(meta, li) + 2 * halo))
+    w = taps * cin * rt_o
+    if backward:
+        K, cols = taps * cin, TILE_OUT // rt_o
+        sub = -(-K // cols)
+        groups = cols // 4 // (-(-K // 4)) if sub == 1 else 1
+        ld_b = bwd_tile_columns(meta, li) + 2 * halo
+        ld_b = ld_b | 1 if groups == 1 else ld_b + (groups - ld_b) % 32
+        tile = max(tile, (cin + cout) * ld_b)
+        w = max(w, taps * cout * rt_i)
+    return tile, w
+
+
+def _tc_layout(meta, li, backward):
+    """(tile floats, weight floats) of layer li on the tensor cores
+    (csrc/sqnxt_tiles.cuh's tc::need): the forward's raw rows (three taps)
+    and tap rows (kf x ldh), then its z tile (Cout x tn bf16); the
+    backward's z, g and input raw rows and, for three taps, the tap rows of
+    g_z (kb) and of the input (kf); weights cf x (kf + 8) forward and cb x
+    (kb + 8) for g_h, bf16."""
+    cin, cout = meta.cdims[li], meta.cdims[li + 1]
+    taps = len(meta.taps[li])
+    tn = fwd_tile_columns(meta, li, True)
+    g = tc_geometry(meta, li, tn)
+    ops = (0 if taps == 1 else cin * g["ldr"]) + g["kf"] * g["ldh"]
+    tile = _r(ops // 2, 4) + cout * tn // 2
+    w = _r(g["cf"] * (g["kf"] + 8) // 2, 4)
+    if backward:
+        g = tc_geometry(meta, li, bwd_tile_columns(meta, li, True))
+        zr = g["kb"] if taps == 1 else cout
+        e = (zr + cout) * g["ldr"] + (
+            g["kf"] * g["ldh"] if taps == 1
+            else cin * g["ldr"] + (g["kb"] + g["kf"]) * g["ldh"])
+        tile = max(tile, _r(e // 2, 4))
+        w = max(w, _r(g["cb"] * (g["kb"] + 8) // 2, 4))
+    return tile, w
+
+
+def stage_layout(meta: SqnxtMeta, lis: Sequence[int], esize: int = 4,
+                 backward: bool = False) -> Tuple[int, int, bool]:
+    """(tile floats, weight floats, tensor cores) of the shared-memory
+    regions a launch's plan lays out for the staged tile and the staged
+    weights (csrc/sqnxt_fwd.cu's pnode_sqnxt_layout): the most any layer
+    of ``lis`` needs, the tile at least TILE_OUT floats, each rounded up to
+    4. The bf16 chain takes the tensor-core layout (bf16 operands, K
+    padded to 16, Cout and Cin to 8; ``_tc_layout``), the other instances
+    the FFMA tiles' (``_ffma_layout``)."""
+    lis = _chain_layers(meta, lis, 1)
+    tc = tensor_cores(lis, esize)
+    one = _tc_layout if tc else _ffma_layout
+    sizes = [one(meta, li, backward) for li in lis]
+    tile = max([TILE_OUT] + [t for t, _ in sizes])
+    return _r(tile, 4), _r(max(w for _, w in sizes), 4), tc
 
 
 def elem_floats(n: int, esize: int) -> int:
@@ -408,16 +522,19 @@ def fwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int,
     writes one (the next layer's halo comes from other blocks); the last
     writes none where the kernel keeps the z it reads again in shared
     memory: the store (the most one block's tiles of z take, over the last
-    layer and those with a centered variance) fits STORE_FLOATS at this
-    grid. Raises ValueError for a chain the kernels do not take."""
+    layer and those with a centered variance; the bf16 chain's tiles are
+    bf16, at least TC_MIN_COLUMNS wide) fits STORE_FLOATS at this grid.
+    Raises ValueError for a chain the kernels do not take."""
     lis = _chain_layers(meta, lis, grid)
-    N, store = meta.n_real, 0
+    N, store, tc = meta.n_real, 0, tensor_cores(lis, esize)
     for k, li in enumerate(lis):
         if k + 1 < len(lis) and meta.single_pass[li]:
             continue
-        tn = fwd_tile_columns(meta, li)
+        tn = fwd_tile_columns(meta, li, tc)
         tiles = -(-N // tn)
         store = max(store, -(-tiles // grid) * meta.cdims[li + 1] * tn)
+    if tc:  # the bf16 chain's z tiles are bf16
+        store = -(-store // 2)
     anchors = [meta.cdims[li + 1] for li in lis[:-1]]
     if store > STORE_FLOATS:
         anchors.append(meta.cdims[lis[-1] + 1])
@@ -477,6 +594,18 @@ def _c_plan(entry, mirror, meta, lis, device, esize):
 
 _fwd_plans = {}
 _bwd_plans = {}
+
+
+def c_stage_layout(meta: SqnxtMeta, lis: Sequence[int], device,
+                   esize: int = 4, backward: bool = False):
+    """``stage_layout`` as the C plan computes it (pnode_sqnxt_layout)."""
+    lis = _chain_layers(meta, lis, 1)
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(device):
+        _build.check(_build.library().pnode_sqnxt_layout(
+            len(lis), _build.int_array(_layer_ints(meta, lis)), meta.n_real,
+            meta.H, meta.W, esize, int(backward), out), "pnode_sqnxt_layout")
+    return out[0], out[1], bool(out[2])
 
 
 def fwd_plan(meta: SqnxtMeta, lis: Sequence[int], device, esize: int = 4):
@@ -550,16 +679,24 @@ def _carve(nbytes_first, dtype_first, sizes_first, dtype_rest, sizes_rest,
     return list(first), list(rest)
 
 
-def _launch_bwd(entry, x, g, flats, meta, lis, anchors=False):
+def _launch_bwd(entry, x, g, flats, meta, lis, anchors=False, grid=None):
     """One launch of K7 or K9 (the bf16 instance for a bf16 x). Two
     allocations: the gradients (every layer's dW, db, dgam, dbet in fp32 as
     views of one buffer, and dx in x's dtype) and the workspace (the
     scratch the plan counts, then the anchors z_l in x's dtype).
     ``anchors``: also return the anchors z_l that the launch's forward
-    recompute wrote (a check holds the backward against them)."""
+    recompute wrote (a check holds the backward against them). ``grid``:
+    fewer blocks than the plan's (comparisons of grids only; the partial
+    sums then add in another grouping)."""
     lib = _build.library()
     N, dev, esize = meta.n_real, x.device, esize_of(x.dtype)
-    grid, floats = bwd_plan(meta, lis, dev, esize)
+    want, floats = bwd_plan(meta, lis, dev, esize)
+    if grid is None:
+        grid = want
+    elif not 1 <= grid <= want:
+        raise ValueError(f"{entry}: a grid of 1 to {want} blocks, got {grid}")
+    else:
+        floats = bwd_scratch_floats(meta, lis, grid, esize)
     entry += _suffix(esize)
     sizes = [t.numel() for lf in flats for t in lf]
     cin0 = meta.cdims[lis[0]]

@@ -34,7 +34,15 @@ and N(0, 1) cotangents from seed 0, it checks the two forwards' outputs
 every output of the two backwards norm-wise (5e-3,
 ``chip_smoke.check_grads``' tolerance: a ReLU pre-activation within fp32
 rounding of 0 may flip between two correct evaluations), then times one
-evaluation of each in turns as for K1.
+evaluation of each in turns as for K1. ``--dtype bf16`` runs their bf16
+instances on the same values rounded to bf16 (x, g, the taps and b; the
+norm's gamma and beta stay fp32): two bf16 instances that sum in other
+orders part by a bf16 ulp at some elements, which the next layers carry
+on and which flips some ReLU decisions, so there the forwards are held at
+2^-6 of max |ref| (``chip_smoke``'s BF16_TOL) and the backwards at 5e-2
+norm-wise (the free comparisons of ``chip_smoke``'s phase 12(a) read up
+to 2.2e-2). For k7 it then times this checkout's K7 at its plan's grid and
+at one block per SM where the plan takes more (``k7_grids``).
 
 ``--kernel k2`` (the fused ARK forward step, ``fused_ark_step_fwd``):
 at the KS main path (B 256, 64 -> 104 x4 -> 64, ARK3, dt 0.2, J and the
@@ -268,18 +276,24 @@ SQNXT_NAMES = {"k6": "fused_sqnxt_fwd", "k7": "fused_sqnxt_bwd",
                "k8": "fused_sqnxt_layer_fwd", "k9": "fused_sqnxt_layer_bwd"}
 
 
-def compare_sqnxt(this, other, kernel, result):
+def compare_sqnxt(this, other, kernel, result, dtype="fp32"):
     """K6 (``fused_sqnxt_fwd``), K7 (``fused_sqnxt_bwd``), K8
     (``fused_sqnxt_layer_fwd`` over the five layers) or K9
     (``fused_sqnxt_layer_bwd`` over the five layers) of both checkouts at
-    the three stage shapes."""
+    the three stage shapes, in fp32 or (``dtype`` "bf16") their bf16
+    instances."""
     import torch
 
+    from .trace_sqnxt import to_dtype
+
     rng = np.random.default_rng(0)
-    name = SQNXT_NAMES[kernel]
+    name = SQNXT_NAMES[kernel] + ("_bf16" if dtype == "bf16" else "")
+    tol_fwd, tol_bwd = (2.0 ** -6, 5e-2) if dtype == "bf16" else (1e-5, 5e-3)
     sides = (("other", other), ("this", this))
     for label, dim, H in SQNXT_STAGES:
         x, g, flat, meta = sqnxt_inputs(dim, H, rng)
+        if dtype == "bf16":
+            x, g, flat = to_dtype(x, g, flat, torch.bfloat16)
         layer = this._layer
         hs, h = [], x
         for li in range(5):
@@ -315,11 +329,12 @@ def compare_sqnxt(this, other, kernel, result):
                                                    enumerate(d)]]
         torch.cuda.synchronize()
         if kernel in ("k6", "k8"):
-            err = max(float((a - b).abs().max() / b.abs().max())
+            err = max(float((a - b).float().abs().max()
+                            / b.float().abs().max())
                       for a, b in zip(outs["this"], outs["other"]))
             print(f"[compare] {label} {name}: this vs other, max |diff| / "
                   f"max |other| {err:.3e} over {len(outs['this'])} outputs")
-            if not err <= 1e-5:
+            if not err <= tol_fwd:
                 raise SystemExit(f"{label}: the two {name} disagree")
         else:
             errs = []
@@ -330,9 +345,53 @@ def compare_sqnxt(this, other, kernel, result):
                                   / b.double().norm().clamp_min(1e-30)))
             print(f"[compare] {label} {name}: this vs other, worst "
                   f"norm-wise {max(errs):.3e} over {len(errs)} outputs")
-            if not max(errs) <= 5e-3:
+            if not max(errs) <= tol_bwd:
                 raise SystemExit(f"{label}: the two {name} disagree")
         time_in_turns(f"{label} {name}", calls, result)
+        if kernel == "k7":
+            k7_grids(this, f"{label} {name}", x, g, flat, meta, tol_bwd,
+                     result)
+
+
+def k7_grids(this, label, x, g, flat, meta, tol, result):
+    """This checkout's K7 at its plan's grid and at one block per SM where
+    the plan takes more, in turns (the reading that decides how many
+    co-resident blocks the plan should take): dx and every layer's
+    gradients at the smaller grid against the plan's, norm-wise within
+    ``tol`` (the partial sums regroup)."""
+    import torch
+
+    from chip_smoke import cuda_times_ms, summary
+
+    lis = list(range(5))
+    flats = [this._layer(flat, li) for li in lis]
+    esize = this.esize_of(x.dtype)
+    plan = this.bwd_plan(meta, lis, x.device, esize)[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grids = [plan] + ([sms] if sms < plan else [])
+    calls = {gr: (lambda gr=gr: this._launch_bwd(
+        "pnode_sqnxt_bwd", x, g, flats, meta, lis, grid=gr)) for gr in grids}
+
+    def outs(gr):
+        dx, grads = calls[gr]()
+        # a conv bias feeding a batch-stats norm has a true gradient of 0
+        return [dx] + [t for lg in grads for k, t in enumerate(lg) if k != 1]
+
+    ref = outs(plan)
+    ms = {gr: [] for gr in grids}
+    for gr in grids + grids[::-1]:
+        ms[gr].append(summary(cuda_times_ms(calls[gr]))[0])
+    row = {}
+    for gr in grids:
+        err = max(_rel(a, b, True) for a, b in zip(outs(gr), ref))
+        us, _ = device_us(calls[gr], per_call=1)
+        row[gr] = dict(ms=ms[gr], device_us=us, norm_err=err)
+        print(f"[compare] {label} at grid {gr} (plan {plan}, {sms} SMs): "
+              f"CUDA events {ms[gr][0]:.4f} / {ms[gr][1]:.4f} ms, device "
+              f"{us:.1f} us; against the plan's grid {err:.3e} norm-wise")
+        if not err <= tol:
+            raise SystemExit(f"{label}: grid {gr} disagrees with {plan}")
+    result[f"{label} grids"] = row
 
 
 def k2_call(mod, tab, b_err, dt, y, J, inv, Ws, bs, rows=0):
@@ -817,6 +876,8 @@ def main(argv=None):
                     choices=("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8",
                              "k9", "k10", "k11", "k12", "k13"),
                     help="one or more kernels, compared in this order")
+    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32",
+                    help="k6-k9: their fp32 or their bf16 instances")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels needs a CUDA card")
@@ -849,7 +910,7 @@ def main(argv=None):
         elif kernel in ("k10", "k11"):
             compare_stencil(this, other, kernel, result)
         else:
-            compare_sqnxt(this, other, kernel, result)
+            compare_sqnxt(this, other, kernel, result, args.dtype)
     print(json.dumps(result))
     return result
 

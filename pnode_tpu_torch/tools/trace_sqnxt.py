@@ -2,7 +2,7 @@
 
 Run on a machine with the card, from the repository root::
 
-    python -m pnode_tpu_torch.tools.trace_sqnxt
+    python -m pnode_tpu_torch.tools.trace_sqnxt [--dtype bf16]
 
 It builds the kernels a second time with ``-DSQNXT_TRACE`` (into its own
 library beside the usual one), under which thread 0 of block 0 of a K6-K9
@@ -14,11 +14,15 @@ a pass's own tiles (and inside its first tile, the staging, the products
 and the row sums), then the grid barrier with the partial sums after it
 (which includes waiting for the slowest block), and K6's normalize-out
 pass. Cycles become microseconds at the rate of the launch's own
-globaltimer. The last line printed is a JSON object of the phases.
+globaltimer. ``--dtype bf16`` runs the bf16 instances on the same values
+rounded to bf16 (x, g, the taps and b; gamma and beta stay fp32, as
+``pack_params`` packs them). The last line printed is a JSON object of the
+phases.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 
@@ -69,6 +73,13 @@ def marks_us(read, nl, backward=True):
     return out
 
 
+def to_dtype(x, g, flat, dtype):
+    """x, g and the packed parameters in the kernels' storage type: the
+    activations, taps and b in ``dtype``, gamma and beta fp32."""
+    return (x.to(dtype), g.to(dtype),
+            [t.to(dtype) if k % 4 < 2 else t for k, t in enumerate(flat)])
+
+
 def main(argv=None):
     import torch
 
@@ -76,6 +87,10 @@ def main(argv=None):
     from ..ops import fused_sqnxt as fs
     from .compare_kernels import SQNXT_STAGES, sqnxt_inputs
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
+    args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     if not torch.cuda.is_available():
         raise SystemExit("trace_sqnxt needs a CUDA card")
     _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DSQNXT_TRACE",)
@@ -87,6 +102,7 @@ def main(argv=None):
     result = {}
     for label, dim, H in SQNXT_STAGES:
         x, g, flat, meta = sqnxt_inputs(dim, H, rng)
+        x, g, flat = to_dtype(x, g, flat, dtype)
         runs = [("K6", lambda: fs.fused_sqnxt_fwd(x, flat, meta), 5, False),
                 ("K7", lambda: fs.fused_sqnxt_bwd(x, g, flat, meta), 5, True)]
         if label == "stage 1":
@@ -108,8 +124,9 @@ def main(argv=None):
             read = (lib.pnode_sqnxt_bwd_marks if backward
                     else lib.pnode_sqnxt_fwd_marks)
             ph = marks_us(read, nl, backward)
-            result[f"{label} {name}"] = ph
-            print(f"[trace] {label} {name}: launch {ph['launch']:.1f} us")
+            result[f"{args.dtype} {label} {name}"] = ph
+            print(f"[trace] {args.dtype} {label} {name}: launch "
+                  f"{ph['launch']:.1f} us")
             for k, v in ph.items():
                 if k != "launch":
                     print(f"[trace]   {k:32s} {v:9.1f} us")

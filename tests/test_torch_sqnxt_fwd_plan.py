@@ -230,14 +230,20 @@ def test_layered_cost_counts_each_launch(backward, flops, byts):
 
 @pytest.mark.parametrize("shape,grid,anchors,keep,store", STAGES)
 def test_fwd_scratch_floats_bf16(shape, grid, anchors, keep, store):
-    """K6's bf16 instance: the same partial slots and the same store (shared
-    memory is fp32 in both instances), its anchors at 2 bytes an element:
-    ceil(Cout N / 2) floats each, half the fp32 count."""
+    """K6's bf16 instance: the same partial slots, its anchors at 2 bytes an
+    element (ceil(Cout N / 2) floats each), and a store of bf16 z tiles
+    (the tensor-core path) in half the fp32 store's floats, so a last z
+    past the fp32 store fits it where half of it fits STORE_FLOATS (B640
+    at 264 blocks): then its last layer writes no anchor."""
     meta = fs.make_meta(*shape)
     got = fs.fwd_scratch_floats(meta, range(5), grid, 2)
-    assert got == grid * PART + anchors * meta.n_real // 2
-    assert got - grid * PART == (fs.fwd_scratch_floats(meta, range(5), grid)
-                                 - grid * PART) // 2
+    kept = keep or store // 2 <= fs.STORE_FLOATS
+    assert kept == (shape == (16, 640, 32, 32) or keep)
+    last = meta.cdims[5] if kept and not keep else 0
+    assert got == grid * PART + (anchors - last) * meta.n_real // 2
+    if not last:
+        assert got - grid * PART == (fs.fwd_scratch_floats(
+            meta, range(5), grid) - grid * PART) // 2
 
 
 @pytest.mark.parametrize("shape,grid", [
