@@ -29,8 +29,8 @@ exits non-zero without printing the final line):
    and every SQNXT_EDGES and SQNXT_BF16_EDGES case; and unless the SASS
    of the SqueezeNext cubins (cuobjdump, in other processes beside the
    plan checks and the probe, waited for at the phase's end) holds bf16
-   HMMA in K6's and K7's bf16 chain instances and none in any other
-   SqueezeNext function.
+   HMMA in all four bf16 instances (K6's and K7's chain, K8's and K9's
+   one layer) and none in any fp32 SqueezeNext function.
    Then the probe (python -m pnode_tpu_torch.tools.probe_smem_limit, K13):
    the largest dynamic shared memory one block takes, up a ladder and
    bisected to 4 bytes, must equal the gates' MAX_SMEM_BYTES and the card's
@@ -307,7 +307,8 @@ exits non-zero without printing the final line):
 12. bf16 CIFAR: phase 6's model and recipe (SqNxt-23, B 128, rk4, Nt 2)
    with SqueezeNextODE(dtype="bf16"). (a) The bf16 instances of K6-K9
    against their plain bf16 versions on the bf16 model's stage
-   activations and at every SQNXT_EDGES and SQNXT_BF16_EDGES case:
+   activations and at every SQNXT_EDGES and SQNXT_BF16_EDGES case, K8 and
+   K9 also at stage 1 at B 256, the layered mode's shape in (d):
    outputs, dx and parameter
    gradients within BF16_TOL (2^-6, max |diff| / max |plain|); K7's
    anchors against the plain forward's and its gradients against the plain
@@ -328,7 +329,8 @@ exits non-zero without printing the final line):
    6 on the bf16 module path: images/s and peak memory, the bf16 kernel
    path's images/s over its last 10 beside phase 6(c)'s fp32 kernel path
    over its last 10 (not gated), one traced iteration of the bf16 kernel
-   path (K6-K9's shares of it); the bf16 instances' launches. (d)
+   path (K6-K9's shares of it), and one more of a fresh bf16 kernel path
+   at B 256 (profile_cifar_bf16_at); the bf16 instances' launches. (d)
    examples/train_cifar10_torch.py --precision bf16 at B 256 (stage 1 runs
    layered there) for 2 iterations with --use_kernels on and off, its
    memstat.txt carrying the precision; every bf16 instance launched over
@@ -500,9 +502,11 @@ SQNXT_EDGES = (("ragged B3 5x7 dim 16", 0, 16, 3, 5, 7),
                ("B1 3x3 dim 16", 0, 16, 1, 3, 3),
                ("B640 32x32 dim 16, last z past the store", 0, 16, 640, 32,
                 32))
-# and for the bf16 chain, whose store holds bf16 z tiles (twice the tiles
-# of B640's at 264 blocks fit it): 20 tiles of 256 columns a block at the
-# largest co-resident grid, 264 (two blocks an SM at K6's 128 registers)
+# and for the bf16 instances, whose store holds bf16 z tiles (twice the
+# tiles of B640's at 264 blocks fit it): 20 tiles of 256 columns a block at
+# the largest co-resident grid, 264 (two blocks an SM at K6's 128
+# registers), past the store for the chain's last z and for K8's on the
+# last layer
 SQNXT_BF16_EDGES = (("B1280 32x32 dim 16, the bf16 chain's last z past its "
                      "store", 0, 16, 1280, 32, 32),)
 CIFAR_B, CIFAR_LR = 128, 0.1
@@ -636,8 +640,7 @@ def ptxas_report(log, source):
 
 
 # sources whose every function must compile without spill: K6/K8 and K7/K9
-# (the bf16 chain's tensor-core instances among them), K2, K3, K12, K4 and
-# K5
+# (the bf16 tensor-core instances among them), K2, K3, K12, K4 and K5
 NO_SPILL = (("sqnxt_fwd.cu", "sqnxt_fwd_kernel", "K6/K8"),
             ("fused_sqnxt.cu", "sqnxt_bwd_kernel", "K7/K9"),
             ("fused_ark_forward.cu", "ark_fwd_kernel", "K2"),
@@ -664,10 +667,14 @@ LOOP_PLANS = ((37, NX, [13] * 4 + [NX], 4), (37, 100, [HIDDEN] * 4 + [100], 8),
               (256, 134, [HIDDEN] * 4 + [134], 4))
 
 
-# the SqueezeNext functions whose SASS must hold bf16 HMMA (K6's and K7's
-# bf16 chain instances); every other SqueezeNext function must hold none
+# the SqueezeNext functions whose SASS must hold bf16 HMMA (the bf16
+# instances: K6's and K7's chain, K8's and K9's one layer); every other
+# SqueezeNext function (the fp32 instances and their out-of-line products)
+# must hold none
 SQNXT_TC_KERNELS = ("sqnxt_fwd_kernelI13__nv_bfloat16Li5E",
-                    "sqnxt_bwd_kernelI13__nv_bfloat16Li5E")
+                    "sqnxt_bwd_kernelI13__nv_bfloat16Li5E",
+                    "sqnxt_fwd_kernelI13__nv_bfloat16Li1E",
+                    "sqnxt_bwd_kernelI13__nv_bfloat16Li1E")
 
 
 def sass_hmma(lib_path):
@@ -716,9 +723,10 @@ def sass_hmma(lib_path):
 
 
 def check_tensor_cores(lib_path):
-    """Phase 2's tensor-core check: bf16 HMMA in K6's and K7's bf16 chain
-    instances, and no HMMA in any other SqueezeNext function (the fp32
-    instances, the one-layer bf16 instances, their out-of-line products)."""
+    """Phase 2's tensor-core check: bf16 HMMA in every bf16 instance (K6's
+    and K7's chain, K8's and K9's one layer), and no HMMA in any other
+    SqueezeNext function (the fp32 instances, their out-of-line
+    products)."""
     t0 = time.perf_counter()
     funcs = sass_hmma(lib_path)
     bad = []
@@ -733,10 +741,11 @@ def check_tensor_cores(lib_path):
     found = [k for k in SQNXT_TC_KERNELS if any(k in fn for fn in funcs)]
     if bad or len(found) != len(SQNXT_TC_KERNELS):
         raise AssertionError(f"tensor-core check: bf16 HMMA missing from, or "
-                             f"HMMA found in, {bad}; bf16 chain kernels found "
+                             f"HMMA found in, {bad}; bf16 kernels found "
                              f"{found}")
-    log(f"[build] bf16 HMMA in K6's and K7's bf16 chain instances, none in "
-        f"any other SqueezeNext function ({time.perf_counter() - t0:.1f} s)")
+    log(f"[build] bf16 HMMA in the bf16 instances of K6, K7, K8 and K9, none "
+        f"in any fp32 SqueezeNext function "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def start_tensor_core_check(lib_path):
@@ -7032,13 +7041,11 @@ def check_bf16_bias(name, got, plain, dbet, failed):
         failed.append(name + " bias")
 
 
-def sqnxt_bf16_case(label, h, mod, device, seed, reports, failed):
-    """The bf16 instances of K6-K9 against their plain bf16 versions on the
-    bf16 activation h (NCHW) and the ODEDynamics mod (fp32 parameters, cast
-    to bf16 as pack_params does): outputs, dx and every parameter gradient
-    (check_bf16; conv biases by check_bf16_bias), each kernel called twice
-    bitwise equal. K8/K9 run layer by layer on the plain chain's layer
-    inputs."""
+def bf16_case_inputs(label, h, mod, device, seed):
+    """(x, flat, meta, gen, layered) of a phase 12(a) case: the bf16
+    activation h (NCHW) on the (C, N) layout, the ODEDynamics mod's
+    parameters (fp32, cast to bf16 as pack_params does), a generator from
+    ``seed``, and whether the bf16 model runs this shape layered."""
     import torch
 
     from pnode_tpu_torch.ops import fused_sqnxt as fs
@@ -7049,12 +7056,27 @@ def sqnxt_bf16_case(label, h, mod, device, seed, reports, failed):
     x = h.permute(1, 0, 2, 3).reshape(C, -1).contiguous().to(bf)
     flat = [t.detach().contiguous() for t in
             fs.pack_params(dict(mod.named_parameters()), meta, bf)]
-    gen = torch.Generator(device=device).manual_seed(seed)
-    g = torch.randn(C, x.shape[1], generator=gen, device=device).to(bf)
+    layered = fs.gate_meta(C, B, H, W, bf).layered
     log(f"[bf16] {label}: C {C}, N {x.shape[1]} (B {B}, {H}x{W}), chain "
         f"workspace {fs.chain_workspace_bytes(meta, 2) / 2**20:.1f} MiB "
-        f"({'layered' if fs.gate_meta(C, B, H, W, bf).layered else 'chain'}"
-        f" on the bf16 model)")
+        f"({'layered' if layered else 'chain'} on the bf16 model)")
+    return (x, flat, meta, torch.Generator(device=device).manual_seed(seed),
+            layered)
+
+
+def sqnxt_bf16_case(label, h, mod, device, seed, reports, failed):
+    """The bf16 instances of K6-K9 against their plain bf16 versions on the
+    bf16 activation h (NCHW) and the ODEDynamics mod: outputs, dx and every
+    parameter gradient (check_bf16; conv biases by check_bf16_bias), each
+    kernel called twice bitwise equal. K8/K9 as check_bf16_layers."""
+    import torch
+
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
+    bf = torch.bfloat16
+    x, flat, meta, gen, _ = bf16_case_inputs(label, h, mod, device, seed)
+    g = torch.randn(x.shape[0], x.shape[1], generator=gen,
+                    device=device).to(bf)
     out = fs.fused_sqnxt_fwd(x, flat, meta)
     torch.cuda.synchronize()
     check_repeat("fused_sqnxt_fwd_bf16", out,
@@ -7097,6 +7119,20 @@ def sqnxt_bf16_case(label, h, mod, device, seed, reports, failed):
     check_bf16_bias("fused_sqnxt_bwd_bf16", got[1], pl[1], dbet, failed)
     check_bf16_bias("fused_sqnxt_bwd_bf16 on its own anchors", k7[1],
                     anchored[1], dbet, failed)
+    hs = check_bf16_layers(x, flat, meta, gen, reports, failed)
+    return x, g, flat, meta, hs
+
+
+def check_bf16_layers(x, flat, meta, gen, reports, failed):
+    """The bf16 instances of K8 and K9 against their plain bf16 versions,
+    layer by layer on the plain chain's layer inputs from x, each with a
+    cotangent from ``gen``: outputs, dh and every parameter gradient
+    (check_bf16; conv biases by check_bf16_bias), each kernel called twice
+    bitwise equal. Returns the layer inputs."""
+    import torch
+
+    from pnode_tpu_torch.ops import fused_sqnxt as fs
+
     hs, hh = [], x
     for li in range(5):
         hs.append(hh)
@@ -7109,7 +7145,7 @@ def sqnxt_bf16_case(label, h, mod, device, seed, reports, failed):
                      fs.fused_sqnxt_layer_fwd(hs[li], lf, meta, li))
         fp.append(fs.fused_sqnxt_layer_plain(hs[li], lf, meta, li))
         gl = torch.randn(meta.cdims[li + 1], x.shape[1], generator=gen,
-                         device=device).to(bf)
+                         device=x.device).to(torch.bfloat16)
         kern = fs.fused_sqnxt_layer_bwd(hs[li], gl, lf, meta, li)
         check_repeat(f"fused_sqnxt_layer_bwd_bf16 layer {li}", kern,
                      fs.fused_sqnxt_layer_bwd(hs[li], gl, lf, meta, li))
@@ -7130,7 +7166,7 @@ def sqnxt_bf16_case(label, h, mod, device, seed, reports, failed):
                reports["fused_sqnxt_layer_bwd_bf16"], failed)
     check_bf16_bias("fused_sqnxt_layer_bwd_bf16", bias_k, bias_p,
                     max(dbets), failed)
-    return x, g, flat, meta, hs
+    return hs
 
 
 def time_sqnxt_bf16(label, h, mod, x, g, flat, meta, hs):
@@ -7223,11 +7259,13 @@ def time_sqnxt_bf16(label, h, mod, x, g, flat, meta, hs):
     return out
 
 
-def phase_sqnxt_bf16_kernels(device, x):
+def phase_sqnxt_bf16_kernels(device, x, x256):
     """Phase 12(a): the bf16 instances of K6-K9 at the three full-width
     stage shapes (B 128, on the bf16 model's own stage activations) and at
     every SQNXT_EDGES and SQNXT_BF16_EDGES case, against their plain bf16
-    versions; timed at the stage shapes."""
+    versions; timed at the stage shapes. K8 and K9 also at stage 1 on the
+    images x256 (B 256: the bf16 model runs stage 1 layered there, as in
+    12(d), each block holding twice B 128's z tiles in its store)."""
     import torch
 
     from pnode_tpu_torch.models.sqnxt import ODEDynamics, _lecun_normal_
@@ -7254,6 +7292,12 @@ def phase_sqnxt_bf16_kernels(device, x):
         h1 = h1.repeat(-(-B // h1.shape[0]), 1, 1, 1)[:B, :dim, :H, :W]
         sqnxt_bf16_case(label, h1.contiguous(), edge, device, 40 + k,
                         reports, failed)
+    h, mod = stage_inputs(model, x256)[0]
+    x1, flat, meta, gen, layered = bf16_case_inputs(
+        "stage 1, B 256: K8/K9", h, mod, device, 60)
+    if not layered:
+        failed.append("stage 1 at B 256 is not layered on the bf16 model")
+    check_bf16_layers(x1, flat, meta, gen, reports, failed)
     if failed:
         raise AssertionError(f"bf16 K6-K9 disagree with their plain bf16 "
                              f"versions: {failed}")
@@ -7402,6 +7446,25 @@ def phase_cifar_bf16_paths(device, x, y, state0):
                              f"{'ok' if ok else 'FAIL'}, blocks {failed}")
 
 
+def profile_cifar_bf16_at(device, x_tr, y_tr, B, warm=2):
+    """One traced iteration (profile_cifar) of a fresh bf16 kernel path at
+    batch B, as train_cifar10_torch.py --precision bf16 --batch_size B
+    trains (seed-0 weights, train_cifar's SGD), after ``warm`` untraced
+    ones; the batches drawn from x_tr, y_tr with seed 0."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    idx = [torch.as_tensor(rng.choice(len(x_tr), B, replace=False),
+                           device=device) for _ in range(warm + 1)]
+    m = cifar_model(device, "on", dtype="bf16")
+    opt = torch.optim.SGD(m.parameters(), lr=CIFAR_LR, momentum=0.9,
+                          weight_decay=5e-4)
+    for i in idx[:-1]:
+        cifar_step(m, opt, x_tr[i], y_tr[i])
+    profile_cifar(f"bf16 kernel path B {B}", m, opt, x_tr[idx[-1]],
+                  y_tr[idx[-1]])
+
+
 def phase_cifar_bf16(device, fp32_ips, n_iters=12, warm=2, n_trainer=2):
     """Phase 12: bf16 CIFAR at full width, batch 128, rk4, Nt 2.
     ``fp32_ips``: phase 6(c)'s fp32 kernel path's images/s over as many
@@ -7419,7 +7482,8 @@ def phase_cifar_bf16(device, fp32_ips, n_iters=12, warm=2, n_trainer=2):
     rng = np.random.default_rng(1)
     batches = [torch.as_tensor(rng.choice(len(x_np), CIFAR_B, replace=False),
                                device=device) for _ in range(n_iters)]
-    reports = phase_sqnxt_bf16_kernels(device, x_tr[batches[0]])
+    reports = phase_sqnxt_bf16_kernels(device, x_tr[batches[0]],
+                                       x_tr[torch.cat(batches[:2])])
     state0 = {k: v.detach().clone()
               for k, v in cifar_model(device, "off").state_dict().items()}
     phase_cifar_bf16_paths(device, x_tr[batches[0]], y_tr[batches[0]],
@@ -7461,6 +7525,7 @@ def phase_cifar_bf16(device, fp32_ips, n_iters=12, warm=2, n_trainer=2):
             < losses[:5].mean()):
         raise AssertionError(f"bf16 CIFAR training did not lower the loss: "
                              f"{losses}")
+    profile_cifar_bf16_at(device, x_tr, y_tr, 256)
     # (d) examples/train_cifar10_torch.py --precision bf16 at B 256, where
     # the bf16 gate runs stage 1 layered (K8/K9) and stages 2-3 chained
     # (K6/K7), then --use_kernels off

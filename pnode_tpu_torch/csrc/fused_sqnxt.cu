@@ -23,9 +23,10 @@
 // bf16 storage (pnode_sqnxt_bwd_bf16, _bwd_layer_bf16: x, g, dx, the taps,
 // b, the anchors and the g buffers in bf16; the parameter gradients, the
 // statistics and the norm's backward in fp32, rounded where the JAX
-// kernels cast; csrc/sqnxt_tiles.cuh note 8). K7's bf16 instance stages
-// its operands as bf16 by cp.async and runs the recompute, g_h and dW on
-// mma.sync with fp32 accumulation (note 9); K9's keeps the FFMA tiles.
+// kernels cast; csrc/sqnxt_tiles.cuh note 8). The bf16 instances of K7
+// and K9 stage their operands as bf16 by cp.async and run the recompute,
+// g_h and dW on mma.sync with fp32 accumulation (note 9); the fp32
+// instances run FFMA.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -42,12 +43,11 @@ constexpr int kPtrsPerLayer = 9;  // w, b, gam, bet, z, dw, db, dgam, dbet
 // K7 (kLayers 5) and K9 (kLayers 1), storage type T: the forward
 // recompute, then every layer's backward in reverse (csrc/sqnxt_tiles.cuh).
 // The plan rides as a __grid_constant__ parameter, copied once into shared
-// memory. The FFMA instances hold ~210 registers, one block an SM; the
-// tensor-core instance (K7's bf16) is held to 128, two blocks an SM where
-// its shared memory allows.
+// memory. The FFMA instances (fp32) hold ~210 registers, one block an SM;
+// the tensor-core instances (bf16) are held to 128, two blocks an SM where
+// their shared memory allows.
 template <typename T, int kLayers>
-__global__ void __launch_bounds__(sq::kThreads,
-                                  sq::kTensorCores<T, kLayers> ? 2 : 1)
+__global__ void __launch_bounds__(sq::kThreads, sq::kTensorCores<T> ? 2 : 1)
 sqnxt_bwd_kernel(const __grid_constant__ sq::Chain c,
                  const T* __restrict__ x, const T* __restrict__ g,
                  T* dx, float* scratch) {
@@ -68,7 +68,7 @@ sqnxt_bwd_kernel(const __grid_constant__ sq::Chain c,
   float* dwpart = scratch + 2 * slot_size;
   T* gbuf = reinterpret_cast<T*>(dwpart + (size_t)gridDim.x * c.dw_stride);
   int slot = 0;
-  constexpr bool kTC = sq::kTensorCores<T, kLayers>;
+  constexpr bool kTC = sq::kTensorCores<T>;
   sq::forward_layers<T, true, kTC>(s, x, part, slot_size, slot, grid);
 #pragma unroll 1
   for (int l = kLayers - 1; l >= 0; --l) {
@@ -84,7 +84,7 @@ sqnxt_bwd_kernel(const __grid_constant__ sq::Chain c,
   SQNXT_NS(1);
 }
 
-// The layer table from ints and its plan (tc: the bf16 chain's
+// The layer table from ints and its plan (tc: the bf16 instances'
 // tensor-core layout); cudaErrorInvalidValue for a chain the kernels do
 // not take.
 int bwd_shape(sq::Chain* c, int nl, const int* ints, int N, int H, int W,
@@ -136,8 +136,7 @@ template <typename T>
 int bwd_plan(int nl, const int* ints, int N, int H, int W, int* grid,
              long long* scratch) {
   sq::Chain c;
-  int rc = bwd_shape(&c, nl, ints, N, H, W,
-                     nl == sq::kMaxLayers && sq::kTensorCores<T, 5>);
+  int rc = bwd_shape(&c, nl, ints, N, H, W, sq::kTensorCores<T>);
   if (rc) return rc;
   if (nl == 5)
     rc = bwd_grid<T, 5>(c, grid);
@@ -161,7 +160,7 @@ int launch_bwd(const void* xv, const void* gv, void* dxv, int nl,
   sq::Chain c;
   if (nl != kLayers || !x || !g || !dx || !scratch)
     return (int)cudaErrorInvalidValue;
-  int rc = bwd_shape(&c, nl, ints, N, H, W, sq::kTensorCores<T, kLayers>);
+  int rc = bwd_shape(&c, nl, ints, N, H, W, sq::kTensorCores<T>);
   if (rc || (rc = bwd_pointers(&c, ptrs))) return rc;
   int want = 0;
   if ((rc = bwd_grid<T, kLayers>(c, &want))) return rc;

@@ -1,7 +1,7 @@
 // K6 and K8: the forward of the fused SqueezeNext ODE dynamics (the
 // CIFAR-10 ODE-net's BasicBlock2: five layers of conv -> +b -> batch-stats
-// norm -> ReLU): fp32 FFMA on the CUDA cores (no TF32), and K6's bf16
-// instance on the tensor cores (csrc/sqnxt_tiles.cuh note 9).
+// norm -> ReLU): fp32 FFMA on the CUDA cores (no TF32), and the bf16
+// instances on the tensor cores (csrc/sqnxt_tiles.cuh note 9).
 //
 // Replaces pnode_tpu/ops/fused_sqnxt.py:
 //   K6 sqnxt_fwd_kernel<5>    _fwd_kernel (:192), launched at :339
@@ -45,12 +45,13 @@
 // Each kernel has two instances: fp32 (pnode_sqnxt_fwd, _fwd_layer) and
 // bf16 storage (pnode_sqnxt_fwd_bf16, _fwd_layer_bf16: x, the taps, b, the
 // anchors and out in bf16, the statistics in fp32, rounded where the JAX
-// kernels cast; csrc/sqnxt_tiles.cuh note 8). K6's bf16 instance stages
-// its operands as bf16 and runs its products on mma.sync with fp32
-// accumulation (note 9); K8's keeps fp32 shared memory and FFMA. The bf16
-// instances' bound takes bf16 operands at the tensor cores' 989 TFLOP/s:
-// 0.6 us for a chain evaluation, so bytes set it, 16.8 MB for the stage-1
-// chain's x, out and parameters at B 128, 5.0 us.
+// kernels cast; csrc/sqnxt_tiles.cuh note 8). The bf16 instances of K6
+// and K8 stage their operands as bf16 and run their products on mma.sync
+// with fp32 accumulation (note 9); the fp32 instances keep fp32 shared
+// memory and FFMA. The bf16 instances' bound takes bf16 operands at the
+// tensor cores' 989 TFLOP/s: 0.6 us for a chain evaluation, so bytes set
+// it, 16.8 MB for the stage-1 chain's x, out and parameters at B 128, 5.0
+// us, and 46.1 MB for K8's five launches there, 13.8 us.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -88,12 +89,12 @@ sqnxt_fwd_kernel(const __grid_constant__ sq::Chain c,
   cg::grid_group grid = cg::this_grid();
   const size_t slot_size = (size_t)gridDim.x * sq::kMaxQ * sq::kMaxC;
   int slot = 0;
-  constexpr bool kTC = sq::kTensorCores<T, kLayers>;
+  constexpr bool kTC = sq::kTensorCores<T>;
   sq::forward_layers<T, false, kTC>(s, x, part, slot_size, slot, grid);
   if constexpr (kTC)
     sq::tc::normalize_out(s, out);
   else
-    sq::normalize_out<T>(s, out);
+    sq::normalize_out(s, out);
   SQNXT_MARK(sq::kMarkBwd);
   SQNXT_MARK(sq::kMarks - 1);
   SQNXT_NS(1);
@@ -111,7 +112,7 @@ int fwd_grid(sq::Chain& c, int* grid) {
       (rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                         dev)))
     return rc;
-  sq::derive(c, sq::kTensorCores<T, kLayers>);
+  sq::derive(c, sq::kTensorCores<T>);
   int tiles = 1;
   for (int l = 0; l < c.nl; ++l) {
     const int t = (c.N + c.L[l].tn_f - 1) / c.L[l].tn_f;
@@ -122,7 +123,7 @@ int fwd_grid(sq::Chain& c, int* grid) {
     const int g = k * sms < tiles ? k * sms : tiles;
     if (g == prev) break;
     prev = g;
-    sq::plan_fwd(c, g, sq::kTensorCores<T, kLayers>);
+    sq::plan_fwd(c, g, sq::kTensorCores<T>);
     int per_sm = 0, n_sm = 0;
     rc = sq::occupancy(sqnxt_fwd_kernel<T, kLayers>,
                        (size_t)c.smem_floats * 4, &per_sm, &n_sm);
@@ -131,7 +132,7 @@ int fwd_grid(sq::Chain& c, int* grid) {
     if (per_sm * n_sm >= g) best = g;
   }
   if (!best) return (int)cudaErrorInvalidValue;
-  sq::plan_fwd(c, best, sq::kTensorCores<T, kLayers>);
+  sq::plan_fwd(c, best, sq::kTensorCores<T>);
   *grid = best;
   return 0;
 }
@@ -251,8 +252,8 @@ int pnode_sqnxt_fwd_layer_bf16(const void* x, void* out, int nl,
 }
 
 // The shared-memory regions a launch's plan lays out, in floats: out[0]
-// the staged tile, out[1] the staged weights, out[2] 1 where the bf16
-// chain's tensor-core layout applies (esize 2, nl 5), else 0. backward 0:
+// the staged tile, out[1] the staged weights, out[2] 1 where the
+// tensor-core layout applies (esize 2), else 0. backward 0:
 // K6's or K8's plan (at a grid of one block: the store aside, the regions
 // do not depend on it), 1: K7's or K9's. ints as for the plans.
 int pnode_sqnxt_layout(int nl, const int* ints, int N, int H, int W,
@@ -262,7 +263,7 @@ int pnode_sqnxt_layout(int nl, const int* ints, int N, int H, int W,
   if (rc) return rc;
   if ((nl != 1 && nl != sq::kMaxLayers) || (esize != 2 && esize != 4) || !out)
     return (int)cudaErrorInvalidValue;
-  const bool tc = esize == 2 && nl == sq::kMaxLayers;
+  const bool tc = esize == 2;
   if (backward) {
     if (sq::plan(c, tc)) return (int)cudaErrorInvalidValue;
   } else {

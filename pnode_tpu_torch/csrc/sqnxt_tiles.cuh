@@ -1,7 +1,7 @@
 // The tile machinery of the fused SqueezeNext kernels, sm_90a: fp32 FFMA on
-// the CUDA cores (no TF32) for the fp32 instances and the one-layer bf16
-// ones, bf16 mma.sync on the tensor cores with fp32 accumulation for the
-// bf16 chain (note 9): the forward kernels K6 and K8
+// the CUDA cores (no TF32) for the fp32 instances, bf16 mma.sync on the
+// tensor cores with fp32 accumulation for every bf16 instance, the chain's
+// and the one-layer ones (note 9): the forward kernels K6 and K8
 // (csrc/sqnxt_fwd.cu's sqnxt_fwd_kernel<5> and <1>) and the stage-exact
 // backward kernels K7 and K9 (csrc/fused_sqnxt.cu's sqnxt_bwd_kernel<5> and
 // <1>), which recompute the same forward before they backprop.
@@ -101,28 +101,30 @@
 // 8. Two storage types. Every kernel has an fp32 and a bf16 instance (T =
 //    float or __nv_bfloat16, the JAX kernels' activation dtype): T is the
 //    type of x, the taps, b, the anchors z_l, the output and the cotangents
-//    (g, the g buffers, dx) in device memory. Shared memory (but the bf16
-//    chain's, note 9), the products' sums, the statistics, the norm's
-//    backward and the partial slots stay fp32
-//    (a bf16 value is exact in fp32, so the products of two bf16 values
-//    are exact and only their sums round, as in the JAX kernels' f32
-//    accumulation). The bf16 instance rounds where the JAX kernels cast to
+//    (g, the g buffers, dx) in device memory. The fp32 instances run the
+//    FFMA tiles of notes 1-7, fp32 throughout; the bf16 instances the
+//    tensor-core tiles of note 9. In both the products' sums, the
+//    statistics, the norm's backward and the partial slots are fp32 (a
+//    bf16 value is exact in fp32, so the products of two bf16 values are
+//    exact and only their sums round, as in the JAX kernels' f32
+//    accumulation). The bf16 instances round where the JAX kernels cast to
 //    the activation dtype (pnode_tpu/ops/fused_sqnxt.py): z = bf16(bf16(acc)
 //    + b) (:157), the norm's output before the ReLU (:176), g_z (:277), g_h
-//    (:301) and each dW through bf16 (:291); rnd<float> is the identity, so
-//    the fp32 instance computes what it did before. In the one-layer bf16
-//    instances (K8, K9) the bf16 rows come in by plain 4-byte (or 2-byte)
-//    loads converted on the way (cp.async cannot convert), the fp32 rows
-//    by cp.async as above; the bf16 chain (K6, K7) keeps bf16 as bf16
-//    (note 9). The scratch is counted in floats for both: its partial
-//    slots and dW slots are fp32, its anchors and g buffers take
-//    ceil(elements * sizeof(T) / 4) floats (elem_floats), so at bf16 they
-//    take half the room. The fp32 and one-layer instances share one
-//    shared-memory layout, and with it the store (kStoreFloats).
-// 9. The bf16 chain on the tensor cores (kTensorCores: K6's and K7's bf16
-//    instances, whose time went to the staging's plain loads, pass A and
-//    the FFMA products, each slower than in the fp32 instance;
-//    tools/trace_sqnxt.py --dtype bf16). Every product operand is an exact
+//    (:301) and each dW through bf16 (:291; rnd<T>, the identity for
+//    float). The scratch is counted in floats for both: its partial slots
+//    and dW slots are fp32, its anchors and g buffers take ceil(elements *
+//    sizeof(T) / 4) floats (elem_floats), so at bf16 they take half the
+//    room. The fp32 instances have the FFMA tiles' shared-memory layout,
+//    the bf16 ones the tensor-core layout (tc::need); both have the store
+//    (kStoreFloats).
+// 9. The bf16 instances on the tensor cores (kTensorCores: K6's and K7's
+//    bf16 chain and, one layer per launch, K8's and K9's, whose time went
+//    to the staging's plain loads, pass A and the FFMA products, each
+//    slower than in the fp32 instance; tools/trace_sqnxt.py --dtype bf16).
+//    A one-layer launch is a chain of one: its layer is layer 0 whatever
+//    its taps, reading its input raw (the previous launch wrote it as
+//    ReLU(norm(z)) in bf16), so a (1,3) or (3,1) layer builds its tap rows
+//    straight from the staged x. Every product operand is an exact
 //    bf16 value, so it is staged as bf16 and nothing rounds that did not:
 //    x, the anchors, g and z raw by 16-byte cp.async (8 columns; the halo
 //    rounded up to 8 columns so every row starts aligned); the input
@@ -173,12 +175,11 @@ constexpr float kEps = 1e-5f;   // BatchStatsNorm eps
 
 using bf16 = __nv_bfloat16;
 
-// The instances that run the bf16 chain on the tensor cores (note 9):
-// K6's and K7's bf16 instances; the fp32 and the one-layer instances keep
-// the FFMA tiles.
-template <typename T, int kLayers>
-constexpr bool kTensorCores =
-    std::is_same<T, bf16>::value && kLayers == kMaxLayers;
+// The instances that run on the tensor cores (note 9): every bf16
+// instance, K6's and K7's chain and K8's and K9's one layer; the fp32
+// instances keep the FFMA tiles.
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, bf16>::value;
 
 // Floats that n elements of a storage type of esize bytes take.
 __host__ __device__ inline size_t elem_floats(size_t n, int esize) {
@@ -205,10 +206,6 @@ __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 // Loads as fp32: through L2 (ld_cg, for what the launch itself writes) or
 // the read-only path (ld_in, for its inputs).
 __device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ld_cg(const bf16* p) {
-  return __uint_as_float(
-      (unsigned)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
-}
 __device__ __forceinline__ float ld_in(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ld_in(const bf16* p) {
   return __uint_as_float(
@@ -279,10 +276,11 @@ inline int split_for(int N, int rt) {
   return ks;
 }
 
-// The tensor-core path's least column tile (tc: the bf16 chain): a whole
-// number of 32-column blocks, so each product's 16-column jobs and k steps
-// and the z tile's swizzle (tc::zsw) stay inside the tile; and its largest
-// backward tile, so the backward's bf16 tile fits two blocks an SM.
+// The tensor-core path's least column tile (tc: the bf16 instances): a
+// whole number of 32-column blocks, so each product's 16-column jobs and k
+// steps and the z tile's swizzle (tc::zsw) stay inside the tile; and its
+// largest backward tile, so the backward's bf16 tile fits two blocks an
+// SM.
 constexpr int kTcMinTN = 32;
 constexpr int kTcMaxTNb = 256;
 
@@ -328,10 +326,10 @@ inline void derive(Chain& c, bool tc = false) {
   c.stat_floats = stat;
 }
 
-// The bf16 chain's tensor-core layout (the bf16 instances of K6 and K7;
-// note 9). Sizes in bf16 elements: a layer's tile of tn columns stages hr
-// columns each side (its halo rounded up to 8, so each staged row starts
-// 16-byte aligned) in raw rows ldr apart, and its product operands in rows
+// The tensor-core layout (the bf16 instances of K6-K9; note 9). Sizes in
+// bf16 elements: a layer's tile of tn columns stages hr columns each side
+// (its halo rounded up to 8, so each staged row starts 16-byte aligned) in
+// raw rows ldr apart, and its product operands in rows
 // ldh apart (a row stride of 16 bytes times an odd number, so ldmatrix's
 // eight rows fall on distinct banks); kf = taps cin and kb = taps cout
 // rounded up to 16 (the mma's k), cf = cout and cb = cin rounded up to 8
@@ -439,7 +437,7 @@ inline int layout(Chain& c, int w_need, int x_need, int tile_need) {
 }
 
 // The backward kernels' plan: the derived fields and the layout (tc: the
-// bf16 chain's tensor-core tile and weights). 0, or 1 where the chain
+// bf16 instances' tensor-core tile and weights). 0, or 1 where the chain
 // exceeds what the kernel takes (the caller refuses it).
 inline int plan(Chain& c, bool tc = false) {
   derive(c, tc);
@@ -492,9 +490,9 @@ constexpr int kStoreFloats = 32768;
 
 // Floats of the store at a grid of `grid` blocks: the most that one block's
 // tiles of z take (ceil(tiles / grid) tiles of cout x tn_f; tc, the bf16
-// chain: bf16 tiles, half the floats) over the layers whose z the forward
-// reads again: the last (the normalize-out pass) and each one with a
-// centered variance (its second pass).
+// instances: bf16 tiles, half the floats) over the layers whose z the
+// forward reads again: the last (the normalize-out pass) and each one with
+// a centered variance (its second pass).
 inline int store_floats(const Chain& c, int grid, bool tc = false) {
   int need = 0;
   for (int l = 0; l < c.nl; ++l) {
@@ -511,7 +509,7 @@ inline int store_floats(const Chain& c, int grid, bool tc = false) {
 // and the layout (the staged tile with its halo, the layer's weights, the
 // statistics, no g buffers or dW slots), with the store where it fits
 // kStoreFloats at this grid (L[l].keep set for the layers it serves); tc:
-// the bf16 chain's tensor-core tile and weights.
+// the bf16 instances' tensor-core tile and weights.
 inline void plan_fwd(Chain& c, int grid, bool tc = false) {
   derive(c, tc);
   int w_need = 0, tile_need = kTileOut;  // the z tile with the groups' exchange
@@ -680,42 +678,29 @@ __device__ __forceinline__ void sum_slots(const Smem& s, const float* part,
   __syncthreads();
 }
 
-// Layer l's weights for the forward product: wf[(t cin + ci) rt_o + co] =
-// W[t, co, ci], rows co >= cout zero (4-byte copies: the layout turns; bf16
-// by plain loads). One warp a row (t, co) of W, its lanes along ci.
-template <typename T>
+// Layer l's fp32 weights for the forward product (the FFMA tiles; the
+// bf16 instances stage theirs by tc::stage_w_fwd): wf[(t cin + ci) rt_o +
+// co] = W[t, co, ci], rows co >= cout zero (4-byte copies: the layout
+// turns). One warp a row (t, co) of W, its lanes along ci.
 __device__ __forceinline__ void stage_w_fwd(const Layer& p, float* wf) {
   const int rt = p.rt_o, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* w = static_cast<const T*>(p.w);
+  const float* w = static_cast<const float*>(p.w);
   for (int row = warp; row < p.taps * p.cout; row += kWarps) {
     const int t = row / p.cout, co = row - t * p.cout;
-    for (int ci = lane; ci < p.cin; ci += 32) {
-      float* d = wf + (t * p.cin + ci) * rt + co;
-      if constexpr (std::is_same<T, float>::value)
-        cp_async4(d, w + (size_t)row * p.cin + ci);
-      else
-        *d = ld_in(w + (size_t)row * p.cin + ci);
-    }
+    for (int ci = lane; ci < p.cin; ci += 32)
+      cp_async4(wf + (t * p.cin + ci) * rt + co, w + (size_t)row * p.cin + ci);
   }
   const int pad = rt - p.cout;
   for (int k = warp; k < p.taps * p.cin; k += kWarps)
     for (int j = lane; j < pad; j += 32) wf[k * rt + p.cout + j] = 0.0f;
 }
 
-// Layer l's weights for g_h: wb[(t cout + co) rt_i + ci] = W[t, co, ci],
+// Layer l's fp32 weights for g_h (the FFMA tiles; the bf16 instances'
+// are tc::stage_w_bwd): wb[(t cout + co) rt_i + ci] = W[t, co, ci],
 // columns ci >= cin zero; 16-byte copies where cin % 4 == 0 (and W is
-// 16-byte aligned), else 4-byte ones; bf16 by plain loads.
-template <typename T>
+// 16-byte aligned), else 4-byte ones.
 __device__ __forceinline__ void stage_w_bwd(const Layer& p, float* wb) {
   const int rt = p.rt_i, rows = p.taps * p.cout;
-  if constexpr (!std::is_same<T, float>::value) {
-    const T* w = static_cast<const T*>(p.w);
-    for (int e = threadIdx.x; e < rows * rt; e += kThreads) {
-      const int r = e / rt, j = e - r * rt;
-      wb[e] = j < p.cin ? ld_in(w + (size_t)r * p.cin + j) : 0.0f;
-    }
-    return;
-  }
   const float* w = static_cast<const float*>(p.w);
   if ((p.cin & 3) == 0 && (reinterpret_cast<size_t>(w) & 15) == 0) {
     const int v = rt >> 2;
@@ -788,61 +773,18 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld,
   }
 }
 
-// The same from bf16 rows, converted to fp32 on the way: plain loads
-// through L2 (the anchors and g buffers are written in the launch), 4 bytes
-// (two columns) where N and base are even and the rows 4-byte aligned (a
-// pair then lies wholly inside or outside [0, N); the second column is
-// stored only inside width, since ld may equal width), else 2 bytes. One
-// warp a row; stored before the function returns.
-__device__ __forceinline__ void copy_rows(float* dst, int ld, const bf16* src,
-                                          int rows, int base, int width,
-                                          int N) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (((N | base) & 1) == 0 && (reinterpret_cast<size_t>(src) & 3) == 0) {
-    const int w2 = (width + 1) >> 1;
-    for (int r = warp; r < rows; r += kWarps) {
-      const unsigned* sr =
-          reinterpret_cast<const unsigned*>(src + (size_t)r * N);
-      float* d = dst + r * ld;
-#pragma unroll 4
-      for (int j2 = lane; j2 < w2; j2 += 32) {
-        const int j = 2 * j2, n = base + j;
-        float lo = 0.0f, hi = 0.0f;
-        if ((unsigned)n < (unsigned)N) {
-          const unsigned v = __ldcg(sr + (n >> 1));
-          lo = __uint_as_float(v << 16);  // column n: the low half
-          hi = __uint_as_float(v & 0xffff0000u);
-        }
-        d[j] = lo;
-        if (j + 1 < width) d[j + 1] = hi;
-      }
-    }
-    return;
-  }
-  for (int r = warp; r < rows; r += kWarps) {
-    const bf16* sr = src + (size_t)r * N;
-    float* d = dst + r * ld;
-#pragma unroll 4
-    for (int j = lane; j < width; j += 32) {
-      const int n = base + j;
-      d[j] = (unsigned)n < (unsigned)N ? ld_cg(sr + n) : 0.0f;
-    }
-  }
-}
-
 // Layer l's input rows for the tile's columns n0 - halo .. (width of
 // them, ld apart): x for the first layer, else the previous layer's
-// anchor, copied raw and then turned in place into ReLU(z sc + sh) rounded
-// to T, once per element (0 stays outside [0, N)). Ends with every
-// element in place for every thread.
-template <typename T>
+// anchor, copied raw and then turned in place into ReLU(z sc + sh), once
+// per element (0 stays outside [0, N)). Ends with every element in place
+// for every thread.
 __device__ __forceinline__ void stage_input(const Smem& s, int l,
-                                            const T* x, int n0, int halo,
+                                            const float* x, int n0, int halo,
                                             int width, int ld, float* dst) {
   const Chain& c = *s.c;
   const int cin = c.L[l].cin, base = n0 - halo, N = c.N;
-  copy_rows(dst, ld, l == 0 ? x : static_cast<const T*>(c.L[l - 1].z), cin,
-            base, width, N);
+  copy_rows(dst, ld, l == 0 ? x : static_cast<const float*>(c.L[l - 1].z),
+            cin, base, width, N);
   cp_async_wait_all();
   __syncthreads();
   if (l == 0) return;
@@ -854,7 +796,7 @@ __device__ __forceinline__ void stage_input(const Smem& s, int l,
       const int n = base + j;
       float* d = dst + ci * ld + j;
       if ((unsigned)n < (unsigned)N)
-        *d = rnd<T>(fmaxf(fmaf(*d, sc, sh), 0.0f));
+        *d = fmaxf(fmaf(*d, sc, sh), 0.0f);
     }
   }
   __syncthreads();
@@ -970,12 +912,12 @@ __device__ __forceinline__ void fwd_product(const Layer& p, const float* wf,
 // g_h over the tile's columns: gout[ci, n0 + c] = sum_{t, co} W[t, co, ci]
 // g_z[co, c - s_t] ok_t(c - s_t), with g_z staged (rows ld apart, halo
 // columns each side). The tile's tn columns are tn / CT product tiles;
-// the groups split co and meet in xb. gout is rounded to T.
-template <typename T, int RT, int TAPS, int KS>
+// the groups split co and meet in xb.
+template <int RT, int TAPS, int KS>
 __device__ __forceinline__ void gh_product(const Chain& c, const Layer& p,
                                            const float* wb, const float* gz,
                                            int ld, const unsigned char* msk,
-                                           int n0, int tn, T* gout,
+                                           int n0, int tn, float* gout,
                                            float* xb) {
   using S = Shape<RT, KS>;
   const int grp = threadIdx.x / S::TG, lt = threadIdx.x % S::TG;
@@ -1026,7 +968,7 @@ __device__ __forceinline__ void gh_product(const Chain& c, const Layer& p,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int n = n0 + c0 + tx + S::TX * q;
-          if (n < N) gout[(size_t)ci * N + n] = from_f<T>(acc[i][q]);
+          if (n < N) gout[(size_t)ci * N + n] = acc[i][q];
         }
       }
     if (KS > 1) __syncthreads();  // xb is free for the next product tile
@@ -1177,12 +1119,11 @@ static __device__ unsigned long long ns[2];
   } while (0)
 #endif
 
-// One forward tile of layer p: the product, then z = acc + b (in T's
-// rounding: bf16(bf16(acc) + b)) into zt (CT columns a row, in shared
-// memory: over the staged input xs, or the block's store, for the row
-// sums) and, where the layer has one, into the anchor in device memory.
-// The groups meet over xs.
-template <typename T, int RT, int TAPS, int KS>
+// One forward tile of layer p: the product, then z = acc + b into zt (CT
+// columns a row, in shared memory: over the staged input xs, or the
+// block's store, for the row sums) and, where the layer has one, into the
+// anchor in device memory. The groups meet over xs.
+template <int RT, int TAPS, int KS>
 __device__ __forceinline__ void fwd_tile(const Chain& c, const Layer& p,
                                          const float* wf, const float* h,
                                          int ld, const unsigned char* msk,
@@ -1195,18 +1136,18 @@ __device__ __forceinline__ void fwd_tile(const Chain& c, const Layer& p,
   const int grp = threadIdx.x / S::TG, lt = threadIdx.x % S::TG;
   if (grp > 0) return;
   const int ty = lt / S::TX, tx = lt % S::TX, N = c.N;
-  T* z_out = static_cast<T*>(p.z);
+  float* z_out = static_cast<float*>(p.z);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
     if (r >= p.cout) continue;
-    const float b = ld_in(static_cast<const T*>(p.b) + r);
+    const float b = ld_in(static_cast<const float*>(p.b) + r);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int j = tx + S::TX * q, n = n0 + j;
-      const float z = rnd<T>(rnd<T>(acc[i][q]) + b);
+      const float z = acc[i][q] + b;
       zt[r * S::CT + j] = z;
-      if (z_out && n < N) z_out[(size_t)r * N + n] = from_f<T>(z);
+      if (z_out && n < N) z_out[(size_t)r * N + n] = z;
     }
   }
 }
@@ -1227,15 +1168,14 @@ __device__ __forceinline__ void fwd_tile(const Chain& c, const Layer& p,
     default: { constexpr int KS = 4; CALL; } break; \
   }
 
-template <typename T>
 static __device__ __noinline__ void fwd_tile_any(const Chain& c, const Layer& p,
                                                  const float* wf, const float* h,
                                                  int ld, const unsigned char* msk,
                                                  int n0, float* zt, float* xs) {
   if (p.taps == 1) {
-    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<T, RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   } else {
-    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<T, RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   }
 }
 
@@ -1244,29 +1184,28 @@ static __device__ __noinline__ void fwd_tile_any(const Chain& c, const Layer& p,
 // 128-register cap would otherwise save live values around the call), or
 // the out-of-line fwd_tile_any (the backward kernels: their products
 // inlined as well would double their build).
-template <typename T, bool kInline>
+template <bool kInline>
 __device__ __forceinline__ void fwd_tile_at(const Chain& c, const Layer& p,
                                             const float* wf, const float* h,
                                             int ld, const unsigned char* msk,
                                             int n0, float* zt, float* xs) {
   if constexpr (!kInline) {
-    fwd_tile_any<T>(c, p, wf, h, ld, msk, n0, zt, xs);
+    fwd_tile_any(c, p, wf, h, ld, msk, n0, zt, xs);
   } else if (p.taps == 1) {
-    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<T, RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 1, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   } else {
-    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<T, RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
+    SQNXT_RT_SWITCH(p.rt_o, SQNXT_KS_SWITCH(p.ks_f, (fwd_tile<RT, 3, KS>(c, p, wf, h, ld, msk, n0, zt, xs))))
   }
 }
 
-template <typename T>
 static __device__ __noinline__ void gh_any(const Chain& c, const Layer& p,
                                            const float* wb, const float* gz, int ld,
                                            const unsigned char* msk, int n0, int tn,
-                                           T* gout, float* xb) {
+                                           float* gout, float* xb) {
   if (p.taps == 1) {
-    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<T, RT, 1, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
+    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<RT, 1, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
   } else {
-    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<T, RT, 3, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
+    SQNXT_RT_SWITCH(p.rt_i, SQNXT_KS_SWITCH(p.ks_b, (gh_product<RT, 3, KS>(c, p, wb, gz, ld, msk, n0, tn, gout, xb))))
   }
 }
 
@@ -1284,9 +1223,9 @@ static __device__ __noinline__ void dw_any(const Layer& p, const float* gz,
 #undef SQNXT_RT_SWITCH
 #undef SQNXT_KS_SWITCH
 
-// -- the bf16 chain on the tensor cores -------------------------------------
+// -- the bf16 instances on the tensor cores ---------------------------------
 //
-// K6's and K7's bf16 instances (note 9). Every operand is a bf16 value
+// K6's-K9's bf16 instances (note 9). Every operand is a bf16 value
 // staged as bf16: raw rows by 16-byte cp.async, then, for a layer with
 // three taps, one row per (tap, channel) holding the row shifted by the
 // tap and masked at the image border (the mask baked in, so the products
@@ -1537,7 +1476,9 @@ __device__ __forceinline__ void turn_rows(const Smem& s, int st, u16* R,
 // 0) or the previous layer's rnd(ReLU(z sc + sh)) (the fp32 path's
 // stage_input form; 0 outside [0, N)), from the raw rows R (column hr at
 // n0), turned in place first; rows taps cin .. kf - 1 zero. One tap: R is
-// Hs. Ends without a barrier.
+// Hs. Layer 0 with three taps (a one-layer launch of the (1,3) or (3,1)
+// conv) builds its tap rows from the raw rows as staged, which the
+// caller's barrier after the copy has published. Ends without a barrier.
 __device__ __forceinline__ void build_input(const Smem& s, int l,
                                             const Layer& p, const Geo& g,
                                             u16* R, u16* Hs,
@@ -1868,7 +1809,8 @@ __device__ __forceinline__ float* slot_of(float* part, size_t slot_size,
 // (tile k of the block at zs + k cout tn_f). kBackward (K7, K9): the
 // backward's first weights are copied in after the last layer, and the
 // tiles' products are called out of line (fwd_tile_at). kTC: the bf16
-// chain's tiles on the tensor cores (tc::fwd_tile; its z tiles swizzled).
+// instances' tiles on the tensor cores (tc::fwd_tile; its z tiles
+// swizzled).
 template <typename T, bool kBackward, bool kTC = false>
 __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
                                                float* part, size_t slot_size,
@@ -1879,7 +1821,7 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
   if constexpr (kTC)
     tc::stage_w_fwd(c.L[0], s.w);
   else
-    stage_w_fwd<T>(c.L[0], s.w);
+    stage_w_fwd(c.L[0], s.w);
 #pragma unroll 1
   for (int l = 0; l < c.nl; ++l) {
     const Layer& p = c.L[l];
@@ -1906,8 +1848,8 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
         stage_masks(c, p, n0, tn, s.msk);
         __syncthreads();
         if (first) SQNXT_MARK(kMarkSub + 3 * l);
-        fwd_tile_at<T, !kBackward>(c, p, s.w, s.tile, ld, s.msk, n0, zt,
-                                   s.tile);
+        fwd_tile_at<!kBackward>(c, p, s.w, s.tile, ld, s.msk, n0, zt,
+                                s.tile);
         __syncthreads();
         if (first) SQNXT_MARK(kMarkSub + 3 * l + 1);
         for (int r = warp; r < p.cout; r += kWarps) {
@@ -1937,9 +1879,9 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
       else if (kBackward)
         tc::stage_w_bwd(p, s.w);
     } else if (l + 1 < c.nl) {
-      stage_w_fwd<T>(c.L[l + 1], s.w);
+      stage_w_fwd(c.L[l + 1], s.w);
     } else if (kBackward) {
-      stage_w_bwd<T>(p, s.w);
+      stage_w_bwd(p, s.w);
     }
     float* sl = slot_of(part, slot_size, slot);
     if (blockIdx.x < ntiles) write_slot(s, 2, p.cout, sl);
@@ -1960,24 +1902,32 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
       for (int tile = blockIdx.x, k = 0; tile < ntiles;
            tile += gridDim.x, ++k) {
         const int n0 = tile * tn, cols = min(tn, N - n0);
+        // kTC: z in bf16, the store's tiles swizzled (tc::zsw), a tile
+        // copied from the anchor not
         const float* zt = s.zs + k * p.cout * tn;
+        const tc::u16* z16 =
+            reinterpret_cast<const tc::u16*>(s.zs) + k * p.cout * tn;
+        bool sw = kTC;
         if (!p.keep) {
-          copy_rows(s.tile, tn, static_cast<const T*>(p.z), p.cout, n0, cols,
-                    N);
+          if constexpr (kTC)
+            tc::copy_rows(reinterpret_cast<tc::u16*>(s.tile), tn,
+                          static_cast<const bf16*>(p.z), p.cout, n0, cols, N);
+          else
+            copy_rows(s.tile, tn, static_cast<const T*>(p.z), p.cout, n0,
+                      cols, N);
           cp_async_wait_all();
           __syncthreads();
           zt = s.tile;
+          z16 = reinterpret_cast<const tc::u16*>(s.tile);
+          sw = false;
         }
-        // kTC: the store's tiles are bf16, swizzled
-        const bool bf = kTC && p.keep;
-        const tc::u16* z16 =
-            reinterpret_cast<const tc::u16*>(s.zs) + k * p.cout * tn;
         for (int r = warp; r < p.cout; r += kWarps) {
           const float m = s.mean[p.stat + r];
           float v = 0.0f;
           for (int j = lane; j < cols; j += 32) {
             const float d =
-                (bf ? tc::f(z16[r * tn + tc::zsw(r, j)]) : zt[r * tn + j]) -
+                (kTC ? tc::f(z16[r * tn + (sw ? tc::zsw(r, j) : j)])
+                     : zt[r * tn + j]) -
                 m;
             v += d * d;
           }
@@ -2005,32 +1955,24 @@ __device__ __forceinline__ void forward_layers(const Smem& s, const T* x,
   }
 }
 
-// The forward kernels' output: out = ReLU(z sc + sh) of the last layer
-// over this block's tiles of it (the form of the staging and of the
-// backward's ReLU gates), rounded to T, z read from the store where the
-// layer keeps it, else from its anchor; fp32: 16-byte loads and stores
-// where N is a multiple of 4 (every tile's first column is).
-template <typename T>
-__device__ __forceinline__ void normalize_out(const Smem& s, T* out) {
+// The fp32 forward kernels' output (the bf16 instances' is
+// tc::normalize_out): out = ReLU(z sc + sh) of the last layer over this
+// block's tiles of it (the form of the staging and of the backward's ReLU
+// gates), z read from the store where the layer keeps it, else from its
+// anchor; 16-byte loads and stores where N is a multiple of 4 (every
+// tile's first column is).
+__device__ __forceinline__ void normalize_out(const Smem& s, float* out) {
   const Chain& c = *s.c;
   const Layer& p = c.L[c.nl - 1];
   const int N = c.N, R = p.cout, tn = p.tn_f, st = p.stat;
   const int ntiles = (N + tn - 1) / tn;
   const int lg = __ffs(tn) - 1;  // tn is a power of two
   const bool keep = p.keep;
-  const T* z = static_cast<const T*>(p.z);
+  const float* z = static_cast<const float*>(p.z);
   for (int tile = blockIdx.x, k = 0; tile < ntiles; tile += gridDim.x, ++k) {
     const int n0 = tile * tn, cols = min(tn, N - n0);
     const float* zt = s.zs + k * R * tn;
-    if constexpr (!std::is_same<T, float>::value) {
-      for (int e = threadIdx.x; e < R * tn; e += kThreads) {
-        const int r = e >> lg, j = e & (tn - 1);
-        if (j >= cols) continue;
-        const size_t o = (size_t)r * N + n0 + j;
-        const float v = keep ? zt[e] : ld_cg(z + o);
-        out[o] = from_f<T>(fmaxf(fmaf(v, s.sc[st + r], s.sh[st + r]), 0.0f));
-      }
-    } else if ((N & 3) == 0) {
+    if ((N & 3) == 0) {
       for (int e = 4 * threadIdx.x; e < R * tn; e += 4 * kThreads) {
         const int r = e >> lg, j = e & (tn - 1);
         if (j >= cols) continue;
@@ -2057,12 +1999,10 @@ __device__ __forceinline__ void normalize_out(const Smem& s, T* out) {
 // g_z of layer l in place over its staged anchor rows (dst[co * ld + j]
 // at n = n0 - halo + j, 0 outside [0, N)), with g loaded from device
 // memory: each warp walks its rows' elements 16 at a time, all 16 loads
-// in flight before any is used. g_z is rounded to T (the JAX kernels'
-// g_zd). Then d_b's row sums over the tile's own columns into acc[0][co].
-// Ends with g_z in place for every thread.
-template <typename T>
+// in flight before any is used. Then d_b's row sums over the tile's own
+// columns into acc[0][co]. Ends with g_z in place for every thread.
 __device__ __forceinline__ void stage_gz(const Smem& s, int l,
-                                         const T* gin, int n0, int tn,
+                                         const float* gin, int n0, int tn,
                                          int ld, float* dst) {
   const Chain& c = *s.c;
   const Layer& p = c.L[l];
@@ -2103,7 +2043,7 @@ __device__ __forceinline__ void stage_gz(const Smem& s, int l,
                zh * (s.red[3 * kMaxC + r] * c.inv_n)) *
               isr;
         }
-        *d = rnd<T>(v);
+        *d = v;
       }
       if (++jj == iters) {
         jj = 0;
@@ -2123,7 +2063,7 @@ __device__ __forceinline__ void stage_gz(const Smem& s, int l,
 
 // Stage-exact backprop of layer l: gin the cotangent of its output, gout
 // of its input (complete at this function's grid.sync). kTC: the bf16
-// chain's pass A staged raw by cp.async and pass B on the tensor cores
+// instances' pass A staged raw by cp.async and pass B on the tensor cores
 // (tc::bwd_tile).
 template <typename T, bool kTC = false>
 __device__ __forceinline__ void backward_layer(const Smem& s, int l,
@@ -2217,12 +2157,12 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
       tc::bwd_tile(s, l, x, gin, gout, n0, mine, first);
     } else {
       copy_rows(gz, ld, z, R, n0 - p.halo, width, N);  // waited below
-      stage_input<T>(s, l, x, n0, p.halo, width, ld, h);
-      stage_gz<T>(s, l, gin, n0, tn, ld, gz);
+      stage_input(s, l, x, n0, p.halo, width, ld, h);
+      stage_gz(s, l, gin, n0, tn, ld, gz);
       stage_masks(c, p, n0, tn, s.msk);
       __syncthreads();
       if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l);
-      gh_any<T>(c, p, s.w, gz, ld, s.msk, n0, tn, gout, s.x);
+      gh_any(c, p, s.w, gz, ld, s.msk, n0, tn, gout, s.x);
       if (first) SQNXT_MARK(kMarkSub + 15 + 3 * l + 1);
       dw_any(p, gz, h, ld, s.msk, tn, s.tile, mine, first);
       __syncthreads();
@@ -2234,7 +2174,7 @@ __device__ __forceinline__ void backward_layer(const Smem& s, int l,
     if constexpr (kTC)
       tc::stage_w_bwd(c.L[l - 1], s.w);
     else
-      stage_w_bwd<T>(c.L[l - 1], s.w);
+      stage_w_bwd(c.L[l - 1], s.w);
   }
   float* sl2 = slot_of(part, slot_size, slot);
   if (blockIdx.x < ntiles) write_slot(s, 1, R, sl2);

@@ -395,7 +395,7 @@ def _tile_columns(meta: SqnxtMeta, rt: int) -> int:
 def fwd_tile_columns(meta: SqnxtMeta, li: int, tc: bool = False) -> int:
     """Columns of one forward tile of layer li (csrc/sqnxt_tiles.cuh's
     tn_f): ``_tile_columns`` at RT, the layer's rows rounded up to 8-128;
-    ``tc`` (the bf16 chain on the tensor cores): at least
+    ``tc`` (the bf16 instances on the tensor cores): at least
     TC_MIN_COLUMNS."""
     tn = _tile_columns(meta, _row_tile(meta.cdims[li + 1]))
     return max(tn, TC_MIN_COLUMNS) if tc else tn
@@ -418,11 +418,12 @@ def _halo(meta: SqnxtMeta, li: int) -> int:
                                             else meta.W)
 
 
-def tensor_cores(lis: Sequence[int], esize: int) -> bool:
-    """Whether a launch runs its products on the tensor cores: the bf16
-    chain (K6's and K7's bf16 instances); the fp32 and one-layer instances
-    keep the FFMA tiles (csrc/sqnxt_tiles.cuh's kTensorCores)."""
-    return esize == 2 and len(lis) == 5
+def tensor_cores(esize: int) -> bool:
+    """Whether a launch runs its products on the tensor cores: every bf16
+    instance, the chain's (K6, K7) and the one-layer ones (K8, K9); the
+    fp32 instances keep the FFMA tiles (csrc/sqnxt_tiles.cuh's
+    kTensorCores)."""
+    return esize == 2
 
 
 def _r(v: int, m: int) -> int:
@@ -495,11 +496,11 @@ def stage_layout(meta: SqnxtMeta, lis: Sequence[int], esize: int = 4,
     regions a launch's plan lays out for the staged tile and the staged
     weights (csrc/sqnxt_fwd.cu's pnode_sqnxt_layout): the most any layer
     of ``lis`` needs, the tile at least TILE_OUT floats, each rounded up to
-    4. The bf16 chain takes the tensor-core layout (bf16 operands, K
-    padded to 16, Cout and Cin to 8; ``_tc_layout``), the other instances
-    the FFMA tiles' (``_ffma_layout``)."""
+    4. The bf16 instances take the tensor-core layout (bf16 operands, K
+    padded to 16, Cout and Cin to 8; ``_tc_layout``), the fp32 ones the
+    FFMA tiles' (``_ffma_layout``)."""
     lis = _chain_layers(meta, lis, 1)
-    tc = tensor_cores(lis, esize)
+    tc = tensor_cores(esize)
     one = _tc_layout if tc else _ffma_layout
     sizes = [one(meta, li, backward) for li in lis]
     tile = max([TILE_OUT] + [t for t, _ in sizes])
@@ -522,18 +523,18 @@ def fwd_scratch_floats(meta: SqnxtMeta, lis: Sequence[int], grid: int,
     writes one (the next layer's halo comes from other blocks); the last
     writes none where the kernel keeps the z it reads again in shared
     memory: the store (the most one block's tiles of z take, over the last
-    layer and those with a centered variance; the bf16 chain's tiles are
-    bf16, at least TC_MIN_COLUMNS wide) fits STORE_FLOATS at this grid.
-    Raises ValueError for a chain the kernels do not take."""
+    layer and those with a centered variance; the bf16 instances' tiles
+    are bf16, at least TC_MIN_COLUMNS wide) fits STORE_FLOATS at this
+    grid. Raises ValueError for a chain the kernels do not take."""
     lis = _chain_layers(meta, lis, grid)
-    N, store, tc = meta.n_real, 0, tensor_cores(lis, esize)
+    N, store, tc = meta.n_real, 0, tensor_cores(esize)
     for k, li in enumerate(lis):
         if k + 1 < len(lis) and meta.single_pass[li]:
             continue
         tn = fwd_tile_columns(meta, li, tc)
         tiles = -(-N // tn)
         store = max(store, -(-tiles // grid) * meta.cdims[li + 1] * tn)
-    if tc:  # the bf16 chain's z tiles are bf16
+    if tc:  # the bf16 instances' z tiles are bf16
         store = -(-store // 2)
     anchors = [meta.cdims[li + 1] for li in lis[:-1]]
     if store > STORE_FLOATS:

@@ -1,4 +1,4 @@
-"""Where K6's, K7's and K9's time goes: per-phase microseconds of a launch.
+"""Where K6's-K9's time goes: per-phase microseconds of a launch.
 
 Run on a machine with the card, from the repository root::
 
@@ -8,11 +8,12 @@ It builds the kernels a second time with ``-DSQNXT_TRACE`` (into its own
 library beside the usual one), under which thread 0 of block 0 of a K6-K9
 launch stores ``clock64()`` at each phase boundary (csrc/sqnxt_tiles.cuh).
 At the three ODE stage shapes of SqNxt-23 at B 128 (the inputs of
-``compare_kernels``), it runs K6 and K7 at each stage and K9 on each layer
-of stage 1, after a warm-up call, and prints block 0's view of each phase:
-a pass's own tiles (and inside its first tile, the staging, the products
-and the row sums), then the grid barrier with the partial sums after it
-(which includes waiting for the slowest block), and K6's normalize-out
+``compare_kernels``), it runs K6 and K7 at each stage and K8 and K9 on
+each layer of stage 1 (K8 and K9 on the plain forward's layer inputs),
+after a warm-up call, and prints block 0's view of each phase: a pass's
+own tiles (and inside its first tile, the staging, the products and the
+row sums), then the grid barrier with the partial sums after it (which
+includes waiting for the slowest block), and K6's and K8's normalize-out
 pass. Cycles become microseconds at the rate of the launch's own
 globaltimer. ``--dtype bf16`` runs the bf16 instances on the same values
 rounded to bf16 (x, g, the taps and b; gamma and beta stay fp32, as
@@ -111,6 +112,11 @@ def main(argv=None):
                 hs.append(h)
                 h = fs.fused_sqnxt_layer_plain(h, fs._layer(flat, li), meta,
                                                li)
+            for li in range(5):
+                runs.append((f"K8 layer {li}", lambda li=li:
+                             fs.fused_sqnxt_layer_fwd(hs[li],
+                                                      fs._layer(flat, li),
+                                                      meta, li), 1, False))
             for li in range(5):
                 gl = g[:meta.cdims[li + 1]].contiguous()
                 runs.append((f"K9 layer {li}", lambda li=li, gl=gl:

@@ -1,24 +1,30 @@
-"""The bf16 chain on the tensor cores (K6's and K7's bf16 instances): the
-plan mirrors pinned, and the products' sum order held against the JAX
-package's kernels.
+"""The bf16 instances on the tensor cores (K6's and K7's chain, K8's and
+K9's one layer): the plan mirrors pinned, and the products' sum order held
+against the JAX package's kernels.
 
-The bf16 chain stages its operands as bf16 and runs every product on
+The bf16 instances stage their operands as bf16 and run every product on
 mma.sync.m16n8k16 (csrc/sqnxt_tiles.cuh, note 9): K = taps x Cin (forward)
 or taps x Cout (g_h) padded to a multiple of 16, Cout and Cin padded to 8,
 the halo staged to a multiple of 8 columns, column tiles of at least 32.
 ``stage_layout``, ``tc_geometry``, the tile columns and the scratch mirror
 the C plans (phase 2 of chip_smoke.py holds them equal on the card); they
-are pinned here at the three stage shapes of SqNxt-23 at B 128 and at
-every chip_smoke SQNXT_EDGES case, and the fp32 and one-layer layouts at
-their values from before the tensor-core path.
+are pinned here at the three stage shapes of SqNxt-23 at B 128, at stage 1
+at B 256 (where the bf16 model runs K8 and K9) and at every chip_smoke
+SQNXT_EDGES and SQNXT_BF16_EDGES case, and the fp32 layouts at their
+values from before the tensor-core path.
 
 The mma sums each output in fp32 over k in chunks of 16, the chunks added
-in order: ``tc_chain`` emulates that order (each chunk's exact sum rounded
-to fp32, then added) for the plain bf16 chain forward and backward, dW in
-K7's whole order (per backward tile, then each block's slot, then the
-blocks as one warp sums them), and the emulation is held against JAX's ``_fwd_kernel`` and
-``_bwd_kernel`` in interpret mode within chip_smoke's BF16_TOL (2^-6 of
-max |ref| per tensor), the gate the card holds the kernels to."""
+in order: ``tc_chain`` emulates that order (each chunk's exact sum
+rounded to fp32, then added) for the plain bf16 chain and, ``layered``,
+the plain bf16 layers one launch each, forward and backward, dW in the
+kernel's whole order (per backward tile, then each block's slot, then the
+blocks as one warp sums them; K7's grid for the chain, each K9 launch's
+own for a layer), and each emulation is held against JAX's kernels in
+interpret mode
+(``_fwd_kernel`` and ``_bwd_kernel``; ``_fwd_layer_kernel`` and
+``_bwd_layer_kernel`` through ``_core_layered``) within chip_smoke's
+BF16_TOL (2^-6 of max |ref| per tensor), the gate the card holds the
+kernels to."""
 
 import jax
 import jax.numpy as jnp
@@ -142,9 +148,66 @@ FFMA_PLANS = {
                            ((4096, 128), (12288, 128)))),
 }
 
+# the one-layer launches' shapes: the chain's, and stage 1 at B 256, where
+# the bf16 model runs stage 1 layered (K8 and K9)
+LAYER_SHAPES = dict(SHAPES, **{"stage 1 B256": (32, 256, 32, 32)})
+LAYER_PADS = dict(PADS, **{"stage 1 B256": PADS["stage 1"]})
+
+# K8's and K9's bf16 instances, each layer alone on the tensor cores: per
+# layer (tile floats, weight floats) of the forward and of the backward,
+# and the scratch floats of K8 and K9 at a grid of 264 (K8 keeps its one
+# z in the store but for B1280's last layer, 20 tiles of 16 x 256 a block)
+TC_LAYER_PLANS = {
+    "stage 1": (((6272, 320), (8448, 384), 270336, 405504),
+                ((6208, 96), (6208, 192), 270336, 304128),
+                ((7392, 320), (16160, 320), 270336, 371712),
+                ((11008, 448), (20544, 448), 270336, 473088),
+                ((4096, 384), (10560, 384), 270336, 405504)),
+    "stage 2": (((6400, 1152), (8704, 1280), 270336, 811008),
+                ((4096, 320), (4352, 384), 270336, 405504),
+                ((6528, 896), (15872, 896), 270336, 675840),
+                ((11264, 1664), (21120, 1664), 270336, 1081344),
+                ((4096, 1280), (10880, 1280), 270336, 811008)),
+    "stage 3": (((4096, 4352), (5120, 4608), 270336, 2433024),
+                ((4096, 1152), (4096, 1280), 270336, 811008),
+                ((4096, 3328), (10240, 3328), 270336, 1892352),
+                ((6656, 6400), (13056, 6400), 270336, 3514368),
+                ((4096, 4608), (6400, 4608), 270336, 2433024)),
+    "ragged B3 5x7 dim 16": (((4096, 96), (4096, 192), 270336, 304128),
+                             ((4096, 96), (4096, 96), 270336, 278784),
+                             ((4096, 96), (4784, 160), 270336, 295680),
+                             ((4096, 160), (6176, 160), 270336, 321024),
+                             ((4096, 192), (4096, 192), 270336, 304128)),
+    "dim 48 B4 8x8": (((4096, 672), (4096, 960), 270336, 574464),
+                      ((4096, 320), (4096, 320), 270336, 346368),
+                      ((4096, 672), (7248, 704), 270336, 498432),
+                      ((4096, 1056), (5216, 1056), 270336, 726528),
+                      ((4096, 960), (4096, 960), 270336, 574464)),
+    "B5 1x9 dim 16": (((4096, 96), (4096, 192), 270336, 304128),
+                      ((4096, 96), (4096, 96), 270336, 278784),
+                      ((4096, 96), (4784, 160), 270336, 295680),
+                      ((4096, 160), (6368, 160), 270336, 321024),
+                      ((4096, 192), (4096, 192), 270336, 304128)),
+    "B640 32x32 dim 16": (((6208, 96), (6208, 192), 270336, 304128),
+                          ((5184, 96), (5184, 96), 270336, 278784),
+                          ((7280, 96), (9136, 160), 270336, 295680),
+                          ((12704, 160), (12704, 160), 270336, 321024),
+                          ((4160, 192), (6336, 192), 270336, 304128)),
+}
+TC_LAYER_PLANS["stage 1 B256"] = TC_LAYER_PLANS["stage 1"]
+TC_LAYER_PLANS["B5 9x1 dim 16"] = TC_LAYER_PLANS["B1 3x3 dim 16"] = (
+    ((4096, 96), (4096, 192), 270336, 304128),
+    ((4096, 96), (4096, 96), 270336, 278784),
+    ((4096, 96), (4784, 160), 270336, 295680),
+    ((4096, 160), (6176, 160), 270336, 321024),
+    ((4096, 192), (4096, 192), 270336, 304128))
+TC_LAYER_PLANS["B1280 32x32 dim 16"] = (
+    TC_LAYER_PLANS["B640 32x32 dim 16"][:4]
+    + (((4160, 192), (6336, 192), 10756096, 304128),))
+
 
 def _meta(label):
-    return fs.make_meta(*SHAPES[label])
+    return fs.make_meta(*LAYER_SHAPES[label])
 
 
 @pytest.mark.parametrize("label", list(SHAPES))
@@ -189,31 +252,51 @@ def test_tc_store_edges():
 
 @pytest.mark.parametrize("label", list(FFMA_PLANS))
 def test_ffma_layouts_unchanged(label):
-    """The fp32 chain and every one-layer launch (both dtypes) keep the
-    FFMA tiles' shared-memory regions and tile columns: only the bf16
-    chain takes the tensor-core layout."""
+    """The fp32 chain and every fp32 one-layer launch keep the FFMA tiles'
+    shared-memory regions: only the bf16 instances take the tensor-core
+    layout."""
     meta = _meta(label)
     chain, layers = FFMA_PLANS[label]
     assert (fs.stage_layout(meta, CHAIN, 4),
             fs.stage_layout(meta, CHAIN, 4, True)) == tuple(
                 c + (False,) for c in chain)
     for li in range(5):
-        for esize in (2, 4):
-            got = (fs.stage_layout(meta, [li], esize),
-                   fs.stage_layout(meta, [li], esize, True))
-            assert got == tuple(c + (False,) for c in layers[li]), (li, esize)
-        assert fs.fwd_tile_columns(meta, li) == fs.fwd_tile_columns(
-            meta, li, fs.tensor_cores([li], 2))
-    assert not fs.tensor_cores(CHAIN, 4) and fs.tensor_cores(CHAIN, 2)
+        got = (fs.stage_layout(meta, [li], 4),
+               fs.stage_layout(meta, [li], 4, True))
+        assert got == tuple(c + (False,) for c in layers[li]), li
+    assert not fs.tensor_cores(4) and fs.tensor_cores(2)
 
 
-@pytest.mark.parametrize("label", ["stage 1", "stage 2", "stage 3",
-                                   "dim 48 B4 8x8", "ragged B3 5x7 dim 16"])
+@pytest.mark.parametrize("label", list(TC_LAYER_PLANS))
+def test_tc_layer_plans_pinned(label):
+    """K8's and K9's bf16 instances, each layer alone, on the tensor
+    cores: the layer's geometry (K and Cout padding, the staged halo) and
+    tile columns are the chain's (a layer's tile does not depend on the
+    launch), the staged tile's and weights' floats of the forward and the
+    backward, and K8's and K9's scratch at 264 blocks."""
+    meta = _meta(label)
+    chain = TC_PLANS["stage 1" if label == "stage 1 B256" else label][0]
+    for li in range(5):
+        g = fs.tc_geometry(meta, li, 0)
+        assert (g["kf"], g["kb"], g["cf"], g["cb"], g["hr"]) == \
+            LAYER_PADS[label][li], li
+        assert (fs.fwd_tile_columns(meta, li, True),
+                fs.bwd_tile_columns(meta, li, True)) == chain[li], li
+        fwd, bwd, k8, k9 = TC_LAYER_PLANS[label][li]
+        assert fs.stage_layout(meta, [li], 2) == fwd + (True,), li
+        assert fs.stage_layout(meta, [li], 2, True) == bwd + (True,), li
+        assert (fs.fwd_scratch_floats(meta, [li], 264, 2),
+                fs.bwd_scratch_floats(meta, [li], 264, 2)) == (k8, k9), li
+
+
+@pytest.mark.parametrize("label", list(LAYER_SHAPES))
 def test_tc_strides_fit_ldmatrix(label):
     """Every staged row starts 16-byte aligned (ldmatrix and cp.async's
     16-byte rows) and the operand strides are 16 bytes times an odd
     number (ldmatrix's eight rows on distinct banks); tiles are whole
-    32-column blocks (the jobs' 16 columns, the z tile's swizzle)."""
+    32-column blocks (the jobs' 16 columns, the z tile's swizzle). The
+    chain's layers and the one-layer launches (K8, K9) share each layer's
+    geometry, so this covers both."""
     meta = _meta(label)
     for li in range(5):
         for tc_cols in (fs.fwd_tile_columns(meta, li, True),
@@ -237,23 +320,25 @@ def _chunked(a, b):
     return acc
 
 
-def _k7_grid(meta):
-    """K7's grid where the card holds more co-resident blocks than the
-    chain has tiles (every shape of the sum-order test): the most tiles of
-    any layer's forward or backward pass (fused_sqnxt.cu's bwd_grid)."""
+def _grid(meta, lis):
+    """K7's (``lis`` the chain) or K9's (one layer) grid where the card
+    holds more co-resident blocks than the launch has tiles (every shape of
+    the sum-order tests): the most tiles of any of its layers' forward or
+    backward pass (fused_sqnxt.cu's bwd_grid)."""
     N = meta.n_real
-    return max(-(-N // cols(meta, li, True)) for li in range(5)
+    return max(-(-N // cols(meta, li, True)) for li in lis
                for cols in (fs.fwd_tile_columns, fs.bwd_tile_columns))
 
 
-def _dw_k7_order(gz, hk, meta, li):
-    """dW = gz hk^T in K7's order: each backward tile of the layer summed
-    over its columns in chunks of 16 (``_chunked``), the tiles of a block
-    (tile t to block t mod grid) added into its slot in order, then the
-    slots summed over blocks b < min(grid, tiles) as one warp does it (lane
-    k adds blocks k, k + 32, ... from 0, then the xor shuffle tree)."""
+def _dw_order(gz, hk, meta, li, grid):
+    """dW = gz hk^T in the backward kernels' order at ``grid`` blocks: each
+    backward tile of the layer summed over its columns in chunks of 16
+    (``_chunked``), the tiles of a block (tile t to block t mod grid) added
+    into its slot in order, then the slots summed over blocks b <
+    min(grid, tiles) as one warp does it (lane k adds blocks k, k + 32, ...
+    from 0, then the xor shuffle tree)."""
     N, tn = meta.n_real, fs.bwd_tile_columns(meta, li, True)
-    ntiles, grid = -(-N // tn), _k7_grid(meta)
+    ntiles = -(-N // tn)
     slots = [None] * min(grid, ntiles)
     for t in range(ntiles):
         part = _chunked(gz[:, t * tn:(t + 1) * tn],
@@ -283,49 +368,64 @@ def _taps(h, meta, li, masks, sign=1):
     return torch.cat(rows)
 
 
-def tc_chain(x, g, flat, meta):
+def _conv(h, w, meta, li, masks):
+    """The layer's conv in the tensor cores' order (fp32)."""
+    cout = w.shape[1]
+    wf = w.permute(1, 0, 2).reshape(cout, -1).to(torch.float32)
+    return _chunked(wf, _taps(h.to(torch.float32), meta, li, masks))
+
+
+def tc_layer_fwd(h, lf, meta, li, masks):
+    """Layer li's plain bf16 forward (``_layer_fwd``'s rounding points)
+    with its conv in the tensor cores' order: the layer's output."""
+    z = _conv(h, lf[0], meta, li, masks).to(torch.bfloat16) + lf[1].to(
+        torch.bfloat16)[:, None]
+    return fs.norm_relu(z, lf, meta, li)[0]
+
+
+def tc_layer_bwd(h, g, lf, meta, li, masks, grid):
+    """Layer li's plain bf16 backward (``_layer_bwd``'s rounding points)
+    with every product in the tensor cores' order, dW in the order of a
+    backward launch of ``grid`` blocks: (dh, (dW, db, dgam, dbet))."""
+    f32, bf = torch.float32, torch.bfloat16
+    w, b, gam, bet = lf
+    z = _conv(h, w, meta, li, masks).to(bf) + b.to(bf)[:, None]
+    _, zf, m, sr = fs.norm_relu(z, lf, meta, li)
+    gam, bet = gam.to(f32)[:, None], bet.to(f32)[:, None]
+    zh = (zf - m) / sr
+    g_a = torch.where((zh * gam + bet).to(bf).to(f32) > 0, g,
+                      torch.zeros_like(g)).to(f32)
+    d_gam, d_bet = (g_a * zh).sum(1), g_a.sum(1)
+    g_zh = g_a * gam
+    inv_n = 1.0 / meta.n_real
+    c1 = g_zh.sum(1, keepdim=True) * inv_n
+    c2 = (g_zh * zh).sum(1, keepdim=True) * inv_n
+    g_z = ((g_zh - c1 - zh * c2) / sr).to(bf).to(f32)
+    taps, cout, cin = w.shape
+    hk = _taps(h.to(f32), meta, li, masks)
+    dw = _dw_order(g_z, hk, meta, li, grid).to(bf).to(f32)
+    wb = w.permute(2, 0, 1).reshape(cin, -1).to(f32)
+    dh = _chunked(wb, _taps(g_z, meta, li, masks, -1)).to(bf)
+    return dh, (dw.reshape(cout, taps, cin).permute(1, 0, 2), g_z.sum(1),
+                d_gam, d_bet)
+
+
+def tc_chain(x, g, flat, meta, layered=False):
     """The plain bf16 chain forward and backward (fused_sqnxt_plain and
     fused_sqnxt_bwd_plain, whose rounding points they keep) with every
-    product in the tensor cores' order: (out, dx, dflat)."""
+    product in the tensor cores' order, dW summed as K7 sums it or, for
+    ``layered`` (K8 and K9, one launch a layer), as each layer's K9 launch
+    does at its own grid: (every layer's output, dx, dflat)."""
     masks = fs._tap_masks(meta, "cpu")
-    f32, bf = torch.float32, torch.bfloat16
-
-    def conv(h, w, li):
-        cout = w.shape[1]
-        wf = w.permute(1, 0, 2).reshape(cout, -1).to(f32)
-        return _chunked(wf, _taps(h.to(f32), meta, li, masks))
-
-    hs, h = [], x
+    hs = [x]
     for li in range(5):
-        hs.append(h)
-        lf = fs._layer(flat, li)
-        z = conv(h, lf[0], li).to(bf) + lf[1].to(bf)[:, None]
-        h = fs.norm_relu(z, lf, meta, li)[0]
-    out, dflat = h, [None] * len(flat)
+        hs.append(tc_layer_fwd(hs[-1], fs._layer(flat, li), meta, li, masks))
+    dflat = [None] * len(flat)
     for li in range(4, -1, -1):
-        lf = fs._layer(flat, li)
-        w, b, gam, bet = lf
-        z = conv(hs[li], w, li).to(bf) + b.to(bf)[:, None]
-        _, zf, m, sr = fs.norm_relu(z, lf, meta, li)
-        gam, bet = gam.to(f32)[:, None], bet.to(f32)[:, None]
-        zh = (zf - m) / sr
-        g_a = torch.where((zh * gam + bet).to(bf).to(f32) > 0, g,
-                          torch.zeros_like(g)).to(f32)
-        d_gam, d_bet = (g_a * zh).sum(1), g_a.sum(1)
-        g_zh = g_a * gam
-        inv_n = 1.0 / meta.n_real
-        c1 = g_zh.sum(1, keepdim=True) * inv_n
-        c2 = (g_zh * zh).sum(1, keepdim=True) * inv_n
-        g_z = ((g_zh - c1 - zh * c2) / sr).to(bf).to(f32)
-        taps, cout, cin = w.shape
-        hk = _taps(hs[li].to(f32), meta, li, masks)
-        dw = _dw_k7_order(g_z, hk, meta, li).to(bf).to(f32)
-        dflat[4 * li: 4 * li + 4] = (
-            dw.reshape(cout, taps, cin).permute(1, 0, 2),
-            g_z.sum(1), d_gam, d_bet)
-        wb = w.permute(2, 0, 1).reshape(cin, -1).to(f32)
-        g = _chunked(wb, _taps(g_z, meta, li, masks, -1)).to(bf)
-    return out, g, dflat
+        grid = _grid(meta, [li] if layered else CHAIN)
+        g, dflat[4 * li: 4 * li + 4] = tc_layer_bwd(
+            hs[li], g, fs._layer(flat, li), meta, li, masks, grid)
+    return hs[1:], g, dflat
 
 
 def _rel(a, b):
@@ -333,35 +433,51 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-@pytest.mark.parametrize("dim, seed", [(32, 0), (48, 1), (64, 2)])
-def test_tc_sum_order_within_the_gate_of_jax(dim, seed):
-    """The tensor cores' sum order on the plain bf16 chain against JAX's
-    _fwd_kernel and _bwd_kernel (interpret mode) on the same bf16 inputs:
-    the output, dx and every parameter gradient but the conv biases within
-    BF16_TOL of max |ref|; the conv biases (true gradient 0, rounding
-    noise) within BF16_TOL of the layer's max |d_beta|."""
+def _against_jax(dim, seed, layered):
+    """``tc_chain`` (``layered``: K8's and K9's order) against the JAX
+    package's kernels in interpret mode on the same bf16 inputs at B 2,
+    8x8: the chain (_fwd_kernel, _bwd_kernel) or, for ``layered``, the
+    layer kernels through _core_layered (_fwd_layer_kernel,
+    _bwd_layer_kernel), output and dx by jax.vjp. The output (layered:
+    each layer's, _fwd_layer_kernel on JAX's own layer input), dx and every
+    layer's parameter gradients but the conv biases within BF16_TOL of max
+    |ref|; the conv biases (true gradient 0, rounding noise) within
+    BF16_TOL of the layer's max |d_beta|."""
     B, H, W = 2, 8, 8
+    bf = jnp.bfloat16
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(B, H, W, dim)).astype(np.float32)
     g = rng.normal(size=(B, H, W, dim)).astype(np.float32)
-    mod = JODEDynamics(dim, dtype=jnp.bfloat16)
+    mod = JODEDynamics(dim, dtype=bf)
     params = mod.init(jax.random.PRNGKey(seed), 0.0, jnp.asarray(x))
-    jmeta = jfs.make_meta(dim, B, H, W, jnp.bfloat16, interpret=True)
+    jmeta = jfs.make_meta(dim, B, H, W, bf, interpret=True, layered=layered)
 
     def jfn(xx, p):
-        return jfs.from_cn(jfs.fused_sqnxt_dyn(jfs.to_cn(xx, jmeta), p,
-                                               jmeta), B, H, W)
+        xc = jfs.to_cn(xx, jmeta)
+        if layered:
+            y = jfs._core_layered(xc, jfs.pack_params(p, jmeta, bf), jmeta)
+        else:
+            y = jfs.fused_sqnxt_dyn(xc, p, jmeta)
+        return jfs.from_cn(y, B, H, W)
 
-    out, vjp = jax.vjp(jfn, jnp.asarray(x, jnp.bfloat16), params)
-    gx, gp = vjp(jnp.asarray(g, jnp.bfloat16))
+    out, vjp = jax.vjp(jfn, jnp.asarray(x, bf), params)
+    gx, gp = vjp(jnp.asarray(g, bf))
     meta = fs.make_meta(dim, B, H, W)
     sd = sqnxt_piece_from_flax(jax.tree_util.tree_map(np.asarray, params))
     flat = fs.pack_params(sd, meta, torch.bfloat16)
     xc = fs.to_cn(torch.tensor(x).bfloat16(), meta)
     gc = fs.to_cn(torch.tensor(g).bfloat16(), meta)
-    tout, tdx, dflat = tc_chain(xc, gc, flat, meta)
-    assert _rel(fs.from_cn(tout, B, H, W).float(),
+    touts, tdx, dflat = tc_chain(xc, gc, flat, meta, layered)
+    assert _rel(fs.from_cn(touts[-1], B, H, W).float(),
                 np.asarray(out, np.float32)) <= BF16_TOL
+    if layered:
+        jflat = jfs.pack_params(params, jmeta, bf)
+        h = jfs.to_cn(jnp.asarray(x, bf), jmeta)
+        for li in range(5):
+            base, n_p = jfs._layer_flat_slice(jmeta, li)
+            h = jfs._call_layer_fwd(h, jflat[base: base + n_p], jmeta, li)
+            assert _rel(touts[li].float(), np.asarray(h, np.float32)) \
+                <= BF16_TOL, li
     assert _rel(fs.from_cn(tdx, B, H, W).float(),
                 np.asarray(gx, np.float32)) <= BF16_TOL
     ref = sqnxt_piece_from_flax(jax.tree_util.tree_map(
@@ -376,6 +492,23 @@ def test_tc_sum_order_within_the_gate_of_jax(dim, seed):
         scale = float(ref[f"norms.{li}.bias"].abs().max())
         assert float((db - ref[f"convs.{li}.bias"]).abs().max()) \
             <= BF16_TOL * scale, li
+
+
+@pytest.mark.parametrize("dim, seed", [(32, 0), (48, 1), (64, 2)])
+def test_tc_sum_order_within_the_gate_of_jax(dim, seed):
+    """The tensor cores' sum order on the plain bf16 chain (K6's and K7's
+    order) against JAX's _fwd_kernel and _bwd_kernel (``_against_jax``)."""
+    _against_jax(dim, seed, layered=False)
+
+
+@pytest.mark.parametrize("dim, seed", [(16, 0), (16, 1), (32, 0), (32, 1)])
+def test_tc_layer_sum_order_within_the_gate_of_jax(dim, seed):
+    """The tensor cores' sum order one layer a launch (K8's and K9's, each
+    K9 at its own grid) against JAX's _fwd_layer_kernel and
+    _bwd_layer_kernel through _core_layered, for each of the five layers:
+    the (1,3) and (3,1) layers are then layer 0 of their own launch
+    (``_against_jax``)."""
+    _against_jax(dim, seed, layered=True)
 
 
 # -- K7's grid hook (comparisons of grids on the card) ------------------------
